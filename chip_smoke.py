@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port (``markovmodels_tpu_torch``).
 
-Drives the port's main path, ``pdfposteriors`` on the 2M-arc trigram-LM ∘
-HMM denominator (49,153 states, 2,195,457 arcs, 384 pdfs) at B=128
-sequences × N=700 frames, through the hand-written CUDA kernels K2-K4 of
-``markovmodels_tpu_torch/ops/csrc/block_scan.cu``, in phases:
+Drives the port's main path, the LF-MMI training step, at B=128 sequences ×
+N=700 frames: ``lfmmi_loss`` of 128 stacked 'banded' numerator lattices
+(78 states each, the shape ``bench.py`` builds) against the 2M-arc
+trigram-LM ∘ HMM denominator (49,153 states, 2,195,457 arcs, 384 pdfs),
+with the gradient in the log-likelihoods, through the hand-written CUDA
+kernels K2-K4 of ``markovmodels_tpu_torch/ops/csrc/block_scan.cu`` (the
+denominator) and K5a/K5b of ``.../csrc/banded_scan.cu`` (the numerators),
+in phases:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels from the sources in the checkout (nvcc, sm_90a);
@@ -15,8 +19,14 @@ sequences × N=700 frames, through the hand-written CUDA kernels K2-K4 of
    mixed lengths, ±30-nat emission cliffs);
 5. ``pdfposteriors`` at B=2, N=40 against the exact float64 host oracle
    (``bench.host_oracle``): |ΔlogZ| and |Δposts| ≤ 1e-4;
-6. the main path at B=128, N=700 with launch counters, output checks, and
-   the kernel path timed beside the plain PyTorch scan on the card.
+6. the denominator ``pdfposteriors`` at B=128, N=700 with launch counters,
+   output checks, and the kernel path timed beside the plain PyTorch scan;
+7. K5a and K5b against their plain twins at the numerators' main shape
+   (G=128 lattices, Sp=80, N=700; ragged lengths with infeasible ones and
+   a length of 1, ±30-nat emission cliffs);
+8. stacked-numerator ``pdfposteriors`` at N=40 against the f64 oracle;
+9. the training step at B=128, N=700 with launch counters (K2-K5b), the
+   gradient against γ_den - γ_num, and its time beside the denominator's.
 
 Needs one CUDA card; exits non-zero before printing any result when there
 is none or when any phase fails.  Run from the root of the checkout:
@@ -41,6 +51,13 @@ FRAME_SHIFT_S = 0.03
 TOL_KERNEL = 1e-4
 TOL_ORACLE = 1e-4  # the repo's f64-oracle gate (bench.py, BASELINE.md)
 TOL_POST_SUM = 1e-4  # per-frame posterior mass of a feasible sequence
+# K5 vs plain twin (phase 7): float32 sums in another order (fused
+# multiply-adds, the warp-shuffle omega dot and gamma sum, shared-memory
+# atomics for repeated pdfs), compounded over 701 frames; states compared
+# after normalising each column to max 1
+TOL_K5 = 1e-4
+TOL_GRAD = 1e-5  # lhs.grad vs posts_den - posts_num from separate calls
+TOL_GRAD_SUM = 1e-4  # the gradient's sum over pdfs on an active frame
 
 
 def card_line():
@@ -274,6 +291,198 @@ def time_kernels(cf, P, dev, B=128, N=700, chunk=64):
     return out
 
 
+def build_numerators(P, G=128, Lp=78, seed=3):
+    """``bench.py``'s numerators: G linear lattices over random Lp-pdf
+    sequences, self-loop and chain arcs at 0.5, final weight 0.5.
+    Returns [(fsm, spdf)]."""
+    import markovmodels_tpu_torch as mt
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(G):
+        seq = rng.integers(0, P, size=Lp)
+        arcs = [((i, i), np.log(0.5)) for i in range(Lp)] + [
+            ((i, i + 1), np.log(0.5)) for i in range(Lp - 1)]
+        fsm = mt.fsm.FSM.from_pairs(
+            [(0, 0.0)], arcs, [(Lp - 1, np.log(0.5))],
+            [mt.labels.Label(int(s)) for s in seq], mt.semiring.LOG)
+        out.append((fsm, np.append(seq, P).astype(np.int32)))
+    return out
+
+
+def stack_numerators(graphs, P, dev):
+    import markovmodels_tpu_torch as mt
+
+    return mt.stack([mt.compile_fsm(f, sp, P, strategy="banded")
+                     for f, sp in graphs]).to(dev)
+
+
+def banded_inputs(num_cf, P, dev, N=700, seed=11):
+    """Phase 7's input: ragged lengths with a length of 1 and a length of 60
+    (both shorter than the 78-state lattice: infeasible) and one of exactly
+    78 (a single path), ±30-nat cliffs."""
+    import torch
+
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    G = num_cf.alpha_hat.shape[0]
+    rng = np.random.default_rng(seed)
+    lhs = torch.from_numpy(make_inputs(rng, G, N, P, cliffs=True)).to(dev)
+    lens = rng.integers(N // 2, N + 1, size=G).astype(np.int32)
+    lens[:4] = [N, 1, 60, 78]
+    ext, msh = prepare_emissions(lhs, torch.from_numpy(lens).to(dev), P)
+    return ext, msh
+
+
+def phase_banded_kernels(num_cf, P, dev):
+    """Phase 7: K5a and K5b against their plain twins on one input."""
+    import torch
+
+    from markovmodels_tpu_torch import inference as tinf
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+
+    kop = bsc.kernel_operator(num_cf)
+    ext, msh = banded_inputs(num_cf, P, dev)
+
+    def logz(vfin, shift, ksum):
+        return tinf._combine_shift(tinf._log_final(vfin), ksum,
+                                   shift).cpu().numpy()
+
+    def norm(a):  # each (frame, graph) column over its max
+        m = a.amax(dim=1, keepdim=True)
+        return a / torch.where(m > 0, m, torch.ones_like(m))
+
+    ak, *fk = bsc.fwd_sweep(kop, ext, msh)
+    torch.cuda.synchronize()
+    ap, *fp = bsc.fwd_sweep_plain(kop, ext, msh)
+    zk, zp = logz(*fk), logz(*fp)
+    fin = np.isfinite(zp)
+    assert (np.isfinite(zk) == fin).all(), "K5a: -inf pattern differs"
+    assert fin[0] and fin[3] and not fin[1] and not fin[2], (
+        "K5a: unexpected -inf pattern")
+    errs = {"K5a": max(float(np.abs(zk[fin] - zp[fin]).max()),
+                       float((norm(ak) - norm(ap)).abs().max()))}
+    pk = bsc.backward(kop, ext, ak)
+    torch.cuda.synchronize()
+    pp = bsc.backward_plain(kop, ext, ak)
+    assert torch.isfinite(pk).all(), "K5b: non-finite posteriors"
+    assert (pk[:, :, 1:3] == 0).all(), "K5b: infeasible graphs not zero"
+    errs["K5b"] = float((pk - pp).abs().max())
+    for name, e in errs.items():
+        print(f"phase 7: {name} kernel vs plain max |err| = {e:.3e} "
+              f"(tol {TOL_K5:g})")
+        assert np.isfinite(e) and e <= TOL_K5, f"{name} disagrees: {e}"
+    return errs
+
+
+def phase_banded_oracle(P, dev, n=40):
+    """Phase 8: stacked-numerator pdfposteriors (4 lattices of 10-38
+    states, through K5a/K5b) against the exact f64 host oracle."""
+    import torch
+
+    import bench
+    import markovmodels_tpu_torch as mt
+
+    graphs = []
+    rng = np.random.default_rng(5)
+    for Lp in (10, 20, 30, 38):
+        graphs += build_numerators(P, G=1, Lp=Lp, seed=int(rng.integers(99)))
+    num_cf = stack_numerators(graphs, P, dev)
+    lhs = rng.normal(size=(4, n, P)).astype(np.float32)
+    lens = np.array([n, 35, n, 39], dtype=np.int32)
+    posts, z = mt.pdfposteriors(num_cf, torch.from_numpy(lhs).to(dev),
+                                torch.from_numpy(lens).to(dev))
+    z, posts = z.cpu().numpy(), posts.cpu().numpy()
+    err = perr = 0.0
+    for g, (fsm, spdf) in enumerate(graphs):
+        rz, rp = bench.host_oracle(fsm, spdf, P,
+                                   lhs[g:g + 1].astype(np.float64),
+                                   lens[g:g + 1])
+        err = max(err, float(np.abs(z[g] - rz[0])))
+        perr = max(perr, float(np.abs(posts[g] - rp[0]).max()))
+    print(f"phase 8: numerators G=4 N={n} vs f64 oracle |dlogZ| = "
+          f"{err:.3e}, |dposts| = {perr:.3e} (tol {TOL_ORACLE:g})")
+    assert err <= TOL_ORACLE and perr <= TOL_ORACLE, "oracle gate failed"
+
+
+def phase_step(num_cf, cf, P, dev, B=128, N=700):
+    """Phase 9: the LF-MMI training step through K2-K5b, checked and timed
+    beside the denominator-only pdfposteriors."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops import block_scan as bs
+
+    rng = np.random.default_rng(0)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+
+    def step():
+        x = lhs.clone().requires_grad_()
+        loss = mt.lfmmi_loss(num_cf, cf, x, lengths)
+        loss.sum().backward()
+        return loss.detach(), x.grad
+
+    torch.cuda.synchronize()
+    bs.reset_launch_counts()
+    bsc.reset_launch_counts()
+    loss, grad = step()
+    torch.cuda.synchronize()
+    launches = {**bs.LAUNCHES, **bsc.LAUNCHES}
+    print(f"phase 9: launches {json.dumps(launches)}")
+    assert all(v > 0 for v in launches.values()), "a kernel never launched"
+
+    assert torch.isfinite(loss).all(), "non-finite LF-MMI loss"
+    pn, zn = mt.pdfposteriors(num_cf, lhs, lengths)
+    pd, zd = mt.pdfposteriors(cf, lhs, lengths)
+    assert torch.isfinite(zn).all(), "infeasible numerator"
+    lerr = float((loss - (zd - zn)).abs().max())
+    gerr = float((grad - (pd - pn)).abs().max())
+    gsum = float(grad.sum(dim=2).abs().max())
+    print(f"phase 9: loss sum {float(loss.sum()):.4f}; |loss - (logZ_den - "
+          f"logZ_num)| = {lerr:.3e}; |grad - (posts_den - posts_num)| = "
+          f"{gerr:.3e} (tol {TOL_GRAD:g}); max |sum_p grad| = {gsum:.3e} "
+          f"(tol {TOL_GRAD_SUM:g})")
+    assert lerr <= TOL_ORACLE, "loss differs from the separate logZ"
+    assert gerr <= TOL_GRAD, "gradient is not posts_den - posts_num"
+    assert gsum <= TOL_GRAD_SUM, "gradient does not sum to 0 over pdfs"
+
+    t_step = cuda_ms(step, reps=2)
+    t_den = cuda_ms(lambda: mt.pdfposteriors(cf, lhs, lengths), reps=2)
+    audio = B * N * FRAME_SHIFT_S
+    print(f"phase 9: LF-MMI step B={B} N={N} (num + den + grad): "
+          f"{t_step / 1e3:.4f} s = {audio / (t_step / 1e3):.1f} audio-s/s; "
+          f"den-only pdfposteriors {t_den / 1e3:.4f} s = "
+          f"{audio / (t_den / 1e3):.1f} audio-s/s; ratio "
+          f"{t_step / t_den:.3f}")
+    return launches, t_step, t_den
+
+
+def time_banded(num_cf, P, dev):
+    """K5a and K5b and their plain twins over the whole 701-frame sweep at
+    the numerators' main shape."""
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+
+    kop = bsc.kernel_operator(num_cf)
+    ext, msh = banded_inputs(num_cf, P, dev)
+    alphas = bsc.fwd_sweep(kop, ext, msh)[0]
+    calls = {
+        "K5a": (lambda: bsc.fwd_sweep(kop, ext, msh),
+                lambda: bsc.fwd_sweep_plain(kop, ext, msh)),
+        "K5b": (lambda: bsc.backward(kop, ext, alphas),
+                lambda: bsc.backward_plain(kop, ext, alphas)),
+    }
+    out = {}
+    for name, (kern, plain) in calls.items():
+        p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern, reps=5),
+                          cuda_ms(kern, reps=5), cuda_ms(plain))
+        out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"timing: {name} kernel {k1:.3f}/{k2:.3f} ms, plain "
+              f"{p1:.3f}/{p2:.3f} ms")
+    return out
+
+
 def main():
     import torch
 
@@ -307,26 +516,46 @@ def main():
           f"{time.perf_counter() - t0:.1f} s; Sp = {cf.padded_states}; "
           f"path: {mt.fast_path_report(cf, 128)}")
 
+    t0 = time.perf_counter()
+    num_cf = stack_numerators(build_numerators(P), P, dev)
+    print(f"phase 3: 128 numerators compiled and stacked in "
+          f"{time.perf_counter() - t0:.1f} s; Sp = {num_cf.padded_states}, "
+          f"offsets {num_cf.banded_offsets}; path: "
+          f"{mt.fast_path_report(num_cf, 128)}")
+
     errs = phase_kernels(cf, P, dev)
     phase_oracle(fsm, spdf, cf, P, dev)
-    launches, t_kern, t_plain = phase_main(cf, P, dev)
+    _, t_kern, t_plain = phase_main(cf, P, dev)
+    errs.update(phase_banded_kernels(num_cf, P, dev))
+    phase_banded_oracle(P, dev)
+    launches, t_step, t_den = phase_step(num_cf, cf, P, dev)
     times = time_kernels(cf, P, dev)
+    times.update(time_banded(num_cf, P, dev))
 
-    sources = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
-    replaces = {"K2": "markovmodels_tpu/ops/pallas_block.py:862",
-                "K3": "markovmodels_tpu/ops/pallas_block.py:907",
-                "K4": "markovmodels_tpu/ops/pallas_block.py:945"}
-    counters = {"K2": "block_fwd", "K3": "block_recompute",
-                "K4": "block_bwd"}
+    block_src = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
+    banded_src = "markovmodels_tpu_torch/ops/csrc/banded_scan.cu"
+    table = {  # name: (counter, source, the TPU kernel it replaces)
+        "K2": ("block_fwd", block_src,
+               "markovmodels_tpu/ops/pallas_block.py:862"),
+        "K3": ("block_recompute", block_src,
+               "markovmodels_tpu/ops/pallas_block.py:907"),
+        "K4": ("block_bwd", block_src,
+               "markovmodels_tpu/ops/pallas_block.py:945"),
+        "K5a": ("banded_fwd", banded_src,
+                "markovmodels_tpu/ops/pallas_banded.py:180"),
+        "K5b": ("banded_bwd", banded_src,
+                "markovmodels_tpu/ops/pallas_banded.py:215"),
+    }
     kernels = [
-        {"name": f"{name} {counters[name]}", "route": "cuda",
-         "source": sources, "replaces": replaces[name],
-         "launches": launches[counters[name]], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name in ("K2", "K3", "K4")
+        {"name": f"{name} {counter}", "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches[counter],
+         "max_abs_err": errs[name], "ms": times[name][0],
+         "plain_ms": times[name][1]}
+        for name, (counter, source, replaces) in table.items()
     ]
     print(f"card: {card}; pdfposteriors B=128 N=700 kernel path "
-          f"{t_kern:.2f} ms, plain path {t_plain:.2f} ms")
+          f"{t_kern:.2f} ms, plain path {t_plain:.2f} ms; LF-MMI step "
+          f"{t_step:.2f} ms, den-only {t_den:.2f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

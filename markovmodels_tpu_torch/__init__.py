@@ -5,8 +5,13 @@ for NVIDIA Hopper.  The JAX-free host layer (FSMs, semirings, labels, FSM
 operations, n-gram LMs, host sparse algebra, the native host runtime and
 the benchmark workload graphs) is shared with the JAX package and
 re-exported here; this package adds the device side: ``compile_fsm`` to
-tensors and the batched denominator forward-backward (``pdfposteriors``,
-``forward``) over the blocked operator.
+tensors ('block' and 'banded'), ``stack`` / ``batch`` of 'banded'
+numerator graphs, the batched forward-backward (``pdfposteriors``,
+``forward``), and the LF-MMI training step: ``logmarginal`` and
+``lfmmi_loss``, differentiable in the log-likelihoods with the posterior
+gradient γ_den - γ_num.  On the GPU the step runs through hand-written
+CUDA kernels: the blocked denominator scan (K2-K4) and the stacked-banded
+numerator scan (K5a/K5b).
 
 This package imports ``torch`` and never ``jax``.
 """
@@ -25,11 +30,15 @@ from markovmodels_tpu import (  # noqa: F401  (host layer, re-exported)
 
 from .inference import (
     CompiledFSM,
+    batch,
     compile_fsm,
     compiled_from_numpy,
     fast_path_report,
     forward,
+    lfmmi_loss,
+    logmarginal,
     pdfposteriors,
+    stack,
 )
 
 __version__ = "0.1.0"
@@ -37,6 +46,7 @@ __version__ = "0.1.0"
 __all__ = [
     "algorithms", "fsm", "fsmops", "hostsparse", "labels", "lmfsm",
     "native", "semiring", "workloads",
-    "CompiledFSM", "compile_fsm", "compiled_from_numpy",
-    "pdfposteriors", "forward", "fast_path_report",
+    "CompiledFSM", "compile_fsm", "compiled_from_numpy", "stack", "batch",
+    "pdfposteriors", "forward", "logmarginal", "lfmmi_loss",
+    "fast_path_report",
 ]

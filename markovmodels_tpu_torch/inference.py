@@ -1,16 +1,24 @@
-"""Compiled FSMs and the batched LF-MMI denominator forward-backward.
+"""Compiled FSMs, the batched forward-backward and the LF-MMI loss.
 
 PyTorch counterpart of ``markovmodels_tpu/inference.py`` for the 'block'
-strategy in the probability domain:
+and 'banded' strategies in the probability domain:
 
 * ``compile_fsm`` lowers a host ``FSM`` to a :class:`CompiledFSM` of
-  tensors (pdf-grouped relabeling, COO edge arrays, blocked operator, rank-1
-  ω split), bit-identical to the JAX package's arrays;
-* ``pdfposteriors`` / ``forward`` run the chunk-checkpointed
-  probability-domain scan.  CPU tensors take the plain PyTorch scan; CUDA
-  tensors take the hand-written kernels of ``ops/block_scan.py`` and raise,
-  naming the first rejected predicate, for a graph those kernels do not
-  accept.  Nothing falls back quietly.
+  tensors ('block': pdf-grouped relabeling, COO edge arrays, blocked
+  operator, rank-1 ω split; 'banded': per-offset arc bands and the ω
+  split), bit-identical to the JAX package's arrays; ``stack`` (alias
+  ``batch``) stacks 'banded' graphs, e.g. the per-utterance numerator
+  lattices;
+* ``pdfposteriors`` / ``forward`` run the probability-domain scan.  CPU
+  tensors take the plain PyTorch scan; CUDA tensors take the hand-written
+  kernels (``ops/block_scan.py`` for one shared 'block' graph,
+  ``ops/banded_scan.py`` for stacked 'banded' graphs, one sequence each)
+  and raise, naming the first rejected predicate, for a graph those kernels
+  do not accept.  Nothing falls back quietly;
+* ``logmarginal`` and ``lfmmi_loss`` are differentiable in ``lhs``: the
+  gradient of logZ is the posterior matrix the scan already computed, so
+  autograd never differentiates the scan.  This is the LF-MMI training
+  step: ``lfmmi_loss(num, den, lhs, lengths).sum().backward()``.
 
 Layouts at the public functions are the JAX package's: ``lhs`` (B, N, P),
 ``lengths`` (B,), results (posteriors (B, N, P), logZ (B,)).
@@ -26,7 +34,7 @@ import torch
 from markovmodels_tpu import hostsparse as hs
 from markovmodels_tpu.fsm import FSM
 
-from .ops import block_scan
+from .ops import banded_scan, block_scan
 from .ops.block_scan import _pow2_exponent, _pow2_scale
 from .ops.blocked import BlockOperator, block_matvec, build_block_operator
 from .ops.emissions import prepare_emissions
@@ -35,12 +43,19 @@ __all__ = [
     "CompiledFSM",
     "compile_fsm",
     "compiled_from_numpy",
+    "stack",
+    "batch",
     "pdfposteriors",
     "forward",
+    "logmarginal",
+    "lfmmi_loss",
     "fast_path_report",
 ]
 
 _BLOCK_TODO = "ROADMAP: port the remaining strategies and precision modes"
+_VMAP_TODO = ("ROADMAP queue 1 item 7: port the vmapped per-graph route for "
+              "batched graphs")
+_PORTED = ("block", "banded")
 
 
 def _round_up(x, m):
@@ -49,17 +64,20 @@ def _round_up(x, m):
 
 @dataclasses.dataclass
 class CompiledFSM:
-    """Device representation of one FSM for the 'block' strategy.
+    """Device representation of one FSM (or a stacked batch of 'banded'
+    FSMs) for the 'block' and 'banded' strategies.
 
-    ``Sp`` is the padded state count; real states come first.  Static
-    metadata (final state, counts, descriptors, layout) is plain Python, so
-    nothing on the hot path reads a device scalar back to the host.
+    Shapes below are for a single graph (``batched=False``); a stacked batch
+    adds a leading graph axis G to every tensor field.  ``Sp`` is the padded
+    state count; real states come first.  Static metadata (counts,
+    descriptors, layout, an unstacked graph's final state) is plain Python,
+    so nothing on the hot path reads a device scalar back to the host.
     """
 
     # (Sp,) log-domain initial weights of the extended graph [α; zero]
     alpha_hat: torch.Tensor
-    # index of the phony final state
-    final_state: int
+    # index of the phony final state: an int, or (G,) int32 when stacked
+    final_state: "int | torch.Tensor"
     # (Sp,) int32 pdf index per state; phony & padding -> num_pdfs
     state_pdf: torch.Tensor
     # COO edges of T̂ sorted by destination / by source (log weights)
@@ -71,14 +89,18 @@ class CompiledFSM:
     bwd_w: torch.Tensor
     # one-hot Ĉᵀ (P+1, Sp) when the layout is not pdf-grouped, else None
     pdf_onehot: Optional[torch.Tensor]
-    # blocked gather-matmul-scatter operators of the S×S core
-    block_fwd: BlockOperator
-    block_bwd: BlockOperator
+    # 'block': blocked gather-matmul-scatter operators of the S×S core
+    block_fwd: Optional[BlockOperator]
+    block_bwd: Optional[BlockOperator]
     # (Sp,) probabilities of the arcs into the phony final state (ω column)
     omega_prob: torch.Tensor
     # (Sp,) int32 original state id per (possibly reordered) slot; -1 pad
     orig_state: torch.Tensor
-    num_states: int = 0  # S+1 (incl. phony, excl. padding)
+    # 'banded': (nO, Sp) arc probabilities per offset of banded_offsets,
+    # indexed by destination (fwd) / by source (bwd)
+    banded_fwd: Optional[torch.Tensor] = None
+    banded_bwd: Optional[torch.Tensor] = None
+    num_states: int = 0  # S+1 (incl. phony, excl. padding); Sp when stacked
     num_pdfs: int = 0  # real pdfs P (phony pdf id = P)
     strategy: str = "block"
     batched: bool = False
@@ -90,6 +112,7 @@ class CompiledFSM:
     pdf_group: tuple = ()
     multi_pdf: bool = False
     ov_layout: tuple = ()
+    # arc offsets (dst - src) of the 'banded' strategy, sorted
     banded_offsets: tuple = ()
     # derived per-graph tensors (e.g. the kernels' operator), per device
     _cache: dict = dataclasses.field(default_factory=dict, repr=False,
@@ -128,16 +151,21 @@ def compile_fsm(
     reorder: str = "auto",
     ov_cap: int | None = None,
 ) -> CompiledFSM:
-    """Lower a host FSM to the 'block' device representation (on the CPU;
-    move it with ``.to(device)``).
+    """Lower a host FSM to the 'block' or 'banded' device representation
+    (on the CPU; move it with ``.to(device)``).
 
     ``state_pdf``: int array of length ``num_states + 1`` mapping each state
     (the phony final state included, mapped to ``num_pdfs``) to a pdf id,
     or a binary ``hostsparse`` Ĉ with one pdf per state.
 
-    ``reorder``: 'pdf' renumbers states into a uniform pdf-grouped layout
-    (pdf p owns slots [p*cmax, (p+1)*cmax)); 'auto' does so when the
-    padding inflation is acceptable; 'none' keeps the host order.
+    ``strategy``: 'block' (one large shared graph, e.g. the LF-MMI
+    denominator) or 'banded' (a low-bandwidth lattice whose arcs sit on at
+    most 8 distinct (dst - src) offsets, e.g. a numerator: self-loop and
+    chain bands; more offsets raise ``ValueError``).
+    ``reorder`` ('block' only, as in the JAX package): 'pdf' renumbers
+    states into a uniform pdf-grouped layout (pdf p owns slots
+    [p*cmax, (p+1)*cmax)); 'auto' does so when the padding inflation is
+    acceptable; 'none' keeps the host order.
     ``precision``: 'high' and 'f32' both mean full float32.
 
     Not ported yet (raise ``NotImplementedError``): other strategies,
@@ -147,7 +175,7 @@ def compile_fsm(
     S1 = len(fsm.alpha_hat)
     if strategy == "auto":
         strategy = "dense" if S1 <= 4096 else "block"
-    if strategy != "block":
+    if strategy not in _PORTED:
         raise NotImplementedError(f"strategy {strategy!r} ({_BLOCK_TODO})")
     if dtype != torch.float32:
         raise NotImplementedError(f"dtype {dtype} ({_BLOCK_TODO})")
@@ -174,7 +202,7 @@ def compile_fsm(
     # --- optional uniform pdf-grouped relabeling --------------------------
     pdf_group = ()
     orig = None
-    if reorder != "none":
+    if reorder != "none" and strategy == "block":
         P1 = num_pdfs + 1
         counts = np.bincount(state_pdf[: S1 - 1], minlength=P1)
         cmax = max(int(counts.max()), 1)
@@ -219,7 +247,7 @@ def compile_fsm(
         final_idx = S1 - 1
         S_eff = S1
 
-    Sp = _round_up(S_eff, 128)
+    Sp = _round_up(S_eff, 128 if strategy == "block" else 8)
     Ep = max(_round_up(E, 8), 8)
 
     alpha_hat = np.full(Sp, -np.inf, dtype=np.float64)
@@ -255,20 +283,44 @@ def compile_fsm(
 
     # rank-1 split: arcs into the phony final state (the ω column of the
     # extended matrix) are handled analytically, so the block operators
-    # stay scatter-free on the S×S core
+    # stay scatter-free on the S×S core and the bands cover the core only
     to_fin = cols == final_idx
     om = np.zeros(Sp, dtype=np.float64)
     np.add.at(om, rows[to_fin], np.exp(data[to_fin]))
-    if len(np.unique(rows[to_fin])) != int(to_fin.sum()):
-        raise ValueError(
-            "parallel arcs into the final state would break the "
-            "tropical reuse of omega_prob"
-        )
     crows, ccols, cdata = rows[~to_fin], cols[~to_fin], data[~to_fin]
-    block_fwd, fwd_meta = build_block_operator(crows, ccols, cdata, Sp)
-    block_bwd, bwd_meta = build_block_operator(ccols, crows, cdata, Sp)
-
     f32 = lambda x: torch.from_numpy(np.asarray(x, dtype=np.float32))
+    kw = dict(block_fwd=None, block_bwd=None, banded_fwd=None,
+              banded_bwd=None, block_fwd_offsets=(), block_bwd_offsets=(),
+              banded_offsets=())
+    if strategy == "block":
+        if len(np.unique(rows[to_fin])) != int(to_fin.sum()):
+            raise ValueError(
+                "parallel arcs into the final state would break the "
+                "tropical reuse of omega_prob"
+            )
+        kw["block_fwd"], kw["block_fwd_offsets"] = build_block_operator(
+            crows, ccols, cdata, Sp)
+        kw["block_bwd"], kw["block_bwd_offsets"] = build_block_operator(
+            ccols, crows, cdata, Sp)
+    else:
+        # every core arc on one of <= 8 shared offsets (the JAX package's
+        # banded branch has no parallel-arc check; neither has this one)
+        offs = np.unique(ccols - crows) if len(crows) else np.zeros(0, int)
+        if len(offs) > 8:
+            raise ValueError(
+                f"'banded' strategy: {len(offs)} distinct arc offsets "
+                "(> 8) — this graph is not a low-bandwidth lattice; use "
+                "'dense' or 'block'"
+            )
+        bf = np.zeros((max(len(offs), 1), Sp), dtype=np.float64)
+        bb = np.zeros_like(bf)
+        for oi, off in enumerate(offs):
+            sel = (ccols - crows) == off
+            bf[oi, ccols[sel]] = np.exp(cdata[sel])
+            bb[oi, crows[sel]] = np.exp(cdata[sel])
+        kw["banded_fwd"], kw["banded_bwd"] = f32(bf), f32(bb)
+        kw["banded_offsets"] = tuple(int(o) for o in offs)
+
     return CompiledFSM(
         alpha_hat=f32(alpha_hat),
         final_state=int(final_idx),
@@ -280,28 +332,29 @@ def compile_fsm(
         bwd_dst=torch.from_numpy(bwd_dst),
         bwd_w=f32(bwd_w),
         pdf_onehot=pdf_onehot,
-        block_fwd=block_fwd,
-        block_bwd=block_bwd,
         omega_prob=f32(om),
         orig_state=torch.from_numpy(orig),
         num_states=S1,
         num_pdfs=int(num_pdfs),
+        strategy=strategy,
         precision=precision,
-        block_fwd_offsets=fwd_meta,
-        block_bwd_offsets=bwd_meta,
         pdf_group=pdf_group,
+        **kw,
     )
 
 
 def compiled_from_numpy(fields: dict, meta: dict) -> CompiledFSM:
     """Build a CompiledFSM from another representation's arrays: ``fields``
     maps each data field name to numpy arrays (``block_fwd`` / ``block_bwd``
-    to any object with BlockOperator's attributes holding numpy arrays),
-    ``meta`` maps the metadata field names to their values.  Lets both
-    packages run the identical operator."""
+    to None or any object with BlockOperator's attributes holding numpy
+    arrays; ``final_state`` to a scalar, or a (G,) array for a stacked
+    graph), ``meta`` maps the metadata field names to their values.  Lets
+    both packages run the identical operator."""
     t = lambda x: None if x is None else torch.from_numpy(np.array(x))
 
     def op(o):
+        if o is None:
+            return None
         if getattr(o, "ov_w", ()):
             raise NotImplementedError(
                 "overflow families (ROADMAP: port the overflow families)"
@@ -326,18 +379,110 @@ def compiled_from_numpy(fields: dict, meta: dict) -> CompiledFSM:
     kw = {}
     for name in ("alpha_hat", "state_pdf", "fwd_src", "fwd_dst", "fwd_w",
                  "bwd_src", "bwd_dst", "bwd_w", "pdf_onehot", "omega_prob",
-                 "orig_state"):
+                 "orig_state", "banded_fwd", "banded_bwd"):
         kw[name] = t(fields.get(name))
-    kw["final_state"] = int(np.asarray(fields["final_state"]))
-    kw["block_fwd"] = op(fields["block_fwd"])
-    kw["block_bwd"] = op(fields["block_bwd"])
+    fin = np.asarray(fields["final_state"])
+    kw["final_state"] = int(fin) if fin.ndim == 0 else t(fin)
+    kw["block_fwd"] = op(fields.get("block_fwd"))
+    kw["block_bwd"] = op(fields.get("block_bwd"))
     for name, v in meta.items():
         if name in names:
             kw[name] = plain(v)
     cf = CompiledFSM(**kw)
-    if cf.strategy != "block":
+    if cf.strategy not in _PORTED:
         raise NotImplementedError(f"strategy {cf.strategy!r} ({_BLOCK_TODO})")
+    if cf.domain != "prob":
+        raise NotImplementedError(f"domain {cf.domain!r} ({_BLOCK_TODO})")
     return cf
+
+
+def stack(cfsms) -> CompiledFSM:
+    """Stack unbatched 'banded' CompiledFSMs into one batched graph
+    (reference ``batch``, src/inference.jl:28-36): every tensor gains a
+    leading graph axis, padded to the largest graph (initial weights -inf,
+    state pdfs to the phony pdf, padding edges to weight -inf, orig_state
+    -1, ω 0), and the band offsets become the union of the graphs' offsets
+    with zero bands where a graph lacks one.  Run one sequence per graph
+    (B = G) through ``pdfposteriors``.
+
+    'block' raises ``ValueError`` as in the JAX package (the blocked scans
+    share one large graph across the batch); 'dense', 'ell' and 'segment'
+    are not ported."""
+    cfsms = list(cfsms)
+    if any(c.batched for c in cfsms):
+        raise ValueError("can only stack unbatched CompiledFSMs")
+    strategy = cfsms[0].strategy
+    num_pdfs = cfsms[0].num_pdfs
+    if any(c.strategy != strategy or c.num_pdfs != num_pdfs for c in cfsms):
+        raise ValueError("stack requires matching strategy and num_pdfs")
+    if strategy == "block":
+        raise ValueError("stack does not support the 'block' strategy")
+    if strategy != "banded":
+        raise NotImplementedError(
+            f"stack of {strategy!r} graphs (ROADMAP queue 1 item 7: the "
+            "'banded' strategy is the one stacked so far)")
+
+    Sp = max(c.padded_states for c in cfsms)
+    Ep = max(c.fwd_src.shape[-1] for c in cfsms)
+
+    def fstack(name, size, fill):
+        rows = []
+        for c in cfsms:
+            x = getattr(c, name)
+            rows.append(torch.nn.functional.pad(x, (0, size - x.shape[-1]),
+                                                value=fill))
+        return torch.stack(rows)
+
+    offsets = tuple(sorted({o for c in cfsms for o in c.banded_offsets}))
+    if len(offsets) > 8:
+        raise ValueError(
+            f"stack: union of banded offsets has {len(offsets)} entries (> 8)"
+        )
+
+    def bands(name):
+        out = torch.zeros((len(cfsms), max(len(offsets), 1), Sp),
+                          dtype=getattr(cfsms[0], name).dtype,
+                          device=cfsms[0].device)
+        for g, c in enumerate(cfsms):
+            src = getattr(c, name)
+            for i, o in enumerate(offsets):
+                if o in c.banded_offsets:
+                    j = c.banded_offsets.index(o)
+                    out[g, i, : src.shape[1]] = src[j]
+        return out
+
+    onehot = None
+    if all(c.pdf_onehot is not None for c in cfsms):
+        onehot = fstack("pdf_onehot", Sp, 0.0)
+    return CompiledFSM(
+        alpha_hat=fstack("alpha_hat", Sp, -float("inf")),
+        final_state=torch.tensor([c.final_state for c in cfsms],
+                                 dtype=torch.int32, device=cfsms[0].device),
+        state_pdf=fstack("state_pdf", Sp, num_pdfs),
+        fwd_src=fstack("fwd_src", Ep, 0),
+        fwd_dst=fstack("fwd_dst", Ep, Sp - 1),
+        fwd_w=fstack("fwd_w", Ep, -float("inf")),
+        bwd_src=fstack("bwd_src", Ep, 0),
+        bwd_dst=fstack("bwd_dst", Ep, Sp - 1),
+        bwd_w=fstack("bwd_w", Ep, -float("inf")),
+        pdf_onehot=onehot,
+        block_fwd=None,
+        block_bwd=None,
+        omega_prob=fstack("omega_prob", Sp, 0.0),
+        orig_state=fstack("orig_state", Sp, -1),
+        banded_fwd=bands("banded_fwd"),
+        banded_bwd=bands("banded_bwd"),
+        num_states=Sp,
+        num_pdfs=num_pdfs,
+        strategy=strategy,
+        batched=True,
+        precision=cfsms[0].precision,
+        domain=cfsms[0].domain,
+        banded_offsets=offsets,
+    )
+
+
+batch = stack  # the reference's name (src/inference.jl exports ``batch``)
 
 
 # ---------------------------------------------------------------------------
@@ -395,12 +540,18 @@ def _make_eprob(cf: CompiledFSM, lengths):
 
 
 def _make_prob_matvecs(cf: CompiledFSM):
-    """Probability-domain matvecs with the rank-1 ω column."""
+    """Probability-domain matvecs of one (unstacked) graph with the rank-1
+    ω column: y[fin] = ω·a forward (ω[fin] = 1 covers the phony
+    self-loop), y += ω ⊙ a[fin] backward."""
+    if cf.strategy == "banded":
+        kop = banded_scan.kernel_operator(cf)  # G = 1: shared by all columns
+        return (lambda a: banded_scan.fwd_matvec_plain(kop, a),
+                lambda b: banded_scan.bwd_matvec_plain(kop, b))
     fin = cf.final_state
 
     def fwd(a):
         y = block_matvec(cf.block_fwd, cf.block_fwd_offsets, a)
-        y[fin] = cf.omega_prob @ a  # ω[fin] = 1 covers the phony self-loop
+        y[fin] = cf.omega_prob @ a
         return y
 
     def bwd(a):
@@ -410,27 +561,36 @@ def _make_prob_matvecs(cf: CompiledFSM):
     return fwd, bwd
 
 
-def _fb_prob(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
-    """Plain probability-domain scan: the state is carried as max-normalised
-    probabilities with an exact power-of-two exponent sum and a
-    Kahan-compensated emission shift, per frame."""
+@dataclasses.dataclass
+class _ProbKernels:
+    """Pluggable pieces of the probability-domain forward-backward scan
+    (the JAX package's ``_ProbKernels``): one skeleton, ``_fbp_run``, runs
+    a single graph shared by the batch and a stack of graphs, one column
+    each."""
+
+    alpha0: torch.Tensor  # (Sp,) shared or (Sp, B) per-column probabilities
+    fwd_pmv: callable  # (Sp, B) -> (Sp, B) probability matvec T̂ᵀ
+    bwd_pmv: callable  # (Sp, B) -> (Sp, B) probability matvec T̂
+    eprob: callable  # (lhs_t (B, P), t) -> (e (Sp, B), m_l (B,))
+    # (alpha_t, beta_t) (Sp, B) -> (s (P+1, B), tot (B,)): the pdf sums of
+    # gamma = alpha_t ⊙ beta_t and its total
+    pdf_reduce: callable
+    final_val: callable  # (a, ksum, shift) -> (B,) logZ
+
+
+def _fbp_run(kern: _ProbKernels, lhs, chunk_size, want_posts, num_pdfs,
+             dtype=None):
+    """Chunk-checkpointed probability-domain scan over a kernel bundle: the
+    state is carried as max-normalised probabilities with an exact
+    power-of-two exponent sum and a Kahan-compensated emission shift, per
+    frame, in ``dtype`` (default: lhs's).  lhs: (B, N, P); returns
+    (posts (B, N, P) or None, logZ (B,)) in lhs's dtype."""
+    out_dtype = lhs.dtype
+    if dtype is not None:
+        lhs = lhs.to(dtype)
     B, N, P = lhs.shape
-    fwd_pmv, bwd_pmv = _make_prob_matvecs(cf)
-    eprob = _make_eprob(cf, lengths)
-    P1 = P + 1
-    fin = cf.final_state
-
-    def pdf_reduce(gamma):
-        if cf.pdf_group:
-            cmax, lim = cf.pdf_group
-            s = gamma[:lim].reshape(P1, cmax, B).sum(dim=1)
-            return s, s.sum(dim=0)
-        if cf.pdf_onehot is not None:
-            return cf.pdf_onehot @ gamma, gamma.sum(dim=0)
-        s = gamma.new_zeros((P1, B)).index_add_(0, cf.state_pdf.long(), gamma)
-        return s, gamma.sum(dim=0)
-
-    Sl = cf.padded_states
+    P1 = num_pdfs + 1
+    Sl = kern.alpha0.shape[0]
     Nf = N + 1
     K = min(chunk_size, Nf)
     C = -(-Nf // K)
@@ -440,34 +600,34 @@ def _fb_prob(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
 
     def fstep(carry, t):
         a, ksum, shift, comp = carry
-        p = a if t == 0 else fwd_pmv(a)
-        e, m_l = eprob(lhs_tm[t], t)
+        p = a if t == 0 else kern.fwd_pmv(a)
+        e, m_l = kern.eprob(lhs_tm[t], t)
         y = p * e
         k = _pow2_exponent(y.amax(dim=0))
         shift, comp = _kahan_add(shift, comp, m_l)
         return y * _pow2_scale(k)[None, :], ksum + k, shift, comp
 
     def bstep(bb, a_t, t):
-        y = torch.ones_like(bb) if t == Npad - 1 else bwd_pmv(bb)
+        y = torch.ones_like(bb) if t == Npad - 1 else kern.bwd_pmv(bb)
         y = y * _pow2_scale(_pow2_exponent(y.amax(dim=0)))[None, :]
-        s, tot = pdf_reduce(a_t * y)
+        s, tot = kern.pdf_reduce(a_t, y)
         posts_t = s / torch.where(tot > 0, tot, torch.ones_like(tot))[None, :]
-        e, _ = eprob(lhs_tm[t], t)
+        e, _ = kern.eprob(lhs_tm[t], t)
         return y * e, posts_t
 
     zeros = lhs.new_zeros(B)
-    carry = (torch.exp(cf.alpha_hat)[:, None].expand(Sl, B).to(lhs.dtype),
-             zeros, zeros, zeros)
+    a0 = kern.alpha0 if kern.alpha0.dim() == 2 else kern.alpha0[:, None]
+    carry = (a0.expand(Sl, B).to(lhs.dtype), zeros, zeros, zeros)
     bounds = []
     for t in range(Npad):
         if t % K == 0:
             bounds.append(carry)
         carry = fstep(carry, t)
     aF, kF, shiftF, _ = carry
-    logZ = _combine_shift(_log_final(aF[fin]), kF, shiftF)
+    logZ = kern.final_val(aF, kF, shiftF).to(out_dtype)
     if not want_posts:
         return None, logZ
-    posts = lhs.new_empty((Npad, P1, B))
+    posts = lhs.new_empty((Npad, P1, B), dtype=out_dtype)
     bb = torch.ones((Sl, B), dtype=lhs.dtype, device=lhs.device)
     for c in reversed(range(C)):
         carry = bounds[c]
@@ -478,6 +638,83 @@ def _fb_prob(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
         for j in reversed(range(K)):
             bb, posts[c * K + j] = bstep(bb, alphas[j], c * K + j)
     return posts.permute(2, 0, 1)[:, :N, :P], logZ
+
+
+# float64 state for 'banded' lattices: alpha and beta, each normalised to
+# max 1, sit at opposite ends of a long lattice (ops/banded_scan.py)
+_STATE_DTYPE = {"banded": torch.float64}
+
+
+def _fb_prob(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
+    """Plain probability-domain scan of one graph shared by the batch."""
+    B = lhs.shape[0]
+    P1 = cf.num_pdfs + 1
+    fwd_pmv, bwd_pmv = _make_prob_matvecs(cf)
+
+    def pdf_reduce(a, y):
+        gamma = a * y
+        if cf.pdf_group:
+            cmax, lim = cf.pdf_group
+            s = gamma[:lim].reshape(P1, cmax, B).sum(dim=1)
+            return s, s.sum(dim=0)
+        if cf.pdf_onehot is not None:
+            return cf.pdf_onehot.to(gamma.dtype) @ gamma, gamma.sum(dim=0)
+        s = gamma.new_zeros((P1, B)).index_add_(0, cf.state_pdf.long(), gamma)
+        return s, gamma.sum(dim=0)
+
+    kern = _ProbKernels(
+        alpha0=torch.exp(cf.alpha_hat),
+        fwd_pmv=fwd_pmv,
+        bwd_pmv=bwd_pmv,
+        eprob=_make_eprob(cf, lengths),
+        pdf_reduce=pdf_reduce,
+        final_val=lambda a, ksum, shift: _combine_shift(
+            _log_final(a[cf.final_state]), ksum, shift),
+    )
+    return _fbp_run(kern, lhs, chunk_size, want_posts, cf.num_pdfs,
+                    _STATE_DTYPE.get(cf.strategy))
+
+
+def _fb_prob_banded_stacked(cf: CompiledFSM, lhs, lengths, chunk_size,
+                            want_posts):
+    """Plain scan of stacked 'banded' graphs, one sequence per graph: the
+    graph axis is the column axis of the (Sp, G) state.  Per-graph bands,
+    ω, α and final state ride the columns (the kernels' operator layout),
+    emissions are a per-column gather of each graph's state pdfs, and the
+    pdf reduction a per-column scatter-add.  The state is float64, as in
+    the kernels (ops/banded_scan.py)."""
+    kop = banded_scan.kernel_operator(cf)
+    spdf = kop.spdf.long()
+    P1 = kop.P1
+
+    def eprob(lhs_t, t):
+        active = t < lengths  # (G,)
+        m_l = lhs_t.amax(dim=1)
+        el = torch.exp(lhs_t - m_l[:, None])
+        ph = (~active).to(lhs_t.dtype)[None, :]
+        ext = torch.cat([el.T * active[None, :], ph], dim=0)  # (P1, G)
+        return (ext.gather(0, spdf),
+                torch.where(active, m_l, torch.zeros_like(m_l)))
+
+    def pdf_reduce(a, y):
+        gamma = a * y
+        s = gamma.new_zeros((P1, gamma.shape[1])).scatter_add_(0, spdf, gamma)
+        return s, gamma.sum(dim=0)
+
+    def final_val(a, ksum, shift):
+        v = a.gather(0, kop.fin.long()[None, :])[0]
+        return _combine_shift(_log_final(v), ksum, shift)
+
+    kern = _ProbKernels(
+        alpha0=kop.a0,
+        fwd_pmv=lambda a: banded_scan.fwd_matvec_plain(kop, a),
+        bwd_pmv=lambda b: banded_scan.bwd_matvec_plain(kop, b),
+        eprob=eprob,
+        pdf_reduce=pdf_reduce,
+        final_val=final_val,
+    )
+    return _fbp_run(kern, lhs, chunk_size, want_posts, cf.num_pdfs,
+                    _STATE_DTYPE["banded"])
 
 
 # ---------------------------------------------------------------------------
@@ -498,24 +735,43 @@ def _fb_block_cuda(cf: CompiledFSM, lhs, lengths, want_posts, chunk_size):
     return posts.permute(2, 0, 1)[:, :N, :P], logZ
 
 
+def _fb_banded_cuda(cf: CompiledFSM, lhs, lengths, want_posts):
+    """The hand-written CUDA stacked-banded scan (ops/banded_scan.py): one
+    forward sweep (K5a) and one backward sweep (K5b), each one launch."""
+    B, N, P = lhs.shape
+    posts, vfin, shift, ksum = banded_scan.banded_fused_fb(cf, lhs, lengths,
+                                                           want_posts)
+    logZ = _combine_shift(_log_final(vfin), ksum, shift).to(lhs.dtype)
+    if not want_posts:
+        return None, logZ
+    return posts.permute(2, 0, 1)[:, :N, :P], logZ
+
+
+# per strategy: (admission, the scan's name, its fast-path report line)
+_CUDA_SCANS = {
+    "block": (block_scan.block_scan_reject_reason, "blocked scan",
+              "cuda-block-scan (hand-written CUDA kernels K2-K4)"),
+    "banded": (banded_scan.banded_scan_reject_reason, "stacked banded scan",
+               "cuda-banded-scan (hand-written CUDA kernels K5a/K5b, one "
+               "warp per graph)"),
+}
+
+
 def _kernel_route(cf: CompiledFSM, device, batch_size: int,
                   n_frames: int | None = None) -> bool:
     """The dispatch rule: False (plain scan) for CPU tensors, True (CUDA
-    kernels) for CUDA tensors with a graph the kernels accept; raises for a
-    CUDA tensor with any other graph, naming the first rejected predicate,
-    and for any other device."""
+    kernels of the graph's strategy) for CUDA tensors with a graph the
+    kernels accept; raises for a CUDA tensor with any other graph, naming
+    the first rejected predicate, and for any other device."""
     device = torch.device(device)
     if device.type == "cpu":
         return False
     if device.type != "cuda":
         raise ValueError(f"no forward-backward path for device {device}")
-    reason = block_scan.block_scan_reject_reason(
-        cf, batch_size, n_frames=n_frames, device=device
-    )
+    reject, name, _ = _CUDA_SCANS[cf.strategy]
+    reason = reject(cf, batch_size, n_frames=n_frames, device=device)
     if reason is not None:
-        raise ValueError(
-            f"the CUDA blocked scan rejects this graph: {reason}"
-        )
+        raise ValueError(f"the CUDA {name} rejects this graph: {reason}")
     return True
 
 
@@ -526,12 +782,14 @@ def fast_path_report(cf: CompiledFSM, batch_size: int, *, device=None) -> str:
     reject (``pdfposteriors`` then raises with the same reason)."""
     device = torch.device(cf.device if device is None else device)
     if device.type == "cpu":
-        return "plain torch scan (CPU tensors take the plain path)"
+        what = ("stacked 'banded' graphs, one column per graph"
+                if cf.batched else f"one {cf.strategy!r} graph")
+        return f"plain torch scan ({what}; CPU tensors take the plain path)"
     try:
         _kernel_route(cf, device, batch_size)
     except ValueError as e:
         return f"error - {e}"
-    return "cuda-block-scan (hand-written CUDA kernels K2-K4)"
+    return _CUDA_SCANS[cf.strategy][2]
 
 
 _FULL_MEM_BYTES = 4 << 30  # keep saved alphas below ~4 GB
@@ -539,9 +797,11 @@ _FULL_MEM_BYTES = 4 << 30  # keep saved alphas below ~4 GB
 
 def _auto_chunk(cf: CompiledFSM, lhs):
     """Full-memory mode (one chunk) when all alphas fit under 4 GB, else
-    chunk checkpointing with 64-frame chunks (the JAX package's rule)."""
+    chunk checkpointing with 64-frame chunks (the JAX package's rule; a
+    stacked graph counts one column per graph, as the JAX rule does)."""
     Nf = lhs.shape[-2] + 1
-    est = Nf * cf.padded_states * lhs.shape[0] * lhs.element_size()
+    batch = 1 if cf.batched else lhs.shape[0]
+    est = Nf * cf.padded_states * batch * lhs.element_size()
     return Nf if est <= _FULL_MEM_BYTES else 64
 
 
@@ -554,6 +814,12 @@ def _dispatch(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
     B, N, P = lhs.shape
     if P != cf.num_pdfs:
         raise ValueError(f"lhs has {P} pdfs, graph expects {cf.num_pdfs}")
+    if cf.batched and not (cf.strategy == "banded"
+                           and B == cf.alpha_hat.shape[0]):
+        raise NotImplementedError(
+            f"batched {cf.strategy!r} graph of {cf.alpha_hat.shape[0]} "
+            f"graphs at batch {B}: only stacked 'banded' graphs with one "
+            f"sequence per graph run ({_VMAP_TODO})")
     if chunk_size is None:
         chunk_size = _auto_chunk(cf, lhs)
     if lengths is None:
@@ -565,7 +831,12 @@ def _dispatch(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
         max=N,
     )
     if _kernel_route(cf, lhs.device, B, N):
+        if cf.strategy == "banded":
+            return _fb_banded_cuda(cf, lhs, lengths, want_posts)
         return _fb_block_cuda(cf, lhs, lengths, want_posts, chunk_size)
+    if cf.batched:
+        return _fb_prob_banded_stacked(cf, lhs, lengths, chunk_size,
+                                       want_posts)
     return _fb_prob(cf, lhs, lengths, chunk_size, want_posts)
 
 
@@ -575,7 +846,9 @@ def pdfposteriors(cf: CompiledFSM, lhs, lengths=None, *,
 
     ``lhs``: (B, N, P) log-likelihoods on the graph's device; ``lengths``:
     (B,) frame counts.  Returns (posteriors (B, N, P), logZ (B,)).
-    Posteriors are exactly zero past each sequence length."""
+    Posteriors are exactly zero past each sequence length.  A stacked
+    'banded' graph takes one sequence per graph (B = G).  Not
+    differentiable: use :func:`logmarginal` / :func:`lfmmi_loss`."""
     return _dispatch(cf, lhs, lengths, chunk_size, True)
 
 
@@ -583,3 +856,41 @@ def forward(cf: CompiledFSM, lhs, lengths=None, *,
             chunk_size: int | None = None):
     """Forward pass only: log-marginals logZ (B,)."""
     return _dispatch(cf, lhs, lengths, chunk_size, False)[1]
+
+
+class _LogMarginal(torch.autograd.Function):
+    """logZ of ``pdfposteriors`` with d logZ / d lhs = the posteriors it
+    already computed (the standard LF-MMI identity), so the scan itself is
+    never differentiated.  The graph's tensors never require grad; the
+    lengths and the graph get no gradient."""
+
+    @staticmethod
+    def forward(ctx, lhs, cf, lengths, chunk_size):
+        posts, logZ = pdfposteriors(cf, lhs.detach(), lengths,
+                                    chunk_size=chunk_size)
+        ctx.save_for_backward(posts)
+        return logZ
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (posts,) = ctx.saved_tensors
+        return grad_out[:, None, None] * posts, None, None, None
+
+
+def logmarginal(cf: CompiledFSM, lhs, lengths=None, *,
+                chunk_size: int | None = None):
+    """Differentiable total log-marginal log p(X | graph), (B,); its
+    gradient in ``lhs`` is the pdf posteriors."""
+    return _LogMarginal.apply(torch.as_tensor(lhs), cf, lengths, chunk_size)
+
+
+def lfmmi_loss(num_cf: CompiledFSM, den_cf: CompiledFSM, lhs, lengths=None,
+               *, chunk_size: int | None = None):
+    """LF-MMI objective per utterance: -(log p_num - log p_den), (B,).
+
+    ``num_cf`` is typically a stacked batch of per-utterance 'banded'
+    numerator graphs, ``den_cf`` the shared 'block' denominator graph.
+    Differentiable in ``lhs`` with gradient γ_den - γ_num."""
+    num = logmarginal(num_cf, lhs, lengths, chunk_size=chunk_size)
+    den = logmarginal(den_cf, lhs, lengths, chunk_size=chunk_size)
+    return den - num

@@ -1,7 +1,7 @@
 """Build and load the CUDA kernels of the port.
 
 The sources under ``csrc/`` have a plain C interface.  They are compiled
-with nvcc for Hopper (``sm_90a``) into a shared library under
+with nvcc for Hopper (``sm_90a``) into one shared library under
 ``build/markovmodels_tpu_torch/`` at the root of the checkout, named by a
 hash of the sources and flags, at first use, and bound with ctypes.  A build
 or load failure raises; there is no fallback.
@@ -18,7 +18,7 @@ from pathlib import Path
 __all__ = ["library", "build_dir", "error_string", "PTXAS_LOG"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("block_scan.cu",)
+_SOURCES = ("block_scan.cu", "banded_scan.cu")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -34,6 +34,8 @@ _SIGNATURES = {
     "mm_block_fwd": [_P] * 8 + [_I] * 3 + [_P] * 10,
     "mm_block_recompute": [_P] * 8 + [_I] * 3 + [_P] * 4,
     "mm_block_bwd": [_P] * 9 + [_I] * 4 + [_P] * 6,
+    "mm_banded_fwd": [_P] * 13,
+    "mm_banded_bwd": [_P] * 9,
 }
 
 

@@ -387,15 +387,20 @@ def kernel_operator(cf) -> KernelOp:
 
 def _pow2_exponent(m):
     """floor(log2 m) from the exponent bits (exact), 0 where m == 0,
-    clamped at -126 so that 2^-k stays a finite float32."""
+    clamped at -126 (float32) or -1022 (float64) so that 2^-k stays a
+    finite normal number of m's dtype."""
     _, e = torch.frexp(m)
-    k = (e - 1).to(m.dtype).clamp(min=-126.0)
+    lo = -1022.0 if m.dtype == torch.float64 else -126.0
+    k = (e - 1).to(m.dtype).clamp(min=lo)
     return torch.where(m > 0, k, torch.zeros_like(m))
 
 
 def _pow2_scale(k):
-    """2^-k for integer-valued float32 k in [-126, 126], built from its
-    exponent bits (exact on every device, unlike exp2)."""
+    """2^-k in k's dtype for integer-valued k in [-126, 126] (float32) or
+    [-1022, 1022] (float64), built from its exponent bits (exact on every
+    device, unlike exp2)."""
+    if k.dtype == torch.float64:
+        return ((1023 - k.to(torch.int64)) << 52).view(torch.float64)
     return ((127 - k.to(torch.int32)) << 23).view(torch.float32)
 
 
@@ -502,12 +507,12 @@ def _imeta(kop: KernelOp, kd: KernelDir) -> np.ndarray:
     )
 
 
-def _route(x: torch.Tensor) -> bool:
+def _route(x: torch.Tensor, kernel: str = "blocked-scan") -> bool:
     """True for the CUDA kernel, False for the plain twin (CPU tensors)."""
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
-        raise ValueError(f"no blocked-scan kernel for device {x.device}")
+        raise ValueError(f"no {kernel} kernel for device {x.device}")
     return True
 
 

@@ -7,25 +7,28 @@ import jax
 import numpy as np
 import torch
 
+import markovmodels_tpu as mm
 import markovmodels_tpu_torch as mt
 from markovmodels_tpu import inference as inf
+from markovmodels_tpu.fsm import FSM
+from markovmodels_tpu.labels import Label
 from markovmodels_tpu.workloads import make_lm_hmm_graph
 
 DATA_FIELDS = (
     "alpha_hat", "final_state", "state_pdf", "fwd_src", "fwd_dst", "fwd_w",
     "bwd_src", "bwd_dst", "bwd_w", "pdf_onehot", "block_fwd", "block_bwd",
-    "omega_prob", "orig_state",
+    "omega_prob", "orig_state", "banded_fwd", "banded_bwd",
 )
 META_FIELDS = (
     "num_states", "num_pdfs", "strategy", "batched", "precision", "domain",
     "block_fwd_offsets", "block_bwd_offsets", "pdf_group", "multi_pdf",
     "ov_layout", "banded_offsets",
 )
-# fields of the JAX CompiledFSM that the 'block' strategy leaves empty
+# fields of the JAX CompiledFSM that the 'block' and 'banded' strategies
+# leave empty
 JAX_ONLY_NONE = (
     "ell_fwd_src", "ell_fwd_w", "ell_bwd_src", "ell_bwd_w", "dense_fwd_exp",
-    "dense_fwd_max", "dense_bwd_exp", "dense_bwd_max", "banded_fwd",
-    "banded_bwd",
+    "dense_fwd_max", "dense_bwd_exp", "dense_bwd_max",
 )
 
 
@@ -48,6 +51,27 @@ def jax_fields(cf):
 
 def port_from_jax(cf):
     return mt.compiled_from_numpy(*jax_fields(cf))
+
+
+def numerator(seq, P, skip=False):
+    """A linear numerator lattice over the pdf sequence ``seq`` (self-loop
+    and chain arcs at 0.5, final weight 0.5; the shape ``bench.py`` builds)
+    and its state->pdf map; ``skip`` adds arcs i -> i+2 at 0.25."""
+    L = len(seq)
+    arcs = [((i, i), np.log(0.5)) for i in range(L)]
+    arcs += [((i, i + 1), np.log(0.5)) for i in range(L - 1)]
+    if skip:
+        arcs += [((i, i + 2), np.log(0.25)) for i in range(L - 2)]
+    fsm = FSM.from_pairs([(0, 0.0)], arcs, [(L - 1, np.log(0.5))],
+                         [Label(int(s)) for s in seq], mm.LOG)
+    return fsm, np.append(seq, P).astype(np.int32)
+
+
+def numerators(rng, G, P, lengths, skip=()):
+    """G random numerators of the given lattice lengths (graph indices in
+    ``skip`` get skip arcs): [(fsm, spdf)]."""
+    return [numerator(rng.integers(0, P, size=lengths[g]), P, g in skip)
+            for g in range(G)]
 
 
 def inputs(B, N, P, seed, lens, cliffs=False):
@@ -75,16 +99,24 @@ def assert_same_compiled(cj, ct):
     """Every field of the port's CompiledFSM equals the JAX one's."""
     for n in JAX_ONLY_NONE:
         assert getattr(cj, n) is None, n
-    assert ct.final_state == int(cj.final_state)
+    if cj.batched:
+        assert_tensor_equal(cj.final_state, ct.final_state, "final_state")
+    else:
+        assert isinstance(ct.final_state, int)
+        assert ct.final_state == int(cj.final_state)
     for n in ("alpha_hat", "state_pdf", "fwd_src", "fwd_dst", "fwd_w",
               "bwd_src", "bwd_dst", "bwd_w", "omega_prob", "orig_state"):
         assert_tensor_equal(getattr(cj, n), getattr(ct, n), n)
-    if cj.pdf_onehot is None:
-        assert ct.pdf_onehot is None
-    else:
-        assert_tensor_equal(cj.pdf_onehot, ct.pdf_onehot, "pdf_onehot")
+    for n in ("pdf_onehot", "banded_fwd", "banded_bwd"):
+        if getattr(cj, n) is None:
+            assert getattr(ct, n) is None, n
+        else:
+            assert_tensor_equal(getattr(cj, n), getattr(ct, n), n)
     for n in ("block_fwd", "block_bwd"):
         oj, ot = getattr(cj, n), getattr(ct, n)
+        assert (oj is None) == (ot is None), n
+        if oj is None:
+            continue
         for part in ("band_w", "res_src", "res_dst", "res_w"):
             a, b = getattr(oj, part), getattr(ot, part)
             assert (a is None) == (b is None), (n, part)

@@ -16,6 +16,7 @@ PKG = ROOT / "markovmodels_tpu_torch"
 @pytest.mark.parametrize("module", [
     "markovmodels_tpu_torch",
     "markovmodels_tpu_torch.ops.block_scan",
+    "markovmodels_tpu_torch.ops.banded_scan",
     "markovmodels_tpu_torch.ops._build",
 ])
 def test_port_imports_without_jax(module):
@@ -24,6 +25,7 @@ def test_port_imports_without_jax(module):
         f"importlib.import_module({module!r})\n"
         "import markovmodels_tpu_torch as mt\n"
         "assert callable(mt.pdfposteriors) and callable(mt.compile_fsm)\n"
+        "assert callable(mt.lfmmi_loss) and callable(mt.stack)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'markovmodels_tpu.inference')\n"
         "assert not bad, bad\n"
