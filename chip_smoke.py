@@ -7,8 +7,10 @@ N=700 frames: ``lfmmi_loss`` of 128 stacked 'banded' numerator lattices
 trigram-LM ∘ HMM denominator (49,153 states, 2,195,457 arcs, 384 pdfs),
 with the gradient in the log-likelihoods, through the hand-written CUDA
 kernels K2-K4 of ``markovmodels_tpu_torch/ops/csrc/block_scan.cu`` (the
-denominator) and K5a/K5b of ``.../csrc/banded_scan.cu`` (the numerators),
-in phases:
+denominator) and K5a/K5b of ``.../csrc/banded_scan.cu`` (the numerators);
+then the same step against a 'dense' denominator (the V=32 LM ∘ HMM graph:
+3,073 states, 38,913 arcs, 96 pdfs, within 6 % of the WSJ denominator's
+padded width) through K6a/K6b of ``.../csrc/dense_scan.cu``, in phases:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels from the sources in the checkout (nvcc, sm_90a);
@@ -26,7 +28,17 @@ in phases:
    a length of 1, ±30-nat emission cliffs);
 8. stacked-numerator ``pdfposteriors`` at N=40 against the f64 oracle;
 9. the training step at B=128, N=700 with launch counters (K2-K5b), the
-   gradient against γ_den - γ_num, and its time beside the denominator's.
+   gradient against γ_den - γ_num, and its time beside the denominator's;
+10. the V=32 graph compiled with the default strategy ('auto' -> 'dense',
+    precision 'high');
+11. K6a and K6b against their plain twins at B=128, N=700, Sp=3,200 (mixed
+    lengths with 1 and N, ±30-nat emission cliffs);
+12. dense ``pdfposteriors`` at B=2, N=40 against the f64 oracle;
+13. the training step with the dense denominator and 128 stacked numerators
+    (P=96) at B=128, N=700: launch counters (K5a, K5b, K6a, K6b), the
+    gradient against γ_den - γ_num, and its time beside the denominator's;
+14. four stacked non-banded 'dense' graphs (B = G = 4) through the
+    per-graph route on the card against the f64 oracle.
 
 Needs one CUDA card; exits non-zero before printing any result when there
 is none or when any phase fails.  Run from the root of the checkout:
@@ -58,6 +70,10 @@ TOL_POST_SUM = 1e-4  # per-frame posterior mass of a feasible sequence
 TOL_K5 = 1e-4
 TOL_GRAD = 1e-5  # lhs.grad vs posts_den - posts_num from separate calls
 TOL_GRAD_SUM = 1e-4  # the gradient's sum over pdfs on an active frame
+# K6 vs plain twin (phase 11): float32 sums of the 3,200-term products and
+# of the per-pdf posterior sums in another order, compounded over 701
+# frames; states compared after normalising each (frame, column) to max 1
+TOL_K6 = 1e-4
 
 
 def card_line():
@@ -174,8 +190,9 @@ def phase_kernels(cf, P, dev, B=128, N=128, chunk=64):
     return errs
 
 
-def phase_oracle(fsm, spdf, cf, P, dev, n=40):
-    """Phase 5: pdfposteriors at B=2 against the exact f64 host oracle."""
+def phase_oracle(fsm, spdf, cf, P, dev, n=40, label="phase 5"):
+    """Phase 5 (12): pdfposteriors at B=2 against the exact f64 host
+    oracle."""
     import torch
 
     import bench
@@ -190,7 +207,7 @@ def phase_oracle(fsm, spdf, cf, P, dev, n=40):
                                 torch.from_numpy(lens).to(dev))
     err = float(np.abs(z.cpu().numpy() - ref_z).max())
     perr = float(np.abs(posts.cpu().numpy() - ref_p).max())
-    print(f"phase 5: B=2 N={n} vs f64 oracle |dlogZ| = {err:.3e}, "
+    print(f"{label}: B=2 N={n} vs f64 oracle |dlogZ| = {err:.3e}, "
           f"|dposts| = {perr:.3e} (tol {TOL_ORACLE:g})")
     assert err <= TOL_ORACLE and perr <= TOL_ORACLE, "oracle gate failed"
 
@@ -405,14 +422,13 @@ def phase_banded_oracle(P, dev, n=40):
     assert err <= TOL_ORACLE and perr <= TOL_ORACLE, "oracle gate failed"
 
 
-def phase_step(num_cf, cf, P, dev, B=128, N=700):
-    """Phase 9: the LF-MMI training step through K2-K5b, checked and timed
-    beside the denominator-only pdfposteriors."""
+def phase_step(num_cf, cf, P, dev, mods, label, B=128, N=700):
+    """Phase 9 (13): the LF-MMI training step through the kernels of the
+    ops modules ``mods``, checked and timed beside the denominator-only
+    pdfposteriors."""
     import torch
 
     import markovmodels_tpu_torch as mt
-    from markovmodels_tpu_torch.ops import banded_scan as bsc
-    from markovmodels_tpu_torch.ops import block_scan as bs
 
     rng = np.random.default_rng(0)
     lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev)
@@ -425,12 +441,12 @@ def phase_step(num_cf, cf, P, dev, B=128, N=700):
         return loss.detach(), x.grad
 
     torch.cuda.synchronize()
-    bs.reset_launch_counts()
-    bsc.reset_launch_counts()
+    for m in mods:
+        m.reset_launch_counts()
     loss, grad = step()
     torch.cuda.synchronize()
-    launches = {**bs.LAUNCHES, **bsc.LAUNCHES}
-    print(f"phase 9: launches {json.dumps(launches)}")
+    launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    print(f"{label}: launches {json.dumps(launches)}")
     assert all(v > 0 for v in launches.values()), "a kernel never launched"
 
     assert torch.isfinite(loss).all(), "non-finite LF-MMI loss"
@@ -440,7 +456,7 @@ def phase_step(num_cf, cf, P, dev, B=128, N=700):
     lerr = float((loss - (zd - zn)).abs().max())
     gerr = float((grad - (pd - pn)).abs().max())
     gsum = float(grad.sum(dim=2).abs().max())
-    print(f"phase 9: loss sum {float(loss.sum()):.4f}; |loss - (logZ_den - "
+    print(f"{label}: loss sum {float(loss.sum()):.4f}; |loss - (logZ_den - "
           f"logZ_num)| = {lerr:.3e}; |grad - (posts_den - posts_num)| = "
           f"{gerr:.3e} (tol {TOL_GRAD:g}); max |sum_p grad| = {gsum:.3e} "
           f"(tol {TOL_GRAD_SUM:g})")
@@ -451,7 +467,7 @@ def phase_step(num_cf, cf, P, dev, B=128, N=700):
     t_step = cuda_ms(step, reps=2)
     t_den = cuda_ms(lambda: mt.pdfposteriors(cf, lhs, lengths), reps=2)
     audio = B * N * FRAME_SHIFT_S
-    print(f"phase 9: LF-MMI step B={B} N={N} (num + den + grad): "
+    print(f"{label}: LF-MMI step B={B} N={N} (num + den + grad): "
           f"{t_step / 1e3:.4f} s = {audio / (t_step / 1e3):.1f} audio-s/s; "
           f"den-only pdfposteriors {t_den / 1e3:.4f} s = "
           f"{audio / (t_den / 1e3):.1f} audio-s/s; ratio "
@@ -483,6 +499,144 @@ def time_banded(num_cf, P, dev):
     return out
 
 
+def dense_inputs(P, dev, B=128, N=700, seed=2):
+    """Phase 11's input: mixed lengths with 1 and N, ±30-nat cliffs."""
+    import torch
+
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    rng = np.random.default_rng(seed)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P, cliffs=True)).to(dev)
+    lens = rng.integers(1, N + 1, size=B).astype(np.int32)
+    lens[:4] = [N, 1, 2 * N // 3, N // 2 + 1]
+    return prepare_emissions(lhs, torch.from_numpy(lens).to(dev), P)
+
+
+def phase_dense_kernels(cf, P, dev):
+    """Phase 11: K6a and K6b against their plain twins on one input."""
+    import torch
+
+    from markovmodels_tpu_torch import inference as tinf
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    kop = ds.kernel_operator(cf)
+    ext, msh = dense_inputs(P, dev)
+    B = ext.shape[2]
+    a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
+
+    def logz(out):
+        _, _, a, s, ksum, shift = out
+        return tinf._combine_shift(tinf._log_final(a[kop.fin] * s), ksum,
+                                   shift).cpu().numpy()
+
+    def norm(a):  # each (frame, column) over its max
+        m = a.amax(dim=1, keepdim=True)
+        return a / torch.where(m > 0, m, torch.ones_like(m))
+
+    fk = ds.fwd_sweep(kop, a0, ext, msh)
+    torch.cuda.synchronize()
+    fp = ds.fwd_sweep_plain(kop, a0, ext, msh)
+    zk, zp = logz(fk), logz(fp)
+    fin = np.isfinite(zp)
+    assert (np.isfinite(zk) == fin).all(), "K6a: -inf pattern differs"
+    assert fin.sum() > B // 2 and fin[0], "K6a: unexpected -inf pattern"
+    errs = {"K6a": max(float(np.abs(zk[fin] - zp[fin]).max()),
+                       float((norm(fk[0]) - norm(fp[0])).abs().max()))}
+    del fp
+    pk = ds.backward(kop, ext, fk[0], fk[1])
+    torch.cuda.synchronize()
+    pp = ds.backward_plain(kop, ext, fk[0], fk[1])
+    assert torch.isfinite(pk).all(), "K6b: non-finite posteriors"
+    errs["K6b"] = float((pk - pp).abs().max())
+    for name, e in errs.items():
+        print(f"phase 11: {name} kernel vs plain max |err| = {e:.3e} "
+              f"(tol {TOL_K6:g})")
+        assert np.isfinite(e) and e <= TOL_K6, f"{name} disagrees: {e}"
+    return errs
+
+
+def random_graph(rng, S, P):
+    """A non-banded graph: S states, three random out-arcs each (mass
+    0.8), initial state 0, final weight 0.2 on every state, random pdfs.
+    Returns (fsm, spdf)."""
+    import markovmodels_tpu_torch as mt
+
+    arcs = []
+    for i in range(S):
+        js = rng.choice(S, size=3, replace=False)
+        w = rng.uniform(0.1, 1.0, size=3)
+        w *= 0.8 / w.sum()
+        arcs += [((i, int(j)), float(np.log(x))) for j, x in zip(js, w)]
+    pdfs = rng.integers(0, P, size=S)
+    fsm = mt.fsm.FSM.from_pairs(
+        [(0, 0.0)], arcs, [(i, np.log(0.2)) for i in range(S)],
+        [mt.labels.Label(int(p)) for p in pdfs], mt.semiring.LOG)
+    return fsm, np.append(pdfs, P).astype(np.int32)
+
+
+def phase_dense_stack(dev, P=24, n=40):
+    """Phase 14: four stacked non-banded graphs (the default strategy picks
+    'dense') through the per-graph route on the card, against the f64
+    oracle; no K6 launch (the JAX package runs this route outside its
+    dense kernels)."""
+    import torch
+
+    import bench
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    rng = np.random.default_rng(9)
+    graphs = [random_graph(rng, S, P) for S in (10, 25, 40, 57)]
+    cf = mt.stack([mt.compile_fsm(f, sp, P) for f, sp in graphs]).to(dev)
+    assert cf.strategy == "dense" and cf.batched
+    report = mt.fast_path_report(cf, 4)
+    assert "per-graph" in report, report
+    lhs = rng.normal(size=(4, n, P)).astype(np.float32)
+    lens = np.array([n, 33, n, 21], dtype=np.int32)
+    ds.reset_launch_counts()
+    posts, z = mt.pdfposteriors(cf, torch.from_numpy(lhs).to(dev),
+                                torch.from_numpy(lens).to(dev))
+    z, posts = z.cpu().numpy(), posts.cpu().numpy()
+    assert sum(ds.LAUNCHES.values()) == 0, "the per-graph route launched K6"
+    err = perr = 0.0
+    for g, (fsm, spdf) in enumerate(graphs):
+        rz, rp = bench.host_oracle(fsm, spdf, P,
+                                   lhs[g:g + 1].astype(np.float64),
+                                   lens[g:g + 1])
+        err = max(err, float(np.abs(z[g] - rz[0])))
+        perr = max(perr, float(np.abs(posts[g] - rp[0]).max()))
+    print(f"phase 14: stacked dense G=4 N={n} on {dev} ({report}) vs f64 "
+          f"oracle |dlogZ| = {err:.3e}, |dposts| = {perr:.3e} "
+          f"(tol {TOL_ORACLE:g})")
+    assert err <= TOL_ORACLE and perr <= TOL_ORACLE, "oracle gate failed"
+
+
+def time_dense(cf, P, dev):
+    """K6a and K6b and their plain twins over the whole 701-frame sweep at
+    the main shape (B=128, Sp=3,200)."""
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    kop = ds.kernel_operator(cf)
+    ext, msh = dense_inputs(P, dev)
+    B = ext.shape[2]
+    a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
+    alphas, ascale = ds.fwd_sweep(kop, a0, ext, msh)[:2]
+    calls = {
+        "K6a": (lambda: ds.fwd_sweep(kop, a0, ext, msh),
+                lambda: ds.fwd_sweep_plain(kop, a0, ext, msh)),
+        "K6b": (lambda: ds.backward(kop, ext, alphas, ascale),
+                lambda: ds.backward_plain(kop, ext, alphas, ascale)),
+    }
+    out = {}
+    for name, (kern, plain) in calls.items():
+        p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
+                          cuda_ms(plain))
+        out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"timing: {name} kernel {k1:.3f}/{k2:.3f} ms, plain "
+              f"{p1:.3f}/{p2:.3f} ms")
+    return out
+
+
 def main():
     import torch
 
@@ -497,6 +651,9 @@ def main():
 
     import markovmodels_tpu_torch as mt
     from markovmodels_tpu_torch.ops import _build
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops import block_scan as bs
+    from markovmodels_tpu_torch.ops import dense_scan as ds
 
     card = card_line()
     print(card)
@@ -528,12 +685,33 @@ def main():
     _, t_kern, t_plain = phase_main(cf, P, dev)
     errs.update(phase_banded_kernels(num_cf, P, dev))
     phase_banded_oracle(P, dev)
-    launches, t_step, t_den = phase_step(num_cf, cf, P, dev)
+    launches, t_step, t_den = phase_step(num_cf, cf, P, dev, (bs, bsc),
+                                         "phase 9")
     times = time_kernels(cf, P, dev)
     times.update(time_banded(num_cf, P, dev))
+    del cf, num_cf
+
+    t0 = time.perf_counter()
+    dfsm, dspdf, dP, dinfo = mt.workloads.make_lm_hmm_graph(V=32)
+    dcf = mt.compile_fsm(dfsm, dspdf, dP).to(dev)  # default: 'auto'
+    assert dcf.strategy == "dense" and dcf.precision == "high", dcf.strategy
+    print(f"phase 10: graph {dinfo} compiled (strategy {dcf.strategy!r}, "
+          f"precision {dcf.precision!r}) in {time.perf_counter() - t0:.1f} "
+          f"s; Sp = {dcf.padded_states}; path: "
+          f"{mt.fast_path_report(dcf, 128)}")
+    dnum_cf = stack_numerators(build_numerators(dP), dP, dev)
+    errs.update(phase_dense_kernels(dcf, dP, dev))
+    phase_oracle(dfsm, dspdf, dcf, dP, dev, label="phase 12")
+    dlaunches, t_dstep, t_dden = phase_step(dnum_cf, dcf, dP, dev,
+                                            (bsc, ds), "phase 13")
+    phase_dense_stack(dev)
+    times.update(time_dense(dcf, dP, dev))
 
     block_src = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
     banded_src = "markovmodels_tpu_torch/ops/csrc/banded_scan.cu"
+    dense_src = "markovmodels_tpu_torch/ops/csrc/dense_scan.cu"
+    launches.update({k: v for k, v in dlaunches.items()
+                     if k in ds.LAUNCHES})
     table = {  # name: (counter, source, the TPU kernel it replaces)
         "K2": ("block_fwd", block_src,
                "markovmodels_tpu/ops/pallas_block.py:862"),
@@ -545,6 +723,10 @@ def main():
                 "markovmodels_tpu/ops/pallas_banded.py:180"),
         "K5b": ("banded_bwd", banded_src,
                 "markovmodels_tpu/ops/pallas_banded.py:215"),
+        "K6a": ("dense_fwd", dense_src,
+                "markovmodels_tpu/ops/pallas_scan.py:220"),
+        "K6b": ("dense_bwd", dense_src,
+                "markovmodels_tpu/ops/pallas_scan.py:269"),
     }
     kernels = [
         {"name": f"{name} {counter}", "route": "cuda", "source": source,
@@ -555,7 +737,8 @@ def main():
     ]
     print(f"card: {card}; pdfposteriors B=128 N=700 kernel path "
           f"{t_kern:.2f} ms, plain path {t_plain:.2f} ms; LF-MMI step "
-          f"{t_step:.2f} ms, den-only {t_den:.2f} ms")
+          f"{t_step:.2f} ms, den-only {t_den:.2f} ms; dense-den LF-MMI step "
+          f"{t_dstep:.2f} ms, dense den-only {t_dden:.2f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,13 +5,15 @@ for NVIDIA Hopper.  The JAX-free host layer (FSMs, semirings, labels, FSM
 operations, n-gram LMs, host sparse algebra, the native host runtime and
 the benchmark workload graphs) is shared with the JAX package and
 re-exported here; this package adds the device side: ``compile_fsm`` to
-tensors ('block' and 'banded'), ``stack`` / ``batch`` of 'banded'
-numerator graphs, the batched forward-backward (``pdfposteriors``,
-``forward``), and the LF-MMI training step: ``logmarginal`` and
-``lfmmi_loss``, differentiable in the log-likelihoods with the posterior
-gradient γ_den - γ_num.  On the GPU the step runs through hand-written
-CUDA kernels: the blocked denominator scan (K2-K4) and the stacked-banded
-numerator scan (K5a/K5b).
+tensors ('dense', 'block' and 'banded'; 'auto', the default, picks 'dense'
+for graphs of up to 4,096 states as the JAX package does), ``stack`` /
+``batch`` of 'banded' numerator graphs and of 'dense' graphs, the batched
+forward-backward (``pdfposteriors``, ``forward``), and the LF-MMI training
+step: ``logmarginal`` and ``lfmmi_loss``, differentiable in the
+log-likelihoods with the posterior gradient γ_den - γ_num.  On the GPU the
+step runs through hand-written CUDA kernels: the dense denominator scan
+(K6a/K6b) or the blocked one (K2-K4), and the stacked-banded numerator scan
+(K5a/K5b).
 
 This package imports ``torch`` and never ``jax``.
 """

@@ -1,20 +1,24 @@
 """Compiled FSMs, the batched forward-backward and the LF-MMI loss.
 
-PyTorch counterpart of ``markovmodels_tpu/inference.py`` for the 'block'
-and 'banded' strategies in the probability domain:
+PyTorch counterpart of ``markovmodels_tpu/inference.py`` for the 'dense',
+'block' and 'banded' strategies in the probability domain:
 
 * ``compile_fsm`` lowers a host ``FSM`` to a :class:`CompiledFSM` of
-  tensors ('block': pdf-grouped relabeling, COO edge arrays, blocked
-  operator, rank-1 ω split; 'banded': per-offset arc bands and the ω
-  split), bit-identical to the JAX package's arrays; ``stack`` (alias
-  ``batch``) stacks 'banded' graphs, e.g. the per-utterance numerator
-  lattices;
+  tensors ('dense': exp-shifted (Sp, Sp) operators with their row maxima,
+  the default for graphs of up to 4,096 states; 'block': pdf-grouped
+  relabeling, COO edge arrays, blocked operator, rank-1 ω split; 'banded':
+  per-offset arc bands and the ω split), equal to the JAX package's arrays;
+  ``stack`` (alias ``batch``) stacks 'banded' graphs, e.g. the
+  per-utterance numerator lattices, and 'dense' graphs;
 * ``pdfposteriors`` / ``forward`` run the probability-domain scan.  CPU
   tensors take the plain PyTorch scan; CUDA tensors take the hand-written
-  kernels (``ops/block_scan.py`` for one shared 'block' graph,
+  kernels (``ops/dense_scan.py`` for one shared 'dense' graph,
+  ``ops/block_scan.py`` for one shared 'block' graph,
   ``ops/banded_scan.py`` for stacked 'banded' graphs, one sequence each)
   and raise, naming the first rejected predicate, for a graph those kernels
-  do not accept.  Nothing falls back quietly;
+  do not accept.  Nothing falls back quietly.  Stacked 'dense' graphs take
+  the plain per-graph scan on every device, as the JAX package runs them
+  outside any Pallas kernel;
 * ``logmarginal`` and ``lfmmi_loss`` are differentiable in ``lhs``: the
   gradient of logZ is the posterior matrix the scan already computed, so
   autograd never differentiates the scan.  This is the LF-MMI training
@@ -34,7 +38,7 @@ import torch
 from markovmodels_tpu import hostsparse as hs
 from markovmodels_tpu.fsm import FSM
 
-from .ops import banded_scan, block_scan
+from .ops import banded_scan, block_scan, dense_scan
 from .ops.block_scan import _pow2_exponent, _pow2_scale
 from .ops.blocked import BlockOperator, block_matvec, build_block_operator
 from .ops.emissions import prepare_emissions
@@ -52,10 +56,13 @@ __all__ = [
     "fast_path_report",
 ]
 
-_BLOCK_TODO = "ROADMAP: port the remaining strategies and precision modes"
+_MODES_TODO = ("ROADMAP queue 1 item 9: port the precision modes, float64 "
+               "and general multi-pdf Ĉ")
+_LOG_TODO = ("ROADMAP queue 1 item 10: port the log-domain path and the "
+             "'ell' and 'segment' strategies")
 _VMAP_TODO = ("ROADMAP queue 1 item 7: port the vmapped per-graph route for "
               "batched graphs")
-_PORTED = ("block", "banded")
+_PORTED = ("dense", "block", "banded")
 
 
 def _round_up(x, m):
@@ -64,8 +71,8 @@ def _round_up(x, m):
 
 @dataclasses.dataclass
 class CompiledFSM:
-    """Device representation of one FSM (or a stacked batch of 'banded'
-    FSMs) for the 'block' and 'banded' strategies.
+    """Device representation of one FSM (or a stacked batch of 'banded' or
+    'dense' FSMs) for the 'dense', 'block' and 'banded' strategies.
 
     Shapes below are for a single graph (``batched=False``); a stacked batch
     adds a leading graph axis G to every tensor field.  ``Sp`` is the padded
@@ -92,14 +99,22 @@ class CompiledFSM:
     # 'block': blocked gather-matmul-scatter operators of the S×S core
     block_fwd: Optional[BlockOperator]
     block_bwd: Optional[BlockOperator]
-    # (Sp,) probabilities of the arcs into the phony final state (ω column)
-    omega_prob: torch.Tensor
+    # (Sp,) probabilities of the arcs into the phony final state (ω column);
+    # None for 'dense', whose operator holds that column
+    omega_prob: Optional[torch.Tensor]
     # (Sp,) int32 original state id per (possibly reordered) slot; -1 pad
     orig_state: torch.Tensor
     # 'banded': (nO, Sp) arc probabilities per offset of banded_offsets,
     # indexed by destination (fwd) / by source (bwd)
     banded_fwd: Optional[torch.Tensor] = None
     banded_bwd: Optional[torch.Tensor] = None
+    # 'dense': (Sp, Sp) float32 exp(W - row_max) contracted over axis 1
+    # (fwd W[j, i] = T̂[i, j], bwd W[i, j] = T̂[i, j]; 0 for absent arcs)
+    # and the (Sp,) row maxima (-inf for an empty row)
+    dense_fwd_exp: Optional[torch.Tensor] = None
+    dense_fwd_max: Optional[torch.Tensor] = None
+    dense_bwd_exp: Optional[torch.Tensor] = None
+    dense_bwd_max: Optional[torch.Tensor] = None
     num_states: int = 0  # S+1 (incl. phony, excl. padding); Sp when stacked
     num_pdfs: int = 0  # real pdfs P (phony pdf id = P)
     strategy: str = "block"
@@ -144,49 +159,52 @@ def compile_fsm(
     state_pdf,
     num_pdfs: int,
     *,
-    strategy: str = "block",
+    strategy: str = "auto",
     dtype=torch.float32,
     precision: str = "high",
     domain: str = "prob",
     reorder: str = "auto",
     ov_cap: int | None = None,
 ) -> CompiledFSM:
-    """Lower a host FSM to the 'block' or 'banded' device representation
-    (on the CPU; move it with ``.to(device)``).
+    """Lower a host FSM to the 'dense', 'block' or 'banded' device
+    representation (on the CPU; move it with ``.to(device)``).
 
     ``state_pdf``: int array of length ``num_states + 1`` mapping each state
     (the phony final state included, mapped to ``num_pdfs``) to a pdf id,
     or a binary ``hostsparse`` Ĉ with one pdf per state.
 
-    ``strategy``: 'block' (one large shared graph, e.g. the LF-MMI
-    denominator) or 'banded' (a low-bandwidth lattice whose arcs sit on at
-    most 8 distinct (dst - src) offsets, e.g. a numerator: self-loop and
-    chain bands; more offsets raise ``ValueError``).
+    ``strategy``: 'auto' (the JAX package's default: 'dense' for graphs of
+    up to 4,096 states including the phony one, else 'block'), 'dense'
+    (exp-shifted (Sp, Sp) operators, e.g. a WSJ-sized LF-MMI denominator),
+    'block' (one large shared graph, e.g. the 2M-arc denominator) or
+    'banded' (a low-bandwidth lattice whose arcs sit on at most 8 distinct
+    (dst - src) offsets, e.g. a numerator: self-loop and chain bands; more
+    offsets raise ``ValueError``).
     ``reorder`` ('block' only, as in the JAX package): 'pdf' renumbers
     states into a uniform pdf-grouped layout (pdf p owns slots
     [p*cmax, (p+1)*cmax)); 'auto' does so when the padding inflation is
     acceptable; 'none' keeps the host order.
     ``precision``: 'high' and 'f32' both mean full float32.
 
-    Not ported yet (raise ``NotImplementedError``): other strategies,
-    float64, general multi-pdf Ĉ, precision 'bf16', the log domain and the
-    capped overflow layout.
+    Not ported yet (raise ``NotImplementedError``): the 'ell' and 'segment'
+    strategies, float64, general multi-pdf Ĉ, precision 'bf16', the log
+    domain and the capped overflow layout.
     """
     S1 = len(fsm.alpha_hat)
     if strategy == "auto":
         strategy = "dense" if S1 <= 4096 else "block"
     if strategy not in _PORTED:
-        raise NotImplementedError(f"strategy {strategy!r} ({_BLOCK_TODO})")
+        raise NotImplementedError(f"strategy {strategy!r} ({_LOG_TODO})")
     if dtype != torch.float32:
-        raise NotImplementedError(f"dtype {dtype} ({_BLOCK_TODO})")
+        raise NotImplementedError(f"dtype {dtype} ({_MODES_TODO})")
     if precision not in ("high", "f32"):
-        raise NotImplementedError(f"precision {precision!r} ({_BLOCK_TODO})")
+        raise NotImplementedError(f"precision {precision!r} ({_MODES_TODO})")
     if domain != "prob":
-        raise NotImplementedError(f"domain {domain!r} ({_BLOCK_TODO})")
+        raise NotImplementedError(f"domain {domain!r} ({_LOG_TODO})")
     if isinstance(state_pdf, hs.SpMat):
         if not (np.diff(state_pdf.indptr) == 1).all():
             raise NotImplementedError(
-                f"general multi-pdf Ĉ ({_BLOCK_TODO})"
+                f"general multi-pdf Ĉ ({_MODES_TODO})"
             )
         state_pdf = state_pdf.indices
     state_pdf = np.asarray(state_pdf, dtype=np.int32)
@@ -247,7 +265,7 @@ def compile_fsm(
         final_idx = S1 - 1
         S_eff = S1
 
-    Sp = _round_up(S_eff, 128 if strategy == "block" else 8)
+    Sp = _round_up(S_eff, 128 if strategy in ("dense", "block") else 8)
     Ep = max(_round_up(E, 8), 8)
 
     alpha_hat = np.full(Sp, -np.inf, dtype=np.float64)
@@ -291,8 +309,17 @@ def compile_fsm(
     f32 = lambda x: torch.from_numpy(np.asarray(x, dtype=np.float32))
     kw = dict(block_fwd=None, block_bwd=None, banded_fwd=None,
               banded_bwd=None, block_fwd_offsets=(), block_bwd_offsets=(),
-              banded_offsets=())
-    if strategy == "block":
+              banded_offsets=(), omega_prob=f32(om))
+    if strategy == "dense":
+        # the whole extended matrix, ω column included (no rank-1 split)
+        kw["omega_prob"] = None
+        for name, dst, src in (("fwd", cols, rows), ("bwd", rows, cols)):
+            W = np.full((Sp, Sp), -np.inf, dtype=np.float32)
+            W[dst, src] = data  # fwd: W[j, i] = T̂[i, j]
+            exp_w, row_max = dense_scan.make_dense_operator(
+                torch.from_numpy(W))
+            kw[f"dense_{name}_exp"], kw[f"dense_{name}_max"] = exp_w, row_max
+    elif strategy == "block":
         if len(np.unique(rows[to_fin])) != int(to_fin.sum()):
             raise ValueError(
                 "parallel arcs into the final state would break the "
@@ -332,7 +359,6 @@ def compile_fsm(
         bwd_dst=torch.from_numpy(bwd_dst),
         bwd_w=f32(bwd_w),
         pdf_onehot=pdf_onehot,
-        omega_prob=f32(om),
         orig_state=torch.from_numpy(orig),
         num_states=S1,
         num_pdfs=int(num_pdfs),
@@ -379,7 +405,8 @@ def compiled_from_numpy(fields: dict, meta: dict) -> CompiledFSM:
     kw = {}
     for name in ("alpha_hat", "state_pdf", "fwd_src", "fwd_dst", "fwd_w",
                  "bwd_src", "bwd_dst", "bwd_w", "pdf_onehot", "omega_prob",
-                 "orig_state", "banded_fwd", "banded_bwd"):
+                 "orig_state", "banded_fwd", "banded_bwd", "dense_fwd_exp",
+                 "dense_fwd_max", "dense_bwd_exp", "dense_bwd_max"):
         kw[name] = t(fields.get(name))
     fin = np.asarray(fields["final_state"])
     kw["final_state"] = int(fin) if fin.ndim == 0 else t(fin)
@@ -390,24 +417,26 @@ def compiled_from_numpy(fields: dict, meta: dict) -> CompiledFSM:
             kw[name] = plain(v)
     cf = CompiledFSM(**kw)
     if cf.strategy not in _PORTED:
-        raise NotImplementedError(f"strategy {cf.strategy!r} ({_BLOCK_TODO})")
+        raise NotImplementedError(f"strategy {cf.strategy!r} ({_LOG_TODO})")
     if cf.domain != "prob":
-        raise NotImplementedError(f"domain {cf.domain!r} ({_BLOCK_TODO})")
+        raise NotImplementedError(f"domain {cf.domain!r} ({_LOG_TODO})")
     return cf
 
 
 def stack(cfsms) -> CompiledFSM:
-    """Stack unbatched 'banded' CompiledFSMs into one batched graph
-    (reference ``batch``, src/inference.jl:28-36): every tensor gains a
-    leading graph axis, padded to the largest graph (initial weights -inf,
-    state pdfs to the phony pdf, padding edges to weight -inf, orig_state
-    -1, ω 0), and the band offsets become the union of the graphs' offsets
-    with zero bands where a graph lacks one.  Run one sequence per graph
+    """Stack unbatched 'banded' or 'dense' CompiledFSMs into one batched
+    graph (reference ``batch``, src/inference.jl:28-36): every tensor gains
+    a leading graph axis, padded to the largest graph (initial weights
+    -inf, state pdfs to the phony pdf, padding edges to weight -inf,
+    orig_state -1, one-hot columns 0).  'banded': ω is padded with 0 and
+    the band offsets become the union of the graphs' offsets with zero
+    bands where a graph lacks one.  'dense': each (Sp, Sp) operator is
+    padded with 0 and each row max with -inf.  Run one sequence per graph
     (B = G) through ``pdfposteriors``.
 
     'block' raises ``ValueError`` as in the JAX package (the blocked scans
-    share one large graph across the batch); 'dense', 'ell' and 'segment'
-    are not ported."""
+    share one large graph across the batch); 'ell' and 'segment' are not
+    ported."""
     cfsms = list(cfsms)
     if any(c.batched for c in cfsms):
         raise ValueError("can only stack unbatched CompiledFSMs")
@@ -417,39 +446,53 @@ def stack(cfsms) -> CompiledFSM:
         raise ValueError("stack requires matching strategy and num_pdfs")
     if strategy == "block":
         raise ValueError("stack does not support the 'block' strategy")
-    if strategy != "banded":
+    if strategy not in ("banded", "dense"):
         raise NotImplementedError(
             f"stack of {strategy!r} graphs (ROADMAP queue 1 item 7: the "
-            "'banded' strategy is the one stacked so far)")
+            "'banded' and 'dense' strategies are the ones stacked so far)")
 
     Sp = max(c.padded_states for c in cfsms)
     Ep = max(c.fwd_src.shape[-1] for c in cfsms)
 
-    def fstack(name, size, fill):
+    def fstack(name, size, fill, dims=1):
+        """Stack field ``name``, its last ``dims`` axes padded to size."""
         rows = []
         for c in cfsms:
             x = getattr(c, name)
-            rows.append(torch.nn.functional.pad(x, (0, size - x.shape[-1]),
-                                                value=fill))
+            rows.append(torch.nn.functional.pad(
+                x, (0, size - x.shape[-1]) * dims, value=fill))
         return torch.stack(rows)
 
-    offsets = tuple(sorted({o for c in cfsms for o in c.banded_offsets}))
-    if len(offsets) > 8:
-        raise ValueError(
-            f"stack: union of banded offsets has {len(offsets)} entries (> 8)"
-        )
+    kw = dict(banded_fwd=None, banded_bwd=None, omega_prob=None,
+              banded_offsets=())
+    if strategy == "banded":
+        offsets = tuple(sorted({o for c in cfsms for o in c.banded_offsets}))
+        if len(offsets) > 8:
+            raise ValueError(
+                f"stack: union of banded offsets has {len(offsets)} entries "
+                "(> 8)")
 
-    def bands(name):
-        out = torch.zeros((len(cfsms), max(len(offsets), 1), Sp),
-                          dtype=getattr(cfsms[0], name).dtype,
-                          device=cfsms[0].device)
-        for g, c in enumerate(cfsms):
-            src = getattr(c, name)
-            for i, o in enumerate(offsets):
-                if o in c.banded_offsets:
-                    j = c.banded_offsets.index(o)
-                    out[g, i, : src.shape[1]] = src[j]
-        return out
+        def bands(name):
+            out = torch.zeros((len(cfsms), max(len(offsets), 1), Sp),
+                              dtype=getattr(cfsms[0], name).dtype,
+                              device=cfsms[0].device)
+            for g, c in enumerate(cfsms):
+                src = getattr(c, name)
+                for i, o in enumerate(offsets):
+                    if o in c.banded_offsets:
+                        j = c.banded_offsets.index(o)
+                        out[g, i, : src.shape[1]] = src[j]
+            return out
+
+        kw.update(banded_fwd=bands("banded_fwd"),
+                  banded_bwd=bands("banded_bwd"),
+                  omega_prob=fstack("omega_prob", Sp, 0.0),
+                  banded_offsets=offsets)
+    else:
+        for d in ("fwd", "bwd"):
+            kw[f"dense_{d}_exp"] = fstack(f"dense_{d}_exp", Sp, 0.0, 2)
+            kw[f"dense_{d}_max"] = fstack(f"dense_{d}_max", Sp,
+                                          -float("inf"))
 
     onehot = None
     if all(c.pdf_onehot is not None for c in cfsms):
@@ -468,17 +511,14 @@ def stack(cfsms) -> CompiledFSM:
         pdf_onehot=onehot,
         block_fwd=None,
         block_bwd=None,
-        omega_prob=fstack("omega_prob", Sp, 0.0),
         orig_state=fstack("orig_state", Sp, -1),
-        banded_fwd=bands("banded_fwd"),
-        banded_bwd=bands("banded_bwd"),
         num_states=Sp,
         num_pdfs=num_pdfs,
         strategy=strategy,
         batched=True,
         precision=cfsms[0].precision,
         domain=cfsms[0].domain,
-        banded_offsets=offsets,
+        **kw,
     )
 
 
@@ -540,9 +580,15 @@ def _make_eprob(cf: CompiledFSM, lengths):
 
 
 def _make_prob_matvecs(cf: CompiledFSM):
-    """Probability-domain matvecs of one (unstacked) graph with the rank-1
-    ω column: y[fin] = ω·a forward (ω[fin] = 1 covers the phony
-    self-loop), y += ω ⊙ a[fin] backward."""
+    """Probability-domain matvecs of one (unstacked) graph: 'dense' as the
+    JAX package's XLA path computes it, y = exp(row_max) ⊙ (exp_w @ a);
+    'banded' and 'block' with the rank-1 ω column: y[fin] = ω·a forward
+    (ω[fin] = 1 covers the phony self-loop), y += ω ⊙ a[fin] backward."""
+    if cf.strategy == "dense":
+        scale_f = torch.exp(cf.dense_fwd_max)[:, None]  # -inf rows -> 0
+        scale_b = torch.exp(cf.dense_bwd_max)[:, None]
+        return (lambda a: scale_f * (cf.dense_fwd_exp @ a),
+                lambda b: scale_b * (cf.dense_bwd_exp @ b))
     if cf.strategy == "banded":
         kop = banded_scan.kernel_operator(cf)  # G = 1: shared by all columns
         return (lambda a: banded_scan.fwd_matvec_plain(kop, a),
@@ -675,6 +721,24 @@ def _fb_prob(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
                     _STATE_DTYPE.get(cf.strategy))
 
 
+def _make_stacked_eprob(spdf, lengths):
+    """(lhs_t (G, P), t) -> (e (Sp, G), m_l (G,)) for stacked graphs, one
+    sequence per graph: a per-column gather by each graph's state pdfs
+    ``spdf`` (Sp, G).  Past a sequence's end only the phony pdf emits: the
+    phony state and the padding states, whose probability is always 0."""
+
+    def eprob(lhs_t, t):
+        active = t < lengths  # (G,)
+        m_l = lhs_t.amax(dim=1)
+        el = torch.exp(lhs_t - m_l[:, None])
+        ph = (~active).to(lhs_t.dtype)[None, :]
+        ext = torch.cat([el.T * active[None, :], ph], dim=0)  # (P1, G)
+        return (ext.gather(0, spdf),
+                torch.where(active, m_l, torch.zeros_like(m_l)))
+
+    return eprob
+
+
 def _fb_prob_banded_stacked(cf: CompiledFSM, lhs, lengths, chunk_size,
                             want_posts):
     """Plain scan of stacked 'banded' graphs, one sequence per graph: the
@@ -686,15 +750,6 @@ def _fb_prob_banded_stacked(cf: CompiledFSM, lhs, lengths, chunk_size,
     kop = banded_scan.kernel_operator(cf)
     spdf = kop.spdf.long()
     P1 = kop.P1
-
-    def eprob(lhs_t, t):
-        active = t < lengths  # (G,)
-        m_l = lhs_t.amax(dim=1)
-        el = torch.exp(lhs_t - m_l[:, None])
-        ph = (~active).to(lhs_t.dtype)[None, :]
-        ext = torch.cat([el.T * active[None, :], ph], dim=0)  # (P1, G)
-        return (ext.gather(0, spdf),
-                torch.where(active, m_l, torch.zeros_like(m_l)))
 
     def pdf_reduce(a, y):
         gamma = a * y
@@ -709,7 +764,7 @@ def _fb_prob_banded_stacked(cf: CompiledFSM, lhs, lengths, chunk_size,
         alpha0=kop.a0,
         fwd_pmv=lambda a: banded_scan.fwd_matvec_plain(kop, a),
         bwd_pmv=lambda b: banded_scan.bwd_matvec_plain(kop, b),
-        eprob=eprob,
+        eprob=_make_stacked_eprob(spdf, lengths),
         pdf_reduce=pdf_reduce,
         final_val=final_val,
     )
@@ -717,9 +772,61 @@ def _fb_prob_banded_stacked(cf: CompiledFSM, lhs, lengths, chunk_size,
                     _STATE_DTYPE["banded"])
 
 
+def _fb_prob_dense_stacked(cf: CompiledFSM, lhs, lengths, chunk_size,
+                           want_posts):
+    """The per-graph route of stacked 'dense' graphs, one sequence per
+    graph: the JAX package vmaps its plain scan over the graphs
+    (``inference.py:1580-1588``); here the graph axis is the column axis of
+    the (Sp, G) state and each column is multiplied by its own graph's
+    operator (one batched matmul per frame).  Emissions are a per-column
+    gather of each graph's state pdfs, the pdf reduction a per-graph
+    one-hot product (every 'dense' graph carries its one-hot Ĉᵀ)."""
+    fin = torch.as_tensor(cf.final_state, device=cf.device).long()
+    scale_f = torch.exp(cf.dense_fwd_max).T  # (Sp, G); -inf rows -> 0
+    scale_b = torch.exp(cf.dense_bwd_max).T
+
+    def pmv(expw, scale):
+        # column g: scale[:, g] ⊙ (expw[g] @ a[:, g])
+        return lambda a: scale * torch.bmm(expw, a.T[:, :, None])[:, :, 0].T
+
+    def pdf_reduce(a, y):
+        gamma = a * y
+        s = torch.bmm(cf.pdf_onehot.to(gamma.dtype),
+                      gamma.T[:, :, None])[:, :, 0].T
+        return s, gamma.sum(dim=0)
+
+    def final_val(a, ksum, shift):
+        v = a.gather(0, fin[None, :])[0]
+        return _combine_shift(_log_final(v), ksum, shift)
+
+    kern = _ProbKernels(
+        alpha0=torch.exp(cf.alpha_hat).T,
+        fwd_pmv=pmv(cf.dense_fwd_exp, scale_f),
+        bwd_pmv=pmv(cf.dense_bwd_exp, scale_b),
+        eprob=_make_stacked_eprob(cf.state_pdf.long().T, lengths),
+        pdf_reduce=pdf_reduce,
+        final_val=final_val,
+    )
+    return _fbp_run(kern, lhs, chunk_size, want_posts, cf.num_pdfs)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels and the dispatcher
 # ---------------------------------------------------------------------------
+
+def _fb_dense_cuda(cf: CompiledFSM, lhs, lengths, want_posts):
+    """The hand-written CUDA dense scan (ops/dense_scan.py): one forward
+    sweep (K6a) keeping every frame's state, then one backward sweep (K6b);
+    ``chunk_size`` does not apply, as on the JAX package's fused path."""
+    B, N, P = lhs.shape
+    ext, mshift = prepare_emissions(lhs, lengths, P)
+    posts, vfin, shift, ksum = dense_scan.dense_fused_fb(cf, ext, mshift,
+                                                         want_posts)
+    logZ = _combine_shift(_log_final(vfin), ksum, shift)
+    if not want_posts:
+        return None, logZ
+    return posts.permute(2, 0, 1)[:, :N, :P], logZ
+
 
 def _fb_block_cuda(cf: CompiledFSM, lhs, lengths, want_posts, chunk_size):
     """The hand-written CUDA scan (ops/block_scan.py): one forward sweep
@@ -749,6 +856,8 @@ def _fb_banded_cuda(cf: CompiledFSM, lhs, lengths, want_posts):
 
 # per strategy: (admission, the scan's name, its fast-path report line)
 _CUDA_SCANS = {
+    "dense": (dense_scan.dense_scan_reject_reason, "dense scan",
+              "cuda-dense-scan (hand-written CUDA kernels K6a/K6b)"),
     "block": (block_scan.block_scan_reject_reason, "blocked scan",
               "cuda-block-scan (hand-written CUDA kernels K2-K4)"),
     "banded": (banded_scan.banded_scan_reject_reason, "stacked banded scan",
@@ -781,6 +890,10 @@ def fast_path_report(cf: CompiledFSM, batch_size: int, *, device=None) -> str:
     graph's device) and, for a CUDA device, the first predicate the kernels
     reject (``pdfposteriors`` then raises with the same reason)."""
     device = torch.device(cf.device if device is None else device)
+    if cf.batched and cf.strategy == "dense":
+        return ("plain torch per-graph scan (stacked 'dense' graphs, one "
+                "column per graph, on every device: the JAX package runs "
+                "this route outside any Pallas kernel)")
     if device.type == "cpu":
         what = ("stacked 'banded' graphs, one column per graph"
                 if cf.batched else f"one {cf.strategy!r} graph")
@@ -814,12 +927,12 @@ def _dispatch(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
     B, N, P = lhs.shape
     if P != cf.num_pdfs:
         raise ValueError(f"lhs has {P} pdfs, graph expects {cf.num_pdfs}")
-    if cf.batched and not (cf.strategy == "banded"
+    if cf.batched and not (cf.strategy in ("banded", "dense")
                            and B == cf.alpha_hat.shape[0]):
         raise NotImplementedError(
             f"batched {cf.strategy!r} graph of {cf.alpha_hat.shape[0]} "
-            f"graphs at batch {B}: only stacked 'banded' graphs with one "
-            f"sequence per graph run ({_VMAP_TODO})")
+            f"graphs at batch {B}: only stacked 'banded' and 'dense' graphs "
+            f"with one sequence per graph run ({_VMAP_TODO})")
     if chunk_size is None:
         chunk_size = _auto_chunk(cf, lhs)
     if lengths is None:
@@ -830,7 +943,14 @@ def _dispatch(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
         torch.as_tensor(lengths).to(device=lhs.device, dtype=torch.int32),
         max=N,
     )
+    if cf.batched and cf.strategy == "dense":
+        # the designated route on every device: the JAX package's dense
+        # kernels reject batched graphs, and its vmap lands on the XLA scan
+        return _fb_prob_dense_stacked(cf, lhs, lengths, chunk_size,
+                                      want_posts)
     if _kernel_route(cf, lhs.device, B, N):
+        if cf.strategy == "dense":
+            return _fb_dense_cuda(cf, lhs, lengths, want_posts)
         if cf.strategy == "banded":
             return _fb_banded_cuda(cf, lhs, lengths, want_posts)
         return _fb_block_cuda(cf, lhs, lengths, want_posts, chunk_size)
@@ -847,7 +967,7 @@ def pdfposteriors(cf: CompiledFSM, lhs, lengths=None, *,
     ``lhs``: (B, N, P) log-likelihoods on the graph's device; ``lengths``:
     (B,) frame counts.  Returns (posteriors (B, N, P), logZ (B,)).
     Posteriors are exactly zero past each sequence length.  A stacked
-    'banded' graph takes one sequence per graph (B = G).  Not
+    'banded' or 'dense' graph takes one sequence per graph (B = G).  Not
     differentiable: use :func:`logmarginal` / :func:`lfmmi_loss`."""
     return _dispatch(cf, lhs, lengths, chunk_size, True)
 
@@ -889,7 +1009,9 @@ def lfmmi_loss(num_cf: CompiledFSM, den_cf: CompiledFSM, lhs, lengths=None,
     """LF-MMI objective per utterance: -(log p_num - log p_den), (B,).
 
     ``num_cf`` is typically a stacked batch of per-utterance 'banded'
-    numerator graphs, ``den_cf`` the shared 'block' denominator graph.
+    numerator graphs, ``den_cf`` the shared denominator graph ('dense' up
+    to 4,096 states under the default strategy, e.g. a WSJ-sized
+    denominator, else 'block').
     Differentiable in ``lhs`` with gradient γ_den - γ_num."""
     num = logmarginal(num_cf, lhs, lengths, chunk_size=chunk_size)
     den = logmarginal(den_cf, lhs, lengths, chunk_size=chunk_size)

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of the port.
 
-The sources under ``csrc/`` have a plain C interface.  They are compiled
-with nvcc for Hopper (``sm_90a``) into one shared library under
+The sources under ``csrc/`` have a plain C interface.  At first use each is
+compiled with nvcc for Hopper (``sm_90a``), all at once in parallel, and the
+objects are linked into one shared library under
 ``build/markovmodels_tpu_torch/`` at the root of the checkout, named by a
-hash of the sources and flags, at first use, and bound with ctypes.  A build
-or load failure raises; there is no fallback.
+hash of the sources and flags, and bound with ctypes.  A build or load
+failure raises; there is no fallback.
 """
 from __future__ import annotations
 
@@ -18,10 +19,10 @@ from pathlib import Path
 __all__ = ["library", "build_dir", "error_string", "PTXAS_LOG"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("block_scan.cu", "banded_scan.cu")
+_SOURCES = ("block_scan.cu", "banded_scan.cu", "dense_scan.cu")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIB = None
@@ -36,6 +37,8 @@ _SIGNATURES = {
     "mm_block_bwd": [_P] * 9 + [_I] * 4 + [_P] * 6,
     "mm_banded_fwd": [_P] * 13,
     "mm_banded_bwd": [_P] * 9,
+    "mm_dense_fwd": [_P] * 5 + [_I] * 6 + [_P] * 9,
+    "mm_dense_bwd": [_P] * 7 + [_I] * 5 + [_P] * 8,
 }
 
 
@@ -67,14 +70,27 @@ def library() -> ctypes.CDLL:
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp),
-               *(str(_CSRC / s) for s in _SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}"
-            )
-        PTXAS_LOG = res.stdout + res.stderr
+        nvcc = _nvcc()
+        objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in _SOURCES]
+        jobs = [subprocess.Popen([nvcc, *_FLAGS, "-c", "-o", str(o),
+                                  str(_CSRC / s)],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+                for s, o in zip(_SOURCES, objs)]
+        logs = [j.communicate()[0] for j in jobs]
+        link = None
+        if all(j.returncode == 0 for j in jobs):
+            link = subprocess.run(
+                [nvcc, *_FLAGS[:2], "-shared", "-o", str(tmp),
+                 *map(str, objs)], capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if link is None or link.returncode != 0:
+            codes = [j.returncode for j in jobs] + (
+                [link.returncode] if link else [])
+            raise RuntimeError(f"nvcc failed ({codes}):\n" + "".join(logs))
+        PTXAS_LOG = "".join(logs)
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, args in _SIGNATURES.items():

@@ -378,7 +378,7 @@ def test_stack_rejects_what_it_does_not_stack(mixed):
     with pytest.raises(ValueError, match="'block'"):
         mt.stack([port_from_jax(jax_compiled(16))] * 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.stack([dataclasses.replace(c, strategy="dense") for c in cts])
+        mt.stack([dataclasses.replace(c, strategy="ell") for c in cts])
     with pytest.raises(ValueError, match="unbatched"):
         mt.stack([mt.stack(cts)])
 

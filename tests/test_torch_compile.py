@@ -1,5 +1,6 @@
 """The port's compile_fsm against the JAX package's: every field, the plan
-metadata included, exactly equal; and compiled_from_numpy round trips.
+metadata included, exactly equal; compiled_from_numpy round trips; and the
+default strategy ('auto') picks what the JAX package picks.
 
 V=128 takes the affine tier descriptors of the fused path; V=16, 32 and 64
 take the gather/scatter, two-tier and stride-192 branches."""
@@ -7,6 +8,7 @@ import pytest
 import torch
 
 import markovmodels_tpu_torch as mt
+from markovmodels_tpu import inference as inf
 from _torch_port import (assert_same_compiled, jax_compiled, lm_graph,
                          port_from_jax)
 
@@ -21,9 +23,20 @@ def test_compile_matches_jax(V):
 def test_compile_matches_jax_without_reorder():
     """reorder='none' keeps host order and builds the one-hot Ĉᵀ."""
     fsm, spdf, P, _ = lm_graph(16)
-    ct = mt.compile_fsm(fsm, spdf, P, reorder="none")
+    ct = mt.compile_fsm(fsm, spdf, P, strategy="block", reorder="none")
     assert ct.pdf_group == () and ct.pdf_onehot is not None
     assert_same_compiled(jax_compiled(16, "none"), ct)
+
+
+@pytest.mark.parametrize("V", [16, 128])
+def test_default_strategy_matches_jax(V):
+    """compile_fsm's default is the JAX package's 'auto': 'dense' up to
+    4,096 states (V=16: 769), 'block' beyond (V=128: 49,153)."""
+    fsm, spdf, P, _ = lm_graph(V)
+    cj = inf.compile_fsm(fsm, spdf, P)
+    ct = mt.compile_fsm(fsm, spdf, P)
+    assert ct.strategy == cj.strategy == ("dense" if V == 16 else "block")
+    assert_same_compiled(cj, ct)
 
 
 @pytest.mark.parametrize("V", [32, 128])
@@ -37,7 +50,7 @@ def test_compiled_from_numpy_round_trips(V):
 @pytest.mark.parametrize("kw", [
     dict(precision="bf16"),
     dict(dtype=torch.float64),
-    dict(strategy="dense"),
+    dict(strategy="ell"),
     dict(domain="log"),
     dict(ov_cap=64),
 ])

@@ -17,6 +17,7 @@ PKG = ROOT / "markovmodels_tpu_torch"
     "markovmodels_tpu_torch",
     "markovmodels_tpu_torch.ops.block_scan",
     "markovmodels_tpu_torch.ops.banded_scan",
+    "markovmodels_tpu_torch.ops.dense_scan",
     "markovmodels_tpu_torch.ops._build",
 ])
 def test_port_imports_without_jax(module):

@@ -135,7 +135,7 @@ def test_plain_scan_on_other_layouts_matches_jax(V, reorder):
     gather/scatter) through the plain scan, against the JAX XLA path."""
     fsm, spdf, P, _ = lm_graph(V)
     cj = jax_compiled(V, reorder)
-    ct = mt.compile_fsm(fsm, spdf, P, reorder=reorder)
+    ct = mt.compile_fsm(fsm, spdf, P, strategy="block", reorder=reorder)
     lhs, lens = inputs(4, 5, P, seed=V, lens=[5, 4, 2, 5])
     pj, zj = _jax_run(cj, lhs, lens, "MMTPU_NO_PALLAS")
     pt, zt = mt.pdfposteriors(ct, torch.from_numpy(lhs),
