@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port (``markovmodels_tpu_torch``).
 
-Drives the port's main path, the LF-MMI training step, at B=128 sequences ×
-N=700 frames: ``lfmmi_loss`` of 128 stacked 'banded' numerator lattices
+Drives the port's main paths at B=128 sequences × N=700 frames: first the
+LF-MMI training step, ``lfmmi_loss`` of 128 stacked 'banded' numerator lattices
 (78 states each, the shape ``bench.py`` builds) against the 2M-arc
 trigram-LM ∘ HMM denominator (49,153 states, 2,195,457 arcs, 384 pdfs),
 with the gradient in the log-likelihoods, through the hand-written CUDA
@@ -10,17 +10,19 @@ kernels K2-K4 of ``markovmodels_tpu_torch/ops/csrc/block_scan.cu`` (the
 denominator) and K5a/K5b of ``.../csrc/banded_scan.cu`` (the numerators);
 then the same step against a 'dense' denominator (the V=32 LM ∘ HMM graph:
 3,073 states, 38,913 arcs, 96 pdfs, within 6 % of the WSJ denominator's
-padded width) through K6a/K6b of ``.../csrc/dense_scan.cu``, in phases:
+padded width) through K6a/K6b of ``.../csrc/dense_scan.cu``; then the
+Viterbi decode of the 2M-arc graph through K7 and the backtrace walk of
+``.../csrc/vit_scan.cu``, in phases:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels from the sources in the checkout (nvcc, sm_90a);
-3. build the graph, compile it (strategy 'block', precision 'high') and
-   move it to the card;
+3. build the graph and compile it onto the card (strategy 'block',
+   precision 'high');
 4. each kernel against its plain PyTorch twin on the same inputs, at the
    main-path graph with B=128 and N=128 (a mid-sequence chunk boundary,
    mixed lengths, ±30-nat emission cliffs);
 5. ``pdfposteriors`` at B=2, N=40 against the exact float64 host oracle
-   (``bench.host_oracle``): |ΔlogZ| and |Δposts| ≤ 1e-4;
+   (the port's ``oracle.host_oracle``): |ΔlogZ| and |Δposts| ≤ 1e-4;
 6. the denominator ``pdfposteriors`` at B=128, N=700 with launch counters,
    output checks, and the kernel path timed beside the plain PyTorch scan;
 7. K5a and K5b against their plain twins at the numerators' main shape
@@ -38,7 +40,22 @@ padded width) through K6a/K6b of ``.../csrc/dense_scan.cu``, in phases:
     (P=96) at B=128, N=700: launch counters (K5a, K5b, K6a, K6b), the
     gradient against γ_den - γ_num, and its time beside the denominator's;
 14. four stacked non-banded 'dense' graphs (B = G = 4) through the
-    per-graph route on the card against the f64 oracle.
+    per-graph route on the card against the f64 oracle;
+15. K7 and the walk against their plain twins at the 2M-arc graph, B=128,
+    N=128 (mixed lengths with 1 and N, ±30-nat cliffs): ids and omega
+    argmaxes bit-equal, scores within 1e-5;
+16. ``viterbi`` at B=2, N=40 against the f64 max-plus optimum
+    (``oracle.host_viterbi_score``): |Δscore| ≤ 1e-3, the decoded paths'
+    f64 weight within 1e-4 of it;
+17. the decode at B=128, N=700 with launch counters, every path walked in
+    float64 (``oracle.validate_paths``, gap < 2e-3), the sweep and the walk
+    timed apart, audio-s/s, and the plain twins timed beside them and held
+    to the kernels at this shape (ids, omega argmaxes and walked states
+    bit-equal, scores within 1e-5).
+
+Every kernel's entry in the JSON line carries its bound: the larger of its
+operations over the card's peak rate for their type and its bytes over the
+memory bandwidth (H100 SXM data sheet), computed from this run's shapes.
 
 Needs one CUDA card; exits non-zero before printing any result when there
 is none or when any phase fails.  Run from the root of the checkout:
@@ -49,6 +66,7 @@ The last two lines are a JSON object of per-kernel results and
 {"ok": true, "device": {...}}.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +92,116 @@ TOL_GRAD_SUM = 1e-4  # the gradient's sum over pdfs on an active frame
 # of the per-pdf posterior sums in another order, compounded over 701
 # frames; states compared after normalising each (frame, column) to max 1
 TOL_K6 = 1e-4
+# K7 vs plain twin (phase 15): the same float32 products and compares, so
+# the ids and the omega argmaxes must be bit-equal; the scores are then
+# equal too (the bound allows for the log and the ksum·ln2 split only)
+TOL_VIT = 1e-5
+TOL_VIT_ORACLE = 1e-3  # |dscore| vs the f64 max-plus optimum (bench.py gate)
+TOL_VIT_PATH = 1e-4  # a decoded path's f64 weight vs that optimum
+TOL_VIT_WALK = 2e-3  # path weight vs the device score over 700 frames
+
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense, outside
+# the tensor cores for the float types the kernels compute in) for the
+# kernels' bounds: the larger of operations / peak and bytes / bandwidth.
+PEAK_F32 = 67e12  # float32 FLOP/s
+PEAK_F64 = 34e12  # float64 FLOP/s (K5a/K5b keep their state in float64)
+# float32 instructions that are not FMAs (a multiply, a compare, a select):
+# one per lane and clock, half the FMA FLOP rate
+PEAK_F32_OPS = PEAK_F32 / 2
+PEAK_BYTES = 3.35e12  # HBM3 bytes/s
+
+
+def bound(flops, nbytes, peak=PEAK_F32):
+    """(bound_ms, bound_by): the least time the card could take for work of
+    ``flops`` operations on ``nbytes`` bytes (each input read once, each
+    output written once)."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def block_bounds(cf, B, Npad, chunk):
+    """K2 over Npad frames, K3 and K4 over one chunk, as timed: the tier's
+    multiply-adds, the bands, the omega dot, the emission and the rescale
+    (forward), plus gamma and its pdf sums (backward)."""
+    from markovmodels_tpu_torch.ops import block_scan as bs
+
+    kop = bs.kernel_operator(cf)
+    K, Sm, D = kop.fwd.W.shape
+    nO, Sp, P1 = len(kop.fwd.offsets), kop.Sp, kop.P1
+    op = 4 * (K * Sm * D + nO * Sp + Sp)
+    fwd = B * (2 * K * Sm * D + 2 * nO * Sp + 4 * Sp)
+    bwd = B * (2 * K * Sm * D + 2 * nO * Sp + 6 * Sp)
+    C = Npad // chunk
+    return {
+        "K2": bound(Npad * fwd, op + 4 * (Sp * B + Npad * (P1 + 1) * B
+                                          + C * (Sp + 1) * B + Sp * B
+                                          + 3 * B)),
+        "K3": bound(chunk * fwd, op + 4 * (Sp * B + B + chunk * P1 * B
+                                           + chunk * (Sp + 1) * B)),
+        "K4": bound(chunk * bwd, op + 4 * (Sp * B + B
+                                           + chunk * (Sp + 1) * B
+                                           + 2 * chunk * P1 * B
+                                           + Sp * B + B)),
+    }
+
+
+def banded_bounds(num_cf, Nf):
+    """K5a and K5b over the Nf-frame sweep of G lattices: float64 state;
+    each state's emission gathered once per frame."""
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+
+    kop = bsc.kernel_operator(num_cf)
+    Sp, G, P1, nO = kop.Sp, kop.G, kop.P1, len(kop.offsets)
+    op = 4 * (2 * nO * Sp * G + 3 * Sp * G)
+    emis = 4 * Nf * Sp * G
+    return {
+        "K5a": bound(Nf * G * (2 * nO * Sp + 4 * Sp),
+                     op + emis + 4 * Nf * G + 8 * Nf * Sp * G + 24 * G,
+                     PEAK_F64),
+        "K5b": bound(Nf * G * (2 * nO * Sp + 5 * Sp),
+                     op + emis + 8 * Nf * Sp * G + 4 * Nf * P1 * G,
+                     PEAK_F64),
+    }
+
+
+def dense_bounds(dcf, B, Nf):
+    """K6a and K6b over the Nf-frame sweep: the (Sp, Sp) product per frame
+    plus the emission, rescale and posterior work."""
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    kop = ds.kernel_operator(dcf)
+    Sp, P1 = kop.Sp, kop.P1
+    return {
+        "K6a": bound(Nf * B * (2 * Sp * Sp + 3 * Sp),
+                     4 * (Sp * Sp + Sp * B + Nf * (P1 + 1) * B
+                          + Nf * (Sp + 1) * B + 3 * B)),
+        "K6b": bound(Nf * B * (2 * Sp * Sp + 5 * Sp),
+                     4 * (Sp * Sp + Nf * (Sp + 1) * B + 2 * Nf * P1 * B)),
+    }
+
+
+def vit_bounds(cf, B, Nf):
+    """K7 over the Nf-frame sweep: per candidate (tier, bands over the main
+    region) four instructions, none of which fuses into an FMA: the
+    multiply, the compare, and the selects of the running max and of the
+    winning id (a max instruction can take the value's select, but the id
+    still needs the compare's predicate, so four is the least); per state
+    the omega product and max, the emission multiply and the rescale; the
+    ids written once.  The walk: per frame and sequence one id, two table
+    reads and one state written (what this decode reads)."""
+    from markovmodels_tpu_torch.ops import block_scan as bs
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+
+    kop = bs.kernel_operator(cf)
+    K, Sm, D = kop.fwd.W.shape
+    nO, Sp, P1 = len(kop.fwd.offsets), kop.Sp, kop.P1
+    RW = vs._main_region(cf)
+    ops = Nf * B * (4 * K * Sm * D + 4 * nO * RW + 2 * Sp + 2 * Sp)
+    nbytes = (4 * (K * Sm * D + nO * Sp + 2 * Sp + Nf * (P1 + 1) * B)
+              + Nf * RW * B + 4 * Nf * B + 12 * B)
+    return {"K7": bound(ops, nbytes, PEAK_F32_OPS),
+            "K7w": bound(0, (Nf - 1) * B * (1 + 4 + 4 + 4) + 8 * B)}
 
 
 def card_line():
@@ -85,12 +213,13 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=1):
-    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
-    timed with CUDA events."""
+def cuda_ms(fn, reps=1, warm=True):
+    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up
+    (unless ``warm`` is False), timed with CUDA events."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -100,6 +229,43 @@ def cuda_ms(fn, reps=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profile_device(fn):
+    """Where one warm call of ``fn`` spends the card's time, from
+    torch.profiler's device events: ({kernel: ms}, busy ms, span ms), the
+    span running from the first device event's start to the last one's
+    end; None when the profiler records no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    def short(name):  # "void ns::k<...>(args)" -> "k<...>"
+        m = re.search(r"(\w+(?:<[^()]*>)?)\(", name)
+        return (m.group(1) if m else name)[:60]
+
+    spans = sorted((e.time_range.start, e.time_range.end, short(e.name))
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    by_name = {}
+    for t0, t1, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e3
+    busy, (lo, hi) = 0.0, spans[0][:2]
+    for t0, t1, _ in spans[1:]:
+        if t0 > hi:
+            busy, lo, hi = busy + hi - lo, t0, t1
+        else:
+            hi = max(hi, t1)
+    busy += hi - lo
+    span = max(t1 for _, t1, _ in spans) - spans[0][0]
+    return by_name, busy / 1e3, span / 1e3
 
 
 def make_inputs(rng, B, N, P, cliffs=False):
@@ -195,14 +361,13 @@ def phase_oracle(fsm, spdf, cf, P, dev, n=40, label="phase 5"):
     oracle."""
     import torch
 
-    import bench
     import markovmodels_tpu_torch as mt
 
     rng = np.random.default_rng(7)
     lhs = rng.normal(size=(2, n, P)).astype(np.float32)
     lens = np.array([n, max(2, 2 * n // 3)], dtype=np.int32)
-    ref_z, ref_p = bench.host_oracle(fsm, spdf, P, lhs.astype(np.float64),
-                                     lens)
+    ref_z, ref_p = mt.oracle.host_oracle(fsm, spdf, P,
+                                         lhs.astype(np.float64), lens)
     posts, z = mt.pdfposteriors(cf, torch.from_numpy(lhs).to(dev),
                                 torch.from_numpy(lens).to(dev))
     err = float(np.abs(z.cpu().numpy() - ref_z).max())
@@ -330,8 +495,8 @@ def build_numerators(P, G=128, Lp=78, seed=3):
 def stack_numerators(graphs, P, dev):
     import markovmodels_tpu_torch as mt
 
-    return mt.stack([mt.compile_fsm(f, sp, P, strategy="banded")
-                     for f, sp in graphs]).to(dev)
+    return mt.stack([mt.compile_fsm(f, sp, P, strategy="banded", device=dev)
+                     for f, sp in graphs])
 
 
 def banded_inputs(num_cf, P, dev, N=700, seed=11):
@@ -397,7 +562,6 @@ def phase_banded_oracle(P, dev, n=40):
     states, through K5a/K5b) against the exact f64 host oracle."""
     import torch
 
-    import bench
     import markovmodels_tpu_torch as mt
 
     graphs = []
@@ -412,9 +576,9 @@ def phase_banded_oracle(P, dev, n=40):
     z, posts = z.cpu().numpy(), posts.cpu().numpy()
     err = perr = 0.0
     for g, (fsm, spdf) in enumerate(graphs):
-        rz, rp = bench.host_oracle(fsm, spdf, P,
-                                   lhs[g:g + 1].astype(np.float64),
-                                   lens[g:g + 1])
+        rz, rp = mt.oracle.host_oracle(fsm, spdf, P,
+                                       lhs[g:g + 1].astype(np.float64),
+                                       lens[g:g + 1])
         err = max(err, float(np.abs(z[g] - rz[0])))
         perr = max(perr, float(np.abs(posts[g] - rp[0]).max()))
     print(f"phase 8: numerators G=4 N={n} vs f64 oracle |dlogZ| = "
@@ -581,13 +745,12 @@ def phase_dense_stack(dev, P=24, n=40):
     dense kernels)."""
     import torch
 
-    import bench
     import markovmodels_tpu_torch as mt
     from markovmodels_tpu_torch.ops import dense_scan as ds
 
     rng = np.random.default_rng(9)
     graphs = [random_graph(rng, S, P) for S in (10, 25, 40, 57)]
-    cf = mt.stack([mt.compile_fsm(f, sp, P) for f, sp in graphs]).to(dev)
+    cf = mt.stack([mt.compile_fsm(f, sp, P, device=dev) for f, sp in graphs])
     assert cf.strategy == "dense" and cf.batched
     report = mt.fast_path_report(cf, 4)
     assert "per-graph" in report, report
@@ -600,9 +763,9 @@ def phase_dense_stack(dev, P=24, n=40):
     assert sum(ds.LAUNCHES.values()) == 0, "the per-graph route launched K6"
     err = perr = 0.0
     for g, (fsm, spdf) in enumerate(graphs):
-        rz, rp = bench.host_oracle(fsm, spdf, P,
-                                   lhs[g:g + 1].astype(np.float64),
-                                   lens[g:g + 1])
+        rz, rp = mt.oracle.host_oracle(fsm, spdf, P,
+                                       lhs[g:g + 1].astype(np.float64),
+                                       lens[g:g + 1])
         err = max(err, float(np.abs(z[g] - rz[0])))
         perr = max(perr, float(np.abs(posts[g] - rp[0]).max()))
     print(f"phase 14: stacked dense G=4 N={n} on {dev} ({report}) vs f64 "
@@ -637,6 +800,200 @@ def time_dense(cf, P, dev):
     return out
 
 
+def matmul_yardstick(dcf, dev, B=128, Nf=701):
+    """The dense scan's product alone as one PyTorch call per frame: the
+    (Sp, Sp) @ (Sp, B) float32 ``torch.matmul`` times Nf (a yardstick for
+    K6a/K6b, which also rescale, emit and reduce; not a kernel of the
+    port)."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    kop = ds.kernel_operator(dcf)
+    a = torch.rand((kop.Sp, B), device=dev)
+    return Nf * cuda_ms(lambda: torch.matmul(kop.wf, a), reps=50)
+
+
+def vit_inputs(P, dev, B=128, N=128, seed=4):
+    """Phase 15's input: mixed lengths with 1 and N, ±30-nat cliffs."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P, cliffs=True)).to(dev)
+    lens = rng.integers(1, N + 1, size=B).astype(np.int32)
+    lens[:4] = [N, 1, 2 * N // 3, N // 2 + 1]
+    return lhs, torch.from_numpy(lens).to(dev)
+
+
+def vit_score(out):
+    from markovmodels_tpu_torch import inference as tinf
+
+    _, _, vfin, shift, ksum = out
+    return tinf._combine_shift(tinf._log_final(vfin), ksum,
+                               shift).cpu().numpy()
+
+
+def phase_vit_kernels(cf, P, dev, B=128, N=128):
+    """Phase 15: K7 and the walk against their plain twins on one input at
+    the main graph, B=128, N=128."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    lhs, lens = vit_inputs(P, dev, B, N)
+    ext, msh = prepare_emissions(lhs, lens, P)
+    out_k = vs.viterbi_fwd(cf, ext, msh)
+    torch.cuda.synchronize()
+    out_p = vs.viterbi_fwd_plain(cf, ext, msh)
+    n_bp = int((out_k[0] != out_p[0]).sum())
+    n_fin = int((out_k[1] != out_p[1]).sum())
+    zk, zp = vit_score(out_k), vit_score(out_p)
+    fin = np.isfinite(zp)
+    assert (np.isfinite(zk) == fin).all(), "K7: -inf pattern differs"
+    assert fin.sum() > B // 2 and not fin[1], "K7: unexpected -inf pattern"
+    serr = float(np.abs(zk[fin] - zp[fin]).max())
+    wt = vs.walk_tables(cf)
+    sk = vs.walk(wt, out_k[0], out_k[1], lens)
+    torch.cuda.synchronize()
+    sp = vs.walk_plain(wt, out_k[0], out_k[1], lens)
+    werr = float((sk - sp).abs().max())
+    print(f"phase 15: K7 vs plain: {n_bp} of {out_k[0].numel()} ids and "
+          f"{n_fin} of {out_k[1].numel()} omega argmaxes differ; max |dscore|"
+          f" = {serr:.3e} (tol {TOL_VIT:g}); walk kernel vs plain max "
+          f"|dstate| = {werr:g}")
+    assert n_bp == 0 and n_fin == 0, "K7 ids differ from the plain twin"
+    assert serr <= TOL_VIT, f"K7 scores disagree: {serr}"
+    assert werr == 0, "the walk kernel disagrees with its plain twin"
+    return {"K7": serr, "K7w": werr}
+
+
+def phase_vit_oracle(fsm, spdf, cf, P, dev, n=40):
+    """Phase 16: viterbi at B=2 against the exact f64 max-plus optimum
+    (the gate bench.py holds the JAX package to)."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+
+    rng = np.random.default_rng(11)
+    lhs = rng.normal(size=(2, n, P)).astype(np.float32)
+    lens = np.array([n, max(2, 2 * n // 3)], dtype=np.int32)
+    ref = mt.oracle.host_viterbi_score(fsm, spdf, P, lhs.astype(np.float64),
+                                       lens)
+    states, score = mt.viterbi(cf, torch.from_numpy(lhs).to(dev),
+                               torch.from_numpy(lens).to(dev))
+    serr = float(np.abs(score.cpu().numpy() - ref).max())
+    # the decoded paths' f64 weight against the optimum itself
+    gap = mt.oracle.validate_paths(fsm, spdf, lhs, lens,
+                                   states.cpu().numpy(), ref,
+                                   atol=TOL_VIT_PATH)
+    print(f"phase 16: viterbi B=2 N={n} vs f64 oracle |dscore| = "
+          f"{serr:.3e} (tol {TOL_VIT_ORACLE:g}); path-weight gap = "
+          f"{gap:.3e} (tol {TOL_VIT_PATH:g})")
+    assert serr <= TOL_VIT_ORACLE, "Viterbi score gate failed"
+
+
+def phase_vit_main(fsm, spdf, cf, P, dev, B=128, N=700):
+    """Phase 17: the full decode through K7 and the walk, checked and
+    timed: the sweep and the walk separately, the decode end to end, and
+    the plain twins beside them, whose outputs are held to the kernels'."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops import block_scan as bs
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    rng = np.random.default_rng(0)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    for m in (vs, bs, bsc, ds):
+        m.reset_launch_counts()
+    states, score = mt.viterbi(cf, lhs, lengths)
+    torch.cuda.synchronize()
+    launches = dict(vs.LAUNCHES)
+    others = {k: v for m in (bs, bsc, ds) for k, v in m.LAUNCHES.items()}
+    print(f"phase 17: launches {json.dumps(launches)}; other kernels "
+          f"{json.dumps(others)}")
+    assert all(v > 0 for v in launches.values()), "a kernel never launched"
+    assert not any(others.values()), "the decode launched another kernel"
+
+    st, sc = states.cpu().numpy(), score.cpu().numpy()
+    assert st.shape == (B, N) and st.dtype == np.int32, "output shapes"
+    assert sc.shape == (B,) and np.isfinite(sc).all(), "non-finite score"
+    assert ((st >= 0) & (st < len(fsm.alpha_hat))).all(), "bad state ids"
+    gap = mt.oracle.validate_paths(fsm, spdf, lhs.cpu().numpy(),
+                                   lengths.cpu().numpy(), st, sc,
+                                   atol=TOL_VIT_WALK)
+    print(f"phase 17: all {B} paths walked in float64: max |path weight - "
+          f"score| = {gap:.3e} (tol {TOL_VIT_WALK:g}); score in "
+          f"[{sc.min():.3f}, {sc.max():.3f}]")
+
+    ext, msh = prepare_emissions(lhs, lengths, P)
+    wt = vs.walk_tables(cf)
+    out = vs.viterbi_fwd(cf, ext, msh)
+    t_sweep = cuda_ms(lambda: vs.viterbi_fwd(cf, ext, msh), reps=2)
+    t_walk = cuda_ms(lambda: vs.walk(wt, out[0], out[1], lengths), reps=10)
+    t_dec = cuda_ms(lambda: mt.viterbi(cf, lhs, lengths), reps=2)
+    audio = B * N * FRAME_SHIFT_S
+    print(f"phase 17: viterbi B={B} N={N}: decode {t_dec:.3f} ms = "
+          f"{audio / (t_dec / 1e3):.1f} audio-s/s; K7 sweep {t_sweep:.3f} ms "
+          f"({1e3 * t_sweep / (N + 1):.2f} us/frame), walk {t_walk:.3f} ms")
+    prof = profile_device(lambda: mt.viterbi(cf, lhs, lengths))
+    if prof is None:
+        print("phase 17: profile of the decode: not measured (no device "
+              "events recorded)")
+    else:
+        by_name, busy, span = prof
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(f"phase 17: profile of one decode: device busy {busy:.3f} ms "
+              f"of a {span:.3f} ms span (idle {1 - busy / span:.1%}); "
+              + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
+
+    # plain twins beside the kernels: plain, kernel, kernel, plain at
+    # N=128, then once each at the full N=700
+    n2 = min(128, N)
+    lhs2, len2 = lhs[:, :n2].contiguous(), torch.full_like(lengths, n2)
+    ext2, msh2 = prepare_emissions(lhs2, len2, P)
+    kern2 = lambda: vs.viterbi_fwd(cf, ext2, msh2)
+    plain2 = lambda: vs.viterbi_fwd_plain(cf, ext2, msh2)
+    p1, k1, k2, p2 = (cuda_ms(plain2), cuda_ms(kern2), cuda_ms(kern2),
+                      cuda_ms(plain2))
+    print(f"timing: K7 at B={B} N={n2}: kernel {k1:.3f}/{k2:.3f} ms, plain "
+          f"{p1:.3f}/{p2:.3f} ms")
+    plain, walked = [], []
+    t_plain = cuda_ms(lambda: plain.append(vs.viterbi_fwd_plain(cf, ext, msh)),
+                      warm=False)
+    t_walk_plain = cuda_ms(lambda: walked.append(
+        vs.walk_plain(wt, out[0], out[1], lengths)), warm=False)
+    print(f"timing: K7 at B={B} N={N}: kernel {t_sweep:.3f} ms, plain "
+          f"{t_plain:.3f} ms; walk kernel {t_walk:.3f} ms, plain "
+          f"{t_walk_plain:.3f} ms")
+
+    # the same plain runs hold K7 and the walk to their twins at this shape
+    # (the ids past 2^32 bytes included)
+    out_p = plain[0]
+    n_bp = int((out[0] != out_p[0]).sum())
+    n_fin = int((out[1] != out_p[1]).sum())
+    zk, zp = vit_score(out), vit_score(out_p)
+    assert np.isfinite(zk).all() and np.isfinite(zp).all(), "K7: -inf score"
+    serr = float(np.abs(zk - zp).max())
+    werr = float((vs.walk(wt, out[0], out[1], lengths) - walked[0])
+                 .abs().max())
+    print(f"phase 17: K7 vs plain at B={B} N={N}: {n_bp} of {out[0].numel()} "
+          f"ids and {n_fin} of {out[1].numel()} omega argmaxes differ; max "
+          f"|dscore| = {serr:.3e} (tol {TOL_VIT:g}); walk kernel vs plain "
+          f"max |dstate| = {werr:g}")
+    assert n_bp == 0 and n_fin == 0, "K7 ids differ from the plain twin"
+    assert serr <= TOL_VIT, f"K7 scores disagree: {serr}"
+    assert werr == 0, "the walk kernel disagrees with its plain twin"
+    times = {"K7": (t_sweep, t_plain), "K7w": (t_walk, t_walk_plain)}
+    return launches, times, t_dec, {"K7": serr, "K7w": werr}
+
+
 def main():
     import torch
 
@@ -667,8 +1024,8 @@ def main():
 
     t0 = time.perf_counter()
     fsm, spdf, P, info = mt.workloads.make_lm_hmm_graph(V=128)
-    cf = mt.compile_fsm(fsm, spdf, P, strategy="block",
-                        precision="high").to(dev)
+    cf = mt.compile_fsm(fsm, spdf, P, strategy="block", precision="high",
+                        device=dev)
     print(f"phase 3: graph {info} compiled in "
           f"{time.perf_counter() - t0:.1f} s; Sp = {cf.padded_states}; "
           f"path: {mt.fast_path_report(cf, 128)}")
@@ -689,11 +1046,13 @@ def main():
                                          "phase 9")
     times = time_kernels(cf, P, dev)
     times.update(time_banded(num_cf, P, dev))
-    del cf, num_cf
+    bounds = block_bounds(cf, 128, -(-701 // 64) * 64, 64)
+    bounds.update(banded_bounds(num_cf, 701))
+    del num_cf
 
     t0 = time.perf_counter()
     dfsm, dspdf, dP, dinfo = mt.workloads.make_lm_hmm_graph(V=32)
-    dcf = mt.compile_fsm(dfsm, dspdf, dP).to(dev)  # default: 'auto'
+    dcf = mt.compile_fsm(dfsm, dspdf, dP, device=dev)  # default: 'auto'
     assert dcf.strategy == "dense" and dcf.precision == "high", dcf.strategy
     print(f"phase 10: graph {dinfo} compiled (strategy {dcf.strategy!r}, "
           f"precision {dcf.precision!r}) in {time.perf_counter() - t0:.1f} "
@@ -706,12 +1065,26 @@ def main():
                                             (bsc, ds), "phase 13")
     phase_dense_stack(dev)
     times.update(time_dense(dcf, dP, dev))
+    bounds.update(dense_bounds(dcf, 128, 701))
+    t_mm = matmul_yardstick(dcf, dev)
+    print(f"timing: K6 yardstick, torch.matmul of the (3200, 3200) operator "
+          f"by the (3200, 128) state, x701 frames: {t_mm:.3f} ms")
+    del dcf, dnum_cf
+
+    errs.update(phase_vit_kernels(cf, P, dev))
+    phase_vit_oracle(fsm, spdf, cf, P, dev)
+    vlaunches, vtimes, t_dec, verrs = phase_vit_main(fsm, spdf, cf, P, dev)
+    errs.update({k: max(errs[k], v) for k, v in verrs.items()})
+    times.update(vtimes)
+    bounds.update(vit_bounds(cf, 128, 701))
 
     block_src = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
     banded_src = "markovmodels_tpu_torch/ops/csrc/banded_scan.cu"
     dense_src = "markovmodels_tpu_torch/ops/csrc/dense_scan.cu"
+    vit_src = "markovmodels_tpu_torch/ops/csrc/vit_scan.cu"
     launches.update({k: v for k, v in dlaunches.items()
                      if k in ds.LAUNCHES})
+    launches.update(vlaunches)
     table = {  # name: (counter, source, the TPU kernel it replaces)
         "K2": ("block_fwd", block_src,
                "markovmodels_tpu/ops/pallas_block.py:862"),
@@ -727,18 +1100,24 @@ def main():
                 "markovmodels_tpu/ops/pallas_scan.py:220"),
         "K6b": ("dense_bwd", dense_src,
                 "markovmodels_tpu/ops/pallas_scan.py:269"),
+        "K7": ("vit_fwd", vit_src,
+               "markovmodels_tpu/ops/pallas_block.py:1387"),
+        # the walk replaces XLA code, no Pallas kernel: the line of wstep
+        "K7w": ("vit_walk", vit_src, "markovmodels_tpu/viterbi.py:382"),
     }
     kernels = [
         {"name": f"{name} {counter}", "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[counter],
          "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": None}
         for name, (counter, source, replaces) in table.items()
     ]
     print(f"card: {card}; pdfposteriors B=128 N=700 kernel path "
           f"{t_kern:.2f} ms, plain path {t_plain:.2f} ms; LF-MMI step "
           f"{t_step:.2f} ms, den-only {t_den:.2f} ms; dense-den LF-MMI step "
-          f"{t_dstep:.2f} ms, dense den-only {t_dden:.2f} ms")
+          f"{t_dstep:.2f} ms, dense den-only {t_dden:.2f} ms; viterbi "
+          f"B=128 N=700 {t_dec:.2f} ms; K6 matmul yardstick {t_mm:.2f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,9 +35,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from markovmodels_tpu import hostsparse as hs
-from markovmodels_tpu.fsm import FSM
-
+from . import hostsparse as hs
+from .fsm import FSM
 from .ops import banded_scan, block_scan, dense_scan
 from .ops.block_scan import _pow2_exponent, _pow2_scale
 from .ops.blocked import BlockOperator, block_matvec, build_block_operator
@@ -165,9 +164,11 @@ def compile_fsm(
     domain: str = "prob",
     reorder: str = "auto",
     ov_cap: int | None = None,
+    device="cuda",
 ) -> CompiledFSM:
     """Lower a host FSM to the 'dense', 'block' or 'banded' device
-    representation (on the CPU; move it with ``.to(device)``).
+    representation on ``device``: the card by default, the CPU only when
+    asked (``device="cpu"``).  Without a card a CUDA ``device`` raises.
 
     ``state_pdf``: int array of length ``num_states + 1`` mapping each state
     (the phony final state included, mapped to ``num_pdfs``) to a pdf id,
@@ -190,6 +191,7 @@ def compile_fsm(
     strategies, float64, general multi-pdf Ĉ, precision 'bf16', the log
     domain and the capped overflow layout.
     """
+    device = _target_device(device)
     S1 = len(fsm.alpha_hat)
     if strategy == "auto":
         strategy = "dense" if S1 <= 4096 else "block"
@@ -348,7 +350,7 @@ def compile_fsm(
         kw["banded_fwd"], kw["banded_bwd"] = f32(bf), f32(bb)
         kw["banded_offsets"] = tuple(int(o) for o in offs)
 
-    return CompiledFSM(
+    cf = CompiledFSM(
         alpha_hat=f32(alpha_hat),
         final_state=int(final_idx),
         state_pdf=torch.from_numpy(spdf),
@@ -367,15 +369,30 @@ def compile_fsm(
         pdf_group=pdf_group,
         **kw,
     )
+    return cf if device.type == "cpu" else cf.to(device)
 
 
-def compiled_from_numpy(fields: dict, meta: dict) -> CompiledFSM:
+def _target_device(device) -> torch.device:
+    """``device`` as a torch.device; raises for a CUDA device without a
+    card (the compiled graph never stays on the CPU unasked)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"compile to {device}: no CUDA card is available (pass "
+            "device='cpu' to compile for the CPU)")
+    return device
+
+
+def compiled_from_numpy(fields: dict, meta: dict, *,
+                        device="cuda") -> CompiledFSM:
     """Build a CompiledFSM from another representation's arrays: ``fields``
     maps each data field name to numpy arrays (``block_fwd`` / ``block_bwd``
     to None or any object with BlockOperator's attributes holding numpy
     arrays; ``final_state`` to a scalar, or a (G,) array for a stacked
     graph), ``meta`` maps the metadata field names to their values.  Lets
-    both packages run the identical operator."""
+    both packages run the identical operator.  The graph lands on
+    ``device``: the card by default, the CPU only when asked."""
+    device = _target_device(device)
     t = lambda x: None if x is None else torch.from_numpy(np.array(x))
 
     def op(o):
@@ -420,7 +437,7 @@ def compiled_from_numpy(fields: dict, meta: dict) -> CompiledFSM:
         raise NotImplementedError(f"strategy {cf.strategy!r} ({_LOG_TODO})")
     if cf.domain != "prob":
         raise NotImplementedError(f"domain {cf.domain!r} ({_LOG_TODO})")
-    return cf
+    return cf if device.type == "cpu" else cf.to(device)
 
 
 def stack(cfsms) -> CompiledFSM:
@@ -432,7 +449,8 @@ def stack(cfsms) -> CompiledFSM:
     the band offsets become the union of the graphs' offsets with zero
     bands where a graph lacks one.  'dense': each (Sp, Sp) operator is
     padded with 0 and each row max with -inf.  Run one sequence per graph
-    (B = G) through ``pdfposteriors``.
+    (B = G) through ``pdfposteriors``.  The stack lies on its inputs'
+    device.
 
     'block' raises ``ValueError`` as in the JAX package (the blocked scans
     share one large graph across the batch); 'ell' and 'segment' are not

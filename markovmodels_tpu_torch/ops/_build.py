@@ -19,7 +19,8 @@ from pathlib import Path
 __all__ = ["library", "build_dir", "error_string", "PTXAS_LOG"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("block_scan.cu", "banded_scan.cu", "dense_scan.cu")
+_SOURCES = ("block_scan.cu", "banded_scan.cu", "dense_scan.cu",
+            "vit_scan.cu")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,6 +40,8 @@ _SIGNATURES = {
     "mm_banded_bwd": [_P] * 9,
     "mm_dense_fwd": [_P] * 5 + [_I] * 6 + [_P] * 9,
     "mm_dense_bwd": [_P] * 7 + [_I] * 5 + [_P] * 8,
+    "mm_vit_fwd": [_P] * 8 + [_I] * 3 + [_P] * 10,
+    "mm_vit_walk": [_P] * 6 + [_I] * 8 + [_P] * 2,
 }
 
 

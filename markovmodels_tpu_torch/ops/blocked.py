@@ -13,6 +13,10 @@ packages build bit-identical operators from the same edge list:
 * a **residue**: edges of blocks with too many distinct sources, applied
   as a plain scatter-add.
 
+``block_matvec_max_arg`` is the tropical (max-product) form with the
+winning candidate id of every destination, the matvec of the Viterbi
+sweep's plain twin (ops/vit_scan.py).
+
 Weights are stored as probabilities.  Overflow families (the capped
 pdf-grouped layout of a separate-state backoff graph) are not ported yet:
 ``compile_fsm`` raises ``NotImplementedError`` before reaching them.
@@ -28,6 +32,9 @@ __all__ = [
     "BlockOperator",
     "build_block_operator",
     "block_matvec",
+    "block_max_arg_supported",
+    "tier_dst_inverse",
+    "block_matvec_max_arg",
 ]
 
 
@@ -420,3 +427,128 @@ def block_matvec(op: BlockOperator, meta, x):
         contrib = op.res_w[:, None] * x[op.res_src.long()]
         y.index_add_(0, op.res_dst.long(), contrib)
     return y
+
+
+# ---------------------------------------------------------------------------
+# tropical matvec with winning-candidate ids (the Viterbi bp sweep)
+# ---------------------------------------------------------------------------
+
+_SCATTER_WINDOWS = ("contig", "affine_d", "affine_k_pad", "affine_d_pad")
+_NO_CAND = 255  # candidate id of a destination without incoming mass
+_MAXARG_ELEMS = 1 << 25  # (k, Sm, D, B) products per tier chunk
+
+
+def block_max_arg_supported(op: BlockOperator, meta) -> bool:
+    """True when block_matvec_max_arg can run: one tier, no residue, a
+    window-expressible scatter (to track the winning candidate), and every
+    candidate id (tier width + band count) fitting a uint8 below the
+    255 'none' marker.  Operators with overflow families (not ported yet)
+    are not supported."""
+    if op.ov_w or op.res_src is not None or len(op.tiers) != 1:
+        return False
+    _, ddesc = meta[1][0]
+    if ddesc[0] not in _SCATTER_WINDOWS:
+        return False
+    return op.tiers[0][0].shape[1] + len(meta[0]) < _NO_CAND
+
+
+def tier_dst_inverse(op: BlockOperator, num_states: int) -> np.ndarray:
+    """Host-side inverse of the single tier's destination map: k_of[d] =
+    the tier block writing state d (-1 if none).  Used by the backpointer
+    decode (src = sidx[k_of[d], cand])."""
+    didx = op.tiers[0][1]
+    didx = (didx.cpu().numpy() if isinstance(didx, torch.Tensor)
+            else np.asarray(didx))
+    k_of = np.full(num_states, -1, dtype=np.int32)
+    K, D = didx.shape
+    k_of[didx.reshape(-1)] = np.repeat(np.arange(K, dtype=np.int32), D)
+    return k_of
+
+
+def _tier_max_arg(W, Xg):
+    """Per (k, d, b): the largest product W[k, s, d]·Xg[k, s, b] over s and
+    the SMALLEST s attaining it (the CUDA kernel's tie rule).  Chunked over
+    k so that the (k, Sm, D, B) products stay under _MAXARG_ELEMS."""
+    K, Sm, D = W.shape
+    B = Xg.shape[2]
+    kc = max(1, _MAXARG_ELEMS // max(Sm * D * B, 1))
+    s_ids = torch.arange(Sm, dtype=torch.int32, device=Xg.device)
+    s_ids = s_ids.view(1, Sm, 1, 1)
+    Y = Xg.new_empty((K, D, B))
+    A = torch.empty((K, D, B), dtype=torch.int32, device=Xg.device)
+    for k0 in range(0, K, kc):
+        prod = W[k0 : k0 + kc, :, :, None] * Xg[k0 : k0 + kc, :, None, :]
+        y = prod.amax(dim=1)
+        Y[k0 : k0 + kc] = y
+        A[k0 : k0 + kc] = torch.where(prod == y[:, None], s_ids,
+                                      Sm).amin(dim=1)
+    return Y, A
+
+
+def block_matvec_max_arg(op: BlockOperator, meta, x):
+    """Tropical y = T̂ᵀ ⊗max x with per-destination winning-candidate ids.
+
+    Returns (y (Sp, B), cand (Sp, B) int32): cand < Sm is a tier source
+    position (src = sidx[k_of[dst], cand]); Sm <= cand < Sm + nO is a band
+    offset index (src = dst - band_offsets[cand - Sm]); 255 = no incoming
+    mass.  Requires block_max_arg_supported.  The rank-1 ω column (phony
+    final state) is NOT applied here: the decoder resolves it separately.
+
+    Ties follow the CUDA kernel (K7), not XLA's reduction order: bands in
+    offset order with a strict >, within the tier the smallest source
+    position among equal maxima, the tier merged into the bands with a
+    strict > (so a zero column keeps 255).
+    """
+    band_offsets, tier_descs = meta[0], meta[1]
+    Sp, B = x.shape
+    sidx, didx, W = op.tiers[0]
+    gdesc, ddesc = tier_descs[0]
+    K, Sm = sidx.shape
+    D = didx.shape[1]
+
+    y = torch.zeros_like(x)
+    cand = torch.full((Sp, B), _NO_CAND, dtype=torch.int32, device=x.device)
+    if op.band_w is not None:
+        for oi, off in enumerate(band_offsets):
+            # band edge src = dst - off; wrapped rolls hit zero weights
+            xs = x if off == 0 else torch.roll(x, off, dims=0)
+            prod = op.band_w[oi][:, None] * xs
+            upd = prod > y
+            y = torch.where(upd, prod, y)
+            cand = torch.where(upd, torch.full_like(cand, Sm + oi), cand)
+
+    # tier gather (affine views when available, as block_matvec)
+    if gdesc[0] == "affine_s_major":
+        _, base, ds, c0 = gdesc
+        view = x[base : base + Sm * ds]
+        Xg = view.reshape(Sm, ds, B)[:, c0 : c0 + K].transpose(0, 1)
+    elif gdesc[0] == "affine_k_major":
+        _, base, dk, c0 = gdesc
+        view = x[base : base + K * dk]
+        Xg = view.reshape(K, dk, B)[:, c0 : c0 + Sm]
+    else:
+        Xg = x[sidx.reshape(-1).long()].reshape(K, Sm, B)
+    Y, A = _tier_max_arg(W, Xg)
+
+    # tier merge of (value, cand) through the affine window, strict >
+    if ddesc[0] in ("contig", "affine_d"):
+        base = ddesc[1]
+        if ddesc[0] == "affine_d":
+            Y, A = Y.transpose(0, 1), A.transpose(0, 1)
+        win_y = y[base : base + K * D]
+        win_c = cand[base : base + K * D]
+        Yv, Av = Y.reshape(-1, B), A.reshape(-1, B)
+    else:  # affine_k_pad / affine_d_pad: strided row-chunk window
+        _, base, stride, c0 = ddesc
+        if ddesc[0] == "affine_k_pad":
+            rows, width, Yv, Av = K, D, Y, A
+        else:
+            rows, width, Yv, Av = D, K, Y.transpose(0, 1), A.transpose(0, 1)
+        win_y = y[base : base + rows * stride].view(rows, stride, B)[
+            :, c0 : c0 + width]
+        win_c = cand[base : base + rows * stride].view(rows, stride, B)[
+            :, c0 : c0 + width]
+    sel = Yv > win_y
+    win_y.copy_(torch.where(sel, Yv, win_y))
+    win_c.copy_(torch.where(sel, Av, win_c))
+    return y, cand

@@ -1,0 +1,309 @@
+"""Fused tropical Viterbi sweep (K7) and the backtrace walk on the GPU:
+hand-written CUDA kernels with plain PyTorch twins.
+
+Counterpart of ``_make_vit_kernel`` / ``vit_scan_supported`` /
+``block_fused_viterbi_fwd`` in ``markovmodels_tpu/ops/pallas_block.py`` and
+of the walk of ``markovmodels_tpu/viterbi.py``'s ``_viterbi_scale_bp``.
+One shared 'block' graph (the 2M-arc denominator) runs over a (Sp, B)
+probability state in the max-product semiring:
+
+* K7 ``viterbi_fwd``: one forward sweep over all frames.  Per frame and
+  main-region state [0, R·W) it records the winning uint8 candidate id
+  (< Sm: tier source position, Sm + oi: band offset oi, 255: no incoming
+  mass), per frame the argmax source of the rank-1 ω arcs into the phony
+  final state, and at the end the final value, the Kahan-compensated
+  emission shift and the power-of-two exponent sum;
+* ``walk``: the backtrace, one thread per sequence, decoding the ids to
+  source states through the tier's destination inverse and the band
+  offsets (the JAX package leaves this walk to XLA).
+
+The CUDA sources are ``csrc/vit_scan.cu``; ``_build.py`` compiles them with
+nvcc at first use.  Each wrapper takes its plain twin for CPU tensors and
+launches the kernel for CUDA tensors; anything else raises.
+
+Values: the state is stored unscaled with a per-column power-of-two scale
+applied when the next frame reads it, as in K2 (ops/block_scan.py).  The
+read gives exactly K7's rescaled state (a product by a power of two is
+exact), so the products, and hence the ids, are K7's.  The exponent comes
+from the float's exponent bits (``frexp``); the JAX kernel's
+``floor(log2 m)`` may differ by one next to a power of two, which moves
+only where the scale sits (compare scores, not ``ksum``).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import block_scan as bs
+from .blocked import block_matvec_max_arg, tier_dst_inverse
+
+__all__ = [
+    "vit_scan_reject_reason",
+    "viterbi_fwd",
+    "viterbi_fwd_plain",
+    "walk_tables",
+    "walk",
+    "walk_plain",
+    "LAUNCHES",
+    "reset_launch_counts",
+]
+
+# launches of each CUDA kernel entry point, counted by its wrapper
+LAUNCHES = {"vit_fwd": 0, "vit_walk": 0}
+
+_NO_CAND = 255
+# the JAX kernel's tier chunk (pallas_block._VIT_KC): kept as an admission
+# predicate so that both packages take the same route for the same graph
+_VIT_KC = 8
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _main_region(cf) -> int:
+    """R·W: the states K7 records ids for; the tail [R·W, Sp) holds the
+    phony final state (and padding), whose only arcs are the ω ones."""
+    (W, R, _, _), _ = bs._full_plan_explain(cf)
+    return R * W
+
+
+def _device_bytes(cf, B: int, n_frames: int) -> int:
+    """Device bytes of one K7 sweep, every buffer sized by its dtype: the
+    uint8 id stream, the initial state and the ping-pong pair, the
+    emissions, the operator, and the per-tile partials."""
+    Sp, P1 = cf.padded_states, cf.num_pdfs + 1
+    f = cf.alpha_hat.element_size()
+    Nf = n_frames + 1
+    op = cf.block_fwd
+    tens = [cf.omega_prob, cf.alpha_hat, op.tiers[0][2]]
+    if op.band_w is not None:
+        tens.append(op.band_w)
+    need = sum(t.numel() * t.element_size() for t in tens)
+    need += Nf * _main_region(cf) * B  # ids
+    need += 3 * Sp * B * f + Nf * (P1 + 1) * B * f
+    need += 3 * (Sp // bs._TILE_ROWS + 1) * B * 4  # partials (bound)
+    return need
+
+
+def vit_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
+                           device=None):
+    """None when K7 accepts this graph, else a one-line reason naming the
+    FIRST rejected predicate.  The predicates are the JAX package's
+    (``vit_scan_supported``) in its order: the blocked scan's (ported in
+    ``block_scan_reject_reason``), no overflow families, uint8 candidate
+    ids, the tier-chunk divisibility; instead of its VMEM budget, the
+    working set (``_device_bytes``) must fit the memory of ``device`` when
+    that is a CUDA device (checked where a card is present)."""
+    reason = bs.block_scan_reject_reason(cf, B)
+    if reason is not None:
+        return reason
+    (_, _, pf, _), _ = bs._full_plan_explain(cf)
+    if cf.block_fwd.ov_w:
+        return "overflow families (no tropical sweep for them yet)"
+    nO = len(pf["band_offsets"])
+    if pf["Sm"] + nO >= _NO_CAND:
+        return (f"tier width {pf['Sm']} + {nO} band offsets: candidate ids "
+                "do not fit a uint8")
+    if not (pf["K"] % _VIT_KC == 0 or pf["K"] < _VIT_KC):
+        return f"{pf['K']} tier blocks not a multiple of {_VIT_KC}"
+    if (device is not None and n_frames is not None
+            and torch.device(device).type == "cuda"
+            and torch.cuda.is_available()):
+        need = _device_bytes(cf, B, n_frames)
+        have = torch.cuda.get_device_properties(
+            torch.device(device)).total_memory
+        if need > have:
+            return (f"device working set ~{need / 1e9:.1f} GB exceeds the "
+                    f"card's {have / 1e9:.1f} GB (Sp = {cf.padded_states}, "
+                    f"B = {B}, {n_frames} frames)")
+    return None
+
+
+def _check_graph(cf, B: int, n_frames: int, device):
+    reason = vit_scan_reject_reason(cf, B, n_frames=n_frames, device=device)
+    if reason is not None:
+        raise ValueError(f"the Viterbi sweep rejects this graph: {reason}")
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twins (the CPU path and the kernels' reference)
+# ---------------------------------------------------------------------------
+
+def viterbi_fwd_plain(cf, ext, mshift):
+    """Plain twin of K7.  ``ext`` / ``mshift`` from
+    ops.emissions.prepare_emissions ((Nf, P1, B) / (Nf, 1, B)).  Returns
+    (bps (Nf, R·W, B) uint8, fins (Nf, B) int32, vfin (B,), shift (B,),
+    ksum (B,)); the best-path score is log(vfin) + ksum·ln2 + shift."""
+    Nf, _, B = ext.shape
+    _check_graph(cf, B, Nf - 1, None)
+    RW = _main_region(cf)
+    Sp, fin = cf.padded_states, cf.final_state
+    cmax = cf.pdf_group[0]
+    om = cf.omega_prob[:, None]
+    a = torch.exp(cf.alpha_hat)[:, None].expand(Sp, B)  # scale 1
+    flat = torch.arange(Sp, dtype=torch.int32, device=ext.device)[:, None]
+    bps = torch.empty((Nf, RW, B), dtype=torch.uint8, device=ext.device)
+    fins = torch.empty((Nf, B), dtype=torch.int32, device=ext.device)
+    ksum, shift, comp = (ext.new_zeros(B) for _ in range(3))
+    for t in range(Nf):
+        # rank-1 ω arcs into the phony state: value and smallest argmax
+        omc = om * a
+        fin_v = omc.amax(dim=0)
+        fins[t] = torch.where(omc == fin_v, flat, Sp).amin(dim=0)
+        x = a.clone()
+        x[RW:] = 0.0  # the tier and the bands read the main region only
+        y, cand = block_matvec_max_arg(cf.block_fwd, cf.block_fwd_offsets, x)
+        bps[t] = cand[:RW].to(torch.uint8)
+        if t == 0:
+            p = a
+        else:
+            p = torch.zeros_like(a)
+            p[:RW] = y[:RW]
+            p[fin] = fin_v
+        u = p * ext[t].repeat_interleave(cmax, dim=0)
+        k = bs._pow2_exponent(u.amax(dim=0))
+        a = u * bs._pow2_scale(k)[None, :]
+        ksum = ksum + k
+        # Kahan-compensated accumulation of the factored emission shift
+        xc = mshift[t, 0] - comp
+        tsum = shift + xc
+        comp = (tsum - shift) - xc
+        shift = tsum
+    return bps, fins, a[fin], shift, ksum
+
+
+class WalkTables(NamedTuple):
+    """Decode tables of the backtrace, built once per graph."""
+
+    k_of: torch.Tensor  # (Sp,) int32 tier block writing each state, -1
+    sidx: torch.Tensor  # (K·Sm,) int32 tier source of (k, position)
+    offs: torch.Tensor  # (max(nO, 1),) int32 band offsets
+    K: int
+    Sm: int
+    nO: int
+    fin: int
+
+
+def walk_tables(cf) -> WalkTables:
+    """The walk's decode tables for a graph K7 accepts (cached on it)."""
+    wt = cf._cache.get("vit_walk")
+    if wt is None:
+        dev = cf.alpha_hat.device
+        sidx = cf.block_fwd.tiers[0][0]
+        K, Sm = sidx.shape
+        offs = np.asarray(cf.block_fwd_offsets[0], dtype=np.int32)
+        nO = len(offs)
+        wt = WalkTables(
+            k_of=torch.from_numpy(tier_dst_inverse(
+                cf.block_fwd, cf.padded_states)).to(dev),
+            sidx=sidx.reshape(-1).to(device=dev, dtype=torch.int32)
+            .contiguous(),
+            offs=torch.from_numpy(offs if nO else np.zeros(1, np.int32))
+            .to(dev),
+            K=K, Sm=Sm, nO=nO, fin=int(cf.final_state),
+        )
+        cf._cache["vit_walk"] = wt
+    return wt
+
+
+def walk_plain(wt: WalkTables, bps, fins, lengths):
+    """Plain twin of the walk.  From the phony final state at frame Nf-1
+    back to frame 1: decode the id of the current state (255 outside the
+    main region) to its source; at t == length the source is the frame's
+    ω argmax, past the length the phony state.  Returns (Nf-1, B) int32
+    states in compiled numbering (frame t-1's state at row t-1)."""
+    Nf, RW, B = bps.shape
+    Sp = wt.k_of.shape[0]
+    L = lengths.long()
+    bcol = torch.arange(B, device=bps.device)
+    s = torch.full((B,), wt.fin, dtype=torch.long, device=bps.device)
+    states = torch.empty((Nf - 1, B), dtype=torch.int32, device=bps.device)
+    for t in range(Nf - 1, 0, -1):
+        c = bps[t][s.clamp(max=RW - 1), bcol].long()
+        c = torch.where(s < RW, c, _NO_CAND)
+        k = wt.k_of[s.clamp(0, Sp - 1)].long().clamp(0, wt.K - 1)
+        tier_src = wt.sidx[k * wt.Sm + c.clamp(0, wt.Sm - 1)].long()
+        band_src = s - wt.offs[(c - wt.Sm).clamp(0, len(wt.offs) - 1)].long()
+        src = torch.where(c < wt.Sm, tier_src, band_src)
+        src = torch.where(c == _NO_CAND, wt.fin, src)
+        s = torch.where(t == L, fins[t].long(), src)
+        s = torch.where(t > L, wt.fin, s)
+        states[t - 1] = s
+    return states
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def viterbi_fwd(cf, ext, mshift):
+    """K7: the fused tropical sweep over all Nf frames.  Same inputs and
+    outputs as :func:`viterbi_fwd_plain`."""
+    if not bs._route(ext, "Viterbi-sweep"):
+        return viterbi_fwd_plain(cf, ext, mshift)
+    from . import _build
+
+    Nf, P1, B = ext.shape
+    dev = ext.device
+    _check_graph(cf, B, Nf - 1, dev)
+    kop = bs.kernel_operator(cf)
+    Sp, RW = kop.Sp, _main_region(cf)
+    bs._check_op(kop, kop.fwd, dev)
+    bs._check("ext", ext, (Nf, kop.P1, B), dev)
+    bs._check("mshift", mshift, (Nf, 1, B), dev)
+    meta = bs._imeta(kop, kop.fwd)
+    n_tiles = int(meta[-1])
+    a0 = kop.alpha0[:, None].expand(Sp, B).contiguous()
+    bps = torch.empty((Nf, RW, B), dtype=torch.uint8, device=dev)
+    fins = torch.empty((Nf, B), dtype=torch.int32, device=dev)
+    work = torch.empty((2, Sp, B), device=dev)
+    scale = torch.ones(B, device=dev)
+    ksum, shift, comp = (torch.zeros(B, device=dev) for _ in range(3))
+    part = torch.empty((2, n_tiles, B), device=dev)
+    parti = torch.empty((n_tiles, B), dtype=torch.int32, device=dev)
+    kd = kop.fwd
+    with torch.cuda.device(dev):  # the library launches on it
+        rc = _build.library().mm_vit_fwd(
+            bs._p(a0), bs._p(ext), bs._p(mshift), bs._p(kd.band_w),
+            bs._p(kd.W), bs._p(kop.omega), bs._p(kd.band_rows),
+            ctypes.c_void_p(meta.ctypes.data), B, Nf, RW, bs._p(work),
+            bs._p(bps), bs._p(fins), bs._p(scale), bs._p(ksum),
+            bs._p(shift), bs._p(comp), bs._p(part), bs._p(parti),
+            bs._stream(dev),
+        )
+    bs._raise_on(rc, "mm_vit_fwd")
+    LAUNCHES["vit_fwd"] += 1
+    vfin = work[(Nf - 1) % 2, kop.fin] * scale
+    return bps, fins, vfin, shift, ksum
+
+
+def walk(wt: WalkTables, bps, fins, lengths):
+    """The backtrace walk, one CUDA thread per sequence.  Same inputs and
+    output as :func:`walk_plain`; ``lengths`` (B,) int32."""
+    if not bs._route(bps, "Viterbi-walk"):
+        return walk_plain(wt, bps, fins, lengths)
+    from . import _build
+
+    Nf, RW, B = bps.shape
+    dev = bps.device
+    bs._check("bps", bps, (Nf, RW, B), dev, torch.uint8)
+    bs._check("fins", fins, (Nf, B), dev, torch.int32)
+    bs._check("lengths", lengths, (B,), dev, torch.int32)
+    for name, t in (("k_of", wt.k_of), ("sidx", wt.sidx), ("offs", wt.offs)):
+        bs._check(name, t, t.shape, dev, torch.int32)
+    Sp = wt.k_of.shape[0]
+    states = torch.empty((Nf - 1, B), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.library().mm_vit_walk(
+            bs._p(bps), bs._p(fins), bs._p(lengths), bs._p(wt.k_of),
+            bs._p(wt.sidx), bs._p(wt.offs), Nf, RW, B, Sp, wt.K, wt.Sm,
+            wt.nO, wt.fin, bs._p(states), bs._stream(dev),
+        )
+    bs._raise_on(rc, "mm_vit_walk")
+    LAUNCHES["vit_walk"] += 1
+    return states

@@ -1,6 +1,10 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
-package: graphs, seeded inputs, and the conversion of a JAX CompiledFSM
-into numpy fields for ``compiled_from_numpy``."""
+package: graphs (each package builds its own from its own host layer),
+seeded inputs, compiling for the CPU, and the conversion of a JAX
+CompiledFSM into numpy fields for ``compiled_from_numpy``.
+
+The port compiles to the card by default; every helper here asks for the
+CPU, where the port's kernels take their plain PyTorch twins."""
 import functools
 
 import jax
@@ -10,8 +14,6 @@ import torch
 import markovmodels_tpu as mm
 import markovmodels_tpu_torch as mt
 from markovmodels_tpu import inference as inf
-from markovmodels_tpu.fsm import FSM
-from markovmodels_tpu.labels import Label
 from markovmodels_tpu.workloads import make_lm_hmm_graph
 
 DATA_FIELDS = (
@@ -36,7 +38,19 @@ EXP_ULPS = 1
 
 @functools.lru_cache(maxsize=None)
 def lm_graph(V):
+    """The JAX package's V-word LM ∘ HMM graph."""
     return make_lm_hmm_graph(V=V)
+
+
+@functools.lru_cache(maxsize=None)
+def port_lm_graph(V):
+    """The same graph built by the port's own host layer."""
+    return mt.workloads.make_lm_hmm_graph(V=V)
+
+
+def compile_port(fsm, spdf, P, **kw):
+    """The port's compile_fsm, on the CPU."""
+    return mt.compile_fsm(fsm, spdf, P, device="cpu", **kw)
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,34 +66,36 @@ def jax_fields(cf):
 
 
 def port_from_jax(cf):
-    return mt.compiled_from_numpy(*jax_fields(cf))
+    return mt.compiled_from_numpy(*jax_fields(cf), device="cpu")
 
 
-def numerator(seq, P, skip=False):
+def numerator(seq, P, skip=False, lib=mm):
     """A linear numerator lattice over the pdf sequence ``seq`` (self-loop
     and chain arcs at 0.5, final weight 0.5; the shape ``bench.py`` builds)
-    and its state->pdf map; ``skip`` adds arcs i -> i+2 at 0.25."""
+    and its state->pdf map; ``skip`` adds arcs i -> i+2 at 0.25.  ``lib``:
+    the package whose host layer builds the FSM (``mm`` or ``mt``)."""
     L = len(seq)
     arcs = [((i, i), np.log(0.5)) for i in range(L)]
     arcs += [((i, i + 1), np.log(0.5)) for i in range(L - 1)]
     if skip:
         arcs += [((i, i + 2), np.log(0.25)) for i in range(L - 2)]
-    fsm = FSM.from_pairs([(0, 0.0)], arcs, [(L - 1, np.log(0.5))],
-                         [Label(int(s)) for s in seq], mm.LOG)
+    fsm = lib.fsm.FSM.from_pairs(
+        [(0, 0.0)], arcs, [(L - 1, np.log(0.5))],
+        [lib.labels.Label(int(s)) for s in seq], lib.semiring.LOG)
     return fsm, np.append(seq, P).astype(np.int32)
 
 
-def numerators(rng, G, P, lengths, skip=()):
+def numerators(rng, G, P, lengths, skip=(), lib=mm):
     """G random numerators of the given lattice lengths (graph indices in
-    ``skip`` get skip arcs): [(fsm, spdf)]."""
-    return [numerator(rng.integers(0, P, size=lengths[g]), P, g in skip)
+    ``skip`` get skip arcs): [(fsm, spdf)], built by ``lib``."""
+    return [numerator(rng.integers(0, P, size=lengths[g]), P, g in skip, lib)
             for g in range(G)]
 
 
-def random_graph(rng, S, P):
+def random_graph(rng, S, P, lib=mm):
     """A non-banded graph: S states, three random out-arcs each (mass
     0.8), initial state 0, final weight 0.2 on every state, random pdfs.
-    Returns (fsm, spdf)."""
+    Returns (fsm, spdf), built by ``lib``."""
     arcs = []
     for i in range(S):
         js = rng.choice(S, size=3, replace=False)
@@ -87,9 +103,9 @@ def random_graph(rng, S, P):
         w *= 0.8 / w.sum()
         arcs += [((i, int(j)), float(np.log(x))) for j, x in zip(js, w)]
     pdfs = rng.integers(0, P, size=S)
-    fsm = FSM.from_pairs([(0, 0.0)], arcs,
-                         [(i, np.log(0.2)) for i in range(S)],
-                         [Label(int(p)) for p in pdfs], mm.LOG)
+    fsm = lib.fsm.FSM.from_pairs(
+        [(0, 0.0)], arcs, [(i, np.log(0.2)) for i in range(S)],
+        [lib.labels.Label(int(p)) for p in pdfs], lib.semiring.LOG)
     return fsm, np.append(pdfs, P).astype(np.int32)
 
 

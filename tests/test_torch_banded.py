@@ -19,30 +19,39 @@ import bench
 import markovmodels_tpu as mm
 import markovmodels_tpu_torch as mt
 from markovmodels_tpu import inference as inf
-from markovmodels_tpu.fsm import FSM
-from markovmodels_tpu.labels import Label
 from markovmodels_tpu.ops import pallas_banded as pband
 from markovmodels_tpu_torch import inference as tinf
 from markovmodels_tpu_torch.ops import banded_scan as bsc
 from markovmodels_tpu_torch.ops.emissions import prepare_emissions
-from _torch_port import (assert_same_compiled, jax_compiled, numerator,
-                         numerators, port_from_jax)
+from _torch_port import (assert_same_compiled, compile_port, jax_compiled,
+                         numerator, numerators, port_from_jax)
 
 P = 24
 
 
-def _compile(graphs, package):
-    return [package.compile_fsm(f, sp, P, strategy="banded")
-            for f, sp in graphs]
+def _compile(graphs, package, p=P):
+    """Compile each graph 'banded' with ``inf`` (the JAX package) or ``mt``
+    (the port, on the CPU); each package takes graphs of its own host
+    layer."""
+    compile_fsm = compile_port if package is mt else package.compile_fsm
+    return [compile_fsm(f, sp, p, strategy="banded") for f, sp in graphs]
+
+
+def _both(seed, make):
+    """``make(rng, lib)`` run for each package's host layer from the same
+    seed: (JAX package's graphs, port's graphs, what follows in the rng)."""
+    rng = np.random.default_rng(seed)
+    graphs = make(rng, mm)
+    return graphs, make(np.random.default_rng(seed), mt), rng
 
 
 @pytest.fixture(scope="module")
 def mixed():
     """Five lattices of different lengths; graph 2 has skip arcs, so the
     stacked offsets are (0, 1, 2) with zero bands for the other graphs."""
-    rng = np.random.default_rng(21)
-    graphs = numerators(rng, 5, P, [6, 9, 4, 7, 5], skip=(2,))
-    return graphs, _compile(graphs, inf), _compile(graphs, mt)
+    gj, gt, _ = _both(21, lambda rng, lib: numerators(
+        rng, 5, P, [6, 9, 4, 7, 5], skip=(2,), lib=lib))
+    return gj, _compile(gj, inf), _compile(gt, mt)
 
 
 def _no_pallas(mp, interpret=False):
@@ -99,12 +108,13 @@ def test_compiled_from_numpy_stacked_gives_the_same_outputs(mixed):
 def test_compile_rejects_more_than_eight_offsets():
     """Arcs 0 -> d for d = 1..10: ten offsets, not a banded lattice."""
     arcs = [((0, d), np.log(0.1)) for d in range(1, 11)]
-    f = FSM.from_pairs([(0, 0.0)], arcs, [(10, 0.0)],
-                       [Label(i % P) for i in range(11)], mm.LOG)
     spdf = np.append(np.arange(11) % P, P).astype(np.int32)
-    for package in (mt, inf):
+    for lib, package in ((mt, mt), (mm, inf)):
+        f = lib.fsm.FSM.from_pairs(
+            [(0, 0.0)], arcs, [(10, 0.0)],
+            [lib.labels.Label(i % P) for i in range(11)], lib.semiring.LOG)
         with pytest.raises(ValueError, match="10 distinct arc offsets"):
-            package.compile_fsm(f, spdf, P, strategy="banded")
+            _compile([(f, spdf)], package)
 
 
 # ---------------------------------------------------------------------------
@@ -116,11 +126,11 @@ def stacked128():
     """The JAX fused kernel's target shape: G = 128 lattices of 4-8 states,
     N = 10, ragged lengths 3-10 (some shorter than their lattice: -inf).
     The inputs of tests/test_inference.py's fused banded test."""
-    rng = np.random.default_rng(3)
-    graphs = numerators(rng, 128, P, [4 + g % 5 for g in range(128)])
+    gj, gt, rng = _both(3, lambda rng, lib: numerators(
+        rng, 128, P, [4 + g % 5 for g in range(128)], lib=lib))
     lhs = rng.normal(size=(128, 10, P)).astype(np.float32)
     lens = np.clip(3 + rng.integers(0, 8, size=128), 0, 10).astype(np.int32)
-    return (inf.stack(_compile(graphs, inf)), mt.stack(_compile(graphs, mt)),
+    return (inf.stack(_compile(gj, inf)), mt.stack(_compile(gt, mt)),
             lhs, lens)
 
 
@@ -197,23 +207,22 @@ def test_kernel_path_matches_plain_stacked_scan(stacked128):
 def stacked6():
     """tests/test_inference.py's banded-vs-dense inputs: G = 6 lattices of
     10-15 states, N = 30, one infeasible length (9 < 13)."""
-    rng = np.random.default_rng(3)
-    graphs = []
-    for b in range(6):
-        graphs.append(numerator(rng.integers(0, P, size=10 + b), P))
+    gj, gt, rng = _both(3, lambda rng, lib: [
+        numerator(rng.integers(0, P, size=10 + b), P, lib=lib)
+        for b in range(6)])
     lhs = rng.normal(size=(6, 30, P)).astype(np.float32)
     lens = np.array([30, 25, 30, 9, 30, 20], dtype=np.int32)
-    return graphs, lhs, lens
+    return (gj, gt), lhs, lens
 
 
 @pytest.mark.parametrize("chunk", [None, 4])
 def test_stacked_pdfposteriors_match_jax_xla(stacked6, chunk, monkeypatch):
     graphs, lhs, lens = stacked6
     _no_pallas(monkeypatch)
-    pj, zj = inf.pdfposteriors(inf.stack(_compile(graphs, inf)),
+    pj, zj = inf.pdfposteriors(inf.stack(_compile(graphs[0], inf)),
                                jnp.asarray(lhs), jnp.asarray(lens),
                                chunk_size=chunk)
-    pt, zt = mt.pdfposteriors(mt.stack(_compile(graphs, mt)),
+    pt, zt = mt.pdfposteriors(mt.stack(_compile(graphs[1], mt)),
                               torch.from_numpy(lhs), torch.from_numpy(lens),
                               chunk_size=chunk)
     assert not np.isfinite(zt.numpy()[3])
@@ -223,12 +232,12 @@ def test_stacked_pdfposteriors_match_jax_xla(stacked6, chunk, monkeypatch):
 
 @pytest.mark.parametrize("path", ["plain", "twins"])
 def test_stacked_pdfposteriors_match_f64_oracle(stacked6, path):
-    graphs, lhs, lens = stacked6
-    ct = mt.stack(_compile(graphs, mt))
+    (gj, gt), lhs, lens = stacked6
+    ct = mt.stack(_compile(gt, mt))
     args = (ct, torch.from_numpy(lhs), torch.from_numpy(lens))
     pt, zt = (mt.pdfposteriors(*args) if path == "plain"
               else tinf._fb_banded_cuda(*args, True))
-    for g, (fsm, spdf) in enumerate(graphs):
+    for g, (fsm, spdf) in enumerate(gj):
         rz, rp = bench.host_oracle(fsm, spdf, P,
                                    lhs[g:g + 1].astype(np.float64),
                                    lens[g:g + 1])
@@ -240,14 +249,13 @@ def test_stacked_pdfposteriors_match_f64_oracle(stacked6, path):
 
 def test_single_banded_graph_matches_jax_xla(stacked6, monkeypatch):
     """One unstacked banded graph shared by a batch of 3 sequences."""
-    graphs, lhs, _ = stacked6
-    fsm, spdf = graphs[2]
+    (gj, gt), lhs, _ = stacked6
     lens = np.array([30, 17, 12], dtype=np.int32)
     _no_pallas(monkeypatch)
     pj, zj = inf.pdfposteriors(
-        inf.compile_fsm(fsm, spdf, P, strategy="banded"),
+        _compile(gj[2:3], inf)[0],
         jnp.asarray(lhs[:3]), jnp.asarray(lens), chunk_size=8)
-    pt, zt = mt.pdfposteriors(mt.compile_fsm(fsm, spdf, P, strategy="banded"),
+    pt, zt = mt.pdfposteriors(_compile(gt[2:3], mt)[0],
                               torch.from_numpy(lhs[:3]),
                               torch.from_numpy(lens), chunk_size=8)
     _assert_logz(zt.numpy(), np.asarray(zj), 1e-5)
@@ -260,15 +268,16 @@ def long_lattices():
     at 0.5) at N = 700: alpha runs ahead of the sequence and beta behind
     it, so at mid-sequence both factors of gamma sit 1e-27 .. 1e-40 below
     their maxima and their product near 1e-54."""
-    rng = np.random.default_rng(3)
-    graphs = [numerator(rng.integers(0, 384, size=78), 384) for _ in range(2)]
+    gj, gt, _ = _both(3, lambda rng, lib: [
+        numerator(rng.integers(0, 384, size=78), 384, lib=lib)
+        for _ in range(2)])
     lhs = (np.random.default_rng(0).normal(size=(2, 700, 384)) * 0.5
            ).astype(np.float32)
     lens = np.array([700, 650], dtype=np.int32)
     refs = [bench.host_oracle(f, sp, 384, lhs[g:g + 1].astype(np.float64),
                               lens[g:g + 1])
-            for g, (f, sp) in enumerate(graphs)]
-    return graphs, lhs, lens, refs
+            for g, (f, sp) in enumerate(gj)]
+    return (gj, gt), lhs, lens, refs
 
 
 @pytest.mark.parametrize("path", ["plain", "twins"])
@@ -276,8 +285,7 @@ def test_long_lattice_posteriors_match_f64_oracle(long_lattices, path):
     """The repair of a float32 underflow: the port keeps the banded state in
     float64, so every active frame keeps its posterior mass."""
     graphs, lhs, lens, refs = long_lattices
-    ct = mt.stack([mt.compile_fsm(f, sp, 384, strategy="banded")
-                   for f, sp in graphs])
+    ct = mt.stack(_compile(graphs[1], mt, 384))
     args = (ct, torch.from_numpy(lhs), torch.from_numpy(lens))
     pt, zt = (mt.pdfposteriors(*args) if path == "plain"
               else tinf._fb_banded_cuda(*args, True))
@@ -295,8 +303,7 @@ def test_float32_gamma_loses_long_lattice_posteriors_in_jax(long_lattices,
     ~0 instead of 1."""
     graphs, lhs, lens, _ = long_lattices
     _no_pallas(monkeypatch)
-    cj = inf.stack([inf.compile_fsm(f, sp, 384, strategy="banded")
-                    for f, sp in graphs])
+    cj = inf.stack(_compile(graphs[0], inf, 384))
     pj, _ = inf.pdfposteriors(cj, jnp.asarray(lhs), jnp.asarray(lens))
     mass = np.asarray(pj)[0].sum(axis=1)
     assert (mass < 0.5).sum() > 100
@@ -313,8 +320,8 @@ def _variants(cj, ct):
     rep = dataclasses.replace
     single_j = inf.compile_fsm(*numerator(np.arange(5), P), P,
                                strategy="banded")
-    single_t = mt.compile_fsm(*numerator(np.arange(5), P), P,
-                              strategy="banded")
+    single_t = compile_port(*numerator(np.arange(5), P, lib=mt), P,
+                            strategy="banded")
     return [
         ("unstacked", single_j, single_t, 1),
         ("domain", rep(cj, domain="log"), rep(ct, domain="log"), G),

@@ -9,21 +9,21 @@ import torch
 
 import markovmodels_tpu_torch as mt
 from markovmodels_tpu import inference as inf
-from _torch_port import (assert_same_compiled, jax_compiled, lm_graph,
-                         port_from_jax)
+from _torch_port import (assert_same_compiled, compile_port, jax_compiled,
+                         jax_fields, lm_graph, port_from_jax, port_lm_graph)
 
 
 @pytest.mark.parametrize("V", [16, 32, 64, 128])
 def test_compile_matches_jax(V):
-    fsm, spdf, P, _ = lm_graph(V)
-    ct = mt.compile_fsm(fsm, spdf, P, strategy="block", precision="high")
+    fsm, spdf, P, _ = port_lm_graph(V)
+    ct = compile_port(fsm, spdf, P, strategy="block", precision="high")
     assert_same_compiled(jax_compiled(V), ct)
 
 
 def test_compile_matches_jax_without_reorder():
     """reorder='none' keeps host order and builds the one-hot Ĉᵀ."""
-    fsm, spdf, P, _ = lm_graph(16)
-    ct = mt.compile_fsm(fsm, spdf, P, strategy="block", reorder="none")
+    fsm, spdf, P, _ = port_lm_graph(16)
+    ct = compile_port(fsm, spdf, P, strategy="block", reorder="none")
     assert ct.pdf_group == () and ct.pdf_onehot is not None
     assert_same_compiled(jax_compiled(16, "none"), ct)
 
@@ -32,9 +32,8 @@ def test_compile_matches_jax_without_reorder():
 def test_default_strategy_matches_jax(V):
     """compile_fsm's default is the JAX package's 'auto': 'dense' up to
     4,096 states (V=16: 769), 'block' beyond (V=128: 49,153)."""
-    fsm, spdf, P, _ = lm_graph(V)
-    cj = inf.compile_fsm(fsm, spdf, P)
-    ct = mt.compile_fsm(fsm, spdf, P)
+    cj = inf.compile_fsm(*lm_graph(V)[:3])
+    ct = compile_port(*port_lm_graph(V)[:3])
     assert ct.strategy == cj.strategy == ("dense" if V == 16 else "block")
     assert_same_compiled(cj, ct)
 
@@ -55,9 +54,9 @@ def test_compiled_from_numpy_round_trips(V):
     dict(ov_cap=64),
 ])
 def test_compile_names_what_is_not_ported(kw):
-    fsm, spdf, P, _ = lm_graph(128 if "ov_cap" in kw else 16)
+    fsm, spdf, P, _ = port_lm_graph(128 if "ov_cap" in kw else 16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.compile_fsm(fsm, spdf, P, **kw)
+        compile_port(fsm, spdf, P, **kw)
 
 
 def test_compiled_to_moves_every_tensor():
@@ -70,3 +69,23 @@ def test_compiled_to_moves_every_tensor():
     assert moved.device.type == "meta" and ct.device.type == "cpu"
     assert moved.final_state == ct.final_state
     assert moved.block_fwd_offsets == ct.block_fwd_offsets
+
+
+@pytest.mark.parametrize("entry", ["compile_fsm", "compiled_from_numpy"])
+def test_entry_points_target_the_card_by_default(entry):
+    """Without ``device``, the graph lands on the card; without a card the
+    call raises instead of staying on the CPU; ``device="cpu"`` is the
+    CPU."""
+    fsm, spdf, P, _ = port_lm_graph(16)
+    if entry == "compile_fsm":
+        build = lambda **kw: mt.compile_fsm(fsm, spdf, P, strategy="block",
+                                            **kw)
+    else:
+        fields = jax_fields(jax_compiled(16))
+        build = lambda **kw: mt.compiled_from_numpy(*fields, **kw)
+    assert build(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert build().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            build()

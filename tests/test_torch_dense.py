@@ -20,14 +20,15 @@ import pytest
 import torch
 
 import bench
+import markovmodels_tpu as mm
 import markovmodels_tpu_torch as mt
 from markovmodels_tpu import inference as inf
 from markovmodels_tpu.ops import pallas_scan as ps
 from markovmodels_tpu_torch import inference as tinf
 from markovmodels_tpu_torch.ops import dense_scan as ds
-from _torch_port import (EXP_ULPS, assert_same_compiled, inputs,
-                         jax_compiled, lm_graph, numerators, port_from_jax,
-                         random_graph, ulps)
+from _torch_port import (EXP_ULPS, assert_same_compiled, compile_port,
+                         inputs, jax_compiled, lm_graph, numerators,
+                         port_from_jax, port_lm_graph, random_graph, ulps)
 
 TOL = 1e-5  # port vs the JAX package: float32 sums in another order
 TOL_ORACLE = 2e-4  # vs the f64 oracle (tests/test_pallas_scan.py's bound)
@@ -54,9 +55,9 @@ def _assert_logz(z, ref, atol):
 def test_dense_compile_matches_jax(V):
     """Row maxima and index arrays bit-equal; exp(W - row_max) within
     EXP_ULPS (torch's float32 exp against XLA's)."""
-    fsm, spdf, P, _ = lm_graph(V)
+    fsm, spdf, P, _ = port_lm_graph(V)
     cj = jax_compiled(V, strategy="dense")
-    ct = mt.compile_fsm(fsm, spdf, P, strategy="dense")
+    ct = compile_port(fsm, spdf, P, strategy="dense")
     assert ct.strategy == "dense" and ct.padded_states % 128 == 0
     assert ct.omega_prob is None and ct.block_fwd is None
     assert ct.pdf_onehot is not None and ct.pdf_group == ()
@@ -181,8 +182,8 @@ LENS = [8, 6, 1, 8, 4]
 
 @pytest.fixture(scope="module")
 def graphs16():
-    fsm, spdf, P, _ = lm_graph(16)
-    return jax_compiled(16, strategy="dense"), mt.compile_fsm(fsm, spdf, P)
+    fsm, spdf, P, _ = port_lm_graph(16)
+    return jax_compiled(16, strategy="dense"), compile_port(fsm, spdf, P)
 
 
 @pytest.fixture(scope="module")
@@ -280,15 +281,21 @@ def test_dense_chunked_plain_scan_matches_jax_xla(graphs16, data16):
 def stacked():
     """lm_graph(8) (Sp=256) and three random non-banded graphs (Sp=128)
     over its 24 pdfs: the stack pads the small operators."""
-    fsm8, spdf8, P, _ = lm_graph(8)
-    rng = np.random.default_rng(51)
-    graphs = [random_graph(rng, S, P) for S in (11, 30)]
-    graphs.insert(1, (fsm8, spdf8))
-    graphs.append(random_graph(rng, 57, P))
+    P = 24
+
+    def graphs_of(lib, graph8):
+        rng = np.random.default_rng(51)
+        graphs = [random_graph(rng, S, P, lib) for S in (11, 30)]
+        graphs.insert(1, graph8(8)[:2])
+        graphs.append(random_graph(rng, 57, P, lib))
+        return graphs, rng
+
+    graphs, rng = graphs_of(mm, lm_graph)
+    graphs_t, _ = graphs_of(mt, port_lm_graph)
     lhs = (rng.normal(size=(4, 12, P)) * 0.7).astype(np.float32)
     lens = np.array([12, 9, 12, 5], dtype=np.int32)
     cjs = [inf.compile_fsm(f, sp, P) for f, sp in graphs]
-    cts = [mt.compile_fsm(f, sp, P) for f, sp in graphs]
+    cts = [compile_port(f, sp, P) for f, sp in graphs_t]
     return graphs, cjs, cts, lhs, lens
 
 
@@ -356,14 +363,16 @@ def test_lfmmi_with_dense_denominator_matches_jax():
     """Value and gradient of ``lfmmi_loss`` (stacked banded numerators,
     lm_graph(8) 'dense' denominator) against ``jax.value_and_grad`` of the
     JAX package's, and the gradient against γ_den - γ_num."""
-    fsm, spdf, P, _ = lm_graph(8)
+    fsm, spdf, P, _ = port_lm_graph(8)
     nums = numerators(np.random.default_rng(61), 4, P, [5, 3, 6, 4])
+    nums_t = numerators(np.random.default_rng(61), 4, P, [5, 3, 6, 4],
+                        lib=mt)
     num_j = inf.stack([inf.compile_fsm(f, sp, P, strategy="banded")
                        for f, sp in nums])
-    num_t = mt.stack([mt.compile_fsm(f, sp, P, strategy="banded")
-                      for f, sp in nums])
+    num_t = mt.stack([compile_port(f, sp, P, strategy="banded")
+                      for f, sp in nums_t])
     den_j = jax_compiled(8, strategy="dense")
-    den_t = mt.compile_fsm(fsm, spdf, P)
+    den_t = compile_port(fsm, spdf, P)
     assert den_t.strategy == "dense"
     lhs, lens = inputs(4, 8, P, seed=67, lens=[8, 7, 8, 5])
     with pytest.MonkeyPatch.context() as mp:

@@ -13,7 +13,8 @@ import torch
 import bench
 import markovmodels_tpu_torch as mt
 from markovmodels_tpu import inference as inf
-from _torch_port import inputs, jax_compiled, lm_graph
+from _torch_port import (compile_port, inputs, jax_compiled, lm_graph,
+                         port_lm_graph)
 
 B, N = 8, 6
 LENS = [6, 5, 6, 1, 3, 6, 4, 5]
@@ -21,8 +22,8 @@ LENS = [6, 5, 6, 1, 3, 6, 4, 5]
 
 @pytest.fixture(scope="module")
 def graphs():
-    fsm, spdf, P, _ = lm_graph(128)
-    return jax_compiled(128), mt.compile_fsm(fsm, spdf, P, strategy="block")
+    fsm, spdf, P, _ = port_lm_graph(128)
+    return jax_compiled(128), compile_port(fsm, spdf, P, strategy="block")
 
 
 @pytest.fixture(scope="module")
@@ -133,9 +134,9 @@ def test_lhs_on_another_device_than_the_graph_raises(graphs, data):
 def test_plain_scan_on_other_layouts_matches_jax(V, reorder):
     """Graphs off the kernels' path (one-hot reduction, two tiers, generic
     gather/scatter) through the plain scan, against the JAX XLA path."""
-    fsm, spdf, P, _ = lm_graph(V)
+    fsm, spdf, P, _ = port_lm_graph(V)
     cj = jax_compiled(V, reorder)
-    ct = mt.compile_fsm(fsm, spdf, P, strategy="block", reorder=reorder)
+    ct = compile_port(fsm, spdf, P, strategy="block", reorder=reorder)
     lhs, lens = inputs(4, 5, P, seed=V, lens=[5, 4, 2, 5])
     pj, zj = _jax_run(cj, lhs, lens, "MMTPU_NO_PALLAS")
     pt, zt = mt.pdfposteriors(ct, torch.from_numpy(lhs),

@@ -11,7 +11,8 @@ import torch
 
 import markovmodels_tpu_torch as mt
 from markovmodels_tpu import inference as inf
-from _torch_port import inputs, jax_compiled, lm_graph, numerators
+from _torch_port import (compile_port, inputs, jax_compiled, numerators,
+                         port_lm_graph)
 
 B, N = 4, 8
 LENS = [8, 7, 8, 5]
@@ -20,13 +21,14 @@ NUM_LENGTHS = [5, 3, 6, 4]  # lattice states; all feasible within LENS
 
 @pytest.fixture(scope="module")
 def graphs():
-    fsm, spdf, P, _ = lm_graph(128)
+    fsm, spdf, P, _ = port_lm_graph(128)
     nums = numerators(np.random.default_rng(13), B, P, NUM_LENGTHS)
+    nums_t = numerators(np.random.default_rng(13), B, P, NUM_LENGTHS, lib=mt)
     num_j = inf.stack([inf.compile_fsm(f, sp, P, strategy="banded")
                        for f, sp in nums])
-    num_t = mt.stack([mt.compile_fsm(f, sp, P, strategy="banded")
-                      for f, sp in nums])
-    den_t = mt.compile_fsm(fsm, spdf, P, strategy="block")
+    num_t = mt.stack([compile_port(f, sp, P, strategy="banded")
+                      for f, sp in nums_t])
+    den_t = compile_port(fsm, spdf, P, strategy="block")
     return (num_j, jax_compiled(128)), (num_t, den_t), P
 
 
