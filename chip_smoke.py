@@ -12,7 +12,11 @@ then the same step against a 'dense' denominator (the V=32 LM ∘ HMM graph:
 3,073 states, 38,913 arcs, 96 pdfs, within 6 % of the WSJ denominator's
 padded width) through K6a/K6b of ``.../csrc/dense_scan.cu``; then the
 Viterbi decode of the 2M-arc graph through K7 and the backtrace walk of
-``.../csrc/vit_scan.cu``, in phases:
+``.../csrc/vit_scan.cu``; then the training step against the separate-state
+backoff LM ∘ HMM denominator (V=128, 10 % of the trigrams kept: 49,537
+states, 339,895 arcs, 384 pdfs), which ``compile_fsm``'s default lowers to
+the capped/overflow layout, through the overflow branch of K2-K4, in
+phases:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels from the sources in the checkout (nvcc, sm_90a);
@@ -51,7 +55,19 @@ Viterbi decode of the 2M-arc graph through K7 and the backtrace walk of
     float64 (``oracle.validate_paths``, gap < 2e-3), the sweep and the walk
     timed apart, audio-s/s, and the plain twins timed beside them and held
     to the kernels at this shape (ids, omega argmaxes and walked states
-    bit-equal, scores within 1e-5).
+    bit-equal, scores within 1e-5);
+18. the separate-state graph compiled with the default arguments onto the
+    card ('block', ``ov_layout`` (128, 3)) and its fast-path report;
+19. K2, K3 and K4 against their plain twins on it at B=128, N=128 (lengths
+    1 and N mixed, ±30-nat cliffs), then K4 run twice: bit-equal;
+20. its ``pdfposteriors`` at B=2, N=40 against the f64 oracle;
+21. the training step with it and the 128 stacked numerators at B=128,
+    N=700: exact launch counts (K2 1, K3 and K4 once per chunk, K5a 1,
+    K5b 1, no other kernel), the gradient against γ_den - γ_num, its time
+    beside den-only ``pdfposteriors`` and beside the embedded layout's
+    den-only ``pdfposteriors`` (the same LM with its backoff states on the
+    diagonal of the trigram rows), and the separate/embedded ratio
+    (printed; ``bench.py`` holds the JAX package's under 1.2).
 
 Every kernel's entry in the JSON line carries its bound: the larger of its
 operations over the card's peak rate for their type and its bytes over the
@@ -122,27 +138,36 @@ def bound(flops, nbytes, peak=PEAK_F32):
 
 def block_bounds(cf, B, Npad, chunk):
     """K2 over Npad frames, K3 and K4 over one chunk, as timed: the tier's
-    multiply-adds, the bands, the omega dot, the emission and the rescale
-    (forward), plus gamma and its pdf sums (backward)."""
+    multiply-adds, the bands, the overflow-family terms, the omega dot, the
+    emission and the rescale (forward), plus gamma and its pdf sums
+    (backward).  The operator's bytes include the per-row pdf table (the
+    per-lane emissions of the overflow rows), the family terms and, for
+    K4, each pdf's list of overflow rows."""
     from markovmodels_tpu_torch.ops import block_scan as bs
 
     kop = bs.kernel_operator(cf)
     K, Sm, D = kop.fwd.W.shape
     nO, Sp, P1 = len(kop.fwd.offsets), kop.Sp, kop.P1
-    op = 4 * (K * Sm * D + nO * Sp + Sp)
-    fwd = B * (2 * K * Sm * D + 2 * nO * Sp + 4 * Sp)
-    bwd = B * (2 * K * Sm * D + 2 * nO * Sp + 6 * Sp)
+    nf_f, nf_b = kop.fwd.fam_dst.numel(), kop.bwd.fam_dst.numel()
+    n_ov = kop.ov_hi - kop.ov_lo
+
+    def op(nf):
+        return 4 * (K * Sm * D + nO * Sp + Sp + 2 * Sp + 1 + 2 * nf)
+
+    fwd = B * (2 * K * Sm * D + 2 * nO * Sp + 2 * nf_f + 4 * Sp)
+    bwd = B * (2 * K * Sm * D + 2 * nO * Sp + 2 * nf_b + 6 * Sp)
     C = Npad // chunk
     return {
-        "K2": bound(Npad * fwd, op + 4 * (Sp * B + Npad * (P1 + 1) * B
-                                          + C * (Sp + 1) * B + Sp * B
-                                          + 3 * B)),
-        "K3": bound(chunk * fwd, op + 4 * (Sp * B + B + chunk * P1 * B
-                                           + chunk * (Sp + 1) * B)),
-        "K4": bound(chunk * bwd, op + 4 * (Sp * B + B
-                                           + chunk * (Sp + 1) * B
-                                           + 2 * chunk * P1 * B
-                                           + Sp * B + B)),
+        "K2": bound(Npad * fwd, op(nf_f) + 4 * (Sp * B + Npad * (P1 + 1) * B
+                                                + C * (Sp + 1) * B + Sp * B
+                                                + 3 * B)),
+        "K3": bound(chunk * fwd, op(nf_f) + 4 * (Sp * B + B + chunk * P1 * B
+                                                 + chunk * (Sp + 1) * B)),
+        "K4": bound(chunk * bwd, op(nf_b) + 4 * (Sp * B + B
+                                                 + chunk * (Sp + 1) * B
+                                                 + 2 * chunk * P1 * B
+                                                 + Sp * B + B + P1 + 1
+                                                 + n_ov)),
     }
 
 
@@ -280,11 +305,13 @@ def make_inputs(rng, B, N, P, cliffs=False):
     return lhs
 
 
-def phase_kernels(cf, P, dev, B=128, N=128, chunk=64):
-    """Phase 4: K2, K3 and K4 against their plain twins on one input."""
+def phase_kernels(cf, P, dev, B=128, N=128, chunk=64, label="phase 4",
+                  twice=False):
+    """Phase 4 (19): K2, K3 and K4 against their plain twins on one input;
+    with ``twice``, every K4 call runs again and must give bit-equal
+    results."""
     import torch
 
-    from markovmodels_tpu_torch import inference as tinf
     from markovmodels_tpu_torch.ops import block_scan as bs
     from markovmodels_tpu_torch.ops.emissions import (pad_emissions,
                                                       prepare_emissions)
@@ -304,34 +331,22 @@ def phase_kernels(cf, P, dev, B=128, N=128, chunk=64):
     ext, msh = pad_emissions(ext, msh, Npad)
     a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
 
-    def logz(out):
-        _, _, a, s, ksum, shift = out
-        return tinf._combine_shift(tinf._log_final(a[kop.fin] * s), ksum,
-                                   shift)
-
-    def norm(a, s):
-        return a * s[..., None, :] if a.dim() == 3 else a * s[None, :]
-
     errs = {}
     fk = bs.fwd_sweep(kop, a0, ext, msh, K)
     torch.cuda.synchronize()
     fp = bs.fwd_sweep_plain(kop, a0, ext, msh, K)
-    zk, zp = logz(fk).cpu().numpy(), logz(fp).cpu().numpy()
+    zk, zp = sweep_logz(kop, fk), sweep_logz(kop, fp)
     fin = np.isfinite(zp)
     assert (np.isfinite(zk) == fin).all(), "K2: -inf pattern differs"
     assert fin.sum() > B // 2 and not fin[1], "K2: unexpected -inf pattern"
-    errs["K2"] = max(
-        float(np.abs(zk[fin] - zp[fin]).max()),
-        float((norm(fk[0], fk[1]) - norm(fp[0], fp[1])).abs().max()),
-        float((norm(fk[2], fk[3]) - norm(fp[2], fp[3])).abs().max()),
-    )
+    errs["K2"] = sweep_err(kop, fk, fp)
 
     c = C // 2  # a chunk in the middle of the sequence
     sl = slice(c * K, (c + 1) * K)
     ak, sk = bs.recompute(kop, fk[0][c], fk[1][c], ext[sl], c * K)
     torch.cuda.synchronize()
     ap, sp = bs.recompute_plain(kop, fk[0][c], fk[1][c], ext[sl], c * K)
-    errs["K3"] = float((norm(ak, sk) - norm(ap, sp)).abs().max())
+    errs["K3"] = float((scaled(ak, sk) - scaled(ap, sp)).abs().max())
 
     beta = torch.ones_like(a0)
     bsc = torch.ones(B, device=dev)
@@ -340,20 +355,59 @@ def phase_kernels(cf, P, dev, B=128, N=128, chunk=64):
         al, asc = bs.recompute(kop, fk[0][cc], fk[1][cc], ext[slc], cc * K)
         pk, bk, bsk = bs.backward(kop, beta, bsc, al, asc, ext[slc], cc * K,
                                   Npad)
+        if twice:
+            again = bs.backward(kop, beta, bsc, al, asc, ext[slc], cc * K,
+                                Npad)
+            assert all(torch.equal(x, y) for x, y in
+                       zip((pk, bk, bsk), again)), "K4 differs run to run"
         torch.cuda.synchronize()
         pp, bp, bsp = bs.backward_plain(kop, beta, bsc, al, asc, ext[slc],
                                         cc * K, Npad)
-        errs["K4"] = max(
-            errs.get("K4", 0.0),
-            float((pk - pp).abs().max()),
-            float((norm(bk, bsk) - norm(bp, bsp)).abs().max()),
-        )
+        errs["K4"] = max(errs.get("K4", 0.0),
+                         bwd_err((pk, bk, bsk), (pp, bp, bsp)))
         beta, bsc = bk, bsk
     for name, e in errs.items():
-        print(f"phase 4: {name} kernel vs plain max |err| = {e:.3e} "
+        print(f"{label}: {name} kernel vs plain max |err| = {e:.3e} "
               f"(tol {TOL_KERNEL:g})")
         assert np.isfinite(e) and e <= TOL_KERNEL, f"{name} disagrees: {e}"
+    if twice:
+        print(f"{label}: K4 run twice on each of {C} chunks: bit-equal")
     return errs
+
+
+def sweep_logz(kop, out):
+    """logZ (B,) from a K2 sweep's outputs, as a numpy array, combined in
+    float64: the shift and ksum·ln2 reach ~1e3 over 700 frames, where one
+    float32 rounding of their sum (1.2e-4) would swamp the sweeps'
+    difference."""
+    from markovmodels_tpu_torch import inference as tinf
+
+    _, _, a, s, ksum, shift = out
+    v = a[kop.fin].double() * s.double()
+    return tinf._combine_shift(tinf._log_final(v), ksum.double(),
+                               shift.double()).cpu().numpy()
+
+
+def scaled(a, s):
+    """An unscaled state (.., Sp, B) times its scale (.., B)."""
+    return a * s[..., None, :] if a.dim() == 3 else a * s[None, :]
+
+
+def sweep_err(kop, fk, fp):
+    """K2 against its twin: logZ where finite, checkpoints and last state."""
+    zk, zp = sweep_logz(kop, fk), sweep_logz(kop, fp)
+    fin = np.isfinite(zp)
+    return max(
+        float(np.abs(zk[fin] - zp[fin]).max(initial=0.0)),
+        float((scaled(fk[0], fk[1]) - scaled(fp[0], fp[1])).abs().max()),
+        float((scaled(fk[2], fk[3]) - scaled(fp[2], fp[3])).abs().max()),
+    )
+
+
+def bwd_err(k, p):
+    """K4 against its twin: posteriors and the outgoing beta."""
+    return max(float((k[0] - p[0]).abs().max()),
+               float((scaled(k[1], k[2]) - scaled(p[1], p[2])).abs().max()))
 
 
 def phase_oracle(fsm, spdf, cf, P, dev, n=40, label="phase 5"):
@@ -428,7 +482,9 @@ def phase_main(cf, P, dev, B=128, N=700):
 
 def time_kernels(cf, P, dev, B=128, N=700, chunk=64):
     """Each kernel and its plain twin at the main path's shapes: K2 over
-    all Npad frames, K3 and K4 over one 64-frame chunk."""
+    all Npad frames, K3 and K4 over one 64-frame chunk; then each kernel
+    held to its twin on these inputs.  Returns ({name: (kernel ms, plain
+    ms)}, {name: max |err|})."""
     import torch
 
     from markovmodels_tpu_torch.ops import block_scan as bs
@@ -470,7 +526,18 @@ def time_kernels(cf, P, dev, B=128, N=700, chunk=64):
         out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
         print(f"timing: {name} kernel {k1:.3f}/{k2:.3f} ms, plain "
               f"{p1:.3f}/{p2:.3f} ms")
-    return out
+    res = {name: (kern(), plain()) for name, (kern, plain) in calls.items()}
+    errs = {
+        "K2": sweep_err(kop, *res["K2"]),
+        "K3": float((scaled(*res["K3"][0]) - scaled(*res["K3"][1]))
+                    .abs().max()),
+        "K4": bwd_err(*res["K4"]),
+    }
+    for name, e in errs.items():
+        print(f"timing: {name} kernel vs plain at B={B} N={N} (K2 over "
+              f"{C * K} frames) max |err| = {e:.3e} (tol {TOL_KERNEL:g})")
+        assert np.isfinite(e) and e <= TOL_KERNEL, f"{name} disagrees: {e}"
+    return out, errs
 
 
 def build_numerators(P, G=128, Lp=78, seed=3):
@@ -587,7 +654,7 @@ def phase_banded_oracle(P, dev, n=40):
 
 
 def phase_step(num_cf, cf, P, dev, mods, label, B=128, N=700):
-    """Phase 9 (13): the LF-MMI training step through the kernels of the
+    """Phase 9 (13, 21): the LF-MMI training step through the kernels of the
     ops modules ``mods``, checked and timed beside the denominator-only
     pdfposteriors."""
     import torch
@@ -994,6 +1061,40 @@ def phase_vit_main(fsm, spdf, cf, P, dev, B=128, N=700):
     return launches, times, t_dec, {"K7": serr, "K7w": werr}
 
 
+def phase_ov_step(num_cf, cf, ecf, P, dev, B=128, N=700, chunk=64):
+    """Phase 21: the training step with the separate-state denominator
+    (phase_step's checks), its exact launch counts, and the den-only time
+    of the embedded layout of the same LM beside it."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops import block_scan as bs
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+
+    ds.reset_launch_counts()
+    vs.reset_launch_counts()
+    launches, t_step, t_den = phase_step(num_cf, cf, P, dev, (bs, bsc),
+                                         "phase 21", B, N)
+    C = -(-(N + 1) // chunk)
+    want = {"block_fwd": 1, "block_recompute": C, "block_bwd": C,
+            "banded_fwd": 1, "banded_bwd": 1}
+    others = {k: v for m in (ds, vs) for k, v in m.LAUNCHES.items()}
+    assert launches == want, f"launches {launches}, expected {want}"
+    assert not any(others.values()), f"another kernel launched: {others}"
+    rng = np.random.default_rng(0)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+    t_emb = cuda_ms(lambda: mt.pdfposteriors(ecf, lhs, lengths), reps=2)
+    audio = B * N * FRAME_SHIFT_S
+    print(f"phase 21: embedded layout den-only pdfposteriors {t_emb / 1e3:.4f}"
+          f" s = {audio / (t_emb / 1e3):.1f} audio-s/s; separate/embedded "
+          f"den-only ratio {t_den / t_emb:.3f} (bench.py holds the JAX "
+          f"package's under 1.2; printed only)")
+    return launches, t_step, t_den, t_emb
+
+
 def main():
     import torch
 
@@ -1044,11 +1145,11 @@ def main():
     phase_banded_oracle(P, dev)
     launches, t_step, t_den = phase_step(num_cf, cf, P, dev, (bs, bsc),
                                          "phase 9")
-    times = time_kernels(cf, P, dev)
+    times, terrs = time_kernels(cf, P, dev)
+    errs.update({k: max(errs[k], v) for k, v in terrs.items()})
     times.update(time_banded(num_cf, P, dev))
     bounds = block_bounds(cf, 128, -(-701 // 64) * 64, 64)
     bounds.update(banded_bounds(num_cf, 701))
-    del num_cf
 
     t0 = time.perf_counter()
     dfsm, dspdf, dP, dinfo = mt.workloads.make_lm_hmm_graph(V=32)
@@ -1077,6 +1178,31 @@ def main():
     errs.update({k: max(errs[k], v) for k, v in verrs.items()})
     times.update(vtimes)
     bounds.update(vit_bounds(cf, 128, 701))
+    del cf
+
+    t0 = time.perf_counter()
+    sfsm, sspdf, sP, sinfo = mt.workloads.make_backoff_lm_hmm_graph(
+        V=128, keep=0.1, layout="separate")
+    scf = mt.compile_fsm(sfsm, sspdf, sP, device=dev)  # the defaults
+    report = mt.fast_path_report(scf, 128)
+    print(f"phase 18: graph {sinfo} compiled (strategy {scf.strategy!r}, "
+          f"ov_layout {scf.ov_layout}) in {time.perf_counter() - t0:.1f} s; "
+          f"Sp = {scf.padded_states}; path: {report}")
+    assert scf.strategy == "block" and scf.ov_layout == (128, 3), "layout"
+    assert report.startswith("cuda-block-scan"), report
+    ov_errs = phase_kernels(scf, sP, dev, label="phase 19", twice=True)
+    phase_oracle(sfsm, sspdf, scf, sP, dev, label="phase 20")
+    efsm, espdf, eP, _ = mt.workloads.make_backoff_lm_hmm_graph(
+        V=128, keep=0.1, layout="embedded")
+    ecf = mt.compile_fsm(efsm, espdf, eP, device=dev)
+    assert ecf.pdf_group and mt.fast_path_report(ecf, 128).startswith(
+        "cuda-block-scan"), "embedded layout"
+    ov_launches, t_ostep, t_oden, t_emb = phase_ov_step(num_cf, scf, ecf, sP,
+                                                        dev)
+    del ecf, num_cf
+    ov_times, terrs = time_kernels(scf, sP, dev)
+    ov_errs.update({k: max(ov_errs[k], v) for k, v in terrs.items()})
+    ov_bounds = block_bounds(scf, 128, -(-701 // 64) * 64, 64)
 
     block_src = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
     banded_src = "markovmodels_tpu_torch/ops/csrc/banded_scan.cu"
@@ -1105,19 +1231,32 @@ def main():
         # the walk replaces XLA code, no Pallas kernel: the line of wstep
         "K7w": ("vit_walk", vit_src, "markovmodels_tpu/viterbi.py:382"),
     }
+    library = {"K6a": t_mm, "K6b": t_mm}  # the torch.matmul yardstick
     kernels = [
         {"name": f"{name} {counter}", "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[counter],
          "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": None}
+         "bound_by": bounds[name][1], "library_ms": library.get(name)}
         for name, (counter, source, replaces) in table.items()
+    ]
+    kernels += [  # the overflow branch, on the separate-state graph
+        {"name": f"{name} {counter} (separate-state backoff graph)",
+         "route": "cuda", "source": source, "replaces": replaces,
+         "launches": ov_launches[counter], "max_abs_err": ov_errs[name],
+         "ms": ov_times[name][0], "plain_ms": ov_times[name][1],
+         "bound_ms": ov_bounds[name][0], "bound_by": ov_bounds[name][1],
+         "library_ms": None}
+        for name, (counter, source, replaces) in table.items()
+        if name in ov_times
     ]
     print(f"card: {card}; pdfposteriors B=128 N=700 kernel path "
           f"{t_kern:.2f} ms, plain path {t_plain:.2f} ms; LF-MMI step "
           f"{t_step:.2f} ms, den-only {t_den:.2f} ms; dense-den LF-MMI step "
           f"{t_dstep:.2f} ms, dense den-only {t_dden:.2f} ms; viterbi "
-          f"B=128 N=700 {t_dec:.2f} ms; K6 matmul yardstick {t_mm:.2f} ms")
+          f"B=128 N=700 {t_dec:.2f} ms; K6 matmul yardstick {t_mm:.2f} ms; "
+          f"separate-state LF-MMI step {t_ostep:.2f} ms, den-only "
+          f"{t_oden:.2f} ms, embedded den-only {t_emb:.2f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -185,11 +185,20 @@ def compile_fsm(
     states into a uniform pdf-grouped layout (pdf p owns slots
     [p*cmax, (p+1)*cmax)); 'auto' does so when the padding inflation is
     acceptable; 'none' keeps the host order.
+    ``ov_cap`` ('block' only): cap on the per-pdf slot count of the
+    reordered layout.  When some pdf owns more states than the cap (a
+    *separate-state* backoff LM ∘ HMM graph, where pdf (b, k) is shared by
+    the V histories (·, b) and the backoff state B(b)), the states beyond
+    the first ``cap`` of each pdf move, in host order, to an overflow region
+    of cap-wide lane-groups with per-lane pdfs (``ov_layout = (cap, nOv)``),
+    and their arcs compile into overflow families (ops/blocked.py).  The
+    default (None) caps at 128 whenever the largest pdf owns more than 128
+    states and not a multiple of 128.
     ``precision``: 'high' and 'f32' both mean full float32.
 
     Not ported yet (raise ``NotImplementedError``): the 'ell' and 'segment'
-    strategies, float64, general multi-pdf Ĉ, precision 'bf16', the log
-    domain and the capped overflow layout.
+    strategies, float64, general multi-pdf Ĉ, precision 'bf16' and the log
+    domain.
     """
     device = _target_device(device)
     S1 = len(fsm.alpha_hat)
@@ -221,6 +230,8 @@ def compile_fsm(
 
     # --- optional uniform pdf-grouped relabeling --------------------------
     pdf_group = ()
+    ov_layout = ()
+    ov_region = None
     orig = None
     if reorder != "none" and strategy == "block":
         P1 = num_pdfs + 1
@@ -228,25 +239,48 @@ def compile_fsm(
         cmax = max(int(counts.max()), 1)
         cap = ov_cap
         if cap is None and cmax > 128 and cmax % 128:
+            # exactly 128: the padded tail is 128 slots and the kernels'
+            # plan needs tail % cap == 0
             cap = 128
         if cap is not None and cap < cmax:
-            grp = np.sort(state_pdf[: S1 - 1]).astype(np.int64)
+            # capped layout with an overflow region (see ``ov_cap``)
+            order = np.argsort(state_pdf[: S1 - 1], kind="stable")
+            grp = state_pdf[: S1 - 1][order].astype(np.int64)
             pos = np.arange(S1 - 1) - np.searchsorted(grp, grp)
-            n_over = int((~((pos < cap) & (grp < num_pdfs))).sum())
+            uni = (pos < cap) & (grp < num_pdfs)
+            n_over = int((~uni).sum())
             nOv = -(-n_over // cap)
-            fin_ov = num_pdfs * cap + nOv * cap
-            if nOv > 0 and fin_ov + 1 <= max(
+            lim_u = num_pdfs * cap
+            fin_ov = lim_u + nOv * cap
+            ov_ok = fin_ov + 1 <= max(
                 int(1.5 * _round_up(S1, 128)), _round_up(S1, 128) + 128
-            ):
-                raise NotImplementedError(
-                    "capped pdf-grouped layout with an overflow region "
-                    "(ROADMAP: port the overflow families)"
-                )
+            )
+            if ov_ok and nOv > 0:
+                perm = np.empty(S1, dtype=np.int64)
+                perm[order[uni]] = grp[uni] * cap + pos[uni]
+                # overflow states keep host order (it keeps the graph's
+                # structural families, e.g. plane-major backoff states)
+                ov_ids = np.sort(order[~uni])
+                perm[ov_ids] = lim_u + np.arange(n_over)
+                perm[S1 - 1] = fin_ov
+                rows, cols = perm[rows], perm[cols]
+                alpha_full = np.full(fin_ov + 1, -np.inf)
+                alpha_full[perm] = alpha_in
+                alpha_in = alpha_full
+                spdf_full = np.full(fin_ov + 1, num_pdfs, dtype=np.int32)
+                spdf_full[perm] = state_pdf
+                state_pdf = spdf_full
+                orig = np.full(fin_ov + 1, -1, dtype=np.int32)
+                orig[perm] = np.arange(S1, dtype=np.int32)
+                final_idx = fin_ov
+                S_eff = fin_ov + 1
+                ov_layout = (cap, nOv)
+                ov_region = (lim_u, fin_ov, cap)
         lim = P1 * cmax
         inflation_ok = lim + 1 <= max(
             int(1.5 * _round_up(S1, 128)), _round_up(S1, 128) + 128
         )
-        if reorder == "pdf" or inflation_ok:
+        if not ov_layout and (reorder == "pdf" or inflation_ok):
             order = np.argsort(state_pdf[: S1 - 1], kind="stable")
             grp = state_pdf[: S1 - 1][order].astype(np.int64)
             pos = np.arange(S1 - 1) - np.searchsorted(grp, grp)
@@ -263,7 +297,7 @@ def compile_fsm(
             final_idx = num_pdfs * cmax
             S_eff = lim
             pdf_group = (cmax, lim)
-    if not pdf_group:
+    if not pdf_group and not ov_layout:
         final_idx = S1 - 1
         S_eff = S1
 
@@ -328,9 +362,9 @@ def compile_fsm(
                 "tropical reuse of omega_prob"
             )
         kw["block_fwd"], kw["block_fwd_offsets"] = build_block_operator(
-            crows, ccols, cdata, Sp)
+            crows, ccols, cdata, Sp, ov_region=ov_region)
         kw["block_bwd"], kw["block_bwd_offsets"] = build_block_operator(
-            ccols, crows, cdata, Sp)
+            ccols, crows, cdata, Sp, ov_region=ov_region)
     else:
         # every core arc on one of <= 8 shared offsets (the JAX package's
         # banded branch has no parallel-arc check; neither has this one)
@@ -367,6 +401,7 @@ def compile_fsm(
         strategy=strategy,
         precision=precision,
         pdf_group=pdf_group,
+        ov_layout=ov_layout,
         **kw,
     )
     return cf if device.type == "cpu" else cf.to(device)
@@ -398,16 +433,13 @@ def compiled_from_numpy(fields: dict, meta: dict, *,
     def op(o):
         if o is None:
             return None
-        if getattr(o, "ov_w", ()):
-            raise NotImplementedError(
-                "overflow families (ROADMAP: port the overflow families)"
-            )
         return BlockOperator(
             band_w=t(o.band_w),
             tiers=tuple(tuple(t(x) for x in tier) for tier in o.tiers),
             res_src=t(o.res_src),
             res_dst=t(o.res_dst),
             res_w=t(o.res_w),
+            ov_w=tuple(t(w) for w in getattr(o, "ov_w", ())),
         )
 
     def plain(v):

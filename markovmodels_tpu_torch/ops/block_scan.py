@@ -14,7 +14,14 @@ Counterpart of ``markovmodels_tpu/ops/pallas_block.py``.  One shared graph
   frame (replaces ``_make_bwd_kernel``).
 
 All three are built on one blocked matvec (band offsets + one affine tier +
-the rank-1 omega split), the counterpart of ``_make_matvec``.  The CUDA
+the rank-1 omega split + the overflow families of a capped layout), the
+counterpart of ``_make_matvec``.  Two layouts run: the uniform pdf-grouped
+one (pdf p owns rows [p·cmax, (p+1)·cmax)) and the capped one of a
+separate-state backoff graph (``ov_layout``: P uniform groups, then nOv
+overflow groups whose rows each carry their own pdf, then the tail, which
+belongs to the phony pdf).  The kernels read every row's pdf from one
+table and pull the overflow families as per-row lists of (source, weight)
+terms.  The CUDA
 sources are ``csrc/block_scan.cu``; ``_build.py`` compiles them with nvcc at
 first use.  Each wrapper takes its plain version for CPU tensors and
 launches the kernel for CUDA tensors; anything else raises.
@@ -34,6 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .blocked import family_grid
 from .emissions import pad_emissions
 
 __all__ = [
@@ -54,6 +62,9 @@ __all__ = [
 LAUNCHES = {"block_fwd": 0, "block_recompute": 0, "block_bwd": 0}
 
 _TILE_ROWS = 64  # state rows per CUDA tile (TR in csrc/block_scan.cu)
+# rows with at least this many family terms get a tile of their own, whose
+# threads split the terms (csrc/block_scan.cu heavy_terms)
+_HEAVY_TERMS = 16
 _MAX_BANDS = 8  # band offsets a kernel takes (build_block_operator's cap)
 
 
@@ -138,8 +149,43 @@ def _dir_plan_explain(op, meta, W, R, cmax):
     return plan, None
 
 
+def _ov_plan(descs, W, R, cmax):
+    """Validate overflow-family descriptors (ops/blocked.py _ov_families)
+    against the (R, W) grid.  Returns (plans, None) or (None, reason); each
+    plan is (kind, form, (rg, gg), (rb, gb), D) with the ov group at grid
+    cell (rg, gg) and the core-side window/column anchored at (rb, gb)."""
+    plans = []
+    for desc in descs:
+        kind, g0, form, base, stride, D = desc
+        if g0 % cmax or (g0 % W) % cmax:
+            return None, f"ov group base {g0} not lane-group aligned"
+        rg, gg = g0 // W, (g0 % W) // cmax
+        if rg >= R:
+            return None, f"ov group row {rg} outside the {R}-row grid"
+        if (base % W) % cmax:
+            return None, f"ov family base {base} not lane-group aligned"
+        rb, gb = base // W, (base % W) // cmax
+        if form == "win":
+            if stride != W:
+                return None, f"ov window stride {stride} != row width {W}"
+            if D != cmax:
+                return None, f"ov window width {D} != lane-group size {cmax}"
+            if rb + cmax > R:
+                return None, "ov window rows overrun the grid"
+        elif form == "col":
+            if D > 1 and stride != W:
+                return None, f"ov column stride {stride} != row width {W}"
+            if rb + D > R:
+                return None, "ov column rows overrun the grid"
+        else:
+            return None, f"unknown ov family form {form!r}"
+        plans.append((kind, form, (rg, gg), (rb, gb), D))
+    return tuple(plans), None
+
+
 def _full_plan_explain(cf):
-    """((W, R, plan_fwd, plan_bwd), None) or (None, reason)."""
+    """((W, R, plan_fwd, plan_bwd), None) or (None, reason).  Plans carry
+    an 'ov' tuple of overflow-family plans (empty for uniform layouts)."""
     ops = (cf.block_fwd, cf.block_bwd)
     metas = (cf.block_fwd_offsets, cf.block_bwd_offsets)
     W = None
@@ -158,12 +204,13 @@ def _full_plan_explain(cf):
     if W % 128:
         return None, f"tier stride {W} not a multiple of 128 lanes"
     Sp = cf.padded_states
-    if not cf.pdf_group:
-        if cf.ov_layout:
-            return None, ("overflow layout (ROADMAP: port the overflow "
-                          "families)")
+    if cf.pdf_group:
+        cmax, lim = cf.pdf_group
+        nOv = 0
+    elif cf.ov_layout:
+        cmax, nOv = cf.ov_layout
+    else:
         return None, "no pdf-grouped or overflow layout"
-    cmax, lim = cf.pdf_group
     if W % cmax:
         return None, f"row width {W} not a multiple of pdf-group size {cmax}"
     fin = cf.final_state
@@ -177,6 +224,15 @@ def _full_plan_explain(cf):
         return None, "phony final state not in the tail region"
     if tail % cmax or tail <= 0 or tail % 128:
         return None, f"tail size {tail} not lane/pdf-group aligned"
+    Gp = W // cmax
+    if nOv:
+        P = cf.num_pdfs
+        if R * Gp != P + nOv:
+            return None, (f"overflow grid has {R * Gp} lane-groups, layout "
+                          f"expects P + nOv = {P + nOv}")
+        if P % Gp:
+            return None, (f"uniform region ({P} groups) does not end on a "
+                          f"row boundary (Gp = {Gp})")
     pf, rf = _dir_plan_explain(cf.block_fwd, cf.block_fwd_offsets, W, R, cmax)
     if pf is None:
         return None, f"forward operator: {rf}"
@@ -185,9 +241,13 @@ def _full_plan_explain(cf):
         return None, f"backward operator: {rb}"
     for plan, meta, dname in ((pf, metas[0], "forward"),
                               (pb, metas[1], "backward")):
-        if len(meta) > 3 and meta[3]:
+        ovd = meta[3] if len(meta) > 3 else ()
+        if ovd and not nOv:
             return None, f"{dname} operator: ov families without ov layout"
-        plan["ov"] = ()
+        ovp, ro = _ov_plan(ovd, W, R, cmax)
+        if ovp is None:
+            return None, f"{dname} operator: {ro}"
+        plan["ov"] = ovp
     # band weights must vanish on the tail (the rank-1 ω split owns it)
     for meta in metas:
         if len(meta) <= 2:
@@ -236,13 +296,113 @@ def _dir_index_maps(op, meta):
     return g, d, src, dst
 
 
-def _kernel_checks(cf):
-    """Port-specific predicates on top of the plan (None or a reason)."""
+def _ov_bounds(cf):
+    """(ov_lo, ov_hi): the overflow rows [P·cmax, (P+nOv)·cmax) of a capped
+    layout, (Sp, Sp) for a uniform one."""
+    if not cf.ov_layout:
+        return cf.padded_states, cf.padded_states
+    cmax, nOv = cf.ov_layout
+    return cf.num_pdfs * cmax, (cf.num_pdfs + nOv) * cmax
+
+
+def _row_pdf(cf) -> np.ndarray:
+    """The pdf of every state row as the kernels read it: row j // cmax in
+    the uniform groups, each overflow row its own pdf, the phony pdf P in
+    the tail (the JAX kernel's emission and posterior layout)."""
     Sp = cf.padded_states
-    cmax, lim = cf.pdf_group
-    if lim != Sp:
-        return (f"pdf-grouped layout ({lim} slots) does not fill the "
-                f"padded states ({Sp})")
+    rows = np.arange(Sp, dtype=np.int64)
+    if cf.pdf_group:
+        return (rows // cf.pdf_group[0]).astype(np.int32)
+    ov_lo, ov_hi = _ov_bounds(cf)
+    pdf = np.full(Sp, cf.num_pdfs, dtype=np.int32)
+    pdf[:ov_lo] = rows[:ov_lo] // cf.ov_layout[0]
+    pdf[ov_lo:ov_hi] = cf.state_pdf[ov_lo:ov_hi].cpu().numpy()
+    return pdf
+
+
+def _family_terms(op, meta):
+    """A direction's overflow families as (dst, src, w) terms sorted by
+    destination, then source; zero weights dropped (they add exact
+    zeros).  'in' terms land on overflow rows, 'out' terms on core rows."""
+    dst, src, w = [np.zeros(0, np.int64)] * 2 + [np.zeros(0, np.float32)]
+    for desc, Wf in zip(meta[3] if len(meta) > 3 else (), op.ov_w):
+        kind, g0, form = desc[:3]
+        Wn = Wf.detach().cpu().numpy()
+        block = Wn.shape[-1]
+        grid = family_grid(desc, block)
+        lanes = np.arange(block, dtype=np.int64)
+        lane = g0 + (lanes[None, :] if form == "col" else lanes[:, None])
+        lane = np.broadcast_to(lane, grid.shape)
+        d, s_ = (lane, grid) if kind == "in" else (grid, lane)
+        nz = Wn != 0
+        dst = np.concatenate([dst, d[nz]])
+        src = np.concatenate([src, s_[nz]])
+        w = np.concatenate([w, Wn[nz]])
+    order = np.lexsort((src, dst))
+    return dst[order], src[order], w[order]
+
+
+def _dir_rows(op, meta, Sp):
+    """A direction's host tables: (src_map, dst_map, tier src rows (K, Sm),
+    tier dst rows (K, D), family terms (dst, src, w), band rows, heavy
+    rows).  Heavy rows are the rows outside the tier with at least
+    _HEAVY_TERMS family terms (the overflow rows of an 'in' window or a
+    deep 'in' column) and take a tile each; band rows are the other rows
+    the tier does not write, in increasing order.  A tier row pulls its
+    terms in its tier tile, so every row has exactly one tile."""
+    g, d, src, dst = _dir_index_maps(op, meta)
+    fam = _family_terms(op, meta)
+    n_terms = np.bincount(fam[0], minlength=Sp)
+    n_terms[dst.ravel()] = 0
+    heavy = np.flatnonzero(n_terms >= _HEAVY_TERMS)
+    band = np.setdiff1d(np.arange(Sp), np.concatenate([dst.ravel(), heavy]))
+    return g, d, src, dst, fam, band, heavy
+
+
+def _row_tiles(dst, band, heavy, Sp):
+    """The step kernel's tile of every state row: one tile per heavy row,
+    then the tier tiles, then 64-row band tiles."""
+    K, D = dst.shape
+    nh, dt = len(heavy), -(-D // _TILE_ROWS)
+    tile = np.empty(Sp, dtype=np.int64)
+    tile[heavy] = np.arange(nh)
+    tile[dst] = (nh + np.arange(K)[:, None] * dt
+                 + (np.arange(D) // _TILE_ROWS)[None, :])
+    tile[band] = nh + K * dt + np.arange(len(band)) // _TILE_ROWS
+    return tile
+
+
+def _posterior_tiles(kop):
+    """Most tiles of the backward step that add into one pdf's posterior;
+    overflow rows excluded (they take a fixed-order sum)."""
+    kd = kop.bwd
+    tile = _row_tiles(*(t.cpu().numpy() for t in
+                        (kd.dst_rows, kd.band_rows, kd.heavy_rows)), kop.Sp)
+    rows = np.arange(kop.Sp)
+    keep = (rows < kop.ov_lo) | (rows >= kop.ov_hi)
+    n = int(tile.max()) + 1
+    pdf = kop.row_pdf.cpu().numpy()[keep].astype(np.int64)
+    pairs = np.unique(pdf * n + tile[keep])
+    return int(np.bincount(pairs // n).max())
+
+
+def _kernel_checks(cf, W, R):
+    """Port-specific predicates on top of the plan (None or a reason),
+    computed once per CompiledFSM.  The last one reads the kernels' own
+    tables: it builds the cached :func:`kernel_operator` that the launches
+    use."""
+    key = ("kernel_checks", W, R)
+    if key not in cf._cache:
+        cf._cache[key] = _kernel_checks_uncached(cf, W, R)
+    return cf._cache[key]
+
+
+def _kernel_checks_uncached(cf, W, R):
+    Sp = cf.padded_states
+    if cf.pdf_group and cf.pdf_group[1] != Sp:
+        return (f"pdf-grouped layout ({cf.pdf_group[1]} slots) does not "
+                f"fill the padded states ({Sp})")
+    ov_lo, ov_hi = _ov_bounds(cf)
     for dname, op, meta in (("forward", cf.block_fwd, cf.block_fwd_offsets),
                             ("backward", cf.block_bwd, cf.block_bwd_offsets)):
         if len(meta[0]) > _MAX_BANDS:
@@ -252,6 +412,21 @@ def _kernel_checks(cf):
             return f"{dname} operator: tier window outside the state range"
         if len(np.unique(dst)) != dst.size:
             return f"{dname} operator: tier writes a state row twice"
+        # JAX's plan checks alignment only: each family's group must lie
+        # in the overflow region and its core side inside the R·W grid
+        for desc, Wf in zip(meta[3] if len(meta) > 3 else (), op.ov_w):
+            g0 = desc[1]
+            if g0 < ov_lo or g0 + Wf.shape[-1] > ov_hi:
+                return (f"{dname} operator: ov group base {g0} outside the "
+                        f"overflow region [{ov_lo}, {ov_hi})")
+            grid = family_grid(desc, Wf.shape[-1])
+            if grid.min() < 0 or grid.max() >= R * W:
+                return (f"{dname} operator: ov family window outside the "
+                        f"grid [0, {R * W})")
+    n = _posterior_tiles(kernel_operator(cf))
+    if n > 2:
+        return (f"a pdf's posterior gathers from {n} row tiles (more than 2 "
+                "atomic float adds depend on their order)")
     return None
 
 
@@ -262,7 +437,16 @@ def _working_set_bytes(cf, B, n_frames, chunk):
     tens = [cf.omega_prob, cf.alpha_hat]
     for op in (cf.block_fwd, cf.block_bwd):
         tens += [t for t in (op.band_w, op.tiers[0][2]) if t is not None]
+        tens += list(op.ov_w)
     need = sum(t.numel() * t.element_size() for t in tens)
+    ov_lo, ov_hi = _ov_bounds(cf)
+    # the per-row pdf table and family-term offsets (int32, both
+    # directions), the terms (int32 source + float32 weight per family
+    # weight at most), the per-pdf overflow-lane lists and the K4 buffer
+    # of the overflow rows' gammas
+    n_w = sum(t.numel() for op in (cf.block_fwd, cf.block_bwd)
+              for t in op.ov_w)
+    need += 4 * (3 * (Sp + 1) + 2 * n_w + P1 + 1 + (ov_hi - ov_lo) * (1 + B))
     K = min(chunk, n_frames + 1) if n_frames else chunk
     C = -(-(n_frames + 1) // K) if n_frames else 1
     # a0 + ping-pong pair + last state + two betas, the chunk's alphas,
@@ -301,7 +485,7 @@ def block_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     plan, reason = _full_plan_explain(cf)
     if plan is None:
         return reason
-    reason = _kernel_checks(cf)
+    reason = _kernel_checks(cf, plan[0], plan[1])
     if reason is not None:
         return reason
     if (device is not None and torch.device(device).type == "cuda"
@@ -328,22 +512,40 @@ class KernelDir(NamedTuple):
     src_rows: torch.Tensor  # (K, Sm) int64, the same map as an index
     dst_rows: torch.Tensor  # (K, D) int64
     band_rows: torch.Tensor  # (nband,) int32: rows the tier never writes
+    heavy_rows: torch.Tensor  # (nheavy,) int32: rows with a tile each
+    # overflow families as per-row lists of (source, weight) terms, in a
+    # fixed order: row j's terms are fam_src/fam_w[fam_ptr[j]:fam_ptr[j+1]]
+    fam_ptr: torch.Tensor  # (Sp + 1,) int32
+    fam_src: torch.Tensor  # (nfam,) int32
+    fam_w: torch.Tensor  # (nfam,) f32
+    fam_dst: torch.Tensor  # (nfam,) int64, the row of each term
 
 
 class KernelOp(NamedTuple):
     Sp: int
-    P1: int  # pdf groups = num_pdfs + 1 (the phony pdf last)
-    cmax: int  # states per pdf group
+    P1: int  # pdfs + 1 (the phony pdf last)
+    cmax: int  # states per pdf group (lane-group width)
     fin: int  # phony final state
     alpha0: torch.Tensor  # (Sp,) initial probabilities
     omega: torch.Tensor  # (Sp,) rank-1 arcs into the phony state
     fwd: KernelDir
     bwd: KernelDir
+    row_pdf: torch.Tensor  # (Sp,) int32 pdf of each row (_row_pdf)
+    # overflow rows [ov_lo, ov_hi) (ov_lo = ov_hi = Sp: uniform layout);
+    # K4 sums their gammas into each pdf in a fixed order after the tile
+    # sums: pdf p's rows are ov_lo + ovp_lane[ovp_ptr[p]:ovp_ptr[p+1]]
+    ov_lo: int
+    ov_hi: int
+    ovp_ptr: torch.Tensor  # (P1 + 1,) int32
+    ovp_lane: torch.Tensor  # (ov_hi - ov_lo,) int32, increasing per pdf
+
+
+def _i32(x, device):
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
 
 
 def _kernel_dir(op, meta, Sp, device):
-    g, d, src, dst = _dir_index_maps(op, meta)
-    band_rows = np.setdiff1d(np.arange(Sp, dtype=np.int64), dst.ravel())
+    g, d, src, dst, (fdst, fsrc, fw), band, heavy = _dir_rows(op, meta, Sp)
     nO = len(meta[0])
     band_w = (op.band_w if op.band_w is not None
               else torch.zeros((0, Sp), dtype=torch.float32))
@@ -356,26 +558,43 @@ def _kernel_dir(op, meta, Sp, device):
         dst_map=tuple(int(v) for v in d),
         src_rows=torch.from_numpy(src).to(device),
         dst_rows=torch.from_numpy(dst).to(device),
-        band_rows=torch.from_numpy(band_rows.astype(np.int32)).to(device),
+        band_rows=_i32(band, device),
+        heavy_rows=_i32(heavy, device),
+        fam_ptr=_i32(np.searchsorted(fdst, np.arange(Sp + 1)), device),
+        fam_src=_i32(fsrc, device),
+        fam_w=torch.from_numpy(np.ascontiguousarray(fw, np.float32))
+        .to(device),
+        fam_dst=torch.from_numpy(fdst).to(device),
     )
 
 
 def kernel_operator(cf) -> KernelOp:
-    """The fused scan's operator for an accepted graph, built once per
-    CompiledFSM (cached on it)."""
+    """The fused scan's operator for a graph whose plan passed, built once
+    per CompiledFSM (cached on it)."""
     kop = cf._cache.get("block_scan")
     if kop is None:
         Sp = cf.padded_states
         dev = cf.alpha_hat.device
+        P1 = cf.num_pdfs + 1
+        row_pdf = _row_pdf(cf)
+        ov_lo, ov_hi = _ov_bounds(cf)
+        lane_pdf = row_pdf[ov_lo:ov_hi]
+        lanes = np.argsort(lane_pdf, kind="stable")
         kop = KernelOp(
             Sp=Sp,
-            P1=cf.num_pdfs + 1,
-            cmax=cf.pdf_group[0],
+            P1=P1,
+            cmax=(cf.pdf_group or cf.ov_layout)[0],
             fin=cf.final_state,
             alpha0=torch.exp(cf.alpha_hat).contiguous(),
             omega=cf.omega_prob.contiguous(),
             fwd=_kernel_dir(cf.block_fwd, cf.block_fwd_offsets, Sp, dev),
             bwd=_kernel_dir(cf.block_bwd, cf.block_bwd_offsets, Sp, dev),
+            row_pdf=_i32(row_pdf, dev),
+            ov_lo=ov_lo,
+            ov_hi=ov_hi,
+            ovp_ptr=_i32(np.searchsorted(lane_pdf[lanes], np.arange(P1 + 1)),
+                         dev),
+            ovp_lane=_i32(lanes, dev),
         )
         cf._cache["block_scan"] = kop
     return kop
@@ -405,21 +624,30 @@ def _pow2_scale(k):
 
 
 def _matvec_plain(kd: KernelDir, x):
-    """K1's plain twin: y = band(x) + tier(x) over the direction's core."""
+    """K1's plain twin: y = band(x) + tier(x) + families(x) over the
+    direction's core."""
     y = torch.zeros_like(x)
     for o, off in enumerate(kd.offsets):
         # band edge src = dst - off; wrapped rows carry zero weight
         y += kd.band_w[o][:, None] * torch.roll(x, off, dims=0)
     Y = torch.einsum("ksd,ksb->kdb", kd.W, x[kd.src_rows])
     y.index_add_(0, kd.dst_rows.reshape(-1), Y.reshape(-1, x.shape[1]))
+    if kd.fam_dst.numel():
+        y.index_add_(0, kd.fam_dst,
+                     kd.fam_w[:, None] * x[kd.fam_src.long()])
     return y
+
+
+def _emissions(kop: KernelOp, e_t):
+    """(P1, B) emissions of one frame -> (Sp, B), each row its pdf's."""
+    return e_t[kop.row_pdf.long()]
 
 
 def _fwd_frame_plain(kop: KernelOp, a, s, e_t, first: bool):
     """One forward frame: y = (M a)·s ⊙ e with y[fin] = (ω·a)·s ⊙ e, or
     y = a ⊙ e on frame 0.  Returns (y unscaled, its exponent k (B,)); the
     new scale is 2^-k."""
-    e = e_t.repeat_interleave(kop.cmax, dim=0)
+    e = _emissions(kop, e_t)
     if first:
         y = a * e
     else:
@@ -482,10 +710,10 @@ def backward_plain(kop: KernelOp, beta, bscale, alphas, ascale, ext_c,
             y = (_matvec_plain(kop.bwd, b)
                  + kop.omega[:, None] * b[kop.fin][None, :]) * s
         g = alphas[j] * ascale[j] * y
-        sp = g.reshape(kop.P1, kop.cmax, B).sum(dim=1)
+        sp = g.new_zeros((kop.P1, B)).index_add_(0, kop.row_pdf.long(), g)
         tot = sp.sum(dim=0)
         posts[j] = sp / torch.where(tot > 0, tot, torch.ones_like(tot))
-        b = y * ext_c[j].repeat_interleave(kop.cmax, dim=0)
+        b = y * _emissions(kop, ext_c[j])
         s = _pow2_scale(_pow2_exponent(b.amax(dim=0)))
     return posts, b, s
 
@@ -494,17 +722,32 @@ def backward_plain(kop: KernelOp, beta, bscale, alphas, ascale, ext_c,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+_N_TILES = 23  # index of the tile count in _imeta's descriptor
+
+
 def _imeta(kop: KernelOp, kd: KernelDir) -> np.ndarray:
     """Host int64 descriptor read by csrc/block_scan.cu (layout: Meta)."""
     K, Sm, D = kd.W.shape
     nband = kd.band_rows.numel()
-    n_tiles = K * -(-D // _TILE_ROWS) + -(-nband // _TILE_ROWS)
+    nfam, nheavy = kd.fam_dst.numel(), kd.heavy_rows.numel()
+    n_tiles = K * -(-D // _TILE_ROWS) + -(-nband // _TILE_ROWS) + nheavy
     offs = list(kd.offsets) + [0] * (_MAX_BANDS - len(kd.offsets))
     return np.array(
         [kop.Sp, kop.P1, kop.cmax, kop.fin, len(kd.offsets), *offs,
-         K, Sm, D, *kd.src_map, *kd.dst_map, nband, n_tiles],
+         K, Sm, D, *kd.src_map, *kd.dst_map, nband, n_tiles,
+         kop.ov_lo, kop.ov_hi, nfam, nheavy],
         dtype=np.int64,
     )
+
+
+def _ilayout(kop: KernelOp, kd: KernelDir) -> np.ndarray:
+    """Host int64 array of the layout tables' device addresses, read by
+    csrc/block_scan.cu (layout: Layout)."""
+    tables = (kop.row_pdf, kd.fam_ptr, kd.fam_src, kd.fam_w, kop.ovp_ptr,
+              kop.ovp_lane, kd.heavy_rows)
+    # an empty table (uniform layout) passes an address that is never read
+    return np.array([(t if t.numel() else kop.row_pdf).data_ptr()
+                     for t in tables], dtype=np.int64)
 
 
 def _route(x: torch.Tensor, kernel: str = "blocked-scan") -> bool:
@@ -530,9 +773,13 @@ def _check(name, t, shape, dev, dtype=torch.float32):
 
 def _check_op(kop: KernelOp, kd: KernelDir, dev):
     for name, t in (("alpha0", kop.alpha0), ("omega", kop.omega),
-                    ("band_w", kd.band_w), ("W", kd.W)):
+                    ("band_w", kd.band_w), ("W", kd.W), ("fam_w", kd.fam_w)):
         _check(name, t, t.shape, dev)
-    _check("band_rows", kd.band_rows, kd.band_rows.shape, dev, torch.int32)
+    for name, t in (("band_rows", kd.band_rows), ("row_pdf", kop.row_pdf),
+                    ("fam_ptr", kd.fam_ptr), ("fam_src", kd.fam_src),
+                    ("heavy_rows", kd.heavy_rows),
+                    ("ovp_ptr", kop.ovp_ptr), ("ovp_lane", kop.ovp_lane)):
+        _check(name, t, t.shape, dev, torch.int32)
 
 
 def _p(t: torch.Tensor):
@@ -565,7 +812,7 @@ def fwd_sweep(kop: KernelOp, a0, ext, mshift, chunk: int):
     _check("a0", a0, (Sp, B), a0.device)
     _check("ext", ext, (Npad, kop.P1, B), a0.device)
     _check("mshift", mshift, (Npad, 1, B), a0.device)
-    meta = _imeta(kop, kop.fwd)
+    meta, lay = _imeta(kop, kop.fwd), _ilayout(kop, kop.fwd)
     C = Npad // chunk
     new = lambda *shape: torch.empty(shape, device=a0.device,
                                      dtype=torch.float32)
@@ -573,13 +820,13 @@ def fwd_sweep(kop: KernelOp, a0, ext, mshift, chunk: int):
     bounds, bscale = new(C, Sp, B), new(C, B)
     scale = torch.ones(B, device=a0.device)
     ksum, shift, comp = (torch.zeros(B, device=a0.device) for _ in range(3))
-    part = new(2, int(meta[-1]), B)
+    part = new(2, int(meta[_N_TILES]), B)
     kd = kop.fwd
     with torch.cuda.device(a0.device):  # the library launches on it
         rc = _build.library().mm_block_fwd(
             _p(a0), _p(ext), _p(mshift), _p(kd.band_w), _p(kd.W),
             _p(kop.omega), _p(kd.band_rows), ctypes.c_void_p(meta.ctypes.data),
-            B, Npad, chunk, _p(work), _p(a_last), _p(bounds), _p(bscale),
+            ctypes.c_void_p(lay.ctypes.data), B, Npad, chunk, _p(work), _p(a_last), _p(bounds), _p(bscale),
             _p(scale), _p(ksum), _p(shift), _p(comp), _p(part),
             _stream(a0.device),
         )
@@ -601,16 +848,17 @@ def recompute(kop: KernelOp, bound, bscale, ext_c, t0: int):
     _check("bound", bound, (Sp, B), bound.device)
     _check("bscale", bscale, (B,), bound.device)
     _check("ext", ext_c, (K, kop.P1, B), bound.device)
-    meta = _imeta(kop, kop.fwd)
+    meta, lay = _imeta(kop, kop.fwd), _ilayout(kop, kop.fwd)
     alphas = torch.empty((K, Sp, B), device=bound.device)
     ascale = torch.empty((K, B), device=bound.device)
-    part = torch.empty((2, int(meta[-1]), B), device=bound.device)
+    part = torch.empty((2, int(meta[_N_TILES]), B), device=bound.device)
     kd = kop.fwd
     with torch.cuda.device(bound.device):
         rc = _build.library().mm_block_recompute(
             _p(bound), _p(bscale), _p(ext_c), _p(kd.band_w), _p(kd.W),
             _p(kop.omega), _p(kd.band_rows), ctypes.c_void_p(meta.ctypes.data),
-            B, t0, K, _p(alphas), _p(ascale), _p(part), _stream(bound.device),
+            ctypes.c_void_p(lay.ctypes.data), B, t0, K, _p(alphas),
+            _p(ascale), _p(part), _stream(bound.device),
         )
     _raise_on(rc, "mm_block_recompute")
     LAUNCHES["block_recompute"] += 1
@@ -635,19 +883,23 @@ def backward(kop: KernelOp, beta, bscale, alphas, ascale, ext_c, t0: int,
     _check("alphas", alphas, (K, Sp, B), dev)
     _check("ascale", ascale, (K, B), dev)
     _check("ext", ext_c, (K, kop.P1, B), dev)
-    meta = _imeta(kop, kop.bwd)
+    meta, lay = _imeta(kop, kop.bwd), _ilayout(kop, kop.bwd)
     posts = torch.zeros((K, kop.P1, B), device=dev)  # accumulated atomically
+    # one frame's overflow-row gammas, summed into their pdfs by the finalize
+    ovg = torch.empty((max(kop.ov_hi - kop.ov_lo, 1), B), device=dev)
     work = torch.empty((2, Sp, B), device=dev)
     beta_out = torch.empty((Sp, B), device=dev)
     scale = bscale.clone()
-    part = torch.empty((2, int(meta[-1]), B), device=dev)
+    part = torch.empty((2, int(meta[_N_TILES]), B), device=dev)
     kd = kop.bwd
     with torch.cuda.device(dev):
         rc = _build.library().mm_block_bwd(
             _p(beta), _p(alphas), _p(ascale), _p(ext_c), _p(kd.band_w),
             _p(kd.W), _p(kop.omega), _p(kd.band_rows),
-            ctypes.c_void_p(meta.ctypes.data), B, t0, K, npad, _p(work),
-            _p(beta_out), _p(scale), _p(posts), _p(part), _stream(dev),
+            ctypes.c_void_p(meta.ctypes.data),
+            ctypes.c_void_p(lay.ctypes.data), B, t0, K, npad, _p(work),
+            _p(beta_out), _p(scale), _p(posts), _p(ovg), _p(part),
+            _stream(dev),
         )
     _raise_on(rc, "mm_block_bwd")
     LAUNCHES["block_bwd"] += 1

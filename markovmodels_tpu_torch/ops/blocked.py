@@ -17,9 +17,12 @@ packages build bit-identical operators from the same edge list:
 winning candidate id of every destination, the matvec of the Viterbi
 sweep's plain twin (ops/vit_scan.py).
 
-Weights are stored as probabilities.  Overflow families (the capped
-pdf-grouped layout of a separate-state backoff graph) are not ported yet:
-``compile_fsm`` raises ``NotImplementedError`` before reaching them.
+Weights are stored as probabilities.  With an overflow region (the capped
+pdf-grouped layout ``compile_fsm`` gives a separate-state backoff graph),
+the arcs touching it are lifted into structured **overflow families**
+(lane-aligned source or destination columns and windows, see
+``_fit_in_family``); ``block_matvec`` applies them in sum mode.  The
+tropical ``block_matvec_max_arg`` does not take them yet.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ __all__ = [
     "block_max_arg_supported",
     "tier_dst_inverse",
     "block_matvec_max_arg",
+    "family_grid",
 ]
 
 
@@ -136,18 +140,144 @@ def _scatter_desc(idx: np.ndarray, limit: int):
     return ("scatter",)
 
 
+def _fit_in_family(srcs, lanes, w, block, Sp, dtype, max_col=512):
+    """Fit the in-edges of one overflow lane-group (dst lane ``l`` receives
+    from ``srcs``) into a structured family:
+
+      ('col', base, stride, D): src = base + r·stride + l, r ∈ [0, D); a
+          lane-aligned column of D source rows; W (D, block), W[r, l].
+      ('win', base, stride, block): src ∈ [base + l·stride, +block); one
+          contiguous source window per lane; W (block, block), W[l, pos].
+
+    Returns (desc, W) or None (the edges then take the tier grouping)."""
+    vals = srcs - lanes
+    u = np.unique(vals)
+    if len(u) <= max_col:
+        d = np.diff(u)
+        if len(u) == 1 or (d > 0).all() and (d == d[0]).all():
+            stride = int(d[0]) if len(u) > 1 else 0
+            base = int(u[0])
+            if base >= 0 and base + (len(u) - 1) * stride + block <= Sp:
+                r = np.searchsorted(u, vals)
+                W = np.zeros((len(u), block), dtype=dtype)
+                W[r, lanes] = w
+                return ("col", base, stride, len(u)), W
+    ul = np.unique(lanes)
+    if len(ul) >= 2:
+        order = np.lexsort((srcs, lanes))
+        first = np.searchsorted(lanes[order], ul)
+        mins = srcs[order][first]  # min src per present lane
+        dl = int(ul[1] - ul[0])
+        if (int(mins[1]) - int(mins[0])) % dl == 0:
+            stride = (int(mins[1]) - int(mins[0])) // dl
+            base = int(mins[0]) - int(ul[0]) * stride
+            pos = srcs - (base + lanes * stride)
+            if (
+                stride > 0
+                and base >= 0
+                and (pos >= 0).all()
+                and (pos < block).all()
+                and base + (block - 1) * stride + block <= Sp
+            ):
+                W = np.zeros((block, block), dtype=dtype)
+                W[lanes, pos] = w
+                return ("win", base, stride, block), W
+    return None
+
+
+def _fit_out_family(dsts, lanes, w, block, Sp, dtype, max_col=512):
+    """Mirror of :func:`_fit_in_family` for the out-edges of an overflow
+    lane-group (src lane ``l`` feeds ``dsts``).  Called nowhere, in the
+    JAX package either (``_fit_families`` fits both kinds with
+    ``_fit_in_family``); kept so that this module mirrors that one."""
+    return _fit_in_family(dsts, lanes, w, block, Sp, dtype, max_col)
+
+
+def _fit_families(other, lanes, w, block, Sp, dtype):
+    """Fit one lane-group's edges into 1-2 families: ([(desc, W)],
+    leftover_mask).  When one fit fails, split by (other - lane) value
+    multiplicity: column families repeat one value across most lanes,
+    window families scatter them."""
+    fam = _fit_in_family(other, lanes, w, block, Sp, dtype)
+    if fam is not None:
+        return [fam], np.zeros(len(other), dtype=bool)
+    vals = other - lanes
+    u, inv, cnt = np.unique(vals, return_inverse=True, return_counts=True)
+    nlanes = max(len(np.unique(lanes)), 2)
+    colish = cnt[inv] >= max(2, nlanes // 2)
+    fams = []
+    left = np.zeros(len(other), dtype=bool)
+    for mask in (colish, ~colish):
+        if not mask.any():
+            continue
+        f = _fit_in_family(other[mask], lanes[mask], w[mask], block, Sp,
+                           dtype)
+        if f is not None:
+            fams.append(f)
+        else:
+            left |= mask
+    return fams, left
+
+
+def _ov_families(src, dst, w, ov_lo, ov_hi, block, Sp, dtype):
+    """Classify the edges touching the overflow region [ov_lo, ov_hi) into
+    per-group families.  Returns (descs, weights, leftover_mask,
+    touching_mask); each desc is ('in'|'out', group_base, form, base,
+    stride, D); leftover edges take the tier grouping."""
+    descs, weights = [], []
+    leftover = np.zeros(len(src), dtype=bool)
+    is_in = (dst >= ov_lo) & (dst < ov_hi)
+    is_out = (src >= ov_lo) & (src < ov_hi) & ~is_in
+    for kind, mask, key, oth in (
+        ("in", is_in, dst, src),
+        ("out", is_out, src, dst),
+    ):
+        if not mask.any():
+            continue
+        for g in np.unique(key[mask] // block):
+            g0 = int(g) * block
+            sel = mask & (key >= g0) & (key < g0 + block)
+            fams, left = _fit_families(
+                oth[sel], key[sel] - g0, w[sel], block, Sp, dtype
+            )
+            for desc, W in fams:
+                descs.append((kind, g0) + desc)
+                weights.append(W)
+            if left.any():
+                idx = np.flatnonzero(sel)
+                leftover[idx[left]] = True
+    touching = is_in | is_out
+    return descs, weights, leftover, touching
+
+
+def family_grid(desc, block):
+    """The core-side state of each weight of an overflow family, shaped as
+    its W: 'col' (D, block) grid[r, l] = base + r·stride + l; 'win'
+    (block, block) grid[l, j] = base + l·stride + j."""
+    _, _, form, base, stride, D = desc
+    lanes = np.arange(block)
+    if form == "col":
+        return base + np.arange(D)[:, None] * stride + lanes[None, :]
+    return base + lanes[:, None] * stride + lanes[None, :]
+
+
 _BLOCK = 128  # destination (or source) block width of the tiers
 _TIER_SIZES = (128, 256, 512)  # panel heights a block's source set may take
 _BAND_MAX = 8  # most shared offsets kept as bands
 
 
-def build_block_operator(src, dst, w_log, num_states: int):
+def build_block_operator(src, dst, w_log, num_states: int, *,
+                         ov_region=None):
     """Build (BlockOperator, meta) from a COO edge list of T̂, with
     meta = (band_offsets, tier_descs, band_nz_hi, ov_descs), float32
     weights, and the JAX package's default block, tier and band sizes.
 
     ``w_log``: log-domain weights; stored as exp().  ``num_states``: padded
-    state count Sp (multiple of 128).
+    state count Sp (multiple of 128).  ``ov_region``: optional (ov_lo,
+    ov_hi, lane_w), the overflow slots of a capped layout and its lane-group
+    width: arcs touching them become overflow families (``ov_w`` and
+    ``meta[3]``) where they fit one, else take the tier grouping; band arcs
+    cover the region like any other states.
     """
     block, tier_sizes, band_max = _BLOCK, _TIER_SIZES, _BAND_MAX
     dtype = np.float32
@@ -178,6 +308,18 @@ def build_block_operator(src, dst, w_log, num_states: int):
         band_w[oi, bd] = bw
 
     src, dst, w = src[~in_band], dst[~in_band], w[~in_band]
+
+    # --- overflow families ----------------------------------------------
+    ov_descs, ov_weights = (), ()
+    if ov_region is not None and len(src):
+        ov_lo, ov_hi, lane_w = ov_region
+        assert ov_lo % lane_w == 0
+        ds, ws, leftover, touching = _ov_families(
+            src, dst, w, ov_lo, ov_hi, lane_w, Sp, dtype
+        )
+        ov_descs, ov_weights = tuple(ds), tuple(ws)
+        keep = ~touching | leftover
+        src, dst, w = src[keep], dst[keep], w[keep]
 
     # --- blocked part ---------------------------------------------------
     def pad_unique(u, size):
@@ -366,24 +508,20 @@ def build_block_operator(src, dst, w_log, num_states: int):
         res_src=res_src,
         res_dst=res_dst,
         res_w=res_w,
+        ov_w=tuple(torch.from_numpy(W_) for W_ in ov_weights),
     )
-    return op, (band_offsets, tier_descs, band_nz_hi, ())
+    return op, (band_offsets, tier_descs, band_nz_hi, ov_descs)
 
 
 def block_matvec(op: BlockOperator, meta, x):
     """Probability-domain y = T̂ᵀ x (or T̂ x for the reversed operator):
     y[j, b] = Σ_e w[e] · x[src[e], b] over the op's edges.  x: (Sp, B).
 
-    ``meta``: (band_offsets, tier_descs, ...) from build_block_operator.
-    The tier contraction runs in full float32 (the caller keeps
-    ``torch.backends.cuda.matmul.allow_tf32`` off on the GPU).
+    ``meta``: (band_offsets, tier_descs, band_nz_hi, ov_descs) from
+    build_block_operator.  The tier contraction runs in full float32 (the
+    caller keeps ``torch.backends.cuda.matmul.allow_tf32`` off on the GPU).
     """
     band_offsets, tier_descs = meta[0], meta[1]
-    if len(meta) > 3 and meta[3]:
-        raise NotImplementedError(
-            "overflow families are not ported yet "
-            "(ROADMAP: port the overflow families)"
-        )
     Sp, B = x.shape
     y = torch.zeros_like(x)
     if op.band_w is not None:
@@ -426,6 +564,25 @@ def block_matvec(op: BlockOperator, meta, x):
     if op.res_src is not None:
         contrib = op.res_w[:, None] * x[op.res_src.long()]
         y.index_add_(0, op.res_dst.long(), contrib)
+    # overflow families: 'in' sums a column or a window into each lane of
+    # the group, 'out' scatters each lane of the group into its column or
+    # window
+    ov_descs = meta[3] if len(meta) > 3 else ()
+    for desc, W in zip(ov_descs, op.ov_w):
+        kind, g0, form = desc[:3]
+        block = W.shape[-1]
+        grid = torch.from_numpy(family_grid(desc, block)).to(x.device)
+        if kind == "in":
+            prod = W[:, :, None] * x[grid.reshape(-1)].reshape(
+                grid.shape + (B,))
+            y[g0 : g0 + block] += prod.sum(dim=0 if form == "col" else 1)
+        else:
+            xg = x[g0 : g0 + block]  # (block, B)
+            # 'col': y[base + r·stride + l] += W[r, l] · x[g0 + l]
+            # 'win': y[base + l·stride + j] += W[l, j] · x[g0 + l]
+            xb = xg[None, :, :] if form == "col" else xg[:, None, :]
+            y.index_add_(0, grid.reshape(-1), (W[:, :, None] * xb)
+                         .reshape(-1, B))
     return y
 
 
@@ -442,8 +599,8 @@ def block_max_arg_supported(op: BlockOperator, meta) -> bool:
     """True when block_matvec_max_arg can run: one tier, no residue, a
     window-expressible scatter (to track the winning candidate), and every
     candidate id (tier width + band count) fitting a uint8 below the
-    255 'none' marker.  Operators with overflow families (not ported yet)
-    are not supported."""
+    255 'none' marker.  Operators with overflow families are not
+    supported (their decode is not ported yet)."""
     if op.ov_w or op.res_src is not None or len(op.tiers) != 1:
         return False
     _, ddesc = meta[1][0]

@@ -15,11 +15,17 @@ struct Meta {
   int nO;
   int off[MAX_BANDS];
   long long K, Sm, D, g0, gk, gs, d0, dk, dd;
-  long long nband, n_tier_tiles, n_tiles;
+  long long nband, n_tier_tiles, n_band_tiles, n_tiles;
+  // overflow rows [ov_lo, ov_hi) of a capped layout (ov_lo = ov_hi = Sp:
+  // the uniform layout, row j in pdf group j / cmax); family terms; rows
+  // with a tile of their own (the first nheavy tiles of the grid)
+  int ov_lo, ov_hi;
+  long long nfam, nheavy;
 };
 
 // Host int64 descriptor layout (block_scan._imeta):
-// [Sp, P1, cmax, fin, nO, off[8], K, Sm, D, g0, gk, gs, d0, dk, dd, nband, n_tiles]
+// [Sp, P1, cmax, fin, nO, off[8], K, Sm, D, g0, gk, gs, d0, dk, dd, nband,
+//  n_tiles, ov_lo, ov_hi, nfam, nheavy]
 bool parse_meta(const long long* im, Meta* m) {
   if (im[0] <= 0 || im[0] >= (1LL << 31) || im[4] < 0 || im[4] > MAX_BANDS)
     return false;
@@ -36,11 +42,20 @@ bool parse_meta(const long long* im, Meta* m) {
   m->g0 = im[16]; m->gk = im[17]; m->gs = im[18];
   m->d0 = im[19]; m->dk = im[20]; m->dd = im[21];
   m->nband = im[22];
+  if (im[24] < 0 || im[24] > im[25] || im[25] > im[0] || im[26] < 0 ||
+      im[27] < 0)
+    return false;
+  m->ov_lo = static_cast<int>(im[24]);
+  m->ov_hi = static_cast<int>(im[25]);
+  m->nfam = im[26];
+  m->nheavy = im[27];
   m->n_tier_tiles = m->K * ((m->D + TR - 1) / TR);
-  m->n_tiles = m->n_tier_tiles + (m->nband + TR - 1) / TR;
-  return m->n_tiles == im[23] && m->cmax > 0 &&
-         static_cast<long long>(m->P1) * m->cmax == m->Sp && m->fin >= 0 &&
-         m->fin < m->Sp;
+  m->n_band_tiles = (m->nband + TR - 1) / TR;
+  m->n_tiles = m->n_tier_tiles + m->n_band_tiles + m->nheavy;
+  const bool uniform = m->ov_lo == m->Sp;
+  return m->n_tiles == im[23] && m->cmax > 0 && m->P1 > 0 &&
+         (!uniform || static_cast<long long>(m->P1) * m->cmax == m->Sp) &&
+         m->fin >= 0 && m->fin < m->Sp;
 }
 
 // floor(log2 m) from the exponent bits, 0 for m == 0, clamped at -126 so

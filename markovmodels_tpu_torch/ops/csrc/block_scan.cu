@@ -37,8 +37,32 @@
 // The tier is computed by destination (pull): each destination row is
 // produced by exactly one (k, d), so the tier needs no atomics either.  The
 // backward's per-pdf-group posterior sums cross tiles and use atomicAdd on
-// float: at the 2M-arc graph each (group, column) gets at most two
-// contributions, which add in the same result in either order.
+// float: each (group, column) gets at most two contributions (admission
+// checks it, block_scan._posterior_tiles), which add in the same result in
+// either order.
+//
+// The capped layout of a separate-state backoff graph (ov_layout) adds the
+// overflow branch of K1 (pallas_block.py apply_ov, and the per-lane
+// emissions and posteriors of K2-K4): nOv lane-groups of overflow rows
+// [ov_lo, ov_hi), each row with its own pdf, joined to the core by
+// overflow families.  Here every row's pdf comes from one table
+// (Layout::row_pdf: the group in the uniform rows, the lane's pdf in the
+// overflow rows, the phony pdf in the tail), and the families arrive as
+// per-row lists of (source, weight) terms in a fixed order (the host
+// expands 'in' families into the overflow rows' lists and 'out' families
+// into the core rows' lists), which the row's threads pull after the bands:
+// no atomics, deterministic.  A row with a long list (an 'in' window: 128
+// terms) would keep its 64-row tile busy for ~100 us of dependent loads,
+// so such heavy rows take a tile each (the first blocks of the grid, so
+// that their loads overlap the rest), whose 16 thread rows split the terms
+// and whose partial sums are added in a fixed order.  The capped layout's
+// code (the pdf table, the family terms, the overflow gammas) is a template
+// branch (FAM), so the uniform layout runs without it and takes row j's
+// pdf as j / cmax.  A pdf
+// owns both uniform rows and overflow rows, so its posterior would take a
+// third atomic add, whose order would show in the result; instead K4
+// writes the overflow rows' gammas to their own buffer, and the finalize
+// adds them to each pdf's tile sums in lane order before normalising.
 //
 // What bounds it, measured on an H100 SXM (700 W): neither the FMA rate nor
 // memory bandwidth; the step is latency-bound (the tier tiles alone reach
@@ -49,7 +73,8 @@
 // persistent kernel or CUDA graph per chunk, the finalize fused away.
 //
 // Conventions: state (Sp, B) row-major, float32; ext (frames, P1, B); the
-// emission of state j is ext[t, j / cmax, b] (uniform pdf-grouped layout).
+// emission of state j is ext[t, pdf(j), b], pdf(j) = j / cmax in the uniform
+// layout and row_pdf[j] in the capped one.
 // A carried state is stored unscaled with a (B,) scale.  Index maps of the
 // tier come from the host as ints: src(k, s) = g0 + k*gk + s*gs,
 // dst(k, d) = d0 + k*dk + d*dd.
@@ -66,6 +91,29 @@ constexpr int FC = 8;    // finalize: columns per block
 constexpr int FR = 128;  // finalize: threads splitting the partials per column
 constexpr int PER = TS * TR / NT;  // tier values each thread stages per stage
 constexpr int MIN_BLOCKS = 4;  // step blocks resident per SM (caps registers)
+
+// Device tables of the layout (host: block_scan._ilayout, the same order).
+struct Layout {
+  const int* row_pdf;   // (Sp,) pdf of each state row
+  const int* fam_ptr;   // (Sp + 1,) row j's family terms: [fam_ptr[j], fam_ptr[j+1])
+  const int* fam_src;   // (nfam,) source row of each term
+  const float* fam_w;   // (nfam,) its weight
+  const int* ovp_ptr;   // (P1 + 1,) pdf p's overflow rows: ovp_lane[ovp_ptr[p] ..]
+  const int* ovp_lane;  // (ov_hi - ov_lo,) those rows minus ov_lo, increasing
+  const int* heavy_rows;  // (nheavy,) the rows with a tile each
+};
+
+Layout parse_layout(const long long* a) {
+  Layout l;
+  l.row_pdf = reinterpret_cast<const int*>(a[0]);
+  l.fam_ptr = reinterpret_cast<const int*>(a[1]);
+  l.fam_src = reinterpret_cast<const int*>(a[2]);
+  l.fam_w = reinterpret_cast<const float*>(a[3]);
+  l.ovp_ptr = reinterpret_cast<const int*>(a[4]);
+  l.ovp_lane = reinterpret_cast<const int*>(a[5]);
+  l.heavy_rows = reinterpret_cast<const int*>(a[6]);
+  return l;
+}
 
 // K1, tier part: acc[i][c] = sum_s W[k, s, d] * prev[src(k, s), b] for the
 // 4x4 outputs of this thread (d = dbase + ty*4 + i, b = b0 + tx*4 + c).
@@ -108,49 +156,86 @@ __device__ __forceinline__ void tier_tile(
   }
 }
 
-// One frame of one sweep over one (row tile, column tile).
+// K1, family part of a heavy row j (a tile of its own): thread row ty takes
+// every 16th of the row's terms for this thread's 4 columns; the partial
+// sums land in P[ty][col], which the row's epilogue adds in ty order.
+template <bool VEC>
+__device__ __forceinline__ void heavy_terms(const Layout& lay, int B,
+                                            const float* __restrict__ prev,
+                                            int j, int b0,
+                                            float (&P)[TS][TB]) {
+  static_assert(NT / 16 <= TS, "partials");
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int bcol = b0 + tx * 4;
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  const int q1 = lay.fam_ptr[j + 1];
+  for (int q = lay.fam_ptr[j] + ty; q < q1; q += NT / 16) {
+    const float w = lay.fam_w[q];
+    const float4 x =
+        load4<VEC>(prev + static_cast<size_t>(lay.fam_src[q]) * B, bcol, B);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[c] = fmaf(w, get(x, c), s[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) P[ty][tx * 4 + c] = s[c];
+}
+
+// One frame of one sweep over one (row tile, column tile): a heavy row's
+// tile (FAM only: blocks 0 .. nheavy-1), a tier tile (64 destinations of
+// one tier block) or a band tile (64 rows of band_rows).
 //   BWD = false (K2, K3): y = (M prev)*s (or prev on frame 0), y *= e;
 //     partial[0] = column max of y, partial[1] = omega . prev (unscaled).
 //   BWD = true (K4): y = (M prev + omega * prev[fin])*s (or 1 on the last
 //     padded frame); gamma = alpha_t * ascale_t * y summed into the pdf
-//     groups of posts_t; beta = y * e; partial[0] = column max of beta,
-//     partial[1] = column sum of gamma.
-template <bool BWD, bool VEC>
+//     groups of posts_t (overflow rows: written to ovg instead); beta =
+//     y * e; partial[0] = column max of beta, partial[1] = column sum of
+//     gamma.
+// M prev = tier + bands + the row's family terms (FAM: the capped layout).
+template <bool BWD, bool VEC, bool FAM>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS) step_kernel(
-    Meta m, int B, const float* __restrict__ prev,
+    Meta m, Layout lay, int B, const float* __restrict__ prev,
     const float* __restrict__ scale, const float* __restrict__ ext_t,
     const float* __restrict__ band_w, const float* __restrict__ W,
     const float* __restrict__ omega, const int* __restrict__ band_rows,
     int skip_matvec, float* __restrict__ out, float* __restrict__ part,
     const float* __restrict__ alpha_t, const float* __restrict__ ascale_t,
-    float* __restrict__ posts_t) {
+    float* __restrict__ posts_t, float* __restrict__ ovg) {
   __shared__ __align__(16) float Ws[TS][TR];
   __shared__ __align__(16) float Xs[TS][TB];
   __shared__ float red[2][16][TB];
   __shared__ float G[BWD ? TR : 1][TB + 1];
   __shared__ int rows_s[TR];  // state row of each tile row, -1 if none
-  __shared__ int grp_s[TR];   // its pdf group (BWD: posterior row)
+  __shared__ int pdf_s[TR];   // its pdf (the emission's row of ext)
+  __shared__ int grp_s[TR];   // BWD: its posterior row, -1 for overflow rows
 
-  const long long tile = blockIdx.x;
+  const long long blk = blockIdx.x;  // this block's partials
+  const long long heavy = blk;  // the heavy row, if is_heavy
+  const bool is_heavy = FAM && heavy < m.nheavy;
+  const long long tile = blk - (FAM ? m.nheavy : 0);  // tier or band tile
   const int b0 = blockIdx.y * TB;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int bcol = b0 + tx * 4;  // this thread's columns bcol .. bcol+3
-  const bool is_tier = tile < m.n_tier_tiles;
+  const bool is_tier = !is_heavy && tile < m.n_tier_tiles;
   const long long dtiles = (m.D + TR - 1) / TR;
   const long long k = is_tier ? tile / dtiles : 0;
   const long long dbase = is_tier ? (tile % dtiles) * TR : 0;
 
   if (tid < TR) {
     long long j = -1;
-    if (is_tier) {
+    if (is_heavy) {
+      if (tid == 0) j = lay.heavy_rows[heavy];
+    } else if (is_tier) {
       const long long d = dbase + tid;
       if (d < m.D) j = m.d0 + k * m.dk + d * m.dd;
     } else {
       const long long r = (tile - m.n_tier_tiles) * TR + tid;
       if (r < m.nband) j = band_rows[r];
     }
+    const int p =
+        j < 0 ? -1 : (FAM ? lay.row_pdf[j] : static_cast<int>(j / m.cmax));
     rows_s[tid] = static_cast<int>(j);
-    grp_s[tid] = j < 0 ? -1 : static_cast<int>(j / m.cmax);
+    pdf_s[tid] = p;
+    grp_s[tid] = (FAM && j >= m.ov_lo && j < m.ov_hi) ? -1 : p;
   }
   float acc[4][4];
 #pragma unroll
@@ -158,6 +243,10 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) step_kernel(
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
   if (is_tier && !skip_matvec) tier_tile(m, B, prev, W, k, dbase, b0, Ws, Xs, acc);
+  if constexpr (FAM) {
+    if (is_heavy && !skip_matvec)
+      heavy_terms<VEC>(lay, B, prev, lay.heavy_rows[heavy], b0, Xs);
+  }
   __syncthreads();
 
   const float4 sc = load4<VEC>(scale, bcol, B);
@@ -178,7 +267,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) step_kernel(
     }
     const size_t jB = static_cast<size_t>(j) * B;
     const float4 e =
-        load4<VEC>(ext_t + static_cast<size_t>(grp_s[r]) * B, bcol, B);
+        load4<VEC>(ext_t + static_cast<size_t>(pdf_s[r]) * B, bcol, B);
     const float om = omega[j];
     float v[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
     if (!skip_matvec) {
@@ -191,6 +280,23 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) step_kernel(
         const float4 x = load4<VEC>(prev + static_cast<size_t>(src) * B, bcol, B);
 #pragma unroll
         for (int c = 0; c < 4; ++c) v[c] = fmaf(w, get(x, c), v[c]);
+      }
+      if constexpr (FAM) {  // overflow families (K1's apply_ov)
+        if (is_heavy) {  // split over the thread rows
+          for (int g = 0; g < NT / 16; ++g)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) v[c] += Xs[g][tx * 4 + c];
+        } else {  // pulled by this thread
+          const int e1 = lay.fam_ptr[j + 1];
+#pragma unroll 4
+          for (int q = lay.fam_ptr[j]; q < e1; ++q) {
+            const float w = lay.fam_w[q];
+            const float4 x = load4<VEC>(
+                prev + static_cast<size_t>(lay.fam_src[q]) * B, bcol, B);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) v[c] = fmaf(w, get(x, c), v[c]);
+          }
+        }
       }
     }
     float4 y4;
@@ -206,17 +312,21 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) step_kernel(
       y4 = make_float4(y[0], y[1], y[2], y[3]);
     } else {
       const float4 a = load4<VEC>(alpha_t + jB, bcol, B);
-      float bn[4];
+      float bn[4], gv[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const float y =
             skip_matvec ? 1.f : fmaf(om, get(pfin, c), v[c]) * get(sc, c);
         const float g = get(a, c) * get(asc, c) * y;
         G[r][tx * 4 + c] = g;
+        gv[c] = g;
         colsum[c] += g;
         bn[c] = y * get(e, c);
         colmax[c] = fmaxf(colmax[c], bn[c]);
       }
+      if (FAM && j >= m.ov_lo && j < m.ov_hi)
+        store4<VEC>(ovg + static_cast<size_t>(j - m.ov_lo) * B, bcol, B,
+                    make_float4(gv[0], gv[1], gv[2], gv[3]));
       y4 = make_float4(bn[0], bn[1], bn[2], bn[3]);
     }
     store4<VEC>(out + jB, bcol, B, y4);
@@ -234,8 +344,8 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) step_kernel(
       mx = fmaxf(mx, red[0][q][tid]);
       sm += red[1][q][tid];
     }
-    part[tile * B + b] = mx;
-    part[(m.n_tiles + tile) * B + b] = sm;
+    part[blk * B + b] = mx;
+    part[(m.n_tiles + blk) * B + b] = sm;
     if constexpr (BWD) {
       // runs of rows in one pdf group add up here, one atomic per run
       int g = -1;
@@ -260,16 +370,18 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) step_kernel(
 //   forward: y[fin] = (omega . prev) * s_prev * e_fin unless frame 0, the
 //     new scale 2^-k from the column max, and (K2 only, ksum != nullptr)
 //     ksum += k and the Kahan-compensated emission shift;
-//   backward: the new scale of beta and posts_t /= the column's gamma sum.
+//   backward: the new scale of beta; posts_t += the overflow rows' gammas
+//     of each pdf (in lane order), then /= the column's gamma sum.
 template <bool BWD>
 __global__ void __launch_bounds__(FC * FR) finalize_kernel(
-    Meta m, int B, const float* __restrict__ part, float* __restrict__ state,
+    Meta m, Layout lay, int B, const float* __restrict__ part,
+    float* __restrict__ state,
     const float* __restrict__ ext_t,
     const float* scale_in,  // may alias scale_out (read before written)
     float* scale_out, int skip_matvec,
     const float* __restrict__ mshift_t, float* __restrict__ ksum,
     float* __restrict__ shift, float* __restrict__ comp,
-    float* __restrict__ posts_t) {
+    float* __restrict__ posts_t, const float* __restrict__ ovg) {
   __shared__ float r0[FR][FC], r1[FR][FC];
   const int bl = threadIdx.x, ry = threadIdx.y;
   const int b = blockIdx.x * FC + bl;
@@ -296,8 +408,10 @@ __global__ void __launch_bounds__(FC * FR) finalize_kernel(
   if constexpr (!BWD) {
     if (ry == 0) {
       if (!skip_matvec) {
-        const float yfin = sm * scale_in[b] *
-                           ext_t[static_cast<size_t>(m.fin / m.cmax) * B + b];
+        const int pfin =
+            m.ov_lo < m.ov_hi ? lay.row_pdf[m.fin] : m.fin / m.cmax;
+        const float yfin =
+            sm * scale_in[b] * ext_t[static_cast<size_t>(pfin) * B + b];
         state[static_cast<size_t>(m.fin) * B + b] = yfin;
         mx = fmaxf(mx, yfin);
       }
@@ -314,8 +428,16 @@ __global__ void __launch_bounds__(FC * FR) finalize_kernel(
   } else {
     if (ry == 0) scale_out[b] = pow2_scale(pow2_exponent(mx));
     const float den = sm > 0.f ? sm : 1.f;
-    for (int p = ry; p < m.P1; p += FR)
-      posts_t[static_cast<size_t>(p) * B + b] /= den;
+    for (int p = ry; p < m.P1; p += FR) {
+      float* pp = posts_t + static_cast<size_t>(p) * B + b;
+      float v = *pp;
+      if (m.ov_lo < m.ov_hi) {
+        const int l1 = lay.ovp_ptr[p + 1];
+        for (int l = lay.ovp_ptr[p]; l < l1; ++l)
+          v += ovg[static_cast<size_t>(lay.ovp_lane[l]) * B + b];
+      }
+      *pp = v / den;
+    }
   }
 }
 
@@ -337,19 +459,20 @@ Launch launch_shape(const Meta& m, int B) {
 
 template <bool BWD>
 cudaError_t launch_step(const Launch& l, cudaStream_t st, const Meta& m,
-                        int B, const float* prev, const float* scale,
-                        const float* e, const float* band_w, const float* W,
+                        const Layout& lay, int B, const float* prev,
+                        const float* scale, const float* e,
+                        const float* band_w, const float* W,
                         const float* omega, const int* band_rows, int skip,
                         float* out, float* part, const float* alpha_t,
-                        const float* ascale_t, float* posts_t) {
-  if (l.vec)
-    step_kernel<BWD, true><<<l.step_grid, NT, 0, st>>>(
-        m, B, prev, scale, e, band_w, W, omega, band_rows, skip, out, part,
-        alpha_t, ascale_t, posts_t);
-  else
-    step_kernel<BWD, false><<<l.step_grid, NT, 0, st>>>(
-        m, B, prev, scale, e, band_w, W, omega, band_rows, skip, out, part,
-        alpha_t, ascale_t, posts_t);
+                        const float* ascale_t, float* posts_t, float* ovg) {
+  const bool fam = m.nfam > 0 || m.ov_lo < m.ov_hi;  // a capped layout
+  auto kernel = l.vec ? (fam ? step_kernel<BWD, true, true>
+                             : step_kernel<BWD, true, false>)
+                      : (fam ? step_kernel<BWD, false, true>
+                             : step_kernel<BWD, false, false>);
+  kernel<<<l.step_grid, NT, 0, st>>>(m, lay, B, prev, scale, e, band_w, W,
+                                     omega, band_rows, skip, out, part,
+                                     alpha_t, ascale_t, posts_t, ovg);
   return cudaGetLastError();
 }
 
@@ -363,13 +486,15 @@ cudaError_t launch_step(const Launch& l, cudaStream_t st, const Meta& m,
 extern "C" int mm_block_fwd(
     const float* a0, const float* ext, const float* mshift,
     const float* band_w, const float* W, const float* omega,
-    const int* band_rows, const long long* imeta, int B, int Npad, int chunk,
-    float* work, float* a_last, float* bounds, float* bscale, float* scale,
-    float* ksum, float* shift, float* comp, float* part, void* stream) {
+    const int* band_rows, const long long* imeta, const long long* ilay,
+    int B, int Npad, int chunk, float* work, float* a_last, float* bounds,
+    float* bscale, float* scale, float* ksum, float* shift, float* comp,
+    float* part, void* stream) {
   Meta m;
   if (!parse_meta(imeta, &m) || B <= 0 || Npad <= 0 || chunk <= 0 ||
       Npad % chunk)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Layout lay = parse_layout(ilay);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Launch l = launch_shape(m, B);
   const float* prev = a0;
@@ -387,12 +512,13 @@ extern "C" int mm_block_fwd(
     float* cur = (t == Npad - 1) ? a_last : work + (t % 2) * l.SB;
     const float* e = ext + static_cast<size_t>(t) * m.P1 * B;
     cudaError_t err = launch_step<false>(
-        l, st, m, B, prev, scale, e, band_w, W, omega, band_rows, t == 0, cur,
-        part, nullptr, nullptr, nullptr);
+        l, st, m, lay, B, prev, scale, e, band_w, W, omega, band_rows, t == 0,
+        cur, part, nullptr, nullptr, nullptr, nullptr);
     if (err != cudaSuccess) return static_cast<int>(err);
     finalize_kernel<false><<<l.fin_grid, l.fin_block, 0, st>>>(
-        m, B, part, cur, e, scale, scale, t == 0,
-        mshift + static_cast<size_t>(t) * B, ksum, shift, comp, nullptr);
+        m, lay, B, part, cur, e, scale, scale, t == 0,
+        mshift + static_cast<size_t>(t) * B, ksum, shift, comp, nullptr,
+        nullptr);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     prev = cur;
@@ -405,11 +531,13 @@ extern "C" int mm_block_fwd(
 extern "C" int mm_block_recompute(
     const float* bound, const float* bscale, const float* ext_c,
     const float* band_w, const float* W, const float* omega,
-    const int* band_rows, const long long* imeta, int B, int t0, int K,
-    float* alphas, float* ascale, float* part, void* stream) {
+    const int* band_rows, const long long* imeta, const long long* ilay,
+    int B, int t0, int K, float* alphas, float* ascale, float* part,
+    void* stream) {
   Meta m;
   if (!parse_meta(imeta, &m) || B <= 0 || K <= 0 || t0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Layout lay = parse_layout(ilay);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Launch l = launch_shape(m, B);
   const float* prev = bound;
@@ -419,12 +547,12 @@ extern "C" int mm_block_recompute(
     float* s_cur = ascale + static_cast<size_t>(j) * B;
     const float* e = ext_c + static_cast<size_t>(j) * m.P1 * B;
     cudaError_t err = launch_step<false>(
-        l, st, m, B, prev, s_prev, e, band_w, W, omega, band_rows, t0 + j == 0,
-        cur, part, nullptr, nullptr, nullptr);
+        l, st, m, lay, B, prev, s_prev, e, band_w, W, omega, band_rows,
+        t0 + j == 0, cur, part, nullptr, nullptr, nullptr, nullptr);
     if (err != cudaSuccess) return static_cast<int>(err);
     finalize_kernel<false><<<l.fin_grid, l.fin_block, 0, st>>>(
-        m, B, part, cur, e, s_prev, s_cur, t0 + j == 0, nullptr, nullptr,
-        nullptr, nullptr, nullptr);
+        m, lay, B, part, cur, e, s_prev, s_cur, t0 + j == 0, nullptr,
+        nullptr, nullptr, nullptr, nullptr, nullptr);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     prev = cur;
@@ -437,17 +565,21 @@ extern "C" int mm_block_recompute(
 // place) carry the state from the chunk after; the last padded frame
 // (t == Npad-1) starts from beta = 1.  posts (K, P1, B) must be zero on
 // entry; frame t's normalised posteriors land in posts[t - t0].  beta_out
-// receives the state of frame t0 (unscaled, with scale).
+// receives the state of frame t0 (unscaled, with scale).  ovg (ov_hi -
+// ov_lo, B) holds one frame's overflow-row gammas between the step and
+// the finalize.
 extern "C" int mm_block_bwd(
     const float* beta_in, const float* alphas, const float* ascale,
     const float* ext_c, const float* band_w, const float* W,
-    const float* omega, const int* band_rows, const long long* imeta, int B,
-    int t0, int K, int Npad, float* work, float* beta_out, float* scale,
-    float* posts, float* part, void* stream) {
+    const float* omega, const int* band_rows, const long long* imeta,
+    const long long* ilay, int B, int t0, int K, int Npad, float* work,
+    float* beta_out, float* scale, float* posts, float* ovg, float* part,
+    void* stream) {
   Meta m;
   if (!parse_meta(imeta, &m) || B <= 0 || K <= 0 || t0 < 0 ||
       t0 + K > Npad)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Layout lay = parse_layout(ilay);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Launch l = launch_shape(m, B);
   const float* prev = beta_in;
@@ -457,13 +589,13 @@ extern "C" int mm_block_bwd(
     const float* e = ext_c + static_cast<size_t>(j) * m.P1 * B;
     float* pt = posts + static_cast<size_t>(j) * m.P1 * B;
     cudaError_t err = launch_step<true>(
-        l, st, m, B, prev, scale, e, band_w, W, omega, band_rows,
+        l, st, m, lay, B, prev, scale, e, band_w, W, omega, band_rows,
         t == Npad - 1, cur, part, alphas + j * l.SB,
-        ascale + static_cast<size_t>(j) * B, pt);
+        ascale + static_cast<size_t>(j) * B, pt, ovg);
     if (err != cudaSuccess) return static_cast<int>(err);
     finalize_kernel<true><<<l.fin_grid, l.fin_block, 0, st>>>(
-        m, B, part, cur, e, scale, scale, 0, nullptr, nullptr, nullptr,
-        nullptr, pt);
+        m, lay, B, part, cur, e, scale, scale, 0, nullptr, nullptr, nullptr,
+        nullptr, pt, ovg);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     prev = cur;

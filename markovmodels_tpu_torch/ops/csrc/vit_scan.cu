@@ -384,8 +384,9 @@ extern "C" int mm_vit_fwd(
     float* work, uint8_t* bps, int* fins, float* scale, float* ksum,
     float* shift, float* comp, float* part, int* parti, void* stream) {
   Meta m;
-  if (!parse_meta(imeta, &m) || m.Sm + m.nO >= NO_CAND || B <= 0 ||
-      Nf <= 0 || RW <= 0 || RW > m.Sp || m.fin < RW)
+  if (!parse_meta(imeta, &m) || m.ov_lo != m.Sp || m.nfam != 0 ||
+      m.Sm + m.nO >= NO_CAND || B <= 0 || Nf <= 0 || RW <= 0 || RW > m.Sp ||
+      m.fin < RW)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned ctiles = (B + TB - 1) / TB;

@@ -257,7 +257,7 @@ def viterbi_fwd(cf, ext, mshift):
     bs._check("ext", ext, (Nf, kop.P1, B), dev)
     bs._check("mshift", mshift, (Nf, 1, B), dev)
     meta = bs._imeta(kop, kop.fwd)
-    n_tiles = int(meta[-1])
+    n_tiles = int(meta[bs._N_TILES])
     a0 = kop.alpha0[:, None].expand(Sp, B).contiguous()
     bps = torch.empty((Nf, RW, B), dtype=torch.uint8, device=dev)
     fins = torch.empty((Nf, B), dtype=torch.int32, device=dev)

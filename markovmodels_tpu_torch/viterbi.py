@@ -12,8 +12,9 @@ the hand-written CUDA kernel K7 and the walk a small CUDA kernel
 
 Routes of the JAX package that are not ported yet raise
 ``NotImplementedError`` naming the route and the refused predicate; there
-is no fallback: the chunk-recompute decode ('dense' graphs and 'block'
-graphs the compressed-backpointer decode refuses), the vmapped
+is no fallback: the overflow-family decode of a capped layout, the
+chunk-recompute decode ('dense' graphs and 'block' graphs the
+compressed-backpointer decode refuses), the vmapped
 ``_viterbi_single`` of batched graphs, and ``_viterbi_single`` for the
 'segment' / 'ell' strategies.
 """
@@ -34,6 +35,8 @@ _RECOMPUTE_TODO = ("the chunk-recompute Viterbi decode is not ported yet "
                    "(ROADMAP queue 11)")
 _SINGLE_TODO = ("_viterbi_single is not ported yet (ROADMAP queue 11, with "
                 "queue 1 item 10)")
+_OV_TODO = ("the overflow-family decode (K7's family branch and its decode "
+            "tables) is not ported yet (ROADMAP queue 11)")
 
 
 def _bp_vit_reject_reason(cf: CompiledFSM, lhs):
@@ -79,7 +82,13 @@ def _viterbi_scale_bp(cf: CompiledFSM, lhs, lengths):
 
 def _viterbi_scale(cf: CompiledFSM, lhs, lengths):
     """'dense' / 'block' graphs: the compressed-backpointer decode where it
-    applies; the chunk-recompute decode otherwise (not ported yet)."""
+    applies; the chunk-recompute decode otherwise (not ported yet).  The
+    JAX package decodes a capped layout's overflow families in its
+    compressed-backpointer form; the port does not yet."""
+    if cf.strategy == "block" and cf.block_fwd.ov_w:
+        raise NotImplementedError(
+            f"Viterbi of a graph with overflow families (ov_layout "
+            f"{cf.ov_layout}): {_OV_TODO}")
     reason = _bp_vit_reject_reason(cf, lhs)
     if reason is not None:
         raise NotImplementedError(

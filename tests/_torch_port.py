@@ -179,6 +179,8 @@ def assert_same_compiled(cj, ct):
         for i, (tj, tt) in enumerate(zip(oj.tiers, ot.tiers)):
             for a, b, part in zip(tj, tt, ("src", "dst", "W")):
                 assert_tensor_equal(a, b, f"{n}.tiers[{i}].{part}")
-        assert tuple(oj.ov_w) == tuple(ot.ov_w) == ()
+        assert len(oj.ov_w) == len(ot.ov_w), n
+        for i, (a, b) in enumerate(zip(oj.ov_w, ot.ov_w)):
+            assert_tensor_equal(a, b, f"{n}.ov_w[{i}]")
     for n in META_FIELDS:
         assert getattr(ct, n) == getattr(cj, n), n

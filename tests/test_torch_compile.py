@@ -51,10 +51,10 @@ def test_compiled_from_numpy_round_trips(V):
     dict(dtype=torch.float64),
     dict(strategy="ell"),
     dict(domain="log"),
-    dict(ov_cap=64),
+    dict(strategy="segment"),
 ])
 def test_compile_names_what_is_not_ported(kw):
-    fsm, spdf, P, _ = port_lm_graph(128 if "ov_cap" in kw else 16)
+    fsm, spdf, P, _ = port_lm_graph(16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compile_port(fsm, spdf, P, **kw)
 
