@@ -67,7 +67,41 @@ phases:
     beside den-only ``pdfposteriors`` and beside the embedded layout's
     den-only ``pdfposteriors`` (the same LM with its backoff states on the
     diagonal of the trigram rows), and the separate/embedded ratio
-    (printed; ``bench.py`` holds the JAX package's under 1.2).
+    (printed; ``bench.py`` holds the JAX package's under 1.2);
+
+then ``precision='bf16'`` (``BASELINE.json`` config 4, the mixed-precision
+scan): the tier of K2-K4 and the product of K6a/K6b on bf16 operands on
+the tensor cores, float32 everywhere else:
+
+22. the 2M-arc, separate-state and V=32 graphs compiled with
+    ``precision='bf16'``; their fast-path reports;
+23. the bf16 K2, K3 and K4 against their plain twins (which round the same
+    operands), on the 2M-arc graph and on the separate-state graph (the
+    overflow branch), with the bf16 launch counters: one frame at a time
+    from the same state, where both round the same values (1e-4), then
+    over whole sweeps at B=128, N=128, where each rounds its own float32
+    state (TOL_KERNEL_BF16; K4 twice, bit-equal);
+24. the bf16 K6a and K6b likewise, the sweeps at B=128, N=128 and N=700;
+25. ``pdfposteriors`` at B=2, N=700 (lengths N and 2N/3, ``bench.py``'s
+    shape) against the f64 oracle, run once per graph for its 'high' and
+    its bf16 compile: 'high' within 1e-3 in logZ and 1e-4 in the
+    posteriors (``bench.py:380-392``), bf16 within 2e-3 / 1e-3 on the
+    'block' graphs (``bench.py:507-525``) and 2e-2 / 5e-3 on the 'dense'
+    one; every reading printed beside the 1e-4 contract;
+26. the training step with the bf16 2M-arc denominator at B=128, N=700:
+    only bf16 K2-K4 launched (and K5a/K5b), the gradient against
+    γ_den - γ_num;
+27. the same with the bf16 separate-state denominator, and 28. with the
+    bf16 dense one (K6a/K6b);
+29. the step and den-only ``pdfposteriors``, bf16 beside f32, medians of 5
+    warm runs in turns, and their ratios (printed: ``bench.py`` requires
+    bf16 < f32 of the JAX package; here a slow kernel stays and is
+    written down), a ``torch.profiler`` breakdown of the bf16 den-only
+    runs; then each bf16 kernel and its twin timed and held to it
+    at N=700, and the bf16 ``torch.mm`` yardstick of K6;
+30. Viterbi of the bf16 2M-arc graph: K7's ids, ω argmaxes and scores
+    bit-equal to the 'high' graph's at B=128, N=128 (K7 takes float32
+    panels on any graph).
 
 Every kernel's entry in the JSON line carries its bound: the larger of its
 operations over the card's peak rate for their type and its bytes over the
@@ -115,6 +149,26 @@ TOL_VIT = 1e-5
 TOL_VIT_ORACLE = 1e-3  # |dscore| vs the f64 max-plus optimum (bench.py gate)
 TOL_VIT_PATH = 1e-4  # a decoded path's f64 weight vs that optimum
 TOL_VIT_WALK = 2e-3  # path weight vs the device score over 700 frames
+# 'high' logZ at B=2 N=700 against the f64 oracle: float32 round-off grows
+# ~linearly in N (bench.py:380-392 gates the JAX package at 1e-3); the
+# posteriors keep TOL_ORACLE
+TOL_ORACLE_700 = 1e-3
+# bf16 at B=2 N=700 against the f64 oracle: bench.py:507-525's gate of the
+# mixed-precision mode on 'block' graphs, whose bf16 tier carries only the
+# word-to-word arcs ...
+TOL_BF16_LOGZ, TOL_BF16_POSTS = 2e-3, 1e-3
+# ... while a 'dense' graph rounds every arc weight and state every frame:
+# ~7e-3 in logZ on the WSJ graph by the JAX package's own account
+# (semiring_ops.py:119-121)
+TOL_DENSE_BF16_LOGZ, TOL_DENSE_BF16_POSTS = 2e-2, 5e-3
+# A bf16 kernel against its twin over a whole sweep: the two round their own
+# float32 states, which differ in the last bits (sums in another order), so
+# now and then a state element rounds to the neighbouring bf16 value, a
+# step of up to 2^-7 of its term; where one term dominates a posterior
+# (<= 1) or a normalised state, that moves it by up to ~7.8e-3.  The same
+# kernels from the same inputs, one frame at a time, where both round the
+# same values, are held to TOL_KERNEL (phases 23 and 24, first).
+TOL_KERNEL_BF16 = 1e-2
 
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense, outside
 # the tensor cores for the float types the kernels compute in) for the
@@ -125,13 +179,15 @@ PEAK_F64 = 34e12  # float64 FLOP/s (K5a/K5b keep their state in float64)
 # one per lane and clock, half the FMA FLOP rate
 PEAK_F32_OPS = PEAK_F32 / 2
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s
+PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s
 
 
-def bound(flops, nbytes, peak=PEAK_F32):
+def bound(flops, nbytes, peak=PEAK_F32, tc_flops=0):
     """(bound_ms, bound_by): the least time the card could take for work of
-    ``flops`` operations on ``nbytes`` bytes (each input read once, each
-    output written once)."""
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    ``flops`` operations at ``peak`` plus ``tc_flops`` bf16 tensor-core
+    operations on ``nbytes`` bytes (each input read once, each output
+    written once)."""
+    t_ops, t_bytes = flops / peak + tc_flops / PEAK_BF16, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -142,7 +198,8 @@ def block_bounds(cf, B, Npad, chunk):
     emission and the rescale (forward), plus gamma and its pdf sums
     (backward).  The operator's bytes include the per-row pdf table (the
     per-lane emissions of the overflow rows), the family terms and, for
-    K4, each pdf's list of overflow rows."""
+    K4, each pdf's list of overflow rows.  A bf16 graph's tier runs on the
+    tensor cores (PEAK_BF16) over panels of 2 bytes."""
     from markovmodels_tpu_torch.ops import block_scan as bs
 
     kop = bs.kernel_operator(cf)
@@ -150,24 +207,32 @@ def block_bounds(cf, B, Npad, chunk):
     nO, Sp, P1 = len(kop.fwd.offsets), kop.Sp, kop.P1
     nf_f, nf_b = kop.fwd.fam_dst.numel(), kop.bwd.fam_dst.numel()
     n_ov = kop.ov_hi - kop.ov_lo
+    wb = kop.fwd.W.element_size()
+    tier = B * 2 * K * Sm * D
 
     def op(nf):
-        return 4 * (K * Sm * D + nO * Sp + Sp + 2 * Sp + 1 + 2 * nf)
+        return wb * K * Sm * D + 4 * (nO * Sp + Sp + 2 * Sp + 1 + 2 * nf)
 
-    fwd = B * (2 * K * Sm * D + 2 * nO * Sp + 2 * nf_f + 4 * Sp)
-    bwd = B * (2 * K * Sm * D + 2 * nO * Sp + 2 * nf_b + 6 * Sp)
+    fwd = B * (2 * nO * Sp + 2 * nf_f + 4 * Sp)
+    bwd = B * (2 * nO * Sp + 2 * nf_b + 6 * Sp)
+    tc = wb == 2  # the tier on the tensor cores
+    fwd, bwd, ttc = ((fwd, bwd, tier) if tc
+                     else (fwd + tier, bwd + tier, 0))
     C = Npad // chunk
     return {
         "K2": bound(Npad * fwd, op(nf_f) + 4 * (Sp * B + Npad * (P1 + 1) * B
                                                 + C * (Sp + 1) * B + Sp * B
-                                                + 3 * B)),
+                                                + 3 * B),
+                    tc_flops=Npad * ttc),
         "K3": bound(chunk * fwd, op(nf_f) + 4 * (Sp * B + B + chunk * P1 * B
-                                                 + chunk * (Sp + 1) * B)),
+                                                 + chunk * (Sp + 1) * B),
+                    tc_flops=chunk * ttc),
         "K4": bound(chunk * bwd, op(nf_b) + 4 * (Sp * B + B
                                                  + chunk * (Sp + 1) * B
                                                  + 2 * chunk * P1 * B
                                                  + Sp * B + B + P1 + 1
-                                                 + n_ov)),
+                                                 + n_ov),
+                    tc_flops=chunk * ttc),
     }
 
 
@@ -192,17 +257,24 @@ def banded_bounds(num_cf, Nf):
 
 def dense_bounds(dcf, B, Nf):
     """K6a and K6b over the Nf-frame sweep: the (Sp, Sp) product per frame
-    plus the emission, rescale and posterior work."""
+    plus the emission, rescale and posterior work; a bf16 graph's product
+    on the tensor cores (PEAK_BF16) over an operator of 2 bytes."""
     from markovmodels_tpu_torch.ops import dense_scan as ds
 
     kop = ds.kernel_operator(dcf)
     Sp, P1 = kop.Sp, kop.P1
+    wb = kop.wf.element_size()
+    prod = Nf * B * 2 * Sp * Sp
+    f32, tc = (0, prod) if wb == 2 else (prod, 0)
     return {
-        "K6a": bound(Nf * B * (2 * Sp * Sp + 3 * Sp),
-                     4 * (Sp * Sp + Sp * B + Nf * (P1 + 1) * B
-                          + Nf * (Sp + 1) * B + 3 * B)),
-        "K6b": bound(Nf * B * (2 * Sp * Sp + 5 * Sp),
-                     4 * (Sp * Sp + Nf * (Sp + 1) * B + 2 * Nf * P1 * B)),
+        "K6a": bound(f32 + Nf * B * 3 * Sp,
+                     wb * Sp * Sp + 4 * (Sp * B + Nf * (P1 + 1) * B
+                                         + Nf * (Sp + 1) * B + 3 * B),
+                     tc_flops=tc),
+        "K6b": bound(f32 + Nf * B * 5 * Sp,
+                     wb * Sp * Sp + 4 * (Nf * (Sp + 1) * B
+                                         + 2 * Nf * P1 * B),
+                     tc_flops=tc),
     }
 
 
@@ -306,9 +378,9 @@ def make_inputs(rng, B, N, P, cliffs=False):
 
 
 def phase_kernels(cf, P, dev, B=128, N=128, chunk=64, label="phase 4",
-                  twice=False):
-    """Phase 4 (19): K2, K3 and K4 against their plain twins on one input;
-    with ``twice``, every K4 call runs again and must give bit-equal
+                  twice=False, tol=TOL_KERNEL):
+    """Phase 4 (19, 23): K2, K3 and K4 against their plain twins on one
+    input; with ``twice``, every K4 call runs again and must give bit-equal
     results."""
     import torch
 
@@ -368,8 +440,8 @@ def phase_kernels(cf, P, dev, B=128, N=128, chunk=64, label="phase 4",
         beta, bsc = bk, bsk
     for name, e in errs.items():
         print(f"{label}: {name} kernel vs plain max |err| = {e:.3e} "
-              f"(tol {TOL_KERNEL:g})")
-        assert np.isfinite(e) and e <= TOL_KERNEL, f"{name} disagrees: {e}"
+              f"(tol {tol:g})")
+        assert np.isfinite(e) and e <= tol, f"{name} disagrees: {e}"
     if twice:
         print(f"{label}: K4 run twice on each of {C} chunks: bit-equal")
     return errs
@@ -480,7 +552,7 @@ def phase_main(cf, P, dev, B=128, N=700):
     return launches, t_kern, t_plain
 
 
-def time_kernels(cf, P, dev, B=128, N=700, chunk=64):
+def time_kernels(cf, P, dev, B=128, N=700, chunk=64, tol=TOL_KERNEL):
     """Each kernel and its plain twin at the main path's shapes: K2 over
     all Npad frames, K3 and K4 over one 64-frame chunk; then each kernel
     held to its twin on these inputs.  Returns ({name: (kernel ms, plain
@@ -535,8 +607,8 @@ def time_kernels(cf, P, dev, B=128, N=700, chunk=64):
     }
     for name, e in errs.items():
         print(f"timing: {name} kernel vs plain at B={B} N={N} (K2 over "
-              f"{C * K} frames) max |err| = {e:.3e} (tol {TOL_KERNEL:g})")
-        assert np.isfinite(e) and e <= TOL_KERNEL, f"{name} disagrees: {e}"
+              f"{C * K} frames) max |err| = {e:.3e} (tol {tol:g})")
+        assert np.isfinite(e) and e <= tol, f"{name} disagrees: {e}"
     return out, errs
 
 
@@ -653,10 +725,26 @@ def phase_banded_oracle(P, dev, n=40):
     assert err <= TOL_ORACLE and perr <= TOL_ORACLE, "oracle gate failed"
 
 
-def phase_step(num_cf, cf, P, dev, mods, label, B=128, N=700):
-    """Phase 9 (13, 21): the LF-MMI training step through the kernels of the
-    ops modules ``mods``, checked and timed beside the denominator-only
-    pdfposteriors."""
+def launch_counts(mods, bf16=False):
+    """The launch counts of the ops modules ``mods``; with ``bf16``, those of
+    the bf16 instantiations (``LAUNCHES_BF16``, keys suffixed ``_bf16``)
+    where a module has them, after asserting that its float32 ones stayed
+    0 (no float32 kernel ran for a bf16 graph)."""
+    out = {}
+    for m in mods:
+        if bf16 and hasattr(m, "LAUNCHES_BF16"):
+            assert not any(m.LAUNCHES.values()), (
+                f"a float32 kernel ran for a bf16 graph: {m.LAUNCHES}")
+            out.update({f"{k}_bf16": v for k, v in m.LAUNCHES_BF16.items()})
+        else:
+            out.update(m.LAUNCHES)
+    return out
+
+
+def phase_step(num_cf, cf, P, dev, mods, label, B=128, N=700, bf16=False):
+    """Phase 9 (13, 21, 26-28): the LF-MMI training step through the kernels
+    of the ops modules ``mods`` (with ``bf16``: their bf16 instantiations),
+    checked and timed beside the denominator-only pdfposteriors."""
     import torch
 
     import markovmodels_tpu_torch as mt
@@ -676,7 +764,7 @@ def phase_step(num_cf, cf, P, dev, mods, label, B=128, N=700):
         m.reset_launch_counts()
     loss, grad = step()
     torch.cuda.synchronize()
-    launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    launches = launch_counts(mods, bf16)
     print(f"{label}: launches {json.dumps(launches)}")
     assert all(v > 0 for v in launches.values()), "a kernel never launched"
 
@@ -743,15 +831,15 @@ def dense_inputs(P, dev, B=128, N=700, seed=2):
     return prepare_emissions(lhs, torch.from_numpy(lens).to(dev), P)
 
 
-def phase_dense_kernels(cf, P, dev):
-    """Phase 11: K6a and K6b against their plain twins on one input."""
+def phase_dense_kernels(cf, P, dev, N=700, label="phase 11", tol=TOL_K6):
+    """Phase 11 (24): K6a and K6b against their plain twins on one input."""
     import torch
 
     from markovmodels_tpu_torch import inference as tinf
     from markovmodels_tpu_torch.ops import dense_scan as ds
 
     kop = ds.kernel_operator(cf)
-    ext, msh = dense_inputs(P, dev)
+    ext, msh = dense_inputs(P, dev, N=N)
     B = ext.shape[2]
     a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
 
@@ -780,9 +868,9 @@ def phase_dense_kernels(cf, P, dev):
     assert torch.isfinite(pk).all(), "K6b: non-finite posteriors"
     errs["K6b"] = float((pk - pp).abs().max())
     for name, e in errs.items():
-        print(f"phase 11: {name} kernel vs plain max |err| = {e:.3e} "
-              f"(tol {TOL_K6:g})")
-        assert np.isfinite(e) and e <= TOL_K6, f"{name} disagrees: {e}"
+        print(f"{label}: {name} kernel vs plain at N={N} max |err| = {e:.3e} "
+              f"(tol {tol:g})")
+        assert np.isfinite(e) and e <= tol, f"{name} disagrees: {e}"
     return errs
 
 
@@ -1095,6 +1183,231 @@ def phase_ov_step(num_cf, cf, ecf, P, dev, B=128, N=700, chunk=64):
     return launches, t_step, t_den, t_emb
 
 
+def phase_block_frames(cf, P, dev, label, B=128, N=128, chunk=64):
+    """Phase 23's frame checks: K2, K3 and K4 against their twins one frame
+    at a time from the same input (the kernels' own states of a
+    mid-sequence chunk), so that both round the same float32 values and
+    only the order of the float32 sums differs: K3 and K4 on every frame
+    of the chunk, K2 over two frames (the first, which skips the matvec,
+    and one step) from every 8th.  Returns {name: max |err|}."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import block_scan as bs
+    from markovmodels_tpu_torch.ops.emissions import (pad_emissions,
+                                                      prepare_emissions)
+
+    rng = np.random.default_rng(1)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P, cliffs=True)).to(dev)
+    lens_np = rng.integers(1, N + 1, size=B).astype(np.int32)
+    lens_np[:4] = [N, 1, 2 * N // 3, N // 2 + 1]
+    kop = bs.kernel_operator(cf)
+    ext, msh = prepare_emissions(lhs, torch.from_numpy(lens_np).to(dev), P)
+    K = min(chunk, N + 1)
+    C = -(-(N + 1) // K)
+    Npad = C * K
+    ext, msh = pad_emissions(ext, msh, Npad)
+    a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
+    bounds, bscale = bs.fwd_sweep(kop, a0, ext, msh, K)[:2]
+    c = C // 2
+    t0 = c * K
+    al, asc = bs.recompute(kop, bounds[c], bscale[c], ext[t0:t0 + K], t0)
+    errs = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
+    for j in range(1, K):
+        t = t0 + j
+        args = (kop, al[j - 1], asc[j - 1], ext[t:t + 1], t)
+        k, p = bs.recompute(*args), bs.recompute_plain(*args)
+        errs["K3"] = max(errs["K3"],
+                         float((scaled(*k) - scaled(*p)).abs().max()))
+    for j in range(0, K - 2, 8):
+        t = t0 + j
+        args = (kop, al[j].contiguous(), ext[t:t + 2], msh[t:t + 2], 2)
+        errs["K2"] = max(errs["K2"], sweep_err(kop, bs.fwd_sweep(*args),
+                                               bs.fwd_sweep_plain(*args)))
+    beta, bsc = torch.ones_like(a0), torch.ones(B, device=dev)
+    for cc in reversed(range(c + 1, C)):  # the kernels' beta after chunk c
+        sl = slice(cc * K, (cc + 1) * K)
+        a_, s_ = bs.recompute(kop, bounds[cc], bscale[cc], ext[sl], cc * K)
+        _, beta, bsc = bs.backward(kop, beta, bsc, a_, s_, ext[sl], cc * K,
+                                   Npad)
+    for j in reversed(range(K)):
+        t = t0 + j
+        args = (kop, beta, bsc, al[j:j + 1], asc[j:j + 1], ext[t:t + 1], t,
+                Npad)
+        k = bs.backward(*args)
+        errs["K4"] = max(errs["K4"], bwd_err(k, bs.backward_plain(*args)))
+        beta, bsc = k[1], k[2]
+    torch.cuda.synchronize()
+    for name, e in errs.items():
+        print(f"{label}: {name} kernel vs plain one frame at a time from the "
+              f"same state max |err| = {e:.3e} (tol {TOL_KERNEL:g})")
+        assert np.isfinite(e) and e <= TOL_KERNEL, f"{name} disagrees: {e}"
+    return errs
+
+
+def phase_dense_frames(cf, P, dev, label, N=128):
+    """Phase 24's frame checks: K6a over two frames (the first skips the
+    product) from the kernel's own state of every 8th frame, and K6b over
+    two frames (the last starts from beta = 1, the other multiplies it)
+    on the kernel's alphas: the same float32 values rounded on both
+    sides.  Returns {name: max |err|}."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    kop = ds.kernel_operator(cf)
+    ext, msh = dense_inputs(P, dev, N=N)
+    B = ext.shape[2]
+    a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
+    al, asc = ds.fwd_sweep(kop, a0, ext, msh)[:2]
+    errs = {"K6a": 0.0, "K6b": 0.0}
+    for t in range(1, N - 1, 8):
+        args = (kop, al[t].contiguous(), ext[t:t + 2], msh[t:t + 2])
+        k, p = ds.fwd_sweep(*args), ds.fwd_sweep_plain(*args)
+        errs["K6a"] = max(errs["K6a"], float(
+            (scaled(k[0], k[1]) - scaled(p[0], p[1])).abs().max()))
+        args = (kop, ext[t:t + 2], al[t:t + 2].contiguous(),
+                asc[t:t + 2].contiguous())
+        errs["K6b"] = max(errs["K6b"], float(
+            (ds.backward(*args) - ds.backward_plain(*args)).abs().max()))
+    torch.cuda.synchronize()
+    for name, e in errs.items():
+        print(f"{label}: {name} kernel vs plain one frame at a time from the "
+              f"same state max |err| = {e:.3e} (tol {TOL_K6:g})")
+        assert np.isfinite(e) and e <= TOL_K6, f"{name} disagrees: {e}"
+    return errs
+
+
+def phase_oracle_700(fsm, spdf, P, dev, cfs, label, n=700):
+    """Phase 25: ``pdfposteriors`` at B=2, N=700 (lengths N and 2N/3, the
+    inputs of ``bench.py``'s parity gate) against the exact f64 host
+    oracle, which runs once for the graph; ``cfs`` maps a name to (compile
+    of the graph, logZ gate, posterior gate).  Every reading is printed
+    beside the 1e-4 contract.  Returns {name: (|dlogZ|, |dposts|)} and the
+    oracle's seconds."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+
+    rng = np.random.default_rng(7)
+    lhs = rng.normal(size=(2, n, P)).astype(np.float32)
+    lens = np.array([n, max(2, 2 * n // 3)], dtype=np.int32)
+    t0 = time.perf_counter()
+    ref_z, ref_p = mt.oracle.host_oracle(fsm, spdf, P,
+                                         lhs.astype(np.float64), lens)
+    t_oracle = time.perf_counter() - t0
+    out = {}
+    for name, (cf, tz, tp) in cfs.items():
+        posts, z = mt.pdfposteriors(cf, torch.from_numpy(lhs).to(dev),
+                                    torch.from_numpy(lens).to(dev))
+        err = float(np.abs(z.cpu().numpy() - ref_z).max())
+        perr = float(np.abs(posts.cpu().numpy() - ref_p).max())
+        met = lambda e: "met" if e <= TOL_ORACLE else "missed"
+        print(f"{label}: {name} B=2 N={n} vs f64 oracle |dlogZ| = {err:.3e} "
+              f"(gate {tz:g}; contract {TOL_ORACLE:g} {met(err)}), |dposts| "
+              f"= {perr:.3e} (gate {tp:g}; contract {TOL_ORACLE:g} "
+              f"{met(perr)})")
+        assert err <= tz and perr <= tp, f"{name}: N={n} oracle gate failed"
+        out[name] = (err, perr)
+    print(f"{label}: the f64 oracle took {t_oracle:.1f} s")
+    return out, t_oracle
+
+
+def bf16_checks(label, mods, fn):
+    """Run ``fn`` (a check of bf16 kernels against their twins) with every
+    launch count of ``mods`` set to 0, and assert that it launched only
+    bf16 instantiations, each at least once."""
+    import torch
+
+    for m in mods:
+        m.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts(mods, bf16=True)
+    print(f"{label}: bf16 launches of the check {json.dumps(counts)}")
+    assert all(counts.values()), "a bf16 kernel never launched"
+    return out
+
+
+def median_ms(fns, reps=5):
+    """{name: median ms of ``reps`` warm runs} of the callables ``fns``,
+    run in turns (one of each per round, after one warm-up each), each
+    timed with CUDA events."""
+    import torch
+
+    for fn in fns.values():
+        fn()
+    ts = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ts[k].append(a.elapsed_time(b))
+    return {k: float(np.median(v)) for k, v in ts.items()}
+
+
+def time_bf16_paths(pairs, dev, B=128, N=700):
+    """Phase 29: each (f32, bf16) pair of callables on the same inputs,
+    medians of 5 warm runs in turns; prints the bf16/f32 ratio.  Returns
+    {name: (f32 ms, bf16 ms)}."""
+    out = {}
+    for name, (f32, b16) in pairs.items():
+        t = median_ms({"f32": f32, "bf16": b16})
+        out[name] = (t["f32"], t["bf16"])
+        audio = B * N * FRAME_SHIFT_S
+        print(f"phase 29: {name} B={B} N={N}: f32 {t['f32']:.2f} ms, bf16 "
+              f"{t['bf16']:.2f} ms = {audio / (t['bf16'] / 1e3):.1f} "
+              f"audio-s/s; bf16/f32 {t['bf16'] / t['f32']:.3f} (medians of "
+              f"5; printed, not gated)")
+    return out
+
+
+def matmul_yardstick_bf16(dcf, dev, B=128, Nf=701):
+    """K6's bf16 yardstick: the (Sp, Sp) bf16 operator by a (Sp, B) bf16
+    state with a float32 result (``torch.mm(..., out_dtype=float32)``, one
+    PyTorch call per frame) times Nf; not a kernel of the port."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    kop = ds.kernel_operator(dcf)
+    a = torch.rand((kop.Sp, B), device=dev).to(torch.bfloat16)
+    y = torch.mm(kop.wf, a, out_dtype=torch.float32)
+    assert y.dtype == torch.float32 and kop.wf.dtype == torch.bfloat16
+    return Nf * cuda_ms(lambda: torch.mm(kop.wf, a, out_dtype=torch.float32),
+                        reps=50)
+
+
+def phase_bf16_decode(cf, cf16, P, dev, B=128, N=128):
+    """Phase 30: K7 on the bf16 graph takes the float32 panels (the TPU K7
+    ignores the precision): its ids, ω argmaxes and scores equal the
+    'high' graph's bit for bit, and so do the decoded paths."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    lhs, lens = vit_inputs(P, dev, B, N)
+    ext, msh = prepare_emissions(lhs, lens, P)
+    vs.reset_launch_counts()
+    hi, lo = vs.viterbi_fwd(cf, ext, msh), vs.viterbi_fwd(cf16, ext, msh)
+    torch.cuda.synchronize()
+    assert vs.LAUNCHES["vit_fwd"] == 2, vs.LAUNCHES
+    same = [torch.equal(x, y) for x, y in zip(hi, lo)]
+    s_hi, z_hi = mt.viterbi(cf, lhs, lens)
+    s_lo, z_lo = mt.viterbi(cf16, lhs, lens)
+    paths = torch.equal(s_hi, s_lo) and torch.equal(z_hi, z_lo)
+    print(f"phase 30: K7 on the bf16 graph vs the 'high' graph at B={B} "
+          f"N={N}: ids, omega argmaxes, vfin, shift, ksum bit-equal "
+          f"{same}; decoded paths and scores bit-equal {paths}")
+    assert all(same) and paths, "the bf16 graph decodes differently"
+
+
 def main():
     import torch
 
@@ -1170,7 +1483,6 @@ def main():
     t_mm = matmul_yardstick(dcf, dev)
     print(f"timing: K6 yardstick, torch.matmul of the (3200, 3200) operator "
           f"by the (3200, 128) state, x701 frames: {t_mm:.3f} ms")
-    del dcf, dnum_cf
 
     errs.update(phase_vit_kernels(cf, P, dev))
     phase_vit_oracle(fsm, spdf, cf, P, dev)
@@ -1178,7 +1490,6 @@ def main():
     errs.update({k: max(errs[k], v) for k, v in verrs.items()})
     times.update(vtimes)
     bounds.update(vit_bounds(cf, 128, 701))
-    del cf
 
     t0 = time.perf_counter()
     sfsm, sspdf, sP, sinfo = mt.workloads.make_backoff_lm_hmm_graph(
@@ -1199,10 +1510,122 @@ def main():
         "cuda-block-scan"), "embedded layout"
     ov_launches, t_ostep, t_oden, t_emb = phase_ov_step(num_cf, scf, ecf, sP,
                                                         dev)
-    del ecf, num_cf
+    del ecf
     ov_times, terrs = time_kernels(scf, sP, dev)
     ov_errs.update({k: max(ov_errs[k], v) for k, v in terrs.items()})
     ov_bounds = block_bounds(scf, 128, -(-701 // 64) * 64, 64)
+
+    # ---- precision='bf16' -------------------------------------------------
+    t0 = time.perf_counter()
+    cf16 = mt.compile_fsm(fsm, spdf, P, strategy="block", precision="bf16",
+                          device=dev)
+    scf16 = mt.compile_fsm(sfsm, sspdf, sP, precision="bf16", device=dev)
+    dcf16 = mt.compile_fsm(dfsm, dspdf, dP, precision="bf16", device=dev)
+    for c, want in ((cf16, "cuda-block-scan"), (scf16, "cuda-block-scan"),
+                    (dcf16, "cuda-dense-scan")):
+        report = mt.fast_path_report(c, 128)
+        assert c.precision == "bf16" and report.startswith(want), report
+    assert scf16.ov_layout == (128, 3) and dcf16.strategy == "dense"
+    assert bs.kernel_operator(cf16).fwd.W.dtype == torch.bfloat16
+    assert ds.kernel_operator(dcf16).wf.dtype == torch.bfloat16
+    print(f"phase 22: the 2M-arc, separate-state and V=32 graphs compiled "
+          f"with precision='bf16' in {time.perf_counter() - t0:.1f} s; "
+          f"paths: {mt.fast_path_report(cf16, 128)}; "
+          f"{mt.fast_path_report(dcf16, 128)}")
+
+    bf16_checks("phase 23", (bs,), lambda: phase_block_frames(
+        cf16, P, dev, "phase 23"))
+    bf16_checks("phase 23", (bs,), lambda: phase_block_frames(
+        scf16, sP, dev, "phase 23 (separate)"))
+    b_errs = bf16_checks("phase 23", (bs,), lambda: phase_kernels(
+        cf16, P, dev, label="phase 23", tol=TOL_KERNEL_BF16))
+    sb_errs = bf16_checks("phase 23", (bs,), lambda: phase_kernels(
+        scf16, sP, dev, label="phase 23 (separate)", twice=True,
+        tol=TOL_KERNEL_BF16))
+
+    def dense_checks():
+        e128 = phase_dense_kernels(dcf16, dP, dev, N=128, label="phase 24",
+                                   tol=TOL_KERNEL_BF16)
+        e700 = phase_dense_kernels(dcf16, dP, dev, label="phase 24",
+                                   tol=TOL_KERNEL_BF16)
+        return {k: max(e128[k], e700[k]) for k in e128}
+
+    bf16_checks("phase 24", (ds,), lambda: phase_dense_frames(
+        dcf16, dP, dev, "phase 24"))
+    d_errs = bf16_checks("phase 24", (ds,), dense_checks)
+
+    t0 = time.perf_counter()
+    oracle = {}
+    for gname, (g, sp_, P_, hi, lo, (tz, tp)) in {
+            "2M-arc": (fsm, spdf, P, cf, cf16,
+                       (TOL_BF16_LOGZ, TOL_BF16_POSTS)),
+            "separate-state": (sfsm, sspdf, sP, scf, scf16,
+                               (TOL_BF16_LOGZ, TOL_BF16_POSTS)),
+            "V=32 dense": (dfsm, dspdf, dP, dcf, dcf16,
+                           (TOL_DENSE_BF16_LOGZ, TOL_DENSE_BF16_POSTS)),
+    }.items():
+        res, _ = phase_oracle_700(g, sp_, P_, dev, {
+            f"{gname} high": (hi, TOL_ORACLE_700, TOL_ORACLE),
+            f"{gname} bf16": (lo, tz, tp)}, "phase 25")
+        oracle.update(res)
+    print(f"phase 25: N=700 oracle gates in {time.perf_counter() - t0:.1f} s")
+
+    b_launches, _, _ = phase_step(num_cf, cf16, P, dev, (bs, bsc),
+                                  "phase 26", bf16=True)
+    sb_launches, _, _ = phase_step(num_cf, scf16, sP, dev, (bs, bsc),
+                                   "phase 27", bf16=True)
+    d_launches, _, _ = phase_step(dnum_cf, dcf16, dP, dev, (bsc, ds),
+                                  "phase 28", bf16=True)
+
+    def step(num, den, P_):
+        """(the training step, den-only pdfposteriors) on phase 9's input"""
+        rng = np.random.default_rng(0)
+        lhs = torch.from_numpy(make_inputs(rng, 128, 700, P_)).to(dev)
+        lens = torch.full((128,), 700, dtype=torch.int32, device=dev)
+
+        def run():
+            x = lhs.clone().requires_grad_()
+            mt.lfmmi_loss(num, den, x, lens).sum().backward()
+        return run, lambda: mt.pdfposteriors(den, lhs, lens)
+
+    (s32, p32), (s16, p16) = step(num_cf, cf, P), step(num_cf, cf16, P)
+    (ds32, dp32), (ds16, dp16) = (step(dnum_cf, dcf, dP),
+                                  step(dnum_cf, dcf16, dP))
+    (ss32, sp32), (ss16, sp16) = (step(num_cf, scf, sP),
+                                  step(num_cf, scf16, sP))
+    paths16 = time_bf16_paths({
+        "2M-arc LF-MMI step": (s32, s16),
+        "2M-arc den-only pdfposteriors": (p32, p16),
+        "dense LF-MMI step": (ds32, ds16),
+        "dense den-only pdfposteriors": (dp32, dp16),
+        "separate-state LF-MMI step": (ss32, ss16),
+        "separate-state den-only pdfposteriors": (sp32, sp16),
+    }, dev)
+    for name, fn in (("2M-arc", p16), ("dense", dp16)):
+        prof = profile_device(fn)
+        if prof is None:
+            print(f"phase 29: profile of the {name} bf16 den-only "
+                  "pdfposteriors: not measured (no device events recorded)")
+            continue
+        by_name, busy, span = prof
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(f"phase 29: profile of one {name} bf16 den-only pdfposteriors: "
+              f"device busy {busy:.3f} ms of a {span:.3f} ms span (idle "
+              f"{1 - busy / span:.1%}); "
+              + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
+    b_times, terrs = time_kernels(cf16, P, dev, tol=TOL_KERNEL_BF16)
+    b_errs.update({k: max(b_errs[k], v) for k, v in terrs.items()})
+    sb_times, terrs = time_kernels(scf16, sP, dev, tol=TOL_KERNEL_BF16)
+    sb_errs.update({k: max(sb_errs[k], v) for k, v in terrs.items()})
+    d_times = time_dense(dcf16, dP, dev)
+    t_mm16 = matmul_yardstick_bf16(dcf16, dev)
+    print(f"timing: K6 bf16 yardstick, torch.mm of the bf16 (3200, 3200) "
+          f"operator by a bf16 (3200, 128) state into float32, x701 frames: "
+          f"{t_mm16:.3f} ms (float32: {t_mm:.3f} ms)")
+    b_bounds = block_bounds(cf16, 128, -(-701 // 64) * 64, 64)
+    sb_bounds = block_bounds(scf16, 128, -(-701 // 64) * 64, 64)
+    d_bounds = dense_bounds(dcf16, 128, 701)
+    phase_bf16_decode(cf, cf16, P, dev)
 
     block_src = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
     banded_src = "markovmodels_tpu_torch/ops/csrc/banded_scan.cu"
@@ -1250,13 +1673,32 @@ def main():
         for name, (counter, source, replaces) in table.items()
         if name in ov_times
     ]
+    for tag, l16, e16, t16, bd16, lib in (
+            ("2M-arc graph", b_launches, b_errs, b_times, b_bounds, {}),
+            ("separate-state backoff graph", sb_launches, sb_errs, sb_times,
+             sb_bounds, {}),
+            ("V=32 dense graph", d_launches, d_errs, d_times, d_bounds,
+             {"K6a": t_mm16, "K6b": t_mm16})):
+        kernels += [  # the bf16 branches: the tier / product on tensor cores
+            {"name": f"{name} {counter} (bf16, {tag})", "route": "cuda",
+             "source": source, "replaces": replaces,
+             "launches": l16[f"{counter}_bf16"], "max_abs_err": e16[name],
+             "ms": t16[name][0], "plain_ms": t16[name][1],
+             "bound_ms": bd16[name][0], "bound_by": bd16[name][1],
+             "library_ms": lib.get(name)}
+            for name, (counter, source, replaces) in table.items()
+            if name in t16
+        ]
     print(f"card: {card}; pdfposteriors B=128 N=700 kernel path "
           f"{t_kern:.2f} ms, plain path {t_plain:.2f} ms; LF-MMI step "
           f"{t_step:.2f} ms, den-only {t_den:.2f} ms; dense-den LF-MMI step "
           f"{t_dstep:.2f} ms, dense den-only {t_dden:.2f} ms; viterbi "
           f"B=128 N=700 {t_dec:.2f} ms; K6 matmul yardstick {t_mm:.2f} ms; "
           f"separate-state LF-MMI step {t_ostep:.2f} ms, den-only "
-          f"{t_oden:.2f} ms, embedded den-only {t_emb:.2f} ms")
+          f"{t_oden:.2f} ms, embedded den-only {t_emb:.2f} ms; bf16 (f32) "
+          f"medians: " + "; ".join(f"{k} {b:.2f} ({a:.2f}) ms"
+                                   for k, (a, b) in paths16.items())
+          + f"; K6 bf16 yardstick {t_mm16:.2f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

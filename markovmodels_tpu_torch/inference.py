@@ -39,7 +39,8 @@ from . import hostsparse as hs
 from .fsm import FSM
 from .ops import banded_scan, block_scan, dense_scan
 from .ops.block_scan import _pow2_exponent, _pow2_scale
-from .ops.blocked import BlockOperator, block_matvec, build_block_operator
+from .ops.blocked import (BlockOperator, block_matvec, build_block_operator,
+                          round_bf16)
 from .ops.emissions import prepare_emissions
 
 __all__ = [
@@ -194,11 +195,14 @@ def compile_fsm(
     and their arcs compile into overflow families (ops/blocked.py).  The
     default (None) caps at 128 whenever the largest pdf owns more than 128
     states and not a multiple of 128.
-    ``precision``: 'high' and 'f32' both mean full float32.
+    ``precision``: 'high' and 'f32' both mean full float32; 'bf16' (the
+    mixed-precision scan) runs the tier product of 'block' graphs and the
+    operator product of 'dense' graphs on bf16 operands with float32 sums,
+    everything else in float32.  The compiled arrays are the same in every
+    mode, as in the JAX package, which casts at the call.
 
     Not ported yet (raise ``NotImplementedError``): the 'ell' and 'segment'
-    strategies, float64, general multi-pdf Ĉ, precision 'bf16' and the log
-    domain.
+    strategies, float64, general multi-pdf Ĉ and the log domain.
     """
     device = _target_device(device)
     S1 = len(fsm.alpha_hat)
@@ -208,7 +212,7 @@ def compile_fsm(
         raise NotImplementedError(f"strategy {strategy!r} ({_LOG_TODO})")
     if dtype != torch.float32:
         raise NotImplementedError(f"dtype {dtype} ({_MODES_TODO})")
-    if precision not in ("high", "f32"):
+    if precision not in ("high", "f32", "bf16"):
         raise NotImplementedError(f"precision {precision!r} ({_MODES_TODO})")
     if domain != "prob":
         raise NotImplementedError(f"domain {domain!r} ({_LOG_TODO})")
@@ -593,6 +597,14 @@ def _combine_shift(logv, ksum, shift):
     return ((logv + ksum * lo) + shift) + ksum * hi
 
 
+def _combine_f64(vfin, ksum, shift, dtype):
+    """logZ of the CUDA routes: log v + ksum·ln2 + shift combined in
+    float64 and returned in ``dtype``.  Over 700 frames ksum·ln2 and the
+    shift pass 1,024, where one float32 rounding of their sum is 1.2e-4."""
+    return _combine_shift(_log_final(vfin.double()), ksum.double(),
+                          shift.double()).to(dtype)
+
+
 def _kahan_add(s, c, x):
     """Compensated accumulation: returns updated (sum, compensation)."""
     y = x - c
@@ -629,11 +641,27 @@ def _make_eprob(cf: CompiledFSM, lengths):
     return eprob
 
 
+def _dense_bf16_operator(exp_w, row_max):
+    """The operand the K6 kernels multiply for a bf16 'dense' graph: the
+    probability operator exp(row_max) ⊙ exp_w (ops/dense_scan.py
+    ``kernel_operator``), rounded to bf16.  (The JAX XLA route rounds
+    exp_w alone on a TPU and nothing on the CPU, where DEFAULT precision
+    is float32; the port rounds what its kernels round.)"""
+    return round_bf16(torch.exp(row_max)[..., None] * exp_w)
+
+
 def _make_prob_matvecs(cf: CompiledFSM):
     """Probability-domain matvecs of one (unstacked) graph: 'dense' as the
-    JAX package's XLA path computes it, y = exp(row_max) ⊙ (exp_w @ a);
+    JAX package's XLA path computes it, y = exp(row_max) ⊙ (exp_w @ a), or
+    for a bf16 graph the product of the K6 kernels' bf16 operands;
     'banded' and 'block' with the rank-1 ω column: y[fin] = ω·a forward
-    (ω[fin] = 1 covers the phony self-loop), y += ω ⊙ a[fin] backward."""
+    (ω[fin] = 1 covers the phony self-loop), y += ω ⊙ a[fin] backward, the
+    'block' tier on bf16 operands for a bf16 graph."""
+    bf16 = cf.precision == "bf16"
+    if cf.strategy == "dense" and bf16:
+        wf = _dense_bf16_operator(cf.dense_fwd_exp, cf.dense_fwd_max)
+        wb = _dense_bf16_operator(cf.dense_bwd_exp, cf.dense_bwd_max)
+        return (lambda a: wf @ round_bf16(a), lambda b: wb @ round_bf16(b))
     if cf.strategy == "dense":
         scale_f = torch.exp(cf.dense_fwd_max)[:, None]  # -inf rows -> 0
         scale_b = torch.exp(cf.dense_bwd_max)[:, None]
@@ -646,12 +674,12 @@ def _make_prob_matvecs(cf: CompiledFSM):
     fin = cf.final_state
 
     def fwd(a):
-        y = block_matvec(cf.block_fwd, cf.block_fwd_offsets, a)
+        y = block_matvec(cf.block_fwd, cf.block_fwd_offsets, a, bf16=bf16)
         y[fin] = cf.omega_prob @ a
         return y
 
     def bwd(a):
-        y = block_matvec(cf.block_bwd, cf.block_bwd_offsets, a)
+        y = block_matvec(cf.block_bwd, cf.block_bwd_offsets, a, bf16=bf16)
         return y + cf.omega_prob[:, None] * a[fin][None, :]
 
     return fwd, bwd
@@ -830,12 +858,17 @@ def _fb_prob_dense_stacked(cf: CompiledFSM, lhs, lengths, chunk_size,
     the (Sp, G) state and each column is multiplied by its own graph's
     operator (one batched matmul per frame).  Emissions are a per-column
     gather of each graph's state pdfs, the pdf reduction a per-graph
-    one-hot product (every 'dense' graph carries its one-hot Ĉᵀ)."""
+    one-hot product (every 'dense' graph carries its one-hot Ĉᵀ).  Stacked
+    bf16 graphs multiply the bf16 operands of the K6 kernels, as one such
+    graph does on the plain path."""
     fin = torch.as_tensor(cf.final_state, device=cf.device).long()
-    scale_f = torch.exp(cf.dense_fwd_max).T  # (Sp, G); -inf rows -> 0
-    scale_b = torch.exp(cf.dense_bwd_max).T
 
-    def pmv(expw, scale):
+    def pmv(expw, row_max):
+        if cf.precision == "bf16":
+            w = _dense_bf16_operator(expw, row_max)
+            return lambda a: torch.bmm(
+                w, round_bf16(a).T[:, :, None])[:, :, 0].T
+        scale = torch.exp(row_max).T  # (Sp, G); -inf rows -> 0
         # column g: scale[:, g] ⊙ (expw[g] @ a[:, g])
         return lambda a: scale * torch.bmm(expw, a.T[:, :, None])[:, :, 0].T
 
@@ -851,8 +884,8 @@ def _fb_prob_dense_stacked(cf: CompiledFSM, lhs, lengths, chunk_size,
 
     kern = _ProbKernels(
         alpha0=torch.exp(cf.alpha_hat).T,
-        fwd_pmv=pmv(cf.dense_fwd_exp, scale_f),
-        bwd_pmv=pmv(cf.dense_bwd_exp, scale_b),
+        fwd_pmv=pmv(cf.dense_fwd_exp, cf.dense_fwd_max),
+        bwd_pmv=pmv(cf.dense_bwd_exp, cf.dense_bwd_max),
         eprob=_make_stacked_eprob(cf.state_pdf.long().T, lengths),
         pdf_reduce=pdf_reduce,
         final_val=final_val,
@@ -872,7 +905,7 @@ def _fb_dense_cuda(cf: CompiledFSM, lhs, lengths, want_posts):
     ext, mshift = prepare_emissions(lhs, lengths, P)
     posts, vfin, shift, ksum = dense_scan.dense_fused_fb(cf, ext, mshift,
                                                          want_posts)
-    logZ = _combine_shift(_log_final(vfin), ksum, shift)
+    logZ = _combine_f64(vfin, ksum, shift, lhs.dtype)
     if not want_posts:
         return None, logZ
     return posts.permute(2, 0, 1)[:, :N, :P], logZ
@@ -886,7 +919,7 @@ def _fb_block_cuda(cf: CompiledFSM, lhs, lengths, want_posts, chunk_size):
     posts, vfin, shift, ksum = block_scan.block_fused_fb(
         cf, ext, mshift, want_posts, chunk=min(chunk_size, N + 1)
     )
-    logZ = _combine_shift(_log_final(vfin), ksum, shift)
+    logZ = _combine_f64(vfin, ksum, shift, lhs.dtype)
     if not want_posts:
         return None, logZ
     return posts.permute(2, 0, 1)[:, :N, :P], logZ

@@ -33,13 +33,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argument types of each C entry point (pointers and the stream as c_void_p)
 _SIGNATURES = {
-    "mm_block_fwd": [_P] * 9 + [_I] * 3 + [_P] * 10,
-    "mm_block_recompute": [_P] * 9 + [_I] * 3 + [_P] * 4,
-    "mm_block_bwd": [_P] * 10 + [_I] * 4 + [_P] * 7,
+    "mm_block_fwd": [_P] * 9 + [_I] * 4 + [_P] * 10,
+    "mm_block_recompute": [_P] * 9 + [_I] * 4 + [_P] * 4,
+    "mm_block_bwd": [_P] * 10 + [_I] * 5 + [_P] * 7,
     "mm_banded_fwd": [_P] * 13,
     "mm_banded_bwd": [_P] * 9,
-    "mm_dense_fwd": [_P] * 5 + [_I] * 6 + [_P] * 9,
-    "mm_dense_bwd": [_P] * 7 + [_I] * 5 + [_P] * 8,
+    "mm_dense_fwd": [_P] * 5 + [_I] * 7 + [_P] * 9,
+    "mm_dense_bwd": [_P] * 7 + [_I] * 6 + [_P] * 8,
     "mm_vit_fwd": [_P] * 8 + [_I] * 3 + [_P] * 10,
     "mm_vit_walk": [_P] * 6 + [_I] * 8 + [_P] * 2,
 }

@@ -41,7 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .blocked import family_grid
+from .blocked import family_grid, round_bf16
 from .emissions import pad_emissions
 
 __all__ = [
@@ -55,22 +55,31 @@ __all__ = [
     "backward_plain",
     "block_fused_fb",
     "LAUNCHES",
+    "LAUNCHES_BF16",
     "reset_launch_counts",
 ]
 
-# launches of each CUDA kernel entry point, counted by its wrapper
+# launches of each CUDA kernel entry point, counted by its wrapper: the
+# float32 instantiations in LAUNCHES, the bf16 ones (a precision='bf16'
+# graph's tensor-core tier) in LAUNCHES_BF16
 LAUNCHES = {"block_fwd": 0, "block_recompute": 0, "block_bwd": 0}
+LAUNCHES_BF16 = dict(LAUNCHES)
 
 _TILE_ROWS = 64  # state rows per CUDA tile (TR in csrc/block_scan.cu)
 # rows with at least this many family terms get a tile of their own, whose
 # threads split the terms (csrc/block_scan.cu heavy_terms)
 _HEAVY_TERMS = 16
 _MAX_BANDS = 8  # band offsets a kernel takes (build_block_operator's cap)
+_BF16_K = 16  # contraction depth of one bf16 tensor-core step (mma k16)
 
 
 def reset_launch_counts():
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = LAUNCHES_BF16[k] = 0
+
+
+def _counts(tier_dtype):
+    return LAUNCHES_BF16 if tier_dtype == torch.bfloat16 else LAUNCHES
 
 
 # ---------------------------------------------------------------------------
@@ -431,14 +440,18 @@ def _kernel_checks_uncached(cf, W, R):
 
 
 def _working_set_bytes(cf, B, n_frames, chunk):
-    """Device bytes of one fused run, every buffer sized by its dtype."""
+    """Device bytes of one fused run, every buffer sized by its dtype (the
+    tier panels by the dtype the kernels get: 2 bytes for a bf16 graph)."""
     Sp, P1 = cf.padded_states, cf.num_pdfs + 1
     f = cf.alpha_hat.element_size()
     tens = [cf.omega_prob, cf.alpha_hat]
     for op in (cf.block_fwd, cf.block_bwd):
-        tens += [t for t in (op.band_w, op.tiers[0][2]) if t is not None]
+        tens += [t for t in (op.band_w,) if t is not None]
         tens += list(op.ov_w)
     need = sum(t.numel() * t.element_size() for t in tens)
+    kop = kernel_operator(cf)
+    need += sum(kd.W.numel() * kd.W.element_size()
+                for kd in (kop.fwd, kop.bwd))
     ov_lo, ov_hi = _ov_bounds(cf)
     # the per-row pdf table and family-term offsets (int32, both
     # directions), the terms (int32 source + float32 weight per family
@@ -457,13 +470,15 @@ def _working_set_bytes(cf, B, n_frames, chunk):
 
 
 def block_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
-                             chunk: int = 64, device=None):
+                             chunk: int = 64, device=None, tier_dtype=None):
     """None when the CUDA blocked scan accepts this graph, else a one-line
     reason naming the FIRST rejected predicate.  The predicates up to the
-    plan are the JAX package's, in its order.  Instead of its VMEM budget,
-    the working set (every buffer sized by its dtype, see
-    ``_working_set_bytes``) must fit the memory of ``device`` when that is
-    a CUDA device (checked where a card is present)."""
+    plan are the JAX package's, in its order.  Panels in bf16 (a
+    ``precision='bf16'`` graph, unless ``tier_dtype`` names the dtype the
+    caller launches with) must be stageable by the tensor-core tier tile.
+    Instead of its VMEM budget, the working set (every buffer sized by its
+    dtype, see ``_working_set_bytes``) must fit the memory of ``device``
+    when that is a CUDA device (checked where a card is present)."""
     if cf.strategy != "block":
         return f"strategy {cf.strategy!r} != 'block'"
     if cf.batched:
@@ -488,6 +503,10 @@ def block_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     reason = _kernel_checks(cf, plan[0], plan[1])
     if reason is not None:
         return reason
+    if (tier_dtype or _tier_dtype(cf)) == torch.bfloat16:
+        reason = _bf16_tile_reason(kernel_operator(cf))
+        if reason is not None:
+            return reason
     if (device is not None and torch.device(device).type == "cuda"
             and torch.cuda.is_available()):
         need = _working_set_bytes(cf, B, n_frames, chunk)
@@ -499,6 +518,18 @@ def block_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     return None
 
 
+def _bf16_tile_reason(kop):
+    """None when the bf16 tier tile (csrc/block_scan.cu tier_tile_bf16) can
+    stage both directions' panels, else the predicate it fails: the
+    tensor-core product consumes whole 16-deep steps of the contraction."""
+    for dname, kd in (("forward", kop.fwd), ("backward", kop.bwd)):
+        Sm = kd.W.shape[1]
+        if Sm % _BF16_K:
+            return (f"{dname} operator: bf16 tier depth Sm = {Sm} not a "
+                    f"multiple of the tensor-core step {_BF16_K}")
+    return None
+
+
 # ---------------------------------------------------------------------------
 # the kernels' operator: per-direction band + tier tensors and index maps
 # ---------------------------------------------------------------------------
@@ -506,7 +537,7 @@ def block_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
 class KernelDir(NamedTuple):
     offsets: tuple  # band offsets (dst - src)
     band_w: torch.Tensor  # (nO, Sp) f32, nO may be 0
-    W: torch.Tensor  # (K, Sm, D) f32 tier panels
+    W: torch.Tensor  # (K, Sm, D) tier panels, f32 or bf16 (_tier_dtype)
     src_map: tuple  # (g0, gk, gs): src(k, s) = g0 + k·gk + s·gs
     dst_map: tuple  # (d0, dk, dd): dst(k, d) = d0 + k·dk + d·dd
     src_rows: torch.Tensor  # (K, Sm) int64, the same map as an index
@@ -544,6 +575,13 @@ def _i32(x, device):
     return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
 
 
+def _tier_dtype(cf):
+    """The dtype of the tier panels the K2-K4 kernels get: bf16 for a
+    ``precision='bf16'`` graph (the JAX package casts its f32 panels at
+    the call, pallas_block.py:1089-1093), else f32."""
+    return torch.bfloat16 if cf.precision == "bf16" else torch.float32
+
+
 def _kernel_dir(op, meta, Sp, device):
     g, d, src, dst, (fdst, fsrc, fw), band, heavy = _dir_rows(op, meta, Sp)
     nO = len(meta[0])
@@ -568,11 +606,22 @@ def _kernel_dir(op, meta, Sp, device):
     )
 
 
-def kernel_operator(cf) -> KernelOp:
+def kernel_operator(cf, tier_dtype=None) -> KernelOp:
     """The fused scan's operator for a graph whose plan passed, built once
-    per CompiledFSM (cached on it)."""
-    kop = cf._cache.get("block_scan")
-    if kop is None:
+    per CompiledFSM and panel dtype (cached on it).  ``tier_dtype``: the
+    panels' dtype, by default ``_tier_dtype(cf)``; K7 asks for float32 on
+    every graph (the TPU K7 ignores the precision).  A bf16 operator shares
+    every table but the panels with the float32 one."""
+    tier_dtype = tier_dtype or _tier_dtype(cf)
+    key = ("block_scan", tier_dtype)
+    kop = cf._cache.get(key)
+    if kop is None and tier_dtype != torch.float32:
+        base = kernel_operator(cf, torch.float32)
+        kop = base._replace(**{
+            d: getattr(base, d)._replace(
+                W=getattr(base, d).W.to(tier_dtype).contiguous())
+            for d in ("fwd", "bwd")})
+    elif kop is None:
         Sp = cf.padded_states
         dev = cf.alpha_hat.device
         P1 = cf.num_pdfs + 1
@@ -596,7 +645,7 @@ def kernel_operator(cf) -> KernelOp:
                          dev),
             ovp_lane=_i32(lanes, dev),
         )
-        cf._cache["block_scan"] = kop
+    cf._cache[key] = kop
     return kop
 
 
@@ -625,12 +674,19 @@ def _pow2_scale(k):
 
 def _matvec_plain(kd: KernelDir, x):
     """K1's plain twin: y = band(x) + tier(x) + families(x) over the
-    direction's core."""
+    direction's core.  With bf16 panels the tier is the f32 product of the
+    panels and the gathered rows, both rounded to bf16 (the kernel's
+    tensor-core product, JAX's DEFAULT-precision dot); the bands and the
+    families stay f32, as in the JAX package's ``apply_ov``."""
     y = torch.zeros_like(x)
     for o, off in enumerate(kd.offsets):
         # band edge src = dst - off; wrapped rows carry zero weight
         y += kd.band_w[o][:, None] * torch.roll(x, off, dims=0)
-    Y = torch.einsum("ksd,ksb->kdb", kd.W, x[kd.src_rows])
+    Xg = x[kd.src_rows]
+    if kd.W.dtype == torch.bfloat16:
+        Y = torch.einsum("ksd,ksb->kdb", kd.W.float(), round_bf16(Xg))
+    else:
+        Y = torch.einsum("ksd,ksb->kdb", kd.W, Xg)
     y.index_add_(0, kd.dst_rows.reshape(-1), Y.reshape(-1, x.shape[1]))
     if kd.fam_dst.numel():
         y.index_add_(0, kd.fam_dst,
@@ -771,15 +827,30 @@ def _check(name, t, shape, dev, dtype=torch.float32):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _check_op(kop: KernelOp, kd: KernelDir, dev):
+def _check_op(kop: KernelOp, kd: KernelDir, dev, tier_dtype=torch.float32):
     for name, t in (("alpha0", kop.alpha0), ("omega", kop.omega),
-                    ("band_w", kd.band_w), ("W", kd.W), ("fam_w", kd.fam_w)):
+                    ("band_w", kd.band_w), ("fam_w", kd.fam_w)):
         _check(name, t, t.shape, dev)
+    _check("W", kd.W, kd.W.shape, dev, tier_dtype)
     for name, t in (("band_rows", kd.band_rows), ("row_pdf", kop.row_pdf),
                     ("fam_ptr", kd.fam_ptr), ("fam_src", kd.fam_src),
                     ("heavy_rows", kd.heavy_rows),
                     ("ovp_ptr", kop.ovp_ptr), ("ovp_lane", kop.ovp_lane)):
         _check(name, t, t.shape, dev, torch.int32)
+
+
+def _tier_check(kop: KernelOp, kd: KernelDir):
+    """The panel dtype of a K2-K4 launch: float32, or bf16 that the
+    tensor-core tier tile can stage (the entry points' ``bf16`` flag);
+    anything else raises."""
+    if kd.W.dtype == torch.bfloat16:
+        reason = _bf16_tile_reason(kop)
+        if reason is not None:
+            raise ValueError(f"bf16 tier tile: {reason}")
+    elif kd.W.dtype != torch.float32:
+        raise ValueError(f"W: tier panels of dtype {kd.W.dtype} (the "
+                         "kernels take float32 or bfloat16)")
+    return kd.W.dtype
 
 
 def _p(t: torch.Tensor):
@@ -808,7 +879,8 @@ def fwd_sweep(kop: KernelOp, a0, ext, mshift, chunk: int):
     Sp = kop.Sp
     if Npad % chunk:
         raise ValueError(f"{Npad} frames not a multiple of chunk {chunk}")
-    _check_op(kop, kop.fwd, a0.device)
+    wdt = _tier_check(kop, kop.fwd)
+    _check_op(kop, kop.fwd, a0.device, wdt)
     _check("a0", a0, (Sp, B), a0.device)
     _check("ext", ext, (Npad, kop.P1, B), a0.device)
     _check("mshift", mshift, (Npad, 1, B), a0.device)
@@ -826,12 +898,14 @@ def fwd_sweep(kop: KernelOp, a0, ext, mshift, chunk: int):
         rc = _build.library().mm_block_fwd(
             _p(a0), _p(ext), _p(mshift), _p(kd.band_w), _p(kd.W),
             _p(kop.omega), _p(kd.band_rows), ctypes.c_void_p(meta.ctypes.data),
-            ctypes.c_void_p(lay.ctypes.data), B, Npad, chunk, _p(work), _p(a_last), _p(bounds), _p(bscale),
+            ctypes.c_void_p(lay.ctypes.data), B, Npad, chunk,
+            int(wdt == torch.bfloat16), _p(work), _p(a_last), _p(bounds),
+            _p(bscale),
             _p(scale), _p(ksum), _p(shift), _p(comp), _p(part),
             _stream(a0.device),
         )
     _raise_on(rc, "mm_block_fwd")
-    LAUNCHES["block_fwd"] += 1
+    _counts(wdt)["block_fwd"] += 1
     return bounds, bscale, a_last, scale, ksum, shift
 
 
@@ -844,7 +918,8 @@ def recompute(kop: KernelOp, bound, bscale, ext_c, t0: int):
 
     K, P1, B = ext_c.shape
     Sp = kop.Sp
-    _check_op(kop, kop.fwd, bound.device)
+    wdt = _tier_check(kop, kop.fwd)
+    _check_op(kop, kop.fwd, bound.device, wdt)
     _check("bound", bound, (Sp, B), bound.device)
     _check("bscale", bscale, (B,), bound.device)
     _check("ext", ext_c, (K, kop.P1, B), bound.device)
@@ -857,11 +932,12 @@ def recompute(kop: KernelOp, bound, bscale, ext_c, t0: int):
         rc = _build.library().mm_block_recompute(
             _p(bound), _p(bscale), _p(ext_c), _p(kd.band_w), _p(kd.W),
             _p(kop.omega), _p(kd.band_rows), ctypes.c_void_p(meta.ctypes.data),
-            ctypes.c_void_p(lay.ctypes.data), B, t0, K, _p(alphas),
+            ctypes.c_void_p(lay.ctypes.data), B, t0, K,
+            int(wdt == torch.bfloat16), _p(alphas),
             _p(ascale), _p(part), _stream(bound.device),
         )
     _raise_on(rc, "mm_block_recompute")
-    LAUNCHES["block_recompute"] += 1
+    _counts(wdt)["block_recompute"] += 1
     return alphas, ascale
 
 
@@ -877,7 +953,8 @@ def backward(kop: KernelOp, beta, bscale, alphas, ascale, ext_c, t0: int,
     K, P1, B = ext_c.shape
     Sp = kop.Sp
     dev = beta.device
-    _check_op(kop, kop.bwd, dev)
+    wdt = _tier_check(kop, kop.bwd)
+    _check_op(kop, kop.bwd, dev, wdt)
     _check("beta", beta, (Sp, B), dev)
     _check("bscale", bscale, (B,), dev)
     _check("alphas", alphas, (K, Sp, B), dev)
@@ -897,12 +974,13 @@ def backward(kop: KernelOp, beta, bscale, alphas, ascale, ext_c, t0: int,
             _p(beta), _p(alphas), _p(ascale), _p(ext_c), _p(kd.band_w),
             _p(kd.W), _p(kop.omega), _p(kd.band_rows),
             ctypes.c_void_p(meta.ctypes.data),
-            ctypes.c_void_p(lay.ctypes.data), B, t0, K, npad, _p(work),
+            ctypes.c_void_p(lay.ctypes.data), B, t0, K, npad,
+            int(wdt == torch.bfloat16), _p(work),
             _p(beta_out), _p(scale), _p(posts), _p(ovg), _p(part),
             _stream(dev),
         )
     _raise_on(rc, "mm_block_bwd")
-    LAUNCHES["block_bwd"] += 1
+    _counts(wdt)["block_bwd"] += 1
     return posts, beta_out, scale
 
 

@@ -39,6 +39,7 @@ __all__ = [
     "tier_dst_inverse",
     "block_matvec_max_arg",
     "family_grid",
+    "round_bf16",
 ]
 
 
@@ -513,13 +514,23 @@ def build_block_operator(src, dst, w_log, num_states: int, *,
     return op, (band_offsets, tier_descs, band_nz_hi, ov_descs)
 
 
-def block_matvec(op: BlockOperator, meta, x):
+def round_bf16(x):
+    """x rounded to bfloat16 (to nearest even) and back to float32: the
+    operands of a bf16 tensor-core product, whose products are then exact
+    in float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def block_matvec(op: BlockOperator, meta, x, *, bf16: bool = False):
     """Probability-domain y = T̂ᵀ x (or T̂ x for the reversed operator):
     y[j, b] = Σ_e w[e] · x[src[e], b] over the op's edges.  x: (Sp, B).
 
     ``meta``: (band_offsets, tier_descs, band_nz_hi, ov_descs) from
     build_block_operator.  The tier contraction runs in full float32 (the
-    caller keeps ``torch.backends.cuda.matmul.allow_tf32`` off on the GPU).
+    caller keeps ``torch.backends.cuda.matmul.allow_tf32`` off on the GPU);
+    with ``bf16`` (a ``precision='bf16'`` graph) its two operands, the
+    panels and the gathered rows, are rounded to bf16 first, as the
+    kernels' tensor-core tier does (ops/block_scan.py ``_matvec_plain``).
     """
     band_offsets, tier_descs = meta[0], meta[1]
     Sp, B = x.shape
@@ -542,6 +553,8 @@ def block_matvec(op: BlockOperator, meta, x):
             Xg = view.reshape(K, dk, B)[:, c0 : c0 + Sm]
         else:
             Xg = x[sidx.reshape(-1).long()].reshape(K, Sm, B)
+        if bf16:
+            W, Xg = round_bf16(W), round_bf16(Xg)
         Y = torch.einsum("ksd,ksb->kdb", W, Xg)
         if ddesc[0] == "contig":
             base = ddesc[1]

@@ -64,6 +64,15 @@
 // writes the overflow rows' gammas to their own buffer, and the finalize
 // adds them to each pdf's tile sums in lane order before normalising.
 //
+// Precision 'bf16' (pallas_block.py _make_matvec :469-475, the panels cast
+// by block_fused_fb :1089-1093) is a template branch (BF16) of the step
+// kernel: the panels arrive in bf16, the gathered state rows are rounded to
+// bf16 as they are staged, and the 64x64x128 tile product runs on the
+// tensor cores (mma.sync m16n8k16, float32 accumulation), tier_tile_bf16.
+// Everything else (bands, families, emission, omega, the rescale, gamma,
+// posteriors, the finalize) is the float32 code of the other
+// instantiations, which the branch leaves as they were.
+//
 // What bounds it, measured on an H100 SXM (700 W): neither the FMA rate nor
 // memory bandwidth; the step is latency-bound (the tier tiles alone reach
 // ~20 % of the float32 FMA peak), so occupancy decides: registers are capped
@@ -78,7 +87,10 @@
 // A carried state is stored unscaled with a (B,) scale.  Index maps of the
 // tier come from the host as ints: src(k, s) = g0 + k*gk + s*gs,
 // dst(k, d) = d0 + k*dk + d*dd.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "block_common.cuh"
 
@@ -91,6 +103,12 @@ constexpr int FC = 8;    // finalize: columns per block
 constexpr int FR = 128;  // finalize: threads splitting the partials per column
 constexpr int PER = TS * TR / NT;  // tier values each thread stages per stage
 constexpr int MIN_BLOCKS = 4;  // step blocks resident per SM (caps registers)
+constexpr int KS = 16;   // bf16 tier: contraction depth of one mma step
+constexpr int BST = TS + 8;  // bf16 tier: padded stage row (80 bytes)
+
+// The tier panels' element type: bf16 under precision 'bf16', else float.
+template <bool BF16>
+using TierT = typename std::conditional<BF16, __nv_bfloat16, float>::type;
 
 // Device tables of the layout (host: block_scan._ilayout, the same order).
 struct Layout {
@@ -156,6 +174,104 @@ __device__ __forceinline__ void tier_tile(
   }
 }
 
+__device__ __forceinline__ unsigned lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// d += a (16x16, row-major) * b (16x8, column-major): bf16 operands, float32
+// accumulation, one warp.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// K1, tier part under precision 'bf16': acc[i][c] as in tier_tile, on the
+// tensor cores.  The panels are bf16 in device memory; the gathered state
+// rows are rounded to bf16 (__float2bfloat16_rn) as they are staged, and
+// the products are summed in float32.  The port stores the state unscaled
+// and applies 2^-k after the product, while the TPU kernel casts the scaled
+// state: rounding to bf16 commutes with a power-of-two scale in the normal
+// range, so both round the same mantissas.  A stage holds Wb[d][s] and
+// Xb[b][s] (s contiguous, in the float stages' memory), so that each mma
+// fragment register is one 32-bit shared load; each of the 8 warps owns 16
+// destination rows x 32 columns (4 n8 tiles) for every 16-deep step.  The
+// staging copies whole pairs (s, s+1) and the product whole steps: Sm % 16
+// == 0 (block_scan._bf16_tile_reason).  The accumulators leave the mma in
+// its fragment layout and pass through C to this thread's 4x4 outputs.
+__device__ __forceinline__ void tier_tile_bf16(
+    const Meta& m, int B, const float* __restrict__ prev,
+    const __nv_bfloat16* __restrict__ W, long long k, long long dbase,
+    int b0, float (&Ws)[TS][TR], float (&Xs)[TS][TB],
+    float (&C)[TR][TB + 1], float (&acc)[4][4]) {
+  static_assert(TR * BST * 2 <= TS * TR * 4 && TR == TB && NT == 256 &&
+                    TS % KS == 0, "bf16 tiles");
+  constexpr int PR = NT / TR;  // pair rows staged per pass
+  auto Wb = reinterpret_cast<__nv_bfloat16(*)[BST]>(&Ws[0][0]);
+  auto Xb = reinterpret_cast<__nv_bfloat16(*)[BST]>(&Xs[0][0]);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;  // fragment row group, its thread
+  const int mr = (warp / 2) * 16, nc = (warp % 2) * 32;  // the warp's tile
+  const int col = tid % TR, pr = tid / TR;  // staging: column, pair row
+  const bool dok = dbase + col < m.D, bok = b0 + col < B;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  const __nv_bfloat16* pw = W + (k * m.Sm) * m.D + dbase + col;
+  const float* px = prev + (m.g0 + k * m.gk) * B + b0 + col;
+  float d[4][4] = {};  // [n8 tile][fragment]
+  for (long long s0 = 0; s0 < m.Sm; s0 += TS) {
+#pragma unroll
+    for (int u = 0; u < TS / 2 / PR; ++u) {
+      const int s = 2 * (pr + u * PR);
+      const bool sok = s0 + s < m.Sm;  // both of the pair (Sm even)
+      __nv_bfloat162 w2, x2;
+      w2.x = w2.y = x2.x = x2.y = zero;
+      if (sok && dok) {
+        const __nv_bfloat16* w = pw + (s0 + s) * m.D;
+        w2.x = w[0];
+        w2.y = w[m.D];
+      }
+      if (sok && bok) {
+        const float* x = px + (s0 + s) * m.gs * B;
+        x2 = __floats2bfloat162_rn(x[0], x[m.gs * B]);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(&Wb[col][s]) = w2;
+      *reinterpret_cast<__nv_bfloat162*>(&Xb[col][s]) = x2;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < TS; kk += KS) {
+      if (s0 + kk >= m.Sm) break;  // uniform across the block
+      const unsigned a[4] = {lds32(&Wb[mr + g][kk + 2 * q]),
+                             lds32(&Wb[mr + g + 8][kk + 2 * q]),
+                             lds32(&Wb[mr + g][kk + 2 * q + 8]),
+                             lds32(&Wb[mr + g + 8][kk + 2 * q + 8])};
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const __nv_bfloat16* x = &Xb[nc + n * 8 + g][kk + 2 * q];
+        mma_bf16(d[n], a, lds32(x), lds32(x + 8));
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int c = nc + n * 8 + 2 * q;
+    C[mr + g][c] = d[n][0];
+    C[mr + g][c + 1] = d[n][1];
+    C[mr + g + 8][c] = d[n][2];
+    C[mr + g + 8][c + 1] = d[n][3];
+  }
+  __syncthreads();
+  const int tx = tid % 16, ty = tid / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = C[ty * 4 + i][tx * 4 + c];
+}
+
 // K1, family part of a heavy row j (a tile of its own): thread row ty takes
 // every 16th of the row's terms for this thread's 4 columns; the partial
 // sums land in P[ty][col], which the row's epilogue adds in ty order.
@@ -190,12 +306,13 @@ __device__ __forceinline__ void heavy_terms(const Layout& lay, int B,
 //     groups of posts_t (overflow rows: written to ovg instead); beta =
 //     y * e; partial[0] = column max of beta, partial[1] = column sum of
 //     gamma.
-// M prev = tier + bands + the row's family terms (FAM: the capped layout).
-template <bool BWD, bool VEC, bool FAM>
+// M prev = tier + bands + the row's family terms (FAM: the capped layout);
+// BF16: the tier on the tensor cores (tier_tile_bf16).
+template <bool BWD, bool VEC, bool FAM, bool BF16>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS) step_kernel(
     Meta m, Layout lay, int B, const float* __restrict__ prev,
     const float* __restrict__ scale, const float* __restrict__ ext_t,
-    const float* __restrict__ band_w, const float* __restrict__ W,
+    const float* __restrict__ band_w, const TierT<BF16>* __restrict__ W,
     const float* __restrict__ omega, const int* __restrict__ band_rows,
     int skip_matvec, float* __restrict__ out, float* __restrict__ part,
     const float* __restrict__ alpha_t, const float* __restrict__ ascale_t,
@@ -203,7 +320,8 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) step_kernel(
   __shared__ __align__(16) float Ws[TS][TR];
   __shared__ __align__(16) float Xs[TS][TB];
   __shared__ float red[2][16][TB];
-  __shared__ float G[BWD ? TR : 1][TB + 1];
+  // BWD: the tile's gammas; BF16: first the tier product's outputs
+  __shared__ float G[(BWD || BF16) ? TR : 1][TB + 1];
   __shared__ int rows_s[TR];  // state row of each tile row, -1 if none
   __shared__ int pdf_s[TR];   // its pdf (the emission's row of ext)
   __shared__ int grp_s[TR];   // BWD: its posterior row, -1 for overflow rows
@@ -242,7 +360,12 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) step_kernel(
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-  if (is_tier && !skip_matvec) tier_tile(m, B, prev, W, k, dbase, b0, Ws, Xs, acc);
+  if (is_tier && !skip_matvec) {
+    if constexpr (BF16)
+      tier_tile_bf16(m, B, prev, W, k, dbase, b0, Ws, Xs, G, acc);
+    else
+      tier_tile(m, B, prev, W, k, dbase, b0, Ws, Xs, acc);
+  }
   if constexpr (FAM) {
     if (is_heavy && !skip_matvec)
       heavy_terms<VEC>(lay, B, prev, lay.heavy_rows[heavy], b0, Xs);
@@ -457,24 +580,46 @@ Launch launch_shape(const Meta& m, int B) {
   return l;
 }
 
+template <bool BWD, bool BF16>
+cudaError_t launch_step_t(const Launch& l, cudaStream_t st, const Meta& m,
+                          const Layout& lay, int B, const float* prev,
+                          const float* scale, const float* e,
+                          const float* band_w, const void* W,
+                          const float* omega, const int* band_rows, int skip,
+                          float* out, float* part, const float* alpha_t,
+                          const float* ascale_t, float* posts_t, float* ovg) {
+  const bool fam = m.nfam > 0 || m.ov_lo < m.ov_hi;  // a capped layout
+  auto kernel = l.vec ? (fam ? step_kernel<BWD, true, true, BF16>
+                             : step_kernel<BWD, true, false, BF16>)
+                      : (fam ? step_kernel<BWD, false, true, BF16>
+                             : step_kernel<BWD, false, false, BF16>);
+  kernel<<<l.step_grid, NT, 0, st>>>(
+      m, lay, B, prev, scale, e, band_w, static_cast<const TierT<BF16>*>(W),
+      omega, band_rows, skip, out, part, alpha_t, ascale_t, posts_t, ovg);
+  return cudaGetLastError();
+}
+
+// One step launch; bf16: the panels W are bf16 (precision 'bf16').
 template <bool BWD>
 cudaError_t launch_step(const Launch& l, cudaStream_t st, const Meta& m,
                         const Layout& lay, int B, const float* prev,
                         const float* scale, const float* e,
-                        const float* band_w, const float* W,
+                        const float* band_w, const void* W, bool bf16,
                         const float* omega, const int* band_rows, int skip,
                         float* out, float* part, const float* alpha_t,
                         const float* ascale_t, float* posts_t, float* ovg) {
-  const bool fam = m.nfam > 0 || m.ov_lo < m.ov_hi;  // a capped layout
-  auto kernel = l.vec ? (fam ? step_kernel<BWD, true, true>
-                             : step_kernel<BWD, true, false>)
-                      : (fam ? step_kernel<BWD, false, true>
-                             : step_kernel<BWD, false, false>);
-  kernel<<<l.step_grid, NT, 0, st>>>(m, lay, B, prev, scale, e, band_w, W,
-                                     omega, band_rows, skip, out, part,
-                                     alpha_t, ascale_t, posts_t, ovg);
-  return cudaGetLastError();
+  return bf16 ? launch_step_t<BWD, true>(l, st, m, lay, B, prev, scale, e,
+                                         band_w, W, omega, band_rows, skip,
+                                         out, part, alpha_t, ascale_t,
+                                         posts_t, ovg)
+              : launch_step_t<BWD, false>(l, st, m, lay, B, prev, scale, e,
+                                          band_w, W, omega, band_rows, skip,
+                                          out, part, alpha_t, ascale_t,
+                                          posts_t, ovg);
 }
+
+// The bf16 tier tile stages whole 16-deep steps (tier_tile_bf16).
+bool bad_tier(const Meta& m, int bf16) { return bf16 && m.Sm % KS; }
 
 }  // namespace
 
@@ -482,17 +627,18 @@ cudaError_t launch_step(const Launch& l, cudaStream_t st, const Meta& m,
 // t % chunk == 0 the carried state and its scale are copied to checkpoint
 // t / chunk.  Frame Npad-1 writes a_last; scale ends as its scale; ksum,
 // shift and comp accumulate the exponents and the emission shift (the
-// caller initialises scale = 1, ksum = shift = comp = 0).
+// caller initialises scale = 1, ksum = shift = comp = 0).  W: the tier
+// panels, float, or bf16 when bf16 != 0 (precision 'bf16').
 extern "C" int mm_block_fwd(
     const float* a0, const float* ext, const float* mshift,
-    const float* band_w, const float* W, const float* omega,
+    const float* band_w, const void* W, const float* omega,
     const int* band_rows, const long long* imeta, const long long* ilay,
-    int B, int Npad, int chunk, float* work, float* a_last, float* bounds,
-    float* bscale, float* scale, float* ksum, float* shift, float* comp,
-    float* part, void* stream) {
+    int B, int Npad, int chunk, int bf16, float* work, float* a_last,
+    float* bounds, float* bscale, float* scale, float* ksum, float* shift,
+    float* comp, float* part, void* stream) {
   Meta m;
   if (!parse_meta(imeta, &m) || B <= 0 || Npad <= 0 || chunk <= 0 ||
-      Npad % chunk)
+      Npad % chunk || bad_tier(m, bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout lay = parse_layout(ilay);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -512,8 +658,8 @@ extern "C" int mm_block_fwd(
     float* cur = (t == Npad - 1) ? a_last : work + (t % 2) * l.SB;
     const float* e = ext + static_cast<size_t>(t) * m.P1 * B;
     cudaError_t err = launch_step<false>(
-        l, st, m, lay, B, prev, scale, e, band_w, W, omega, band_rows, t == 0,
-        cur, part, nullptr, nullptr, nullptr, nullptr);
+        l, st, m, lay, B, prev, scale, e, band_w, W, bf16, omega, band_rows,
+        t == 0, cur, part, nullptr, nullptr, nullptr, nullptr);
     if (err != cudaSuccess) return static_cast<int>(err);
     finalize_kernel<false><<<l.fin_grid, l.fin_block, 0, st>>>(
         m, lay, B, part, cur, e, scale, scale, t == 0,
@@ -530,12 +676,13 @@ extern "C" int mm_block_fwd(
 // frame's unscaled state to alphas[j] and its scale to ascale[j].
 extern "C" int mm_block_recompute(
     const float* bound, const float* bscale, const float* ext_c,
-    const float* band_w, const float* W, const float* omega,
+    const float* band_w, const void* W, const float* omega,
     const int* band_rows, const long long* imeta, const long long* ilay,
-    int B, int t0, int K, float* alphas, float* ascale, float* part,
+    int B, int t0, int K, int bf16, float* alphas, float* ascale, float* part,
     void* stream) {
   Meta m;
-  if (!parse_meta(imeta, &m) || B <= 0 || K <= 0 || t0 < 0)
+  if (!parse_meta(imeta, &m) || B <= 0 || K <= 0 || t0 < 0 ||
+      bad_tier(m, bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout lay = parse_layout(ilay);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -547,7 +694,7 @@ extern "C" int mm_block_recompute(
     float* s_cur = ascale + static_cast<size_t>(j) * B;
     const float* e = ext_c + static_cast<size_t>(j) * m.P1 * B;
     cudaError_t err = launch_step<false>(
-        l, st, m, lay, B, prev, s_prev, e, band_w, W, omega, band_rows,
+        l, st, m, lay, B, prev, s_prev, e, band_w, W, bf16, omega, band_rows,
         t0 + j == 0, cur, part, nullptr, nullptr, nullptr, nullptr);
     if (err != cudaSuccess) return static_cast<int>(err);
     finalize_kernel<false><<<l.fin_grid, l.fin_block, 0, st>>>(
@@ -570,14 +717,14 @@ extern "C" int mm_block_recompute(
 // the finalize.
 extern "C" int mm_block_bwd(
     const float* beta_in, const float* alphas, const float* ascale,
-    const float* ext_c, const float* band_w, const float* W,
+    const float* ext_c, const float* band_w, const void* W,
     const float* omega, const int* band_rows, const long long* imeta,
-    const long long* ilay, int B, int t0, int K, int Npad, float* work,
-    float* beta_out, float* scale, float* posts, float* ovg, float* part,
-    void* stream) {
+    const long long* ilay, int B, int t0, int K, int Npad, int bf16,
+    float* work, float* beta_out, float* scale, float* posts, float* ovg,
+    float* part, void* stream) {
   Meta m;
   if (!parse_meta(imeta, &m) || B <= 0 || K <= 0 || t0 < 0 ||
-      t0 + K > Npad)
+      t0 + K > Npad || bad_tier(m, bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout lay = parse_layout(ilay);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -589,7 +736,7 @@ extern "C" int mm_block_bwd(
     const float* e = ext_c + static_cast<size_t>(j) * m.P1 * B;
     float* pt = posts + static_cast<size_t>(j) * m.P1 * B;
     cudaError_t err = launch_step<true>(
-        l, st, m, lay, B, prev, scale, e, band_w, W, omega, band_rows,
+        l, st, m, lay, B, prev, scale, e, band_w, W, bf16, omega, band_rows,
         t == Npad - 1, cur, part, alphas + j * l.SB,
         ascale + static_cast<size_t>(j) * B, pt, ovg);
     if (err != cudaSuccess) return static_cast<int>(err);

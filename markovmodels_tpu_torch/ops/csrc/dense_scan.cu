@@ -50,10 +50,26 @@
 // Later designs: TF32/3xTF32 or wgmma, skipping all-zero operator tiles
 // (0.4 % of the V=32 operator is non-zero), a persistent kernel.
 //
+// Precision 'bf16' (pallas_scan.py _mm :76-80 under DEFAULT precision, on
+// the products at :144 and :185) is a template branch (BF16) of the step
+// kernel: the operator arrives in bf16 (half the bytes: both directions'
+// operators, 41 MB together at Sp = 3,200, fit the L2), its stages are
+// loaded with cp.async as before, the state stages stay float32 and are
+// rounded to bf16 (__floats2bfloat162_rn) as the mma fragments are built,
+// and the product runs on the tensor cores (mma.sync m16n8k16, float32
+// accumulation): each warp's 16 rows x 32 columns are 4 n8 tiles per
+// 16-deep step, product_bf16.  The state is rounded unscaled; rounding to
+// bf16 commutes with the power-of-two scale in the normal range, so the
+// mantissas are those of the scaled state the TPU kernel rounds.  Split-K,
+// the ticket, the epilogue and both finalizes are the float32 code.
+//
 // Conventions: states (Sp, B) row-major float32; ext (Nf, P1, B); the
 // emission of state s is ext[t, spdf[s], b].  A stored state is unscaled,
 // with a (B,) scale.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -66,6 +82,13 @@ constexpr int FC = 8;         // forward finalize: columns per block
 constexpr int FR = 128;       // forward finalize: threads per column
 constexpr int PC = 32;        // backward finalize: columns per block
 constexpr int PY = 8;         // backward finalize: pdfs per block
+constexpr int KS = 16;        // bf16: contraction depth of one mma step
+constexpr int BWLD = TK + 8;  // bf16: operator stage row (80 bytes)
+constexpr int XLD = TB + 4;   // bf16: state stage row (conflict-free reads)
+
+// The operator's element type: bf16 under precision 'bf16', else float.
+template <bool BF16>
+using OpT = typename std::conditional<BF16, __nv_bfloat16, float>::type;
 
 // floor(log2 m) from the exponent bits, 0 for m == 0, clamped at -126 so
 // that the scale 2^-k stays finite (block_scan._pow2_exponent).
@@ -140,6 +163,16 @@ struct Stage {
   float X[TK][TB];   // state rows k0 .. k0+TK-1, columns b0 .. b0+TB-1
 };
 
+// A stage of the bf16 product: the operator in bf16, the state in float32
+// (rounded when the fragments are built).
+struct Stage16 {
+  __nv_bfloat16 W[TR][BWLD];  // operator rows r0 .., columns k0 .. k0+TK-1
+  float X[TK][XLD];           // state rows k0 .., columns b0 .. b0+TB-1
+};
+
+template <bool BF16>
+using StageT = typename std::conditional<BF16, Stage16, Stage>::type;
+
 // Issue the copies of one stage: operator rows [r0, r0+TR) x columns
 // [k0, k0+TK) (one 16-byte chunk per thread) and state rows [k0, k0+TK) x
 // columns [b0, b0+TB) (four chunks per thread, masked past B).
@@ -168,6 +201,124 @@ __device__ __forceinline__ void load_stage(Stage& st,
       for (int j = 0; j < 4; ++j)
         cp_async4(&st.X[k][c + j], b + j < B ? src + b + j : src, b + j < B);
     }
+  }
+}
+
+// The bf16 stage: the operator's TR x TK block as 16-byte chunks (threads
+// 0 .. 127), the state as load_stage does, into rows of XLD floats.
+template <bool VEC>
+__device__ __forceinline__ void load_stage16(
+    Stage16& st, const __nv_bfloat16* __restrict__ wp,
+    const float* __restrict__ prev, int Sp, int B, int r0, int k0, int b0) {
+  const int tid = threadIdx.x;
+  constexpr int WCH = TK / 8;  // 16-byte chunks per operator row
+  if (tid < TR * WCH) {
+    const int r = tid / WCH, c = (tid % WCH) * 8;
+    cp_async16(&st.W[r][c], wp + static_cast<size_t>(r0 + r) * Sp + k0 + c,
+               true);
+  }
+#pragma unroll
+  for (int u = 0; u < TK * TB / 4 / NT; ++u) {
+    const int idx = tid + u * NT;
+    const int k = idx / (TB / 4), c = (idx % (TB / 4)) * 4;
+    const int b = b0 + c;
+    const float* src = prev + static_cast<size_t>(k0 + k) * B;
+    if constexpr (VEC) {
+      cp_async16(&st.X[k][c], b < B ? src + b : src, b < B);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        cp_async4(&st.X[k][c + j], b + j < B ? src + b + j : src, b + j < B);
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// Two floats rounded to bf16 (to nearest even), lo in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// d += a (16x16, row-major) * b (16x8, column-major): bf16 operands, float32
+// accumulation, one warp.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// product's bf16 branch: the same acc[i][j] (the same rows and columns per
+// thread) from the tensor cores.  Warp (wr, wc) owns rows wr*16 .. +16 and
+// columns wc*32 .. +32 in both layouts, so the accumulators pass from the
+// mma fragment layout to acc through the warp's own part of the (then
+// idle) stage memory, with no block barrier.
+template <bool VEC>
+__device__ __forceinline__ void product_bf16(
+    Stage16 (&st)[2], const __nv_bfloat16* __restrict__ wp,
+    const float* __restrict__ prev, int Sp, int B, int r0, int b0, int kt0,
+    int kt1, float (&acc)[4][4]) {
+  static_assert(TK % KS == 0 && NT == 256 && TR == 32 && TB == 128 &&
+                    sizeof(Stage16) * 2 >= sizeof(float) * TR * XLD,
+                "bf16 tiles");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = warp / 4, wc = warp % 4, lr = lane / 8, lc = lane % 8;
+  const int g = lane / 4, q = lane % 4;  // fragment row group, its thread
+  const int mr = wr * 16, nc = wc * 32;
+  float d[4][4] = {};  // [n8 tile][fragment]
+  load_stage16<VEC>(st[kt0 & 1], wp, prev, Sp, B, r0, kt0 * TK, b0);
+  cp_async_commit();
+  for (int kt = kt0; kt < kt1; ++kt) {
+    if (kt + 1 < kt1) {
+      load_stage16<VEC>(st[(kt + 1) & 1], wp, prev, Sp, B, r0, (kt + 1) * TK,
+                        b0);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const Stage16& s = st[kt & 1];
+#pragma unroll
+    for (int kk = 0; kk < TK; kk += KS) {
+      const unsigned a[4] = {lds32(&s.W[mr + g][kk + 2 * q]),
+                             lds32(&s.W[mr + g + 8][kk + 2 * q]),
+                             lds32(&s.W[mr + g][kk + 2 * q + 8]),
+                             lds32(&s.W[mr + g + 8][kk + 2 * q + 8])};
+      const int k0 = kk + 2 * q;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int c = nc + n * 8 + g;
+        mma_bf16(d[n], a, pack_bf16(s.X[k0][c], s.X[k0 + 1][c]),
+                 pack_bf16(s.X[k0 + 8][c], s.X[k0 + 9][c]));
+      }
+    }
+    __syncthreads();  // the stage is overwritten by the load after next
+  }
+  auto C = reinterpret_cast<float(*)[XLD]>(&st[0]);
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int c = nc + n * 8 + 2 * q;
+    C[mr + g][c] = d[n][0];
+    C[mr + g][c + 1] = d[n][1];
+    C[mr + g + 8][c] = d[n][2];
+    C[mr + g + 8][c + 1] = d[n][3];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(&C[mr + i * 4 + lr][nc + lc * 4]);
+    acc[i][0] = v.x;
+    acc[i][1] = v.y;
+    acc[i][2] = v.z;
+    acc[i][3] = v.w;
   }
 }
 
@@ -243,16 +394,17 @@ __device__ __forceinline__ float4 load4_l2(const float* row, int b, int B) {
 //     gamma = alpha_t * ascale_t * y, written to gamma_out; beta = y * e;
 //     part[0][tile] = column max of beta, part[1][tile] = column sum of
 //     gamma.
-template <bool BWD, bool VEC>
+// BF16: wp in bf16, the product on the tensor cores (product_bf16).
+template <bool BWD, bool VEC, bool BF16>
 __global__ void __launch_bounds__(NT) step_kernel(
-    const float* __restrict__ wp, const int* __restrict__ spdf, int Sp,
+    const OpT<BF16>* __restrict__ wp, const int* __restrict__ spdf, int Sp,
     int B, const float* __restrict__ prev, const float* __restrict__ scale,
     const float* __restrict__ ext_t, int skip_product,
     float* __restrict__ out, float* __restrict__ part,
     const float* __restrict__ alpha_t, const float* __restrict__ ascale_t,
     float* __restrict__ gamma_out, float* partial,
     unsigned* __restrict__ tickets) {
-  __shared__ __align__(16) Stage st[2];
+  __shared__ __align__(16) StageT<BF16> st[2];
   __shared__ float red[2][2][TB];  // [max, sum][warp row][column]
   __shared__ int is_last;
 
@@ -272,8 +424,12 @@ __global__ void __launch_bounds__(NT) step_kernel(
     if (sidx != 0) return;  // one CTA per tile runs the epilogue
   } else {
     const int nk = Sp / TK;
-    product<VEC>(st, wp, prev, Sp, B, r0, b0, sidx * nk / split,
-                 (sidx + 1) * nk / split, acc);
+    if constexpr (BF16)
+      product_bf16<VEC>(st, wp, prev, Sp, B, r0, b0, sidx * nk / split,
+                        (sidx + 1) * nk / split, acc);
+    else
+      product<VEC>(st, wp, prev, Sp, B, r0, b0, sidx * nk / split,
+                   (sidx + 1) * nk / split, acc);
     if (split > 1) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -453,22 +609,40 @@ struct Split {
   unsigned* tickets; // (Sp / TR) x ceil(B / TB), zero between launches
 };
 
-template <bool BWD>
-cudaError_t launch_step(cudaStream_t st, const float* wp, const int* spdf,
-                        int Sp, int B, const float* prev, const float* scale,
-                        const float* e, int skip, float* out, float* part,
-                        const float* alpha_t, const float* ascale_t,
-                        float* gamma_out, const Split& sk) {
+template <bool BWD, bool BF16>
+cudaError_t launch_step_t(cudaStream_t st, const void* wp, const int* spdf,
+                          int Sp, int B, const float* prev,
+                          const float* scale, const float* e, int skip,
+                          float* out, float* part, const float* alpha_t,
+                          const float* ascale_t, float* gamma_out,
+                          const Split& sk) {
   const dim3 grid(Sp / TR, sk.parts, (B + TB - 1) / TB);
+  const OpT<BF16>* w = static_cast<const OpT<BF16>*>(wp);
   if (B % 4 == 0)
-    step_kernel<BWD, true><<<grid, NT, 0, st>>>(
-        wp, spdf, Sp, B, prev, scale, e, skip, out, part, alpha_t, ascale_t,
+    step_kernel<BWD, true, BF16><<<grid, NT, 0, st>>>(
+        w, spdf, Sp, B, prev, scale, e, skip, out, part, alpha_t, ascale_t,
         gamma_out, sk.partial, sk.tickets);
   else
-    step_kernel<BWD, false><<<grid, NT, 0, st>>>(
-        wp, spdf, Sp, B, prev, scale, e, skip, out, part, alpha_t, ascale_t,
+    step_kernel<BWD, false, BF16><<<grid, NT, 0, st>>>(
+        w, spdf, Sp, B, prev, scale, e, skip, out, part, alpha_t, ascale_t,
         gamma_out, sk.partial, sk.tickets);
   return cudaGetLastError();
+}
+
+// One step launch; bf16: wp is bf16 (precision 'bf16').
+template <bool BWD>
+cudaError_t launch_step(cudaStream_t st, const void* wp, bool bf16,
+                        const int* spdf, int Sp, int B, const float* prev,
+                        const float* scale, const float* e, int skip,
+                        float* out, float* part, const float* alpha_t,
+                        const float* ascale_t, float* gamma_out,
+                        const Split& sk) {
+  return bf16 ? launch_step_t<BWD, true>(st, wp, spdf, Sp, B, prev, scale, e,
+                                         skip, out, part, alpha_t, ascale_t,
+                                         gamma_out, sk)
+              : launch_step_t<BWD, false>(st, wp, spdf, Sp, B, prev, scale, e,
+                                          skip, out, part, alpha_t, ascale_t,
+                                          gamma_out, sk);
 }
 
 bool bad_shape(int Sp, int P1, int B, int Nf, int split) {
@@ -483,13 +657,15 @@ bool bad_shape(int Sp, int P1, int B, int Nf, int split) {
 // (n_slots = Nf keeps every frame, 2 a ping-pong pair); ksum, shift and comp
 // accumulate the exponents and the emission shift (the caller zeroes them).
 // part holds Sp / 32 x B floats; split > 1 needs partial (split, Sp, B) and
-// zeroed tickets (Sp / 32 x ceil(B / 128) unsigned).
-extern "C" int mm_dense_fwd(const float* wp, const int* spdf, const float* a0,
+// zeroed tickets (Sp / 32 x ceil(B / 128) unsigned).  wp: float, or bf16
+// when bf16 != 0 (precision 'bf16').
+extern "C" int mm_dense_fwd(const void* wp, const int* spdf, const float* a0,
                             const float* ext, const float* mshift, int Sp,
                             int P1, int B, int Nf, int n_slots, int split,
-                            float* states, float* scales, float* ksum,
-                            float* shift, float* comp, float* part,
-                            float* partial, unsigned* tickets, void* stream) {
+                            int bf16, float* states, float* scales,
+                            float* ksum, float* shift, float* comp,
+                            float* part, float* partial, unsigned* tickets,
+                            void* stream) {
   if (bad_shape(Sp, P1, B, Nf, split) || (n_slots != Nf && n_slots != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -502,7 +678,7 @@ extern "C" int mm_dense_fwd(const float* wp, const int* spdf, const float* a0,
     float* s_cur = scales + static_cast<size_t>(cur) * B;
     const float* s_prev = t == 0 ? s_cur : scales + static_cast<size_t>(prv) * B;
     cudaError_t err = launch_step<false>(
-        st, wp, spdf, Sp, B, prev, s_prev,
+        st, wp, bf16, spdf, Sp, B, prev, s_prev,
         ext + static_cast<size_t>(t) * P1 * B, t == 0, states + cur * SB, part,
         nullptr, nullptr, nullptr, sk);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -521,14 +697,14 @@ extern "C" int mm_dense_fwd(const float* wp, const int* spdf, const float* a0,
 // (Sp, B) are scratch; part holds 2 x Sp / 32 x B floats; split, partial
 // and tickets as for mm_dense_fwd.  perm / off: the states of pdf p are
 // perm[off[p] .. off[p+1]), in increasing order (padding states, whose
-// gamma is always 0, may be left out).
-extern "C" int mm_dense_bwd(const float* wp, const int* spdf, const int* perm,
+// gamma is always 0, may be left out).  wp and bf16 as for mm_dense_fwd.
+extern "C" int mm_dense_bwd(const void* wp, const int* spdf, const int* perm,
                             const int* off, const float* ext,
                             const float* alphas, const float* ascale, int Sp,
-                            int P1, int B, int Nf, int split, float* work,
-                            float* bscale, float* gamma, float* posts,
-                            float* part, float* partial, unsigned* tickets,
-                            void* stream) {
+                            int P1, int B, int Nf, int split, int bf16,
+                            float* work, float* bscale, float* gamma,
+                            float* posts, float* part, float* partial,
+                            unsigned* tickets, void* stream) {
   if (bad_shape(Sp, P1, B, Nf, split))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -539,7 +715,7 @@ extern "C" int mm_dense_bwd(const float* wp, const int* spdf, const int* perm,
   for (int t = Nf - 1; t >= 0; --t) {
     const int cur = t % 2, prv = (t + 1) % 2;
     cudaError_t err = launch_step<true>(
-        st, wp, spdf, Sp, B, work + prv * SB,
+        st, wp, bf16, spdf, Sp, B, work + prv * SB,
         bscale + static_cast<size_t>(prv) * B,
         ext + static_cast<size_t>(t) * P1 * B, t == Nf - 1, work + cur * SB,
         part, alphas + t * SB, ascale + static_cast<size_t>(t) * B, gamma,

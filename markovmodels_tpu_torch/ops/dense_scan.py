@@ -33,6 +33,16 @@ where the TPU kernel divides y by its column max before the emission; the
 posteriors are normalised per frame, so both give the same posteriors up
 to rounding.
 
+A ``precision='bf16'`` graph keeps its operators in bf16 (half the bytes
+streamed per frame) and multiplies them by the state rounded to bf16 on
+the tensor cores, with float32 sums: the JAX kernels' single-pass
+DEFAULT-precision product (``pallas_scan.py:55-59``, ``_mm``).  The
+emission gather, the pdf sums and everything else stay float32, as the
+TPU kernels' one-hot products do (``pallas_scan.py:146``, ``:190``,
+``:193``).  The state is rounded unscaled; rounding commutes with the
+power-of-two scale in the normal range, so it rounds the mantissas of the
+scaled state the JAX kernel rounds.
+
 The CUDA source is ``csrc/dense_scan.cu``; ``_build.py`` compiles it with
 nvcc at first use.  Each wrapper takes its plain version for CPU tensors
 and launches the kernel for CUDA tensors; anything else raises.
@@ -46,6 +56,7 @@ import torch
 
 from .block_scan import (_check, _p, _pow2_exponent, _pow2_scale, _raise_on,
                          _route, _stream)
+from .blocked import round_bf16
 
 __all__ = [
     "make_dense_operator",
@@ -58,11 +69,15 @@ __all__ = [
     "backward_plain",
     "dense_fused_fb",
     "LAUNCHES",
+    "LAUNCHES_BF16",
     "reset_launch_counts",
 ]
 
-# launches of each CUDA kernel entry point, counted by its wrapper
+# launches of each CUDA kernel entry point, counted by its wrapper: the
+# float32 instantiations in LAUNCHES, the bf16 ones (a precision='bf16'
+# graph's tensor-core product) in LAUNCHES_BF16
 LAUNCHES = {"dense_fwd": 0, "dense_bwd": 0}
+LAUNCHES_BF16 = dict(LAUNCHES)
 
 _TILE_ROWS = 32  # operator rows per CTA (TR in csrc/dense_scan.cu)
 _TILE_COLS = 128  # batch columns per CTA (TB)
@@ -72,7 +87,7 @@ _MAX_SPLIT = 8  # contraction parts per row tile
 
 def reset_launch_counts():
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = LAUNCHES_BF16[k] = 0
 
 
 def make_dense_operator(dense_w: torch.Tensor):
@@ -96,12 +111,14 @@ def make_dense_operator(dense_w: torch.Tensor):
 
 def _device_bytes(cf, B: int, n_frames: int) -> int:
     """Device bytes of one run beyond the compiled graph: the kernels' two
-    (Sp, Sp) operators, every frame's state and scale (kept in full, as the
-    TPU kernel keeps its alphas), the (Nf, P1, B) emission and posterior
-    streams, the backward's beta pair and gamma, all float32."""
+    (Sp, Sp) operators (bf16 for a bf16 graph, else float32), every
+    frame's state and scale (kept in full, as the TPU kernel keeps its
+    alphas), the (Nf, P1, B) emission and posterior streams, the
+    backward's beta pair and gamma, all float32."""
     Sp, P1, Nf = cf.padded_states, cf.num_pdfs + 1, n_frames + 1
-    return 4 * (2 * Sp * Sp + Nf * (Sp + 1) * B + 2 * Nf * P1 * B
-                + 3 * Sp * B)
+    op = 2 if cf.precision == "bf16" else 4
+    return (op * 2 * Sp * Sp
+            + 4 * (Nf * (Sp + 1) * B + 2 * Nf * P1 * B + 3 * Sp * B))
 
 
 def _free_bytes(device):
@@ -165,8 +182,10 @@ class DenseOp(NamedTuple):
     P1: int  # pdfs + 1 (the phony pdf last)
     fin: int  # phony final state
     alpha0: torch.Tensor  # (Sp,) initial probabilities
-    wf: torch.Tensor  # (Sp, Sp) probability operator, y = wf @ a forward
-    wb: torch.Tensor  # (Sp, Sp) its backward counterpart
+    # (Sp, Sp) probability operator, y = wf @ a forward; float32, or bf16
+    # for a precision='bf16' graph
+    wf: torch.Tensor
+    wb: torch.Tensor  # (Sp, Sp) its backward counterpart, the same dtype
     spdf: torch.Tensor  # (Sp,) int32 pdf of each state
     # the real states sorted by pdf (stable), int32; padding states, whose
     # alpha is always 0, are left out of the pdf sums
@@ -178,9 +197,11 @@ def kernel_operator(cf) -> DenseOp:
     """The dense scan's operator of an unstacked 'dense' CompiledFSM, built
     once per graph (cached on it).  The probability operators fold
     exp(row_max) back into the exp-shifted matrices exactly as the JAX
-    package's ``_fb_prob_pallas`` does (``inference.py:1327-1328``)."""
+    package's ``_fb_prob_pallas`` does (``inference.py:1327-1328``), and
+    are stored in bf16 for a bf16 graph."""
     kop = cf._cache.get("dense_scan")
     if kop is None:
+        wdt = torch.bfloat16 if cf.precision == "bf16" else torch.float32
         spdf = cf.state_pdf.to(torch.int32)
         P1 = cf.num_pdfs + 1
         real = torch.nonzero(cf.orig_state >= 0)[:, 0]
@@ -194,9 +215,9 @@ def kernel_operator(cf) -> DenseOp:
             fin=int(cf.final_state),
             alpha0=torch.exp(cf.alpha_hat).contiguous(),
             wf=(torch.exp(cf.dense_fwd_max)[:, None]
-                * cf.dense_fwd_exp).contiguous(),
+                * cf.dense_fwd_exp).to(wdt).contiguous(),
             wb=(torch.exp(cf.dense_bwd_max)[:, None]
-                * cf.dense_bwd_exp).contiguous(),
+                * cf.dense_bwd_exp).to(wdt).contiguous(),
             spdf=spdf.contiguous(),
             perm=perm.to(torch.int32).contiguous(),
             off=off.to(torch.int32).contiguous(),
@@ -208,6 +229,15 @@ def kernel_operator(cf) -> DenseOp:
 # ---------------------------------------------------------------------------
 # plain PyTorch twins (the kernels' reference)
 # ---------------------------------------------------------------------------
+
+def _product(w):
+    """a -> w @ a in float32: with a bf16 operator, the state is rounded to
+    bf16 too (the kernels' tensor-core product)."""
+    if w.dtype == torch.bfloat16:
+        wf = w.float()
+        return lambda a: wf @ round_bf16(a)
+    return lambda a: w @ a
+
 
 def fwd_sweep_plain(kop: DenseOp, a0, ext, mshift, save_alphas: bool = True):
     """Plain twin of K6a over all Nf frames of ``ext`` (Nf, P1, B) and
@@ -221,9 +251,10 @@ def fwd_sweep_plain(kop: DenseOp, a0, ext, mshift, save_alphas: bool = True):
     ascale = a0.new_empty((Nf, B)) if save_alphas else None
     a, s = a0, a0.new_ones(B)
     ksum, shift, comp = (a0.new_zeros(B) for _ in range(3))
+    prod = _product(kop.wf)
     for t in range(Nf):
         e = ext[t].index_select(0, spdf)
-        y = a * e if t == 0 else (kop.wf @ a) * s[None, :] * e
+        y = a * e if t == 0 else prod(a) * s[None, :] * e
         k = _pow2_exponent(y.amax(dim=0))
         a, s = y, _pow2_scale(k)
         if save_alphas:
@@ -246,9 +277,10 @@ def backward_plain(kop: DenseOp, ext, alphas, ascale):
     spdf = kop.spdf.long()
     posts = ext.new_empty((Nf, P1, B))
     b = s = None
+    prod = _product(kop.wb)
     for t in reversed(range(Nf)):
         y = (torch.ones_like(alphas[t]) if t == Nf - 1
-             else (kop.wb @ b) * s[None, :])
+             else prod(b) * s[None, :])
         g = alphas[t] * ascale[t][None, :] * y
         sums = g.new_zeros((P1, B)).index_add_(0, spdf, g)
         tot = g.sum(dim=0)
@@ -263,14 +295,20 @@ def backward_plain(kop: DenseOp, ext, alphas, ascale):
 # ---------------------------------------------------------------------------
 
 def _check_op(kop: DenseOp, dev):
-    for name, t, shape in (("alpha0", kop.alpha0, (kop.Sp,)),
-                           ("wf", kop.wf, (kop.Sp, kop.Sp)),
-                           ("wb", kop.wb, (kop.Sp, kop.Sp))):
-        _check(name, t, shape, dev)
+    """The operator's tensors; returns 1 for bf16 operators (the
+    tensor-core product), 0 for float32 ones."""
+    _check("alpha0", kop.alpha0, (kop.Sp,), dev)
+    wdt = kop.wf.dtype
+    if wdt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"wf: operator dtype {wdt} (the kernels take "
+                         "float32 or bfloat16)")
+    for name, t in (("wf", kop.wf), ("wb", kop.wb)):
+        _check(name, t, (kop.Sp, kop.Sp), dev, wdt)
     for name, t, shape in (("spdf", kop.spdf, (kop.Sp,)),
                            ("perm", kop.perm, tuple(kop.perm.shape)),
                            ("off", kop.off, (kop.P1 + 1,))):
         _check(name, t, shape, dev, torch.int32)
+    return int(wdt == torch.bfloat16)
 
 
 def _split_k(Sp: int, B: int, n_sm: int) -> int:
@@ -310,7 +348,7 @@ def fwd_sweep(kop: DenseOp, a0, ext, mshift, save_alphas: bool = True):
 
     Nf, P1, B = ext.shape
     Sp, dev = kop.Sp, ext.device
-    _check_op(kop, dev)
+    bf16 = _check_op(kop, dev)
     _check("a0", a0, (Sp, B), dev)
     _check("ext", ext, (Nf, kop.P1, B), dev)
     _check("mshift", mshift, (Nf, 1, B), dev)
@@ -323,12 +361,12 @@ def fwd_sweep(kop: DenseOp, a0, ext, mshift, save_alphas: bool = True):
     with torch.cuda.device(dev):  # the library launches on it
         rc = _build.library().mm_dense_fwd(
             _p(kop.wf), _p(kop.spdf), _p(a0), _p(ext), _p(mshift), Sp,
-            kop.P1, B, Nf, slots, parts, _p(states), _p(scales), _p(ksum),
-            _p(shift), _p(comp), _p(part), _p(partial), _p(tickets),
-            _stream(dev),
+            kop.P1, B, Nf, slots, parts, bf16, _p(states), _p(scales),
+            _p(ksum), _p(shift), _p(comp), _p(part), _p(partial),
+            _p(tickets), _stream(dev),
         )
     _raise_on(rc, "mm_dense_fwd")
-    LAUNCHES["dense_fwd"] += 1
+    (LAUNCHES_BF16 if bf16 else LAUNCHES)["dense_fwd"] += 1
     last = (Nf - 1) % slots
     return (states if save_alphas else None,
             scales if save_alphas else None,
@@ -344,7 +382,7 @@ def backward(kop: DenseOp, ext, alphas, ascale):
 
     Nf, P1, B = ext.shape
     Sp, dev = kop.Sp, ext.device
-    _check_op(kop, dev)
+    bf16 = _check_op(kop, dev)
     _check("ext", ext, (Nf, kop.P1, B), dev)
     _check("alphas", alphas, (Nf, Sp, B), dev)
     _check("ascale", ascale, (Nf, B), dev)
@@ -357,12 +395,12 @@ def backward(kop: DenseOp, ext, alphas, ascale):
     with torch.cuda.device(dev):
         rc = _build.library().mm_dense_bwd(
             _p(kop.wb), _p(kop.spdf), _p(kop.perm), _p(kop.off), _p(ext),
-            _p(alphas), _p(ascale), Sp, kop.P1, B, Nf, parts, _p(work),
+            _p(alphas), _p(ascale), Sp, kop.P1, B, Nf, parts, bf16, _p(work),
             _p(bscale), _p(gamma), _p(posts), _p(part), _p(partial),
             _p(tickets), _stream(dev),
         )
     _raise_on(rc, "mm_dense_bwd")
-    LAUNCHES["dense_bwd"] += 1
+    (LAUNCHES_BF16 if bf16 else LAUNCHES)["dense_bwd"] += 1
     return posts
 
 

@@ -99,7 +99,7 @@ def vit_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     ids, the tier-chunk divisibility; instead of its VMEM budget, the
     working set (``_device_bytes``) must fit the memory of ``device`` when
     that is a CUDA device (checked where a card is present)."""
-    reason = bs.block_scan_reject_reason(cf, B)
+    reason = bs.block_scan_reject_reason(cf, B, tier_dtype=torch.float32)
     if reason is not None:
         return reason
     (_, _, pf, _), _ = bs._full_plan_explain(cf)
@@ -243,7 +243,9 @@ def walk_plain(wt: WalkTables, bps, fins, lengths):
 
 def viterbi_fwd(cf, ext, mshift):
     """K7: the fused tropical sweep over all Nf frames.  Same inputs and
-    outputs as :func:`viterbi_fwd_plain`."""
+    outputs as :func:`viterbi_fwd_plain`.  A ``precision='bf16'`` graph
+    decodes with its float32 panels, exactly as a 'high' one: the TPU K7
+    ignores the precision (``pallas_block.py:1169``)."""
     if not bs._route(ext, "Viterbi-sweep"):
         return viterbi_fwd_plain(cf, ext, mshift)
     from . import _build
@@ -251,7 +253,7 @@ def viterbi_fwd(cf, ext, mshift):
     Nf, P1, B = ext.shape
     dev = ext.device
     _check_graph(cf, B, Nf - 1, dev)
-    kop = bs.kernel_operator(cf)
+    kop = bs.kernel_operator(cf, torch.float32)  # f32 panels on any graph
     Sp, RW = kop.Sp, _main_region(cf)
     bs._check_op(kop, kop.fwd, dev)
     bs._check("ext", ext, (Nf, kop.P1, B), dev)

@@ -47,7 +47,6 @@ def test_compiled_from_numpy_round_trips(V):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(precision="bf16"),
     dict(dtype=torch.float64),
     dict(strategy="ell"),
     dict(domain="log"),
