@@ -38,11 +38,18 @@ phases:
 10. the V=32 graph compiled with the default strategy ('auto' -> 'dense',
     precision 'high');
 11. K6a and K6b against their plain twins at B=128, N=700, Sp=3,200 (mixed
-    lengths with 1 and N, ±30-nat emission cliffs);
+    lengths with 1 and N, ±30-nat emission cliffs), each run twice and
+    bit-equal; then on a random fully dense operator at Sp=4,096, whose
+    tiles do not fit shared memory and stream every frame: whole sweeps
+    in float32 at N=128, and the bf16 kernels one frame at a time;
 12. dense ``pdfposteriors`` at B=2, N=40 against the f64 oracle;
 13. the training step with the dense denominator and 128 stacked numerators
-    (P=96) at B=128, N=700: launch counters (K5a, K5b, K6a, K6b), the
-    gradient against γ_den - γ_num, and its time beside the denominator's;
+    (P=96) at B=128, N=700: exactly one launch each of K5a, K5b, K6a and
+    K6b and no other kernel, the gradient against γ_den - γ_num, its time
+    beside the denominator's, and a ``torch.profiler`` breakdown (one
+    sweep launch per direction, no finalize launch); then K6a/K6b timed
+    beside ``torch.matmul`` and ``torch.sparse.mm`` of their product, the
+    bounds, and a frame without the product (an all-zero operator);
 14. four stacked non-banded 'dense' graphs (B = G = 4) through the
     per-graph route on the card against the f64 oracle;
 15. K7 and the walk against their plain twins at the 2M-arc graph, B=128,
@@ -92,7 +99,7 @@ the tensor cores, float32 everywhere else:
     only bf16 K2-K4 launched (and K5a/K5b), the gradient against
     γ_den - γ_num;
 27. the same with the bf16 separate-state denominator, and 28. with the
-    bf16 dense one (K6a/K6b);
+    bf16 dense one (K6a/K6b, exact counts and profiled as in 13);
 29. the step and den-only ``pdfposteriors``, bf16 beside f32, medians of 5
     warm runs in turns, and their ratios (printed: ``bench.py`` requires
     bf16 < f32 of the JAX package; here a slow kernel stays and is
@@ -255,27 +262,33 @@ def banded_bounds(num_cf, Nf):
     }
 
 
-def dense_bounds(dcf, B, Nf):
-    """K6a and K6b over the Nf-frame sweep: the (Sp, Sp) product per frame
-    plus the emission, rescale and posterior work; a bf16 graph's product
-    on the tensor cores (PEAK_BF16) over an operator of 2 bytes."""
+def dense_bounds(dcf, B, Nf, dense=False):
+    """K6a and K6b over the Nf-frame sweep: per frame the product over the
+    operator's non-zero entries (what these inputs need: a zero weight adds
+    nothing), the emission, rescale and posterior work; a bf16 graph's
+    product on the tensor cores (PEAK_BF16).  The operator is read once as
+    a CSR (each non-zero with a 4-byte column index, the row pointers).
+    With ``dense``: the dense-equivalent bound of the full (Sp, Sp)
+    product over the dense operator, as if no entry were zero."""
+    import torch
+
     from markovmodels_tpu_torch.ops import dense_scan as ds
 
     kop = ds.kernel_operator(dcf)
     Sp, P1 = kop.Sp, kop.P1
     wb = kop.wf.element_size()
-    prod = Nf * B * 2 * Sp * Sp
-    f32, tc = (0, prod) if wb == 2 else (prod, 0)
-    return {
-        "K6a": bound(f32 + Nf * B * 3 * Sp,
-                     wb * Sp * Sp + 4 * (Sp * B + Nf * (P1 + 1) * B
-                                         + Nf * (Sp + 1) * B + 3 * B),
-                     tc_flops=tc),
-        "K6b": bound(f32 + Nf * B * 5 * Sp,
-                     wb * Sp * Sp + 4 * (Nf * (Sp + 1) * B
-                                         + 2 * Nf * P1 * B),
-                     tc_flops=tc),
-    }
+    out = {}
+    for name, w, extra, state_bytes in (
+            ("K6a", kop.wf, 3, Sp * B + Nf * (P1 + 1) * B
+             + Nf * (Sp + 1) * B + 3 * B),
+            ("K6b", kop.wb, 5, Nf * (Sp + 1) * B + 2 * Nf * P1 * B)):
+        nnz = Sp * Sp if dense else int(torch.count_nonzero(w))
+        op = wb * nnz if dense else (wb + 4) * nnz + 4 * (Sp + 1)
+        prod = Nf * B * 2 * nnz
+        f32, tc = (0, prod) if wb == 2 else (prod, 0)
+        out[name] = bound(f32 + Nf * B * extra * Sp, op + 4 * state_bytes,
+                          tc_flops=tc)
+    return out
 
 
 def vit_bounds(cf, B, Nf):
@@ -330,9 +343,10 @@ def cuda_ms(fn, reps=1, warm=True):
 
 def profile_device(fn):
     """Where one warm call of ``fn`` spends the card's time, from
-    torch.profiler's device events: ({kernel: ms}, busy ms, span ms), the
-    span running from the first device event's start to the last one's
-    end; None when the profiler records no device event."""
+    torch.profiler's device events: ({kernel: ms}, busy ms, span ms,
+    {kernel: launches}), the span running from the first device event's
+    start to the last one's end; None when the profiler records no device
+    event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -351,9 +365,10 @@ def profile_device(fn):
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
         return None
-    by_name = {}
+    by_name, counts = {}, {}
     for t0, t1, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e3
+        counts[name] = counts.get(name, 0) + 1
     busy, (lo, hi) = 0.0, spans[0][:2]
     for t0, t1, _ in spans[1:]:
         if t0 > hi:
@@ -362,7 +377,7 @@ def profile_device(fn):
             hi = max(hi, t1)
     busy += hi - lo
     span = max(t1 for _, t1, _ in spans) - spans[0][0]
-    return by_name, busy / 1e3, span / 1e3
+    return by_name, busy / 1e3, span / 1e3, counts
 
 
 def make_inputs(rng, B, N, P, cliffs=False):
@@ -831,14 +846,14 @@ def dense_inputs(P, dev, B=128, N=700, seed=2):
     return prepare_emissions(lhs, torch.from_numpy(lens).to(dev), P)
 
 
-def phase_dense_kernels(cf, P, dev, N=700, label="phase 11", tol=TOL_K6):
-    """Phase 11 (24): K6a and K6b against their plain twins on one input."""
+def phase_dense_kernels(kop, P, dev, N=700, label="phase 11", tol=TOL_K6):
+    """Phase 11 (24): K6a and K6b on the operator ``kop`` against their
+    plain twins on one input, each kernel run twice and bit-equal."""
     import torch
 
     from markovmodels_tpu_torch import inference as tinf
     from markovmodels_tpu_torch.ops import dense_scan as ds
 
-    kop = ds.kernel_operator(cf)
     ext, msh = dense_inputs(P, dev, N=N)
     B = ext.shape[2]
     a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
@@ -853,7 +868,11 @@ def phase_dense_kernels(cf, P, dev, N=700, label="phase 11", tol=TOL_K6):
         return a / torch.where(m > 0, m, torch.ones_like(m))
 
     fk = ds.fwd_sweep(kop, a0, ext, msh)
+    again = ds.fwd_sweep(kop, a0, ext, msh)
     torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(fk, again)), (
+        "K6a is not bit-equal run to run")
+    del again
     fp = ds.fwd_sweep_plain(kop, a0, ext, msh)
     zk, zp = logz(fk), logz(fp)
     fin = np.isfinite(zp)
@@ -863,14 +882,59 @@ def phase_dense_kernels(cf, P, dev, N=700, label="phase 11", tol=TOL_K6):
                        float((norm(fk[0]) - norm(fp[0])).abs().max()))}
     del fp
     pk = ds.backward(kop, ext, fk[0], fk[1])
+    again = ds.backward(kop, ext, fk[0], fk[1])
     torch.cuda.synchronize()
+    assert torch.equal(pk, again), "K6b is not bit-equal run to run"
+    del again
     pp = ds.backward_plain(kop, ext, fk[0], fk[1])
     assert torch.isfinite(pk).all(), "K6b: non-finite posteriors"
     errs["K6b"] = float((pk - pp).abs().max())
     for name, e in errs.items():
         print(f"{label}: {name} kernel vs plain at N={N} max |err| = {e:.3e} "
-              f"(tol {tol:g})")
+              f"(tol {tol:g}); run twice: bit-equal")
         assert np.isfinite(e) and e <= tol, f"{name} disagrees: {e}"
+    return errs
+
+
+def full_dense_op(dev, Sp=4096, P=96, bf16=False, seed=12):
+    """A DenseOp with a random fully dense (Sp, Sp) operator (every 32 x 32
+    tile non-zero; rows summing to ~0.5), random pdfs with the phony pdf P
+    on the final state Sp - 1, random initial probabilities: its tiles
+    cannot stay in shared memory, so K6a/K6b stream them every frame."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(
+        (rng.uniform(0.01, 1.0, size=(Sp, Sp)) / Sp).astype(np.float32))
+    spdf = np.append(rng.integers(0, P, size=Sp - 1), P)
+    a0 = torch.from_numpy(rng.uniform(size=Sp).astype(np.float32))
+    wdt = torch.bfloat16 if bf16 else torch.float32
+    w = w.to(dev, wdt)
+    return ds.dense_op(a0.to(dev), w, w.T.contiguous(),
+                       torch.from_numpy(spdf).to(dev),
+                       torch.arange(Sp, device=dev), P + 1, Sp - 1)
+
+
+def phase_dense_full(dev, P=96, N=128):
+    """Phase 11, second part: K6a and K6b on a fully dense operator at
+    Sp = 4,096 (the largest 'dense' graph of compile_fsm's 'auto' rule),
+    whose ranges are streamed, against their twins: whole sweeps in
+    float32, then the bf16 instantiations one frame at a time."""
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    kop = full_dense_op(dev, P=P)
+    pl = kop.pf
+    print(f"phase 11: fully dense Sp = {kop.Sp}: {pl.tile_k.numel()} tiles "
+          f"over {pl.lo.numel() - 1} CTAs, up to {pl.max_tiles} per range "
+          f"({pl.max_tiles * 4608 / 1024:.0f} KB of float32 tiles per CTA: "
+          "streamed)")
+    errs = phase_dense_kernels(kop, P, dev, N=N,
+                               label="phase 11 (fully dense Sp = 4,096)")
+    errs.update(phase_dense_frames(full_dense_op(dev, P=P, bf16=True), P, dev,
+                                   "phase 11 (fully dense Sp = 4,096, bf16)",
+                                   N=N))
     return errs
 
 
@@ -967,6 +1031,90 @@ def matmul_yardstick(dcf, dev, B=128, Nf=701):
     kop = ds.kernel_operator(dcf)
     a = torch.rand((kop.Sp, B), device=dev)
     return Nf * cuda_ms(lambda: torch.matmul(kop.wf, a), reps=50)
+
+
+def sparse_yardstick(dcf, dev, B=128, Nf=701):
+    """A second yardstick for K6a/K6b: ``torch.sparse.mm`` of the forward
+    operator as a CSR matrix by a (Sp, B) state, one PyTorch call per
+    frame, times Nf (the product alone; not a kernel of the port).  In the
+    operator's dtype; None where this PyTorch build does not multiply a
+    CSR matrix of that dtype."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    kop = ds.kernel_operator(dcf)
+    csr = kop.wf.to_sparse_csr()
+    a = torch.rand((kop.Sp, B), device=dev).to(kop.wf.dtype)
+    try:
+        torch.sparse.mm(csr, a)
+    except RuntimeError as e:
+        print(f"timing: torch.sparse.mm of a {kop.wf.dtype} CSR matrix: "
+              f"not measured ({str(e).splitlines()[0]})")
+        return None
+    return Nf * cuda_ms(lambda: torch.sparse.mm(csr, a), reps=50)
+
+
+def ms_or_not(t):
+    return "not measured" if t is None else f"{t:.3f}"
+
+
+def frame_floor(dcf, P, dev, N=700):
+    """K6a and K6b on the graph's emissions and pdfs with an all-zero
+    operator: no tile, so no product; what is left of a frame is the
+    epilogue, the per-frame statistics and the grid barrier.  Returns
+    (K6a, K6b) microseconds per frame, CUDA events."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    kop = ds.kernel_operator(dcf)
+    zero = ds.dense_op(kop.alpha0, torch.zeros_like(kop.wf),
+                       torch.zeros_like(kop.wb), kop.spdf, kop.perm.long(),
+                       kop.P1, kop.fin)
+    assert zero.pf.tile_k.numel() == zero.pb.tile_k.numel() == 0
+    ext, msh = dense_inputs(P, dev, N=N)
+    B = ext.shape[2]
+    a0 = zero.alpha0[:, None].expand(zero.Sp, B).contiguous()
+    alphas, ascale = ds.fwd_sweep(zero, a0, ext, msh)[:2]
+    Nf = N + 1
+    return (1e3 * cuda_ms(lambda: ds.fwd_sweep(zero, a0, ext, msh),
+                          reps=3) / Nf,
+            1e3 * cuda_ms(lambda: ds.backward(zero, ext, alphas, ascale),
+                          reps=3) / Nf)
+
+
+def profile_dense_step(num_cf, cf, P, dev, label, B=128, N=700):
+    """The LF-MMI step with a dense denominator under torch.profiler: its
+    device time by kernel and idle share, printed; asserts one launch of
+    each sweep kernel (K6a and K6b: one per sweep, the frame loop inside)
+    and no finalize launch."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+
+    rng = np.random.default_rng(0)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev)
+    lens = torch.full((B,), N, dtype=torch.int32, device=dev)
+
+    def step():
+        x = lhs.clone().requires_grad_()
+        mt.lfmmi_loss(num_cf, cf, x, lens).sum().backward()
+
+    prof = profile_device(step)
+    if prof is None:
+        print(f"{label}: profile of the dense step: not measured (no device "
+              "events recorded)")
+        return
+    by_name, busy, span, counts = prof
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"{label}: profile of one dense LF-MMI step: device busy "
+          f"{busy:.3f} ms of a {span:.3f} ms span (idle {1 - busy / span:.1%})"
+          f"; " + "; ".join(f"{k} {v:.3f} ms ({counts[k]} launches)"
+                            for k, v in top))
+    sweeps = {k: v for k, v in counts.items() if k.startswith("sweep_kernel")}
+    assert len(sweeps) == 2 and set(sweeps.values()) == {1}, sweeps
+    assert not any("finalize" in k for k in counts), counts
 
 
 def vit_inputs(P, dev, B=128, N=128, seed=4):
@@ -1102,7 +1250,7 @@ def phase_vit_main(fsm, spdf, cf, P, dev, B=128, N=700):
         print("phase 17: profile of the decode: not measured (no device "
               "events recorded)")
     else:
-        by_name, busy, span = prof
+        by_name, busy, span, _ = prof
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         print(f"phase 17: profile of one decode: device busy {busy:.3f} ms "
               f"of a {span:.3f} ms span (idle {1 - busy / span:.1%}); "
@@ -1244,17 +1392,16 @@ def phase_block_frames(cf, P, dev, label, B=128, N=128, chunk=64):
     return errs
 
 
-def phase_dense_frames(cf, P, dev, label, N=128):
-    """Phase 24's frame checks: K6a over two frames (the first skips the
-    product) from the kernel's own state of every 8th frame, and K6b over
-    two frames (the last starts from beta = 1, the other multiplies it)
-    on the kernel's alphas: the same float32 values rounded on both
-    sides.  Returns {name: max |err|}."""
+def phase_dense_frames(kop, P, dev, label, N=128):
+    """Phase 24's frame checks on the bf16 operator ``kop``: K6a over two
+    frames (the first skips the product) from the kernel's own state of
+    every 8th frame, and K6b over two frames (the last starts from beta =
+    1, the other multiplies it) on the kernel's alphas: the same float32
+    values rounded on both sides.  Returns {name: max |err|}."""
     import torch
 
     from markovmodels_tpu_torch.ops import dense_scan as ds
 
-    kop = ds.kernel_operator(cf)
     ext, msh = dense_inputs(P, dev, N=N)
     B = ext.shape[2]
     a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
@@ -1425,6 +1572,7 @@ def main():
     from markovmodels_tpu_torch.ops import banded_scan as bsc
     from markovmodels_tpu_torch.ops import block_scan as bs
     from markovmodels_tpu_torch.ops import dense_scan as ds
+    from markovmodels_tpu_torch.ops import vit_scan as vs
 
     card = card_line()
     print(card)
@@ -1473,16 +1621,33 @@ def main():
           f"s; Sp = {dcf.padded_states}; path: "
           f"{mt.fast_path_report(dcf, 128)}")
     dnum_cf = stack_numerators(build_numerators(dP), dP, dev)
-    errs.update(phase_dense_kernels(dcf, dP, dev))
+    errs.update(phase_dense_kernels(ds.kernel_operator(dcf), dP, dev))
+    phase_dense_full(dev)
     phase_oracle(dfsm, dspdf, dcf, dP, dev, label="phase 12")
+    bs.reset_launch_counts()
+    vs.reset_launch_counts()
     dlaunches, t_dstep, t_dden = phase_step(dnum_cf, dcf, dP, dev,
                                             (bsc, ds), "phase 13")
+    assert dlaunches == {"banded_fwd": 1, "banded_bwd": 1, "dense_fwd": 1,
+                         "dense_bwd": 1}, dlaunches
+    assert not any(bs.LAUNCHES.values()) and not any(vs.LAUNCHES.values())
+    profile_dense_step(dnum_cf, dcf, dP, dev, "phase 13")
     phase_dense_stack(dev)
     times.update(time_dense(dcf, dP, dev))
     bounds.update(dense_bounds(dcf, 128, 701))
+    dense_eq = dense_bounds(dcf, 128, 701, dense=True)
     t_mm = matmul_yardstick(dcf, dev)
-    print(f"timing: K6 yardstick, torch.matmul of the (3200, 3200) operator "
-          f"by the (3200, 128) state, x701 frames: {t_mm:.3f} ms")
+    t_sp = sparse_yardstick(dcf, dev)
+    floor = frame_floor(dcf, dP, dev)
+    print(f"timing: K6 yardsticks x701 frames: torch.matmul of the (3200, "
+          f"3200) operator by the (3200, 128) state {t_mm:.3f} ms; "
+          f"torch.sparse.mm of its CSR ({int(ds.kernel_operator(dcf).wf.count_nonzero())} "
+          f"non-zeros) {ms_or_not(t_sp)} ms; bounds from the non-zeros K6a "
+          f"{bounds['K6a'][0]:.4f} ms, K6b {bounds['K6b'][0]:.4f} ms, "
+          f"dense-equivalent {dense_eq['K6a'][0]:.2f} / "
+          f"{dense_eq['K6b'][0]:.2f} ms; a frame without the product "
+          f"(epilogue, statistics, grid barrier): K6a {floor[0]:.2f} us, "
+          f"K6b {floor[1]:.2f} us")
 
     errs.update(phase_vit_kernels(cf, P, dev))
     phase_vit_oracle(fsm, spdf, cf, P, dev)
@@ -1544,14 +1709,15 @@ def main():
         tol=TOL_KERNEL_BF16))
 
     def dense_checks():
-        e128 = phase_dense_kernels(dcf16, dP, dev, N=128, label="phase 24",
+        kop16 = ds.kernel_operator(dcf16)
+        e128 = phase_dense_kernels(kop16, dP, dev, N=128, label="phase 24",
                                    tol=TOL_KERNEL_BF16)
-        e700 = phase_dense_kernels(dcf16, dP, dev, label="phase 24",
+        e700 = phase_dense_kernels(kop16, dP, dev, label="phase 24",
                                    tol=TOL_KERNEL_BF16)
         return {k: max(e128[k], e700[k]) for k in e128}
 
     bf16_checks("phase 24", (ds,), lambda: phase_dense_frames(
-        dcf16, dP, dev, "phase 24"))
+        ds.kernel_operator(dcf16), dP, dev, "phase 24"))
     d_errs = bf16_checks("phase 24", (ds,), dense_checks)
 
     t0 = time.perf_counter()
@@ -1576,6 +1742,9 @@ def main():
                                    "phase 27", bf16=True)
     d_launches, _, _ = phase_step(dnum_cf, dcf16, dP, dev, (bsc, ds),
                                   "phase 28", bf16=True)
+    assert d_launches == {"banded_fwd": 1, "banded_bwd": 1,
+                          "dense_fwd_bf16": 1, "dense_bwd_bf16": 1}, d_launches
+    profile_dense_step(dnum_cf, dcf16, dP, dev, "phase 28")
 
     def step(num, den, P_):
         """(the training step, den-only pdfposteriors) on phase 9's input"""
@@ -1607,7 +1776,7 @@ def main():
             print(f"phase 29: profile of the {name} bf16 den-only "
                   "pdfposteriors: not measured (no device events recorded)")
             continue
-        by_name, busy, span = prof
+        by_name, busy, span, _ = prof
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         print(f"phase 29: profile of one {name} bf16 den-only pdfposteriors: "
               f"device busy {busy:.3f} ms of a {span:.3f} ms span (idle "
@@ -1619,9 +1788,11 @@ def main():
     sb_errs.update({k: max(sb_errs[k], v) for k, v in terrs.items()})
     d_times = time_dense(dcf16, dP, dev)
     t_mm16 = matmul_yardstick_bf16(dcf16, dev)
+    t_sp16 = sparse_yardstick(dcf16, dev)
     print(f"timing: K6 bf16 yardstick, torch.mm of the bf16 (3200, 3200) "
           f"operator by a bf16 (3200, 128) state into float32, x701 frames: "
-          f"{t_mm16:.3f} ms (float32: {t_mm:.3f} ms)")
+          f"{t_mm16:.3f} ms (float32: {t_mm:.3f} ms); torch.sparse.mm of "
+          f"its bf16 CSR x701: {ms_or_not(t_sp16)} ms")
     b_bounds = block_bounds(cf16, 128, -(-701 // 64) * 64, 64)
     sb_bounds = block_bounds(scf16, 128, -(-701 // 64) * 64, 64)
     d_bounds = dense_bounds(dcf16, 128, 701)

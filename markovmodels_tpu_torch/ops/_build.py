@@ -38,8 +38,8 @@ _SIGNATURES = {
     "mm_block_bwd": [_P] * 10 + [_I] * 5 + [_P] * 7,
     "mm_banded_fwd": [_P] * 13,
     "mm_banded_bwd": [_P] * 9,
-    "mm_dense_fwd": [_P] * 5 + [_I] * 7 + [_P] * 9,
-    "mm_dense_bwd": [_P] * 7 + [_I] * 6 + [_P] * 8,
+    "mm_dense_fwd": [_P] * 6 + [_I] * 2 + [_P] * 4 + [_I] * 6 + [_P] * 9,
+    "mm_dense_bwd": [_P] * 6 + [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P] * 8,
     "mm_vit_fwd": [_P] * 8 + [_I] * 3 + [_P] * 10,
     "mm_vit_walk": [_P] * 6 + [_I] * 8 + [_P] * 2,
 }

@@ -43,15 +43,24 @@ TPU kernels' one-hot products do (``pallas_scan.py:146``, ``:190``,
 power-of-two scale in the normal range, so it rounds the mantissas of the
 scaled state the JAX kernel rounds.
 
+Each kernel is one persistent, block-sparse launch per sweep: the host
+plan (:func:`tile_plan`, built once per graph with the operator) packs the
+operator's non-zero 32 x 32 tiles and cuts them into one range of equal
+tile count per CTA; the CTAs keep their tiles in shared memory (or stream
+them, where a range does not fit) and run the frame loop inside the kernel
+with one grid barrier per frame.  A zero tile adds exact zeros to the
+non-negative state, so the kernels compute the dense product up to
+summation order; the plain twins stay the dense product.
+
 The CUDA source is ``csrc/dense_scan.cu``; ``_build.py`` compiles it with
 nvcc at first use.  Each wrapper takes its plain version for CPU tensors
 and launches the kernel for CUDA tensors; anything else raises.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .block_scan import (_check, _p, _pow2_exponent, _pow2_scale, _raise_on,
@@ -62,6 +71,9 @@ __all__ = [
     "make_dense_operator",
     "dense_scan_reject_reason",
     "DenseOp",
+    "TilePlan",
+    "tile_plan",
+    "dense_op",
     "kernel_operator",
     "fwd_sweep",
     "backward",
@@ -79,10 +91,10 @@ __all__ = [
 LAUNCHES = {"dense_fwd": 0, "dense_bwd": 0}
 LAUNCHES_BF16 = dict(LAUNCHES)
 
-_TILE_ROWS = 32  # operator rows per CTA (TR in csrc/dense_scan.cu)
-_TILE_COLS = 128  # batch columns per CTA (TB)
-_TILE_K = 32  # contraction depth per shared-memory stage (TK)
-_MAX_SPLIT = 8  # contraction parts per row tile
+_TILE = 32  # operator tile edge (TR = TK in csrc/dense_scan.cu)
+_TILE_COLS = 128  # batch columns per column block (TB)
+_CTAS_PER_SM = 2  # co-resident CTAs per SM of the persistent grid
+_SMS = 132  # SMs of an H100 SXM: the plan's grid where there is no card
 
 
 def reset_launch_counts():
@@ -138,13 +150,14 @@ def dense_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     ``_pallas_dense_reject_reason`` come first, in its order and words
     (strategy, domain, one-hot present, not batched, not multi-pdf,
     float32).  Its TPU rules (backend, the VMEM budget of
-    ``pallas_scan_supported``) are not copied: the operator streams from
-    device memory every frame, and the kernels' shared memory (41 KB per
-    CTA) does not depend on the graph or the batch.  Instead the padded
-    state count must be a multiple of the kernels' 32-row tile, and the
-    device bytes of a run (``_device_bytes``) must fit the free memory of
-    ``device`` when that is a CUDA device (checked where a card is
-    present)."""
+    ``pallas_scan_supported``) are not copied: each CTA keeps its range of
+    the operator's non-zero tiles in shared memory where that fits (4.5 KB
+    a tile in float32, 2 KB in bf16, beside 34-43 KB of stages; at most
+    227 KB per CTA) and streams them every frame where it does not, so no
+    operator is too large or too dense.  Instead the padded state count
+    must be a multiple of the kernels' 32-row tile, and the device bytes
+    of a run (``_device_bytes``) must fit the free memory of ``device``
+    when that is a CUDA device (checked where a card is present)."""
     if cf.strategy != "dense":
         return f"strategy {cf.strategy!r} != 'dense'"
     if cf.domain != "prob":
@@ -159,9 +172,9 @@ def dense_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
         dt = str(cf.alpha_hat.dtype).removeprefix("torch.")
         return f"operator dtype {dt} (the CUDA kernels are f32)"
     Sp = cf.padded_states
-    if Sp % _TILE_ROWS or Sp % _TILE_K:
+    if Sp % _TILE:
         return (f"padded states {Sp} not a multiple of the kernels' "
-                f"{_TILE_ROWS}-row tile")
+                f"{_TILE}-row tile")
     free = _free_bytes(device)
     if free is not None and n_frames is not None:
         need = _device_bytes(cf, B, n_frames)
@@ -177,6 +190,88 @@ def dense_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
 # the kernels' operator
 # ---------------------------------------------------------------------------
 
+class TilePlan(NamedTuple):
+    """The host plan of one direction's operator for K6a/K6b (built by
+    :func:`tile_plan`).  The operator's T non-zero 32 x 32 tiles, judged in
+    the dtype the kernel reads, in (row tile, k tile) order; the list is
+    cut into G contiguous ranges of equal tile count, one per CTA of the
+    persistent grid.  A CTA walks its range as segments: the part of one
+    row tile that lies in it, or a row tile without a non-zero tile."""
+    # (T, 1024): float32 tiles row-major, or bf16 tiles in the mma.sync
+    # m16n8k16 A-fragment order [row half][k half][lane][4 words]
+    tiles: torch.Tensor
+    tile_k: torch.Tensor  # (T,) int32 k tile of each packed tile
+    # (Sp / 32 + 1,) int32: row tile r owns packed tiles [row_ptr[r],
+    # row_ptr[r+1]), in increasing k
+    row_ptr: torch.Tensor
+    lo: torch.Tensor  # (G + 1,) int32: CTA c owns tiles [lo[c], lo[c+1])
+    seg_ptr: torch.Tensor  # (G + 1,) int32: CTA c's segments
+    # (segments, 4) int32: (row tile, first tile, end tile, partial slot);
+    # slot -1: the row tile lies in this range alone
+    segs: torch.Tensor
+    # (Sp / 32, 2) int32: a straddling row tile's first partial slot and
+    # its partials (one per range, added in range order); (-1, 0) otherwise
+    rt_parts: torch.Tensor
+    n_partials: int  # partial slots
+    max_tiles: int  # the largest range
+
+
+def tile_plan(w: torch.Tensor, n_ctas: int) -> TilePlan:
+    """The plan of the (Sp, Sp) operator ``w`` (float32 or bf16) over a
+    grid of ``n_ctas`` CTAs.  Built on ``w``'s device; the segment lists
+    on the host."""
+    Sp, T_ = w.shape[0], _TILE
+    n = Sp // T_
+    blocks = w.reshape(n, T_, n, T_).transpose(1, 2)  # (row, k, 32, 32)
+    nz = (blocks != 0).any(dim=3).any(dim=2)
+    rt_idx, kt_idx = torch.nonzero(nz, as_tuple=True)  # row-major order
+    tiles = blocks[rt_idx, kt_idx]
+    T = tiles.shape[0]
+    if w.dtype == torch.bfloat16:
+        # row = mb*16 + h*8 + g, col = ks*16 + c*8 + q*2 + e  ->
+        # [mb][ks][lane = g*4 + q][register c*2 + h][e]
+        tiles = tiles.reshape(T, 2, 2, 8, 2, 2, 4, 2).permute(
+            0, 1, 4, 3, 6, 5, 2, 7)
+    tiles = tiles.reshape(T, T_ * T_).contiguous()
+
+    counts = nz.sum(dim=1).cpu().numpy()
+    row_ptr = np.zeros(n + 1, np.int64)
+    row_ptr[1:] = np.cumsum(counts)
+    lo = np.arange(n_ctas + 1, dtype=np.int64) * T // n_ctas
+    rt_of = np.repeat(np.arange(n), counts)
+    segs = [[] for _ in range(n_ctas)]
+    owners = [[] for _ in range(n)]  # (CTA, segment) per row tile, in order
+    for c in range(n_ctas):
+        a, b = int(lo[c]), int(lo[c + 1])
+        for rt in (np.unique(rt_of[a:b]) if a < b else ()):
+            owners[rt].append((c, len(segs[c])))
+            segs[c].append([rt, max(a, row_ptr[rt]), min(b, row_ptr[rt + 1]),
+                            -1])
+    rt_parts = np.tile(np.array([-1, 0], np.int64), (n, 1))
+    slot = 0
+    for rt, own in enumerate(owners):
+        if len(own) > 1:
+            rt_parts[rt] = (slot, len(own))
+            for k, (c, i) in enumerate(own):
+                segs[c][i][3] = slot + k
+            slot += len(own)
+    for i, rt in enumerate(np.flatnonzero(counts == 0)):
+        c = i % n_ctas
+        segs[c].append([rt, lo[c + 1], lo[c + 1], -1])
+    seg_ptr = np.zeros(n_ctas + 1, np.int64)
+    seg_ptr[1:] = np.cumsum([len(x) for x in segs])
+    flat = np.array([x for c in segs for x in c], np.int64).reshape(-1, 4)
+
+    def i32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.int32,
+                               device=w.device).contiguous()
+
+    return TilePlan(tiles=tiles, tile_k=kt_idx.to(torch.int32).contiguous(),
+                    row_ptr=i32(row_ptr), lo=i32(lo), seg_ptr=i32(seg_ptr),
+                    segs=i32(flat), rt_parts=i32(rt_parts), n_partials=slot,
+                    max_tiles=int(np.diff(lo).max()))
+
+
 class DenseOp(NamedTuple):
     Sp: int
     P1: int  # pdfs + 1 (the phony pdf last)
@@ -191,6 +286,36 @@ class DenseOp(NamedTuple):
     # alpha is always 0, are left out of the pdf sums
     perm: torch.Tensor
     off: torch.Tensor  # (P1 + 1,) int32: pdf p owns perm[off[p]:off[p+1]]
+    pf: TilePlan  # the kernels' plans of wf and wb
+    pb: TilePlan
+
+
+def _grid(device) -> int:
+    """CTAs of the persistent grid: _CTAS_PER_SM per SM of ``device``'s
+    card, or of an H100 where ``device`` is no card."""
+    if torch.device(device).type == "cuda":
+        return _CTAS_PER_SM * torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _CTAS_PER_SM * _SMS
+
+
+def dense_op(alpha0, wf, wb, spdf, real, P1: int, fin: int) -> DenseOp:
+    """A DenseOp from its probability operators ``wf``/``wb`` (Sp, Sp),
+    initial probabilities ``alpha0`` (Sp,), the pdf of each state ``spdf``
+    (Sp,) and the indices ``real`` of the real states (the others are
+    padding); the plans for the persistent grid of ``wf``'s device."""
+    n_ctas = _grid(wf.device)
+    spdf = spdf.to(torch.int32).contiguous()
+    perm = real[torch.sort(spdf[real].long(), stable=True).indices]
+    counts = torch.bincount(spdf[real].long(), minlength=P1)
+    off = torch.zeros(P1 + 1, dtype=torch.int64, device=spdf.device)
+    off[1:] = torch.cumsum(counts, 0)
+    return DenseOp(Sp=wf.shape[0], P1=P1, fin=fin,
+                   alpha0=alpha0.contiguous(), wf=wf.contiguous(),
+                   wb=wb.contiguous(), spdf=spdf,
+                   perm=perm.to(torch.int32).contiguous(),
+                   off=off.to(torch.int32).contiguous(),
+                   pf=tile_plan(wf, n_ctas), pb=tile_plan(wb, n_ctas))
 
 
 def kernel_operator(cf) -> DenseOp:
@@ -198,30 +323,19 @@ def kernel_operator(cf) -> DenseOp:
     once per graph (cached on it).  The probability operators fold
     exp(row_max) back into the exp-shifted matrices exactly as the JAX
     package's ``_fb_prob_pallas`` does (``inference.py:1327-1328``), and
-    are stored in bf16 for a bf16 graph."""
+    are stored in bf16 for a bf16 graph; their plans judge the tiles in
+    that dtype."""
     kop = cf._cache.get("dense_scan")
     if kop is None:
         wdt = torch.bfloat16 if cf.precision == "bf16" else torch.float32
-        spdf = cf.state_pdf.to(torch.int32)
-        P1 = cf.num_pdfs + 1
-        real = torch.nonzero(cf.orig_state >= 0)[:, 0]
-        perm = real[torch.sort(spdf[real].long(), stable=True).indices]
-        counts = torch.bincount(spdf[real].long(), minlength=P1)
-        off = torch.zeros(P1 + 1, dtype=torch.int64, device=cf.device)
-        off[1:] = torch.cumsum(counts, 0)
-        kop = DenseOp(
-            Sp=cf.padded_states,
-            P1=P1,
-            fin=int(cf.final_state),
-            alpha0=torch.exp(cf.alpha_hat).contiguous(),
-            wf=(torch.exp(cf.dense_fwd_max)[:, None]
-                * cf.dense_fwd_exp).to(wdt).contiguous(),
-            wb=(torch.exp(cf.dense_bwd_max)[:, None]
-                * cf.dense_bwd_exp).to(wdt).contiguous(),
-            spdf=spdf.contiguous(),
-            perm=perm.to(torch.int32).contiguous(),
-            off=off.to(torch.int32).contiguous(),
-        )
+        kop = dense_op(
+            torch.exp(cf.alpha_hat),
+            (torch.exp(cf.dense_fwd_max)[:, None]
+             * cf.dense_fwd_exp).to(wdt),
+            (torch.exp(cf.dense_bwd_max)[:, None]
+             * cf.dense_bwd_exp).to(wdt),
+            cf.state_pdf, torch.nonzero(cf.orig_state >= 0)[:, 0],
+            cf.num_pdfs + 1, int(cf.final_state))
         cf._cache["dense_scan"] = kop
     return kop
 
@@ -295,7 +409,7 @@ def backward_plain(kop: DenseOp, ext, alphas, ascale):
 # ---------------------------------------------------------------------------
 
 def _check_op(kop: DenseOp, dev):
-    """The operator's tensors; returns 1 for bf16 operators (the
+    """The operator's tensors and plans; returns 1 for bf16 operators (the
     tensor-core product), 0 for float32 ones."""
     _check("alpha0", kop.alpha0, (kop.Sp,), dev)
     wdt = kop.wf.dtype
@@ -308,40 +422,40 @@ def _check_op(kop: DenseOp, dev):
                            ("perm", kop.perm, tuple(kop.perm.shape)),
                            ("off", kop.off, (kop.P1 + 1,))):
         _check(name, t, shape, dev, torch.int32)
+    n_rt = kop.Sp // _TILE
+    for d, pl in (("pf", kop.pf), ("pb", kop.pb)):
+        T, G = pl.tile_k.numel(), pl.lo.numel() - 1
+        _check(f"{d}.tiles", pl.tiles, (T, _TILE * _TILE), dev, wdt)
+        for name, t, shape in (("tile_k", pl.tile_k, (T,)),
+                               ("lo", pl.lo, (G + 1,)),
+                               ("seg_ptr", pl.seg_ptr, (G + 1,)),
+                               ("segs", pl.segs, (pl.segs.shape[0], 4)),
+                               ("rt_parts", pl.rt_parts, (n_rt, 2))):
+            _check(f"{d}.{name}", t, shape, dev, torch.int32)
     return int(wdt == torch.bfloat16)
 
 
-def _split_k(Sp: int, B: int, n_sm: int) -> int:
-    """Contraction parts per row tile (split-K): the count, at most
-    _MAX_SPLIT with at least 4 stages of _TILE_K terms per part, whose CTAs
-    fill whole waves of one CTA per SM best; the smallest on a tie.  At
-    Sp = 3,200, B = 128 on 132 SMs: 5 parts, 500 CTAs."""
-    tiles = Sp // _TILE_ROWS * -(-B // _TILE_COLS)
-    stages = Sp // _TILE_K
-    best, best_fill = 1, 0.0
-    for parts in range(1, _MAX_SPLIT + 1):
-        if stages // parts < 4:
-            break
-        n = tiles * parts
-        fill = n / (-(-n // n_sm) * n_sm)
-        if fill > best_fill + 1e-9:
-            best, best_fill = parts, fill
-    return best
+def _plan_args(pl: TilePlan):
+    return (_p(pl.tiles), _p(pl.tile_k), _p(pl.lo), _p(pl.seg_ptr),
+            _p(pl.segs), _p(pl.rt_parts), pl.lo.numel() - 1, pl.max_tiles)
 
 
-def _split_buffers(Sp: int, B: int, dev):
-    """(parts, partial products, zeroed tickets) of the step kernels."""
-    parts = _split_k(Sp, B,
-                     torch.cuda.get_device_properties(dev).multi_processor_count)
-    partial = torch.empty((parts, Sp, B) if parts > 1 else (1,), device=dev)
-    tickets = torch.zeros(Sp // _TILE_ROWS * -(-B // _TILE_COLS),
-                          dtype=torch.int32, device=dev)
-    return parts, partial, tickets
+def _scratch(kop: DenseOp, pl: TilePlan, B: int, bf16: int, dev):
+    """(partial, zeroed sync words, bf16 state pairs or None) of one
+    launch: the plan's partial slots; the barrier, the row tiles' tickets
+    and three column-max rows."""
+    n_rt = kop.Sp // _TILE
+    partial = torch.empty((max(pl.n_partials, 1), _TILE, B), device=dev)
+    sync = torch.zeros(2 + n_rt * -(-B // _TILE_COLS) + 3 * B,
+                       dtype=torch.int32, device=dev)
+    xb = (_p(torch.empty((2, kop.Sp // 2, B), dtype=torch.int32, device=dev))
+          if bf16 else None)
+    return partial, sync, xb
 
 
 def fwd_sweep(kop: DenseOp, a0, ext, mshift, save_alphas: bool = True):
-    """K6a: the forward sweep over all Nf frames.  Same outputs as
-    :func:`fwd_sweep_plain`."""
+    """K6a: the forward sweep over all Nf frames, one launch.  Same
+    outputs as :func:`fwd_sweep_plain`."""
     if not _route(ext, "dense-scan"):
         return fwd_sweep_plain(kop, a0, ext, mshift, save_alphas)
     from . import _build
@@ -356,14 +470,13 @@ def fwd_sweep(kop: DenseOp, a0, ext, mshift, save_alphas: bool = True):
     states = torch.empty((slots, Sp, B), device=dev)
     scales = torch.empty((slots, B), device=dev)
     ksum, shift, comp = (torch.zeros(B, device=dev) for _ in range(3))
-    part = torch.empty((Sp // _TILE_ROWS, B), device=dev)
-    parts, partial, tickets = _split_buffers(Sp, B, dev)
+    partial, sync, xb = _scratch(kop, kop.pf, B, bf16, dev)
     with torch.cuda.device(dev):  # the library launches on it
         rc = _build.library().mm_dense_fwd(
-            _p(kop.wf), _p(kop.spdf), _p(a0), _p(ext), _p(mshift), Sp,
-            kop.P1, B, Nf, slots, parts, bf16, _p(states), _p(scales),
-            _p(ksum), _p(shift), _p(comp), _p(part), _p(partial),
-            _p(tickets), _stream(dev),
+            *_plan_args(kop.pf), _p(kop.spdf), _p(a0), _p(ext), _p(mshift),
+            Sp, kop.P1, B, Nf, slots, bf16, _p(states), _p(scales),
+            _p(ksum), _p(shift), _p(comp), _p(partial), _p(sync), xb,
+            _stream(dev),
         )
     _raise_on(rc, "mm_dense_fwd")
     (LAUNCHES_BF16 if bf16 else LAUNCHES)["dense_fwd"] += 1
@@ -374,8 +487,8 @@ def fwd_sweep(kop: DenseOp, a0, ext, mshift, save_alphas: bool = True):
 
 
 def backward(kop: DenseOp, ext, alphas, ascale):
-    """K6b: the reverse sweep and the pdf posteriors.  Same output as
-    :func:`backward_plain`."""
+    """K6b: the reverse sweep and the pdf posteriors, one launch.  Same
+    output as :func:`backward_plain`."""
     if not _route(ext, "dense-scan"):
         return backward_plain(kop, ext, alphas, ascale)
     from . import _build
@@ -387,17 +500,16 @@ def backward(kop: DenseOp, ext, alphas, ascale):
     _check("alphas", alphas, (Nf, Sp, B), dev)
     _check("ascale", ascale, (Nf, B), dev)
     work = torch.empty((2, Sp, B), device=dev)
-    bscale = torch.empty((2, B), device=dev)
-    gamma = torch.empty((Sp, B), device=dev)
+    gamma = torch.empty((2, Sp, B), device=dev)
     posts = torch.empty((Nf, P1, B), device=dev)  # every entry written
-    part = torch.empty((2, Sp // _TILE_ROWS, B), device=dev)
-    parts, partial, tickets = _split_buffers(Sp, B, dev)
+    part = torch.empty((2, Sp // _TILE, B), device=dev)
+    partial, sync, xb = _scratch(kop, kop.pb, B, bf16, dev)
     with torch.cuda.device(dev):
         rc = _build.library().mm_dense_bwd(
-            _p(kop.wb), _p(kop.spdf), _p(kop.perm), _p(kop.off), _p(ext),
-            _p(alphas), _p(ascale), Sp, kop.P1, B, Nf, parts, bf16, _p(work),
-            _p(bscale), _p(gamma), _p(posts), _p(part), _p(partial),
-            _p(tickets), _stream(dev),
+            *_plan_args(kop.pb), _p(kop.spdf), _p(kop.perm), _p(kop.off),
+            _p(ext), _p(alphas), _p(ascale), Sp, kop.P1, B, Nf, bf16,
+            _p(work), _p(gamma), _p(posts), _p(part), _p(partial), _p(sync),
+            xb, _stream(dev),
         )
     _raise_on(rc, "mm_dense_bwd")
     (LAUNCHES_BF16 if bf16 else LAUNCHES)["dense_bwd"] += 1
