@@ -24,7 +24,7 @@ phases:
    precision 'high');
 4. each kernel against its plain PyTorch twin on the same inputs, at the
    main-path graph with B=128 and N=128 (a mid-sequence chunk boundary,
-   mixed lengths, ±30-nat emission cliffs);
+   mixed lengths, ±30-nat emission cliffs), K4 run twice: bit-equal;
 5. ``pdfposteriors`` at B=2, N=40 against the exact float64 host oracle
    (the port's ``oracle.host_oracle``): |ΔlogZ| and |Δposts| ≤ 1e-4;
 6. the denominator ``pdfposteriors`` at B=128, N=700 with launch counters,
@@ -35,6 +35,11 @@ phases:
 8. stacked-numerator ``pdfposteriors`` at N=40 against the f64 oracle;
 9. the training step at B=128, N=700 with launch counters (K2-K5b), the
    gradient against γ_den - γ_num, and its time beside the denominator's;
+   a ``torch.profiler`` breakdown of one den-only ``pdfposteriors``:
+   exactly one K4 launch (the persistent ``bwd_chunk_kernel``) per 64-frame
+   chunk and no finalize launch but the forward frames'; K4 over the last
+   chunk of the N=700 sweep split into its parts (the whole operator, no
+   tier, no bands or families, neither: the frame without work);
 10. the V=32 graph compiled with the default strategy ('auto' -> 'dense',
     precision 'high');
 11. K6a and K6b against their plain twins at B=128, N=700, Sp=3,200 (mixed
@@ -74,7 +79,8 @@ phases:
     beside den-only ``pdfposteriors`` and beside the embedded layout's
     den-only ``pdfposteriors`` (the same LM with its backoff states on the
     diagonal of the trigram rows), and the separate/embedded ratio
-    (printed; ``bench.py`` holds the JAX package's under 1.2);
+    (printed; ``bench.py`` holds the JAX package's under 1.2); the
+    den-only profile and the K4 split of phase 9 on this graph;
 
 then ``precision='bf16'`` (``BASELINE.json`` config 4, the mixed-precision
 scan): the tier of K2-K4 and the product of K6a/K6b on bf16 operands on
@@ -87,7 +93,7 @@ the tensor cores, float32 everywhere else:
     overflow branch), with the bf16 launch counters: one frame at a time
     from the same state, where both round the same values (1e-4), then
     over whole sweeps at B=128, N=128, where each rounds its own float32
-    state (TOL_KERNEL_BF16; K4 twice, bit-equal);
+    state (TOL_KERNEL_BF16; K4 twice, bit-equal, on both graphs);
 24. the bf16 K6a and K6b likewise, the sweeps at B=128, N=128 and N=700;
 25. ``pdfposteriors`` at B=2, N=700 (lengths N and 2N/3, ``bench.py``'s
     shape) against the f64 oracle, run once per graph for its 'high' and
@@ -104,8 +110,9 @@ the tensor cores, float32 everywhere else:
     warm runs in turns, and their ratios (printed: ``bench.py`` requires
     bf16 < f32 of the JAX package; here a slow kernel stays and is
     written down), a ``torch.profiler`` breakdown of the bf16 den-only
-    runs; then each bf16 kernel and its twin timed and held to it
-    at N=700, and the bf16 ``torch.mm`` yardstick of K6;
+    runs (on the block graphs with phase 9's launch checks); then each bf16
+    kernel and its twin timed and held to it at N=700, the K4 split on both
+    bf16 block graphs, and the bf16 ``torch.mm`` yardstick of K6;
 30. Viterbi of the bf16 2M-arc graph: K7's ids, ω argmaxes and scores
     bit-equal to the 'high' graph's at B=128, N=128 (K7 takes float32
     panels on any graph).
@@ -625,6 +632,105 @@ def time_kernels(cf, P, dev, B=128, N=700, chunk=64, tol=TOL_KERNEL):
               f"{C * K} frames) max |err| = {e:.3e} (tol {tol:g})")
         assert np.isfinite(e) and e <= tol, f"{name} disagrees: {e}"
     return out, errs
+
+
+def cut_operator(kop, tier=True, bands=True):
+    """A copy of ``kop`` whose backward operator keeps the tier (``tier``)
+    and the band offsets and family terms (``bands``): a timing probe of
+    K4's parts, not the graph's function.  Without the tier, its rows
+    become band rows (tiles of 64 rows that skip the product)."""
+    import torch
+
+    kd = kop.bwd
+    dev = kd.band_rows.device
+    if not tier:
+        rows = np.sort(np.concatenate([kd.band_rows.cpu().numpy(),
+                                       kd.dst_rows.cpu().numpy().ravel()]))
+        kd = kd._replace(W=kd.W[:0], src_rows=kd.src_rows[:0],
+                         dst_rows=kd.dst_rows[:0],
+                         band_rows=torch.from_numpy(
+                             rows.astype(np.int32)).to(dev))
+    if not bands:
+        kd = kd._replace(offsets=(), band_w=kd.band_w[:0],
+                         fam_ptr=torch.zeros_like(kd.fam_ptr),
+                         fam_src=kd.fam_src[:0], fam_w=kd.fam_w[:0],
+                         fam_dst=kd.fam_dst[:0])
+    # a fresh plan cache; a copy of the package from before K4 kept plans
+    # (timed by ab_block.py) has none
+    extra = {"plans": {}} if "plans" in kop._fields else {}
+    return kop._replace(bwd=kd, **extra)
+
+
+def k4_split(cf, P, dev, label, B=128, N=700, chunk=64):
+    """K4 over the last chunk of the N=700 sweep (time_kernels' input) on
+    the whole backward operator and on three cut copies of it: without
+    the tier product, without the bands and family terms, and without
+    either (the frame without work: the epilogue, the statistics and the
+    frame-to-frame dependency).  Prints and returns {part: us per frame},
+    CUDA events, mean of 3 warm runs each."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import block_scan as bs
+    from markovmodels_tpu_torch.ops.emissions import (pad_emissions,
+                                                      prepare_emissions)
+
+    rng = np.random.default_rng(0)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev)
+    lens = torch.full((B,), N, dtype=torch.int32, device=dev)
+    kop = bs.kernel_operator(cf)
+    ext, msh = prepare_emissions(lhs, lens, P)
+    C = -(-(N + 1) // chunk)
+    ext, msh = pad_emissions(ext, msh, C * chunk)
+    a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
+    bounds, bscale = bs.fwd_sweep(kop, a0, ext, msh, chunk)[:2]
+    c = C - 1
+    sl = slice(c * chunk, (c + 1) * chunk)
+    al, asc = bs.recompute(kop, bounds[c], bscale[c], ext[sl], c * chunk)
+    beta, bsc = torch.ones_like(a0), torch.ones(B, device=dev)
+    out = {}
+    for name, cut in (("whole", kop),
+                      ("no tier", cut_operator(kop, tier=False)),
+                      ("no bands/families", cut_operator(kop, bands=False)),
+                      ("without work", cut_operator(kop, False, False))):
+        out[name] = 1e3 * cuda_ms(lambda: bs.backward(
+            cut, beta, bsc, al, asc, ext[sl], c * chunk, C * chunk),
+            reps=3) / chunk
+    print(f"timing: K4 frame split on the {label}: " + "; ".join(
+        f"{k} {v:.2f} us" for k, v in out.items()) + " per frame (of the "
+        f"last {chunk}-frame chunk, {bs._bwd_grid(kop, dev, B, kop.bwd.W.dtype)}"
+        " CTAs)")
+    return out
+
+
+def profile_block_den(cf, P, dev, label, B=128, N=700, chunk=64):
+    """One block den-only pdfposteriors under torch.profiler: its device
+    time by kernel and idle share, printed; asserts exactly one K4 launch
+    per chunk and no finalize launch beyond the forward frames' (K2's and
+    K3's, one per frame)."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+
+    rng = np.random.default_rng(0)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev)
+    lens = torch.full((B,), N, dtype=torch.int32, device=dev)
+    prof = profile_device(lambda: mt.pdfposteriors(cf, lhs, lens))
+    if prof is None:
+        print(f"{label}: profile of the den-only pdfposteriors: not measured "
+              "(no device events recorded)")
+        return None
+    by_name, busy, span, counts = prof
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"{label}: profile of one den-only pdfposteriors: device busy "
+          f"{busy:.3f} ms of a {span:.3f} ms span (idle "
+          f"{1 - busy / span:.1%}); " + "; ".join(
+              f"{k} {v:.3f} ms ({counts[k]} launches)" for k, v in top))
+    C = -(-(N + 1) // chunk)
+    bwd = {k: v for k, v in counts.items() if k.startswith("bwd_chunk_kernel")}
+    fin = {k: v for k, v in counts.items() if "finalize" in k}
+    assert sum(bwd.values()) == C, f"K4 launches {bwd}, expected {C}"
+    assert sum(fin.values()) == 2 * C * chunk, f"finalize launches {fin}"
+    return prof
 
 
 def build_numerators(P, G=128, Lp=78, seed=3):
@@ -1599,15 +1705,17 @@ def main():
           f"offsets {num_cf.banded_offsets}; path: "
           f"{mt.fast_path_report(num_cf, 128)}")
 
-    errs = phase_kernels(cf, P, dev)
+    errs = phase_kernels(cf, P, dev, twice=True)
     phase_oracle(fsm, spdf, cf, P, dev)
     _, t_kern, t_plain = phase_main(cf, P, dev)
     errs.update(phase_banded_kernels(num_cf, P, dev))
     phase_banded_oracle(P, dev)
     launches, t_step, t_den = phase_step(num_cf, cf, P, dev, (bs, bsc),
                                          "phase 9")
+    profile_block_den(cf, P, dev, "phase 9")
     times, terrs = time_kernels(cf, P, dev)
     errs.update({k: max(errs[k], v) for k, v in terrs.items()})
+    splits = {"2M-arc": k4_split(cf, P, dev, "2M-arc graph")}
     times.update(time_banded(num_cf, P, dev))
     bounds = block_bounds(cf, 128, -(-701 // 64) * 64, 64)
     bounds.update(banded_bounds(num_cf, 701))
@@ -1676,8 +1784,10 @@ def main():
     ov_launches, t_ostep, t_oden, t_emb = phase_ov_step(num_cf, scf, ecf, sP,
                                                         dev)
     del ecf
+    profile_block_den(scf, sP, dev, "phase 21")
     ov_times, terrs = time_kernels(scf, sP, dev)
     ov_errs.update({k: max(ov_errs[k], v) for k, v in terrs.items()})
+    splits["separate-state"] = k4_split(scf, sP, dev, "separate-state graph")
     ov_bounds = block_bounds(scf, 128, -(-701 // 64) * 64, 64)
 
     # ---- precision='bf16' -------------------------------------------------
@@ -1703,7 +1813,7 @@ def main():
     bf16_checks("phase 23", (bs,), lambda: phase_block_frames(
         scf16, sP, dev, "phase 23 (separate)"))
     b_errs = bf16_checks("phase 23", (bs,), lambda: phase_kernels(
-        cf16, P, dev, label="phase 23", tol=TOL_KERNEL_BF16))
+        cf16, P, dev, label="phase 23", twice=True, tol=TOL_KERNEL_BF16))
     sb_errs = bf16_checks("phase 23", (bs,), lambda: phase_kernels(
         scf16, sP, dev, label="phase 23 (separate)", twice=True,
         tol=TOL_KERNEL_BF16))
@@ -1770,7 +1880,9 @@ def main():
         "separate-state LF-MMI step": (ss32, ss16),
         "separate-state den-only pdfposteriors": (sp32, sp16),
     }, dev)
-    for name, fn in (("2M-arc", p16), ("dense", dp16)):
+    for name, c16, P_ in (("2M-arc", cf16, P), ("separate-state", scf16, sP)):
+        profile_block_den(c16, P_, dev, f"phase 29 ({name} bf16)")
+    for name, fn in (("dense", dp16),):
         prof = profile_device(fn)
         if prof is None:
             print(f"phase 29: profile of the {name} bf16 den-only "
@@ -1786,6 +1898,9 @@ def main():
     b_errs.update({k: max(b_errs[k], v) for k, v in terrs.items()})
     sb_times, terrs = time_kernels(scf16, sP, dev, tol=TOL_KERNEL_BF16)
     sb_errs.update({k: max(sb_errs[k], v) for k, v in terrs.items()})
+    splits["2M-arc bf16"] = k4_split(cf16, P, dev, "2M-arc graph (bf16)")
+    splits["separate-state bf16"] = k4_split(scf16, sP, dev,
+                                             "separate-state graph (bf16)")
     d_times = time_dense(dcf16, dP, dev)
     t_mm16 = matmul_yardstick_bf16(dcf16, dev)
     t_sp16 = sparse_yardstick(dcf16, dev)
@@ -1869,7 +1984,10 @@ def main():
           f"{t_oden:.2f} ms, embedded den-only {t_emb:.2f} ms; bf16 (f32) "
           f"medians: " + "; ".join(f"{k} {b:.2f} ({a:.2f}) ms"
                                    for k, (a, b) in paths16.items())
-          + f"; K6 bf16 yardstick {t_mm16:.2f} ms")
+          + f"; K6 bf16 yardstick {t_mm16:.2f} ms; K4 per frame, whole / "
+          f"without work: " + "; ".join(
+              f"{k} {v['whole']:.2f} / {v['without work']:.2f} us"
+              for k, v in splits.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,7 +35,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "mm_block_fwd": [_P] * 9 + [_I] * 4 + [_P] * 10,
     "mm_block_recompute": [_P] * 9 + [_I] * 4 + [_P] * 4,
-    "mm_block_bwd": [_P] * 10 + [_I] * 5 + [_P] * 7,
+    "mm_block_bwd": [_P] * 12 + [_I] * 7 + [_P] * 10,
+    "mm_block_bwd_ctas": [_I] * 3,
     "mm_banded_fwd": [_P] * 13,
     "mm_banded_bwd": [_P] * 9,
     "mm_dense_fwd": [_P] * 6 + [_I] * 2 + [_P] * 4 + [_I] * 6 + [_P] * 9,

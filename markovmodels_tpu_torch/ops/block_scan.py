@@ -11,7 +11,8 @@ Counterpart of ``markovmodels_tpu/ops/pallas_block.py``.  One shared graph
   and keeps every frame's alpha (replaces ``_make_recompute_kernel``);
 * K4 ``backward``: the reverse sweep over one chunk: beta carry,
   gamma = alpha * beta reduced over pdf groups, posteriors normalised per
-  frame (replaces ``_make_bwd_kernel``).
+  frame (replaces ``_make_bwd_kernel``); one persistent cooperative launch
+  per chunk, whose CTAs run the work items :func:`bwd_plan` gives them.
 
 All three are built on one blocked matvec (band offsets + one affine tier +
 the rank-1 omega split + the overflow families of a capped layout), the
@@ -47,6 +48,7 @@ from .emissions import pad_emissions
 __all__ = [
     "block_scan_reject_reason",
     "kernel_operator",
+    "bwd_plan",
     "fwd_sweep",
     "recompute",
     "backward",
@@ -71,6 +73,17 @@ _TILE_ROWS = 64  # state rows per CUDA tile (TR in csrc/block_scan.cu)
 _HEAVY_TERMS = 16
 _MAX_BANDS = 8  # band offsets a kernel takes (build_block_operator's cap)
 _BF16_K = 16  # contraction depth of one bf16 tensor-core step (mma k16)
+# K4's persistent grid where there is no card to ask: the uniform layout's 4
+# CTAs per SM (bwd_blocks in csrc/block_scan.cu) on the 132 SMs of an H100
+_CTAS_PER_SM = 4
+_SMS = 132
+# the share of K4's band items among which its tier items are spread in the
+# queue (the rest of the band items come last; 0.3 measured best on three
+# of the four graph and precision pairs, PERF.md §6)
+_TIER_SPAN = 0.3
+# copies of each frame's column max that K4 spreads its atomics over (CM in
+# csrc/block_scan.cu)
+_CM_COPIES = 16
 
 
 def reset_launch_counts():
@@ -455,12 +468,17 @@ def _working_set_bytes(cf, B, n_frames, chunk):
     ov_lo, ov_hi = _ov_bounds(cf)
     # the per-row pdf table and family-term offsets (int32, both
     # directions), the terms (int32 source + float32 weight per family
-    # weight at most), the per-pdf overflow-lane lists and the K4 buffer
-    # of the overflow rows' gammas
+    # weight at most), the per-pdf overflow-lane lists
     n_w = sum(t.numel() for op in (cf.block_fwd, cf.block_bwd)
               for t in op.ov_w)
-    need += 4 * (3 * (Sp + 1) + 2 * n_w + P1 + 1 + (ov_hi - ov_lo) * (1 + B))
+    need += 4 * (3 * (Sp + 1) + 2 * n_w + P1 + 1 + (ov_hi - ov_lo))
     K = min(chunk, n_frames + 1) if n_frames else chunk
+    # K4's per-frame scratch over the chunk: the overflow rows' gammas, the
+    # column maxima, the per-item column sums of gamma; its queue
+    n_items = -(-B // _TILE_ROWS) * int(_imeta(kop, kop.bwd)[_N_TILES])
+    need += 4 * K * (B * (ov_hi - ov_lo + _CM_COPIES) + _TILE_ROWS * n_items
+                     + 1)
+    need += 4 * n_items
     C = -(-(n_frames + 1) // K) if n_frames else 1
     # a0 + ping-pong pair + last state + two betas, the chunk's alphas,
     # the checkpoints, and emissions + posteriors over all padded frames
@@ -478,7 +496,9 @@ def block_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     caller launches with) must be stageable by the tensor-core tier tile.
     Instead of its VMEM budget, the working set (every buffer sized by its
     dtype, see ``_working_set_bytes``) must fit the memory of ``device``
-    when that is a CUDA device (checked where a card is present)."""
+    when that is a CUDA device, and the persistent K4 kernel must be able
+    to keep its CTAs co-resident there (both checked where a card is
+    present)."""
     if cf.strategy != "block":
         return f"strategy {cf.strategy!r} != 'block'"
     if cf.batched:
@@ -503,12 +523,19 @@ def block_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     reason = _kernel_checks(cf, plan[0], plan[1])
     if reason is not None:
         return reason
-    if (tier_dtype or _tier_dtype(cf)) == torch.bfloat16:
+    tier_dtype = tier_dtype or _tier_dtype(cf)
+    if tier_dtype == torch.bfloat16:
         reason = _bf16_tile_reason(kernel_operator(cf))
         if reason is not None:
             return reason
     if (device is not None and torch.device(device).type == "cuda"
             and torch.cuda.is_available()):
+        n_ctas = _bwd_grid(kernel_operator(cf), torch.device(device), B,
+                           tier_dtype)
+        if n_ctas <= 0:
+            return ("the persistent K4 kernel cannot keep its CTAs "
+                    "co-resident on this card (cooperative launch "
+                    "unsupported or no CTA fits an SM)")
         need = _working_set_bytes(cf, B, n_frames, chunk)
         have = torch.cuda.get_device_properties(torch.device(device)).total_memory
         if need > have:
@@ -569,6 +596,9 @@ class KernelOp(NamedTuple):
     ov_hi: int
     ovp_ptr: torch.Tensor  # (P1 + 1,) int32
     ovp_lane: torch.Tensor  # (ov_hi - ov_lo,) int32, increasing per pdf
+    # K4's host plans (bwd_plan), built once per shape of the backward
+    # direction's tiles and column tiles, and its grid per device
+    plans: dict
 
 
 def _i32(x, device):
@@ -644,9 +674,88 @@ def kernel_operator(cf, tier_dtype=None) -> KernelOp:
             ovp_ptr=_i32(np.searchsorted(lane_pdf[lanes], np.arange(P1 + 1)),
                          dev),
             ovp_lane=_i32(lanes, dev),
+            plans={},
         )
     cf._cache[key] = kop
     return kop
+
+
+# ---------------------------------------------------------------------------
+# K4's host plan: the queue of work items of the persistent grid
+# ---------------------------------------------------------------------------
+
+class BwdPlan(NamedTuple):
+    """The queue of K4's work items, the same in every frame of a chunk.
+    An item is one row tile of the backward step (heavy rows first, then
+    the tier tiles, then the 64-row band tiles, the order of
+    :func:`_row_tiles`) times one 64-column tile, coded tile·ncb + column
+    tile.  The CTAs of the persistent grid take the items in queue order,
+    each the next one as it finishes the last (an atomic position per
+    frame), so which CTA runs an item changes from run to run; nothing
+    that is summed depends on it: each item's column sums of gamma are
+    kept apart and added in tile order after the chunk.  Each entry also
+    carries the first row of a band tile whose rows are consecutive (-1
+    for any other tile), so that the kernel needs no row list for it."""
+    ncb: int  # 64-column tiles: ceil(B / 64)
+    queue: torch.Tensor  # (n_tiles * ncb, 2) int32: item, first row or -1
+
+
+def bwd_plan(kop: KernelOp, B: int) -> BwdPlan:
+    """K4's queue for batch ``B``, built once per shape and cached on
+    ``kop``: the heavy rows first (the longest items), then the tier and
+    band items interleaved, the tier items spread evenly among the first
+    _TIER_SPAN of the band items, so that every SM multiplies and streams
+    at the same time and the queue ends on short band items; each kind in
+    tile, then column tile order."""
+    kd = kop.bwd
+    ncb = -(-B // _TILE_ROWS)
+    nh, nband = kd.heavy_rows.numel(), kd.band_rows.numel()
+    nt = kd.W.shape[0] * -(-kd.W.shape[2] // _TILE_ROWS)
+    n_tiles = nh + nt + -(-nband // _TILE_ROWS)
+    key = ("bwd_plan", ncb, nh, nt, n_tiles)
+    pl = kop.plans.get(key)
+    if pl is None:
+        item = np.arange(n_tiles * ncb)  # tile item // ncb, column % ncb
+        tier = (item >= nh * ncb) & (item < (nh + nt) * ncb)
+        band = item >= (nh + nt) * ncb
+        pos = np.zeros(len(item))  # where each item falls in the queue
+        pos[tier] = _TIER_SPAN * np.arange(tier.sum()) / max(tier.sum(), 1)
+        pos[band] = np.arange(band.sum()) / max(band.sum(), 1)
+        pos[~(tier | band)] = -1.0  # heavy rows first
+        order = np.lexsort((band, pos))
+        rows = kd.band_rows.cpu().numpy().astype(np.int64)
+        row0 = np.full(n_tiles, -1, np.int64)
+        for t in range(-(-len(rows) // _TILE_ROWS)):
+            r = rows[t * _TILE_ROWS:(t + 1) * _TILE_ROWS]
+            if (np.diff(r) == 1).all():
+                row0[nh + nt + t] = r[0]
+        queue = np.stack([order, row0[order // ncb]], axis=1)
+        pl = BwdPlan(ncb=ncb, queue=_i32(queue, kop.row_pdf.device))
+        kop.plans[key] = pl
+    return pl
+
+
+def _bwd_grid(kop: KernelOp, device, B: int, tier_dtype) -> int:
+    """CTAs of K4's persistent grid: as many as can be co-resident on the
+    CUDA ``device`` for this instantiation (the library asks the occupancy
+    API; cached on ``kop``), or _CTAS_PER_SM per SM of an H100 elsewhere
+    (a plan to inspect, never to launch)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return _CTAS_PER_SM * _SMS
+    from . import _build
+
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    fam = kop.bwd.fam_dst.numel() > 0 or kop.ov_lo < kop.ov_hi
+    key = ("bwd_grid", idx, B % 4 == 0, fam, tier_dtype == torch.bfloat16)
+    if key not in kop.plans:
+        with torch.cuda.device(idx):
+            n = _build.library().mm_block_bwd_ctas(*(int(v) for v in key[2:]))
+        if n < 0:
+            _raise_on(-n, "mm_block_bwd_ctas")
+        kop.plans[key] = n
+    return kop.plans[key]
 
 
 # ---------------------------------------------------------------------------
@@ -943,8 +1052,9 @@ def recompute(kop: KernelOp, bound, bscale, ext_c, t0: int):
 
 def backward(kop: KernelOp, beta, bscale, alphas, ascale, ext_c, t0: int,
              npad: int):
-    """K4: the reverse sweep over one chunk.  Same outputs as
-    :func:`backward_plain`."""
+    """K4: the reverse sweep over one chunk, one cooperative launch whose
+    CTAs take the items of :func:`bwd_plan` from a queue in every frame.
+    Same outputs as :func:`backward_plain`."""
     if not _route(beta):
         return backward_plain(kop, beta, bscale, alphas, ascale, ext_c, t0,
                               npad)
@@ -960,23 +1070,36 @@ def backward(kop: KernelOp, beta, bscale, alphas, ascale, ext_c, t0: int,
     _check("alphas", alphas, (K, Sp, B), dev)
     _check("ascale", ascale, (K, B), dev)
     _check("ext", ext_c, (K, kop.P1, B), dev)
+    G = _bwd_grid(kop, dev, B, wdt)
+    if G <= 0:
+        raise ValueError("the persistent K4 kernel cannot keep its CTAs "
+                         f"co-resident on {dev}")
+    pl = bwd_plan(kop, B)
+    n_items = pl.queue.shape[0]
     meta, lay = _imeta(kop, kop.bwd), _ilayout(kop, kop.bwd)
     posts = torch.zeros((K, kop.P1, B), device=dev)  # accumulated atomically
-    # one frame's overflow-row gammas, summed into their pdfs by the finalize
-    ovg = torch.empty((max(kop.ov_hi - kop.ov_lo, 1), B), device=dev)
+    # every frame's overflow-row gammas and per-item column sums of gamma,
+    # read by the normalisation after the chunk's last frame
+    ovg = torch.empty((K, max(kop.ov_hi - kop.ov_lo, 1), B), device=dev)
+    csum = torch.empty((K, n_items, _TILE_ROWS), device=dev)
+    # the grid barrier's counter and generation, every frame's column max
+    # of beta (float bits, _CM_COPIES copies), every frame's queue position
+    n_cm = K * _CM_COPIES * B
+    words = torch.zeros(2 + n_cm + K, dtype=torch.int32, device=dev)
     work = torch.empty((2, Sp, B), device=dev)
     beta_out = torch.empty((Sp, B), device=dev)
-    scale = bscale.clone()
-    part = torch.empty((2, int(meta[_N_TILES]), B), device=dev)
+    scale = torch.empty(B, device=dev)
     kd = kop.bwd
     with torch.cuda.device(dev):
         rc = _build.library().mm_block_bwd(
-            _p(beta), _p(alphas), _p(ascale), _p(ext_c), _p(kd.band_w),
-            _p(kd.W), _p(kop.omega), _p(kd.band_rows),
+            _p(beta), _p(bscale), _p(alphas), _p(ascale), _p(ext_c),
+            _p(kd.band_w), _p(kd.W), _p(kop.omega), _p(kd.band_rows),
             ctypes.c_void_p(meta.ctypes.data),
-            ctypes.c_void_p(lay.ctypes.data), B, t0, K, npad,
-            int(wdt == torch.bfloat16), _p(work),
-            _p(beta_out), _p(scale), _p(posts), _p(ovg), _p(part),
+            ctypes.c_void_p(lay.ctypes.data), _p(pl.queue), n_items, G, B,
+            t0, K, npad, int(wdt == torch.bfloat16), _p(work),
+            _p(beta_out), _p(scale), _p(posts), _p(ovg), _p(csum),
+            ctypes.c_void_p(words.data_ptr() + 8),
+            ctypes.c_void_p(words.data_ptr() + 4 * (2 + n_cm)), _p(words),
             _stream(dev),
         )
     _raise_on(rc, "mm_block_bwd")

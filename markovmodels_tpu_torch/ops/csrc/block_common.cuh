@@ -75,11 +75,21 @@ __device__ __forceinline__ float pow2_scale(float k) {
 
 // Four consecutive batch columns b .. b+3 of one state row.  VEC: one
 // 16-byte access (B % 4 == 0, so every row start and b are aligned);
-// otherwise masked scalar accesses.
-template <bool VEC>
+// otherwise masked scalar accesses.  CG: read past L1 (ld.global.cg), for a
+// row that another CTA of a persistent launch may have written.
+template <bool VEC, bool CG = false>
 __device__ __forceinline__ float4 load4(const float* __restrict__ row, int b,
                                         int B) {
-  if constexpr (VEC) {
+  if constexpr (CG) {
+    if constexpr (VEC)
+      return b < B ? __ldcg(reinterpret_cast<const float4*>(row + b))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    else
+      return make_float4(b < B ? __ldcg(row + b) : 0.f,
+                         b + 1 < B ? __ldcg(row + b + 1) : 0.f,
+                         b + 2 < B ? __ldcg(row + b + 2) : 0.f,
+                         b + 3 < B ? __ldcg(row + b + 3) : 0.f);
+  } else if constexpr (VEC) {
     return b < B ? *reinterpret_cast<const float4*>(row + b)
                  : make_float4(0.f, 0.f, 0.f, 0.f);
   } else {

@@ -86,6 +86,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "coop_common.cuh"
+
 namespace {
 
 constexpr int TR = 32;        // operator rows per tile
@@ -207,28 +209,6 @@ __device__ __forceinline__ float get(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
-// 16 bytes global -> shared, through L2 only; a false predicate zero-fills.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// A hint to pull the 128-byte line at p into L2.
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
-
 // Two floats rounded to bf16 (to nearest even), lo in the low half.
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -244,28 +224,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
-}
-
-// Grid-wide barrier of a cooperative launch: a counter and a generation
-// flag in global memory.  The last CTA to arrive resets the counter and
-// advances the generation; the fences make every write before the barrier
-// visible to every read after it.
-__device__ __forceinline__ void grid_sync(unsigned* sync) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = sync + 1;
-    const unsigned g = *gen;
-    __threadfence();
-    if (atomicAdd(sync, 1u) == gridDim.x - 1) {
-      atomicExch(sync, 0u);
-      __threadfence();
-      atomicAdd(sync + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(20);
-    }
-    __threadfence();
-  }
-  __syncthreads();
 }
 
 // Where one frame reads and writes.
