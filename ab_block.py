@@ -8,7 +8,10 @@ the package):
     python ab_block.py build/vA dense-bf16
 
 The first argument is the root of a copy of the package (its parent
-directory); that copy builds its own library under ``<root>/build/``.  The
+directory); that copy builds its own library under ``<root>/build/``.  For
+an A/B against the parent commit, unpack its package into a gitignored
+directory (``git archive HEAD markovmodels_tpu_torch | tar -x -C build/vP``)
+and run the two in turns P, C, C, P, P, C in one call.  The
 others name denominators: ``2m`` (the 2M-arc trigram graph), ``separate``
 (the separate-state backoff graph, V=128, 10 % of the trigrams kept, in the
 capped/overflow layout), each also as ``-bf16`` (compiled with precision
@@ -27,8 +30,15 @@ and K6b over all 701 frames, at B=128, N=700.  For a block graph also:
   dependency);
 * ``K4_err``: K4 against its plain twin on the chunk (posteriors and the
   outgoing beta), and ``K4_bitequal``: two K4 runs bit-equal;
+* ``K2_split``, ``K3_split``: the same four cuts of the forward operator
+  (``cut_operator(..., direction="fwd")``), K2 over the 704 frames and K3
+  over the last chunk, in us per frame (``K4_split`` is in ms per chunk);
+* ``K2_graph_ms``, ``K3_graph_ms``: the same K2 and K3 calls captured once
+  in a CUDA graph and replayed (a yardstick of what the launches and the
+  gaps between them cost; null where the capture fails);
 * ``K2_sum``, ``K3_sum``: sums of K2's and K3's outputs in float64, equal
-  between two versions whose K2 and K3 compute bit for bit the same.
+  between two versions whose K2 and K3 compute bit for bit the same, and
+  ``K23_bitequal``: K2 and K3 run twice, bit-equal.
 
 Needs a CUDA card.
 """
@@ -55,6 +65,23 @@ def _ms(fn, reps=3):
         torch.cuda.synchronize()
         ts.append(a.elapsed_time(b))
     return ts
+
+
+def _graph_ms(fn, reps=3):
+    """Three times in ms of ``fn`` captured once in a CUDA graph and
+    replayed, or None where the capture fails."""
+    import torch
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        return _ms(g.replay, reps)
+    except RuntimeError as e:
+        print(f"CUDA graph capture failed: {e}", file=sys.stderr)
+        return None
 
 
 def run_graph(graph: str) -> dict:
@@ -109,9 +136,29 @@ def run_graph(graph: str) -> dict:
     bsc = torch.ones(B, device=dev)
     out["K2_sum"] = sum(float(t.double().sum()) for t in fwd)
     out["K3_sum"] = float(al.double().sum()) + float(asc.double().sum())
+    fwd2 = bs.fwd_sweep(kop, a0, ext, msh, K)
+    al2, asc2 = bs.recompute(kop, bounds[c], bscale[c], ext[sl], c * K)
+    out["K23_bitequal"] = all(torch.equal(x, y) for x, y in
+                              zip(fwd + (al, asc), fwd2 + (al2, asc2)))
+    del fwd2, al2, asc2
     out["K2_ms"] = _ms(lambda: bs.fwd_sweep(kop, a0, ext, msh, K))
     out["K3_ms"] = _ms(lambda: bs.recompute(kop, bounds[c], bscale[c],
                                             ext[sl], c * K))
+    for name, frames, call in (
+            ("K2", C * K, lambda op: bs.fwd_sweep(op, a0, ext, msh, K)),
+            ("K3", K, lambda op: bs.recompute(op, bounds[c], bscale[c],
+                                              ext[sl], c * K))):
+        split = {}
+        for part, cut in (
+                ("full", kop),
+                ("no_tier", cut_operator(kop, tier=False, direction="fwd")),
+                ("no_bands", cut_operator(kop, bands=False,
+                                          direction="fwd")),
+                ("neither", cut_operator(kop, False, False, "fwd"))):
+            ts = _ms(lambda: call(cut))
+            split[part] = 1e3 * sum(ts) / len(ts) / frames
+        out[f"{name}_split"] = split
+        out[f"{name}_graph_ms"] = _graph_ms(lambda: call(kop))
     split = {}
     for name, cut in (("full", kop),
                       ("no_tier", cut_operator(kop, tier=False)),

@@ -24,7 +24,8 @@ phases:
    precision 'high');
 4. each kernel against its plain PyTorch twin on the same inputs, at the
    main-path graph with B=128 and N=128 (a mid-sequence chunk boundary,
-   mixed lengths, ±30-nat emission cliffs), K4 run twice: bit-equal;
+   mixed lengths, ±30-nat emission cliffs), K2, K3 and K4 run twice:
+   bit-equal;
 5. ``pdfposteriors`` at B=2, N=40 against the exact float64 host oracle
    (the port's ``oracle.host_oracle``): |ΔlogZ| and |Δposts| ≤ 1e-4;
 6. the denominator ``pdfposteriors`` at B=128, N=700 with launch counters,
@@ -36,9 +37,10 @@ phases:
 9. the training step at B=128, N=700 with launch counters (K2-K5b), the
    gradient against γ_den - γ_num, and its time beside the denominator's;
    a ``torch.profiler`` breakdown of one den-only ``pdfposteriors``:
-   exactly one K4 launch (the persistent ``bwd_chunk_kernel``) per 64-frame
-   chunk and no finalize launch but the forward frames'; K4 over the last
-   chunk of the N=700 sweep split into its parts (the whole operator, no
+   exactly one K2 launch and one K3 and one K4 launch per 64-frame chunk
+   (the persistent ``fwd_chunk_kernel`` and ``bwd_chunk_kernel``) and no
+   per-frame step or finalize launch; K2 over the N=700 sweep, K3 and K4
+   over its last chunk, each split into its parts (the whole operator, no
    tier, no bands or families, neither: the frame without work);
 10. the V=32 graph compiled with the default strategy ('auto' -> 'dense',
     precision 'high');
@@ -71,7 +73,7 @@ phases:
 18. the separate-state graph compiled with the default arguments onto the
     card ('block', ``ov_layout`` (128, 3)) and its fast-path report;
 19. K2, K3 and K4 against their plain twins on it at B=128, N=128 (lengths
-    1 and N mixed, ±30-nat cliffs), then K4 run twice: bit-equal;
+    1 and N mixed, ±30-nat cliffs), each run twice: bit-equal;
 20. its ``pdfposteriors`` at B=2, N=40 against the f64 oracle;
 21. the training step with it and the 128 stacked numerators at B=128,
     N=700: exact launch counts (K2 1, K3 and K4 once per chunk, K5a 1,
@@ -80,7 +82,7 @@ phases:
     den-only ``pdfposteriors`` (the same LM with its backoff states on the
     diagonal of the trigram rows), and the separate/embedded ratio
     (printed; ``bench.py`` holds the JAX package's under 1.2); the
-    den-only profile and the K4 split of phase 9 on this graph;
+    den-only profile and the frame splits of phase 9 on this graph;
 
 then ``precision='bf16'`` (``BASELINE.json`` config 4, the mixed-precision
 scan): the tier of K2-K4 and the product of K6a/K6b on bf16 operands on
@@ -93,7 +95,7 @@ the tensor cores, float32 everywhere else:
     overflow branch), with the bf16 launch counters: one frame at a time
     from the same state, where both round the same values (1e-4), then
     over whole sweeps at B=128, N=128, where each rounds its own float32
-    state (TOL_KERNEL_BF16; K4 twice, bit-equal, on both graphs);
+    state (TOL_KERNEL_BF16; K2-K4 twice, bit-equal, on both graphs);
 24. the bf16 K6a and K6b likewise, the sweeps at B=128, N=128 and N=700;
 25. ``pdfposteriors`` at B=2, N=700 (lengths N and 2N/3, ``bench.py``'s
     shape) against the f64 oracle, run once per graph for its 'high' and
@@ -111,7 +113,7 @@ the tensor cores, float32 everywhere else:
     bf16 < f32 of the JAX package; here a slow kernel stays and is
     written down), a ``torch.profiler`` breakdown of the bf16 den-only
     runs (on the block graphs with phase 9's launch checks); then each bf16
-    kernel and its twin timed and held to it at N=700, the K4 split on both
+    kernel and its twin timed and held to it at N=700, the frame splits on both
     bf16 block graphs, and the bf16 ``torch.mm`` yardstick of K6;
 30. Viterbi of the bf16 2M-arc graph: K7's ids, ω argmaxes and scores
     bit-equal to the 'high' graph's at B=128, N=128 (K7 takes float32
@@ -402,8 +404,9 @@ def make_inputs(rng, B, N, P, cliffs=False):
 def phase_kernels(cf, P, dev, B=128, N=128, chunk=64, label="phase 4",
                   twice=False, tol=TOL_KERNEL):
     """Phase 4 (19, 23): K2, K3 and K4 against their plain twins on one
-    input; with ``twice``, every K4 call runs again and must give bit-equal
-    results."""
+    input; with ``twice``, every K2, K3 and K4 call runs again and must
+    give bit-equal results (which CTA of a persistent grid runs an item
+    changes from run to run)."""
     import torch
 
     from markovmodels_tpu_torch.ops import block_scan as bs
@@ -425,8 +428,16 @@ def phase_kernels(cf, P, dev, B=128, N=128, chunk=64, label="phase 4",
     ext, msh = pad_emissions(ext, msh, Npad)
     a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
 
+    def again(fn, out, name):
+        """``fn`` run once more: bit-equal to ``out``."""
+        if twice:
+            assert all(torch.equal(x, y) for x, y in zip(out, fn())), \
+                f"{name} differs run to run"
+        return out
+
     errs = {}
-    fk = bs.fwd_sweep(kop, a0, ext, msh, K)
+    fn = lambda: bs.fwd_sweep(kop, a0, ext, msh, K)
+    fk = again(fn, fn(), "K2")
     torch.cuda.synchronize()
     fp = bs.fwd_sweep_plain(kop, a0, ext, msh, K)
     zk, zp = sweep_logz(kop, fk), sweep_logz(kop, fp)
@@ -437,7 +448,8 @@ def phase_kernels(cf, P, dev, B=128, N=128, chunk=64, label="phase 4",
 
     c = C // 2  # a chunk in the middle of the sequence
     sl = slice(c * K, (c + 1) * K)
-    ak, sk = bs.recompute(kop, fk[0][c], fk[1][c], ext[sl], c * K)
+    fn = lambda: bs.recompute(kop, fk[0][c], fk[1][c], ext[sl], c * K)
+    ak, sk = again(fn, fn(), "K3")
     torch.cuda.synchronize()
     ap, sp = bs.recompute_plain(kop, fk[0][c], fk[1][c], ext[sl], c * K)
     errs["K3"] = float((scaled(ak, sk) - scaled(ap, sp)).abs().max())
@@ -446,14 +458,11 @@ def phase_kernels(cf, P, dev, B=128, N=128, chunk=64, label="phase 4",
     bsc = torch.ones(B, device=dev)
     for cc in reversed(range(C)):  # the backward over every chunk
         slc = slice(cc * K, (cc + 1) * K)
-        al, asc = bs.recompute(kop, fk[0][cc], fk[1][cc], ext[slc], cc * K)
-        pk, bk, bsk = bs.backward(kop, beta, bsc, al, asc, ext[slc], cc * K,
-                                  Npad)
-        if twice:
-            again = bs.backward(kop, beta, bsc, al, asc, ext[slc], cc * K,
-                                Npad)
-            assert all(torch.equal(x, y) for x, y in
-                       zip((pk, bk, bsk), again)), "K4 differs run to run"
+        fn = lambda: bs.recompute(kop, fk[0][cc], fk[1][cc], ext[slc], cc * K)
+        al, asc = again(fn, fn(), "K3")
+        fn = lambda: bs.backward(kop, beta, bsc, al, asc, ext[slc], cc * K,
+                                 Npad)
+        pk, bk, bsk = again(fn, fn(), "K4")
         torch.cuda.synchronize()
         pp, bp, bsp = bs.backward_plain(kop, beta, bsc, al, asc, ext[slc],
                                         cc * K, Npad)
@@ -465,7 +474,8 @@ def phase_kernels(cf, P, dev, B=128, N=128, chunk=64, label="phase 4",
               f"(tol {tol:g})")
         assert np.isfinite(e) and e <= tol, f"{name} disagrees: {e}"
     if twice:
-        print(f"{label}: K4 run twice on each of {C} chunks: bit-equal")
+        print(f"{label}: K2 run twice, K3 and K4 twice on each of {C} "
+              "chunks: bit-equal")
     return errs
 
 
@@ -634,14 +644,15 @@ def time_kernels(cf, P, dev, B=128, N=700, chunk=64, tol=TOL_KERNEL):
     return out, errs
 
 
-def cut_operator(kop, tier=True, bands=True):
-    """A copy of ``kop`` whose backward operator keeps the tier (``tier``)
-    and the band offsets and family terms (``bands``): a timing probe of
-    K4's parts, not the graph's function.  Without the tier, its rows
-    become band rows (tiles of 64 rows that skip the product)."""
+def cut_operator(kop, tier=True, bands=True, direction="bwd"):
+    """A copy of ``kop`` whose ``direction`` operator ('fwd': K2/K3's,
+    'bwd': K4's) keeps the tier (``tier``) and the band offsets and family
+    terms (``bands``): a timing probe of a kernel's parts, not the graph's
+    function.  Without the tier, its rows become band rows (tiles of 64
+    rows that skip the product)."""
     import torch
 
-    kd = kop.bwd
+    kd = getattr(kop, direction)
     dev = kd.band_rows.device
     if not tier:
         rows = np.sort(np.concatenate([kd.band_rows.cpu().numpy(),
@@ -658,16 +669,17 @@ def cut_operator(kop, tier=True, bands=True):
     # a fresh plan cache; a copy of the package from before K4 kept plans
     # (timed by ab_block.py) has none
     extra = {"plans": {}} if "plans" in kop._fields else {}
-    return kop._replace(bwd=kd, **extra)
+    return kop._replace(**{direction: kd}, **extra)
 
 
-def k4_split(cf, P, dev, label, B=128, N=700, chunk=64):
-    """K4 over the last chunk of the N=700 sweep (time_kernels' input) on
-    the whole backward operator and on three cut copies of it: without
-    the tier product, without the bands and family terms, and without
-    either (the frame without work: the epilogue, the statistics and the
-    frame-to-frame dependency).  Prints and returns {part: us per frame},
-    CUDA events, mean of 3 warm runs each."""
+def frame_split(cf, P, dev, label, B=128, N=700, chunk=64):
+    """K2 over the N=700 sweep, and K3 and K4 over its last chunk
+    (time_kernels' input), each on its whole operator and on three cut
+    copies of it: without the tier product, without the bands and family
+    terms, and without either (the frame without work: the epilogue, the
+    statistics and the frame-to-frame dependency).  Prints and returns
+    {kernel: {part: us per frame}}, CUDA events, mean of 3 warm runs
+    each."""
     import torch
 
     from markovmodels_tpu_torch.ops import block_scan as bs
@@ -687,26 +699,41 @@ def k4_split(cf, P, dev, label, B=128, N=700, chunk=64):
     sl = slice(c * chunk, (c + 1) * chunk)
     al, asc = bs.recompute(kop, bounds[c], bscale[c], ext[sl], c * chunk)
     beta, bsc = torch.ones_like(a0), torch.ones(B, device=dev)
+    calls = {
+        "K2": ("fwd", C * chunk, lambda op: bs.fwd_sweep(op, a0, ext, msh,
+                                                         chunk)),
+        "K3": ("fwd", chunk, lambda op: bs.recompute(
+            op, bounds[c], bscale[c], ext[sl], c * chunk)),
+        "K4": ("bwd", chunk, lambda op: bs.backward(
+            op, beta, bsc, al, asc, ext[sl], c * chunk, C * chunk)),
+    }
     out = {}
-    for name, cut in (("whole", kop),
-                      ("no tier", cut_operator(kop, tier=False)),
-                      ("no bands/families", cut_operator(kop, bands=False)),
-                      ("without work", cut_operator(kop, False, False))):
-        out[name] = 1e3 * cuda_ms(lambda: bs.backward(
-            cut, beta, bsc, al, asc, ext[sl], c * chunk, C * chunk),
-            reps=3) / chunk
-    print(f"timing: K4 frame split on the {label}: " + "; ".join(
-        f"{k} {v:.2f} us" for k, v in out.items()) + " per frame (of the "
-        f"last {chunk}-frame chunk, {bs._bwd_grid(kop, dev, B, kop.bwd.W.dtype)}"
-        " CTAs)")
+    for name, (direction, frames, call) in calls.items():
+        out[name] = {}
+        for part, cut in (
+                ("whole", kop),
+                ("no tier", cut_operator(kop, tier=False,
+                                         direction=direction)),
+                ("no bands/families", cut_operator(kop, bands=False,
+                                                   direction=direction)),
+                ("without work", cut_operator(kop, False, False,
+                                              direction))):
+            out[name][part] = 1e3 * cuda_ms(lambda: call(cut),
+                                            reps=3) / frames
+        grid = (bs._bwd_grid if direction == "bwd" else bs._fwd_grid)(
+            kop, dev, B, kop.fwd.W.dtype)
+        print(f"timing: {name} frame split on the {label}: " + "; ".join(
+            f"{k} {v:.2f} us" for k, v in out[name].items())
+            + f" per frame (over {frames} frames, {grid} CTAs)")
     return out
 
 
 def profile_block_den(cf, P, dev, label, B=128, N=700, chunk=64):
     """One block den-only pdfposteriors under torch.profiler: its device
-    time by kernel and idle share, printed; asserts exactly one K4 launch
-    per chunk and no finalize launch beyond the forward frames' (K2's and
-    K3's, one per frame)."""
+    time by kernel and idle share, printed; asserts exactly one K2 and one
+    K3 launch per chunk (the persistent ``fwd_chunk_kernel``), one K4
+    launch per chunk (``bwd_chunk_kernel``), and no per-frame step or
+    finalize launch."""
     import torch
 
     import markovmodels_tpu_torch as mt
@@ -726,10 +753,12 @@ def profile_block_den(cf, P, dev, label, B=128, N=700, chunk=64):
           f"{1 - busy / span:.1%}); " + "; ".join(
               f"{k} {v:.3f} ms ({counts[k]} launches)" for k, v in top))
     C = -(-(N + 1) // chunk)
-    bwd = {k: v for k, v in counts.items() if k.startswith("bwd_chunk_kernel")}
-    fin = {k: v for k, v in counts.items() if "finalize" in k}
-    assert sum(bwd.values()) == C, f"K4 launches {bwd}, expected {C}"
-    assert sum(fin.values()) == 2 * C * chunk, f"finalize launches {fin}"
+    n = lambda prefix: sum(v for k, v in counts.items()
+                           if k.startswith(prefix))
+    assert n("fwd_chunk_kernel") == 1 + C, f"K2/K3 launches {counts}"
+    assert n("bwd_chunk_kernel") == C, f"K4 launches {counts}"
+    assert not any("finalize" in k or "step_kernel" in k for k in counts), \
+        f"a per-frame launch: {counts}"
     return prof
 
 
@@ -1715,7 +1744,7 @@ def main():
     profile_block_den(cf, P, dev, "phase 9")
     times, terrs = time_kernels(cf, P, dev)
     errs.update({k: max(errs[k], v) for k, v in terrs.items()})
-    splits = {"2M-arc": k4_split(cf, P, dev, "2M-arc graph")}
+    splits = {"2M-arc": frame_split(cf, P, dev, "2M-arc graph")}
     times.update(time_banded(num_cf, P, dev))
     bounds = block_bounds(cf, 128, -(-701 // 64) * 64, 64)
     bounds.update(banded_bounds(num_cf, 701))
@@ -1787,7 +1816,8 @@ def main():
     profile_block_den(scf, sP, dev, "phase 21")
     ov_times, terrs = time_kernels(scf, sP, dev)
     ov_errs.update({k: max(ov_errs[k], v) for k, v in terrs.items()})
-    splits["separate-state"] = k4_split(scf, sP, dev, "separate-state graph")
+    splits["separate-state"] = frame_split(scf, sP, dev,
+                                           "separate-state graph")
     ov_bounds = block_bounds(scf, 128, -(-701 // 64) * 64, 64)
 
     # ---- precision='bf16' -------------------------------------------------
@@ -1898,9 +1928,9 @@ def main():
     b_errs.update({k: max(b_errs[k], v) for k, v in terrs.items()})
     sb_times, terrs = time_kernels(scf16, sP, dev, tol=TOL_KERNEL_BF16)
     sb_errs.update({k: max(sb_errs[k], v) for k, v in terrs.items()})
-    splits["2M-arc bf16"] = k4_split(cf16, P, dev, "2M-arc graph (bf16)")
-    splits["separate-state bf16"] = k4_split(scf16, sP, dev,
-                                             "separate-state graph (bf16)")
+    splits["2M-arc bf16"] = frame_split(cf16, P, dev, "2M-arc graph (bf16)")
+    splits["separate-state bf16"] = frame_split(
+        scf16, sP, dev, "separate-state graph (bf16)")
     d_times = time_dense(dcf16, dP, dev)
     t_mm16 = matmul_yardstick_bf16(dcf16, dev)
     t_sp16 = sparse_yardstick(dcf16, dev)
@@ -1984,10 +2014,10 @@ def main():
           f"{t_oden:.2f} ms, embedded den-only {t_emb:.2f} ms; bf16 (f32) "
           f"medians: " + "; ".join(f"{k} {b:.2f} ({a:.2f}) ms"
                                    for k, (a, b) in paths16.items())
-          + f"; K6 bf16 yardstick {t_mm16:.2f} ms; K4 per frame, whole / "
+          + f"; K6 bf16 yardstick {t_mm16:.2f} ms; per frame, whole / "
           f"without work: " + "; ".join(
-              f"{k} {v['whole']:.2f} / {v['without work']:.2f} us"
-              for k, v in splits.items()))
+              f"{k} {name} {v['whole']:.2f} / {v['without work']:.2f} us"
+              for k, sp in splits.items() for name, v in sp.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

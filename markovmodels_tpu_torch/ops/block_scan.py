@@ -6,9 +6,12 @@ Counterpart of ``markovmodels_tpu/ops/pallas_block.py``.  One shared graph
 
 * K2 ``fwd_sweep``: the forward sweep over all frames, keeping one state
   checkpoint per chunk and the pieces of logZ (replaces ``_run_slice``'s
-  forward ``pallas_call``, ``_make_fwd_kernel``);
+  forward ``pallas_call``, ``_make_fwd_kernel``); one persistent
+  cooperative launch per sweep, whose CTAs run the work items
+  :func:`fwd_plan` gives them;
 * K3 ``recompute``: re-runs one chunk's forward frames from its checkpoint
-  and keeps every frame's alpha (replaces ``_make_recompute_kernel``);
+  and keeps every frame's alpha (replaces ``_make_recompute_kernel``); one
+  such launch per chunk;
 * K4 ``backward``: the reverse sweep over one chunk: beta carry,
   gamma = alpha * beta reduced over pdf groups, posteriors normalised per
   frame (replaces ``_make_bwd_kernel``); one persistent cooperative launch
@@ -48,6 +51,7 @@ from .emissions import pad_emissions
 __all__ = [
     "block_scan_reject_reason",
     "kernel_operator",
+    "fwd_plan",
     "bwd_plan",
     "fwd_sweep",
     "recompute",
@@ -73,16 +77,20 @@ _TILE_ROWS = 64  # state rows per CUDA tile (TR in csrc/block_scan.cu)
 _HEAVY_TERMS = 16
 _MAX_BANDS = 8  # band offsets a kernel takes (build_block_operator's cap)
 _BF16_K = 16  # contraction depth of one bf16 tensor-core step (mma k16)
-# K4's persistent grid where there is no card to ask: the uniform layout's 4
-# CTAs per SM (bwd_blocks in csrc/block_scan.cu) on the 132 SMs of an H100
+# K4's persistent grid where there is no card to ask: the uniform layout's
+# 4 CTAs per SM (bwd_blocks in csrc/block_scan.cu) on the 132 SMs of an
+# H100; K2's and K3's: 3 per SM (FWD_BLOCKS)
 _CTAS_PER_SM = 4
+_FWD_CTAS_PER_SM = 3
 _SMS = 132
 # the share of K4's band items among which its tier items are spread in the
 # queue (the rest of the band items come last; 0.3 measured best on three
 # of the four graph and precision pairs, PERF.md §6)
 _TIER_SPAN = 0.3
-# copies of each frame's column max that K4 spreads its atomics over (CM in
-# csrc/block_scan.cu)
+# the same for K2 and K3 (0.1 measured better than 0.3 and 0, PERF.md §6)
+_FWD_TIER_SPAN = 0.1
+# copies of each frame's column max that K2-K4 spread their atomics over (CM
+# in csrc/block_scan.cu)
 _CM_COPIES = 16
 
 
@@ -480,6 +488,11 @@ def _working_set_bytes(cf, B, n_frames, chunk):
                      + 1)
     need += 4 * n_items
     C = -(-(n_frames + 1) // K) if n_frames else 1
+    # K2's over the sweep: the column maxima, the queue positions, the two
+    # sets of per-tile omega partials; its queue
+    n_tf = int(_imeta(kop, kop.fwd)[_N_TILES])
+    need += 4 * (C * K * (_CM_COPIES * B + 1) + 2 * n_tf * B
+                 + 2 * n_tf * -(-B // _TILE_ROWS))
     # a0 + ping-pong pair + last state + two betas, the chunk's alphas,
     # the checkpoints, and emissions + posteriors over all padded frames
     need += (6 + K + C) * Sp * B * f
@@ -496,9 +509,9 @@ def block_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     caller launches with) must be stageable by the tensor-core tier tile.
     Instead of its VMEM budget, the working set (every buffer sized by its
     dtype, see ``_working_set_bytes``) must fit the memory of ``device``
-    when that is a CUDA device, and the persistent K4 kernel must be able
-    to keep its CTAs co-resident there (both checked where a card is
-    present)."""
+    when that is a CUDA device, and the persistent K2-K4 kernels must be
+    able to keep their CTAs co-resident there (both checked where a card
+    is present)."""
     if cf.strategy != "block":
         return f"strategy {cf.strategy!r} != 'block'"
     if cf.batched:
@@ -530,12 +543,12 @@ def block_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
             return reason
     if (device is not None and torch.device(device).type == "cuda"
             and torch.cuda.is_available()):
-        n_ctas = _bwd_grid(kernel_operator(cf), torch.device(device), B,
-                           tier_dtype)
-        if n_ctas <= 0:
-            return ("the persistent K4 kernel cannot keep its CTAs "
-                    "co-resident on this card (cooperative launch "
-                    "unsupported or no CTA fits an SM)")
+        kop = kernel_operator(cf)
+        for name, grid in (("K2/K3", _fwd_grid), ("K4", _bwd_grid)):
+            if grid(kop, torch.device(device), B, tier_dtype) <= 0:
+                return (f"the persistent {name} kernel cannot keep its CTAs "
+                        "co-resident on this card (cooperative launch "
+                        "unsupported or no CTA fits an SM)")
         need = _working_set_bytes(cf, B, n_frames, chunk)
         have = torch.cuda.get_device_properties(torch.device(device)).total_memory
         if need > have:
@@ -596,8 +609,8 @@ class KernelOp(NamedTuple):
     ov_hi: int
     ovp_ptr: torch.Tensor  # (P1 + 1,) int32
     ovp_lane: torch.Tensor  # (ov_hi - ov_lo,) int32, increasing per pdf
-    # K4's host plans (bwd_plan), built once per shape of the backward
-    # direction's tiles and column tiles, and its grid per device
+    # the host plans of K2-K4 (fwd_plan, bwd_plan), built once per shape of
+    # a direction's tiles and column tiles, and their grids per device
     plans: dict
 
 
@@ -681,7 +694,7 @@ def kernel_operator(cf, tier_dtype=None) -> KernelOp:
 
 
 # ---------------------------------------------------------------------------
-# K4's host plan: the queue of work items of the persistent grid
+# the host plans of K2-K4: the queues of work items of the persistent grids
 # ---------------------------------------------------------------------------
 
 class BwdPlan(NamedTuple):
@@ -700,62 +713,127 @@ class BwdPlan(NamedTuple):
     queue: torch.Tensor  # (n_tiles * ncb, 2) int32: item, first row or -1
 
 
-def bwd_plan(kop: KernelOp, B: int) -> BwdPlan:
-    """K4's queue for batch ``B``, built once per shape and cached on
-    ``kop``: the heavy rows first (the longest items), then the tier and
-    band items interleaved, the tier items spread evenly among the first
-    _TIER_SPAN of the band items, so that every SM multiplies and streams
-    at the same time and the queue ends on short band items; each kind in
-    tile, then column tile order."""
-    kd = kop.bwd
-    ncb = -(-B // _TILE_ROWS)
+class FwdPlan(NamedTuple):
+    """The queue of K2's and K3's work items in every frame, in K4's order
+    (see :class:`BwdPlan`) with the tier items spread among the first
+    _FWD_TIER_SPAN of the band items.  Each item's column max and its
+    tile's partial of omega · y are kept apart from the others', so which
+    CTA runs an item shows in no result.  The phony final row's tile
+    (``fin_tile``, in :func:`_row_tiles`'s order, with its first row
+    ``fin_row0`` or -1) has its partial taken again by the next frame's
+    finalize from the final rows."""
+    ncb: int
+    queue: torch.Tensor  # (n_tiles * ncb, 2) int32
+    fin_tile: int
+    fin_row0: int
+
+
+def _first_rows(kd: KernelDir, nh: int, nt: int, n_tiles: int):
+    """The first row of each band tile whose rows are consecutive, -1 for
+    every other tile (the kernels then need no row list for it)."""
+    rows = kd.band_rows.cpu().numpy().astype(np.int64)
+    row0 = np.full(n_tiles, -1, np.int64)
+    for t in range(-(-len(rows) // _TILE_ROWS)):
+        r = rows[t * _TILE_ROWS:(t + 1) * _TILE_ROWS]
+        if (np.diff(r) == 1).all():
+            row0[nh + nt + t] = r[0]
+    return row0
+
+
+def _tile_counts(kd: KernelDir, B: int):
+    """(ncb, heavy tiles, tier tiles, all row tiles) of a direction."""
     nh, nband = kd.heavy_rows.numel(), kd.band_rows.numel()
     nt = kd.W.shape[0] * -(-kd.W.shape[2] // _TILE_ROWS)
-    n_tiles = nh + nt + -(-nband // _TILE_ROWS)
-    key = ("bwd_plan", ncb, nh, nt, n_tiles)
+    return -(-B // _TILE_ROWS), nh, nt, nh + nt + -(-nband // _TILE_ROWS)
+
+
+def _queue(kd: KernelDir, B: int, span: float):
+    """(queue (n_tiles * ncb, 2) int64, first row of each tile or -1) of a
+    direction: the heavy rows first (the longest items), then the tier and
+    band items interleaved, the tier items spread evenly among the first
+    ``span`` of the band items, so that every SM multiplies and streams at
+    the same time and the queue ends on short band items; each kind in
+    tile, then column tile order."""
+    ncb, nh, nt, n_tiles = _tile_counts(kd, B)
+    item = np.arange(n_tiles * ncb)  # tile item // ncb, column % ncb
+    tier = (item >= nh * ncb) & (item < (nh + nt) * ncb)
+    band = item >= (nh + nt) * ncb
+    pos = np.zeros(len(item))  # where each item falls in the queue
+    pos[tier] = span * np.arange(tier.sum()) / max(tier.sum(), 1)
+    pos[band] = np.arange(band.sum()) / max(band.sum(), 1)
+    pos[~(tier | band)] = -1.0  # heavy rows first
+    order = np.lexsort((band, pos))
+    row0 = _first_rows(kd, nh, nt, n_tiles)
+    return np.stack([order, row0[order // ncb]], axis=1), row0
+
+
+def bwd_plan(kop: KernelOp, B: int) -> BwdPlan:
+    """K4's queue for batch ``B`` (:func:`_queue` with _TIER_SPAN), built
+    once per shape and cached on ``kop``."""
+    counts = _tile_counts(kop.bwd, B)
+    key = ("bwd_plan",) + counts
     pl = kop.plans.get(key)
     if pl is None:
-        item = np.arange(n_tiles * ncb)  # tile item // ncb, column % ncb
-        tier = (item >= nh * ncb) & (item < (nh + nt) * ncb)
-        band = item >= (nh + nt) * ncb
-        pos = np.zeros(len(item))  # where each item falls in the queue
-        pos[tier] = _TIER_SPAN * np.arange(tier.sum()) / max(tier.sum(), 1)
-        pos[band] = np.arange(band.sum()) / max(band.sum(), 1)
-        pos[~(tier | band)] = -1.0  # heavy rows first
-        order = np.lexsort((band, pos))
-        rows = kd.band_rows.cpu().numpy().astype(np.int64)
-        row0 = np.full(n_tiles, -1, np.int64)
-        for t in range(-(-len(rows) // _TILE_ROWS)):
-            r = rows[t * _TILE_ROWS:(t + 1) * _TILE_ROWS]
-            if (np.diff(r) == 1).all():
-                row0[nh + nt + t] = r[0]
-        queue = np.stack([order, row0[order // ncb]], axis=1)
-        pl = BwdPlan(ncb=ncb, queue=_i32(queue, kop.row_pdf.device))
+        queue, _ = _queue(kop.bwd, B, _TIER_SPAN)
+        pl = BwdPlan(ncb=counts[0], queue=_i32(queue, kop.row_pdf.device))
         kop.plans[key] = pl
     return pl
 
 
-def _bwd_grid(kop: KernelOp, device, B: int, tier_dtype) -> int:
-    """CTAs of K4's persistent grid: as many as can be co-resident on the
-    CUDA ``device`` for this instantiation (the library asks the occupancy
-    API; cached on ``kop``), or _CTAS_PER_SM per SM of an H100 elsewhere
-    (a plan to inspect, never to launch)."""
+def fwd_plan(kop: KernelOp, B: int) -> FwdPlan:
+    """K2's and K3's queue for batch ``B`` (:func:`_queue` with
+    _FWD_TIER_SPAN) and the phony row's tile, built once per shape and
+    cached on ``kop``."""
+    kd = kop.fwd
+    counts = _tile_counts(kd, B)
+    key = ("fwd_plan",) + counts
+    pl = kop.plans.get(key)
+    if pl is None:
+        queue, row0 = _queue(kd, B, _FWD_TIER_SPAN)
+        tile = _row_tiles(*(t.cpu().numpy() for t in
+                            (kd.dst_rows, kd.band_rows, kd.heavy_rows)),
+                          kop.Sp)
+        fin_tile = int(tile[kop.fin])
+        pl = FwdPlan(ncb=counts[0], queue=_i32(queue, kop.row_pdf.device),
+                     fin_tile=fin_tile, fin_row0=int(row0[fin_tile]))
+        kop.plans[key] = pl
+    return pl
+
+
+def _coop_grid(kop: KernelOp, device, B: int, tier_dtype, bwd: bool) -> int:
+    """CTAs of the persistent grid of K4 (``bwd``) or K2/K3: as many as can
+    be co-resident on the CUDA ``device`` for this instantiation (the
+    library asks the occupancy API; cached on ``kop``), or _CTAS_PER_SM
+    (K4) or _FWD_CTAS_PER_SM per SM of an H100 elsewhere (a plan to
+    inspect, never to launch)."""
     device = torch.device(device)
     if device.type != "cuda":
-        return _CTAS_PER_SM * _SMS
+        return (_CTAS_PER_SM if bwd else _FWD_CTAS_PER_SM) * _SMS
     from . import _build
 
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
-    fam = kop.bwd.fam_dst.numel() > 0 or kop.ov_lo < kop.ov_hi
-    key = ("bwd_grid", idx, B % 4 == 0, fam, tier_dtype == torch.bfloat16)
+    kd = kop.bwd if bwd else kop.fwd
+    fam = kd.fam_dst.numel() > 0 or kop.ov_lo < kop.ov_hi
+    key = ("grid", idx, int(bwd), B % 4 == 0, fam,
+           tier_dtype == torch.bfloat16)
     if key not in kop.plans:
         with torch.cuda.device(idx):
-            n = _build.library().mm_block_bwd_ctas(*(int(v) for v in key[2:]))
+            n = _build.library().mm_block_ctas(*(int(v) for v in key[2:]))
         if n < 0:
-            _raise_on(-n, "mm_block_bwd_ctas")
+            _raise_on(-n, "mm_block_ctas")
         kop.plans[key] = n
     return kop.plans[key]
+
+
+def _bwd_grid(kop: KernelOp, device, B: int, tier_dtype) -> int:
+    """CTAs of K4's persistent grid (:func:`_coop_grid`)."""
+    return _coop_grid(kop, device, B, tier_dtype, True)
+
+
+def _fwd_grid(kop: KernelOp, device, B: int, tier_dtype) -> int:
+    """CTAs of K2's and K3's persistent grid (:func:`_coop_grid`)."""
+    return _coop_grid(kop, device, B, tier_dtype, False)
 
 
 # ---------------------------------------------------------------------------
@@ -785,15 +863,21 @@ def _matvec_plain(kd: KernelDir, x):
     """K1's plain twin: y = band(x) + tier(x) + families(x) over the
     direction's core.  With bf16 panels the tier is the f32 product of the
     panels and the gathered rows, both rounded to bf16 (the kernel's
-    tensor-core product, JAX's DEFAULT-precision dot); the bands and the
-    families stay f32, as in the JAX package's ``apply_ov``."""
+    tensor-core product, JAX's DEFAULT-precision dot), summed in s order
+    one elementwise step at a time: a bf16 rounding of the next state
+    turns a last-bit difference into 2^-8 of a term, so the sum order must
+    not depend on how a library splits a product over threads; the bands
+    and the families stay f32, as in the JAX package's ``apply_ov``."""
     y = torch.zeros_like(x)
     for o, off in enumerate(kd.offsets):
         # band edge src = dst - off; wrapped rows carry zero weight
         y += kd.band_w[o][:, None] * torch.roll(x, off, dims=0)
     Xg = x[kd.src_rows]
     if kd.W.dtype == torch.bfloat16:
-        Y = torch.einsum("ksd,ksb->kdb", kd.W.float(), round_bf16(Xg))
+        W, Xg = kd.W.float(), round_bf16(Xg)
+        Y = x.new_zeros((W.shape[0], W.shape[2], x.shape[1]))
+        for s in range(W.shape[1]):
+            Y.addcmul_(W[:, s, :, None], Xg[:, s, None, :])
     else:
         Y = torch.einsum("ksd,ksb->kdb", kd.W, Xg)
     y.index_add_(0, kd.dst_rows.reshape(-1), Y.reshape(-1, x.shape[1]))
@@ -977,41 +1061,69 @@ def _raise_on(rc: int, entry: str):
         raise RuntimeError(f"{entry} failed: {_build.error_string(rc)}")
 
 
+# zeroed words of the forward's grid barrier (SYNC_GEN + 1 in
+# csrc/block_scan.cu)
+_FWD_SYNC_WORDS = 33
+
+
+def _fwd_launch(kop: KernelOp, dev, B: int, T: int):
+    """What K2's and K3's launch shares: the panel dtype, its checks, the
+    descriptors, the queue, the grid and the per-frame scratch of T frames:
+    the two sets of per-tile omega partials, and (one zeroed int32 block)
+    the grid barrier's words, every frame's column max (float bits,
+    _CM_COPIES copies) and every frame's queue position."""
+    wdt = _tier_check(kop, kop.fwd)
+    _check_op(kop, kop.fwd, dev, wdt)
+    G = _fwd_grid(kop, dev, B, wdt)
+    if G <= 0:
+        raise ValueError("the persistent K2/K3 kernel cannot keep its CTAs "
+                         f"co-resident on {dev}")
+    pl = fwd_plan(kop, B)
+    meta, lay = _imeta(kop, kop.fwd), _ilayout(kop, kop.fwd)
+    part = torch.empty((2, int(meta[_N_TILES]), B), device=dev)
+    n_cm, n_sync = T * _CM_COPIES * B, _FWD_SYNC_WORDS
+    words = torch.zeros(n_sync + n_cm + T, dtype=torch.int32, device=dev)
+    at = lambda n: ctypes.c_void_p(words.data_ptr() + 4 * n)
+    kd = kop.fwd
+    args = (_p(kd.band_w), _p(kd.W), _p(kop.omega), _p(kd.band_rows),
+            ctypes.c_void_p(meta.ctypes.data),
+            ctypes.c_void_p(lay.ctypes.data), _p(pl.queue),
+            pl.queue.shape[0], G, pl.fin_tile, pl.fin_row0)
+    scratch = (_p(part), at(n_sync), at(n_sync + n_cm), _p(words))
+    # the host arrays and buffers live until the launch has been queued
+    return wdt, args, scratch, (meta, lay, part, words)
+
+
 def fwd_sweep(kop: KernelOp, a0, ext, mshift, chunk: int):
     """K2: forward sweep over all Npad frames (Npad a multiple of
-    ``chunk``).  Same outputs as :func:`fwd_sweep_plain`."""
+    ``chunk``), one cooperative launch whose CTAs take the items of
+    :func:`fwd_plan` from a queue in every frame.  Same outputs as
+    :func:`fwd_sweep_plain`."""
     if not _route(a0):
         return fwd_sweep_plain(kop, a0, ext, mshift, chunk)
     from . import _build
 
     Npad, P1, B = ext.shape
     Sp = kop.Sp
+    dev = a0.device
     if Npad % chunk:
         raise ValueError(f"{Npad} frames not a multiple of chunk {chunk}")
-    wdt = _tier_check(kop, kop.fwd)
-    _check_op(kop, kop.fwd, a0.device, wdt)
-    _check("a0", a0, (Sp, B), a0.device)
-    _check("ext", ext, (Npad, kop.P1, B), a0.device)
-    _check("mshift", mshift, (Npad, 1, B), a0.device)
-    meta, lay = _imeta(kop, kop.fwd), _ilayout(kop, kop.fwd)
+    _check("a0", a0, (Sp, B), dev)
+    _check("ext", ext, (Npad, kop.P1, B), dev)
+    _check("mshift", mshift, (Npad, 1, B), dev)
+    wdt, args, scratch, keep = _fwd_launch(kop, dev, B, Npad)
     C = Npad // chunk
-    new = lambda *shape: torch.empty(shape, device=a0.device,
-                                     dtype=torch.float32)
+    new = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
     work, a_last = new(2, Sp, B), new(Sp, B)
-    bounds, bscale = new(C, Sp, B), new(C, B)
-    scale = torch.ones(B, device=a0.device)
-    ksum, shift, comp = (torch.zeros(B, device=a0.device) for _ in range(3))
-    part = new(2, int(meta[_N_TILES]), B)
-    kd = kop.fwd
-    with torch.cuda.device(a0.device):  # the library launches on it
+    bounds, bscale, scale = new(C, Sp, B), new(C, B), new(B)
+    ones = torch.ones(B, device=dev)
+    ksum, shift, comp = (torch.zeros(B, device=dev) for _ in range(3))
+    with torch.cuda.device(dev):  # the library launches on it
         rc = _build.library().mm_block_fwd(
-            _p(a0), _p(ext), _p(mshift), _p(kd.band_w), _p(kd.W),
-            _p(kop.omega), _p(kd.band_rows), ctypes.c_void_p(meta.ctypes.data),
-            ctypes.c_void_p(lay.ctypes.data), B, Npad, chunk,
+            _p(a0), _p(ones), _p(ext), _p(mshift), *args, B, Npad, chunk,
             int(wdt == torch.bfloat16), _p(work), _p(a_last), _p(bounds),
-            _p(bscale),
-            _p(scale), _p(ksum), _p(shift), _p(comp), _p(part),
-            _stream(a0.device),
+            _p(bscale), _p(scale), _p(ksum), _p(shift), _p(comp), *scratch,
+            _stream(dev),
         )
     _raise_on(rc, "mm_block_fwd")
     _counts(wdt)["block_fwd"] += 1
@@ -1019,31 +1131,26 @@ def fwd_sweep(kop: KernelOp, a0, ext, mshift, chunk: int):
 
 
 def recompute(kop: KernelOp, bound, bscale, ext_c, t0: int):
-    """K3: one chunk's forward frames from its checkpoint.  Same outputs
-    as :func:`recompute_plain`."""
+    """K3: one chunk's forward frames from its checkpoint, one cooperative
+    launch.  Same outputs as :func:`recompute_plain`."""
     if not _route(bound):
         return recompute_plain(kop, bound, bscale, ext_c, t0)
     from . import _build
 
     K, P1, B = ext_c.shape
     Sp = kop.Sp
-    wdt = _tier_check(kop, kop.fwd)
-    _check_op(kop, kop.fwd, bound.device, wdt)
-    _check("bound", bound, (Sp, B), bound.device)
-    _check("bscale", bscale, (B,), bound.device)
-    _check("ext", ext_c, (K, kop.P1, B), bound.device)
-    meta, lay = _imeta(kop, kop.fwd), _ilayout(kop, kop.fwd)
-    alphas = torch.empty((K, Sp, B), device=bound.device)
-    ascale = torch.empty((K, B), device=bound.device)
-    part = torch.empty((2, int(meta[_N_TILES]), B), device=bound.device)
-    kd = kop.fwd
-    with torch.cuda.device(bound.device):
+    dev = bound.device
+    _check("bound", bound, (Sp, B), dev)
+    _check("bscale", bscale, (B,), dev)
+    _check("ext", ext_c, (K, kop.P1, B), dev)
+    wdt, args, scratch, keep = _fwd_launch(kop, dev, B, K)
+    alphas = torch.empty((K, Sp, B), device=dev)
+    ascale = torch.empty((K, B), device=dev)
+    with torch.cuda.device(dev):
         rc = _build.library().mm_block_recompute(
-            _p(bound), _p(bscale), _p(ext_c), _p(kd.band_w), _p(kd.W),
-            _p(kop.omega), _p(kd.band_rows), ctypes.c_void_p(meta.ctypes.data),
-            ctypes.c_void_p(lay.ctypes.data), B, t0, K,
-            int(wdt == torch.bfloat16), _p(alphas),
-            _p(ascale), _p(part), _stream(bound.device),
+            _p(bound), _p(bscale), _p(ext_c), *args, B, t0, K,
+            int(wdt == torch.bfloat16), _p(alphas), _p(ascale), *scratch,
+            _stream(dev),
         )
     _raise_on(rc, "mm_block_recompute")
     _counts(wdt)["block_recompute"] += 1

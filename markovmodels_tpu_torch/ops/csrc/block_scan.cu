@@ -21,24 +21,47 @@
 // Each frame reads the whole previous state, so a frame is a grid-wide
 // dependency.
 //
-// K2 and K3 run two launches per frame from a host loop inside this
-// library:
-//   step_kernel     one block per (64-row tile, 64-column tile): a tier tile
-//                   computes its 64 destination rows as a 64x64x128 product
-//                   in shared memory (FMA on the CUDA cores: full float32,
-//                   like HIGHEST on the TPU), adds the band terms, applies
-//                   the emission and writes the state; the remaining rows
-//                   (band-only rows, listed once per graph) take the same
-//                   epilogue without the product.  Every block writes its
-//                   per-column partial max and omega dot to a partials
-//                   buffer: no atomics;
-//   finalize_kernel reduces the partials in a fixed order (deterministic),
-//                   sets the phony state, and derives the next power-of-two
-//                   scale from the exponent bits of the column max.
+// K2 runs one persistent cooperative launch per sweep and K3 one per
+// 64-frame chunk (fwd_chunk_kernel; every CTA co-resident: 3 per SM), the
+// frame loop inside, one grid barrier per frame.  A per-frame step and
+// finalize launch from a host loop left ~30 us of a 53 us frame to a frame
+// without work (the epilogue-only step, the finalize launch, the gaps
+// between launches).  Instead:
+//   * a frame's work items (row tile x 64-column tile: heavy rows, tier
+//     tiles, band tiles) come from a queue that the host plan orders
+//     (ops/block_scan.py fwd_plan: K4's order, the tier items among the
+//     first tenth of the band items); a CTA takes the next item from an
+//     atomic position as it finishes the last.  A tier tile computes its
+//     64 destination rows as a 64x64x128 product in shared memory (FMA on
+//     the CUDA cores: full float32, like HIGHEST on the TPU), adds the band
+//     terms, applies the emission and writes the state; a band tile (the
+//     rows the tier does not write) takes the same epilogue without the
+//     product.  The tier is computed by destination (pull): each row is
+//     produced by exactly one item, so it needs no atomics;
+//   * the per-frame finalize has no launch of its own.  The column max
+//     behind the next frame's scale is taken by atomicMax on the float bits
+//     into CM copies, as K4's.  The phony row y[fin] = (omega . prev) * s *
+//     e_fin is the one value of a frame that needs a grid-wide sum of the
+//     frame before: every item writes its tile's partial of omega . y from
+//     the rows it has just computed (the partial the next frame's step
+//     would have taken from them), and in the next frame CTAs c < B / 2
+//     reduce those partials in the finalize's fixed order (two columns
+//     each), derive the scale, advance K2's ksum and emission shift, and
+//     write y[fin] and its column max before that frame's barrier: the
+//     frame's items never read y[fin];
+//   * what bounds the frame is memory latency: an item's chain of loads.
+//     The epilogue loads a pair of rows' band terms before it sums any, one
+//     round trip per pair of rows, not one per term; the float32 tier's
+//     stages move by cp.async through a ring of two in shared memory; the
+//     state a frame reads is marked first to leave L2 and the state it
+//     writes last, so that the next frame finds it there;
+//   * the results are the per-frame launches' bit for bit: the same sums in
+//     the same order (the tile arithmetic, the per-tile partials, the
+//     finalize's reduction), max and the power-of-two scale exact;
+//   * everything another CTA of the launch wrote is read past L1
+//     (ld.global.cg), and K2 writes each chunk's checkpoint from its items.
 // The scale is applied when the next frame reads the state (exact: powers
 // of two), so the rescale costs no pass of its own; every frame is rescaled.
-// The tier is computed by destination (pull): each destination row is
-// produced by exactly one (k, d), so the tier needs no atomics either.
 //
 // K4 runs one persistent cooperative launch per 64-frame chunk
 // (bwd_chunk_kernel; every CTA co-resident, as many as the occupancy API
@@ -48,10 +71,10 @@
 // (alphas, betas written and read back by the bands, the tier's panels and
 // gathered rows), and with every CTA's loads in flight a memory round trip
 // takes several us, so a work item's chain of loads sets its duration.  A
-// step and a finalize launch per frame from a host loop (the forward's
-// form) would add 128 launches per chunk, their gaps, and a finalize that
-// re-reduces ~770 per-tile partials per column and normalises every pdf on
-// the frame's critical path.  Instead:
+// step and a finalize launch per frame from a host loop would add 128
+// launches per chunk, their gaps, and a finalize that re-reduces ~770
+// per-tile partials per column and normalises every pdf on the frame's
+// critical path.  Instead:
 //   * the work items of a frame (row tile x 64-column tile: heavy rows,
 //     tier tiles, band tiles) come from a queue that the host plan orders
 //     (ops/block_scan.py bwd_plan: heavy rows first, tier tiles spread
@@ -121,9 +144,9 @@
 // rescale, gamma, posteriors, the normalisation) is the float32 code of the
 // other instantiations, which the branch leaves as they were.
 //
-// The forward step is latency-bound too, measured on an H100 SXM (700 W):
-// the tier tiles alone reach ~20 % of the float32 FMA peak, so occupancy
-// decides: registers are capped to keep MIN_BLOCKS blocks of 256 threads
+// The items are latency-bound too, measured on an H100 SXM (700 W): the
+// tier tiles alone reach ~20 % of the float32 FMA peak, so occupancy
+// decides: registers are capped to keep 3 or 4 CTAs of 256 threads
 // resident per SM, the tier stages through shared memory with per-thread
 // strided pointers, and state rows move as float4 when B % 4 == 0.
 //
@@ -145,19 +168,20 @@ namespace {
 
 constexpr int TB = 64;   // batch columns per tile
 constexpr int TS = 32;   // tier contraction depth per shared-memory stage
-constexpr int NT = 256;  // threads per step block: 16 x 16, 4x4 outputs each
-constexpr int FC = 8;    // finalize: columns per block
-constexpr int FR = 128;  // finalize: threads splitting the partials per column
+constexpr int NT = 256;  // threads per CTA: 16 x 16, 4x4 outputs each
+constexpr int FR = 128;  // the forward's omega reduction: threads per column
 constexpr int PER = TS * TR / NT;  // tier values each thread stages per stage
-constexpr int MIN_BLOCKS = 4;  // step blocks resident per SM (caps registers)
-// K4: copies of each frame's column max of beta; CTA c takes it into copy
-// c % CM, so that no few cache lines take every item's atomics
+// copies of each frame's column max; CTA c takes it into copy c % CM, so
+// that no few cache lines take every item's atomics
 constexpr int CM = 16;
-// K4 CTAs resident per SM: the capped layout's family code needs more
-// registers than 4 blocks of 256 threads leave (it spilled 1.1 KB per
-// thread in bf16)
+// K4's CTAs resident per SM (caps registers): the capped layout's family
+// code needs more registers than 4 CTAs of 256 threads leave (it spilled
+// 1.1 KB per thread in bf16)
 template <bool FAM>
 constexpr int bwd_blocks() { return FAM ? 3 : 4; }
+// K2/K3's: 3 for every layout, so that a pair of rows' band terms fit in
+// registers (at 4 the forward spilled and ran slower)
+constexpr int FWD_BLOCKS = 3;
 constexpr int KS = 16;   // bf16 tier: contraction depth of one mma step
 constexpr int BST = TS + 8;  // bf16 tier: padded stage row (80 bytes)
 
@@ -188,27 +212,72 @@ Layout parse_layout(const long long* a) {
   return l;
 }
 
+// The capped layout (the overflow family branch) of a descriptor.
+bool is_fam(const Meta& m) { return m.nfam > 0 || m.ov_lo < m.ov_hi; }
+
+// One staged (TS-deep) step of the tier product: acc[i][c] += Ws[s][ty*4 +
+// i] * Xs[s][tx*4 + c] for s in order, by fused multiply-adds.
+__device__ __forceinline__ void tier_stage(float (&Ws)[TS][TR],
+                                           float (&Xs)[TS][TB],
+                                           float (&acc)[4][4]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll 8
+  for (int ss = 0; ss < TS; ++ss) {
+    const float4 w = *reinterpret_cast<const float4*>(&Ws[ss][ty * 4]);
+    const float4 x = *reinterpret_cast<const float4*>(&Xs[ss][tx * 4]);
+    const float wv[4] = {w.x, w.y, w.z, w.w};
+    const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(wv[i], xv[c], acc[i][c]);
+  }
+}
+
+// Four consecutive columns of a state row that another CTA of the launch
+// wrote, read past L1 under an L2 policy (VEC), or as load4 does.
+template <bool VEC>
+__device__ __forceinline__ float4 load4_hint(const float* __restrict__ row,
+                                             int b, int B,
+                                             unsigned long long policy) {
+  if constexpr (VEC)
+    return b < B ? ldcg4_hint(row + b, policy)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  else
+    return load4<VEC, true>(row, b, B);
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store4_hint(float* __restrict__ row, int b,
+                                            int B, float4 v,
+                                            unsigned long long policy) {
+  if constexpr (VEC) {
+    if (b < B) st4_hint(row + b, v, policy);
+  } else {
+    store4<VEC>(row, b, B, v);
+  }
+}
+
 // K1, tier part: acc[i][c] += sum_s W[k, s, d] * prev[src(k, s), b] for the
 // 4x4 outputs of this thread (d = dbase + ty*4 + i, b = b0 + tx*4 + c), in s
 // order.  Staging: thread tid copies column tid % 64 of rows tid / 64 + 4u of
-// each (TS x 64) stage of W[k] and of the gathered state rows.  BWD (K4):
-// the state is read past L1 (another CTA of the launch wrote it) and the
+// each (TS x 64) stage of W[k] and of the gathered state rows; the state
+// is read past L1 (another CTA of the persistent launch wrote it), and the
 // next stage's values wait in registers while this one is multiplied.
-template <bool BWD>
 __device__ __forceinline__ void tier_tile(
     const Meta& m, int B, const float* __restrict__ prev,
     const float* __restrict__ W, long long k, long long dbase, int b0,
     float (&Ws)[TS][TR], float (&Xs)[TS][TB], float (&acc)[4][4]) {
   static_assert(TR == TB && NT % TR == 0 && TS % (NT / TR) == 0, "tiles");
   constexpr int RS = NT / TR;  // staged rows per pass
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x;
   const int col = tid % TR, row0 = tid / TR;
   const bool dok = dbase + col < m.D, bok = b0 + col < B;
   const float* pw = W + (k * m.Sm + row0) * m.D + dbase + col;
   const float* px = prev + (m.g0 + k * m.gk + row0 * m.gs) * B + b0 + col;
   const long long wstep = RS * m.D, xstep = RS * m.gs * B;
   float wn[PER], xn[PER];
-  auto fetch = [&](long long s0) {  // BWD: the stage into registers
+  auto fetch = [&](long long s0) {  // the stage into registers
 #pragma unroll
     for (int u = 0; u < PER; ++u) {
       const bool sok = s0 + row0 + u * RS < m.Sm;
@@ -218,39 +287,65 @@ __device__ __forceinline__ void tier_tile(
     pw += TS * m.D;
     px += TS * m.gs * B;
   };
-  if constexpr (BWD) fetch(0);
+  fetch(0);
   for (long long s0 = 0; s0 < m.Sm; s0 += TS) {
-    if constexpr (BWD) {
 #pragma unroll
-      for (int u = 0; u < PER; ++u) {
-        Ws[row0 + u * RS][col] = wn[u];
-        Xs[row0 + u * RS][col] = xn[u];
-      }
-    } else {  // each value stored as it arrives
-#pragma unroll
-      for (int u = 0; u < PER; ++u) {
-        const bool sok = s0 + row0 + u * RS < m.Sm;
-        Ws[row0 + u * RS][col] = (sok && dok) ? pw[u * wstep] : 0.f;
-        Xs[row0 + u * RS][col] = (sok && bok) ? px[u * xstep] : 0.f;
-      }
-      pw += TS * m.D;
-      px += TS * m.gs * B;
+    for (int u = 0; u < PER; ++u) {
+      Ws[row0 + u * RS][col] = wn[u];
+      Xs[row0 + u * RS][col] = xn[u];
     }
     __syncthreads();
-    if constexpr (BWD) {
-      if (s0 + TS < m.Sm) fetch(s0 + TS);
-    }
-#pragma unroll 8
-    for (int ss = 0; ss < TS; ++ss) {
-      const float4 w = *reinterpret_cast<const float4*>(&Ws[ss][ty * 4]);
-      const float4 x = *reinterpret_cast<const float4*>(&Xs[ss][tx * 4]);
-      const float wv[4] = {w.x, w.y, w.z, w.w};
-      const float xv[4] = {x.x, x.y, x.z, x.w};
+    if (s0 + TS < m.Sm) fetch(s0 + TS);
+    tier_stage(Ws, Xs, acc);
+    __syncthreads();
+  }
+}
+
+// The forward's tier part, float32, where B % 4 == 0 and D % 4 == 0: the
+// sums of tier_tile in the same order, the stages copied as 16-byte
+// cp.async (thread tid copies columns 4 (tid % 16) .. +3 of rows tid / 16
+// + 16u) into a ring of two in shared memory, the next one in flight while
+// one is multiplied (no registers held for it: with a stage in registers
+// the forward spilled); the panels under L2 evict_last (every frame reads
+// them again), the gathered state rows under `once` (the caller's policy
+// for the frame's state reads).
+__device__ __forceinline__ void fwd_tier_tile4(
+    const Meta& m, int B, const float* __restrict__ prev,
+    const float* __restrict__ W, long long k, long long dbase, int b0,
+    float (&Ws)[TS][TR], float (&Xs)[TS][TB], float (&Ws2)[TS][TR],
+    float (&Xs2)[TS][TB], float (&acc)[4][4], unsigned long long once) {
+  constexpr int RV = NT / (TR / 4);  // rows staged per pass
+  static_assert(TS == 2 * RV && TR == TB, "two float4 passes per stage");
+  const unsigned long long keep = evict_last_policy();
+  const int tid = threadIdx.x, c4 = (tid % 16) * 4, r = tid / 16;
+  const bool dok = dbase + c4 < m.D, bok = b0 + c4 < B;
+  const float* pw = W + (k * m.Sm + r) * m.D + dbase + c4;
+  const float* px = prev + (m.g0 + k * m.gk + r * m.gs) * B + b0 + c4;
+  const long long wstep = RV * m.D, xstep = RV * m.gs * B;
+  auto issue = [&](long long s0, float (&Wd)[TS][TR], float (&Xd)[TS][TB]) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(wv[i], xv[c], acc[i][c]);
+    for (int u = 0; u < 2; ++u) {
+      const bool sok = s0 + r + u * RV < m.Sm;
+      cp_async16_hint(&Wd[r + u * RV][c4], sok && dok ? pw + u * wstep : pw,
+                      sok && dok, keep);
+      cp_async16_hint(&Xd[r + u * RV][c4], sok && bok ? px + u * xstep : px,
+                      sok && bok, once);
     }
+    cp_async_commit();
+    pw += TS * m.D;
+    px += TS * m.gs * B;
+  };
+  issue(0, Ws, Xs);
+  int buf = 0;
+  for (long long s0 = 0; s0 < m.Sm; s0 += TS, buf ^= 1) {
+    if (s0 + TS < m.Sm) {
+      if (buf) issue(s0 + TS, Ws, Xs); else issue(s0 + TS, Ws2, Xs2);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (buf) tier_stage(Ws2, Xs2, acc); else tier_stage(Ws, Xs, acc);
     __syncthreads();
   }
 }
@@ -283,13 +378,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 // staging copies whole pairs (s, s+1) and the product whole steps: Sm % 16
 // == 0 (block_scan._bf16_tile_reason).  The accumulators leave the mma in
 // its fragment layout and pass through C to this thread's 4x4 outputs
-// (acc = the tile's product).  BWD as in tier_tile.
-template <bool BWD>
+// (acc = the tile's product).  PRE (K4): the next stage's values wait in
+// registers while this one is multiplied (the bf16 forward measured slower
+// with it); else each pair is stored as it arrives, the state read under
+// the L2 policy `once`.
+template <bool PRE>
 __device__ __forceinline__ void tier_tile_bf16(
     const Meta& m, int B, const float* __restrict__ prev,
     const __nv_bfloat16* __restrict__ W, long long k, long long dbase,
     int b0, float (&Ws)[TS][TR], float (&Xs)[TS][TB],
-    float (&C)[TR][TB + 1], float (&acc)[4][4]) {
+    float (&C)[TR][TB + 1], float (&acc)[4][4],
+    unsigned long long once = 0) {
   static_assert(TR * BST * 2 <= TS * TR * 4 && TR == TB && NT == 256 &&
                     TS % KS == 0, "bf16 tiles");
   constexpr int PR = NT / TR;      // pair rows staged per pass
@@ -305,8 +404,7 @@ __device__ __forceinline__ void tier_tile_bf16(
   const __nv_bfloat16* pw = W + (k * m.Sm) * m.D + dbase + col;
   const float* px = prev + (m.g0 + k * m.gk) * B + b0 + col;
   float d[4][4] = {};  // [n8 tile][fragment]
-  // the pair (s, s+1) of a stage as the product reads it; BWD: the state
-  // past L1
+  // the pair (s, s+1) of a stage as the product reads it, the state past L1
   auto pair = [&](long long s0, int s, __nv_bfloat162& w2,
                   __nv_bfloat162& x2) {
     const bool sok = s0 + s < m.Sm;  // both of the pair (Sm even)
@@ -318,12 +416,15 @@ __device__ __forceinline__ void tier_tile_bf16(
     }
     if (sok && bok) {
       const float* x = px + (s0 + s) * m.gs * B;
-      x2 = BWD ? __floats2bfloat162_rn(__ldcg(x), __ldcg(x + m.gs * B))
-               : __floats2bfloat162_rn(x[0], x[m.gs * B]);
+      if constexpr (PRE)
+        x2 = __floats2bfloat162_rn(__ldcg(x), __ldcg(x + m.gs * B));
+      else
+        x2 = __floats2bfloat162_rn(ldcg_hint(x, once),
+                                   ldcg_hint(x + m.gs * B, once));
     }
   };
-  __nv_bfloat162 wn[PU], xn[PU];  // BWD: the next stage
-  if constexpr (BWD) {
+  __nv_bfloat162 wn[PU], xn[PU];  // PRE: the next stage
+  if constexpr (PRE) {
 #pragma unroll
     for (int u = 0; u < PU; ++u) pair(0, 2 * (pr + u * PR), wn[u], xn[u]);
   }
@@ -331,12 +432,12 @@ __device__ __forceinline__ void tier_tile_bf16(
 #pragma unroll
     for (int u = 0; u < PU; ++u) {
       const int s = 2 * (pr + u * PR);
-      if constexpr (!BWD) pair(s0, s, wn[u], xn[u]);
+      if constexpr (!PRE) pair(s0, s, wn[u], xn[u]);
       *reinterpret_cast<__nv_bfloat162*>(&Wb[col][s]) = wn[u];
       *reinterpret_cast<__nv_bfloat162*>(&Xb[col][s]) = xn[u];
     }
     __syncthreads();
-    if constexpr (BWD) {
+    if constexpr (PRE) {
       if (s0 + TS < m.Sm) {
 #pragma unroll
         for (int u = 0; u < PU; ++u)
@@ -376,14 +477,16 @@ __device__ __forceinline__ void tier_tile_bf16(
 
 // K1, family part of a heavy row j (a tile of its own): thread row ty takes
 // every 16th of the row's terms for this thread's 4 columns; the partial
-// sums land in P[ty][col], which the row's epilogue adds in ty order.
-// BWD (K4): the state read past L1, the loop unrolled so that the terms'
-// loads overlap (the same sums in the same order).
+// sums land in P[ty][col], which the row's epilogue adds in ty order.  The
+// loop is unrolled so that the terms' loads overlap (the same sums in the
+// same order); the state is read past L1, the forward's (not BWD) under
+// the L2 policy `once`.
 template <bool VEC, bool BWD>
 __device__ __forceinline__ void heavy_terms(const Layout& lay, int B,
                                             const float* __restrict__ prev,
                                             int j, int b0,
-                                            float (&P)[TS][TB]) {
+                                            float (&P)[TS][TB],
+                                            unsigned long long once = 0) {
   static_assert(NT / 16 <= TS, "partials");
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int bcol = b0 + tx * 4;
@@ -391,262 +494,516 @@ __device__ __forceinline__ void heavy_terms(const Layout& lay, int B,
   const int q1 = lay.fam_ptr[j + 1];
   auto term = [&](int q) {
     const float w = lay.fam_w[q];
-    const float4 x = load4<VEC, BWD>(
-        prev + static_cast<size_t>(lay.fam_src[q]) * B, bcol, B);
+    const float* row = prev + static_cast<size_t>(lay.fam_src[q]) * B;
+    const float4 x = BWD ? load4<VEC, true>(row, bcol, B)
+                         : load4_hint<VEC>(row, bcol, B, once);
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[c] = fmaf(w, get(x, c), s[c]);
   };
-  if constexpr (BWD) {
 #pragma unroll 4
-    for (int q = lay.fam_ptr[j] + ty; q < q1; q += NT / 16) term(q);
-  } else {
-    for (int q = lay.fam_ptr[j] + ty; q < q1; q += NT / 16) term(q);
-  }
+  for (int q = lay.fam_ptr[j] + ty; q < q1; q += NT / 16) term(q);
 #pragma unroll
   for (int c = 0; c < 4; ++c) P[ty][tx * 4 + c] = s[c];
 }
 
-// One frame of the forward sweep (K2, K3) over one (row tile, column tile):
-// a heavy row's tile (FAM only: blocks 0 .. nheavy-1), a tier tile (64
-// destinations of one tier block) or a band tile (64 rows of band_rows):
-// y = (M prev)*s (or prev on frame 0), y *= e; partial[0] = column max of
-// y, partial[1] = omega . prev (unscaled).
-// M prev = tier + bands + the row's family terms (FAM: the capped layout);
-// BF16: the tier on the tensor cores (tier_tile_bf16).
-template <bool VEC, bool FAM, bool BF16>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS) step_kernel(
-    Meta m, Layout lay, int B, const float* __restrict__ prev,
-    const float* __restrict__ scale, const float* __restrict__ ext_t,
-    const float* __restrict__ band_w, const TierT<BF16>* __restrict__ W,
-    const float* __restrict__ omega, const int* __restrict__ band_rows,
-    int skip_matvec, float* __restrict__ out, float* __restrict__ part) {
-  __shared__ __align__(16) float Ws[TS][TR];
-  __shared__ __align__(16) float Xs[TS][TB];
-  __shared__ float red[2][16][TB];
-  // BF16: the tier product's outputs
-  __shared__ float G[BF16 ? TR : 1][TB + 1];
-  __shared__ int rows_s[TR];  // state row of each tile row, -1 if none
-  __shared__ int pdf_s[TR];   // its pdf (the emission's row of ext)
+// The state row of row r of tile `tile` in the kernels' tile order (a
+// heavy row's tile, then the tier tiles, then the 64-row band tiles), or -1.
+// row0: the first row of a band tile of consecutive rows, else -1.
+template <bool FAM>
+__device__ __forceinline__ long long tile_row(const Meta& m, const Layout& lay,
+                                              const int* band_rows,
+                                              long long tile, int r,
+                                              int row0) {
+  if (FAM && tile < m.nheavy) return r == 0 ? lay.heavy_rows[tile] : -1;
+  const long long tt = tile - (FAM ? m.nheavy : 0);
+  if (tt < m.n_tier_tiles) {
+    const long long dtiles = (m.D + TR - 1) / TR;
+    const long long k = tt / dtiles, d = (tt % dtiles) * TR + r;
+    return d < m.D ? m.d0 + k * m.dk + d * m.dd : -1;
+  }
+  const long long q = (tt - m.n_tier_tiles) * TR + r;
+  return q < m.nband ? (row0 >= 0 ? row0 + r : band_rows[q]) : -1;
+}
 
-  const long long blk = blockIdx.x;  // this block's partials
-  const long long heavy = blk;  // the heavy row, if is_heavy
-  const bool is_heavy = FAM && heavy < m.nheavy;
-  const long long tile = blk - (FAM ? m.nheavy : 0);  // tier or band tile
-  const int b0 = blockIdx.y * TB;
+// The exponent k of column b's scale 2^-k from its max's float bits, the
+// max of the CM copies (each B apart), which another CTA wrote.
+__device__ __forceinline__ float exponent_of(const unsigned* cm, int b, int B) {
+  unsigned mx = 0u;
+#pragma unroll
+  for (int c = 0; c < CM; ++c) mx = max(mx, __ldcg(cm + c * B + b));
+  return pow2_exponent(__uint_as_float(mx));
+}
+
+// The exact power-of-two scale of column b, 0 past the batch.
+__device__ __forceinline__ float scale_of(const unsigned* cm, int b, int B) {
+  return b < B ? pow2_scale(exponent_of(cm, b, B)) : 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// K2 and K3: the forward over a sweep or a chunk, one persistent launch
+// ---------------------------------------------------------------------------
+
+struct FwdArgs {
+  Meta m;
+  Layout lay;
+  int B, T;        // T frames
+  int skip_first;  // frame 0 is the sweep's first: y = prev * e
+  int chunk;       // K2: a checkpoint before every chunk-th frame; K3: 0
+  const float* a0;        // (Sp, B) the state before frame 0, unscaled
+  const float* scale_in;  // (B,) its scale
+  const float* ext;       // (T, P1, B)
+  const float* mshift;    // K2: (T, 1, B) the emission shifts
+  const float* band_w;
+  const void* W;
+  const float* omega;
+  const int* band_rows;
+  const int2* queue;  // (n_items,) as K4's (fwd_plan)
+  int n_items;
+  long long fin_tile;  // the tile that holds the phony final row
+  int fin_row0;        // its queue's first row (-1: its row list)
+  float* out;     // K3: (T, Sp, B) every frame's state; K2: (2, Sp, B)
+  float* last;    // K2: (Sp, B) frame T-1's state; K3: null
+  float* bounds;  // K2: (T / chunk, Sp, B) the checkpoints
+  float* bscale;  // K2: (T / chunk, B) their scales
+  float* scales;  // K3: (T, B) every frame's scale; K2: (B,) the last one
+  float* ksum;    // K2: (B,) sum of the exponents, zero on entry
+  float* shift;   // K2: (B,) the Kahan-compensated emission shift, zero
+  float* comp;    // K2: (B,) its compensation, zero
+  float* part;    // (2, n_tiles, B) per-tile partials of omega . state
+  unsigned* cm;   // (T, CM, B) column max of each frame (float bits), zeroed
+  unsigned* ctr;   // (T,) each frame's queue position, zeroed
+  unsigned* sync;  // (SYNC_GEN + 1,) barrier counter, generation, zeroed
+};
+
+// The forward's grid barrier: the generation on its own line of L2, apart
+// from the counter that every arriving CTA adds to, and the waiters polling
+// at most every 256 ns (a frame is ~30-50 us).
+constexpr int SYNC_GEN = 32;  // the barrier takes SYNC_GEN + 1 words
+__device__ __forceinline__ void fwd_grid_sync(unsigned* sync) {
+  grid_sync<SYNC_GEN, 256>(sync);
+}
+
+// Shared memory of one forward CTA.
+template <bool BF16>
+struct FwdSmem {
+  float Ws[TS][TR];  // the tier stages (a heavy row: its 16 partial sums)
+  float Xs[TS][TB];
+  float Ws2[BF16 ? 1 : TS][TR];  // float32: the second stage of the ring
+  float Xs2[BF16 ? 1 : TS][TB];
+  float red[2][16][TB];
+  float G[BF16 ? TR : 1][TB + 1];  // BF16: the tier product's outputs
+  int rows[TR];  // state row of each tile row, -1 if none
+  int pdf[TR];   // its pdf (the emission's row of ext)
+  float sc[TB];  // the previous frame's scale of the item's columns
+  int2 next[2];  // the queue entries taken for the next items
+  float fr[2][FR];  // the omega reduction of two columns
+  float fp[2][16];  // the phony row's tile: its thread rows' partials
+};
+
+// Where frame j of the launch reads and writes.
+struct FwdFrame {
+  const float* prev;        // the state of frame j-1 (a0 for j = 0)
+  float* out;               // the state of frame j
+  const float* ext_t;
+  const unsigned* cm_prev;  // frame j-1's column max, null: scale_in
+  unsigned* cm_t;
+  const float* part_prev;   // frame j-1's omega partials (prologue: a0's)
+  float* part_t;            // frame j's
+  float* bound;             // K2 before a chunk: the checkpoint, else null
+  bool skip;                // the sweep's first frame: y = prev * e
+};
+
+// One work item of one forward frame (K2, K3) over one (row tile, column
+// tile): a heavy row's tile (FAM only: tiles 0 .. nheavy-1), a tier tile
+// (64 destinations of one tier block) or a band tile (64 rows of
+// band_rows): y = (M prev)*s (or prev on the sweep's first frame), y *= e,
+// its column max into cm_t (atomicMax on the float bits, CTA c into copy c %
+// CM), and the tile's partial of omega . y (each thread's rows by fused
+// multiply-adds, then the 16 thread rows in order) into part_t, the next
+// frame's phony row.  M prev = tier + bands + the row's family terms (FAM:
+// the capped layout); BF16: the tier on the tensor cores (tier_tile_bf16).
+// The phony row itself is left to the frame's finalize (fwd_finalize),
+// except on the sweep's first frame, which has none.  Before a chunk (K2)
+// the tile's rows of prev are copied to the checkpoint.  The arithmetic is
+// that of the per-frame step it replaces, sum for sum.
+template <bool VEC, bool FAM, bool BF16>
+__device__ __forceinline__ void fwd_item(
+    const FwdArgs& p, const FwdFrame& f, long long tile, int b0, int row0,
+    FwdSmem<BF16>& s, const float* __restrict__ prev, float* __restrict__ out,
+    const float* __restrict__ ext_t, const float* __restrict__ omega,
+    const float* __restrict__ band_w) {
+  const Meta& m = p.m;
+  const Layout& lay = p.lay;
+  const int B = p.B;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int bcol = b0 + tx * 4;  // this thread's columns bcol .. bcol+3
-  const bool is_tier = !is_heavy && tile < m.n_tier_tiles;
+  const bool is_heavy = FAM && tile < m.nheavy;
+  const long long tt = tile - (FAM ? m.nheavy : 0);  // tier or band tile
+  const bool is_tier = !is_heavy && tt < m.n_tier_tiles;
   const long long dtiles = (m.D + TR - 1) / TR;
-  const long long k = is_tier ? tile / dtiles : 0;
-  const long long dbase = is_tier ? (tile % dtiles) * TR : 0;
+  const long long k = is_tier ? tt / dtiles : 0;
+  const long long dbase = is_tier ? (tt % dtiles) * TR : 0;
 
   if (tid < TR) {
-    long long j = -1;
-    if (is_heavy) {
-      if (tid == 0) j = lay.heavy_rows[heavy];
-    } else if (is_tier) {
-      const long long d = dbase + tid;
-      if (d < m.D) j = m.d0 + k * m.dk + d * m.dd;
-    } else {
-      const long long r = (tile - m.n_tier_tiles) * TR + tid;
-      if (r < m.nband) j = band_rows[r];
-    }
-    rows_s[tid] = static_cast<int>(j);
-    pdf_s[tid] =
+    const long long j = tile_row<FAM>(m, lay, p.band_rows, tile, tid, row0);
+    s.rows[tid] = static_cast<int>(j);
+    s.pdf[tid] =
         j < 0 ? -1 : (FAM ? lay.row_pdf[j] : static_cast<int>(j / m.cmax));
+  } else if (tid < TR + TB) {
+    const int b = b0 + tid - TR;
+    s.sc[tid - TR] = f.cm_prev == nullptr ? (b < B ? p.scale_in[b] : 0.f)
+                                          : scale_of(f.cm_prev, b, B);
   }
+  // the state read under evict_first, the new state stored under
+  // evict_last: what the next frame reads stays in L2 before what this
+  // frame has read
+  const unsigned long long once = evict_first_policy();
+  const unsigned long long keep = evict_last_policy();
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-  if (is_tier && !skip_matvec) {
+  if (is_tier && !f.skip) {
+    const float* Wf = static_cast<const float*>(p.W);
     if constexpr (BF16)
-      tier_tile_bf16<false>(m, B, prev, W, k, dbase, b0, Ws, Xs, G, acc);
+      tier_tile_bf16<false>(m, B, prev,
+                            static_cast<const __nv_bfloat16*>(p.W), k, dbase,
+                            b0, s.Ws, s.Xs, s.G, acc, once);
+    else if (VEC && m.D % 4 == 0)
+      fwd_tier_tile4(m, B, prev, Wf, k, dbase, b0, s.Ws, s.Xs, s.Ws2, s.Xs2,
+                     acc, once);
     else
-      tier_tile<false>(m, B, prev, W, k, dbase, b0, Ws, Xs, acc);
+      tier_tile(m, B, prev, Wf, k, dbase, b0, s.Ws, s.Xs, acc);
   }
   if constexpr (FAM) {
-    if (is_heavy && !skip_matvec)
-      heavy_terms<VEC, false>(lay, B, prev, lay.heavy_rows[heavy], b0, Xs);
+    if (is_heavy && !f.skip)
+      heavy_terms<VEC, false>(lay, B, prev, lay.heavy_rows[tile], b0, s.Xs,
+                              once);
   }
   __syncthreads();
 
-  const float4 sc = load4<VEC>(scale, bcol, B);
+  const float4 sc = make_float4(s.sc[tx * 4], s.sc[tx * 4 + 1],
+                                s.sc[tx * 4 + 2], s.sc[tx * 4 + 3]);
   float colmax[4] = {0.f, 0.f, 0.f, 0.f}, colsum[4] = {0.f, 0.f, 0.f, 0.f};
+  // rows in pairs: a pair's first PB band terms (weight and state row)
+  // are all loaded before any is used, one memory round trip per pair
+  // instead of one per term (four rows at once spilled); the sums then run
+  // in the per-frame step's order
+  constexpr int PB = 2;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const int j = rows_s[r];
-    if (j < 0) continue;
-    const size_t jB = static_cast<size_t>(j) * B;
-    const float4 e =
-        load4<VEC>(ext_t + static_cast<size_t>(pdf_s[r]) * B, bcol, B);
-    const float om = omega[j];
-    float v[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
-    if (!skip_matvec) {
+  for (int i0 = 0; i0 < 4; i0 += 2) {
+    float4 xb[2][PB];
+    float wb[2][PB];
 #pragma unroll
-      for (int o = 0; o < MAX_BANDS; ++o) {
-        if (o >= m.nO) break;  // uniform across the block
+    for (int h = 0; h < 2; ++h) {
+      const int r = ty * 4 + i0 + h, j = s.rows[r];
+#pragma unroll
+      for (int o = 0; o < PB; ++o) {
         const int src = j - m.off[o];
-        if (src < 0 || src >= m.Sp) continue;  // wrapped: no arc
-        const float w = band_w[static_cast<size_t>(o) * m.Sp + j];
-        const float4 x = load4<VEC>(prev + static_cast<size_t>(src) * B, bcol, B);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) v[c] = fmaf(w, get(x, c), v[c]);
+        const bool ok = !f.skip && j >= 0 && o < m.nO && src >= 0 &&
+                        src < m.Sp;
+        wb[h][o] = ok ? band_w[static_cast<size_t>(o) * m.Sp + j] : 0.f;
+        xb[h][o] = ok ? load4_hint<VEC>(prev + static_cast<size_t>(src) * B,
+                                        bcol, B, once)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
       }
-      if constexpr (FAM) {  // overflow families (K1's apply_ov)
-        if (is_heavy) {  // split over the thread rows
-          for (int g = 0; g < NT / 16; ++g)
+    }
 #pragma unroll
-            for (int c = 0; c < 4; ++c) v[c] += Xs[g][tx * 4 + c];
-        } else {  // pulled by this thread
-          const int e1 = lay.fam_ptr[j + 1];
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + h;
+      const int r = ty * 4 + i;
+      const int j = s.rows[r];
+      if (j < 0) continue;
+      const size_t jB = static_cast<size_t>(j) * B;
+      const float4 e =
+          load4<VEC>(ext_t + static_cast<size_t>(s.pdf[r]) * B, bcol, B);
+      const float om = omega[j];
+      float v[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
+      if (!f.skip) {
+#pragma unroll
+        for (int o = 0; o < MAX_BANDS; ++o) {
+          if (o >= m.nO) break;  // uniform across the block
+          const int src = j - m.off[o];
+          if (src < 0 || src >= m.Sp) continue;  // wrapped: no arc
+          const float w = o < PB ? wb[h][o < PB ? o : 0]
+                                 : band_w[static_cast<size_t>(o) * m.Sp + j];
+          const float4 x =
+              o < PB ? xb[h][o < PB ? o : 0]
+                     : load4_hint<VEC>(prev + static_cast<size_t>(src) * B,
+                                       bcol, B, once);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) v[c] = fmaf(w, get(x, c), v[c]);
+        }
+        if constexpr (FAM) {  // overflow families (K1's apply_ov)
+          if (is_heavy) {  // split over the thread rows
+            for (int g = 0; g < NT / 16; ++g)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) v[c] += s.Xs[g][tx * 4 + c];
+          } else {  // pulled by this thread
+            const int e1 = lay.fam_ptr[j + 1];
 #pragma unroll 4
-          for (int q = lay.fam_ptr[j]; q < e1; ++q) {
-            const float w = lay.fam_w[q];
-            const float4 x = load4<VEC>(
-                prev + static_cast<size_t>(lay.fam_src[q]) * B, bcol, B);
+            for (int q = lay.fam_ptr[j]; q < e1; ++q) {
+              const float w = lay.fam_w[q];
+              const float4 x = load4_hint<VEC>(
+                  prev + static_cast<size_t>(lay.fam_src[q]) * B, bcol, B,
+                  once);
 #pragma unroll
-            for (int c = 0; c < 4; ++c) v[c] = fmaf(w, get(x, c), v[c]);
+              for (int c = 0; c < 4; ++c) v[c] = fmaf(w, get(x, c), v[c]);
+            }
           }
         }
       }
-    }
-    const float4 p = load4<VEC>(prev + jB, bcol, B);
-    float y[4];
+      float4 pv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (f.skip || f.bound != nullptr)
+        pv = load4<VEC, true>(prev + jB, bcol, B);
+      if (f.bound != nullptr) store4<VEC>(f.bound + jB, bcol, B, pv);
+      float y[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      y[c] = (skip_matvec ? get(p, c) : v[c] * get(sc, c)) * get(e, c);
-      colsum[c] = fmaf(om, get(p, c), colsum[c]);
-      colmax[c] = fmaxf(colmax[c], y[c]);
+      for (int c = 0; c < 4; ++c) {
+        y[c] = (f.skip ? get(pv, c) : v[c] * get(sc, c)) * get(e, c);
+        colmax[c] = fmaxf(colmax[c], y[c]);
+        colsum[c] = fmaf(om, y[c], colsum[c]);
+      }
+      if (f.skip || j != m.fin)
+        store4_hint<VEC>(out + jB, bcol, B,
+                         make_float4(y[0], y[1], y[2], y[3]), keep);
     }
-    store4<VEC>(out + jB, bcol, B, make_float4(y[0], y[1], y[2], y[3]));
   }
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    red[0][ty][tx * 4 + c] = colmax[c];
-    red[1][ty][tx * 4 + c] = colsum[c];
+    s.red[0][ty][tx * 4 + c] = colmax[c];
+    s.red[1][ty][tx * 4 + c] = colsum[c];
   }
   __syncthreads();
   if (tid < TB && b0 + tid < B) {
     const int b = b0 + tid;
     float mx = 0.f, sm = 0.f;
     for (int q = 0; q < 16; ++q) {
-      mx = fmaxf(mx, red[0][q][tid]);
-      sm += red[1][q][tid];
+      mx = fmaxf(mx, s.red[0][q][tid]);
+      sm += s.red[1][q][tid];
     }
-    part[blk * B + b] = mx;
-    part[(m.n_tiles + blk) * B + b] = sm;
+    atomicMax(f.cm_t + (blockIdx.x % CM) * B + b, __float_as_uint(mx));
+    f.part_t[tile * B + b] = sm;
   }
+  __syncthreads();  // the tables and stages are free for the next item
 }
 
-// Per-column end of a forward frame: reduce the step's partials (a
-// fixed-order tree, so the result does not vary from run to run), then
-// y[fin] = (omega . prev) * s_prev * e_fin unless frame 0, the new scale
-// 2^-k from the column max, and (K2 only, ksum != nullptr) ksum += k and
-// the Kahan-compensated emission shift.
-__global__ void __launch_bounds__(FC * FR) finalize_kernel(
-    Meta m, Layout lay, int B, const float* __restrict__ part,
-    float* __restrict__ state,
-    const float* __restrict__ ext_t,
-    const float* scale_in,  // may alias scale_out (read before written)
-    float* scale_out, int skip_matvec,
-    const float* __restrict__ mshift_t, float* __restrict__ ksum,
-    float* __restrict__ shift, float* __restrict__ comp) {
-  __shared__ float r0[FR][FC], r1[FR][FC];
-  const int bl = threadIdx.x, ry = threadIdx.y;
-  const int b = blockIdx.x * FC + bl;
-  float mx = 0.f, sm = 0.f;
-  if (b < B) {
-    for (long long t = ry; t < m.n_tiles; t += FR) {
-      mx = fmaxf(mx, part[t * B + b]);
-      sm += part[(m.n_tiles + t) * B + b];
+// The omega partials of the launch's first state a0 (K3 from a
+// checkpoint), the same per-tile sums as fwd_item's, over a static round
+// robin of the items.
+template <bool VEC, bool FAM>
+__device__ __forceinline__ void fwd_prologue(const FwdArgs& p, float* part,
+                                             float (&red)[2][16][TB]) {
+  const Meta& m = p.m;
+  const int B = p.B, ncb = (B + TB - 1) / TB;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  for (int it = blockIdx.x; it < p.n_items; it += gridDim.x) {
+    const long long tile = it / ncb;
+    const int b0 = (it % ncb) * TB, bcol = b0 + tx * 4;
+    float colsum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long j =
+          tile_row<FAM>(m, p.lay, p.band_rows, tile, ty * 4 + i, -1);
+      if (j < 0) continue;
+      const float om = p.omega[j];
+      const float4 x = load4<VEC, true>(p.a0 + j * B, bcol, B);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) colsum[c] = fmaf(om, get(x, c), colsum[c]);
     }
-  }
-  r0[ry][bl] = mx;
-  r1[ry][bl] = sm;
-  __syncthreads();
-  for (int h = FR / 2; h > 0; h /= 2) {
-    if (ry < h) {
-      r0[ry][bl] = fmaxf(r0[ry][bl], r0[ry + h][bl]);
-      r1[ry][bl] += r1[ry + h][bl];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) red[1][ty][tx * 4 + c] = colsum[c];
+    __syncthreads();
+    if (tid < TB && b0 + tid < B) {
+      float sm = 0.f;
+      for (int q = 0; q < 16; ++q) sm += red[1][q][tid];
+      part[tile * B + b0 + tid] = sm;
     }
     __syncthreads();
   }
-  mx = r0[0][bl];
-  sm = r1[0][bl];
-  if (b >= B) return;
-  if (ry == 0) {
-    if (!skip_matvec) {
-      const int pfin =
-          m.ov_lo < m.ov_hi ? lay.row_pdf[m.fin] : m.fin / m.cmax;
+}
+
+// The end of forward frame j-1 and the phony row of frame j, which the
+// per-frame finalize did (for frame j-1) between two step launches; here in
+// frame j, by CTAs c < ceil(B / 2) (two columns each, FR threads per
+// column) before they take items.  Frame j-1's column max is complete
+// (the last barrier): its scale s = 2^-k, and K2's ksum += k and the Kahan
+// emission shift, or K3's scale output.  Frame j's phony row y[fin] =
+// (omega . prev) * s * e_fin: the per-tile partials of frame j-1 (each
+// written by fwd_item from its own y, but the phony row's tile, whose
+// partial is taken again here from prev's final rows), summed in the
+// per-frame finalize's fixed order (thread ry every FR-th tile from ry,
+// then a tree), written to out and taken into frame j's column max before
+// the barrier that ends frame j, since frame j's items do not read it.
+// Each thread issues PT loads of partials before it sums any.
+template <bool FAM, bool BF16>
+__device__ __forceinline__ void fwd_finalize(const FwdArgs& p,
+                                             const FwdFrame& f, int j,
+                                             FwdSmem<BF16>& s) {
+  constexpr int PT = 8;
+  const Meta& m = p.m;
+  const int B = p.B, tid = threadIdx.x, h = tid / FR, ry = tid % FR;
+  const int pfin = FAM ? p.lay.row_pdf[m.fin] : m.fin / m.cmax;
+  for (int cp = blockIdx.x; 2 * cp < B; cp += gridDim.x) {
+    const int b = 2 * cp + h;
+    const bool ok = b < B;
+    // the first PT partials in flight while the scale is derived and
+    // threads ry < 16 take thread row ry's part of the phony row's tile
+    // from prev's final rows
+    float v[PT];
+    auto load = [&](long long t0) {
+#pragma unroll
+      for (int u = 0; u < PT; ++u) {
+        const long long t = t0 + u * FR;
+        v[u] = ok && t < m.n_tiles && t != p.fin_tile
+                   ? __ldcg(f.part_prev + t * B + b)
+                   : 0.f;
+      }
+    };
+    load(ry);
+    float sc = 0.f;
+    if (ok && j == 0) {
+      sc = p.scale_in[b];
+    } else if (ok) {
+      const float k = exponent_of(f.cm_prev, b, B);
+      sc = pow2_scale(k);
+      if (ry == 0) {
+        if (p.ksum != nullptr) {  // K2
+          p.ksum[b] = __ldcg(p.ksum + b) + k;
+          const float sh = __ldcg(p.shift + b), cmp = __ldcg(p.comp + b);
+          const float xc = p.mshift[static_cast<size_t>(j - 1) * B + b] - cmp;
+          const float t = sh + xc;
+          p.comp[b] = (t - sh) - xc;
+          p.shift[b] = t;
+          if (j % p.chunk == 0)
+            p.bscale[static_cast<size_t>(j / p.chunk) * B + b] = sc;
+        } else {  // K3
+          p.scales[static_cast<size_t>(j - 1) * B + b] = sc;
+        }
+      }
+    }
+    if (ry < 16) {
+      float cs = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long long r = tile_row<FAM>(m, p.lay, p.band_rows, p.fin_tile,
+                                          ry * 4 + i, p.fin_row0);
+        if (r >= 0 && ok)
+          cs = fmaf(p.omega[r], __ldcg(f.prev + r * B + b), cs);
+      }
+      s.fp[h][ry] = cs;
+    }
+    __syncthreads();
+    float sm = 0.f;
+    for (long long t0 = ry; t0 < m.n_tiles; t0 += PT * FR) {
+      if (t0 != ry) load(t0);
+#pragma unroll
+      for (int u = 0; u < PT; ++u) {
+        const long long t = t0 + u * FR;
+        if (t == p.fin_tile) {  // its thread rows' partials in order
+          v[u] = 0.f;
+          for (int q = 0; q < 16; ++q) v[u] += s.fp[h][q];
+        }
+        if (t < m.n_tiles) sm += v[u];
+      }
+    }
+    s.fr[h][ry] = sm;
+    __syncthreads();
+    for (int hh = FR / 2; hh > 0; hh /= 2) {
+      if (ry < hh) s.fr[h][ry] += s.fr[h][ry + hh];
+      __syncthreads();
+    }
+    if (ry == 0 && ok) {
       const float yfin =
-          sm * scale_in[b] * ext_t[static_cast<size_t>(pfin) * B + b];
-      state[static_cast<size_t>(m.fin) * B + b] = yfin;
-      mx = fmaxf(mx, yfin);
+          s.fr[h][0] * sc * f.ext_t[static_cast<size_t>(pfin) * B + b];
+      f.out[static_cast<size_t>(m.fin) * B + b] = yfin;
+      atomicMax(f.cm_t + (blockIdx.x % CM) * B + b, __float_as_uint(yfin));
     }
-    const float k = pow2_exponent(mx);
-    scale_out[b] = pow2_scale(k);
-    if (ksum != nullptr) {
-      ksum[b] += k;
-      const float xc = mshift_t[b] - comp[b];
-      const float t = shift[b] + xc;
-      comp[b] = (t - shift[b]) - xc;
-      shift[b] = t;
-    }
+    __syncthreads();  // fp and fr are free
   }
 }
 
-struct Launch {
-  dim3 step_grid, fin_grid, fin_block;
-  size_t SB;
-  bool vec;
-};
-
-Launch launch_shape(const Meta& m, int B) {
-  Launch l;
-  l.step_grid = dim3(static_cast<unsigned>(m.n_tiles), (B + TB - 1) / TB);
-  l.fin_grid = dim3((B + FC - 1) / FC);
-  l.fin_block = dim3(FC, FR);
-  l.SB = static_cast<size_t>(m.Sp) * B;
-  l.vec = B % 4 == 0;
-  return l;
-}
-
-// The capped layout (the overflow family branch) of a descriptor.
-bool is_fam(const Meta& m) { return m.nfam > 0 || m.ov_lo < m.ov_hi; }
-
-template <bool BF16>
-cudaError_t launch_step_t(const Launch& l, cudaStream_t st, const Meta& m,
-                          const Layout& lay, int B, const float* prev,
-                          const float* scale, const float* e,
-                          const float* band_w, const void* W,
-                          const float* omega, const int* band_rows, int skip,
-                          float* out, float* part) {
-  const bool fam = is_fam(m);
-  auto kernel = l.vec ? (fam ? step_kernel<true, true, BF16>
-                             : step_kernel<true, false, BF16>)
-                      : (fam ? step_kernel<false, true, BF16>
-                             : step_kernel<false, false, BF16>);
-  kernel<<<l.step_grid, NT, 0, st>>>(
-      m, lay, B, prev, scale, e, band_w, static_cast<const TierT<BF16>*>(W),
-      omega, band_rows, skip, out, part);
-  return cudaGetLastError();
-}
-
-// One forward step launch; bf16: the panels W are bf16 (precision 'bf16').
-cudaError_t launch_step(const Launch& l, cudaStream_t st, const Meta& m,
-                        const Layout& lay, int B, const float* prev,
-                        const float* scale, const float* e,
-                        const float* band_w, const void* W, bool bf16,
-                        const float* omega, const int* band_rows, int skip,
-                        float* out, float* part) {
-  return bf16 ? launch_step_t<true>(l, st, m, lay, B, prev, scale, e, band_w,
-                                    W, omega, band_rows, skip, out, part)
-              : launch_step_t<false>(l, st, m, lay, B, prev, scale, e,
-                                     band_w, W, omega, band_rows, skip, out,
-                                     part);
+// K2 / K3 over frames 0 .. T-1: each CTA runs the frame's finalize share
+// (fwd_finalize) and then items from the frame's queue, one grid barrier
+// per frame; after the last, frame T-1's scale (and K2's ksum and shift).
+template <bool VEC, bool FAM, bool BF16>
+__global__ void __launch_bounds__(NT, FWD_BLOCKS)
+    fwd_chunk_kernel(const __grid_constant__ FwdArgs p) {
+  __shared__ __align__(16) FwdSmem<BF16> s;
+  const Meta& m = p.m;
+  const int B = p.B, ncb = (B + TB - 1) / TB, tid = threadIdx.x;
+  const size_t SB = static_cast<size_t>(m.Sp) * B;
+  const size_t PB = static_cast<size_t>(m.P1) * B;
+  const size_t NB = static_cast<size_t>(m.n_tiles) * B;
+  auto state = [&](int j) -> float* {
+    if (p.last == nullptr) return p.out + j * SB;  // K3: every frame
+    return j == p.T - 1 ? p.last : p.out + (j % 2) * SB;
+  };
+  if (!p.skip_first) {  // a0's omega partials, for frame 0's phony row
+    fwd_prologue<VEC, FAM>(p, p.part + NB, s.red);
+    fwd_grid_sync(p.sync);
+  }
+  for (int j = 0; j < p.T; ++j) {
+    FwdFrame f;
+    f.prev = j == 0 ? p.a0 : state(j - 1);
+    f.out = state(j);
+    f.ext_t = p.ext + j * PB;
+    f.cm_prev = j == 0 ? nullptr : p.cm + static_cast<size_t>(j - 1) * CM * B;
+    f.cm_t = p.cm + static_cast<size_t>(j) * CM * B;
+    f.part_prev = p.part + ((j + 1) % 2) * NB;
+    f.part_t = p.part + (j % 2) * NB;
+    f.bound = p.chunk && j % p.chunk == 0
+                  ? p.bounds + static_cast<size_t>(j / p.chunk) * SB
+                  : nullptr;
+    f.skip = p.skip_first && j == 0;
+    if (j + 1 < p.T) {  // the next frame's emissions into L2, spread
+      constexpr int LINE = 32;  // floats per 128-byte line
+      const float* e = p.ext + (j + 1) * PB;
+      const size_t n_e = (PB + LINE - 1) / LINE;
+      for (size_t i = static_cast<size_t>(blockIdx.x) * NT + tid; i < n_e;
+           i += static_cast<size_t>(gridDim.x) * NT)
+        prefetch_l2(e + i * LINE);
+    }
+    if (!f.skip) {
+      fwd_finalize<FAM, BF16>(p, f, j, s);
+    } else if (p.chunk) {  // K2's first checkpoint scale
+      for (int b = blockIdx.x * NT + tid; b < B; b += gridDim.x * NT)
+        p.bscale[b] = p.scale_in[b];
+    }
+    // items from the frame's queue: thread 0 takes the next position and
+    // reads its entry while the current item runs
+    auto take = [&]() {
+      const int q = static_cast<int>(atomicAdd(p.ctr + j, 1u));
+      return q < p.n_items ? p.queue[q] : make_int2(-1, -1);
+    };
+    if (tid == 0) s.next[0] = take();
+    __syncthreads();
+    int par = 0;
+    for (int2 q = s.next[0]; q.x >= 0; q = s.next[par]) {
+      if (tid == 0) s.next[par ^ 1] = take();
+      fwd_item<VEC, FAM, BF16>(p, f, q.x / ncb, (q.x % ncb) * TB, q.y, s,
+                               f.prev, f.out, f.ext_t, p.omega, p.band_w);
+      par ^= 1;  // fwd_item ends with a block barrier: s.next[par] is set
+    }
+    fwd_grid_sync(p.sync);
+  }
+  // frame T-1's scale, once its column max is complete
+  const unsigned* cm = p.cm + static_cast<size_t>(p.T - 1) * CM * B;
+  for (int b = blockIdx.x * NT + tid; b < B; b += gridDim.x * NT) {
+    const float k = exponent_of(cm, b, B);
+    if (p.ksum != nullptr) {  // K2
+      p.scales[b] = pow2_scale(k);
+      p.ksum[b] = __ldcg(p.ksum + b) + k;
+      const float sh = __ldcg(p.shift + b), cmp = __ldcg(p.comp + b);
+      const float xc = p.mshift[static_cast<size_t>(p.T - 1) * B + b] - cmp;
+      const float t = sh + xc;
+      p.comp[b] = (t - sh) - xc;
+      p.shift[b] = t;
+    } else {
+      p.scales[static_cast<size_t>(p.T - 1) * B + b] = pow2_scale(k);
+    }
+  }
 }
 
 // The bf16 tier tile stages whole 16-deep steps (tier_tile_bf16).
@@ -655,16 +1012,6 @@ bool bad_tier(const Meta& m, int bf16) { return bf16 && m.Sm % KS; }
 // ---------------------------------------------------------------------------
 // K4: the backward over one chunk, one persistent cooperative launch
 // ---------------------------------------------------------------------------
-
-// The exact power-of-two scale of column b from its max's float bits, the
-// max of the CM copies (each B apart).
-__device__ __forceinline__ float scale_of(const unsigned* cm, int b, int B) {
-  if (b >= B) return 0.f;
-  unsigned mx = 0u;
-#pragma unroll
-  for (int c = 0; c < CM; ++c) mx = max(mx, __ldcg(cm + c * B + b));
-  return pow2_scale(pow2_exponent(__uint_as_float(mx)));
-}
 
 struct BwdArgs {
   Meta m;
@@ -852,8 +1199,8 @@ __device__ __forceinline__ float bwd_item(
       tier_tile_bf16<true>(m, B, prev, static_cast<const __nv_bfloat16*>(p.W),
                            k, dbase, b0, s.Ws, s.Xs, s.G, acc);
     else
-      tier_tile<true>(m, B, prev, static_cast<const float*>(p.W), k, dbase, b0,
-                      s.Ws, s.Xs, acc);
+      tier_tile(m, B, prev, static_cast<const float*>(p.W), k, dbase, b0,
+                s.Ws, s.Xs, acc);
   }
   if (staged && is_tier) stage_alpha();  // the stages are free
   if constexpr (FAM) {
@@ -1093,21 +1440,32 @@ __global__ void __launch_bounds__(NT, bwd_blocks<FAM>())
   bwd_normalise<FAM>(p, s);
 }
 
-const void* bwd_kernel(bool vec, bool fam, bool bf16) {
+// The instantiation of K2/K3 (fwd) or K4 for B % 4 == 0 (vec), the capped
+// layout (fam) and bf16 panels.
+template <template <bool, bool, bool> class K>
+const void* pick(bool vec, bool fam, bool bf16) {
   if (bf16)
-    return vec ? (fam ? (const void*)bwd_chunk_kernel<true, true, true>
-                      : (const void*)bwd_chunk_kernel<true, false, true>)
-               : (fam ? (const void*)bwd_chunk_kernel<false, true, true>
-                      : (const void*)bwd_chunk_kernel<false, false, true>);
-  return vec ? (fam ? (const void*)bwd_chunk_kernel<true, true, false>
-                    : (const void*)bwd_chunk_kernel<true, false, false>)
-             : (fam ? (const void*)bwd_chunk_kernel<false, true, false>
-                    : (const void*)bwd_chunk_kernel<false, false, false>);
+    return vec ? (fam ? K<true, true, true>::f() : K<true, false, true>::f())
+               : (fam ? K<false, true, true>::f() : K<false, false, true>::f());
+  return vec ? (fam ? K<true, true, false>::f() : K<true, false, false>::f())
+             : (fam ? K<false, true, false>::f() : K<false, false, false>::f());
+}
+template <bool V, bool F, bool H>
+struct FwdK {
+  static const void* f() { return (const void*)fwd_chunk_kernel<V, F, H>; }
+};
+template <bool V, bool F, bool H>
+struct BwdK {
+  static const void* f() { return (const void*)bwd_chunk_kernel<V, F, H>; }
+};
+
+const void* coop_kernel(bool bwd, bool vec, bool fam, bool bf16) {
+  return bwd ? pick<BwdK>(vec, fam, bf16) : pick<FwdK>(vec, fam, bf16);
 }
 
-// CTAs of a K4 instantiation that can be co-resident on the current
-// device (0 where the device cannot launch cooperatively).
-cudaError_t bwd_co_resident(const void* kern, int* n) {
+// CTAs of a persistent instantiation that can be co-resident on the
+// current device (0 where the device cannot launch cooperatively).
+cudaError_t co_resident(const void* kern, int* n) {
   int dev = 0, n_sm = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -1120,99 +1478,132 @@ cudaError_t bwd_co_resident(const void* kern, int* n) {
   return err;
 }
 
-}  // namespace
-
-// K2: the forward sweep over frames 0 .. Npad-1 from a0.  Before frame t with
-// t % chunk == 0 the carried state and its scale are copied to checkpoint
-// t / chunk.  Frame Npad-1 writes a_last; scale ends as its scale; ksum,
-// shift and comp accumulate the exponents and the emission shift (the
-// caller initialises scale = 1, ksum = shift = comp = 0).  W: the tier
-// panels, float, or bf16 when bf16 != 0 (precision 'bf16').
-extern "C" int mm_block_fwd(
-    const float* a0, const float* ext, const float* mshift,
-    const float* band_w, const void* W, const float* omega,
-    const int* band_rows, const long long* imeta, const long long* ilay,
-    int B, int Npad, int chunk, int bf16, float* work, float* a_last,
-    float* bounds, float* bscale, float* scale, float* ksum, float* shift,
-    float* comp, float* part, void* stream) {
-  Meta m;
-  if (!parse_meta(imeta, &m) || B <= 0 || Npad <= 0 || chunk <= 0 ||
-      Npad % chunk || bad_tier(m, bf16))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Layout lay = parse_layout(ilay);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Launch l = launch_shape(m, B);
-  const float* prev = a0;
-  for (int t = 0; t < Npad; ++t) {
-    if (t % chunk == 0) {
-      const int c = t / chunk;
-      cudaError_t err = cudaMemcpyAsync(bounds + c * l.SB, prev,
-                                        l.SB * sizeof(float),
-                                        cudaMemcpyDeviceToDevice, st);
-      if (err == cudaSuccess)
-        err = cudaMemcpyAsync(bscale + static_cast<size_t>(c) * B, scale,
-                              B * sizeof(float), cudaMemcpyDeviceToDevice, st);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    float* cur = (t == Npad - 1) ? a_last : work + (t % 2) * l.SB;
-    const float* e = ext + static_cast<size_t>(t) * m.P1 * B;
-    cudaError_t err = launch_step(l, st, m, lay, B, prev, scale, e, band_w,
-                                  W, bf16, omega, band_rows, t == 0, cur,
-                                  part);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    finalize_kernel<<<l.fin_grid, l.fin_block, 0, st>>>(
-        m, lay, B, part, cur, e, scale, scale, t == 0,
-        mshift + static_cast<size_t>(t) * B, ksum, shift, comp);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    prev = cur;
-  }
-  return static_cast<int>(cudaGetLastError());
+// One cooperative launch of n_ctas CTAs of kern with its argument block.
+template <class Args>
+int launch_coop(const void* kern, Args& a, int n_ctas, void* stream) {
+  int max_ctas = 0;
+  cudaError_t err = co_resident(kern, &max_ctas);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_ctas > max_ctas)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(kern, dim3(n_ctas), dim3(NT), args, 0,
+                                    static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// K3: frames t0 .. t0+K-1 from a checkpoint (bound, bscale); writes every
-// frame's unscaled state to alphas[j] and its scale to ascale[j].
+// The forward's arguments shared by K2 and K3 (queue: ops/block_scan.py
+// fwd_plan for ncb = ceil(B / 64) column tiles, n_items = n_tiles * ncb
+// pairs of ints; fin_tile and fin_row0 the phony row's tile and its first
+// row or -1).
+bool fwd_args(FwdArgs* a, const long long* imeta, const long long* ilay,
+              int B, int T, int bf16, const int* queue, int n_items,
+              int n_ctas, long long fin_tile, int fin_row0) {
+  if (!parse_meta(imeta, &a->m) || B <= 0 || T <= 0 || n_ctas <= 0 ||
+      n_items != a->m.n_tiles * ((B + TB - 1) / TB) || fin_tile < 0 ||
+      fin_tile >= a->m.n_tiles || bad_tier(a->m, bf16))
+    return false;
+  a->lay = parse_layout(ilay);
+  a->B = B;
+  a->T = T;
+  a->queue = reinterpret_cast<const int2*>(queue);
+  a->n_items = n_items;
+  a->fin_tile = fin_tile;
+  a->fin_row0 = fin_row0;
+  return true;
+}
+
+}  // namespace
+
+// CTAs of the K2/K3 (bwd = 0) or K4 (bwd = 1) launch that can be
+// co-resident on the current device for this instantiation (vec: B % 4 ==
+// 0; fam: the capped layout; bf16: bf16 panels), or minus a CUDA error code.
+extern "C" int mm_block_ctas(int bwd, int vec, int fam, int bf16) {
+  int n = 0;
+  const cudaError_t err =
+      co_resident(coop_kernel(bwd, vec, fam, bf16), &n);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// K2: the forward sweep over frames 0 .. Npad-1 from a0 in one cooperative
+// launch of n_ctas CTAs.  Before frame t with t % chunk == 0 the carried
+// state and its scale are written to checkpoint t / chunk.  Frame Npad-1
+// writes a_last; scale receives its scale; ksum, shift and comp accumulate
+// the exponents and the emission shift (zero on entry).  scale_in: ones.
+// W: the tier panels, float, or bf16 when bf16 != 0 (precision 'bf16').
+// Scratch: work (2, Sp, B), part (2, n_tiles, B), and cm (Npad, 16, B),
+// ctr (Npad) and sync (33) zeroed words.
+extern "C" int mm_block_fwd(
+    const float* a0, const float* scale_in, const float* ext,
+    const float* mshift, const float* band_w, const void* W,
+    const float* omega, const int* band_rows, const long long* imeta,
+    const long long* ilay, const int* queue, int n_items, int n_ctas,
+    int fin_tile, int fin_row0, int B, int Npad, int chunk, int bf16,
+    float* work, float* a_last, float* bounds, float* bscale, float* scale,
+    float* ksum, float* shift, float* comp, float* part, unsigned* cm,
+    unsigned* ctr, unsigned* sync, void* stream) {
+  FwdArgs a{};
+  if (!fwd_args(&a, imeta, ilay, B, Npad, bf16, queue, n_items, n_ctas,
+                fin_tile, fin_row0) ||
+      chunk <= 0 || Npad % chunk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.skip_first = 1;
+  a.chunk = chunk;
+  a.a0 = a0;
+  a.scale_in = scale_in;
+  a.ext = ext;
+  a.mshift = mshift;
+  a.band_w = band_w;
+  a.W = W;
+  a.omega = omega;
+  a.band_rows = band_rows;
+  a.out = work;
+  a.last = a_last;
+  a.bounds = bounds;
+  a.bscale = bscale;
+  a.scales = scale;
+  a.ksum = ksum;
+  a.shift = shift;
+  a.comp = comp;
+  a.part = part;
+  a.cm = cm;
+  a.ctr = ctr;
+  a.sync = sync;
+  return launch_coop(coop_kernel(false, B % 4 == 0, is_fam(a.m), bf16 != 0),
+                     a, n_ctas, stream);
+}
+
+// K3: frames t0 .. t0+K-1 from a checkpoint (bound, bscale) in one
+// cooperative launch; writes every frame's unscaled state to alphas[j] and
+// its scale to ascale[j].  Scratch as K2's, over K frames.
 extern "C" int mm_block_recompute(
     const float* bound, const float* bscale, const float* ext_c,
     const float* band_w, const void* W, const float* omega,
     const int* band_rows, const long long* imeta, const long long* ilay,
-    int B, int t0, int K, int bf16, float* alphas, float* ascale, float* part,
-    void* stream) {
-  Meta m;
-  if (!parse_meta(imeta, &m) || B <= 0 || K <= 0 || t0 < 0 ||
-      bad_tier(m, bf16))
+    const int* queue, int n_items, int n_ctas, int fin_tile, int fin_row0,
+    int B, int t0, int K, int bf16, float* alphas, float* ascale,
+    float* part, unsigned* cm, unsigned* ctr, unsigned* sync, void* stream) {
+  FwdArgs a{};
+  if (!fwd_args(&a, imeta, ilay, B, K, bf16, queue, n_items, n_ctas,
+                fin_tile, fin_row0) ||
+      t0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Layout lay = parse_layout(ilay);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Launch l = launch_shape(m, B);
-  const float* prev = bound;
-  const float* s_prev = bscale;
-  for (int j = 0; j < K; ++j) {
-    float* cur = alphas + j * l.SB;
-    float* s_cur = ascale + static_cast<size_t>(j) * B;
-    const float* e = ext_c + static_cast<size_t>(j) * m.P1 * B;
-    cudaError_t err = launch_step(l, st, m, lay, B, prev, s_prev, e, band_w,
-                                  W, bf16, omega, band_rows, t0 + j == 0,
-                                  cur, part);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    finalize_kernel<<<l.fin_grid, l.fin_block, 0, st>>>(
-        m, lay, B, part, cur, e, s_prev, s_cur, t0 + j == 0, nullptr,
-        nullptr, nullptr, nullptr);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    prev = cur;
-    s_prev = s_cur;
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// CTAs of the K4 launch that can be co-resident on the current device for
-// this instantiation (vec: B % 4 == 0; fam: the capped layout; bf16: bf16
-// panels), or minus a CUDA error code.
-extern "C" int mm_block_bwd_ctas(int vec, int fam, int bf16) {
-  int n = 0;
-  const cudaError_t err = bwd_co_resident(bwd_kernel(vec, fam, bf16), &n);
-  return err == cudaSuccess ? n : -static_cast<int>(err);
+  a.skip_first = t0 == 0;
+  a.a0 = bound;
+  a.scale_in = bscale;
+  a.ext = ext_c;
+  a.band_w = band_w;
+  a.W = W;
+  a.omega = omega;
+  a.band_rows = band_rows;
+  a.out = alphas;
+  a.scales = ascale;
+  a.part = part;
+  a.cm = cm;
+  a.ctr = ctr;
+  a.sync = sync;
+  return launch_coop(coop_kernel(false, B % 4 == 0, is_fam(a.m), bf16 != 0),
+                     a, n_ctas, stream);
 }
 
 // K4: the reverse sweep over frames t0+K-1 .. t0 in one cooperative launch
@@ -1264,16 +1655,8 @@ extern "C" int mm_block_bwd(
   a.cm = cm;
   a.ctr = ctr;
   a.sync = sync;
-  const void* kern = bwd_kernel(B % 4 == 0, is_fam(m), bf16 != 0);
-  int max_ctas = 0;
-  cudaError_t err = bwd_co_resident(kern, &max_ctas);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_ctas > max_ctas)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(kern, dim3(n_ctas), dim3(NT), args, 0,
-                                    static_cast<cudaStream_t>(stream));
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  return launch_coop(coop_kernel(true, B % 4 == 0, is_fam(m), bf16 != 0), a,
+                     n_ctas, stream);
 }
 
 extern "C" const char* mm_error_string(int code) {
