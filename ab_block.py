@@ -6,6 +6,7 @@ the package):
     python ab_block.py . separate
     python ab_block.py build/vA 2m separate 2m-bf16 separate-bf16
     python ab_block.py build/vA dense-bf16
+    python ab_block.py build/vP banded banded-trace
 
 The first argument is the root of a copy of the package (its parent
 directory); that copy builds its own library under ``<root>/build/``.  For
@@ -39,6 +40,23 @@ and K6b over all 701 frames, at B=128, N=700.  For a block graph also:
 * ``K2_sum``, ``K3_sum``: sums of K2's and K3's outputs in float64, equal
   between two versions whose K2 and K3 compute bit for bit the same, and
   ``K23_bitequal``: K2 and K3 run twice, bit-equal.
+
+``banded`` (the LF-MMI step's 128 stacked 78-state numerators, Sp = 80,
+offsets (0, 1), through K5a and K5b) prints one line per pdf count, P = 384
+(the 2M-arc step's) and P = 96 (the dense step's), on ``chip_smoke``'s
+phase-7 input (ragged lengths, ±30-nat cliffs), N = 700: three warm times
+in ms each of K5a and K5b over the 701-frame sweep, and of K5a without its
+alpha stores (``save_alphas=False``, logZ only); ``K5a_sum`` and
+``K5b_sum``, float64 sums of their outputs (equal between two versions
+whose kernels compute bit for bit the same); ``K5_bitequal``: both run
+twice, bit-equal; ``K5a_err`` and ``K5b_err`` against their plain twins.
+
+``banded-trace`` builds a traced copy of the root's ``banded_scan.cu`` into
+``<root>/build/trace/`` (``clock64`` and ``%globaltimer`` stamps at the
+anchors of ``_ANCHORS``, or ``_PARENT_ANCHORS`` in the kernels of PRs 2-9,
+written by lane 0 of graph 0 for every frame) and prints, for K5a and K5b
+at P = 384 and P = 96, the mean ns per frame between consecutive stamps.
+The stamps' own stores slow a traced kernel (the PR 2-9 K5b by ~50 %).
 
 Needs a CUDA card.
 """
@@ -180,6 +198,240 @@ def run_graph(graph: str) -> dict:
     return out
 
 
+def _banded_setup(P: int):
+    """The step's numerators at ``P`` pdfs on the card, their kernels'
+    operator, and ``chip_smoke``'s phase-7 input."""
+    import torch
+
+    from chip_smoke import banded_inputs, build_numerators, stack_numerators
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+
+    dev = torch.device("cuda:0")
+    num_cf = stack_numerators(build_numerators(P), P, dev)
+    ext, msh = banded_inputs(num_cf, P, dev)
+    return bsc, bsc.kernel_operator(num_cf), ext, msh
+
+
+def run_banded(P: int) -> dict:
+    import torch
+
+    bsc, kop, ext, msh = _banded_setup(P)
+    fwd = bsc.fwd_sweep(kop, ext, msh)
+    posts = bsc.backward(kop, ext, fwd[0])
+    fwd2 = bsc.fwd_sweep(kop, ext, msh)
+    posts2 = bsc.backward(kop, ext, fwd[0])
+    out = {"graph": f"banded-{P}",
+           "K5a_sum": sum(float(t.double().sum()) for t in fwd),
+           "K5b_sum": float(posts.double().sum()),
+           "K5_bitequal": all(torch.equal(x, y) for x, y in
+                              zip(fwd + (posts,), fwd2 + (posts2,)))}
+    del fwd2, posts2
+    ap, vp, sp, kp = bsc.fwd_sweep_plain(kop, ext, msh)
+    ak, vk, sk, kk = fwd
+    # alphas are rescaled to a column max in [1, 2): absolute differences
+    out["K5a_err"] = max(float((ak - ap).abs().max()),
+                         float((sk - sp).abs().max()),
+                         float((kk - kp).abs().max()),
+                         float(((vk - vp).abs() / vp.abs().clamp_min(
+                             1e-300)).max()))
+    out["K5b_err"] = float((posts - bsc.backward_plain(kop, ext, ak)).abs()
+                           .max())
+    out["K5a_ms"] = _ms(lambda: bsc.fwd_sweep(kop, ext, msh))
+    out["K5a_logz_only_ms"] = _ms(lambda: bsc.fwd_sweep(kop, ext, msh,
+                                                        save_alphas=False))
+    out["K5b_ms"] = _ms(lambda: bsc.backward(kop, ext, ak))
+    return out
+
+
+# Stamps of the traced copy of banded_scan.cu: (kernel section, the exact
+# text of a line of the source, "before" or "after" it, table K, stamp I,
+# what runs from stamp I to stamp I + 1).  Stamp I of table K records
+# clock64 and %globaltimer for frame t on lane 0 of graph 0.  The first hit
+# of an anchor in its section takes the stamp; an anchor that the root's
+# source lacks is skipped.  Tables 0 and 1: the chains of K5a and K5b;
+# table 2: K5b's posterior warp.
+_PARENT_ANCHORS = [  # the one-warp-per-graph kernels of PRs 2-9
+    ("fwd", "    const float* e = ext + static_cast<size_t>(t) * m.P1 * G + g;",
+     "after", 0, 0, "band pass + omega dot"),
+    ("fwd", "    dot = warp_sum(dot);", "before", 0, 1, "dot reduction"),
+    ("fwd", "    dot = warp_sum(dot);", "after", 0, 2,
+     "emission gather + fin + max"),
+    ("fwd", "    mx = warp_max(mx);", "before", 0, 3, "max reduction"),
+    ("fwd", "    mx = warp_max(mx);", "after", 0, 4,
+     "rescale + alpha stores"),
+    ("fwd", "    ksum += k;  // every lane keeps the same sums", "before", 0,
+     5, "ksum, mshift, syncwarp"),
+    ("fwd", "    cur ^= 1;", "before", 0, 6, "loop back"),
+    ("bwd", "    const bool last = t == m.Nf - 1;", "after", 1, 0,
+     "band pass + alpha/emission loads + pdf atomics"),
+    ("bwd", "    tot = warp_sum(tot);", "before", 1, 1,
+     "tot and max reductions"),
+    ("bwd", "    __syncwarp();  // every pdf sum of frame t is in", "before", 1,
+     2, "syncwarp"),
+    ("bwd", "    __syncwarp();  // every pdf sum of frame t is in", "after", 1,
+     3, "posterior loop (P1 divisions and stores)"),
+    ("bwd", "    const double sc = pow2_scale(pow2_exponent(mx));", "before",
+     1, 4, "rescale + syncwarp"),
+    ("bwd", "    cur ^= 1;", "before", 1, 5, "loop back"),
+]
+_ANCHORS = [  # this tree's kernels
+    ("fwd", "    mbar_wait(full + r, (t / DEPTH) & 1);  // frame t's emissions "
+     "are in", "before", 0, 0, "wait for the helper's slot"),
+    ("fwd", "    mbar_wait(full + r, (t / DEPTH) & 1);  // frame t's emissions "
+     "are in", "after", 0, 1, "state and emission loads + dot partial"),
+    ("fwd", "      dot = warp_sum(dot);", "before", 0, 2, "dot reduction"),
+    ("fwd", "      dot = warp_sum(dot);", "after", 0, 3,
+     "band pass + key max"),
+    ("fwd", "      const double vf = dot * double(ef);", "before", 0, 4,
+     "phony row + rescale + state and ring stores"),
+    ("fwd", "    ksum += k;  // every lane keeps the same exponent sum",
+     "before", 0, 5, "ksum, shift, syncwarp, release"),
+    ("fwd", "    cur ^= 1;", "before", 0, 6, "loop back"),
+    ("bwd", "      mbar_wait(efull + i % DEPTH, (i / DEPTH) & 1);  // the "
+     "emissions", "before", 1, 0, "wait for the helper's slot"),
+    ("bwd", "      mbar_wait(efull + i % DEPTH, (i / DEPTH) & 1);  // the "
+     "emissions", "after", 1, 1, "band pass"),
+    ("bwd", "      // hand beta of frame t to the posterior warp", "before", 1,
+     2, "wait for a free beta slot"),
+    ("bwd", "      if (i >= YRING) mbar_wait(empty + r, ((i / YRING) - 1) & 1);",
+     "after", 1, 3, "beta handed + emission + local key"),
+    ("bwd", "      mbar_arrive(edone + i % DEPTH);  // the emission slot "
+     "is free", "after", 1, 4, "key max"),
+    ("bwd", "          pow2_scale(key_exponent(__reduce_max_sync(FULL, key)));",
+     "after", 1, 5, "rescale + syncwarp"),
+    ("bwd", "      cur ^= 1;", "before", 1, 6, "loop back"),
+    ("bwd", "      mbar_wait(full + r, (i / YRING) & 1);", "before", 2, 0,
+     "wait for the chain's beta"),
+    ("bwd", "      mbar_wait(full + r, (i / YRING) & 1);", "after", 2, 1,
+     "gamma + tot reduction + syncwarp"),
+    ("bwd", "      const double rt = tot > 0.0 ? 1.0 / tot : 1.0;", "before", 2,
+     2, "reciprocal + pdf sums + stores"),
+    ("bwd", "      __syncwarp();  // gm is rewritten next time", "before", 2,
+     3, "loop back (fetch ahead, alpha wait; frames alternate between the "
+     "posterior warps)"),
+]
+_TRACE_PRELUDE = r"""
+#define MM_TRACE_NF 1024
+__device__ long long mm_trace_clk[4][MM_TRACE_NF][8];
+__device__ long long mm_trace_gt[4][MM_TRACE_NF][8];
+#define MM_STAMP(K, I)                                                    \
+  if (g == 0 && lane == 0 && t < MM_TRACE_NF) {                           \
+    long long gt_;                                                        \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(gt_));               \
+    mm_trace_clk[K][t][I] = clock64();                                    \
+    mm_trace_gt[K][t][I] = gt_;                                           \
+  }
+"""
+_TRACE_READ = r"""
+extern "C" int mm_trace_read(long long* clk, long long* gt) {
+  cudaError_t e = cudaMemcpyFromSymbol(clk, mm_trace_clk, sizeof(mm_trace_clk));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(gt, mm_trace_gt, sizeof(mm_trace_gt));
+  return static_cast<int>(e);
+}
+extern "C" const char* mm_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+"""
+
+
+_TRACED = {}
+
+
+def _traced_library(root: str):
+    """Build the traced copy of the root's banded_scan.cu and load it (once
+    per process)."""
+    import ctypes
+    import subprocess
+
+    from markovmodels_tpu_torch.ops import _build
+
+    if root in _TRACED:
+        return _TRACED[root]
+    csrc = os.path.join(root, "markovmodels_tpu_torch", "ops", "csrc")
+    text = open(os.path.join(csrc, "banded_scan.cu")).read()
+    cut = text.index("banded_bwd_kernel(")
+    parts = {"fwd": text[:cut].split("\n"), "bwd": text[cut:].split("\n")}
+    names = {}
+    ours = "cp_async_wait<DEPTH" in text
+    for part, anchor, where, k, i, label in (_ANCHORS if ours
+                                             else _PARENT_ANCHORS):
+        lines = parts[part]
+        hits = [n for n, ln in enumerate(lines) if ln == anchor]
+        if not hits:
+            continue
+        stmt = f"MM_STAMP({k}, {i});"
+        if k in (1, 2) and ours:
+            # this tree's K5b counts iterations i, frame t = Nf - 1 - i
+            stmt = f"{{ const int t = Nf - 1 - i; {stmt} }}"
+        lines.insert(hits[0] + (1 if where == "after" else 0), stmt)
+        names[k, i] = label
+    print(f"trace: stamps placed: {sorted(names)}", file=sys.stderr)
+    out_dir = os.path.join(root, "build", "trace")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "banded_trace.cu")
+    with open(src, "w") as f:
+        f.write(_TRACE_PRELUDE + "\n".join(parts["fwd"]) + "\n"
+                + "\n".join(parts["bwd"]) + _TRACE_READ)
+    lib_path = os.path.join(out_dir, "libbanded_trace.so")
+    subprocess.run([_build._nvcc(), *_build._FLAGS, "-shared", "-I", csrc,
+                    "-o", lib_path, src], check=True)
+    lib = ctypes.CDLL(lib_path)
+    for name, args in _build._SIGNATURES.items():
+        if name.startswith("mm_banded"):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, ctypes.c_int
+    lib.mm_error_string.argtypes = [ctypes.c_int]
+    lib.mm_error_string.restype = ctypes.c_char_p
+    _TRACED[root] = lib, names
+    return lib, names
+
+
+def trace_banded(root: str, P: int) -> dict:
+    """Per-frame intervals between the traced copy's stamps, K5a and K5b at
+    ``P`` pdfs: mean ns over the frames 1 .. Nf - 2 of graph 0."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from markovmodels_tpu_torch.ops import _build
+
+    lib, names = _traced_library(root)
+    _build._LIB = lib  # the wrappers launch it
+    bsc, kop, ext, msh = _banded_setup(P)
+    Nf = ext.shape[0]
+    for _ in range(2):
+        alphas = bsc.fwd_sweep(kop, ext, msh)[0]
+        bsc.backward(kop, ext, alphas)
+    torch.cuda.synchronize()
+    clk = np.zeros((4, 1024, 8), dtype=np.int64)
+    gt = np.zeros_like(clk)
+    rc = lib.mm_trace_read(ctypes.c_void_p(clk.ctypes.data),
+                           ctypes.c_void_p(gt.ctypes.data))
+    assert rc == 0, rc
+    out = {"graph": f"banded-trace-{P}"}
+    for k, name in ((0, "K5a"), (1, "K5b"), (2, "K5b_posterior")):
+        n = max((i for i in range(8) if clk[k, 1, i]), default=-1) + 1
+        if n == 0:
+            continue
+        c = clk[k, 1:Nf - 1, :n].astype(np.float64)
+        step = -1 if k else 1  # K5b runs its frames backwards
+        nxt = clk[k, 1 + step:Nf - 1 + step, 0].astype(np.float64)
+        ns_per_clk = ((gt[k, Nf - 2, 0] - gt[k, 1, 0])
+                      / (clk[k, Nf - 2, 0] - clk[k, 1, 0]))
+        segs = {names[k, i]: float(np.mean(c[:, i + 1] - c[:, i])
+                                   * ns_per_clk) for i in range(n - 1)}
+        segs[names[k, n - 1]] = float(np.mean(nxt - c[:, n - 1])
+                                      * ns_per_clk)
+        segs["frame"] = float(np.mean(np.abs(nxt - c[:, 0])) * ns_per_clk)
+        segs["frame_globaltimer"] = float(
+            abs(gt[k, Nf - 2, 0] - gt[k, 1, 0]) / (Nf - 3))
+        segs["ns_per_clock"] = float(ns_per_clk)
+        out[name] = segs
+    return out
+
+
 def main(root: str, graphs) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import markovmodels_tpu_torch as mt
@@ -189,7 +441,14 @@ def main(root: str, graphs) -> None:
         raise RuntimeError(f"imported {mt.__file__}, not the copy at {root}")
     _build.library()
     for graph in graphs:
-        print(json.dumps({"version": root, **run_graph(graph)}), flush=True)
+        if graph == "banded":
+            rows = [run_banded(P) for P in (384, 96)]
+        elif graph == "banded-trace":
+            rows = [trace_banded(root, P) for P in (384, 96)]
+        else:
+            rows = [run_graph(graph)]
+        for row in rows:
+            print(json.dumps({"version": root, **row}), flush=True)
 
 
 if __name__ == "__main__":

@@ -32,11 +32,16 @@ phases:
    output checks, and the kernel path timed beside the plain PyTorch scan;
 7. K5a and K5b against their plain twins at the numerators' main shape
    (G=128 lattices, Sp=80, N=700; ragged lengths with infeasible ones and
-   a length of 1, ±30-nat emission cliffs);
-8. stacked-numerator ``pdfposteriors`` at N=40 against the f64 oracle;
+   a length of 1, ±30-nat emission cliffs), each run twice and bit-equal,
+   K5b's posteriors outside each graph's plan exactly 0, and the
+   admission's shared-memory figures equal to the kernels' own;
+8. stacked-numerator ``pdfposteriors`` against the f64 oracle: 4 chain
+   lattices at N=40, then 4 with skip arcs (three band offsets, up to 130
+   states) at N=150, where K5a and K5b are held to their twins too;
 9. the training step at B=128, N=700 with launch counters (K2-K5b), the
    gradient against γ_den - γ_num, and its time beside the denominator's;
-   a ``torch.profiler`` breakdown of one den-only ``pdfposteriors``:
+   a ``torch.profiler`` breakdown of one step (K5a's and K5b's device
+   time and share) and of one den-only ``pdfposteriors``:
    exactly one K2 launch and one K3 and one K4 launch per 64-frame chunk
    (the persistent ``fwd_chunk_kernel`` and ``bwd_chunk_kernel``) and no
    per-frame step or finalize launch; K2 over the N=700 sweep, K3 and K4
@@ -50,8 +55,9 @@ phases:
     tiles do not fit shared memory and stream every frame: whole sweeps
     in float32 at N=128, and the bf16 kernels one frame at a time;
 12. dense ``pdfposteriors`` at B=2, N=40 against the f64 oracle;
-13. the training step with the dense denominator and 128 stacked numerators
-    (P=96) at B=128, N=700: exactly one launch each of K5a, K5b, K6a and
+13. phase 7's checks and the K5 timings on the dense step's numerators
+    (P=96); the training step with the dense denominator and 128 stacked
+    numerators at B=128, N=700: exactly one launch each of K5a, K5b, K6a and
     K6b and no other kernel, the gradient against γ_den - γ_num, its time
     beside the denominator's, and a ``torch.profiler`` breakdown (one
     sweep launch per direction, no finalize launch); then K6a/K6b timed
@@ -805,11 +811,29 @@ def banded_inputs(num_cf, P, dev, N=700, seed=11):
     return ext, msh
 
 
-def phase_banded_kernels(num_cf, P, dev):
-    """Phase 7: K5a and K5b against their plain twins on one input."""
+def plan_mask(kop):
+    """(P1, G) bool: the pdfs of each graph's K5b plan (its own pdfs)."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+
+    n, pdf = (x.long() for x in bsc.plan_fields(kop.plan, kop.Sp)[:2])
+    valid = torch.arange(kop.Sp, device=n.device)[None, :] < n[:, None]
+    graph = torch.arange(kop.G, device=n.device)[:, None].expand_as(pdf)
+    mask = torch.zeros((kop.P1, kop.G), dtype=torch.bool, device=n.device)
+    mask[pdf[valid], graph[valid]] = True
+    return mask
+
+
+def phase_banded_kernels(num_cf, P, dev, label="phase 7"):
+    """Phase 7 (and 13, on the dense step's numerators): K5a and K5b
+    against their plain twins on one input, each run twice and bit-equal;
+    K5b's posteriors outside each graph's plan exactly 0; the admission's
+    shared-memory figures equal the kernels'."""
     import torch
 
     from markovmodels_tpu_torch import inference as tinf
+    from markovmodels_tpu_torch.ops import _build
     from markovmodels_tpu_torch.ops import banded_scan as bsc
 
     kop = bsc.kernel_operator(num_cf)
@@ -824,7 +848,11 @@ def phase_banded_kernels(num_cf, P, dev):
         return a / torch.where(m > 0, m, torch.ones_like(m))
 
     ak, *fk = bsc.fwd_sweep(kop, ext, msh)
+    again = bsc.fwd_sweep(kop, ext, msh)
     torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip((ak, *fk), again)), (
+        "K5a: two runs differ")
+    del again
     ap, *fp = bsc.fwd_sweep_plain(kop, ext, msh)
     zk, zp = logz(*fk), logz(*fp)
     fin = np.isfinite(zp)
@@ -835,44 +863,103 @@ def phase_banded_kernels(num_cf, P, dev):
                        float((norm(ak) - norm(ap)).abs().max()))}
     pk = bsc.backward(kop, ext, ak)
     torch.cuda.synchronize()
+    assert torch.equal(pk, bsc.backward(kop, ext, ak)), "K5b: two runs differ"
     pp = bsc.backward_plain(kop, ext, ak)
     assert torch.isfinite(pk).all(), "K5b: non-finite posteriors"
     assert (pk[:, :, 1:3] == 0).all(), "K5b: infeasible graphs not zero"
+    outside = ~plan_mask(kop)
+    assert (pk[:, outside] == 0).all(), (
+        "K5b: a posterior outside its graph's plan is not 0")
+    lib = _build.library()
+    nO = len(kop.offsets)
+    smem = [lib.mm_banded_smem(kop.Sp, nO, bwd) for bwd in (0, 1)]
+    assert smem == [4 * w for w in bsc._smem_words(kop.Sp, nO)], (
+        f"admission's shared memory {bsc._smem_words(kop.Sp, nO)} words, "
+        f"the kernels' {smem} bytes")
+    print(f"{label}: P={P}: K5a and K5b run twice, bit-equal; K5b's "
+          f"posteriors at the {int(outside.sum())} of {outside.numel()} "
+          f"(pdf, graph) pairs outside the graphs' plans exactly 0 in all "
+          f"{pk.shape[0]} frames; shared memory per CTA K5a {smem[0]} B, "
+          f"K5b {smem[1]} B (the admission's figures)")
     errs["K5b"] = float((pk - pp).abs().max())
     for name, e in errs.items():
-        print(f"phase 7: {name} kernel vs plain max |err| = {e:.3e} "
+        print(f"{label}: P={P}: {name} kernel vs plain max |err| = {e:.3e} "
               f"(tol {TOL_K5:g})")
         assert np.isfinite(e) and e <= TOL_K5, f"{name} disagrees: {e}"
     return errs
 
 
-def phase_banded_oracle(P, dev, n=40):
-    """Phase 8: stacked-numerator pdfposteriors (4 lattices of 10-38
-    states, through K5a/K5b) against the exact f64 host oracle."""
+def skip_numerators(P, lengths, seed):
+    """Numerator lattices with skip arcs (i -> i + 2 besides the self-loop
+    and the chain: three band offsets), the last over 3 pdfs only (each
+    repeated).  Returns [(fsm, spdf)]."""
+    import markovmodels_tpu_torch as mt
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for g, Lp in enumerate(lengths):
+        seq = rng.integers(0, 3 if g == len(lengths) - 1 else P, size=Lp)
+        arcs = ([((i, i), np.log(0.5)) for i in range(Lp)]
+                + [((i, i + 1), np.log(0.3)) for i in range(Lp - 1)]
+                + [((i, i + 2), np.log(0.2)) for i in range(Lp - 2)])
+        fsm = mt.fsm.FSM.from_pairs(
+            [(0, 0.0)], arcs, [(Lp - 1, np.log(0.5))],
+            [mt.labels.Label(int(s)) for s in seq], mt.semiring.LOG)
+        out.append((fsm, np.append(seq, P).astype(np.int32)))
+    return out
+
+
+def phase_banded_oracle(P, dev):
+    """Phase 8: stacked-numerator pdfposteriors through K5a/K5b against
+    the exact f64 host oracle: 4 lattices of 10-38 states at N=40, then 4
+    lattices with skip arcs (offsets (0, 1, 2): the kernels' loop over
+    the offsets past the second) of 10-130 states (Sp = 136: 5 states per
+    lane) at N=150, where K5a and K5b are also held to their twins."""
     import torch
 
     import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
 
-    graphs = []
     rng = np.random.default_rng(5)
+    chains = []
     for Lp in (10, 20, 30, 38):
-        graphs += build_numerators(P, G=1, Lp=Lp, seed=int(rng.integers(99)))
-    num_cf = stack_numerators(graphs, P, dev)
-    lhs = rng.normal(size=(4, n, P)).astype(np.float32)
-    lens = np.array([n, 35, n, 39], dtype=np.int32)
-    posts, z = mt.pdfposteriors(num_cf, torch.from_numpy(lhs).to(dev),
-                                torch.from_numpy(lens).to(dev))
-    z, posts = z.cpu().numpy(), posts.cpu().numpy()
-    err = perr = 0.0
-    for g, (fsm, spdf) in enumerate(graphs):
-        rz, rp = mt.oracle.host_oracle(fsm, spdf, P,
-                                       lhs[g:g + 1].astype(np.float64),
-                                       lens[g:g + 1])
-        err = max(err, float(np.abs(z[g] - rz[0])))
-        perr = max(perr, float(np.abs(posts[g] - rp[0]).max()))
-    print(f"phase 8: numerators G=4 N={n} vs f64 oracle |dlogZ| = "
-          f"{err:.3e}, |dposts| = {perr:.3e} (tol {TOL_ORACLE:g})")
-    assert err <= TOL_ORACLE and perr <= TOL_ORACLE, "oracle gate failed"
+        chains += build_numerators(P, G=1, Lp=Lp, seed=int(rng.integers(99)))
+    for graphs, n, lens in (
+            (chains, 40, [40, 35, 40, 39]),
+            (skip_numerators(P, (10, 60, 130, 40), seed=6), 150,
+             [150, 120, 150, 9])):
+        num_cf = stack_numerators(graphs, P, dev)
+        lhs = rng.normal(size=(4, n, P)).astype(np.float32)
+        lens = np.array(lens, dtype=np.int32)
+        tl, tn = torch.from_numpy(lhs).to(dev), torch.from_numpy(lens).to(dev)
+        posts, z = mt.pdfposteriors(num_cf, tl, tn)
+        z, posts = z.cpu().numpy(), posts.cpu().numpy()
+        err = perr = 0.0
+        for g, (fsm, spdf) in enumerate(graphs):
+            rz, rp = mt.oracle.host_oracle(fsm, spdf, P,
+                                           lhs[g:g + 1].astype(np.float64),
+                                           lens[g:g + 1])
+            fin = np.isfinite(rz[0])
+            assert np.isfinite(z[g]) == fin, "feasibility differs"
+            if fin:
+                err = max(err, float(np.abs(z[g] - rz[0])))
+            perr = max(perr, float(np.abs(posts[g] - rp[0]).max()))
+        kop = bsc.kernel_operator(num_cf)
+        tag = (f"G=4 N={n}, Sp = {kop.Sp}, offsets {kop.offsets}")
+        print(f"phase 8: numerators {tag} vs f64 oracle |dlogZ| = "
+              f"{err:.3e}, |dposts| = {perr:.3e} (tol {TOL_ORACLE:g})")
+        assert err <= TOL_ORACLE and perr <= TOL_ORACLE, "oracle gate failed"
+        if len(kop.offsets) > 2:
+            ext, msh = prepare_emissions(tl, tn, P)
+            fk = bsc.fwd_sweep(kop, ext, msh)
+            fp = bsc.fwd_sweep_plain(kop, ext, msh)
+            ka = float((fk[0] - fp[0]).abs().max())
+            kb = float((bsc.backward(kop, ext, fk[0])
+                        - bsc.backward_plain(kop, ext, fk[0])).abs().max())
+            print(f"phase 8: {tag}: K5a alphas vs plain max |err| = "
+                  f"{ka:.3e}, K5b {kb:.3e} (tol {TOL_K5:g})")
+            assert ka <= TOL_K5 and kb <= TOL_K5, "K5 disagrees with its twin"
 
 
 def launch_counts(mods, bf16=False):
@@ -946,7 +1033,7 @@ def phase_step(num_cf, cf, P, dev, mods, label, B=128, N=700, bf16=False):
 
 def time_banded(num_cf, P, dev):
     """K5a and K5b and their plain twins over the whole 701-frame sweep at
-    the numerators' main shape."""
+    the numerators' main shape, ``P`` pdfs."""
     from markovmodels_tpu_torch.ops import banded_scan as bsc
 
     kop = bsc.kernel_operator(num_cf)
@@ -963,7 +1050,7 @@ def time_banded(num_cf, P, dev):
         p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern, reps=5),
                           cuda_ms(kern, reps=5), cuda_ms(plain))
         out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"timing: {name} kernel {k1:.3f}/{k2:.3f} ms, plain "
+        print(f"timing: {name} at P={P}: kernel {k1:.3f}/{k2:.3f} ms, plain "
               f"{p1:.3f}/{p2:.3f} ms")
     return out
 
@@ -1219,11 +1306,11 @@ def frame_floor(dcf, P, dev, N=700):
                           reps=3) / Nf)
 
 
-def profile_dense_step(num_cf, cf, P, dev, label, B=128, N=700):
-    """The LF-MMI step with a dense denominator under torch.profiler: its
-    device time by kernel and idle share, printed; asserts one launch of
-    each sweep kernel (K6a and K6b: one per sweep, the frame loop inside)
-    and no finalize launch."""
+def profile_step(num_cf, cf, P, dev, label, B=128, N=700):
+    """The LF-MMI step under torch.profiler: its device time by kernel and
+    idle share, and the numerator kernels' device time and share of the
+    busy time, printed; asserts one launch each of K5a and K5b.  Returns
+    profile_device's result, or None."""
     import torch
 
     import markovmodels_tpu_torch as mt
@@ -1238,15 +1325,33 @@ def profile_dense_step(num_cf, cf, P, dev, label, B=128, N=700):
 
     prof = profile_device(step)
     if prof is None:
-        print(f"{label}: profile of the dense step: not measured (no device "
+        print(f"{label}: profile of the step: not measured (no device "
               "events recorded)")
-        return
+        return None
     by_name, busy, span, counts = prof
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"{label}: profile of one dense LF-MMI step: device busy "
+    print(f"{label}: profile of one LF-MMI step: device busy "
           f"{busy:.3f} ms of a {span:.3f} ms span (idle {1 - busy / span:.1%})"
           f"; " + "; ".join(f"{k} {v:.3f} ms ({counts[k]} launches)"
                             for k, v in top))
+    k5 = {k: v for k, v in by_name.items() if k.startswith("banded_")}
+    assert sorted(counts[k] for k in k5) == [1, 1] and any(
+        k.startswith("banded_fwd") for k in k5), f"K5 launches {counts}"
+    print(f"{label}: numerator kernels in the step: " + "; ".join(
+        f"{k} {v:.3f} ms" for k, v in sorted(k5.items()))
+        + f"; K5a + K5b {sum(k5.values()):.3f} ms = "
+        f"{sum(k5.values()) / busy:.1%} of the busy time")
+    return prof
+
+
+def profile_dense_step(num_cf, cf, P, dev, label):
+    """profile_step with a dense denominator; asserts one launch of each
+    sweep kernel (K6a and K6b: one per sweep, the frame loop inside) and no
+    finalize launch."""
+    prof = profile_step(num_cf, cf, P, dev, label)
+    if prof is None:
+        return
+    counts = prof[3]
     sweeps = {k: v for k, v in counts.items() if k.startswith("sweep_kernel")}
     assert len(sweeps) == 2 and set(sweeps.values()) == {1}, sweeps
     assert not any("finalize" in k for k in counts), counts
@@ -1741,6 +1846,7 @@ def main():
     phase_banded_oracle(P, dev)
     launches, t_step, t_den = phase_step(num_cf, cf, P, dev, (bs, bsc),
                                          "phase 9")
+    profile_step(num_cf, cf, P, dev, "phase 9")
     profile_block_den(cf, P, dev, "phase 9")
     times, terrs = time_kernels(cf, P, dev)
     errs.update({k: max(errs[k], v) for k, v in terrs.items()})
@@ -1763,6 +1869,9 @@ def main():
     phase_oracle(dfsm, dspdf, dcf, dP, dev, label="phase 12")
     bs.reset_launch_counts()
     vs.reset_launch_counts()
+    e96 = phase_banded_kernels(dnum_cf, dP, dev, "phase 13")
+    times96 = time_banded(dnum_cf, dP, dev)
+    bounds96 = banded_bounds(dnum_cf, 701)
     dlaunches, t_dstep, t_dden = phase_step(dnum_cf, dcf, dP, dev,
                                             (bsc, ds), "phase 13")
     assert dlaunches == {"banded_fwd": 1, "banded_bwd": 1, "dense_fwd": 1,
@@ -1978,6 +2087,16 @@ def main():
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": library.get(name)}
         for name, (counter, source, replaces) in table.items()
+    ]
+    kernels += [  # the dense step's numerators: P = 96
+        {"name": f"{name} {counter} (numerators at P=96, dense step)",
+         "route": "cuda", "source": source, "replaces": replaces,
+         "launches": dlaunches[counter], "max_abs_err": e96[name],
+         "ms": times96[name][0], "plain_ms": times96[name][1],
+         "bound_ms": bounds96[name][0], "bound_by": bounds96[name][1],
+         "library_ms": None}
+        for name, (counter, source, replaces) in table.items()
+        if name in times96
     ]
     kernels += [  # the overflow branch, on the separate-state graph
         {"name": f"{name} {counter} (separate-state backoff graph)",

@@ -945,7 +945,7 @@ _CUDA_SCANS = {
               "cuda-block-scan (hand-written CUDA kernels K2-K4)"),
     "banded": (banded_scan.banded_scan_reject_reason, "stacked banded scan",
                "cuda-banded-scan (hand-written CUDA kernels K5a/K5b, one "
-               "warp per graph)"),
+               "CTA per graph)"),
 }
 
 

@@ -38,7 +38,8 @@ _SIGNATURES = {
     "mm_block_bwd": [_P] * 12 + [_I] * 7 + [_P] * 10,
     "mm_block_ctas": [_I] * 4,
     "mm_banded_fwd": [_P] * 13,
-    "mm_banded_bwd": [_P] * 9,
+    "mm_banded_bwd": [_P] * 10,
+    "mm_banded_smem": [_I] * 3,
     "mm_dense_fwd": [_P] * 6 + [_I] * 2 + [_P] * 4 + [_I] * 6 + [_P] * 9,
     "mm_dense_bwd": [_P] * 6 + [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P] * 8,
     "mm_vit_fwd": [_P] * 8 + [_I] * 3 + [_P] * 10,

@@ -16,7 +16,11 @@ state:
 * K5b ``backward``: the reverse sweep (replaces ``_make_bwd_kernel``):
   beta through the transposed bands PLUS omega·beta[fin], gamma = alpha ⊙
   beta, and the per-frame pdf posteriors (Nf, P1, G), normalised by the
-  state sum of gamma.
+  state sum of gamma.  A graph's posteriors are non-zero only at its own
+  pdfs: K5b sums each of them in the fixed state order of the host plan
+  ``pdf_plan`` (built once per graph), scales the sums by one reciprocal
+  of the frame's gamma sum, and writes only those; the rest of the output
+  is zeroed once per call.
 
 One repair against the Pallas kernels: the state (alpha, beta, and so
 gamma) and the logZ pieces are float64, while the inputs and the
@@ -36,7 +40,8 @@ stream and return raw gamma because Mosaic has no per-lane gather, K5a and
 K5b gather each state's emission from ``ext`` (Nf, P1, G) and reduce gamma
 to pdf posteriors in their own bodies: no (Nf, Sp, G) emission or gamma
 stream is written.  The twins compute the same (``torch.gather`` and
-``scatter_add``).  The CUDA source is ``csrc/banded_scan.cu``; ``_build.py``
+``scatter_add``; the plan's order changes only the last bits of the
+posteriors).  The CUDA source is ``csrc/banded_scan.cu``; ``_build.py``
 compiles it with nvcc at first use.  Each wrapper takes its plain version
 for CPU tensors and launches the kernel for CUDA tensors; anything else
 raises.
@@ -57,12 +62,15 @@ __all__ = [
     "banded_scan_reject_reason",
     "BandedOp",
     "kernel_operator",
+    "pdf_plan",
+    "plan_fields",
     "fwd_matvec_plain",
     "bwd_matvec_plain",
     "fwd_sweep",
     "backward",
     "fwd_sweep_plain",
     "backward_plain",
+    "gammas_plain",
     "banded_fused_fb",
     "LAUNCHES",
     "reset_launch_counts",
@@ -72,7 +80,10 @@ __all__ = [
 LAUNCHES = {"banded_fwd": 0, "banded_bwd": 0}
 
 _MAX_BANDS = 8  # offsets a kernel takes (compile_fsm's cap)
-_WARPS_PER_BLOCK = 4  # graphs per CTA, one warp each (WPB in the .cu)
+_DEPTH = 8  # frames fetched ahead of the chain (DEPTH in the .cu)
+_POST_WARPS = 2  # K5b's posterior warps (POST_WARPS in the .cu)
+_YRING = 8  # frames of beta between K5b's warps (YRING in the .cu)
+_MAX_STATES = 32 * 32  # 32 lanes x MAX_J states per lane (the .cu)
 _SMEM_BYTES = 232448  # dynamic shared memory one CTA may use on Hopper
 
 
@@ -85,11 +96,20 @@ def reset_launch_counts():
 # admission
 # ---------------------------------------------------------------------------
 
-def _smem_words(Sp: int, nO: int, P1: int) -> int:
-    """Shared-memory words per warp of K5b, the larger kernel: one frame's
-    float64 pdf sums, the float64 state double buffer, the bands, omega
-    and the state->pdf map (csrc/banded_scan.cu, ``bwd_smem_words``)."""
-    return 2 * P1 + ((4 * Sp + (max(nO, 1) + 2) * Sp + 1) & ~1)
+def _smem_words(Sp: int, nO: int) -> tuple:
+    """Shared-memory words (4 bytes) of one CTA of K5a and of K5b, one graph
+    each (csrc/banded_scan.cu, ``fwd_smem_words``, ``bwd_smem_words``).
+    K5a: the float64 state double buffer, bands (one zero band when nO =
+    0), omega and alpha ring, two mbarriers per ring slot, then the float
+    emission and shift rings.  K5b: the state double buffer, the bands,
+    omega, the beta ring, and per posterior warp gamma and an alpha ring
+    (float64), two mbarriers per beta slot and per emission slot, the
+    emission ring and the plan's state order."""
+    nb = max(nO, 1)
+    fwd = 2 * (2 + nb + 1 + _DEPTH) * Sp + 4 * _DEPTH + _DEPTH * Sp + _DEPTH
+    bwd = (2 * (2 + nb + 1 + _YRING + _POST_WARPS * (1 + _DEPTH)) * Sp
+           + 4 * (_YRING + _DEPTH) + (_DEPTH + 1) * Sp)
+    return fwd, bwd
 
 
 def banded_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
@@ -100,9 +120,10 @@ def banded_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     The predicates shared with the JAX package's ``banded_scan_supported``
     come first, in its order and words.  Its TPU rules (graph count a
     multiple of 128 lanes, the 96 MB VMEM and 4 GB HBM caps) are not
-    copied: a warp owns one graph, so any G works.  The CUDA design adds
-    two of its own: one warp's state, bands, omega, pdf map and pdf sums
-    must fit the shared memory of a CTA of four warps, and the (Nf, P1, G)
+    copied: a CTA owns one graph, so any G works.  The CUDA design adds
+    three of its own: at most 1,024 states (32 in each lane's registers),
+    each kernel's shared memory (``_smem_words``) within a CTA's, and the
+    (Nf, P1, G)
     emission and posterior streams plus the (Nf, Sp, G) float64 alphas,
     each sized by its dtype, must fit the free memory of ``device`` when
     that is a CUDA device (checked where a card is present)."""
@@ -125,10 +146,13 @@ def banded_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     if nO > _MAX_BANDS:
         return f"{nO} band offsets (kernel supports at most {_MAX_BANDS})"
     P1 = cf.num_pdfs + 1
-    smem = _WARPS_PER_BLOCK * _smem_words(Sp, nO, P1) * 4
+    if Sp > _MAX_STATES:
+        return (f"{Sp} padded states exceed the kernels' {_MAX_STATES} (32 "
+                "per lane)")
+    smem = 4 * max(_smem_words(Sp, nO))
     if smem > _SMEM_BYTES:
         return (f"shared-memory working set {smem} B for Sp = {Sp}, "
-                f"{nO} offsets, {P1} pdfs exceeds a CTA's {_SMEM_BYTES} B")
+                f"{nO} offsets exceeds a CTA's {_SMEM_BYTES} B")
     if (device is not None and torch.device(device).type == "cuda"
             and torch.cuda.is_available() and n_frames is not None):
         f = cf.alpha_hat.element_size()
@@ -157,6 +181,7 @@ class BandedOp(NamedTuple):
     om: torch.Tensor  # (Sp, G) omega: arcs into the phony state
     fin: torch.Tensor  # (G,) int32 phony final state per graph
     spdf: torch.Tensor  # (Sp, G) int32 pdf of each state
+    plan: torch.Tensor  # (G, 3·Sp + 2) int32: K5b's pdf plan (pdf_plan)
 
 
 def kernel_operator(cf) -> BandedOp:
@@ -172,6 +197,7 @@ def kernel_operator(cf) -> BandedOp:
                               device=cf.device).reshape(-1)
         bands = lambda b: lift(b).reshape(-1, nO, cf.padded_states).permute(
             1, 2, 0).contiguous()
+        spdf = lift(cf.state_pdf).T.contiguous()
         kop = BandedOp(
             Sp=cf.padded_states,
             G=1 if one else cf.alpha_hat.shape[0],
@@ -182,10 +208,41 @@ def kernel_operator(cf) -> BandedOp:
             bb=bands(cf.banded_bwd),
             om=lift(cf.omega_prob).T.contiguous(),
             fin=fin.contiguous(),
-            spdf=lift(cf.state_pdf).T.contiguous(),
+            spdf=spdf,
+            plan=torch.from_numpy(pdf_plan(spdf.cpu().numpy())).to(
+                cf.device),
         )
         cf._cache["banded_scan"] = kop
     return kop
+
+
+def pdf_plan(spdf: np.ndarray) -> np.ndarray:
+    """K5b's plan of the posteriors from the (Sp, G) state->pdf map: per
+    graph g one int32 row [n, pdf[Sp], seg[Sp + 1], state[Sp]] with the
+    graph's n distinct pdfs ascending in pdf[:n], and for pdf[e] its states
+    state[seg[e]:seg[e + 1]] in ascending order (padding states under
+    their own pdf, the phony one); seg[n:] = Sp.  Every state of the graph
+    appears once, so a sum over each pdf's states in this order is K5b's
+    fixed summation order."""
+    Sp, G = spdf.shape
+    out = np.zeros((G, 3 * Sp + 2), dtype=np.int32)
+    for g in range(G):
+        order = np.argsort(spdf[:, g], kind="stable")
+        pdfs, starts = np.unique(spdf[order, g], return_index=True)
+        n = len(pdfs)
+        out[g, 0] = n
+        out[g, 1:1 + n] = pdfs
+        out[g, 1 + Sp:2 + 2 * Sp] = Sp
+        out[g, 1 + Sp:1 + Sp + n] = starts
+        out[g, 2 + 2 * Sp:] = order
+    return out
+
+
+def plan_fields(plan: torch.Tensor, Sp: int):
+    """(n (G,), pdf (G, Sp), seg (G, Sp + 1), state (G, Sp)): the parts
+    of :func:`pdf_plan`'s rows."""
+    return (plan[:, 0], plan[:, 1:1 + Sp], plan[:, 1 + Sp:2 + 2 * Sp],
+            plan[:, 2 + 2 * Sp:])
 
 
 # ---------------------------------------------------------------------------
@@ -256,23 +313,29 @@ def fwd_sweep_plain(kop: BandedOp, ext, mshift, save_alphas: bool = True):
     return alphas, vfin, shift, ksum
 
 
-def backward_plain(kop: BandedOp, ext, alphas):
-    """Plain twin of K5b: frames Nf-1 .. 0 from beta = 1 over the float64
-    ``alphas``.  Returns posts (Nf, P1, G) float32: gamma = alpha ⊙ beta
-    summed per pdf, over its state sum (0 where that is 0)."""
-    Nf, P1, G = ext.shape
-    posts = ext.new_empty((Nf, P1, G))
-    spdf = kop.spdf.long()
+def gammas_plain(kop: BandedOp, ext, alphas):
+    """K5b's recursion in plain PyTorch: (t, gamma (Sp, G) float64) for
+    t = Nf-1 .. 0, from beta = 1 over the float64 ``alphas``."""
     b = None
-    for t in reversed(range(Nf)):
-        y = torch.ones_like(alphas[t]) if t == Nf - 1 else bwd_matvec_plain(
-            kop, b)
-        g = alphas[t] * y
+    for t in reversed(range(ext.shape[0])):
+        y = (torch.ones_like(alphas[t]) if b is None
+             else bwd_matvec_plain(kop, b))
+        yield t, alphas[t] * y
+        bn = y * _emission(kop, ext[t])
+        b = bn * _pow2_scale(_pow2_exponent(bn.amax(dim=0)))[None, :]
+
+
+def backward_plain(kop: BandedOp, ext, alphas, dtype=torch.float32):
+    """Plain twin of K5b.  Returns posts (Nf, P1, G) in ``dtype`` (float64
+    keeps them before K5b's float32 cast): gamma = alpha ⊙ beta summed per
+    pdf, over its state sum (0 where that is 0)."""
+    Nf, P1, G = ext.shape
+    posts = ext.new_empty((Nf, P1, G), dtype=dtype)
+    spdf = kop.spdf.long()
+    for t, g in gammas_plain(kop, ext, alphas):
         s = g.new_zeros((P1, G)).scatter_add_(0, spdf, g)
         tot = g.sum(dim=0)
         posts[t] = s / torch.where(tot > 0, tot, torch.ones_like(tot))
-        bn = y * _emission(kop, ext[t])
-        b = bn * _pow2_scale(_pow2_exponent(bn.amax(dim=0)))[None, :]
     return posts
 
 
@@ -296,6 +359,7 @@ def _check_op(kop: BandedOp, dev):
         _check(name, t, shape, dev)
     _check("fin", kop.fin, (kop.G,), dev, torch.int32)
     _check("spdf", kop.spdf, (kop.Sp, kop.G), dev, torch.int32)
+    _check("plan", kop.plan, (kop.G, 3 * kop.Sp + 2), dev, torch.int32)
 
 
 def fwd_sweep(kop: BandedOp, ext, mshift, save_alphas: bool = True):
@@ -329,7 +393,7 @@ def fwd_sweep(kop: BandedOp, ext, mshift, save_alphas: bool = True):
 
 def backward(kop: BandedOp, ext, alphas):
     """K5b: the reverse sweep and the pdf posteriors.  Same output as
-    :func:`backward_plain`."""
+    :func:`backward_plain` (each graph's pdf sums in its plan's order)."""
     if not _route(ext, "banded-scan"):
         return backward_plain(kop, ext, alphas)
     from . import _build
@@ -340,12 +404,12 @@ def backward(kop: BandedOp, ext, alphas):
     _check("ext", ext, (Nf, kop.P1, kop.G), dev)
     _check("alphas", alphas, (Nf, kop.Sp, kop.G), dev, torch.float64)
     meta = _imeta(kop, Nf)
-    posts = torch.empty((Nf, P1, G), device=dev)  # every entry written
+    posts = torch.empty((Nf, P1, G), device=dev)  # zeroed, then written
     with torch.cuda.device(dev):
         rc = _build.library().mm_banded_bwd(
-            _p(kop.bb), _p(kop.om), _p(kop.fin), _p(kop.spdf), _p(ext),
-            _p(alphas), ctypes.c_void_p(meta.ctypes.data), _p(posts),
-            _stream(dev),
+            _p(kop.bb), _p(kop.om), _p(kop.fin), _p(kop.spdf), _p(kop.plan),
+            _p(ext), _p(alphas), ctypes.c_void_p(meta.ctypes.data),
+            _p(posts), _stream(dev),
         )
     _raise_on(rc, "mm_banded_bwd")
     LAUNCHES["banded_bwd"] += 1

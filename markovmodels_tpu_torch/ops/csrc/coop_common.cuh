@@ -1,6 +1,8 @@
 // Shared by the persistent cooperative kernels (dense_scan.cu sweep_kernel,
-// block_scan.cu fwd_chunk_kernel and bwd_chunk_kernel): asynchronous copies
-// to shared memory, L2 hints, and the grid-wide barrier between two frames.
+// block_scan.cu fwd_chunk_kernel and bwd_chunk_kernel) and the numerator
+// sweeps (banded_scan.cu): asynchronous copies to shared memory, L2 hints,
+// mbarriers between the warps of one CTA, and the grid-wide barrier between
+// two frames.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -82,6 +84,20 @@ __device__ __forceinline__ void st4_hint(float* p, float4 v,
       : "memory");
 }
 
+// 4 and 8 bytes global -> shared, through L1 (the smallest copies
+// cp.async takes; a gather of single values).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -95,6 +111,46 @@ __device__ __forceinline__ void cp_async_wait() {
 // A hint to pull the 128-byte line at p into L2.
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// An mbarrier in shared memory that completes a phase when ``count``
+// threads have arrived.  An arrive releases the thread's earlier shared-
+// memory reads and writes; a wait that sees the phase complete acquires
+// them.  Initialise before a __syncthreads.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(s),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
+          "r"(s)
+      : "memory");
+}
+
+// Wait until the phase of parity ``parity`` (0 for the first, 1 for the
+// second, ...) has completed.  A wait that never ends (a protocol fault)
+// traps after 2^26 tries, so the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  unsigned done;
+  for (unsigned tries = 0;; ++tries) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(s), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries >= (1u << 26)) __trap();
+  }
 }
 
 // Grid-wide barrier of a cooperative launch: a counter and a generation

@@ -350,7 +350,10 @@ def test_reject_reasons_name_each_port_predicate(mixed):
         (rep(ct, alpha_hat=ct.alpha_hat.double()), "operator dtype"),
         (rep(ct, banded_offsets=(0, Sp)), "band offset exceeds"),
         (rep(ct, banded_offsets=tuple(range(9))), "9 band offsets"),
-        (rep(ct, num_pdfs=60000), "shared-memory working set"),
+        (rep(ct, alpha_hat=ct.alpha_hat.new_zeros((G, 1000))),
+         "shared-memory working set"),
+        (rep(ct, alpha_hat=ct.alpha_hat.new_zeros((G, 1544))),
+         "1544 padded states exceed"),
     ]
     for cf, match in cases:
         assert match in bsc.banded_scan_reject_reason(cf, G), match
