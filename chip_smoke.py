@@ -38,6 +38,14 @@ phases:
 8. stacked-numerator ``pdfposteriors`` against the f64 oracle: 4 chain
    lattices at N=40, then 4 with skip arcs (three band offsets, up to 130
    states) at N=150, where K5a and K5b are held to their twins too;
+8b. stacked numerators past the narrow K5's 1,024 states (4 skip-arc
+    lattices of ~1,200 states) through K5's wide instantiation, the route
+    line printed: ``pdfposteriors`` and ``lfmmi_loss`` with the 2M-arc
+    denominator at N=700 against the f64 oracle and γ_den - γ_num, the
+    admission's shared memory against the kernels'; a G=128 stack of them:
+    K5a and K5b each run twice (bit-equal) and against their twins, timed,
+    and through the training step (one launch each) timed beside phase
+    9's (run after phase 9);
 9. the training step at B=128, N=700 with launch counters (K2-K5b), the
    gradient against γ_den - γ_num, and its time beside the denominator's;
    a ``torch.profiler`` breakdown of one step (K5a's and K5b's device
@@ -65,17 +73,22 @@ phases:
     bounds, and a frame without the product (an all-zero operator);
 14. four stacked non-banded 'dense' graphs (B = G = 4) through the
     per-graph route on the card against the f64 oracle;
-15. K7 and the walk against their plain twins at the 2M-arc graph, B=128,
-    N=128 (mixed lengths with 1 and N, ±30-nat cliffs): ids and omega
-    argmaxes bit-equal, scores within 1e-5;
+15. K7 and the walk against their plain twins at the 2M-arc graph, B=128
+    and B=126 (the kernel's scalar branch), N=128 (mixed lengths with 1 and
+    N, ±30-nat cliffs): ids and omega argmaxes bit-equal, scores within
+    1e-5;
 16. ``viterbi`` at B=2, N=40 against the f64 max-plus optimum
     (``oracle.host_viterbi_score``): |Δscore| ≤ 1e-3, the decoded paths'
     f64 weight within 1e-4 of it;
-17. the decode at B=128, N=700 with launch counters, every path walked in
-    float64 (``oracle.validate_paths``, gap < 2e-3), the sweep and the walk
-    timed apart, audio-s/s, and the plain twins timed beside them and held
-    to the kernels at this shape (ids, omega argmaxes and walked states
-    bit-equal, scores within 1e-5);
+17. the decode at B=128, N=700 with launch counters (exactly one K7 and one
+    walk launch, by the counters and by the profiler's kernel count), every
+    path walked in float64 (``oracle.validate_paths``, gap < 2e-3), the
+    sweep and the walk timed apart, audio-s/s, a ``torch.profiler``
+    breakdown, the decode's parts apart (admissions, emission prep, sweep,
+    score, walk, the ``orig_state`` gather), K7's frame split (whole, no
+    tier, no bands, neither), and the plain twins timed beside them and
+    held to the kernels at this shape (ids, omega argmaxes and walked
+    states bit-equal, scores within 1e-5);
 18. the separate-state graph compiled with the default arguments onto the
     card ('block', ``ov_layout`` (128, 3)) and its fast-path report;
 19. K2, K3 and K4 against their plain twins on it at B=128, N=128 (lengths
@@ -307,14 +320,19 @@ def dense_bounds(dcf, B, Nf, dense=False):
 
 
 def vit_bounds(cf, B, Nf):
-    """K7 over the Nf-frame sweep: per candidate (tier, bands over the main
-    region) four instructions, none of which fuses into an FMA: the
-    multiply, the compare, and the selects of the running max and of the
-    winning id (a max instruction can take the value's select, but the id
-    still needs the compare's predicate, so four is the least); per state
-    the omega product and max, the emission multiply and the rescale; the
-    ids written once.  The walk: per frame and sequence one id, two table
-    reads and one state written (what this decode reads)."""
+    """K7 over the Nf-frame sweep: per tier candidate the work the function
+    needs, one multiply and one max, and the id ~1/g of that (g tier
+    candidates per group, ``vit_scan.layout``: per group a compare and the
+    selects of the running value and of the group; the winner's recovery
+    is one group more per output); per
+    band candidate a multiply, a compare and two selects; per state the
+    omega product and max, the emission multiply and the rescale; the ids
+    written once.  Each operation at one per lane and clock
+    (PEAK_F32_OPS).  "K7 (4 instructions)": the same with the four
+    instructions per tier candidate that a running (max, argmax) loop
+    issues (a multiply, a compare, two selects).  The walk: per frame and
+    sequence one
+    id, two table reads and one state written (what this decode reads)."""
     from markovmodels_tpu_torch.ops import block_scan as bs
     from markovmodels_tpu_torch.ops import vit_scan as vs
 
@@ -322,10 +340,14 @@ def vit_bounds(cf, B, Nf):
     K, Sm, D = kop.fwd.W.shape
     nO, Sp, P1 = len(kop.fwd.offsets), kop.Sp, kop.P1
     RW = vs._main_region(cf)
-    ops = Nf * B * (4 * K * Sm * D + 4 * nO * RW + 2 * Sp + 2 * Sp)
     nbytes = (4 * (K * Sm * D + nO * Sp + 2 * Sp + Nf * (P1 + 1) * B)
               + Nf * RW * B + 4 * Nf * B + 12 * B)
+    rest = 4 * nO * RW + 2 * Sp + 2 * Sp
+    tier, g = K * Sm * D, vs.layout(B, Nf - 1)[1]
+    ops = Nf * B * (2 * (1 + 1 / g) * tier + rest)
+    ops4 = Nf * B * (4 * tier + rest)
     return {"K7": bound(ops, nbytes, PEAK_F32_OPS),
+            "K7 (4 instructions)": bound(ops4, nbytes, PEAK_F32_OPS),
             "K7w": bound(0, (Nf - 1) * B * (1 + 4 + 4 + 4) + 8 * B)}
 
 
@@ -962,6 +984,116 @@ def phase_banded_oracle(P, dev):
             assert ka <= TOL_K5 and kb <= TOL_K5, "K5 disagrees with its twin"
 
 
+def phase_big_numerators(cf, P, dev, t_step, N=700):
+    """Phase 8b: stacked numerators past the narrow K5's 1,024 states
+    (lattices of ~1,200 states with skip arcs: three offsets) take K5's
+    wide instantiation: 4 of them through ``pdfposteriors`` and
+    ``lfmmi_loss`` with the 2M-arc denominator against the f64 oracle, K5a
+    and K5b each run twice (bit-equal) and held to their twins, the
+    admission's shared memory against the kernels'; then a G=128 stack of
+    them through the training step, timed beside the Sp = 80 step
+    (``t_step``), and K5a and K5b on that stack against their twins and
+    timed.  Returns (t_big, launches, errs, times, bounds) of the G=128
+    stack."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import _build
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops import block_scan as bs
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    graphs = skip_numerators(P, (1200, 1180, 1150, 1199), seed=7)
+    compiled = [mt.compile_fsm(f, sp, P, strategy="banded", device=dev)
+                for f, sp in graphs]
+    num = mt.stack(compiled)
+    Sp, nO = num.padded_states, len(num.banded_offsets)
+    report = mt.fast_path_report(num, 4)
+    print(f"phase 8b: 4 skip-arc numerators, Sp = {Sp}, offsets "
+          f"{num.banded_offsets}; path: {report}")
+    assert report.startswith("cuda-banded-scan") and Sp > 1024, report
+    assert bsc._wide(Sp, nO) == (True, True), bsc._wide(Sp, nO)
+    smem = [_build.library().mm_banded_smem(Sp, nO, bwd) for bwd in (0, 1)]
+    assert smem == [4 * w for w in bsc._smem_words(Sp, nO)], (
+        f"admission's shared memory {bsc._smem_words(Sp, nO)} words, the "
+        f"kernels' {smem} bytes")
+    rng = np.random.default_rng(8)
+    lhs = rng.normal(size=(4, N, P)).astype(np.float32)
+    lens = np.array([N, N - 10, N - 60, N], dtype=np.int32)
+    tl, tn = torch.from_numpy(lhs).to(dev), torch.from_numpy(lens).to(dev)
+    bsc.reset_launch_counts()
+    posts, z = mt.pdfposteriors(num, tl, tn)
+    x = tl.clone().requires_grad_()
+    loss = mt.lfmmi_loss(num, cf, x, tn)
+    loss.sum().backward()
+    torch.cuda.synchronize()
+    counts = dict(bsc.LAUNCHES)
+    assert all(v > 0 for v in counts.values()), counts
+    pd, zd = mt.pdfposteriors(cf, tl, tn)
+    z_, posts_ = z.cpu().numpy(), posts.cpu().numpy()
+    err = perr = 0.0
+    for g, (fsm, spdf) in enumerate(graphs):
+        rz, rp = mt.oracle.host_oracle(fsm, spdf, P,
+                                       lhs[g:g + 1].astype(np.float64),
+                                       lens[g:g + 1])
+        assert np.isfinite(rz[0]) and np.isfinite(z_[g]), "infeasible"
+        err = max(err, float(np.abs(z_[g] - rz[0])))
+        perr = max(perr, float(np.abs(posts_[g] - rp[0]).max()))
+    lerr = float((loss - (zd - z)).abs().max())
+    gerr = float((x.grad - (pd - posts)).abs().max())
+    print(f"phase 8b: pdfposteriors G=4 N={N} vs f64 oracle |dlogZ| = "
+          f"{err:.3e}, |dposts| = {perr:.3e} (tol {TOL_ORACLE:g}); "
+          f"lfmmi_loss with the 2M-arc denominator: |loss - (logZ_den - "
+          f"logZ_num)| = {lerr:.3e}, |grad - (posts_den - posts_num)| = "
+          f"{gerr:.3e} (tol {TOL_GRAD:g}); K5 launches {json.dumps(counts)}; "
+          f"shared memory per CTA K5a {smem[0]} B, K5b {smem[1]} B")
+    assert err <= TOL_ORACLE and perr <= TOL_ORACLE, "oracle gate failed"
+    assert lerr <= TOL_ORACLE and gerr <= TOL_GRAD, "loss or gradient"
+
+    big = mt.stack(compiled * 32)
+    lhs = torch.from_numpy(make_inputs(np.random.default_rng(0), 128, N,
+                                       P)).to(dev)
+    lens = torch.from_numpy(np.tile(lens, 32)).to(dev)
+    kop = bsc.kernel_operator(big)
+    ext, msh = prepare_emissions(lhs, lens, P)
+    fk, again = bsc.fwd_sweep(kop, ext, msh), bsc.fwd_sweep(kop, ext, msh)
+    pk, pk2 = bsc.backward(kop, ext, fk[0]), bsc.backward(kop, ext, fk[0])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(fk, again)), "K5a: runs"
+    assert torch.equal(pk, pk2), "K5b: two runs differ"
+    del again, pk2
+    fp = bsc.fwd_sweep_plain(kop, ext, msh)
+    errs = {"K5a": max(float((a - b).abs().max())
+                       for a, b in zip(fk, fp) if a is not None),
+            "K5b": float((pk - bsc.backward_plain(kop, ext, fk[0])).abs()
+                         .max())}
+    del fk, fp, pk
+    print(f"phase 8b: G=128 N={N}: K5a and K5b (wide) run twice, "
+          f"bit-equal; kernel vs plain max |err| K5a {errs['K5a']:.3e}, "
+          f"K5b {errs['K5b']:.3e} (tol {TOL_K5:g})")
+    assert all(e <= TOL_K5 for e in errs.values()), errs
+
+    def step():
+        x = lhs.clone().requires_grad_()
+        mt.lfmmi_loss(big, cf, x, lens).sum().backward()
+
+    for m in (bs, bsc):
+        m.reset_launch_counts()
+    step()
+    torch.cuda.synchronize()
+    counts = {**bs.LAUNCHES, **bsc.LAUNCHES}
+    assert (bsc.LAUNCHES == {"banded_fwd": 1, "banded_bwd": 1}
+            and bs.LAUNCHES["block_fwd"] == 1), counts
+    launches = dict(bsc.LAUNCHES)
+    t_big = cuda_ms(step, reps=2)
+    print(f"phase 8b: LF-MMI step B=G=128 N={N} with the ~1,200-state "
+          f"numerators (path: {mt.fast_path_report(big, 128)}): "
+          f"{t_big:.2f} ms, beside the Sp = 80 step's {t_step:.2f} ms; "
+          f"launches {json.dumps(counts)}")
+    times = time_banded(big, P, dev, (ext, msh), "wide, Sp = %d" % Sp)
+    return t_big, launches, errs, times, banded_bounds(big, N + 1)
+
+
 def launch_counts(mods, bf16=False):
     """The launch counts of the ops modules ``mods``; with ``bf16``, those of
     the bf16 instantiations (``LAUNCHES_BF16``, keys suffixed ``_bf16``)
@@ -1031,13 +1163,14 @@ def phase_step(num_cf, cf, P, dev, mods, label, B=128, N=700, bf16=False):
     return launches, t_step, t_den
 
 
-def time_banded(num_cf, P, dev):
+def time_banded(num_cf, P, dev, inputs=None, tag=None):
     """K5a and K5b and their plain twins over the whole 701-frame sweep at
-    the numerators' main shape, ``P`` pdfs."""
+    the numerators' main shape, ``P`` pdfs (or on ``inputs``, (ext,
+    mshift))."""
     from markovmodels_tpu_torch.ops import banded_scan as bsc
 
     kop = bsc.kernel_operator(num_cf)
-    ext, msh = banded_inputs(num_cf, P, dev)
+    ext, msh = inputs or banded_inputs(num_cf, P, dev)
     alphas = bsc.fwd_sweep(kop, ext, msh)[0]
     calls = {
         "K5a": (lambda: bsc.fwd_sweep(kop, ext, msh),
@@ -1050,8 +1183,8 @@ def time_banded(num_cf, P, dev):
         p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern, reps=5),
                           cuda_ms(kern, reps=5), cuda_ms(plain))
         out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"timing: {name} at P={P}: kernel {k1:.3f}/{k2:.3f} ms, plain "
-              f"{p1:.3f}/{p2:.3f} ms")
+        print(f"timing: {name} at P={P}{', ' + tag if tag else ''}: kernel "
+              f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms")
     return out
 
 
@@ -1378,7 +1511,8 @@ def vit_score(out):
 
 def phase_vit_kernels(cf, P, dev, B=128, N=128):
     """Phase 15: K7 and the walk against their plain twins on one input at
-    the main graph, B=128, N=128."""
+    the main graph, N=128; B=128 and B=126 (B % 4 != 0: the kernel's
+    scalar branch)."""
     import torch
 
     from markovmodels_tpu_torch.ops import vit_scan as vs
@@ -1401,10 +1535,10 @@ def phase_vit_kernels(cf, P, dev, B=128, N=128):
     torch.cuda.synchronize()
     sp = vs.walk_plain(wt, out_k[0], out_k[1], lens)
     werr = float((sk - sp).abs().max())
-    print(f"phase 15: K7 vs plain: {n_bp} of {out_k[0].numel()} ids and "
-          f"{n_fin} of {out_k[1].numel()} omega argmaxes differ; max |dscore|"
-          f" = {serr:.3e} (tol {TOL_VIT:g}); walk kernel vs plain max "
-          f"|dstate| = {werr:g}")
+    print(f"phase 15: B={B}: K7 vs plain: {n_bp} of {out_k[0].numel()} ids "
+          f"and {n_fin} of {out_k[1].numel()} omega argmaxes differ; max "
+          f"|dscore| = {serr:.3e} (tol {TOL_VIT:g}); walk kernel vs plain "
+          f"max |dstate| = {werr:g}")
     assert n_bp == 0 and n_fin == 0, "K7 ids differ from the plain twin"
     assert serr <= TOL_VIT, f"K7 scores disagree: {serr}"
     assert werr == 0, "the walk kernel disagrees with its plain twin"
@@ -1436,6 +1570,80 @@ def phase_vit_oracle(fsm, spdf, cf, P, dev, n=40):
     assert serr <= TOL_VIT_ORACLE, "Viterbi score gate failed"
 
 
+def vit_frame_split(cf, ext, msh, reps=3):
+    """K7 over the whole sweep on the forward operator and on three cut
+    copies of it (``cut_operator(..., direction="fwd")``: no tier, no band
+    offsets, neither: the frame without work), µs per frame, CUDA events,
+    mean of ``reps`` warm runs each.  The sweep takes its operator from the
+    graph's cache, so a cut copy put there is what it runs; the whole one
+    is put back after."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import block_scan as bs
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+
+    key = ("block_scan", torch.float32)
+    kop = bs.kernel_operator(cf, torch.float32)
+    out = {}
+    try:
+        for part, cut in (
+                ("whole", kop),
+                ("no tier", cut_operator(kop, tier=False, direction="fwd")),
+                ("no bands", cut_operator(kop, bands=False,
+                                          direction="fwd")),
+                ("without work", cut_operator(kop, False, False, "fwd"))):
+            cf._cache[key] = cut
+            t = cuda_ms(lambda: vs.viterbi_fwd(cf, ext, msh), reps=reps)
+            out[part] = 1e3 * t / ext.shape[0]
+    finally:
+        cf._cache[key] = kop
+    return out
+
+
+def decode_parts(cf, lhs, lengths):
+    """The decode's steps apart, as ``viterbi._viterbi_scale_bp`` runs
+    them: the two admissions (host ms, from the host clock), the emission
+    prep, the K7 sweep, the score, the walk and the ``orig_state`` gather
+    with its transpose (device ms, CUDA events, mean of 3 warm runs)."""
+    import importlib
+
+    import torch
+
+    from markovmodels_tpu_torch import inference as tinf
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    tvit = importlib.import_module("markovmodels_tpu_torch.viterbi")
+    B, N, P = lhs.shape
+
+    def admissions():
+        assert tvit._bp_vit_reject_reason(cf, lhs) is None
+        assert vs.vit_scan_reject_reason(cf, B, n_frames=N,
+                                         device=lhs.device) is None
+
+    admissions()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        admissions()
+    t_adm = 1e3 * (time.perf_counter() - t0) / 3
+    ext, msh = prepare_emissions(lhs, lengths, P)
+    out = vs.viterbi_fwd(cf, ext, msh)
+    wt = vs.walk_tables(cf)
+    st = vs.walk(wt, out[0], out[1], lengths)
+    return {
+        "admissions (host)": t_adm,
+        "emission prep": cuda_ms(lambda: prepare_emissions(lhs, lengths, P),
+                                 reps=3),
+        "K7 sweep": cuda_ms(lambda: vs.viterbi_fwd(cf, ext, msh), reps=3),
+        "score": cuda_ms(lambda: tinf._combine_shift(
+            tinf._log_final(out[2]), out[4], out[3]).to(lhs.dtype), reps=3),
+        "walk": cuda_ms(lambda: vs.walk(wt, out[0], out[1], lengths),
+                        reps=3),
+        "orig_state gather": cuda_ms(
+            lambda: cf.orig_state[st.long()].T.contiguous(), reps=3),
+    }
+
+
 def phase_vit_main(fsm, spdf, cf, P, dev, B=128, N=700):
     """Phase 17: the full decode through K7 and the walk, checked and
     timed: the sweep and the walk separately, the decode end to end, and
@@ -1461,7 +1669,7 @@ def phase_vit_main(fsm, spdf, cf, P, dev, B=128, N=700):
     others = {k: v for m in (bs, bsc, ds) for k, v in m.LAUNCHES.items()}
     print(f"phase 17: launches {json.dumps(launches)}; other kernels "
           f"{json.dumps(others)}")
-    assert all(v > 0 for v in launches.values()), "a kernel never launched"
+    assert launches == {"vit_fwd": 1, "vit_walk": 1}, launches
     assert not any(others.values()), "the decode launched another kernel"
 
     st, sc = states.cpu().numpy(), score.cpu().numpy()
@@ -1490,11 +1698,26 @@ def phase_vit_main(fsm, spdf, cf, P, dev, B=128, N=700):
         print("phase 17: profile of the decode: not measured (no device "
               "events recorded)")
     else:
-        by_name, busy, span, _ = prof
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        by_name, busy, span, counts = prof
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])
         print(f"phase 17: profile of one decode: device busy {busy:.3f} ms "
               f"of a {span:.3f} ms span (idle {1 - busy / span:.1%}); "
-              + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
+              + "; ".join(f"{k} {v:.3f} ms ({counts[k]} launches)"
+                          for k, v in top))
+        vit = {k: v for k, v in counts.items() if k.startswith("vit_")}
+        assert sorted(vit.items()) == [("vit_sweep_kernel<true>", 1),
+                                       ("vit_walk_kernel", 1)], counts
+    parts = decode_parts(cf, lhs, lengths)
+    for k, v in parts.items():
+        print(f"phase 17: decode part: {k} {v:.3f} ms")
+    print(f"phase 17: decode parts sum {sum(parts.values()):.3f} ms against "
+          f"the decode's {t_dec:.3f} ms; outside the sweep "
+          f"{sum(parts.values()) - parts['K7 sweep']:.3f} ms")
+    split = vit_frame_split(cf, ext, msh)
+    print("timing: K7 frame split on the 2M-arc graph: " + "; ".join(
+        f"{k} {v:.2f} us" for k, v in split.items()) + f" per frame (over "
+        f"{ext.shape[0]} frames, {vs._vit_grid(bs.kernel_operator(cf), dev, B)}"
+        " CTAs)")
 
     # plain twins beside the kernels: plain, kernel, kernel, plain at
     # N=128, then once each at the full N=700
@@ -1534,7 +1757,7 @@ def phase_vit_main(fsm, spdf, cf, P, dev, B=128, N=700):
     assert serr <= TOL_VIT, f"K7 scores disagree: {serr}"
     assert werr == 0, "the walk kernel disagrees with its plain twin"
     times = {"K7": (t_sweep, t_plain), "K7w": (t_walk, t_walk_plain)}
-    return launches, times, t_dec, {"K7": serr, "K7w": werr}
+    return launches, times, t_dec, {"K7": serr, "K7w": werr}, split
 
 
 def phase_ov_step(num_cf, cf, ecf, P, dev, B=128, N=700, chunk=64):
@@ -1846,6 +2069,8 @@ def main():
     phase_banded_oracle(P, dev)
     launches, t_step, t_den = phase_step(num_cf, cf, P, dev, (bs, bsc),
                                          "phase 9")
+    t_big, w_launches, w_errs, w_times, w_bounds = phase_big_numerators(
+        cf, P, dev, t_step)
     profile_step(num_cf, cf, P, dev, "phase 9")
     profile_block_den(cf, P, dev, "phase 9")
     times, terrs = time_kernels(cf, P, dev)
@@ -1895,12 +2120,21 @@ def main():
           f"(epilogue, statistics, grid barrier): K6a {floor[0]:.2f} us, "
           f"K6b {floor[1]:.2f} us")
 
-    errs.update(phase_vit_kernels(cf, P, dev))
+    verrs = [phase_vit_kernels(cf, P, dev, B=b) for b in (128, 126)]
+    errs.update({k: max(e[k] for e in verrs) for k in verrs[0]})
     phase_vit_oracle(fsm, spdf, cf, P, dev)
-    vlaunches, vtimes, t_dec, verrs = phase_vit_main(fsm, spdf, cf, P, dev)
+    vlaunches, vtimes, t_dec, verrs, vsplit = phase_vit_main(fsm, spdf, cf,
+                                                             P, dev)
     errs.update({k: max(errs[k], v) for k, v in verrs.items()})
     times.update(vtimes)
+    splits["2M-arc"]["K7"] = vsplit
     bounds.update(vit_bounds(cf, 128, 701))
+    print(f"timing: K7 bound {bounds['K7'][0]:.3f} ms ({bounds['K7'][1]}: a "
+          f"multiply and a max per tier candidate, the id 1/"
+          f"{vs.layout(128, 700)[1]} of "
+          f"that); the four-instruction count of a running (max, argmax) "
+          f"loop gives {bounds['K7 (4 instructions)'][0]:.3f} ms; sweep "
+          f"{times['K7'][0]:.3f} ms")
 
     t0 = time.perf_counter()
     sfsm, sspdf, sP, sinfo = mt.workloads.make_backoff_lm_hmm_graph(
@@ -2098,6 +2332,17 @@ def main():
         for name, (counter, source, replaces) in table.items()
         if name in times96
     ]
+    kernels += [  # the wide instantiation: the ~1,200-state numerators
+        {"name": f"{name} {counter} (wide, ~1,200-state skip-arc "
+                 "numerators)",
+         "route": "cuda", "source": source, "replaces": replaces,
+         "launches": w_launches[counter], "max_abs_err": w_errs[name],
+         "ms": w_times[name][0], "plain_ms": w_times[name][1],
+         "bound_ms": w_bounds[name][0], "bound_by": w_bounds[name][1],
+         "library_ms": None}
+        for name, (counter, source, replaces) in table.items()
+        if name in w_times
+    ]
     kernels += [  # the overflow branch, on the separate-state graph
         {"name": f"{name} {counter} (separate-state backoff graph)",
          "route": "cuda", "source": source, "replaces": replaces,
@@ -2126,7 +2371,9 @@ def main():
         ]
     print(f"card: {card}; pdfposteriors B=128 N=700 kernel path "
           f"{t_kern:.2f} ms, plain path {t_plain:.2f} ms; LF-MMI step "
-          f"{t_step:.2f} ms, den-only {t_den:.2f} ms; dense-den LF-MMI step "
+          f"{t_step:.2f} ms, den-only {t_den:.2f} ms; with the ~1,200-state "
+          f"numerators (K5 wide) {t_big:.2f} ms; dense-den LF-MMI "
+          f"step "
           f"{t_dstep:.2f} ms, dense den-only {t_dden:.2f} ms; viterbi "
           f"B=128 N=700 {t_dec:.2f} ms; K6 matmul yardstick {t_mm:.2f} ms; "
           f"separate-state LF-MMI step {t_ostep:.2f} ms, den-only "

@@ -985,6 +985,9 @@ def fast_path_report(cf: CompiledFSM, batch_size: int, *, device=None) -> str:
         _kernel_route(cf, device, batch_size)
     except ValueError as e:
         return f"error - {e}"
+    if cf.strategy == "banded":
+        return (f"{_CUDA_SCANS['banded'][2]}; "
+                f"{banded_scan.instantiations(cf)}")
     return _CUDA_SCANS[cf.strategy][2]
 
 

@@ -42,7 +42,9 @@ _SIGNATURES = {
     "mm_banded_smem": [_I] * 3,
     "mm_dense_fwd": [_P] * 6 + [_I] * 2 + [_P] * 4 + [_I] * 6 + [_P] * 9,
     "mm_dense_bwd": [_P] * 6 + [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P] * 8,
-    "mm_vit_fwd": [_P] * 8 + [_I] * 3 + [_P] * 10,
+    "mm_vit_fwd": [_P] * 9 + [_I] * 5 + [_P] * 8 + [ctypes.c_longlong, _P],
+    "mm_vit_ctas": [_I] * 2,
+    "mm_vit_layout": [_I] * 2 + [_P],
     "mm_vit_walk": [_P] * 6 + [_I] * 8 + [_P] * 2,
 }
 

@@ -83,7 +83,9 @@ _MAX_BANDS = 8  # offsets a kernel takes (compile_fsm's cap)
 _DEPTH = 8  # frames fetched ahead of the chain (DEPTH in the .cu)
 _POST_WARPS = 2  # K5b's posterior warps (POST_WARPS in the .cu)
 _YRING = 8  # frames of beta between K5b's warps (YRING in the .cu)
-_MAX_STATES = 32 * 32  # 32 lanes x MAX_J states per lane (the .cu)
+_NARROW_STATES = 32 * 32  # 32 lanes x MAX_J states in registers (the .cu)
+_WDEPTH = 4  # the wide instantiation's DEPTH (WDEPTH in the .cu)
+_WYRING = 2  # and YRING (WYRING in the .cu), with one posterior warp
 _SMEM_BYTES = 232448  # dynamic shared memory one CTA may use on Hopper
 
 
@@ -96,20 +98,49 @@ def reset_launch_counts():
 # admission
 # ---------------------------------------------------------------------------
 
-def _smem_words(Sp: int, nO: int) -> tuple:
+def _variant_words(Sp: int, nO: int, wide: bool) -> tuple:
     """Shared-memory words (4 bytes) of one CTA of K5a and of K5b, one graph
-    each (csrc/banded_scan.cu, ``fwd_smem_words``, ``bwd_smem_words``).
-    K5a: the float64 state double buffer, bands (one zero band when nO =
-    0), omega and alpha ring, two mbarriers per ring slot, then the float
-    emission and shift rings.  K5b: the state double buffer, the bands,
-    omega, the beta ring, and per posterior warp gamma and an alpha ring
-    (float64), two mbarriers per beta slot and per emission slot, the
-    emission ring and the plan's state order."""
+    each, in the narrow or the wide instantiation (csrc/banded_scan.cu,
+    ``fwd_smem_words``, ``bwd_smem_words``).  K5a: the float64 state double
+    buffer, bands (one zero band when nO = 0), omega and alpha ring, two
+    mbarriers per ring slot, then the float emission and shift rings.
+    K5b: the state double buffer, the bands, omega, the beta ring, and per
+    posterior warp gamma and an alpha ring (float64), two mbarriers per
+    beta slot and per emission slot, the emission ring and the plan's
+    state order.  The wide one has shallower rings, one posterior warp,
+    and each state's pdf (int) besides."""
     nb = max(nO, 1)
-    fwd = 2 * (2 + nb + 1 + _DEPTH) * Sp + 4 * _DEPTH + _DEPTH * Sp + _DEPTH
-    bwd = (2 * (2 + nb + 1 + _YRING + _POST_WARPS * (1 + _DEPTH)) * Sp
-           + 4 * (_YRING + _DEPTH) + (_DEPTH + 1) * Sp)
+    D, R, W = ((_WDEPTH, _WYRING, 1) if wide
+               else (_DEPTH, _YRING, _POST_WARPS))
+    pd = Sp if wide else 0
+    fwd = 2 * (2 + nb + 1 + D) * Sp + 4 * D + D * Sp + D + pd
+    bwd = (2 * (2 + nb + 1 + R + W * (1 + D)) * Sp + 4 * (R + D)
+           + (D + 1) * Sp + pd)
     return fwd, bwd
+
+
+def _wide(Sp: int, nO: int) -> tuple:
+    """Whether K5a and K5b take the wide instantiation: past the narrow
+    one's states in registers, or where its shared memory exceeds a CTA's
+    (``fwd_wide``, ``bwd_wide`` in the .cu)."""
+    narrow = _variant_words(Sp, nO, False)
+    return tuple(Sp > _NARROW_STATES or 4 * w > _SMEM_BYTES for w in narrow)
+
+
+def _smem_words(Sp: int, nO: int) -> tuple:
+    """Shared-memory words of one CTA of K5a and of K5b, each in the
+    instantiation its launch takes (``mm_banded_smem``)."""
+    fw, bw = _wide(Sp, nO)
+    return _variant_words(Sp, nO, fw)[0], _variant_words(Sp, nO, bw)[1]
+
+
+def instantiations(cf) -> str:
+    """Which instantiation of K5a and of K5b a stacked 'banded' graph
+    takes, in words, for ``fast_path_report``."""
+    Sp, nO = cf.padded_states, len(cf.banded_offsets)
+    fw, bw = _wide(Sp, nO)
+    word = lambda w: "wide" if w else "narrow"
+    return f"K5a {word(fw)}, K5b {word(bw)} (Sp = {Sp}, {nO} offsets)"
 
 
 def banded_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
@@ -121,12 +152,12 @@ def banded_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     come first, in its order and words.  Its TPU rules (graph count a
     multiple of 128 lanes, the 96 MB VMEM and 4 GB HBM caps) are not
     copied: a CTA owns one graph, so any G works.  The CUDA design adds
-    three of its own: at most 1,024 states (32 in each lane's registers),
-    each kernel's shared memory (``_smem_words``) within a CTA's, and the
-    (Nf, P1, G)
-    emission and posterior streams plus the (Nf, Sp, G) float64 alphas,
-    each sized by its dtype, must fit the free memory of ``device`` when
-    that is a CUDA device (checked where a card is present)."""
+    two of its own: each kernel's shared memory (``_smem_words``: the
+    narrow instantiation's up to 1,024 states where it fits, else the
+    wide one's) within a CTA's, and the (Nf, P1, G) emission and
+    posterior streams plus the (Nf, Sp, G) float64 alphas, each sized by
+    its dtype, must fit the free memory of ``device`` when that is a CUDA
+    device (checked where a card is present)."""
     if not cf.batched or cf.strategy != "banded":
         return "not a stacked 'banded' CompiledFSM"
     if cf.domain != "prob":
@@ -146,9 +177,6 @@ def banded_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     if nO > _MAX_BANDS:
         return f"{nO} band offsets (kernel supports at most {_MAX_BANDS})"
     P1 = cf.num_pdfs + 1
-    if Sp > _MAX_STATES:
-        return (f"{Sp} padded states exceed the kernels' {_MAX_STATES} (32 "
-                "per lane)")
     smem = 4 * max(_smem_words(Sp, nO))
     if smem > _SMEM_BYTES:
         return (f"shared-memory working set {smem} B for Sp = {Sp}, "

@@ -40,6 +40,17 @@
 //   <= Sp entries per graph and frame are written; a memset zeroes the
 //   rest of (Nf, P1, G) once per call.
 // Every global array keeps G as its fastest axis (the JAX layout).
+// Each kernel has two instantiations with the same arithmetic in the same
+// order.  The narrow one above keeps a
+// lane's states in registers and takes Sp <= 32 * MAX_J.  The wide one
+// (banded_fwd_wide_kernel, banded_bwd_wide_kernel) keeps the state in
+// shared memory only, loops over a lane's states twice per frame (the
+// terms, then the rescale), runs shallower rings (WDEPTH, WYRING) and one
+// posterior warp, and reads the plan's entries from global memory: it
+// takes longer lattices (a numerator of a long utterance with skip arcs,
+// ~1,200 states at 700 frames) up to a CTA's shared memory, ~1,800 states
+// at three offsets.  A launch takes the narrow instantiation where it
+// fits (fwd_wide, bwd_wide).
 //
 // Semantics (the Pallas kernels', kept by the plain twins in
 // ops/banded_scan.py):
@@ -75,7 +86,12 @@ constexpr int LEAD = 4;        // frames the helper publishes ahead
 constexpr int POST_WARPS = 2;  // K5b's posterior warps (frames in turn)
 constexpr int YRING = 8;       // frames of beta between K5b's warps
 constexpr int MAX_J = 32;      // states per lane: Sp <= 32 * MAX_J
+constexpr int WDEPTH = 4;      // the wide instantiation's DEPTH,
+constexpr int WLEAD = 2;       // LEAD
+constexpr int WYRING = 2;      // and YRING (one posterior warp)
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory of a CTA (227 KB)
 static_assert(0 < LEAD && LEAD < DEPTH && DEPTH <= 64, "K5a's ring");
+static_assert(0 < WLEAD && WLEAD < WDEPTH, "the wide ring");
 static_assert(YRING % POST_WARPS == 0, "a beta slot has one consumer");
 
 struct Meta {
@@ -94,7 +110,7 @@ bool parse_meta(const long long* im, Meta* m) {
   m->P1 = static_cast<int>(im[2]);
   m->Nf = static_cast<int>(im[3]);
   m->nO = static_cast<int>(im[4]);
-  if (m->Sp > 32 * MAX_J) return false;
+  if (m->Sp > (1 << 20)) return false;  // shared memory binds long before
   for (int o = 0; o < MAX_BANDS; ++o) {
     if (im[5 + o] <= -im[0] || im[5 + o] >= im[0]) return false;
     m->off[o] = static_cast<int>(im[5 + o]);
@@ -103,24 +119,36 @@ bool parse_meta(const long long* im, Meta* m) {
 }
 
 // Shared-memory words (4 bytes) of one CTA, one graph
-// (banded_scan._smem_words).
+// (banded_scan._smem_words), of the narrow or the wide instantiation.
 // K5a: the float64 state double buffer X[2][Sp], bands BW[nO][Sp] (one
-// zero band when nO = 0), omega OM[Sp] and the alpha ring AL[DEPTH][Sp],
-// the mbarriers FULL[DEPTH] and DONE[DEPTH] (8 bytes each), then the float
-// emission ring ER[DEPTH][Sp] and shift ring MR[DEPTH].
-// K5b: X[2][Sp], BW[nO][Sp], OM[Sp], the beta ring YR[YRING][Sp], and per
-// posterior warp gamma GM[Sp] and the alpha ring AR[DEPTH][Sp] (float64),
-// the mbarriers FULL[YRING] and EMPTY[YRING] of the beta ring and
-// FULL[DEPTH] and DONE[DEPTH] of the emission ring, then ER[DEPTH][Sp]
-// (float) and the plan's state order ST[Sp] (int).
-__host__ __device__ int fwd_smem_words(int Sp, int nO) {
-  return 2 * (2 + (nO > 0 ? nO : 1) + 1 + DEPTH) * Sp + 4 * DEPTH +
-         DEPTH * Sp + DEPTH;
+// zero band when nO = 0), omega OM[Sp] and the alpha ring AL[D][Sp], the
+// mbarriers FULL[D] and DONE[D] (8 bytes each), then the float emission
+// ring ER[D][Sp] and shift ring MR[D]; the wide one adds each state's pdf
+// PD[Sp] (int).
+// K5b: X[2][Sp], BW[nO][Sp], OM[Sp], the beta ring YR[R][Sp], and per
+// posterior warp gamma GM[Sp] and the alpha ring AR[D][Sp] (float64), the
+// mbarriers FULL[R] and EMPTY[R] of the beta ring and FULL[D] and DONE[D]
+// of the emission ring, then ER[D][Sp] (float) and the plan's state order
+// ST[Sp] (int); the wide one adds PD[Sp].
+__host__ __device__ int fwd_smem_words(int Sp, int nO, bool wide) {
+  const int D = wide ? WDEPTH : DEPTH;
+  return 2 * (2 + (nO > 0 ? nO : 1) + 1 + D) * Sp + 4 * D + D * Sp + D +
+         (wide ? Sp : 0);
 }
-__host__ __device__ int bwd_smem_words(int Sp, int nO) {
-  return 2 * (2 + (nO > 0 ? nO : 1) + 1 + YRING +
-              POST_WARPS * (1 + DEPTH)) * Sp +
-         4 * (YRING + DEPTH) + (DEPTH + 1) * Sp;
+__host__ __device__ int bwd_smem_words(int Sp, int nO, bool wide) {
+  const int D = wide ? WDEPTH : DEPTH, R = wide ? WYRING : YRING;
+  const int W = wide ? 1 : POST_WARPS;
+  return 2 * (2 + (nO > 0 ? nO : 1) + 1 + R + W * (1 + D)) * Sp +
+         4 * (R + D) + (D + 1) * Sp + (wide ? Sp : 0);
+}
+
+// Whether a launch takes the wide instantiation: past MAX_J states per
+// lane, or where the narrow one's shared memory exceeds a CTA's.
+bool fwd_wide(int Sp, int nO) {
+  return Sp > 32 * MAX_J || 4 * fwd_smem_words(Sp, nO, false) > SMEM_MAX;
+}
+bool bwd_wide(int Sp, int nO) {
+  return Sp > 32 * MAX_J || 4 * bwd_smem_words(Sp, nO, false) > SMEM_MAX;
 }
 
 // The rescale's exponent comes from a warp max of 32-bit keys (one
@@ -222,23 +250,25 @@ __device__ __forceinline__ void band_pass(const Meta& m, const Lead<J>& L,
 // The helper warp of a sweep: every global read of the chain.  Step i of
 // the sweep reads frame frame_of(i): the lane's states' gathered emissions
 // (and lane 0 the frame's shift, where MR is given) go into ring slot
-// i % DEPTH by cp.async; the slot is published to the chain (FULL) LEAD
-// steps ahead of it and refilled with step i + DEPTH once the chain has
-// released it (DONE).  between(i, slot) runs in that gap (K5a: the alpha
-// stores of step i).  Phase u of a slot's barriers belongs to step
-// slot + u * DEPTH, and no barrier runs two phases ahead of its waiter:
-// step i + DEPTH is published only after the helper saw step i + DEPTH -
-// LEAD - 1 >= i released, and released only after it was published.  The
-// beta ring of K5b follows the same rule (a slot is written again only
-// after EMPTY says it was read).
-template <int J, typename FrameOf, typename Between>
+// i % D by cp.async; the slot is published to the chain (FULL) LD steps
+// ahead of it and refilled with step i + D once the chain has released it
+// (DONE).  between(i, slot) runs in that gap (K5a: the alpha stores of
+// step i).  Phase u of a slot's barriers belongs to step slot + u * D, and
+// no barrier runs two phases ahead of its waiter: step i + D is published
+// only after the helper saw step i + D - LD - 1 >= i released, and
+// released only after it was published.  The beta ring of K5b follows the
+// same rule (a slot is written again only after EMPTY says it was read).
+// J > 0 (narrow): the lane's J pdfs from spdf, held in registers; J = 0
+// (wide): every state's pdf from PD in shared memory.
+template <int J, int D, int LD, typename FrameOf, typename Between>
 __device__ __forceinline__ void emission_helper(
     const Meta& m, int g, int lane, const int* __restrict__ spdf,
-    const float* __restrict__ ext, const float* __restrict__ mshift,
-    float* ER, float* MR, unsigned long long* full, unsigned long long* done,
-    FrameOf frame_of, Between between) {
+    const int* PD, const float* __restrict__ ext,
+    const float* __restrict__ mshift, float* ER, float* MR,
+    unsigned long long* full, unsigned long long* done, FrameOf frame_of,
+    Between between) {
   const int Sp = m.Sp, G = m.G, Nf = m.Nf;
-  int pdf[J];
+  int pdf[J > 0 ? J : 1];
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     const int s = lane + 32 * j;
@@ -247,28 +277,34 @@ __device__ __forceinline__ void emission_helper(
   auto fetch = [&](int i) {
     if (i < Nf) {
       const int t = frame_of(i);
-      float* dst = ER + (i % DEPTH) * Sp;
+      float* dst = ER + (i % D) * Sp;
       const float* src = ext + static_cast<size_t>(t) * m.P1 * G + g;
+      if constexpr (J > 0) {
 #pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int s = lane + 32 * j;
-        if (s < Sp) cp_async4(dst + s, src + static_cast<size_t>(pdf[j]) * G);
+        for (int j = 0; j < J; ++j) {
+          const int s = lane + 32 * j;
+          if (s < Sp)
+            cp_async4(dst + s, src + static_cast<size_t>(pdf[j]) * G);
+        }
+      } else {
+        for (int s = lane; s < Sp; s += 32)
+          cp_async4(dst + s, src + static_cast<size_t>(PD[s]) * G);
       }
       if (MR != nullptr && lane == 0)
-        cp_async4(MR + i % DEPTH, mshift + static_cast<size_t>(t) * G + g);
+        cp_async4(MR + i % D, mshift + static_cast<size_t>(t) * G + g);
     }
     cp_async_commit();
   };
-  for (int i = 0; i < DEPTH; ++i) fetch(i);
-  cp_async_wait<DEPTH - LEAD>();  // steps 0 .. LEAD - 1
-  for (int i = 0; i < LEAD && i < Nf; ++i) mbar_arrive(full + i);
+  for (int i = 0; i < D; ++i) fetch(i);
+  cp_async_wait<D - LD>();  // steps 0 .. LD - 1
+  for (int i = 0; i < LD && i < Nf; ++i) mbar_arrive(full + i);
   for (int i = 0; i < Nf; ++i) {
-    const int r = i % DEPTH;
-    cp_async_wait<DEPTH - LEAD - 1>();  // step i + LEAD is in
-    if (i + LEAD < Nf) mbar_arrive(full + (i + LEAD) % DEPTH);
-    mbar_wait(done + r, (i / DEPTH) & 1);
+    const int r = i % D;
+    cp_async_wait<D - LD - 1>();  // step i + LD is in
+    if (i + LD < Nf) mbar_arrive(full + (i + LD) % D);
+    mbar_wait(done + r, (i / D) & 1);
     between(i, r);
-    fetch(i + DEPTH);  // into the slot step i has just used
+    fetch(i + D);  // into the slot step i has just used
   }
   cp_async_wait<0>();
 }
@@ -308,8 +344,8 @@ __global__ void __launch_bounds__(64) banded_fwd_kernel(
   __syncthreads();
 
   if (w == 1) {  // the helper: emissions in, alphas out
-    emission_helper<J>(
-        m, g, lane, spdf, ext, mshift, ER, MR, full, done,
+    emission_helper<J, DEPTH, LEAD>(
+        m, g, lane, spdf, nullptr, ext, mshift, ER, MR, full, done,
         [](int i) { return i; },
         [&](int t, int r) {
           if (alphas == nullptr) return;
@@ -454,8 +490,8 @@ __global__ void __launch_bounds__(32 * (2 + POST_WARPS)) banded_bwd_kernel(
   __syncthreads();
 
   if (w == 1) {  // the emission helper
-    emission_helper<J>(
-        m, g, lane, spdf, ext, nullptr, ER, nullptr, efull, edone,
+    emission_helper<J, DEPTH, LEAD>(
+        m, g, lane, spdf, nullptr, ext, nullptr, ER, nullptr, efull, edone,
         [Nf](int i) { return Nf - 1 - i; }, [](int, int) {});
     return;
   }
@@ -590,6 +626,245 @@ __global__ void __launch_bounds__(32 * (2 + POST_WARPS)) banded_bwd_kernel(
   }
 }
 
+// K5a, wide: banded_fwd_kernel's frames with the state in shared memory
+// only.  Lane l owns states l, l + 32, ...; per frame it forms their terms
+// into the next buffer unscaled (the omega dot first, then each state's
+// band terms in the offsets' order, the emission and the max key), and
+// after the warp max rescales them there and into the alpha slot: the
+// narrow kernel's operations in its order.
+__global__ void __launch_bounds__(64) banded_fwd_wide_kernel(
+    Meta m, const float* __restrict__ a0, const float* __restrict__ bf,
+    const float* __restrict__ omega, const int* __restrict__ fin_g,
+    const int* __restrict__ spdf, const float* __restrict__ ext,
+    const float* __restrict__ mshift, double* __restrict__ alphas,
+    double* __restrict__ vfin, double* __restrict__ shift_out,
+    double* __restrict__ ksum_out) {
+  extern __shared__ __align__(16) float smem[];
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = blockIdx.x;
+  const int Sp = m.Sp, G = m.G, Nf = m.Nf;
+  double* X = reinterpret_cast<double*>(smem);
+  double* BW = X + 2 * Sp;
+  double* OM = BW + (m.nO > 0 ? m.nO : 1) * Sp;
+  double* AL = OM + Sp;
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(AL + WDEPTH * Sp);
+  unsigned long long* done = full + WDEPTH;
+  float* ER = reinterpret_cast<float*>(done + WDEPTH);
+  float* MR = ER + WDEPTH * Sp;
+  int* PD = reinterpret_cast<int*>(MR + WDEPTH);
+  load_bands(m, BW, OM, bf, omega, g, threadIdx.x, 64);
+  for (int s = threadIdx.x; s < Sp; s += 64) {
+    X[s] = a0[static_cast<size_t>(s) * G + g];
+    PD[s] = spdf[static_cast<size_t>(s) * G + g];
+  }
+  if (threadIdx.x < WDEPTH) {
+    mbar_init(full + threadIdx.x, 32);
+    mbar_init(done + threadIdx.x, 32);
+  }
+  __syncthreads();
+
+  if (w == 1) {  // the helper: emissions in, alphas out
+    emission_helper<0, WDEPTH, WLEAD>(
+        m, g, lane, spdf, PD, ext, mshift, ER, MR, full, done,
+        [](int i) { return i; },
+        [&](int t, int r) {
+          if (alphas == nullptr) return;
+          for (int s = lane; s < Sp; s += 32)
+            alphas[(static_cast<size_t>(t) * Sp + s) * G + g] =
+                AL[r * Sp + s];
+        });
+    return;
+  }
+
+  // the chain
+  const int fin = fin_g[g];
+  double ksum = 0.0, shift = 0.0;
+  int cur = 0;
+  for (int t = 0; t < Nf; ++t) {
+    const int r = t % WDEPTH;
+    mbar_wait(full + r, (t / WDEPTH) & 1);  // frame t's emissions are in
+    const double* a = X + cur * Sp;
+    double* yn = X + (cur ^ 1) * Sp;
+    const float* er = ER + r * Sp;
+    unsigned key = 0;
+    if (t == 0) {
+      for (int s = lane; s < Sp; s += 32) {
+        const double y = a[s] * double(er[s]);
+        yn[s] = y;
+        key = max(key, exp_key(y));
+      }
+      key = __reduce_max_sync(FULL, key);
+    } else {
+      double dot = 0.0;
+      for (int s = lane; s < Sp; s += 32) dot = fma(OM[s], a[s], dot);
+      dot = warp_sum(dot);
+      for (int s = lane; s < Sp; s += 32) {
+        double v = 0.0;
+        for (int o = 0; o < m.nO; ++o) {
+          const int src = s - m.off[o];
+          if (src >= 0 && src < Sp) v = fma(BW[o * Sp + s], a[src], v);
+        }
+        const double y = v * double(er[s]);
+        yn[s] = y;
+        if (s != fin) key = max(key, exp_key(y));
+      }
+      key = __reduce_max_sync(FULL, key);
+      // the phony final row, written over by the lane that owns it
+      const double vf = dot * double(er[fin]);
+      key = max(key, exp_key(vf));
+      if (lane == fin % 32) yn[fin] = vf;
+    }
+    const int k = key_exponent(key);
+    const double sc = pow2_scale(k);
+    for (int s = lane; s < Sp; s += 32) {
+      const double v = yn[s] * sc;
+      yn[s] = v;
+      AL[r * Sp + s] = v;
+    }
+    ksum += k;
+    if (lane == 0) shift += MR[r];
+    __syncwarp();
+    mbar_arrive(done + r);  // the helper may store and refill slot r
+    cur ^= 1;
+  }
+  if (lane == 0) {
+    vfin[g] = X[cur * Sp + fin];
+    shift_out[g] = shift;
+    ksum_out[g] = ksum;
+  }
+}
+
+// K5b, wide: banded_bwd_kernel's frames with the state in shared memory
+// only and one posterior warp (warp 2), which takes every frame and reads
+// the plan's entries from global memory.  The chain forms each state's
+// beta into the beta ring and its product with the emission into the next
+// buffer, and after the warp max rescales that buffer: the narrow
+// kernel's operations in its order.
+__global__ void __launch_bounds__(96) banded_bwd_wide_kernel(
+    Meta m, const float* __restrict__ bb, const float* __restrict__ omega,
+    const int* __restrict__ fin_g, const int* __restrict__ spdf,
+    const int* __restrict__ plan, const float* __restrict__ ext,
+    const double* __restrict__ alphas, float* __restrict__ posts) {
+  extern __shared__ __align__(16) float smem[];
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = blockIdx.x;
+  const int Sp = m.Sp, G = m.G, Nf = m.Nf, P1 = m.P1;
+  double* X = reinterpret_cast<double*>(smem);
+  double* BW = X + 2 * Sp;
+  double* OM = BW + (m.nO > 0 ? m.nO : 1) * Sp;
+  double* YR = OM + Sp;
+  double* GM = YR + WYRING * Sp;
+  double* AR = GM + Sp;  // [WDEPTH][Sp]
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(AR + WDEPTH * Sp);
+  unsigned long long* empty = full + WYRING;
+  unsigned long long* efull = empty + WYRING;
+  unsigned long long* edone = efull + WDEPTH;
+  float* ER = reinterpret_cast<float*>(edone + WDEPTH);
+  int* ST = reinterpret_cast<int*>(ER + WDEPTH * Sp);
+  int* PD = ST + Sp;
+  const int* prow = plan + static_cast<size_t>(g) * (3 * Sp + 2);
+  load_bands(m, BW, OM, bb, omega, g, threadIdx.x, blockDim.x);
+  for (int s = threadIdx.x; s < Sp; s += blockDim.x) {
+    ST[s] = prow[2 * Sp + 2 + s];
+    PD[s] = spdf[static_cast<size_t>(s) * G + g];
+  }
+  if (threadIdx.x < WYRING) {
+    mbar_init(full + threadIdx.x, 32);
+    mbar_init(empty + threadIdx.x, 32);
+  }
+  if (threadIdx.x < WDEPTH) {
+    mbar_init(efull + threadIdx.x, 32);
+    mbar_init(edone + threadIdx.x, 32);
+  }
+  __syncthreads();
+
+  if (w == 1) {  // the emission helper
+    emission_helper<0, WDEPTH, WLEAD>(
+        m, g, lane, spdf, PD, ext, nullptr, ER, nullptr, efull, edone,
+        [Nf](int i) { return Nf - 1 - i; }, [](int, int) {});
+    return;
+  }
+  if (w == 0) {  // the beta chain
+    const int fin = fin_g[g];
+    int cur = 0;
+    for (int i = 0; i < Nf; ++i) {
+      mbar_wait(efull + i % WDEPTH, (i / WDEPTH) & 1);  // the emissions
+      const double* b = X + cur * Sp;
+      double* bn = X + (cur ^ 1) * Sp;
+      const float* er = ER + (i % WDEPTH) * Sp;
+      const int r = i % WYRING;
+      if (i >= WYRING) mbar_wait(empty + r, ((i / WYRING) - 1) & 1);
+      const double bfin = b[fin];
+      unsigned key = 0;
+      for (int s = lane; s < Sp; s += 32) {
+        double y = 1.0;
+        if (i > 0) {
+          y = 0.0;
+          for (int o = 0; o < m.nO; ++o) {
+            const int src = s + m.off[o];
+            if (src >= 0 && src < Sp) y = fma(BW[o * Sp + s], b[src], y);
+          }
+          y = fma(OM[s], bfin, y);
+        }
+        YR[r * Sp + s] = y;  // beta of frame t, before the emission
+        y *= double(er[s]);
+        key = max(key, exp_key(y));
+        bn[s] = y;
+      }
+      mbar_arrive(full + r);
+      mbar_arrive(edone + i % WDEPTH);  // the emission slot is free
+      const double sc =
+          pow2_scale(key_exponent(__reduce_max_sync(FULL, key)));
+      for (int s = lane; s < Sp; s += 32) bn[s] *= sc;
+      __syncwarp();
+      cur ^= 1;
+    }
+  } else {  // gamma and the posteriors of every frame
+    const int n = prow[0];
+    auto fetch = [&](int i) {
+      if (i < Nf) {
+        double* dst = AR + (i % WDEPTH) * Sp;
+        const double* src =
+            alphas + static_cast<size_t>(Nf - 1 - i) * Sp * G + g;
+        for (int s = lane; s < Sp; s += 32)
+          cp_async8(dst + s, src + static_cast<size_t>(s) * G);
+      }
+      cp_async_commit();
+    };
+    for (int i = 0; i < WDEPTH; ++i) fetch(i);
+    for (int i = 0; i < Nf; ++i) {
+      const int t = Nf - 1 - i;
+      const int r = i % WYRING;
+      cp_async_wait<WDEPTH - 1>();
+      mbar_wait(full + r, (i / WYRING) & 1);
+      const double* al = AR + (i % WDEPTH) * Sp;
+      double tot = 0.0;
+      for (int s = lane; s < Sp; s += 32) {
+        const double gam = al[s] * YR[r * Sp + s];
+        tot += gam;
+        GM[s] = gam;
+      }
+      mbar_arrive(empty + r);
+      tot = warp_sum(tot);
+      __syncwarp();
+      const double rt = tot > 0.0 ? 1.0 / tot : 1.0;
+      float* pt = posts + static_cast<size_t>(t) * P1 * G + g;
+      for (int e = lane; e < n; e += 32) {
+        const int e0 = prow[Sp + 1 + e], e1 = prow[Sp + 2 + e];
+        double acc = GM[ST[e0]];  // 0 + the first
+        for (int c = e0 + 1; c < e1; ++c) acc += GM[ST[c]];
+        pt[static_cast<size_t>(prow[1 + e]) * G] =
+            static_cast<float>(acc * rt);
+      }
+      __syncwarp();  // GM is rewritten next time
+      fetch(i + WDEPTH);
+    }
+    cp_async_wait<0>();
+  }
+}
+
 // Dynamic shared memory of a launch; above the default 48 KB the kernel
 // must opt in (the admission caps it at 227 KB).
 template <typename Kernel>
@@ -628,7 +903,7 @@ struct FwdLaunch {
                          double* ksum, cudaStream_t stream) {
     size_t smem;
     cudaError_t err = smem_cfg(banded_fwd_kernel<J>,
-                               fwd_smem_words(m.Sp, m.nO), &smem);
+                               fwd_smem_words(m.Sp, m.nO, false), &smem);
     if (err != cudaSuccess) return err;
     banded_fwd_kernel<J><<<m.G, 64, smem, stream>>>(
         m, a0, bf, omega, fin, spdf, ext, mshift, alphas, vfin, shift, ksum);
@@ -644,7 +919,7 @@ struct BwdLaunch {
                          float* posts, cudaStream_t stream) {
     size_t smem;
     cudaError_t err = smem_cfg(banded_bwd_kernel<J>,
-                               bwd_smem_words(m.Sp, m.nO), &smem);
+                               bwd_smem_words(m.Sp, m.nO, false), &smem);
     if (err != cudaSuccess) return err;
     banded_bwd_kernel<J><<<m.G, 32 * (2 + POST_WARPS), smem, stream>>>(
         m, bb, omega, fin, spdf, plan, ext, alphas, posts);
@@ -665,9 +940,18 @@ extern "C" int mm_banded_fwd(const float* a0, const float* bf,
                              double* ksum, void* stream) {
   Meta m;
   if (!parse_meta(imeta, &m)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch_j<FwdLaunch>(
-      m.Sp, m, a0, bf, omega, fin, spdf, ext, mshift, alphas, vfin, shift,
-      ksum, static_cast<cudaStream_t>(stream)));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!fwd_wide(m.Sp, m.nO))
+    return static_cast<int>(dispatch_j<FwdLaunch>(
+        m.Sp, m, a0, bf, omega, fin, spdf, ext, mshift, alphas, vfin, shift,
+        ksum, s));
+  size_t smem;
+  cudaError_t err = smem_cfg(banded_fwd_wide_kernel,
+                             fwd_smem_words(m.Sp, m.nO, true), &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  banded_fwd_wide_kernel<<<m.G, 64, smem, s>>>(
+      m, a0, bf, omega, fin, spdf, ext, mshift, alphas, vfin, shift, ksum);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K5b: the backward sweep over frames Nf-1 .. 0 from the forward's alphas;
@@ -684,13 +968,24 @@ extern "C" int mm_banded_bwd(const float* bb, const float* omega,
   cudaError_t err = cudaMemsetAsync(
       posts, 0, static_cast<size_t>(m.Nf) * m.P1 * m.G * sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(dispatch_j<BwdLaunch>(
-      m.Sp, m, bb, omega, fin, spdf, plan, ext, alphas, posts, s));
+  if (!bwd_wide(m.Sp, m.nO))
+    return static_cast<int>(dispatch_j<BwdLaunch>(
+        m.Sp, m, bb, omega, fin, spdf, plan, ext, alphas, posts, s));
+  size_t smem;
+  err = smem_cfg(banded_bwd_wide_kernel, bwd_smem_words(m.Sp, m.nO, true),
+                 &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  banded_bwd_wide_kernel<<<m.G, 96, smem, s>>>(m, bb, omega, fin, spdf, plan,
+                                               ext, alphas, posts);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Dynamic shared-memory bytes of one CTA of K5a (bwd = 0) or K5b (bwd = 1)
-// at Sp states and nO offsets: the admission's figure, checked on the card.
+// at Sp states and nO offsets, of the instantiation a launch takes there
+// (the narrow one where it fits): the admission's figure, checked on the
+// card.
 extern "C" int mm_banded_smem(int Sp, int nO, int bwd) {
   return static_cast<int>(sizeof(float)) *
-         (bwd ? bwd_smem_words(Sp, nO) : fwd_smem_words(Sp, nO));
+         (bwd ? bwd_smem_words(Sp, nO, bwd_wide(Sp, nO))
+              : fwd_smem_words(Sp, nO, fwd_wide(Sp, nO)));
 }

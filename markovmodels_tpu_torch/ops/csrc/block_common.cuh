@@ -1,9 +1,12 @@
 // Shared by the blocked kernels (block_scan.cu, vit_scan.cu): the host
 // descriptor of one direction's blocked operator, the exact power-of-two
-// rescale, and the four-column state row accesses.
+// rescale, and the four-column state row accesses (plain, past L1, and
+// under an L2 policy).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "coop_common.cuh"
 
 namespace {
 
@@ -114,6 +117,30 @@ __device__ __forceinline__ void store4(float* __restrict__ row, int b, int B,
 
 __device__ __forceinline__ float get(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// Four consecutive columns of a state row that another CTA of the launch
+// wrote, read past L1 under an L2 policy (VEC), or as load4 does.
+template <bool VEC>
+__device__ __forceinline__ float4 load4_hint(const float* __restrict__ row,
+                                             int b, int B,
+                                             unsigned long long policy) {
+  if constexpr (VEC)
+    return b < B ? ldcg4_hint(row + b, policy)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  else
+    return load4<VEC, true>(row, b, B);
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store4_hint(float* __restrict__ row, int b,
+                                            int B, float4 v,
+                                            unsigned long long policy) {
+  if constexpr (VEC) {
+    if (b < B) st4_hint(row + b, v, policy);
+  } else {
+    store4<VEC>(row, b, B, v);
+  }
 }
 
 }  // namespace

@@ -234,30 +234,6 @@ __device__ __forceinline__ void tier_stage(float (&Ws)[TS][TR],
   }
 }
 
-// Four consecutive columns of a state row that another CTA of the launch
-// wrote, read past L1 under an L2 policy (VEC), or as load4 does.
-template <bool VEC>
-__device__ __forceinline__ float4 load4_hint(const float* __restrict__ row,
-                                             int b, int B,
-                                             unsigned long long policy) {
-  if constexpr (VEC)
-    return b < B ? ldcg4_hint(row + b, policy)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  else
-    return load4<VEC, true>(row, b, B);
-}
-
-template <bool VEC>
-__device__ __forceinline__ void store4_hint(float* __restrict__ row, int b,
-                                            int B, float4 v,
-                                            unsigned long long policy) {
-  if constexpr (VEC) {
-    if (b < B) st4_hint(row + b, v, policy);
-  } else {
-    store4<VEC>(row, b, B, v);
-  }
-}
-
 // K1, tier part: acc[i][c] += sum_s W[k, s, d] * prev[src(k, s), b] for the
 // 4x4 outputs of this thread (d = dbase + ty*4 + i, b = b0 + tx*4 + c), in s
 // order.  Staging: thread tid copies column tid % 64 of rows tid / 64 + 4u of

@@ -1,8 +1,8 @@
 // Shared by the persistent cooperative kernels (dense_scan.cu sweep_kernel,
-// block_scan.cu fwd_chunk_kernel and bwd_chunk_kernel) and the numerator
-// sweeps (banded_scan.cu): asynchronous copies to shared memory, L2 hints,
-// mbarriers between the warps of one CTA, and the grid-wide barrier between
-// two frames.
+// block_scan.cu fwd_chunk_kernel and bwd_chunk_kernel, vit_scan.cu
+// vit_sweep_kernel) and the numerator sweeps (banded_scan.cu): asynchronous
+// copies to shared memory, L2 hints, mbarriers between the warps of one
+// CTA, and the grid-wide barrier between two frames.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -158,8 +158,11 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
 // counter).  The last CTA to arrive resets the counter and advances the
 // generation; the fences make every write before the barrier visible to
 // every read after it.  The waiters poll with exponential backoff (32 ns
-// to MAX_NS): they all poll one line of L2.
-template <int GEN = 1, unsigned MAX_NS = 1024>
+// to MAX_NS): they all poll one line of L2.  With TRAP, a wait that never
+// ends (a CTA that never arrives) traps after 2^26 polls, so the launch
+// fails instead of hanging (K7; the counter costs K2-K4 registers they do
+// not have to spare).
+template <int GEN = 1, unsigned MAX_NS = 1024, bool TRAP = false>
 __device__ __forceinline__ void grid_sync(unsigned* sync) {
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -172,7 +175,8 @@ __device__ __forceinline__ void grid_sync(unsigned* sync) {
       atomicAdd(sync + GEN, 1u);
     } else {
       unsigned ns = 32;
-      while (*gen == g) {
+      for (unsigned tries = 0; *gen == g; ++tries) {
+        if (TRAP && tries >= (1u << 26)) __trap();
         __nanosleep(ns);
         ns = ns < MAX_NS ? 2 * ns : ns;
       }

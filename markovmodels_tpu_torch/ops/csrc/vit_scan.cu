@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas kernel of markovmodels_tpu/ops/pallas_block.py:
 //   K7 mm_vit_fwd  <- _run_vit_slice pallas_call, _make_vit_kernel
-// (the max-product form of its in-kernel matvec K1 is vit_tier_tile() plus
-// the band epilogue of vit_step_kernel()), and the walk of
+// (the max-product form of its in-kernel matvec K1 is tier_max_arg() plus
+// the band epilogue of vit_item()), and the walk of
 // markovmodels_tpu/viterbi.py's _viterbi_scale_bp, which the JAX package
 // leaves to XLA:
 //   mm_vit_walk    one thread per sequence.
@@ -20,36 +20,75 @@
 // smallest s among equal tier maxima, the tier merged with a strict >.
 //
 // What bounds it on the card, at the 2M-arc graph (Sp = 49,280; one tier of
-// K = 128 panels of Sm x D = 128 x 128) and B = 128: the tier is
-// K*Sm*D*B = 268 M candidate products per frame, each a multiply, a compare
-// and two selects (value and id) on the CUDA cores -- the max-product
-// reduction has no tensor-core form.  At ~33.5 T lane-instructions/s that
-// is ~32 us per frame; the memory per frame is 6.3 MB of ids written plus
-// the state (25 MB read by the tier and the bands, 25 MB written), against
-// a 50 MB L2.  So the floor is the instruction rate.
+// K = 128 panels of Sm x D = 128 x 128) and B = 128: the tier's 268 M
+// candidate products per frame on the CUDA cores (the max-product reduction
+// has no tensor-core form).  The function needs a multiply and a max for
+// each; the id costs ~1/GS of that.  A loop that keeps a running (max,
+// argmax) per output pays a multiply, a compare and two selects per
+// candidate, three of them on the half-rate ALU pipe (the per-frame step
+// kernels this sweep replaced: ~70 us of a 110 us frame).  Here a
+// candidate costs an FMUL and 0.875 ALU instructions (the maxima three at
+// a time), and the group loop is bound by its issue (PERF.md section 6).
+// The memory per frame is 6.3 MB of ids written once plus the state
+// (25 MB read by the tier and the bands, 25 MB written), against a 50 MB
+// L2.
 //
-// Design (a simple one): three launches per frame from a host loop inside
-// this library, as block_scan.cu's K2 with its step split in two:
-//   vit_step_kernel     one block per (64-row tile, 64-column tile): a tier
-//                       tile keeps a running (max, argmax) per output in
-//                       registers over a 64x64x128 product staged through
-//                       shared memory; then every row takes the band
-//                       epilogue, the emission multiply, the state store and
-//                       the id store (4 columns in one 32-bit store).  The
-//                       tier tiles (96 registers, 2 blocks per SM) and the
-//                       band-only tiles (the rows the tier does not write,
-//                       compiled for 4 blocks per SM) are two launches.  Each
-//                       block writes per-column partials: the state's column
-//                       max, and the max and smallest argmax of the omega
-//                       products over its own rows of the previous state;
-//   vit_finalize_kernel reduces the partials in a fixed order (the argmax
-//                       breaks ties by the smaller index, so the result does
-//                       not depend on the order), sets the phony state,
-//                       records fins[t], and derives the next power-of-two
-//                       scale from the exponent bits of the column max.
-// The state is stored unscaled; the scale is applied as the next frame reads
-// it (exact: powers of two), which reproduces the TPU kernel's rescaled
-// state bit for bit, hence its products and ids.  No atomics.
+// Design: one persistent cooperative launch per sweep (every CTA
+// co-resident), the frame loop inside, one grid barrier per frame, as the
+// blocked forward K2 (block_scan.cu fwd_chunk_kernel):
+//   * a frame's work items (row tile x 64-column tile: tier tiles, band
+//     tiles) come from a queue that the host plan orders (ops/vit_scan.py
+//     vit_plan: every tier item, then every band item, each in tile
+//     order); a CTA takes the next item from an atomic position as it
+//     finishes the last;
+//   * a tier tile keeps its whole contraction resident in shared memory:
+//     the 64 destination columns of its panel, transposed on the host
+//     (W[k, s, d] at [d][s]), by cp.async, and the 128 gathered, rescaled
+//     state rows transposed as they are staged ([b][s]), each row padded to
+//     132 floats so that the loop's 16-byte reads and the staging's stores
+//     meet no bank conflict.  tier_max_arg() then finds, for each of a
+//     thread's 4x4 outputs, the max over groups of GS consecutive s by
+//     maxima alone, moving the running value and the group index only
+//     where a group's max is strictly greater; the winning group's GS
+//     products are then recomputed from the resident operands and the
+//     first s equal to the max is the id.  That is the rule "strict >,
+//     smallest s among equal maxima" bit for bit: the final group is the
+//     first to hold the global max, the first equal s in it is the
+//     smallest overall, and the products are the same FMULs.  Every
+//     product is >= 0 (no NaN), so its float bits order as its value and
+//     the maxima are taken on the bits as ints: exact, and three at a
+//     time (VIMNMX3), 4 instructions for 8 products where FMNMX takes 7;
+//   * every item then takes the band epilogue (the loads of a pair of rows'
+//     first two band terms issued before any is used), the emission
+//     multiply, the state store (L2 evict_last: the next frame reads it) and
+//     the id store (4 columns in one streaming 32-bit store: written once,
+//     never read back in the sweep);
+//   * the tier items come first in the queue: with 2 CTAs per SM they take
+//     two rounds, and the band items fill the rest of the frame.  Measured
+//     slower (PERF.md section 6): tier items spread among the band
+//     items, one CTA of each SM taking the tier items first, groups of 16,
+//     3 CTAs per SM (spills), the epilogue's rows by cp.async or held in
+//     registers across the recovery, the contraction in two pipelined
+//     passes, the next item's panel fetched during the epilogue;
+//   * the per-frame finalize has no launch of its own and no pass: both of
+//     its reductions are order-free maxima.  Each item takes its column max
+//     of the new state by atomicMax on the float bits, and the (max,
+//     smallest argmax) of omega[j] * a[j] over its rows j of the previous
+//     state by atomicMax on a 64-bit key (value bits, then 2^32 - 1 - j),
+//     each into CM copies (CTA c into copy c % CM).  After the barrier every
+//     CTA reads the copies of its columns and derives the phony state of the
+//     frame just ended, y[fin] = max(omega a) * e_fin, and from the column
+//     max with it the power-of-two scale; CTA 0 also records fins and
+//     advances ksum and the Kahan-compensated emission shift.  y[fin] is
+//     never stored in the sweep: the one item that reads it (omega[fin] *
+//     a[fin]) takes it from the same derivation; the last frame's is
+//     written after the loop;
+//   * the state is stored unscaled and the scale applied as the next frame
+//     reads it (exact: powers of two), so the products, hence the ids, are
+//     those of the TPU kernel's rescaled state; what another CTA of the
+//     launch wrote is read past L1 (ld.global.cg, under L2 evict_first).
+// The results are those of the per-frame step and finalize launches it
+// replaced, bit for bit.
 //
 // Conventions: state (Sp, B) row-major float32; ext (Nf, P1, B), the emission
 // of state j is ext[t, j / cmax, b] (uniform pdf-grouped layout); ids
@@ -59,111 +98,273 @@
 #include <stdint.h>
 
 #include "block_common.cuh"
+#include "coop_common.cuh"
 
 namespace {
 
-constexpr int TB = 64;   // batch columns per tile
-constexpr int TS = 32;   // tier contraction depth per shared-memory stage
-constexpr int NT = 256;  // threads per step block: 16 x 16, 4x4 outputs each
-constexpr int FC = 8;    // finalize: columns per block
-constexpr int FR = 128;  // finalize: threads splitting the partials per column
-constexpr int PER = TS * TR / NT;  // tier values each thread stages per stage
-constexpr int MIN_BLOCKS = 2;  // tier blocks resident per SM (caps registers)
-constexpr int MIN_BLOCKS_BAND = 4;  // band-only blocks resident per SM
+constexpr int TB = 64;       // batch columns per item
+constexpr int NT = 256;      // threads per CTA: 16 x 16, 4x4 outputs each
+constexpr int SC = 128;      // tier contraction resident per pass
+constexpr int ST = SC + 4;   // padded row of a resident tier operand
+constexpr int GS = 8;        // tier candidates per max group
+constexpr int PB = 2;        // band terms of a pair of rows loaded ahead
+constexpr int CM = 16;       // copies of each frame's column max and omega key
+constexpr int SYNC_GEN = 32;  // the barrier takes SYNC_GEN + 1 words
 constexpr int NO_CAND = 255;
-constexpr int NO_ARG = 0x7fffffff;
 constexpr int WALK_THREADS = 128;
+// CTAs resident per SM (caps registers at 128; shared memory allows 3)
+constexpr int VIT_BLOCKS = 2;
+static_assert(SC % GS == 0 && GS % 4 == 0 && TR == TB, "tier tiles");
 
-// (v, i) := the larger value, the smaller index among equal values.
-__device__ __forceinline__ void arg_merge(float& v, int& i, float v2, int i2) {
-  if (v2 > v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
-  }
+// Shared memory of one CTA (dynamic; 2 x B floats follow it: the scale and
+// the phony state of the frame before, per column).
+struct VitSmem {
+  union {
+    struct {  // a tier item's resident operands
+      float W[TR][ST];  // W[k, s0 + s, dbase + d] at [d][s]
+      float X[TB][ST];  // a[src(k, s0 + s), b0 + b] at [b][s], rescaled
+    } op;
+    struct {  // the epilogue
+      float val[TR][TB + 1];  // the tier's max of each output
+      uint8_t id[TR][TB];     // and its id
+      unsigned rm[16][TB];              // column max of each thread row
+      unsigned long long rk[16][TB];    // omega key of each thread row
+    } ep;
+  } u;
+  int rows[TR];  // state row of each tile row, -1 if none
+  int grp[TR];   // its pdf group (emission row)
+  int2 next[2];  // the queue entries taken for the next items
+};
+
+struct VitArgs {
+  Meta m;
+  int B, Nf, RW;
+  const float* a0;      // (Sp, B) the state before frame 0 (scale 1)
+  const float* ext;     // (Nf, P1, B)
+  const float* mshift;  // (Nf, 1, B)
+  const float* band_w;  // (nO, Sp)
+  const float* Wt;      // (K, D, Sm4) the tier panels transposed, zero-padded
+  long long Sm4;        // Sm rounded up to 4
+  const float* omega;   // (Sp,)
+  const int* band_rows;
+  const int2* queue;  // (n_items,) item, first row of a band tile or -1
+  int n_items;
+  float* work;   // (2, Sp, B) the state of frame t at work[t % 2], unscaled
+  uint8_t* bps;  // (Nf, RW, B)
+  int* fins;     // (Nf, B)
+  float* scale;  // (B,) the last frame's scale
+  float* ksum;   // (B,) sum of the exponents, zero on entry
+  float* shift;  // (B,) the Kahan-compensated emission shift, zero
+  float* comp;   // (B,) its compensation, zero
+  unsigned* cm;  // (Nf, CM, B) column max of each frame (float bits), zeroed
+  unsigned long long* omk;  // (Nf, CM, B) omega keys of each frame, zeroed
+  unsigned* ctr;   // (Nf,) each frame's queue position, zeroed
+  unsigned* sync;  // (SYNC_GEN + 1,) barrier counter, generation, zeroed
+};
+
+// The (max, smallest argmax) of omega[j] * a[j] as one ordered 64-bit key:
+// the product's float bits (non-negative: they order as the values), then
+// 2^32 - 1 - j, so that of equal products the smaller j is the larger key.
+__device__ __forceinline__ unsigned long long omega_key(float v, int j) {
+  return (static_cast<unsigned long long>(__float_as_uint(v)) << 32) |
+         (0xffffffffu - static_cast<unsigned>(j));
 }
 
-// K1 in max-product form, tier part: for the 4x4 outputs of this thread
-// (d = dbase + ty*4 + i, b = b0 + tx*4 + c) the largest product
-// W[k, s, d] * a[src(k, s), b] over s and the first s attaining it, where
-// a = prev * scale is the rescaled previous state (scaled as it is staged).
-__device__ __forceinline__ void vit_tier_tile(
-    const Meta& m, int B, const float* __restrict__ prev,
-    const float* __restrict__ scale, const float* __restrict__ W, long long k,
-    long long dbase, int b0, float (&Ws)[TS][TR], float (&Xs)[TS][TB],
-    float (&best)[4][4], int (&arg)[4][4]) {
-  static_assert(TR == TB && NT % TR == 0 && TS % (NT / TR) == 0, "tiles");
-  constexpr int RS = NT / TR;  // staged rows per pass
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int col = tid % TR, row0 = tid / TR;
-  const bool dok = dbase + col < m.D, bok = b0 + col < B;
-  const float scol = bok ? scale[b0 + col] : 0.f;
-  const float* pw = W + (k * m.Sm + row0) * m.D + dbase + col;
-  const float* px = prev + (m.g0 + k * m.gk + row0 * m.gs) * B + b0 + col;
-  const long long wstep = RS * m.D, xstep = RS * m.gs * B;
-  for (long long s0 = 0; s0 < m.Sm; s0 += TS) {
+// 4 ids in one streaming store (written once, never read in the sweep).
+__device__ __forceinline__ void st_cs_u32(uint8_t* p, unsigned v) {
+  asm volatile("st.global.cs.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// The end of frame t - 1 (t >= 1) for column b: the phony state y[fin] =
+// max_j omega[j] a[j] * e_fin (frame 0 has none: it keeps a0 * e), the scale
+// 2^-k from the column max with it; CTA 0 (``record``) writes fins[t - 1]
+// and advances ksum and the Kahan-compensated emission shift.  Returns the
+// scale; *yfin receives the phony state (unscaled), or frame 0's stored one.
+__device__ __forceinline__ float end_of_frame(const VitArgs& p, int t, int b,
+                                             const float* prev, bool record,
+                                             float* yfin) {
+  const Meta& m = p.m;
+  const int B = p.B;
+  const unsigned* cm = p.cm + static_cast<size_t>(t - 1) * CM * B + b;
+  const unsigned long long* kp =
+      p.omk + static_cast<size_t>(t - 1) * CM * B + b;
+  unsigned mx = 0u;
+  unsigned long long key = 0ull;
 #pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const bool sok = s0 + row0 + u * RS < m.Sm;
-      Ws[row0 + u * RS][col] = (sok && dok) ? pw[u * wstep] : 0.f;
-      Xs[row0 + u * RS][col] = (sok && bok) ? px[u * xstep] * scol : 0.f;
-    }
-    pw += TS * m.D;
-    px += TS * m.gs * B;
-    __syncthreads();
-#pragma unroll 8
-    for (int ss = 0; ss < TS; ++ss) {
-      const float4 w = *reinterpret_cast<const float4*>(&Ws[ss][ty * 4]);
-      const float4 x = *reinterpret_cast<const float4*>(&Xs[ss][tx * 4]);
-      const float wv[4] = {w.x, w.y, w.z, w.w};
-      const float xv[4] = {x.x, x.y, x.z, x.w};
-      const int s = static_cast<int>(s0) + ss;
+  for (int c = 0; c < CM; ++c) {
+    mx = max(mx, __ldcg(cm + c * B));
+    key = max(key, __ldcg(kp + c * B));
+  }
+  float mxf = __uint_as_float(mx);
+  if (t - 1 >= 1) {
+    const float e =
+        p.ext[(static_cast<size_t>(t - 1) * m.P1 + m.fin / m.cmax) * B + b];
+    *yfin = __uint_as_float(static_cast<unsigned>(key >> 32)) * e;
+    mxf = fmaxf(mxf, *yfin);
+  } else {
+    *yfin = __ldcg(prev + static_cast<size_t>(m.fin) * B + b);
+  }
+  const float k = pow2_exponent(mxf);
+  if (record) {
+    p.fins[static_cast<size_t>(t - 1) * B + b] =
+        static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
+    p.ksum[b] += k;
+    const float xc = p.mshift[static_cast<size_t>(t - 1) * B + b] - p.comp[b];
+    const float ts = p.shift[b] + xc;
+    p.comp[b] = (ts - p.shift[b]) - xc;
+    p.shift[b] = ts;
+  }
+  return pow2_scale(k);
+}
+
+// The tier of one item over one resident pass (s0 .. s0 + SC - 1): for the
+// thread's outputs (d = ty*4 + i, b = tx + 16c) the running max over groups
+// of GS candidates and the group that first reached it (gid >= 0: a group of
+// this pass; < 0: the id -gid - 1, recovered in an earlier pass), then the
+// id of each output whose group lies in this pass, recovered from the
+// resident operands.  Every product is >= 0 (no NaN), so its float bits
+// order as its value: the maxima are taken on the bits as ints, which the
+// card does three at a time (VIMNMX3: 4 instructions for a group of 8
+// products, 7 as float maxima), exactly.
+__device__ __forceinline__ void tier_max_arg(const VitSmem& s, int nG,
+                                             long long s0, int (&best)[4][4],
+                                             int (&gid)[4][4]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  for (int g = 0; g < nG; ++g) {
+    int mx[4][4];
+#pragma unroll
+    for (int h = 0; h < GS / 4; ++h) {
+      const int sb = g * GS + h * 4;
+      float4 w[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
+        w[i] = *reinterpret_cast<const float4*>(&s.u.op.W[ty * 4 + i][sb]);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float p = wv[i] * xv[c];
-          if (p > best[i][c]) {
-            best[i][c] = p;
-            arg[i][c] = s;
-          }
+      for (int c = 0; c < 4; ++c) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(&s.u.op.X[tx + 16 * c][sb]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int p0 = __float_as_int(w[i].x * x.x);
+          const int p1 = __float_as_int(w[i].y * x.y);
+          const int p2 = __float_as_int(w[i].z * x.z);
+          const int p3 = __float_as_int(w[i].w * x.w);
+          const int q = max(max(p0, p1), p2);
+          mx[i][c] = h == 0 ? max(q, p3) : max(max(mx[i][c], q), p3);
         }
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (mx[i][c] > best[i][c]) {
+          best[i][c] = mx[i][c];
+          gid[i][c] = g;
+        }
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (gid[i][c] < 0) continue;
+      const float* wr = &s.u.op.W[ty * 4 + i][gid[i][c] * GS];
+      const float* xr = &s.u.op.X[tx + 16 * c][gid[i][c] * GS];
+      int first = GS - 1;
+#pragma unroll
+      for (int h = GS / 4 - 1; h >= 0; --h) {
+        const float4 w = *reinterpret_cast<const float4*>(wr + 4 * h);
+        const float4 x = *reinterpret_cast<const float4*>(xr + 4 * h);
+        if (__float_as_int(w.w * x.w) == best[i][c]) first = 4 * h + 3;
+        if (__float_as_int(w.z * x.z) == best[i][c]) first = 4 * h + 2;
+        if (__float_as_int(w.y * x.y) == best[i][c]) first = 4 * h + 1;
+        if (__float_as_int(w.x * x.x) == best[i][c]) first = 4 * h;
+      }
+      gid[i][c] = -static_cast<int>(s0 + gid[i][c] * GS + first) - 1;
+    }
 }
 
-// One frame over one (row tile, column tile): the new state u = y * e
-// (y = a on frame 0), the ids of its main-region rows, and the partials
-// part[0] = column max of u, part[1] / parti = max and smallest argmax of
-// omega[j] * a[j] over this tile's rows j of the previous state.  TIER:
-// tile0 + blockIdx.x is a tier tile; otherwise a band-only tile (the rows
-// the tier does not write), compiled apart with few registers so that more
-// of these light blocks stay resident.
-template <bool VEC, bool TIER>
-__global__ void __launch_bounds__(NT, TIER ? MIN_BLOCKS : MIN_BLOCKS_BAND)
-vit_step_kernel(
-    Meta m, int B, int RW, long long tile0, const float* __restrict__ prev,
-    const float* __restrict__ scale, const float* __restrict__ ext_t,
-    const float* __restrict__ band_w, const float* __restrict__ W,
-    const float* __restrict__ omega, const int* __restrict__ band_rows,
-    int first, float* __restrict__ out, uint8_t* __restrict__ bp_t,
-    float* __restrict__ part, int* __restrict__ parti) {
-  __shared__ __align__(16) float Ws[TIER ? TS : 1][TR];
-  __shared__ __align__(16) float Xs[TIER ? TS : 1][TB];
-  __shared__ float red_m[16][TB];
-  __shared__ float red_v[16][TB];
-  __shared__ int red_i[16][TB];
-  __shared__ int rows_s[TR];  // state row of each tile row, -1 if none
-  __shared__ int grp_s[TR];   // its pdf group (emission row)
+// Stage one resident pass of a tier item: the panel's 64 destination
+// columns by cp.async (L2 evict_last: every frame reads them), and the
+// gathered state rows src(k, s0 + s) of the previous frame for the item's
+// 64 columns, read past L1 under ``once``, rescaled and stored transposed.
+// Lane (sl, h) of warp w takes rows s0 + 16u + sl (u = 0 .. 7), columns
+// b0 + 4(2w + h) .. + 3: each warp's stores meet 32 distinct banks.
+template <bool VEC>
+__device__ __forceinline__ void stage_tier(const VitArgs& p, VitSmem& s,
+                                           const float* __restrict__ prev,
+                                           const float* sc, long long k,
+                                           long long dbase, int b0,
+                                           long long s0,
+                                           unsigned long long once) {
+  const Meta& m = p.m;
+  const int B = p.B, tid = threadIdx.x;
+  const unsigned long long keep = evict_last_policy();
+#pragma unroll
+  for (int u = 0; u < TR * SC / 4 / NT; ++u) {
+    const int c = tid + u * NT, r = c / (SC / 4), q = c % (SC / 4);
+    const long long d = dbase + r, sq = s0 + 4 * q;
+    const bool ok = d < m.D && sq < p.Sm4;
+    const float* src = ok ? p.Wt + (k * m.D + d) * p.Sm4 + sq : p.Wt;
+    cp_async16_hint(&s.u.op.W[r][4 * q], src, ok, keep);
+  }
+  cp_async_commit();
+  const int lane = tid % 32, w = tid / 32, sl = lane % 16;
+  const int bb = 4 * (2 * w + lane / 16), b = b0 + bb;
+  float4 x[SC / 16];
+#pragma unroll
+  for (int u = 0; u < SC / 16; ++u) {
+    const long long sr = s0 + 16 * u + sl;
+    const long long j = m.g0 + k * m.gk + sr * m.gs;
+    const bool ok = sr < m.Sm && j < p.RW;  // the main region only
+    const float* row = prev + (ok ? j : 0) * B;
+    if constexpr (VEC)
+      x[u] = ok && b < B ? ldcg4_hint(row + b, once)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    else
+      x[u] = ok ? load4<false, true>(row, b, B)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float scb[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) scb[c] = b + c < B ? sc[b + c] : 0.f;
+#pragma unroll
+  for (int u = 0; u < SC / 16; ++u)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      s.u.op.X[bb + c][16 * u + sl] = get(x[u], c) * scb[c];
+  cp_async_wait<0>();
+  __syncthreads();
+}
 
-  const long long tile = tile0 + blockIdx.x;
-  const int b0 = blockIdx.y * TB;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int bcol = b0 + tx * 4;  // this thread's columns bcol .. bcol+3
-  constexpr bool is_tier = TIER;
+// One work item of frame t over one (row tile, column tile): a tier tile
+// (64 destinations of one tier block) or a band tile (64 rows of
+// band_rows).  y = max(bands, tier) of the rescaled previous state a =
+// prev * s (with ids), u = y * e (frame 0: u = a * e), stored unscaled; its
+// column max and omega keys into copy blockIdx.x % CM of the frame's.
+template <bool VEC>
+__device__ __forceinline__ void vit_item(const VitArgs& p, int t,
+                                         long long tile, int b0, int row0,
+                                         VitSmem& s, const float* sc,
+                                         const float* pf,
+                                         const float* __restrict__ prev,
+                                         float* __restrict__ out) {
+  const Meta& m = p.m;
+  const int B = p.B, RW = p.RW, tid = threadIdx.x, tx = tid % 16,
+            ty = tid / 16;
+  const int bcol = b0 + tx * 4;  // this thread's epilogue columns
+  const bool first = t == 0;
+  const bool is_tier = tile < m.n_tier_tiles;
   const long long dtiles = (m.D + TR - 1) / TR;
   const long long k = is_tier ? tile / dtiles : 0;
   const long long dbase = is_tier ? (tile % dtiles) * TR : 0;
+  const float* __restrict__ ext_t = p.ext + static_cast<size_t>(t) * m.P1 * B;
+  uint8_t* __restrict__ bp_t = p.bps + static_cast<size_t>(t) * RW * B;
+  // the state read under evict_first, the new state stored under
+  // evict_last: what the next frame reads stays in L2 before what this
+  // frame has read
+  const unsigned long long once = evict_first_policy();
+  const unsigned long long keep = evict_last_policy();
 
   if (tid < TR) {
     long long j = -1;
@@ -172,172 +373,230 @@ vit_step_kernel(
       if (d < m.D) j = m.d0 + k * m.dk + d * m.dd;
     } else {
       const long long r = (tile - m.n_tier_tiles) * TR + tid;
-      if (r < m.nband) j = band_rows[r];
+      if (r < m.nband) j = row0 >= 0 ? row0 + tid : p.band_rows[r];
     }
-    rows_s[tid] = static_cast<int>(j);
-    grp_s[tid] = j < 0 ? -1 : static_cast<int>(j / m.cmax);
+    s.rows[tid] = static_cast<int>(j);
+    s.grp[tid] = j < 0 ? -1 : static_cast<int>(j / m.cmax);
   }
-  float best[4][4];
-  int arg[4][4];
+  if (is_tier) {
+    int best[4][4];  // the bits of the running max
+    int gid[4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      best[i][c] = -1.f;  // below every product: s = 0 always enters
-      arg[i][c] = 0;
+      for (int c = 0; c < 4; ++c) {
+        best[i][c] = -1;  // below every product's bits: the first group enters
+        gid[i][c] = -1;
+      }
+    for (long long s0 = 0; s0 < m.Sm; s0 += SC) {
+      stage_tier<VEC>(p, s, prev, sc, k, dbase, b0, s0, once);
+      const long long nS = m.Sm - s0 < SC ? m.Sm - s0 : SC;
+      tier_max_arg(s, static_cast<int>((nS + GS - 1) / GS), s0, best, gid);
+      __syncthreads();  // the resident operands are free
     }
-  if constexpr (TIER)
-    vit_tier_tile(m, B, prev, scale, W, k, dbase, b0, Ws, Xs, best, arg);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s.u.ep.val[ty * 4 + i][tx + 16 * c] = __int_as_float(best[i][c]);
+        s.u.ep.id[ty * 4 + i][tx + 16 * c] =
+            static_cast<uint8_t>(-gid[i][c] - 1);
+      }
+  }
   __syncthreads();
 
-  const float4 sc = load4<VEC>(scale, bcol, B);
+  float scv[4], pfv[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    scv[c] = bcol + c < B ? sc[bcol + c] : 0.f;
+    pfv[c] = bcol + c < B ? pf[bcol + c] : 0.f;
+  }
   float colmax[4] = {0.f, 0.f, 0.f, 0.f};
-  float omv[4] = {-1.f, -1.f, -1.f, -1.f};
-  int omi[4] = {NO_ARG, NO_ARG, NO_ARG, NO_ARG};
+  unsigned long long okey[4] = {0ull, 0ull, 0ull, 0ull};
+  // rows in pairs: a pair's own rows and first PB band terms (weight and
+  // state row) are all loaded before any is used
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const int j = rows_s[r];
-    if (j < 0) continue;
-    const size_t jB = static_cast<size_t>(j) * B;
-    const float4 e =
-        load4<VEC>(ext_t + static_cast<size_t>(grp_s[r]) * B, bcol, B);
-    const float4 p = load4<VEC>(prev + jB, bcol, B);
-    const float om = omega[j];
-    float a[4];
+  for (int i0 = 0; i0 < 4; i0 += 2) {
+    float4 pv[2], xb[2][PB];
+    float wb[2][PB];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      a[c] = get(p, c) * get(sc, c);
-      arg_merge(omv[c], omi[c], om * a[c], j);
-    }
-    const bool main_row = j < RW;
-    float vb[4] = {0.f, 0.f, 0.f, 0.f};
-    int cb[4] = {NO_CAND, NO_CAND, NO_CAND, NO_CAND};
-    if (main_row) {
+    for (int h = 0; h < 2; ++h) {
+      const int j = s.rows[ty * 4 + i0 + h];
+      pv[h] = j >= 0 ? load4_hint<VEC>(prev + static_cast<size_t>(j) * B,
+                                       bcol, B, once)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int o = 0; o < MAX_BANDS; ++o) {
-        if (o >= m.nO) break;  // uniform across the block
+      for (int o = 0; o < PB; ++o) {
         const int src = j - m.off[o];
-        if (src < 0 || src >= RW) continue;  // no arc from outside the main region
-        const float w = band_w[static_cast<size_t>(o) * m.Sp + j];
-        const float4 x =
-            load4<VEC>(prev + static_cast<size_t>(src) * B, bcol, B);
+        const bool ok = j >= 0 && j < RW && o < m.nO && m.off[o] != 0 &&
+                        src >= 0 && src < RW;
+        wb[h][o] = ok ? p.band_w[static_cast<size_t>(o) * m.Sp + j] : 0.f;
+        xb[h][o] = ok ? load4_hint<VEC>(prev + static_cast<size_t>(src) * B,
+                                        bcol, B, once)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float pv = w * (get(x, c) * get(sc, c));
-          if (pv > vb[c]) {
-            vb[c] = pv;
-            cb[c] = static_cast<int>(m.Sm) + o;
+    for (int h = 0; h < 2; ++h) {
+      const int r = ty * 4 + i0 + h, j = s.rows[r];
+      if (j < 0) continue;
+      const size_t jB = static_cast<size_t>(j) * B;
+      const float4 e =
+          load4<VEC>(ext_t + static_cast<size_t>(s.grp[r]) * B, bcol, B);
+      const float om = p.omega[j];
+      float a[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        // the phony row of the frame before is never stored: derived
+        a[c] = (j == m.fin ? pfv[c] : get(pv[h], c)) * scv[c];
+        okey[c] = max(okey[c], omega_key(om * a[c], j));
+      }
+      const bool main_row = j < RW;
+      float vb[4] = {0.f, 0.f, 0.f, 0.f};
+      int cb[4] = {NO_CAND, NO_CAND, NO_CAND, NO_CAND};
+      if (main_row) {
+#pragma unroll
+        for (int o = 0; o < MAX_BANDS; ++o) {
+          if (o >= m.nO) break;  // uniform across the block
+          const int src = j - m.off[o];
+          if (src < 0 || src >= RW) continue;  // no arc from outside
+          const float w = o < PB && m.off[o] != 0
+                              ? wb[h][o < PB ? o : 0]
+                              : p.band_w[static_cast<size_t>(o) * m.Sp + j];
+          const float4 x =
+              m.off[o] == 0 ? pv[h]
+              : o < PB      ? xb[h][o < PB ? o : 0]
+                            : load4_hint<VEC>(
+                                  prev + static_cast<size_t>(src) * B, bcol,
+                                  B, once);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float v = w * (get(x, c) * scv[c]);
+            if (v > vb[c]) {
+              vb[c] = v;
+              cb[c] = static_cast<int>(m.Sm) + o;
+            }
+          }
+        }
+        if (is_tier) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float tv = s.u.ep.val[r][tx * 4 + c];
+            if (tv > vb[c]) {
+              vb[c] = tv;
+              cb[c] = s.u.ep.id[r][tx * 4 + c];
+            }
           }
         }
       }
-      if constexpr (TIER) {
+      float y[4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (best[i][c] > vb[c]) {
-            vb[c] = best[i][c];
-            cb[c] = arg[i][c];
-          }
+      for (int c = 0; c < 4; ++c) {
+        y[c] = (first ? a[c] : vb[c]) * get(e, c);
+        colmax[c] = fmaxf(colmax[c], y[c]);
       }
-    }
-    float u[4];
+      if (first || j != m.fin)
+        store4_hint<VEC>(out + jB, bcol, B, make_float4(y[0], y[1], y[2], y[3]),
+                         keep);
+      if (main_row) {
+        if constexpr (VEC) {
+          if (bcol < B)
+            st_cs_u32(bp_t + jB + bcol,
+                      static_cast<unsigned>(cb[0]) |
+                          (static_cast<unsigned>(cb[1]) << 8) |
+                          (static_cast<unsigned>(cb[2]) << 16) |
+                          (static_cast<unsigned>(cb[3]) << 24));
+        } else {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      u[c] = (first ? a[c] : vb[c]) * get(e, c);
-      colmax[c] = fmaxf(colmax[c], u[c]);
-    }
-    store4<VEC>(out + jB, bcol, B, make_float4(u[0], u[1], u[2], u[3]));
-    if (main_row) {
-      if constexpr (VEC) {
-        if (bcol < B)
-          *reinterpret_cast<uint32_t*>(bp_t + jB + bcol) =
-              static_cast<uint32_t>(cb[0]) |
-              (static_cast<uint32_t>(cb[1]) << 8) |
-              (static_cast<uint32_t>(cb[2]) << 16) |
-              (static_cast<uint32_t>(cb[3]) << 24);
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (bcol + c < B) bp_t[jB + bcol + c] = static_cast<uint8_t>(cb[c]);
+          for (int c = 0; c < 4; ++c)
+            if (bcol + c < B) bp_t[jB + bcol + c] = static_cast<uint8_t>(cb[c]);
+        }
       }
     }
   }
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    red_m[ty][tx * 4 + c] = colmax[c];
-    red_v[ty][tx * 4 + c] = omv[c];
-    red_i[ty][tx * 4 + c] = omi[c];
+    s.u.ep.rm[ty][tx * 4 + c] = __float_as_uint(colmax[c]);
+    s.u.ep.rk[ty][tx * 4 + c] = okey[c];
   }
   __syncthreads();
   if (tid < TB && b0 + tid < B) {
-    const int b = b0 + tid;
-    float mx = 0.f, v = -1.f;
-    int vi = NO_ARG;
+    unsigned mx = 0u;
+    unsigned long long key = 0ull;
     for (int q = 0; q < 16; ++q) {
-      mx = fmaxf(mx, red_m[q][tid]);
-      arg_merge(v, vi, red_v[q][tid], red_i[q][tid]);
+      mx = max(mx, s.u.ep.rm[q][tid]);
+      key = max(key, s.u.ep.rk[q][tid]);
     }
-    part[tile * B + b] = mx;
-    part[(m.n_tiles + tile) * B + b] = v;
-    parti[tile * B + b] = vi;
+    const size_t at = (static_cast<size_t>(t) * CM + blockIdx.x % CM) * B +
+                      b0 + tid;
+    atomicMax(p.cm + at, mx);
+    atomicMax(p.omk + at, key);
   }
+  __syncthreads();  // the tables and the union are free for the next item
 }
 
-// Per-column end of a frame: reduce the step's partials (a fixed-order tree;
-// the argmax keeps the smaller index on ties), then, unless frame 0, the
-// phony state u[fin] = (max_j omega[j] a[j]) * e_fin; fins[t] = the argmax;
-// the new scale 2^-k from the column max; ksum += k and the Kahan-compensated
-// emission shift.
-__global__ void __launch_bounds__(FC * FR) vit_finalize_kernel(
-    Meta m, int B, const float* __restrict__ part,
-    const int* __restrict__ parti, float* __restrict__ state,
-    const float* __restrict__ ext_t, int first, float* __restrict__ scale,
-    const float* __restrict__ mshift_t, float* __restrict__ ksum,
-    float* __restrict__ shift, float* __restrict__ comp,
-    int* __restrict__ fins_t) {
-  __shared__ float r_m[FR][FC], r_v[FR][FC];
-  __shared__ int r_i[FR][FC];
-  const int bl = threadIdx.x, ry = threadIdx.y;
-  const int b = blockIdx.x * FC + bl;
-  float mx = 0.f, v = -1.f;
-  int vi = NO_ARG;
-  if (b < B) {
-    for (long long t = ry; t < m.n_tiles; t += FR) {
-      mx = fmaxf(mx, part[t * B + b]);
-      arg_merge(v, vi, part[(m.n_tiles + t) * B + b], parti[t * B + b]);
+// K7 over frames 0 .. Nf-1: each frame, every CTA derives the scale and the
+// phony state of the frame before for all B columns (CTA 0 also records its
+// fins, ksum and shift), then takes items from the frame's queue; one grid
+// barrier per frame.  After the last: frame Nf-1's end, its scale and its
+// phony state.
+template <bool VEC>
+__global__ void __launch_bounds__(NT, VIT_BLOCKS)
+    vit_sweep_kernel(const __grid_constant__ VitArgs p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  VitSmem& s = *reinterpret_cast<VitSmem*>(smem_raw);
+  float* sc = reinterpret_cast<float*>(smem_raw + sizeof(VitSmem));
+  float* pf = sc + p.B;
+  const Meta& m = p.m;
+  const int B = p.B, ncb = (B + TB - 1) / TB, tid = threadIdx.x;
+  const size_t SB = static_cast<size_t>(m.Sp) * B;
+  const size_t PB1 = static_cast<size_t>(m.P1) * B;
+  for (int t = 0; t < p.Nf; ++t) {
+    const float* prev = t == 0 ? p.a0 : p.work + ((t - 1) % 2) * SB;
+    float* out = p.work + (t % 2) * SB;
+    if (t + 1 < p.Nf) {  // the next frame's emissions into L2, spread
+      constexpr int LINE = 32;  // floats per 128-byte line
+      const float* e = p.ext + (t + 1) * PB1;
+      const size_t n_e = (PB1 + LINE - 1) / LINE;
+      for (size_t i = static_cast<size_t>(blockIdx.x) * NT + tid; i < n_e;
+           i += static_cast<size_t>(gridDim.x) * NT)
+        prefetch_l2(e + i * LINE);
     }
-  }
-  r_m[ry][bl] = mx;
-  r_v[ry][bl] = v;
-  r_i[ry][bl] = vi;
-  __syncthreads();
-  for (int h = FR / 2; h > 0; h /= 2) {
-    if (ry < h) {
-      r_m[ry][bl] = fmaxf(r_m[ry][bl], r_m[ry + h][bl]);
-      float v2 = r_v[ry][bl];
-      int i2 = r_i[ry][bl];
-      arg_merge(v2, i2, r_v[ry + h][bl], r_i[ry + h][bl]);
-      r_v[ry][bl] = v2;
-      r_i[ry][bl] = i2;
+    for (int b = tid; b < B; b += NT) {
+      if (t == 0) {
+        sc[b] = 1.f;
+        pf[b] = p.a0[static_cast<size_t>(m.fin) * B + b];
+      } else {
+        sc[b] = end_of_frame(p, t, b, prev, blockIdx.x == 0, &pf[b]);
+      }
     }
+    // items from the frame's queue: thread 0 takes the next position and
+    // reads its entry while the current item runs
+    auto take = [&]() {
+      const int q = static_cast<int>(atomicAdd(p.ctr + t, 1u));
+      return q < p.n_items ? p.queue[q] : make_int2(-1, -1);
+    };
+    if (tid == 0) s.next[0] = take();
     __syncthreads();
+    int par = 0;
+    for (int2 q = s.next[0]; q.x >= 0; q = s.next[par]) {
+      if (tid == 0) s.next[par ^ 1] = take();
+      vit_item<VEC>(p, t, q.x / ncb, (q.x % ncb) * TB, q.y, s, sc, pf, prev,
+                    out);
+      par ^= 1;  // vit_item ends with a block barrier: s.next[par] is set
+    }
+    grid_sync<SYNC_GEN, 256, true>(p.sync);
   }
-  if (b >= B || ry != 0) return;
-  mx = r_m[0][bl];
-  if (!first) {
-    const float yfin =
-        r_v[0][bl] * ext_t[static_cast<size_t>(m.fin / m.cmax) * B + b];
-    state[static_cast<size_t>(m.fin) * B + b] = yfin;
-    mx = fmaxf(mx, yfin);
+  if (blockIdx.x == 0) {  // frame Nf-1's end
+    const int t = p.Nf;
+    const float* prev = p.work + ((t - 1) % 2) * SB;
+    for (int b = tid; b < B; b += NT) {
+      float yfin;
+      p.scale[b] = end_of_frame(p, t, b, prev, true, &yfin);
+      if (t - 1 >= 1)
+        p.work[((t - 1) % 2) * SB + static_cast<size_t>(m.fin) * B + b] = yfin;
+    }
   }
-  fins_t[b] = r_i[0][bl];
-  const float k = pow2_exponent(mx);
-  scale[b] = pow2_scale(k);
-  ksum[b] += k;
-  const float xc = mshift_t[b] - comp[b];
-  const float t = shift[b] + xc;
-  comp[b] = (t - shift[b]) - xc;
-  shift[b] = t;
 }
 
 // The backtrace of one sequence per thread (viterbi._viterbi_scale_bp's
@@ -371,67 +630,128 @@ __global__ void __launch_bounds__(WALK_THREADS) vit_walk_kernel(
   }
 }
 
+// Dynamic shared memory of one CTA at batch B.
+size_t vit_smem_bytes(int B) {
+  return sizeof(VitSmem) + 2 * static_cast<size_t>(B) * sizeof(float);
+}
+
+const void* vit_kernel(bool vec) {
+  return vec ? (const void*)vit_sweep_kernel<true>
+             : (const void*)vit_sweep_kernel<false>;
+}
+
+// CTAs of the sweep that can be co-resident on the current device at batch
+// B (0 where the device cannot launch cooperatively).
+cudaError_t vit_co_resident(bool vec, int B, int* n) {
+  const void* kern = vit_kernel(vec);
+  const size_t smem = vit_smem_bytes(B);
+  int dev = 0, n_sm = 0, coop = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT,
+                                                        smem);
+  *n = coop ? per_sm * n_sm : 0;
+  return err;
+}
+
+// The zeroed scratch of a sweep at batch B and Nf frames, carved from one
+// buffer: the omega keys omk (Nf, CM, B) 64-bit words first, then the
+// column maxima cm (Nf, CM, B), the queue positions ctr (Nf) and the
+// barrier's SYNC_GEN + 1 words, 32-bit each.  Bytes, or -1 past 2^62.
+long long vit_scratch_bytes(int B, int Nf) {
+  if (B <= 0 || Nf <= 0) return -1;
+  const long long n_cm = static_cast<long long>(Nf) * CM * B;
+  return n_cm * 8 + (n_cm + Nf + SYNC_GEN + 1) * 4;
+}
+
 }  // namespace
 
+// K7's layout at batch B and Nf frames: out[0] the bytes of the zeroed
+// scratch mm_vit_fwd takes, out[1] the tier candidates per max group (GS).
+extern "C" int mm_vit_layout(int B, int Nf, long long* out) {
+  const long long n = vit_scratch_bytes(B, Nf);
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = n;
+  out[1] = GS;
+  return static_cast<int>(cudaSuccess);
+}
+
+// CTAs of the K7 launch that can be co-resident on the current device at
+// batch B (vec: B % 4 == 0), or minus a CUDA error code.
+extern "C" int mm_vit_ctas(int vec, int B) {
+  int n = 0;
+  if (B <= 0) return -static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = vit_co_resident(vec != 0, B, &n);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
 // K7: the tropical sweep over frames 0 .. Nf-1 from a0 (the initial state,
-// (Sp, B), with scale = 1; the caller initialises ksum = shift = comp = 0).
-// Frame t writes work[t % 2] (unscaled), ids[t] and fins[t]; on return scale
-// is the last frame's, so v_final = work[(Nf-1) % 2][fin] * scale.
+// (Sp, B), with scale 1) in one cooperative launch of n_ctas CTAs, which
+// take every frame's items from queue (ops/vit_scan.py vit_plan: n_items =
+// n_tiles * ceil(B / 64) pairs of ints).  Wt: the tier panels transposed,
+// (K, D, Sm4) with Sm4 = Sm rounded up to 4, zero-padded.  Frame t writes
+// work[t % 2] (unscaled; the phony row only for t = 0 and t = Nf - 1),
+// ids[t] and fins[t]; on return scale is the last frame's, so v_final =
+// work[(Nf-1) % 2][fin] * scale.  ksum, shift and comp are zero on entry;
+// scratch: scratch_bytes (mm_vit_layout) of zeroes, 8-byte aligned.
 extern "C" int mm_vit_fwd(
     const float* a0, const float* ext, const float* mshift,
-    const float* band_w, const float* W, const float* omega,
-    const int* band_rows, const long long* imeta, int B, int Nf, int RW,
-    float* work, uint8_t* bps, int* fins, float* scale, float* ksum,
-    float* shift, float* comp, float* part, int* parti, void* stream) {
-  Meta m;
-  if (!parse_meta(imeta, &m) || m.ov_lo != m.Sp || m.nfam != 0 ||
-      m.Sm + m.nO >= NO_CAND || B <= 0 || Nf <= 0 || RW <= 0 || RW > m.Sp ||
-      m.fin < RW)
+    const float* band_w, const float* Wt, const float* omega,
+    const int* band_rows, const long long* imeta, const int* queue,
+    int n_items, int n_ctas, int B, int Nf, int RW, float* work,
+    uint8_t* bps, int* fins, float* scale, float* ksum, float* shift,
+    float* comp, void* scratch, long long scratch_bytes, void* stream) {
+  VitArgs a{};
+  if (!parse_meta(imeta, &a.m) || a.m.ov_lo != a.m.Sp || a.m.nfam != 0 ||
+      a.m.nheavy != 0 || a.m.Sm + a.m.nO >= NO_CAND || B <= 0 || Nf <= 0 ||
+      RW <= 0 || RW > a.m.Sp || a.m.fin < RW || n_ctas <= 0 ||
+      n_items != a.m.n_tiles * ((B + TB - 1) / TB) ||
+      scratch_bytes != vit_scratch_bytes(B, Nf) ||
+      reinterpret_cast<size_t>(scratch) % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned ctiles = (B + TB - 1) / TB;
-  const long long n_band = m.n_tiles - m.n_tier_tiles;
-  const dim3 tier_grid(static_cast<unsigned>(m.n_tier_tiles), ctiles);
-  const dim3 band_grid(static_cast<unsigned>(n_band), ctiles);
-  const dim3 fin_grid((B + FC - 1) / FC), fin_block(FC, FR);
-  const size_t SB = static_cast<size_t>(m.Sp) * B;
+  const size_t n_cm = static_cast<size_t>(Nf) * CM * B;
+  a.B = B;
+  a.Nf = Nf;
+  a.RW = RW;
+  a.a0 = a0;
+  a.ext = ext;
+  a.mshift = mshift;
+  a.band_w = band_w;
+  a.Wt = Wt;
+  a.Sm4 = (a.m.Sm + 3) / 4 * 4;
+  a.omega = omega;
+  a.band_rows = band_rows;
+  a.queue = reinterpret_cast<const int2*>(queue);
+  a.n_items = n_items;
+  a.work = work;
+  a.bps = bps;
+  a.fins = fins;
+  a.scale = scale;
+  a.ksum = ksum;
+  a.shift = shift;
+  a.comp = comp;
+  a.omk = static_cast<unsigned long long*>(scratch);
+  a.cm = reinterpret_cast<unsigned*>(a.omk + n_cm);
+  a.ctr = a.cm + n_cm;
+  a.sync = a.ctr + Nf;
   const bool vec = B % 4 == 0;
-  const float* prev = a0;
-  for (int t = 0; t < Nf; ++t) {
-    float* cur = work + (t % 2) * SB;
-    const float* e = ext + static_cast<size_t>(t) * m.P1 * B;
-    uint8_t* bp_t = bps + static_cast<size_t>(t) * RW * B;
-    if (m.n_tier_tiles > 0) {
-      if (vec)
-        vit_step_kernel<true, true><<<tier_grid, NT, 0, st>>>(
-            m, B, RW, 0, prev, scale, e, band_w, W, omega, band_rows, t == 0,
-            cur, bp_t, part, parti);
-      else
-        vit_step_kernel<false, true><<<tier_grid, NT, 0, st>>>(
-            m, B, RW, 0, prev, scale, e, band_w, W, omega, band_rows, t == 0,
-            cur, bp_t, part, parti);
-    }
-    if (n_band > 0) {
-      if (vec)
-        vit_step_kernel<true, false><<<band_grid, NT, 0, st>>>(
-            m, B, RW, m.n_tier_tiles, prev, scale, e, band_w, W, omega,
-            band_rows, t == 0, cur, bp_t, part, parti);
-      else
-        vit_step_kernel<false, false><<<band_grid, NT, 0, st>>>(
-            m, B, RW, m.n_tier_tiles, prev, scale, e, band_w, W, omega,
-            band_rows, t == 0, cur, bp_t, part, parti);
-    }
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    vit_finalize_kernel<<<fin_grid, fin_block, 0, st>>>(
-        m, B, part, parti, cur, e, t == 0, scale,
-        mshift + static_cast<size_t>(t) * B, ksum, shift, comp,
-        fins + static_cast<size_t>(t) * B);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    prev = cur;
-  }
-  return static_cast<int>(cudaGetLastError());
+  int max_ctas = 0;
+  cudaError_t err = vit_co_resident(vec, B, &max_ctas);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_ctas > max_ctas)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(vit_kernel(vec), dim3(n_ctas), dim3(NT),
+                                    args, vit_smem_bytes(B),
+                                    static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // The walk over ids (Nf, RW, B) and fins (Nf, B) into states (Nf-1, B).

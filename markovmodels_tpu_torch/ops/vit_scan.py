@@ -7,12 +7,14 @@ of the walk of ``markovmodels_tpu/viterbi.py``'s ``_viterbi_scale_bp``.
 One shared 'block' graph (the 2M-arc denominator) runs over a (Sp, B)
 probability state in the max-product semiring:
 
-* K7 ``viterbi_fwd``: one forward sweep over all frames.  Per frame and
-  main-region state [0, R·W) it records the winning uint8 candidate id
-  (< Sm: tier source position, Sm + oi: band offset oi, 255: no incoming
-  mass), per frame the argmax source of the rank-1 ω arcs into the phony
-  final state, and at the end the final value, the Kahan-compensated
-  emission shift and the power-of-two exponent sum;
+* K7 ``viterbi_fwd``: one forward sweep over all frames, one persistent
+  cooperative launch whose CTAs take every frame's work items from the
+  queue of :func:`vit_plan`.  Per frame and main-region state [0, R·W) it
+  records the winning uint8 candidate id (< Sm: tier source position,
+  Sm + oi: band offset oi, 255: no incoming mass), per frame the argmax
+  source of the rank-1 ω arcs into the phony final state, and at the end
+  the final value, the Kahan-compensated emission shift and the
+  power-of-two exponent sum;
 * ``walk``: the backtrace, one thread per sequence, decoding the ids to
   source states through the tier's destination inverse and the band
   offsets (the JAX package leaves this walk to XLA).
@@ -28,6 +30,15 @@ exact), so the products, and hence the ids, are K7's.  The exponent comes
 from the float's exponent bits (``frexp``); the JAX kernel's
 ``floor(log2 m)`` may differ by one next to a power of two, which moves
 only where the scale sits (compare scores, not ``ksum``).
+
+The kernel finds each tier output's max before its id: the value-only max
+over groups of g consecutive source positions (g = 8, the library's
+``mm_vit_layout``), the running value
+and group moving only where a group's max is strictly greater, then the
+first position of the winning group whose product equals the max.  It
+gives the ids of "strict >, smallest position among equal maxima" bit for
+bit (``tests/test_torch_vit_plan.py`` holds a torch emulation of the rule
+to ``block_matvec_max_arg`` and to the JAX kernel).
 """
 from __future__ import annotations
 
@@ -47,6 +58,7 @@ __all__ = [
     "walk_tables",
     "walk",
     "walk_plain",
+    "vit_plan",
     "LAUNCHES",
     "reset_launch_counts",
 ]
@@ -72,21 +84,35 @@ def _main_region(cf) -> int:
     return R * W
 
 
+def layout(B: int, n_frames: int) -> tuple:
+    """(scratch bytes, g) of K7 at batch ``B`` over ``n_frames`` frames,
+    from the library (``mm_vit_layout``): the zeroed scratch the sweep
+    carves its per-frame column maxima, omega keys, queue positions and
+    barrier words from, and the tier candidates per max group."""
+    from . import _build
+
+    out = (ctypes.c_longlong * 2)()
+    bs._raise_on(_build.library().mm_vit_layout(B, n_frames + 1, out),
+                 "mm_vit_layout")
+    return int(out[0]), int(out[1])
+
+
 def _device_bytes(cf, B: int, n_frames: int) -> int:
     """Device bytes of one K7 sweep, every buffer sized by its dtype: the
     uint8 id stream, the initial state and the ping-pong pair, the
-    emissions, the operator, and the per-tile partials."""
+    emissions, the operator with its transposed panels, and the scratch
+    (:func:`layout`)."""
     Sp, P1 = cf.padded_states, cf.num_pdfs + 1
     f = cf.alpha_hat.element_size()
     Nf = n_frames + 1
     op = cf.block_fwd
-    tens = [cf.omega_prob, cf.alpha_hat, op.tiers[0][2]]
+    tens = [cf.omega_prob, cf.alpha_hat, op.tiers[0][2], op.tiers[0][2]]
     if op.band_w is not None:
         tens.append(op.band_w)
     need = sum(t.numel() * t.element_size() for t in tens)
     need += Nf * _main_region(cf) * B  # ids
     need += 3 * Sp * B * f + Nf * (P1 + 1) * B * f
-    need += 3 * (Sp // bs._TILE_ROWS + 1) * B * 4  # partials (bound)
+    need += layout(B, n_frames)[0]
     return need
 
 
@@ -128,6 +154,74 @@ def _check_graph(cf, B: int, n_frames: int, device):
     reason = vit_scan_reject_reason(cf, B, n_frames=n_frames, device=device)
     if reason is not None:
         raise ValueError(f"the Viterbi sweep rejects this graph: {reason}")
+
+
+# ---------------------------------------------------------------------------
+# the host plan of the persistent sweep
+# ---------------------------------------------------------------------------
+
+class VitPlan(NamedTuple):
+    """The queue of K7's work items, the same in every frame: one row tile
+    of the forward operator (the tier tiles, then the 64-row band tiles, in
+    the order of ``block_scan._row_tiles``) times one 64-column tile, coded
+    tile·ncb + column tile: every tier item, then every band item, each in
+    tile, then column-tile order (``block_scan._queue`` with no spread:
+    the tier items interleaved with the band items, or taken first by one
+    CTA of each SM, measured slower, PERF.md §6).  Each entry also carries
+    the first row of a band tile whose rows are consecutive (-1 for any
+    other tile).  The CTAs of the persistent grid take the items in queue
+    order; which CTA runs an item shows in no result (the frame's two
+    reductions are maxima)."""
+    ncb: int  # 64-column tiles: ceil(B / 64)
+    queue: torch.Tensor  # (n_tiles * ncb, 2) int32: item, first row or -1
+
+
+def vit_plan(kop, B: int) -> VitPlan:
+    """K7's queue for batch ``B``, built once per shape of the forward
+    operator's tiles and cached on ``kop``."""
+    kd = kop.fwd
+    counts = bs._tile_counts(kd, B)
+    key = ("vit_plan",) + counts
+    pl = kop.plans.get(key)
+    if pl is None:
+        queue, _ = bs._queue(kd, B, 0.0)
+        pl = VitPlan(ncb=counts[0], queue=bs._i32(queue, kd.W.device))
+        kop.plans[key] = pl
+    return pl
+
+
+def _panels_t(kop) -> torch.Tensor:
+    """(K, D, Sm4) the float32 tier panels transposed, each destination's
+    column contiguous and zero-padded to a multiple of 4 positions (K7
+    copies them to shared memory 16 bytes at a time); cached on ``kop``."""
+    Wt = kop.plans.get("vit_panels")
+    if Wt is None:
+        K, Sm, D = kop.fwd.W.shape
+        Wt = kop.fwd.W.new_zeros((K, D, -(-Sm // 4) * 4), dtype=torch.float32)
+        Wt[:, :, :Sm] = kop.fwd.W.transpose(1, 2)
+        kop.plans["vit_panels"] = Wt
+    return Wt
+
+
+def _vit_grid(kop, device, B: int) -> int:
+    """CTAs of K7's persistent grid: as many as can be co-resident on the
+    CUDA ``device`` at batch ``B`` (the library asks the occupancy API with
+    the dynamic shared memory of that batch; cached on ``kop``)."""
+    from . import _build
+
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    key = ("vit_grid", idx, B)
+    if key not in kop.plans:
+        with torch.cuda.device(idx):
+            n = _build.library().mm_vit_ctas(int(B % 4 == 0), B)
+        if n < 0:
+            bs._raise_on(-n, "mm_vit_ctas")
+        if n == 0:
+            raise ValueError("the persistent K7 kernel cannot keep its CTAs "
+                             f"co-resident on {device}")
+        kop.plans[key] = n
+    return kop.plans[key]
 
 
 # ---------------------------------------------------------------------------
@@ -242,10 +336,10 @@ def walk_plain(wt: WalkTables, bps, fins, lengths):
 # ---------------------------------------------------------------------------
 
 def viterbi_fwd(cf, ext, mshift):
-    """K7: the fused tropical sweep over all Nf frames.  Same inputs and
-    outputs as :func:`viterbi_fwd_plain`.  A ``precision='bf16'`` graph
-    decodes with its float32 panels, exactly as a 'high' one: the TPU K7
-    ignores the precision (``pallas_block.py:1169``)."""
+    """K7: the fused tropical sweep over all Nf frames, one cooperative
+    launch.  Same inputs and outputs as :func:`viterbi_fwd_plain`.  A
+    ``precision='bf16'`` graph decodes with its float32 panels, exactly as a
+    'high' one: the TPU K7 ignores the precision (``pallas_block.py:1169``)."""
     if not bs._route(ext, "Viterbi-sweep"):
         return viterbi_fwd_plain(cf, ext, mshift)
     from . import _build
@@ -259,24 +353,25 @@ def viterbi_fwd(cf, ext, mshift):
     bs._check("ext", ext, (Nf, kop.P1, B), dev)
     bs._check("mshift", mshift, (Nf, 1, B), dev)
     meta = bs._imeta(kop, kop.fwd)
-    n_tiles = int(meta[bs._N_TILES])
+    pl, Wt = vit_plan(kop, B), _panels_t(kop)
+    G = _vit_grid(kop, dev, B)
     a0 = kop.alpha0[:, None].expand(Sp, B).contiguous()
     bps = torch.empty((Nf, RW, B), dtype=torch.uint8, device=dev)
     fins = torch.empty((Nf, B), dtype=torch.int32, device=dev)
     work = torch.empty((2, Sp, B), device=dev)
-    scale = torch.ones(B, device=dev)
-    ksum, shift, comp = (torch.zeros(B, device=dev) for _ in range(3))
-    part = torch.empty((2, n_tiles, B), device=dev)
-    parti = torch.empty((n_tiles, B), dtype=torch.int32, device=dev)
+    scale, ksum, shift, comp = (torch.zeros(B, device=dev) for _ in range(4))
+    # zeroed scratch, carved by the library (int64 words: 8-byte aligned)
+    n_scratch = layout(B, Nf - 1)[0]
+    scratch = torch.zeros(-(-n_scratch // 8), dtype=torch.int64, device=dev)
     kd = kop.fwd
     with torch.cuda.device(dev):  # the library launches on it
         rc = _build.library().mm_vit_fwd(
             bs._p(a0), bs._p(ext), bs._p(mshift), bs._p(kd.band_w),
-            bs._p(kd.W), bs._p(kop.omega), bs._p(kd.band_rows),
-            ctypes.c_void_p(meta.ctypes.data), B, Nf, RW, bs._p(work),
-            bs._p(bps), bs._p(fins), bs._p(scale), bs._p(ksum),
-            bs._p(shift), bs._p(comp), bs._p(part), bs._p(parti),
-            bs._stream(dev),
+            bs._p(Wt), bs._p(kop.omega), bs._p(kd.band_rows),
+            ctypes.c_void_p(meta.ctypes.data), bs._p(pl.queue),
+            pl.queue.shape[0], G, B, Nf, RW, bs._p(work), bs._p(bps),
+            bs._p(fins), bs._p(scale), bs._p(ksum), bs._p(shift),
+            bs._p(comp), bs._p(scratch), n_scratch, bs._stream(dev),
         )
     bs._raise_on(rc, "mm_vit_fwd")
     LAUNCHES["vit_fwd"] += 1

@@ -350,13 +350,14 @@ def test_reject_reasons_name_each_port_predicate(mixed):
         (rep(ct, alpha_hat=ct.alpha_hat.double()), "operator dtype"),
         (rep(ct, banded_offsets=(0, Sp)), "band offset exceeds"),
         (rep(ct, banded_offsets=tuple(range(9))), "9 band offsets"),
-        (rep(ct, alpha_hat=ct.alpha_hat.new_zeros((G, 1000))),
+        (rep(ct, alpha_hat=ct.alpha_hat.new_zeros((G, 2400))),
          "shared-memory working set"),
-        (rep(ct, alpha_hat=ct.alpha_hat.new_zeros((G, 1544))),
-         "1544 padded states exceed"),
     ]
     for cf, match in cases:
         assert match in bsc.banded_scan_reject_reason(cf, G), match
+    for S in (1000, 1544):  # past the narrow K5: the wide one takes them
+        assert bsc.banded_scan_reject_reason(
+            rep(ct, alpha_hat=ct.alpha_hat.new_zeros((G, S))), G) is None
 
 
 def test_dispatch_raises_for_unported_batched_graphs(mixed):

@@ -199,35 +199,48 @@ def test_infeasible_lattices_give_all_zero_rows():
 
 def test_smem_words_follow_the_kernels_layout():
     """The admission's words are the buffers the kernels lay out, with the
-    kernels' ring depths and warp counts, at the step's shape and
-    beyond."""
+    kernels' ring depths and warp counts, in the narrow and the wide
+    instantiation, at the step's shape and beyond; a launch takes the
+    narrow one where its states fit in registers and its shared memory in
+    a CTA."""
     for name, value in (("DEPTH", bsc._DEPTH), ("YRING", bsc._YRING),
-                        ("POST_WARPS", bsc._POST_WARPS)):
+                        ("POST_WARPS", bsc._POST_WARPS),
+                        ("WDEPTH", bsc._WDEPTH), ("WYRING", bsc._WYRING),
+                        ("SMEM_MAX", bsc._SMEM_BYTES)):
         assert re.search(rf"constexpr int {name} = {value};", CU), name
     assert re.search(r"constexpr int MAX_J = (\d+);", CU).group(1) == str(
-        bsc._MAX_STATES // 32)
-    D, R, W = bsc._DEPTH, bsc._YRING, bsc._POST_WARPS
-    for Sp, nO in ((80, 2), (8, 0), (1000, 8)):
-        nb = max(nO, 1)
-        fwd = {"X": 2 * 2 * Sp, "BW": 2 * nb * Sp, "OM": 2 * Sp,
-               "AL": 2 * D * Sp, "FULL+DONE": 2 * 2 * D, "ER": D * Sp,
-               "MR": D}
-        bwd = {"X": 2 * 2 * Sp, "BW": 2 * nb * Sp, "OM": 2 * Sp,
-               "YR": 2 * R * Sp, "GM": 2 * W * Sp, "AR": 2 * W * D * Sp,
-               "FULL+EMPTY": 2 * 2 * R, "EFULL+EDONE": 2 * 2 * D,
-               "ER": D * Sp, "ST": Sp}
-        assert bsc._smem_words(Sp, nO) == (sum(fwd.values()),
-                                           sum(bwd.values()))
+        bsc._NARROW_STATES // 32)
+    for wide, (D, R, W) in ((False, (bsc._DEPTH, bsc._YRING,
+                                     bsc._POST_WARPS)),
+                            (True, (bsc._WDEPTH, bsc._WYRING, 1))):
+        for Sp, nO in ((80, 2), (8, 0), (1000, 8), (1208, 3)):
+            nb = max(nO, 1)
+            pd = {"PD": Sp} if wide else {}
+            fwd = {"X": 2 * 2 * Sp, "BW": 2 * nb * Sp, "OM": 2 * Sp,
+                   "AL": 2 * D * Sp, "FULL+DONE": 2 * 2 * D, "ER": D * Sp,
+                   "MR": D, **pd}
+            bwd = {"X": 2 * 2 * Sp, "BW": 2 * nb * Sp, "OM": 2 * Sp,
+                   "YR": 2 * R * Sp, "GM": 2 * W * Sp, "AR": 2 * W * D * Sp,
+                   "FULL+EMPTY": 2 * 2 * R, "EFULL+EDONE": 2 * 2 * D,
+                   "ER": D * Sp, "ST": Sp, **pd}
+            assert bsc._variant_words(Sp, nO, wide) == (
+                sum(fwd.values()), sum(bwd.values()))
     assert bsc._smem_words(80, 2) == (2760, 5744)
+    assert bsc._wide(80, 2) == (False, False)
+    assert bsc._wide(816, 2) == (False, False)  # K5b's narrow fits
+    assert bsc._wide(824, 2) == (False, True)
+    assert bsc._wide(1032, 1) == (True, True)  # past 32 states per lane
+    assert bsc._smem_words(824, 2) == (bsc._variant_words(824, 2, False)[0],
+                                       bsc._variant_words(824, 2, True)[1])
 
 
 def test_admission_rejects_past_a_ctas_shared_memory():
     rng = np.random.default_rng(21)
     cf = _stack(numerators(rng, 2, P, [6, 9], lib=mt))
     nO = len(cf.banded_offsets)
-    fits = max(Sp for Sp in range(8, bsc._MAX_STATES + 1, 8)
+    fits = max(Sp for Sp in range(8, 4096, 8)
                if 4 * max(bsc._smem_words(Sp, nO)) <= bsc._SMEM_BYTES)
-    assert fits < bsc._MAX_STATES  # shared memory binds first
+    assert fits > bsc._NARROW_STATES  # the wide instantiation goes past
 
     def at(Sp):
         return bsc.banded_scan_reject_reason(dataclasses.replace(
@@ -239,4 +252,4 @@ def test_admission_rejects_past_a_ctas_shared_memory():
         f"shared-memory working set {big} B for Sp = {fits + 8}, {nO} "
         f"offsets exceeds a CTA's {bsc._SMEM_BYTES} B")
     assert big > 227 * 1024
-    assert "1544 padded states exceed" in at(1544)
+    assert at(1544) is None and at(1000) is None
