@@ -12,7 +12,9 @@ then the same step against a 'dense' denominator (the V=32 LM ∘ HMM graph:
 3,073 states, 38,913 arcs, 96 pdfs, within 6 % of the WSJ denominator's
 padded width) through K6a/K6b of ``.../csrc/dense_scan.cu``; then the
 Viterbi decode of the 2M-arc graph through K7 and the backtrace walk of
-``.../csrc/vit_scan.cu``; then the training step against the separate-state
+``.../csrc/vit_scan.cu`` (and, last, the chunk-recompute decode of a
+'dense' graph and of the 2M-arc graph past the id budget, phases 31-33);
+then the training step against the separate-state
 backoff LM ∘ HMM denominator (V=128, 10 % of the trigrams kept: 49,537
 states, 339,895 arcs, 384 pdfs), which ``compile_fsm``'s default lowers to
 the capped/overflow layout, through the overflow branch of K2-K4, in
@@ -136,9 +138,42 @@ the tensor cores, float32 everywhere else:
     bf16 block graphs, and the bf16 ``torch.mm`` yardstick of K6;
 30. Viterbi of the bf16 2M-arc graph: K7's ids, ω argmaxes and scores
     bit-equal to the 'high' graph's at B=128, N=128 (K7 takes float32
-    panels on any graph).
+    panels on any graph);
 
-Every kernel's entry in the JSON line carries its bound: the larger of its
+then the chunk-recompute Viterbi decode ('dense' graphs and 'block' graphs
+past the uint8 id budget) through K6t (the tropical instantiation of K6a,
+``.../csrc/dense_scan.cu``), K7n (K7 without the ids, ``.../csrc/vit_scan.cu``)
+and the recompute walk W2 (``.../csrc/rec_walk.cu``):
+
+31. K6t on the V=32 dense graph and K7n on the 2M-arc graph against their
+    plain twins at B=128, N=128 (lengths 1, 2N/3 and N mixed, ±30-nat
+    cliffs), each run twice, bit-equal to each other and to the twin, and
+    restarted mid-sweep from a saved frame; K7n's final value, ksum and
+    shift bit-equal to K7's on the same input, its checkpoints equal to
+    the saved frames; W2 bit-equal to its twin on both graphs' saved
+    frames, whole and in two chunks; the decode with chunk_size 7 and 64
+    equal to the one-chunk decode (states and scores);
+32. ``viterbi`` on the V=32 dense graph at B=128, N=700 (seed 0): exactly
+    one K6t and one W2 launch and no other kernel (counters and the
+    profiler), all 128 paths walked in f64, 8 sequences of mixed lengths
+    against the f64 max-plus optimum (1e-3); the decode (median of 5),
+    audio-s/s, the K6t sweep (µs per frame) and the walk timed beside their
+    bounds and their twins (held bit-equal at this shape), the device idle
+    share of one profiled decode; then BASELINE.json config 1 (a
+    left-to-right 5-state HMM, T=100, B=1) on the card: states equal to the
+    CPU route's, the score against the optimum;
+33. the 2M-arc graph at B=128, N=1,024, past the id stream's 6 GB budget:
+    the route is named by the budget, one K7n checkpoint sweep and per
+    64-frame chunk one K7n recompute and one W2 walk (counters), all 128
+    paths walked in f64; the decode (median of 3), the checkpoint sweep,
+    one chunk's recompute and walk timed beside their bounds and twins
+    (bit-equal); at N=700 (phase 17's input) the recompute route called
+    directly beside K7's decode: scores within 1e-5, every path of both
+    f64-valid, the sequences whose states differ counted (near-ties of the
+    two routes' arithmetic) and held to the other route's score.
+
+Every kernel's entry in the JSON line (K6t, K7n and W2 from phases 32-33
+among them) carries its bound: the larger of its
 operations over the card's peak rate for their type and its bytes over the
 memory bandwidth (H100 SXM data sheet), computed from this run's shapes.
 
@@ -1134,6 +1169,8 @@ def phase_step(num_cf, cf, P, dev, mods, label, B=128, N=700, bf16=False):
     loss, grad = step()
     torch.cuda.synchronize()
     launches = launch_counts(mods, bf16)
+    # K6t belongs to the Viterbi decode: the step must not launch it
+    assert not launches.pop("dense_trop", 0), "the step launched K6t"
     print(f"{label}: launches {json.dumps(launches)}")
     assert all(v > 0 for v in launches.values()), "a kernel never launched"
 
@@ -1669,7 +1706,8 @@ def phase_vit_main(fsm, spdf, cf, P, dev, B=128, N=700):
     others = {k: v for m in (bs, bsc, ds) for k, v in m.LAUNCHES.items()}
     print(f"phase 17: launches {json.dumps(launches)}; other kernels "
           f"{json.dumps(others)}")
-    assert launches == {"vit_fwd": 1, "vit_walk": 1}, launches
+    assert launches == {"vit_fwd": 1, "vit_walk": 1, "vit_fwd_noid": 0,
+                        "rec_walk": 0}, launches
     assert not any(others.values()), "the decode launched another kernel"
 
     st, sc = states.cpu().numpy(), score.cpu().numpy()
@@ -1705,7 +1743,7 @@ def phase_vit_main(fsm, spdf, cf, P, dev, B=128, N=700):
               + "; ".join(f"{k} {v:.3f} ms ({counts[k]} launches)"
                           for k, v in top))
         vit = {k: v for k, v in counts.items() if k.startswith("vit_")}
-        assert sorted(vit.items()) == [("vit_sweep_kernel<true>", 1),
+        assert sorted(vit.items()) == [("vit_sweep_kernel<true, true>", 1),
                                        ("vit_walk_kernel", 1)], counts
     parts = decode_parts(cf, lhs, lengths)
     for k, v in parts.items():
@@ -2018,6 +2056,474 @@ def phase_bf16_decode(cf, cf16, P, dev, B=128, N=128):
     assert all(same) and paths, "the bf16 graph decodes differently"
 
 
+def trop_bounds(dcf, B, Nf):
+    """K6t over an Nf-frame sweep that keeps every frame, as K6a's bound
+    counts it (``dense_bounds``): per frame and column a multiply and a max
+    per non-zero of the operator, two instructions at one per lane and
+    clock (PEAK_F32_OPS; K6a's one FMA counts at PEAK_F32), and the
+    emission and rescale per state; the operator read once as a CSR, the
+    state, every frame's state and scale written, the emissions."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    kop = ds.trop_operator(dcf)
+    Sp, P1 = kop.Sp, kop.P1
+    nnz = int(torch.count_nonzero(kop.wf))
+    nbytes = 8 * nnz + 4 * (Sp + 1) + 4 * (Sp * B + Nf * (P1 + 1) * B
+                                          + Nf * (Sp + 1) * B + 3 * B)
+    return bound(Nf * B * (2 * nnz + 3 * Sp), nbytes, PEAK_F32_OPS)
+
+
+def noid_bounds(cf, B, Nf, saved):
+    """K7n over Nf frames saving ``saved`` of them: K7's work without the
+    id (a multiply and a max per tier candidate, per band candidate a
+    multiply and a max, per state the omega product and max, the emission
+    and the rescale) at PEAK_F32_OPS; the operator, the emissions, the
+    start state and the saved states and scales."""
+    from markovmodels_tpu_torch.ops import block_scan as bs
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+
+    kop = bs.kernel_operator(cf)
+    K, Sm, D = kop.fwd.W.shape
+    nO, Sp, P1 = len(kop.fwd.offsets), kop.Sp, kop.P1
+    RW = vs._main_region(cf)
+    ops = Nf * B * (2 * K * Sm * D + 2 * nO * RW + 4 * Sp)
+    nbytes = 4 * (K * Sm * D + nO * Sp + 2 * Sp + Nf * (P1 + 1) * B
+                  + Sp * B + saved * (Sp + 1) * B + 8 * B)
+    return bound(ops, nbytes, PEAK_F32_OPS)
+
+
+def walk_bounds(wt, path, s_next, lengths, t0, Sp):
+    """W2 over one launch, from its own path (the work depends on the
+    data): ``path`` (nK, B) the walked states of frames t0 .., ``s_next``
+    the states of the frame after.  Per frame and sequence before the
+    length's last frame, the in-arcs of the next frame's state, each a
+    source and weight read, an alpha gathered and a multiply, log, add and
+    compare; at the last frame the omega argmax over all Sp states (an
+    alpha and omega read, two multiplies and a compare each); the row
+    pointers, the scale and the state written every frame."""
+    rowptr = wt.rowptr.cpu().numpy().astype(np.int64)
+    path = path.cpu().numpy().astype(np.int64)  # compiled ids
+    L = lengths.cpu().numpy().astype(np.int64)[None, :]
+    t = t0 + np.arange(path.shape[0])[:, None]
+    nxt = np.concatenate([path[1:], s_next.cpu().numpy()[None]]).astype(
+        np.int64)
+    cnt = np.minimum(rowptr[nxt + 1] - rowptr[nxt], wt.dmax)
+    cnt = np.where((nxt == wt.fin) | (t >= L - 1), 0, cnt)
+    cand = int(cnt.sum())
+    steps = path.size
+    omega_steps = int(((t == L - 1) & (L >= 1)).sum())
+    ops = 4 * cand + 3 * Sp * omega_steps
+    nbytes = 12 * cand + 8 * Sp * omega_steps + 16 * steps
+    return bound(ops, nbytes, PEAK_F32_OPS)
+
+
+def hmm5(seed=7, S=5):
+    """BASELINE.json config 1: a left-to-right 5-state HMM (self-loop and
+    forward arc per state, random weights from ``seed``, final weight 0.3 on
+    the last state), one pdf per state: (fsm, state_pdf, P)."""
+    import markovmodels_tpu_torch as mt
+
+    rng = np.random.default_rng(seed)
+    arcs = []
+    for i in range(S):
+        js = [j for j in (i, i + 1) if j < S]
+        w = rng.uniform(0.1, 1.0, size=len(js))
+        w /= w.sum() * rng.uniform(1.0, 1.5)
+        arcs += [((i, j), float(np.log(x))) for j, x in zip(js, w)]
+    fsm = mt.fsm.FSM.from_pairs(
+        [(0, 0.0)], arcs, [(S - 1, float(np.log(0.3)))],
+        [mt.labels.Label(i) for i in range(S)], mt.LOG)
+    return fsm, np.arange(S + 1, dtype=np.int32), S
+
+
+def all_launches():
+    """Every kernel entry point's launch count, across the ops modules."""
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops import block_scan as bs
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+
+    out = {}
+    for m in (bs, bsc, ds, vs):
+        out.update(m.LAUNCHES)
+    out.update({f"{k}_bf16": v for m in (bs, ds)
+                for k, v in m.LAUNCHES_BF16.items()})
+    return out
+
+
+def reset_all_launches():
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops import block_scan as bs
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+
+    for m in (bs, bsc, ds, vs):
+        m.reset_launch_counts()
+
+
+def phase_rec_kernels(dcf, dP, cf, P, dev, B=128, N=128):
+    """Phase 31: K6t (the V=32 dense graph), K7n (the 2M-arc graph) and W2
+    (both) against their plain twins on phase 15's input at N=128 (lengths
+    1, 2N/3 and N mixed, ±30-nat cliffs): K6t and K7n each run twice,
+    bit-equal run to run and to the twin, also restarted mid-sweep from a
+    saved frame; K7n's final value, ksum and shift bit-equal to K7's on the
+    same input, its checkpoints every 64 frames equal to the saved frames;
+    W2 bit-equal to its twin over the whole sweep and in two chunks; the
+    decode with chunk_size 7 and 64 against the one-chunk decode: the same
+    states and scores.  Returns {kernel: max |kernel - twin|}."""
+    import importlib
+
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    tvit = importlib.import_module("markovmodels_tpu_torch.viterbi")
+
+    def same(xs, ys):
+        return all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+    def err(xs, ys):
+        return max(float((x.double() - y.double()).abs().max())
+                   for x, y in zip(xs, ys))
+
+    h = 64  # the mid-sweep restart frame
+    lhs_d, lens_d = vit_inputs(dP, dev, B, N)
+    ext, msh = prepare_emissions(lhs_d, lens_d, dP)
+    kop = ds.trop_operator(dcf)
+    a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
+    s0 = torch.ones(B, device=dev)
+    k1 = ds.trop_sweep(kop, a0, s0, ext, msh, first=True)
+    k2 = ds.trop_sweep(kop, a0, s0, ext, msh, first=True)
+    torch.cuda.synchronize()
+    p = ds.trop_sweep_plain(kop, a0, s0, ext, msh, first=True)
+    mid = (k1[0][h - 1], k1[1][h - 1], ext[h:], msh[h:])
+    m_k = ds.trop_sweep(kop, *mid, first=False)
+    m_p = ds.trop_sweep_plain(kop, *mid, first=False)
+    k6t = {"twice": same(k1, k2), "twin": same(k1, p),
+           "restart": same(m_k, m_p) and torch.equal(m_k[0], k1[0][h:])}
+    e_k6t = max(err(k1, p), err(m_k, m_p))
+    print(f"phase 31: K6t on the V=32 dense graph B={B} N={N}: states, "
+          f"scales, ksum and shift bit-equal {k6t}; max |K6t - plain| = "
+          f"{e_k6t:g}")
+    assert all(k6t.values()), f"K6t disagrees: {k6t}"
+
+    lhs_b, lens_b = vit_inputs(P, dev, B, N)
+    ext2, msh2 = prepare_emissions(lhs_b, lens_b, P)
+    n1 = vs.viterbi_fwd(cf, ext2, msh2, ids=False)
+    n2 = vs.viterbi_fwd(cf, ext2, msh2, ids=False)
+    torch.cuda.synchronize()
+    np_ = vs.viterbi_fwd_plain(cf, ext2, msh2, ids=False)
+    k7 = vs.viterbi_fwd(cf, ext2, msh2)
+    fin = cf.final_state
+    ck = vs.viterbi_fwd(cf, ext2, msh2, ids=False, stride=h)
+    mid = dict(a0=n1[0][h - 1], s0=n1[1][h - 1], t0=h)
+    r_k = vs.viterbi_fwd(cf, ext2[h:], msh2[h:], ids=False, **mid)
+    r_p = vs.viterbi_fwd_plain(cf, ext2[h:], msh2[h:], ids=False, **mid)
+    k7n = {"twice": same(n1, n2), "twin": same(n1, np_),
+           "as K7": (torch.equal(n1[2][fin] * n1[3], k7[2])
+                     and torch.equal(n1[4][0], k7[4])
+                     and torch.equal(n1[4][1], k7[3])),
+           "checkpoints": (torch.equal(ck[0], n1[0][h - 1::h])
+                           and torch.equal(ck[1], n1[1][h - 1::h])
+                           and same(ck[2:], n1[2:])),
+           "restart": same(r_k, r_p) and torch.equal(r_k[0], n1[0][h:])}
+    e_k7n = max(err(n1, np_), err(r_k, r_p))
+    del n2, np_, r_k, r_p, ck
+    print(f"phase 31: K7n on the 2M-arc graph B={B} N={N}: saved states "
+          f"and scales, final value, ksum and shift bit-equal {k7n}; max "
+          f"|K7n - plain| = {e_k7n:g}")
+    assert all(k7n.values()), f"K7n disagrees: {k7n}"
+
+    e_w2 = 0.0
+    for name, g, (st, sc), lens in (("V=32 dense", dcf, k1[:2], lens_d),
+                                    ("2M-arc", cf, n1[:2], lens_b)):
+        wt = vs.rec_walk_tables(g)
+        s_end = torch.full((B,), wt.fin, dtype=torch.int32, device=dev)
+        wk = vs.rec_walk(wt, st, sc, lens, 0, s_end)
+        torch.cuda.synchronize()
+        wp = vs.rec_walk_plain(wt, st, sc, lens, 0, s_end)
+        w_hi = vs.rec_walk(wt, st[h:], sc[h:], lens, h, s_end)
+        w_lo = vs.rec_walk(wt, st[:h], sc[:h], lens, 0, w_hi[0])
+        ok = {"twin": torch.equal(wk, wp),
+              "chunks": torch.equal(torch.cat([w_lo, w_hi]), wk)}
+        e_w2 = max(e_w2, float((wk - wp).abs().max()))
+        print(f"phase 31: W2 on the {name} graph's saved frames: states "
+              f"equal {ok}; {int((wk != wp).sum())} of {wk.numel()} differ")
+        assert all(ok.values()), f"W2 disagrees on the {name} graph: {ok}"
+    del n1, k1, k2, p, m_k, m_p
+
+    for name, g, lhs, lens in (("V=32 dense", dcf, lhs_d, lens_d),
+                               ("2M-arc", cf, lhs_b, lens_b)):
+        one = tvit._viterbi_recompute(g, lhs, lens)
+        for k in (7, 64):
+            got = tvit._viterbi_recompute(g, lhs, lens, k)
+            ok = same(got, one)
+            print(f"phase 31: {name} chunk-recompute decode, chunk_size {k} "
+                  f"against one chunk: states and scores equal {ok}")
+            assert ok, f"the chunked {name} decode differs"
+    return {"K6t": e_k6t, "K7n": e_k7n, "W2": e_w2}
+
+
+def phase_dense_decode(dfsm, dspdf, dcf, dP, dev, B=128, N=700):
+    """Phase 32: ``viterbi`` on the V=32 dense graph at B=128, N=700
+    (phase 17's input form, seed 0) through K6t and W2 only (launch
+    counters and the profiler's kernel count), every path walked in f64,
+    8 sequences of mixed lengths against the f64 max-plus optimum; the
+    decode (median of 5), the sweep and the walk timed, their plain twins
+    timed and held to them at this shape, the profiled idle share; then
+    BASELINE.json config 1 (a left-to-right 5-state HMM, T=100, B=1) on
+    the card against the CPU route and the optimum."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    rng = np.random.default_rng(0)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, dP)).to(dev)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    states, score = mt.viterbi(dcf, lhs, lengths)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    print(f"phase 32: launches {json.dumps(counts)}")
+    want = {k: 0 for k in counts}
+    want.update(dense_trop=1, rec_walk=1)
+    assert counts == want, f"the dense decode launched {counts}"
+    st, sc = states.cpu().numpy(), score.cpu().numpy()
+    assert st.shape == (B, N) and np.isfinite(sc).all(), "dense decode"
+    gap = mt.oracle.validate_paths(dfsm, dspdf, lhs.cpu().numpy(),
+                                   lengths.cpu().numpy(), st, sc,
+                                   atol=TOL_VIT_WALK)
+    l8 = np.array([N, 1, 2 * N // 3, N // 2 + 1, N - 1, 2, N // 3, N],
+                  dtype=np.int32)
+    s8, z8 = mt.viterbi(dcf, lhs[:8], torch.from_numpy(l8).to(dev))
+    z8 = z8.cpu().numpy()
+    ref = mt.oracle.host_viterbi_score(dfsm, dspdf, dP,
+                                       lhs[:8].cpu().numpy()
+                                       .astype(np.float64), l8)
+    feas = np.isfinite(ref)
+    assert (np.isfinite(z8) == feas).all(), "dense decode: -inf pattern"
+    serr = float(np.abs(z8[feas] - ref[feas]).max())
+    gap8 = mt.oracle.validate_paths(dfsm, dspdf, lhs[:8].cpu().numpy()[feas],
+                                    l8[feas], s8.cpu().numpy()[feas],
+                                    ref[feas], atol=TOL_VIT_WALK)
+    print(f"phase 32: V=32 dense decode B={B} N={N}: all {B} paths walked "
+          f"in float64, max |path weight - score| = {gap:.3e} (tol "
+          f"{TOL_VIT_WALK:g}); 8 mixed lengths ({feas.sum()} feasible) vs "
+          f"the f64 optimum |dscore| = {serr:.3e} (tol {TOL_VIT_ORACLE:g}), "
+          f"their paths within {gap8:.3e}")
+    assert serr <= TOL_VIT_ORACLE, "dense decode: oracle gate"
+
+    ext, msh = prepare_emissions(lhs, lengths, dP)
+    kop = ds.trop_operator(dcf)
+    a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
+    s0 = torch.ones(B, device=dev)
+    out = ds.trop_sweep(kop, a0, s0, ext, msh, first=True)
+    wt = vs.rec_walk_tables(dcf)
+    s_end = torch.full((B,), wt.fin, dtype=torch.int32, device=dev)
+    path = vs.rec_walk(wt, out[0], out[1], lengths, 0, s_end)
+    t_sweep = cuda_ms(lambda: ds.trop_sweep(kop, a0, s0, ext, msh,
+                                            first=True), reps=3)
+    t_walk = cuda_ms(lambda: vs.rec_walk(wt, out[0], out[1], lengths, 0,
+                                         s_end), reps=5)
+    t_dec = median_ms({"decode": lambda: mt.viterbi(dcf, lhs, lengths)})[
+        "decode"]
+    audio = B * N * FRAME_SHIFT_S
+    prof = profile_device(lambda: mt.viterbi(dcf, lhs, lengths))
+    idle = "not measured (no device events recorded)"
+    if prof is not None:
+        by_name, busy, span, kcounts = prof
+        idle = f"{1 - busy / span:.1%} of a {span:.3f} ms span"
+        ours = {k: v for k, v in kcounts.items()
+                if k.startswith(("sweep_kernel", "rec_walk", "vit_"))}
+        print("phase 32: profile of one decode: " + "; ".join(
+            f"{k} {v:.3f} ms ({kcounts[k]} launches)" for k, v in
+            sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
+        assert sorted(ours.items()) == [
+            ("rec_walk_kernel", 1),
+            ("sweep_kernel<false, true, false, true>", 1)], kcounts
+    plain = []
+    t_sweep_plain = cuda_ms(lambda: plain.append(ds.trop_sweep_plain(
+        kop, a0, s0, ext, msh, first=True)), warm=False)
+    walked = []
+    t_walk_plain = cuda_ms(lambda: walked.append(vs.rec_walk_plain(
+        wt, out[0], out[1], lengths, 0, s_end)), warm=False)
+    twin = all(torch.equal(x, y) for x, y in zip(out, plain[0]))
+    e_k6t = max(float((x.double() - y.double()).abs().max())
+                for x, y in zip(out, plain[0]))
+    w_ok = torch.equal(path, walked[0])
+    bd = trop_bounds(dcf, B, N + 1)
+    bw = walk_bounds(wt, path, s_end, lengths, 0, kop.Sp)
+    print(f"phase 32: viterbi B={B} N={N} on the V=32 dense graph: decode "
+          f"{t_dec:.3f} ms (median of 5) = {audio / (t_dec / 1e3):.1f} "
+          f"audio-s/s; K6t sweep {t_sweep:.3f} ms ({1e3 * t_sweep / (N + 1):.2f}"
+          f" us/frame; bound {bd[0]:.4f} ms, {bd[1]}), W2 walk "
+          f"{t_walk:.3f} ms (bound {bw[0]:.4f} ms, {bw[1]}); device idle "
+          f"{idle}; plain twins {t_sweep_plain:.1f} / {t_walk_plain:.1f} ms, "
+          f"K6t and W2 bit-equal to them at this shape {twin} / {w_ok}")
+    assert twin and w_ok, "K6t or W2 differs from its twin at N=700"
+
+    fsm5, spdf5, P5 = hmm5()
+    cf5 = mt.compile_fsm(fsm5, spdf5, P5, device=dev)
+    cf5c = mt.compile_fsm(fsm5, spdf5, P5, device="cpu")
+    lhs5 = np.random.default_rng(1).normal(size=(1, 100, P5)).astype(
+        np.float32)
+    reset_all_launches()
+    s5, z5 = mt.viterbi(cf5, torch.from_numpy(lhs5).to(dev))
+    c5 = {k: v for k, v in all_launches().items() if v}
+    s5c, z5c = mt.viterbi(cf5c, torch.from_numpy(lhs5))
+    ref5 = mt.oracle.host_viterbi_score(fsm5, spdf5, P5,
+                                        lhs5.astype(np.float64),
+                                        np.array([100]))
+    same5 = bool((s5.cpu() == s5c).all())
+    print(f"phase 32: BASELINE.json config 1 (left-to-right 5-state HMM, "
+          f"T=100, strategy {cf5.strategy!r}, Sp = {cf5.padded_states}) on "
+          f"the card: launches {c5}; states equal to the CPU route's "
+          f"{same5}; score {float(z5[0]):.5f} (CPU {float(z5c[0]):.5f}, f64 "
+          f"optimum {float(ref5[0]):.5f})")
+    assert same5 and c5 == {"dense_trop": 1, "rec_walk": 1}, "config 1"
+    assert abs(float(z5[0]) - ref5[0]) <= TOL_VIT_ORACLE, "config 1 score"
+    return ({"K6t": (t_sweep, t_sweep_plain), "W2": (t_walk, t_walk_plain)},
+            {"K6t": e_k6t, "W2": 0.0}, {"K6t": bd, "W2": bw}, t_dec, counts)
+
+
+def phase_block_recompute(fsm, spdf, cf, P, dev, B=128, N=1024, K=64):
+    """Phase 33: the 2M-arc graph at B=128, N=1,024, past the id stream's
+    budget: the route is the chunk-recompute decode (K7n once for the
+    checkpoints, then per chunk one K7n and one W2), every path walked in
+    f64; the decode (median of 3), the checkpoint sweep, one chunk's
+    recompute and walk timed, their plain twins timed and held to them;
+    then at N=700 (phase 17's input) the recompute route called directly
+    beside the K7 decode: scores within TOL_VIT, every path of both f64-
+    valid, and the sequences whose states differ counted (near-ties of the
+    two routes' arithmetic; each such path within TOL_VIT_WALK of the
+    other route's score)."""
+    import importlib
+
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    tvit = importlib.import_module("markovmodels_tpu_torch.viterbi")
+    rng = np.random.default_rng(0)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+    reason = tvit._bp_vit_reject_reason(cf, lhs)
+    assert reason is not None and "budget" in reason, reason
+    C = -(-(N + 1) // K)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    states, score = mt.viterbi(cf, lhs, lengths)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    want = {k: 0 for k in counts}
+    want.update(vit_fwd_noid=1 + C, rec_walk=C)
+    print(f"phase 33: 2M-arc decode B={B} N={N}: route reason: {reason}; "
+          f"launches {json.dumps(counts)}")
+    assert counts == want, f"the over-budget decode launched {counts}"
+    st, sc = states.cpu().numpy(), score.cpu().numpy()
+    assert st.shape == (B, N) and np.isfinite(sc).all(), "block decode"
+    gap = mt.oracle.validate_paths(fsm, spdf, lhs.cpu().numpy(),
+                                   lengths.cpu().numpy(), st, sc,
+                                   atol=TOL_VIT_WALK)
+    t_dec = median_ms({"decode": lambda: mt.viterbi(cf, lhs, lengths)},
+                      reps=3)["decode"]
+    ext, msh = prepare_emissions(lhs, lengths, P)
+    t_ck = cuda_ms(lambda: vs.viterbi_fwd(cf, ext, msh, ids=False,
+                                          stride=K), reps=2)
+    ck = vs.viterbi_fwd(cf, ext, msh, ids=False, stride=K)
+    ck_plain = []
+    t_ck_plain = cuda_ms(lambda: ck_plain.append(vs.viterbi_fwd_plain(
+        cf, ext, msh, ids=False, stride=K)), warm=False)
+    ck_twin = all(torch.equal(x, y) for x, y in zip(ck, ck_plain[0]))
+    del ck_plain
+    c = C // 2  # a chunk from the middle, from its checkpoint
+    t0 = c * K
+    rec = dict(a0=ck[0][c - 1], s0=ck[1][c - 1], t0=t0)
+    e_c, m_c = ext[t0:t0 + K], msh[t0:t0 + K]
+    out = vs.viterbi_fwd(cf, e_c, m_c, ids=False, **rec)
+    wt = vs.rec_walk_tables(cf)
+    # the chunk's walk starts from the decoded state of the frame after it
+    # (host ids back to compiled ones)
+    real = torch.nonzero(cf.orig_state >= 0)[:, 0]
+    to_compiled = torch.empty_like(cf.orig_state)
+    to_compiled[cf.orig_state[real].long()] = real.to(torch.int32)
+    s_end = to_compiled[states[:, t0 + K].long()].contiguous()
+    t_rec = cuda_ms(lambda: vs.viterbi_fwd(cf, e_c, m_c, ids=False, **rec),
+                    reps=3)
+    t_walk = cuda_ms(lambda: vs.rec_walk(wt, out[0], out[1], lengths, t0,
+                                         s_end), reps=5)
+    plain = []
+    t_rec_plain = cuda_ms(lambda: plain.append(vs.viterbi_fwd_plain(
+        cf, e_c, m_c, ids=False, **rec)), warm=False)
+    walked = []
+    t_walk_plain = cuda_ms(lambda: walked.append(vs.rec_walk_plain(
+        wt, out[0], out[1], lengths, t0, s_end)), warm=False)
+    twin = all(torch.equal(x, y) for x, y in zip(out, plain[0]))
+    e_k7n = max(float((x.double() - y.double()).abs().max())
+                for x, y in zip(out, plain[0]))
+    w_ok = torch.equal(vs.rec_walk(wt, out[0], out[1], lengths, t0, s_end),
+                       walked[0])
+    audio = B * N * FRAME_SHIFT_S
+    b_ck = noid_bounds(cf, B, N + 1, (N + 1) // K)
+    b_rec = noid_bounds(cf, B, K, K)
+    b_walk = walk_bounds(wt, walked[0], s_end, lengths, t0, cf.padded_states)
+    print(f"phase 33: all {B} paths walked in float64, max |path weight - "
+          f"score| = {gap:.3e} (tol {TOL_VIT_WALK:g}); decode {t_dec:.3f} "
+          f"ms (median of 3) = {audio / (t_dec / 1e3):.1f} audio-s/s; K7n "
+          f"checkpoint sweep {t_ck:.3f} ms over {N + 1} frames "
+          f"({1e3 * t_ck / (N + 1):.2f} us/frame; bound {b_ck[0]:.3f} ms), "
+          f"one {K}-frame recompute {t_rec:.3f} ms (bound {b_rec[0]:.3f} "
+          f"ms), its W2 walk {t_walk:.3f} ms (bound {b_walk[0]:.4f} ms, "
+          f"{b_walk[1]}); plain twins "
+          f"{t_ck_plain:.1f} (sweep) / {t_rec_plain:.1f} (recompute) / "
+          f"{t_walk_plain:.1f} ms, K7n (sweep, recompute) and W2 bit-equal "
+          f"to them {ck_twin}, {twin} / {w_ok}")
+    assert ck_twin and twin and w_ok, "K7n or W2 differs from its twin"
+    del ck, out, plain
+
+    n7 = 700
+    rng = np.random.default_rng(0)
+    lhs7 = torch.from_numpy(make_inputs(rng, B, n7, P)).to(dev)
+    len7 = torch.full((B,), n7, dtype=torch.int32, device=dev)
+    assert tvit._bp_vit_reject_reason(cf, lhs7) is None
+    s_bp, z_bp = mt.viterbi(cf, lhs7, len7)
+    s_rc, z_rc = tvit._viterbi_recompute(cf, lhs7, len7)
+    s_bp, z_bp, s_rc, z_rc = (x.cpu().numpy() for x in (s_bp, z_bp, s_rc,
+                                                         z_rc))
+    dz = float(np.abs(z_bp - z_rc).max())
+    lh, ln = lhs7.cpu().numpy(), len7.cpu().numpy()
+    g_bp = mt.oracle.validate_paths(fsm, spdf, lh, ln, s_bp, z_bp,
+                                    atol=TOL_VIT_WALK)
+    g_rc = mt.oracle.validate_paths(fsm, spdf, lh, ln, s_rc, z_rc,
+                                    atol=TOL_VIT_WALK)
+    diff = np.flatnonzero((s_bp != s_rc).any(axis=1))
+    g_x = (mt.oracle.validate_paths(fsm, spdf, lh[diff], ln[diff],
+                                    s_rc[diff], z_bp[diff],
+                                    atol=TOL_VIT_WALK) if len(diff) else 0.0)
+    print(f"phase 33: N={n7}: the recompute route beside K7's decode: "
+          f"max |dscore| = {dz:.3e} (tol {TOL_VIT:g}); paths f64-valid "
+          f"within {g_bp:.3e} (K7) / {g_rc:.3e} (recompute); {len(diff)} of "
+          f"{B} sequences' states differ, each within {g_x:.3e} of K7's "
+          f"score")
+    assert dz <= TOL_VIT, "the two routes' scores disagree"
+    return ({"K7n": (t_ck, t_ck_plain), "K7n recompute": (t_rec, t_rec_plain),
+             "W2": (t_walk, t_walk_plain)},
+            {"K7n": e_k7n}, {"K7n": b_ck, "K7n recompute": b_rec,
+                             "W2": b_walk},
+            t_dec, counts)
+
+
 def main():
     import torch
 
@@ -2285,11 +2791,20 @@ def main():
     sb_bounds = block_bounds(scf16, 128, -(-701 // 64) * 64, 64)
     d_bounds = dense_bounds(dcf16, 128, 701)
     phase_bf16_decode(cf, cf16, P, dev)
+    del cf16, scf16, dcf16
+
+    # ---- the chunk-recompute decode ----------------------------------------
+    r_errs = phase_rec_kernels(dcf, dP, cf, P, dev)
+    d_times, d_errs2, d_bounds2, t_ddec, d_counts = phase_dense_decode(
+        dfsm, dspdf, dcf, dP, dev)
+    b_times2, b_errs2, b_bounds2, t_bdec, b_counts = phase_block_recompute(
+        fsm, spdf, cf, P, dev)
 
     block_src = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
     banded_src = "markovmodels_tpu_torch/ops/csrc/banded_scan.cu"
     dense_src = "markovmodels_tpu_torch/ops/csrc/dense_scan.cu"
     vit_src = "markovmodels_tpu_torch/ops/csrc/vit_scan.cu"
+    walk_src = "markovmodels_tpu_torch/ops/csrc/rec_walk.cu"
     launches.update({k: v for k, v in dlaunches.items()
                      if k in ds.LAUNCHES})
     launches.update(vlaunches)
@@ -2369,13 +2884,45 @@ def main():
             for name, (counter, source, replaces) in table.items()
             if name in t16
         ]
+    rec_lines = (  # name, counter, source, replaces, launches, err, (ms,
+        # plain ms), bound
+        ("K6t dense_trop (V=32 dense decode, 701 frames)", "dense_trop",
+         dense_src, "markovmodels_tpu/viterbi.py:129", d_counts,
+         max(r_errs["K6t"], d_errs2["K6t"]), d_times["K6t"],
+         d_bounds2["K6t"]),
+        ("W2 rec_walk (V=32 dense decode, 701 frames)", "rec_walk", walk_src,
+         "markovmodels_tpu/viterbi.py:514", d_counts, r_errs["W2"],
+         d_times["W2"], d_bounds2["W2"]),
+        ("K7n vit_fwd_noid (2M-arc decode at N=1,024: checkpoint sweep, "
+         "1,025 frames)", "vit_fwd_noid", vit_src,
+         "markovmodels_tpu/viterbi.py:137", b_counts,
+         max(r_errs["K7n"], b_errs2["K7n"]), b_times2["K7n"],
+         b_bounds2["K7n"]),
+        ("K7n vit_fwd_noid (2M-arc decode at N=1,024: one 64-frame "
+         "recompute)", "vit_fwd_noid", vit_src,
+         "markovmodels_tpu/viterbi.py:137", b_counts,
+         max(r_errs["K7n"], b_errs2["K7n"]), b_times2["K7n recompute"],
+         b_bounds2["K7n recompute"]),
+        ("W2 rec_walk (2M-arc decode at N=1,024: one 64-frame chunk)",
+         "rec_walk", walk_src, "markovmodels_tpu/viterbi.py:514", b_counts,
+         r_errs["W2"], b_times2["W2"], b_bounds2["W2"]),
+    )
+    kernels += [
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": cnt[counter], "max_abs_err": err,
+         "ms": t[0], "plain_ms": t[1], "bound_ms": bd[0], "bound_by": bd[1],
+         "library_ms": None}
+        for name, counter, source, replaces, cnt, err, t, bd in rec_lines
+    ]
     print(f"card: {card}; pdfposteriors B=128 N=700 kernel path "
           f"{t_kern:.2f} ms, plain path {t_plain:.2f} ms; LF-MMI step "
           f"{t_step:.2f} ms, den-only {t_den:.2f} ms; with the ~1,200-state "
           f"numerators (K5 wide) {t_big:.2f} ms; dense-den LF-MMI "
           f"step "
           f"{t_dstep:.2f} ms, dense den-only {t_dden:.2f} ms; viterbi "
-          f"B=128 N=700 {t_dec:.2f} ms; K6 matmul yardstick {t_mm:.2f} ms; "
+          f"B=128 N=700 {t_dec:.2f} ms; dense viterbi B=128 N=700 "
+          f"{t_ddec:.2f} ms; 2M-arc viterbi B=128 N=1,024 (chunk-recompute) "
+          f"{t_bdec:.2f} ms; K6 matmul yardstick {t_mm:.2f} ms; "
           f"separate-state LF-MMI step {t_ostep:.2f} ms, den-only "
           f"{t_oden:.2f} ms, embedded den-only {t_emb:.2f} ms; bf16 (f32) "
           f"medians: " + "; ".join(f"{k} {b:.2f} ({a:.2f}) ms"

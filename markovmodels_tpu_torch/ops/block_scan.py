@@ -859,6 +859,17 @@ def _pow2_scale(k):
     return ((127 - k.to(torch.int32)) << 23).view(torch.float32)
 
 
+def _kahan_step(acc, k, msh):
+    """acc (3, B) = (ksum, shift, comp) advanced by one frame's exponent
+    ``k`` and emission shift ``msh``, in place, in the kernels' order (the
+    Viterbi sweeps' twins, ops/dense_scan.py and ops/vit_scan.py)."""
+    acc[0] += k
+    xc = msh - acc[2]
+    tsum = acc[1] + xc
+    acc[2] = (tsum - acc[1]) - xc
+    acc[1] = tsum
+
+
 def _matvec_plain(kd: KernelDir, x):
     """K1's plain twin: y = band(x) + tier(x) + families(x) over the
     direction's core.  With bf16 panels the tier is the f32 product of the

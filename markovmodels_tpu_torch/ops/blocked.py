@@ -13,15 +13,16 @@ packages build bit-identical operators from the same edge list:
 * a **residue**: edges of blocks with too many distinct sources, applied
   as a plain scatter-add.
 
-``block_matvec_max_arg`` is the tropical (max-product) form with the
-winning candidate id of every destination, the matvec of the Viterbi
-sweep's plain twin (ops/vit_scan.py).
+``block_matvec(..., op_kind="max")`` is the tropical (max-product) form,
+the matvec of the chunk-recompute Viterbi decode's plain sweep;
+``block_matvec_max_arg`` adds the winning candidate id of every
+destination, the matvec of the K7 sweep's plain twin (ops/vit_scan.py).
 
 Weights are stored as probabilities.  With an overflow region (the capped
 pdf-grouped layout ``compile_fsm`` gives a separate-state backoff graph),
 the arcs touching it are lifted into structured **overflow families**
 (lane-aligned source or destination columns and windows, see
-``_fit_in_family``); ``block_matvec`` applies them in sum mode.  The
+``_fit_in_family``); ``block_matvec`` applies them in either mode.  The
 tropical ``block_matvec_max_arg`` does not take them yet.
 """
 from __future__ import annotations
@@ -521,17 +522,47 @@ def round_bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def block_matvec(op: BlockOperator, meta, x, *, bf16: bool = False):
-    """Probability-domain y = T̂ᵀ x (or T̂ x for the reversed operator):
-    y[j, b] = Σ_e w[e] · x[src[e], b] over the op's edges.  x: (Sp, B).
+def _tier_max(W, Xg):
+    """Per (k, d, b): the largest product W[k, s, d]·Xg[k, s, b] over s,
+    chunked over k so that the (k, Sm, D, B) products stay under
+    _MAXARG_ELEMS (the JAX package's broadcast-max, which XLA fuses)."""
+    K, Sm, D = W.shape
+    B = Xg.shape[2]
+    kc = max(1, _MAXARG_ELEMS // max(Sm * D * B, 1))
+    return torch.cat([(W[k0 : k0 + kc, :, :, None]
+                       * Xg[k0 : k0 + kc, :, None, :]).amax(dim=1)
+                      for k0 in range(0, K, kc)])
+
+
+def _scatter(y, idx, src, op_kind):
+    """y[idx] ⊕= src row by row: a sum, or the max (tropical)."""
+    if op_kind == "max":
+        return y.scatter_reduce_(0, idx[:, None].expand_as(src), src, "amax")
+    return y.index_add_(0, idx, src)
+
+
+def block_matvec(op: BlockOperator, meta, x, *, bf16: bool = False,
+                 op_kind: str = "sum"):
+    """Probability-domain y = T̂ᵀ ⊗ x (or T̂ ⊗ x for the reversed operator):
+    y[j, b] = ⊕_e w[e] · x[src[e], b] over the op's edges.  x: (Sp, B).
 
     ``meta``: (band_offsets, tier_descs, band_nz_hi, ov_descs) from
-    build_block_operator.  The tier contraction runs in full float32 (the
-    caller keeps ``torch.backends.cuda.matmul.allow_tf32`` off on the GPU);
-    with ``bf16`` (a ``precision='bf16'`` graph) its two operands, the
-    panels and the gathered rows, are rounded to bf16 first, as the
-    kernels' tensor-core tier does (ops/block_scan.py ``_matvec_plain``).
+    build_block_operator.  ``op_kind``: 'sum' (the probability semiring) or
+    'max' (the tropical semiring in the probability domain: every tier,
+    band, residue and overflow-family term combined by max, the JAX
+    package's ``op_kind="max"``).  The tier contraction runs in full
+    float32 (the caller keeps ``torch.backends.cuda.matmul.allow_tf32`` off
+    on the GPU); with ``bf16`` (a ``precision='bf16'`` graph, sum only) its
+    two operands, the panels and the gathered rows, are rounded to bf16
+    first, as the kernels' tensor-core tier does (ops/block_scan.py
+    ``_matvec_plain``).
     """
+    if op_kind not in ("sum", "max"):
+        raise ValueError(f"op_kind {op_kind!r} is neither 'sum' nor 'max'")
+    if bf16 and op_kind == "max":
+        raise ValueError("the tropical matvec takes float32 operands only")
+    trop = op_kind == "max"
+    combine = torch.maximum if trop else torch.add
     band_offsets, tier_descs = meta[0], meta[1]
     Sp, B = x.shape
     y = torch.zeros_like(x)
@@ -539,7 +570,7 @@ def block_matvec(op: BlockOperator, meta, x, *, bf16: bool = False):
         for oi, off in enumerate(band_offsets):
             # band edge src = dst - off; wrapped rolls hit zero weights
             xs = x if off == 0 else torch.roll(x, off, dims=0)
-            y = y + op.band_w[oi][:, None] * xs
+            y = combine(y, op.band_w[oi][:, None] * xs)
     for (sidx, didx, W), (gdesc, ddesc) in zip(op.tiers, tier_descs):
         K, Sm = sidx.shape
         D = didx.shape[1]
@@ -555,13 +586,15 @@ def block_matvec(op: BlockOperator, meta, x, *, bf16: bool = False):
             Xg = x[sidx.reshape(-1).long()].reshape(K, Sm, B)
         if bf16:
             W, Xg = round_bf16(W), round_bf16(Xg)
-        Y = torch.einsum("ksd,ksb->kdb", W, Xg)
+        Y = _tier_max(W, Xg) if trop else torch.einsum("ksd,ksb->kdb", W, Xg)
         if ddesc[0] == "contig":
             base = ddesc[1]
-            y[base : base + K * D] += Y.reshape(-1, B)
+            sl = y[base : base + K * D]
+            sl.copy_(combine(sl, Y.reshape(-1, B)))
         elif ddesc[0] == "affine_d":
             base = ddesc[1]
-            y[base : base + K * D] += Y.transpose(0, 1).reshape(-1, B)
+            sl = y[base : base + K * D]
+            sl.copy_(combine(sl, Y.transpose(0, 1).reshape(-1, B)))
         elif ddesc[0] in ("affine_k_pad", "affine_d_pad"):
             # strided row-chunks: a column window of a (rows, stride, B)
             # view of y, updated in place
@@ -571,12 +604,13 @@ def block_matvec(op: BlockOperator, meta, x, *, bf16: bool = False):
             else:
                 rows, width, Yv = D, K, Y.transpose(0, 1)
             seg = y[base : base + rows * stride].view(rows, stride, B)
-            seg[:, c0 : c0 + width] += Yv
+            win = seg[:, c0 : c0 + width]
+            win.copy_(combine(win, Yv))
         else:
-            y.index_add_(0, didx.reshape(-1).long(), Y.reshape(-1, B))
+            _scatter(y, didx.reshape(-1).long(), Y.reshape(-1, B), op_kind)
     if op.res_src is not None:
         contrib = op.res_w[:, None] * x[op.res_src.long()]
-        y.index_add_(0, op.res_dst.long(), contrib)
+        _scatter(y, op.res_dst.long(), contrib, op_kind)
     # overflow families: 'in' sums a column or a window into each lane of
     # the group, 'out' scatters each lane of the group into its column or
     # window
@@ -588,14 +622,17 @@ def block_matvec(op: BlockOperator, meta, x, *, bf16: bool = False):
         if kind == "in":
             prod = W[:, :, None] * x[grid.reshape(-1)].reshape(
                 grid.shape + (B,))
-            y[g0 : g0 + block] += prod.sum(dim=0 if form == "col" else 1)
+            dim = 0 if form == "col" else 1
+            red = prod.amax(dim=dim) if trop else prod.sum(dim=dim)
+            sl = y[g0 : g0 + block]
+            sl.copy_(combine(sl, red))
         else:
             xg = x[g0 : g0 + block]  # (block, B)
-            # 'col': y[base + r·stride + l] += W[r, l] · x[g0 + l]
-            # 'win': y[base + l·stride + j] += W[l, j] · x[g0 + l]
+            # 'col': y[base + r·stride + l] ⊕= W[r, l] · x[g0 + l]
+            # 'win': y[base + l·stride + j] ⊕= W[l, j] · x[g0 + l]
             xb = xg[None, :, :] if form == "col" else xg[:, None, :]
-            y.index_add_(0, grid.reshape(-1), (W[:, :, None] * xb)
-                         .reshape(-1, B))
+            _scatter(y, grid.reshape(-1),
+                     (W[:, :, None] * xb).reshape(-1, B), op_kind)
     return y
 
 

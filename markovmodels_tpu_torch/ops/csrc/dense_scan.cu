@@ -4,6 +4,22 @@
 // Replaces the two fused Pallas kernels of markovmodels_tpu/ops/pallas_scan.py:
 //   K6a mm_dense_fwd  <- fused_forward pallas_call (:220, _make_fwd_kernel)
 //   K6b mm_dense_bwd  <- fused_backward pallas_call (:269, _make_bwd_kernel)
+// and, for the chunk-recompute Viterbi decode of markovmodels_tpu/viterbi.py
+// (_viterbi_scale's fstep on _trop_prob_matvec, XLA there, no Pallas
+// kernel):
+//   K6t mm_dense_trop <- the tropical forward y[j] = max_i Wp[j, i] a[i]
+//                        (viterbi.py:129-134): sweep_kernel<false, VEC,
+//                        false, TROP = true>, float32 tiles only.  Each
+//                        FMA of the product becomes a multiply and a max, a
+//                        straddling row tile's partials combine by max, so
+//                        the result is exact and independent of order;
+//                        skipping an all-zero tile stays exact (the state
+//                        is >= 0 and an absent arc's product is 0, as in the
+//                        JAX package's dense Wp).  It starts from a given
+//                        state whose scale is seeded into the column-max
+//                        row the first frame reads, and skips the product
+//                        on launch frame 0 only when that is global frame 0
+//                        (``first``); one launch per chunk of the decode.
 //
 // What the card is asked to do.  A frame is y = Wp (Sp x Sp) @ state (Sp x B)
 // followed by the emission, a per-column power-of-two rescale and, backward,
@@ -123,6 +139,7 @@ struct Args {
   Plan pl;
   const int* spdf;
   int Sp, P1, B, Nf, n_slots, resident;
+  int first;  // launch frame 0 skips the product (K6a, K6b; K6t from frame 0)
   const float* ext;
   // forward
   const float* a0;
@@ -264,7 +281,7 @@ __device__ __forceinline__ float scale_of(const unsigned* cm, int b, int B) {
                : 0.f;
 }
 
-template <bool BWD, bool VEC, bool BF16>
+template <bool BWD, bool VEC, bool BF16, bool TROP = false>
 struct Sweep {
   using L = Layout<BF16>;
   const Args& p;
@@ -380,7 +397,8 @@ struct Sweep {
     cp_async_commit();
   }
 
-  // acc += tile j (float32) times its staged state block.
+  // acc += tile j (float32) times its staged state block; tropical
+  // (TROP): acc = max(acc, w * x), each product one rounding.
   __device__ void mul_f32(int j, float (&acc)[4][4]) const {
     const float* W = reinterpret_cast<const float*>(tile_at(j));
     const float* X = reinterpret_cast<const float*>(stage(j));
@@ -398,10 +416,17 @@ struct Sweep {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float wv = get(w[i], q);
-          acc[i][0] = fmaf(wv, x.x, acc[i][0]);
-          acc[i][1] = fmaf(wv, x.y, acc[i][1]);
-          acc[i][2] = fmaf(wv, x.z, acc[i][2]);
-          acc[i][3] = fmaf(wv, x.w, acc[i][3]);
+          if constexpr (TROP) {
+            acc[i][0] = fmaxf(acc[i][0], __fmul_rn(wv, x.x));
+            acc[i][1] = fmaxf(acc[i][1], __fmul_rn(wv, x.y));
+            acc[i][2] = fmaxf(acc[i][2], __fmul_rn(wv, x.z));
+            acc[i][3] = fmaxf(acc[i][3], __fmul_rn(wv, x.w));
+          } else {
+            acc[i][0] = fmaf(wv, x.x, acc[i][0]);
+            acc[i][1] = fmaf(wv, x.y, acc[i][1]);
+            acc[i][2] = fmaf(wv, x.z, acc[i][2]);
+            acc[i][3] = fmaf(wv, x.w, acc[i][3]);
+          }
         }
       }
     }
@@ -548,8 +573,8 @@ struct Sweep {
   }
 
   // A straddling row tile: write this range's partial, take a ticket; the
-  // range that takes the last one adds the partials in range order and
-  // runs the epilogue.
+  // range that takes the last one adds the partials in range order (their
+  // max, tropical) and runs the epilogue.
   __device__ void partial(const Frame& fr, int rt, int b0, int cb, int slot,
                           float (&acc)[4][4]) {
     const int B = p.B, bcol = b0 + wc * 32 + lc * 4;
@@ -581,10 +606,17 @@ struct Sweep {
       for (int q = 1; q < rp.y; ++q) {
         const float4 w = load4_l2<VEC>(p.partial + (rp.x + q) * SB + row,
                                        bcol, B);
-        v.x += w.x;
-        v.y += w.y;
-        v.z += w.z;
-        v.w += w.w;
+        if constexpr (TROP) {
+          v.x = fmaxf(v.x, w.x);
+          v.y = fmaxf(v.y, w.y);
+          v.z = fmaxf(v.z, w.z);
+          v.w = fmaxf(v.w, w.w);
+        } else {
+          v.x += w.x;
+          v.y += w.y;
+          v.z += w.z;
+          v.w += w.w;
+        }
       }
       acc[i][0] = v.x;
       acc[i][1] = v.y;
@@ -784,23 +816,24 @@ struct Sweep {
 // the next frame: its scale by every epilogue (from the column max), the
 // forward's scale, ksum and shift and the backward's posteriors by the
 // next frame's phase (and, after the last frame, by one more phase).
-template <bool BWD, bool VEC, bool BF16>
+template <bool BWD, bool VEC, bool BF16, bool TROP = false>
 __global__ void __launch_bounds__(NT, 2) sweep_kernel(const Args p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[2][2][TB];  // [max, sum][warp row][column]
   __shared__ float rsum[2][PY][PC];  // backward pdf sums: [den, gamma]
   __shared__ int flag;
-  Sweep<BWD, VEC, BF16> sw(p, smem, red, &flag);
+  Sweep<BWD, VEC, BF16, TROP> sw(p, smem, red, &flag);
   sw.load_resident();
   for (int f = 0; f < p.Nf; ++f) {
     const Frame fr = sw.frame(f);
     sw.clear_next(fr);
     sw.prefetch_next(f);
-    if (f == 0) {
+    if (f == 0 && (!TROP || p.first)) {
       sw.no_product(fr);  // forward: p = a0; backward: beta = 1
     } else {
       sw.product(fr, [&] {
-        if constexpr (!BWD) sw.frame_out(f - 1);
+        if constexpr (!BWD)
+          if (!TROP || f > 0) sw.frame_out(f - 1);
       });
       if constexpr (BWD) sw.posts_of(f - 1, rsum);  // the previous frame's
     }
@@ -815,10 +848,11 @@ __global__ void __launch_bounds__(NT, 2) sweep_kernel(const Args p) {
 // The launch: every CTA of the plan's grid co-resident.  The range's tiles
 // stay in shared memory when that many bytes still let the grid be
 // co-resident, else they stream.
-template <bool BWD, bool VEC, bool BF16>
+template <bool BWD, bool VEC, bool BF16, bool TROP = false>
 cudaError_t launch_t(Args a, int n_ctas, int max_tiles, cudaStream_t st) {
   using L = Layout<BF16>;
-  const void* kern = reinterpret_cast<const void*>(sweep_kernel<BWD, VEC, BF16>);
+  const void* kern =
+      reinterpret_cast<const void*>(sweep_kernel<BWD, VEC, BF16, TROP>);
   int dev = 0, optin = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -918,8 +952,54 @@ extern "C" int mm_dense_fwd(const void* tiles, const int* tile_k,
   a.partial = partial;
   a.sync = sync;
   a.xb = xb;
+  a.first = 1;
   return static_cast<int>(launch<false>(a, bf16 != 0, n_ctas, max_tiles,
                                         static_cast<cudaStream_t>(stream)));
+}
+
+// K6t: the tropical forward over launch frames 0 .. Nf-1 from a0, one
+// launch; the arguments as for mm_dense_fwd (float32 tiles, no bf16).
+// Launch frame 0 skips the product only when first != 0 (global frame 0);
+// otherwise it multiplies a0, whose scale the caller seeds into sync's
+// third column-max row (words 2 + Sp / 32 x ceil(B / 128) + 2B ..) as the
+// float bits of 1 / scale.  ksum, shift and comp carry on from their values
+// on entry.
+extern "C" int mm_dense_trop(const void* tiles, const int* tile_k,
+                             const int* lo, const int* seg_ptr,
+                             const int* segs, const int* rt_parts, int n_ctas,
+                             int max_tiles, const int* spdf, const float* a0,
+                             const float* ext, const float* mshift, int Sp,
+                             int P1, int B, int Nf, int n_slots, int first,
+                             float* states, float* scales, float* ksum,
+                             float* shift, float* comp, float* partial,
+                             unsigned* sync, void* stream) {
+  if (bad_shape(Sp, P1, B, Nf, n_ctas, max_tiles) ||
+      (n_slots != Nf && n_slots != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.pl = plan_of(tiles, tile_k, lo, seg_ptr, segs, rt_parts);
+  a.spdf = spdf;
+  a.Sp = Sp;
+  a.P1 = P1;
+  a.B = B;
+  a.Nf = Nf;
+  a.n_slots = n_slots;
+  a.first = first != 0;
+  a.ext = ext;
+  a.a0 = a0;
+  a.mshift = mshift;
+  a.states = states;
+  a.scales = scales;
+  a.ksum = ksum;
+  a.shift = shift;
+  a.comp = comp;
+  a.partial = partial;
+  a.sync = sync;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      B % 4 == 0 ? launch_t<false, true, false, true>(a, n_ctas, max_tiles, st)
+                 : launch_t<false, false, false, true>(a, n_ctas, max_tiles,
+                                                       st));
 }
 
 // K6b: the reverse sweep over frames Nf-1 .. 0 over the forward's alphas
@@ -960,6 +1040,7 @@ extern "C" int mm_dense_bwd(const void* tiles, const int* tile_k,
   a.partial = partial;
   a.sync = sync;
   a.xb = xb;
+  a.first = 1;
   return static_cast<int>(launch<true>(a, bf16 != 0, n_ctas, max_tiles,
                                        static_cast<cudaStream_t>(stream)));
 }

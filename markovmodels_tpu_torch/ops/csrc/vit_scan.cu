@@ -7,6 +7,15 @@
 // markovmodels_tpu/viterbi.py's _viterbi_scale_bp, which the JAX package
 // leaves to XLA:
 //   mm_vit_walk    one thread per sequence.
+// and, for the chunk-recompute decode of markovmodels_tpu/viterbi.py's
+// _viterbi_scale (XLA there: its fstep on _trop_prob_matvec's 'block' form):
+//   K7n mm_vit_fwd_noid  the same sweep without the ids (IDS = false): the
+//                        tier keeps its max only, no id is stored and no
+//                        fins; it starts from a given state and scale at a
+//                        given global frame and saves every frame's state
+//                        (a chunk's recompute) or every stride-th one (the
+//                        checkpoints of the first sweep), the phony row
+//                        included, with its scale.
 //
 // What K7 computes, per frame t and column b of the (Sp, B) state a:
 //   y[j] = max( max_o band_w[o, j] * a[j - off_o],          (bands, in order)
@@ -139,6 +148,14 @@ struct VitSmem {
 struct VitArgs {
   Meta m;
   int B, Nf, RW;
+  // K7n (IDS = false) only: launch frame f is global frame t0 + f (frame 0
+  // skips the product only where that is 0); a0 has the scale s0; frame f
+  // is saved when (f + 1) % stride == 0, into slot (f + 1) / stride - 1
+  // (stride 1: every frame, which is then the sweep's own state buffer)
+  int t0, stride;
+  const float* s0;     // (B,)
+  float* save;         // (Nf / stride, Sp, B) unscaled, the phony row too
+  float* save_scale;   // (Nf / stride, B)
   const float* a0;      // (Sp, B) the state before frame 0 (scale 1)
   const float* ext;     // (Nf, P1, B)
   const float* mshift;  // (Nf, 1, B)
@@ -180,6 +197,7 @@ __device__ __forceinline__ void st_cs_u32(uint8_t* p, unsigned v) {
 // 2^-k from the column max with it; CTA 0 (``record``) writes fins[t - 1]
 // and advances ksum and the Kahan-compensated emission shift.  Returns the
 // scale; *yfin receives the phony state (unscaled), or frame 0's stored one.
+template <bool IDS>
 __device__ __forceinline__ float end_of_frame(const VitArgs& p, int t, int b,
                                              const float* prev, bool record,
                                              float* yfin) {
@@ -196,7 +214,7 @@ __device__ __forceinline__ float end_of_frame(const VitArgs& p, int t, int b,
     key = max(key, __ldcg(kp + c * B));
   }
   float mxf = __uint_as_float(mx);
-  if (t - 1 >= 1) {
+  if ((IDS ? t : p.t0 + t) - 1 >= 1) {  // global frame 0 has no omega arc
     const float e =
         p.ext[(static_cast<size_t>(t - 1) * m.P1 + m.fin / m.cmax) * B + b];
     *yfin = __uint_as_float(static_cast<unsigned>(key >> 32)) * e;
@@ -206,8 +224,9 @@ __device__ __forceinline__ float end_of_frame(const VitArgs& p, int t, int b,
   }
   const float k = pow2_exponent(mxf);
   if (record) {
-    p.fins[static_cast<size_t>(t - 1) * B + b] =
-        static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
+    if constexpr (IDS)
+      p.fins[static_cast<size_t>(t - 1) * B + b] =
+          static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
     p.ksum[b] += k;
     const float xc = p.mshift[static_cast<size_t>(t - 1) * B + b] - p.comp[b];
     const float ts = p.shift[b] + xc;
@@ -226,6 +245,8 @@ __device__ __forceinline__ float end_of_frame(const VitArgs& p, int t, int b,
 // order as its value: the maxima are taken on the bits as ints, which the
 // card does three at a time (VIMNMX3: 4 instructions for a group of 8
 // products, 7 as float maxima), exactly.
+// Without ids (IDS = false) only the running max is kept.
+template <bool IDS>
 __device__ __forceinline__ void tier_max_arg(const VitSmem& s, int nG,
                                              long long s0, int (&best)[4][4],
                                              int (&gid)[4][4]) {
@@ -257,12 +278,18 @@ __device__ __forceinline__ void tier_max_arg(const VitSmem& s, int nG,
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (mx[i][c] > best[i][c]) {
-          best[i][c] = mx[i][c];
-          gid[i][c] = g;
+      for (int c = 0; c < 4; ++c) {
+        if constexpr (IDS) {
+          if (mx[i][c] > best[i][c]) {
+            best[i][c] = mx[i][c];
+            gid[i][c] = g;
+          }
+        } else {
+          best[i][c] = max(best[i][c], mx[i][c]);
         }
+      }
   }
+  if constexpr (!IDS) return;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -342,18 +369,21 @@ __device__ __forceinline__ void stage_tier(const VitArgs& p, VitSmem& s,
 // band_rows).  y = max(bands, tier) of the rescaled previous state a =
 // prev * s (with ids), u = y * e (frame 0: u = a * e), stored unscaled; its
 // column max and omega keys into copy blockIdx.x % CM of the frame's.
-template <bool VEC>
+// Without ids (IDS = false) the same values, no id, and the state stored to
+// ``ck`` too where that is not null (a checkpoint frame).
+template <bool VEC, bool IDS>
 __device__ __forceinline__ void vit_item(const VitArgs& p, int t,
                                          long long tile, int b0, int row0,
                                          VitSmem& s, const float* sc,
                                          const float* pf,
                                          const float* __restrict__ prev,
-                                         float* __restrict__ out) {
+                                         float* __restrict__ out,
+                                         float* __restrict__ ck) {
   const Meta& m = p.m;
   const int B = p.B, RW = p.RW, tid = threadIdx.x, tx = tid % 16,
             ty = tid / 16;
   const int bcol = b0 + tx * 4;  // this thread's epilogue columns
-  const bool first = t == 0;
+  const bool first = (IDS ? t : p.t0 + t) == 0;
   const bool is_tier = tile < m.n_tier_tiles;
   const long long dtiles = (m.D + TR - 1) / TR;
   const long long k = is_tier ? tile / dtiles : 0;
@@ -391,7 +421,8 @@ __device__ __forceinline__ void vit_item(const VitArgs& p, int t,
     for (long long s0 = 0; s0 < m.Sm; s0 += SC) {
       stage_tier<VEC>(p, s, prev, sc, k, dbase, b0, s0, once);
       const long long nS = m.Sm - s0 < SC ? m.Sm - s0 : SC;
-      tier_max_arg(s, static_cast<int>((nS + GS - 1) / GS), s0, best, gid);
+      tier_max_arg<IDS>(s, static_cast<int>((nS + GS - 1) / GS), s0, best,
+                        gid);
       __syncthreads();  // the resident operands are free
     }
 #pragma unroll
@@ -399,8 +430,9 @@ __device__ __forceinline__ void vit_item(const VitArgs& p, int t,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         s.u.ep.val[ty * 4 + i][tx + 16 * c] = __int_as_float(best[i][c]);
-        s.u.ep.id[ty * 4 + i][tx + 16 * c] =
-            static_cast<uint8_t>(-gid[i][c] - 1);
+        if constexpr (IDS)
+          s.u.ep.id[ty * 4 + i][tx + 16 * c] =
+              static_cast<uint8_t>(-gid[i][c] - 1);
       }
   }
   __syncthreads();
@@ -484,7 +516,7 @@ __device__ __forceinline__ void vit_item(const VitArgs& p, int t,
             const float tv = s.u.ep.val[r][tx * 4 + c];
             if (tv > vb[c]) {
               vb[c] = tv;
-              cb[c] = s.u.ep.id[r][tx * 4 + c];
+              if constexpr (IDS) cb[c] = s.u.ep.id[r][tx * 4 + c];
             }
           }
         }
@@ -495,10 +527,15 @@ __device__ __forceinline__ void vit_item(const VitArgs& p, int t,
         y[c] = (first ? a[c] : vb[c]) * get(e, c);
         colmax[c] = fmaxf(colmax[c], y[c]);
       }
-      if (first || j != m.fin)
+      if (first || j != m.fin) {
         store4_hint<VEC>(out + jB, bcol, B, make_float4(y[0], y[1], y[2], y[3]),
                          keep);
-      if (main_row) {
+        if constexpr (!IDS)
+          if (ck != nullptr)
+            store4_hint<VEC>(ck + jB, bcol, B,
+                             make_float4(y[0], y[1], y[2], y[3]), once);
+      }
+      if (IDS && main_row) {
         if constexpr (VEC) {
           if (bcol < B)
             st_cs_u32(bp_t + jB + bcol,
@@ -535,12 +572,39 @@ __device__ __forceinline__ void vit_item(const VitArgs& p, int t,
   __syncthreads();  // the tables and the union are free for the next item
 }
 
+// The slot frame f of a K7n launch is saved in, or -1.
+__device__ __forceinline__ int save_slot(const VitArgs& p, int f) {
+  return (f + 1) % p.stride == 0 ? (f + 1) / p.stride - 1 : -1;
+}
+
+// Where frame f's state is kept: K7's ping-pong pair, or K7n's saved frames
+// when it saves every frame.
+template <bool IDS>
+__device__ __forceinline__ float* state_of(const VitArgs& p, int f,
+                                           size_t SB) {
+  if (!IDS && p.stride == 1) return p.save + static_cast<size_t>(f) * SB;
+  return p.work + (f % 2) * SB;
+}
+
+// K7n's record of frame f (CTA 0, column b): its scale and its phony row
+// in the frame's save slot, if it has one.  Returns the slot.
+__device__ __forceinline__ int record_save(const VitArgs& p, int f, int b,
+                                           float scale, float yfin,
+                                           size_t SB) {
+  const int slot = save_slot(p, f);
+  if (slot >= 0) {
+    p.save_scale[static_cast<size_t>(slot) * p.B + b] = scale;
+    p.save[slot * SB + static_cast<size_t>(p.m.fin) * p.B + b] = yfin;
+  }
+  return slot;
+}
+
 // K7 over frames 0 .. Nf-1: each frame, every CTA derives the scale and the
 // phony state of the frame before for all B columns (CTA 0 also records its
 // fins, ksum and shift), then takes items from the frame's queue; one grid
 // barrier per frame.  After the last: frame Nf-1's end, its scale and its
-// phony state.
-template <bool VEC>
+// phony state.  K7n (IDS = false) saves its frames on the way (save_slot).
+template <bool VEC, bool IDS>
 __global__ void __launch_bounds__(NT, VIT_BLOCKS)
     vit_sweep_kernel(const __grid_constant__ VitArgs p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -552,8 +616,12 @@ __global__ void __launch_bounds__(NT, VIT_BLOCKS)
   const size_t SB = static_cast<size_t>(m.Sp) * B;
   const size_t PB1 = static_cast<size_t>(m.P1) * B;
   for (int t = 0; t < p.Nf; ++t) {
-    const float* prev = t == 0 ? p.a0 : p.work + ((t - 1) % 2) * SB;
-    float* out = p.work + (t % 2) * SB;
+    const float* prev = t == 0 ? p.a0 : state_of<IDS>(p, t - 1, SB);
+    float* out = state_of<IDS>(p, t, SB);
+    float* ck = nullptr;  // K7n: a checkpoint frame's save slot
+    if constexpr (!IDS)
+      if (p.stride > 1 && save_slot(p, t) >= 0)
+        ck = p.save + static_cast<size_t>(save_slot(p, t)) * SB;
     if (t + 1 < p.Nf) {  // the next frame's emissions into L2, spread
       constexpr int LINE = 32;  // floats per 128-byte line
       const float* e = p.ext + (t + 1) * PB1;
@@ -564,10 +632,12 @@ __global__ void __launch_bounds__(NT, VIT_BLOCKS)
     }
     for (int b = tid; b < B; b += NT) {
       if (t == 0) {
-        sc[b] = 1.f;
+        sc[b] = IDS || p.s0 == nullptr ? 1.f : p.s0[b];
         pf[b] = p.a0[static_cast<size_t>(m.fin) * B + b];
       } else {
-        sc[b] = end_of_frame(p, t, b, prev, blockIdx.x == 0, &pf[b]);
+        sc[b] = end_of_frame<IDS>(p, t, b, prev, blockIdx.x == 0, &pf[b]);
+        if constexpr (!IDS)
+          if (blockIdx.x == 0) record_save(p, t - 1, b, sc[b], pf[b], SB);
       }
     }
     // items from the frame's queue: thread 0 takes the next position and
@@ -581,20 +651,21 @@ __global__ void __launch_bounds__(NT, VIT_BLOCKS)
     int par = 0;
     for (int2 q = s.next[0]; q.x >= 0; q = s.next[par]) {
       if (tid == 0) s.next[par ^ 1] = take();
-      vit_item<VEC>(p, t, q.x / ncb, (q.x % ncb) * TB, q.y, s, sc, pf, prev,
-                    out);
+      vit_item<VEC, IDS>(p, t, q.x / ncb, (q.x % ncb) * TB, q.y, s, sc, pf,
+                         prev, out, ck);
       par ^= 1;  // vit_item ends with a block barrier: s.next[par] is set
     }
     grid_sync<SYNC_GEN, 256, true>(p.sync);
   }
   if (blockIdx.x == 0) {  // frame Nf-1's end
     const int t = p.Nf;
-    const float* prev = p.work + ((t - 1) % 2) * SB;
+    float* prev = state_of<IDS>(p, t - 1, SB);
     for (int b = tid; b < B; b += NT) {
       float yfin;
-      p.scale[b] = end_of_frame(p, t, b, prev, true, &yfin);
-      if (t - 1 >= 1)
-        p.work[((t - 1) % 2) * SB + static_cast<size_t>(m.fin) * B + b] = yfin;
+      p.scale[b] = end_of_frame<IDS>(p, t, b, prev, true, &yfin);
+      if ((IDS ? t : p.t0 + t) - 1 >= 1)
+        prev[static_cast<size_t>(m.fin) * B + b] = yfin;
+      if constexpr (!IDS) record_save(p, t - 1, b, p.scale[b], yfin, SB);
     }
   }
 }
@@ -635,15 +706,18 @@ size_t vit_smem_bytes(int B) {
   return sizeof(VitSmem) + 2 * static_cast<size_t>(B) * sizeof(float);
 }
 
-const void* vit_kernel(bool vec) {
-  return vec ? (const void*)vit_sweep_kernel<true>
-             : (const void*)vit_sweep_kernel<false>;
+const void* vit_kernel(bool vec, bool ids) {
+  if (ids)
+    return vec ? (const void*)vit_sweep_kernel<true, true>
+               : (const void*)vit_sweep_kernel<false, true>;
+  return vec ? (const void*)vit_sweep_kernel<true, false>
+             : (const void*)vit_sweep_kernel<false, false>;
 }
 
 // CTAs of the sweep that can be co-resident on the current device at batch
 // B (0 where the device cannot launch cooperatively).
-cudaError_t vit_co_resident(bool vec, int B, int* n) {
-  const void* kern = vit_kernel(vec);
+cudaError_t vit_co_resident(bool vec, bool ids, int B, int* n) {
+  const void* kern = vit_kernel(vec, ids);
   const size_t smem = vit_smem_bytes(B);
   int dev = 0, n_sm = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaFuncSetAttribute(
@@ -671,6 +745,44 @@ long long vit_scratch_bytes(int B, int Nf) {
   return n_cm * 8 + (n_cm + Nf + SYNC_GEN + 1) * 4;
 }
 
+// The cooperative launch of K7 (ids) or K7n on n_ctas CTAs, all of them
+// co-resident.
+cudaError_t launch(const VitArgs& a, bool ids, int n_ctas, void* stream) {
+  const bool vec = a.B % 4 == 0;
+  int max_ctas = 0;
+  cudaError_t err = vit_co_resident(vec, ids, a.B, &max_ctas);
+  if (err != cudaSuccess) return err;
+  if (n_ctas > max_ctas) return cudaErrorCooperativeLaunchTooLarge;
+  VitArgs arg = a;
+  void* args[] = {&arg};
+  err = cudaLaunchCooperativeKernel(vit_kernel(vec, ids), dim3(n_ctas),
+                                    dim3(NT), args, vit_smem_bytes(a.B),
+                                    static_cast<cudaStream_t>(stream));
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The arguments K7 and K7n share, checked; false if any is out of range.
+bool common_args(VitArgs* a, const long long* imeta, int B, int Nf, int RW,
+                 int n_items, int n_ctas, void* scratch,
+                 long long scratch_bytes) {
+  if (!parse_meta(imeta, &a->m) || a->m.ov_lo != a->m.Sp || a->m.nfam != 0 ||
+      a->m.nheavy != 0 || a->m.Sm + a->m.nO >= NO_CAND || B <= 0 || Nf <= 0 ||
+      RW <= 0 || RW > a->m.Sp || a->m.fin < RW || n_ctas <= 0 ||
+      n_items != a->m.n_tiles * ((B + TB - 1) / TB) ||
+      scratch_bytes != vit_scratch_bytes(B, Nf) ||
+      reinterpret_cast<size_t>(scratch) % 8 != 0)
+    return false;
+  const size_t n_cm = static_cast<size_t>(Nf) * CM * B;
+  a->B = B;
+  a->Nf = Nf;
+  a->RW = RW;
+  a->omk = static_cast<unsigned long long*>(scratch);
+  a->cm = reinterpret_cast<unsigned*>(a->omk + n_cm);
+  a->ctr = a->cm + n_cm;
+  a->sync = a->ctr + Nf;
+  return true;
+}
+
 }  // namespace
 
 // K7's layout at batch B and Nf frames: out[0] the bytes of the zeroed
@@ -683,12 +795,13 @@ extern "C" int mm_vit_layout(int B, int Nf, long long* out) {
   return static_cast<int>(cudaSuccess);
 }
 
-// CTAs of the K7 launch that can be co-resident on the current device at
-// batch B (vec: B % 4 == 0), or minus a CUDA error code.
-extern "C" int mm_vit_ctas(int vec, int B) {
+// CTAs of the K7 launch (ids != 0) or the K7n one (ids == 0) that can be
+// co-resident on the current device at batch B (vec: B % 4 == 0), or minus
+// a CUDA error code.
+extern "C" int mm_vit_ctas(int vec, int ids, int B) {
   int n = 0;
   if (B <= 0) return -static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = vit_co_resident(vec != 0, B, &n);
+  const cudaError_t err = vit_co_resident(vec != 0, ids != 0, B, &n);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -709,17 +822,9 @@ extern "C" int mm_vit_fwd(
     uint8_t* bps, int* fins, float* scale, float* ksum, float* shift,
     float* comp, void* scratch, long long scratch_bytes, void* stream) {
   VitArgs a{};
-  if (!parse_meta(imeta, &a.m) || a.m.ov_lo != a.m.Sp || a.m.nfam != 0 ||
-      a.m.nheavy != 0 || a.m.Sm + a.m.nO >= NO_CAND || B <= 0 || Nf <= 0 ||
-      RW <= 0 || RW > a.m.Sp || a.m.fin < RW || n_ctas <= 0 ||
-      n_items != a.m.n_tiles * ((B + TB - 1) / TB) ||
-      scratch_bytes != vit_scratch_bytes(B, Nf) ||
-      reinterpret_cast<size_t>(scratch) % 8 != 0)
+  if (!common_args(&a, imeta, B, Nf, RW, n_items, n_ctas, scratch,
+                   scratch_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t n_cm = static_cast<size_t>(Nf) * CM * B;
-  a.B = B;
-  a.Nf = Nf;
-  a.RW = RW;
   a.a0 = a0;
   a.ext = ext;
   a.mshift = mshift;
@@ -737,21 +842,56 @@ extern "C" int mm_vit_fwd(
   a.ksum = ksum;
   a.shift = shift;
   a.comp = comp;
-  a.omk = static_cast<unsigned long long*>(scratch);
-  a.cm = reinterpret_cast<unsigned*>(a.omk + n_cm);
-  a.ctr = a.cm + n_cm;
-  a.sync = a.ctr + Nf;
-  const bool vec = B % 4 == 0;
-  int max_ctas = 0;
-  cudaError_t err = vit_co_resident(vec, B, &max_ctas);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_ctas > max_ctas)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(vit_kernel(vec), dim3(n_ctas), dim3(NT),
-                                    args, vit_smem_bytes(B),
-                                    static_cast<cudaStream_t>(stream));
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  a.stride = 1;
+  return static_cast<int>(launch(a, true, n_ctas, stream));
+}
+
+// K7n: K7 without the ids over launch frames 0 .. Nf-1, which are global
+// frames t0 .. t0 + Nf - 1 (ext and mshift hold just these), from a0 with
+// the per-column scale s0.  Frame f is saved, unscaled with its phony row,
+// in save[slot] with its scale in save_scale[slot] when (f + 1) % stride ==
+// 0, slot = (f + 1) / stride - 1: n_save = Nf / stride slots.  With stride
+// 1 every frame is saved and save is the sweep's state buffer (work may be
+// null); otherwise the sweep runs in work (2, Sp, B).  On return scale is
+// the last frame's; ksum, shift and comp carry on from their values on
+// entry (zero for a sweep from frame 0).  The other arguments as for
+// mm_vit_fwd.
+extern "C" int mm_vit_fwd_noid(
+    const float* a0, const float* s0, const float* ext, const float* mshift,
+    const float* band_w, const float* Wt, const float* omega,
+    const int* band_rows, const long long* imeta, const int* queue,
+    int n_items, int n_ctas, int B, int Nf, int RW, int t0, int stride,
+    float* work, float* save, float* save_scale, int n_save, float* scale,
+    float* ksum, float* shift, float* comp, void* scratch,
+    long long scratch_bytes, void* stream) {
+  VitArgs a{};
+  if (!common_args(&a, imeta, B, Nf, RW, n_items, n_ctas, scratch,
+                   scratch_bytes) ||
+      t0 < 0 || stride <= 0 || n_save != Nf / stride ||
+      (n_save > 0 && (save == nullptr || save_scale == nullptr)) ||
+      (stride > 1 && work == nullptr) || s0 == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.a0 = a0;
+  a.s0 = s0;
+  a.ext = ext;
+  a.mshift = mshift;
+  a.band_w = band_w;
+  a.Wt = Wt;
+  a.Sm4 = (a.m.Sm + 3) / 4 * 4;
+  a.omega = omega;
+  a.band_rows = band_rows;
+  a.queue = reinterpret_cast<const int2*>(queue);
+  a.n_items = n_items;
+  a.work = work;
+  a.save = save;
+  a.save_scale = save_scale;
+  a.t0 = t0;
+  a.stride = stride;
+  a.scale = scale;
+  a.ksum = ksum;
+  a.shift = shift;
+  a.comp = comp;
+  return static_cast<int>(launch(a, false, n_ctas, stream));
 }
 
 // The walk over ids (Nf, RW, B) and fins (Nf, B) into states (Nf-1, B).

@@ -16,7 +16,17 @@ rule, e.g. an LF-MMI denominator) runs over a (Sp, B) probability state:
 * K6b ``backward``: the reverse sweep (replaces ``fused_backward``'s
   ``pallas_call``, ``_make_bwd_kernel``): y = Wp_b @ beta (ones at the last
   frame), gamma = alpha ⊙ y, the per-frame pdf posteriors (Ĉᵀγ) / Σγ, and
-  beta = y ⊙ e_t.
+  beta = y ⊙ e_t;
+* K6t ``trop_sweep``: the tropical forward of the chunk-recompute Viterbi
+  decode (``markovmodels_tpu/viterbi.py``'s ``_viterbi_scale`` on
+  ``_trop_prob_matvec``, XLA there): y[j] = max_i Wp[j, i]·a[i], then the
+  emission and the rescale as K6a, over one chunk of frames from a given
+  state and scale, keeping every frame's state or a two-slot ring.  It is
+  K6a's kernel with each FMA a multiply and a max (exact: the max does not
+  depend on order, and an all-zero tile gives products of 0 against a state
+  >= 0, as the dense Wp does).  Its operator is float32 on every graph
+  (:func:`trop_operator`): the JAX package reads ``dense_fwd_exp`` in
+  float32 in every precision mode.
 
 The TPU kernels' one-hot matrices (``OH_state @ ext_t`` and ``oh_pdf @ γ``)
 are a TPU device for a gather and a segment sum.  Here the emission is a
@@ -63,8 +73,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .block_scan import (_check, _p, _pow2_exponent, _pow2_scale, _raise_on,
-                         _route, _stream)
+from .block_scan import (_check, _kahan_step, _p, _pow2_exponent,
+                         _pow2_scale, _raise_on, _route, _stream)
 from .blocked import round_bf16
 
 __all__ = [
@@ -80,6 +90,9 @@ __all__ = [
     "fwd_sweep_plain",
     "backward_plain",
     "dense_fused_fb",
+    "trop_operator",
+    "trop_sweep",
+    "trop_sweep_plain",
     "LAUNCHES",
     "LAUNCHES_BF16",
     "reset_launch_counts",
@@ -87,9 +100,9 @@ __all__ = [
 
 # launches of each CUDA kernel entry point, counted by its wrapper: the
 # float32 instantiations in LAUNCHES, the bf16 ones (a precision='bf16'
-# graph's tensor-core product) in LAUNCHES_BF16
-LAUNCHES = {"dense_fwd": 0, "dense_bwd": 0}
-LAUNCHES_BF16 = dict(LAUNCHES)
+# graph's tensor-core product) in LAUNCHES_BF16; K6t has float32 only
+LAUNCHES_BF16 = {"dense_fwd": 0, "dense_bwd": 0}
+LAUNCHES = {**LAUNCHES_BF16, "dense_trop": 0}
 
 _TILE = 32  # operator tile edge (TR = TK in csrc/dense_scan.cu)
 _TILE_COLS = 128  # batch columns per column block (TB)
@@ -98,8 +111,9 @@ _SMS = 132  # SMs of an H100 SXM: the plan's grid where there is no card
 
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = LAUNCHES_BF16[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_BF16):
+        for k in counts:
+            counts[k] = 0
 
 
 def make_dense_operator(dense_w: torch.Tensor):
@@ -340,6 +354,24 @@ def kernel_operator(cf) -> DenseOp:
     return kop
 
 
+def trop_operator(cf) -> DenseOp:
+    """K6t's operator: the forward probability operator in float32 with
+    its tile plan judged in float32, on every graph.  For a 'high' graph
+    that is :func:`kernel_operator`'s; a bf16 graph gets its own (cached),
+    whose backward fields repeat the forward ones (K6t reads only the
+    forward ones)."""
+    if cf.precision != "bf16":
+        return kernel_operator(cf)
+    kop = cf._cache.get("dense_trop")
+    if kop is None:
+        wf = torch.exp(cf.dense_fwd_max)[:, None] * cf.dense_fwd_exp
+        kop = dense_op(torch.exp(cf.alpha_hat), wf, wf, cf.state_pdf,
+                       torch.nonzero(cf.orig_state >= 0)[:, 0],
+                       cf.num_pdfs + 1, int(cf.final_state))
+        cf._cache["dense_trop"] = kop
+    return kop
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch twins (the kernels' reference)
 # ---------------------------------------------------------------------------
@@ -402,6 +434,46 @@ def backward_plain(kop: DenseOp, ext, alphas, ascale):
         b = y * ext[t].index_select(0, spdf)
         s = _pow2_scale(_pow2_exponent(b.amax(dim=0)))
     return posts
+
+
+_TROP_ELEMS = 1 << 22  # (Sp, Sp, columns) products per step of the twin
+
+
+def _trop_product(w, a):
+    """y[j, b] = max_i w[j, i]·a[i, b] (each product one float32
+    rounding), a few columns at a time so that the (Sp, Sp, columns)
+    products stay under _TROP_ELEMS elements."""
+    Sp, B = a.shape
+    step = max(1, _TROP_ELEMS // max(w.numel(), 1))
+    return torch.cat([(w[:, :, None] * a[None, :, c0 : c0 + step]).amax(dim=1)
+                      for c0 in range(0, B, step)], dim=1)
+
+
+def trop_sweep_plain(kop: DenseOp, a0, s0, ext, mshift, *, first: bool,
+                     save: bool = True, acc=None):
+    """Plain twin of K6t over the Nf frames of ``ext`` (Nf, P1, B) and
+    ``mshift`` (Nf, 1, B) from ``a0`` (Sp, B) unscaled with its scale
+    ``s0`` (B,).  Frame 0 skips the product when ``first`` (the decode's
+    global frame 0: y = a0 ⊙ e, ``s0`` then 1).  ``acc`` (3, B): ksum,
+    shift and its Kahan compensation, carried on in place (zeros when
+    None).  Returns (states (Nf, Sp, B) unscaled or None, scales (Nf, B)
+    or None, a_last (Sp, B), s_last (B,), acc)."""
+    Nf, _, B = ext.shape
+    spdf = kop.spdf.long()
+    acc = a0.new_zeros((3, B)) if acc is None else acc
+    states = a0.new_empty((Nf, kop.Sp, B)) if save else None
+    scales = a0.new_empty((Nf, B)) if save else None
+    a, s = a0, s0
+    for t in range(Nf):
+        e = ext[t].index_select(0, spdf)
+        y = (a * e if first and t == 0
+             else _trop_product(kop.wf, a) * s[None, :] * e)
+        k = _pow2_exponent(y.amax(dim=0))
+        a, s = y, _pow2_scale(k)
+        if save:
+            states[t], scales[t] = a, s
+        _kahan_step(acc, k, mshift[t, 0])
+    return states, scales, a, s, acc
 
 
 # ---------------------------------------------------------------------------
@@ -514,6 +586,49 @@ def backward(kop: DenseOp, ext, alphas, ascale):
     _raise_on(rc, "mm_dense_bwd")
     (LAUNCHES_BF16 if bf16 else LAUNCHES)["dense_bwd"] += 1
     return posts
+
+
+def trop_sweep(kop: DenseOp, a0, s0, ext, mshift, *, first: bool,
+               save: bool = True, acc=None):
+    """K6t: the tropical forward over the Nf frames of ``ext``, one launch.
+    Same arguments and outputs as :func:`trop_sweep_plain`; ``kop`` is
+    :func:`trop_operator`'s (float32)."""
+    if not _route(ext, "dense-tropical-sweep"):
+        return trop_sweep_plain(kop, a0, s0, ext, mshift, first=first,
+                                save=save, acc=acc)
+    from . import _build
+
+    Nf, P1, B = ext.shape
+    Sp, dev = kop.Sp, ext.device
+    if _check_op(kop, dev):
+        raise ValueError("K6t takes a float32 operator (trop_operator)")
+    _check("a0", a0, (Sp, B), dev)
+    _check("s0", s0, (B,), dev)
+    _check("ext", ext, (Nf, kop.P1, B), dev)
+    _check("mshift", mshift, (Nf, 1, B), dev)
+    acc = torch.zeros((3, B), device=dev) if acc is None else acc
+    _check("acc", acc, (3, B), dev)
+    slots = Nf if save else 2
+    states = torch.empty((slots, Sp, B), device=dev)
+    scales = torch.empty((slots, B), device=dev)
+    partial, sync, _ = _scratch(kop, kop.pf, B, 0, dev)
+    if not first:
+        # the column max the first frame reads: 1 / s0, whose scale is s0
+        n_rt = Sp // _TILE
+        at = 2 + n_rt * -(-B // _TILE_COLS) + 2 * B
+        sync[at : at + B] = (1.0 / s0).view(torch.int32)
+    with torch.cuda.device(dev):
+        rc = _build.library().mm_dense_trop(
+            *_plan_args(kop.pf), _p(kop.spdf), _p(a0), _p(ext), _p(mshift),
+            Sp, kop.P1, B, Nf, slots, int(first), _p(states), _p(scales),
+            _p(acc[0]), _p(acc[1]), _p(acc[2]), _p(partial), _p(sync),
+            _stream(dev),
+        )
+    _raise_on(rc, "mm_dense_trop")
+    LAUNCHES["dense_trop"] += 1
+    last = (Nf - 1) % slots
+    return (states if save else None, scales if save else None,
+            states[last], scales[last], acc)
 
 
 # ---------------------------------------------------------------------------

@@ -160,7 +160,8 @@ def test_twin_backward_matches_fused_pallas(fused_pair, alphas):
 
 
 def test_twins_launch_no_kernel_on_cpu(fused_pair):
-    assert fused_pair[8] == {"dense_fwd": 0, "dense_bwd": 0}
+    assert fused_pair[8] == {"dense_fwd": 0, "dense_bwd": 0,
+                             "dense_trop": 0}
 
 
 def test_forward_twin_without_alphas_gives_the_same_logz(fused_pair):

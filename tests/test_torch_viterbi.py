@@ -11,7 +11,8 @@ matvec of ops/blocked.py) against the JAX package on the CPU.
 * ``block_matvec_max_arg`` against the JAX package's on random states with
   ties, and its tie rule;
 * the route predicates against the JAX package's, and the routes the port
-  does not have yet.
+  does not have yet (the chunk-recompute decode of 'dense' graphs and of
+  'block' graphs past the id budget: tests/test_torch_vit_recompute.py).
 
 Inputs are made from numpy seeds.  The CUDA kernels themselves are held
 against these twins on the card by ``chip_smoke.py`` (phases 15-17)."""
@@ -131,7 +132,8 @@ def test_viterbi_states_equal_jax_k7_form(port, jax_refs, data):
 
 
 def test_viterbi_on_the_cpu_launches_no_kernel(port):
-    assert port[2] == {"vit_fwd": 0, "vit_walk": 0}
+    assert port[2] == {"vit_fwd": 0, "vit_walk": 0, "vit_fwd_noid": 0,
+                       "rec_walk": 0}
 
 
 def test_viterbi_lengths_default_and_clamp(graphs, data):
@@ -324,14 +326,13 @@ def test_vit_scan_reject_reason_matches_jax_admission(graphs):
 
 
 def test_unported_routes_raise(graphs):
-    """'dense' graphs (chunk-recompute decode), batched graphs (the
-    vmapped per-graph decode), 'banded' graphs (_viterbi_single): each
-    raises NotImplementedError naming the route; nothing falls back."""
+    """Batched graphs (the vmapped per-graph decode) and 'banded' graphs
+    (_viterbi_single) raise NotImplementedError naming the route; nothing
+    falls back.  ('dense' graphs and 'block' graphs past the id budget
+    decode through the chunk-recompute route: tests/
+    test_torch_vit_recompute.py.)"""
     _, dt = _dense16()
     lhs = torch.zeros((2, 3, 48))
-    with pytest.raises(NotImplementedError,
-                       match="strategy 'dense' != 'block'.*chunk-recompute"):
-        mt.viterbi(dt, lhs)
     with pytest.raises(NotImplementedError, match="batched 'dense'"):
         mt.viterbi(mt.stack([dt, dt]), lhs)
     nums = numerators(np.random.default_rng(1), 2, 48, [4, 5], lib=mt)
@@ -341,9 +342,6 @@ def test_unported_routes_raise(graphs):
     with pytest.raises(NotImplementedError, match="batched 'banded'"):
         mt.viterbi(mt.stack([compile_port(*g, 48, strategy="banded")
                              for g in nums]), lhs)
-    ct = graphs[1]
-    with pytest.raises(NotImplementedError, match="memory|budget"):
-        mt.viterbi(ct, torch.zeros((128, 1200, 1)).expand(128, 1200, 384))
 
 
 def test_viterbi_checks_its_inputs(graphs):
