@@ -22,6 +22,8 @@ seed 0, every length N):
 * ``id_diffs``: the ids plus ω argmaxes that differ between the kernel and
   its plain twin at N=16;
 * ``ctas``: the persistent grid's CTAs (a version with a persistent K7);
+* with ``--graph separate``, all of it on the separate-state backoff graph
+  (V=128, keep 0.1, the default capped layout): K7's family branch;
 * with ``--split``, ``split_us``: µs per frame of the sweep on the whole
   forward operator and on three cut copies of it
   (``chip_smoke.vit_frame_split``): no tier (the tier's rows taken as band
@@ -210,7 +212,8 @@ def _trace(root, vs, cf, ext, msh) -> dict:
     return out
 
 
-def main(root: str, runs: int, split: bool, trace: bool = False) -> dict:
+def main(root: str, runs: int, split: bool, trace: bool = False,
+         graph: str = "2m") -> dict:
     sys.path.insert(0, os.path.abspath(root))
     sys.path.insert(1, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
@@ -227,8 +230,13 @@ def main(root: str, runs: int, split: bool, trace: bool = False) -> dict:
         raise RuntimeError(f"imported {mt.__file__}, not the copy at {root}")
     dev = torch.device("cuda:0")
     _build.library()
-    fsm, spdf, P, _ = mt.workloads.make_lm_hmm_graph(V=128)
-    cf = mt.compile_fsm(fsm, spdf, P, strategy="block", device=dev)
+    if graph == "separate":  # the capped layout: K7's family branch
+        fsm, spdf, P, _ = mt.workloads.make_backoff_lm_hmm_graph(
+            V=128, keep=0.1, layout="separate")
+        cf = mt.compile_fsm(fsm, spdf, P, device=dev)
+    else:
+        fsm, spdf, P, _ = mt.workloads.make_lm_hmm_graph(V=128)
+        cf = mt.compile_fsm(fsm, spdf, P, strategy="block", device=dev)
     rng = np.random.default_rng(0)
     B, N, n = 128, 700, 16
     lhs = torch.from_numpy(
@@ -247,7 +255,8 @@ def main(root: str, runs: int, split: bool, trace: bool = False) -> dict:
     sums = [float(t.double().sum()) for t in out]
     del out, again
     ts = _ms(lambda: vs.viterbi_fwd(cf, ext, msh), runs)
-    row = {"version": root, "sweep_ms": ts, "mean": sum(ts) / len(ts),
+    row = {"version": root, "graph": graph, "sweep_ms": ts,
+           "mean": sum(ts) / len(ts),
            "min": min(ts), "max": max(ts), "sums": sums,
            "bitequal": bitequal, "id_diffs": diff}
     if hasattr(vs, "_vit_grid"):  # the persistent kernel's CTAs
@@ -266,5 +275,7 @@ if __name__ == "__main__":
     ap.add_argument("--runs", type=int, default=9)
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--trace", action="store_true")
+    ap.add_argument("--graph", choices=("2m", "separate"), default="2m")
     a = ap.parse_args()
-    print(json.dumps(main(a.root, a.runs, a.split, a.trace)), flush=True)
+    print(json.dumps(main(a.root, a.runs, a.split, a.trace, a.graph)),
+          flush=True)

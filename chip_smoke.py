@@ -13,7 +13,9 @@ then the same step against a 'dense' denominator (the V=32 LM ∘ HMM graph:
 padded width) through K6a/K6b of ``.../csrc/dense_scan.cu``; then the
 Viterbi decode of the 2M-arc graph through K7 and the backtrace walk of
 ``.../csrc/vit_scan.cu`` (and, last, the chunk-recompute decode of a
-'dense' graph and of the 2M-arc graph past the id budget, phases 31-33);
+'dense' graph and of the 2M-arc graph past the id budget, phases 31-33,
+and the separate-state graph's decode through the family branch of K7
+and K7n, phases 34-37);
 then the training step against the separate-state
 backoff LM ∘ HMM denominator (V=128, 10 % of the trigrams kept: 49,537
 states, 339,895 arcs, 384 pdfs), which ``compile_fsm``'s default lowers to
@@ -170,10 +172,36 @@ and the recompute walk W2 (``.../csrc/rec_walk.cu``):
     (bit-equal); at N=700 (phase 17's input) the recompute route called
     directly beside K7's decode: scores within 1e-5, every path of both
     f64-valid, the sequences whose states differ counted (near-ties of the
-    two routes' arithmetic) and held to the other route's score.
+    two routes' arithmetic) and held to the other route's score;
 
-Every kernel's entry in the JSON line (K6t, K7n and W2 from phases 32-33
-among them) carries its bound: the larger of its
+then the overflow-family decode of the separate-state graph of phases
+18-21 (its capped layout's families, which the TPU K7 refuses and the JAX
+package decodes in XLA), through the family branch of K7 and K7n (FAM,
+``.../csrc/vit_scan.cu``) and the walk with its decode tables:
+
+34. K7's family branch and the walk against their plain twins at B=128
+    and B=126, N=128 (lengths 1, 2 (infeasible) and N mixed, ±30-nat
+    cliffs): K7 run twice and bit-equal, ids and omega argmaxes bit-equal
+    to the twin, the walk equal to its twin; K7n's family branch bit-equal
+    to its twin;
+35. ``viterbi`` at B=2, N=40 against the f64 max-plus optimum on the
+    separate-state graph and on its embedded layout (the same LM with its
+    backoff states on the trigram rows' diagonal, uniform K7);
+36. the separate-state decode at B=128, N=700 (seed 0): exactly one K7
+    launch (the family branch) and one walk launch (counters and the
+    profiler), every path walked in f64 (gap < 2e-3), the embedded
+    layout's decode gated likewise; both timed (median of 5) beside phase
+    17's 2M-arc decode, the decode's parts, the idle share of one profiled
+    decode, K7's frame split; K7 and the walk timed and held to their
+    twins at this shape;
+37. the separate-state graph at B=128, N=1,024, past the id budget: phase
+    33's checks through K7n's family branch (1 + 17 K7n and 17 W2
+    launches, all in the family branch), and at N=700 the recompute route
+    called directly beside phase 36's decode.
+
+Every kernel's entry in the JSON line (K6t, K7n and W2 from phases 32-33,
+and the family branch's K7, walk, K7n and W2 from phases 36-37 among them)
+carries its bound: the larger of its
 operations over the card's peak rate for their type and its bytes over the
 memory bandwidth (H100 SXM data sheet), computed from this run's shapes.
 
@@ -364,20 +392,25 @@ def vit_bounds(cf, B, Nf):
     omega product and max, the emission multiply and the rescale; the ids
     written once.  Each operation at one per lane and clock
     (PEAK_F32_OPS).  "K7 (4 instructions)": the same with the four
-    instructions per tier candidate that a running (max, argmax) loop
-    issues (a multiply, a compare, two selects).  The walk: per frame and
-    sequence one
-    id, two table reads and one state written (what this decode reads)."""
+    instructions per tier candidate of a running (max, argmax) loop (a
+    multiply, a compare, two selects).  A capped layout's family
+    terms (the family branch) add a multiply and a max each, and their
+    tables (per-row pointers, sources, weights, uint8 ids, the row pdfs)
+    are read once.  The walk: per frame and sequence one id, two table
+    reads and one state written (what this decode reads)."""
     from markovmodels_tpu_torch.ops import block_scan as bs
     from markovmodels_tpu_torch.ops import vit_scan as vs
 
     kop = bs.kernel_operator(cf)
     K, Sm, D = kop.fwd.W.shape
     nO, Sp, P1 = len(kop.fwd.offsets), kop.Sp, kop.P1
+    nfam = kop.fwd.fam_dst.numel()
     RW = vs._main_region(cf)
     nbytes = (4 * (K * Sm * D + nO * Sp + 2 * Sp + Nf * (P1 + 1) * B)
               + Nf * RW * B + 4 * Nf * B + 12 * B)
-    rest = 4 * nO * RW + 2 * Sp + 2 * Sp
+    if vs._is_fam(kop):
+        nbytes += 4 * (2 * Sp + 1) + 9 * nfam
+    rest = 4 * nO * RW + 2 * Sp + 2 * Sp + 2 * nfam
     tier, g = K * Sm * D, vs.layout(B, Nf - 1)[1]
     ops = Nf * B * (2 * (1 + 1 / g) * tier + rest)
     ops4 = Nf * B * (4 * tier + rest)
@@ -1582,8 +1615,8 @@ def phase_vit_kernels(cf, P, dev, B=128, N=128):
     return {"K7": serr, "K7w": werr}
 
 
-def phase_vit_oracle(fsm, spdf, cf, P, dev, n=40):
-    """Phase 16: viterbi at B=2 against the exact f64 max-plus optimum
+def phase_vit_oracle(fsm, spdf, cf, P, dev, n=40, label="phase 16"):
+    """Phase 16 (35): viterbi at B=2 against the exact f64 max-plus optimum
     (the gate bench.py holds the JAX package to)."""
     import torch
 
@@ -1601,7 +1634,7 @@ def phase_vit_oracle(fsm, spdf, cf, P, dev, n=40):
     gap = mt.oracle.validate_paths(fsm, spdf, lhs, lens,
                                    states.cpu().numpy(), ref,
                                    atol=TOL_VIT_PATH)
-    print(f"phase 16: viterbi B=2 N={n} vs f64 oracle |dscore| = "
+    print(f"{label}: viterbi B=2 N={n} vs f64 oracle |dscore| = "
           f"{serr:.3e} (tol {TOL_VIT_ORACLE:g}); path-weight gap = "
           f"{gap:.3e} (tol {TOL_VIT_PATH:g})")
     assert serr <= TOL_VIT_ORACLE, "Viterbi score gate failed"
@@ -1743,8 +1776,9 @@ def phase_vit_main(fsm, spdf, cf, P, dev, B=128, N=700):
               + "; ".join(f"{k} {v:.3f} ms ({counts[k]} launches)"
                           for k, v in top))
         vit = {k: v for k, v in counts.items() if k.startswith("vit_")}
-        assert sorted(vit.items()) == [("vit_sweep_kernel<true, true>", 1),
-                                       ("vit_walk_kernel", 1)], counts
+        assert sorted(vit.items()) == [
+            ("vit_sweep_kernel<true, true, false>", 1),
+            ("vit_walk_kernel", 1)], counts
     parts = decode_parts(cf, lhs, lengths)
     for k, v in parts.items():
         print(f"phase 17: decode part: {k} {v:.3f} ms")
@@ -2078,19 +2112,23 @@ def trop_bounds(dcf, B, Nf):
 def noid_bounds(cf, B, Nf, saved):
     """K7n over Nf frames saving ``saved`` of them: K7's work without the
     id (a multiply and a max per tier candidate, per band candidate a
-    multiply and a max, per state the omega product and max, the emission
-    and the rescale) at PEAK_F32_OPS; the operator, the emissions, the
-    start state and the saved states and scales."""
+    multiply and a max, per family term (a capped layout) a multiply and a
+    max, per state the omega product and max, the emission and the
+    rescale) at PEAK_F32_OPS; the operator with its family tables, the
+    emissions, the start state and the saved states and scales."""
     from markovmodels_tpu_torch.ops import block_scan as bs
     from markovmodels_tpu_torch.ops import vit_scan as vs
 
     kop = bs.kernel_operator(cf)
     K, Sm, D = kop.fwd.W.shape
     nO, Sp, P1 = len(kop.fwd.offsets), kop.Sp, kop.P1
+    nfam = kop.fwd.fam_dst.numel()
     RW = vs._main_region(cf)
-    ops = Nf * B * (2 * K * Sm * D + 2 * nO * RW + 4 * Sp)
+    ops = Nf * B * (2 * K * Sm * D + 2 * nO * RW + 2 * nfam + 4 * Sp)
     nbytes = 4 * (K * Sm * D + nO * Sp + 2 * Sp + Nf * (P1 + 1) * B
                   + Sp * B + saved * (Sp + 1) * B + 8 * B)
+    if vs._is_fam(kop):
+        nbytes += 4 * (2 * Sp + 1) + 8 * nfam
     return bound(ops, nbytes, PEAK_F32_OPS)
 
 
@@ -2395,22 +2433,25 @@ def phase_dense_decode(dfsm, dspdf, dcf, dP, dev, B=128, N=700):
             {"K6t": e_k6t, "W2": 0.0}, {"K6t": bd, "W2": bw}, t_dec, counts)
 
 
-def phase_block_recompute(fsm, spdf, cf, P, dev, B=128, N=1024, K=64):
-    """Phase 33: the 2M-arc graph at B=128, N=1,024, past the id stream's
-    budget: the route is the chunk-recompute decode (K7n once for the
-    checkpoints, then per chunk one K7n and one W2), every path walked in
-    f64; the decode (median of 3), the checkpoint sweep, one chunk's
-    recompute and walk timed, their plain twins timed and held to them;
-    then at N=700 (phase 17's input) the recompute route called directly
-    beside the K7 decode: scores within TOL_VIT, every path of both f64-
-    valid, and the sequences whose states differ counted (near-ties of the
-    two routes' arithmetic; each such path within TOL_VIT_WALK of the
-    other route's score)."""
+def phase_block_recompute(fsm, spdf, cf, P, dev, B=128, N=1024, K=64,
+                          label="phase 33", name="2M-arc"):
+    """Phase 33 (37): the 2M-arc graph (the separate-state graph, through
+    K7n's family branch) at B=128, N=1,024, past the id stream's budget:
+    the route is the chunk-recompute decode (K7n once for the checkpoints,
+    then per chunk one K7n and one W2), every path walked in f64; the
+    decode (median of 3), the checkpoint sweep, one chunk's recompute and
+    walk timed, their plain twins timed and held to them; then at N=700
+    (phase 17's or 36's input) the recompute route called directly beside
+    the K7 decode: scores within TOL_VIT, every path of both f64-valid, and
+    the sequences whose states differ counted (near-ties of the two
+    routes' arithmetic; each such path within TOL_VIT_WALK of the other
+    route's score)."""
     import importlib
 
     import torch
 
     import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import block_scan as bs
     from markovmodels_tpu_torch.ops import vit_scan as vs
     from markovmodels_tpu_torch.ops.emissions import prepare_emissions
 
@@ -2428,9 +2469,13 @@ def phase_block_recompute(fsm, spdf, cf, P, dev, B=128, N=1024, K=64):
     counts = all_launches()
     want = {k: 0 for k in counts}
     want.update(vit_fwd_noid=1 + C, rec_walk=C)
-    print(f"phase 33: 2M-arc decode B={B} N={N}: route reason: {reason}; "
-          f"launches {json.dumps(counts)}")
+    fam = dict(vs.LAUNCHES_FAM)
+    print(f"{label}: {name} decode B={B} N={N}: route reason: {reason}; "
+          f"launches {json.dumps(counts)}, of them in the family branch "
+          f"{json.dumps(fam)}")
     assert counts == want, f"the over-budget decode launched {counts}"
+    is_fam = vs._is_fam(bs.kernel_operator(cf, torch.float32))
+    assert fam == {"vit_fwd": 0, "vit_fwd_noid": (1 + C) * is_fam}, fam
     st, sc = states.cpu().numpy(), score.cpu().numpy()
     assert st.shape == (B, N) and np.isfinite(sc).all(), "block decode"
     gap = mt.oracle.validate_paths(fsm, spdf, lhs.cpu().numpy(),
@@ -2478,7 +2523,7 @@ def phase_block_recompute(fsm, spdf, cf, P, dev, B=128, N=1024, K=64):
     b_ck = noid_bounds(cf, B, N + 1, (N + 1) // K)
     b_rec = noid_bounds(cf, B, K, K)
     b_walk = walk_bounds(wt, walked[0], s_end, lengths, t0, cf.padded_states)
-    print(f"phase 33: all {B} paths walked in float64, max |path weight - "
+    print(f"{label}: all {B} paths walked in float64, max |path weight - "
           f"score| = {gap:.3e} (tol {TOL_VIT_WALK:g}); decode {t_dec:.3f} "
           f"ms (median of 3) = {audio / (t_dec / 1e3):.1f} audio-s/s; K7n "
           f"checkpoint sweep {t_ck:.3f} ms over {N + 1} frames "
@@ -2511,7 +2556,7 @@ def phase_block_recompute(fsm, spdf, cf, P, dev, B=128, N=1024, K=64):
     g_x = (mt.oracle.validate_paths(fsm, spdf, lh[diff], ln[diff],
                                     s_rc[diff], z_bp[diff],
                                     atol=TOL_VIT_WALK) if len(diff) else 0.0)
-    print(f"phase 33: N={n7}: the recompute route beside K7's decode: "
+    print(f"{label}: N={n7}: the recompute route beside K7's decode: "
           f"max |dscore| = {dz:.3e} (tol {TOL_VIT:g}); paths f64-valid "
           f"within {g_bp:.3e} (K7) / {g_rc:.3e} (recompute); {len(diff)} of "
           f"{B} sequences' states differ, each within {g_x:.3e} of K7's "
@@ -2522,6 +2567,170 @@ def phase_block_recompute(fsm, spdf, cf, P, dev, B=128, N=1024, K=64):
             {"K7n": e_k7n}, {"K7n": b_ck, "K7n recompute": b_rec,
                              "W2": b_walk},
             t_dec, counts)
+
+
+def phase_ov_vit_kernels(cf, P, dev, B=128, N=128):
+    """Phase 34: K7's family branch and the walk with its decode tables
+    against their plain twins on the separate-state graph at N=128
+    (phase 15's input: lengths 1, 2 (infeasible: shorter than the 3-state
+    HMMs) and N mixed, ±30-nat cliffs), B=128 and B=126 (the scalar
+    branch): K7 run twice, bit-equal run to run, ids and omega argmaxes
+    bit-equal to the twin, the walk equal to its twin; K7n's family branch
+    bit-equal to its twin on the same input."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    lhs, lens = vit_inputs(P, dev, B, N)
+    lens[4] = 2
+    ext, msh = prepare_emissions(lhs, lens, P)
+    vs.reset_launch_counts()
+    out_k = vs.viterbi_fwd(cf, ext, msh)
+    out_k2 = vs.viterbi_fwd(cf, ext, msh)
+    torch.cuda.synchronize()
+    assert vs.LAUNCHES_FAM["vit_fwd"] == 2, "K7 took the uniform branch"
+    again = all(torch.equal(x, y) for x, y in zip(out_k, out_k2))
+    out_p = vs.viterbi_fwd_plain(cf, ext, msh)
+    n_bp = int((out_k[0] != out_p[0]).sum())
+    n_fin = int((out_k[1] != out_p[1]).sum())
+    zk, zp = vit_score(out_k), vit_score(out_p)
+    fin = np.isfinite(zp)
+    assert (np.isfinite(zk) == fin).all(), "K7: -inf pattern differs"
+    assert fin.sum() > B // 2 and not fin[1] and not fin[4], \
+        "K7: unexpected -inf pattern"
+    serr = float(np.abs(zk[fin] - zp[fin]).max())
+    wt = vs.walk_tables(cf)
+    sk = vs.walk(wt, out_k[0], out_k[1], lens)
+    torch.cuda.synchronize()
+    sp = vs.walk_plain(wt, out_k[0], out_k[1], lens)
+    werr = float((sk - sp).abs().max())
+    nk = vs.viterbi_fwd(cf, ext, msh, ids=False)
+    n_twin = all(torch.equal(x, y) for x, y in zip(
+        nk, vs.viterbi_fwd_plain(cf, ext, msh, ids=False)))
+    print(f"phase 34: B={B}: K7 (family branch) run twice bit-equal "
+          f"{again}; vs plain: {n_bp} of {out_k[0].numel()} ids and {n_fin} "
+          f"of {out_k[1].numel()} omega argmaxes differ; max |dscore| = "
+          f"{serr:.3e} (tol {TOL_VIT:g}); walk kernel vs plain max |dstate| "
+          f"= {werr:g}; K7n (family branch) bit-equal to its twin {n_twin}")
+    assert again, "K7's family branch differs run to run"
+    assert n_bp == 0 and n_fin == 0, "K7 ids differ from the plain twin"
+    assert serr <= TOL_VIT, f"K7 scores disagree: {serr}"
+    assert werr == 0, "the walk kernel disagrees with its plain twin"
+    assert n_twin, "K7n's family branch differs from its twin"
+    return {"K7": serr, "K7w": werr, "K7n": 0.0}
+
+
+def phase_ov_vit_main(fsm, spdf, cf, efsm, espdf, ecf, P, dev, t_dec2m,
+                      B=128, N=700):
+    """Phase 36: the decode of the separate-state graph at B=128, N=700
+    (seed 0): exactly one K7 launch (its family branch) and one walk launch
+    (counters and the profiler's kernel count), every path walked in f64;
+    the decode (median of 5) beside phase 17's 2M-arc decode and beside the
+    embedded layout's (the same LM, uniform K7; its paths walked too), the
+    decode's parts and the device's idle share; K7 and the walk timed and
+    held to their plain twins at this shape."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import block_scan as bs
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    rng = np.random.default_rng(0)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    states, score = mt.viterbi(cf, lhs, lengths)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in all_launches().items() if v}
+    fam = dict(vs.LAUNCHES_FAM)
+    print(f"phase 36: separate-state decode B={B} N={N}: launches "
+          f"{json.dumps(counts)}, of them in the family branch "
+          f"{json.dumps(fam)}")
+    assert counts == {"vit_fwd": 1, "vit_walk": 1}, counts
+    assert fam == {"vit_fwd": 1, "vit_fwd_noid": 0}, fam
+    st, sc = states.cpu().numpy(), score.cpu().numpy()
+    assert st.shape == (B, N) and st.dtype == np.int32, "output shapes"
+    assert sc.shape == (B,) and np.isfinite(sc).all(), "non-finite score"
+    gap = mt.oracle.validate_paths(fsm, spdf, lhs.cpu().numpy(),
+                                   lengths.cpu().numpy(), st, sc,
+                                   atol=TOL_VIT_WALK)
+    elhs = torch.from_numpy(make_inputs(np.random.default_rng(0), B, N,
+                                        ecf.num_pdfs)).to(dev)
+    reset_all_launches()
+    es, ez = mt.viterbi(ecf, elhs, lengths)
+    torch.cuda.synchronize()
+    ecounts = {k: v for k, v in all_launches().items() if v}
+    assert ecounts == {"vit_fwd": 1, "vit_walk": 1}, ecounts
+    assert vs.LAUNCHES_FAM["vit_fwd"] == 0, "the embedded layout is uniform"
+    ez = ez.cpu().numpy()
+    assert np.isfinite(ez).all(), "embedded decode: non-finite score"
+    egap = mt.oracle.validate_paths(efsm, espdf, elhs.cpu().numpy(),
+                                    lengths.cpu().numpy(), es.cpu().numpy(),
+                                    ez, atol=TOL_VIT_WALK)
+    med = median_ms({"separate": lambda: mt.viterbi(cf, lhs, lengths),
+                     "embedded": lambda: mt.viterbi(ecf, elhs, lengths)})
+    audio = B * N * FRAME_SHIFT_S
+    print(f"phase 36: all {B} paths walked in float64: max |path weight - "
+          f"score| = {gap:.3e} (embedded layout {egap:.3e}; tol "
+          f"{TOL_VIT_WALK:g}); decode (median of 5) separate-state "
+          f"{med['separate']:.3f} ms = "
+          f"{audio / (med['separate'] / 1e3):.1f} audio-s/s, embedded "
+          f"layout {med['embedded']:.3f} ms, 2M-arc (phase 17) "
+          f"{t_dec2m:.3f} ms; separate/embedded "
+          f"{med['separate'] / med['embedded']:.3f}")
+    prof = profile_device(lambda: mt.viterbi(cf, lhs, lengths))
+    if prof is None:
+        print("phase 36: profile of the decode: not measured (no device "
+              "events recorded)")
+    else:
+        by_name, busy, span, pcounts = prof
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])
+        print(f"phase 36: profile of one decode: device busy {busy:.3f} ms "
+              f"of a {span:.3f} ms span (idle {1 - busy / span:.1%}); "
+              + "; ".join(f"{k} {v:.3f} ms ({pcounts[k]} launches)"
+                          for k, v in top))
+        vit = {k: v for k, v in pcounts.items() if k.startswith("vit_")}
+        assert sorted(vit.items()) == [
+            ("vit_sweep_kernel<true, true, true>", 1),
+            ("vit_walk_kernel", 1)], pcounts
+    parts = decode_parts(cf, lhs, lengths)
+    print("phase 36: decode parts: " + "; ".join(
+        f"{k} {v:.3f} ms" for k, v in parts.items()))
+    ext, msh = prepare_emissions(lhs, lengths, P)
+    wt = vs.walk_tables(cf)
+    out = vs.viterbi_fwd(cf, ext, msh)
+    t_sweep = cuda_ms(lambda: vs.viterbi_fwd(cf, ext, msh), reps=2)
+    t_walk = cuda_ms(lambda: vs.walk(wt, out[0], out[1], lengths), reps=10)
+    split = vit_frame_split(cf, ext, msh)
+    print("timing: K7 (family branch) frame split on the separate-state "
+          "graph: " + "; ".join(f"{k} {v:.2f} us" for k, v in split.items())
+          + f" per frame ({vs._vit_grid(bs.kernel_operator(cf), dev, B)} "
+          "CTAs)")
+    plain, walked = [], []
+    t_plain = cuda_ms(lambda: plain.append(vs.viterbi_fwd_plain(cf, ext, msh)),
+                      warm=False)
+    t_walk_plain = cuda_ms(lambda: walked.append(
+        vs.walk_plain(wt, out[0], out[1], lengths)), warm=False)
+    out_p = plain[0]
+    n_bp = int((out[0] != out_p[0]).sum())
+    n_fin = int((out[1] != out_p[1]).sum())
+    serr = float(np.abs(vit_score(out) - vit_score(out_p)).max())
+    werr = float((vs.walk(wt, out[0], out[1], lengths) - walked[0])
+                 .abs().max())
+    print(f"timing: K7 (family branch) at B={B} N={N}: kernel {t_sweep:.3f} "
+          f"ms ({1e3 * t_sweep / (N + 1):.2f} us/frame), plain "
+          f"{t_plain:.3f} ms; walk kernel {t_walk:.3f} ms, plain "
+          f"{t_walk_plain:.3f} ms; vs plain: {n_bp} ids and {n_fin} omega "
+          f"argmaxes differ, max |dscore| = {serr:.3e}, walk max |dstate| = "
+          f"{werr:g}")
+    assert n_bp == 0 and n_fin == 0, "K7 ids differ from the plain twin"
+    assert serr <= TOL_VIT, f"K7 scores disagree: {serr}"
+    assert werr == 0, "the walk kernel disagrees with its plain twin"
+    return (counts, {"K7": (t_sweep, t_plain), "K7w": (t_walk, t_walk_plain)},
+            med, {"K7": serr, "K7w": werr}, split)
 
 
 def main():
@@ -2661,7 +2870,6 @@ def main():
         "cuda-block-scan"), "embedded layout"
     ov_launches, t_ostep, t_oden, t_emb = phase_ov_step(num_cf, scf, ecf, sP,
                                                         dev)
-    del ecf
     profile_block_den(scf, sP, dev, "phase 21")
     ov_times, terrs = time_kernels(scf, sP, dev)
     ov_errs.update({k: max(ov_errs[k], v) for k, v in terrs.items()})
@@ -2800,6 +3008,21 @@ def main():
     b_times2, b_errs2, b_bounds2, t_bdec, b_counts = phase_block_recompute(
         fsm, spdf, cf, P, dev)
 
+    # ---- the overflow-family decode (the separate-state graph) ------------
+    o_errs = [phase_ov_vit_kernels(scf, sP, dev, B=b) for b in (128, 126)]
+    phase_vit_oracle(sfsm, sspdf, scf, sP, dev, label="phase 35")
+    phase_vit_oracle(efsm, espdf, ecf, eP, dev,
+                     label="phase 35 (embedded layout)")
+    o_counts, o_times, o_med, e36, o_split = phase_ov_vit_main(
+        sfsm, sspdf, scf, efsm, espdf, ecf, sP, dev, t_dec)
+    o_errs.append(e36)
+    o_bounds = vit_bounds(scf, 128, 701)
+    print(f"timing: K7 (family branch) bound {o_bounds['K7'][0]:.3f} ms "
+          f"({o_bounds['K7'][1]}; the uniform K7's on the 2M-arc graph "
+          f"{bounds['K7'][0]:.3f} ms); sweep {o_times['K7'][0]:.3f} ms")
+    o_times2, o_errs2, o_bounds2, t_odec, o_counts2 = phase_block_recompute(
+        sfsm, sspdf, scf, sP, dev, label="phase 37", name="separate-state")
+
     block_src = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
     banded_src = "markovmodels_tpu_torch/ops/csrc/banded_scan.cu"
     dense_src = "markovmodels_tpu_torch/ops/csrc/dense_scan.cu"
@@ -2907,6 +3130,28 @@ def main():
          "rec_walk", walk_src, "markovmodels_tpu/viterbi.py:514", b_counts,
          r_errs["W2"], b_times2["W2"], b_bounds2["W2"]),
     )
+    o_err = {k: max(e[k] for e in o_errs if k in e) for k in o_errs[0]}
+    rec_lines += (  # the family branch: the separate-state graph's decodes
+        ("K7 vit_fwd (family branch: separate-state decode, 701 frames)",
+         "vit_fwd", vit_src, "markovmodels_tpu/viterbi.py:338", o_counts,
+         o_err["K7"], o_times["K7"], o_bounds["K7"]),
+        ("K7w vit_walk (separate-state decode, with the overflow decode "
+         "tables)", "vit_walk", vit_src, "markovmodels_tpu/viterbi.py:382",
+         o_counts, o_err["K7w"], o_times["K7w"], o_bounds["K7w"]),
+        ("K7n vit_fwd_noid (family branch: separate-state decode at N=1,024,"
+         " checkpoint sweep, 1,025 frames)", "vit_fwd_noid", vit_src,
+         "markovmodels_tpu/viterbi.py:137", o_counts2,
+         max(o_err["K7n"], o_errs2["K7n"]), o_times2["K7n"],
+         o_bounds2["K7n"]),
+        ("K7n vit_fwd_noid (family branch: separate-state decode at N=1,024,"
+         " one 64-frame recompute)", "vit_fwd_noid", vit_src,
+         "markovmodels_tpu/viterbi.py:137", o_counts2,
+         max(o_err["K7n"], o_errs2["K7n"]), o_times2["K7n recompute"],
+         o_bounds2["K7n recompute"]),
+        ("W2 rec_walk (separate-state decode at N=1,024: one 64-frame "
+         "chunk)", "rec_walk", walk_src, "markovmodels_tpu/viterbi.py:514",
+         o_counts2, r_errs["W2"], o_times2["W2"], o_bounds2["W2"]),
+    )
     kernels += [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": cnt[counter], "max_abs_err": err,
@@ -2922,7 +3167,10 @@ def main():
           f"{t_dstep:.2f} ms, dense den-only {t_dden:.2f} ms; viterbi "
           f"B=128 N=700 {t_dec:.2f} ms; dense viterbi B=128 N=700 "
           f"{t_ddec:.2f} ms; 2M-arc viterbi B=128 N=1,024 (chunk-recompute) "
-          f"{t_bdec:.2f} ms; K6 matmul yardstick {t_mm:.2f} ms; "
+          f"{t_bdec:.2f} ms; separate-state viterbi B=128 N=700 "
+          f"{o_med['separate']:.2f} ms (embedded layout "
+          f"{o_med['embedded']:.2f} ms), N=1,024 (chunk-recompute) "
+          f"{t_odec:.2f} ms; K6 matmul yardstick {t_mm:.2f} ms; "
           f"separate-state LF-MMI step {t_ostep:.2f} ms, den-only "
           f"{t_oden:.2f} ms, embedded den-only {t_emb:.2f} ms; bf16 (f32) "
           f"medians: " + "; ".join(f"{k} {b:.2f} ({a:.2f}) ms"

@@ -350,12 +350,17 @@ def _row_pdf(cf) -> np.ndarray:
     return pdf
 
 
-def _family_terms(op, meta):
+def _family_terms(op, meta, cid_of=None):
     """A direction's overflow families as (dst, src, w) terms sorted by
     destination, then source; zero weights dropped (they add exact
-    zeros).  'in' terms land on overflow rows, 'out' terms on core rows."""
+    zeros).  'in' terms land on overflow rows, 'out' terms on core rows.
+    With ``cid_of`` (a function of (descriptor index, descriptor, weight
+    shape) giving an int array of that shape) also each term's value of
+    it, a fourth array in the same order (K7's candidate ids)."""
     dst, src, w = [np.zeros(0, np.int64)] * 2 + [np.zeros(0, np.float32)]
-    for desc, Wf in zip(meta[3] if len(meta) > 3 else (), op.ov_w):
+    cid = np.zeros(0, np.int64)
+    for i, (desc, Wf) in enumerate(zip(meta[3] if len(meta) > 3 else (),
+                                       op.ov_w)):
         kind, g0, form = desc[:3]
         Wn = Wf.detach().cpu().numpy()
         block = Wn.shape[-1]
@@ -368,7 +373,12 @@ def _family_terms(op, meta):
         dst = np.concatenate([dst, d[nz]])
         src = np.concatenate([src, s_[nz]])
         w = np.concatenate([w, Wn[nz]])
+        if cid_of is not None:
+            cid = np.concatenate([cid, np.broadcast_to(
+                cid_of(i, desc, Wn.shape), Wn.shape)[nz]])
     order = np.lexsort((src, dst))
+    if cid_of is not None:
+        return dst[order], src[order], w[order], cid[order]
     return dst[order], src[order], w[order]
 
 

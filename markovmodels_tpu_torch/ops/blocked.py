@@ -22,8 +22,9 @@ Weights are stored as probabilities.  With an overflow region (the capped
 pdf-grouped layout ``compile_fsm`` gives a separate-state backoff graph),
 the arcs touching it are lifted into structured **overflow families**
 (lane-aligned source or destination columns and windows, see
-``_fit_in_family``); ``block_matvec`` applies them in either mode.  The
-tropical ``block_matvec_max_arg`` does not take them yet.
+``_fit_in_family``); ``block_matvec`` applies them in either mode, and
+``block_matvec_max_arg(..., ov_span=)`` tracks their candidate ids in the
+per-group encoding of ``_ov_cand_layout``.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ __all__ = [
     "build_block_operator",
     "block_matvec",
     "block_max_arg_supported",
+    "block_max_arg_reason",
     "tier_dst_inverse",
     "block_matvec_max_arg",
     "family_grid",
@@ -645,18 +647,100 @@ _NO_CAND = 255  # candidate id of a destination without incoming mass
 _MAXARG_ELEMS = 1 << 25  # (k, Sm, D, B) products per tier chunk
 
 
-def block_max_arg_supported(op: BlockOperator, meta) -> bool:
-    """True when block_matvec_max_arg can run: one tier, no residue, a
-    window-expressible scatter (to track the winning candidate), and every
-    candidate id (tier width + band count) fitting a uint8 below the
-    255 'none' marker.  Operators with overflow families are not
-    supported (their decode is not ported yet)."""
-    if op.ov_w or op.res_src is not None or len(op.tiers) != 1:
-        return False
+def _ov_cand_layout(meta, ov_lo, cmax, ov_hi=None):
+    """The candidate-id layout of the overflow groups in the uint8 id
+    stream (the JAX package's ``_ov_cand_layout``).  Overflow destinations
+    take no tier and no out-family candidate, so their id space starts at
+    0: each group's 'in' families take consecutive ranges [cum, cum +
+    size) in descriptor order (size cmax for a window, D for a column),
+    and the band offsets follow at [C_g, C_g + nO).  Returns ({group base:
+    [(desc, cum), ...]}, {group base: C_g}).
+
+    Unlike the JAX package, which ignores ``ov_lo`` here, every 'in'
+    family's group must lie in the overflow rows [ov_lo, ov_hi) (no upper
+    bound when ``ov_hi`` is None): ValueError otherwise."""
+    fam, csize = {}, {}
+    for desc in (meta[3] if len(meta) > 3 else ()):
+        kind, g0, form, base, stride, D = desc
+        if kind != "in":
+            continue
+        if g0 < ov_lo or (ov_hi is not None and g0 + cmax > ov_hi):
+            raise ValueError(f"'in' family group {g0} outside the overflow "
+                             f"rows [{ov_lo}, {ov_hi})")
+        cum = csize.get(g0, 0)
+        fam.setdefault(g0, []).append((desc, cum))
+        csize[g0] = cum + (cmax if form == "win" else D)
+    return fam, csize
+
+
+def block_max_arg_reason(op: BlockOperator, meta, ov_lo=None, cmax=None,
+                         ov_hi=None, *, ids: bool = True):
+    """None when block_matvec_max_arg can run, else the first predicate
+    that fails: one tier, no residue, a window-expressible scatter (to
+    track the winning candidate), and every candidate id fitting a uint8
+    below the 255 'none' marker.
+
+    With overflow families (``ov_lo`` / ``cmax`` from the compile's
+    ov_layout; the JAX package's predicates in its order): core
+    destinations encode tier [0, Sm) + bands [Sm, Sm + nO) + one
+    out-family id Sm + nO, so Sm + nO + 1 < 255; the tier writes no
+    overflow row; every group's in-families and bands fit, C_g + nO < 255
+    (``_ov_cand_layout``); and no destination takes two out-family
+    candidates, across families or within one.  Two predicates are the
+    port's own: every 'in' group lies in [ov_lo, ov_hi) (the JAX package
+    ignores ``ov_lo`` there), and every out-family destination is a core
+    row (below ``ov_lo``: on an overflow row the id Sm + nO would fall in
+    that group's in-family range, where the walk would decode it to a
+    bogus source).  ``ids=False`` (the id-free sweep K7n) skips the
+    predicates on the ids' range."""
+    if op.res_src is not None:
+        return "residue edges present"
+    if len(op.tiers) != 1:
+        return f"{len(op.tiers)} tiers (candidate ids need exactly 1)"
     _, ddesc = meta[1][0]
     if ddesc[0] not in _SCATTER_WINDOWS:
-        return False
-    return op.tiers[0][0].shape[1] + len(meta[0]) < _NO_CAND
+        return f"tier scatter {ddesc[0]!r} not window-expressible"
+    Sm = op.tiers[0][0].shape[1]
+    nO = len(meta[0])
+    if not op.ov_w:
+        if ids and Sm + nO >= _NO_CAND:
+            return (f"tier width {Sm} + {nO} band offsets: candidate ids do "
+                    "not fit a uint8")
+        return None
+    if ov_lo is None or cmax is None:
+        return "overflow families without the layout's ov_lo and cmax"
+    if ids and Sm + nO + 1 >= _NO_CAND:
+        return (f"tier width {Sm} + {nO} band offsets + the out-family id: "
+                "candidate ids do not fit a uint8")
+    if int(op.tiers[0][1].max()) >= ov_lo:
+        return "the tier writes an overflow row"
+    descs = meta[3]
+    for d in descs:
+        if d[0] == "in" and (d[1] < ov_lo or (ov_hi is not None
+                                               and d[1] + cmax > ov_hi)):
+            return (f"'in' family group {d[1]} outside the overflow rows "
+                    f"[{ov_lo}, {ov_hi})")
+    _, csize = _ov_cand_layout(meta, ov_lo, cmax, ov_hi)
+    big = [g for g, C in csize.items() if C + nO >= _NO_CAND]
+    if ids and big:
+        return (f"overflow group {big[0]}: {csize[big[0]]} in-family + {nO} "
+                "band candidates do not fit a uint8")
+    dsts = [family_grid(d, cmax).ravel() for d in descs if d[0] == "out"]
+    if dsts:
+        dsts = np.concatenate(dsts)  # within one family and across them
+        if len(np.unique(dsts)) != len(dsts):
+            return "a destination takes two out-family candidates"
+        if dsts.max() >= ov_lo:
+            return "an out-family writes an overflow row"
+    return None
+
+
+def block_max_arg_supported(op: BlockOperator, meta, ov_lo=None, cmax=None,
+                            ov_hi=None) -> bool:
+    """True when block_matvec_max_arg can run (the JAX package's
+    predicate; :func:`block_max_arg_reason` names the first that fails).
+    A graph it refuses takes the chunk-recompute decode."""
+    return block_max_arg_reason(op, meta, ov_lo, cmax, ov_hi) is None
 
 
 def tier_dst_inverse(op: BlockOperator, num_states: int) -> np.ndarray:
@@ -692,7 +776,7 @@ def _tier_max_arg(W, Xg):
     return Y, A
 
 
-def block_matvec_max_arg(op: BlockOperator, meta, x):
+def block_matvec_max_arg(op: BlockOperator, meta, x, ov_span=None):
     """Tropical y = T̂ᵀ ⊗max x with per-destination winning-candidate ids.
 
     Returns (y (Sp, B), cand (Sp, B) int32): cand < Sm is a tier source
@@ -701,12 +785,27 @@ def block_matvec_max_arg(op: BlockOperator, meta, x):
     mass.  Requires block_max_arg_supported.  The rank-1 ω column (phony
     final state) is NOT applied here: the decoder resolves it separately.
 
+    ``ov_span`` = (ov_lo, nOv, cmax) takes the overflow families (required
+    when the operator has them): a core destination's out-family candidate
+    is Sm + nO; an overflow destination of group g takes the group's own
+    encoding (``_ov_cand_layout``): its in-families at [0, C_g) in
+    descriptor order (cum + the column row r, or cum + the window position
+    j), its bands at C_g + oi.  The ids are written in this final encoding
+    (the JAX package stages in-family ids above 255 and remaps them after
+    the sweep's matvec: the same ids).
+
     Ties follow the CUDA kernel (K7), not XLA's reduction order: bands in
     offset order with a strict >, within the tier the smallest source
     position among equal maxima, the tier merged into the bands with a
-    strict > (so a zero column keeps 255).
+    strict > (so a zero column keeps 255), then the families in
+    descriptor order, each merged with a strict >, with the smallest index
+    within a family.
     """
     band_offsets, tier_descs = meta[0], meta[1]
+    if op.ov_w and ov_span is None:
+        raise ValueError(
+            "operator has overflow families; pass ov_span=(ov_lo, nOv, "
+            "cmax) or their contributions would be silently dropped")
     Sp, B = x.shape
     sidx, didx, W = op.tiers[0]
     gdesc, ddesc = tier_descs[0]
@@ -758,4 +857,51 @@ def block_matvec_max_arg(op: BlockOperator, meta, x):
     sel = Yv > win_y
     win_y.copy_(torch.where(sel, Yv, win_y))
     win_c.copy_(torch.where(sel, Av, win_c))
+    if ov_span is not None and op.ov_w:
+        _ov_max_arg(op, meta, x, y, cand, ov_span, Sm)
     return y, cand
+
+
+def _ov_max_arg(op, meta, x, y, cand, ov_span, Sm):
+    """The overflow families of :func:`block_matvec_max_arg`, in place:
+    first the overflow groups' band ids moved to C_g + oi (the tier writes
+    no overflow row), then each family in descriptor order."""
+    ov_lo, nOv, cmax = ov_span
+    nO = len(meta[0])
+    fam, csize = _ov_cand_layout(meta, ov_lo, cmax, ov_lo + nOv * cmax)
+    for gi in range(nOv):
+        g0 = ov_lo + gi * cmax
+        seg = cand[g0 : g0 + cmax]
+        band = (seg >= Sm) & (seg < Sm + nO)
+        seg.copy_(torch.where(band, seg - Sm + csize.get(g0, 0), seg))
+    B = x.shape[1]
+    cum = {}
+    for desc, W in zip(meta[3], op.ov_w):
+        kind, g0, form = desc[:3]
+        grid = torch.from_numpy(family_grid(desc, cmax)).to(x.device)
+        if kind == "in":
+            id0 = cum.get(g0, 0)
+            cum[g0] = id0 + (cmax if form == "win" else desc[5])
+            prod = W[:, :, None] * x[grid.reshape(-1)].reshape(
+                grid.shape + (B,))
+            dim = 0 if form == "col" else 1  # the column's r, the window's j
+            val = prod.amax(dim=dim)
+            idx = torch.arange(prod.shape[dim], dtype=torch.int32,
+                               device=x.device)
+            idx = idx.view((-1, 1, 1) if dim == 0 else (1, -1, 1))
+            arg = torch.where(prod == val.unsqueeze(dim), idx,
+                              prod.shape[dim]).amin(dim=dim)
+            cur, curc = y[g0 : g0 + cmax], cand[g0 : g0 + cmax]
+            sel = val > cur
+            cur.copy_(torch.where(sel, val, cur))
+            curc.copy_(torch.where(sel, id0 + arg, curc))
+        else:
+            xg = x[g0 : g0 + cmax]  # (block, B)
+            # 'col': y[base + r·stride + l] ⊕= W[r, l] · x[g0 + l]
+            # 'win': y[base + l·stride + j] ⊕= W[l, j] · x[g0 + l]
+            xb = xg[None, :, :] if form == "col" else xg[:, None, :]
+            flat = (W[:, :, None] * xb).reshape(-1, B)
+            dst = grid.reshape(-1)
+            sel = flat > y[dst]
+            y[dst] = torch.where(sel, flat, y[dst])
+            cand[dst] = torch.where(sel, Sm + nO, cand[dst])

@@ -61,6 +61,9 @@ bool parse_meta(const long long* im, Meta* m) {
          m->fin >= 0 && m->fin < m->Sp;
 }
 
+// The capped layout (the overflow family branch) of a descriptor.
+inline bool is_fam(const Meta& m) { return m.nfam > 0 || m.ov_lo < m.ov_hi; }
+
 // floor(log2 m) from the exponent bits, 0 for m == 0, clamped at -126 so
 // that the scale 2^-k stays finite (block_scan._pow2_exponent).
 __device__ __forceinline__ float pow2_exponent(float m) {

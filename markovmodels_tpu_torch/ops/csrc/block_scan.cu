@@ -212,9 +212,6 @@ Layout parse_layout(const long long* a) {
   return l;
 }
 
-// The capped layout (the overflow family branch) of a descriptor.
-bool is_fam(const Meta& m) { return m.nfam > 0 || m.ov_lo < m.ov_hi; }
-
 // One staged (TS-deep) step of the tier product: acc[i][c] += Ws[s][ty*4 +
 // i] * Xs[s][tx*4 + c] for s in order, by fused multiply-adds.
 __device__ __forceinline__ void tier_stage(float (&Ws)[TS][TR],

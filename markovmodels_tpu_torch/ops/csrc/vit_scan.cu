@@ -99,10 +99,37 @@
 // The results are those of the per-frame step and finalize launches it
 // replaced, bit for bit.
 //
+// The capped layout of a separate-state backoff graph (ov_layout: overflow
+// rows [ov_lo, ov_hi), each with its own pdf, joined to the core by
+// overflow families) takes a template branch (FAM) that the TPU K7 does not
+// have (it refuses such graphs; the JAX package decodes them in XLA,
+// blocked.py block_matvec_max_arg's ov_span branch).  The families arrive as
+// K2's per-row lists of (source, weight) terms (block_scan.cu Layout), each
+// term with its candidate id in the uint8 encoding of that row
+// (ops/vit_scan.py fam_tables): a core row's out-family term is Sm + nO; an
+// overflow row of group g takes its in-families at [0, C_g) and its bands at
+// C_g + o (cbase[g] = C_g).  A row's family candidate is the max of its
+// terms' products and the smallest id among the terms equal to it, merged
+// after the bands and the tier with a strict >: the ids of "families in
+// descriptor order, each merged with a strict >, the smallest index within
+// a family", since the ids rise in descriptor order.  A row's few terms
+// are pulled by its own thread in the epilogue, their range and the row's
+// first band id staged in shared memory as the item's rows are set up; a
+// heavy row (an 'in' window: 129 terms on the graph of chip_smoke.py
+// phase 18) takes an item of its own, heavy_max_arg(), whose 16 thread
+// rows split the terms and merge their partials in the same rule (one
+// thread pulling 128 terms cost K2 97 us per frame, PERF.md section 6);
+// the heavy items come first in the queue (measured faster than after the
+// tier items or last, PERF.md section 6).  An overflow
+// row's emission comes from its own pdf (row_pdf).  The branch sits
+// outside the group loop, and the uniform instantiations (FAM = false)
+// compile as before.
+//
 // Conventions: state (Sp, B) row-major float32; ext (Nf, P1, B), the emission
-// of state j is ext[t, j / cmax, b] (uniform pdf-grouped layout); ids
-// (Nf, RW, B) uint8; fins (Nf, B) int32.  Index maps of the tier come from
-// the host as ints: src(k, s) = g0 + k*gk + s*gs, dst(k, d) = d0 + k*dk + d*dd.
+// of state j is ext[t, j / cmax, b] (uniform pdf-grouped layout) or
+// ext[t, row_pdf[j], b] (FAM); ids (Nf, RW, B) uint8; fins (Nf, B) int32.
+// Index maps of the tier come from the host as ints: src(k, s) = g0 + k*gk +
+// s*gs, dst(k, d) = d0 + k*dk + d*dd.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -139,10 +166,25 @@ struct VitSmem {
       unsigned rm[16][TB];              // column max of each thread row
       unsigned long long rk[16][TB];    // omega key of each thread row
     } ep;
+    struct {  // a heavy row's partial family candidates (FAM), past ep
+      float skip[TR][ST];
+      float v[16][TB];  // each thread row's max product
+      int id[16][TB];   // and its smallest id among equal products
+    } hv;
   } u;
   int rows[TR];  // state row of each tile row, -1 if none
   int grp[TR];   // its pdf group (emission row)
   int2 next[2];  // the queue entries taken for the next items
+};
+
+// A sweep's shared memory: the uniform layout's, and with FAM each tile
+// row's family terms [x, y) and first band id z, read as the rows are set
+// up (the uniform instantiations keep exactly the uniform layout).
+template <bool FAM>
+struct VitSmemT : VitSmem {};
+template <>
+struct VitSmemT<true> : VitSmem {
+  int3 fr[TR];
 };
 
 struct VitArgs {
@@ -179,6 +221,44 @@ struct VitArgs {
   unsigned* sync;  // (SYNC_GEN + 1,) barrier counter, generation, zeroed
 };
 
+// The family branch's tables (FAM; host: vit_scan._vlayout, the same order).
+struct VitFam {
+  const int* row_pdf;       // (Sp,) pdf of each state row
+  const int* fam_ptr;       // (Sp + 1,) row j's terms [fam_ptr[j], fam_ptr[j+1])
+  const int* fam_src;       // (nfam,) source row of each term
+  const float* fam_w;       // (nfam,) its weight
+  const uint8_t* fam_cid;   // (nfam,) its candidate id
+  const int* heavy_rows;    // (nheavy,) the rows with an item each
+  const int* cbase;         // (nOv,) band id base of each overflow group
+};
+
+// A sweep's arguments: the uniform layout's, and with FAM the family tables
+// too (the uniform instantiations take exactly the uniform arguments).
+template <bool FAM>
+struct VitArgsT : VitArgs {};
+template <>
+struct VitArgsT<true> : VitArgs {
+  VitFam f;
+};
+
+// The pdf of the phony state (the emission row of its frame-end value):
+// the tail's phony pdf P1 - 1 in the capped layout (block_scan._row_pdf).
+template <bool FAM>
+__device__ __forceinline__ int phony_pdf(const VitArgsT<FAM>& p) {
+  if constexpr (FAM)
+    return p.m.P1 - 1;
+  else
+    return p.m.fin / p.m.cmax;
+}
+
+// (v, id) beats the family candidate (bv, bid): a larger product, or with
+// ids (IDS) an equal one of a smaller id.
+template <bool IDS>
+__device__ __forceinline__ bool fam_beats(float v, int id, float bv,
+                                          int bid) {
+  return v > bv || (IDS && v == bv && id < bid);
+}
+
 // The (max, smallest argmax) of omega[j] * a[j] as one ordered 64-bit key:
 // the product's float bits (non-negative: they order as the values), then
 // 2^32 - 1 - j, so that of equal products the smaller j is the larger key.
@@ -197,10 +277,10 @@ __device__ __forceinline__ void st_cs_u32(uint8_t* p, unsigned v) {
 // 2^-k from the column max with it; CTA 0 (``record``) writes fins[t - 1]
 // and advances ksum and the Kahan-compensated emission shift.  Returns the
 // scale; *yfin receives the phony state (unscaled), or frame 0's stored one.
-template <bool IDS>
-__device__ __forceinline__ float end_of_frame(const VitArgs& p, int t, int b,
-                                             const float* prev, bool record,
-                                             float* yfin) {
+template <bool IDS, bool FAM>
+__device__ __forceinline__ float end_of_frame(const VitArgsT<FAM>& p, int t,
+                                             int b, const float* prev,
+                                             bool record, float* yfin) {
   const Meta& m = p.m;
   const int B = p.B;
   const unsigned* cm = p.cm + static_cast<size_t>(t - 1) * CM * B + b;
@@ -216,7 +296,7 @@ __device__ __forceinline__ float end_of_frame(const VitArgs& p, int t, int b,
   float mxf = __uint_as_float(mx);
   if ((IDS ? t : p.t0 + t) - 1 >= 1) {  // global frame 0 has no omega arc
     const float e =
-        p.ext[(static_cast<size_t>(t - 1) * m.P1 + m.fin / m.cmax) * B + b];
+        p.ext[(static_cast<size_t>(t - 1) * m.P1 + phony_pdf<FAM>(p)) * B + b];
     *yfin = __uint_as_float(static_cast<unsigned>(key >> 32)) * e;
     mxf = fmaxf(mxf, *yfin);
   } else {
@@ -364,17 +444,79 @@ __device__ __forceinline__ void stage_tier(const VitArgs& p, VitSmem& s,
   __syncthreads();
 }
 
-// One work item of frame t over one (row tile, column tile): a tier tile
-// (64 destinations of one tier block) or a band tile (64 rows of
-// band_rows).  y = max(bands, tier) of the rescaled previous state a =
+// The family candidate of a heavy row j (FAM: an item of its own) for the
+// item's 64 columns: thread row ty takes every 16th of the row's terms,
+// keeping per column the max product and the smallest id among the terms
+// equal to it (fam_beats); the 16 partials are merged in ty order by the
+// same rule into the epilogue's table of row 0 (ep.val, ep.id), which the
+// row's epilogue merges after its bands with a strict >.  The products are
+// w * (a * s), the band terms' and the twin's, so the ids are the twin's.
+template <bool VEC, bool IDS>
+__device__ __forceinline__ void heavy_max_arg(const VitArgsT<true>& p,
+                                              VitSmem& s,
+                                              const float* __restrict__ prev,
+                                              const float* sc, int j, int b0,
+                                              unsigned long long once) {
+  const VitFam& f = p.f;
+  const int B = p.B, tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int bcol = b0 + tx * 4;
+  float scv[4], bv[4];
+  int bid[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    scv[c] = bcol + c < B ? sc[bcol + c] : 0.f;
+    bv[c] = -1.f;  // below every product: the first term enters
+    bid[c] = NO_CAND;
+  }
+  const int q1 = f.fam_ptr[j + 1];
+#pragma unroll 4
+  for (int q = f.fam_ptr[j] + ty; q < q1; q += NT / 16) {
+    const float w = f.fam_w[q];
+    const int id = IDS ? f.fam_cid[q] : 0;
+    const float4 x = load4_hint<VEC>(
+        prev + static_cast<size_t>(f.fam_src[q]) * B, bcol, B, once);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float v = w * (get(x, c) * scv[c]);
+      if (fam_beats<IDS>(v, id, bv[c], bid[c])) {
+        bv[c] = v;
+        bid[c] = id;
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    s.u.hv.v[ty][tx * 4 + c] = bv[c];
+    s.u.hv.id[ty][tx * 4 + c] = bid[c];
+  }
+  __syncthreads();
+  if (tid < TB) {
+    float v = -1.f;
+    int id = NO_CAND;
+    for (int q = 0; q < NT / 16; ++q)
+      if (fam_beats<IDS>(s.u.hv.v[q][tid], s.u.hv.id[q][tid], v, id)) {
+        v = s.u.hv.v[q][tid];
+        id = s.u.hv.id[q][tid];
+      }
+    s.u.ep.val[0][tid] = v;
+    s.u.ep.id[0][tid] = static_cast<uint8_t>(id);
+  }
+}
+
+// One work item of frame t over one (row tile, column tile): a heavy row's
+// tile (FAM only: tiles 0 .. nheavy-1), a tier tile (64 destinations of
+// one tier block) or a band tile (64 rows of band_rows).  y = max(bands, tier) of the rescaled previous state a =
 // prev * s (with ids), u = y * e (frame 0: u = a * e), stored unscaled; its
 // column max and omega keys into copy blockIdx.x % CM of the frame's.
 // Without ids (IDS = false) the same values, no id, and the state stored to
-// ``ck`` too where that is not null (a checkpoint frame).
-template <bool VEC, bool IDS>
-__device__ __forceinline__ void vit_item(const VitArgs& p, int t,
+// ``ck`` too where that is not null (a checkpoint frame).  FAM: the row's
+// family candidate merged last (heavy_max_arg for a heavy row's tile, the
+// row's own thread for its few terms otherwise), the band ids of an
+// overflow row from its group's base, the emission from the row's pdf.
+template <bool VEC, bool IDS, bool FAM>
+__device__ __forceinline__ void vit_item(const VitArgsT<FAM>& p, int t,
                                          long long tile, int b0, int row0,
-                                         VitSmem& s, const float* sc,
+                                         VitSmemT<FAM>& s, const float* sc,
                                          const float* pf,
                                          const float* __restrict__ prev,
                                          float* __restrict__ out,
@@ -384,10 +526,12 @@ __device__ __forceinline__ void vit_item(const VitArgs& p, int t,
             ty = tid / 16;
   const int bcol = b0 + tx * 4;  // this thread's epilogue columns
   const bool first = (IDS ? t : p.t0 + t) == 0;
-  const bool is_tier = tile < m.n_tier_tiles;
+  const bool is_heavy = FAM && tile < m.nheavy;
+  const long long tt = tile - (FAM ? m.nheavy : 0);  // tier or band tile
+  const bool is_tier = !is_heavy && tt < m.n_tier_tiles;
   const long long dtiles = (m.D + TR - 1) / TR;
-  const long long k = is_tier ? tile / dtiles : 0;
-  const long long dbase = is_tier ? (tile % dtiles) * TR : 0;
+  const long long k = is_tier ? tt / dtiles : 0;
+  const long long dbase = is_tier ? (tt % dtiles) * TR : 0;
   const float* __restrict__ ext_t = p.ext + static_cast<size_t>(t) * m.P1 * B;
   uint8_t* __restrict__ bp_t = p.bps + static_cast<size_t>(t) * RW * B;
   // the state read under evict_first, the new state stored under
@@ -401,12 +545,30 @@ __device__ __forceinline__ void vit_item(const VitArgs& p, int t,
     if (is_tier) {
       const long long d = dbase + tid;
       if (d < m.D) j = m.d0 + k * m.dk + d * m.dd;
-    } else {
-      const long long r = (tile - m.n_tier_tiles) * TR + tid;
+    } else if (!is_heavy) {
+      const long long r = (tt - m.n_tier_tiles) * TR + tid;
       if (r < m.nband) j = row0 >= 0 ? row0 + tid : p.band_rows[r];
     }
+    if constexpr (FAM) {
+      if (is_heavy && tid == 0) j = p.f.heavy_rows[tile];
+      int3 fr = make_int3(0, 0, static_cast<int>(m.Sm));
+      if (j >= 0) {
+        fr.x = p.f.fam_ptr[j];
+        fr.y = p.f.fam_ptr[j + 1];
+        if (j >= m.ov_lo && j < m.ov_hi)
+          fr.z = p.f.cbase[(j - m.ov_lo) / m.cmax];
+      }
+      s.fr[tid] = fr;
+      // the pdf table is read for the overflow rows only: a core row's pdf
+      // is its group's, the tail's the phony one (block_scan._row_pdf)
+      s.grp[tid] = j < 0          ? -1
+                   : j < m.ov_lo  ? static_cast<int>(j / m.cmax)
+                   : j >= m.ov_hi ? m.P1 - 1
+                                  : p.f.row_pdf[j];
+    } else {
+      s.grp[tid] = j < 0 ? -1 : static_cast<int>(j / m.cmax);
+    }
     s.rows[tid] = static_cast<int>(j);
-    s.grp[tid] = j < 0 ? -1 : static_cast<int>(j / m.cmax);
   }
   if (is_tier) {
     int best[4][4];  // the bits of the running max
@@ -435,6 +597,10 @@ __device__ __forceinline__ void vit_item(const VitArgs& p, int t,
               static_cast<uint8_t>(-gid[i][c] - 1);
       }
   }
+  if constexpr (FAM)
+    if (is_heavy)
+      heavy_max_arg<VEC, IDS>(p, s, prev, sc, p.f.heavy_rows[tile], b0,
+                              once);
   __syncthreads();
 
   float scv[4], pfv[4];
@@ -487,6 +653,8 @@ __device__ __forceinline__ void vit_item(const VitArgs& p, int t,
       float vb[4] = {0.f, 0.f, 0.f, 0.f};
       int cb[4] = {NO_CAND, NO_CAND, NO_CAND, NO_CAND};
       if (main_row) {
+        int cb0 = static_cast<int>(m.Sm);
+        if constexpr (FAM) cb0 = s.fr[r].z;
 #pragma unroll
         for (int o = 0; o < MAX_BANDS; ++o) {
           if (o >= m.nO) break;  // uniform across the block
@@ -506,11 +674,11 @@ __device__ __forceinline__ void vit_item(const VitArgs& p, int t,
             const float v = w * (get(x, c) * scv[c]);
             if (v > vb[c]) {
               vb[c] = v;
-              cb[c] = static_cast<int>(m.Sm) + o;
+              cb[c] = cb0 + o;
             }
           }
         }
-        if (is_tier) {
+        if (is_tier || is_heavy) {  // a heavy row's: its family candidate
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const float tv = s.u.ep.val[r][tx * 4 + c];
@@ -518,6 +686,34 @@ __device__ __forceinline__ void vit_item(const VitArgs& p, int t,
               vb[c] = tv;
               if constexpr (IDS) cb[c] = s.u.ep.id[r][tx * 4 + c];
             }
+          }
+        }
+        if constexpr (FAM) {  // the row's few family terms, pulled here
+          if (!is_heavy) {
+            float fv[4] = {-1.f, -1.f, -1.f, -1.f};
+            int fid[4] = {NO_CAND, NO_CAND, NO_CAND, NO_CAND};
+            const int e1 = s.fr[r].y;
+            for (int q = s.fr[r].x; q < e1; ++q) {
+              const float w = p.f.fam_w[q];
+              const int id = IDS ? p.f.fam_cid[q] : 0;
+              const float4 x = load4_hint<VEC>(
+                  prev + static_cast<size_t>(p.f.fam_src[q]) * B, bcol, B,
+                  once);
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                const float v = w * (get(x, c) * scv[c]);
+                if (fam_beats<IDS>(v, id, fv[c], fid[c])) {
+                  fv[c] = v;
+                  fid[c] = id;
+                }
+              }
+            }
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (fv[c] > vb[c]) {
+                vb[c] = fv[c];
+                cb[c] = fid[c];
+              }
           }
         }
       }
@@ -604,12 +800,12 @@ __device__ __forceinline__ int record_save(const VitArgs& p, int f, int b,
 // fins, ksum and shift), then takes items from the frame's queue; one grid
 // barrier per frame.  After the last: frame Nf-1's end, its scale and its
 // phony state.  K7n (IDS = false) saves its frames on the way (save_slot).
-template <bool VEC, bool IDS>
+template <bool VEC, bool IDS, bool FAM>
 __global__ void __launch_bounds__(NT, VIT_BLOCKS)
-    vit_sweep_kernel(const __grid_constant__ VitArgs p) {
+    vit_sweep_kernel(const __grid_constant__ VitArgsT<FAM> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  VitSmem& s = *reinterpret_cast<VitSmem*>(smem_raw);
-  float* sc = reinterpret_cast<float*>(smem_raw + sizeof(VitSmem));
+  VitSmemT<FAM>& s = *reinterpret_cast<VitSmemT<FAM>*>(smem_raw);
+  float* sc = reinterpret_cast<float*>(smem_raw + sizeof(VitSmemT<FAM>));
   float* pf = sc + p.B;
   const Meta& m = p.m;
   const int B = p.B, ncb = (B + TB - 1) / TB, tid = threadIdx.x;
@@ -635,7 +831,8 @@ __global__ void __launch_bounds__(NT, VIT_BLOCKS)
         sc[b] = IDS || p.s0 == nullptr ? 1.f : p.s0[b];
         pf[b] = p.a0[static_cast<size_t>(m.fin) * B + b];
       } else {
-        sc[b] = end_of_frame<IDS>(p, t, b, prev, blockIdx.x == 0, &pf[b]);
+        sc[b] = end_of_frame<IDS, FAM>(p, t, b, prev, blockIdx.x == 0,
+                                       &pf[b]);
         if constexpr (!IDS)
           if (blockIdx.x == 0) record_save(p, t - 1, b, sc[b], pf[b], SB);
       }
@@ -651,8 +848,8 @@ __global__ void __launch_bounds__(NT, VIT_BLOCKS)
     int par = 0;
     for (int2 q = s.next[0]; q.x >= 0; q = s.next[par]) {
       if (tid == 0) s.next[par ^ 1] = take();
-      vit_item<VEC, IDS>(p, t, q.x / ncb, (q.x % ncb) * TB, q.y, s, sc, pf,
-                         prev, out, ck);
+      vit_item<VEC, IDS, FAM>(p, t, q.x / ncb, (q.x % ncb) * TB, q.y, s, sc,
+                              pf, prev, out, ck);
       par ^= 1;  // vit_item ends with a block barrier: s.next[par] is set
     }
     grid_sync<SYNC_GEN, 256, true>(p.sync);
@@ -662,7 +859,7 @@ __global__ void __launch_bounds__(NT, VIT_BLOCKS)
     float* prev = state_of<IDS>(p, t - 1, SB);
     for (int b = tid; b < B; b += NT) {
       float yfin;
-      p.scale[b] = end_of_frame<IDS>(p, t, b, prev, true, &yfin);
+      p.scale[b] = end_of_frame<IDS, FAM>(p, t, b, prev, true, &yfin);
       if ((IDS ? t : p.t0 + t) - 1 >= 1)
         prev[static_cast<size_t>(m.fin) * B + b] = yfin;
       if constexpr (!IDS) record_save(p, t - 1, b, p.scale[b], yfin, SB);
@@ -672,15 +869,19 @@ __global__ void __launch_bounds__(NT, VIT_BLOCKS)
 
 // The backtrace of one sequence per thread (viterbi._viterbi_scale_bp's
 // wstep): from the phony state at frame Nf-1 down to frame 1, decode the id
-// of the current state s to its source; at t == length the source is the
-// frame's omega argmax, past the length the phony state.  states[t-1, b]
-// receives the state of frame t-1 (compiled numbering).
+// c of the current state s to its source: on a core row the tier source
+// (c < Sm), a band offset, or the out-family source ovout[s] (c = Sm + nO);
+// on an overflow row [ov_lo, ov_hi) ov_dec[s - ov_lo, c]; the phony state
+// for an id without a source (255, or -1 in a table).  At t == length the
+// source is the frame's omega argmax, past the length the phony state.
+// states[t-1, b] receives the state of frame t-1 (compiled numbering).
 __global__ void __launch_bounds__(WALK_THREADS) vit_walk_kernel(
     const uint8_t* __restrict__ bps, const int* __restrict__ fins,
     const int* __restrict__ lengths, const int* __restrict__ k_of,
-    const int* __restrict__ sidx, const int* __restrict__ offs, int Nf,
-    int RW, int B, int Sp, int K, int Sm, int nO, int fin,
-    int* __restrict__ states) {
+    const int* __restrict__ sidx, const int* __restrict__ offs,
+    const int* __restrict__ ov_dec, const int* __restrict__ ovout, int Nf,
+    int RW, int B, int Sp, int K, int Sm, int nO, int fin, int ov_lo,
+    int ov_hi, int n_dec, int* __restrict__ states) {
   const int b = blockIdx.x * WALK_THREADS + threadIdx.x;
   if (b >= B) return;
   const int L = lengths[b];
@@ -689,10 +890,16 @@ __global__ void __launch_bounds__(WALK_THREADS) vit_walk_kernel(
   for (int t = Nf - 1; t >= 1; --t) {
     const int c =
         s < RW ? bps[(static_cast<size_t>(t) * RW + s) * B + b] : NO_CAND;
-    const int ks = min(max(k_of[min(max(s, 0), Sp - 1)], 0), K - 1);
+    const int sc = min(max(s, 0), Sp - 1);
+    const int ks = min(max(k_of[sc], 0), K - 1);
     const int tier_src = sidx[ks * Sm + min(max(c, 0), Sm - 1)];
     const int band_src = s - offs[min(max(c - Sm, 0), nOff - 1)];
     int src = c < Sm ? tier_src : band_src;
+    if (c == Sm + nO) src = ovout[sc] >= 0 ? ovout[sc] : fin;
+    if (s >= ov_lo && s < ov_hi) {
+      const int od = ov_dec[static_cast<size_t>(s - ov_lo) * 256 + c];
+      src = od >= 0 ? od : fin;
+    }
     if (c == NO_CAND) src = fin;
     int sp = t == L ? fins[static_cast<size_t>(t) * B + b] : src;
     if (t > L) sp = fin;
@@ -702,23 +909,29 @@ __global__ void __launch_bounds__(WALK_THREADS) vit_walk_kernel(
 }
 
 // Dynamic shared memory of one CTA at batch B.
-size_t vit_smem_bytes(int B) {
-  return sizeof(VitSmem) + 2 * static_cast<size_t>(B) * sizeof(float);
+size_t vit_smem_bytes(int B, bool fam) {
+  return (fam ? sizeof(VitSmemT<true>) : sizeof(VitSmem)) +
+         2 * static_cast<size_t>(B) * sizeof(float);
 }
 
+template <bool FAM>
 const void* vit_kernel(bool vec, bool ids) {
   if (ids)
-    return vec ? (const void*)vit_sweep_kernel<true, true>
-               : (const void*)vit_sweep_kernel<false, true>;
-  return vec ? (const void*)vit_sweep_kernel<true, false>
-             : (const void*)vit_sweep_kernel<false, false>;
+    return vec ? (const void*)vit_sweep_kernel<true, true, FAM>
+               : (const void*)vit_sweep_kernel<false, true, FAM>;
+  return vec ? (const void*)vit_sweep_kernel<true, false, FAM>
+             : (const void*)vit_sweep_kernel<false, false, FAM>;
+}
+
+const void* vit_kernel(bool vec, bool ids, bool fam) {
+  return fam ? vit_kernel<true>(vec, ids) : vit_kernel<false>(vec, ids);
 }
 
 // CTAs of the sweep that can be co-resident on the current device at batch
 // B (0 where the device cannot launch cooperatively).
-cudaError_t vit_co_resident(bool vec, bool ids, int B, int* n) {
-  const void* kern = vit_kernel(vec, ids);
-  const size_t smem = vit_smem_bytes(B);
+cudaError_t vit_co_resident(bool vec, bool ids, bool fam, int B, int* n) {
+  const void* kern = vit_kernel(vec, ids, fam);
+  const size_t smem = vit_smem_bytes(B, fam);
   int dev = 0, n_sm = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -745,29 +958,64 @@ long long vit_scratch_bytes(int B, int Nf) {
   return n_cm * 8 + (n_cm + Nf + SYNC_GEN + 1) * 4;
 }
 
+// The family tables from the host's int64 array (vit_scan._vlayout: seven
+// device addresses).
+VitFam parse_fam(const long long* a) {
+  VitFam f;
+  f.row_pdf = reinterpret_cast<const int*>(a[0]);
+  f.fam_ptr = reinterpret_cast<const int*>(a[1]);
+  f.fam_src = reinterpret_cast<const int*>(a[2]);
+  f.fam_w = reinterpret_cast<const float*>(a[3]);
+  f.fam_cid = reinterpret_cast<const uint8_t*>(a[4]);
+  f.heavy_rows = reinterpret_cast<const int*>(a[5]);
+  f.cbase = reinterpret_cast<const int*>(a[6]);
+  return f;
+}
+
 // The cooperative launch of K7 (ids) or K7n on n_ctas CTAs, all of them
-// co-resident.
-cudaError_t launch(const VitArgs& a, bool ids, int n_ctas, void* stream) {
+// co-resident, in the family instantiation (FAM, its tables from ilay) or
+// the uniform one.
+template <bool FAM>
+cudaError_t launch(const VitArgs& a, const long long* ilay, bool ids,
+                   int n_ctas, void* stream) {
   const bool vec = a.B % 4 == 0;
   int max_ctas = 0;
-  cudaError_t err = vit_co_resident(vec, ids, a.B, &max_ctas);
+  cudaError_t err = vit_co_resident(vec, ids, FAM, a.B, &max_ctas);
   if (err != cudaSuccess) return err;
   if (n_ctas > max_ctas) return cudaErrorCooperativeLaunchTooLarge;
-  VitArgs arg = a;
+  VitArgsT<FAM> arg{};
+  static_cast<VitArgs&>(arg) = a;
+  if constexpr (FAM) arg.f = parse_fam(ilay);
   void* args[] = {&arg};
-  err = cudaLaunchCooperativeKernel(vit_kernel(vec, ids), dim3(n_ctas),
-                                    dim3(NT), args, vit_smem_bytes(a.B),
+  err = cudaLaunchCooperativeKernel(vit_kernel(vec, ids, FAM), dim3(n_ctas),
+                                    dim3(NT), args, vit_smem_bytes(a.B, FAM),
                                     static_cast<cudaStream_t>(stream));
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+cudaError_t launch(const VitArgs& a, const long long* ilay, bool ids,
+                   int n_ctas, void* stream) {
+  return is_fam(a.m) ? launch<true>(a, ilay, ids, n_ctas, stream)
+                     : launch<false>(a, ilay, ids, n_ctas, stream);
+}
+
+// The layout predicates of a descriptor: the uniform one (no overflow rows,
+// family terms or heavy rows; Sm + nO ids), or the capped one (FAM: its
+// tables in ilay, the overflow rows inside the main region, Sm + nO + 1
+// ids on the core rows).
+bool layout_ok(const Meta& m, const long long* ilay, int RW) {
+  if (!is_fam(m))
+    return m.ov_lo == m.Sp && m.nfam == 0 && m.nheavy == 0 &&
+           m.Sm + m.nO < NO_CAND;
+  return ilay != nullptr && m.Sm + m.nO + 1 < NO_CAND && m.ov_hi <= RW;
+}
+
 // The arguments K7 and K7n share, checked; false if any is out of range.
-bool common_args(VitArgs* a, const long long* imeta, int B, int Nf, int RW,
-                 int n_items, int n_ctas, void* scratch,
-                 long long scratch_bytes) {
-  if (!parse_meta(imeta, &a->m) || a->m.ov_lo != a->m.Sp || a->m.nfam != 0 ||
-      a->m.nheavy != 0 || a->m.Sm + a->m.nO >= NO_CAND || B <= 0 || Nf <= 0 ||
-      RW <= 0 || RW > a->m.Sp || a->m.fin < RW || n_ctas <= 0 ||
+bool common_args(VitArgs* a, const long long* imeta, const long long* ilay,
+                 int B, int Nf, int RW, int n_items, int n_ctas,
+                 void* scratch, long long scratch_bytes) {
+  if (!parse_meta(imeta, &a->m) || !layout_ok(a->m, ilay, RW) || B <= 0 ||
+      Nf <= 0 || RW <= 0 || RW > a->m.Sp || a->m.fin < RW || n_ctas <= 0 ||
       n_items != a->m.n_tiles * ((B + TB - 1) / TB) ||
       scratch_bytes != vit_scratch_bytes(B, Nf) ||
       reinterpret_cast<size_t>(scratch) % 8 != 0)
@@ -795,13 +1043,15 @@ extern "C" int mm_vit_layout(int B, int Nf, long long* out) {
   return static_cast<int>(cudaSuccess);
 }
 
-// CTAs of the K7 launch (ids != 0) or the K7n one (ids == 0) that can be
-// co-resident on the current device at batch B (vec: B % 4 == 0), or minus
-// a CUDA error code.
-extern "C" int mm_vit_ctas(int vec, int ids, int B) {
+// CTAs of the K7 launch (ids != 0) or the K7n one (ids == 0), in the family
+// instantiation (fam != 0) or the uniform one, that can be co-resident on
+// the current device at batch B (vec: B % 4 == 0), or minus a CUDA error
+// code.
+extern "C" int mm_vit_ctas(int vec, int ids, int fam, int B) {
   int n = 0;
   if (B <= 0) return -static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = vit_co_resident(vec != 0, ids != 0, B, &n);
+  const cudaError_t err =
+      vit_co_resident(vec != 0, ids != 0, fam != 0, B, &n);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -813,16 +1063,20 @@ extern "C" int mm_vit_ctas(int vec, int ids, int B) {
 // work[t % 2] (unscaled; the phony row only for t = 0 and t = Nf - 1),
 // ids[t] and fins[t]; on return scale is the last frame's, so v_final =
 // work[(Nf-1) % 2][fin] * scale.  ksum, shift and comp are zero on entry;
-// scratch: scratch_bytes (mm_vit_layout) of zeroes, 8-byte aligned.
+// scratch: scratch_bytes (mm_vit_layout) of zeroes, 8-byte aligned.  A
+// capped layout (imeta's overflow rows, family terms or heavy rows) takes
+// the family instantiation, its tables at the addresses of ilay
+// (vit_scan._vlayout); the uniform one does not read ilay.
 extern "C" int mm_vit_fwd(
     const float* a0, const float* ext, const float* mshift,
     const float* band_w, const float* Wt, const float* omega,
-    const int* band_rows, const long long* imeta, const int* queue,
-    int n_items, int n_ctas, int B, int Nf, int RW, float* work,
-    uint8_t* bps, int* fins, float* scale, float* ksum, float* shift,
-    float* comp, void* scratch, long long scratch_bytes, void* stream) {
+    const int* band_rows, const long long* imeta, const long long* ilay,
+    const int* queue, int n_items, int n_ctas, int B, int Nf, int RW,
+    float* work, uint8_t* bps, int* fins, float* scale, float* ksum,
+    float* shift, float* comp, void* scratch, long long scratch_bytes,
+    void* stream) {
   VitArgs a{};
-  if (!common_args(&a, imeta, B, Nf, RW, n_items, n_ctas, scratch,
+  if (!common_args(&a, imeta, ilay, B, Nf, RW, n_items, n_ctas, scratch,
                    scratch_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   a.a0 = a0;
@@ -843,7 +1097,7 @@ extern "C" int mm_vit_fwd(
   a.shift = shift;
   a.comp = comp;
   a.stride = 1;
-  return static_cast<int>(launch(a, true, n_ctas, stream));
+  return static_cast<int>(launch(a, ilay, true, n_ctas, stream));
 }
 
 // K7n: K7 without the ids over launch frames 0 .. Nf-1, which are global
@@ -859,13 +1113,13 @@ extern "C" int mm_vit_fwd(
 extern "C" int mm_vit_fwd_noid(
     const float* a0, const float* s0, const float* ext, const float* mshift,
     const float* band_w, const float* Wt, const float* omega,
-    const int* band_rows, const long long* imeta, const int* queue,
-    int n_items, int n_ctas, int B, int Nf, int RW, int t0, int stride,
-    float* work, float* save, float* save_scale, int n_save, float* scale,
-    float* ksum, float* shift, float* comp, void* scratch,
+    const int* band_rows, const long long* imeta, const long long* ilay,
+    const int* queue, int n_items, int n_ctas, int B, int Nf, int RW, int t0,
+    int stride, float* work, float* save, float* save_scale, int n_save,
+    float* scale, float* ksum, float* shift, float* comp, void* scratch,
     long long scratch_bytes, void* stream) {
   VitArgs a{};
-  if (!common_args(&a, imeta, B, Nf, RW, n_items, n_ctas, scratch,
+  if (!common_args(&a, imeta, ilay, B, Nf, RW, n_items, n_ctas, scratch,
                    scratch_bytes) ||
       t0 < 0 || stride <= 0 || n_save != Nf / stride ||
       (n_save > 0 && (save == nullptr || save_scale == nullptr)) ||
@@ -891,22 +1145,28 @@ extern "C" int mm_vit_fwd_noid(
   a.ksum = ksum;
   a.shift = shift;
   a.comp = comp;
-  return static_cast<int>(launch(a, false, n_ctas, stream));
+  return static_cast<int>(launch(a, ilay, false, n_ctas, stream));
 }
 
 // The walk over ids (Nf, RW, B) and fins (Nf, B) into states (Nf-1, B).
+// ov_dec (n_dec, 256): the sources of the overflow rows [ov_lo, ov_hi)
+// (n_dec = ov_hi - ov_lo; ov_lo = ov_hi = Sp and one row of -1 without
+// families); ovout (Sp,): the core rows' out-family sources, -1 for none.
 extern "C" int mm_vit_walk(const uint8_t* bps, const int* fins,
                            const int* lengths, const int* k_of,
-                           const int* sidx, const int* offs, int Nf, int RW,
-                           int B, int Sp, int K, int Sm, int nO, int fin,
+                           const int* sidx, const int* offs,
+                           const int* ov_dec, const int* ovout, int Nf,
+                           int RW, int B, int Sp, int K, int Sm, int nO,
+                           int fin, int ov_lo, int ov_hi, int n_dec,
                            int* states, void* stream) {
   if (Nf <= 0 || RW <= 0 || B <= 0 || Sp < RW || K <= 0 || Sm <= 0 ||
-      nO < 0 || fin < 0 || fin >= Sp)
+      nO < 0 || fin < 0 || fin >= Sp || ov_lo < 0 || ov_lo > ov_hi ||
+      ov_hi > Sp || n_dec < ov_hi - ov_lo || n_dec <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (Nf == 1) return static_cast<int>(cudaSuccess);
   vit_walk_kernel<<<(B + WALK_THREADS - 1) / WALK_THREADS, WALK_THREADS, 0,
                     static_cast<cudaStream_t>(stream)>>>(
-      bps, fins, lengths, k_of, sidx, offs, Nf, RW, B, Sp, K, Sm, nO, fin,
-      states);
+      bps, fins, lengths, k_of, sidx, offs, ov_dec, ovout, Nf, RW, B, Sp, K,
+      Sm, nO, fin, ov_lo, ov_hi, n_dec, states);
   return static_cast<int>(cudaGetLastError());
 }

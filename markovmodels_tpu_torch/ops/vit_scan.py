@@ -14,10 +14,16 @@ probability state in the max-product semiring:
   Sm + oi: band offset oi, 255: no incoming mass), per frame the argmax
   source of the rank-1 ω arcs into the phony final state, and at the end
   the final value, the Kahan-compensated emission shift and the
-  power-of-two exponent sum;
+  power-of-two exponent sum.  A capped layout with overflow families
+  (the separate-state backoff graph) takes the kernel's family branch
+  (FAM): a core row's out-family candidate is Sm + nO, an overflow row of
+  group g takes its in-families at [0, C_g) and its bands at C_g + oi
+  (``blocked._ov_cand_layout``), the rows with many terms get a work item
+  each, and every row's emission comes from its own pdf;
 * ``walk``: the backtrace, one thread per sequence, decoding the ids to
   source states through the tier's destination inverse and the band
-  offsets (the JAX package leaves this walk to XLA).
+  offsets, and with families through the tables ``ov_dec`` and
+  ``ovout`` (the JAX package leaves this walk to XLA).
 
 and for the chunk-recompute decode (``markovmodels_tpu/viterbi.py``'s
 ``_viterbi_scale``, XLA there), which takes every 'dense' graph and the
@@ -65,7 +71,8 @@ import numpy as np
 import torch
 
 from . import block_scan as bs
-from .blocked import block_matvec, block_matvec_max_arg, tier_dst_inverse
+from .blocked import (_ov_cand_layout, block_matvec, block_matvec_max_arg,
+                      block_max_arg_reason, family_grid, tier_dst_inverse)
 
 __all__ = [
     "vit_scan_reject_reason",
@@ -78,12 +85,17 @@ __all__ = [
     "rec_walk",
     "rec_walk_plain",
     "vit_plan",
+    "ov_span",
     "LAUNCHES",
+    "LAUNCHES_FAM",
     "reset_launch_counts",
 ]
 
 # launches of each CUDA kernel entry point, counted by its wrapper
 LAUNCHES = {"vit_fwd": 0, "vit_walk": 0, "vit_fwd_noid": 0, "rec_walk": 0}
+# the launches of K7 and K7n that took the family branch (also counted in
+# LAUNCHES)
+LAUNCHES_FAM = {"vit_fwd": 0, "vit_fwd_noid": 0}
 
 _NO_CAND = 255
 # the JAX kernel's tier chunk (pallas_block._VIT_KC): kept as an admission
@@ -92,15 +104,44 @@ _VIT_KC = 8
 
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, LAUNCHES_FAM):
+        for k in d:
+            d[k] = 0
 
 
 def _main_region(cf) -> int:
     """R·W: the states K7 records ids for; the tail [R·W, Sp) holds the
-    phony final state (and padding), whose only arcs are the ω ones."""
-    (W, R, _, _), _ = bs._full_plan_explain(cf)
-    return R * W
+    phony final state (and padding), whose only arcs are the ω ones.  A
+    graph without K7's plan (the plain twins' CPU route) takes all Sp."""
+    plan, _ = bs._full_plan_explain(cf)
+    return plan[0] * plan[1] if plan is not None else cf.padded_states
+
+
+def ov_span(cf):
+    """(ov_lo, nOv, cmax) of a graph with overflow families, the JAX
+    package's ``ov_span`` (``viterbi.py:256-263``), else None: a capped
+    layout whose overflow rows are fed by bands alone keeps the core
+    encoding on them."""
+    if cf.ov_layout and cf.block_fwd.ov_w:
+        cmax, nOv = cf.ov_layout
+        return cf.num_pdfs * cmax, nOv, cmax
+    return None
+
+
+def _fam_reason(cf, ids: bool):
+    """The first family predicate of :func:`block_max_arg_reason` that
+    the graph fails (``ids``: the uint8 ones too), or None; cached on the
+    graph (the admission runs before every launch)."""
+    span = ov_span(cf)
+    if span is None:
+        return None
+    key = ("vit_fam_reason", ids)
+    if key not in cf._cache:
+        ov_lo, nOv, cmax = span
+        cf._cache[key] = block_max_arg_reason(
+            cf.block_fwd, cf.block_fwd_offsets, ov_lo, cmax,
+            ov_lo + nOv * cmax, ids=ids)
+    return cf._cache[key]
 
 
 def layout(B: int, n_frames: int) -> tuple:
@@ -120,7 +161,10 @@ def _device_bytes(cf, B: int, n_frames: int, saved=None) -> int:
     """Device bytes of one K7 sweep, every buffer sized by its dtype: the
     uint8 id stream (K7n: ``saved`` frames of state and scale instead),
     the initial state and the ping-pong pair, the emissions, the operator
-    with its transposed panels, and the scratch (:func:`layout`)."""
+    with its transposed panels, the family branch's tables (the row pdfs,
+    the per-row terms with their candidate ids, the heavy rows, the
+    groups' band id bases) and the walk's decode tables, and the scratch
+    (:func:`layout`)."""
     Sp, P1 = cf.padded_states, cf.num_pdfs + 1
     f = cf.alpha_hat.element_size()
     Nf = n_frames + 1
@@ -134,6 +178,11 @@ def _device_bytes(cf, B: int, n_frames: int, saved=None) -> int:
     else:
         need += saved * (Sp + 1) * B * f  # saved states and scales
     need += 3 * Sp * B * f + Nf * (P1 + 1) * B * f
+    if cf.ov_layout:
+        cmax, nOv = cf.ov_layout
+        n_w = sum(t.numel() for t in op.ov_w)
+        need += 4 * (2 * Sp + 1 + nOv) + 9 * n_w  # pdfs, terms, cids
+        need += 4 * (Sp + nOv * cmax * 256)  # ovout, ov_dec
     need += layout(B, n_frames)[0]
     return need
 
@@ -141,21 +190,26 @@ def _device_bytes(cf, B: int, n_frames: int, saved=None) -> int:
 def vit_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
                            device=None, saved: int | None = None):
     """None when K7 accepts this graph, else a one-line reason naming the
-    FIRST rejected predicate.  The predicates are the JAX package's
-    (``vit_scan_supported``) in its order: the blocked scan's (ported in
-    ``block_scan_reject_reason``), no overflow families, uint8 candidate
-    ids, the tier-chunk divisibility; instead of its VMEM budget, the
-    working set (``_device_bytes``) must fit the memory of ``device`` when
-    that is a CUDA device (checked where a card is present).  With
-    ``saved`` (K7n, which saves that many frames' states and stores no
-    id) the id predicate is skipped and the working set counts the saved
-    states in place of the ids."""
+    FIRST rejected predicate.  The uniform predicates are the JAX
+    package's (``vit_scan_supported``) in its order: the blocked scan's
+    (ported in ``block_scan_reject_reason``), uint8 candidate ids, the
+    tier-chunk divisibility.  Where the JAX package refuses overflow
+    families (the TPU K7 has no branch for them), the port's K7 takes them
+    in its family branch, under the predicates of
+    ``blocked.block_max_arg_reason`` (the compressed-backpointer decode's
+    admission, whose route K7 is the card's kernel for).  Instead of its
+    VMEM budget, the working set (``_device_bytes``) must fit the memory
+    of ``device`` when that is a CUDA device (checked where a card is
+    present).  With ``saved`` (K7n, which saves that many frames' states
+    and stores no id) the predicates on the ids' range are skipped and
+    the working set counts the saved states in place of the ids."""
     reason = bs.block_scan_reject_reason(cf, B, tier_dtype=torch.float32)
     if reason is not None:
         return reason
     (_, _, pf, _), _ = bs._full_plan_explain(cf)
-    if cf.block_fwd.ov_w:
-        return "overflow families (no tropical sweep for them yet)"
+    reason = _fam_reason(cf, ids=saved is None)
+    if reason is not None:
+        return f"overflow families: {reason}"
     nO = len(pf["band_offsets"])
     if saved is None and pf["Sm"] + nO >= _NO_CAND:
         return (f"tier width {pf['Sm']} + {nO} band offsets: candidate ids "
@@ -188,12 +242,14 @@ def _check_graph(cf, B: int, n_frames: int, device, saved=None):
 
 class VitPlan(NamedTuple):
     """The queue of K7's work items, the same in every frame: one row tile
-    of the forward operator (the tier tiles, then the 64-row band tiles, in
-    the order of ``block_scan._row_tiles``) times one 64-column tile, coded
-    tile·ncb + column tile: every tier item, then every band item, each in
-    tile, then column-tile order (``block_scan._queue`` with no spread:
-    the tier items interleaved with the band items, or taken first by one
-    CTA of each SM, measured slower, PERF.md §6).  Each entry also carries
+    of the forward operator (a heavy row's tile, then the tier tiles, then
+    the 64-row band tiles, in the order of ``block_scan._row_tiles``) times
+    one 64-column tile, coded tile·ncb + column tile: every heavy item (the
+    family branch's rows with many terms, none on a uniform layout), every
+    tier item, then every band item, each in tile, then column-tile order
+    (``block_scan._queue`` with no spread: the tier items interleaved with
+    the band items, or taken first by one CTA of each SM, measured slower,
+    PERF.md §6).  Each entry also carries
     the first row of a band tile whose rows are consecutive (-1 for any
     other tile).  The CTAs of the persistent grid take the items in queue
     order; which CTA runs an item shows in no result (the frame's two
@@ -229,19 +285,100 @@ def _panels_t(kop) -> torch.Tensor:
     return Wt
 
 
+def _is_fam(kop) -> bool:
+    """The capped layout takes the kernels' family branch (FAM), as K2's
+    ``is_fam``: overflow rows or family terms."""
+    return kop.ov_lo < kop.ov_hi or kop.fwd.fam_dst.numel() > 0
+
+
+class FamTables(NamedTuple):
+    """K7's tables of the family branch beside K2's (built once per
+    operator): the candidate id of each forward family term, in the order
+    of ``KernelDir.fam_src``, and the band id base of each overflow group
+    (C_g with families, else Sm: a capped layout fed by bands alone keeps
+    the core encoding)."""
+    cid: torch.Tensor  # (nfam,) uint8 (one zero where there is none)
+    cbase: torch.Tensor  # (nOv,) int32 (one Sm where there is none)
+
+
+def fam_tables(cf, kop) -> FamTables:
+    """K7's family tables of a graph (cached on ``kop``): an 'in' term of
+    a column family takes cum + its row r, of a window cum + its position
+    j (cum: the family's first id in its group, ``_ov_cand_layout``), an
+    'out' term Sm + nO."""
+    ft = kop.plans.get("vit_fam")
+    if ft is None:
+        dev = kop.row_pdf.device
+        meta = cf.block_fwd_offsets
+        Sm, nO = kop.fwd.W.shape[1], len(meta[0])
+        span = ov_span(cf)
+        cid = np.zeros(0, np.int64)
+        cbase = [Sm] * max(1, (kop.ov_hi - kop.ov_lo) // kop.cmax)
+        if span is not None:
+            ov_lo, nOv, cmax = span
+            _, csize = _ov_cand_layout(meta, ov_lo, cmax, ov_lo + nOv * cmax)
+            cbase = [csize.get(ov_lo + g * cmax, 0) for g in range(nOv)]
+            first, cum = [], {}
+            for kind, g0, form, _, _, D in meta[3]:
+                first.append(cum.get(g0, 0))
+                if kind == "in":
+                    cum[g0] = first[-1] + (cmax if form == "win" else D)
+
+            def cid_of(i, desc, shape):
+                if desc[0] == "out":
+                    return np.full(shape, Sm + nO)
+                pos = np.arange(shape[0] if desc[2] == "col" else shape[1])
+                return first[i] + (pos[:, None] if desc[2] == "col"
+                                   else pos[None, :])
+
+            fdst, fsrc, _, cid = bs._family_terms(cf.block_fwd, meta, cid_of)
+            # the id of each of the operator's terms, found by (dst, src):
+            # the same order, or a subset of it (a cut copy of the operator)
+            Sp = kop.Sp
+            key = fdst * Sp + fsrc
+            want = (kop.fwd.fam_dst.cpu().numpy() * Sp
+                    + kop.fwd.fam_src.cpu().numpy())
+            at = np.searchsorted(key, want)
+            if not np.array_equal(key[at], want):
+                raise ValueError("the operator's family terms are not the "
+                                 "graph's")
+            cid = cid[at]
+        ft = FamTables(
+            cid=torch.from_numpy((cid if len(cid) else np.zeros(1))
+                                 .astype(np.uint8)).to(dev),
+            cbase=bs._i32(cbase, dev))
+        kop.plans["vit_fam"] = ft
+    return ft
+
+
+def _vlayout(cf, kop) -> np.ndarray:
+    """Host int64 array of the family branch's table addresses, read by
+    csrc/vit_scan.cu (layout: VitFam)."""
+    kd, ft = kop.fwd, fam_tables(cf, kop)
+    tables = (kop.row_pdf, kd.fam_ptr, kd.fam_src, kd.fam_w, ft.cid,
+              kd.heavy_rows, ft.cbase)
+    bs._check("cid", ft.cid, ft.cid.shape, kd.W.device, torch.uint8)
+    bs._check("cbase", ft.cbase, ft.cbase.shape, kd.W.device, torch.int32)
+    # an empty table passes an address that is never read
+    return np.array([(t if t.numel() else kop.row_pdf).data_ptr()
+                     for t in tables], dtype=np.int64)
+
+
 def _vit_grid(kop, device, B: int, ids: bool = True) -> int:
-    """CTAs of K7's (``ids``) or K7n's persistent grid: as many as can be
-    co-resident on the CUDA ``device`` at batch ``B`` (the library asks the
-    occupancy API with the dynamic shared memory of that batch; cached on
-    ``kop``)."""
+    """CTAs of K7's (``ids``) or K7n's persistent grid, in the uniform or
+    the family instantiation: as many as can be co-resident on the CUDA
+    ``device`` at batch ``B`` (the library asks the occupancy API with the
+    dynamic shared memory of that batch; cached on ``kop``)."""
     from . import _build
 
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
-    key = ("vit_grid", idx, B, ids)
+    fam = _is_fam(kop)
+    key = ("vit_grid", idx, B, ids, fam)
     if key not in kop.plans:
         with torch.cuda.device(idx):
-            n = _build.library().mm_vit_ctas(int(B % 4 == 0), int(ids), B)
+            n = _build.library().mm_vit_ctas(int(B % 4 == 0), int(ids),
+                                             int(fam), B)
         if n < 0:
             bs._raise_on(-n, "mm_vit_ctas")
         if n == 0:
@@ -267,8 +404,7 @@ def _noid_plain(cf, ext, mshift, a0, s0, t0, stride, acc):
     the tail of phony and padding states)."""
     Nf, _, B = ext.shape
     Sp, fin = cf.padded_states, cf.final_state
-    plan, _ = bs._full_plan_explain(cf)
-    RW = plan[0] * plan[1] if plan is not None else Sp
+    RW = _main_region(cf)
     spdf = cf.state_pdf.long()
     om = cf.omega_prob[:, None]
     n_save = Nf // stride
@@ -305,7 +441,10 @@ def viterbi_fwd_plain(cf, ext, mshift, *, ids: bool = True, a0=None,
 
     K7 returns (bps (Nf, R·W, B) uint8, fins (Nf, B) int32, vfin (B,),
     shift (B,), ksum (B,)); the best-path score is log(vfin) + ksum·ln2 +
-    shift.
+    shift.  The ids are ``block_matvec_max_arg``'s, the overflow families
+    included (``ov_span``); the ω argmax runs over every row.  It is also
+    the CPU route of the compressed-backpointer decode for any graph that
+    decode admits: without K7's plan R·W is Sp.
 
     K7n (``ids=False``) runs global frames t0 .. t0 + Nf - 1 (frame 0
     skips the product only where t0 is 0) from ``a0`` (Sp, B) unscaled
@@ -324,10 +463,10 @@ def viterbi_fwd_plain(cf, ext, mshift, *, ids: bool = True, a0=None,
         s0 = torch.ones_like(ext[0, 0]) if s0 is None else s0
         return _noid_plain(cf, ext, mshift, a0, s0, t0, stride, acc)
     Nf, _, B = ext.shape
-    _check_graph(cf, B, Nf - 1, None)
     RW = _main_region(cf)
     Sp, fin = cf.padded_states, cf.final_state
-    cmax = cf.pdf_group[0]
+    spdf = cf.state_pdf.long()
+    span = ov_span(cf)
     om = cf.omega_prob[:, None]
     a = torch.exp(cf.alpha_hat)[:, None].expand(Sp, B)  # scale 1
     flat = torch.arange(Sp, dtype=torch.int32, device=ext.device)[:, None]
@@ -341,7 +480,8 @@ def viterbi_fwd_plain(cf, ext, mshift, *, ids: bool = True, a0=None,
         fins[t] = torch.where(omc == fin_v, flat, Sp).amin(dim=0)
         x = a.clone()
         x[RW:] = 0.0  # the tier and the bands read the main region only
-        y, cand = block_matvec_max_arg(cf.block_fwd, cf.block_fwd_offsets, x)
+        y, cand = block_matvec_max_arg(cf.block_fwd, cf.block_fwd_offsets, x,
+                                       ov_span=span)
         bps[t] = cand[:RW].to(torch.uint8)
         if t == 0:
             p = a
@@ -349,7 +489,7 @@ def viterbi_fwd_plain(cf, ext, mshift, *, ids: bool = True, a0=None,
             p = torch.zeros_like(a)
             p[:RW] = y[:RW]
             p[fin] = fin_v
-        u = p * ext[t].repeat_interleave(cmax, dim=0)
+        u = p * ext[t].index_select(0, spdf)
         k = bs._pow2_exponent(u.amax(dim=0))
         a = u * bs._pow2_scale(k)[None, :]
         ksum = ksum + k
@@ -367,29 +507,87 @@ class WalkTables(NamedTuple):
     k_of: torch.Tensor  # (Sp,) int32 tier block writing each state, -1
     sidx: torch.Tensor  # (K·Sm,) int32 tier source of (k, position)
     offs: torch.Tensor  # (max(nO, 1),) int32 band offsets
+    # overflow families: the source of (overflow row ov_lo + u, id c) at
+    # ov_dec[u, c], -1 for none ((1, 256) of -1 without families), and the
+    # out-family source of each core row, -1 for none
+    ov_dec: torch.Tensor  # (nOv·cmax, 256) int32
+    ovout: torch.Tensor  # (Sp,) int32
     K: int
     Sm: int
     nO: int
     fin: int
+    ov_lo: int  # the overflow rows [ov_lo, ov_hi) of a graph with
+    ov_hi: int  # families (Sp, Sp: none)
+
+
+def _ov_decode_tables(cf, Sp: int):
+    """(ov_dec, ovout) as numpy int32, built as the JAX package builds them
+    (``viterbi.py:265-310``): an overflow row's band ids C_g + oi decode
+    to row - offset (-1 outside [0, Sp)), a column family's id cum + r to
+    base + r·stride + lane, a window's cum + j to base + lane·stride + j;
+    every other entry is -1.  ``ovout`` maps each destination of an
+    out-family to its source lane."""
+    ov_lo, nOv, cmax = ov_span(cf)
+    meta = cf.block_fwd_offsets
+    fam, csize = _ov_cand_layout(meta, ov_lo, cmax, ov_lo + nOv * cmax)
+    band = np.asarray(meta[0], dtype=np.int64)
+    lanes = np.arange(cmax)
+    dec = np.full((nOv * cmax, 256), -1, dtype=np.int64)
+    for gi in range(nOv):
+        g0 = ov_lo + gi * cmax
+        C = csize.get(g0, 0)
+        rows = gi * cmax + lanes
+        for oi, off in enumerate(band):
+            srcs = (g0 + lanes) - off
+            dec[rows, C + oi] = np.where((srcs >= 0) & (srcs < Sp), srcs, -1)
+        for desc, cum in fam.get(g0, []):
+            _, _, form, base, stride, D = desc
+            if form == "win":
+                dec[rows[:, None], cum + lanes[None, :]] = (
+                    base + lanes[:, None] * stride + lanes[None, :])
+            else:
+                dec[rows[:, None], cum + np.arange(D)[None, :]] = (
+                    base + np.arange(D)[None, :] * stride + lanes[:, None])
+    oo = np.full(Sp, -1, dtype=np.int64)
+    for desc in meta[3]:
+        if desc[0] == "out":
+            grid = family_grid(desc, cmax)
+            lane = lanes[None, :] if desc[2] == "col" else lanes[:, None]
+            oo[grid.ravel()] = np.broadcast_to(desc[1] + lane,
+                                               grid.shape).ravel()
+    return dec.astype(np.int32), oo.astype(np.int32)
 
 
 def walk_tables(cf) -> WalkTables:
-    """The walk's decode tables for a graph K7 accepts (cached on it)."""
+    """The walk's decode tables for a graph the compressed-backpointer
+    decode admits (cached on it)."""
     wt = cf._cache.get("vit_walk")
     if wt is None:
         dev = cf.alpha_hat.device
+        Sp = cf.padded_states
         sidx = cf.block_fwd.tiers[0][0]
         K, Sm = sidx.shape
         offs = np.asarray(cf.block_fwd_offsets[0], dtype=np.int32)
         nO = len(offs)
+        span = ov_span(cf)
+        if span is None:
+            ov_lo = ov_hi = Sp
+            dec = np.full((1, 256), -1, np.int32)
+            oo = np.full(Sp, -1, np.int32)
+        else:
+            ov_lo = span[0]
+            ov_hi = ov_lo + span[1] * span[2]
+            dec, oo = _ov_decode_tables(cf, Sp)
         wt = WalkTables(
-            k_of=torch.from_numpy(tier_dst_inverse(
-                cf.block_fwd, cf.padded_states)).to(dev),
+            k_of=torch.from_numpy(tier_dst_inverse(cf.block_fwd, Sp)).to(dev),
             sidx=sidx.reshape(-1).to(device=dev, dtype=torch.int32)
             .contiguous(),
             offs=torch.from_numpy(offs if nO else np.zeros(1, np.int32))
             .to(dev),
-            K=K, Sm=Sm, nO=nO, fin=int(cf.final_state),
+            ov_dec=torch.from_numpy(dec).to(dev),
+            ovout=torch.from_numpy(oo).to(dev),
+            K=K, Sm=Sm, nO=nO, fin=int(cf.final_state), ov_lo=ov_lo,
+            ov_hi=ov_hi,
         )
         cf._cache["vit_walk"] = wt
     return wt
@@ -397,16 +595,21 @@ def walk_tables(cf) -> WalkTables:
 
 def walk_plain(wt: WalkTables, bps, fins, lengths):
     """Plain twin of the walk.  From the phony final state at frame Nf-1
-    back to frame 1: decode the id of the current state (255 outside the
-    main region) to its source; at t == length the source is the frame's
-    ω argmax, past the length the phony state.  Returns (Nf-1, B) int32
-    states in compiled numbering (frame t-1's state at row t-1)."""
+    back to frame 1: decode the id c of the current state s (255 outside
+    the main region) to its source.  A core row: c < Sm the tier source,
+    then the band offsets, Sm + nO the out-family source (``ovout``); an
+    overflow row [ov_lo, ov_hi): ``ov_dec``.  Any id without a source (255,
+    a stray Sm + nO, an overflow row's id past C_g + nO) decodes to the
+    phony state fin.  At t == length the source is the frame's ω argmax,
+    past the length the phony state.  Returns (Nf-1, B) int32 states in
+    compiled numbering (frame t-1's state at row t-1)."""
     Nf, RW, B = bps.shape
     Sp = wt.k_of.shape[0]
     L = lengths.long()
     bcol = torch.arange(B, device=bps.device)
     s = torch.full((B,), wt.fin, dtype=torch.long, device=bps.device)
     states = torch.empty((Nf - 1, B), dtype=torch.int32, device=bps.device)
+    n_dec = wt.ov_dec.shape[0]
     for t in range(Nf - 1, 0, -1):
         c = bps[t][s.clamp(max=RW - 1), bcol].long()
         c = torch.where(s < RW, c, _NO_CAND)
@@ -414,6 +617,12 @@ def walk_plain(wt: WalkTables, bps, fins, lengths):
         tier_src = wt.sidx[k * wt.Sm + c.clamp(0, wt.Sm - 1)].long()
         band_src = s - wt.offs[(c - wt.Sm).clamp(0, len(wt.offs) - 1)].long()
         src = torch.where(c < wt.Sm, tier_src, band_src)
+        oo = wt.ovout[s.clamp(0, Sp - 1)].long()
+        src = torch.where(c == wt.Sm + wt.nO,
+                          torch.where(oo >= 0, oo, wt.fin), src)
+        od = wt.ov_dec[(s - wt.ov_lo).clamp(0, n_dec - 1), c].long()
+        ov = (s >= wt.ov_lo) & (s < wt.ov_hi)
+        src = torch.where(ov, torch.where(od >= 0, od, wt.fin), src)
         src = torch.where(c == _NO_CAND, wt.fin, src)
         s = torch.where(t == L, fins[t].long(), src)
         s = torch.where(t > L, wt.fin, s)
@@ -447,7 +656,7 @@ def viterbi_fwd(cf, ext, mshift, *, ids: bool = True, a0=None, s0=None,
     bs._check_op(kop, kop.fwd, dev)
     bs._check("ext", ext, (Nf, kop.P1, B), dev)
     bs._check("mshift", mshift, (Nf, 1, B), dev)
-    meta = bs._imeta(kop, kop.fwd)
+    meta, lay = bs._imeta(kop, kop.fwd), _vlayout(cf, kop)
     pl, Wt = vit_plan(kop, B), _panels_t(kop)
     G = _vit_grid(kop, dev, B)
     a0 = kop.alpha0[:, None].expand(Sp, B).contiguous()
@@ -463,13 +672,15 @@ def viterbi_fwd(cf, ext, mshift, *, ids: bool = True, a0=None, s0=None,
         rc = _build.library().mm_vit_fwd(
             bs._p(a0), bs._p(ext), bs._p(mshift), bs._p(kd.band_w),
             bs._p(Wt), bs._p(kop.omega), bs._p(kd.band_rows),
-            ctypes.c_void_p(meta.ctypes.data), bs._p(pl.queue),
+            ctypes.c_void_p(meta.ctypes.data),
+            ctypes.c_void_p(lay.ctypes.data), bs._p(pl.queue),
             pl.queue.shape[0], G, B, Nf, RW, bs._p(work), bs._p(bps),
             bs._p(fins), bs._p(scale), bs._p(ksum), bs._p(shift),
             bs._p(comp), bs._p(scratch), n_scratch, bs._stream(dev),
         )
     bs._raise_on(rc, "mm_vit_fwd")
     LAUNCHES["vit_fwd"] += 1
+    LAUNCHES_FAM["vit_fwd"] += _is_fam(kop)
     vfin = work[(Nf - 1) % 2, kop.fin] * scale
     return bps, fins, vfin, shift, ksum
 
@@ -497,7 +708,7 @@ def _noid_fwd(cf, ext, mshift, *, a0, s0, t0, stride, acc):
     bs._check("a0", a0, (Sp, B), dev)
     bs._check("s0", s0, (B,), dev)
     bs._check("acc", acc, (3, B), dev)
-    meta = bs._imeta(kop, kop.fwd)
+    meta, lay = bs._imeta(kop, kop.fwd), _vlayout(cf, kop)
     pl, Wt = vit_plan(kop, B), _panels_t(kop)
     G = _vit_grid(kop, dev, B, ids=False)
     save = torch.empty((n_save, Sp, B), device=dev)
@@ -513,13 +724,15 @@ def _noid_fwd(cf, ext, mshift, *, a0, s0, t0, stride, acc):
             bs._p(a0), bs._p(s0), bs._p(ext), bs._p(mshift),
             bs._p(kd.band_w), bs._p(Wt), bs._p(kop.omega),
             bs._p(kd.band_rows), ctypes.c_void_p(meta.ctypes.data),
-            bs._p(pl.queue), pl.queue.shape[0], G, B, Nf, RW, t0, stride,
+            ctypes.c_void_p(lay.ctypes.data), bs._p(pl.queue),
+            pl.queue.shape[0], G, B, Nf, RW, t0, stride,
             ptr(work), ptr(save), ptr(save_scale), n_save, bs._p(scale),
             bs._p(acc[0]), bs._p(acc[1]), bs._p(acc[2]), bs._p(scratch),
             n_scratch, bs._stream(dev),
         )
     bs._raise_on(rc, "mm_vit_fwd_noid")
     LAUNCHES["vit_fwd_noid"] += 1
+    LAUNCHES_FAM["vit_fwd_noid"] += _is_fam(kop)
     a_last = save[Nf - 1] if stride == 1 else work[(Nf - 1) % 2]
     return save, save_scale, a_last, scale, acc
 
@@ -536,15 +749,21 @@ def walk(wt: WalkTables, bps, fins, lengths):
     bs._check("bps", bps, (Nf, RW, B), dev, torch.uint8)
     bs._check("fins", fins, (Nf, B), dev, torch.int32)
     bs._check("lengths", lengths, (B,), dev, torch.int32)
-    for name, t in (("k_of", wt.k_of), ("sidx", wt.sidx), ("offs", wt.offs)):
+    for name, t in (("k_of", wt.k_of), ("sidx", wt.sidx), ("offs", wt.offs),
+                    ("ov_dec", wt.ov_dec), ("ovout", wt.ovout)):
         bs._check(name, t, t.shape, dev, torch.int32)
     Sp = wt.k_of.shape[0]
+    if wt.ov_dec.shape[1] != 256 or wt.ovout.shape != (Sp,):
+        raise ValueError(f"ov_dec {tuple(wt.ov_dec.shape)}, ovout "
+                         f"{tuple(wt.ovout.shape)} for {Sp} states")
     states = torch.empty((Nf - 1, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _build.library().mm_vit_walk(
             bs._p(bps), bs._p(fins), bs._p(lengths), bs._p(wt.k_of),
-            bs._p(wt.sidx), bs._p(wt.offs), Nf, RW, B, Sp, wt.K, wt.Sm,
-            wt.nO, wt.fin, bs._p(states), bs._stream(dev),
+            bs._p(wt.sidx), bs._p(wt.offs), bs._p(wt.ov_dec),
+            bs._p(wt.ovout), Nf, RW, B, Sp, wt.K, wt.Sm, wt.nO, wt.fin,
+            wt.ov_lo, wt.ov_hi, wt.ov_dec.shape[0], bs._p(states),
+            bs._stream(dev),
         )
     bs._raise_on(rc, "mm_vit_walk")
     LAUNCHES["vit_walk"] += 1

@@ -9,8 +9,12 @@ picked as the JAX package picks them (``_viterbi_scale``):
   state, the winning *candidate id* (a uint8: the in-degree of every state
   is tier width + band count < 255) and per frame the argmax of the rank-1
   ω arcs into the phony final state; the backtrace is a walk that decodes
-  one id per frame and sequence.  On the GPU the sweep is the hand-written
-  CUDA kernel K7 and the walk a small CUDA kernel (ops/vit_scan.py);
+  one id per frame and sequence.  A capped layout's overflow families (the
+  separate-state backoff graph) add an out-family id on the core rows and
+  a per-group encoding on the overflow rows, decoded through the tables
+  ``ov_dec`` and ``ovout``.  On the GPU the sweep is the hand-written CUDA
+  kernel K7 (its family branch for such a graph) and the walk a small CUDA
+  kernel (ops/vit_scan.py);
 * the **chunk-recompute decode** (``_viterbi_scale``'s own body) for every
   'dense' graph and for the 'block' graphs the first route refuses
   (several tiers, or an id stream past the budget): a tropical forward
@@ -27,10 +31,9 @@ picked as the JAX package picks them (``_viterbi_scale``):
 CPU tensors take the plain PyTorch twins.  A CUDA tensor whose graph a
 kernel refuses raises, naming the first refused predicate: nothing falls
 back to a plain route on the card.  Routes of the JAX package that are not
-ported yet raise ``NotImplementedError`` naming the route: the
-overflow-family decode of a capped layout, the vmapped ``_viterbi_single``
-of batched graphs, and ``_viterbi_single`` for the 'segment' / 'ell'
-strategies.
+ported yet raise ``NotImplementedError`` naming the route: the vmapped
+``_viterbi_single`` of batched graphs, and ``_viterbi_single`` for the
+'segment' / 'ell' strategies.
 """
 from __future__ import annotations
 
@@ -52,22 +55,28 @@ _LOG = logging.getLogger("markovmodels_tpu_torch")
 
 _SINGLE_TODO = ("_viterbi_single is not ported yet (ROADMAP queue 11, with "
                 "queue 1 item 10)")
-_OV_TODO = ("the overflow-family decode (K7's family branch and its decode "
-            "tables) is not ported yet (ROADMAP queue 11)")
 
 
 def _bp_vit_reject_reason(cf: CompiledFSM, lhs):
     """None when the compressed-backpointer decode (_viterbi_scale_bp) can
     run, else the first rejected predicate, the JAX package's in its
     order: block strategy, rank-1 ω split, single affine tier (candidate
-    ids fit uint8), and the (Nf, Sp, B) uint8 id stream within the JAX
-    package's 6 GB budget (so both packages take the same route for the
-    same call).  Only ``lhs.shape`` is read."""
+    ids fit uint8; with overflow families ``ov_lo`` / ``cmax`` from the
+    layout, as the JAX package passes them, and the port's two family
+    predicates of ``block_max_arg_reason``), and the (Nf, Sp, B) uint8 id
+    stream within the JAX package's 6 GB budget (so both packages take the
+    same route for the same call).  Only ``lhs.shape`` is read."""
     if cf.strategy != "block":
         return f"strategy {cf.strategy!r} != 'block'"
     if cf.omega_prob is None:
         return "no rank-1 omega split"
-    if not block_max_arg_supported(cf.block_fwd, cf.block_fwd_offsets):
+    if "bp_max_arg" not in cf._cache:  # a property of the graph
+        span = vit_scan.ov_span(cf)
+        ov = {} if span is None else dict(
+            ov_lo=span[0], cmax=span[2], ov_hi=span[0] + span[1] * span[2])
+        cf._cache["bp_max_arg"] = block_max_arg_supported(
+            cf.block_fwd, cf.block_fwd_offsets, **ov)
+    if not cf._cache["bp_max_arg"]:
         return ("operator not a single affine tier (+ supported overflow "
                 "families) with uint8-range candidate ids")
     B, N, _ = lhs.shape
@@ -80,16 +89,18 @@ def _bp_vit_reject_reason(cf: CompiledFSM, lhs):
 
 
 def _viterbi_scale_bp(cf: CompiledFSM, lhs, lengths):
-    """The compressed-backpointer decode: K7's sweep, then the walk.
+    """The compressed-backpointer decode: K7's sweep, then the walk (their
+    plain twins for CPU tensors, for every graph the route admits).
     Returns (states (B, N) int32 in host state ids, score (B,))."""
     B, N, P = lhs.shape
-    reason = vit_scan.vit_scan_reject_reason(cf, B, n_frames=N,
-                                             device=lhs.device)
-    if reason is not None:
-        raise NotImplementedError(
-            f"the fused Viterbi sweep (K7) refuses this graph: {reason}; "
-            "the JAX package's XLA form of the sweep is not ported yet "
-            "(ROADMAP queue 11)")
+    if lhs.device.type == "cuda":
+        reason = vit_scan.vit_scan_reject_reason(cf, B, n_frames=N,
+                                                 device=lhs.device)
+        if reason is not None:
+            raise NotImplementedError(
+                f"the fused Viterbi sweep (K7) refuses this graph: {reason}; "
+                "the JAX package's XLA form of the sweep is not ported to "
+                "the card (ROADMAP queue 11)")
     ext, mshift = prepare_emissions(lhs, lengths, P)
     bps, fins, vfin, shift, ksum = vit_scan.viterbi_fwd(cf, ext, mshift)
     score = _combine_shift(_log_final(vfin), ksum, shift).to(lhs.dtype)
@@ -209,12 +220,7 @@ def _viterbi_scale(cf: CompiledFSM, lhs, lengths, chunk_size=None):
     """'dense' / 'block' graphs: the compressed-backpointer decode where it
     applies, the chunk-recompute decode otherwise (a 'block' graph that
     leaves the first route logs the reason once, as the JAX package
-    does).  The JAX package decodes a capped layout's overflow families in
-    its compressed-backpointer form; the port does not yet."""
-    if cf.strategy == "block" and cf.block_fwd.ov_w:
-        raise NotImplementedError(
-            f"Viterbi of a graph with overflow families (ov_layout "
-            f"{cf.ov_layout}): {_OV_TODO}")
+    does)."""
     reason = _bp_vit_reject_reason(cf, lhs)
     if reason is None:
         return _viterbi_scale_bp(cf, lhs, lengths)

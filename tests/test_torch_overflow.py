@@ -12,7 +12,8 @@ the port, against the JAX package on the CPU:
 * the K2-K4 plain twins against the JAX fused kernel (Pallas interpret
   mode) at V=128, and the plans;
 * the LF-MMI step with this denominator, the port-side admission
-  predicates, and the Viterbi route that is not ported yet.
+  predicates, and a Viterbi decode against the JAX package's (the decode
+  itself: tests/test_torch_vit_overflow.py).
 
 Each package builds its graphs with its own host layer; inputs are made
 from numpy seeds.  The CUDA kernels are held against these twins on the
@@ -29,6 +30,7 @@ import torch
 
 import markovmodels_tpu_torch as mt
 from markovmodels_tpu import inference as inf
+from markovmodels_tpu import viterbi as jvit
 from markovmodels_tpu.ops import blocked as jbl
 from markovmodels_tpu.ops import pallas_block as pb
 from markovmodels_tpu.ops import pallas_scan as ps
@@ -305,8 +307,21 @@ def test_lfmmi_step_with_the_separate_denominator():
 
 
 def test_viterbi_names_the_overflow_decode():
-    _, _, _, ct = graphs("V8")
+    """The overflow-family decode, once refused, now answers as the JAX
+    package does: the same states and scores within 1e-5 (the V=8 graph's
+    tier writes overflow rows, so both packages name the same predicate
+    and take the chunk-recompute route; tests/test_torch_vit_overflow.py
+    holds both routes)."""
+    _, cj, _, ct = graphs("V8")
     lhs, lens = inputs(2, 6, ct.num_pdfs, seed=3, lens=[6, 4])
-    with pytest.raises(NotImplementedError,
-                       match=r"overflow-family decode.*ROADMAP queue 11"):
-        tvit.viterbi(ct, torch.from_numpy(lhs), torch.from_numpy(lens))
+    reason = tvit._bp_vit_reject_reason(ct, lhs)
+    assert reason == jvit._bp_vit_reject_reason(cj, jnp.asarray(lhs))
+    assert reason.startswith("operator not a single affine tier")
+    states, score = tvit.viterbi(ct, torch.from_numpy(lhs),
+                                 torch.from_numpy(lens))
+    with pytest.MonkeyPatch.context() as mp:
+        _env(mp)
+        sj, zj = jvit.viterbi(cj, jnp.asarray(lhs), jnp.asarray(lens))
+    np.testing.assert_array_equal(states.numpy(), np.asarray(sj))
+    np.testing.assert_allclose(score.numpy(), np.asarray(zj), atol=1e-5,
+                               rtol=0)
