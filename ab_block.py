@@ -58,6 +58,13 @@ written by lane 0 of graph 0 for every frame) and prints, for K5a and K5b
 at P = 384 and P = 96, the mean ns per frame between consecutive stamps.
 The stamps' own stores slow a traced kernel (the PR 2-9 K5b by ~50 %).
 
+``--sums`` (before the graphs) runs only the bit-for-bit part on each
+block graph: ``K2_sum``, ``K3_sum``, ``K4_sum`` (K4's posteriors, outgoing
+beta and scale over the last chunk, in float64) and the run-twice checks,
+no timing; the library's ``ptxas`` report (registers, spills, shared
+memory of every instantiation) goes to stderr.  Two versions whose kernels
+compute bit for bit the same print the same sums.
+
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -102,7 +109,7 @@ def _graph_ms(fn, reps=3):
         return None
 
 
-def run_graph(graph: str) -> dict:
+def run_graph(graph: str, sums_only: bool = False) -> dict:
     import numpy as np
     import torch
 
@@ -159,6 +166,12 @@ def run_graph(graph: str) -> dict:
     out["K23_bitequal"] = all(torch.equal(x, y) for x, y in
                               zip(fwd + (al, asc), fwd2 + (al2, asc2)))
     del fwd2, al2, asc2
+    if sums_only:
+        k1 = bs.backward(kop, beta, bsc, al, asc, ext[sl], c * K, C * K)
+        k2 = bs.backward(kop, beta, bsc, al, asc, ext[sl], c * K, C * K)
+        out["K4_sum"] = sum(float(t.double().sum()) for t in k1)
+        out["K4_bitequal"] = all(torch.equal(x, y) for x, y in zip(k1, k2))
+        return out
     out["K2_ms"] = _ms(lambda: bs.fwd_sweep(kop, a0, ext, msh, K))
     out["K3_ms"] = _ms(lambda: bs.recompute(kop, bounds[c], bscale[c],
                                             ext[sl], c * K))
@@ -440,13 +453,17 @@ def main(root: str, graphs) -> None:
     if not mt.__file__.startswith(os.path.abspath(root)):
         raise RuntimeError(f"imported {mt.__file__}, not the copy at {root}")
     _build.library()
+    sums_only = graphs[:1] == ["--sums"]
+    if sums_only:
+        graphs = graphs[1:]
+        print(_build.PTXAS_LOG, file=sys.stderr)
     for graph in graphs:
         if graph == "banded":
             rows = [run_banded(P) for P in (384, 96)]
         elif graph == "banded-trace":
             rows = [trace_banded(root, P) for P in (384, 96)]
         else:
-            rows = [run_graph(graph)]
+            rows = [run_graph(graph, sums_only)]
         for row in rows:
             print(json.dumps({"version": root, **row}), flush=True)
 

@@ -199,9 +199,43 @@ package decodes in XLA), through the family branch of K7 and K7n (FAM,
     launches, all in the family branch), and at N=700 the recompute route
     called directly beside phase 36's decode.
 
+then float64 (``compile_fsm(dtype=torch.float64)``: K2-K4's float64
+instantiation for 'block' graphs, K5a/K5b's for stacked numerators; a
+float64 'dense' graph, a float64 decode and a general-Ĉ graph have no
+kernel yet and are refused on the card):
+
+38. the 2M-arc and separate-state graphs compiled float64; K2-K4's
+    float64 instantiation against its float64 plain twin on both at B=8,
+    N=700, chunk 64 (lengths 1, N/2+1, 2N/3 and N mixed, ±30-nat
+    cliffs): K2's checkpoints, last state, shift and ksum (logZ within
+    1e-12 relative), every chunk's K3 alphas and K4 posteriors and beta
+    (1e-10), every call twice, bit-equal, with the float64 launch
+    counters (``LAUNCHES_F64``);
+39. the two float64 graphs against the f64 oracle at B=2, N=700 (phase
+    25's input and oracle): |dlogZ| and |dposts| within the 1e-4
+    contract, printed beside phase 25's float32 readings;
+40. per graph, the LF-MMI step (float64 stacked numerators through
+    K5a/K5b's float64 instantiation) and den-only ``pdfposteriors`` in
+    float64 beside float32, medians of 5 in turns, the float64 step's
+    launches (exactly K2-K5's float64 instantiations, no float32
+    kernel); one float64 step under ``torch.profiler``; the float64
+    den-only profile (phase 9's launch checks); K2-K4 in float64 timed
+    beside their twins and held to them at B=128, N=700, their frame
+    splits and bounds (the tier at the FP64 tensor-core rate);
+41. K5a/K5b's float64 instantiation against its float64 twin on the
+    main-path numerators (G=128, N=700, phase 7's lengths and cliffs),
+    each run twice, bit-equal, the admission's shared memory against the
+    kernels', and timed; the wide float64 instantiation on 4 skip-arc
+    numerators of ~1,200 states against its twin; then the refusals: a
+    float64 'dense' graph, a general-Ĉ graph ('dense' and 'block') and a
+    float64 decode raise ``NotImplementedError`` on the card before any
+    launch.
+
 Every kernel's entry in the JSON line (K6t, K7n and W2 from phases 32-33,
-and the family branch's K7, walk, K7n and W2 from phases 36-37 among them)
-carries its bound: the larger of its
+the family branch's K7, walk, K7n and W2 from phases 36-37, K2-K4's
+float64 instantiation on both block graphs and K5a/K5b's on the main-path
+numerators among them) carries its bound:
+the larger of its
 operations over the card's peak rate for their type and its bytes over the
 memory bandwidth (H100 SXM data sheet), computed from this run's shapes.
 
@@ -272,7 +306,12 @@ TOL_KERNEL_BF16 = 1e-2
 # the tensor cores for the float types the kernels compute in) for the
 # kernels' bounds: the larger of operations / peak and bytes / bandwidth.
 PEAK_F32 = 67e12  # float32 FLOP/s
-PEAK_F64 = 34e12  # float64 FLOP/s (K5a/K5b keep their state in float64)
+# float64 FLOP/s outside the tensor cores (K5a/K5b keep their state in
+# float64; K2-K4's float64 instantiation; data sheet: 33.5)
+PEAK_F64 = 34e12
+# float64 FLOP/s on the tensor cores (DMMA, full IEEE float64; data sheet:
+# 67): the float64 tier's products could run there
+PEAK_F64_TC = 67e12
 # float32 instructions that are not FMAs (a multiply, a compare, a select):
 # one per lane and clock, half the FMA FLOP rate
 PEAK_F32_OPS = PEAK_F32 / 2
@@ -280,12 +319,12 @@ PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s
 
 
-def bound(flops, nbytes, peak=PEAK_F32, tc_flops=0):
+def bound(flops, nbytes, peak=PEAK_F32, tc_flops=0, tc_peak=PEAK_BF16):
     """(bound_ms, bound_by): the least time the card could take for work of
-    ``flops`` operations at ``peak`` plus ``tc_flops`` bf16 tensor-core
-    operations on ``nbytes`` bytes (each input read once, each output
-    written once)."""
-    t_ops, t_bytes = flops / peak + tc_flops / PEAK_BF16, nbytes / PEAK_BYTES
+    ``flops`` operations at ``peak`` plus ``tc_flops`` tensor-core
+    operations at ``tc_peak`` (bf16 by default) on ``nbytes`` bytes (each
+    input read once, each output written once)."""
+    t_ops, t_bytes = flops / peak + tc_flops / tc_peak, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -297,7 +336,9 @@ def block_bounds(cf, B, Npad, chunk):
     (backward).  The operator's bytes include the per-row pdf table (the
     per-lane emissions of the overflow rows), the family terms and, for
     K4, each pdf's list of overflow rows.  A bf16 graph's tier runs on the
-    tensor cores (PEAK_BF16) over panels of 2 bytes."""
+    tensor cores (PEAK_BF16) over panels of 2 bytes; a float64 graph's
+    tier on the float64 tensor cores (PEAK_F64_TC) and its other
+    operations at the FP64 FMA rate (PEAK_F64), over values of 8 bytes."""
     from markovmodels_tpu_torch.ops import block_scan as bs
 
     kop = bs.kernel_operator(cf)
@@ -306,49 +347,56 @@ def block_bounds(cf, B, Npad, chunk):
     nf_f, nf_b = kop.fwd.fam_dst.numel(), kop.bwd.fam_dst.numel()
     n_ov = kop.ov_hi - kop.ov_lo
     wb = kop.fwd.W.element_size()
+    f = kop.alpha0.element_size()  # 8: the float64 instantiation
+    peak = PEAK_F64 if f == 8 else PEAK_F32
     tier = B * 2 * K * Sm * D
 
     def op(nf):
-        return wb * K * Sm * D + 4 * (nO * Sp + Sp + 2 * Sp + 1 + 2 * nf)
+        # panels, bands, omega, the int32 row tables, the family terms
+        return (wb * K * Sm * D + f * (nO * Sp + Sp) + 4 * (2 * Sp + 1)
+                + (4 + f) * nf)
 
     fwd = B * (2 * nO * Sp + 2 * nf_f + 4 * Sp)
     bwd = B * (2 * nO * Sp + 2 * nf_b + 6 * Sp)
-    tc = wb == 2  # the tier on the tensor cores
+    tc = wb == 2 or f == 8  # the tier on the tensor cores
+    tcp = PEAK_BF16 if wb == 2 else PEAK_F64_TC
     fwd, bwd, ttc = ((fwd, bwd, tier) if tc
                      else (fwd + tier, bwd + tier, 0))
     C = Npad // chunk
     return {
-        "K2": bound(Npad * fwd, op(nf_f) + 4 * (Sp * B + Npad * (P1 + 1) * B
+        "K2": bound(Npad * fwd, op(nf_f) + f * (Sp * B + Npad * (P1 + 1) * B
                                                 + C * (Sp + 1) * B + Sp * B
                                                 + 3 * B),
-                    tc_flops=Npad * ttc),
-        "K3": bound(chunk * fwd, op(nf_f) + 4 * (Sp * B + B + chunk * P1 * B
+                    peak, tc_flops=Npad * ttc, tc_peak=tcp),
+        "K3": bound(chunk * fwd, op(nf_f) + f * (Sp * B + B + chunk * P1 * B
                                                  + chunk * (Sp + 1) * B),
-                    tc_flops=chunk * ttc),
-        "K4": bound(chunk * bwd, op(nf_b) + 4 * (Sp * B + B
+                    peak, tc_flops=chunk * ttc, tc_peak=tcp),
+        "K4": bound(chunk * bwd, op(nf_b) + f * (Sp * B + B
                                                  + chunk * (Sp + 1) * B
                                                  + 2 * chunk * P1 * B
-                                                 + Sp * B + B + P1 + 1
-                                                 + n_ov),
-                    tc_flops=chunk * ttc),
+                                                 + Sp * B + B)
+                    + 4 * (P1 + 1 + n_ov),
+                    peak, tc_flops=chunk * ttc, tc_peak=tcp),
     }
 
 
 def banded_bounds(num_cf, Nf):
     """K5a and K5b over the Nf-frame sweep of G lattices: float64 state;
-    each state's emission gathered once per frame."""
+    each state's emission gathered once per frame; the inputs and the
+    posteriors of f bytes (4, or 8 for a float64 stack)."""
     from markovmodels_tpu_torch.ops import banded_scan as bsc
 
     kop = bsc.kernel_operator(num_cf)
     Sp, G, P1, nO = kop.Sp, kop.G, kop.P1, len(kop.offsets)
-    op = 4 * (2 * nO * Sp * G + 3 * Sp * G)
-    emis = 4 * Nf * Sp * G
+    f = kop.a0.element_size()
+    op = f * (2 * nO * Sp * G + 2 * Sp * G) + 4 * Sp * G
+    emis = f * Nf * Sp * G
     return {
         "K5a": bound(Nf * G * (2 * nO * Sp + 4 * Sp),
-                     op + emis + 4 * Nf * G + 8 * Nf * Sp * G + 24 * G,
+                     op + emis + f * Nf * G + 8 * Nf * Sp * G + 24 * G,
                      PEAK_F64),
         "K5b": bound(Nf * G * (2 * nO * Sp + 5 * Sp),
-                     op + emis + 8 * Nf * Sp * G + 4 * Nf * P1 * G,
+                     op + emis + 8 * Nf * Sp * G + f * Nf * P1 * G,
                      PEAK_F64),
     }
 
@@ -692,10 +740,11 @@ def time_kernels(cf, P, dev, B=128, N=700, chunk=64, tol=TOL_KERNEL):
                                                       prepare_emissions)
 
     rng = np.random.default_rng(0)
-    lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev)
+    dt = cf.alpha_hat.dtype  # the float64 instantiation for a float64 graph
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev, dt)
     lens = torch.full((B,), N, dtype=torch.int32, device=dev)
     kop = bs.kernel_operator(cf)
-    ext, msh = prepare_emissions(lhs, lens, P)
+    ext, msh = prepare_emissions(lhs, lens, P, dt)
     Nf = N + 1
     K = min(chunk, Nf)
     C = -(-Nf // K)
@@ -706,7 +755,7 @@ def time_kernels(cf, P, dev, B=128, N=700, chunk=64, tol=TOL_KERNEL):
     sl = slice(c * K, (c + 1) * K)
     al, asc = bs.recompute(kop, bounds[c], bscale[c], ext[sl], c * K)
     beta = torch.ones_like(a0)
-    bsc = torch.ones(B, device=dev)
+    bsc = torch.ones(B, device=dev, dtype=dt)
     calls = {
         "K2": (lambda: bs.fwd_sweep(kop, a0, ext, msh, K),
                lambda: bs.fwd_sweep_plain(kop, a0, ext, msh, K)),
@@ -783,10 +832,11 @@ def frame_split(cf, P, dev, label, B=128, N=700, chunk=64):
                                                       prepare_emissions)
 
     rng = np.random.default_rng(0)
-    lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev)
+    dt = cf.alpha_hat.dtype
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev, dt)
     lens = torch.full((B,), N, dtype=torch.int32, device=dev)
     kop = bs.kernel_operator(cf)
-    ext, msh = prepare_emissions(lhs, lens, P)
+    ext, msh = prepare_emissions(lhs, lens, P, dt)
     C = -(-(N + 1) // chunk)
     ext, msh = pad_emissions(ext, msh, C * chunk)
     a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
@@ -794,7 +844,7 @@ def frame_split(cf, P, dev, label, B=128, N=700, chunk=64):
     c = C - 1
     sl = slice(c * chunk, (c + 1) * chunk)
     al, asc = bs.recompute(kop, bounds[c], bscale[c], ext[sl], c * chunk)
-    beta, bsc = torch.ones_like(a0), torch.ones(B, device=dev)
+    beta, bsc = torch.ones_like(a0), torch.ones(B, device=dev, dtype=dt)
     calls = {
         "K2": ("fwd", C * chunk, lambda op: bs.fwd_sweep(op, a0, ext, msh,
                                                          chunk)),
@@ -829,13 +879,14 @@ def profile_block_den(cf, P, dev, label, B=128, N=700, chunk=64):
     time by kernel and idle share, printed; asserts exactly one K2 and one
     K3 launch per chunk (the persistent ``fwd_chunk_kernel``), one K4
     launch per chunk (``bwd_chunk_kernel``), and no per-frame step or
-    finalize launch."""
+    finalize launch.  The input in the graph's dtype."""
     import torch
 
     import markovmodels_tpu_torch as mt
 
     rng = np.random.default_rng(0)
-    lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev,
+                                                         cf.alpha_hat.dtype)
     lens = torch.full((B,), N, dtype=torch.int32, device=dev)
     prof = profile_device(lambda: mt.pdfposteriors(cf, lhs, lens))
     if prof is None:
@@ -877,27 +928,30 @@ def build_numerators(P, G=128, Lp=78, seed=3):
     return out
 
 
-def stack_numerators(graphs, P, dev):
+def stack_numerators(graphs, P, dev, dtype=None):
     import markovmodels_tpu_torch as mt
 
-    return mt.stack([mt.compile_fsm(f, sp, P, strategy="banded", device=dev)
+    kw = {} if dtype is None else {"dtype": dtype}
+    return mt.stack([mt.compile_fsm(f, sp, P, strategy="banded", device=dev,
+                                    **kw)
                      for f, sp in graphs])
 
 
 def banded_inputs(num_cf, P, dev, N=700, seed=11):
     """Phase 7's input: ragged lengths with a length of 1 and a length of 60
     (both shorter than the 78-state lattice: infeasible) and one of exactly
-    78 (a single path), ±30-nat cliffs."""
+    78 (a single path), ±30-nat cliffs; in the stack's dtype."""
     import torch
 
     from markovmodels_tpu_torch.ops.emissions import prepare_emissions
 
-    G = num_cf.alpha_hat.shape[0]
+    G, dt = num_cf.alpha_hat.shape[0], num_cf.alpha_hat.dtype
     rng = np.random.default_rng(seed)
-    lhs = torch.from_numpy(make_inputs(rng, G, N, P, cliffs=True)).to(dev)
+    lhs = torch.from_numpy(make_inputs(rng, G, N, P, cliffs=True)).to(dev,
+                                                                       dt)
     lens = rng.integers(N // 2, N + 1, size=G).astype(np.int32)
     lens[:4] = [N, 1, 60, 78]
-    ext, msh = prepare_emissions(lhs, torch.from_numpy(lens).to(dev), P)
+    ext, msh = prepare_emissions(lhs, torch.from_numpy(lens).to(dev), P, dt)
     return ext, msh
 
 
@@ -915,11 +969,14 @@ def plan_mask(kop):
     return mask
 
 
-def phase_banded_kernels(num_cf, P, dev, label="phase 7"):
-    """Phase 7 (and 13, on the dense step's numerators): K5a and K5b
-    against their plain twins on one input, each run twice and bit-equal;
-    K5b's posteriors outside each graph's plan exactly 0; the admission's
-    shared-memory figures equal the kernels'."""
+def phase_banded_kernels(num_cf, P, dev, label="phase 7", tol=TOL_K5,
+                         inputs=None):
+    """Phase 7 (and 13, on the dense step's numerators; 41, float64): K5a
+    and K5b against their plain twins on one input (phase 7's, or
+    ``inputs``, (ext, mshift), whose lengths are all feasible), each run
+    twice and bit-equal; K5b's posteriors outside each graph's plan
+    exactly 0; the admission's shared-memory figures equal the
+    kernels'."""
     import torch
 
     from markovmodels_tpu_torch import inference as tinf
@@ -927,7 +984,7 @@ def phase_banded_kernels(num_cf, P, dev, label="phase 7"):
     from markovmodels_tpu_torch.ops import banded_scan as bsc
 
     kop = bsc.kernel_operator(num_cf)
-    ext, msh = banded_inputs(num_cf, P, dev)
+    ext, msh = inputs or banded_inputs(num_cf, P, dev)
 
     def logz(vfin, shift, ksum):
         return tinf._combine_shift(tinf._log_final(vfin), ksum,
@@ -947,8 +1004,8 @@ def phase_banded_kernels(num_cf, P, dev, label="phase 7"):
     zk, zp = logz(*fk), logz(*fp)
     fin = np.isfinite(zp)
     assert (np.isfinite(zk) == fin).all(), "K5a: -inf pattern differs"
-    assert fin[0] and fin[3] and not fin[1] and not fin[2], (
-        "K5a: unexpected -inf pattern")
+    assert (fin.all() if inputs else fin[0] and fin[3] and not fin[1]
+            and not fin[2]), "K5a: unexpected -inf pattern"
     errs = {"K5a": max(float(np.abs(zk[fin] - zp[fin]).max()),
                        float((norm(ak) - norm(ap)).abs().max()))}
     pk = bsc.backward(kop, ext, ak)
@@ -956,16 +1013,17 @@ def phase_banded_kernels(num_cf, P, dev, label="phase 7"):
     assert torch.equal(pk, bsc.backward(kop, ext, ak)), "K5b: two runs differ"
     pp = bsc.backward_plain(kop, ext, ak)
     assert torch.isfinite(pk).all(), "K5b: non-finite posteriors"
-    assert (pk[:, :, 1:3] == 0).all(), "K5b: infeasible graphs not zero"
+    assert inputs or (pk[:, :, 1:3] == 0).all(), (
+        "K5b: infeasible graphs not zero")
     outside = ~plan_mask(kop)
     assert (pk[:, outside] == 0).all(), (
         "K5b: a posterior outside its graph's plan is not 0")
     lib = _build.library()
-    nO = len(kop.offsets)
-    smem = [lib.mm_banded_smem(kop.Sp, nO, bwd) for bwd in (0, 1)]
-    assert smem == [4 * w for w in bsc._smem_words(kop.Sp, nO)], (
-        f"admission's shared memory {bsc._smem_words(kop.Sp, nO)} words, "
-        f"the kernels' {smem} bytes")
+    nO, tw = len(kop.offsets), bsc._words(kop.a0.dtype)
+    smem = [lib.mm_banded_smem(kop.Sp, nO, bwd, tw - 1) for bwd in (0, 1)]
+    assert smem == [4 * w for w in bsc._smem_words(kop.Sp, nO, tw)], (
+        f"admission's shared memory {bsc._smem_words(kop.Sp, nO, tw)} "
+        f"words, the kernels' {smem} bytes")
     print(f"{label}: P={P}: K5a and K5b run twice, bit-equal; K5b's "
           f"posteriors at the {int(outside.sum())} of {outside.numel()} "
           f"(pdf, graph) pairs outside the graphs' plans exactly 0 in all "
@@ -974,8 +1032,8 @@ def phase_banded_kernels(num_cf, P, dev, label="phase 7"):
     errs["K5b"] = float((pk - pp).abs().max())
     for name, e in errs.items():
         print(f"{label}: P={P}: {name} kernel vs plain max |err| = {e:.3e} "
-              f"(tol {TOL_K5:g})")
-        assert np.isfinite(e) and e <= TOL_K5, f"{name} disagrees: {e}"
+              f"(tol {tol:g})")
+        assert np.isfinite(e) and e <= tol, f"{name} disagrees: {e}"
     return errs
 
 
@@ -1081,7 +1139,8 @@ def phase_big_numerators(cf, P, dev, t_step, N=700):
           f"{num.banded_offsets}; path: {report}")
     assert report.startswith("cuda-banded-scan") and Sp > 1024, report
     assert bsc._wide(Sp, nO) == (True, True), bsc._wide(Sp, nO)
-    smem = [_build.library().mm_banded_smem(Sp, nO, bwd) for bwd in (0, 1)]
+    smem = [_build.library().mm_banded_smem(Sp, nO, bwd, 0)
+            for bwd in (0, 1)]
     assert smem == [4 * w for w in bsc._smem_words(Sp, nO)], (
         f"admission's shared memory {bsc._smem_words(Sp, nO)} words, the "
         f"kernels' {smem} bytes")
@@ -1959,13 +2018,15 @@ def phase_dense_frames(kop, P, dev, label, N=128):
     return errs
 
 
-def phase_oracle_700(fsm, spdf, P, dev, cfs, label, n=700):
-    """Phase 25: ``pdfposteriors`` at B=2, N=700 (lengths N and 2N/3, the
-    inputs of ``bench.py``'s parity gate) against the exact f64 host
-    oracle, which runs once for the graph; ``cfs`` maps a name to (compile
-    of the graph, logZ gate, posterior gate).  Every reading is printed
-    beside the 1e-4 contract.  Returns {name: (|dlogZ|, |dposts|)} and the
-    oracle's seconds."""
+def phase_oracle_700(fsm, spdf, P, dev, cfs, label, n=700, refs=None):
+    """Phase 25 (39): ``pdfposteriors`` at B=2, N=700 (lengths N and 2N/3,
+    the inputs of ``bench.py``'s parity gate) against the exact f64 host
+    oracle, which runs once for the graph (with ``refs``, a dict: once per
+    graph and dict, kept there under the graph's id); ``cfs`` maps a name
+    to (compile of the graph, logZ gate, posterior gate), each fed the
+    log-likelihoods in its dtype.  Every reading is printed beside the
+    1e-4 contract.  Returns {name: (|dlogZ|, |dposts|)} and the oracle's
+    seconds."""
     import torch
 
     import markovmodels_tpu_torch as mt
@@ -1974,13 +2035,17 @@ def phase_oracle_700(fsm, spdf, P, dev, cfs, label, n=700):
     lhs = rng.normal(size=(2, n, P)).astype(np.float32)
     lens = np.array([n, max(2, 2 * n // 3)], dtype=np.int32)
     t0 = time.perf_counter()
-    ref_z, ref_p = mt.oracle.host_oracle(fsm, spdf, P,
-                                         lhs.astype(np.float64), lens)
+    refs = {} if refs is None else refs
+    if id(fsm) not in refs:
+        refs[id(fsm)] = mt.oracle.host_oracle(fsm, spdf, P,
+                                              lhs.astype(np.float64), lens)
+    ref_z, ref_p = refs[id(fsm)]
     t_oracle = time.perf_counter() - t0
     out = {}
     for name, (cf, tz, tp) in cfs.items():
-        posts, z = mt.pdfposteriors(cf, torch.from_numpy(lhs).to(dev),
-                                    torch.from_numpy(lens).to(dev))
+        posts, z = mt.pdfposteriors(
+            cf, torch.from_numpy(lhs).to(dev, cf.alpha_hat.dtype),
+            torch.from_numpy(lens).to(dev))
         err = float(np.abs(z.cpu().numpy() - ref_z).max())
         perr = float(np.abs(posts.cpu().numpy() - ref_p).max())
         met = lambda e: "met" if e <= TOL_ORACLE else "missed"
@@ -2188,6 +2253,8 @@ def all_launches():
         out.update(m.LAUNCHES)
     out.update({f"{k}_bf16": v for m in (bs, ds)
                 for k, v in m.LAUNCHES_BF16.items()})
+    out.update({f"{k}_f64": v for m in (bs, bsc)
+                for k, v in m.LAUNCHES_F64.items()})
     return out
 
 
@@ -2733,6 +2800,254 @@ def phase_ov_vit_main(fsm, spdf, cf, efsm, espdf, ecf, P, dev, t_dec2m,
             med, {"K7": serr, "K7w": werr}, split)
 
 
+# ---- float64 and general Ĉ (phases 38-41) ----------------------------------
+# K2-K4's float64 instantiation against its float64 twin: the same sums in
+# another order, in float64 (53 bits), compounded over 704 frames: logZ
+# within 1e-12 relative, the states (each column normalised to max 1..2)
+# and the posteriors within 1e-10
+TOL_F64_LOGZ_REL = 1e-12
+TOL_F64 = 1e-10
+
+
+def phase_f64_kernels(cf, P, dev, label, B=8, N=700, chunk=64):
+    """Phase 38: K2, K3 and K4 in their float64 instantiation against their
+    float64 plain twins on one input (lengths 1, 2N/3, N/2+1 and N mixed,
+    ±30-nat cliffs): K2's checkpoints, last state, shift and ksum (as
+    logZ), every chunk's K3 alphas from K2's checkpoint and K4's
+    posteriors and outgoing beta over the whole backward; every kernel call
+    run twice, bit-equal.  Returns {name: max abs error} (K2's includes
+    |dlogZ|)."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import block_scan as bs
+    from markovmodels_tpu_torch.ops.emissions import (pad_emissions,
+                                                      prepare_emissions)
+
+    f64 = torch.float64
+    rng = np.random.default_rng(1)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P, cliffs=True)).to(
+        dev, f64)
+    lens_np = rng.integers(1, N + 1, size=B).astype(np.int32)
+    lens_np[:4] = [N, 1, 2 * N // 3, N // 2 + 1]
+    lens = torch.from_numpy(lens_np).to(dev)
+    kop = bs.kernel_operator(cf)
+    assert kop.fwd.W.dtype == kop.bwd.W.dtype == kop.alpha0.dtype == f64
+    ext, msh = prepare_emissions(lhs, lens, P, f64)
+    Nf = N + 1
+    K = min(chunk, Nf)
+    C = -(-Nf // K)
+    Npad = C * K
+    ext, msh = pad_emissions(ext, msh, Npad)
+    a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
+
+    def twice(fn, name):
+        out = fn()
+        assert all(torch.equal(x, y) for x, y in zip(out, fn())), \
+            f"{name} differs run to run"
+        return out
+
+    bs.reset_launch_counts()
+    fk = twice(lambda: bs.fwd_sweep(kop, a0, ext, msh, K), "K2 (float64)")
+    torch.cuda.synchronize()
+    fp = bs.fwd_sweep_plain(kop, a0, ext, msh, K)
+    zk, zp = sweep_logz(kop, fk), sweep_logz(kop, fp)
+    fin = np.isfinite(zp)
+    assert (np.isfinite(zk) == fin).all() and not fin[1], "K2: -inf pattern"
+    zrel = float((np.abs(zk[fin] - zp[fin])
+                  / np.maximum(np.abs(zp[fin]), 1.0)).max())
+    errs = {"K2": sweep_err(kop, fk, fp)}
+    errs["K3"] = errs["K4"] = 0.0
+    beta = torch.ones_like(a0)
+    bsc = torch.ones(B, device=dev, dtype=f64)
+    for c in reversed(range(C)):  # every chunk: K3, then K4
+        sl = slice(c * K, (c + 1) * K)
+        ak, sk = twice(lambda: bs.recompute(kop, fk[0][c], fk[1][c], ext[sl],
+                                            c * K), "K3 (float64)")
+        ap, sp = bs.recompute_plain(kop, fk[0][c], fk[1][c], ext[sl], c * K)
+        errs["K3"] = max(errs["K3"], float(
+            (scaled(ak, sk) - scaled(ap, sp)).abs().max()))
+        out = twice(lambda: bs.backward(kop, beta, bsc, ak, sk, ext[sl],
+                                        c * K, Npad), "K4 (float64)")
+        ref = bs.backward_plain(kop, beta, bsc, ak, sk, ext[sl], c * K, Npad)
+        errs["K4"] = max(errs["K4"], bwd_err(out, ref))
+        beta, bsc = out[1], out[2]
+    torch.cuda.synchronize()
+    counts = dict(bs.LAUNCHES_F64)
+    assert counts == {"block_fwd": 2, "block_recompute": 2 * C,
+                      "block_bwd": 2 * C}, counts
+    assert not any(bs.LAUNCHES.values()) and not any(
+        bs.LAUNCHES_BF16.values()), "a float32 kernel ran for float64"
+    print(f"{label}: K2 vs its float64 twin: logZ relative {zrel:.3e} "
+          f"(tol {TOL_F64_LOGZ_REL:g}); max |err| K2 {errs['K2']:.3e}, K3 "
+          f"{errs['K3']:.3e} over {C} chunks, K4 {errs['K4']:.3e} (tol "
+          f"{TOL_F64:g}); K2 twice, K3 and K4 twice on each chunk: "
+          f"bit-equal; float64 launches {json.dumps(counts)}")
+    assert zrel <= TOL_F64_LOGZ_REL, f"K2 logZ: {zrel}"
+    assert all(np.isfinite(e) and e <= TOL_F64 for e in errs.values()), errs
+    return errs
+
+
+def step_fns(num, den, P, dev, dtype, B=128, N=700):
+    """(the training step, den-only pdfposteriors) on phase 9's input, the
+    log-likelihoods in ``dtype``."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+
+    rng = np.random.default_rng(0)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev, dtype)
+    lens = torch.full((B,), N, dtype=torch.int32, device=dev)
+
+    def run():
+        x = lhs.clone().requires_grad_()
+        mt.lfmmi_loss(num, den, x, lens).sum().backward()
+    return run, lambda: mt.pdfposteriors(den, lhs, lens)
+
+
+def phase_f64_steps(pairs, label, C=11):
+    """Phase 40: per graph, the LF-MMI step and den-only pdfposteriors in
+    float32 and float64 (float64 stacked numerators), medians of 5 warm
+    runs in turns; one float64 step's launches counted: exactly 1 + C + C
+    launches of K2-K4's float64 instantiation and one of each of K5a/K5b's,
+    and no other kernel.  ``pairs``: {graph: ((f32 step, f32 den), (f64
+    step, f64 den))}.  Returns ({graph: {name: ms}}, {graph: the float64
+    step's launches of K2-K5})."""
+    import torch
+
+    out, launches = {}, {}
+    for name, ((s32, d32), (s64, d64)) in pairs.items():
+        reset_all_launches()
+        s64()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in all_launches().items() if v}
+        want = {"block_fwd_f64": 1, "block_recompute_f64": C,
+                "block_bwd_f64": C, "banded_fwd_f64": 1,
+                "banded_bwd_f64": 1}
+        assert counts == want, f"{name} float64 step launches {counts}"
+        launches[name] = {k.removesuffix("_f64"): v for k, v in counts.items()}
+        t = median_ms({"f32 step": s32, "f64 step": s64, "f32 den": d32,
+                       "f64 den": d64})
+        out[name] = t
+        print(f"{label}: {name} B=128 N=700 medians of 5: LF-MMI step f32 "
+              f"{t['f32 step']:.2f} ms, f64 {t['f64 step']:.2f} ms (f64/f32 "
+              f"{t['f64 step'] / t['f32 step']:.3f}); den-only f32 "
+              f"{t['f32 den']:.2f} ms, f64 {t['f64 den']:.2f} ms (f64/f32 "
+              f"{t['f64 den'] / t['f32 den']:.3f}); the f64 step's "
+              f"launches {json.dumps(counts)}")
+    return out, launches
+
+
+def profile_f64_step(fn, label):
+    """One float64 LF-MMI step under torch.profiler: busy time, idle share,
+    kernels and launches, printed."""
+    prof = profile_device(fn)
+    if prof is None:
+        print(f"{label}: profile of the float64 step: not measured (no "
+              "device events recorded)")
+        return None
+    by_name, busy, span, counts = prof
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"{label}: profile of one float64 LF-MMI step: device busy "
+          f"{busy:.3f} ms of a {span:.3f} ms span (idle {1 - busy / span:.1%}"
+          f"), {sum(counts.values())} launches; " + "; ".join(
+              f"{k} {v:.3f} ms ({counts[k]} launches)" for k, v in top))
+    return prof
+
+
+def multi_pdf_graph(V=8, every=3):
+    """The V-word LM ∘ HMM graph with a general Ĉ: each state's own pdf,
+    and every ``every``-th real state one more, the next pdf.  Returns
+    (fsm, Ĉ, P)."""
+    import markovmodels_tpu_torch as mt
+
+    fsm, spdf, P, _ = mt.workloads.make_lm_hmm_graph(V=V)
+    S1 = len(spdf)
+    sets = [[int(spdf[s])] + ([(int(spdf[s]) + 1) % P]
+                              if s % every == 1 and s < S1 - 1 else [])
+            for s in range(S1)]
+    rows = np.repeat(np.arange(S1), [len(x) for x in sets])
+    cols = np.concatenate([np.array(x) for x in sets])
+    C = mt.hostsparse.spmat_from_coo(rows, cols, np.zeros(len(rows)),
+                                     (S1, P + 1), mt.LOG)
+    return fsm, C, P
+
+
+def phase_k5_f64(num64, P, dev, label="phase 41"):
+    """Phase 41: K5a/K5b's float64 instantiation against its float64 twin
+    on the main-path numerators (phase 7's input, run twice, bit-equal)
+    and on 4 skip-arc numerators of ~1,200 states (the wide
+    instantiation), only float64 launches; then timed on the main-path
+    numerators.  Returns (errs, times) of the main-path numerators."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    f64 = torch.float64
+    assert bsc.instantiations(num64).startswith("K5a narrow, K5b narrow")
+    bsc.reset_launch_counts()
+    errs = phase_banded_kernels(num64, P, dev, label, tol=TOL_F64)
+    torch.cuda.synchronize()
+    assert not any(bsc.LAUNCHES.values()), "a float32 K5 ran for float64"
+    assert bsc.LAUNCHES_F64 == {"banded_fwd": 2, "banded_bwd": 2}, \
+        bsc.LAUNCHES_F64
+    graphs = skip_numerators(P, (1200, 1180, 1150, 1199), seed=7)
+    big = mt.stack([mt.compile_fsm(f, sp, P, strategy="banded", dtype=f64,
+                                   device=dev) for f, sp in graphs])
+    Sp, nO = big.padded_states, len(big.banded_offsets)
+    assert bsc._wide(Sp, nO, 2) == (True, True), bsc._wide(Sp, nO, 2)
+    N = 700
+    rng = np.random.default_rng(8)
+    lhs = torch.from_numpy(make_inputs(rng, 4, N, P, cliffs=True)).to(dev,
+                                                                       f64)
+    lens = torch.tensor([N, N - 10, N - 60, N], dtype=torch.int32,
+                        device=dev)
+    werrs = phase_banded_kernels(big, P, dev, f"{label} (wide, Sp = {Sp})",
+                                 tol=TOL_F64,
+                                 inputs=prepare_emissions(lhs, lens, P, f64))
+    times = time_banded(num64, P, dev, tag="float64")
+    return {k: max(v, werrs[k]) for k, v in errs.items()}, times
+
+
+def phase_refusals(dcf64, dev, cf64, label="phase 41"):
+    """Phase 41, refusals: a float64 'dense' graph, a general-Ĉ graph
+    ('dense' and 'block', float32) and the float64 decode of the 2M-arc
+    graph raise NotImplementedError on the card before any launch, naming
+    the ROADMAP item that ports them; ``fast_path_report`` says so."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+
+    fsm, C, mP = multi_pdf_graph()
+    rng = np.random.default_rng(17)
+    calls = [("float64 'dense' pdfposteriors", dcf64, mt.pdfposteriors,
+              torch.float64)]
+    for strategy in ("dense", "block"):
+        mcf = mt.compile_fsm(fsm, C, mP, strategy=strategy, device=dev)
+        assert mcf.multi_pdf
+        calls.append((f"general-C-hat {strategy!r} pdfposteriors", mcf,
+                      mt.pdfposteriors, torch.float32))
+        calls.append((f"general-C-hat {strategy!r} viterbi", mcf,
+                      mt.viterbi, torch.float32))
+    calls.append(("float64 2M-arc viterbi", cf64, mt.viterbi, torch.float64))
+    reset_all_launches()
+    for name, cf, fn, dt in calls:
+        x = torch.from_numpy(rng.normal(size=(2, 8, cf.num_pdfs))).to(dev, dt)
+        try:
+            fn(cf, x, torch.tensor([8, 5], dtype=torch.int32, device=dev))
+        except NotImplementedError as e:
+            assert "ROADMAP queue 1 item 9b" in str(e), str(e)
+            print(f"{label}: {name} on the card refused: {e}")
+        else:
+            raise AssertionError(f"{name} ran on the card")
+        if fn is mt.pdfposteriors:
+            report = mt.fast_path_report(cf, 2)
+            assert report.startswith("error - ") and "9b" in report, report
+    torch.cuda.synchronize()
+    assert not any(all_launches().values()), all_launches()
+
+
 def main():
     import torch
 
@@ -2918,7 +3233,7 @@ def main():
     d_errs = bf16_checks("phase 24", (ds,), dense_checks)
 
     t0 = time.perf_counter()
-    oracle = {}
+    oracle, oracle_refs = {}, {}  # the f64 oracle of each graph, kept
     for gname, (g, sp_, P_, hi, lo, (tz, tp)) in {
             "2M-arc": (fsm, spdf, P, cf, cf16,
                        (TOL_BF16_LOGZ, TOL_BF16_POSTS)),
@@ -2929,7 +3244,7 @@ def main():
     }.items():
         res, _ = phase_oracle_700(g, sp_, P_, dev, {
             f"{gname} high": (hi, TOL_ORACLE_700, TOL_ORACLE),
-            f"{gname} bf16": (lo, tz, tp)}, "phase 25")
+            f"{gname} bf16": (lo, tz, tp)}, "phase 25", refs=oracle_refs)
         oracle.update(res)
     print(f"phase 25: N=700 oracle gates in {time.perf_counter() - t0:.1f} s")
 
@@ -3022,6 +3337,78 @@ def main():
           f"{bounds['K7'][0]:.3f} ms); sweep {o_times['K7'][0]:.3f} ms")
     o_times2, o_errs2, o_bounds2, t_odec, o_counts2 = phase_block_recompute(
         sfsm, sspdf, scf, sP, dev, label="phase 37", name="separate-state")
+
+    # ---- float64 and general C-hat ----------------------------------------
+    f64 = torch.float64
+    t0 = time.perf_counter()
+    cf64 = mt.compile_fsm(fsm, spdf, P, strategy="block", dtype=f64,
+                          device=dev)
+    scf64 = mt.compile_fsm(sfsm, sspdf, sP, dtype=f64, device=dev)
+    dcf64 = mt.compile_fsm(dfsm, dspdf, dP, dtype=f64, device=dev)
+    for c, want in ((cf64, "cuda-block-scan"), (scf64, "cuda-block-scan"),
+                    (dcf64, "error - float64 'dense' graph")):
+        report = mt.fast_path_report(c, 128)
+        assert report.startswith(want) and c.alpha_hat.dtype == f64, report
+    assert scf64.ov_layout == (128, 3) and dcf64.strategy == "dense"
+    assert bs.kernel_operator(cf64).fwd.W.dtype == f64
+    print(f"phase 38: the 2M-arc, separate-state and V=32 graphs compiled "
+          f"float64 in {time.perf_counter() - t0:.1f} s; paths: "
+          f"{mt.fast_path_report(cf64, 128)}; "
+          f"{mt.fast_path_report(dcf64, 128)}")
+    f_errs = phase_f64_kernels(cf64, P, dev, "phase 38")
+    sf_errs = phase_f64_kernels(scf64, sP, dev, "phase 38 (separate)")
+
+    t0 = time.perf_counter()
+    for gname, (g, sp_, P_, c64) in {
+            "2M-arc": (fsm, spdf, P, cf64),
+            "separate-state": (sfsm, sspdf, sP, scf64)}.items():
+        res, _ = phase_oracle_700(g, sp_, P_, dev, {
+            f"{gname} float64": (c64, TOL_ORACLE, TOL_ORACLE)}, "phase 39",
+            refs=oracle_refs)
+        (e, pe), (e32, pe32) = res[f"{gname} float64"], oracle[
+            f"{gname} high"]
+        print(f"phase 39: {gname} float64 |dlogZ| {e:.3e}, |dposts| "
+              f"{pe:.3e} beside float32 (phase 25) {e32:.3e}, {pe32:.3e}; "
+              f"the contract {TOL_ORACLE:g}")
+    print(f"phase 39: float64 oracle gates in {time.perf_counter() - t0:.1f} "
+          "s")
+
+    num64 = stack_numerators(build_numerators(P), P, dev, f64)
+    report = mt.fast_path_report(num64, 128)
+    assert report.startswith("cuda-banded-scan") and report.endswith(
+        ", float64)"), report
+    f_steps, f_launches = phase_f64_steps({
+        "2M-arc": (step_fns(num_cf, cf, P, dev, torch.float32),
+                   step_fns(num64, cf64, P, dev, f64)),
+        "separate-state": (step_fns(num_cf, scf, sP, dev, torch.float32),
+                           step_fns(num64, scf64, sP, dev, f64)),
+    }, "phase 40")
+    profile_f64_step(step_fns(num64, cf64, P, dev, f64)[0], "phase 40")
+    profile_block_den(cf64, P, dev, "phase 40 (2M-arc float64)")
+    f_times, terrs = time_kernels(cf64, P, dev, tol=TOL_F64)
+    f_errs.update({k: max(f_errs[k], v) for k, v in terrs.items()})
+    sf_times, terrs = time_kernels(scf64, sP, dev, tol=TOL_F64)
+    sf_errs.update({k: max(sf_errs[k], v) for k, v in terrs.items()})
+    splits["2M-arc f64"] = frame_split(cf64, P, dev, "2M-arc graph (float64)")
+    splits["separate-state f64"] = frame_split(
+        scf64, sP, dev, "separate-state graph (float64)")
+    f_bounds = block_bounds(cf64, 128, -(-701 // 64) * 64, 64)
+    sf_bounds = block_bounds(scf64, 128, -(-701 // 64) * 64, 64)
+    for name in ("K2", "K3", "K4"):
+        print(f"timing: {name} float64 {f_times[name][0]:.3f} ms (float32 "
+              f"{times[name][0]:.3f} ms), bound {f_bounds[name][0]:.3f} ms "
+              f"({f_bounds[name][1]}; float32 {bounds[name][0]:.3f} ms); "
+              f"separate-state float64 {sf_times[name][0]:.3f} ms (float32 "
+              f"{ov_times[name][0]:.3f} ms), bound {sf_bounds[name][0]:.3f} "
+              f"ms")
+
+    k5_errs, k5_times = phase_k5_f64(num64, P, dev)
+    k5_bounds = banded_bounds(num64, 701)
+    for name in ("K5a", "K5b"):
+        print(f"timing: {name} float64 {k5_times[name][0]:.3f} ms (float32 "
+              f"{times[name][0]:.3f} ms), bound {k5_bounds[name][0]:.3f} ms "
+              f"({k5_bounds[name][1]}; float32 {bounds[name][0]:.3f} ms)")
+    phase_refusals(dcf64, dev, cf64)
 
     block_src = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
     banded_src = "markovmodels_tpu_torch/ops/csrc/banded_scan.cu"
@@ -3159,6 +3546,30 @@ def main():
          "library_ms": None}
         for name, counter, source, replaces, cnt, err, t, bd in rec_lines
     ]
+    for tag, lch, e64, t64, bd64 in (
+            ("2M-arc graph", f_launches["2M-arc"], f_errs, f_times, f_bounds),
+            ("separate-state backoff graph", f_launches["separate-state"],
+             sf_errs, sf_times, sf_bounds)):
+        kernels += [  # the float64 instantiation (phases 38-40)
+            {"name": f"{name} {counter} (float64, {tag})", "route": "cuda",
+             "source": source, "replaces": replaces,
+             "launches": lch[counter], "max_abs_err": e64[name],
+             "ms": t64[name][0], "plain_ms": t64[name][1],
+             "bound_ms": bd64[name][0], "bound_by": bd64[name][1],
+             "library_ms": None}
+            for name, (counter, source, replaces) in table.items()
+            if name in t64
+        ]
+    kernels += [  # K5's float64 instantiation (phases 40-41)
+        {"name": f"{name} {counter} (float64 numerators)", "route": "cuda",
+         "source": source, "replaces": replaces,
+         "launches": f_launches["2M-arc"][counter],
+         "max_abs_err": k5_errs[name], "ms": k5_times[name][0],
+         "plain_ms": k5_times[name][1], "bound_ms": k5_bounds[name][0],
+         "bound_by": k5_bounds[name][1], "library_ms": None}
+        for name, (counter, source, replaces) in table.items()
+        if name in k5_times
+    ]
     print(f"card: {card}; pdfposteriors B=128 N=700 kernel path "
           f"{t_kern:.2f} ms, plain path {t_plain:.2f} ms; LF-MMI step "
           f"{t_step:.2f} ms, den-only {t_den:.2f} ms; with the ~1,200-state "
@@ -3175,7 +3586,11 @@ def main():
           f"{t_oden:.2f} ms, embedded den-only {t_emb:.2f} ms; bf16 (f32) "
           f"medians: " + "; ".join(f"{k} {b:.2f} ({a:.2f}) ms"
                                    for k, (a, b) in paths16.items())
-          + f"; K6 bf16 yardstick {t_mm16:.2f} ms; per frame, whole / "
+          + f"; K6 bf16 yardstick {t_mm16:.2f} ms; float64 medians (f32): "
+          + "; ".join(f"{k} step {v['f64 step']:.2f} ({v['f32 step']:.2f}) "
+                      f"ms, den-only {v['f64 den']:.2f} ({v['f32 den']:.2f}) "
+                      f"ms" for k, v in f_steps.items())
+          + f"; per frame, whole / "
           f"without work: " + "; ".join(
               f"{k} {name} {v['whole']:.2f} / {v['without work']:.2f} us"
               for k, sp in splits.items() for name, v in sp.items()))

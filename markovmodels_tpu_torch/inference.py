@@ -1,7 +1,8 @@
 """Compiled FSMs, the batched forward-backward and the LF-MMI loss.
 
 PyTorch counterpart of ``markovmodels_tpu/inference.py`` for the 'dense',
-'block' and 'banded' strategies in the probability domain:
+'block' and 'banded' strategies in the probability domain, float32 or
+float64, one pdf per state or a general Ĉ:
 
 * ``compile_fsm`` lowers a host ``FSM`` to a :class:`CompiledFSM` of
   tensors ('dense': exp-shifted (Sp, Sp) operators with their row maxima,
@@ -13,12 +14,15 @@ PyTorch counterpart of ``markovmodels_tpu/inference.py`` for the 'dense',
 * ``pdfposteriors`` / ``forward`` run the probability-domain scan.  CPU
   tensors take the plain PyTorch scan; CUDA tensors take the hand-written
   kernels (``ops/dense_scan.py`` for one shared 'dense' graph,
-  ``ops/block_scan.py`` for one shared 'block' graph,
-  ``ops/banded_scan.py`` for stacked 'banded' graphs, one sequence each)
-  and raise, naming the first rejected predicate, for a graph those kernels
-  do not accept.  Nothing falls back quietly.  Stacked 'dense' graphs take
-  the plain per-graph scan on every device, as the JAX package runs them
-  outside any Pallas kernel;
+  ``ops/block_scan.py`` for one shared 'block' graph, float32 or float64,
+  ``ops/banded_scan.py`` for stacked 'banded' graphs, one sequence each,
+  float32 or float64) and raise, naming the first rejected predicate, for
+  a graph those kernels do not accept.  Nothing falls back quietly.
+  Stacked 'dense' graphs take the plain per-graph scan on every device,
+  as the JAX package runs them outside any Pallas kernel
+  (``_plain_everywhere``).  Float64 'dense' graphs and general-Ĉ graphs
+  have no kernel yet: on the card they raise ``NotImplementedError``
+  before any launch (``_unported_on_card``), on the CPU they run;
 * ``logmarginal`` and ``lfmmi_loss`` are differentiable in ``lhs``: the
   gradient of logZ is the posterior matrix the scan already computed, so
   autograd never differentiates the scan.  This is the LF-MMI training
@@ -56,8 +60,11 @@ __all__ = [
     "fast_path_report",
 ]
 
-_MODES_TODO = ("ROADMAP queue 1 item 9: port the precision modes, float64 "
-               "and general multi-pdf Ĉ")
+_MODES_TODO = ("ROADMAP queue 1 item 9, its remainder: precision 'bf16' with "
+               "dtype float64, which the JAX package defines only by what "
+               "XLA's CPU ignores")
+_CARD_TODO = ("ROADMAP queue 1 item 9b: the float64 instantiations of K6 and "
+              "K7 and the general-Ĉ kernels")
 _LOG_TODO = ("ROADMAP queue 1 item 10: port the log-domain path and the "
              "'ell' and 'segment' strategies")
 _VMAP_TODO = ("ROADMAP queue 1 item 7: port the vmapped per-graph route for "
@@ -173,7 +180,15 @@ def compile_fsm(
 
     ``state_pdf``: int array of length ``num_states + 1`` mapping each state
     (the phony final state included, mapped to ``num_pdfs``) to a pdf id,
-    or a binary ``hostsparse`` Ĉ with one pdf per state.
+    or a binary ``hostsparse`` Ĉ of shape (num_states + 1, num_pdfs + 1).
+    A Ĉ whose rows do not all hold one pdf compiles in general-Ĉ mode
+    (``multi_pdf``, reference src/inference.jl:7-8), with the JAX package's
+    rules: 'dense' or 'block' only, the probability domain only, host state
+    order, the phony row on the phony pdf alone, and (P+1)·Sp ≤ 64 Mi for
+    the binary Ĉᵀ; a state's emission is the sum (Viterbi: the max) over
+    its pdf set, a frame's posteriors are normalised by their pdf-space
+    total.  Such a graph runs on the CPU; on the card it raises, as no
+    kernel takes it yet (``_unported_on_card``).
 
     ``strategy``: 'auto' (the JAX package's default: 'dense' for graphs of
     up to 4,096 states including the phony one, else 'block'), 'dense'
@@ -195,6 +210,12 @@ def compile_fsm(
     and their arcs compile into overflow families (ops/blocked.py).  The
     default (None) caps at 128 whenever the largest pdf owns more than 128
     states and not a multiple of 128.
+    ``dtype``: float32 or float64, the dtype of every float array (the
+    one-hot Ĉᵀ stays float32, as in the JAX package).  A float64 graph
+    takes float64 log-likelihoods and computes in float64 end to end: on
+    the card a 'block' graph through the float64 instantiation of K2-K4,
+    a stack of 'banded' graphs through K5a/K5b's; a float64 'dense' graph
+    runs on the CPU (on the card it raises, ``_unported_on_card``).
     ``precision``: 'high' and 'f32' both mean full float32; 'bf16' (the
     mixed-precision scan) runs the tier product of 'block' graphs and the
     operator product of 'dense' graphs on bf16 operands with float32 sums,
@@ -202,29 +223,53 @@ def compile_fsm(
     mode, as in the JAX package, which casts at the call.
 
     Not ported yet (raise ``NotImplementedError``): the 'ell' and 'segment'
-    strategies, float64, general multi-pdf Ĉ and the log domain.
+    strategies, the log domain, and precision 'bf16' with float64.
     """
     device = _target_device(device)
     S1 = len(fsm.alpha_hat)
-    if strategy == "auto":
-        strategy = "dense" if S1 <= 4096 else "block"
-    if strategy not in _PORTED:
-        raise NotImplementedError(f"strategy {strategy!r} ({_LOG_TODO})")
-    if dtype != torch.float32:
-        raise NotImplementedError(f"dtype {dtype} ({_MODES_TODO})")
-    if precision not in ("high", "f32", "bf16"):
-        raise NotImplementedError(f"precision {precision!r} ({_MODES_TODO})")
-    if domain != "prob":
-        raise NotImplementedError(f"domain {domain!r} ({_LOG_TODO})")
+    C_multi = None
     if isinstance(state_pdf, hs.SpMat):
-        if not (np.diff(state_pdf.indptr) == 1).all():
-            raise NotImplementedError(
-                f"general multi-pdf Ĉ ({_MODES_TODO})"
-            )
-        state_pdf = state_pdf.indices
+        counts = np.diff(state_pdf.indptr)
+        if (counts == 1).all():
+            state_pdf = state_pdf.indices
+        else:
+            # general Ĉ (reference src/inference.jl:7-8): the emissions
+            # and the posterior reduction run through the binary Ĉᵀ
+            C_multi = state_pdf
+            if C_multi.shape != (S1, num_pdfs + 1):
+                raise ValueError(
+                    f"general Ĉ must have shape ({S1}, {num_pdfs + 1})")
+            # a representative pdf per state (empty rows -> phony pdf);
+            # the scans read the binary Ĉᵀ instead
+            rep = np.full(S1, num_pdfs, dtype=np.int32)
+            nz = counts > 0
+            rep[nz] = C_multi.indices[C_multi.indptr[:-1][nz]]
+            state_pdf = rep
     state_pdf = np.asarray(state_pdf, dtype=np.int32)
     if state_pdf.shape != (S1,):
         raise ValueError(f"state_pdf must have shape ({S1},)")
+    if strategy == "auto":
+        strategy = "dense" if S1 <= 4096 else "block"
+    if C_multi is not None:
+        if strategy not in ("dense", "block"):
+            raise ValueError(
+                "general Ĉ requires the 'dense' or 'block' strategy")
+        if domain != "prob":
+            raise ValueError("general Ĉ requires domain='prob'")
+        reorder = "none"  # the pdf-grouped layout assumes one pdf per state
+    if strategy not in _PORTED:
+        raise NotImplementedError(f"strategy {strategy!r} ({_LOG_TODO})")
+    if dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(f"dtype {dtype} ({_MODES_TODO})")
+    if precision not in ("high", "f32", "bf16"):
+        raise NotImplementedError(
+            f"precision {precision!r}: the ported precisions are 'high', "
+            "'f32' and 'bf16' (ROADMAP queue 1 item 9)")
+    if precision == "bf16" and dtype == torch.float64:
+        raise NotImplementedError(f"precision 'bf16' with dtype float64 "
+                                  f"({_MODES_TODO})")
+    if domain != "prob":
+        raise NotImplementedError(f"domain {domain!r} ({_LOG_TODO})")
     if reorder not in ("auto", "pdf", "none"):
         raise ValueError(f"unknown reorder mode {reorder!r}")
 
@@ -331,13 +376,27 @@ def compile_fsm(
     fwd_src, fwd_dst, fwd_w = edge_arrays(rows, cols, data)
     bwd_src, bwd_dst, bwd_w = edge_arrays(cols, rows, data)
 
-    # one-hot Ĉᵀ for the posterior reduction when the layout is not
-    # pdf-grouped (with it, the reduction is a reshape-sum)
+    # one-hot Ĉᵀ (float32 in every dtype, as in the JAX package) for the
+    # posterior reduction when the layout is not pdf-grouped (with it, the
+    # reduction is a reshape-sum); with a general Ĉ it is the binary Ĉᵀ,
+    # several ones per column, through which the emissions run too
     pdf_onehot = None
     if not pdf_group and Sp * (num_pdfs + 1) <= 64 * 1024 * 1024:
         oh = np.zeros((num_pdfs + 1, Sp), dtype=np.float32)
         oh[spdf, np.arange(Sp)] = 1.0
+        if C_multi is not None:
+            fin_cols = C_multi.indices[
+                C_multi.indptr[S1 - 1]:C_multi.indptr[S1]]
+            if len(fin_cols) != 1 or fin_cols[0] != num_pdfs:
+                raise ValueError("Ĉ phony row must map to the phony pdf")
+            oh[:, :S1] = 0.0
+            scol = np.repeat(np.arange(S1), np.diff(C_multi.indptr))
+            oh[C_multi.indices, scol] = 1.0
         pdf_onehot = torch.from_numpy(oh)
+    elif C_multi is not None:
+        raise ValueError(
+            "general Ĉ needs the one-hot reduction matrix; "
+            f"(P+1)·Sp = {(num_pdfs + 1) * Sp} exceeds the size limit")
 
     # rank-1 split: arcs into the phony final state (the ω column of the
     # extended matrix) are handled analytically, so the block operators
@@ -346,15 +405,17 @@ def compile_fsm(
     om = np.zeros(Sp, dtype=np.float64)
     np.add.at(om, rows[to_fin], np.exp(data[to_fin]))
     crows, ccols, cdata = rows[~to_fin], cols[~to_fin], data[~to_fin]
-    f32 = lambda x: torch.from_numpy(np.asarray(x, dtype=np.float32))
+    # every float array in ``dtype``, rounded once from float64
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    fl = lambda x: torch.from_numpy(np.asarray(x, dtype=np_dtype))
     kw = dict(block_fwd=None, block_bwd=None, banded_fwd=None,
               banded_bwd=None, block_fwd_offsets=(), block_bwd_offsets=(),
-              banded_offsets=(), omega_prob=f32(om))
+              banded_offsets=(), omega_prob=fl(om))
     if strategy == "dense":
         # the whole extended matrix, ω column included (no rank-1 split)
         kw["omega_prob"] = None
         for name, dst, src in (("fwd", cols, rows), ("bwd", rows, cols)):
-            W = np.full((Sp, Sp), -np.inf, dtype=np.float32)
+            W = np.full((Sp, Sp), -np.inf, dtype=np_dtype)
             W[dst, src] = data  # fwd: W[j, i] = T̂[i, j]
             exp_w, row_max = dense_scan.make_dense_operator(
                 torch.from_numpy(W))
@@ -366,9 +427,9 @@ def compile_fsm(
                 "tropical reuse of omega_prob"
             )
         kw["block_fwd"], kw["block_fwd_offsets"] = build_block_operator(
-            crows, ccols, cdata, Sp, ov_region=ov_region)
+            crows, ccols, cdata, Sp, dtype=np_dtype, ov_region=ov_region)
         kw["block_bwd"], kw["block_bwd_offsets"] = build_block_operator(
-            ccols, crows, cdata, Sp, ov_region=ov_region)
+            ccols, crows, cdata, Sp, dtype=np_dtype, ov_region=ov_region)
     else:
         # every core arc on one of <= 8 shared offsets (the JAX package's
         # banded branch has no parallel-arc check; neither has this one)
@@ -385,19 +446,19 @@ def compile_fsm(
             sel = (ccols - crows) == off
             bf[oi, ccols[sel]] = np.exp(cdata[sel])
             bb[oi, crows[sel]] = np.exp(cdata[sel])
-        kw["banded_fwd"], kw["banded_bwd"] = f32(bf), f32(bb)
+        kw["banded_fwd"], kw["banded_bwd"] = fl(bf), fl(bb)
         kw["banded_offsets"] = tuple(int(o) for o in offs)
 
     cf = CompiledFSM(
-        alpha_hat=f32(alpha_hat),
+        alpha_hat=fl(alpha_hat),
         final_state=int(final_idx),
         state_pdf=torch.from_numpy(spdf),
         fwd_src=torch.from_numpy(fwd_src),
         fwd_dst=torch.from_numpy(fwd_dst),
-        fwd_w=f32(fwd_w),
+        fwd_w=fl(fwd_w),
         bwd_src=torch.from_numpy(bwd_src),
         bwd_dst=torch.from_numpy(bwd_dst),
-        bwd_w=f32(bwd_w),
+        bwd_w=fl(bwd_w),
         pdf_onehot=pdf_onehot,
         orig_state=torch.from_numpy(orig),
         num_states=S1,
@@ -405,6 +466,7 @@ def compile_fsm(
         strategy=strategy,
         precision=precision,
         pdf_group=pdf_group,
+        multi_pdf=C_multi is not None,
         ov_layout=ov_layout,
         **kw,
     )
@@ -473,6 +535,12 @@ def compiled_from_numpy(fields: dict, meta: dict, *,
         raise NotImplementedError(f"strategy {cf.strategy!r} ({_LOG_TODO})")
     if cf.domain != "prob":
         raise NotImplementedError(f"domain {cf.domain!r} ({_LOG_TODO})")
+    if cf.alpha_hat.dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(f"dtype {cf.alpha_hat.dtype} "
+                                  f"({_MODES_TODO})")
+    if cf.precision == "bf16" and cf.alpha_hat.dtype == torch.float64:
+        raise NotImplementedError(f"precision 'bf16' with dtype float64 "
+                                  f"({_MODES_TODO})")
     return cf if device.type == "cpu" else cf.to(device)
 
 
@@ -486,7 +554,8 @@ def stack(cfsms) -> CompiledFSM:
     bands where a graph lacks one.  'dense': each (Sp, Sp) operator is
     padded with 0 and each row max with -inf.  Run one sequence per graph
     (B = G) through ``pdfposteriors``.  The stack lies on its inputs'
-    device.
+    device and keeps their dtype (all float32 or all float64); it is in
+    general-Ĉ mode when any of its graphs is.
 
     'block' raises ``ValueError`` as in the JAX package (the blocked scans
     share one large graph across the batch); 'ell' and 'segment' are not
@@ -572,6 +641,9 @@ def stack(cfsms) -> CompiledFSM:
         batched=True,
         precision=cfsms[0].precision,
         domain=cfsms[0].domain,
+        # the JAX package's stack drops the flag, and its per-graph scan
+        # then reads the representative pdfs; the port keeps it
+        multi_pdf=any(c.multi_pdf for c in cfsms),
         **kw,
     )
 
@@ -584,16 +656,20 @@ batch = stack  # the reference's name (src/inference.jl exports ``batch``)
 # ---------------------------------------------------------------------------
 
 # Cody-Waite split of ln 2: LN2_HI has 9 mantissa bits, so k·LN2_HI is
-# exact in float32 for integer |k| < 2^15; k·LN2_LO carries the rest.
+# exact in float32 for integer |k| < 2^15; k·LN2_LO carries the rest, the
+# float32 one (as the JAX package's) or, in float64, the float64 one (the
+# float32 rounding of LN2_LO, 1.6e-12, would cost ~3e-9 in logZ at N=700)
 _LN2_HI = float(np.float32(0.693359375))
 _LN2_LO = float(np.float32(np.log(2.0) - 0.693359375))
+_LN2_LO64 = float(np.log(2.0) - 0.693359375)
 
 
 def _combine_shift(logv, ksum, shift):
     """logZ = logv + ksum·ln2 + shift with the ksum·ln2 product split so the
     dominant term is exact (ksum is an exactly-accumulated integer)."""
     hi = torch.tensor(_LN2_HI, dtype=logv.dtype, device=logv.device)
-    lo = torch.tensor(_LN2_LO, dtype=logv.dtype, device=logv.device)
+    lo = torch.tensor(_LN2_LO64 if logv.dtype == torch.float64 else _LN2_LO,
+                      dtype=logv.dtype, device=logv.device)
     return ((logv + ksum * lo) + shift) + ksum * hi
 
 
@@ -601,8 +677,8 @@ def _combine_f64(vfin, ksum, shift, dtype):
     """logZ of the CUDA routes: log v + ksum·ln2 + shift combined in
     float64 and returned in ``dtype``.  Over 700 frames ksum·ln2 and the
     shift pass 1,024, where one float32 rounding of their sum is 1.2e-4."""
-    return _combine_shift(_log_final(vfin.double()), ksum.double(),
-                          shift.double()).to(dtype)
+    return _combine_shift(_log_final(vfin.double(), vfin.dtype),
+                          ksum.double(), shift.double()).to(dtype)
 
 
 def _kahan_add(s, c, x):
@@ -612,16 +688,27 @@ def _kahan_add(s, c, x):
     return t, (t - s) - y
 
 
-def _log_final(v):
-    return torch.where(v > 0, torch.log(torch.clamp(v, min=1e-38)),
+def _log_final(v, dtype=None):
+    """log v where v > 0, else -inf.  The clamp inside the log keeps its
+    unused branch finite, by the dtype v was computed in (``dtype``,
+    default v's): 1e-38 for float32 (the JAX package's), the smallest
+    normal float64 for float64, so a float64 final value far below 1e-38
+    keeps its log."""
+    tiny = (torch.finfo(torch.float64).tiny
+            if (dtype or v.dtype) == torch.float64 else 1e-38)
+    return torch.where(v > 0, torch.log(torch.clamp(v, min=tiny)),
                        torch.full_like(v, -float("inf")))
 
 
-def _make_eprob(cf: CompiledFSM, lengths):
-    """(lhs_t (B, P), t) -> (e (Sp, B) in [0, 1], m_l (B,) log-shift)."""
+def _make_eprob(cf: CompiledFSM, lengths, dtype):
+    """(lhs_t (B, P), t) -> (e (Sp, B) in [0, 1], m_l (B,) log-shift) in
+    the scan's ``dtype``.  A general Ĉ's state sums its pdf set: Ĉᵀ·ext,
+    where padding and phony columns carry the phony pdf (the JAX
+    package's ``_make_eprob``, ``inference.py:939-948``), in ``dtype``."""
     Sp = cf.padded_states
-    is_ph = torch.zeros((Sp, 1), dtype=cf.alpha_hat.dtype, device=cf.device)
+    is_ph = torch.zeros((Sp, 1), dtype=dtype, device=cf.device)
     is_ph[cf.final_state] = 1.0
+    oh_t = cf.pdf_onehot.T.to(dtype).contiguous() if cf.multi_pdf else None
 
     def eprob(lhs_t, t):
         active = t < lengths  # (B,)
@@ -629,7 +716,9 @@ def _make_eprob(cf: CompiledFSM, lengths):
         el = torch.exp(lhs_t - m_l[:, None])
         ph = (~active).to(lhs_t.dtype)[None, :]
         ext = torch.cat([el.T * active[None, :], ph], dim=0)  # (P1, B)
-        if cf.pdf_group:
+        if cf.multi_pdf:
+            x = oh_t @ ext
+        elif cf.pdf_group:
             cmax, lim = cf.pdf_group
             x = ext.repeat_interleave(cmax, dim=0)
             x = torch.nn.functional.pad(x, (0, 0, 0, Sp - lim))
@@ -770,10 +859,15 @@ _STATE_DTYPE = {"banded": torch.float64}
 
 
 def _fb_prob(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
-    """Plain probability-domain scan of one graph shared by the batch."""
+    """Plain probability-domain scan of one graph shared by the batch, its
+    state in lhs's dtype (float64 for a 'banded' graph): the graph's, or
+    float64 log-likelihoods on a float32 graph."""
     B = lhs.shape[0]
     P1 = cf.num_pdfs + 1
+    dtype = _STATE_DTYPE.get(cf.strategy, lhs.dtype)
     fwd_pmv, bwd_pmv = _make_prob_matvecs(cf)
+    onehot = (None if cf.pdf_onehot is None
+              else cf.pdf_onehot.to(dtype).contiguous())
 
     def pdf_reduce(a, y):
         gamma = a * y
@@ -781,8 +875,11 @@ def _fb_prob(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
             cmax, lim = cf.pdf_group
             s = gamma[:lim].reshape(P1, cmax, B).sum(dim=1)
             return s, s.sum(dim=0)
-        if cf.pdf_onehot is not None:
-            return cf.pdf_onehot.to(gamma.dtype) @ gamma, gamma.sum(dim=0)
+        if onehot is not None:
+            s = onehot @ gamma
+            # a general Ĉ's state adds to several pdfs: the frame's total
+            # is the pdf-space sum (JAX ``inference.py:996-998``)
+            return s, (s if cf.multi_pdf else gamma).sum(dim=0)
         s = gamma.new_zeros((P1, B)).index_add_(0, cf.state_pdf.long(), gamma)
         return s, gamma.sum(dim=0)
 
@@ -790,13 +887,12 @@ def _fb_prob(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
         alpha0=torch.exp(cf.alpha_hat),
         fwd_pmv=fwd_pmv,
         bwd_pmv=bwd_pmv,
-        eprob=_make_eprob(cf, lengths),
+        eprob=_make_eprob(cf, lengths, dtype),
         pdf_reduce=pdf_reduce,
         final_val=lambda a, ksum, shift: _combine_shift(
             _log_final(a[cf.final_state]), ksum, shift),
     )
-    return _fbp_run(kern, lhs, chunk_size, want_posts, cf.num_pdfs,
-                    _STATE_DTYPE.get(cf.strategy))
+    return _fbp_run(kern, lhs, chunk_size, want_posts, cf.num_pdfs, dtype)
 
 
 def _make_stacked_eprob(spdf, lengths):
@@ -858,10 +954,13 @@ def _fb_prob_dense_stacked(cf: CompiledFSM, lhs, lengths, chunk_size,
     the (Sp, G) state and each column is multiplied by its own graph's
     operator (one batched matmul per frame).  Emissions are a per-column
     gather of each graph's state pdfs, the pdf reduction a per-graph
-    one-hot product (every 'dense' graph carries its one-hot Ĉᵀ).  Stacked
-    bf16 graphs multiply the bf16 operands of the K6 kernels, as one such
-    graph does on the plain path."""
+    one-hot product (every 'dense' graph carries its one-hot Ĉᵀ; in
+    general-Ĉ mode the emissions are each graph's Ĉᵀ·ext and a frame's
+    total its pdf-space sum).  Stacked bf16 graphs multiply the bf16
+    operands of the K6 kernels, as one such graph does on the plain
+    path."""
     fin = torch.as_tensor(cf.final_state, device=cf.device).long()
+    onehot = cf.pdf_onehot.to(lhs.dtype)  # (G, P1, Sp)
 
     def pmv(expw, row_max):
         if cf.precision == "bf16":
@@ -874,19 +973,31 @@ def _fb_prob_dense_stacked(cf: CompiledFSM, lhs, lengths, chunk_size,
 
     def pdf_reduce(a, y):
         gamma = a * y
-        s = torch.bmm(cf.pdf_onehot.to(gamma.dtype),
-                      gamma.T[:, :, None])[:, :, 0].T
-        return s, gamma.sum(dim=0)
+        s = torch.bmm(onehot, gamma.T[:, :, None])[:, :, 0].T
+        return s, (s if cf.multi_pdf else gamma).sum(dim=0)
 
     def final_val(a, ksum, shift):
         v = a.gather(0, fin[None, :])[0]
         return _combine_shift(_log_final(v), ksum, shift)
 
+    eprob = _make_stacked_eprob(cf.state_pdf.long().T, lengths)
+    if cf.multi_pdf:
+        oh_t = onehot.transpose(1, 2).contiguous()  # (G, Sp, P1)
+
+        def eprob(lhs_t, t):
+            active = t < lengths  # (G,)
+            m_l = lhs_t.amax(dim=1)
+            el = torch.exp(lhs_t - m_l[:, None])
+            ext = torch.cat([el.T * active[None, :],
+                             (~active).to(lhs_t.dtype)[None, :]], dim=0)
+            return (torch.bmm(oh_t, ext.T[:, :, None])[:, :, 0].T,
+                    torch.where(active, m_l, torch.zeros_like(m_l)))
+
     kern = _ProbKernels(
         alpha0=torch.exp(cf.alpha_hat).T,
         fwd_pmv=pmv(cf.dense_fwd_exp, cf.dense_fwd_max),
         bwd_pmv=pmv(cf.dense_bwd_exp, cf.dense_bwd_max),
-        eprob=_make_stacked_eprob(cf.state_pdf.long().T, lengths),
+        eprob=eprob,
         pdf_reduce=pdf_reduce,
         final_val=final_val,
     )
@@ -915,7 +1026,7 @@ def _fb_block_cuda(cf: CompiledFSM, lhs, lengths, want_posts, chunk_size):
     """The hand-written CUDA scan (ops/block_scan.py): one forward sweep
     with chunk checkpoints, then per chunk a recompute and a backward."""
     B, N, P = lhs.shape
-    ext, mshift = prepare_emissions(lhs, lengths, P)
+    ext, mshift = prepare_emissions(lhs, lengths, P, cf.alpha_hat.dtype)
     posts, vfin, shift, ksum = block_scan.block_fused_fb(
         cf, ext, mshift, want_posts, chunk=min(chunk_size, N + 1)
     )
@@ -967,16 +1078,44 @@ def _kernel_route(cf: CompiledFSM, device, batch_size: int,
     return True
 
 
+def _unported_on_card(cf: CompiledFSM):
+    """Why no kernel runs this graph on the card yet, or None: a general Ĉ
+    (no kernel lifts a state's pdf set; the JAX package's decline it too)
+    and a float64 'dense' graph (K6a/K6b are float32).  Decided from the
+    graph's Ĉ and dtype before any launch; such a graph runs on the
+    CPU."""
+    if cf.multi_pdf:
+        return ("general multi-pdf C-hat: the CUDA kernels take one pdf "
+                f"per state ({_CARD_TODO})")
+    if cf.strategy == "dense" and cf.alpha_hat.dtype == torch.float64:
+        return f"float64 'dense' graph: K6a/K6b are float32 ({_CARD_TODO})"
+    return None
+
+
+def _plain_everywhere(cf: CompiledFSM):
+    """Why this graph takes the plain scan on every device, or None:
+    stacked 'dense' graphs, which the JAX package runs outside any Pallas
+    kernel (its dense kernels reject batched graphs, and its vmap lands on
+    the XLA scan)."""
+    if cf.batched and cf.strategy == "dense":
+        return ("stacked 'dense' graphs, one column per graph, on every "
+                "device: the JAX package runs this route outside any "
+                "Pallas kernel")
+    return None
+
+
 def fast_path_report(cf: CompiledFSM, batch_size: int, *, device=None) -> str:
     """One-line explanation of the path ``pdfposteriors`` takes for this
     graph at the RUNTIME batch ``batch_size`` on ``device`` (default: the
     graph's device) and, for a CUDA device, the first predicate the kernels
     reject (``pdfposteriors`` then raises with the same reason)."""
     device = torch.device(cf.device if device is None else device)
-    if cf.batched and cf.strategy == "dense":
-        return ("plain torch per-graph scan (stacked 'dense' graphs, one "
-                "column per graph, on every device: the JAX package runs "
-                "this route outside any Pallas kernel)")
+    todo = _unported_on_card(cf) if device.type == "cuda" else None
+    if todo is not None:
+        return f"error - {todo}"
+    why = _plain_everywhere(cf)
+    if why is not None:
+        return f"plain torch per-graph scan ({why})"
     if device.type == "cpu":
         what = ("stacked 'banded' graphs, one column per graph"
                 if cf.batched else f"one {cf.strategy!r} graph")
@@ -1013,6 +1152,9 @@ def _dispatch(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
     B, N, P = lhs.shape
     if P != cf.num_pdfs:
         raise ValueError(f"lhs has {P} pdfs, graph expects {cf.num_pdfs}")
+    if cf.alpha_hat.dtype == torch.float64 and lhs.dtype != torch.float64:
+        raise ValueError(f"lhs is {lhs.dtype}, the graph float64: a float64 "
+                         "graph takes float64 log-likelihoods")
     if cf.batched and not (cf.strategy in ("banded", "dense")
                            and B == cf.alpha_hat.shape[0]):
         raise NotImplementedError(
@@ -1029,9 +1171,10 @@ def _dispatch(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
         torch.as_tensor(lengths).to(device=lhs.device, dtype=torch.int32),
         max=N,
     )
-    if cf.batched and cf.strategy == "dense":
-        # the designated route on every device: the JAX package's dense
-        # kernels reject batched graphs, and its vmap lands on the XLA scan
+    todo = _unported_on_card(cf) if lhs.device.type == "cuda" else None
+    if todo is not None:
+        raise NotImplementedError(todo)
+    if _plain_everywhere(cf) is not None:
         return _fb_prob_dense_stacked(cf, lhs, lengths, chunk_size,
                                       want_posts)
     if _kernel_route(cf, lhs.device, B, N):

@@ -37,9 +37,9 @@ _SIGNATURES = {
     "mm_block_recompute": [_P] * 10 + [_I] * 8 + [_P] * 7,
     "mm_block_bwd": [_P] * 12 + [_I] * 7 + [_P] * 10,
     "mm_block_ctas": [_I] * 4,
-    "mm_banded_fwd": [_P] * 13,
-    "mm_banded_bwd": [_P] * 10,
-    "mm_banded_smem": [_I] * 3,
+    "mm_banded_fwd": [_P] * 12 + [_I, _P],
+    "mm_banded_bwd": [_P] * 9 + [_I, _P],
+    "mm_banded_smem": [_I] * 4,
     "mm_dense_fwd": [_P] * 6 + [_I] * 2 + [_P] * 4 + [_I] * 6 + [_P] * 9,
     "mm_dense_bwd": [_P] * 6 + [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P] * 8,
     "mm_dense_trop": [_P] * 6 + [_I] * 2 + [_P] * 4 + [_I] * 6 + [_P] * 8,

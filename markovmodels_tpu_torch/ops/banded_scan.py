@@ -24,7 +24,9 @@ state:
 
 One repair against the Pallas kernels: the state (alpha, beta, and so
 gamma) and the logZ pieces are float64, while the inputs and the
-posteriors stay float32.  alpha and beta are each normalised to max 1 per frame, and
+posteriors keep the graph's dtype: float32, or float64 for a float64
+stack (each kernel's float64 instantiation, counted in ``LAUNCHES_F64``).
+alpha and beta are each normalised to max 1 per frame, and
 on a long lattice their masses sit at opposite ends (alpha runs ahead of
 the sequence, beta behind it): for the 78-state numerators at N = 700 both
 factors at the posterior's peak fall to 1e-27 .. 1e-40 in mid-sequence and
@@ -73,11 +75,15 @@ __all__ = [
     "gammas_plain",
     "banded_fused_fb",
     "LAUNCHES",
+    "LAUNCHES_F64",
     "reset_launch_counts",
 ]
 
-# launches of each CUDA kernel entry point, counted by its wrapper
+# launches of each CUDA kernel entry point, counted by its wrapper: the
+# float32 instantiations in LAUNCHES, the float64 ones (a float64 stack)
+# in LAUNCHES_F64
 LAUNCHES = {"banded_fwd": 0, "banded_bwd": 0}
+LAUNCHES_F64 = dict(LAUNCHES)
 
 _MAX_BANDS = 8  # offsets a kernel takes (compile_fsm's cap)
 _DEPTH = 8  # frames fetched ahead of the chain (DEPTH in the .cu)
@@ -91,20 +97,25 @@ _SMEM_BYTES = 232448  # dynamic shared memory one CTA may use on Hopper
 
 def reset_launch_counts():
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = LAUNCHES_F64[k] = 0
+
+
+def _counts(dtype):
+    return LAUNCHES_F64 if dtype == torch.float64 else LAUNCHES
 
 
 # ---------------------------------------------------------------------------
 # admission
 # ---------------------------------------------------------------------------
 
-def _variant_words(Sp: int, nO: int, wide: bool) -> tuple:
+def _variant_words(Sp: int, nO: int, wide: bool, tw: int = 1) -> tuple:
     """Shared-memory words (4 bytes) of one CTA of K5a and of K5b, one graph
-    each, in the narrow or the wide instantiation (csrc/banded_scan.cu,
-    ``fwd_smem_words``, ``bwd_smem_words``).  K5a: the float64 state double
-    buffer, bands (one zero band when nO = 0), omega and alpha ring, two
-    mbarriers per ring slot, then the float emission and shift rings.
-    K5b: the state double buffer, the bands, omega, the beta ring, and per
+    each, in the narrow or the wide instantiation, with inputs of ``tw``
+    words (1 float32, 2 float64; csrc/banded_scan.cu, ``fwd_smem_words``,
+    ``bwd_smem_words``).  K5a: the float64 state double buffer, bands (one
+    zero band when nO = 0), omega and alpha ring, two mbarriers per ring
+    slot, then the emission and shift rings (the inputs' type).  K5b: the
+    state double buffer, the bands, omega, the beta ring, and per
     posterior warp gamma and an alpha ring (float64), two mbarriers per
     beta slot and per emission slot, the emission ring and the plan's
     state order.  The wide one has shallower rings, one posterior warp,
@@ -113,34 +124,42 @@ def _variant_words(Sp: int, nO: int, wide: bool) -> tuple:
     D, R, W = ((_WDEPTH, _WYRING, 1) if wide
                else (_DEPTH, _YRING, _POST_WARPS))
     pd = Sp if wide else 0
-    fwd = 2 * (2 + nb + 1 + D) * Sp + 4 * D + D * Sp + D + pd
+    fwd = 2 * (2 + nb + 1 + D) * Sp + 4 * D + tw * (D * Sp + D) + pd
     bwd = (2 * (2 + nb + 1 + R + W * (1 + D)) * Sp + 4 * (R + D)
-           + (D + 1) * Sp + pd)
+           + tw * D * Sp + Sp + pd)
     return fwd, bwd
 
 
-def _wide(Sp: int, nO: int) -> tuple:
+def _wide(Sp: int, nO: int, tw: int = 1) -> tuple:
     """Whether K5a and K5b take the wide instantiation: past the narrow
     one's states in registers, or where its shared memory exceeds a CTA's
     (``fwd_wide``, ``bwd_wide`` in the .cu)."""
-    narrow = _variant_words(Sp, nO, False)
+    narrow = _variant_words(Sp, nO, False, tw)
     return tuple(Sp > _NARROW_STATES or 4 * w > _SMEM_BYTES for w in narrow)
 
 
-def _smem_words(Sp: int, nO: int) -> tuple:
+def _smem_words(Sp: int, nO: int, tw: int = 1) -> tuple:
     """Shared-memory words of one CTA of K5a and of K5b, each in the
     instantiation its launch takes (``mm_banded_smem``)."""
-    fw, bw = _wide(Sp, nO)
-    return _variant_words(Sp, nO, fw)[0], _variant_words(Sp, nO, bw)[1]
+    fw, bw = _wide(Sp, nO, tw)
+    return (_variant_words(Sp, nO, fw, tw)[0],
+            _variant_words(Sp, nO, bw, tw)[1])
+
+
+def _words(dtype) -> int:
+    """Shared-memory words of one input value: 2 for float64, else 1."""
+    return 2 if dtype == torch.float64 else 1
 
 
 def instantiations(cf) -> str:
     """Which instantiation of K5a and of K5b a stacked 'banded' graph
     takes, in words, for ``fast_path_report``."""
     Sp, nO = cf.padded_states, len(cf.banded_offsets)
-    fw, bw = _wide(Sp, nO)
+    tw = _words(cf.alpha_hat.dtype)
+    fw, bw = _wide(Sp, nO, tw)
     word = lambda w: "wide" if w else "narrow"
-    return f"K5a {word(fw)}, K5b {word(bw)} (Sp = {Sp}, {nO} offsets)"
+    f64 = ", float64" if tw == 2 else ""
+    return f"K5a {word(fw)}, K5b {word(bw)} (Sp = {Sp}, {nO} offsets{f64})"
 
 
 def banded_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
@@ -157,16 +176,22 @@ def banded_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     wide one's) within a CTA's, and the (Nf, P1, G) emission and
     posterior streams plus the (Nf, Sp, G) float64 alphas, each sized by
     its dtype, must fit the free memory of ``device`` when that is a CUDA
-    device (checked where a card is present)."""
+    device (checked where a card is present).  The kernels take a float32
+    or a float64 stack (the JAX package's take float32 only), every float
+    array of it in one dtype."""
     if not cf.batched or cf.strategy != "banded":
         return "not a stacked 'banded' CompiledFSM"
     if cf.domain != "prob":
         return f"domain {cf.domain!r} != 'prob'"
     if cf.multi_pdf:
         return "general multi-pdf C-hat"
-    if cf.alpha_hat.dtype != torch.float32:
-        return (f"operator dtype {cf.alpha_hat.dtype} (fused kernels are "
-                "f32)")
+    dts = {t.dtype for t in (cf.alpha_hat, cf.banded_fwd, cf.banded_bwd,
+                             cf.omega_prob)}
+    if len(dts) > 1 or cf.alpha_hat.dtype not in (torch.float32,
+                                                  torch.float64):
+        return (f"operator dtype {cf.alpha_hat.dtype} with "
+                f"{cf.banded_fwd.dtype} bands (the kernels take float32 or "
+                "float64 throughout)")
     G = cf.alpha_hat.shape[0]
     if B != G:
         return f"batch {B} != graph count {G} (one sequence per graph)"
@@ -177,7 +202,7 @@ def banded_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     if nO > _MAX_BANDS:
         return f"{nO} band offsets (kernel supports at most {_MAX_BANDS})"
     P1 = cf.num_pdfs + 1
-    smem = 4 * max(_smem_words(Sp, nO))
+    smem = 4 * max(_smem_words(Sp, nO, _words(cf.alpha_hat.dtype)))
     if smem > _SMEM_BYTES:
         return (f"shared-memory working set {smem} B for Sp = {Sp}, "
                 f"{nO} offsets exceeds a CTA's {_SMEM_BYTES} B")
@@ -353,12 +378,13 @@ def gammas_plain(kop: BandedOp, ext, alphas):
         b = bn * _pow2_scale(_pow2_exponent(bn.amax(dim=0)))[None, :]
 
 
-def backward_plain(kop: BandedOp, ext, alphas, dtype=torch.float32):
-    """Plain twin of K5b.  Returns posts (Nf, P1, G) in ``dtype`` (float64
-    keeps them before K5b's float32 cast): gamma = alpha ⊙ beta summed per
+def backward_plain(kop: BandedOp, ext, alphas, dtype=None):
+    """Plain twin of K5b.  Returns posts (Nf, P1, G) in ``dtype``, by
+    default ext's, as K5b writes them (float64 keeps float32 inputs'
+    posteriors before K5b's float32 cast): gamma = alpha ⊙ beta summed per
     pdf, over its state sum (0 where that is 0)."""
     Nf, P1, G = ext.shape
-    posts = ext.new_empty((Nf, P1, G), dtype=dtype)
+    posts = ext.new_empty((Nf, P1, G), dtype=dtype or ext.dtype)
     spdf = kop.spdf.long()
     for t, g in gammas_plain(kop, ext, alphas):
         s = g.new_zeros((P1, G)).scatter_add_(0, spdf, g)
@@ -379,12 +405,17 @@ def _imeta(kop: BandedOp, Nf: int) -> np.ndarray:
 
 
 def _check_op(kop: BandedOp, dev):
+    """The operator's tensors on ``dev``, every float one in a0's dtype
+    (float32 or float64, the instantiation a launch takes)."""
     nO = max(len(kop.offsets), 1)
+    dt = kop.a0.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"a0: expected float32 or float64, got {dt}")
     for name, t, shape in (("a0", kop.a0, (kop.Sp, kop.G)),
                            ("bf", kop.bf, (nO, kop.Sp, kop.G)),
                            ("bb", kop.bb, (nO, kop.Sp, kop.G)),
                            ("om", kop.om, (kop.Sp, kop.G))):
-        _check(name, t, shape, dev)
+        _check(name, t, shape, dev, dt)
     _check("fin", kop.fin, (kop.G,), dev, torch.int32)
     _check("spdf", kop.spdf, (kop.Sp, kop.G), dev, torch.int32)
     _check("plan", kop.plan, (kop.G, 3 * kop.Sp + 2), dev, torch.int32)
@@ -392,16 +423,17 @@ def _check_op(kop: BandedOp, dev):
 
 def fwd_sweep(kop: BandedOp, ext, mshift, save_alphas: bool = True):
     """K5a: the forward sweep over all Nf frames.  Same outputs as
-    :func:`fwd_sweep_plain`."""
+    :func:`fwd_sweep_plain`.  ``ext`` and ``mshift`` in the operator's
+    dtype."""
     if not _route(ext, "banded-scan"):
         return fwd_sweep_plain(kop, ext, mshift, save_alphas)
     from . import _build
 
     Nf, P1, G = ext.shape
-    dev = ext.device
+    dev, dt = ext.device, kop.a0.dtype
     _check_op(kop, dev)
-    _check("ext", ext, (Nf, kop.P1, kop.G), dev)
-    _check("mshift", mshift, (Nf, 1, kop.G), dev)
+    _check("ext", ext, (Nf, kop.P1, kop.G), dev, dt)
+    _check("mshift", mshift, (Nf, 1, kop.G), dev, dt)
     meta = _imeta(kop, Nf)
     alphas = (torch.empty((Nf, kop.Sp, G), device=dev, dtype=torch.float64)
               if save_alphas else None)
@@ -412,35 +444,37 @@ def fwd_sweep(kop: BandedOp, ext, mshift, save_alphas: bool = True):
             _p(kop.a0), _p(kop.bf), _p(kop.om), _p(kop.fin), _p(kop.spdf),
             _p(ext), _p(mshift), ctypes.c_void_p(meta.ctypes.data),
             _p(alphas) if save_alphas else None, _p(vfin), _p(shift),
-            _p(ksum), _stream(dev),
+            _p(ksum), int(dt == torch.float64), _stream(dev),
         )
     _raise_on(rc, "mm_banded_fwd")
-    LAUNCHES["banded_fwd"] += 1
+    _counts(dt)["banded_fwd"] += 1
     return alphas, vfin, shift, ksum
 
 
 def backward(kop: BandedOp, ext, alphas):
     """K5b: the reverse sweep and the pdf posteriors.  Same output as
-    :func:`backward_plain` (each graph's pdf sums in its plan's order)."""
+    :func:`backward_plain` (each graph's pdf sums in its plan's order),
+    in the operator's dtype."""
     if not _route(ext, "banded-scan"):
         return backward_plain(kop, ext, alphas)
     from . import _build
 
     Nf, P1, G = ext.shape
-    dev = ext.device
+    dev, dt = ext.device, kop.a0.dtype
     _check_op(kop, dev)
-    _check("ext", ext, (Nf, kop.P1, kop.G), dev)
+    _check("ext", ext, (Nf, kop.P1, kop.G), dev, dt)
     _check("alphas", alphas, (Nf, kop.Sp, kop.G), dev, torch.float64)
     meta = _imeta(kop, Nf)
-    posts = torch.empty((Nf, P1, G), device=dev)  # zeroed, then written
+    # zeroed, then written
+    posts = torch.empty((Nf, P1, G), device=dev, dtype=dt)
     with torch.cuda.device(dev):
         rc = _build.library().mm_banded_bwd(
             _p(kop.bb), _p(kop.om), _p(kop.fin), _p(kop.spdf), _p(kop.plan),
             _p(ext), _p(alphas), ctypes.c_void_p(meta.ctypes.data),
-            _p(posts), _stream(dev),
+            _p(posts), int(dt == torch.float64), _stream(dev),
         )
     _raise_on(rc, "mm_banded_bwd")
-    LAUNCHES["banded_bwd"] += 1
+    _counts(dt)["banded_bwd"] += 1
     return posts
 
 
@@ -459,7 +493,7 @@ def banded_fused_fb(cf, lhs, lengths, want_posts: bool):
     if reason is not None:
         raise ValueError(f"stacked banded scan rejected this graph: {reason}")
     kop = kernel_operator(cf)
-    ext, mshift = prepare_emissions(lhs, lengths, P)
+    ext, mshift = prepare_emissions(lhs, lengths, P, cf.alpha_hat.dtype)
     alphas, vfin, shift, ksum = fwd_sweep(kop, ext, mshift, want_posts)
     if not want_posts:
         return None, vfin, shift, ksum

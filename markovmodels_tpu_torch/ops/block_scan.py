@@ -25,7 +25,9 @@ separate-state backoff graph (``ov_layout``: P uniform groups, then nOv
 overflow groups whose rows each carry their own pdf, then the tail, which
 belongs to the phony pdf).  The kernels read every row's pdf from one
 table and pull the overflow families as per-row lists of (source, weight)
-terms.  The CUDA
+terms.  The kernels come in three value types: float32, bf16 tier panels
+(a ``precision='bf16'`` graph), and float64 throughout (a float64 graph,
+which the TPU kernel declines; the instantiation code ``_prec``).  The CUDA
 sources are ``csrc/block_scan.cu``; ``_build.py`` compiles them with nvcc at
 first use.  Each wrapper takes its plain version for CPU tensors and
 launches the kernel for CUDA tensors; anything else raises.
@@ -62,14 +64,17 @@ __all__ = [
     "block_fused_fb",
     "LAUNCHES",
     "LAUNCHES_BF16",
+    "LAUNCHES_F64",
     "reset_launch_counts",
 ]
 
 # launches of each CUDA kernel entry point, counted by its wrapper: the
 # float32 instantiations in LAUNCHES, the bf16 ones (a precision='bf16'
-# graph's tensor-core tier) in LAUNCHES_BF16
+# graph's tensor-core tier) in LAUNCHES_BF16, the float64 ones (a float64
+# graph) in LAUNCHES_F64
 LAUNCHES = {"block_fwd": 0, "block_recompute": 0, "block_bwd": 0}
 LAUNCHES_BF16 = dict(LAUNCHES)
+LAUNCHES_F64 = dict(LAUNCHES)
 
 _TILE_ROWS = 64  # state rows per CUDA tile (TR in csrc/block_scan.cu)
 # rows with at least this many family terms get a tile of their own, whose
@@ -96,11 +101,18 @@ _CM_COPIES = 16
 
 def reset_launch_counts():
     for k in LAUNCHES:
-        LAUNCHES[k] = LAUNCHES_BF16[k] = 0
+        LAUNCHES[k] = LAUNCHES_BF16[k] = LAUNCHES_F64[k] = 0
 
 
 def _counts(tier_dtype):
-    return LAUNCHES_BF16 if tier_dtype == torch.bfloat16 else LAUNCHES
+    return {torch.bfloat16: LAUNCHES_BF16,
+            torch.float64: LAUNCHES_F64}.get(tier_dtype, LAUNCHES)
+
+
+def _prec(tier_dtype) -> int:
+    """The instantiation code the entry points take for the panels' dtype:
+    0 float32, 1 bf16 panels (the rest float32), 2 float64 throughout."""
+    return {torch.bfloat16: 1, torch.float64: 2}.get(tier_dtype, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -471,8 +483,10 @@ def _kernel_checks_uncached(cf, W, R):
 
 
 def _working_set_bytes(cf, B, n_frames, chunk):
-    """Device bytes of one fused run, every buffer sized by its dtype (the
-    tier panels by the dtype the kernels get: 2 bytes for a bf16 graph)."""
+    """Device bytes of one fused run, every buffer sized by the dtype the
+    kernels get: the tier panels 2 bytes for a bf16 graph, every value
+    (states, emissions, bands, family weights, omega partials, column
+    maxima) 8 bytes for a float64 graph."""
     Sp, P1 = cf.padded_states, cf.num_pdfs + 1
     f = cf.alpha_hat.element_size()
     tens = [cf.omega_prob, cf.alpha_hat]
@@ -485,24 +499,25 @@ def _working_set_bytes(cf, B, n_frames, chunk):
                 for kd in (kop.fwd, kop.bwd))
     ov_lo, ov_hi = _ov_bounds(cf)
     # the per-row pdf table and family-term offsets (int32, both
-    # directions), the terms (int32 source + float32 weight per family
+    # directions), the terms (an int32 source and a weight per family
     # weight at most), the per-pdf overflow-lane lists
     n_w = sum(t.numel() for op in (cf.block_fwd, cf.block_bwd)
               for t in op.ov_w)
-    need += 4 * (3 * (Sp + 1) + 2 * n_w + P1 + 1 + (ov_hi - ov_lo))
+    need += 4 * (3 * (Sp + 1) + n_w + P1 + 1 + (ov_hi - ov_lo)) + f * n_w
     K = min(chunk, n_frames + 1) if n_frames else chunk
     # K4's per-frame scratch over the chunk: the overflow rows' gammas, the
-    # column maxima, the per-item column sums of gamma; its queue
+    # column maxima (as unsigned words of the value's width), the per-item
+    # column sums of gamma, the queue positions; its queue
     n_items = -(-B // _TILE_ROWS) * int(_imeta(kop, kop.bwd)[_N_TILES])
-    need += 4 * K * (B * (ov_hi - ov_lo + _CM_COPIES) + _TILE_ROWS * n_items
-                     + 1)
+    need += f * K * (B * (ov_hi - ov_lo + _CM_COPIES)
+                     + _TILE_ROWS * n_items) + 4 * K
     need += 4 * n_items
     C = -(-(n_frames + 1) // K) if n_frames else 1
     # K2's over the sweep: the column maxima, the queue positions, the two
     # sets of per-tile omega partials; its queue
     n_tf = int(_imeta(kop, kop.fwd)[_N_TILES])
-    need += 4 * (C * K * (_CM_COPIES * B + 1) + 2 * n_tf * B
-                 + 2 * n_tf * -(-B // _TILE_ROWS))
+    need += (f * C * K * _CM_COPIES * B + 4 * C * K + 2 * f * n_tf * B
+             + 4 * 2 * n_tf * -(-B // _TILE_ROWS))
     # a0 + ping-pong pair + last state + two betas, the chunk's alphas,
     # the checkpoints, and emissions + posteriors over all padded frames
     need += (6 + K + C) * Sp * B * f
@@ -514,7 +529,8 @@ def block_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
                              chunk: int = 64, device=None, tier_dtype=None):
     """None when the CUDA blocked scan accepts this graph, else a one-line
     reason naming the FIRST rejected predicate.  The predicates up to the
-    plan are the JAX package's, in its order.  Panels in bf16 (a
+    plan are the JAX package's, in its order, but for the dtype: float32
+    and float64 graphs both run (the TPU kernel takes float32).  Panels in bf16 (a
     ``precision='bf16'`` graph, unless ``tier_dtype`` names the dtype the
     caller launches with) must be stageable by the tensor-core tier tile.
     Instead of its VMEM budget, the working set (every buffer sized by its
@@ -526,9 +542,9 @@ def block_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
         return f"strategy {cf.strategy!r} != 'block'"
     if cf.batched:
         return "batched CompiledFSM (the fused scan targets one shared graph)"
-    if cf.alpha_hat.dtype != torch.float32:
-        return (f"operator dtype {cf.alpha_hat.dtype} (fused kernels are "
-                "f32)")
+    if cf.alpha_hat.dtype not in (torch.float32, torch.float64):
+        return (f"operator dtype {cf.alpha_hat.dtype} (the CUDA kernels "
+                "are f32 or f64)")
     if not cf.pdf_group and not cf.ov_layout:
         return ("no uniform pdf-grouped layout (compile_fsm reorder "
                 "declined or disabled)")
@@ -586,8 +602,8 @@ def _bf16_tile_reason(kop):
 
 class KernelDir(NamedTuple):
     offsets: tuple  # band offsets (dst - src)
-    band_w: torch.Tensor  # (nO, Sp) f32, nO may be 0
-    W: torch.Tensor  # (K, Sm, D) tier panels, f32 or bf16 (_tier_dtype)
+    band_w: torch.Tensor  # (nO, Sp) in the graph's dtype, nO may be 0
+    W: torch.Tensor  # (K, Sm, D) tier panels, f32, bf16 or f64 (_tier_dtype)
     src_map: tuple  # (g0, gk, gs): src(k, s) = g0 + k·gk + s·gs
     dst_map: tuple  # (d0, dk, dd): dst(k, d) = d0 + k·dk + d·dd
     src_rows: torch.Tensor  # (K, Sm) int64, the same map as an index
@@ -598,7 +614,7 @@ class KernelDir(NamedTuple):
     # fixed order: row j's terms are fam_src/fam_w[fam_ptr[j]:fam_ptr[j+1]]
     fam_ptr: torch.Tensor  # (Sp + 1,) int32
     fam_src: torch.Tensor  # (nfam,) int32
-    fam_w: torch.Tensor  # (nfam,) f32
+    fam_w: torch.Tensor  # (nfam,) in the graph's dtype
     fam_dst: torch.Tensor  # (nfam,) int64, the row of each term
 
 
@@ -631,20 +647,21 @@ def _i32(x, device):
 def _tier_dtype(cf):
     """The dtype of the tier panels the K2-K4 kernels get: bf16 for a
     ``precision='bf16'`` graph (the JAX package casts its f32 panels at
-    the call, pallas_block.py:1089-1093), else f32."""
-    return torch.bfloat16 if cf.precision == "bf16" else torch.float32
+    the call, pallas_block.py:1089-1093), else the graph's, float32 or
+    float64."""
+    return torch.bfloat16 if cf.precision == "bf16" else cf.alpha_hat.dtype
 
 
-def _kernel_dir(op, meta, Sp, device):
+def _kernel_dir(op, meta, Sp, device, dtype):
     g, d, src, dst, (fdst, fsrc, fw), band, heavy = _dir_rows(op, meta, Sp)
     nO = len(meta[0])
     band_w = (op.band_w if op.band_w is not None
-              else torch.zeros((0, Sp), dtype=torch.float32))
+              else torch.zeros((0, Sp), dtype=dtype))
     return KernelDir(
         offsets=tuple(int(o) for o in meta[0]),
-        band_w=band_w.to(device=device, dtype=torch.float32).reshape(nO, Sp)
+        band_w=band_w.to(device=device, dtype=dtype).reshape(nO, Sp)
         .contiguous(),
-        W=op.tiers[0][2].to(device=device, dtype=torch.float32).contiguous(),
+        W=op.tiers[0][2].to(device=device, dtype=dtype).contiguous(),
         src_map=tuple(int(v) for v in g),
         dst_map=tuple(int(v) for v in d),
         src_rows=torch.from_numpy(src).to(device),
@@ -653,8 +670,8 @@ def _kernel_dir(op, meta, Sp, device):
         heavy_rows=_i32(heavy, device),
         fam_ptr=_i32(np.searchsorted(fdst, np.arange(Sp + 1)), device),
         fam_src=_i32(fsrc, device),
-        fam_w=torch.from_numpy(np.ascontiguousarray(fw, np.float32))
-        .to(device),
+        fam_w=torch.from_numpy(np.ascontiguousarray(fw)).to(device=device,
+                                                            dtype=dtype),
         fam_dst=torch.from_numpy(fdst).to(device),
     )
 
@@ -663,13 +680,16 @@ def kernel_operator(cf, tier_dtype=None) -> KernelOp:
     """The fused scan's operator for a graph whose plan passed, built once
     per CompiledFSM and panel dtype (cached on it).  ``tier_dtype``: the
     panels' dtype, by default ``_tier_dtype(cf)``; K7 asks for float32 on
-    every graph (the TPU K7 ignores the precision).  A bf16 operator shares
-    every table but the panels with the float32 one."""
+    every float32 graph (the TPU K7 ignores the precision).  A bf16
+    operator shares every table but the panels with the float32 one; a
+    float64 graph's operator is float64 throughout (every value the
+    kernels read: panels, bands, family weights, omega, alpha0)."""
     tier_dtype = tier_dtype or _tier_dtype(cf)
     key = ("block_scan", tier_dtype)
     kop = cf._cache.get(key)
-    if kop is None and tier_dtype != torch.float32:
-        base = kernel_operator(cf, torch.float32)
+    dtype = cf.alpha_hat.dtype
+    if kop is None and tier_dtype != dtype:
+        base = kernel_operator(cf, dtype)
         kop = base._replace(**{
             d: getattr(base, d)._replace(
                 W=getattr(base, d).W.to(tier_dtype).contiguous())
@@ -689,8 +709,10 @@ def kernel_operator(cf, tier_dtype=None) -> KernelOp:
             fin=cf.final_state,
             alpha0=torch.exp(cf.alpha_hat).contiguous(),
             omega=cf.omega_prob.contiguous(),
-            fwd=_kernel_dir(cf.block_fwd, cf.block_fwd_offsets, Sp, dev),
-            bwd=_kernel_dir(cf.block_bwd, cf.block_bwd_offsets, Sp, dev),
+            fwd=_kernel_dir(cf.block_fwd, cf.block_fwd_offsets, Sp, dev,
+                            dtype),
+            bwd=_kernel_dir(cf.block_bwd, cf.block_bwd_offsets, Sp, dev,
+                            dtype),
             row_pdf=_i32(row_pdf, dev),
             ov_lo=ov_lo,
             ov_hi=ov_hi,
@@ -825,8 +847,9 @@ def _coop_grid(kop: KernelOp, device, B: int, tier_dtype, bwd: bool) -> int:
         torch.cuda.current_device()
     kd = kop.bwd if bwd else kop.fwd
     fam = kd.fam_dst.numel() > 0 or kop.ov_lo < kop.ov_hi
-    key = ("grid", idx, int(bwd), B % 4 == 0, fam,
-           tier_dtype == torch.bfloat16)
+    # each instantiation its own: the float64 one holds more registers and
+    # shared memory per CTA, so fewer fit an SM
+    key = ("grid", idx, int(bwd), B % 4 == 0, fam, _prec(tier_dtype))
     if key not in kop.plans:
         with torch.cuda.device(idx):
             n = _build.library().mm_block_ctas(*(int(v) for v in key[2:]))
@@ -1042,9 +1065,13 @@ def _check(name, t, shape, dev, dtype=torch.float32):
 
 
 def _check_op(kop: KernelOp, kd: KernelDir, dev, tier_dtype=torch.float32):
+    """The operator's tensors on ``dev``: the values in the dtype of the
+    instantiation (float64 for float64 panels, else float32), the panels
+    in ``tier_dtype``, the tables int32."""
+    vdt = _value_dtype(tier_dtype)
     for name, t in (("alpha0", kop.alpha0), ("omega", kop.omega),
                     ("band_w", kd.band_w), ("fam_w", kd.fam_w)):
-        _check(name, t, t.shape, dev)
+        _check(name, t, t.shape, dev, vdt)
     _check("W", kd.W, kd.W.shape, dev, tier_dtype)
     for name, t in (("band_rows", kd.band_rows), ("row_pdf", kop.row_pdf),
                     ("fam_ptr", kd.fam_ptr), ("fam_src", kd.fam_src),
@@ -1054,17 +1081,22 @@ def _check_op(kop: KernelOp, kd: KernelDir, dev, tier_dtype=torch.float32):
 
 
 def _tier_check(kop: KernelOp, kd: KernelDir):
-    """The panel dtype of a K2-K4 launch: float32, or bf16 that the
-    tensor-core tier tile can stage (the entry points' ``bf16`` flag);
-    anything else raises."""
+    """The panel dtype of a K2-K4 launch: float32, float64 (the float64
+    instantiation), or bf16 that the tensor-core tier tile can stage (the
+    entry points' ``prec`` code, :func:`_prec`); anything else raises."""
     if kd.W.dtype == torch.bfloat16:
         reason = _bf16_tile_reason(kop)
         if reason is not None:
             raise ValueError(f"bf16 tier tile: {reason}")
-    elif kd.W.dtype != torch.float32:
+    elif kd.W.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"W: tier panels of dtype {kd.W.dtype} (the "
-                         "kernels take float32 or bfloat16)")
+                         "kernels take float32, bfloat16 or float64)")
     return kd.W.dtype
+
+
+def _value_dtype(wdt):
+    """The dtype of every value of a launch with panels of ``wdt``."""
+    return torch.float64 if wdt == torch.float64 else torch.float32
 
 
 def _p(t: torch.Tensor):
@@ -1091,8 +1123,9 @@ def _fwd_launch(kop: KernelOp, dev, B: int, T: int):
     """What K2's and K3's launch shares: the panel dtype, its checks, the
     descriptors, the queue, the grid and the per-frame scratch of T frames:
     the two sets of per-tile omega partials, and (one zeroed int32 block)
-    the grid barrier's words, every frame's column max (float bits,
-    _CM_COPIES copies) and every frame's queue position."""
+    the grid barrier's words, every frame's column max (the value's bits,
+    _CM_COPIES copies, two words each for float64) and every frame's queue
+    position."""
     wdt = _tier_check(kop, kop.fwd)
     _check_op(kop, kop.fwd, dev, wdt)
     G = _fwd_grid(kop, dev, B, wdt)
@@ -1101,8 +1134,11 @@ def _fwd_launch(kop: KernelOp, dev, B: int, T: int):
                          f"co-resident on {dev}")
     pl = fwd_plan(kop, B)
     meta, lay = _imeta(kop, kop.fwd), _ilayout(kop, kop.fwd)
-    part = torch.empty((2, int(meta[_N_TILES]), B), device=dev)
-    n_cm, n_sync = T * _CM_COPIES * B, _FWD_SYNC_WORDS
+    vdt = _value_dtype(wdt)
+    part = torch.empty((2, int(meta[_N_TILES]), B), device=dev, dtype=vdt)
+    # float64's column maxima start on an 8-byte boundary
+    n_sync = _FWD_SYNC_WORDS + (vdt == torch.float64)
+    n_cm = T * _CM_COPIES * B * (vdt.itemsize // 4)
     words = torch.zeros(n_sync + n_cm + T, dtype=torch.int32, device=dev)
     at = lambda n: ctypes.c_void_p(words.data_ptr() + 4 * n)
     kd = kop.fwd
@@ -1129,20 +1165,22 @@ def fwd_sweep(kop: KernelOp, a0, ext, mshift, chunk: int):
     dev = a0.device
     if Npad % chunk:
         raise ValueError(f"{Npad} frames not a multiple of chunk {chunk}")
-    _check("a0", a0, (Sp, B), dev)
-    _check("ext", ext, (Npad, kop.P1, B), dev)
-    _check("mshift", mshift, (Npad, 1, B), dev)
+    vdt = _value_dtype(kop.fwd.W.dtype)
+    _check("a0", a0, (Sp, B), dev, vdt)
+    _check("ext", ext, (Npad, kop.P1, B), dev, vdt)
+    _check("mshift", mshift, (Npad, 1, B), dev, vdt)
     wdt, args, scratch, keep = _fwd_launch(kop, dev, B, Npad)
     C = Npad // chunk
-    new = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
+    new = lambda *shape: torch.empty(shape, device=dev, dtype=vdt)
     work, a_last = new(2, Sp, B), new(Sp, B)
     bounds, bscale, scale = new(C, Sp, B), new(C, B), new(B)
-    ones = torch.ones(B, device=dev)
-    ksum, shift, comp = (torch.zeros(B, device=dev) for _ in range(3))
+    ones = torch.ones(B, device=dev, dtype=vdt)
+    ksum, shift, comp = (torch.zeros(B, device=dev, dtype=vdt)
+                         for _ in range(3))
     with torch.cuda.device(dev):  # the library launches on it
         rc = _build.library().mm_block_fwd(
             _p(a0), _p(ones), _p(ext), _p(mshift), *args, B, Npad, chunk,
-            int(wdt == torch.bfloat16), _p(work), _p(a_last), _p(bounds),
+            _prec(wdt), _p(work), _p(a_last), _p(bounds),
             _p(bscale), _p(scale), _p(ksum), _p(shift), _p(comp), *scratch,
             _stream(dev),
         )
@@ -1161,16 +1199,17 @@ def recompute(kop: KernelOp, bound, bscale, ext_c, t0: int):
     K, P1, B = ext_c.shape
     Sp = kop.Sp
     dev = bound.device
-    _check("bound", bound, (Sp, B), dev)
-    _check("bscale", bscale, (B,), dev)
-    _check("ext", ext_c, (K, kop.P1, B), dev)
+    vdt = _value_dtype(kop.fwd.W.dtype)
+    _check("bound", bound, (Sp, B), dev, vdt)
+    _check("bscale", bscale, (B,), dev, vdt)
+    _check("ext", ext_c, (K, kop.P1, B), dev, vdt)
     wdt, args, scratch, keep = _fwd_launch(kop, dev, B, K)
-    alphas = torch.empty((K, Sp, B), device=dev)
-    ascale = torch.empty((K, B), device=dev)
+    alphas = torch.empty((K, Sp, B), device=dev, dtype=vdt)
+    ascale = torch.empty((K, B), device=dev, dtype=vdt)
     with torch.cuda.device(dev):
         rc = _build.library().mm_block_recompute(
             _p(bound), _p(bscale), _p(ext_c), *args, B, t0, K,
-            int(wdt == torch.bfloat16), _p(alphas), _p(ascale), *scratch,
+            _prec(wdt), _p(alphas), _p(ascale), *scratch,
             _stream(dev),
         )
     _raise_on(rc, "mm_block_recompute")
@@ -1193,11 +1232,12 @@ def backward(kop: KernelOp, beta, bscale, alphas, ascale, ext_c, t0: int,
     dev = beta.device
     wdt = _tier_check(kop, kop.bwd)
     _check_op(kop, kop.bwd, dev, wdt)
-    _check("beta", beta, (Sp, B), dev)
-    _check("bscale", bscale, (B,), dev)
-    _check("alphas", alphas, (K, Sp, B), dev)
-    _check("ascale", ascale, (K, B), dev)
-    _check("ext", ext_c, (K, kop.P1, B), dev)
+    vdt = _value_dtype(wdt)
+    _check("beta", beta, (Sp, B), dev, vdt)
+    _check("bscale", bscale, (B,), dev, vdt)
+    _check("alphas", alphas, (K, Sp, B), dev, vdt)
+    _check("ascale", ascale, (K, B), dev, vdt)
+    _check("ext", ext_c, (K, kop.P1, B), dev, vdt)
     G = _bwd_grid(kop, dev, B, wdt)
     if G <= 0:
         raise ValueError("the persistent K4 kernel cannot keep its CTAs "
@@ -1205,18 +1245,19 @@ def backward(kop: KernelOp, beta, bscale, alphas, ascale, ext_c, t0: int,
     pl = bwd_plan(kop, B)
     n_items = pl.queue.shape[0]
     meta, lay = _imeta(kop, kop.bwd), _ilayout(kop, kop.bwd)
-    posts = torch.zeros((K, kop.P1, B), device=dev)  # accumulated atomically
+    new = lambda *shape: torch.empty(shape, device=dev, dtype=vdt)
+    # accumulated atomically
+    posts = torch.zeros((K, kop.P1, B), device=dev, dtype=vdt)
     # every frame's overflow-row gammas and per-item column sums of gamma,
     # read by the normalisation after the chunk's last frame
-    ovg = torch.empty((K, max(kop.ov_hi - kop.ov_lo, 1), B), device=dev)
-    csum = torch.empty((K, n_items, _TILE_ROWS), device=dev)
+    ovg = new(K, max(kop.ov_hi - kop.ov_lo, 1), B)
+    csum = new(K, n_items, _TILE_ROWS)
     # the grid barrier's counter and generation, every frame's column max
-    # of beta (float bits, _CM_COPIES copies), every frame's queue position
-    n_cm = K * _CM_COPIES * B
+    # of beta (the value's bits, _CM_COPIES copies, two words each for
+    # float64), every frame's queue position
+    n_cm = K * _CM_COPIES * B * (vdt.itemsize // 4)
     words = torch.zeros(2 + n_cm + K, dtype=torch.int32, device=dev)
-    work = torch.empty((2, Sp, B), device=dev)
-    beta_out = torch.empty((Sp, B), device=dev)
-    scale = torch.empty(B, device=dev)
+    work, beta_out, scale = new(2, Sp, B), new(Sp, B), new(B)
     kd = kop.bwd
     with torch.cuda.device(dev):
         rc = _build.library().mm_block_bwd(
@@ -1224,7 +1265,7 @@ def backward(kop: KernelOp, beta, bscale, alphas, ascale, ext_c, t0: int,
             _p(kd.band_w), _p(kd.W), _p(kop.omega), _p(kd.band_rows),
             ctypes.c_void_p(meta.ctypes.data),
             ctypes.c_void_p(lay.ctypes.data), _p(pl.queue), n_items, G, B,
-            t0, K, npad, int(wdt == torch.bfloat16), _p(work),
+            t0, K, npad, _prec(wdt), _p(work),
             _p(beta_out), _p(scale), _p(posts), _p(ovg), _p(csum),
             ctypes.c_void_p(words.data_ptr() + 8),
             ctypes.c_void_p(words.data_ptr() + 4 * (2 + n_cm)), _p(words),

@@ -271,10 +271,11 @@ _BAND_MAX = 8  # most shared offsets kept as bands
 
 
 def build_block_operator(src, dst, w_log, num_states: int, *,
-                         ov_region=None):
+                         dtype=np.float32, ov_region=None):
     """Build (BlockOperator, meta) from a COO edge list of T̂, with
-    meta = (band_offsets, tier_descs, band_nz_hi, ov_descs), float32
-    weights, and the JAX package's default block, tier and band sizes.
+    meta = (band_offsets, tier_descs, band_nz_hi, ov_descs), weights in
+    ``dtype`` (numpy float32 or float64: the graph's), and the JAX
+    package's default block, tier and band sizes.
 
     ``w_log``: log-domain weights; stored as exp().  ``num_states``: padded
     state count Sp (multiple of 128).  ``ov_region``: optional (ov_lo,
@@ -284,7 +285,6 @@ def build_block_operator(src, dst, w_log, num_states: int, *,
     cover the region like any other states.
     """
     block, tier_sizes, band_max = _BLOCK, _TIER_SIZES, _BAND_MAX
-    dtype = np.float32
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
     w = np.exp(np.asarray(w_log, dtype=np.float64)).astype(dtype)
@@ -552,9 +552,11 @@ def block_matvec(op: BlockOperator, meta, x, *, bf16: bool = False,
     build_block_operator.  ``op_kind``: 'sum' (the probability semiring) or
     'max' (the tropical semiring in the probability domain: every tier,
     band, residue and overflow-family term combined by max, the JAX
-    package's ``op_kind="max"``).  The tier contraction runs in full
-    float32 (the caller keeps ``torch.backends.cuda.matmul.allow_tf32`` off
-    on the GPU); with ``bf16`` (a ``precision='bf16'`` graph, sum only) its
+    package's ``op_kind="max"``).  The tier contraction runs in the
+    dtype of the operator and ``x`` (float64 throughout for a float64
+    graph), float32 in full (the caller keeps
+    ``torch.backends.cuda.matmul.allow_tf32`` off on the GPU); with
+    ``bf16`` (a ``precision='bf16'`` graph, sum only) its
     two operands, the panels and the gathered rows, are rounded to bf16
     first, as the kernels' tensor-core tier does (ops/block_scan.py
     ``_matvec_plain``).

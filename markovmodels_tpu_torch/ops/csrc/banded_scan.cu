@@ -65,15 +65,23 @@
 //            (0 where the sum is 0); b = y * e rescaled like the forward.
 // One repair against the Pallas kernel: the state (alpha, beta), gamma and
 // its sums, and the logZ pieces (v_final, the exponent sum, the emission
-// shift) are float64; the inputs and the posteriors stay float32.  alpha
-// and beta are each normalised to max 1 per frame, and on a long lattice
-// their masses sit at opposite ends (alpha runs ahead of the sequence,
-// beta behind it).  At the main shape both factors at the posterior's
+// shift) are float64; the inputs and the posteriors keep the graph's type
+// (float32, or float64 for a float64 graph).  alpha and beta are each
+// normalised to max 1 per frame, and on a long lattice their masses sit
+// at opposite ends (alpha runs ahead of the sequence, beta behind it).  At the main shape both factors at the posterior's
 // peak fall to 1e-27 .. 1e-40 in mid-sequence and their product to
 // ~1e-54: in float32 the product underflows (every posterior of those
 // frames lost) and the factors lose their mantissa in the subnormal
 // range.  The sweep is latency-bound, so float64 costs little.
+// Every kernel takes the type of its inputs and posteriors (a0, the bands,
+// omega, the emissions, their shift, posts) as a template argument T:
+// float for a float32 graph, double for a float64 one.  The state and its
+// arithmetic are float64 in both, so T = double changes only the loads,
+// the emission ring's words (8 bytes each, by 8-byte cp.async) and the
+// posteriors' store.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "coop_common.cuh"
 
@@ -119,36 +127,37 @@ bool parse_meta(const long long* im, Meta* m) {
 }
 
 // Shared-memory words (4 bytes) of one CTA, one graph
-// (banded_scan._smem_words), of the narrow or the wide instantiation.
+// (banded_scan._smem_words), of the narrow or the wide instantiation, whose
+// inputs take tw words each (1 float, 2 double).
 // K5a: the float64 state double buffer X[2][Sp], bands BW[nO][Sp] (one
 // zero band when nO = 0), omega OM[Sp] and the alpha ring AL[D][Sp], the
-// mbarriers FULL[D] and DONE[D] (8 bytes each), then the float emission
-// ring ER[D][Sp] and shift ring MR[D]; the wide one adds each state's pdf
+// mbarriers FULL[D] and DONE[D] (8 bytes each), then the emission ring
+// ER[D][Sp] and shift ring MR[D] (T); the wide one adds each state's pdf
 // PD[Sp] (int).
 // K5b: X[2][Sp], BW[nO][Sp], OM[Sp], the beta ring YR[R][Sp], and per
 // posterior warp gamma GM[Sp] and the alpha ring AR[D][Sp] (float64), the
 // mbarriers FULL[R] and EMPTY[R] of the beta ring and FULL[D] and DONE[D]
-// of the emission ring, then ER[D][Sp] (float) and the plan's state order
+// of the emission ring, then ER[D][Sp] (T) and the plan's state order
 // ST[Sp] (int); the wide one adds PD[Sp].
-__host__ __device__ int fwd_smem_words(int Sp, int nO, bool wide) {
+__host__ __device__ int fwd_smem_words(int Sp, int nO, bool wide, int tw) {
   const int D = wide ? WDEPTH : DEPTH;
-  return 2 * (2 + (nO > 0 ? nO : 1) + 1 + D) * Sp + 4 * D + D * Sp + D +
-         (wide ? Sp : 0);
+  return 2 * (2 + (nO > 0 ? nO : 1) + 1 + D) * Sp + 4 * D +
+         tw * (D * Sp + D) + (wide ? Sp : 0);
 }
-__host__ __device__ int bwd_smem_words(int Sp, int nO, bool wide) {
+__host__ __device__ int bwd_smem_words(int Sp, int nO, bool wide, int tw) {
   const int D = wide ? WDEPTH : DEPTH, R = wide ? WYRING : YRING;
   const int W = wide ? 1 : POST_WARPS;
   return 2 * (2 + (nO > 0 ? nO : 1) + 1 + R + W * (1 + D)) * Sp +
-         4 * (R + D) + (D + 1) * Sp + (wide ? Sp : 0);
+         4 * (R + D) + tw * D * Sp + Sp + (wide ? Sp : 0);
 }
 
 // Whether a launch takes the wide instantiation: past MAX_J states per
 // lane, or where the narrow one's shared memory exceeds a CTA's.
-bool fwd_wide(int Sp, int nO) {
-  return Sp > 32 * MAX_J || 4 * fwd_smem_words(Sp, nO, false) > SMEM_MAX;
+bool fwd_wide(int Sp, int nO, int tw) {
+  return Sp > 32 * MAX_J || 4 * fwd_smem_words(Sp, nO, false, tw) > SMEM_MAX;
 }
-bool bwd_wide(int Sp, int nO) {
-  return Sp > 32 * MAX_J || 4 * bwd_smem_words(Sp, nO, false) > SMEM_MAX;
+bool bwd_wide(int Sp, int nO, int tw) {
+  return Sp > 32 * MAX_J || 4 * bwd_smem_words(Sp, nO, false, tw) > SMEM_MAX;
 }
 
 // The rescale's exponent comes from a warp max of 32-bit keys (one
@@ -180,12 +189,21 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
+// One input element into shared memory by cp.async, 4 or 8 bytes.
+template <typename T>
+__device__ __forceinline__ void cp_async_el(T* smem, const T* gmem) {
+  if constexpr (sizeof(T) == 8)
+    cp_async8(smem, gmem);
+  else
+    cp_async4(smem, gmem);
+}
 
 // Bands and omega of graph g into shared memory, as float64.
+template <typename T>
 __device__ __forceinline__ void load_bands(const Meta& m, double* BW,
                                            double* OM,
-                                           const float* __restrict__ bands,
-                                           const float* __restrict__ omega,
+                                           const T* __restrict__ bands,
+                                           const T* __restrict__ omega,
                                            int g, int t0, int nt) {
   for (int s = t0; s < m.Sp; s += nt) {
     const size_t sg = static_cast<size_t>(s) * m.G + g;
@@ -260,11 +278,12 @@ __device__ __forceinline__ void band_pass(const Meta& m, const Lead<J>& L,
 // same rule (a slot is written again only after EMPTY says it was read).
 // J > 0 (narrow): the lane's J pdfs from spdf, held in registers; J = 0
 // (wide): every state's pdf from PD in shared memory.
-template <int J, int D, int LD, typename FrameOf, typename Between>
+template <int J, int D, int LD, typename T, typename FrameOf,
+          typename Between>
 __device__ __forceinline__ void emission_helper(
     const Meta& m, int g, int lane, const int* __restrict__ spdf,
-    const int* PD, const float* __restrict__ ext,
-    const float* __restrict__ mshift, float* ER, float* MR,
+    const int* PD, const T* __restrict__ ext,
+    const T* __restrict__ mshift, T* ER, T* MR,
     unsigned long long* full, unsigned long long* done, FrameOf frame_of,
     Between between) {
   const int Sp = m.Sp, G = m.G, Nf = m.Nf;
@@ -277,21 +296,21 @@ __device__ __forceinline__ void emission_helper(
   auto fetch = [&](int i) {
     if (i < Nf) {
       const int t = frame_of(i);
-      float* dst = ER + (i % D) * Sp;
-      const float* src = ext + static_cast<size_t>(t) * m.P1 * G + g;
+      T* dst = ER + (i % D) * Sp;
+      const T* src = ext + static_cast<size_t>(t) * m.P1 * G + g;
       if constexpr (J > 0) {
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int s = lane + 32 * j;
           if (s < Sp)
-            cp_async4(dst + s, src + static_cast<size_t>(pdf[j]) * G);
+            cp_async_el(dst + s, src + static_cast<size_t>(pdf[j]) * G);
         }
       } else {
         for (int s = lane; s < Sp; s += 32)
-          cp_async4(dst + s, src + static_cast<size_t>(PD[s]) * G);
+          cp_async_el(dst + s, src + static_cast<size_t>(PD[s]) * G);
       }
       if (MR != nullptr && lane == 0)
-        cp_async4(MR + i % D, mshift + static_cast<size_t>(t) * G + g);
+        cp_async_el(MR + i % D, mshift + static_cast<size_t>(t) * G + g);
     }
     cp_async_commit();
   };
@@ -313,12 +332,12 @@ __device__ __forceinline__ void emission_helper(
 // frames on shared memory; warp 1, the helper, gathers frame t's
 // emissions and shift into ring slot t % DEPTH, and stores the alphas the
 // chain wrote into the slot once it is released.
-template <int J>
+template <typename T, int J>
 __global__ void __launch_bounds__(64) banded_fwd_kernel(
-    Meta m, const float* __restrict__ a0, const float* __restrict__ bf,
-    const float* __restrict__ omega, const int* __restrict__ fin_g,
-    const int* __restrict__ spdf, const float* __restrict__ ext,
-    const float* __restrict__ mshift, double* __restrict__ alphas,
+    Meta m, const T* __restrict__ a0, const T* __restrict__ bf,
+    const T* __restrict__ omega, const int* __restrict__ fin_g,
+    const int* __restrict__ spdf, const T* __restrict__ ext,
+    const T* __restrict__ mshift, double* __restrict__ alphas,
     double* __restrict__ vfin, double* __restrict__ shift_out,
     double* __restrict__ ksum_out) {
   extern __shared__ __align__(16) float smem[];
@@ -332,8 +351,8 @@ __global__ void __launch_bounds__(64) banded_fwd_kernel(
   unsigned long long* full =
       reinterpret_cast<unsigned long long*>(AL + DEPTH * Sp);
   unsigned long long* done = full + DEPTH;
-  float* ER = reinterpret_cast<float*>(done + DEPTH);
-  float* MR = ER + DEPTH * Sp;
+  T* ER = reinterpret_cast<T*>(done + DEPTH);
+  T* MR = ER + DEPTH * Sp;
   load_bands(m, BW, OM, bf, omega, g, threadIdx.x, 64);
   for (int s = threadIdx.x; s < Sp; s += 64)
     X[s] = a0[static_cast<size_t>(s) * G + g];
@@ -344,7 +363,7 @@ __global__ void __launch_bounds__(64) banded_fwd_kernel(
   __syncthreads();
 
   if (w == 1) {  // the helper: emissions in, alphas out
-    emission_helper<J, DEPTH, LEAD>(
+    emission_helper<J, DEPTH, LEAD, T>(
         m, g, lane, spdf, nullptr, ext, mshift, ER, MR, full, done,
         [](int i) { return i; },
         [&](int t, int r) {
@@ -375,9 +394,9 @@ __global__ void __launch_bounds__(64) banded_fwd_kernel(
     mbar_wait(full + r, (t / DEPTH) & 1);  // frame t's emissions are in
     const double* a = X + cur * Sp;
     double* yn = X + (cur ^ 1) * Sp;
-    const float* er = ER + r * Sp;
+    const T* er = ER + r * Sp;
     double y[J], as[J];
-    float ev[J];
+    T ev[J];
 #pragma unroll
     for (int j = 0; j < J; ++j) {  // read with the band sources
       const int s = lane + 32 * j < Sp ? lane + 32 * j : 0;
@@ -396,7 +415,7 @@ __global__ void __launch_bounds__(64) banded_fwd_kernel(
       // the omega dot needs only the previous state: its reduction runs
       // beside the band terms, which the max key over every state but the
       // phony final one follows
-      const float ef = er[fin];
+      const T ef = er[fin];
       double dot = 0.0;
 #pragma unroll
       for (int j = 0; j < J; ++j)
@@ -451,12 +470,12 @@ __global__ void __launch_bounds__(64) banded_fwd_kernel(
 // i = p, p + POST_WARPS, ...: it turns the frame's beta into gamma with
 // alphas it fetched ahead itself, and writes the frame's posteriors of
 // the graph's own pdfs.  Iteration i runs frame t = Nf - 1 - i.
-template <int J>
+template <typename T, int J>
 __global__ void __launch_bounds__(32 * (2 + POST_WARPS)) banded_bwd_kernel(
-    Meta m, const float* __restrict__ bb, const float* __restrict__ omega,
+    Meta m, const T* __restrict__ bb, const T* __restrict__ omega,
     const int* __restrict__ fin_g, const int* __restrict__ spdf,
-    const int* __restrict__ plan, const float* __restrict__ ext,
-    const double* __restrict__ alphas, float* __restrict__ posts) {
+    const int* __restrict__ plan, const T* __restrict__ ext,
+    const double* __restrict__ alphas, T* __restrict__ posts) {
   extern __shared__ __align__(16) float smem[];
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = blockIdx.x;
@@ -472,7 +491,7 @@ __global__ void __launch_bounds__(32 * (2 + POST_WARPS)) banded_bwd_kernel(
   unsigned long long* empty = full + YRING;
   unsigned long long* efull = empty + YRING;
   unsigned long long* edone = efull + DEPTH;
-  float* ER = reinterpret_cast<float*>(edone + DEPTH);
+  T* ER = reinterpret_cast<T*>(edone + DEPTH);
   int* ST = reinterpret_cast<int*>(ER + DEPTH * Sp);
   // the plan row of graph g: [n, pdf[Sp], seg[Sp + 1], state[Sp]]
   const int* prow = plan + static_cast<size_t>(g) * (3 * Sp + 2);
@@ -490,7 +509,7 @@ __global__ void __launch_bounds__(32 * (2 + POST_WARPS)) banded_bwd_kernel(
   __syncthreads();
 
   if (w == 1) {  // the emission helper
-    emission_helper<J, DEPTH, LEAD>(
+    emission_helper<J, DEPTH, LEAD, T>(
         m, g, lane, spdf, nullptr, ext, nullptr, ER, nullptr, efull, edone,
         [Nf](int i) { return Nf - 1 - i; }, [](int, int) {});
     return;
@@ -508,8 +527,8 @@ __global__ void __launch_bounds__(32 * (2 + POST_WARPS)) banded_bwd_kernel(
       mbar_wait(efull + i % DEPTH, (i / DEPTH) & 1);  // the emissions
       const double* b = X + cur * Sp;
       double* bn = X + (cur ^ 1) * Sp;
-      const float* er = ER + (i % DEPTH) * Sp;
-      float ev[J];
+      const T* er = ER + (i % DEPTH) * Sp;
+      T ev[J];
 #pragma unroll
       for (int j = 0; j < J; ++j)  // read with the band sources
         ev[j] = er[lane + 32 * j < Sp ? lane + 32 * j : 0];
@@ -607,7 +626,7 @@ __global__ void __launch_bounds__(32 * (2 + POST_WARPS)) banded_bwd_kernel(
       tot = warp_sum(tot);
       __syncwarp();
       const double rt = tot > 0.0 ? 1.0 / tot : 1.0;
-      float* pt = posts + static_cast<size_t>(t) * P1 * G + g;
+      T* pt = posts + static_cast<size_t>(t) * P1 * G + g;
       double acc[J];
 #pragma unroll
       for (int q = 0; q < J; ++q) acc[q] = gm[f0[q]];  // 0 + the first
@@ -616,7 +635,7 @@ __global__ void __launch_bounds__(32 * (2 + POST_WARPS)) banded_bwd_kernel(
         if (lane + 32 * q < n) {
           for (int c = e0[q] + 1; c < e1[q]; ++c) acc[q] += gm[ST[c]];
           pt[static_cast<size_t>(epdf[q]) * G] =
-              static_cast<float>(acc[q] * rt);
+              static_cast<T>(acc[q] * rt);
         }
       }
       __syncwarp();  // gm is rewritten next time
@@ -632,11 +651,12 @@ __global__ void __launch_bounds__(32 * (2 + POST_WARPS)) banded_bwd_kernel(
 // band terms in the offsets' order, the emission and the max key), and
 // after the warp max rescales them there and into the alpha slot: the
 // narrow kernel's operations in its order.
+template <typename T>
 __global__ void __launch_bounds__(64) banded_fwd_wide_kernel(
-    Meta m, const float* __restrict__ a0, const float* __restrict__ bf,
-    const float* __restrict__ omega, const int* __restrict__ fin_g,
-    const int* __restrict__ spdf, const float* __restrict__ ext,
-    const float* __restrict__ mshift, double* __restrict__ alphas,
+    Meta m, const T* __restrict__ a0, const T* __restrict__ bf,
+    const T* __restrict__ omega, const int* __restrict__ fin_g,
+    const int* __restrict__ spdf, const T* __restrict__ ext,
+    const T* __restrict__ mshift, double* __restrict__ alphas,
     double* __restrict__ vfin, double* __restrict__ shift_out,
     double* __restrict__ ksum_out) {
   extern __shared__ __align__(16) float smem[];
@@ -650,8 +670,8 @@ __global__ void __launch_bounds__(64) banded_fwd_wide_kernel(
   unsigned long long* full =
       reinterpret_cast<unsigned long long*>(AL + WDEPTH * Sp);
   unsigned long long* done = full + WDEPTH;
-  float* ER = reinterpret_cast<float*>(done + WDEPTH);
-  float* MR = ER + WDEPTH * Sp;
+  T* ER = reinterpret_cast<T*>(done + WDEPTH);
+  T* MR = ER + WDEPTH * Sp;
   int* PD = reinterpret_cast<int*>(MR + WDEPTH);
   load_bands(m, BW, OM, bf, omega, g, threadIdx.x, 64);
   for (int s = threadIdx.x; s < Sp; s += 64) {
@@ -665,7 +685,7 @@ __global__ void __launch_bounds__(64) banded_fwd_wide_kernel(
   __syncthreads();
 
   if (w == 1) {  // the helper: emissions in, alphas out
-    emission_helper<0, WDEPTH, WLEAD>(
+    emission_helper<0, WDEPTH, WLEAD, T>(
         m, g, lane, spdf, PD, ext, mshift, ER, MR, full, done,
         [](int i) { return i; },
         [&](int t, int r) {
@@ -686,7 +706,7 @@ __global__ void __launch_bounds__(64) banded_fwd_wide_kernel(
     mbar_wait(full + r, (t / WDEPTH) & 1);  // frame t's emissions are in
     const double* a = X + cur * Sp;
     double* yn = X + (cur ^ 1) * Sp;
-    const float* er = ER + r * Sp;
+    const T* er = ER + r * Sp;
     unsigned key = 0;
     if (t == 0) {
       for (int s = lane; s < Sp; s += 32) {
@@ -741,11 +761,12 @@ __global__ void __launch_bounds__(64) banded_fwd_wide_kernel(
 // beta into the beta ring and its product with the emission into the next
 // buffer, and after the warp max rescales that buffer: the narrow
 // kernel's operations in its order.
+template <typename T>
 __global__ void __launch_bounds__(96) banded_bwd_wide_kernel(
-    Meta m, const float* __restrict__ bb, const float* __restrict__ omega,
+    Meta m, const T* __restrict__ bb, const T* __restrict__ omega,
     const int* __restrict__ fin_g, const int* __restrict__ spdf,
-    const int* __restrict__ plan, const float* __restrict__ ext,
-    const double* __restrict__ alphas, float* __restrict__ posts) {
+    const int* __restrict__ plan, const T* __restrict__ ext,
+    const double* __restrict__ alphas, T* __restrict__ posts) {
   extern __shared__ __align__(16) float smem[];
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = blockIdx.x;
@@ -761,7 +782,7 @@ __global__ void __launch_bounds__(96) banded_bwd_wide_kernel(
   unsigned long long* empty = full + WYRING;
   unsigned long long* efull = empty + WYRING;
   unsigned long long* edone = efull + WDEPTH;
-  float* ER = reinterpret_cast<float*>(edone + WDEPTH);
+  T* ER = reinterpret_cast<T*>(edone + WDEPTH);
   int* ST = reinterpret_cast<int*>(ER + WDEPTH * Sp);
   int* PD = ST + Sp;
   const int* prow = plan + static_cast<size_t>(g) * (3 * Sp + 2);
@@ -781,7 +802,7 @@ __global__ void __launch_bounds__(96) banded_bwd_wide_kernel(
   __syncthreads();
 
   if (w == 1) {  // the emission helper
-    emission_helper<0, WDEPTH, WLEAD>(
+    emission_helper<0, WDEPTH, WLEAD, T>(
         m, g, lane, spdf, PD, ext, nullptr, ER, nullptr, efull, edone,
         [Nf](int i) { return Nf - 1 - i; }, [](int, int) {});
     return;
@@ -793,7 +814,7 @@ __global__ void __launch_bounds__(96) banded_bwd_wide_kernel(
       mbar_wait(efull + i % WDEPTH, (i / WDEPTH) & 1);  // the emissions
       const double* b = X + cur * Sp;
       double* bn = X + (cur ^ 1) * Sp;
-      const float* er = ER + (i % WDEPTH) * Sp;
+      const T* er = ER + (i % WDEPTH) * Sp;
       const int r = i % WYRING;
       if (i >= WYRING) mbar_wait(empty + r, ((i / WYRING) - 1) & 1);
       const double bfin = b[fin];
@@ -850,13 +871,13 @@ __global__ void __launch_bounds__(96) banded_bwd_wide_kernel(
       tot = warp_sum(tot);
       __syncwarp();
       const double rt = tot > 0.0 ? 1.0 / tot : 1.0;
-      float* pt = posts + static_cast<size_t>(t) * P1 * G + g;
+      T* pt = posts + static_cast<size_t>(t) * P1 * G + g;
       for (int e = lane; e < n; e += 32) {
         const int e0 = prow[Sp + 1 + e], e1 = prow[Sp + 2 + e];
         double acc = GM[ST[e0]];  // 0 + the first
         for (int c = e0 + 1; c < e1; ++c) acc += GM[ST[c]];
         pt[static_cast<size_t>(prow[1 + e]) * G] =
-            static_cast<float>(acc * rt);
+            static_cast<T>(acc * rt);
       }
       __syncwarp();  // GM is rewritten next time
       fetch(i + WDEPTH);
@@ -878,114 +899,135 @@ cudaError_t smem_cfg(Kernel kernel, int words, size_t* smem) {
 }
 
 // The instantiated states-per-lane counts; a launch takes the smallest
-// that covers Sp.
-template <template <int> class Launch, typename... Args>
-cudaError_t dispatch_j(int Sp, Args... args) {
+// that covers Sp, calling launch(std::integral_constant<int, J>()).
+template <typename Launch>
+cudaError_t dispatch_j(int Sp, Launch launch) {
+  using std::integral_constant;
   const int need = (Sp + 31) / 32;
-  if (need <= 1) return Launch<1>::run(args...);
-  if (need <= 2) return Launch<2>::run(args...);
-  if (need <= 3) return Launch<3>::run(args...);
-  if (need <= 4) return Launch<4>::run(args...);
-  if (need <= 6) return Launch<6>::run(args...);
-  if (need <= 8) return Launch<8>::run(args...);
-  if (need <= 12) return Launch<12>::run(args...);
-  if (need <= 16) return Launch<16>::run(args...);
-  if (need <= 24) return Launch<24>::run(args...);
-  return Launch<MAX_J>::run(args...);
+  if (need <= 1) return launch(integral_constant<int, 1>());
+  if (need <= 2) return launch(integral_constant<int, 2>());
+  if (need <= 3) return launch(integral_constant<int, 3>());
+  if (need <= 4) return launch(integral_constant<int, 4>());
+  if (need <= 6) return launch(integral_constant<int, 6>());
+  if (need <= 8) return launch(integral_constant<int, 8>());
+  if (need <= 12) return launch(integral_constant<int, 12>());
+  if (need <= 16) return launch(integral_constant<int, 16>());
+  if (need <= 24) return launch(integral_constant<int, 24>());
+  return launch(integral_constant<int, MAX_J>());
 }
 
-template <int J>
-struct FwdLaunch {
-  static cudaError_t run(const Meta& m, const float* a0, const float* bf,
-                         const float* omega, const int* fin, const int* spdf,
-                         const float* ext, const float* mshift,
-                         double* alphas, double* vfin, double* shift,
-                         double* ksum, cudaStream_t stream) {
-    size_t smem;
-    cudaError_t err = smem_cfg(banded_fwd_kernel<J>,
-                               fwd_smem_words(m.Sp, m.nO, false), &smem);
-    if (err != cudaSuccess) return err;
-    banded_fwd_kernel<J><<<m.G, 64, smem, stream>>>(
-        m, a0, bf, omega, fin, spdf, ext, mshift, alphas, vfin, shift, ksum);
-    return cudaGetLastError();
-  }
-};
+template <typename T>
+cudaError_t banded_fwd(const Meta& m, const T* a0, const T* bf,
+                       const T* omega, const int* fin, const int* spdf,
+                       const T* ext, const T* mshift, double* alphas,
+                       double* vfin, double* shift, double* ksum,
+                       cudaStream_t s) {
+  constexpr int tw = sizeof(T) / sizeof(float);
+  size_t smem;
+  if (!fwd_wide(m.Sp, m.nO, tw))
+    return dispatch_j(m.Sp, [&](auto jc) {
+      constexpr int J = decltype(jc)::value;
+      cudaError_t err = smem_cfg(banded_fwd_kernel<T, J>,
+                                 fwd_smem_words(m.Sp, m.nO, false, tw), &smem);
+      if (err != cudaSuccess) return err;
+      banded_fwd_kernel<T, J><<<m.G, 64, smem, s>>>(
+          m, a0, bf, omega, fin, spdf, ext, mshift, alphas, vfin, shift, ksum);
+      return cudaGetLastError();
+    });
+  cudaError_t err = smem_cfg(banded_fwd_wide_kernel<T>,
+                             fwd_smem_words(m.Sp, m.nO, true, tw), &smem);
+  if (err != cudaSuccess) return err;
+  banded_fwd_wide_kernel<T><<<m.G, 64, smem, s>>>(
+      m, a0, bf, omega, fin, spdf, ext, mshift, alphas, vfin, shift, ksum);
+  return cudaGetLastError();
+}
 
-template <int J>
-struct BwdLaunch {
-  static cudaError_t run(const Meta& m, const float* bb, const float* omega,
-                         const int* fin, const int* spdf, const int* plan,
-                         const float* ext, const double* alphas,
-                         float* posts, cudaStream_t stream) {
-    size_t smem;
-    cudaError_t err = smem_cfg(banded_bwd_kernel<J>,
-                               bwd_smem_words(m.Sp, m.nO, false), &smem);
-    if (err != cudaSuccess) return err;
-    banded_bwd_kernel<J><<<m.G, 32 * (2 + POST_WARPS), smem, stream>>>(
-        m, bb, omega, fin, spdf, plan, ext, alphas, posts);
-    return cudaGetLastError();
-  }
-};
+template <typename T>
+cudaError_t banded_bwd(const Meta& m, const T* bb, const T* omega,
+                       const int* fin, const int* spdf, const int* plan,
+                       const T* ext, const double* alphas, T* posts,
+                       cudaStream_t s) {
+  constexpr int tw = sizeof(T) / sizeof(float);
+  cudaError_t err = cudaMemsetAsync(
+      posts, 0, static_cast<size_t>(m.Nf) * m.P1 * m.G * sizeof(T), s);
+  if (err != cudaSuccess) return err;
+  size_t smem;
+  if (!bwd_wide(m.Sp, m.nO, tw))
+    return dispatch_j(m.Sp, [&](auto jc) {
+      constexpr int J = decltype(jc)::value;
+      cudaError_t e = smem_cfg(banded_bwd_kernel<T, J>,
+                               bwd_smem_words(m.Sp, m.nO, false, tw), &smem);
+      if (e != cudaSuccess) return e;
+      banded_bwd_kernel<T, J><<<m.G, 32 * (2 + POST_WARPS), smem, s>>>(
+          m, bb, omega, fin, spdf, plan, ext, alphas, posts);
+      return cudaGetLastError();
+    });
+  err = smem_cfg(banded_bwd_wide_kernel<T>,
+                 bwd_smem_words(m.Sp, m.nO, true, tw), &smem);
+  if (err != cudaSuccess) return err;
+  banded_bwd_wide_kernel<T><<<m.G, 96, smem, s>>>(m, bb, omega, fin, spdf,
+                                                  plan, ext, alphas, posts);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 // K5a: the forward sweep over frames 0 .. Nf-1.  alphas (Nf, Sp, G) may be
-// null (logZ only); vfin, shift and ksum (G,) are written.  Every output
-// is float64.
-extern "C" int mm_banded_fwd(const float* a0, const float* bf,
-                             const float* omega, const int* fin,
-                             const int* spdf, const float* ext,
-                             const float* mshift, const long long* imeta,
+// null (logZ only); vfin, shift and ksum (G,) are written, float64.  The
+// inputs a0, bf, omega, ext and mshift are float (f64 = 0) or double
+// (f64 = 1).
+extern "C" int mm_banded_fwd(const void* a0, const void* bf,
+                             const void* omega, const int* fin,
+                             const int* spdf, const void* ext,
+                             const void* mshift, const long long* imeta,
                              double* alphas, double* vfin, double* shift,
-                             double* ksum, void* stream) {
+                             double* ksum, int f64, void* stream) {
   Meta m;
   if (!parse_meta(imeta, &m)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!fwd_wide(m.Sp, m.nO))
-    return static_cast<int>(dispatch_j<FwdLaunch>(
-        m.Sp, m, a0, bf, omega, fin, spdf, ext, mshift, alphas, vfin, shift,
-        ksum, s));
-  size_t smem;
-  cudaError_t err = smem_cfg(banded_fwd_wide_kernel,
-                             fwd_smem_words(m.Sp, m.nO, true), &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  banded_fwd_wide_kernel<<<m.G, 64, smem, s>>>(
-      m, a0, bf, omega, fin, spdf, ext, mshift, alphas, vfin, shift, ksum);
-  return static_cast<int>(cudaGetLastError());
+  if (f64)
+    return static_cast<int>(banded_fwd(
+        m, static_cast<const double*>(a0), static_cast<const double*>(bf),
+        static_cast<const double*>(omega), fin, spdf,
+        static_cast<const double*>(ext), static_cast<const double*>(mshift),
+        alphas, vfin, shift, ksum, s));
+  return static_cast<int>(banded_fwd(
+      m, static_cast<const float*>(a0), static_cast<const float*>(bf),
+      static_cast<const float*>(omega), fin, spdf,
+      static_cast<const float*>(ext), static_cast<const float*>(mshift),
+      alphas, vfin, shift, ksum, s));
 }
 
 // K5b: the backward sweep over frames Nf-1 .. 0 from the forward's alphas;
 // posts (Nf, P1, G) is zeroed, then each graph's plan pdfs are written
-// for every frame.  plan (G, 3 Sp + 2) int32 is banded_scan.pdf_plan.
-extern "C" int mm_banded_bwd(const float* bb, const float* omega,
+// for every frame.  plan (G, 3 Sp + 2) int32 is banded_scan.pdf_plan.  bb,
+// omega, ext and posts are float (f64 = 0) or double (f64 = 1).
+extern "C" int mm_banded_bwd(const void* bb, const void* omega,
                              const int* fin, const int* spdf, const int* plan,
-                             const float* ext, const double* alphas,
-                             const long long* imeta, float* posts,
+                             const void* ext, const double* alphas,
+                             const long long* imeta, void* posts, int f64,
                              void* stream) {
   Meta m;
   if (!parse_meta(imeta, &m)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(
-      posts, 0, static_cast<size_t>(m.Nf) * m.P1 * m.G * sizeof(float), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!bwd_wide(m.Sp, m.nO))
-    return static_cast<int>(dispatch_j<BwdLaunch>(
-        m.Sp, m, bb, omega, fin, spdf, plan, ext, alphas, posts, s));
-  size_t smem;
-  err = smem_cfg(banded_bwd_wide_kernel, bwd_smem_words(m.Sp, m.nO, true),
-                 &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  banded_bwd_wide_kernel<<<m.G, 96, smem, s>>>(m, bb, omega, fin, spdf, plan,
-                                               ext, alphas, posts);
-  return static_cast<int>(cudaGetLastError());
+  if (f64)
+    return static_cast<int>(banded_bwd(
+        m, static_cast<const double*>(bb), static_cast<const double*>(omega),
+        fin, spdf, plan, static_cast<const double*>(ext), alphas,
+        static_cast<double*>(posts), s));
+  return static_cast<int>(banded_bwd(
+      m, static_cast<const float*>(bb), static_cast<const float*>(omega), fin,
+      spdf, plan, static_cast<const float*>(ext), alphas,
+      static_cast<float*>(posts), s));
 }
 
 // Dynamic shared-memory bytes of one CTA of K5a (bwd = 0) or K5b (bwd = 1)
 // at Sp states and nO offsets, of the instantiation a launch takes there
-// (the narrow one where it fits): the admission's figure, checked on the
-// card.
-extern "C" int mm_banded_smem(int Sp, int nO, int bwd) {
+// (the narrow one where it fits), float (f64 = 0) or double inputs: the
+// admission's figure, checked on the card.
+extern "C" int mm_banded_smem(int Sp, int nO, int bwd, int f64) {
+  const int tw = f64 ? 2 : 1;
   return static_cast<int>(sizeof(float)) *
-         (bwd ? bwd_smem_words(Sp, nO, bwd_wide(Sp, nO))
-              : fwd_smem_words(Sp, nO, fwd_wide(Sp, nO)));
+         (bwd ? bwd_smem_words(Sp, nO, bwd_wide(Sp, nO, tw), tw)
+              : fwd_smem_words(Sp, nO, fwd_wide(Sp, nO, tw), tw));
 }

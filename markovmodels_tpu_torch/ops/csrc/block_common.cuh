@@ -1,7 +1,8 @@
 // Shared by the blocked kernels (block_scan.cu, vit_scan.cu): the host
 // descriptor of one direction's blocked operator, the exact power-of-two
 // rescale, and the four-column state row accesses (plain, past L1, and
-// under an L2 policy).
+// under an L2 policy), for float rows and (block_scan.cu's float64
+// instantiation) double rows.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -79,6 +80,27 @@ __device__ __forceinline__ float pow2_scale(float k) {
   return __int_as_float((127 - static_cast<int>(k)) << 23);
 }
 
+// floor(log2 m) of a double, clamped at -1022, and 2^-k for an integer k
+// in [-1022, 1022] from its 11 exponent bits (block_scan._pow2_exponent and
+// _pow2_scale on float64): the float64 instantiation of K2-K4.
+__device__ __forceinline__ double pow2_exponent(double m) {
+  if (!(m > 0.0)) return 0.0;
+  int e;
+  frexp(m, &e);
+  return fmax(static_cast<double>(e - 1), -1022.0);
+}
+
+__device__ __forceinline__ double pow2_scale(double k) {
+  return __longlong_as_double(static_cast<long long>(1023 - static_cast<int>(k))
+                              << 52);
+}
+
+// Four consecutive doubles of one state row: the float64 counterpart of a
+// float4 (two 16-byte halves).
+struct alignas(16) D4 {
+  double x, y, z, w;
+};
+
 // Four consecutive batch columns b .. b+3 of one state row.  VEC: one
 // 16-byte access (B % 4 == 0, so every row start and b are aligned);
 // otherwise masked scalar accesses.  CG: read past L1 (ld.global.cg), for a
@@ -122,6 +144,47 @@ __device__ __forceinline__ float get(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
+__device__ __forceinline__ double get(const D4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// The double rows as load4 / store4 move float rows: VEC (B % 4 == 0, so
+// each access is 32-byte aligned) as two 16-byte halves, else masked
+// scalars; CG past L1.
+template <bool VEC, bool CG = false>
+__device__ __forceinline__ D4 load4(const double* __restrict__ row, int b,
+                                    int B) {
+  if constexpr (VEC) {
+    if (!(b < B)) return D4{0.0, 0.0, 0.0, 0.0};
+    const double2* p = reinterpret_cast<const double2*>(row + b);
+    const double2 lo = CG ? __ldcg(p) : p[0];
+    const double2 hi = CG ? __ldcg(p + 1) : p[1];
+    return D4{lo.x, lo.y, hi.x, hi.y};
+  } else {
+    auto at = [&](int i) {
+      return b + i < B ? (CG ? __ldcg(row + b + i) : row[b + i]) : 0.0;
+    };
+    return D4{at(0), at(1), at(2), at(3)};
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store4(double* __restrict__ row, int b, int B,
+                                       D4 v) {
+  if constexpr (VEC) {
+    if (b < B) {
+      double2* p = reinterpret_cast<double2*>(row + b);
+      p[0] = make_double2(v.x, v.y);
+      p[1] = make_double2(v.z, v.w);
+    }
+  } else {
+    if (b < B) row[b] = v.x;
+    if (b + 1 < B) row[b + 1] = v.y;
+    if (b + 2 < B) row[b + 2] = v.z;
+    if (b + 3 < B) row[b + 3] = v.w;
+  }
+}
+
 // Four consecutive columns of a state row that another CTA of the launch
 // wrote, read past L1 under an L2 policy (VEC), or as load4 does.
 template <bool VEC>
@@ -144,6 +207,20 @@ __device__ __forceinline__ void store4_hint(float* __restrict__ row, int b,
   } else {
     store4<VEC>(row, b, B, v);
   }
+}
+
+// The double rows take no L2 policy (the float64 instantiation is the
+// simple one): past L1, as load4 does.
+template <bool VEC>
+__device__ __forceinline__ D4 load4_hint(const double* __restrict__ row,
+                                         int b, int B, unsigned long long) {
+  return load4<VEC, true>(row, b, B);
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store4_hint(double* __restrict__ row, int b,
+                                            int B, D4 v, unsigned long long) {
+  store4<VEC>(row, b, B, v);
 }
 
 }  // namespace

@@ -144,15 +144,30 @@
 // rescale, gamma, posteriors, the normalisation) is the float32 code of the
 // other instantiations, which the branch leaves as they were.
 //
+// A float64 graph (compile_fsm dtype=float64, pallas_block.py :313-316
+// declines it on the TPU, where the JAX package answers it through XLA)
+// takes the double instantiation (T = double): every value the kernels
+// read or write is double (state, emissions and their shift, panels,
+// bands, family weights, omega, column maxima, checkpoints, alphas, pdf
+// sums and posteriors), on the CUDA cores' FP64 FMAs, at half their FP32
+// rate on an H100 SXM (33.5 against 67 TFLOP/s).  The sums are the float
+// instantiation's, in the same order; the per-frame scale is the exact
+// power of two from the 11 exponent bits; the column max is the 64-bit
+// atomicMax on the bits (exact and order-free for non-negative doubles).
+// It is the simple one: no cp.async ring, no alpha staging, no L2 hints,
+// stages of 16 rows (the float ones' bytes), 2 CTAs per SM, and K4's
+// shared block (69 KB) in dynamic shared memory.  No bf16 panels with
+// double values.
+//
 // The items are latency-bound too, measured on an H100 SXM (700 W): the
 // tier tiles alone reach ~20 % of the float32 FMA peak, so occupancy
 // decides: registers are capped to keep 3 or 4 CTAs of 256 threads
 // resident per SM, the tier stages through shared memory with per-thread
 // strided pointers, and state rows move as float4 when B % 4 == 0.
 //
-// Conventions: state (Sp, B) row-major, float32; ext (frames, P1, B); the
-// emission of state j is ext[t, pdf(j), b], pdf(j) = j / cmax in the uniform
-// layout and row_pdf[j] in the capped one.
+// Conventions: state (Sp, B) row-major, float32 (or double); ext (frames,
+// P1, B); the emission of state j is ext[t, pdf(j), b], pdf(j) = j / cmax in
+// the uniform layout and row_pdf[j] in the capped one.
 // A carried state is stored unscaled with a (B,) scale.  Index maps of the
 // tier come from the host as ints: src(k, s) = g0 + k*gk + s*gs,
 // dst(k, d) = d0 + k*dk + d*dd.
@@ -170,18 +185,19 @@ constexpr int TB = 64;   // batch columns per tile
 constexpr int TS = 32;   // tier contraction depth per shared-memory stage
 constexpr int NT = 256;  // threads per CTA: 16 x 16, 4x4 outputs each
 constexpr int FR = 128;  // the forward's omega reduction: threads per column
-constexpr int PER = TS * TR / NT;  // tier values each thread stages per stage
 // copies of each frame's column max; CTA c takes it into copy c % CM, so
 // that no few cache lines take every item's atomics
 constexpr int CM = 16;
 // K4's CTAs resident per SM (caps registers): the capped layout's family
 // code needs more registers than 4 CTAs of 256 threads leave (it spilled
 // 1.1 KB per thread in bf16)
-template <bool FAM>
-constexpr int bwd_blocks() { return FAM ? 3 : 4; }
+template <bool FAM, class T = float>
+constexpr int bwd_blocks() { return sizeof(T) == 8 ? 2 : FAM ? 3 : 4; }
 // K2/K3's: 3 for every layout, so that a pair of rows' band terms fit in
-// registers (at 4 the forward spilled and ran slower)
-constexpr int FWD_BLOCKS = 3;
+// registers (at 4 the forward spilled and ran slower); the double
+// instantiation's values take two registers each: 2
+template <class T>
+constexpr int fwd_blocks() { return sizeof(T) == 8 ? 2 : 3; }
 constexpr int KS = 16;   // bf16 tier: contraction depth of one mma step
 constexpr int BST = TS + 8;  // bf16 tier: padded stage row (80 bytes)
 
@@ -189,23 +205,94 @@ constexpr int BST = TS + 8;  // bf16 tier: padded stage row (80 bytes)
 template <bool BF16>
 using TierT = typename std::conditional<BF16, __nv_bfloat16, float>::type;
 
+// The value type T of an instantiation: float, or double (a float64 graph:
+// state, emissions, panels, bands, family weights, omega, column maxima,
+// checkpoints and posteriors all double).  What depends on it:
+template <class T>
+__host__ __device__ constexpr bool is_f64() { return sizeof(T) == 8; }
+// the tier stages' depth: the double stages take the float ones' bytes
+template <class T>
+__host__ __device__ constexpr int stage_depth() {
+  return is_f64<T>() ? TS / 2 : TS;
+}
+// four consecutive columns of a row, and the unsigned word whose bits order
+// non-negative values as they compare (the column max's atomicMax)
+template <class T>
+using V4 = typename std::conditional<is_f64<T>(), D4, float4>::type;
+template <class T>
+using BitsT =
+    typename std::conditional<is_f64<T>(), unsigned long long, unsigned>::type;
+
+__device__ __forceinline__ float fma_(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_(double a, double b, double c) {
+  return fma(a, b, c);
+}
+__device__ __forceinline__ float fmax_(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double fmax_(double a, double b) {
+  return fmax(a, b);
+}
+__device__ __forceinline__ unsigned to_bits(float v) {
+  return __float_as_uint(v);
+}
+__device__ __forceinline__ unsigned long long to_bits(double v) {
+  return static_cast<unsigned long long>(__double_as_longlong(v));
+}
+template <class T>
+__device__ __forceinline__ V4<T> make4(T a, T b, T c, T d) {
+  if constexpr (is_f64<T>())
+    return D4{a, b, c, d};
+  else
+    return make_float4(a, b, c, d);
+}
+template <class T>
+__device__ __forceinline__ V4<T> zero4() {
+  return make4<T>(T(0), T(0), T(0), T(0));
+}
+// four values from shared memory (16-byte aligned)
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ D4 lds4(const double* p) {
+  const double2 lo = reinterpret_cast<const double2*>(p)[0];
+  const double2 hi = reinterpret_cast<const double2*>(p)[1];
+  return D4{lo.x, lo.y, hi.x, hi.y};
+}
+
+// The CTA's shared memory: a static block for the float instantiations,
+// the dynamic block (sized by the launch) where a double one passes the
+// 48 KB of a static block (K4's).
+template <class S, bool DYN>
+__device__ __forceinline__ S& cta_smem() {
+  if constexpr (DYN) {
+    extern __shared__ __align__(16) unsigned char dyn_smem[];
+    return *reinterpret_cast<S*>(dyn_smem);
+  } else {
+    __shared__ __align__(16) S s;
+    return s;
+  }
+}
+
 // Device tables of the layout (host: block_scan._ilayout, the same order).
+template <class T = float>
 struct Layout {
   const int* row_pdf;   // (Sp,) pdf of each state row
   const int* fam_ptr;   // (Sp + 1,) row j's family terms: [fam_ptr[j], fam_ptr[j+1])
   const int* fam_src;   // (nfam,) source row of each term
-  const float* fam_w;   // (nfam,) its weight
+  const T* fam_w;       // (nfam,) its weight
   const int* ovp_ptr;   // (P1 + 1,) pdf p's overflow rows: ovp_lane[ovp_ptr[p] ..]
   const int* ovp_lane;  // (ov_hi - ov_lo,) those rows minus ov_lo, increasing
   const int* heavy_rows;  // (nheavy,) the rows with a tile each
 };
 
-Layout parse_layout(const long long* a) {
-  Layout l;
+template <class T>
+Layout<T> parse_layout(const long long* a) {
+  Layout<T> l;
   l.row_pdf = reinterpret_cast<const int*>(a[0]);
   l.fam_ptr = reinterpret_cast<const int*>(a[1]);
   l.fam_src = reinterpret_cast<const int*>(a[2]);
-  l.fam_w = reinterpret_cast<const float*>(a[3]);
+  l.fam_w = reinterpret_cast<const T*>(a[3]);
   l.ovp_ptr = reinterpret_cast<const int*>(a[4]);
   l.ovp_lane = reinterpret_cast<const int*>(a[5]);
   l.heavy_rows = reinterpret_cast<const int*>(a[6]);
@@ -214,61 +301,64 @@ Layout parse_layout(const long long* a) {
 
 // One staged (TS-deep) step of the tier product: acc[i][c] += Ws[s][ty*4 +
 // i] * Xs[s][tx*4 + c] for s in order, by fused multiply-adds.
-__device__ __forceinline__ void tier_stage(float (&Ws)[TS][TR],
-                                           float (&Xs)[TS][TB],
-                                           float (&acc)[4][4]) {
+template <class T, int S>
+__device__ __forceinline__ void tier_stage(T (&Ws)[S][TR], T (&Xs)[S][TB],
+                                           T (&acc)[4][4]) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll 8
-  for (int ss = 0; ss < TS; ++ss) {
-    const float4 w = *reinterpret_cast<const float4*>(&Ws[ss][ty * 4]);
-    const float4 x = *reinterpret_cast<const float4*>(&Xs[ss][tx * 4]);
-    const float wv[4] = {w.x, w.y, w.z, w.w};
-    const float xv[4] = {x.x, x.y, x.z, x.w};
+  for (int ss = 0; ss < S; ++ss) {
+    const V4<T> w = lds4(&Ws[ss][ty * 4]);
+    const V4<T> x = lds4(&Xs[ss][tx * 4]);
+    const T wv[4] = {w.x, w.y, w.z, w.w};
+    const T xv[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(wv[i], xv[c], acc[i][c]);
+      for (int c = 0; c < 4; ++c) acc[i][c] = fma_(wv[i], xv[c], acc[i][c]);
   }
 }
 
 // K1, tier part: acc[i][c] += sum_s W[k, s, d] * prev[src(k, s), b] for the
 // 4x4 outputs of this thread (d = dbase + ty*4 + i, b = b0 + tx*4 + c), in s
 // order.  Staging: thread tid copies column tid % 64 of rows tid / 64 + 4u of
-// each (TS x 64) stage of W[k] and of the gathered state rows; the state
-// is read past L1 (another CTA of the persistent launch wrote it), and the
-// next stage's values wait in registers while this one is multiplied.
+// each (S x 64) stage of W[k] and of the gathered state rows (S = TS for
+// float, stage_depth<double>() for double); the state is read past L1
+// (another CTA of the persistent launch wrote it), and the next stage's
+// values wait in registers while this one is multiplied.
+template <class T, int S>
 __device__ __forceinline__ void tier_tile(
-    const Meta& m, int B, const float* __restrict__ prev,
-    const float* __restrict__ W, long long k, long long dbase, int b0,
-    float (&Ws)[TS][TR], float (&Xs)[TS][TB], float (&acc)[4][4]) {
-  static_assert(TR == TB && NT % TR == 0 && TS % (NT / TR) == 0, "tiles");
+    const Meta& m, int B, const T* __restrict__ prev,
+    const T* __restrict__ W, long long k, long long dbase, int b0,
+    T (&Ws)[S][TR], T (&Xs)[S][TB], T (&acc)[4][4]) {
+  static_assert(TR == TB && NT % TR == 0 && S % (NT / TR) == 0, "tiles");
   constexpr int RS = NT / TR;  // staged rows per pass
+  constexpr int PS = S * TR / NT;  // values each thread stages per stage
   const int tid = threadIdx.x;
   const int col = tid % TR, row0 = tid / TR;
   const bool dok = dbase + col < m.D, bok = b0 + col < B;
-  const float* pw = W + (k * m.Sm + row0) * m.D + dbase + col;
-  const float* px = prev + (m.g0 + k * m.gk + row0 * m.gs) * B + b0 + col;
+  const T* pw = W + (k * m.Sm + row0) * m.D + dbase + col;
+  const T* px = prev + (m.g0 + k * m.gk + row0 * m.gs) * B + b0 + col;
   const long long wstep = RS * m.D, xstep = RS * m.gs * B;
-  float wn[PER], xn[PER];
+  T wn[PS], xn[PS];
   auto fetch = [&](long long s0) {  // the stage into registers
 #pragma unroll
-    for (int u = 0; u < PER; ++u) {
+    for (int u = 0; u < PS; ++u) {
       const bool sok = s0 + row0 + u * RS < m.Sm;
-      wn[u] = (sok && dok) ? pw[u * wstep] : 0.f;
-      xn[u] = (sok && bok) ? __ldcg(px + u * xstep) : 0.f;
+      wn[u] = (sok && dok) ? pw[u * wstep] : T(0);
+      xn[u] = (sok && bok) ? __ldcg(px + u * xstep) : T(0);
     }
-    pw += TS * m.D;
-    px += TS * m.gs * B;
+    pw += S * m.D;
+    px += S * m.gs * B;
   };
   fetch(0);
-  for (long long s0 = 0; s0 < m.Sm; s0 += TS) {
+  for (long long s0 = 0; s0 < m.Sm; s0 += S) {
 #pragma unroll
-    for (int u = 0; u < PER; ++u) {
+    for (int u = 0; u < PS; ++u) {
       Ws[row0 + u * RS][col] = wn[u];
       Xs[row0 + u * RS][col] = xn[u];
     }
     __syncthreads();
-    if (s0 + TS < m.Sm) fetch(s0 + TS);
+    if (s0 + S < m.Sm) fetch(s0 + S);
     tier_stage(Ws, Xs, acc);
     __syncthreads();
   }
@@ -454,24 +544,24 @@ __device__ __forceinline__ void tier_tile_bf16(
 // loop is unrolled so that the terms' loads overlap (the same sums in the
 // same order); the state is read past L1, the forward's (not BWD) under
 // the L2 policy `once`.
-template <bool VEC, bool BWD>
-__device__ __forceinline__ void heavy_terms(const Layout& lay, int B,
-                                            const float* __restrict__ prev,
+template <bool VEC, bool BWD, class T, int S>
+__device__ __forceinline__ void heavy_terms(const Layout<T>& lay, int B,
+                                            const T* __restrict__ prev,
                                             int j, int b0,
-                                            float (&P)[TS][TB],
+                                            T (&P)[S][TB],
                                             unsigned long long once = 0) {
-  static_assert(NT / 16 <= TS, "partials");
+  static_assert(NT / 16 <= S, "partials");
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int bcol = b0 + tx * 4;
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  T s[4] = {T(0), T(0), T(0), T(0)};
   const int q1 = lay.fam_ptr[j + 1];
   auto term = [&](int q) {
-    const float w = lay.fam_w[q];
-    const float* row = prev + static_cast<size_t>(lay.fam_src[q]) * B;
-    const float4 x = BWD ? load4<VEC, true>(row, bcol, B)
-                         : load4_hint<VEC>(row, bcol, B, once);
+    const T w = lay.fam_w[q];
+    const T* row = prev + static_cast<size_t>(lay.fam_src[q]) * B;
+    const V4<T> x = BWD ? load4<VEC, true>(row, bcol, B)
+                        : load4_hint<VEC>(row, bcol, B, once);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[c] = fmaf(w, get(x, c), s[c]);
+    for (int c = 0; c < 4; ++c) s[c] = fma_(w, get(x, c), s[c]);
   };
 #pragma unroll 4
   for (int q = lay.fam_ptr[j] + ty; q < q1; q += NT / 16) term(q);
@@ -482,8 +572,8 @@ __device__ __forceinline__ void heavy_terms(const Layout& lay, int B,
 // The state row of row r of tile `tile` in the kernels' tile order (a
 // heavy row's tile, then the tier tiles, then the 64-row band tiles), or -1.
 // row0: the first row of a band tile of consecutive rows, else -1.
-template <bool FAM>
-__device__ __forceinline__ long long tile_row(const Meta& m, const Layout& lay,
+template <bool FAM, class L>
+__device__ __forceinline__ long long tile_row(const Meta& m, const L& lay,
                                               const int* band_rows,
                                               long long tile, int r,
                                               int row0) {
@@ -507,43 +597,59 @@ __device__ __forceinline__ float exponent_of(const unsigned* cm, int b, int B) {
   return pow2_exponent(__uint_as_float(mx));
 }
 
+// The same from a double max's bits.
+__device__ __forceinline__ double exponent_of(const unsigned long long* cm,
+                                              int b, int B) {
+  unsigned long long mx = 0ull;
+#pragma unroll
+  for (int c = 0; c < CM; ++c) {
+    const unsigned long long v = __ldcg(cm + c * B + b);
+    mx = v > mx ? v : mx;
+  }
+  return pow2_exponent(__longlong_as_double(static_cast<long long>(mx)));
+}
+
 // The exact power-of-two scale of column b, 0 past the batch.
-__device__ __forceinline__ float scale_of(const unsigned* cm, int b, int B) {
-  return b < B ? pow2_scale(exponent_of(cm, b, B)) : 0.f;
+template <class U>
+__device__ __forceinline__ auto scale_of(const U* cm, int b, int B) {
+  using T = decltype(exponent_of(cm, b, B));
+  return b < B ? pow2_scale(exponent_of(cm, b, B)) : T(0);
 }
 
 // ---------------------------------------------------------------------------
 // K2 and K3: the forward over a sweep or a chunk, one persistent launch
 // ---------------------------------------------------------------------------
 
+// V: the value type (float or double).
+template <class V = float>
 struct FwdArgs {
   Meta m;
-  Layout lay;
+  Layout<V> lay;
   int B, T;        // T frames
   int skip_first;  // frame 0 is the sweep's first: y = prev * e
   int chunk;       // K2: a checkpoint before every chunk-th frame; K3: 0
-  const float* a0;        // (Sp, B) the state before frame 0, unscaled
-  const float* scale_in;  // (B,) its scale
-  const float* ext;       // (T, P1, B)
-  const float* mshift;    // K2: (T, 1, B) the emission shifts
-  const float* band_w;
+  const V* a0;        // (Sp, B) the state before frame 0, unscaled
+  const V* scale_in;  // (B,) its scale
+  const V* ext;       // (T, P1, B)
+  const V* mshift;    // K2: (T, 1, B) the emission shifts
+  const V* band_w;
   const void* W;
-  const float* omega;
+  const V* omega;
   const int* band_rows;
   const int2* queue;  // (n_items,) as K4's (fwd_plan)
   int n_items;
   long long fin_tile;  // the tile that holds the phony final row
   int fin_row0;        // its queue's first row (-1: its row list)
-  float* out;     // K3: (T, Sp, B) every frame's state; K2: (2, Sp, B)
-  float* last;    // K2: (Sp, B) frame T-1's state; K3: null
-  float* bounds;  // K2: (T / chunk, Sp, B) the checkpoints
-  float* bscale;  // K2: (T / chunk, B) their scales
-  float* scales;  // K3: (T, B) every frame's scale; K2: (B,) the last one
-  float* ksum;    // K2: (B,) sum of the exponents, zero on entry
-  float* shift;   // K2: (B,) the Kahan-compensated emission shift, zero
-  float* comp;    // K2: (B,) its compensation, zero
-  float* part;    // (2, n_tiles, B) per-tile partials of omega . state
-  unsigned* cm;   // (T, CM, B) column max of each frame (float bits), zeroed
+  V* out;     // K3: (T, Sp, B) every frame's state; K2: (2, Sp, B)
+  V* last;    // K2: (Sp, B) frame T-1's state; K3: null
+  V* bounds;  // K2: (T / chunk, Sp, B) the checkpoints
+  V* bscale;  // K2: (T / chunk, B) their scales
+  V* scales;  // K3: (T, B) every frame's scale; K2: (B,) the last one
+  V* ksum;    // K2: (B,) sum of the exponents, zero on entry
+  V* shift;   // K2: (B,) the Kahan-compensated emission shift, zero
+  V* comp;    // K2: (B,) its compensation, zero
+  V* part;    // (2, n_tiles, B) per-tile partials of omega . state
+  BitsT<V>* cm;  // (T, CM, B) column max of each frame (value bits), zeroed
   unsigned* ctr;   // (T,) each frame's queue position, zeroed
   unsigned* sync;  // (SYNC_GEN + 1,) barrier counter, generation, zeroed
 };
@@ -556,33 +662,37 @@ __device__ __forceinline__ void fwd_grid_sync(unsigned* sync) {
   grid_sync<SYNC_GEN, 256>(sync);
 }
 
-// Shared memory of one forward CTA.
-template <bool BF16>
+// Shared memory of one forward CTA (V: the value type; 37 KB for double).
+template <bool BF16, class V = float>
 struct FwdSmem {
-  float Ws[TS][TR];  // the tier stages (a heavy row: its 16 partial sums)
-  float Xs[TS][TB];
-  float Ws2[BF16 ? 1 : TS][TR];  // float32: the second stage of the ring
-  float Xs2[BF16 ? 1 : TS][TB];
-  float red[2][16][TB];
+  static constexpr int S = stage_depth<V>();
+  // the float32 tier's ring of two stages (cp.async)
+  static constexpr bool RING = !BF16 && !is_f64<V>();
+  V Ws[S][TR];  // the tier stages (a heavy row: its 16 partial sums)
+  V Xs[S][TB];
+  V Ws2[RING ? S : 1][TR];  // float32: the second stage of the ring
+  V Xs2[RING ? S : 1][TB];
+  V red[2][16][TB];
   float G[BF16 ? TR : 1][TB + 1];  // BF16: the tier product's outputs
   int rows[TR];  // state row of each tile row, -1 if none
   int pdf[TR];   // its pdf (the emission's row of ext)
-  float sc[TB];  // the previous frame's scale of the item's columns
+  V sc[TB];  // the previous frame's scale of the item's columns
   int2 next[2];  // the queue entries taken for the next items
-  float fr[2][FR];  // the omega reduction of two columns
-  float fp[2][16];  // the phony row's tile: its thread rows' partials
+  V fr[2][FR];  // the omega reduction of two columns
+  V fp[2][16];  // the phony row's tile: its thread rows' partials
 };
 
 // Where frame j of the launch reads and writes.
+template <class V>
 struct FwdFrame {
-  const float* prev;        // the state of frame j-1 (a0 for j = 0)
-  float* out;               // the state of frame j
-  const float* ext_t;
-  const unsigned* cm_prev;  // frame j-1's column max, null: scale_in
-  unsigned* cm_t;
-  const float* part_prev;   // frame j-1's omega partials (prologue: a0's)
-  float* part_t;            // frame j's
-  float* bound;             // K2 before a chunk: the checkpoint, else null
+  const V* prev;        // the state of frame j-1 (a0 for j = 0)
+  V* out;               // the state of frame j
+  const V* ext_t;
+  const BitsT<V>* cm_prev;  // frame j-1's column max, null: scale_in
+  BitsT<V>* cm_t;
+  const V* part_prev;   // frame j-1's omega partials (prologue: a0's)
+  V* part_t;            // frame j's
+  V* bound;             // K2 before a chunk: the checkpoint, else null
   bool skip;                // the sweep's first frame: y = prev * e
 };
 
@@ -599,14 +709,14 @@ struct FwdFrame {
 // except on the sweep's first frame, which has none.  Before a chunk (K2)
 // the tile's rows of prev are copied to the checkpoint.  The arithmetic is
 // that of the per-frame step it replaces, sum for sum.
-template <bool VEC, bool FAM, bool BF16>
+template <bool VEC, bool FAM, bool BF16, class T>
 __device__ __forceinline__ void fwd_item(
-    const FwdArgs& p, const FwdFrame& f, long long tile, int b0, int row0,
-    FwdSmem<BF16>& s, const float* __restrict__ prev, float* __restrict__ out,
-    const float* __restrict__ ext_t, const float* __restrict__ omega,
-    const float* __restrict__ band_w) {
+    const FwdArgs<T>& p, const FwdFrame<T>& f, long long tile, int b0,
+    int row0, FwdSmem<BF16, T>& s, const T* __restrict__ prev,
+    T* __restrict__ out, const T* __restrict__ ext_t,
+    const T* __restrict__ omega, const T* __restrict__ band_w) {
   const Meta& m = p.m;
-  const Layout& lay = p.lay;
+  const Layout<T>& lay = p.lay;
   const int B = p.B;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int bcol = b0 + tx * 4;  // this thread's columns bcol .. bcol+3
@@ -624,7 +734,7 @@ __device__ __forceinline__ void fwd_item(
         j < 0 ? -1 : (FAM ? lay.row_pdf[j] : static_cast<int>(j / m.cmax));
   } else if (tid < TR + TB) {
     const int b = b0 + tid - TR;
-    s.sc[tid - TR] = f.cm_prev == nullptr ? (b < B ? p.scale_in[b] : 0.f)
+    s.sc[tid - TR] = f.cm_prev == nullptr ? (b < B ? p.scale_in[b] : T(0))
                                           : scale_of(f.cm_prev, b, B);
   }
   // the state read under evict_first, the new state stored under
@@ -632,17 +742,19 @@ __device__ __forceinline__ void fwd_item(
   // frame has read
   const unsigned long long once = evict_first_policy();
   const unsigned long long keep = evict_last_policy();
-  float acc[4][4];
+  T acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 4; ++c) acc[i][c] = T(0);
   if (is_tier && !f.skip) {
-    const float* Wf = static_cast<const float*>(p.W);
+    const T* Wf = static_cast<const T*>(p.W);
     if constexpr (BF16)
       tier_tile_bf16<false>(m, B, prev,
                             static_cast<const __nv_bfloat16*>(p.W), k, dbase,
                             b0, s.Ws, s.Xs, s.G, acc, once);
+    else if constexpr (is_f64<T>())
+      tier_tile(m, B, prev, Wf, k, dbase, b0, s.Ws, s.Xs, acc);
     else if (VEC && m.D % 4 == 0)
       fwd_tier_tile4(m, B, prev, Wf, k, dbase, b0, s.Ws, s.Xs, s.Ws2, s.Xs2,
                      acc, once);
@@ -656,9 +768,9 @@ __device__ __forceinline__ void fwd_item(
   }
   __syncthreads();
 
-  const float4 sc = make_float4(s.sc[tx * 4], s.sc[tx * 4 + 1],
-                                s.sc[tx * 4 + 2], s.sc[tx * 4 + 3]);
-  float colmax[4] = {0.f, 0.f, 0.f, 0.f}, colsum[4] = {0.f, 0.f, 0.f, 0.f};
+  const V4<T> sc = make4<T>(s.sc[tx * 4], s.sc[tx * 4 + 1],
+                            s.sc[tx * 4 + 2], s.sc[tx * 4 + 3]);
+  T colmax[4] = {T(0), T(0), T(0), T(0)}, colsum[4] = {T(0), T(0), T(0), T(0)};
   // rows in pairs: a pair's first PB band terms (weight and state row)
   // are all loaded before any is used, one memory round trip per pair
   // instead of one per term (four rows at once spilled); the sums then run
@@ -666,8 +778,8 @@ __device__ __forceinline__ void fwd_item(
   constexpr int PB = 2;
 #pragma unroll
   for (int i0 = 0; i0 < 4; i0 += 2) {
-    float4 xb[2][PB];
-    float wb[2][PB];
+    V4<T> xb[2][PB];
+    T wb[2][PB];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = ty * 4 + i0 + h, j = s.rows[r];
@@ -676,10 +788,10 @@ __device__ __forceinline__ void fwd_item(
         const int src = j - m.off[o];
         const bool ok = !f.skip && j >= 0 && o < m.nO && src >= 0 &&
                         src < m.Sp;
-        wb[h][o] = ok ? band_w[static_cast<size_t>(o) * m.Sp + j] : 0.f;
+        wb[h][o] = ok ? band_w[static_cast<size_t>(o) * m.Sp + j] : T(0);
         xb[h][o] = ok ? load4_hint<VEC>(prev + static_cast<size_t>(src) * B,
                                         bcol, B, once)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
+                      : zero4<T>();
       }
     }
 #pragma unroll
@@ -689,24 +801,24 @@ __device__ __forceinline__ void fwd_item(
       const int j = s.rows[r];
       if (j < 0) continue;
       const size_t jB = static_cast<size_t>(j) * B;
-      const float4 e =
+      const V4<T> e =
           load4<VEC>(ext_t + static_cast<size_t>(s.pdf[r]) * B, bcol, B);
-      const float om = omega[j];
-      float v[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
+      const T om = omega[j];
+      T v[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
       if (!f.skip) {
 #pragma unroll
         for (int o = 0; o < MAX_BANDS; ++o) {
           if (o >= m.nO) break;  // uniform across the block
           const int src = j - m.off[o];
           if (src < 0 || src >= m.Sp) continue;  // wrapped: no arc
-          const float w = o < PB ? wb[h][o < PB ? o : 0]
-                                 : band_w[static_cast<size_t>(o) * m.Sp + j];
-          const float4 x =
+          const T w = o < PB ? wb[h][o < PB ? o : 0]
+                             : band_w[static_cast<size_t>(o) * m.Sp + j];
+          const V4<T> x =
               o < PB ? xb[h][o < PB ? o : 0]
                      : load4_hint<VEC>(prev + static_cast<size_t>(src) * B,
                                        bcol, B, once);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) v[c] = fmaf(w, get(x, c), v[c]);
+          for (int c = 0; c < 4; ++c) v[c] = fma_(w, get(x, c), v[c]);
         }
         if constexpr (FAM) {  // overflow families (K1's apply_ov)
           if (is_heavy) {  // split over the thread rows
@@ -717,30 +829,30 @@ __device__ __forceinline__ void fwd_item(
             const int e1 = lay.fam_ptr[j + 1];
 #pragma unroll 4
             for (int q = lay.fam_ptr[j]; q < e1; ++q) {
-              const float w = lay.fam_w[q];
-              const float4 x = load4_hint<VEC>(
+              const T w = lay.fam_w[q];
+              const V4<T> x = load4_hint<VEC>(
                   prev + static_cast<size_t>(lay.fam_src[q]) * B, bcol, B,
                   once);
 #pragma unroll
-              for (int c = 0; c < 4; ++c) v[c] = fmaf(w, get(x, c), v[c]);
+              for (int c = 0; c < 4; ++c) v[c] = fma_(w, get(x, c), v[c]);
             }
           }
         }
       }
-      float4 pv = make_float4(0.f, 0.f, 0.f, 0.f);
+      V4<T> pv = zero4<T>();
       if (f.skip || f.bound != nullptr)
         pv = load4<VEC, true>(prev + jB, bcol, B);
       if (f.bound != nullptr) store4<VEC>(f.bound + jB, bcol, B, pv);
-      float y[4];
+      T y[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         y[c] = (f.skip ? get(pv, c) : v[c] * get(sc, c)) * get(e, c);
-        colmax[c] = fmaxf(colmax[c], y[c]);
-        colsum[c] = fmaf(om, y[c], colsum[c]);
+        colmax[c] = fmax_(colmax[c], y[c]);
+        colsum[c] = fma_(om, y[c], colsum[c]);
       }
       if (f.skip || j != m.fin)
-        store4_hint<VEC>(out + jB, bcol, B,
-                         make_float4(y[0], y[1], y[2], y[3]), keep);
+        store4_hint<VEC>(out + jB, bcol, B, make4<T>(y[0], y[1], y[2], y[3]),
+                         keep);
     }
   }
 #pragma unroll
@@ -751,12 +863,12 @@ __device__ __forceinline__ void fwd_item(
   __syncthreads();
   if (tid < TB && b0 + tid < B) {
     const int b = b0 + tid;
-    float mx = 0.f, sm = 0.f;
+    T mx = T(0), sm = T(0);
     for (int q = 0; q < 16; ++q) {
-      mx = fmaxf(mx, s.red[0][q][tid]);
+      mx = fmax_(mx, s.red[0][q][tid]);
       sm += s.red[1][q][tid];
     }
-    atomicMax(f.cm_t + (blockIdx.x % CM) * B + b, __float_as_uint(mx));
+    atomicMax(f.cm_t + (blockIdx.x % CM) * B + b, to_bits(mx));
     f.part_t[tile * B + b] = sm;
   }
   __syncthreads();  // the tables and stages are free for the next item
@@ -765,31 +877,31 @@ __device__ __forceinline__ void fwd_item(
 // The omega partials of the launch's first state a0 (K3 from a
 // checkpoint), the same per-tile sums as fwd_item's, over a static round
 // robin of the items.
-template <bool VEC, bool FAM>
-__device__ __forceinline__ void fwd_prologue(const FwdArgs& p, float* part,
-                                             float (&red)[2][16][TB]) {
+template <bool VEC, bool FAM, class T>
+__device__ __forceinline__ void fwd_prologue(const FwdArgs<T>& p, T* part,
+                                             T (&red)[2][16][TB]) {
   const Meta& m = p.m;
   const int B = p.B, ncb = (B + TB - 1) / TB;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   for (int it = blockIdx.x; it < p.n_items; it += gridDim.x) {
     const long long tile = it / ncb;
     const int b0 = (it % ncb) * TB, bcol = b0 + tx * 4;
-    float colsum[4] = {0.f, 0.f, 0.f, 0.f};
+    T colsum[4] = {T(0), T(0), T(0), T(0)};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const long long j =
           tile_row<FAM>(m, p.lay, p.band_rows, tile, ty * 4 + i, -1);
       if (j < 0) continue;
-      const float om = p.omega[j];
-      const float4 x = load4<VEC, true>(p.a0 + j * B, bcol, B);
+      const T om = p.omega[j];
+      const V4<T> x = load4<VEC, true>(p.a0 + j * B, bcol, B);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) colsum[c] = fmaf(om, get(x, c), colsum[c]);
+      for (int c = 0; c < 4; ++c) colsum[c] = fma_(om, get(x, c), colsum[c]);
     }
 #pragma unroll
     for (int c = 0; c < 4; ++c) red[1][ty][tx * 4 + c] = colsum[c];
     __syncthreads();
     if (tid < TB && b0 + tid < B) {
-      float sm = 0.f;
+      T sm = T(0);
       for (int q = 0; q < 16; ++q) sm += red[1][q][tid];
       part[tile * B + b0 + tid] = sm;
     }
@@ -810,10 +922,10 @@ __device__ __forceinline__ void fwd_prologue(const FwdArgs& p, float* part,
 // then a tree), written to out and taken into frame j's column max before
 // the barrier that ends frame j, since frame j's items do not read it.
 // Each thread issues PT loads of partials before it sums any.
-template <bool FAM, bool BF16>
-__device__ __forceinline__ void fwd_finalize(const FwdArgs& p,
-                                             const FwdFrame& f, int j,
-                                             FwdSmem<BF16>& s) {
+template <bool FAM, bool BF16, class T>
+__device__ __forceinline__ void fwd_finalize(const FwdArgs<T>& p,
+                                             const FwdFrame<T>& f, int j,
+                                             FwdSmem<BF16, T>& s) {
   constexpr int PT = 8;
   const Meta& m = p.m;
   const int B = p.B, tid = threadIdx.x, h = tid / FR, ry = tid % FR;
@@ -824,29 +936,29 @@ __device__ __forceinline__ void fwd_finalize(const FwdArgs& p,
     // the first PT partials in flight while the scale is derived and
     // threads ry < 16 take thread row ry's part of the phony row's tile
     // from prev's final rows
-    float v[PT];
+    T v[PT];
     auto load = [&](long long t0) {
 #pragma unroll
       for (int u = 0; u < PT; ++u) {
         const long long t = t0 + u * FR;
         v[u] = ok && t < m.n_tiles && t != p.fin_tile
                    ? __ldcg(f.part_prev + t * B + b)
-                   : 0.f;
+                   : T(0);
       }
     };
     load(ry);
-    float sc = 0.f;
+    T sc = T(0);
     if (ok && j == 0) {
       sc = p.scale_in[b];
     } else if (ok) {
-      const float k = exponent_of(f.cm_prev, b, B);
+      const T k = exponent_of(f.cm_prev, b, B);
       sc = pow2_scale(k);
       if (ry == 0) {
         if (p.ksum != nullptr) {  // K2
           p.ksum[b] = __ldcg(p.ksum + b) + k;
-          const float sh = __ldcg(p.shift + b), cmp = __ldcg(p.comp + b);
-          const float xc = p.mshift[static_cast<size_t>(j - 1) * B + b] - cmp;
-          const float t = sh + xc;
+          const T sh = __ldcg(p.shift + b), cmp = __ldcg(p.comp + b);
+          const T xc = p.mshift[static_cast<size_t>(j - 1) * B + b] - cmp;
+          const T t = sh + xc;
           p.comp[b] = (t - sh) - xc;
           p.shift[b] = t;
           if (j % p.chunk == 0)
@@ -857,25 +969,25 @@ __device__ __forceinline__ void fwd_finalize(const FwdArgs& p,
       }
     }
     if (ry < 16) {
-      float cs = 0.f;
+      T cs = T(0);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const long long r = tile_row<FAM>(m, p.lay, p.band_rows, p.fin_tile,
                                           ry * 4 + i, p.fin_row0);
         if (r >= 0 && ok)
-          cs = fmaf(p.omega[r], __ldcg(f.prev + r * B + b), cs);
+          cs = fma_(p.omega[r], __ldcg(f.prev + r * B + b), cs);
       }
       s.fp[h][ry] = cs;
     }
     __syncthreads();
-    float sm = 0.f;
+    T sm = T(0);
     for (long long t0 = ry; t0 < m.n_tiles; t0 += PT * FR) {
       if (t0 != ry) load(t0);
 #pragma unroll
       for (int u = 0; u < PT; ++u) {
         const long long t = t0 + u * FR;
         if (t == p.fin_tile) {  // its thread rows' partials in order
-          v[u] = 0.f;
+          v[u] = T(0);
           for (int q = 0; q < 16; ++q) v[u] += s.fp[h][q];
         }
         if (t < m.n_tiles) sm += v[u];
@@ -888,10 +1000,10 @@ __device__ __forceinline__ void fwd_finalize(const FwdArgs& p,
       __syncthreads();
     }
     if (ry == 0 && ok) {
-      const float yfin =
+      const T yfin =
           s.fr[h][0] * sc * f.ext_t[static_cast<size_t>(pfin) * B + b];
       f.out[static_cast<size_t>(m.fin) * B + b] = yfin;
-      atomicMax(f.cm_t + (blockIdx.x % CM) * B + b, __float_as_uint(yfin));
+      atomicMax(f.cm_t + (blockIdx.x % CM) * B + b, to_bits(yfin));
     }
     __syncthreads();  // fp and fr are free
   }
@@ -900,16 +1012,16 @@ __device__ __forceinline__ void fwd_finalize(const FwdArgs& p,
 // K2 / K3 over frames 0 .. T-1: each CTA runs the frame's finalize share
 // (fwd_finalize) and then items from the frame's queue, one grid barrier
 // per frame; after the last, frame T-1's scale (and K2's ksum and shift).
-template <bool VEC, bool FAM, bool BF16>
-__global__ void __launch_bounds__(NT, FWD_BLOCKS)
-    fwd_chunk_kernel(const __grid_constant__ FwdArgs p) {
-  __shared__ __align__(16) FwdSmem<BF16> s;
+template <bool VEC, bool FAM, bool BF16, class T>
+__global__ void __launch_bounds__(NT, fwd_blocks<T>())
+    fwd_chunk_kernel(const __grid_constant__ FwdArgs<T> p) {
+  __shared__ __align__(16) FwdSmem<BF16, T> s;
   const Meta& m = p.m;
   const int B = p.B, ncb = (B + TB - 1) / TB, tid = threadIdx.x;
   const size_t SB = static_cast<size_t>(m.Sp) * B;
   const size_t PB = static_cast<size_t>(m.P1) * B;
   const size_t NB = static_cast<size_t>(m.n_tiles) * B;
-  auto state = [&](int j) -> float* {
+  auto state = [&](int j) -> T* {
     if (p.last == nullptr) return p.out + j * SB;  // K3: every frame
     return j == p.T - 1 ? p.last : p.out + (j % 2) * SB;
   };
@@ -918,7 +1030,7 @@ __global__ void __launch_bounds__(NT, FWD_BLOCKS)
     fwd_grid_sync(p.sync);
   }
   for (int j = 0; j < p.T; ++j) {
-    FwdFrame f;
+    FwdFrame<T> f;
     f.prev = j == 0 ? p.a0 : state(j - 1);
     f.out = state(j);
     f.ext_t = p.ext + j * PB;
@@ -931,15 +1043,15 @@ __global__ void __launch_bounds__(NT, FWD_BLOCKS)
                   : nullptr;
     f.skip = p.skip_first && j == 0;
     if (j + 1 < p.T) {  // the next frame's emissions into L2, spread
-      constexpr int LINE = 32;  // floats per 128-byte line
-      const float* e = p.ext + (j + 1) * PB;
+      constexpr int LINE = 128 / sizeof(T);  // values per 128-byte line
+      const T* e = p.ext + (j + 1) * PB;
       const size_t n_e = (PB + LINE - 1) / LINE;
       for (size_t i = static_cast<size_t>(blockIdx.x) * NT + tid; i < n_e;
            i += static_cast<size_t>(gridDim.x) * NT)
         prefetch_l2(e + i * LINE);
     }
     if (!f.skip) {
-      fwd_finalize<FAM, BF16>(p, f, j, s);
+      fwd_finalize<FAM, BF16, T>(p, f, j, s);
     } else if (p.chunk) {  // K2's first checkpoint scale
       for (int b = blockIdx.x * NT + tid; b < B; b += gridDim.x * NT)
         p.bscale[b] = p.scale_in[b];
@@ -955,22 +1067,22 @@ __global__ void __launch_bounds__(NT, FWD_BLOCKS)
     int par = 0;
     for (int2 q = s.next[0]; q.x >= 0; q = s.next[par]) {
       if (tid == 0) s.next[par ^ 1] = take();
-      fwd_item<VEC, FAM, BF16>(p, f, q.x / ncb, (q.x % ncb) * TB, q.y, s,
-                               f.prev, f.out, f.ext_t, p.omega, p.band_w);
+      fwd_item<VEC, FAM, BF16, T>(p, f, q.x / ncb, (q.x % ncb) * TB, q.y, s,
+                                  f.prev, f.out, f.ext_t, p.omega, p.band_w);
       par ^= 1;  // fwd_item ends with a block barrier: s.next[par] is set
     }
     fwd_grid_sync(p.sync);
   }
   // frame T-1's scale, once its column max is complete
-  const unsigned* cm = p.cm + static_cast<size_t>(p.T - 1) * CM * B;
+  const BitsT<T>* cm = p.cm + static_cast<size_t>(p.T - 1) * CM * B;
   for (int b = blockIdx.x * NT + tid; b < B; b += gridDim.x * NT) {
-    const float k = exponent_of(cm, b, B);
+    const T k = exponent_of(cm, b, B);
     if (p.ksum != nullptr) {  // K2
       p.scales[b] = pow2_scale(k);
       p.ksum[b] = __ldcg(p.ksum + b) + k;
-      const float sh = __ldcg(p.shift + b), cmp = __ldcg(p.comp + b);
-      const float xc = p.mshift[static_cast<size_t>(p.T - 1) * B + b] - cmp;
-      const float t = sh + xc;
+      const T sh = __ldcg(p.shift + b), cmp = __ldcg(p.comp + b);
+      const T xc = p.mshift[static_cast<size_t>(p.T - 1) * B + b] - cmp;
+      const T t = sh + xc;
       p.comp[b] = (t - sh) - xc;
       p.shift[b] = t;
     } else {
@@ -986,62 +1098,68 @@ bool bad_tier(const Meta& m, int bf16) { return bf16 && m.Sm % KS; }
 // K4: the backward over one chunk, one persistent cooperative launch
 // ---------------------------------------------------------------------------
 
+// V: the value type (float or double).
+template <class V = float>
 struct BwdArgs {
   Meta m;
-  Layout lay;
+  Layout<V> lay;
   int B, K, skip_last;  // skip_last: frame K-1 starts from beta = 1
-  const float* beta_in;   // (Sp, B) the state after the chunk, unscaled
-  const float* scale_in;  // (B,) its scale
-  const float* alphas;    // (K, Sp, B) unscaled
-  const float* ascale;    // (K, B)
-  const float* ext;       // (K, P1, B)
-  const float* band_w;
+  const V* beta_in;   // (Sp, B) the state after the chunk, unscaled
+  const V* scale_in;  // (B,) its scale
+  const V* alphas;    // (K, Sp, B) unscaled
+  const V* ascale;    // (K, B)
+  const V* ext;       // (K, P1, B)
+  const V* band_w;
   const void* W;
-  const float* omega;
+  const V* omega;
   const int* band_rows;
   // (n_items,) the queue: (tile * ncb + column tile, the first row of a
   // band tile of consecutive rows or -1)
   const int2* queue;
   int n_items;          // n_tiles * ncb
-  float* work;          // (2, Sp, B) the states between the frames
-  float* beta_out;      // (Sp, B) frame 0's state, unscaled
-  float* scale_out;     // (B,) its scale
-  float* posts;         // (K, P1, B) zero on entry
-  float* ovg;           // (K, ov_hi - ov_lo, B) the overflow rows' gammas
-  float* csum;          // (K, n_items, TB) each item's column sums of gamma
-  unsigned* cm;         // (K, CM, B) column max of beta (float bits), zeroed
+  V* work;          // (2, Sp, B) the states between the frames
+  V* beta_out;      // (Sp, B) frame 0's state, unscaled
+  V* scale_out;     // (B,) its scale
+  V* posts;         // (K, P1, B) zero on entry
+  V* ovg;           // (K, ov_hi - ov_lo, B) the overflow rows' gammas
+  V* csum;          // (K, n_items, TB) each item's column sums of gamma
+  BitsT<V>* cm;     // (K, CM, B) column max of beta (value bits), zeroed
   unsigned* ctr;        // (K,) each frame's queue position, zeroed
   unsigned* sync;       // (2,) barrier counter and generation, zeroed
 };
 
 // Shared memory of one CTA: the tier stages, the reductions, the gamma
-// tile (BF16: first the tier product's outputs) and the tile's row tables.
+// tile (BF16: first the tier product's outputs) and the tile's row tables
+// (V: the value type; 69 KB for double, the dynamic block).
+template <class V = float>
 struct BwdSmem {
-  // the tier stages; after the product (at once for a band tile) they
-  // hold the item's 64 x 64 block of alpha_t
-  float Ws[TS][TR];
-  float Xs[TS][TB];
-  float red[2][16][TB];
-  float G[TR][TB + 1];  // the gamma tile (BF16: first the tier's outputs)
+  static constexpr int S = stage_depth<V>();
+  // the tier stages; after the product (at once for a band tile; float
+  // only) they hold the item's 64 x 64 block of alpha_t
+  V Ws[S][TR];
+  V Xs[S][TB];
+  V red[2][16][TB];
+  V G[TR][TB + 1];  // the gamma tile (BF16: first the tier's outputs)
   int rows[TR];  // state row of each tile row, -1 if none
   int pdf[TR];   // its pdf (the emission's row of ext)
   int grp[TR];   // its posterior row, -1 for overflow rows
-  float rs[8][32];  // the normalisation's column sums
+  V rs[8][32];  // the normalisation's column sums
   int2 next[2];     // the queue entries taken for the next items
-  float sc[TB];     // the previous frame's scale of the item's columns
+  V sc[TB];     // the previous frame's scale of the item's columns
 };
 
 // Where frame j of the chunk reads and writes.
+template <class V>
 struct BwdFrame {
-  const float* prev;        // beta of frame j+1 (unscaled)
-  float* out;               // beta of frame j
-  const float* ext_t;
-  const float* alpha_t;
-  const float* ascale_t;
-  float* posts_t;           // (P1, B) unnormalised posteriors
-  float* ovg_t;
-  unsigned* cm_t;           // this frame's column max (CM copies)
-  const unsigned* cm_prev;  // frame j+1's, null: scale_in
+  const V* prev;        // beta of frame j+1 (unscaled)
+  V* out;               // beta of frame j
+  const V* ext_t;
+  const V* alpha_t;
+  const V* ascale_t;
+  V* posts_t;           // (P1, B) unnormalised posteriors
+  V* ovg_t;
+  BitsT<V>* cm_t;           // this frame's column max (CM copies)
+  const BitsT<V>* cm_prev;  // frame j+1's, null: scale_in
   bool skip;                // the last padded frame: y = 1
 };
 
@@ -1056,14 +1174,15 @@ struct BwdFrame {
 // product for a tier tile; the band and family terms are summed while it
 // is in flight.  Returns, in threads tid < TB, the item's column sum of
 // gamma for column b0 + tid (0 elsewhere).
-template <bool VEC, bool FAM, bool BF16>
-__device__ __forceinline__ float bwd_item(
-    const BwdArgs& p, const BwdFrame& f, long long tile, int b0, int row0,
-    BwdSmem& s, const float* __restrict__ prev, float* __restrict__ out,
-    const float* __restrict__ ext_t, const float* __restrict__ alpha_t,
-    const float* __restrict__ omega, const float* __restrict__ band_w) {
+template <bool VEC, bool FAM, bool BF16, class T>
+__device__ __forceinline__ T bwd_item(
+    const BwdArgs<T>& p, const BwdFrame<T>& f, long long tile, int b0,
+    int row0, BwdSmem<T>& s, const T* __restrict__ prev,
+    T* __restrict__ out, const T* __restrict__ ext_t,
+    const T* __restrict__ alpha_t, const T* __restrict__ omega,
+    const T* __restrict__ band_w) {
   const Meta& m = p.m;
-  const Layout& lay = p.lay;
+  const Layout<T>& lay = p.lay;
   const int B = p.B;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int bcol = b0 + tx * 4;  // this thread's columns bcol .. bcol+3
@@ -1100,13 +1219,14 @@ __device__ __forceinline__ float bwd_item(
     s.grp[tid] = (FAM && j >= m.ov_lo && j < m.ov_hi) ? -1 : pd;
   } else if (tid < TR + TB) {
     const int b = b0 + tid - TR;
-    s.sc[tid - TR] = f.cm_prev == nullptr ? (b < B ? p.scale_in[b] : 0.f)
+    s.sc[tid - TR] = f.cm_prev == nullptr ? (b < B ? p.scale_in[b] : T(0))
                                           : scale_of(f.cm_prev, b, B);
   }
   __syncthreads();
-  // alpha_t's block of the tile: 64 rows x 16 chunks of 4 columns
-  float* A = &s.Ws[0][0];
-  const bool staged = VEC && !is_heavy;
+  // alpha_t's block of the tile: 64 rows x 16 chunks of 4 columns (float:
+  // the double block would not fit the stages)
+  T* A = &s.Ws[0][0];
+  const bool staged = VEC && !is_heavy && !is_f64<T>();
   auto stage_alpha = [&]() {
     const unsigned long long once = evict_first_policy();
 #pragma unroll
@@ -1121,11 +1241,11 @@ __device__ __forceinline__ float bwd_item(
     cp_async_commit();
   };
   if (staged && !is_tier) stage_alpha();
-  float acc[4][4];
+  T acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 4; ++c) acc[i][c] = T(0);
   if constexpr (FAM && !BF16) {
     // a tier row's family terms before its float32 tier product: the first
     // term of each of the thread's 4 rows in flight at once, any others
@@ -1133,8 +1253,8 @@ __device__ __forceinline__ float bwd_item(
     // accumulators live across the tensor-core tile spill)
     if (is_tier && !f.skip) {
       int q0[4], q1[4], src[4];
-      float w[4];
-      float4 x[4];
+      T w[4];
+      V4<T> x[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int j = s.rows[ty * 4 + i];
@@ -1144,12 +1264,12 @@ __device__ __forceinline__ float bwd_item(
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const bool any = q0[i] < q1[i];
-        w[i] = any ? lay.fam_w[q0[i]] : 0.f;
+        w[i] = any ? lay.fam_w[q0[i]] : T(0);
         src[i] = any ? lay.fam_src[q0[i]] : -1;
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        x[i] = src[i] < 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
+        x[i] = src[i] < 0 ? zero4<T>()
                           : load4<VEC, true>(
                                 prev + static_cast<size_t>(src[i]) * B,
                                 bcol, B);
@@ -1158,11 +1278,11 @@ __device__ __forceinline__ float bwd_item(
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[i][c] = w[i] * get(x[i], c);
         for (int q = q0[i] + 1; q < q1[i]; ++q) {
-          const float wq = lay.fam_w[q];
-          const float4 xq = load4<VEC, true>(
+          const T wq = lay.fam_w[q];
+          const V4<T> xq = load4<VEC, true>(
               prev + static_cast<size_t>(lay.fam_src[q]) * B, bcol, B);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(wq, get(xq, c), acc[i][c]);
+          for (int c = 0; c < 4; ++c) acc[i][c] = fma_(wq, get(xq, c), acc[i][c]);
         }
       }
     }
@@ -1172,8 +1292,8 @@ __device__ __forceinline__ float bwd_item(
       tier_tile_bf16<true>(m, B, prev, static_cast<const __nv_bfloat16*>(p.W),
                            k, dbase, b0, s.Ws, s.Xs, s.G, acc);
     else
-      tier_tile(m, B, prev, static_cast<const float*>(p.W), k, dbase, b0,
-                s.Ws, s.Xs, acc);
+      tier_tile(m, B, prev, static_cast<const T*>(p.W), k, dbase, b0, s.Ws,
+                s.Xs, acc);
   }
   if (staged && is_tier) stage_alpha();  // the stages are free
   if constexpr (FAM) {
@@ -1192,22 +1312,22 @@ __device__ __forceinline__ float bwd_item(
         if (o >= m.nO) break;  // uniform across the block
         const int src = j - m.off[o];
         if (src < 0 || src >= m.Sp) continue;  // wrapped: no arc
-        const float w = band_w[static_cast<size_t>(o) * m.Sp + j];
-        const float4 x =
+        const T w = band_w[static_cast<size_t>(o) * m.Sp + j];
+        const V4<T> x =
             load4<VEC, true>(prev + static_cast<size_t>(src) * B, bcol, B);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(w, get(x, c), acc[i][c]);
+        for (int c = 0; c < 4; ++c) acc[i][c] = fma_(w, get(x, c), acc[i][c]);
       }
       if constexpr (FAM) {  // overflow families (K1's apply_ov)
         if (!is_heavy && (BF16 || !is_tier)) {  // pulled by this thread
           const int e1 = lay.fam_ptr[j + 1];
 #pragma unroll 4
           for (int q = lay.fam_ptr[j]; q < e1; ++q) {
-            const float w = lay.fam_w[q];
-            const float4 x = load4<VEC, true>(
+            const T w = lay.fam_w[q];
+            const V4<T> x = load4<VEC, true>(
                 prev + static_cast<size_t>(lay.fam_src[q]) * B, bcol, B);
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(w, get(x, c), acc[i][c]);
+            for (int c = 0; c < 4; ++c) acc[i][c] = fma_(w, get(x, c), acc[i][c]);
           }
         }
       }
@@ -1221,25 +1341,25 @@ __device__ __forceinline__ float bwd_item(
       __syncthreads_or(tid < TR && s.rows[tid] >= 0 && s.grp[tid] != s.grp[0]);
   const bool one_group = !mixed && s.grp[0] >= 0;
 
-  const float4 sc = make_float4(s.sc[tx * 4], s.sc[tx * 4 + 1],
-                                s.sc[tx * 4 + 2], s.sc[tx * 4 + 3]);
-  const float4 pfin =
+  const V4<T> sc = make4<T>(s.sc[tx * 4], s.sc[tx * 4 + 1],
+                            s.sc[tx * 4 + 2], s.sc[tx * 4 + 3]);
+  const V4<T> pfin =
       load4<VEC, true>(prev + static_cast<size_t>(m.fin) * B, bcol, B);
-  const float4 asc = load4<VEC>(f.ascale_t, bcol, B);
-  float colmax[4] = {0.f, 0.f, 0.f, 0.f}, colsum[4] = {0.f, 0.f, 0.f, 0.f};
+  const V4<T> asc = load4<VEC>(f.ascale_t, bcol, B);
+  T colmax[4] = {T(0), T(0), T(0), T(0)}, colsum[4] = {T(0), T(0), T(0), T(0)};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     const int j = s.rows[r];
     if (j < 0) {
-      for (int c = 0; c < 4; ++c) s.G[r][tx * 4 + c] = 0.f;
+      for (int c = 0; c < 4; ++c) s.G[r][tx * 4 + c] = T(0);
       continue;
     }
     const size_t jB = static_cast<size_t>(j) * B;
-    const float4 e =
+    const V4<T> e =
         load4<VEC>(ext_t + static_cast<size_t>(s.pdf[r]) * B, bcol, B);
-    const float om = omega[j];
-    float v[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
+    const T om = omega[j];
+    T v[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
     if constexpr (FAM) {
       if (is_heavy && !f.skip) {  // split over the thread rows
         for (int g = 0; g < NT / 16; ++g)
@@ -1247,25 +1367,24 @@ __device__ __forceinline__ float bwd_item(
           for (int c = 0; c < 4; ++c) v[c] += s.Xs[g][tx * 4 + c];
       }
     }
-    const float4 a =
-        staged ? *reinterpret_cast<const float4*>(&A[r * TB + tx * 4])
-               : load4<VEC>(alpha_t + jB, bcol, B);
-    float bn[4], gv[4];
+    const V4<T> a = staged ? lds4(&A[r * TB + tx * 4])
+                           : load4<VEC>(alpha_t + jB, bcol, B);
+    T bn[4], gv[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const float y =
-          f.skip ? 1.f : fmaf(om, get(pfin, c), v[c]) * get(sc, c);
-      const float g = get(a, c) * get(asc, c) * y;
+      const T y =
+          f.skip ? T(1) : fma_(om, get(pfin, c), v[c]) * get(sc, c);
+      const T g = get(a, c) * get(asc, c) * y;
       s.G[r][tx * 4 + c] = g;
       gv[c] = g;
       colsum[c] += g;
       bn[c] = y * get(e, c);
-      colmax[c] = fmaxf(colmax[c], bn[c]);
+      colmax[c] = fmax_(colmax[c], bn[c]);
     }
     if (FAM && j >= m.ov_lo && j < m.ov_hi)
       store4<VEC>(f.ovg_t + static_cast<size_t>(j - m.ov_lo) * B, bcol, B,
-                  make_float4(gv[0], gv[1], gv[2], gv[3]));
-    store4<VEC>(out + jB, bcol, B, make_float4(bn[0], bn[1], bn[2], bn[3]));
+                  make4<T>(gv[0], gv[1], gv[2], gv[3]));
+    store4<VEC>(out + jB, bcol, B, make4<T>(bn[0], bn[1], bn[2], bn[3]));
   }
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
@@ -1273,21 +1392,21 @@ __device__ __forceinline__ float bwd_item(
     s.red[1][ty][tx * 4 + c] = colsum[c];
   }
   __syncthreads();
-  float sm = 0.f;
+  T sm = T(0);
   if (tid < TB && b0 + tid < B) {
     const int b = b0 + tid;
-    float mx = 0.f;
+    T mx = T(0);
     for (int q = 0; q < 16; ++q) {
-      mx = fmaxf(mx, s.red[0][q][tid]);
+      mx = fmax_(mx, s.red[0][q][tid]);
       sm += s.red[1][q][tid];
     }
-    atomicMax(f.cm_t + (blockIdx.x % CM) * B + b, __float_as_uint(mx));
+    atomicMax(f.cm_t + (blockIdx.x % CM) * B + b, to_bits(mx));
     if (one_group) {
       atomicAdd(&f.posts_t[static_cast<size_t>(s.grp[0]) * B + b], sm);
     } else {
       // runs of rows in one pdf group add up here, one atomic per run
       int g = -1;
-      float run = 0.f;
+      T run = T(0);
       for (int q = 0; q < TR; ++q) {
         const int gq = s.grp[q];
         if (gq < 0) continue;
@@ -1295,7 +1414,7 @@ __device__ __forceinline__ float bwd_item(
           if (g >= 0)
             atomicAdd(&f.posts_t[static_cast<size_t>(g) * B + b], run);
           g = gq;
-          run = 0.f;
+          run = T(0);
         }
         run += s.G[q][tid];
       }
@@ -1311,8 +1430,9 @@ __device__ __forceinline__ float bwd_item(
 // items' sums (8 thread rows, each every 8th row tile in order, then the
 // rows in order), then posts_t[p] += the overflow rows' gammas of pdf p (in
 // lane order), /= that sum (or 1 where it is 0).
-template <bool FAM>
-__device__ __forceinline__ void bwd_normalise(const BwdArgs& p, BwdSmem& s) {
+template <bool FAM, class T>
+__device__ __forceinline__ void bwd_normalise(const BwdArgs<T>& p,
+                                              BwdSmem<T>& s) {
   const Meta& m = p.m;
   const int B = p.B, ncb = (B + TB - 1) / TB, n_tiles = p.n_items / ncb;
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
@@ -1320,9 +1440,9 @@ __device__ __forceinline__ void bwd_normalise(const BwdArgs& p, BwdSmem& s) {
   const size_t nov = static_cast<size_t>(m.ov_hi - m.ov_lo);
   for (int it = blockIdx.x; it < n_norm; it += gridDim.x) {
     const int j = it / ncol, b = (it % ncol) * 32 + tx;
-    float sm = 0.f;
+    T sm = T(0);
     if (b < B) {
-      const float* cs = p.csum +
+      const T* cs = p.csum +
                         (static_cast<size_t>(j) * p.n_items + b / TB) * TB +
                         b % TB;
       const size_t step = static_cast<size_t>(ncb) * TB;
@@ -1331,16 +1451,16 @@ __device__ __forceinline__ void bwd_normalise(const BwdArgs& p, BwdSmem& s) {
     }
     s.rs[ty][tx] = sm;
     __syncthreads();
-    float tot = 0.f;
+    T tot = T(0);
 #pragma unroll
     for (int q = 0; q < 8; ++q) tot += s.rs[q][tx];
-    const float den = tot > 0.f ? tot : 1.f;
+    const T den = tot > T(0) ? tot : T(1);
     if (b < B) {
-      float* pt = p.posts + static_cast<size_t>(j) * m.P1 * B + b;
-      const float* og = p.ovg + static_cast<size_t>(j) * nov * B + b;
+      T* pt = p.posts + static_cast<size_t>(j) * m.P1 * B + b;
+      const T* og = p.ovg + static_cast<size_t>(j) * nov * B + b;
 #pragma unroll 4
       for (int pd = ty; pd < m.P1; pd += 8) {
-        float v = __ldcg(pt + static_cast<size_t>(pd) * B);
+        T v = __ldcg(pt + static_cast<size_t>(pd) * B);
         if constexpr (FAM) {
           if (nov) {
             const int l1 = p.lay.ovp_ptr[pd + 1];
@@ -1358,17 +1478,17 @@ __device__ __forceinline__ void bwd_normalise(const BwdArgs& p, BwdSmem& s) {
 // K4 over frames K-1 .. 0 of one chunk: each CTA runs its plan items of
 // every frame, one grid barrier per frame; then the normalisation and the
 // outgoing scale.
-template <bool VEC, bool FAM, bool BF16>
-__global__ void __launch_bounds__(NT, bwd_blocks<FAM>())
-    bwd_chunk_kernel(const __grid_constant__ BwdArgs p) {
-  __shared__ __align__(16) BwdSmem s;
+template <bool VEC, bool FAM, bool BF16, class T>
+__global__ void __launch_bounds__(NT, bwd_blocks<FAM, T>())
+    bwd_chunk_kernel(const __grid_constant__ BwdArgs<T> p) {
+  BwdSmem<T>& s = cta_smem<BwdSmem<T>, is_f64<T>()>();
   const Meta& m = p.m;
   const int B = p.B, ncb = (B + TB - 1) / TB, tid = threadIdx.x;
   const size_t SB = static_cast<size_t>(m.Sp) * B;
   const size_t PB = static_cast<size_t>(m.P1) * B;
   const size_t OB = static_cast<size_t>(m.ov_hi - m.ov_lo) * B;
   for (int j = p.K - 1; j >= 0; --j) {
-    BwdFrame f;
+    BwdFrame<T> f;
     f.prev = j == p.K - 1 ? p.beta_in : p.work + ((j + 1) % 2) * SB;
     f.out = j == 0 ? p.beta_out : p.work + (j % 2) * SB;
     f.ext_t = p.ext + j * PB;
@@ -1381,8 +1501,8 @@ __global__ void __launch_bounds__(NT, bwd_blocks<FAM>())
         j == p.K - 1 ? nullptr : p.cm + static_cast<size_t>(j + 1) * CM * B;
     f.skip = p.skip_last && j == p.K - 1;
     if (j > 0) {  // the next frame's emissions into L2, spread over the grid
-      constexpr int LINE = 32;  // floats per 128-byte line
-      const float* e = p.ext + (j - 1) * PB;
+      constexpr int LINE = 128 / sizeof(T);  // values per 128-byte line
+      const T* e = p.ext + (j - 1) * PB;
       const size_t n_e = (PB + LINE - 1) / LINE;
       for (size_t i = static_cast<size_t>(blockIdx.x) * NT + tid; i < n_e;
            i += static_cast<size_t>(gridDim.x) * NT)
@@ -1399,7 +1519,7 @@ __global__ void __launch_bounds__(NT, bwd_blocks<FAM>())
     int par = 0;
     for (int2 q = s.next[0]; q.x >= 0; q = s.next[par]) {
       if (tid == 0) s.next[par ^ 1] = take();
-      const float sm = bwd_item<VEC, FAM, BF16>(
+      const T sm = bwd_item<VEC, FAM, BF16, T>(
           p, f, q.x / ncb, (q.x % ncb) * TB, q.y, s, f.prev, f.out, f.ext_t,
           f.alpha_t, p.omega, p.band_w);
       if (tid < TB)
@@ -1410,57 +1530,80 @@ __global__ void __launch_bounds__(NT, bwd_blocks<FAM>())
   }
   if (blockIdx.x == 0)
     for (int b = tid; b < B; b += NT) p.scale_out[b] = scale_of(p.cm, b, B);
-  bwd_normalise<FAM>(p, s);
+  bwd_normalise<FAM, T>(p, s);
 }
 
 // The instantiation of K2/K3 (fwd) or K4 for B % 4 == 0 (vec), the capped
-// layout (fam) and bf16 panels.
-template <template <bool, bool, bool> class K>
-const void* pick(bool vec, bool fam, bool bf16) {
-  if (bf16)
-    return vec ? (fam ? K<true, true, true>::f() : K<true, false, true>::f())
-               : (fam ? K<false, true, true>::f() : K<false, false, true>::f());
-  return vec ? (fam ? K<true, true, false>::f() : K<true, false, false>::f())
-             : (fam ? K<false, true, false>::f() : K<false, false, false>::f());
+// layout (fam) and prec: 0 float, 1 bf16 panels (the rest float), 2 double
+// (no bf16 panels with double values).
+template <template <bool, bool, bool, class> class K>
+const void* pick(bool vec, bool fam, int prec) {
+  if (prec == 2)
+    return vec ? (fam ? K<true, true, false, double>::f()
+                      : K<true, false, false, double>::f())
+               : (fam ? K<false, true, false, double>::f()
+                      : K<false, false, false, double>::f());
+  if (prec == 1)
+    return vec ? (fam ? K<true, true, true, float>::f()
+                      : K<true, false, true, float>::f())
+               : (fam ? K<false, true, true, float>::f()
+                      : K<false, false, true, float>::f());
+  return vec ? (fam ? K<true, true, false, float>::f()
+                    : K<true, false, false, float>::f())
+             : (fam ? K<false, true, false, float>::f()
+                    : K<false, false, false, float>::f());
 }
-template <bool V, bool F, bool H>
+template <bool V, bool F, bool H, class T>
 struct FwdK {
-  static const void* f() { return (const void*)fwd_chunk_kernel<V, F, H>; }
+  static const void* f() { return (const void*)fwd_chunk_kernel<V, F, H, T>; }
 };
-template <bool V, bool F, bool H>
+template <bool V, bool F, bool H, class T>
 struct BwdK {
-  static const void* f() { return (const void*)bwd_chunk_kernel<V, F, H>; }
+  static const void* f() { return (const void*)bwd_chunk_kernel<V, F, H, T>; }
 };
 
-const void* coop_kernel(bool bwd, bool vec, bool fam, bool bf16) {
-  return bwd ? pick<BwdK>(vec, fam, bf16) : pick<FwdK>(vec, fam, bf16);
+const void* coop_kernel(bool bwd, bool vec, bool fam, int prec) {
+  return bwd ? pick<BwdK>(vec, fam, prec) : pick<FwdK>(vec, fam, prec);
 }
 
-// CTAs of a persistent instantiation that can be co-resident on the
-// current device (0 where the device cannot launch cooperatively).
-cudaError_t co_resident(const void* kern, int* n) {
+// The dynamic shared memory of an instantiation: K4's double one (its
+// block passes a static block's 48 KB), none for the others.
+size_t dyn_bytes(bool bwd, int prec) {
+  return bwd && prec == 2 ? sizeof(BwdSmem<double>) : 0;
+}
+
+// CTAs of a persistent instantiation with `dyn` bytes of dynamic shared
+// memory that can be co-resident on the current device (0 where the device
+// cannot launch cooperatively).
+cudaError_t co_resident(const void* kern, size_t dyn, int* n) {
   int dev = 0, n_sm = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && dyn > 0)
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dyn));
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT,
+                                                        dyn);
   *n = coop ? per_sm * n_sm : 0;
   return err;
 }
 
 // One cooperative launch of n_ctas CTAs of kern with its argument block.
 template <class Args>
-int launch_coop(const void* kern, Args& a, int n_ctas, void* stream) {
+int launch_coop(const void* kern, size_t dyn, Args& a, int n_ctas,
+                void* stream) {
   int max_ctas = 0;
-  cudaError_t err = co_resident(kern, &max_ctas);
+  cudaError_t err = co_resident(kern, dyn, &max_ctas);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_ctas > max_ctas)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(kern, dim3(n_ctas), dim3(NT), args, 0,
+  err = cudaLaunchCooperativeKernel(kern, dim3(n_ctas), dim3(NT), args, dyn,
                                     static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
@@ -1469,16 +1612,17 @@ int launch_coop(const void* kern, Args& a, int n_ctas, void* stream) {
 // fwd_plan for ncb = ceil(B / 64) column tiles, n_items = n_tiles * ncb
 // pairs of ints; fin_tile and fin_row0 the phony row's tile and its first
 // row or -1).
-bool fwd_args(FwdArgs* a, const long long* imeta, const long long* ilay,
-              int B, int T, int bf16, const int* queue, int n_items,
+template <class T>
+bool fwd_args(FwdArgs<T>* a, const long long* imeta, const long long* ilay,
+              int B, int T_, int prec, const int* queue, int n_items,
               int n_ctas, long long fin_tile, int fin_row0) {
-  if (!parse_meta(imeta, &a->m) || B <= 0 || T <= 0 || n_ctas <= 0 ||
+  if (!parse_meta(imeta, &a->m) || B <= 0 || T_ <= 0 || n_ctas <= 0 ||
       n_items != a->m.n_tiles * ((B + TB - 1) / TB) || fin_tile < 0 ||
-      fin_tile >= a->m.n_tiles || bad_tier(a->m, bf16))
+      fin_tile >= a->m.n_tiles || bad_tier(a->m, prec == 1))
     return false;
-  a->lay = parse_layout(ilay);
+  a->lay = parse_layout<T>(ilay);
   a->B = B;
-  a->T = T;
+  a->T = T_;
   a->queue = reinterpret_cast<const int2*>(queue);
   a->n_items = n_items;
   a->fin_tile = fin_tile;
@@ -1486,15 +1630,136 @@ bool fwd_args(FwdArgs* a, const long long* imeta, const long long* ilay,
   return true;
 }
 
+template <class T>
+int block_fwd(const void* a0, const void* scale_in, const void* ext,
+              const void* mshift, const void* band_w, const void* W,
+              const void* omega, const int* band_rows, const long long* imeta,
+              const long long* ilay, const int* queue, int n_items,
+              int n_ctas, int fin_tile, int fin_row0, int B, int Npad,
+              int chunk, int prec, void* work, void* a_last, void* bounds,
+              void* bscale, void* scale, void* ksum, void* shift, void* comp,
+              void* part, unsigned* cm, unsigned* ctr, unsigned* sync,
+              void* stream) {
+  FwdArgs<T> a{};
+  if (!fwd_args(&a, imeta, ilay, B, Npad, prec, queue, n_items, n_ctas,
+                fin_tile, fin_row0) ||
+      chunk <= 0 || Npad % chunk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.skip_first = 1;
+  a.chunk = chunk;
+  a.a0 = static_cast<const T*>(a0);
+  a.scale_in = static_cast<const T*>(scale_in);
+  a.ext = static_cast<const T*>(ext);
+  a.mshift = static_cast<const T*>(mshift);
+  a.band_w = static_cast<const T*>(band_w);
+  a.W = W;
+  a.omega = static_cast<const T*>(omega);
+  a.band_rows = band_rows;
+  a.out = static_cast<T*>(work);
+  a.last = static_cast<T*>(a_last);
+  a.bounds = static_cast<T*>(bounds);
+  a.bscale = static_cast<T*>(bscale);
+  a.scales = static_cast<T*>(scale);
+  a.ksum = static_cast<T*>(ksum);
+  a.shift = static_cast<T*>(shift);
+  a.comp = static_cast<T*>(comp);
+  a.part = static_cast<T*>(part);
+  a.cm = reinterpret_cast<BitsT<T>*>(cm);
+  a.ctr = ctr;
+  a.sync = sync;
+  return launch_coop(coop_kernel(false, B % 4 == 0, is_fam(a.m), prec),
+                     dyn_bytes(false, prec), a, n_ctas, stream);
+}
+
+template <class T>
+int block_recompute(const void* bound, const void* bscale, const void* ext_c,
+                    const void* band_w, const void* W, const void* omega,
+                    const int* band_rows, const long long* imeta,
+                    const long long* ilay, const int* queue, int n_items,
+                    int n_ctas, int fin_tile, int fin_row0, int B, int t0,
+                    int K, int prec, void* alphas, void* ascale, void* part,
+                    unsigned* cm, unsigned* ctr, unsigned* sync,
+                    void* stream) {
+  FwdArgs<T> a{};
+  if (!fwd_args(&a, imeta, ilay, B, K, prec, queue, n_items, n_ctas,
+                fin_tile, fin_row0) ||
+      t0 < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.skip_first = t0 == 0;
+  a.a0 = static_cast<const T*>(bound);
+  a.scale_in = static_cast<const T*>(bscale);
+  a.ext = static_cast<const T*>(ext_c);
+  a.band_w = static_cast<const T*>(band_w);
+  a.W = W;
+  a.omega = static_cast<const T*>(omega);
+  a.band_rows = band_rows;
+  a.out = static_cast<T*>(alphas);
+  a.scales = static_cast<T*>(ascale);
+  a.part = static_cast<T*>(part);
+  a.cm = reinterpret_cast<BitsT<T>*>(cm);
+  a.ctr = ctr;
+  a.sync = sync;
+  return launch_coop(coop_kernel(false, B % 4 == 0, is_fam(a.m), prec),
+                     dyn_bytes(false, prec), a, n_ctas, stream);
+}
+
+template <class T>
+int block_bwd(const void* beta_in, const void* bscale, const void* alphas,
+              const void* ascale, const void* ext_c, const void* band_w,
+              const void* W, const void* omega, const int* band_rows,
+              const long long* imeta, const long long* ilay, const int* queue,
+              int n_items, int n_ctas, int B, int t0, int K, int Npad,
+              int prec, void* work, void* beta_out, void* scale_out,
+              void* posts, void* ovg, void* csum, unsigned* cm, unsigned* ctr,
+              unsigned* sync, void* stream) {
+  Meta m;
+  if (!parse_meta(imeta, &m) || B <= 0 || K <= 0 || t0 < 0 ||
+      t0 + K > Npad || n_ctas <= 0 || n_items != m.n_tiles * ((B + TB - 1) / TB) ||
+      bad_tier(m, prec == 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs<T> a{};
+  a.m = m;
+  a.lay = parse_layout<T>(ilay);
+  a.B = B;
+  a.K = K;
+  a.skip_last = t0 + K == Npad;
+  a.beta_in = static_cast<const T*>(beta_in);
+  a.scale_in = static_cast<const T*>(bscale);
+  a.alphas = static_cast<const T*>(alphas);
+  a.ascale = static_cast<const T*>(ascale);
+  a.ext = static_cast<const T*>(ext_c);
+  a.band_w = static_cast<const T*>(band_w);
+  a.W = W;
+  a.omega = static_cast<const T*>(omega);
+  a.band_rows = band_rows;
+  a.queue = reinterpret_cast<const int2*>(queue);
+  a.n_items = n_items;
+  a.work = static_cast<T*>(work);
+  a.beta_out = static_cast<T*>(beta_out);
+  a.scale_out = static_cast<T*>(scale_out);
+  a.posts = static_cast<T*>(posts);
+  a.ovg = static_cast<T*>(ovg);
+  a.csum = static_cast<T*>(csum);
+  a.cm = reinterpret_cast<BitsT<T>*>(cm);
+  a.ctr = ctr;
+  a.sync = sync;
+  return launch_coop(coop_kernel(true, B % 4 == 0, is_fam(m), prec),
+                     dyn_bytes(true, prec), a, n_ctas, stream);
+}
+
+bool bad_prec(int prec) { return prec < 0 || prec > 2; }
+
 }  // namespace
 
 // CTAs of the K2/K3 (bwd = 0) or K4 (bwd = 1) launch that can be
 // co-resident on the current device for this instantiation (vec: B % 4 ==
-// 0; fam: the capped layout; bf16: bf16 panels), or minus a CUDA error code.
-extern "C" int mm_block_ctas(int bwd, int vec, int fam, int bf16) {
+// 0; fam: the capped layout; prec: 0 float, 1 bf16 panels, 2 double), or
+// minus a CUDA error code.
+extern "C" int mm_block_ctas(int bwd, int vec, int fam, int prec) {
+  if (bad_prec(prec)) return -static_cast<int>(cudaErrorInvalidValue);
   int n = 0;
-  const cudaError_t err =
-      co_resident(coop_kernel(bwd, vec, fam, bf16), &n);
+  const cudaError_t err = co_resident(coop_kernel(bwd, vec, fam, prec),
+                                      dyn_bytes(bwd, prec), &n);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -1503,80 +1768,51 @@ extern "C" int mm_block_ctas(int bwd, int vec, int fam, int bf16) {
 // state and its scale are written to checkpoint t / chunk.  Frame Npad-1
 // writes a_last; scale receives its scale; ksum, shift and comp accumulate
 // the exponents and the emission shift (zero on entry).  scale_in: ones.
-// W: the tier panels, float, or bf16 when bf16 != 0 (precision 'bf16').
-// Scratch: work (2, Sp, B), part (2, n_tiles, B), and cm (Npad, 16, B),
-// ctr (Npad) and sync (33) zeroed words.
+// prec 0: every value float; 1: the tier panels W in bf16 (precision
+// 'bf16'), the rest float; 2: every value double (a float64 graph).
+// Scratch: work (2, Sp, B), part (2, n_tiles, B), and cm (Npad, 16, B)
+// values' bits (8-byte aligned for double), ctr (Npad) and sync (33)
+// zeroed words.
 extern "C" int mm_block_fwd(
-    const float* a0, const float* scale_in, const float* ext,
-    const float* mshift, const float* band_w, const void* W,
-    const float* omega, const int* band_rows, const long long* imeta,
+    const void* a0, const void* scale_in, const void* ext,
+    const void* mshift, const void* band_w, const void* W,
+    const void* omega, const int* band_rows, const long long* imeta,
     const long long* ilay, const int* queue, int n_items, int n_ctas,
-    int fin_tile, int fin_row0, int B, int Npad, int chunk, int bf16,
-    float* work, float* a_last, float* bounds, float* bscale, float* scale,
-    float* ksum, float* shift, float* comp, float* part, unsigned* cm,
+    int fin_tile, int fin_row0, int B, int Npad, int chunk, int prec,
+    void* work, void* a_last, void* bounds, void* bscale, void* scale,
+    void* ksum, void* shift, void* comp, void* part, unsigned* cm,
     unsigned* ctr, unsigned* sync, void* stream) {
-  FwdArgs a{};
-  if (!fwd_args(&a, imeta, ilay, B, Npad, bf16, queue, n_items, n_ctas,
-                fin_tile, fin_row0) ||
-      chunk <= 0 || Npad % chunk)
-    return static_cast<int>(cudaErrorInvalidValue);
-  a.skip_first = 1;
-  a.chunk = chunk;
-  a.a0 = a0;
-  a.scale_in = scale_in;
-  a.ext = ext;
-  a.mshift = mshift;
-  a.band_w = band_w;
-  a.W = W;
-  a.omega = omega;
-  a.band_rows = band_rows;
-  a.out = work;
-  a.last = a_last;
-  a.bounds = bounds;
-  a.bscale = bscale;
-  a.scales = scale;
-  a.ksum = ksum;
-  a.shift = shift;
-  a.comp = comp;
-  a.part = part;
-  a.cm = cm;
-  a.ctr = ctr;
-  a.sync = sync;
-  return launch_coop(coop_kernel(false, B % 4 == 0, is_fam(a.m), bf16 != 0),
-                     a, n_ctas, stream);
+  if (bad_prec(prec)) return static_cast<int>(cudaErrorInvalidValue);
+  auto run = [&](auto zero) {
+    using T = decltype(zero);
+    return block_fwd<T>(a0, scale_in, ext, mshift, band_w, W, omega,
+                        band_rows, imeta, ilay, queue, n_items, n_ctas,
+                        fin_tile, fin_row0, B, Npad, chunk, prec, work,
+                        a_last, bounds, bscale, scale, ksum, shift, comp,
+                        part, cm, ctr, sync, stream);
+  };
+  return prec == 2 ? run(0.0) : run(0.f);
 }
 
 // K3: frames t0 .. t0+K-1 from a checkpoint (bound, bscale) in one
 // cooperative launch; writes every frame's unscaled state to alphas[j] and
-// its scale to ascale[j].  Scratch as K2's, over K frames.
+// its scale to ascale[j].  prec and scratch as K2's, over K frames.
 extern "C" int mm_block_recompute(
-    const float* bound, const float* bscale, const float* ext_c,
-    const float* band_w, const void* W, const float* omega,
+    const void* bound, const void* bscale, const void* ext_c,
+    const void* band_w, const void* W, const void* omega,
     const int* band_rows, const long long* imeta, const long long* ilay,
     const int* queue, int n_items, int n_ctas, int fin_tile, int fin_row0,
-    int B, int t0, int K, int bf16, float* alphas, float* ascale,
-    float* part, unsigned* cm, unsigned* ctr, unsigned* sync, void* stream) {
-  FwdArgs a{};
-  if (!fwd_args(&a, imeta, ilay, B, K, bf16, queue, n_items, n_ctas,
-                fin_tile, fin_row0) ||
-      t0 < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  a.skip_first = t0 == 0;
-  a.a0 = bound;
-  a.scale_in = bscale;
-  a.ext = ext_c;
-  a.band_w = band_w;
-  a.W = W;
-  a.omega = omega;
-  a.band_rows = band_rows;
-  a.out = alphas;
-  a.scales = ascale;
-  a.part = part;
-  a.cm = cm;
-  a.ctr = ctr;
-  a.sync = sync;
-  return launch_coop(coop_kernel(false, B % 4 == 0, is_fam(a.m), bf16 != 0),
-                     a, n_ctas, stream);
+    int B, int t0, int K, int prec, void* alphas, void* ascale, void* part,
+    unsigned* cm, unsigned* ctr, unsigned* sync, void* stream) {
+  if (bad_prec(prec)) return static_cast<int>(cudaErrorInvalidValue);
+  auto run = [&](auto zero) {
+    using T = decltype(zero);
+    return block_recompute<T>(bound, bscale, ext_c, band_w, W, omega,
+                              band_rows, imeta, ilay, queue, n_items, n_ctas,
+                              fin_tile, fin_row0, B, t0, K, prec, alphas,
+                              ascale, part, cm, ctr, sync, stream);
+  };
+  return prec == 2 ? run(0.0) : run(0.f);
 }
 
 // K4: the reverse sweep over frames t0+K-1 .. t0 in one cooperative launch
@@ -1587,49 +1823,26 @@ extern "C" int mm_block_recompute(
 // last padded frame (t == Npad-1) starts from beta = 1.  posts (K, P1, B)
 // must be zero on entry; frame t's normalised posteriors land in posts[t -
 // t0].  beta_out and scale_out receive the state of frame t0 (unscaled,
-// with its scale).  Scratch: work (2, Sp, B), ovg (K, ov_hi - ov_lo, B),
-// csum (K, n_items, 64), and cm (K, B), ctr (K) and sync (2) zeroed words.
+// with its scale).  prec as K2's.  Scratch: work (2, Sp, B), ovg (K, ov_hi
+// - ov_lo, B), csum (K, n_items, 64), and cm (K, 16, B) values' bits, ctr
+// (K) and sync (2) zeroed words.
 extern "C" int mm_block_bwd(
-    const float* beta_in, const float* bscale, const float* alphas,
-    const float* ascale, const float* ext_c, const float* band_w,
-    const void* W, const float* omega, const int* band_rows,
+    const void* beta_in, const void* bscale, const void* alphas,
+    const void* ascale, const void* ext_c, const void* band_w,
+    const void* W, const void* omega, const int* band_rows,
     const long long* imeta, const long long* ilay, const int* queue,
-    int n_items, int n_ctas, int B, int t0, int K, int Npad, int bf16,
-    float* work, float* beta_out, float* scale_out, float* posts, float* ovg,
-    float* csum, unsigned* cm, unsigned* ctr, unsigned* sync, void* stream) {
-  Meta m;
-  if (!parse_meta(imeta, &m) || B <= 0 || K <= 0 || t0 < 0 ||
-      t0 + K > Npad || n_ctas <= 0 || n_items != m.n_tiles * ((B + TB - 1) / TB) ||
-      bad_tier(m, bf16))
-    return static_cast<int>(cudaErrorInvalidValue);
-  BwdArgs a{};
-  a.m = m;
-  a.lay = parse_layout(ilay);
-  a.B = B;
-  a.K = K;
-  a.skip_last = t0 + K == Npad;
-  a.beta_in = beta_in;
-  a.scale_in = bscale;
-  a.alphas = alphas;
-  a.ascale = ascale;
-  a.ext = ext_c;
-  a.band_w = band_w;
-  a.W = W;
-  a.omega = omega;
-  a.band_rows = band_rows;
-  a.queue = reinterpret_cast<const int2*>(queue);
-  a.n_items = n_items;
-  a.work = work;
-  a.beta_out = beta_out;
-  a.scale_out = scale_out;
-  a.posts = posts;
-  a.ovg = ovg;
-  a.csum = csum;
-  a.cm = cm;
-  a.ctr = ctr;
-  a.sync = sync;
-  return launch_coop(coop_kernel(true, B % 4 == 0, is_fam(m), bf16 != 0), a,
-                     n_ctas, stream);
+    int n_items, int n_ctas, int B, int t0, int K, int Npad, int prec,
+    void* work, void* beta_out, void* scale_out, void* posts, void* ovg,
+    void* csum, unsigned* cm, unsigned* ctr, unsigned* sync, void* stream) {
+  if (bad_prec(prec)) return static_cast<int>(cudaErrorInvalidValue);
+  auto run = [&](auto zero) {
+    using T = decltype(zero);
+    return block_bwd<T>(beta_in, bscale, alphas, ascale, ext_c, band_w, W,
+                        omega, band_rows, imeta, ilay, queue, n_items, n_ctas,
+                        B, t0, K, Npad, prec, work, beta_out, scale_out,
+                        posts, ovg, csum, cm, ctr, sync, stream);
+  };
+  return prec == 2 ? run(0.0) : run(0.f);
 }
 
 extern "C" const char* mm_error_string(int code) {

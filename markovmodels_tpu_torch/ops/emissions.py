@@ -13,13 +13,14 @@ __all__ = ["prepare_emissions", "pad_emissions"]
 
 
 def prepare_emissions(lhs: torch.Tensor, lengths: torch.Tensor,
-                      num_pdfs: int):
+                      num_pdfs: int, dtype=torch.float32):
     """``lhs``: (B, N, P) log-likelihoods; ``lengths``: (B,) int.
 
     ext[t, p, b] = exp(lhs[b, t, p] - max_p lhs[b, t, :]) while t < len_b,
     ext[t, P, b] = 1 past the end (the phony-pdf row of the reference's
     ``expand``), zero elsewhere; mshift[t, 0, b] carries the factored-out
-    per-frame max (zero past the end) so logZ stays exact.
+    per-frame max (zero past the end) so logZ stays exact.  Both in
+    ``dtype``: the graph's (float32, or float64 for a float64 graph).
     """
     B, N, P = lhs.shape
     if P != num_pdfs:
@@ -34,8 +35,8 @@ def prepare_emissions(lhs: torch.Tensor, lengths: torch.Tensor,
     ext[:, P, :] = (~active).to(ext.dtype)
     msh = torch.nn.functional.pad(m_l.T, (0, 0, 0, 1))  # (Nf, B)
     mshift = torch.where(active, msh, torch.zeros_like(msh))
-    return (ext.to(torch.float32).contiguous(),
-            mshift.to(torch.float32)[:, None, :].contiguous())
+    return (ext.to(dtype).contiguous(),
+            mshift.to(dtype)[:, None, :].contiguous())
 
 
 def pad_emissions(ext: torch.Tensor, mshift: torch.Tensor, n_total: int):

@@ -202,7 +202,14 @@ def vit_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     of ``device`` when that is a CUDA device (checked where a card is
     present).  With ``saved`` (K7n, which saves that many frames' states
     and stores no id) the predicates on the ids' range are skipped and
-    the working set counts the saved states in place of the ids."""
+    the working set counts the saved states in place of the ids.  A
+    float64 graph is refused after the strategy and the stacking, where
+    the JAX package names the dtype (K7 is float32)."""
+    if (cf.strategy == "block" and not cf.batched
+            and cf.alpha_hat.dtype != torch.float32):
+        dt = str(cf.alpha_hat.dtype).removeprefix("torch.")
+        return (f"operator dtype {dt} (K7 and K7n are float32; such a graph "
+                "decodes on the CPU, ROADMAP queue 1 item 9b)")
     reason = bs.block_scan_reject_reason(cf, B, tier_dtype=torch.float32)
     if reason is not None:
         return reason
@@ -780,7 +787,7 @@ class RecWalkTables(NamedTuple):
 
     rowptr: torch.Tensor  # (Sp + 1,) int32 over the dst-sorted edges
     src: torch.Tensor  # (E,) int32 source of each edge
-    w: torch.Tensor  # (E,) float32 log weight of each edge
+    w: torch.Tensor  # (E,) log weight of each edge, in the graph's dtype
     omega: torch.Tensor  # (Sp,) probabilities of the arcs into fin
     dmax: int  # in-arcs a state takes: the largest in-degree but fin's
     fin: int
@@ -804,12 +811,12 @@ def rec_walk_tables(cf) -> RecWalkTables:
             omega = torch.exp(cf.dense_fwd_max[fin]) * cf.dense_fwd_exp[fin]
         else:
             omega = cf.omega_prob
-        dev = cf.alpha_hat.device
+        dev, dt = cf.alpha_hat.device, cf.alpha_hat.dtype
         wt = RecWalkTables(
             rowptr=torch.from_numpy(rowptr).to(dev),
             src=cf.fwd_src.to(device=dev, dtype=torch.int32).contiguous(),
-            w=cf.fwd_w.to(device=dev, dtype=torch.float32).contiguous(),
-            omega=omega.to(torch.float32).contiguous(),
+            w=cf.fwd_w.to(device=dev, dtype=dt).contiguous(),
+            omega=omega.to(dt).contiguous(),
             dmax=max(int(indeg.max()), 1), fin=fin)
         cf._cache["rec_walk"] = wt
     return wt

@@ -28,20 +28,26 @@ picked as the JAX package picks them (``_viterbi_scale``):
   With one chunk the port keeps the first sweep's alphas instead of
   sweeping again (the JAX package recomputes them, the same values).
 
-CPU tensors take the plain PyTorch twins.  A CUDA tensor whose graph a
-kernel refuses raises, naming the first refused predicate: nothing falls
-back to a plain route on the card.  Routes of the JAX package that are not
-ported yet raise ``NotImplementedError`` naming the route: the vmapped
-``_viterbi_single`` of batched graphs, and ``_viterbi_single`` for the
-'segment' / 'ell' strategies.
+CPU tensors take the plain PyTorch twins.  For a float64 graph they keep
+float64 from the emissions to the score, and a general Ĉ's state emits
+the max over its pdf set (JAX ``inference.py:931-938``).  On the card
+such a graph raises ``NotImplementedError`` before any launch
+(``_unported_decode``): K7, K7n and K6t are float32 and take one pdf per
+state.  A CUDA tensor whose graph a kernel refuses raises, naming the
+first refused predicate: nothing falls back to a plain route on the card.
+Routes of the JAX package that are not ported yet raise
+``NotImplementedError`` naming the route: the vmapped ``_viterbi_single``
+of batched graphs, and ``_viterbi_single`` for the 'segment' / 'ell'
+strategies.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 
 import torch
 
-from .inference import CompiledFSM, _combine_shift, _log_final
+from .inference import _CARD_TODO, CompiledFSM, _combine_shift, _log_final
 from .ops import dense_scan, vit_scan
 from .ops.blocked import block_max_arg_supported
 from .ops.emissions import prepare_emissions
@@ -55,6 +61,56 @@ _LOG = logging.getLogger("markovmodels_tpu_torch")
 
 _SINGLE_TODO = ("_viterbi_single is not ported yet (ROADMAP queue 11, with "
                 "queue 1 item 10)")
+
+
+def _unported_decode(cf: CompiledFSM):
+    """Why no decode kernel takes this graph, or None: a general Ĉ (the
+    max over each state's pdfs) or float64.  Such a graph decodes through
+    the plain twins on its lifted or float64 inputs (:func:`_plain_inputs`)
+    on the CPU and raises on the card (:func:`viterbi`)."""
+    if cf.multi_pdf:
+        return ("general multi-pdf C-hat graph (K7, K7n and K6t take one "
+                "pdf per state)")
+    if cf.alpha_hat.dtype != torch.float32:
+        return "float64 graph (K7, K7n and K6t are float32)"
+    return None
+
+
+def _pdf_sets(cf: CompiledFSM):
+    """(Sp, Dmax) int64: each state's pdfs from the binary Ĉᵀ, padded with
+    P1 (a zero row); cached on the graph."""
+    sets = cf._cache.get("pdf_sets")
+    if sets is None:
+        oh = cf.pdf_onehot.T > 0  # (Sp, P1)
+        cnt = oh.sum(dim=1)
+        dmax = max(int(cnt.max()), 1)
+        rank = torch.cumsum(oh.long(), dim=1) - 1
+        sets = torch.full((oh.shape[0], dmax), oh.shape[1], dtype=torch.long,
+                          device=oh.device)
+        st, pd = torch.nonzero(oh, as_tuple=True)
+        sets[st, rank[st, pd]] = pd
+        cf._cache["pdf_sets"] = sets
+    return sets
+
+
+def _plain_inputs(cf: CompiledFSM, lhs, lengths):
+    """(graph, ext, mshift) for the plain twins: the emissions in the
+    graph's dtype (prepare_emissions); for a general Ĉ lifted to the
+    states, ext (Nf, Sp, B) the max over each state's pdf set (0 for a
+    state without one), with a view of the graph whose states are their
+    own pdfs."""
+    ext, mshift = prepare_emissions(lhs, lengths, lhs.shape[2],
+                                    cf.alpha_hat.dtype)
+    if not cf.multi_pdf:
+        return cf, ext, mshift
+    sets = _pdf_sets(cf)
+    ext_z = torch.nn.functional.pad(ext, (0, 0, 0, 1))  # row P1: zeros
+    lift = ext_z[:, sets[:, 0]]
+    for d in range(1, sets.shape[1]):
+        lift = torch.maximum(lift, ext_z[:, sets[:, d]])
+    ident = torch.arange(cf.padded_states, dtype=torch.int32,
+                         device=cf.device)
+    return dataclasses.replace(cf, state_pdf=ident, _cache={}), lift, mshift
 
 
 def _bp_vit_reject_reason(cf: CompiledFSM, lhs):
@@ -90,9 +146,18 @@ def _bp_vit_reject_reason(cf: CompiledFSM, lhs):
 
 def _viterbi_scale_bp(cf: CompiledFSM, lhs, lengths):
     """The compressed-backpointer decode: K7's sweep, then the walk (their
-    plain twins for CPU tensors, for every graph the route admits).
-    Returns (states (B, N) int32 in host state ids, score (B,))."""
+    plain twins for CPU tensors, for every graph the route admits; a graph
+    of :func:`_unported_decode` on its own inputs).  Returns (states (B,
+    N) int32 in host state ids, score (B,))."""
     B, N, P = lhs.shape
+    if _unported_decode(cf) is not None:  # the CPU only (viterbi)
+        cfv, ext, mshift = _plain_inputs(cf, lhs, lengths)
+        bps, fins, vfin, shift, ksum = vit_scan.viterbi_fwd_plain(cfv, ext,
+                                                                  mshift)
+        states = vit_scan.walk_plain(vit_scan.walk_tables(cf), bps, fins,
+                                     lengths)
+        score = _combine_shift(_log_final(vfin), ksum, shift).to(lhs.dtype)
+        return cf.orig_state[states.long()].T.contiguous(), score
     if lhs.device.type == "cuda":
         reason = vit_scan.vit_scan_reject_reason(cf, B, n_frames=N,
                                                  device=lhs.device)
@@ -120,9 +185,12 @@ def _chunk_frames(cf: CompiledFSM, lhs, chunk_size) -> int:
     return max(1, min(int(chunk_size), Nf))
 
 
-def _sweeps(cf: CompiledFSM, B: int, Nf: int, K: int, device):
+def _sweeps(cf: CompiledFSM, B: int, Nf: int, K: int, device,
+            plain: bool = False):
     """The tropical sweeps of the recompute decode on ``device``, as
-    (sweep, checkpoints):
+    (sweep, checkpoints), the kernels' or, with ``plain`` (a graph of
+    :func:`_unported_decode`; ``cf`` then from :func:`_plain_inputs`), their
+    plain twins:
 
     * sweep(a, s, t0, ext, mshift, acc) -> (states, scales, a_last,
       s_last): the frames of ``ext`` from the state ``a`` (unscaled) with
@@ -136,23 +204,32 @@ def _sweeps(cf: CompiledFSM, B: int, Nf: int, K: int, device):
     first refused predicate."""
     C = -(-Nf // K)
     if cf.strategy == "dense":
-        if device.type == "cuda":
+        if device.type == "cuda" and not plain:
             reason = dense_scan.dense_scan_reject_reason(
                 cf, B, n_frames=K - 1, device=device)
             if reason is not None:
                 raise ValueError("the tropical dense sweep (K6t) refuses "
                                  f"this graph: {reason}")
-        kop = dense_scan.trop_operator(cf)
+        if plain:  # the probability operator in the graph's dtype
+            wf = torch.exp(cf.dense_fwd_max)[:, None] * cf.dense_fwd_exp
+            kop = dense_scan.DenseOp(
+                Sp=cf.padded_states, P1=cf.num_pdfs + 1,
+                fin=int(cf.final_state), alpha0=torch.exp(cf.alpha_hat),
+                wf=wf, wb=wf, spdf=cf.state_pdf, perm=None, off=None,
+                pf=None, pb=None)
+            trop = dense_scan.trop_sweep_plain
+        else:
+            kop = dense_scan.trop_operator(cf)
+            trop = dense_scan.trop_sweep
 
         def sweep(a, s, t0, ext, mshift, acc=None):
-            return dense_scan.trop_sweep(kop, a, s, ext, mshift,
-                                         first=t0 == 0, acc=acc)[:4]
+            return trop(kop, a, s, ext, mshift, first=t0 == 0, acc=acc)[:4]
 
         def checkpoints(a, s, ext, mshift, acc):
             cks = []
             for c in range(C):
                 cks.append((a, s))
-                _, _, a, s, _ = dense_scan.trop_sweep(
+                _, _, a, s, _ = trop(
                     kop, a, s, ext[c * K:(c + 1) * K],
                     mshift[c * K:(c + 1) * K], first=c == 0, save=False,
                     acc=acc)
@@ -163,19 +240,20 @@ def _sweeps(cf: CompiledFSM, B: int, Nf: int, K: int, device):
         raise NotImplementedError(
             "the chunk-recompute decode of a 'block' graph without its "
             "rank-1 omega split is not ported")
-    if device.type == "cuda":
+    if device.type == "cuda" and not plain:
         reason = vit_scan.vit_scan_reject_reason(
             cf, B, n_frames=Nf - 1, device=device, saved=max(K, Nf // K))
         if reason is not None:
             raise ValueError("the id-free Viterbi sweep (K7n) refuses this "
                              f"graph: {reason}")
+    fwd = vit_scan.viterbi_fwd_plain if plain else vit_scan.viterbi_fwd
 
     def sweep(a, s, t0, ext, mshift, acc=None):
-        return vit_scan.viterbi_fwd(cf, ext, mshift, ids=False, a0=a, s0=s,
-                                    t0=t0, acc=acc)[:4]
+        return fwd(cf, ext, mshift, ids=False, a0=a, s0=s, t0=t0,
+                   acc=acc)[:4]
 
     def checkpoints(a, s, ext, mshift, acc):
-        save, scales, a_last, s_last, _ = vit_scan.viterbi_fwd(
+        save, scales, a_last, s_last, _ = fwd(
             cf, ext, mshift, ids=False, a0=a, s0=s, stride=K, acc=acc)
         cks = [(a, s)] + [(save[c], scales[c]) for c in range(C - 1)]
         return cks, a_last, s_last
@@ -192,12 +270,19 @@ def _viterbi_recompute(cf: CompiledFSM, lhs, lengths, chunk_size=None):
     Sp, Nf, fin = cf.padded_states, N + 1, int(cf.final_state)
     K = _chunk_frames(cf, lhs, chunk_size)
     C = -(-Nf // K)
-    sweep, checkpoints = _sweeps(cf, B, Nf, K, lhs.device)
-    ext, mshift = prepare_emissions(lhs, lengths, P)
+    plain = _unported_decode(cf) is not None  # the CPU only (viterbi)
+    if plain:
+        cfv, ext, mshift = _plain_inputs(cf, lhs, lengths)
+        walk = vit_scan.rec_walk_plain
+    else:
+        cfv, (ext, mshift) = cf, prepare_emissions(lhs, lengths, P)
+        walk = vit_scan.rec_walk
+    sweep, checkpoints = _sweeps(cfv, B, Nf, K, lhs.device, plain)
     wt = vit_scan.rec_walk_tables(cf)
+    dt = ext.dtype
     a0 = torch.exp(cf.alpha_hat)[:, None].expand(Sp, B).contiguous()
-    s0 = torch.ones(B, device=lhs.device)
-    acc = torch.zeros((3, B), device=lhs.device)
+    s0 = torch.ones(B, device=lhs.device, dtype=dt)
+    acc = torch.zeros((3, B), device=lhs.device, dtype=dt)
     if C == 1:
         states, scales, a_last, s_last = sweep(a0, s0, 0, ext, mshift, acc)
     else:
@@ -211,7 +296,7 @@ def _viterbi_recompute(cf: CompiledFSM, lhs, lengths, chunk_size=None):
         if C > 1:
             states, scales, _, _ = sweep(*cks[c], t0, ext[t0:t1],
                                          mshift[t0:t1])
-        path[t0:t1] = vit_scan.rec_walk(wt, states, scales, lengths, t0, s)
+        path[t0:t1] = walk(wt, states, scales, lengths, t0, s)
         s = path[t0]
     return cf.orig_state[path[:N].long()].T.contiguous(), score
 
@@ -251,6 +336,9 @@ def viterbi(cf: CompiledFSM, lhs, lengths=None, *, chunk_size=None):
     B, N, P = lhs.shape
     if P != cf.num_pdfs:
         raise ValueError(f"lhs has {P} pdfs, graph expects {cf.num_pdfs}")
+    if cf.alpha_hat.dtype == torch.float64 and lhs.dtype != torch.float64:
+        raise ValueError(f"lhs is {lhs.dtype}, the graph float64: a float64 "
+                         "graph takes float64 log-likelihoods")
     if lengths is None:
         lengths = torch.full((B,), N, dtype=torch.int32, device=lhs.device)
     lengths = torch.clamp(
@@ -261,6 +349,10 @@ def viterbi(cf: CompiledFSM, lhs, lengths=None, *, chunk_size=None):
         raise NotImplementedError(
             f"Viterbi of a batched {cf.strategy!r} graph (the vmapped "
             f"per-graph decode): {_SINGLE_TODO}")
+    todo = _unported_decode(cf) if lhs.device.type == "cuda" else None
+    if todo is not None:
+        raise NotImplementedError(f"Viterbi of a {todo} on the card "
+                                  f"({_CARD_TODO})")
     if cf.strategy in ("dense", "block"):
         return _viterbi_scale(cf, lhs, lengths, chunk_size)
     raise NotImplementedError(

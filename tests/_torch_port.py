@@ -131,19 +131,24 @@ def assert_tensor_equal(a, b, what):
 
 
 def ulps(a, b):
-    """Largest distance in float32 units in the last place between two
-    arrays of non-negative finite float32 values."""
+    """Largest distance in units in the last place between two arrays of
+    non-negative finite values of one dtype, float32 or float64."""
     a = np.asarray(a)
     b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
-    assert a.dtype == b.dtype == np.float32 and a.shape == b.shape
+    assert a.dtype == b.dtype and a.dtype in (np.float32, np.float64)
+    assert a.shape == b.shape
     assert (a >= 0).all() and (b >= 0).all()
-    return int(np.abs(a.view(np.int32).astype(np.int64)
-                      - b.view(np.int32).astype(np.int64)).max(initial=0))
+    it = np.int32 if a.dtype == np.float32 else np.int64
+    # non-negative floats order as their bits: the difference of the bits
+    # counts the representable values between them
+    d = a.view(it).astype(np.int64) - b.view(it).astype(np.int64)
+    return int(np.abs(d).max(initial=0))
 
 
 def assert_same_compiled(cj, ct):
-    """Every field of the port's CompiledFSM equals the JAX one's; the
-    'dense' exp-shifted operators within EXP_ULPS."""
+    """Every field of the port's CompiledFSM equals the JAX one's, dtype
+    included (float32 or float64, the one-hot Ĉᵀ float32 in both); the
+    'dense' exp-shifted operators within EXP_ULPS of their dtype."""
     for n in JAX_ONLY_NONE:
         assert getattr(cj, n) is None, n
     if cj.batched:

@@ -104,9 +104,12 @@ def test_compile_bf16_matches_jax(V):
 
 def test_other_modes_keep_raising():
     fsm, spdf, P, _ = port_lm_graph(16)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="'bf16' with dtype float64 .ROADMAP queue 1 "
+                             "item 9, its remainder"):
         compile_port(fsm, spdf, P, precision="bf16", dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="precision 'fp8'.*ROADMAP queue 1 item 9"):
         compile_port(fsm, spdf, P, precision="fp8")
 
 

@@ -53,7 +53,18 @@ def test_compiled_from_numpy_round_trips(V):
     dict(strategy="segment"),
 ])
 def test_compile_names_what_is_not_ported(kw):
+    """What is not ported raises and names its ROADMAP item; float64, ported
+    since, compiles every float array in float64 (the one-hot Ĉᵀ stays
+    float32, as in the JAX package)."""
     fsm, spdf, P, _ = port_lm_graph(16)
+    if kw.get("dtype") == torch.float64:
+        ct = compile_port(fsm, spdf, P, **kw)
+        assert ct.strategy == "dense"
+        for t in (ct.alpha_hat, ct.fwd_w, ct.bwd_w, ct.dense_fwd_exp,
+                  ct.dense_fwd_max, ct.dense_bwd_exp, ct.dense_bwd_max):
+            assert t.dtype == torch.float64
+        assert ct.pdf_onehot.dtype == torch.float32
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compile_port(fsm, spdf, P, **kw)
 
