@@ -17,11 +17,17 @@ others name denominators: ``2m`` (the 2M-arc trigram graph), ``separate``
 (the separate-state backoff graph, V=128, 10 % of the trigrams kept, in the
 capped/overflow layout), each also as ``-bf16`` (compiled with precision
 'bf16': the tensor-core tier), ``dense`` or ``dense-bf16`` (the V=32 LM o HMM
-graph, Sp = 3,200, compiled 'dense' with precision 'high' or 'bf16').  Run
-the versions in turns (A, B, B, A) in one call.  Prints one JSON line per
-graph: the root, the graph, and three warm times in ms each of K2 over the
-704 padded frames and of K3 and K4 over the last 64-frame chunk, or of K6a
-and K6b over all 701 frames, at B=128, N=700.  For a block graph also:
+graph, Sp = 3,200, compiled 'dense' with precision 'high' or 'bf16'), or
+``dense-f64`` (the same compiled float64: K6's float64 instantiation).
+Run the versions in turns (A, B, B, A) in one call.  Prints one JSON line
+per graph: the root, the graph, and three warm times in ms each of K2 over
+the 704 padded frames and of K3 and K4 over the last 64-frame chunk, or of
+K6a and K6b over all 701 frames, at B=128, N=700; for a dense graph also
+``floor_us``, K6a's and K6b's µs per frame on an all-zero operator (no
+product: the epilogue, the statistics and the barrier;
+``chip_smoke.frame_floor``), and except in bf16 ``K6t_ms``, three warm times
+of K6t over the 701 frames from the initial state.  For a block graph
+also:
 
 * ``K4_split``: K4's ms over the same chunk on three cut copies of the
   backward operator (``chip_smoke.cut_operator``), beside the whole one:
@@ -61,9 +67,12 @@ The stamps' own stores slow a traced kernel (the PR 2-9 K5b by ~50 %).
 ``--sums`` (before the graphs) runs only the bit-for-bit part on each
 block graph: ``K2_sum``, ``K3_sum``, ``K4_sum`` (K4's posteriors, outgoing
 beta and scale over the last chunk, in float64) and the run-twice checks,
-no timing; the library's ``ptxas`` report (registers, spills, shared
-memory of every instantiation) goes to stderr.  Two versions whose kernels
-compute bit for bit the same print the same sums.
+no timing; on a dense graph ``K6a_sum`` (K6a's outputs over the 701
+frames), ``K6b_sum`` (K6b's posteriors), with 'high' ``K6t_sum`` (K6t's
+states, scales and sums from the initial state), and ``K6_bitequal``; the
+library's ``ptxas`` report (registers, spills, shared memory of every
+instantiation) goes to stderr.  Two versions whose kernels compute bit for
+bit the same print the same sums.
 
 Needs a CUDA card.
 """
@@ -114,7 +123,7 @@ def run_graph(graph: str, sums_only: bool = False) -> dict:
     import torch
 
     import markovmodels_tpu_torch as mt
-    from chip_smoke import cut_operator
+    from chip_smoke import cut_operator, frame_floor
     from markovmodels_tpu_torch.ops import block_scan as bs
     from markovmodels_tpu_torch.ops import dense_scan as ds
     from markovmodels_tpu_torch.ops.emissions import (pad_emissions,
@@ -123,10 +132,12 @@ def run_graph(graph: str, sums_only: bool = False) -> dict:
     dev = torch.device("cuda:0")
     B, N, K = 128, 700, 64
     prec = "bf16" if graph.endswith("-bf16") else "high"
+    dt = torch.float64 if graph.endswith("-f64") else torch.float32
     if graph.startswith("dense"):
         fsm, spdf, P, _ = mt.workloads.make_lm_hmm_graph(V=32)
         cf = mt.compile_fsm(fsm, spdf, P, strategy="dense", device=dev,
-                            precision=prec)
+                            precision=prec,
+                            **({"dtype": dt} if dt == torch.float64 else {}))
     elif graph.startswith("2m"):
         fsm, spdf, P, _ = mt.workloads.make_lm_hmm_graph(V=128)
         cf = mt.compile_fsm(fsm, spdf, P, strategy="block", device=dev,
@@ -137,16 +148,37 @@ def run_graph(graph: str, sums_only: bool = False) -> dict:
         cf = mt.compile_fsm(fsm, spdf, P, device=dev, precision=prec)
     rng = np.random.default_rng(0)
     lhs = torch.from_numpy(
-        (rng.normal(size=(B, N, P)) * 0.5).astype(np.float32)).to(dev)
+        (rng.normal(size=(B, N, P)) * 0.5).astype(np.float32)).to(dev, dt)
     lens = torch.full((B,), N, dtype=torch.int32, device=dev)
-    ext, msh = prepare_emissions(lhs, lens, P)
+    ext, msh = prepare_emissions(lhs, lens, P, dt)
     out = {"graph": graph}
     if graph.startswith("dense"):
         kop = ds.kernel_operator(cf)
         a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
-        alphas, ascale = ds.fwd_sweep(kop, a0, ext, msh)[:2]
+        fwd = ds.fwd_sweep(kop, a0, ext, msh)
+        alphas, ascale = fwd[:2]
+        if sums_only:
+            posts = ds.backward(kop, ext, alphas, ascale)
+            out["K6a_sum"] = sum(float(t.double().sum()) for t in fwd)
+            out["K6b_sum"] = float(posts.double().sum())
+            again = ds.fwd_sweep(kop, a0, ext, msh)
+            out["K6_bitequal"] = (
+                all(torch.equal(x, y) for x, y in zip(fwd, again))
+                and torch.equal(posts, ds.backward(kop, ext, alphas, ascale)))
+            if prec == "high":
+                top = ds.trop_operator(cf)
+                tk = ds.trop_sweep(top, a0, torch.ones(B, device=dev), ext,
+                                   msh, first=True)
+                out["K6t_sum"] = sum(float(t.double().sum()) for t in tk)
+            return out
         out["K6a_ms"] = _ms(lambda: ds.fwd_sweep(kop, a0, ext, msh))
         out["K6b_ms"] = _ms(lambda: ds.backward(kop, ext, alphas, ascale))
+        out["floor_us"] = frame_floor(cf, P, dev, N)
+        if prec == "high":
+            top = ds.trop_operator(cf)
+            one = torch.ones(B, device=dev, dtype=dt)
+            out["K6t_ms"] = _ms(lambda: ds.trop_sweep(top, a0, one, ext, msh,
+                                                      first=True))
         return out
     kop = bs.kernel_operator(cf)
     C = -(-(N + 1) // K)

@@ -24,6 +24,8 @@ seed 0, every length N):
 * ``ctas``: the persistent grid's CTAs (a version with a persistent K7);
 * with ``--graph separate``, all of it on the separate-state backoff graph
   (V=128, keep 0.1, the default capped layout): K7's family branch;
+* with ``--f64``, all of it on the graph compiled float64 (the
+  log-likelihoods in float64): K7's float64 instantiation;
 * with ``--split``, ``split_us``: µs per frame of the sweep on the whole
   forward operator and on three cut copies of it
   (``chip_smoke.vit_frame_split``): no tier (the tier's rows taken as band
@@ -213,7 +215,7 @@ def _trace(root, vs, cf, ext, msh) -> dict:
 
 
 def main(root: str, runs: int, split: bool, trace: bool = False,
-         graph: str = "2m") -> dict:
+         graph: str = "2m", f64: bool = False) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     sys.path.insert(1, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
@@ -230,21 +232,24 @@ def main(root: str, runs: int, split: bool, trace: bool = False,
         raise RuntimeError(f"imported {mt.__file__}, not the copy at {root}")
     dev = torch.device("cuda:0")
     _build.library()
+    dt = torch.float64 if f64 else torch.float32
+    kw = {"dtype": dt} if f64 else {}
     if graph == "separate":  # the capped layout: K7's family branch
         fsm, spdf, P, _ = mt.workloads.make_backoff_lm_hmm_graph(
             V=128, keep=0.1, layout="separate")
-        cf = mt.compile_fsm(fsm, spdf, P, device=dev)
+        cf = mt.compile_fsm(fsm, spdf, P, device=dev, **kw)
     else:
         fsm, spdf, P, _ = mt.workloads.make_lm_hmm_graph(V=128)
-        cf = mt.compile_fsm(fsm, spdf, P, strategy="block", device=dev)
+        cf = mt.compile_fsm(fsm, spdf, P, strategy="block", device=dev,
+                            **kw)
     rng = np.random.default_rng(0)
     B, N, n = 128, 700, 16
     lhs = torch.from_numpy(
-        (rng.normal(size=(B, N, P)) * 0.5).astype(np.float32)).to(dev)
+        (rng.normal(size=(B, N, P)) * 0.5).astype(np.float32)).to(dev, dt)
     lens = torch.full((B,), N, dtype=torch.int32, device=dev)
-    ext, msh = prepare_emissions(lhs, lens, P)
+    ext, msh = prepare_emissions(lhs, lens, P, dt)
     e2, m2 = prepare_emissions(lhs[:, :n].contiguous(),
-                               torch.full_like(lens, n), P)
+                               torch.full_like(lens, n), P, dt)
     k, p = vs.viterbi_fwd(cf, e2, m2), vs.viterbi_fwd_plain(cf, e2, m2)
     diff = int((k[0] != p[0]).sum()) + int((k[1] != p[1]).sum())
     del k, p
@@ -255,13 +260,13 @@ def main(root: str, runs: int, split: bool, trace: bool = False,
     sums = [float(t.double().sum()) for t in out]
     del out, again
     ts = _ms(lambda: vs.viterbi_fwd(cf, ext, msh), runs)
-    row = {"version": root, "graph": graph, "sweep_ms": ts,
+    row = {"version": root, "graph": graph + (" f64" if f64 else ""),
+           "sweep_ms": ts,
            "mean": sum(ts) / len(ts),
            "min": min(ts), "max": max(ts), "sums": sums,
            "bitequal": bitequal, "id_diffs": diff}
     if hasattr(vs, "_vit_grid"):  # the persistent kernel's CTAs
-        row["ctas"] = vs._vit_grid(bs.kernel_operator(cf, torch.float32),
-                                   dev, B)
+        row["ctas"] = vs._vit_grid(bs.kernel_operator(cf, dt), dev, B)
     if split:
         row["split_us"] = vit_frame_split(cf, ext, msh)
     if trace:
@@ -276,6 +281,7 @@ if __name__ == "__main__":
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--graph", choices=("2m", "separate"), default="2m")
+    ap.add_argument("--f64", action="store_true")
     a = ap.parse_args()
-    print(json.dumps(main(a.root, a.runs, a.split, a.trace, a.graph)),
+    print(json.dumps(main(a.root, a.runs, a.split, a.trace, a.graph, a.f64)),
           flush=True)

@@ -200,9 +200,9 @@ package decodes in XLA), through the family branch of K7 and K7n (FAM,
     called directly beside phase 36's decode.
 
 then float64 (``compile_fsm(dtype=torch.float64)``: K2-K4's float64
-instantiation for 'block' graphs, K5a/K5b's for stacked numerators; a
-float64 'dense' graph, a float64 decode and a general-Ĉ graph have no
-kernel yet and are refused on the card):
+instantiation for 'block' graphs, K5a/K5b's for stacked numerators,
+K6a/K6b's for 'dense' graphs and K7's, K7n's, K6t's and W2's for the
+decode; a general-Ĉ graph has no kernel yet and is refused on the card):
 
 38. the 2M-arc and separate-state graphs compiled float64; K2-K4's
     float64 instantiation against its float64 plain twin on both at B=8,
@@ -227,14 +227,45 @@ kernel yet and are refused on the card):
     each run twice, bit-equal, the admission's shared memory against the
     kernels', and timed; the wide float64 instantiation on 4 skip-arc
     numerators of ~1,200 states against its twin; then the refusals: a
-    float64 'dense' graph, a general-Ĉ graph ('dense' and 'block') and a
-    float64 decode raise ``NotImplementedError`` on the card before any
-    launch.
+    general-Ĉ graph ('dense' and 'block') raises ``NotImplementedError``
+    on the card before any launch, naming ROADMAP item 9c;
+42. K6a and K6b in float64 against their float64 twins on the V=32 graph
+    at B=128, N=700 (phase 11's input in float64), each run twice and
+    bit-equal: logZ within 1e-12 relative, states and posteriors within
+    1e-12, only float64 launches; then (phase 39 extended) the float64
+    dense graph's ``pdfposteriors`` at B=2, N=700 against the f64 oracle
+    within 1e-8, on exactly one K6a and one K6b float64 launch;
+43. K6t and W2 in float64 on the V=32 dense decode at B=128, N=700
+    (lengths 1, 2N/3 and N mixed, ±30-nat cliffs): K6t twice, bit-equal
+    to each other and to its twin, restarted mid-sweep; W2 bit-equal to
+    its twin whole and in two chunks; K6t at B=126 (the scalar branch);
+44. K7 (the 2M-arc graph at B=128 and 126; the separate-state graph: the
+    family branch), K7n and W2 in float64 against their twins at N=128:
+    every call twice and bit-equal, ids, omega argmaxes, final values,
+    ksum and shift bit-equal to the twin, K7n ending as K7, its
+    checkpoints, a restart, W2 whole and in two chunks;
+45. ``viterbi`` in float64 at B=128, N=700 on the dense, 2M-arc and
+    separate-state graphs (exactly one K6t and one W2, or one K7 and one
+    walk, all float64), every path's float64 weight within 1e-8 of its
+    score; at B=2, N=40 the scores within 1e-8 of the f64 max-plus
+    optimum on every route (the 2M-arc graph also through the
+    chunk-recompute route); the 2M-arc decode at B=128, N=1,024, past the
+    id budget (1 + 17 K7n and 17 W2 float64 launches), its checkpoint
+    sweep, one recompute and its walk bit-equal to their twins and timed;
+46. float64 beside float32, medians of 5 in turns: the dense step (float64
+    numerators through K5a/K5b's float64 instantiation; its launches:
+    exactly K5a, K5b, K6a, K6b float64 once each) and den-only call, the
+    2M-arc, separate-state and dense decodes at N=700 and the 2M-arc
+    decode at N=1,024; K6a/K6b in float64 timed beside their twins, float64
+    ``torch.matmul`` and ``torch.sparse.mm`` ×701 and their bounds (the
+    product at the FP64 tensor-core rate, and at the non-tensor FP64 rate
+    beside it); K7 in float64 timed beside its twin on both block graphs.
 
 Every kernel's entry in the JSON line (K6t, K7n and W2 from phases 32-33,
 the family branch's K7, walk, K7n and W2 from phases 36-37, K2-K4's
 float64 instantiation on both block graphs and K5a/K5b's on the main-path
-numerators among them) carries its bound:
+numerators, and the float64 K6a, K6b, K6t, W2, K7 (uniform and family
+branch) and K7n of phases 42-46 among them) carries its bound:
 the larger of its
 operations over the card's peak rate for their type and its bytes over the
 memory bandwidth (H100 SXM data sheet), computed from this run's shapes.
@@ -315,6 +346,8 @@ PEAK_F64_TC = 67e12
 # float32 instructions that are not FMAs (a multiply, a compare, a select):
 # one per lane and clock, half the FMA FLOP rate
 PEAK_F32_OPS = PEAK_F32 / 2
+# the same for float64 (a double multiply, max or compare on the FP64 pipe)
+PEAK_F64_OPS = PEAK_F64 / 2
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s
 
@@ -401,11 +434,14 @@ def banded_bounds(num_cf, Nf):
     }
 
 
-def dense_bounds(dcf, B, Nf, dense=False):
+def dense_bounds(dcf, B, Nf, dense=False, f64_tc=True):
     """K6a and K6b over the Nf-frame sweep: per frame the product over the
     operator's non-zero entries (what these inputs need: a zero weight adds
     nothing), the emission, rescale and posterior work; a bf16 graph's
-    product on the tensor cores (PEAK_BF16).  The operator is read once as
+    product on the tensor cores (PEAK_BF16), a float64 graph's on the
+    float64 tensor cores (PEAK_F64_TC, as K2<double>'s tier is counted;
+    ``f64_tc`` False: at the non-tensor FP64 rate, the kernel's own) with
+    the rest at PEAK_F64 over 8-byte values.  The operator is read once as
     a CSR (each non-zero with a 4-byte column index, the row pointers).
     With ``dense``: the dense-equivalent bound of the full (Sp, Sp)
     product over the dense operator, as if no entry were zero."""
@@ -416,6 +452,7 @@ def dense_bounds(dcf, B, Nf, dense=False):
     kop = ds.kernel_operator(dcf)
     Sp, P1 = kop.Sp, kop.P1
     wb = kop.wf.element_size()
+    f = kop.alpha0.element_size()
     out = {}
     for name, w, extra, state_bytes in (
             ("K6a", kop.wf, 3, Sp * B + Nf * (P1 + 1) * B
@@ -424,9 +461,14 @@ def dense_bounds(dcf, B, Nf, dense=False):
         nnz = Sp * Sp if dense else int(torch.count_nonzero(w))
         op = wb * nnz if dense else (wb + 4) * nnz + 4 * (Sp + 1)
         prod = Nf * B * 2 * nnz
+        rest = Nf * B * extra * Sp
+        if f == 8:
+            tc, vec = (prod, rest) if f64_tc else (0, prod + rest)
+            out[name] = bound(vec, op + f * state_bytes, PEAK_F64,
+                              tc_flops=tc, tc_peak=PEAK_F64_TC)
+            continue
         f32, tc = (0, prod) if wb == 2 else (prod, 0)
-        out[name] = bound(f32 + Nf * B * extra * Sp, op + 4 * state_bytes,
-                          tc_flops=tc)
+        out[name] = bound(f32 + rest, op + 4 * state_bytes, tc_flops=tc)
     return out
 
 
@@ -449,21 +491,23 @@ def vit_bounds(cf, B, Nf):
     from markovmodels_tpu_torch.ops import block_scan as bs
     from markovmodels_tpu_torch.ops import vit_scan as vs
 
-    kop = bs.kernel_operator(cf)
+    kop = bs.kernel_operator(cf, vs._vit_dtype(cf))
     K, Sm, D = kop.fwd.W.shape
     nO, Sp, P1 = len(kop.fwd.offsets), kop.Sp, kop.P1
     nfam = kop.fwd.fam_dst.numel()
     RW = vs._main_region(cf)
-    nbytes = (4 * (K * Sm * D + nO * Sp + 2 * Sp + Nf * (P1 + 1) * B)
-              + Nf * RW * B + 4 * Nf * B + 12 * B)
+    f = kop.alpha0.element_size()  # 8: the float64 instantiation
+    peak = PEAK_F64_OPS if f == 8 else PEAK_F32_OPS
+    nbytes = (f * (K * Sm * D + nO * Sp + 2 * Sp + Nf * (P1 + 1) * B)
+              + Nf * RW * B + 4 * Nf * B + 3 * f * B)
     if vs._is_fam(kop):
-        nbytes += 4 * (2 * Sp + 1) + 9 * nfam
+        nbytes += 4 * (2 * Sp + 1) + (5 + f) * nfam
     rest = 4 * nO * RW + 2 * Sp + 2 * Sp + 2 * nfam
     tier, g = K * Sm * D, vs.layout(B, Nf - 1)[1]
     ops = Nf * B * (2 * (1 + 1 / g) * tier + rest)
     ops4 = Nf * B * (4 * tier + rest)
-    return {"K7": bound(ops, nbytes, PEAK_F32_OPS),
-            "K7 (4 instructions)": bound(ops4, nbytes, PEAK_F32_OPS),
+    return {"K7": bound(ops, nbytes, peak),
+            "K7 (4 instructions)": bound(ops4, nbytes, peak),
             "K7w": bound(0, (Nf - 1) * B * (1 + 4 + 4 + 4) + 8 * B)}
 
 
@@ -499,7 +543,11 @@ def profile_device(fn):
     torch.profiler's device events: ({kernel: ms}, busy ms, span ms,
     {kernel: launches}), the span running from the first device event's
     start to the last one's end; None when the profiler records no device
-    event."""
+    event.  The profiler's window first takes one call of ``fn`` and a
+    marker kernel (``torch.cuda._sleep``'s spin kernel): a tracer that
+    came up late has lost the start of that first call (seen once on the
+    card: a den-only call's first 30 ms missing), so only the events of
+    the call after the marker count."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -510,12 +558,20 @@ def profile_device(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+        torch.cuda._sleep(100_000)  # the marker between the two calls
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
     def short(name):  # "void ns::k<...>(args)" -> "k<...>"
         m = re.search(r"(\w+(?:<[^()]*>)?)\(", name)
         return (m.group(1) if m else name)[:60]
 
     spans = sorted((e.time_range.start, e.time_range.end, short(e.name))
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
+    marks = [t1 for _, t1, name in spans if name.startswith("spin_kernel")]
+    if not marks:
+        return None
+    spans = [x for x in spans if x[0] >= marks[-1]]
     if not spans:
         return None
     by_name, counts = {}, {}
@@ -1317,28 +1373,35 @@ def time_banded(num_cf, P, dev, inputs=None, tag=None):
     return out
 
 
-def dense_inputs(P, dev, B=128, N=700, seed=2):
-    """Phase 11's input: mixed lengths with 1 and N, ±30-nat cliffs."""
+def dense_inputs(P, dev, B=128, N=700, seed=2, dtype=None):
+    """Phase 11's input: mixed lengths with 1 and N, ±30-nat cliffs; the
+    emissions in ``dtype`` (float32 by default; float64 from float64
+    log-likelihoods)."""
     import torch
 
     from markovmodels_tpu_torch.ops.emissions import prepare_emissions
 
+    dtype = dtype or torch.float32
     rng = np.random.default_rng(seed)
-    lhs = torch.from_numpy(make_inputs(rng, B, N, P, cliffs=True)).to(dev)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P, cliffs=True)).to(
+        dev, dtype)
     lens = rng.integers(1, N + 1, size=B).astype(np.int32)
     lens[:4] = [N, 1, 2 * N // 3, N // 2 + 1]
-    return prepare_emissions(lhs, torch.from_numpy(lens).to(dev), P)
+    return prepare_emissions(lhs, torch.from_numpy(lens).to(dev), P, dtype)
 
 
 def phase_dense_kernels(kop, P, dev, N=700, label="phase 11", tol=TOL_K6):
-    """Phase 11 (24): K6a and K6b on the operator ``kop`` against their
-    plain twins on one input, each kernel run twice and bit-equal."""
+    """Phase 11 (24, 42): K6a and K6b on the operator ``kop`` against their
+    plain twins on one input, each kernel run twice and bit-equal.  A
+    float64 operator (phase 42) takes float64 emissions, and its logZ is
+    held to the twin's relative to |logZ| (TOL_F64_LOGZ_REL)."""
     import torch
 
     from markovmodels_tpu_torch import inference as tinf
     from markovmodels_tpu_torch.ops import dense_scan as ds
 
-    ext, msh = dense_inputs(P, dev, N=N)
+    f64 = kop.alpha0.dtype == torch.float64
+    ext, msh = dense_inputs(P, dev, N=N, dtype=kop.alpha0.dtype)
     B = ext.shape[2]
     a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
 
@@ -1364,6 +1427,15 @@ def phase_dense_kernels(kop, P, dev, N=700, label="phase 11", tol=TOL_K6):
     assert fin.sum() > B // 2 and fin[0], "K6a: unexpected -inf pattern"
     errs = {"K6a": max(float(np.abs(zk[fin] - zp[fin]).max()),
                        float((norm(fk[0]) - norm(fp[0])).abs().max()))}
+    if f64:  # logZ relative to |logZ| beside the states' error
+        zrel = float((np.abs(zk[fin] - zp[fin])
+                      / np.maximum(np.abs(zp[fin]), 1.0)).max())
+        print(f"{label}: K6a (float64) logZ vs its twin relative {zrel:.3e} "
+              f"(tol {TOL_F64_LOGZ_REL:g}), absolute "
+              f"{float(np.abs(zk[fin] - zp[fin]).max()):.3e}")
+        assert zrel <= TOL_F64_LOGZ_REL, f"K6a float64 logZ: {zrel}"
+        errs["K6a"] = max(zrel, float((norm(fk[0]) - norm(fp[0])).abs()
+                                      .max()))
     del fp
     pk = ds.backward(kop, ext, fk[0], fk[1])
     again = ds.backward(kop, ext, fk[0], fk[1])
@@ -1479,11 +1551,11 @@ def phase_dense_stack(dev, P=24, n=40):
 
 def time_dense(cf, P, dev):
     """K6a and K6b and their plain twins over the whole 701-frame sweep at
-    the main shape (B=128, Sp=3,200)."""
+    the main shape (B=128, Sp=3,200), in the graph's dtype."""
     from markovmodels_tpu_torch.ops import dense_scan as ds
 
     kop = ds.kernel_operator(cf)
-    ext, msh = dense_inputs(P, dev)
+    ext, msh = dense_inputs(P, dev, dtype=kop.alpha0.dtype)
     B = ext.shape[2]
     a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
     alphas, ascale = ds.fwd_sweep(kop, a0, ext, msh)[:2]
@@ -1505,15 +1577,15 @@ def time_dense(cf, P, dev):
 
 def matmul_yardstick(dcf, dev, B=128, Nf=701):
     """The dense scan's product alone as one PyTorch call per frame: the
-    (Sp, Sp) @ (Sp, B) float32 ``torch.matmul`` times Nf (a yardstick for
-    K6a/K6b, which also rescale, emit and reduce; not a kernel of the
-    port)."""
+    (Sp, Sp) @ (Sp, B) ``torch.matmul`` in the operator's dtype (float32,
+    or float64) times Nf (a yardstick for K6a/K6b, which also rescale, emit
+    and reduce; not a kernel of the port)."""
     import torch
 
     from markovmodels_tpu_torch.ops import dense_scan as ds
 
     kop = ds.kernel_operator(dcf)
-    a = torch.rand((kop.Sp, B), device=dev)
+    a = torch.rand((kop.Sp, B), device=dev).to(kop.wf.dtype)
     return Nf * cuda_ms(lambda: torch.matmul(kop.wf, a), reps=50)
 
 
@@ -1546,8 +1618,9 @@ def ms_or_not(t):
 def frame_floor(dcf, P, dev, N=700):
     """K6a and K6b on the graph's emissions and pdfs with an all-zero
     operator: no tile, so no product; what is left of a frame is the
-    epilogue, the per-frame statistics and the grid barrier.  Returns
-    (K6a, K6b) microseconds per frame, CUDA events."""
+    epilogue, the per-frame statistics and the grid barrier, in the
+    graph's dtype.  Returns (K6a, K6b) microseconds per frame, CUDA
+    events."""
     import torch
 
     from markovmodels_tpu_torch.ops import dense_scan as ds
@@ -1557,7 +1630,7 @@ def frame_floor(dcf, P, dev, N=700):
                        torch.zeros_like(kop.wb), kop.spdf, kop.perm.long(),
                        kop.P1, kop.fin)
     assert zero.pf.tile_k.numel() == zero.pb.tile_k.numel() == 0
-    ext, msh = dense_inputs(P, dev, N=N)
+    ext, msh = dense_inputs(P, dev, N=N, dtype=kop.alpha0.dtype)
     B = ext.shape[2]
     a0 = zero.alpha0[:, None].expand(zero.Sp, B).contiguous()
     alphas, ascale = ds.fwd_sweep(zero, a0, ext, msh)[:2]
@@ -1711,8 +1784,9 @@ def vit_frame_split(cf, ext, msh, reps=3):
     from markovmodels_tpu_torch.ops import block_scan as bs
     from markovmodels_tpu_torch.ops import vit_scan as vs
 
-    key = ("block_scan", torch.float32)
-    kop = bs.kernel_operator(cf, torch.float32)
+    vdt = vs._vit_dtype(cf)  # float64 for a float64 graph
+    key = ("block_scan", vdt)
+    kop = bs.kernel_operator(cf, vdt)
     out = {}
     try:
         for part, cut in (
@@ -1836,7 +1910,7 @@ def phase_vit_main(fsm, spdf, cf, P, dev, B=128, N=700):
                           for k, v in top))
         vit = {k: v for k, v in counts.items() if k.startswith("vit_")}
         assert sorted(vit.items()) == [
-            ("vit_sweep_kernel<true, true, false>", 1),
+            ("vit_sweep_kernel<true, true, false, float>", 1),
             ("vit_walk_kernel", 1)], counts
     parts = decode_parts(cf, lhs, lengths)
     for k, v in parts.items():
@@ -2168,10 +2242,12 @@ def trop_bounds(dcf, B, Nf):
 
     kop = ds.trop_operator(dcf)
     Sp, P1 = kop.Sp, kop.P1
+    f = kop.wf.element_size()  # 8: the float64 instantiation
     nnz = int(torch.count_nonzero(kop.wf))
-    nbytes = 8 * nnz + 4 * (Sp + 1) + 4 * (Sp * B + Nf * (P1 + 1) * B
-                                          + Nf * (Sp + 1) * B + 3 * B)
-    return bound(Nf * B * (2 * nnz + 3 * Sp), nbytes, PEAK_F32_OPS)
+    nbytes = (f + 4) * nnz + 4 * (Sp + 1) + f * (
+        Sp * B + Nf * (P1 + 1) * B + Nf * (Sp + 1) * B + 3 * B)
+    return bound(Nf * B * (2 * nnz + 3 * Sp), nbytes,
+                 PEAK_F64_OPS if f == 8 else PEAK_F32_OPS)
 
 
 def noid_bounds(cf, B, Nf, saved):
@@ -2179,22 +2255,24 @@ def noid_bounds(cf, B, Nf, saved):
     id (a multiply and a max per tier candidate, per band candidate a
     multiply and a max, per family term (a capped layout) a multiply and a
     max, per state the omega product and max, the emission and the
-    rescale) at PEAK_F32_OPS; the operator with its family tables, the
-    emissions, the start state and the saved states and scales."""
+    rescale) at PEAK_F32_OPS (PEAK_F64_OPS in float64); the operator with
+    its family tables, the emissions, the start state and the saved states
+    and scales, each value of its dtype's bytes."""
     from markovmodels_tpu_torch.ops import block_scan as bs
     from markovmodels_tpu_torch.ops import vit_scan as vs
 
-    kop = bs.kernel_operator(cf)
+    kop = bs.kernel_operator(cf, vs._vit_dtype(cf))
     K, Sm, D = kop.fwd.W.shape
     nO, Sp, P1 = len(kop.fwd.offsets), kop.Sp, kop.P1
     nfam = kop.fwd.fam_dst.numel()
     RW = vs._main_region(cf)
+    f = kop.alpha0.element_size()  # 8: the float64 instantiation
     ops = Nf * B * (2 * K * Sm * D + 2 * nO * RW + 2 * nfam + 4 * Sp)
-    nbytes = 4 * (K * Sm * D + nO * Sp + 2 * Sp + Nf * (P1 + 1) * B
+    nbytes = f * (K * Sm * D + nO * Sp + 2 * Sp + Nf * (P1 + 1) * B
                   + Sp * B + saved * (Sp + 1) * B + 8 * B)
     if vs._is_fam(kop):
-        nbytes += 4 * (2 * Sp + 1) + 8 * nfam
-    return bound(ops, nbytes, PEAK_F32_OPS)
+        nbytes += 4 * (2 * Sp + 1) + (4 + f) * nfam
+    return bound(ops, nbytes, PEAK_F64_OPS if f == 8 else PEAK_F32_OPS)
 
 
 def walk_bounds(wt, path, s_next, lengths, t0, Sp):
@@ -2217,9 +2295,10 @@ def walk_bounds(wt, path, s_next, lengths, t0, Sp):
     cand = int(cnt.sum())
     steps = path.size
     omega_steps = int(((t == L - 1) & (L >= 1)).sum())
+    f = wt.w.element_size()  # 8: the float64 instantiation
     ops = 4 * cand + 3 * Sp * omega_steps
-    nbytes = 12 * cand + 8 * Sp * omega_steps + 16 * steps
-    return bound(ops, nbytes, PEAK_F32_OPS)
+    nbytes = (4 + 2 * f) * cand + 2 * f * Sp * omega_steps + (8 + 2 * f) * steps
+    return bound(ops, nbytes, PEAK_F64_OPS if f == 8 else PEAK_F32_OPS)
 
 
 def hmm5(seed=7, S=5):
@@ -2253,7 +2332,7 @@ def all_launches():
         out.update(m.LAUNCHES)
     out.update({f"{k}_bf16": v for m in (bs, ds)
                 for k, v in m.LAUNCHES_BF16.items()})
-    out.update({f"{k}_f64": v for m in (bs, bsc)
+    out.update({f"{k}_f64": v for m in (bs, bsc, ds, vs)
                 for k, v in m.LAUNCHES_F64.items()})
     return out
 
@@ -2453,8 +2532,8 @@ def phase_dense_decode(dfsm, dspdf, dcf, dP, dev, B=128, N=700):
             f"{k} {v:.3f} ms ({kcounts[k]} launches)" for k, v in
             sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
         assert sorted(ours.items()) == [
-            ("rec_walk_kernel", 1),
-            ("sweep_kernel<false, true, false, true>", 1)], kcounts
+            ("rec_walk_kernel<float>", 1),
+            ("sweep_kernel<false, true, false, true, float>", 1)], kcounts
     plain = []
     t_sweep_plain = cuda_ms(lambda: plain.append(ds.trop_sweep_plain(
         kop, a0, s0, ext, msh, first=True)), warm=False)
@@ -2761,7 +2840,7 @@ def phase_ov_vit_main(fsm, spdf, cf, efsm, espdf, ecf, P, dev, t_dec2m,
                           for k, v in top))
         vit = {k: v for k, v in pcounts.items() if k.startswith("vit_")}
         assert sorted(vit.items()) == [
-            ("vit_sweep_kernel<true, true, true>", 1),
+            ("vit_sweep_kernel<true, true, true, float>", 1),
             ("vit_walk_kernel", 1)], pcounts
     parts = decode_parts(cf, lhs, lengths)
     print("phase 36: decode parts: " + "; ".join(
@@ -3010,19 +3089,18 @@ def phase_k5_f64(num64, P, dev, label="phase 41"):
     return {k: max(v, werrs[k]) for k, v in errs.items()}, times
 
 
-def phase_refusals(dcf64, dev, cf64, label="phase 41"):
-    """Phase 41, refusals: a float64 'dense' graph, a general-Ĉ graph
-    ('dense' and 'block', float32) and the float64 decode of the 2M-arc
-    graph raise NotImplementedError on the card before any launch, naming
-    the ROADMAP item that ports them; ``fast_path_report`` says so."""
+def phase_refusals(dev, label="phase 41"):
+    """Phase 41, refusals: a general-Ĉ graph ('dense' and 'block', float32)
+    raises NotImplementedError on the card before any launch, in
+    ``pdfposteriors`` and ``viterbi``, naming the ROADMAP item that ports
+    it (9c); ``fast_path_report`` says so."""
     import torch
 
     import markovmodels_tpu_torch as mt
 
     fsm, C, mP = multi_pdf_graph()
     rng = np.random.default_rng(17)
-    calls = [("float64 'dense' pdfposteriors", dcf64, mt.pdfposteriors,
-              torch.float64)]
+    calls = []
     for strategy in ("dense", "block"):
         mcf = mt.compile_fsm(fsm, C, mP, strategy=strategy, device=dev)
         assert mcf.multi_pdf
@@ -3030,22 +3108,383 @@ def phase_refusals(dcf64, dev, cf64, label="phase 41"):
                       mt.pdfposteriors, torch.float32))
         calls.append((f"general-C-hat {strategy!r} viterbi", mcf,
                       mt.viterbi, torch.float32))
-    calls.append(("float64 2M-arc viterbi", cf64, mt.viterbi, torch.float64))
     reset_all_launches()
     for name, cf, fn, dt in calls:
         x = torch.from_numpy(rng.normal(size=(2, 8, cf.num_pdfs))).to(dev, dt)
         try:
             fn(cf, x, torch.tensor([8, 5], dtype=torch.int32, device=dev))
         except NotImplementedError as e:
-            assert "ROADMAP queue 1 item 9b" in str(e), str(e)
+            assert "ROADMAP queue 1 item 9c" in str(e), str(e)
             print(f"{label}: {name} on the card refused: {e}")
         else:
             raise AssertionError(f"{name} ran on the card")
         if fn is mt.pdfposteriors:
             report = mt.fast_path_report(cf, 2)
-            assert report.startswith("error - ") and "9b" in report, report
+            assert report.startswith("error - ") and "9c" in report, report
     torch.cuda.synchronize()
     assert not any(all_launches().values()), all_launches()
+
+
+# ---- float64 'dense' scan and float64 decode (phases 42-46) ----------------
+
+TOL_K6_F64 = 1e-12  # K6a/K6b<double> against their float64 twin
+# float64 end to end: |dlogZ|, |dposts| and |dscore| against the f64 oracle
+# and the f64 max-plus optimum, and a float64 path's weight against its
+# score
+TOL_F64_ORACLE = 1e-8
+
+
+def launched(want):
+    """The nonzero launch counts since the last reset, held to ``want``."""
+    import torch
+
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in all_launches().items() if v}
+    assert counts == want, f"launches {counts}, want {want}"
+    return counts
+
+
+def phase_f64_dense(dcf64, dP, dev, label="phase 42"):
+    """Phase 42: K6a and K6b in their float64 instantiation against their
+    float64 twins on the V=32 graph at B=128, N=700 (phase 11's input in
+    float64: lengths 1 and N mixed, ±30-nat cliffs), each run twice and
+    bit-equal: logZ within 1e-12 relative, states and posteriors within
+    1e-12; only float64 launches."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    kop = ds.kernel_operator(dcf64)
+    assert (kop.wf.dtype == kop.pf.tiles.dtype == kop.alpha0.dtype
+            == torch.float64)
+    reset_all_launches()
+    errs = phase_dense_kernels(kop, dP, dev, label=label, tol=TOL_K6_F64)
+    counts = launched({"dense_fwd_f64": 2, "dense_bwd_f64": 2})
+    print(f"{label}: launches {json.dumps(counts)}; tile plans' shared "
+          f"memory (resident, streaming) {ds.smem_bytes(kop.pf)} bytes")
+    return errs
+
+
+def phase_f64_trop(dcf64, dP, dev, B=128, N=700, label="phase 43"):
+    """Phase 43: K6t and W2 in float64 on the V=32 dense decode at B=128,
+    N=700 (phase 15's input form in float64: lengths 1, 2N/3 and N mixed,
+    ±30-nat cliffs): K6t run twice, bit-equal to each other and to its
+    twin, restarted mid-sweep from a saved frame; W2 bit-equal to its twin
+    over the whole sweep and in two chunks; then K6t at B=126 (the scalar
+    branch), N=64.  Only float64 launches.  Returns (errs, times, bounds)
+    with the sweep's and the walk's ms beside their twins'."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    f64 = torch.float64
+
+    def same(xs, ys):
+        return all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+    kop = ds.trop_operator(dcf64)
+    assert kop.wf.dtype == f64
+    lhs, lens = vit_inputs(dP, dev, B, N)
+    ext, msh = prepare_emissions(lhs.double(), lens, dP, f64)
+    a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
+    s0 = torch.ones(B, device=dev, dtype=f64)
+    reset_all_launches()
+    k1 = ds.trop_sweep(kop, a0, s0, ext, msh, first=True)
+    k2 = ds.trop_sweep(kop, a0, s0, ext, msh, first=True)
+    torch.cuda.synchronize()
+    plain = []
+    t_plain = cuda_ms(lambda: plain.append(ds.trop_sweep_plain(
+        kop, a0, s0, ext, msh, first=True)), warm=False)
+    h = N // 2
+    mid = (k1[0][h - 1], k1[1][h - 1], ext[h:], msh[h:])
+    m_k = ds.trop_sweep(kop, *mid, first=False)
+    m_p = ds.trop_sweep_plain(kop, *mid, first=False)
+    ok = {"twice": same(k1, k2), "twin": same(k1, plain[0]),
+          "restart": same(m_k, m_p) and torch.equal(m_k[0], k1[0][h:])}
+    del k2, plain, m_k, m_p
+    wt = vs.rec_walk_tables(dcf64)
+    assert wt.w.dtype == wt.omega.dtype == f64
+    s_end = torch.full((B,), wt.fin, dtype=torch.int32, device=dev)
+    wk = vs.rec_walk(wt, k1[0], k1[1], lens, 0, s_end)
+    torch.cuda.synchronize()
+    walked = []
+    t_wplain = cuda_ms(lambda: walked.append(vs.rec_walk_plain(
+        wt, k1[0], k1[1], lens, 0, s_end)), warm=False)
+    w_hi = vs.rec_walk(wt, k1[0][h:], k1[1][h:], lens, h, s_end)
+    w_lo = vs.rec_walk(wt, k1[0][:h], k1[1][:h], lens, 0, w_hi[0])
+    ok["W2 twin"] = torch.equal(wk, walked[0])
+    ok["W2 chunks"] = torch.equal(torch.cat([w_lo, w_hi]), wk)
+    lhs6, len6 = vit_inputs(dP, dev, 126, 64, seed=9)
+    e6, m6 = prepare_emissions(lhs6.double(), len6, dP, f64)
+    a6 = kop.alpha0[:, None].expand(kop.Sp, 126).contiguous()
+    o6 = torch.ones(126, device=dev, dtype=f64)
+    ok["B=126"] = same(ds.trop_sweep(kop, a6, o6, e6, m6, first=True),
+                       ds.trop_sweep_plain(kop, a6, o6, e6, m6, first=True))
+    counts = launched({"dense_trop_f64": 4, "rec_walk_f64": 3})
+    t_sweep = cuda_ms(lambda: ds.trop_sweep(kop, a0, s0, ext, msh,
+                                            first=True), reps=3)
+    t_walk = cuda_ms(lambda: vs.rec_walk(wt, k1[0], k1[1], lens, 0, s_end),
+                     reps=5)
+    bd = trop_bounds(dcf64, B, N + 1)
+    bw = walk_bounds(wt, wk, s_end, lens, 0, kop.Sp)
+    print(f"{label}: K6t and W2 (float64) on the V=32 dense graph B={B} "
+          f"N={N}: bit-equal {ok}; launches {json.dumps(counts)}; K6t "
+          f"{t_sweep:.3f} ms ({1e3 * t_sweep / (N + 1):.2f} us/frame; bound "
+          f"{bd[0]:.4f} ms, {bd[1]}; twin {t_plain:.1f} ms), W2 "
+          f"{t_walk:.3f} ms (bound {bw[0]:.4f} ms, {bw[1]}; twin "
+          f"{t_wplain:.1f} ms)")
+    assert all(ok.values()), f"K6t or W2 (float64) disagrees: {ok}"
+    return ({"K6t": 0.0, "W2": 0.0},
+            {"K6t": (t_sweep, t_plain), "W2": (t_walk, t_wplain)},
+            {"K6t": bd, "W2": bw})
+
+
+def phase_f64_vit(cf64, scf64, P, sP, dev, B=128, N=128, label="phase 44"):
+    """Phase 44: K7, K7n and W2 in float64 against their float64 twins at
+    N=128 (phase 34's input in float64: lengths 1, 2 and N mixed, ±30-nat
+    cliffs) on the 2M-arc graph (uniform K7, also at B=126: the scalar
+    branch) and the separate-state graph (K7's and K7n's family branch):
+    K7 twice, bit-equal, its ids, omega argmaxes, final value, ksum and
+    shift bit-equal to the twin, the walk over its ids equal to its twin;
+    K7n twice, bit-equal to its twin and ending as K7, its stride-64
+    checkpoints the saved frames, restarted mid-sweep; W2 on K7n's frames
+    bit-equal to its twin, whole and in two chunks.  Only float64 launches
+    (and the walk over the ids, which has no value type)."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    f64 = torch.float64
+
+    def same(xs, ys):
+        return all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+    h = min(64, N // 2)
+    for name, cf, P_, batches in (("2M-arc", cf64, P, (B, B - 2)),
+                                  ("separate-state", scf64, sP, (B,))):
+        fam = name == "separate-state"
+        reset_all_launches()
+        for Bx in batches:
+            lhs, lens = vit_inputs(P_, dev, Bx, N)
+            lens[4] = 2
+            ext, msh = prepare_emissions(lhs.double(), lens, P_, f64)
+            k1 = vs.viterbi_fwd(cf, ext, msh)
+            k2 = vs.viterbi_fwd(cf, ext, msh)
+            torch.cuda.synchronize()
+            kp = vs.viterbi_fwd_plain(cf, ext, msh)
+            wt = vs.walk_tables(cf)
+            sk = vs.walk(wt, k1[0], k1[1], lens)
+            zk = vit_score(k1)
+            fin = np.isfinite(zk)
+            ok = {"K7 twice": same(k1, k2), "K7 twin": same(k1, kp),
+                  "walk": torch.equal(sk, vs.walk_plain(wt, k1[0], k1[1],
+                                                        lens)),
+                  "-inf": not fin[1] and fin[0]}
+            del k2, kp
+            if Bx == B:
+                n1 = vs.viterbi_fwd(cf, ext, msh, ids=False)
+                n2 = vs.viterbi_fwd(cf, ext, msh, ids=False)
+                torch.cuda.synchronize()
+                npl = vs.viterbi_fwd_plain(cf, ext, msh, ids=False)
+                ck = vs.viterbi_fwd(cf, ext, msh, ids=False, stride=h)
+                midk = dict(a0=n1[0][h - 1], s0=n1[1][h - 1], t0=h)
+                r_k = vs.viterbi_fwd(cf, ext[h:], msh[h:], ids=False, **midk)
+                r_p = vs.viterbi_fwd_plain(cf, ext[h:], msh[h:], ids=False,
+                                           **midk)
+                fn = cf.final_state
+                ok.update({
+                    "K7n twice": same(n1, n2), "K7n twin": same(n1, npl),
+                    "K7n as K7": (torch.equal(n1[2][fn] * n1[3], k1[2])
+                                  and torch.equal(n1[4][0], k1[4])
+                                  and torch.equal(n1[4][1], k1[3])),
+                    "checkpoints": (torch.equal(ck[0], n1[0][h - 1::h])
+                                    and torch.equal(ck[1], n1[1][h - 1::h])
+                                    and same(ck[2:], n1[2:])),
+                    "restart": (same(r_k, r_p)
+                                and torch.equal(r_k[0], n1[0][h:]))})
+                del n2, npl, ck, r_k, r_p
+                rt = vs.rec_walk_tables(cf)
+                s_end = torch.full((Bx,), rt.fin, dtype=torch.int32,
+                                   device=dev)
+                wk = vs.rec_walk(rt, n1[0], n1[1], lens, 0, s_end)
+                w_hi = vs.rec_walk(rt, n1[0][h:], n1[1][h:], lens, h, s_end)
+                w_lo = vs.rec_walk(rt, n1[0][:h], n1[1][:h], lens, 0,
+                                   w_hi[0])
+                ok["W2 twin"] = torch.equal(wk, vs.rec_walk_plain(
+                    rt, n1[0], n1[1], lens, 0, s_end))
+                ok["W2 chunks"] = torch.equal(torch.cat([w_lo, w_hi]), wk)
+                del n1
+            print(f"{label}: {name} B={Bx} N={N} (float64): bit-equal {ok}")
+            assert all(ok.values()), f"{name} float64 decode kernels: {ok}"
+        nb = len(batches)
+        counts = launched({"vit_fwd_f64": 2 * nb, "vit_walk": nb,
+                           "vit_fwd_noid_f64": 4, "rec_walk_f64": 3})
+        famc = dict(vs.LAUNCHES_FAM)
+        print(f"{label}: {name} launches {json.dumps(counts)}, of them in "
+              f"the family branch {json.dumps(famc)}")
+        assert famc == ({"vit_fwd": 2 * nb, "vit_fwd_noid": 4} if fam
+                        else {"vit_fwd": 0, "vit_fwd_noid": 0}), famc
+    return {"K7": 0.0, "K7w": 0.0, "K7n": 0.0, "W2": 0.0}
+
+
+def phase_f64_decodes(graphs, cf64, fsm, spdf, P, dev, B=128, N=700,
+                      n2=1024, label="phase 45"):
+    """Phase 45: ``viterbi`` in float64 through the float64 kernels:
+    ``graphs`` maps a name to (fsm, state_pdf, P, float64 compile, the
+    launches its decode must make).  At B=128, N=700 (seed 0): exactly
+    those launches and no float32 one, every path's float64 weight within
+    1e-8 of its score; at B=2, N=40 the scores within 1e-8 of the f64
+    max-plus optimum and the paths valid, for every graph and for the
+    2M-arc graph through the chunk-recompute route (K7n and W2, chunks of
+    7); then the 2M-arc decode at B=128, N=1,024, past the id budget: 1 +
+    17 K7n and 17 W2 launches, every path f64-valid, the checkpoint sweep,
+    one 64-frame recompute and its walk timed and held bit-equal to their
+    twins.  Returns (counts, times, bounds, errs)."""
+    import importlib
+
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    tvit = importlib.import_module("markovmodels_tpu_torch.viterbi")
+    f64 = torch.float64
+    counts = {}
+    for name, (g, sp_, P_, cf, want) in graphs.items():
+        rng = np.random.default_rng(0)
+        lhs = torch.from_numpy(make_inputs(rng, B, N, P_)).to(dev, f64)
+        lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+        reset_all_launches()
+        states, score = mt.viterbi(cf, lhs, lengths)
+        counts[name] = launched(want)
+        famc = {k: v for k, v in vs.LAUNCHES_FAM.items() if v}
+        assert score.dtype == f64 and np.isfinite(score.cpu().numpy()).all()
+        gap = mt.oracle.validate_paths(g, sp_, lhs.cpu().numpy(),
+                                       lengths.cpu().numpy(),
+                                       states.cpu().numpy(),
+                                       score.cpu().numpy(),
+                                       atol=TOL_F64_ORACLE)
+        rng = np.random.default_rng(11)
+        x2 = rng.normal(size=(2, 40, P_))
+        l2 = np.array([40, 26], dtype=np.int32)
+        ref = mt.oracle.host_viterbi_score(g, sp_, P_, x2, l2)
+        routes = [("", lambda c, x, ln: mt.viterbi(c, x, ln))]
+        if name == "2M-arc":
+            routes.append((" (chunk-recompute, chunks of 7)",
+                           lambda c, x, ln: tvit._viterbi_recompute(
+                               c, x, ln, 7)))
+        for rname, fn in routes:
+            reset_all_launches()
+            s2, z2 = fn(cf, torch.from_numpy(x2).to(dev),
+                        torch.from_numpy(l2).to(dev))
+            c2 = {k: v for k, v in all_launches().items() if v}
+            assert all(k.endswith("_f64") or k == "vit_walk" for k in c2), c2
+            serr = float(np.abs(z2.cpu().numpy() - ref).max())
+            g2 = mt.oracle.validate_paths(g, sp_, x2, l2, s2.cpu().numpy(),
+                                          ref, atol=TOL_F64_ORACLE)
+            print(f"{label}: {name}{rname} float64 viterbi B=2 N=40 vs the "
+                  f"f64 optimum |dscore| = {serr:.3e}, path-weight gap "
+                  f"{g2:.3e} (tol {TOL_F64_ORACLE:g}); launches {c2}")
+            assert serr <= TOL_F64_ORACLE, f"{name}{rname}: oracle gate"
+        print(f"{label}: {name} float64 decode B={B} N={N}: launches "
+              f"{json.dumps(counts[name])} (family branch {famc}); all {B} "
+              f"paths walked in float64, max |path weight - score| = "
+              f"{gap:.3e} (tol {TOL_F64_ORACLE:g})")
+
+    K = min(64, n2 // 2)
+    C = -(-(n2 + 1) // K)
+    rng = np.random.default_rng(0)
+    lhs = torch.from_numpy(make_inputs(rng, B, n2, P)).to(dev, f64)
+    lengths = torch.full((B,), n2, dtype=torch.int32, device=dev)
+    reason = tvit._bp_vit_reject_reason(cf64, lhs)
+    assert reason is not None and "budget" in reason, reason
+    reset_all_launches()
+    states, score = mt.viterbi(cf64, lhs, lengths)
+    counts["2M-arc N=1,024"] = launched({"vit_fwd_noid_f64": 1 + C,
+                                         "rec_walk_f64": C})
+    gap = mt.oracle.validate_paths(fsm, spdf, lhs.cpu().numpy(),
+                                   lengths.cpu().numpy(),
+                                   states.cpu().numpy(), score.cpu().numpy(),
+                                   atol=TOL_F64_ORACLE)
+    ext, msh = prepare_emissions(lhs, lengths, P, f64)
+    t_ck = cuda_ms(lambda: vs.viterbi_fwd(cf64, ext, msh, ids=False,
+                                          stride=K), reps=2)
+    ck = vs.viterbi_fwd(cf64, ext, msh, ids=False, stride=K)
+    ck_plain = []
+    t_ck_plain = cuda_ms(lambda: ck_plain.append(vs.viterbi_fwd_plain(
+        cf64, ext, msh, ids=False, stride=K)), warm=False)
+    ok = {"checkpoints": all(torch.equal(x, y)
+                             for x, y in zip(ck, ck_plain[0]))}
+    del ck_plain
+    c = C // 2
+    t0 = c * K
+    rec = dict(a0=ck[0][c - 1], s0=ck[1][c - 1], t0=t0)
+    e_c, m_c = ext[t0:t0 + K], msh[t0:t0 + K]
+    out = vs.viterbi_fwd(cf64, e_c, m_c, ids=False, **rec)
+    plain = []
+    t_rec_plain = cuda_ms(lambda: plain.append(vs.viterbi_fwd_plain(
+        cf64, e_c, m_c, ids=False, **rec)), warm=False)
+    ok["recompute"] = all(torch.equal(x, y) for x, y in zip(out, plain[0]))
+    wt = vs.rec_walk_tables(cf64)
+    real = torch.nonzero(cf64.orig_state >= 0)[:, 0]
+    to_compiled = torch.empty_like(cf64.orig_state)
+    to_compiled[cf64.orig_state[real].long()] = real.to(torch.int32)
+    s_end = to_compiled[states[:, t0 + K].long()].contiguous()
+    wk = vs.rec_walk(wt, out[0], out[1], lengths, t0, s_end)
+    walked = []
+    t_walk_plain = cuda_ms(lambda: walked.append(vs.rec_walk_plain(
+        wt, out[0], out[1], lengths, t0, s_end)), warm=False)
+    ok["walk"] = torch.equal(wk, walked[0])
+    real_path = to_compiled[states[:, t0:t0 + K].long()].T
+    ok["walk = decode"] = torch.equal(wk, real_path)
+    t_rec = cuda_ms(lambda: vs.viterbi_fwd(cf64, e_c, m_c, ids=False, **rec),
+                    reps=3)
+    t_walk = cuda_ms(lambda: vs.rec_walk(wt, out[0], out[1], lengths, t0,
+                                         s_end), reps=5)
+    bounds = {"K7n": noid_bounds(cf64, B, n2 + 1, (n2 + 1) // K),
+              "K7n recompute": noid_bounds(cf64, B, K, K),
+              "W2": walk_bounds(wt, wk, s_end, lengths, t0,
+                                cf64.padded_states)}
+    print(f"{label}: 2M-arc float64 decode B={B} N={n2}: route reason: "
+          f"{reason}; launches {json.dumps(counts['2M-arc N=1,024'])}; all "
+          f"{B} paths walked in float64 within {gap:.3e}; K7n checkpoint "
+          f"sweep {t_ck:.3f} ms over {n2 + 1} frames (bound "
+          f"{bounds['K7n'][0]:.3f} ms; twin {t_ck_plain:.1f}), one {K}-frame "
+          f"recompute {t_rec:.3f} ms (bound {bounds['K7n recompute'][0]:.3f}"
+          f" ms; twin {t_rec_plain:.1f}), its W2 walk {t_walk:.3f} ms (bound "
+          f"{bounds['W2'][0]:.4f} ms; twin {t_walk_plain:.1f}); bit-equal to "
+          f"the twins and the decode {ok}")
+    assert all(ok.values()), f"K7n or W2 (float64) differs: {ok}"
+    times = {"K7n": (t_ck, t_ck_plain), "K7n recompute": (t_rec, t_rec_plain),
+             "W2 chunk": (t_walk, t_walk_plain)}
+    return counts, times, bounds
+
+
+def time_f64_vit(cf, P, dev, B=128, N=700):
+    """K7 (float64) over the 701-frame sweep at B=128 on phase 17's input
+    in float64, CUDA events (mean of 3 warm runs), beside its twin (one
+    run)."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    rng = np.random.default_rng(0)
+    lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev, torch.float64)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+    ext, msh = prepare_emissions(lhs, lengths, P, torch.float64)
+    t = cuda_ms(lambda: vs.viterbi_fwd(cf, ext, msh), reps=3)
+    out = vs.viterbi_fwd(cf, ext, msh)
+    plain = []
+    tp = cuda_ms(lambda: plain.append(vs.viterbi_fwd_plain(cf, ext, msh)),
+                 warm=False)
+    assert all(torch.equal(x, y) for x, y in zip(out, plain[0])), \
+        "K7 (float64) differs from its twin at N=700"
+    return t, tp
 
 
 def main():
@@ -3346,7 +3785,7 @@ def main():
     scf64 = mt.compile_fsm(sfsm, sspdf, sP, dtype=f64, device=dev)
     dcf64 = mt.compile_fsm(dfsm, dspdf, dP, dtype=f64, device=dev)
     for c, want in ((cf64, "cuda-block-scan"), (scf64, "cuda-block-scan"),
-                    (dcf64, "error - float64 'dense' graph")):
+                    (dcf64, "cuda-dense-scan")):
         report = mt.fast_path_report(c, 128)
         assert report.startswith(want) and c.alpha_hat.dtype == f64, report
     assert scf64.ov_layout == (128, 3) and dcf64.strategy == "dense"
@@ -3408,7 +3847,82 @@ def main():
         print(f"timing: {name} float64 {k5_times[name][0]:.3f} ms (float32 "
               f"{times[name][0]:.3f} ms), bound {k5_bounds[name][0]:.3f} ms "
               f"({k5_bounds[name][1]}; float32 {bounds[name][0]:.3f} ms)")
-    phase_refusals(dcf64, dev, cf64)
+    phase_refusals(dev)
+
+    # ---- the float64 'dense' scan and the float64 decode (phases 42-46) ----
+    d64_errs = phase_f64_dense(dcf64, dP, dev)
+    reset_all_launches()
+    phase_oracle_700(dfsm, dspdf, dP, dev, {
+        "V=32 dense float64": (dcf64, TOL_F64_ORACLE, TOL_F64_ORACLE)},
+        "phase 39 (the float64 'dense' graph, on K6a/K6b)", refs=oracle_refs)
+    print(f"phase 39: the float64 dense graph's launches "
+          f"{launched({'dense_fwd_f64': 1, 'dense_bwd_f64': 1})}")
+    t64_errs, t64_times, t64_bounds = phase_f64_trop(dcf64, dP, dev)
+    v64_errs = phase_f64_vit(cf64, scf64, P, sP, dev)
+    dec64_counts, dec64_times, dec64_bounds = phase_f64_decodes({
+        "V=32 dense": (dfsm, dspdf, dP, dcf64,
+                       {"dense_trop_f64": 1, "rec_walk_f64": 1}),
+        "2M-arc": (fsm, spdf, P, cf64, {"vit_fwd_f64": 1, "vit_walk": 1}),
+        "separate-state": (sfsm, sspdf, sP, scf64,
+                           {"vit_fwd_f64": 1, "vit_walk": 1}),
+    }, cf64, fsm, spdf, P, dev)
+
+    dnum64 = stack_numerators(build_numerators(dP), dP, dev, f64)
+    dstep64, dden64 = step_fns(dnum64, dcf64, dP, dev, f64)
+    dstep32, dden32 = step_fns(dnum_cf, dcf, dP, dev, torch.float32)
+    reset_all_launches()
+    dstep64()
+    dstep64_counts = launched({"banded_fwd_f64": 1, "banded_bwd_f64": 1,
+                               "dense_fwd_f64": 1, "dense_bwd_f64": 1})
+
+    def decode(cf_, P_, n, dtype):
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(make_inputs(rng, 128, n, P_)).to(dev, dtype)
+        ln = torch.full((128,), n, dtype=torch.int32, device=dev)
+        return lambda: mt.viterbi(cf_, x, ln)
+
+    f32 = torch.float32
+    t46 = median_ms({"dense step f32": dstep32, "dense step f64": dstep64,
+                     "dense den f32": dden32, "dense den f64": dden64})
+    t46.update(median_ms({
+        "2M-arc decode f32": decode(cf, P, 700, f32),
+        "2M-arc decode f64": decode(cf64, P, 700, f64),
+        "separate-state decode f32": decode(scf, sP, 700, f32),
+        "separate-state decode f64": decode(scf64, sP, 700, f64),
+        "dense decode f32": decode(dcf, dP, 700, f32),
+        "dense decode f64": decode(dcf64, dP, 700, f64)}))
+    t46.update(median_ms({
+        "2M-arc decode N=1,024 f32": decode(cf, P, 1024, f32),
+        "2M-arc decode N=1,024 f64": decode(cf64, P, 1024, f64)}))
+    for what in ("dense step", "dense den", "2M-arc decode",
+                 "separate-state decode", "dense decode",
+                 "2M-arc decode N=1,024"):
+        a, b = t46[f"{what} f32"], t46[f"{what} f64"]
+        print(f"phase 46: {what} B=128 medians of 5 in turns: float32 "
+              f"{a:.2f} ms, float64 {b:.2f} ms (f64/f32 {b / a:.3f})")
+    print(f"phase 46: the float64 dense step's launches "
+          f"{json.dumps(dstep64_counts)}")
+    d64_times = time_dense(dcf64, dP, dev)
+    t_mm64 = matmul_yardstick(dcf64, dev)
+    t_sp64 = sparse_yardstick(dcf64, dev)
+    d64_bounds = dense_bounds(dcf64, 128, 701)
+    d64_bounds_vec = dense_bounds(dcf64, 128, 701, f64_tc=False)
+    k7_64 = {"2M-arc": time_f64_vit(cf64, P, dev),
+             "separate-state": time_f64_vit(scf64, sP, dev)}
+    k7_64b = {"2M-arc": vit_bounds(cf64, 128, 701)["K7"],
+              "separate-state": vit_bounds(scf64, 128, 701)["K7"]}
+    for name in ("K6a", "K6b"):
+        print(f"timing: {name} float64 {d64_times[name][0]:.3f} ms (float32 "
+              f"{times[name][0]:.3f} ms; twin {d64_times[name][1]:.1f} ms), "
+              f"bound {d64_bounds[name][0]:.4f} ms at the FP64 tensor-core "
+              f"rate ({d64_bounds[name][1]}), "
+              f"{d64_bounds_vec[name][0]:.4f} ms at the non-tensor FP64 "
+              f"rate; float64 torch.matmul x701 {t_mm64:.3f} ms, "
+              f"torch.sparse.mm x701 {ms_or_not(t_sp64)} ms")
+    for name, (t, tp) in k7_64.items():
+        print(f"timing: K7 float64 on the {name} graph {t:.3f} ms over 701 "
+              f"frames (twin {tp:.1f} ms), bound {k7_64b[name][0]:.3f} ms "
+              f"({k7_64b[name][1]})")
 
     block_src = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
     banded_src = "markovmodels_tpu_torch/ops/csrc/banded_scan.cu"
@@ -3560,6 +4074,53 @@ def main():
             for name, (counter, source, replaces) in table.items()
             if name in t64
         ]
+    f64_lines = (  # the float64 'dense' scan and decode (phases 42-46)
+        ("K6a dense_fwd (float64, V=32 dense step)", "dense_fwd_f64",
+         dense_src, "markovmodels_tpu/ops/pallas_scan.py:220",
+         dstep64_counts, d64_errs["K6a"], d64_times["K6a"],
+         d64_bounds["K6a"], t_mm64),
+        ("K6b dense_bwd (float64, V=32 dense step)", "dense_bwd_f64",
+         dense_src, "markovmodels_tpu/ops/pallas_scan.py:269",
+         dstep64_counts, d64_errs["K6b"], d64_times["K6b"],
+         d64_bounds["K6b"], t_mm64),
+        ("K6t dense_trop (float64, V=32 dense decode, 701 frames)",
+         "dense_trop_f64", dense_src, "markovmodels_tpu/viterbi.py:129",
+         dec64_counts["V=32 dense"], t64_errs["K6t"], t64_times["K6t"],
+         t64_bounds["K6t"], None),
+        ("W2 rec_walk (float64, V=32 dense decode, 701 frames)",
+         "rec_walk_f64", walk_src, "markovmodels_tpu/viterbi.py:514",
+         dec64_counts["V=32 dense"], t64_errs["W2"], t64_times["W2"],
+         t64_bounds["W2"], None),
+        ("K7 vit_fwd (float64, 2M-arc decode, 701 frames)", "vit_fwd_f64",
+         vit_src, "markovmodels_tpu/ops/pallas_block.py:1387",
+         dec64_counts["2M-arc"], v64_errs["K7"], k7_64["2M-arc"],
+         k7_64b["2M-arc"], None),
+        ("K7 vit_fwd (float64, family branch: separate-state decode, 701 "
+         "frames)", "vit_fwd_f64", vit_src,
+         "markovmodels_tpu/viterbi.py:338", dec64_counts["separate-state"],
+         v64_errs["K7"], k7_64["separate-state"], k7_64b["separate-state"],
+         None),
+        ("K7n vit_fwd_noid (float64, 2M-arc decode at N=1,024: checkpoint "
+         "sweep, 1,025 frames)", "vit_fwd_noid_f64", vit_src,
+         "markovmodels_tpu/viterbi.py:137", dec64_counts["2M-arc N=1,024"],
+         v64_errs["K7n"], dec64_times["K7n"], dec64_bounds["K7n"], None),
+        ("K7n vit_fwd_noid (float64, 2M-arc decode at N=1,024: one 64-frame "
+         "recompute)", "vit_fwd_noid_f64", vit_src,
+         "markovmodels_tpu/viterbi.py:137", dec64_counts["2M-arc N=1,024"],
+         v64_errs["K7n"], dec64_times["K7n recompute"],
+         dec64_bounds["K7n recompute"], None),
+        ("W2 rec_walk (float64, 2M-arc decode at N=1,024: one 64-frame "
+         "chunk)", "rec_walk_f64", walk_src,
+         "markovmodels_tpu/viterbi.py:514", dec64_counts["2M-arc N=1,024"],
+         v64_errs["W2"], dec64_times["W2 chunk"], dec64_bounds["W2"], None),
+    )
+    kernels += [
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": cnt[counter], "max_abs_err": err,
+         "ms": t[0], "plain_ms": t[1], "bound_ms": bd[0], "bound_by": bd[1],
+         "library_ms": lib}
+        for name, counter, source, replaces, cnt, err, t, bd, lib in f64_lines
+    ]
     kernels += [  # K5's float64 instantiation (phases 40-41)
         {"name": f"{name} {counter} (float64 numerators)", "route": "cuda",
          "source": source, "replaces": replaces,
@@ -3590,6 +4151,11 @@ def main():
           + "; ".join(f"{k} step {v['f64 step']:.2f} ({v['f32 step']:.2f}) "
                       f"ms, den-only {v['f64 den']:.2f} ({v['f32 den']:.2f}) "
                       f"ms" for k, v in f_steps.items())
+          + "; float64 (float32) medians: " + "; ".join(
+              f"{k} {t46[k + ' f64']:.2f} ({t46[k + ' f32']:.2f}) ms"
+              for k in ("dense step", "dense den", "2M-arc decode",
+                        "separate-state decode", "dense decode",
+                        "2M-arc decode N=1,024"))
           + f"; per frame, whole / "
           f"without work: " + "; ".join(
               f"{k} {name} {v['whole']:.2f} / {v['without work']:.2f} us"

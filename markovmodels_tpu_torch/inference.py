@@ -14,15 +14,15 @@ float64, one pdf per state or a general Ĉ:
 * ``pdfposteriors`` / ``forward`` run the probability-domain scan.  CPU
   tensors take the plain PyTorch scan; CUDA tensors take the hand-written
   kernels (``ops/dense_scan.py`` for one shared 'dense' graph,
-  ``ops/block_scan.py`` for one shared 'block' graph, float32 or float64,
-  ``ops/banded_scan.py`` for stacked 'banded' graphs, one sequence each,
-  float32 or float64) and raise, naming the first rejected predicate, for
-  a graph those kernels do not accept.  Nothing falls back quietly.
-  Stacked 'dense' graphs take the plain per-graph scan on every device,
-  as the JAX package runs them outside any Pallas kernel
-  (``_plain_everywhere``).  Float64 'dense' graphs and general-Ĉ graphs
-  have no kernel yet: on the card they raise ``NotImplementedError``
-  before any launch (``_unported_on_card``), on the CPU they run;
+  ``ops/block_scan.py`` for one shared 'block' graph,
+  ``ops/banded_scan.py`` for stacked 'banded' graphs, one sequence each;
+  each float32 or float64) and raise, naming the first rejected
+  predicate, for a graph those kernels do not accept.  Nothing falls back
+  quietly.  Stacked 'dense' graphs take the plain per-graph scan on every
+  device, float32 or float64, as the JAX package runs them outside any
+  Pallas kernel (``_plain_everywhere``).  General-Ĉ graphs have no kernel
+  yet: on the card they raise ``NotImplementedError`` before any launch
+  (``_unported_on_card``), on the CPU they run;
 * ``logmarginal`` and ``lfmmi_loss`` are differentiable in ``lhs``: the
   gradient of logZ is the posterior matrix the scan already computed, so
   autograd never differentiates the scan.  This is the LF-MMI training
@@ -63,8 +63,7 @@ __all__ = [
 _MODES_TODO = ("ROADMAP queue 1 item 9, its remainder: precision 'bf16' with "
                "dtype float64, which the JAX package defines only by what "
                "XLA's CPU ignores")
-_CARD_TODO = ("ROADMAP queue 1 item 9b: the float64 instantiations of K6 and "
-              "K7 and the general-Ĉ kernels")
+_CARD_TODO = "ROADMAP queue 1 item 9c: the general-Ĉ kernels"
 _LOG_TODO = ("ROADMAP queue 1 item 10: port the log-domain path and the "
              "'ell' and 'segment' strategies")
 _VMAP_TODO = ("ROADMAP queue 1 item 7: port the vmapped per-graph route for "
@@ -214,8 +213,8 @@ def compile_fsm(
     one-hot Ĉᵀ stays float32, as in the JAX package).  A float64 graph
     takes float64 log-likelihoods and computes in float64 end to end: on
     the card a 'block' graph through the float64 instantiation of K2-K4,
-    a stack of 'banded' graphs through K5a/K5b's; a float64 'dense' graph
-    runs on the CPU (on the card it raises, ``_unported_on_card``).
+    a 'dense' one through K6a/K6b's, a stack of 'banded' graphs through
+    K5a/K5b's, and its decode through K7's, K7n's, K6t's and W2's.
     ``precision``: 'high' and 'f32' both mean full float32; 'bf16' (the
     mixed-precision scan) runs the tier product of 'block' graphs and the
     operator product of 'dense' graphs on bf16 operands with float32 sums,
@@ -1013,7 +1012,7 @@ def _fb_dense_cuda(cf: CompiledFSM, lhs, lengths, want_posts):
     sweep (K6a) keeping every frame's state, then one backward sweep (K6b);
     ``chunk_size`` does not apply, as on the JAX package's fused path."""
     B, N, P = lhs.shape
-    ext, mshift = prepare_emissions(lhs, lengths, P)
+    ext, mshift = prepare_emissions(lhs, lengths, P, cf.alpha_hat.dtype)
     posts, vfin, shift, ksum = dense_scan.dense_fused_fb(cf, ext, mshift,
                                                          want_posts)
     logZ = _combine_f64(vfin, ksum, shift, lhs.dtype)
@@ -1080,23 +1079,21 @@ def _kernel_route(cf: CompiledFSM, device, batch_size: int,
 
 def _unported_on_card(cf: CompiledFSM):
     """Why no kernel runs this graph on the card yet, or None: a general Ĉ
-    (no kernel lifts a state's pdf set; the JAX package's decline it too)
-    and a float64 'dense' graph (K6a/K6b are float32).  Decided from the
-    graph's Ĉ and dtype before any launch; such a graph runs on the
+    (no kernel lifts a state's pdf set; the JAX package's decline it too).
+    Decided from the graph's Ĉ before any launch; such a graph runs on the
     CPU."""
     if cf.multi_pdf:
         return ("general multi-pdf C-hat: the CUDA kernels take one pdf "
                 f"per state ({_CARD_TODO})")
-    if cf.strategy == "dense" and cf.alpha_hat.dtype == torch.float64:
-        return f"float64 'dense' graph: K6a/K6b are float32 ({_CARD_TODO})"
     return None
 
 
 def _plain_everywhere(cf: CompiledFSM):
     """Why this graph takes the plain scan on every device, or None:
-    stacked 'dense' graphs, which the JAX package runs outside any Pallas
-    kernel (its dense kernels reject batched graphs, and its vmap lands on
-    the XLA scan)."""
+    stacked 'dense' graphs, float32 or float64, which the JAX package runs
+    outside any Pallas kernel (its dense kernels reject batched graphs, and
+    its vmap lands on the XLA scan).  Checked after the card's refusal of
+    a general Ĉ (``_unported_on_card``), so that only those raise."""
     if cf.batched and cf.strategy == "dense":
         return ("stacked 'dense' graphs, one column per graph, on every "
                 "device: the JAX package runs this route outside any "
@@ -1127,6 +1124,8 @@ def fast_path_report(cf: CompiledFSM, batch_size: int, *, device=None) -> str:
     if cf.strategy == "banded":
         return (f"{_CUDA_SCANS['banded'][2]}; "
                 f"{banded_scan.instantiations(cf)}")
+    if cf.alpha_hat.dtype == torch.float64:
+        return f"{_CUDA_SCANS[cf.strategy][2]}; float64 instantiation"
     return _CUDA_SCANS[cf.strategy][2]
 
 

@@ -42,14 +42,14 @@ _SIGNATURES = {
     "mm_banded_smem": [_I] * 4,
     "mm_dense_fwd": [_P] * 6 + [_I] * 2 + [_P] * 4 + [_I] * 6 + [_P] * 9,
     "mm_dense_bwd": [_P] * 6 + [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P] * 8,
-    "mm_dense_trop": [_P] * 6 + [_I] * 2 + [_P] * 4 + [_I] * 6 + [_P] * 8,
-    "mm_vit_fwd": [_P] * 10 + [_I] * 5 + [_P] * 8 + [ctypes.c_longlong, _P],
-    "mm_vit_fwd_noid": ([_P] * 11 + [_I] * 7 + [_P] * 3 + [_I] + [_P] * 5
+    "mm_dense_trop": [_P] * 6 + [_I] * 2 + [_P] * 4 + [_I] * 7 + [_P] * 8,
+    "mm_vit_fwd": [_P] * 10 + [_I] * 6 + [_P] * 8 + [ctypes.c_longlong, _P],
+    "mm_vit_fwd_noid": ([_P] * 11 + [_I] * 8 + [_P] * 3 + [_I] + [_P] * 5
                         + [ctypes.c_longlong, _P]),
-    "mm_vit_ctas": [_I] * 4,
-    "mm_vit_layout": [_I] * 2 + [_P],
+    "mm_vit_ctas": [_I] * 5,
+    "mm_vit_layout": [_I] * 3 + [_P],
     "mm_vit_walk": [_P] * 8 + [_I] * 11 + [_P] * 2,
-    "mm_rec_walk": [_P] * 7 + [_I] * 6 + [_P] * 3,
+    "mm_rec_walk": [_P] * 7 + [_I] * 7 + [_P] * 3,
 }
 
 

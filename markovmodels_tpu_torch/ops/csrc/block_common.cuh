@@ -1,13 +1,14 @@
 // Shared by the blocked kernels (block_scan.cu, vit_scan.cu): the host
-// descriptor of one direction's blocked operator, the exact power-of-two
-// rescale, and the four-column state row accesses (plain, past L1, and
-// under an L2 policy), for float rows and (block_scan.cu's float64
-// instantiation) double rows.
+// descriptor of one direction's blocked operator and the four-column state
+// row accesses (plain, past L1, and under an L2 policy), for float rows and
+// (the float64 instantiations) double rows; the value-type overloads and
+// the exact power-of-two rescale come from value_common.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include "coop_common.cuh"
+#include "value_common.cuh"
 
 namespace {
 
@@ -65,42 +66,6 @@ bool parse_meta(const long long* im, Meta* m) {
 // The capped layout (the overflow family branch) of a descriptor.
 inline bool is_fam(const Meta& m) { return m.nfam > 0 || m.ov_lo < m.ov_hi; }
 
-// floor(log2 m) from the exponent bits, 0 for m == 0, clamped at -126 so
-// that the scale 2^-k stays finite (block_scan._pow2_exponent).
-__device__ __forceinline__ float pow2_exponent(float m) {
-  if (!(m > 0.f)) return 0.f;
-  int e;
-  frexpf(m, &e);
-  return fmaxf(static_cast<float>(e - 1), -126.f);
-}
-
-// 2^-k for an integer k in [-126, 126], built from its exponent bits
-// (exact; block_scan._pow2_scale).
-__device__ __forceinline__ float pow2_scale(float k) {
-  return __int_as_float((127 - static_cast<int>(k)) << 23);
-}
-
-// floor(log2 m) of a double, clamped at -1022, and 2^-k for an integer k
-// in [-1022, 1022] from its 11 exponent bits (block_scan._pow2_exponent and
-// _pow2_scale on float64): the float64 instantiation of K2-K4.
-__device__ __forceinline__ double pow2_exponent(double m) {
-  if (!(m > 0.0)) return 0.0;
-  int e;
-  frexp(m, &e);
-  return fmax(static_cast<double>(e - 1), -1022.0);
-}
-
-__device__ __forceinline__ double pow2_scale(double k) {
-  return __longlong_as_double(static_cast<long long>(1023 - static_cast<int>(k))
-                              << 52);
-}
-
-// Four consecutive doubles of one state row: the float64 counterpart of a
-// float4 (two 16-byte halves).
-struct alignas(16) D4 {
-  double x, y, z, w;
-};
-
 // Four consecutive batch columns b .. b+3 of one state row.  VEC: one
 // 16-byte access (B % 4 == 0, so every row start and b are aligned);
 // otherwise masked scalar accesses.  CG: read past L1 (ld.global.cg), for a
@@ -138,14 +103,6 @@ __device__ __forceinline__ void store4(float* __restrict__ row, int b, int B,
     if (b + 2 < B) row[b + 2] = v.z;
     if (b + 3 < B) row[b + 3] = v.w;
   }
-}
-
-__device__ __forceinline__ float get(const float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ double get(const D4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
 // The double rows as load4 / store4 move float rows: VEC (B % 4 == 0, so

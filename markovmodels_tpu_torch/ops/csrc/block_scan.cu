@@ -205,59 +205,13 @@ constexpr int BST = TS + 8;  // bf16 tier: padded stage row (80 bytes)
 template <bool BF16>
 using TierT = typename std::conditional<BF16, __nv_bfloat16, float>::type;
 
-// The value type T of an instantiation: float, or double (a float64 graph:
-// state, emissions, panels, bands, family weights, omega, column maxima,
-// checkpoints and posteriors all double).  What depends on it:
-template <class T>
-__host__ __device__ constexpr bool is_f64() { return sizeof(T) == 8; }
-// the tier stages' depth: the double stages take the float ones' bytes
+// The value type T of an instantiation (value_common.cuh): float, or
+// double (a float64 graph: state, emissions, panels, bands, family weights,
+// omega, column maxima, checkpoints and posteriors all double).  The tier
+// stages' depth depends on it: the double stages take the float ones' bytes
 template <class T>
 __host__ __device__ constexpr int stage_depth() {
   return is_f64<T>() ? TS / 2 : TS;
-}
-// four consecutive columns of a row, and the unsigned word whose bits order
-// non-negative values as they compare (the column max's atomicMax)
-template <class T>
-using V4 = typename std::conditional<is_f64<T>(), D4, float4>::type;
-template <class T>
-using BitsT =
-    typename std::conditional<is_f64<T>(), unsigned long long, unsigned>::type;
-
-__device__ __forceinline__ float fma_(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double fma_(double a, double b, double c) {
-  return fma(a, b, c);
-}
-__device__ __forceinline__ float fmax_(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ double fmax_(double a, double b) {
-  return fmax(a, b);
-}
-__device__ __forceinline__ unsigned to_bits(float v) {
-  return __float_as_uint(v);
-}
-__device__ __forceinline__ unsigned long long to_bits(double v) {
-  return static_cast<unsigned long long>(__double_as_longlong(v));
-}
-template <class T>
-__device__ __forceinline__ V4<T> make4(T a, T b, T c, T d) {
-  if constexpr (is_f64<T>())
-    return D4{a, b, c, d};
-  else
-    return make_float4(a, b, c, d);
-}
-template <class T>
-__device__ __forceinline__ V4<T> zero4() {
-  return make4<T>(T(0), T(0), T(0), T(0));
-}
-// four values from shared memory (16-byte aligned)
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ D4 lds4(const double* p) {
-  const double2 lo = reinterpret_cast<const double2*>(p)[0];
-  const double2 hi = reinterpret_cast<const double2*>(p)[1];
-  return D4{lo.x, lo.y, hi.x, hi.y};
 }
 
 // The CTA's shared memory: a static block for the float instantiations,

@@ -9,7 +9,7 @@
 // kernel):
 //   K6t mm_dense_trop <- the tropical forward y[j] = max_i Wp[j, i] a[i]
 //                        (viterbi.py:129-134): sweep_kernel<false, VEC,
-//                        false, TROP = true>, float32 tiles only.  Each
+//                        false, TROP = true, T>, float or double tiles.  Each
 //                        FMA of the product becomes a multiply and a max, a
 //                        straddling row tile's partials combine by max, so
 //                        the result is exact and independent of order;
@@ -96,13 +96,27 @@
 // gamma = alpha * ascale * y, the pdf sums over each pdf's states in
 // increasing state order (a CSR list).
 //
-// Conventions: states (Sp, B) row-major float32; ext (Nf, P1, B); the
-// emission of state s is ext[t, spdf[s], b].  A stored state is unscaled,
-// with a (B,) scale.
+// The value type T (the last template argument): float, or double for a
+// float64 graph (the JAX package runs those in XLA: its Pallas kernels take
+// float32).  A double instantiation keeps every value in double: the tiles,
+// the states, scales, emissions, partials, gamma, posteriors and the
+// forward's sums; its column maxima are the double's bits, taken by a 64-bit
+// atomicMax (exact and order-free for non-negative values), in 64-bit words
+// of the sync buffer (from the first even word after the tickets); its
+// scales are exact powers of two from the exponent bits (value_common.cuh).
+// A tile is 9 KB and a state stage 32 KB in double, so at the V=32
+// operator's ranges the tiles of a CTA no longer fit beside two stages at 2
+// CTAs per SM: launch_t() asks the occupancy API per instantiation and the
+// same kernel streams the tiles (the branch above).  No bf16 x double.
+//
+// Conventions: states (Sp, B) row-major T; ext (Nf, P1, B); the emission of
+// state s is ext[t, spdf[s], b].  A stored state is unscaled, with a (B,)
+// scale.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "coop_common.cuh"
+#include "value_common.cuh"
 
 namespace {
 
@@ -111,7 +125,7 @@ constexpr int TK = 32;        // operator columns (contraction) per tile
 constexpr int TB = 128;       // batch columns per column block
 constexpr int NT = 256;       // 8 warps: 2 (rows) x 4 (columns)
 constexpr int NW = NT / 32;
-constexpr int WLD = TK + 4;   // float32 tile row in shared memory
+constexpr int WLD = TK + 4;   // a tile row in shared memory (float, double)
 constexpr int XW = TB + 8;    // bf16 state stage: words per row pair
 constexpr int XLD = TB + 4;   // bf16 accumulator scratch row
 constexpr int PY = 8;         // backward pdf sums: thread rows per item
@@ -119,15 +133,18 @@ constexpr int PC = 32;        // backward pdf sums: columns per item
 constexpr int PPI = 2;        // backward pdf sums: pdfs per item
 
 // shared-memory bytes of one tile and of one state stage, per precision
-constexpr int TILE_F = TR * WLD * 4;       // 4,608
+// and value type (float: 4,608 and 16,384; double: 9,216 and 32,768)
+template <class T>
+constexpr int TILE_V = TR * WLD * static_cast<int>(sizeof(T));
 constexpr int TILE_H = TR * TK * 2;        // 2,048 (A-fragment order)
-constexpr int XST_F = TK * TB * 4;         // 16,384
+template <class T>
+constexpr int XST_V = TK * TB * static_cast<int>(sizeof(T));
 constexpr int XST_H = TK / 2 * XW * 4;     // 8,704
 constexpr int SCR_H = TR * XLD * 4;        // 16,896
 
 // The host plan of one direction's operator (ops/dense_scan.py TilePlan).
 struct Plan {
-  const void* tiles;    // (T, 1024): float row-major, or bf16 fragments
+  const void* tiles;    // (T, 1024): value row-major, or bf16 fragments
   const int* tile_k;    // (T,) k tile of each packed tile
   const int* lo;        // (G + 1,) each CTA's range of packed tiles
   const int* seg_ptr;   // (G + 1,) each CTA's segments
@@ -135,50 +152,38 @@ struct Plan {
   const int2* rt_parts; // per row tile (first partial slot, partials)
 };
 
+template <class T>
 struct Args {
   Plan pl;
   const int* spdf;
   int Sp, P1, B, Nf, n_slots, resident;
   int first;  // launch frame 0 skips the product (K6a, K6b; K6t from frame 0)
-  const float* ext;
+  const T* ext;
   // forward
-  const float* a0;
-  const float* mshift;
-  float* states;
-  float* scales;
-  float* ksum;
-  float* shift;
-  float* comp;
+  const T* a0;
+  const T* mshift;
+  T* states;
+  T* scales;
+  T* ksum;
+  T* shift;
+  T* comp;
   // backward
   const int* perm;
   const int* off;
-  const float* alphas;
-  const float* ascale;
-  float* work;      // (2, Sp, B) beta
-  float* gamma;     // (2, Sp, B)
-  float* posts;
-  float* part;      // (2, Sp / 32, B) column sums of gamma per row tile
+  const T* alphas;
+  const T* ascale;
+  T* work;      // (2, Sp, B) beta
+  T* gamma;     // (2, Sp, B)
+  T* posts;
+  T* part;      // (2, Sp / 32, B) column sums of gamma per row tile
   // scratch
-  float* partial;   // (partial slots, 32, B)
+  T* partial;   // (partial slots, 32, B)
   // [count, generation, tickets (Sp / 32 x column blocks), column max
-  // (3, B)], zeroed by the caller
+  // (3, B) in BitsT<T> words (double: from the next even word)], zeroed by
+  // the caller
   unsigned* sync;
   unsigned* xb;     // bf16: (2, Sp / 2, B) words, the state in row pairs
 };
-
-// floor(log2 m) from the exponent bits, 0 for m == 0, clamped at -126 so
-// that the scale 2^-k stays finite (block_scan._pow2_exponent).
-__device__ __forceinline__ float pow2_exponent(float m) {
-  if (!(m > 0.f)) return 0.f;
-  int e;
-  frexpf(m, &e);
-  return fmaxf(static_cast<float>(e - 1), -126.f);
-}
-
-// 2^-k for an integer k in [-126, 126], built from its exponent bits.
-__device__ __forceinline__ float pow2_scale(float k) {
-  return __int_as_float((127 - static_cast<int>(k)) << 23);
-}
 
 // Four columns b .. b+3 of one row, read past L1 (another CTA of this
 // launch may have written them).
@@ -222,8 +227,50 @@ __device__ __forceinline__ void store4(float* row, int b, int B, float4 v) {
   }
 }
 
-__device__ __forceinline__ float get(const float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+// The same three for double rows (VEC: B % 4 == 0, so each access is
+// 32-byte aligned: two 16-byte halves).
+template <bool VEC>
+__device__ __forceinline__ D4 load4_l2(const double* row, int b, int B) {
+  if constexpr (VEC) {
+    if (!(b < B)) return D4{0.0, 0.0, 0.0, 0.0};
+    const double2 lo = __ldcg(reinterpret_cast<const double2*>(row + b));
+    const double2 hi = __ldcg(reinterpret_cast<const double2*>(row + b) + 1);
+    return D4{lo.x, lo.y, hi.x, hi.y};
+  } else {
+    return D4{b < B ? __ldcg(row + b) : 0.0, b + 1 < B ? __ldcg(row + b + 1) : 0.0,
+              b + 2 < B ? __ldcg(row + b + 2) : 0.0,
+              b + 3 < B ? __ldcg(row + b + 3) : 0.0};
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ D4 load4(const double* __restrict__ row, int b,
+                                    int B) {
+  if constexpr (VEC) {
+    if (!(b < B)) return D4{0.0, 0.0, 0.0, 0.0};
+    const double2 lo = __ldg(reinterpret_cast<const double2*>(row + b));
+    const double2 hi = __ldg(reinterpret_cast<const double2*>(row + b) + 1);
+    return D4{lo.x, lo.y, hi.x, hi.y};
+  } else {
+    return D4{b < B ? __ldg(row + b) : 0.0, b + 1 < B ? __ldg(row + b + 1) : 0.0,
+              b + 2 < B ? __ldg(row + b + 2) : 0.0,
+              b + 3 < B ? __ldg(row + b + 3) : 0.0};
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store4(double* row, int b, int B, D4 v) {
+  if constexpr (VEC) {
+    if (b < B) {
+      reinterpret_cast<double2*>(row + b)[0] = make_double2(v.x, v.y);
+      reinterpret_cast<double2*>(row + b)[1] = make_double2(v.z, v.w);
+    }
+  } else {
+    if (b < B) row[b] = v.x;
+    if (b + 1 < B) row[b + 1] = v.y;
+    if (b + 2 < B) row[b + 2] = v.z;
+    if (b + 3 < B) row[b + 3] = v.w;
+  }
 }
 
 // Two floats rounded to bf16 (to nearest even), lo in the low half.
@@ -244,29 +291,31 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a,
 }
 
 // Where one frame reads and writes.
+template <class T>
 struct Frame {
-  const float* prev;        // the previous state (forward frame 0: a0)
-  const float* ext_t;       // (P1, B) emissions
-  float* out;               // the new state
-  const unsigned* cm_prev;  // the previous state's column max (float bits)
-  unsigned* cm_cur;         // this frame's, taken with atomicMax
-  unsigned* cm_next;        // the next frame's, zeroed during this one
+  const T* prev;            // the previous state (forward frame 0: a0)
+  const T* ext_t;           // (P1, B) emissions
+  T* out;                   // the new state
+  const BitsT<T>* cm_prev;  // the previous state's column max (its bits)
+  BitsT<T>* cm_cur;         // this frame's, taken with atomicMax
+  BitsT<T>* cm_next;        // the next frame's, zeroed during this one
   const unsigned* xb_prev;  // bf16: the previous state in row pairs
   unsigned* xb_out;         // bf16: the new state in row pairs
-  const float* alpha_t;     // backward: alphas[t], ascale[t]
-  const float* ascale_t;
-  float* gamma;             // backward: this frame's gamma (Sp, B)
-  float* csum;              // backward: its column sums per row tile
+  const T* alpha_t;         // backward: alphas[t], ascale[t]
+  const T* ascale_t;
+  T* gamma;                 // backward: this frame's gamma (Sp, B)
+  T* csum;                  // backward: its column sums per row tile
   int t;
 };
 
-template <bool BF16>
+template <bool BF16, class T>
 struct Layout {
-  static constexpr int TILE = BF16 ? TILE_H : TILE_F;
-  static constexpr int XST = BF16 ? XST_H : XST_F;
+  static constexpr int TILE = BF16 ? TILE_H : TILE_V<T>;
+  static constexpr int XST = BF16 ? XST_H : XST_V<T>;
   static constexpr int SCR = BF16 ? SCR_H : 0;
-  // 16-byte chunks of one packed tile in global memory
-  static constexpr int TILE_CHUNKS = TR * TK * (BF16 ? 2 : 4) / 16;
+  // bytes of one packed tile in global memory, and its 16-byte chunks
+  static constexpr int TILE_G = TR * TK * (BF16 ? 2 : sizeof(T));
+  static constexpr int TILE_CHUNKS = TILE_G / 16;
   // dynamic shared memory: resident tiles, two stages (the state block,
   // then the streamed tile), the bf16 accumulator scratch
   static size_t bytes(bool resident, int max_tiles) {
@@ -275,28 +324,29 @@ struct Layout {
   }
 };
 
-// The exact power-of-two scale of a column from its max's float bits.
-__device__ __forceinline__ float scale_of(const unsigned* cm, int b, int B) {
-  return b < B ? pow2_scale(pow2_exponent(__uint_as_float(__ldcg(cm + b))))
-               : 0.f;
+// The exact power-of-two scale of a column from its max's bits.
+template <class T>
+__device__ __forceinline__ T scale_of(const BitsT<T>* cm, int b, int B) {
+  return b < B ? pow2_scale(pow2_exponent(from_bits(__ldcg(cm + b)))) : T(0);
 }
 
-template <bool BWD, bool VEC, bool BF16, bool TROP = false>
+template <bool BWD, bool VEC, bool BF16, bool TROP, class T>
 struct Sweep {
-  using L = Layout<BF16>;
-  const Args& p;
+  using L = Layout<BF16, T>;
+  using V = V4<T>;
+  const Args<T>& p;
   unsigned char* res;   // resident tiles
   unsigned char* stg;   // stage ring
   float* scr;           // bf16 accumulator scratch
   int stage_bytes, lo, n_mine;
-  float (*red)[2][TB];
+  T (*red)[2][TB];
   int* flag;
 
   // rows r0 + wr*16 + i*4 + lr (i < 4) and columns b0 + wc*32 + lc*4 + j
   // (j < 4) of a 32 x 128 block belong to this thread
   int tid, warp, lane, wr, wc, lr, lc;
 
-  __device__ Sweep(const Args& a, unsigned char* smem, float (*r)[2][TB],
+  __device__ Sweep(const Args<T>& a, unsigned char* smem, T (*r)[2][TB],
                    int* f)
       : p(a), red(r), flag(f) {
     tid = threadIdx.x;
@@ -324,14 +374,16 @@ struct Sweep {
     constexpr int CH = L::TILE_CHUNKS;
     const unsigned char* src =
         static_cast<const unsigned char*>(p.pl.tiles) +
-        static_cast<size_t>(lo) * TR * TK * (BF16 ? 2 : 4);
+        static_cast<size_t>(lo) * L::TILE_G;
+    // 16-byte chunks per tile row (float: 8, double: 16)
+    constexpr int RC = TK * static_cast<int>(sizeof(T)) / 16;
     for (int ch = tid; ch < n_mine * CH; ch += NT) {
       const int j = ch / CH, w = ch % CH;
       unsigned char* dst = res + static_cast<size_t>(j) * L::TILE;
       if constexpr (BF16)
         dst += w * 16;
       else
-        dst += (w / 8) * WLD * 4 + (w % 8) * 16;
+        dst += (w / RC) * WLD * static_cast<int>(sizeof(T)) + (w % RC) * 16;
       cp_async16(dst, src + static_cast<size_t>(ch) * 16, true);
     }
     cp_async_commit();
@@ -346,7 +398,7 @@ struct Sweep {
 
   // Issue the copies of local tile j into its stage: the state block of
   // its k tile (columns b0 .. b0+127) and, streaming, the tile itself.
-  __device__ void issue(const Frame& fr, int j, int b0) {
+  __device__ void issue(const Frame<T>& fr, int j, int b0) {
     const int i = lo + j, kt = __ldg(p.pl.tile_k + i), B = p.B;
     unsigned char* st = stage(j);
     if constexpr (BF16) {
@@ -371,61 +423,66 @@ struct Sweep {
                        static_cast<size_t>(i) * TILE_H + tid * 16,
                    true);
     } else {
-      float* X = reinterpret_cast<float*>(st);
-      const float* src = fr.prev + static_cast<size_t>(kt) * TK * B;
+      // E values per 16-byte chunk (float 4, double 2): the state block's
+      // chunks and, streaming, the tile's, spread over the threads
+      constexpr int E = 16 / static_cast<int>(sizeof(T));
+      T* X = reinterpret_cast<T*>(st);
+      const T* src = fr.prev + static_cast<size_t>(kt) * TK * B;
 #pragma unroll
-      for (int u = 0; u < TK * TB / 4 / NT; ++u) {
-        const int idx = tid + u * NT, k = idx / (TB / 4),
-                  c = (idx % (TB / 4)) * 4, b = b0 + c;
-        const float* s = src + static_cast<size_t>(k) * B;
+      for (int u = 0; u < TK * TB / E / NT; ++u) {
+        const int idx = tid + u * NT, k = idx / (TB / E),
+                  c = (idx % (TB / E)) * E, b = b0 + c;
+        const T* s = src + static_cast<size_t>(k) * B;
         if constexpr (VEC) {
           cp_async16(&X[k * TB + c], b < B ? s + b : s, b < B);
         } else {
 #pragma unroll
-          for (int q = 0; q < 4; ++q)
-            X[k * TB + c + q] = b + q < B ? __ldcg(s + b + q) : 0.f;
+          for (int q = 0; q < E; ++q)
+            X[k * TB + c + q] = b + q < B ? __ldcg(s + b + q) : T(0);
         }
       }
       if (!p.resident) {
-        const int r = tid / 8, c4 = (tid % 8) * 4;
-        cp_async16(st + L::XST + (r * WLD + c4) * 4,
-                   static_cast<const float*>(p.pl.tiles) +
-                       static_cast<size_t>(i) * TR * TK + r * TK + c4,
-                   true);
+#pragma unroll
+        for (int u = 0; u < TR * TK / E / NT; ++u) {
+          const int ch = tid + u * NT, r = ch / (TK / E),
+                    ce = (ch % (TK / E)) * E;
+          cp_async16(st + L::XST + (r * WLD + ce) * static_cast<int>(sizeof(T)),
+                     static_cast<const T*>(p.pl.tiles) +
+                         static_cast<size_t>(i) * TR * TK + r * TK + ce,
+                     true);
+        }
       }
     }
     cp_async_commit();
   }
 
-  // acc += tile j (float32) times its staged state block; tropical
-  // (TROP): acc = max(acc, w * x), each product one rounding.
-  __device__ void mul_f32(int j, float (&acc)[4][4]) const {
-    const float* W = reinterpret_cast<const float*>(tile_at(j));
-    const float* X = reinterpret_cast<const float*>(stage(j));
+  // acc += tile j (float32 or double) times its staged state block;
+  // tropical (TROP): acc = max(acc, w * x), each product one rounding.
+  __device__ void mul_val(int j, T (&acc)[4][4]) const {
+    const T* W = reinterpret_cast<const T*>(tile_at(j));
+    const T* X = reinterpret_cast<const T*>(stage(j));
 #pragma unroll
     for (int kk = 0; kk < TK; kk += 4) {
-      float4 w[4];
+      V w[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        w[i] = *reinterpret_cast<const float4*>(
-            &W[(wr * 16 + i * 4 + lr) * WLD + kk]);
+        w[i] = lds4(&W[(wr * 16 + i * 4 + lr) * WLD + kk]);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float4 x = *reinterpret_cast<const float4*>(
-            &X[(kk + q) * TB + wc * 32 + lc * 4]);
+        const V x = lds4(&X[(kk + q) * TB + wc * 32 + lc * 4]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float wv = get(w[i], q);
+          const T wv = get(w[i], q);
           if constexpr (TROP) {
-            acc[i][0] = fmaxf(acc[i][0], __fmul_rn(wv, x.x));
-            acc[i][1] = fmaxf(acc[i][1], __fmul_rn(wv, x.y));
-            acc[i][2] = fmaxf(acc[i][2], __fmul_rn(wv, x.z));
-            acc[i][3] = fmaxf(acc[i][3], __fmul_rn(wv, x.w));
+            acc[i][0] = fmax_(acc[i][0], mul_rn(wv, x.x));
+            acc[i][1] = fmax_(acc[i][1], mul_rn(wv, x.y));
+            acc[i][2] = fmax_(acc[i][2], mul_rn(wv, x.z));
+            acc[i][3] = fmax_(acc[i][3], mul_rn(wv, x.w));
           } else {
-            acc[i][0] = fmaf(wv, x.x, acc[i][0]);
-            acc[i][1] = fmaf(wv, x.y, acc[i][1]);
-            acc[i][2] = fmaf(wv, x.z, acc[i][2]);
-            acc[i][3] = fmaf(wv, x.w, acc[i][3]);
+            acc[i][0] = fma_(wv, x.x, acc[i][0]);
+            acc[i][1] = fma_(wv, x.y, acc[i][1]);
+            acc[i][2] = fma_(wv, x.z, acc[i][2]);
+            acc[i][3] = fma_(wv, x.w, acc[i][3]);
           }
         }
       }
@@ -482,47 +539,47 @@ struct Sweep {
   //     csum[rt] = column sum of gamma.
   // The column max of the new state goes to cm_cur by atomicMax on its
   // float bits: exact and order-free for non-negative floats.
-  __device__ void epilogue(const Frame& fr, int rt, int b0, bool skip,
-                           const float (&acc)[4][4]) {
+  __device__ void epilogue(const Frame<T>& fr, int rt, int b0, bool skip,
+                           const T (&acc)[4][4]) {
     const int B = p.B, r0 = rt * TR, bcol = b0 + wc * 32 + lc * 4;
-    float sc[4];
+    T sc[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      sc[j] = skip ? 0.f : scale_of(fr.cm_prev, bcol + j, B);
-    float4 asc = make_float4(0.f, 0.f, 0.f, 0.f);
+      sc[j] = skip ? T(0) : scale_of<T>(fr.cm_prev, bcol + j, B);
+    V asc = zero4<T>();
     if constexpr (BWD) asc = load4<VEC>(fr.ascale_t, bcol, B);
-    float cmax[4] = {0.f, 0.f, 0.f, 0.f}, csum[4] = {0.f, 0.f, 0.f, 0.f};
+    T cmax[4] = {T(0), T(0), T(0), T(0)}, csum[4] = {T(0), T(0), T(0), T(0)};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = r0 + wr * 16 + i * 4 + lr;
       const size_t rB = static_cast<size_t>(r) * B;
-      const float4 e = load4<VEC>(
+      const V e = load4<VEC>(
           fr.ext_t + static_cast<size_t>(__ldg(p.spdf + r)) * B, bcol, B);
-      float v[4];
+      T v[4];
       if constexpr (!BWD) {
-        float4 pv = make_float4(0.f, 0.f, 0.f, 0.f);
+        V pv = zero4<T>();
         if (skip) pv = load4_l2<VEC>(fr.prev + rB, bcol, B);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           v[j] = (skip ? get(pv, j) : acc[i][j] * sc[j]) * get(e, j);
-          cmax[j] = fmaxf(cmax[j], v[j]);
+          cmax[j] = fmax_(cmax[j], v[j]);
         }
       } else {
-        const float4 a = load4<VEC>(fr.alpha_t + rB, bcol, B);
-        float g[4];
+        const V a = load4<VEC>(fr.alpha_t + rB, bcol, B);
+        T g[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float y = skip ? 1.f : acc[i][j] * sc[j];
+          const T y = skip ? T(1) : acc[i][j] * sc[j];
           g[j] = get(a, j) * get(asc, j) * y;
           csum[j] += g[j];
           v[j] = y * get(e, j);
-          cmax[j] = fmaxf(cmax[j], v[j]);
+          cmax[j] = fmax_(cmax[j], v[j]);
         }
-        store4<VEC>(fr.gamma + rB, bcol, B,
-                    make_float4(g[0], g[1], g[2], g[3]));
+        store4<VEC>(fr.gamma + rB, bcol, B, make4<T>(g[0], g[1], g[2], g[3]));
       }
-      store4<VEC>(fr.out + rB, bcol, B, make_float4(v[0], v[1], v[2], v[3]));
+      store4<VEC>(fr.out + rB, bcol, B, make4<T>(v[0], v[1], v[2], v[3]));
       if constexpr (BF16) {
+        static_assert(!is_f64<T>(), "no bf16 x double");
         // rows r (lr even) and r + 1 (the lane 8 above) as one word each
         float o[4];
 #pragma unroll
@@ -549,7 +606,7 @@ struct Sweep {
     for (int j = 0; j < 4; ++j) {
 #pragma unroll
       for (int m = 8; m <= 16; m *= 2) {
-        cmax[j] = fmaxf(cmax[j], __shfl_xor_sync(0xffffffffu, cmax[j], m));
+        cmax[j] = fmax_(cmax[j], __shfl_xor_sync(0xffffffffu, cmax[j], m));
         if constexpr (BWD) csum[j] += __shfl_xor_sync(0xffffffffu, csum[j], m);
       }
     }
@@ -563,8 +620,7 @@ struct Sweep {
     __syncthreads();
     const int c = tid;
     if (c < TB && b0 + c < B) {
-      atomicMax(fr.cm_cur + b0 + c,
-                __float_as_uint(fmaxf(red[0][0][c], red[0][1][c])));
+      atomicMax(fr.cm_cur + b0 + c, to_bits(fmax_(red[0][0][c], red[0][1][c])));
       if constexpr (BWD)
         fr.csum[static_cast<size_t>(rt) * B + b0 + c] =
             red[1][0][c] + red[1][1][c];
@@ -575,16 +631,15 @@ struct Sweep {
   // A straddling row tile: write this range's partial, take a ticket; the
   // range that takes the last one adds the partials in range order (their
   // max, tropical) and runs the epilogue.
-  __device__ void partial(const Frame& fr, int rt, int b0, int cb, int slot,
-                          float (&acc)[4][4]) {
+  __device__ void partial(const Frame<T>& fr, int rt, int b0, int cb,
+                          int slot, T (&acc)[4][4]) {
     const int B = p.B, bcol = b0 + wc * 32 + lc * 4;
     const size_t SB = static_cast<size_t>(TR) * B;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       store4<VEC>(p.partial + slot * SB +
                       static_cast<size_t>(wr * 16 + i * 4 + lr) * B,
-                  bcol, B,
-                  make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+                  bcol, B, make4<T>(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
     // the block barrier, then one thread's fence, publishes every thread's
     // partial before the ticket (as the grid barrier does)
     __syncthreads();
@@ -602,15 +657,14 @@ struct Sweep {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const size_t row = static_cast<size_t>(wr * 16 + i * 4 + lr) * B;
-      float4 v = load4_l2<VEC>(p.partial + rp.x * SB + row, bcol, B);
+      V v = load4_l2<VEC>(p.partial + rp.x * SB + row, bcol, B);
       for (int q = 1; q < rp.y; ++q) {
-        const float4 w = load4_l2<VEC>(p.partial + (rp.x + q) * SB + row,
-                                       bcol, B);
+        const V w = load4_l2<VEC>(p.partial + (rp.x + q) * SB + row, bcol, B);
         if constexpr (TROP) {
-          v.x = fmaxf(v.x, w.x);
-          v.y = fmaxf(v.y, w.y);
-          v.z = fmaxf(v.z, w.z);
-          v.w = fmaxf(v.w, w.w);
+          v.x = fmax_(v.x, w.x);
+          v.y = fmax_(v.y, w.y);
+          v.z = fmax_(v.z, w.z);
+          v.w = fmax_(v.w, w.w);
         } else {
           v.x += w.x;
           v.y += w.y;
@@ -632,7 +686,7 @@ struct Sweep {
   // segment boundaries).  `pre` runs once, while the first copies are in
   // flight.
   template <class Pre>
-  __device__ void product(const Frame& fr, Pre&& pre) {
+  __device__ void product(const Frame<T>& fr, Pre&& pre) {
     const int s0 = p.pl.seg_ptr[blockIdx.x], s1 = p.pl.seg_ptr[blockIdx.x + 1];
     const int ncb = (p.B + TB - 1) / TB;
     for (int cb = 0; cb < ncb; ++cb) {
@@ -643,7 +697,7 @@ struct Sweep {
       int j = 0;
       for (int s = s0; s < s1; ++s) {
         const int4 sg = p.pl.segs[s];
-        float acc[4][4] = {};
+        T acc[4][4] = {};
         float d[4][4] = {};
         for (; j < sg.z - lo; ++j) {
           if (issued > j + 1)
@@ -654,7 +708,7 @@ struct Sweep {
           if constexpr (BF16)
             mul_bf16(j, d);
           else
-            mul_f32(j, acc);
+            mul_val(j, acc);
           __syncthreads();  // the stage is free for tile j + 2
           if (issued < n_mine) issue(fr, issued++, b0);
         }
@@ -668,8 +722,8 @@ struct Sweep {
   }
 
   // Frames that skip the product: every row tile's epilogue, round robin.
-  __device__ void no_product(const Frame& fr) {
-    const float acc[4][4] = {};
+  __device__ void no_product(const Frame<T>& fr) {
+    const T acc[4][4] = {};
     const int n_rt = p.Sp / TR, ncb = (p.B + TB - 1) / TB;
     for (int rt = blockIdx.x; rt < n_rt; rt += gridDim.x)
       for (int cb = 0; cb < ncb; ++cb) epilogue(fr, rt, cb * TB, true, acc);
@@ -677,9 +731,9 @@ struct Sweep {
 
   // The last CTA's share of each frame: zero the next frame's column max
   // (read for the last time one frame ago).
-  __device__ void clear_next(const Frame& fr) {
+  __device__ void clear_next(const Frame<T>& fr) {
     if (blockIdx.x != gridDim.x - 1) return;
-    for (int b = tid; b < p.B; b += NT) fr.cm_next[b] = 0u;
+    for (int b = tid; b < p.B; b += NT) fr.cm_next[b] = 0;
   }
 
   // Forward outputs of frame t, once its column max is complete: the
@@ -688,15 +742,15 @@ struct Sweep {
   __device__ void frame_out(int t) {
     if (blockIdx.x != gridDim.x - 1) return;
     const int B = p.B;
-    const unsigned* cm = cm_row(t);
-    const float* msh = p.mshift + static_cast<size_t>(t) * B;
-    float* scale = p.scales + static_cast<size_t>(t % p.n_slots) * B;
+    const BitsT<T>* cm = cm_row(t);
+    const T* msh = p.mshift + static_cast<size_t>(t) * B;
+    T* scale = p.scales + static_cast<size_t>(t % p.n_slots) * B;
     for (int b = tid; b < B; b += NT) {
-      const float k = pow2_exponent(__uint_as_float(__ldcg(cm + b)));
+      const T k = pow2_exponent(from_bits(__ldcg(cm + b)));
       scale[b] = pow2_scale(k);
       p.ksum[b] += k;
-      const float xc = __ldg(msh + b) - p.comp[b];
-      const float s = p.shift[b] + xc;
+      const T xc = __ldg(msh + b) - p.comp[b];
+      const T s = p.shift[b] + xc;
       p.comp[b] = (s - p.shift[b]) - xc;
       p.shift[b] = s;
     }
@@ -709,19 +763,19 @@ struct Sweep {
   // of a column split the row-tile sums, the 8 / PPI rows of a pdf split
   // its CSR list (strided, in increasing state order), and each part sum
   // is added in a fixed order.
-  __device__ void posts_of(int f, float (*rs)[PY][PC]) {
+  __device__ void posts_of(int f, T (*rs)[PY][PC]) {
     constexpr int SPL = PY / PPI;  // thread rows per pdf
     const int B = p.B, P1 = p.P1, n_rt = p.Sp / TR, t = p.Nf - 1 - f;
     const int ncol = (B + PC - 1) / PC;
     const int n_items = ncol * ((P1 + PPI - 1) / PPI);
     const int tx = tid % PC, ty = tid / PC;
-    const float* gamma = p.gamma + static_cast<size_t>(f % 2) * p.Sp * B;
-    const float* cs = p.part + static_cast<size_t>(f % 2) * n_rt * B;
-    float* posts_t = p.posts + static_cast<size_t>(t) * P1 * B;
+    const T* gamma = p.gamma + static_cast<size_t>(f % 2) * p.Sp * B;
+    const T* cs = p.part + static_cast<size_t>(f % 2) * n_rt * B;
+    T* posts_t = p.posts + static_cast<size_t>(t) * P1 * B;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
       const int b = (item % ncol) * PC + tx;
       const int pd = (item / ncol) * PPI + ty / SPL, part = ty % SPL;
-      float sm = 0.f, g = 0.f;
+      T sm = T(0), g = T(0);
       if (b < B) {
 #pragma unroll 4
         for (int r = ty; r < n_rt; r += PY)
@@ -738,12 +792,13 @@ struct Sweep {
       rs[1][ty][tx] = g;
       __syncthreads();
       if (part == 0 && b < B && pd < P1) {
-        float tot = 0.f, gs = 0.f;
+        T tot = T(0), gs = T(0);
 #pragma unroll
         for (int q = 0; q < PY; ++q) tot += rs[0][q][tx];
 #pragma unroll
         for (int q = 0; q < SPL; ++q) gs += rs[1][ty + q][tx];
-        posts_t[static_cast<size_t>(pd) * B + b] = gs / (tot > 0.f ? tot : 1.f);
+        posts_t[static_cast<size_t>(pd) * B + b] =
+            gs / (tot > T(0) ? tot : T(1));
       }
       __syncthreads();  // rs is free for the next item
     }
@@ -755,8 +810,8 @@ struct Sweep {
   __device__ void prefetch_next(int f) const {
     if (f + 1 >= p.Nf) return;
     const int B = p.B, t = BWD ? p.Nf - 2 - f : f + 1;
-    constexpr int LINE = 32;  // floats per 128-byte line
-    const float* e = p.ext + static_cast<size_t>(t) * p.P1 * B;
+    constexpr int LINE = 128 / sizeof(T);  // values per 128-byte line
+    const T* e = p.ext + static_cast<size_t>(t) * p.P1 * B;
     const int n_e = (p.P1 * B + LINE - 1) / LINE;
     for (int i = blockIdx.x * NT + tid; i < n_e; i += gridDim.x * NT)
       prefetch_l2(e + static_cast<size_t>(i) * LINE);
@@ -764,7 +819,7 @@ struct Sweep {
       const int s0 = p.pl.seg_ptr[blockIdx.x];
       const int per_rt = (TR * B + LINE - 1) / LINE;
       const int n_a = (p.pl.seg_ptr[blockIdx.x + 1] - s0) * per_rt;
-      const float* a = p.alphas + static_cast<size_t>(t) * p.Sp * B;
+      const T* a = p.alphas + static_cast<size_t>(t) * p.Sp * B;
       for (int i = tid; i < n_a; i += NT) {
         const int rt = p.pl.segs[s0 + i / per_rt].x;
         prefetch_l2(a + static_cast<size_t>(rt) * TR * B +
@@ -773,18 +828,23 @@ struct Sweep {
     }
   }
 
-  // The column max of frame f's state: three buffers in turn.
-  __device__ unsigned* cm_row(int f) const {
+  // The column max of frame f's state: three buffers in turn (double:
+  // 64-bit words from the first even word after the tickets).
+  __device__ BitsT<T>* cm_row(int f) const {
     const int n_rt = p.Sp / TR, ncb = (p.B + TB - 1) / TB;
-    return p.sync + 2 + static_cast<size_t>(n_rt) * ncb +
-           static_cast<size_t>(f % 3) * p.B;
+    const size_t base = 2 + static_cast<size_t>(n_rt) * ncb;
+    if constexpr (is_f64<T>())
+      return reinterpret_cast<unsigned long long*>(p.sync + base + base % 2) +
+             static_cast<size_t>(f % 3) * p.B;
+    else
+      return p.sync + base + static_cast<size_t>(f % 3) * p.B;
   }
 
-  __device__ Frame frame(int f) const {
+  __device__ Frame<T> frame(int f) const {
     const int Nf = p.Nf, B = p.B;
     const size_t SB = static_cast<size_t>(p.Sp) * B;
     const size_t XB = static_cast<size_t>(p.Sp / 2) * B;
-    Frame fr{};
+    Frame<T> fr{};
     fr.cm_prev = cm_row(f + 2);
     fr.cm_cur = cm_row(f);
     fr.cm_next = cm_row(f + 1);
@@ -816,16 +876,16 @@ struct Sweep {
 // the next frame: its scale by every epilogue (from the column max), the
 // forward's scale, ksum and shift and the backward's posteriors by the
 // next frame's phase (and, after the last frame, by one more phase).
-template <bool BWD, bool VEC, bool BF16, bool TROP = false>
-__global__ void __launch_bounds__(NT, 2) sweep_kernel(const Args p) {
+template <bool BWD, bool VEC, bool BF16, bool TROP, class T>
+__global__ void __launch_bounds__(NT, 2) sweep_kernel(const Args<T> p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[2][2][TB];  // [max, sum][warp row][column]
-  __shared__ float rsum[2][PY][PC];  // backward pdf sums: [den, gamma]
+  __shared__ T red[2][2][TB];  // [max, sum][warp row][column]
+  __shared__ T rsum[2][PY][PC];  // backward pdf sums: [den, gamma]
   __shared__ int flag;
-  Sweep<BWD, VEC, BF16, TROP> sw(p, smem, red, &flag);
+  Sweep<BWD, VEC, BF16, TROP, T> sw(p, smem, red, &flag);
   sw.load_resident();
   for (int f = 0; f < p.Nf; ++f) {
-    const Frame fr = sw.frame(f);
+    const Frame<T> fr = sw.frame(f);
     sw.clear_next(fr);
     sw.prefetch_next(f);
     if (f == 0 && (!TROP || p.first)) {
@@ -848,11 +908,11 @@ __global__ void __launch_bounds__(NT, 2) sweep_kernel(const Args p) {
 // The launch: every CTA of the plan's grid co-resident.  The range's tiles
 // stay in shared memory when that many bytes still let the grid be
 // co-resident, else they stream.
-template <bool BWD, bool VEC, bool BF16, bool TROP = false>
-cudaError_t launch_t(Args a, int n_ctas, int max_tiles, cudaStream_t st) {
-  using L = Layout<BF16>;
+template <bool BWD, bool VEC, bool BF16, bool TROP, class T>
+cudaError_t launch_t(Args<T> a, int n_ctas, int max_tiles, cudaStream_t st) {
+  using L = Layout<BF16, T>;
   const void* kern =
-      reinterpret_cast<const void*>(sweep_kernel<BWD, VEC, BF16, TROP>);
+      reinterpret_cast<const void*>(sweep_kernel<BWD, VEC, BF16, TROP, T>);
   int dev = 0, optin = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -888,15 +948,20 @@ cudaError_t launch_t(Args a, int n_ctas, int max_tiles, cudaStream_t st) {
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <bool BWD>
-cudaError_t launch(const Args& a, bool bf16, int n_ctas, int max_tiles,
+// The instantiation of a launch: prec 0 float, 1 bf16 tiles (float
+// values), 2 double; VEC where B % 4 == 0.
+template <bool BWD, bool TROP, class T>
+cudaError_t launch(const Args<T>& a, int prec, int n_ctas, int max_tiles,
                    cudaStream_t st) {
   const bool vec = a.B % 4 == 0;
-  if (bf16)
-    return vec ? launch_t<BWD, true, true>(a, n_ctas, max_tiles, st)
-               : launch_t<BWD, false, true>(a, n_ctas, max_tiles, st);
-  return vec ? launch_t<BWD, true, false>(a, n_ctas, max_tiles, st)
-             : launch_t<BWD, false, false>(a, n_ctas, max_tiles, st);
+  if constexpr (!is_f64<T>() && !TROP) {
+    if (prec == 1)
+      return vec ? launch_t<BWD, true, true, false, T>(a, n_ctas, max_tiles, st)
+                 : launch_t<BWD, false, true, false, T>(a, n_ctas, max_tiles,
+                                                        st);
+  }
+  return vec ? launch_t<BWD, true, false, TROP, T>(a, n_ctas, max_tiles, st)
+             : launch_t<BWD, false, false, TROP, T>(a, n_ctas, max_tiles, st);
 }
 
 bool bad_shape(int Sp, int P1, int B, int Nf, int n_ctas, int max_tiles) {
@@ -910,6 +975,67 @@ Plan plan_of(const void* tiles, const int* tile_k, const int* lo,
               reinterpret_cast<const int2*>(rt_parts)};
 }
 
+// The forward's arguments (K6a and K6t) in the value type T.
+template <class T>
+Args<T> fwd_args(Plan pl, const int* spdf, const void* a0, const void* ext,
+                 const void* mshift, int Sp, int P1, int B, int Nf,
+                 int n_slots, void* states, void* scales, void* ksum,
+                 void* shift, void* comp, void* partial, unsigned* sync,
+                 unsigned* xb) {
+  Args<T> a{};
+  a.pl = pl;
+  a.spdf = spdf;
+  a.Sp = Sp;
+  a.P1 = P1;
+  a.B = B;
+  a.Nf = Nf;
+  a.n_slots = n_slots;
+  a.ext = static_cast<const T*>(ext);
+  a.a0 = static_cast<const T*>(a0);
+  a.mshift = static_cast<const T*>(mshift);
+  a.states = static_cast<T*>(states);
+  a.scales = static_cast<T*>(scales);
+  a.ksum = static_cast<T*>(ksum);
+  a.shift = static_cast<T*>(shift);
+  a.comp = static_cast<T*>(comp);
+  a.partial = static_cast<T*>(partial);
+  a.sync = sync;
+  a.xb = xb;
+  a.first = 1;
+  return a;
+}
+
+// The backward's arguments (K6b) in the value type T.
+template <class T>
+Args<T> bwd_args(Plan pl, const int* spdf, const int* perm, const int* off,
+                 const void* ext, const void* alphas, const void* ascale,
+                 int Sp, int P1, int B, int Nf, void* work, void* gamma,
+                 void* posts, void* part, void* partial, unsigned* sync,
+                 unsigned* xb) {
+  Args<T> a{};
+  a.pl = pl;
+  a.spdf = spdf;
+  a.Sp = Sp;
+  a.P1 = P1;
+  a.B = B;
+  a.Nf = Nf;
+  a.n_slots = 2;
+  a.ext = static_cast<const T*>(ext);
+  a.perm = perm;
+  a.off = off;
+  a.alphas = static_cast<const T*>(alphas);
+  a.ascale = static_cast<const T*>(ascale);
+  a.work = static_cast<T*>(work);
+  a.gamma = static_cast<T*>(gamma);
+  a.posts = static_cast<T*>(posts);
+  a.part = static_cast<T*>(part);
+  a.partial = static_cast<T*>(partial);
+  a.sync = sync;
+  a.xb = xb;
+  a.first = 1;
+  return a;
+}
+
 }  // namespace
 
 // K6a: the forward sweep over frames 0 .. Nf-1 from a0, one launch.  Frame t
@@ -918,129 +1044,100 @@ Plan plan_of(const void* tiles, const int* tile_k, const int* lo,
 // ksum, shift and comp accumulate the exponents and the emission shift (the
 // caller zeroes them).  The plan (tiles .. rt_parts, n_ctas CTAs, at most
 // max_tiles tiles per range) is ops/dense_scan.py's TilePlan of the forward
-// operator: float tiles, or bf16 fragments when bf16 != 0.  partial holds
-// the plan's partial slots x 32 x B floats, sync 2 + Sp / 32 x
-// ceil(B / 128) + 3 x B zeroed words, xb (bf16 only) 2 x Sp / 2 x B words.
+// operator.  prec: 0 float tiles and values, 1 bf16 fragments (float
+// values), 2 double tiles and values (a0 .. comp and partial are then
+// double).  partial holds the plan's partial slots x 32 x B values, sync
+// 2 + Sp / 32 x ceil(B / 128) zeroed words and then the 3 x B column-max
+// words (double: 64-bit, from the next even word), xb (bf16 only) 2 x
+// Sp / 2 x B words.
 extern "C" int mm_dense_fwd(const void* tiles, const int* tile_k,
                             const int* lo, const int* seg_ptr, const int* segs,
                             const int* rt_parts, int n_ctas, int max_tiles,
-                            const int* spdf, const float* a0, const float* ext,
-                            const float* mshift, int Sp, int P1, int B, int Nf,
-                            int n_slots, int bf16, float* states,
-                            float* scales, float* ksum, float* shift,
-                            float* comp, float* partial, unsigned* sync,
-                            unsigned* xb, void* stream) {
+                            const int* spdf, const void* a0, const void* ext,
+                            const void* mshift, int Sp, int P1, int B, int Nf,
+                            int n_slots, int prec, void* states, void* scales,
+                            void* ksum, void* shift, void* comp, void* partial,
+                            unsigned* sync, unsigned* xb, void* stream) {
   if (bad_shape(Sp, P1, B, Nf, n_ctas, max_tiles) ||
-      (n_slots != Nf && n_slots != 2) || (bf16 && xb == nullptr))
+      (n_slots != Nf && n_slots != 2) || prec < 0 || prec > 2 ||
+      (prec == 1 && xb == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{};
-  a.pl = plan_of(tiles, tile_k, lo, seg_ptr, segs, rt_parts);
-  a.spdf = spdf;
-  a.Sp = Sp;
-  a.P1 = P1;
-  a.B = B;
-  a.Nf = Nf;
-  a.n_slots = n_slots;
-  a.ext = ext;
-  a.a0 = a0;
-  a.mshift = mshift;
-  a.states = states;
-  a.scales = scales;
-  a.ksum = ksum;
-  a.shift = shift;
-  a.comp = comp;
-  a.partial = partial;
-  a.sync = sync;
-  a.xb = xb;
-  a.first = 1;
-  return static_cast<int>(launch<false>(a, bf16 != 0, n_ctas, max_tiles,
-                                        static_cast<cudaStream_t>(stream)));
+  const Plan pl = plan_of(tiles, tile_k, lo, seg_ptr, segs, rt_parts);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (prec == 2)
+    return static_cast<int>(launch<false, false>(
+        fwd_args<double>(pl, spdf, a0, ext, mshift, Sp, P1, B, Nf, n_slots,
+                         states, scales, ksum, shift, comp, partial, sync, xb),
+        prec, n_ctas, max_tiles, st));
+  return static_cast<int>(launch<false, false>(
+      fwd_args<float>(pl, spdf, a0, ext, mshift, Sp, P1, B, Nf, n_slots,
+                      states, scales, ksum, shift, comp, partial, sync, xb),
+      prec, n_ctas, max_tiles, st));
 }
 
 // K6t: the tropical forward over launch frames 0 .. Nf-1 from a0, one
-// launch; the arguments as for mm_dense_fwd (float32 tiles, no bf16).
-// Launch frame 0 skips the product only when first != 0 (global frame 0);
-// otherwise it multiplies a0, whose scale the caller seeds into sync's
-// third column-max row (words 2 + Sp / 32 x ceil(B / 128) + 2B ..) as the
-// float bits of 1 / scale.  ksum, shift and comp carry on from their values
-// on entry.
+// launch; the arguments as for mm_dense_fwd, with f64 != 0 for double tiles
+// and values (no bf16).  Launch frame 0 skips the product only when
+// first != 0 (global frame 0); otherwise it multiplies a0, whose scale the
+// caller seeds into sync's third column-max row as the bits of 1 / scale.
+// ksum, shift and comp carry on from their values on entry.
 extern "C" int mm_dense_trop(const void* tiles, const int* tile_k,
                              const int* lo, const int* seg_ptr,
                              const int* segs, const int* rt_parts, int n_ctas,
-                             int max_tiles, const int* spdf, const float* a0,
-                             const float* ext, const float* mshift, int Sp,
+                             int max_tiles, const int* spdf, const void* a0,
+                             const void* ext, const void* mshift, int Sp,
                              int P1, int B, int Nf, int n_slots, int first,
-                             float* states, float* scales, float* ksum,
-                             float* shift, float* comp, float* partial,
+                             int f64, void* states, void* scales, void* ksum,
+                             void* shift, void* comp, void* partial,
                              unsigned* sync, void* stream) {
   if (bad_shape(Sp, P1, B, Nf, n_ctas, max_tiles) ||
       (n_slots != Nf && n_slots != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{};
-  a.pl = plan_of(tiles, tile_k, lo, seg_ptr, segs, rt_parts);
-  a.spdf = spdf;
-  a.Sp = Sp;
-  a.P1 = P1;
-  a.B = B;
-  a.Nf = Nf;
-  a.n_slots = n_slots;
-  a.first = first != 0;
-  a.ext = ext;
-  a.a0 = a0;
-  a.mshift = mshift;
-  a.states = states;
-  a.scales = scales;
-  a.ksum = ksum;
-  a.shift = shift;
-  a.comp = comp;
-  a.partial = partial;
-  a.sync = sync;
+  const Plan pl = plan_of(tiles, tile_k, lo, seg_ptr, segs, rt_parts);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      B % 4 == 0 ? launch_t<false, true, false, true>(a, n_ctas, max_tiles, st)
-                 : launch_t<false, false, false, true>(a, n_ctas, max_tiles,
-                                                       st));
+  if (f64) {
+    Args<double> a = fwd_args<double>(pl, spdf, a0, ext, mshift, Sp, P1, B,
+                                      Nf, n_slots, states, scales, ksum,
+                                      shift, comp, partial, sync, nullptr);
+    a.first = first != 0;
+    return static_cast<int>(
+        launch<false, true>(a, 2, n_ctas, max_tiles, st));
+  }
+  Args<float> a = fwd_args<float>(pl, spdf, a0, ext, mshift, Sp, P1, B, Nf,
+                                  n_slots, states, scales, ksum, shift, comp,
+                                  partial, sync, nullptr);
+  a.first = first != 0;
+  return static_cast<int>(launch<false, true>(a, 0, n_ctas, max_tiles, st));
 }
 
 // K6b: the reverse sweep over frames Nf-1 .. 0 over the forward's alphas
 // (Nf, Sp, B) and scales (Nf, B), one launch.  posts (Nf, P1, B) receives
 // every frame's normalised pdf posteriors.  work (2, Sp, B), gamma (2, Sp,
 // B) and part (2, Sp / 32, B) are scratch; the plan (of the backward
-// operator), partial, sync and xb as for mm_dense_fwd.  perm / off: the
-// states of pdf p are perm[off[p] .. off[p+1]), in increasing order
+// operator), prec, partial, sync and xb as for mm_dense_fwd.  perm / off:
+// the states of pdf p are perm[off[p] .. off[p+1]), in increasing order
 // (padding states, whose gamma is always 0, may be left out).
 extern "C" int mm_dense_bwd(const void* tiles, const int* tile_k,
                             const int* lo, const int* seg_ptr, const int* segs,
                             const int* rt_parts, int n_ctas, int max_tiles,
                             const int* spdf, const int* perm, const int* off,
-                            const float* ext, const float* alphas,
-                            const float* ascale, int Sp, int P1, int B, int Nf,
-                            int bf16, float* work, float* gamma, float* posts,
-                            float* part, float* partial, unsigned* sync,
+                            const void* ext, const void* alphas,
+                            const void* ascale, int Sp, int P1, int B, int Nf,
+                            int prec, void* work, void* gamma, void* posts,
+                            void* part, void* partial, unsigned* sync,
                             unsigned* xb, void* stream) {
-  if (bad_shape(Sp, P1, B, Nf, n_ctas, max_tiles) || (bf16 && xb == nullptr))
+  if (bad_shape(Sp, P1, B, Nf, n_ctas, max_tiles) || prec < 0 || prec > 2 ||
+      (prec == 1 && xb == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{};
-  a.pl = plan_of(tiles, tile_k, lo, seg_ptr, segs, rt_parts);
-  a.spdf = spdf;
-  a.Sp = Sp;
-  a.P1 = P1;
-  a.B = B;
-  a.Nf = Nf;
-  a.n_slots = 2;
-  a.ext = ext;
-  a.perm = perm;
-  a.off = off;
-  a.alphas = alphas;
-  a.ascale = ascale;
-  a.work = work;
-  a.gamma = gamma;
-  a.posts = posts;
-  a.part = part;
-  a.partial = partial;
-  a.sync = sync;
-  a.xb = xb;
-  a.first = 1;
-  return static_cast<int>(launch<true>(a, bf16 != 0, n_ctas, max_tiles,
-                                       static_cast<cudaStream_t>(stream)));
+  const Plan pl = plan_of(tiles, tile_k, lo, seg_ptr, segs, rt_parts);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (prec == 2)
+    return static_cast<int>(launch<true, false>(
+        bwd_args<double>(pl, spdf, perm, off, ext, alphas, ascale, Sp, P1, B,
+                         Nf, work, gamma, posts, part, partial, sync, xb),
+        prec, n_ctas, max_tiles, st));
+  return static_cast<int>(launch<true, false>(
+      bwd_args<float>(pl, spdf, perm, off, ext, alphas, ascale, Sp, P1, B, Nf,
+                      work, gamma, posts, part, partial, sync, xb),
+      prec, n_ctas, max_tiles, st));
 }

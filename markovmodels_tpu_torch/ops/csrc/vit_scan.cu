@@ -125,8 +125,26 @@
 // outside the group loop, and the uniform instantiations (FAM = false)
 // compile as before.
 //
-// Conventions: state (Sp, B) row-major float32; ext (Nf, P1, B), the emission
-// of state j is ext[t, j / cmax, b] (uniform pdf-grouped layout) or
+// The value type T (the last template argument): float, or double for a
+// float64 graph (the JAX package decodes those in XLA; its K7 takes float32).
+// A double instantiation keeps every value in double (state, scales,
+// emissions, panels, bands, family weights, omega, checkpoints) and keeps
+// the rules bit for bit: the tier's products are compared on their 64 bits
+// as ints (the bits of a non-negative double order as its value), a pass
+// stages 64 positions (half the float rows, the same bytes), the column
+// maxima are 64-bit words.  The omega key does not fit: the double's 64
+// bits leave no room for j.  So each (frame, copy, column) keeps the
+// positive candidates as a pair (value bits, 2^32 - 1 - j) that an item
+// replaces under a spin lock of the pair's own (after a lock-free check
+// against the value, which only rises), and the zero candidates' largest
+// 2^32 - 1 - j by atomicMax; the end of the frame takes the largest value,
+// the largest j-word among the copies holding it, or the zero word where
+// every product is 0.  Both give the (max, smallest argmax) of the float
+// rule whatever the items' order.  K7n (no ids) keeps the value alone.
+// The ids, the queue and the walk do not depend on T.
+//
+// Conventions: state (Sp, B) row-major T; ext (Nf, P1, B), the emission of
+// state j is ext[t, j / cmax, b] (uniform pdf-grouped layout) or
 // ext[t, row_pdf[j], b] (FAM); ids (Nf, RW, B) uint8; fins (Nf, B) int32.
 // Index maps of the tier come from the host as ints: src(k, s) = g0 + k*gk +
 // s*gs, dst(k, d) = d0 + k*dk + d*dd.
@@ -140,8 +158,12 @@ namespace {
 
 constexpr int TB = 64;       // batch columns per item
 constexpr int NT = 256;      // threads per CTA: 16 x 16, 4x4 outputs each
-constexpr int SC = 128;      // tier contraction resident per pass
-constexpr int ST = SC + 4;   // padded row of a resident tier operand
+// tier contraction resident per pass (float 128, double 64: the same
+// bytes), and the padded row of a resident tier operand (16 bytes more)
+template <class T>
+constexpr int SC = is_f64<T>() ? 64 : 128;
+template <class T>
+constexpr int ST = SC<T> + 16 / static_cast<int>(sizeof(T));
 constexpr int GS = 8;        // tier candidates per max group
 constexpr int PB = 2;        // band terms of a pair of rows loaded ahead
 constexpr int CM = 16;       // copies of each frame's column max and omega key
@@ -150,25 +172,38 @@ constexpr int NO_CAND = 255;
 constexpr int WALK_THREADS = 128;
 // CTAs resident per SM (caps registers at 128; shared memory allows 3)
 constexpr int VIT_BLOCKS = 2;
-static_assert(SC % GS == 0 && GS % 4 == 0 && TR == TB, "tier tiles");
+static_assert(SC<float> % GS == 0 && SC<double> % GS == 0 && GS % 4 == 0 &&
+                  TR == TB,
+              "tier tiles");
 
-// Shared memory of one CTA (dynamic; 2 x B floats follow it: the scale and
+// The omega key of a thread row or an item: float, one ordered 64-bit word
+// (omega_key); double, the value's bits and the j-word 2^32 - 1 - j apart.
+struct DKey {
+  unsigned long long v;
+  unsigned w;
+};
+template <class T>
+using OKey = typename std::conditional<is_f64<T>(), DKey,
+                                       unsigned long long>::type;
+
+// Shared memory of one CTA (dynamic; 2 x B values follow it: the scale and
 // the phony state of the frame before, per column).
+template <class T>
 struct VitSmem {
   union {
     struct {  // a tier item's resident operands
-      float W[TR][ST];  // W[k, s0 + s, dbase + d] at [d][s]
-      float X[TB][ST];  // a[src(k, s0 + s), b0 + b] at [b][s], rescaled
+      T W[TR][ST<T>];  // W[k, s0 + s, dbase + d] at [d][s]
+      T X[TB][ST<T>];  // a[src(k, s0 + s), b0 + b] at [b][s], rescaled
     } op;
     struct {  // the epilogue
-      float val[TR][TB + 1];  // the tier's max of each output
+      T val[TR][TB + 1];  // the tier's max of each output
       uint8_t id[TR][TB];     // and its id
-      unsigned rm[16][TB];              // column max of each thread row
-      unsigned long long rk[16][TB];    // omega key of each thread row
+      BitsT<T> rm[16][TB];    // column max of each thread row
+      OKey<T> rk[16][TB];     // omega key of each thread row
     } ep;
     struct {  // a heavy row's partial family candidates (FAM), past ep
-      float skip[TR][ST];
-      float v[16][TB];  // each thread row's max product
+      T skip[TR][ST<T>];
+      T v[16][TB];      // each thread row's max product
       int id[16][TB];   // and its smallest id among equal products
     } hv;
   } u;
@@ -180,14 +215,27 @@ struct VitSmem {
 // A sweep's shared memory: the uniform layout's, and with FAM each tile
 // row's family terms [x, y) and first band id z, read as the rows are set
 // up (the uniform instantiations keep exactly the uniform layout).
-template <bool FAM>
-struct VitSmemT : VitSmem {};
-template <>
-struct VitSmemT<true> : VitSmem {
+template <bool FAM, class T>
+struct VitSmemT : VitSmem<T> {};
+template <class T>
+struct VitSmemT<true, T> : VitSmem<T> {
   int3 fr[TR];
 };
 
-struct VitArgs {
+// The double instantiation's omega scratch beside the keys' words (none for
+// float): per (frame, copy, column) the positive pair's j-word, the zero
+// candidates' j-word and the pair's lock, each zeroed.
+template <class T>
+struct OmegaWords {};
+template <>
+struct OmegaWords<double> {
+  unsigned* omw;
+  unsigned* omz;
+  unsigned* olock;
+};
+
+template <class T>
+struct VitArgs : OmegaWords<T> {
   Meta m;
   int B, Nf, RW;
   // K7n (IDS = false) only: launch frame f is global frame t0 + f (frame 0
@@ -195,38 +243,41 @@ struct VitArgs {
   // is saved when (f + 1) % stride == 0, into slot (f + 1) / stride - 1
   // (stride 1: every frame, which is then the sweep's own state buffer)
   int t0, stride;
-  const float* s0;     // (B,)
-  float* save;         // (Nf / stride, Sp, B) unscaled, the phony row too
-  float* save_scale;   // (Nf / stride, B)
-  const float* a0;      // (Sp, B) the state before frame 0 (scale 1)
-  const float* ext;     // (Nf, P1, B)
-  const float* mshift;  // (Nf, 1, B)
-  const float* band_w;  // (nO, Sp)
-  const float* Wt;      // (K, D, Sm4) the tier panels transposed, zero-padded
+  const T* s0;     // (B,)
+  T* save;         // (Nf / stride, Sp, B) unscaled, the phony row too
+  T* save_scale;   // (Nf / stride, B)
+  const T* a0;      // (Sp, B) the state before frame 0 (scale 1)
+  const T* ext;     // (Nf, P1, B)
+  const T* mshift;  // (Nf, 1, B)
+  const T* band_w;  // (nO, Sp)
+  const T* Wt;      // (K, D, Sm4) the tier panels transposed, zero-padded
   long long Sm4;        // Sm rounded up to 4
-  const float* omega;   // (Sp,)
+  const T* omega;   // (Sp,)
   const int* band_rows;
   const int2* queue;  // (n_items,) item, first row of a band tile or -1
   int n_items;
-  float* work;   // (2, Sp, B) the state of frame t at work[t % 2], unscaled
+  T* work;   // (2, Sp, B) the state of frame t at work[t % 2], unscaled
   uint8_t* bps;  // (Nf, RW, B)
   int* fins;     // (Nf, B)
-  float* scale;  // (B,) the last frame's scale
-  float* ksum;   // (B,) sum of the exponents, zero on entry
-  float* shift;  // (B,) the Kahan-compensated emission shift, zero
-  float* comp;   // (B,) its compensation, zero
-  unsigned* cm;  // (Nf, CM, B) column max of each frame (float bits), zeroed
-  unsigned long long* omk;  // (Nf, CM, B) omega keys of each frame, zeroed
+  T* scale;  // (B,) the last frame's scale
+  T* ksum;   // (B,) sum of the exponents, zero on entry
+  T* shift;  // (B,) the Kahan-compensated emission shift, zero
+  T* comp;   // (B,) its compensation, zero
+  BitsT<T>* cm;  // (Nf, CM, B) column max of each frame (its bits), zeroed
+  // (Nf, CM, B) omega keys of each frame (double: the pairs' value bits),
+  // zeroed
+  unsigned long long* omk;
   unsigned* ctr;   // (Nf,) each frame's queue position, zeroed
   unsigned* sync;  // (SYNC_GEN + 1,) barrier counter, generation, zeroed
 };
 
 // The family branch's tables (FAM; host: vit_scan._vlayout, the same order).
+template <class T>
 struct VitFam {
   const int* row_pdf;       // (Sp,) pdf of each state row
   const int* fam_ptr;       // (Sp + 1,) row j's terms [fam_ptr[j], fam_ptr[j+1])
   const int* fam_src;       // (nfam,) source row of each term
-  const float* fam_w;       // (nfam,) its weight
+  const T* fam_w;           // (nfam,) its weight
   const uint8_t* fam_cid;   // (nfam,) its candidate id
   const int* heavy_rows;    // (nheavy,) the rows with an item each
   const int* cbase;         // (nOv,) band id base of each overflow group
@@ -234,17 +285,17 @@ struct VitFam {
 
 // A sweep's arguments: the uniform layout's, and with FAM the family tables
 // too (the uniform instantiations take exactly the uniform arguments).
-template <bool FAM>
-struct VitArgsT : VitArgs {};
-template <>
-struct VitArgsT<true> : VitArgs {
-  VitFam f;
+template <bool FAM, class T>
+struct VitArgsT : VitArgs<T> {};
+template <class T>
+struct VitArgsT<true, T> : VitArgs<T> {
+  VitFam<T> f;
 };
 
 // The pdf of the phony state (the emission row of its frame-end value):
 // the tail's phony pdf P1 - 1 in the capped layout (block_scan._row_pdf).
-template <bool FAM>
-__device__ __forceinline__ int phony_pdf(const VitArgsT<FAM>& p) {
+template <bool FAM, class T>
+__device__ __forceinline__ int phony_pdf(const VitArgsT<FAM, T>& p) {
   if constexpr (FAM)
     return p.m.P1 - 1;
   else
@@ -253,9 +304,8 @@ __device__ __forceinline__ int phony_pdf(const VitArgsT<FAM>& p) {
 
 // (v, id) beats the family candidate (bv, bid): a larger product, or with
 // ids (IDS) an equal one of a smaller id.
-template <bool IDS>
-__device__ __forceinline__ bool fam_beats(float v, int id, float bv,
-                                          int bid) {
+template <bool IDS, class T>
+__device__ __forceinline__ bool fam_beats(T v, int id, T bv, int bid) {
   return v > bv || (IDS && v == bv && id < bid);
 }
 
@@ -267,6 +317,65 @@ __device__ __forceinline__ unsigned long long omega_key(float v, int j) {
          (0xffffffffu - static_cast<unsigned>(j));
 }
 
+// The same order in double, as a pair: the larger value, then the larger
+// j-word.
+__device__ __forceinline__ DKey omega_key(double v, int j) {
+  return DKey{to_bits(v), 0xffffffffu - static_cast<unsigned>(j)};
+}
+__device__ __forceinline__ unsigned long long key_max(unsigned long long a,
+                                                      unsigned long long b) {
+  return max(a, b);
+}
+__device__ __forceinline__ DKey key_max(DKey a, DKey b) {
+  return b.v > a.v || (b.v == a.v && b.w > a.w) ? b : a;
+}
+template <class T>
+__device__ __forceinline__ OKey<T> key_zero() {
+  if constexpr (is_f64<T>())
+    return DKey{0ull, 0u};
+  else
+    return 0ull;
+}
+
+// A double item's omega candidate of one column into its copy: a zero
+// product's j-word by atomicMax into omz; a positive one into the pair
+// (omk, omw) under the pair's lock, unless the pair's value, which only
+// rises, is already above it.  K7n (no ids) keeps the value alone.
+template <bool IDS>
+__device__ __forceinline__ void omega_put(const VitArgs<double>& p, size_t at,
+                                          DKey k) {
+  if constexpr (!IDS) {
+    atomicMax(p.omk + at, k.v);
+  } else if (k.v == 0ull) {
+    atomicMax(p.omz + at, k.w);
+  } else if (k.v >= __ldcg(p.omk + at)) {
+    unsigned* lock = p.olock + at;
+    while (atomicCAS(lock, 0u, 1u) != 0u) {
+    }
+    __threadfence();
+    const unsigned long long cv = __ldcg(p.omk + at);
+    if (k.v > cv || (k.v == cv && k.w > __ldcg(p.omw + at))) {
+      __stcg(p.omw + at, k.w);
+      __stcg(p.omk + at, k.v);
+    }
+    __threadfence();
+    atomicExch(lock, 0u);
+  }
+}
+
+// The product's bits as a signed int of its width (non-negative values
+// order as their bits), and back.
+__device__ __forceinline__ int ibits(float v) { return __float_as_int(v); }
+__device__ __forceinline__ long long ibits(double v) {
+  return __double_as_longlong(v);
+}
+__device__ __forceinline__ float of_ibits(int b) { return __int_as_float(b); }
+__device__ __forceinline__ double of_ibits(long long b) {
+  return __longlong_as_double(b);
+}
+template <class T>
+using IBits = typename std::conditional<is_f64<T>(), long long, int>::type;
+
 // 4 ids in one streaming store (written once, never read in the sweep).
 __device__ __forceinline__ void st_cs_u32(uint8_t* p, unsigned v) {
   asm volatile("st.global.cs.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
@@ -277,39 +386,55 @@ __device__ __forceinline__ void st_cs_u32(uint8_t* p, unsigned v) {
 // 2^-k from the column max with it; CTA 0 (``record``) writes fins[t - 1]
 // and advances ksum and the Kahan-compensated emission shift.  Returns the
 // scale; *yfin receives the phony state (unscaled), or frame 0's stored one.
-template <bool IDS, bool FAM>
-__device__ __forceinline__ float end_of_frame(const VitArgsT<FAM>& p, int t,
-                                             int b, const float* prev,
-                                             bool record, float* yfin) {
+template <bool IDS, bool FAM, class T>
+__device__ __forceinline__ T end_of_frame(const VitArgsT<FAM, T>& p, int t,
+                                         int b, const T* prev, bool record,
+                                         T* yfin) {
   const Meta& m = p.m;
   const int B = p.B;
-  const unsigned* cm = p.cm + static_cast<size_t>(t - 1) * CM * B + b;
-  const unsigned long long* kp =
-      p.omk + static_cast<size_t>(t - 1) * CM * B + b;
-  unsigned mx = 0u;
+  const size_t at = static_cast<size_t>(t - 1) * CM * B + b;
+  const BitsT<T>* cm = p.cm + at;
+  const unsigned long long* kp = p.omk + at;
+  BitsT<T> mx = 0;
   unsigned long long key = 0ull;
+  unsigned jw = 0u;  // double: the j-word of the largest value
 #pragma unroll
   for (int c = 0; c < CM; ++c) {
     mx = max(mx, __ldcg(cm + c * B));
     key = max(key, __ldcg(kp + c * B));
   }
-  float mxf = __uint_as_float(mx);
+  T mxf = from_bits(mx);
+  T om;  // max_j omega[j] * a[j]
+  if constexpr (is_f64<T>()) {
+    om = from_bits(key);
+    if constexpr (IDS) {
+#pragma unroll
+      for (int c = 0; c < CM; ++c)
+        if (key == 0ull)
+          jw = max(jw, __ldcg(p.omz + at + c * B));
+        else if (__ldcg(kp + c * B) == key)
+          jw = max(jw, __ldcg(p.omw + at + c * B));
+    }
+  } else {
+    om = __uint_as_float(static_cast<unsigned>(key >> 32));
+    jw = static_cast<unsigned>(key);
+  }
   if ((IDS ? t : p.t0 + t) - 1 >= 1) {  // global frame 0 has no omega arc
-    const float e =
+    const T e =
         p.ext[(static_cast<size_t>(t - 1) * m.P1 + phony_pdf<FAM>(p)) * B + b];
-    *yfin = __uint_as_float(static_cast<unsigned>(key >> 32)) * e;
-    mxf = fmaxf(mxf, *yfin);
+    *yfin = om * e;
+    mxf = fmax_(mxf, *yfin);
   } else {
     *yfin = __ldcg(prev + static_cast<size_t>(m.fin) * B + b);
   }
-  const float k = pow2_exponent(mxf);
+  const T k = pow2_exponent(mxf);
   if (record) {
     if constexpr (IDS)
       p.fins[static_cast<size_t>(t - 1) * B + b] =
-          static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
+          static_cast<int>(0xffffffffu - jw);
     p.ksum[b] += k;
-    const float xc = p.mshift[static_cast<size_t>(t - 1) * B + b] - p.comp[b];
-    const float ts = p.shift[b] + xc;
+    const T xc = p.mshift[static_cast<size_t>(t - 1) * B + b] - p.comp[b];
+    const T ts = p.shift[b] + xc;
     p.comp[b] = (ts - p.shift[b]) - xc;
     p.shift[b] = ts;
   }
@@ -324,33 +449,34 @@ __device__ __forceinline__ float end_of_frame(const VitArgsT<FAM>& p, int t,
 // resident operands.  Every product is >= 0 (no NaN), so its float bits
 // order as its value: the maxima are taken on the bits as ints, which the
 // card does three at a time (VIMNMX3: 4 instructions for a group of 8
-// products, 7 as float maxima), exactly.
+// products, 7 as float maxima), exactly.  In double the same rule on the
+// products' 64 bits as long longs.
 // Without ids (IDS = false) only the running max is kept.
-template <bool IDS>
-__device__ __forceinline__ void tier_max_arg(const VitSmem& s, int nG,
-                                             long long s0, int (&best)[4][4],
+template <bool IDS, class T>
+__device__ __forceinline__ void tier_max_arg(const VitSmem<T>& s, int nG,
+                                             long long s0,
+                                             IBits<T> (&best)[4][4],
                                              int (&gid)[4][4]) {
+  using I = IBits<T>;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   for (int g = 0; g < nG; ++g) {
-    int mx[4][4];
+    I mx[4][4];
 #pragma unroll
     for (int h = 0; h < GS / 4; ++h) {
       const int sb = g * GS + h * 4;
-      float4 w[4];
+      V4<T> w[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        w[i] = *reinterpret_cast<const float4*>(&s.u.op.W[ty * 4 + i][sb]);
+      for (int i = 0; i < 4; ++i) w[i] = lds4(&s.u.op.W[ty * 4 + i][sb]);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(&s.u.op.X[tx + 16 * c][sb]);
+        const V4<T> x = lds4(&s.u.op.X[tx + 16 * c][sb]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int p0 = __float_as_int(w[i].x * x.x);
-          const int p1 = __float_as_int(w[i].y * x.y);
-          const int p2 = __float_as_int(w[i].z * x.z);
-          const int p3 = __float_as_int(w[i].w * x.w);
-          const int q = max(max(p0, p1), p2);
+          const I p0 = ibits(w[i].x * x.x);
+          const I p1 = ibits(w[i].y * x.y);
+          const I p2 = ibits(w[i].z * x.z);
+          const I p3 = ibits(w[i].w * x.w);
+          const I q = max(max(p0, p1), p2);
           mx[i][c] = h == 0 ? max(q, p3) : max(max(mx[i][c], q), p3);
         }
       }
@@ -375,17 +501,17 @@ __device__ __forceinline__ void tier_max_arg(const VitSmem& s, int nG,
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       if (gid[i][c] < 0) continue;
-      const float* wr = &s.u.op.W[ty * 4 + i][gid[i][c] * GS];
-      const float* xr = &s.u.op.X[tx + 16 * c][gid[i][c] * GS];
+      const T* wr = &s.u.op.W[ty * 4 + i][gid[i][c] * GS];
+      const T* xr = &s.u.op.X[tx + 16 * c][gid[i][c] * GS];
       int first = GS - 1;
 #pragma unroll
       for (int h = GS / 4 - 1; h >= 0; --h) {
-        const float4 w = *reinterpret_cast<const float4*>(wr + 4 * h);
-        const float4 x = *reinterpret_cast<const float4*>(xr + 4 * h);
-        if (__float_as_int(w.w * x.w) == best[i][c]) first = 4 * h + 3;
-        if (__float_as_int(w.z * x.z) == best[i][c]) first = 4 * h + 2;
-        if (__float_as_int(w.y * x.y) == best[i][c]) first = 4 * h + 1;
-        if (__float_as_int(w.x * x.x) == best[i][c]) first = 4 * h;
+        const V4<T> w = lds4(wr + 4 * h);
+        const V4<T> x = lds4(xr + 4 * h);
+        if (ibits(w.w * x.w) == best[i][c]) first = 4 * h + 3;
+        if (ibits(w.z * x.z) == best[i][c]) first = 4 * h + 2;
+        if (ibits(w.y * x.y) == best[i][c]) first = 4 * h + 1;
+        if (ibits(w.x * x.x) == best[i][c]) first = 4 * h;
       }
       gid[i][c] = -static_cast<int>(s0 + gid[i][c] * GS + first) - 1;
     }
@@ -395,48 +521,52 @@ __device__ __forceinline__ void tier_max_arg(const VitSmem& s, int nG,
 // columns by cp.async (L2 evict_last: every frame reads them), and the
 // gathered state rows src(k, s0 + s) of the previous frame for the item's
 // 64 columns, read past L1 under ``once``, rescaled and stored transposed.
-// Lane (sl, h) of warp w takes rows s0 + 16u + sl (u = 0 .. 7), columns
-// b0 + 4(2w + h) .. + 3: each warp's stores meet 32 distinct banks.
-template <bool VEC>
-__device__ __forceinline__ void stage_tier(const VitArgs& p, VitSmem& s,
-                                           const float* __restrict__ prev,
-                                           const float* sc, long long k,
+// Lane (sl, h) of warp w takes rows s0 + 16u + sl (u = 0 .. SC/16 - 1),
+// columns b0 + 4(2w + h) .. + 3: each warp's stores meet 32 distinct banks
+// (float).  A 16-byte copy of the panel is 4 floats or 2 doubles.
+template <bool VEC, class T>
+__device__ __forceinline__ void stage_tier(const VitArgs<T>& p, VitSmem<T>& s,
+                                           const T* __restrict__ prev,
+                                           const T* sc, long long k,
                                            long long dbase, int b0,
                                            long long s0,
                                            unsigned long long once) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T));  // values per copy
   const Meta& m = p.m;
   const int B = p.B, tid = threadIdx.x;
   const unsigned long long keep = evict_last_policy();
 #pragma unroll
-  for (int u = 0; u < TR * SC / 4 / NT; ++u) {
-    const int c = tid + u * NT, r = c / (SC / 4), q = c % (SC / 4);
-    const long long d = dbase + r, sq = s0 + 4 * q;
+  for (int u = 0; u < TR * SC<T> / E / NT; ++u) {
+    const int c = tid + u * NT, r = c / (SC<T> / E), q = c % (SC<T> / E);
+    const long long d = dbase + r, sq = s0 + E * q;
     const bool ok = d < m.D && sq < p.Sm4;
-    const float* src = ok ? p.Wt + (k * m.D + d) * p.Sm4 + sq : p.Wt;
-    cp_async16_hint(&s.u.op.W[r][4 * q], src, ok, keep);
+    const T* src = ok ? p.Wt + (k * m.D + d) * p.Sm4 + sq : p.Wt;
+    cp_async16_hint(&s.u.op.W[r][E * q], src, ok, keep);
   }
   cp_async_commit();
   const int lane = tid % 32, w = tid / 32, sl = lane % 16;
   const int bb = 4 * (2 * w + lane / 16), b = b0 + bb;
-  float4 x[SC / 16];
+  V4<T> x[SC<T> / 16];
 #pragma unroll
-  for (int u = 0; u < SC / 16; ++u) {
+  for (int u = 0; u < SC<T> / 16; ++u) {
     const long long sr = s0 + 16 * u + sl;
     const long long j = m.g0 + k * m.gk + sr * m.gs;
     const bool ok = sr < m.Sm && j < p.RW;  // the main region only
-    const float* row = prev + (ok ? j : 0) * B;
-    if constexpr (VEC)
+    const T* row = prev + (ok ? j : 0) * B;
+    if constexpr (is_f64<T>())
+      x[u] = ok ? load4<VEC, true>(row, b, B) : zero4<T>();
+    else if constexpr (VEC)
       x[u] = ok && b < B ? ldcg4_hint(row + b, once)
                          : make_float4(0.f, 0.f, 0.f, 0.f);
     else
       x[u] = ok ? load4<false, true>(row, b, B)
                 : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  float scb[4];
+  T scb[4];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) scb[c] = b + c < B ? sc[b + c] : 0.f;
+  for (int c = 0; c < 4; ++c) scb[c] = b + c < B ? sc[b + c] : T(0);
 #pragma unroll
-  for (int u = 0; u < SC / 16; ++u)
+  for (int u = 0; u < SC<T> / 16; ++u)
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       s.u.op.X[bb + c][16 * u + sl] = get(x[u], c) * scb[c];
@@ -451,33 +581,33 @@ __device__ __forceinline__ void stage_tier(const VitArgs& p, VitSmem& s,
 // same rule into the epilogue's table of row 0 (ep.val, ep.id), which the
 // row's epilogue merges after its bands with a strict >.  The products are
 // w * (a * s), the band terms' and the twin's, so the ids are the twin's.
-template <bool VEC, bool IDS>
-__device__ __forceinline__ void heavy_max_arg(const VitArgsT<true>& p,
-                                              VitSmem& s,
-                                              const float* __restrict__ prev,
-                                              const float* sc, int j, int b0,
+template <bool VEC, bool IDS, class T>
+__device__ __forceinline__ void heavy_max_arg(const VitArgsT<true, T>& p,
+                                              VitSmem<T>& s,
+                                              const T* __restrict__ prev,
+                                              const T* sc, int j, int b0,
                                               unsigned long long once) {
-  const VitFam& f = p.f;
+  const VitFam<T>& f = p.f;
   const int B = p.B, tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int bcol = b0 + tx * 4;
-  float scv[4], bv[4];
+  T scv[4], bv[4];
   int bid[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    scv[c] = bcol + c < B ? sc[bcol + c] : 0.f;
-    bv[c] = -1.f;  // below every product: the first term enters
+    scv[c] = bcol + c < B ? sc[bcol + c] : T(0);
+    bv[c] = T(-1);  // below every product: the first term enters
     bid[c] = NO_CAND;
   }
   const int q1 = f.fam_ptr[j + 1];
 #pragma unroll 4
   for (int q = f.fam_ptr[j] + ty; q < q1; q += NT / 16) {
-    const float w = f.fam_w[q];
+    const T w = f.fam_w[q];
     const int id = IDS ? f.fam_cid[q] : 0;
-    const float4 x = load4_hint<VEC>(
+    const V4<T> x = load4_hint<VEC>(
         prev + static_cast<size_t>(f.fam_src[q]) * B, bcol, B, once);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const float v = w * (get(x, c) * scv[c]);
+      const T v = w * (get(x, c) * scv[c]);
       if (fam_beats<IDS>(v, id, bv[c], bid[c])) {
         bv[c] = v;
         bid[c] = id;
@@ -491,7 +621,7 @@ __device__ __forceinline__ void heavy_max_arg(const VitArgsT<true>& p,
   }
   __syncthreads();
   if (tid < TB) {
-    float v = -1.f;
+    T v = T(-1);
     int id = NO_CAND;
     for (int q = 0; q < NT / 16; ++q)
       if (fam_beats<IDS>(s.u.hv.v[q][tid], s.u.hv.id[q][tid], v, id)) {
@@ -513,14 +643,14 @@ __device__ __forceinline__ void heavy_max_arg(const VitArgsT<true>& p,
 // family candidate merged last (heavy_max_arg for a heavy row's tile, the
 // row's own thread for its few terms otherwise), the band ids of an
 // overflow row from its group's base, the emission from the row's pdf.
-template <bool VEC, bool IDS, bool FAM>
-__device__ __forceinline__ void vit_item(const VitArgsT<FAM>& p, int t,
+template <bool VEC, bool IDS, bool FAM, class T>
+__device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
                                          long long tile, int b0, int row0,
-                                         VitSmemT<FAM>& s, const float* sc,
-                                         const float* pf,
-                                         const float* __restrict__ prev,
-                                         float* __restrict__ out,
-                                         float* __restrict__ ck) {
+                                         VitSmemT<FAM, T>& s, const T* sc,
+                                         const T* pf,
+                                         const T* __restrict__ prev,
+                                         T* __restrict__ out,
+                                         T* __restrict__ ck) {
   const Meta& m = p.m;
   const int B = p.B, RW = p.RW, tid = threadIdx.x, tx = tid % 16,
             ty = tid / 16;
@@ -532,7 +662,7 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM>& p, int t,
   const long long dtiles = (m.D + TR - 1) / TR;
   const long long k = is_tier ? tt / dtiles : 0;
   const long long dbase = is_tier ? (tt % dtiles) * TR : 0;
-  const float* __restrict__ ext_t = p.ext + static_cast<size_t>(t) * m.P1 * B;
+  const T* __restrict__ ext_t = p.ext + static_cast<size_t>(t) * m.P1 * B;
   uint8_t* __restrict__ bp_t = p.bps + static_cast<size_t>(t) * RW * B;
   // the state read under evict_first, the new state stored under
   // evict_last: what the next frame reads stays in L2 before what this
@@ -571,7 +701,7 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM>& p, int t,
     s.rows[tid] = static_cast<int>(j);
   }
   if (is_tier) {
-    int best[4][4];  // the bits of the running max
+    IBits<T> best[4][4];  // the bits of the running max
     int gid[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -580,9 +710,9 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM>& p, int t,
         best[i][c] = -1;  // below every product's bits: the first group enters
         gid[i][c] = -1;
       }
-    for (long long s0 = 0; s0 < m.Sm; s0 += SC) {
+    for (long long s0 = 0; s0 < m.Sm; s0 += SC<T>) {
       stage_tier<VEC>(p, s, prev, sc, k, dbase, b0, s0, once);
-      const long long nS = m.Sm - s0 < SC ? m.Sm - s0 : SC;
+      const long long nS = m.Sm - s0 < SC<T> ? m.Sm - s0 : SC<T>;
       tier_max_arg<IDS>(s, static_cast<int>((nS + GS - 1) / GS), s0, best,
                         gid);
       __syncthreads();  // the resident operands are free
@@ -591,7 +721,7 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM>& p, int t,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        s.u.ep.val[ty * 4 + i][tx + 16 * c] = __int_as_float(best[i][c]);
+        s.u.ep.val[ty * 4 + i][tx + 16 * c] = of_ibits(best[i][c]);
         if constexpr (IDS)
           s.u.ep.id[ty * 4 + i][tx + 16 * c] =
               static_cast<uint8_t>(-gid[i][c] - 1);
@@ -603,35 +733,36 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM>& p, int t,
                               once);
   __syncthreads();
 
-  float scv[4], pfv[4];
+  T scv[4], pfv[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    scv[c] = bcol + c < B ? sc[bcol + c] : 0.f;
-    pfv[c] = bcol + c < B ? pf[bcol + c] : 0.f;
+    scv[c] = bcol + c < B ? sc[bcol + c] : T(0);
+    pfv[c] = bcol + c < B ? pf[bcol + c] : T(0);
   }
-  float colmax[4] = {0.f, 0.f, 0.f, 0.f};
-  unsigned long long okey[4] = {0ull, 0ull, 0ull, 0ull};
+  T colmax[4] = {T(0), T(0), T(0), T(0)};
+  OKey<T> okey[4] = {key_zero<T>(), key_zero<T>(), key_zero<T>(),
+                     key_zero<T>()};
   // rows in pairs: a pair's own rows and first PB band terms (weight and
   // state row) are all loaded before any is used
 #pragma unroll
   for (int i0 = 0; i0 < 4; i0 += 2) {
-    float4 pv[2], xb[2][PB];
-    float wb[2][PB];
+    V4<T> pv[2], xb[2][PB];
+    T wb[2][PB];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int j = s.rows[ty * 4 + i0 + h];
       pv[h] = j >= 0 ? load4_hint<VEC>(prev + static_cast<size_t>(j) * B,
                                        bcol, B, once)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
+                     : zero4<T>();
 #pragma unroll
       for (int o = 0; o < PB; ++o) {
         const int src = j - m.off[o];
         const bool ok = j >= 0 && j < RW && o < m.nO && m.off[o] != 0 &&
                         src >= 0 && src < RW;
-        wb[h][o] = ok ? p.band_w[static_cast<size_t>(o) * m.Sp + j] : 0.f;
+        wb[h][o] = ok ? p.band_w[static_cast<size_t>(o) * m.Sp + j] : T(0);
         xb[h][o] = ok ? load4_hint<VEC>(prev + static_cast<size_t>(src) * B,
                                         bcol, B, once)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
+                      : zero4<T>();
       }
     }
 #pragma unroll
@@ -639,18 +770,18 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM>& p, int t,
       const int r = ty * 4 + i0 + h, j = s.rows[r];
       if (j < 0) continue;
       const size_t jB = static_cast<size_t>(j) * B;
-      const float4 e =
+      const V4<T> e =
           load4<VEC>(ext_t + static_cast<size_t>(s.grp[r]) * B, bcol, B);
-      const float om = p.omega[j];
-      float a[4];
+      const T om = p.omega[j];
+      T a[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         // the phony row of the frame before is never stored: derived
         a[c] = (j == m.fin ? pfv[c] : get(pv[h], c)) * scv[c];
-        okey[c] = max(okey[c], omega_key(om * a[c], j));
+        okey[c] = key_max(okey[c], omega_key(om * a[c], j));
       }
       const bool main_row = j < RW;
-      float vb[4] = {0.f, 0.f, 0.f, 0.f};
+      T vb[4] = {T(0), T(0), T(0), T(0)};
       int cb[4] = {NO_CAND, NO_CAND, NO_CAND, NO_CAND};
       if (main_row) {
         int cb0 = static_cast<int>(m.Sm);
@@ -660,10 +791,10 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM>& p, int t,
           if (o >= m.nO) break;  // uniform across the block
           const int src = j - m.off[o];
           if (src < 0 || src >= RW) continue;  // no arc from outside
-          const float w = o < PB && m.off[o] != 0
-                              ? wb[h][o < PB ? o : 0]
-                              : p.band_w[static_cast<size_t>(o) * m.Sp + j];
-          const float4 x =
+          const T w = o < PB && m.off[o] != 0
+                          ? wb[h][o < PB ? o : 0]
+                          : p.band_w[static_cast<size_t>(o) * m.Sp + j];
+          const V4<T> x =
               m.off[o] == 0 ? pv[h]
               : o < PB      ? xb[h][o < PB ? o : 0]
                             : load4_hint<VEC>(
@@ -671,7 +802,7 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM>& p, int t,
                                   B, once);
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            const float v = w * (get(x, c) * scv[c]);
+            const T v = w * (get(x, c) * scv[c]);
             if (v > vb[c]) {
               vb[c] = v;
               cb[c] = cb0 + o;
@@ -681,7 +812,7 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM>& p, int t,
         if (is_tier || is_heavy) {  // a heavy row's: its family candidate
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            const float tv = s.u.ep.val[r][tx * 4 + c];
+            const T tv = s.u.ep.val[r][tx * 4 + c];
             if (tv > vb[c]) {
               vb[c] = tv;
               if constexpr (IDS) cb[c] = s.u.ep.id[r][tx * 4 + c];
@@ -690,18 +821,18 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM>& p, int t,
         }
         if constexpr (FAM) {  // the row's few family terms, pulled here
           if (!is_heavy) {
-            float fv[4] = {-1.f, -1.f, -1.f, -1.f};
+            T fv[4] = {T(-1), T(-1), T(-1), T(-1)};
             int fid[4] = {NO_CAND, NO_CAND, NO_CAND, NO_CAND};
             const int e1 = s.fr[r].y;
             for (int q = s.fr[r].x; q < e1; ++q) {
-              const float w = p.f.fam_w[q];
+              const T w = p.f.fam_w[q];
               const int id = IDS ? p.f.fam_cid[q] : 0;
-              const float4 x = load4_hint<VEC>(
+              const V4<T> x = load4_hint<VEC>(
                   prev + static_cast<size_t>(p.f.fam_src[q]) * B, bcol, B,
                   once);
 #pragma unroll
               for (int c = 0; c < 4; ++c) {
-                const float v = w * (get(x, c) * scv[c]);
+                const T v = w * (get(x, c) * scv[c]);
                 if (fam_beats<IDS>(v, id, fv[c], fid[c])) {
                   fv[c] = v;
                   fid[c] = id;
@@ -717,19 +848,19 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM>& p, int t,
           }
         }
       }
-      float y[4];
+      T y[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         y[c] = (first ? a[c] : vb[c]) * get(e, c);
-        colmax[c] = fmaxf(colmax[c], y[c]);
+        colmax[c] = fmax_(colmax[c], y[c]);
       }
       if (first || j != m.fin) {
-        store4_hint<VEC>(out + jB, bcol, B, make_float4(y[0], y[1], y[2], y[3]),
+        store4_hint<VEC>(out + jB, bcol, B, make4<T>(y[0], y[1], y[2], y[3]),
                          keep);
         if constexpr (!IDS)
           if (ck != nullptr)
             store4_hint<VEC>(ck + jB, bcol, B,
-                             make_float4(y[0], y[1], y[2], y[3]), once);
+                             make4<T>(y[0], y[1], y[2], y[3]), once);
       }
       if (IDS && main_row) {
         if constexpr (VEC) {
@@ -749,44 +880,48 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM>& p, int t,
   }
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    s.u.ep.rm[ty][tx * 4 + c] = __float_as_uint(colmax[c]);
+    s.u.ep.rm[ty][tx * 4 + c] = to_bits(colmax[c]);
     s.u.ep.rk[ty][tx * 4 + c] = okey[c];
   }
   __syncthreads();
   if (tid < TB && b0 + tid < B) {
-    unsigned mx = 0u;
-    unsigned long long key = 0ull;
+    BitsT<T> mx = 0;
+    OKey<T> key = key_zero<T>();
     for (int q = 0; q < 16; ++q) {
       mx = max(mx, s.u.ep.rm[q][tid]);
-      key = max(key, s.u.ep.rk[q][tid]);
+      key = key_max(key, s.u.ep.rk[q][tid]);
     }
     const size_t at = (static_cast<size_t>(t) * CM + blockIdx.x % CM) * B +
                       b0 + tid;
     atomicMax(p.cm + at, mx);
-    atomicMax(p.omk + at, key);
+    if constexpr (is_f64<T>())
+      omega_put<IDS>(p, at, key);
+    else
+      atomicMax(p.omk + at, key);
   }
   __syncthreads();  // the tables and the union are free for the next item
 }
 
 // The slot frame f of a K7n launch is saved in, or -1.
-__device__ __forceinline__ int save_slot(const VitArgs& p, int f) {
+template <class T>
+__device__ __forceinline__ int save_slot(const VitArgs<T>& p, int f) {
   return (f + 1) % p.stride == 0 ? (f + 1) / p.stride - 1 : -1;
 }
 
 // Where frame f's state is kept: K7's ping-pong pair, or K7n's saved frames
 // when it saves every frame.
-template <bool IDS>
-__device__ __forceinline__ float* state_of(const VitArgs& p, int f,
-                                           size_t SB) {
+template <bool IDS, class T>
+__device__ __forceinline__ T* state_of(const VitArgs<T>& p, int f,
+                                       size_t SB) {
   if (!IDS && p.stride == 1) return p.save + static_cast<size_t>(f) * SB;
   return p.work + (f % 2) * SB;
 }
 
 // K7n's record of frame f (CTA 0, column b): its scale and its phony row
 // in the frame's save slot, if it has one.  Returns the slot.
-__device__ __forceinline__ int record_save(const VitArgs& p, int f, int b,
-                                           float scale, float yfin,
-                                           size_t SB) {
+template <class T>
+__device__ __forceinline__ int record_save(const VitArgs<T>& p, int f, int b,
+                                           T scale, T yfin, size_t SB) {
   const int slot = save_slot(p, f);
   if (slot >= 0) {
     p.save_scale[static_cast<size_t>(slot) * p.B + b] = scale;
@@ -800,27 +935,27 @@ __device__ __forceinline__ int record_save(const VitArgs& p, int f, int b,
 // fins, ksum and shift), then takes items from the frame's queue; one grid
 // barrier per frame.  After the last: frame Nf-1's end, its scale and its
 // phony state.  K7n (IDS = false) saves its frames on the way (save_slot).
-template <bool VEC, bool IDS, bool FAM>
+template <bool VEC, bool IDS, bool FAM, class T>
 __global__ void __launch_bounds__(NT, VIT_BLOCKS)
-    vit_sweep_kernel(const __grid_constant__ VitArgsT<FAM> p) {
+    vit_sweep_kernel(const __grid_constant__ VitArgsT<FAM, T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  VitSmemT<FAM>& s = *reinterpret_cast<VitSmemT<FAM>*>(smem_raw);
-  float* sc = reinterpret_cast<float*>(smem_raw + sizeof(VitSmemT<FAM>));
-  float* pf = sc + p.B;
+  VitSmemT<FAM, T>& s = *reinterpret_cast<VitSmemT<FAM, T>*>(smem_raw);
+  T* sc = reinterpret_cast<T*>(smem_raw + sizeof(VitSmemT<FAM, T>));
+  T* pf = sc + p.B;
   const Meta& m = p.m;
   const int B = p.B, ncb = (B + TB - 1) / TB, tid = threadIdx.x;
   const size_t SB = static_cast<size_t>(m.Sp) * B;
   const size_t PB1 = static_cast<size_t>(m.P1) * B;
   for (int t = 0; t < p.Nf; ++t) {
-    const float* prev = t == 0 ? p.a0 : state_of<IDS>(p, t - 1, SB);
-    float* out = state_of<IDS>(p, t, SB);
-    float* ck = nullptr;  // K7n: a checkpoint frame's save slot
+    const T* prev = t == 0 ? p.a0 : state_of<IDS>(p, t - 1, SB);
+    T* out = state_of<IDS>(p, t, SB);
+    T* ck = nullptr;  // K7n: a checkpoint frame's save slot
     if constexpr (!IDS)
       if (p.stride > 1 && save_slot(p, t) >= 0)
         ck = p.save + static_cast<size_t>(save_slot(p, t)) * SB;
     if (t + 1 < p.Nf) {  // the next frame's emissions into L2, spread
-      constexpr int LINE = 32;  // floats per 128-byte line
-      const float* e = p.ext + (t + 1) * PB1;
+      constexpr int LINE = 128 / sizeof(T);  // values per 128-byte line
+      const T* e = p.ext + (t + 1) * PB1;
       const size_t n_e = (PB1 + LINE - 1) / LINE;
       for (size_t i = static_cast<size_t>(blockIdx.x) * NT + tid; i < n_e;
            i += static_cast<size_t>(gridDim.x) * NT)
@@ -828,7 +963,7 @@ __global__ void __launch_bounds__(NT, VIT_BLOCKS)
     }
     for (int b = tid; b < B; b += NT) {
       if (t == 0) {
-        sc[b] = IDS || p.s0 == nullptr ? 1.f : p.s0[b];
+        sc[b] = IDS || p.s0 == nullptr ? T(1) : p.s0[b];
         pf[b] = p.a0[static_cast<size_t>(m.fin) * B + b];
       } else {
         sc[b] = end_of_frame<IDS, FAM>(p, t, b, prev, blockIdx.x == 0,
@@ -856,9 +991,9 @@ __global__ void __launch_bounds__(NT, VIT_BLOCKS)
   }
   if (blockIdx.x == 0) {  // frame Nf-1's end
     const int t = p.Nf;
-    float* prev = state_of<IDS>(p, t - 1, SB);
+    T* prev = state_of<IDS>(p, t - 1, SB);
     for (int b = tid; b < B; b += NT) {
-      float yfin;
+      T yfin;
       p.scale[b] = end_of_frame<IDS, FAM>(p, t, b, prev, true, &yfin);
       if ((IDS ? t : p.t0 + t) - 1 >= 1)
         prev[static_cast<size_t>(m.fin) * B + b] = yfin;
@@ -909,29 +1044,37 @@ __global__ void __launch_bounds__(WALK_THREADS) vit_walk_kernel(
 }
 
 // Dynamic shared memory of one CTA at batch B.
-size_t vit_smem_bytes(int B, bool fam) {
-  return (fam ? sizeof(VitSmemT<true>) : sizeof(VitSmem)) +
+size_t vit_smem_bytes(int B, bool fam, bool f64) {
+  if (f64)
+    return (fam ? sizeof(VitSmemT<true, double>) : sizeof(VitSmem<double>)) +
+           2 * static_cast<size_t>(B) * sizeof(double);
+  return (fam ? sizeof(VitSmemT<true, float>) : sizeof(VitSmem<float>)) +
          2 * static_cast<size_t>(B) * sizeof(float);
 }
 
-template <bool FAM>
+template <bool FAM, class T>
 const void* vit_kernel(bool vec, bool ids) {
   if (ids)
-    return vec ? (const void*)vit_sweep_kernel<true, true, FAM>
-               : (const void*)vit_sweep_kernel<false, true, FAM>;
-  return vec ? (const void*)vit_sweep_kernel<true, false, FAM>
-             : (const void*)vit_sweep_kernel<false, false, FAM>;
+    return vec ? (const void*)vit_sweep_kernel<true, true, FAM, T>
+               : (const void*)vit_sweep_kernel<false, true, FAM, T>;
+  return vec ? (const void*)vit_sweep_kernel<true, false, FAM, T>
+             : (const void*)vit_sweep_kernel<false, false, FAM, T>;
 }
 
-const void* vit_kernel(bool vec, bool ids, bool fam) {
-  return fam ? vit_kernel<true>(vec, ids) : vit_kernel<false>(vec, ids);
+const void* vit_kernel(bool vec, bool ids, bool fam, bool f64) {
+  if (f64)
+    return fam ? vit_kernel<true, double>(vec, ids)
+               : vit_kernel<false, double>(vec, ids);
+  return fam ? vit_kernel<true, float>(vec, ids)
+             : vit_kernel<false, float>(vec, ids);
 }
 
 // CTAs of the sweep that can be co-resident on the current device at batch
 // B (0 where the device cannot launch cooperatively).
-cudaError_t vit_co_resident(bool vec, bool ids, bool fam, int B, int* n) {
-  const void* kern = vit_kernel(vec, ids, fam);
-  const size_t smem = vit_smem_bytes(B, fam);
+cudaError_t vit_co_resident(bool vec, bool ids, bool fam, bool f64, int B,
+                            int* n) {
+  const void* kern = vit_kernel(vec, ids, fam, f64);
+  const size_t smem = vit_smem_bytes(B, fam, f64);
   int dev = 0, n_sm = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -949,23 +1092,27 @@ cudaError_t vit_co_resident(bool vec, bool ids, bool fam, int B, int* n) {
 }
 
 // The zeroed scratch of a sweep at batch B and Nf frames, carved from one
-// buffer: the omega keys omk (Nf, CM, B) 64-bit words first, then the
-// column maxima cm (Nf, CM, B), the queue positions ctr (Nf) and the
-// barrier's SYNC_GEN + 1 words, 32-bit each.  Bytes, or -1 past 2^62.
-long long vit_scratch_bytes(int B, int Nf) {
+// buffer, n = Nf x CM x B words each: the omega keys omk (64-bit; double:
+// the pairs' value bits), the column maxima cm (32-bit; double: 64-bit),
+// double only the pairs' j-words omw, the zero j-words omz and the pairs'
+// locks (32-bit each), then the queue positions ctr (Nf) and the barrier's
+// SYNC_GEN + 1 words.  Bytes, or -1 past 2^62.
+long long vit_scratch_bytes(int B, int Nf, bool f64) {
   if (B <= 0 || Nf <= 0) return -1;
   const long long n_cm = static_cast<long long>(Nf) * CM * B;
+  if (f64) return n_cm * 16 + (3 * n_cm + Nf + SYNC_GEN + 1) * 4;
   return n_cm * 8 + (n_cm + Nf + SYNC_GEN + 1) * 4;
 }
 
 // The family tables from the host's int64 array (vit_scan._vlayout: seven
 // device addresses).
-VitFam parse_fam(const long long* a) {
-  VitFam f;
+template <class T>
+VitFam<T> parse_fam(const long long* a) {
+  VitFam<T> f;
   f.row_pdf = reinterpret_cast<const int*>(a[0]);
   f.fam_ptr = reinterpret_cast<const int*>(a[1]);
   f.fam_src = reinterpret_cast<const int*>(a[2]);
-  f.fam_w = reinterpret_cast<const float*>(a[3]);
+  f.fam_w = reinterpret_cast<const T*>(a[3]);
   f.fam_cid = reinterpret_cast<const uint8_t*>(a[4]);
   f.heavy_rows = reinterpret_cast<const int*>(a[5]);
   f.cbase = reinterpret_cast<const int*>(a[6]);
@@ -975,25 +1122,27 @@ VitFam parse_fam(const long long* a) {
 // The cooperative launch of K7 (ids) or K7n on n_ctas CTAs, all of them
 // co-resident, in the family instantiation (FAM, its tables from ilay) or
 // the uniform one.
-template <bool FAM>
-cudaError_t launch(const VitArgs& a, const long long* ilay, bool ids,
+template <bool FAM, class T>
+cudaError_t launch(const VitArgs<T>& a, const long long* ilay, bool ids,
                    int n_ctas, void* stream) {
-  const bool vec = a.B % 4 == 0;
+  const bool vec = a.B % 4 == 0, f64 = is_f64<T>();
   int max_ctas = 0;
-  cudaError_t err = vit_co_resident(vec, ids, FAM, a.B, &max_ctas);
+  cudaError_t err = vit_co_resident(vec, ids, FAM, f64, a.B, &max_ctas);
   if (err != cudaSuccess) return err;
   if (n_ctas > max_ctas) return cudaErrorCooperativeLaunchTooLarge;
-  VitArgsT<FAM> arg{};
-  static_cast<VitArgs&>(arg) = a;
-  if constexpr (FAM) arg.f = parse_fam(ilay);
+  VitArgsT<FAM, T> arg{};
+  static_cast<VitArgs<T>&>(arg) = a;
+  if constexpr (FAM) arg.f = parse_fam<T>(ilay);
   void* args[] = {&arg};
-  err = cudaLaunchCooperativeKernel(vit_kernel(vec, ids, FAM), dim3(n_ctas),
-                                    dim3(NT), args, vit_smem_bytes(a.B, FAM),
+  err = cudaLaunchCooperativeKernel(vit_kernel(vec, ids, FAM, f64),
+                                    dim3(n_ctas), dim3(NT), args,
+                                    vit_smem_bytes(a.B, FAM, f64),
                                     static_cast<cudaStream_t>(stream));
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-cudaError_t launch(const VitArgs& a, const long long* ilay, bool ids,
+template <class T>
+cudaError_t launch(const VitArgs<T>& a, const long long* ilay, bool ids,
                    int n_ctas, void* stream) {
   return is_fam(a.m) ? launch<true>(a, ilay, ids, n_ctas, stream)
                      : launch<false>(a, ilay, ids, n_ctas, stream);
@@ -1011,13 +1160,14 @@ bool layout_ok(const Meta& m, const long long* ilay, int RW) {
 }
 
 // The arguments K7 and K7n share, checked; false if any is out of range.
-bool common_args(VitArgs* a, const long long* imeta, const long long* ilay,
+template <class T>
+bool common_args(VitArgs<T>* a, const long long* imeta, const long long* ilay,
                  int B, int Nf, int RW, int n_items, int n_ctas,
                  void* scratch, long long scratch_bytes) {
   if (!parse_meta(imeta, &a->m) || !layout_ok(a->m, ilay, RW) || B <= 0 ||
       Nf <= 0 || RW <= 0 || RW > a->m.Sp || a->m.fin < RW || n_ctas <= 0 ||
       n_items != a->m.n_tiles * ((B + TB - 1) / TB) ||
-      scratch_bytes != vit_scratch_bytes(B, Nf) ||
+      scratch_bytes != vit_scratch_bytes(B, Nf, is_f64<T>()) ||
       reinterpret_cast<size_t>(scratch) % 8 != 0)
     return false;
   const size_t n_cm = static_cast<size_t>(Nf) * CM * B;
@@ -1025,18 +1175,103 @@ bool common_args(VitArgs* a, const long long* imeta, const long long* ilay,
   a->Nf = Nf;
   a->RW = RW;
   a->omk = static_cast<unsigned long long*>(scratch);
-  a->cm = reinterpret_cast<unsigned*>(a->omk + n_cm);
-  a->ctr = a->cm + n_cm;
+  unsigned* words;
+  if constexpr (is_f64<T>()) {
+    a->cm = a->omk + n_cm;
+    a->omw = reinterpret_cast<unsigned*>(a->cm + n_cm);
+    a->omz = a->omw + n_cm;
+    a->olock = a->omz + n_cm;
+    words = a->olock + n_cm;
+  } else {
+    a->cm = reinterpret_cast<unsigned*>(a->omk + n_cm);
+    words = a->cm + n_cm;
+  }
+  a->ctr = words;
   a->sync = a->ctr + Nf;
   return true;
 }
 
+// K7's arguments in the value type T (K7n adds its own).
+template <class T>
+VitArgs<T> sweep_args(const void* a0, const void* ext, const void* mshift,
+                      const void* band_w, const void* Wt, const void* omega,
+                      const int* band_rows, const int* queue, int n_items,
+                      void* work, void* scale, void* ksum, void* shift,
+                      void* comp) {
+  VitArgs<T> a{};
+  a.a0 = static_cast<const T*>(a0);
+  a.ext = static_cast<const T*>(ext);
+  a.mshift = static_cast<const T*>(mshift);
+  a.band_w = static_cast<const T*>(band_w);
+  a.Wt = static_cast<const T*>(Wt);
+  a.omega = static_cast<const T*>(omega);
+  a.band_rows = band_rows;
+  a.queue = reinterpret_cast<const int2*>(queue);
+  a.n_items = n_items;
+  a.work = static_cast<T*>(work);
+  a.scale = static_cast<T*>(scale);
+  a.ksum = static_cast<T*>(ksum);
+  a.shift = static_cast<T*>(shift);
+  a.comp = static_cast<T*>(comp);
+  a.stride = 1;
+  return a;
+}
+
+template <class T>
+int vit_fwd(const void* a0, const void* ext, const void* mshift,
+            const void* band_w, const void* Wt, const void* omega,
+            const int* band_rows, const long long* imeta,
+            const long long* ilay, const int* queue, int n_items, int n_ctas,
+            int B, int Nf, int RW, void* work, uint8_t* bps, int* fins,
+            void* scale, void* ksum, void* shift, void* comp, void* scratch,
+            long long scratch_bytes, void* stream) {
+  VitArgs<T> a = sweep_args<T>(a0, ext, mshift, band_w, Wt, omega, band_rows,
+                               queue, n_items, work, scale, ksum, shift,
+                               comp);
+  if (!common_args(&a, imeta, ilay, B, Nf, RW, n_items, n_ctas, scratch,
+                   scratch_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.Sm4 = (a.m.Sm + 3) / 4 * 4;
+  a.bps = bps;
+  a.fins = fins;
+  return static_cast<int>(launch(a, ilay, true, n_ctas, stream));
+}
+
+template <class T>
+int vit_fwd_noid(const void* a0, const void* s0, const void* ext,
+                 const void* mshift, const void* band_w, const void* Wt,
+                 const void* omega, const int* band_rows,
+                 const long long* imeta, const long long* ilay,
+                 const int* queue, int n_items, int n_ctas, int B, int Nf,
+                 int RW, int t0, int stride, void* work, void* save,
+                 void* save_scale, int n_save, void* scale, void* ksum,
+                 void* shift, void* comp, void* scratch,
+                 long long scratch_bytes, void* stream) {
+  VitArgs<T> a = sweep_args<T>(a0, ext, mshift, band_w, Wt, omega, band_rows,
+                               queue, n_items, work, scale, ksum, shift,
+                               comp);
+  if (!common_args(&a, imeta, ilay, B, Nf, RW, n_items, n_ctas, scratch,
+                   scratch_bytes) ||
+      t0 < 0 || stride <= 0 || n_save != Nf / stride ||
+      (n_save > 0 && (save == nullptr || save_scale == nullptr)) ||
+      (stride > 1 && work == nullptr) || s0 == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.Sm4 = (a.m.Sm + 3) / 4 * 4;
+  a.s0 = static_cast<const T*>(s0);
+  a.save = static_cast<T*>(save);
+  a.save_scale = static_cast<T*>(save_scale);
+  a.t0 = t0;
+  a.stride = stride;
+  return static_cast<int>(launch(a, ilay, false, n_ctas, stream));
+}
+
 }  // namespace
 
-// K7's layout at batch B and Nf frames: out[0] the bytes of the zeroed
-// scratch mm_vit_fwd takes, out[1] the tier candidates per max group (GS).
-extern "C" int mm_vit_layout(int B, int Nf, long long* out) {
-  const long long n = vit_scratch_bytes(B, Nf);
+// K7's layout at batch B and Nf frames in float (f64 == 0) or double: out[0]
+// the bytes of the zeroed scratch mm_vit_fwd takes, out[1] the tier
+// candidates per max group (GS).
+extern "C" int mm_vit_layout(int B, int Nf, int f64, long long* out) {
+  const long long n = vit_scratch_bytes(B, Nf, f64 != 0);
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   out[0] = n;
   out[1] = GS;
@@ -1044,14 +1279,14 @@ extern "C" int mm_vit_layout(int B, int Nf, long long* out) {
 }
 
 // CTAs of the K7 launch (ids != 0) or the K7n one (ids == 0), in the family
-// instantiation (fam != 0) or the uniform one, that can be co-resident on
-// the current device at batch B (vec: B % 4 == 0), or minus a CUDA error
-// code.
-extern "C" int mm_vit_ctas(int vec, int ids, int fam, int B) {
+// instantiation (fam != 0) or the uniform one, in double (f64 != 0) or
+// float, that can be co-resident on the current device at batch B (vec:
+// B % 4 == 0), or minus a CUDA error code.
+extern "C" int mm_vit_ctas(int vec, int ids, int fam, int f64, int B) {
   int n = 0;
   if (B <= 0) return -static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err =
-      vit_co_resident(vec != 0, ids != 0, fam != 0, B, &n);
+      vit_co_resident(vec != 0, ids != 0, fam != 0, f64 != 0, B, &n);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -1066,38 +1301,19 @@ extern "C" int mm_vit_ctas(int vec, int ids, int fam, int B) {
 // scratch: scratch_bytes (mm_vit_layout) of zeroes, 8-byte aligned.  A
 // capped layout (imeta's overflow rows, family terms or heavy rows) takes
 // the family instantiation, its tables at the addresses of ilay
-// (vit_scan._vlayout); the uniform one does not read ilay.
+// (vit_scan._vlayout); the uniform one does not read ilay.  f64 != 0: every
+// value (a0 .. omega, work, scale .. comp, the family weights) is double.
 extern "C" int mm_vit_fwd(
-    const float* a0, const float* ext, const float* mshift,
-    const float* band_w, const float* Wt, const float* omega,
-    const int* band_rows, const long long* imeta, const long long* ilay,
-    const int* queue, int n_items, int n_ctas, int B, int Nf, int RW,
-    float* work, uint8_t* bps, int* fins, float* scale, float* ksum,
-    float* shift, float* comp, void* scratch, long long scratch_bytes,
-    void* stream) {
-  VitArgs a{};
-  if (!common_args(&a, imeta, ilay, B, Nf, RW, n_items, n_ctas, scratch,
-                   scratch_bytes))
-    return static_cast<int>(cudaErrorInvalidValue);
-  a.a0 = a0;
-  a.ext = ext;
-  a.mshift = mshift;
-  a.band_w = band_w;
-  a.Wt = Wt;
-  a.Sm4 = (a.m.Sm + 3) / 4 * 4;
-  a.omega = omega;
-  a.band_rows = band_rows;
-  a.queue = reinterpret_cast<const int2*>(queue);
-  a.n_items = n_items;
-  a.work = work;
-  a.bps = bps;
-  a.fins = fins;
-  a.scale = scale;
-  a.ksum = ksum;
-  a.shift = shift;
-  a.comp = comp;
-  a.stride = 1;
-  return static_cast<int>(launch(a, ilay, true, n_ctas, stream));
+    const void* a0, const void* ext, const void* mshift, const void* band_w,
+    const void* Wt, const void* omega, const int* band_rows,
+    const long long* imeta, const long long* ilay, const int* queue,
+    int n_items, int n_ctas, int B, int Nf, int RW, int f64, void* work,
+    uint8_t* bps, int* fins, void* scale, void* ksum, void* shift, void* comp,
+    void* scratch, long long scratch_bytes, void* stream) {
+  auto run = f64 ? &vit_fwd<double> : &vit_fwd<float>;
+  return run(a0, ext, mshift, band_w, Wt, omega, band_rows, imeta, ilay,
+             queue, n_items, n_ctas, B, Nf, RW, work, bps, fins, scale, ksum,
+             shift, comp, scratch, scratch_bytes, stream);
 }
 
 // K7n: K7 without the ids over launch frames 0 .. Nf-1, which are global
@@ -1111,41 +1327,18 @@ extern "C" int mm_vit_fwd(
 // entry (zero for a sweep from frame 0).  The other arguments as for
 // mm_vit_fwd.
 extern "C" int mm_vit_fwd_noid(
-    const float* a0, const float* s0, const float* ext, const float* mshift,
-    const float* band_w, const float* Wt, const float* omega,
+    const void* a0, const void* s0, const void* ext, const void* mshift,
+    const void* band_w, const void* Wt, const void* omega,
     const int* band_rows, const long long* imeta, const long long* ilay,
     const int* queue, int n_items, int n_ctas, int B, int Nf, int RW, int t0,
-    int stride, float* work, float* save, float* save_scale, int n_save,
-    float* scale, float* ksum, float* shift, float* comp, void* scratch,
-    long long scratch_bytes, void* stream) {
-  VitArgs a{};
-  if (!common_args(&a, imeta, ilay, B, Nf, RW, n_items, n_ctas, scratch,
-                   scratch_bytes) ||
-      t0 < 0 || stride <= 0 || n_save != Nf / stride ||
-      (n_save > 0 && (save == nullptr || save_scale == nullptr)) ||
-      (stride > 1 && work == nullptr) || s0 == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  a.a0 = a0;
-  a.s0 = s0;
-  a.ext = ext;
-  a.mshift = mshift;
-  a.band_w = band_w;
-  a.Wt = Wt;
-  a.Sm4 = (a.m.Sm + 3) / 4 * 4;
-  a.omega = omega;
-  a.band_rows = band_rows;
-  a.queue = reinterpret_cast<const int2*>(queue);
-  a.n_items = n_items;
-  a.work = work;
-  a.save = save;
-  a.save_scale = save_scale;
-  a.t0 = t0;
-  a.stride = stride;
-  a.scale = scale;
-  a.ksum = ksum;
-  a.shift = shift;
-  a.comp = comp;
-  return static_cast<int>(launch(a, ilay, false, n_ctas, stream));
+    int stride, int f64, void* work, void* save, void* save_scale,
+    int n_save, void* scale, void* ksum, void* shift, void* comp,
+    void* scratch, long long scratch_bytes, void* stream) {
+  auto run = f64 ? &vit_fwd_noid<double> : &vit_fwd_noid<float>;
+  return run(a0, s0, ext, mshift, band_w, Wt, omega, band_rows, imeta, ilay,
+             queue, n_items, n_ctas, B, Nf, RW, t0, stride, work, save,
+             save_scale, n_save, scale, ksum, shift, comp, scratch,
+             scratch_bytes, stream);
 }
 
 // The walk over ids (Nf, RW, B) and fins (Nf, B) into states (Nf-1, B).

@@ -24,9 +24,9 @@ rule, e.g. an LF-MMI denominator) runs over a (Sp, B) probability state:
   state and scale, keeping every frame's state or a two-slot ring.  It is
   K6a's kernel with each FMA a multiply and a max (exact: the max does not
   depend on order, and an all-zero tile gives products of 0 against a state
-  >= 0, as the dense Wp does).  Its operator is float32 on every graph
-  (:func:`trop_operator`): the JAX package reads ``dense_fwd_exp`` in
-  float32 in every precision mode.
+  >= 0, as the dense Wp does).  Its operator is in the graph's dtype in
+  every precision mode (:func:`trop_operator`): the JAX package reads
+  ``dense_fwd_exp`` unrounded to bf16.
 
 The TPU kernels' one-hot matrices (``OH_state @ ext_t`` and ``oh_pdf @ γ``)
 are a TPU device for a gather and a segment sum.  Here the emission is a
@@ -42,6 +42,13 @@ backward rescales beta = y ⊙ e by the power of two below its column max,
 where the TPU kernel divides y by its column max before the emission; the
 posteriors are normalised per frame, so both give the same posteriors up
 to rounding.
+
+A float64 graph (``compile_fsm(dtype=torch.float64)``, which the JAX
+package runs in XLA: its Pallas kernels take float32) takes each kernel's
+float64 instantiation: the operators, states, scales, emissions, partial
+sums and posteriors all float64, the column maxima on a double's 64 bits.
+It is held to the float64 twins here; the JAX package's float64 'dense'
+route rounds each frame's product to float32 (``preferred_element_type``).
 
 A ``precision='bf16'`` graph keeps its operators in bf16 (half the bytes
 streamed per frame) and multiplies them by the state rounded to bf16 on
@@ -93,16 +100,20 @@ __all__ = [
     "trop_operator",
     "trop_sweep",
     "trop_sweep_plain",
+    "smem_bytes",
     "LAUNCHES",
     "LAUNCHES_BF16",
+    "LAUNCHES_F64",
     "reset_launch_counts",
 ]
 
 # launches of each CUDA kernel entry point, counted by its wrapper: the
 # float32 instantiations in LAUNCHES, the bf16 ones (a precision='bf16'
-# graph's tensor-core product) in LAUNCHES_BF16; K6t has float32 only
+# graph's tensor-core product) in LAUNCHES_BF16, the float64 ones (a float64
+# graph) in LAUNCHES_F64; K6t has no bf16 instantiation
 LAUNCHES_BF16 = {"dense_fwd": 0, "dense_bwd": 0}
 LAUNCHES = {**LAUNCHES_BF16, "dense_trop": 0}
+LAUNCHES_F64 = dict(LAUNCHES)
 
 _TILE = 32  # operator tile edge (TR = TK in csrc/dense_scan.cu)
 _TILE_COLS = 128  # batch columns per column block (TB)
@@ -111,9 +122,14 @@ _SMS = 132  # SMs of an H100 SXM: the plan's grid where there is no card
 
 
 def reset_launch_counts():
-    for counts in (LAUNCHES, LAUNCHES_BF16):
+    for counts in (LAUNCHES, LAUNCHES_BF16, LAUNCHES_F64):
         for k in counts:
             counts[k] = 0
+
+
+def _counts(prec: int) -> dict:
+    """The launch counter of an instantiation (:func:`_check_op`'s code)."""
+    return (LAUNCHES, LAUNCHES_BF16, LAUNCHES_F64)[prec]
 
 
 def make_dense_operator(dense_w: torch.Tensor):
@@ -136,15 +152,17 @@ def make_dense_operator(dense_w: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def _device_bytes(cf, B: int, n_frames: int) -> int:
-    """Device bytes of one run beyond the compiled graph: the kernels' two
-    (Sp, Sp) operators (bf16 for a bf16 graph, else float32), every
-    frame's state and scale (kept in full, as the TPU kernel keeps its
-    alphas), the (Nf, P1, B) emission and posterior streams, the
-    backward's beta pair and gamma, all float32."""
+    """Device bytes of one run beyond the compiled graph, every buffer
+    sized by its dtype: the kernels' two (Sp, Sp) operators (bf16 for a
+    bf16 graph, else the graph's dtype), every frame's state and scale
+    (kept in full, as the TPU kernel keeps its alphas), the (Nf, P1, B)
+    emission and posterior streams, the backward's beta pair and gamma, in
+    the graph's dtype (float32, or float64)."""
     Sp, P1, Nf = cf.padded_states, cf.num_pdfs + 1, n_frames + 1
-    op = 2 if cf.precision == "bf16" else 4
+    f = cf.alpha_hat.element_size()
+    op = 2 if cf.precision == "bf16" else f
     return (op * 2 * Sp * Sp
-            + 4 * (Nf * (Sp + 1) * B + 2 * Nf * P1 * B + 3 * Sp * B))
+            + f * (Nf * (Sp + 1) * B + 2 * Nf * P1 * B + 3 * Sp * B))
 
 
 def _free_bytes(device):
@@ -162,16 +180,20 @@ def dense_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
 
     The predicates shared with the JAX package's
     ``_pallas_dense_reject_reason`` come first, in its order and words
-    (strategy, domain, one-hot present, not batched, not multi-pdf,
-    float32).  Its TPU rules (backend, the VMEM budget of
-    ``pallas_scan_supported``) are not copied: each CTA keeps its range of
-    the operator's non-zero tiles in shared memory where that fits (4.5 KB
-    a tile in float32, 2 KB in bf16, beside 34-43 KB of stages; at most
-    227 KB per CTA) and streams them every frame where it does not, so no
-    operator is too large or too dense.  Instead the padded state count
-    must be a multiple of the kernels' 32-row tile, and the device bytes
-    of a run (``_device_bytes``) must fit the free memory of ``device``
-    when that is a CUDA device (checked where a card is present)."""
+    (strategy, domain, one-hot present, not batched, not multi-pdf), but
+    for the dtype: float32 and float64 graphs both run (the TPU kernels
+    take float32); precision 'bf16' with float64, which ``compile_fsm``
+    refuses, is refused here too (ROADMAP queue 1 item 9's remainder).
+    Its TPU rules (backend, the VMEM budget of ``pallas_scan_supported``)
+    are not copied: each CTA keeps its range of the operator's non-zero
+    tiles in shared memory where that fits (4.5 KB a tile in float32, 2 KB
+    in bf16, 9 KB in float64, beside 34-82 KB of stages, :func:`smem_bytes`;
+    at most 227 KB per CTA) and streams them every frame where it does not,
+    so no operator is too large or too dense.  Instead the padded state
+    count must be a multiple of the kernels' 32-row tile, and the device
+    bytes of a run (``_device_bytes``) must fit the free memory of
+    ``device`` when that is a CUDA device (checked where a card is
+    present)."""
     if cf.strategy != "dense":
         return f"strategy {cf.strategy!r} != 'dense'"
     if cf.domain != "prob":
@@ -182,9 +204,12 @@ def dense_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
         return "batched CompiledFSM"
     if cf.multi_pdf:
         return "general multi-pdf C-hat"
-    if cf.alpha_hat.dtype != torch.float32:
+    if cf.alpha_hat.dtype not in (torch.float32, torch.float64):
         dt = str(cf.alpha_hat.dtype).removeprefix("torch.")
-        return f"operator dtype {dt} (the CUDA kernels are f32)"
+        return f"operator dtype {dt} (the CUDA kernels are f32 or f64)"
+    if cf.precision == "bf16" and cf.alpha_hat.dtype == torch.float64:
+        return ("precision 'bf16' with dtype float64 (ROADMAP queue 1 item "
+                "9, its remainder)")
     Sp = cf.padded_states
     if Sp % _TILE:
         return (f"padded states {Sp} not a multiple of the kernels' "
@@ -211,8 +236,8 @@ class TilePlan(NamedTuple):
     cut into G contiguous ranges of equal tile count, one per CTA of the
     persistent grid.  A CTA walks its range as segments: the part of one
     row tile that lies in it, or a row tile without a non-zero tile."""
-    # (T, 1024): float32 tiles row-major, or bf16 tiles in the mma.sync
-    # m16n8k16 A-fragment order [row half][k half][lane][4 words]
+    # (T, 1024): float32 or float64 tiles row-major, or bf16 tiles in the
+    # mma.sync m16n8k16 A-fragment order [row half][k half][lane][4 words]
     tiles: torch.Tensor
     tile_k: torch.Tensor  # (T,) int32 k tile of each packed tile
     # (Sp / 32 + 1,) int32: row tile r owns packed tiles [row_ptr[r],
@@ -286,6 +311,24 @@ def tile_plan(w: torch.Tensor, n_ctas: int) -> TilePlan:
                     max_tiles=int(np.diff(lo).max()))
 
 
+def smem_bytes(pl: TilePlan) -> tuple:
+    """(resident, streaming): the dynamic shared memory of one CTA of the
+    plan's launch, as csrc/dense_scan.cu's ``Layout::bytes`` counts it,
+    with the largest range's tiles kept on chip, or streamed through the
+    two-stage ring beside the state blocks.  A tile and a 32 x 128 state
+    stage take 4 bytes a value in float32 and 8 in float64 (their rows
+    padded by 4 values); bf16 tiles are packed fragments (2 KB), their
+    stages bf16 row pairs, beside the float32 accumulator scratch."""
+    if pl.tiles.dtype == torch.bfloat16:
+        tile, stage = _TILE * _TILE * 2, _TILE // 2 * (_TILE_COLS + 8) * 4
+        scr = _TILE * (_TILE_COLS + 4) * 4
+    else:
+        f = pl.tiles.element_size()
+        tile, stage, scr = _TILE * (_TILE + 4) * f, _TILE * _TILE_COLS * f, 0
+    return (pl.max_tiles * tile + 2 * stage + scr,
+            2 * (stage + tile) + scr)
+
+
 class DenseOp(NamedTuple):
     Sp: int
     P1: int  # pdfs + 1 (the phony pdf last)
@@ -336,12 +379,13 @@ def kernel_operator(cf) -> DenseOp:
     """The dense scan's operator of an unstacked 'dense' CompiledFSM, built
     once per graph (cached on it).  The probability operators fold
     exp(row_max) back into the exp-shifted matrices exactly as the JAX
-    package's ``_fb_prob_pallas`` does (``inference.py:1327-1328``), and
-    are stored in bf16 for a bf16 graph; their plans judge the tiles in
-    that dtype."""
+    package's ``_fb_prob_pallas`` does (``inference.py:1327-1328``), in the
+    graph's dtype (float32, or float64), and are stored in bf16 for a bf16
+    graph; their plans judge the tiles in that dtype."""
     kop = cf._cache.get("dense_scan")
     if kop is None:
-        wdt = torch.bfloat16 if cf.precision == "bf16" else torch.float32
+        wdt = (torch.bfloat16 if cf.precision == "bf16"
+               else cf.alpha_hat.dtype)
         kop = dense_op(
             torch.exp(cf.alpha_hat),
             (torch.exp(cf.dense_fwd_max)[:, None]
@@ -355,9 +399,11 @@ def kernel_operator(cf) -> DenseOp:
 
 
 def trop_operator(cf) -> DenseOp:
-    """K6t's operator: the forward probability operator in float32 with
-    its tile plan judged in float32, on every graph.  For a 'high' graph
-    that is :func:`kernel_operator`'s; a bf16 graph gets its own (cached),
+    """K6t's operator: the forward probability operator in the graph's
+    dtype with its tile plan judged in that dtype, in every precision mode;
+    for a float64 graph the operator that ``viterbi._sweeps``' plain branch
+    builds.  For a 'high' graph (float32 or float64) that is
+    :func:`kernel_operator`'s; a bf16 graph (float32) gets its own (cached),
     whose backward fields repeat the forward ones (K6t reads only the
     forward ones)."""
     if cf.precision != "bf16":
@@ -480,14 +526,24 @@ def trop_sweep_plain(kop: DenseOp, a0, s0, ext, mshift, *, first: bool,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+_PREC = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+
+
+def _value_dtype(prec: int):
+    """The dtype of every value of a launch of instantiation ``prec``."""
+    return torch.float64 if prec == 2 else torch.float32
+
+
 def _check_op(kop: DenseOp, dev):
-    """The operator's tensors and plans; returns 1 for bf16 operators (the
-    tensor-core product), 0 for float32 ones."""
-    _check("alpha0", kop.alpha0, (kop.Sp,), dev)
+    """The operator's tensors and plans; returns the instantiation code the
+    entry points take: 0 float32, 1 bf16 operators (the tensor-core
+    product, float32 values), 2 float64 throughout."""
     wdt = kop.wf.dtype
-    if wdt not in (torch.float32, torch.bfloat16):
+    if wdt not in _PREC:
         raise ValueError(f"wf: operator dtype {wdt} (the kernels take "
-                         "float32 or bfloat16)")
+                         "float32, bfloat16 or float64)")
+    prec = _PREC[wdt]
+    _check("alpha0", kop.alpha0, (kop.Sp,), dev, _value_dtype(prec))
     for name, t in (("wf", kop.wf), ("wb", kop.wb)):
         _check(name, t, (kop.Sp, kop.Sp), dev, wdt)
     for name, t, shape in (("spdf", kop.spdf, (kop.Sp,)),
@@ -504,7 +560,7 @@ def _check_op(kop: DenseOp, dev):
                                ("segs", pl.segs, (pl.segs.shape[0], 4)),
                                ("rt_parts", pl.rt_parts, (n_rt, 2))):
             _check(f"{d}.{name}", t, shape, dev, torch.int32)
-    return int(wdt == torch.bfloat16)
+    return prec
 
 
 def _plan_args(pl: TilePlan):
@@ -512,16 +568,26 @@ def _plan_args(pl: TilePlan):
             _p(pl.segs), _p(pl.rt_parts), pl.lo.numel() - 1, pl.max_tiles)
 
 
-def _scratch(kop: DenseOp, pl: TilePlan, B: int, bf16: int, dev):
+def _cm_offset(Sp: int, B: int, prec: int) -> int:
+    """The int32 word where the sync buffer's three column-max rows start:
+    after the barrier's two words and the row tiles' tickets, at the next
+    even word for float64 (its rows are 64-bit words)."""
+    base = 2 + Sp // _TILE * -(-B // _TILE_COLS)
+    return base + base % 2 if prec == 2 else base
+
+
+def _scratch(kop: DenseOp, pl: TilePlan, B: int, prec: int, dev):
     """(partial, zeroed sync words, bf16 state pairs or None) of one
-    launch: the plan's partial slots; the barrier, the row tiles' tickets
-    and three column-max rows."""
-    n_rt = kop.Sp // _TILE
-    partial = torch.empty((max(pl.n_partials, 1), _TILE, B), device=dev)
-    sync = torch.zeros(2 + n_rt * -(-B // _TILE_COLS) + 3 * B,
-                       dtype=torch.int32, device=dev)
+    launch: the plan's partial slots in the values' dtype; the barrier,
+    the row tiles' tickets and three column-max rows (32-bit words, 64-bit
+    in float64)."""
+    partial = torch.empty((max(pl.n_partials, 1), _TILE, B), device=dev,
+                          dtype=_value_dtype(prec))
+    rows = 6 * B if prec == 2 else 3 * B
+    sync = torch.zeros(_cm_offset(kop.Sp, B, prec) + rows, dtype=torch.int32,
+                       device=dev)
     xb = (_p(torch.empty((2, kop.Sp // 2, B), dtype=torch.int32, device=dev))
-          if bf16 else None)
+          if prec == 1 else None)
     return partial, sync, xb
 
 
@@ -534,24 +600,26 @@ def fwd_sweep(kop: DenseOp, a0, ext, mshift, save_alphas: bool = True):
 
     Nf, P1, B = ext.shape
     Sp, dev = kop.Sp, ext.device
-    bf16 = _check_op(kop, dev)
-    _check("a0", a0, (Sp, B), dev)
-    _check("ext", ext, (Nf, kop.P1, B), dev)
-    _check("mshift", mshift, (Nf, 1, B), dev)
+    prec = _check_op(kop, dev)
+    vdt = _value_dtype(prec)
+    _check("a0", a0, (Sp, B), dev, vdt)
+    _check("ext", ext, (Nf, kop.P1, B), dev, vdt)
+    _check("mshift", mshift, (Nf, 1, B), dev, vdt)
     slots = Nf if save_alphas else 2  # every frame, or a ping-pong pair
-    states = torch.empty((slots, Sp, B), device=dev)
-    scales = torch.empty((slots, B), device=dev)
-    ksum, shift, comp = (torch.zeros(B, device=dev) for _ in range(3))
-    partial, sync, xb = _scratch(kop, kop.pf, B, bf16, dev)
+    states = torch.empty((slots, Sp, B), device=dev, dtype=vdt)
+    scales = torch.empty((slots, B), device=dev, dtype=vdt)
+    ksum, shift, comp = (torch.zeros(B, device=dev, dtype=vdt)
+                         for _ in range(3))
+    partial, sync, xb = _scratch(kop, kop.pf, B, prec, dev)
     with torch.cuda.device(dev):  # the library launches on it
         rc = _build.library().mm_dense_fwd(
             *_plan_args(kop.pf), _p(kop.spdf), _p(a0), _p(ext), _p(mshift),
-            Sp, kop.P1, B, Nf, slots, bf16, _p(states), _p(scales),
+            Sp, kop.P1, B, Nf, slots, prec, _p(states), _p(scales),
             _p(ksum), _p(shift), _p(comp), _p(partial), _p(sync), xb,
             _stream(dev),
         )
     _raise_on(rc, "mm_dense_fwd")
-    (LAUNCHES_BF16 if bf16 else LAUNCHES)["dense_fwd"] += 1
+    _counts(prec)["dense_fwd"] += 1
     last = (Nf - 1) % slots
     return (states if save_alphas else None,
             scales if save_alphas else None,
@@ -567,24 +635,26 @@ def backward(kop: DenseOp, ext, alphas, ascale):
 
     Nf, P1, B = ext.shape
     Sp, dev = kop.Sp, ext.device
-    bf16 = _check_op(kop, dev)
-    _check("ext", ext, (Nf, kop.P1, B), dev)
-    _check("alphas", alphas, (Nf, Sp, B), dev)
-    _check("ascale", ascale, (Nf, B), dev)
-    work = torch.empty((2, Sp, B), device=dev)
-    gamma = torch.empty((2, Sp, B), device=dev)
-    posts = torch.empty((Nf, P1, B), device=dev)  # every entry written
-    part = torch.empty((2, Sp // _TILE, B), device=dev)
-    partial, sync, xb = _scratch(kop, kop.pb, B, bf16, dev)
+    prec = _check_op(kop, dev)
+    vdt = _value_dtype(prec)
+    _check("ext", ext, (Nf, kop.P1, B), dev, vdt)
+    _check("alphas", alphas, (Nf, Sp, B), dev, vdt)
+    _check("ascale", ascale, (Nf, B), dev, vdt)
+    work = torch.empty((2, Sp, B), device=dev, dtype=vdt)
+    gamma = torch.empty((2, Sp, B), device=dev, dtype=vdt)
+    # every entry written
+    posts = torch.empty((Nf, P1, B), device=dev, dtype=vdt)
+    part = torch.empty((2, Sp // _TILE, B), device=dev, dtype=vdt)
+    partial, sync, xb = _scratch(kop, kop.pb, B, prec, dev)
     with torch.cuda.device(dev):
         rc = _build.library().mm_dense_bwd(
             *_plan_args(kop.pb), _p(kop.spdf), _p(kop.perm), _p(kop.off),
-            _p(ext), _p(alphas), _p(ascale), Sp, kop.P1, B, Nf, bf16,
+            _p(ext), _p(alphas), _p(ascale), Sp, kop.P1, B, Nf, prec,
             _p(work), _p(gamma), _p(posts), _p(part), _p(partial), _p(sync),
             xb, _stream(dev),
         )
     _raise_on(rc, "mm_dense_bwd")
-    (LAUNCHES_BF16 if bf16 else LAUNCHES)["dense_bwd"] += 1
+    _counts(prec)["dense_bwd"] += 1
     return posts
 
 
@@ -592,7 +662,7 @@ def trop_sweep(kop: DenseOp, a0, s0, ext, mshift, *, first: bool,
                save: bool = True, acc=None):
     """K6t: the tropical forward over the Nf frames of ``ext``, one launch.
     Same arguments and outputs as :func:`trop_sweep_plain`; ``kop`` is
-    :func:`trop_operator`'s (float32)."""
+    :func:`trop_operator`'s (float32, or float64 for a float64 graph)."""
     if not _route(ext, "dense-tropical-sweep"):
         return trop_sweep_plain(kop, a0, s0, ext, mshift, first=first,
                                 save=save, acc=acc)
@@ -600,32 +670,36 @@ def trop_sweep(kop: DenseOp, a0, s0, ext, mshift, *, first: bool,
 
     Nf, P1, B = ext.shape
     Sp, dev = kop.Sp, ext.device
-    if _check_op(kop, dev):
-        raise ValueError("K6t takes a float32 operator (trop_operator)")
-    _check("a0", a0, (Sp, B), dev)
-    _check("s0", s0, (B,), dev)
-    _check("ext", ext, (Nf, kop.P1, B), dev)
-    _check("mshift", mshift, (Nf, 1, B), dev)
-    acc = torch.zeros((3, B), device=dev) if acc is None else acc
-    _check("acc", acc, (3, B), dev)
+    prec = _check_op(kop, dev)
+    if prec == 1:
+        raise ValueError("K6t takes a float32 or float64 operator "
+                         "(trop_operator)")
+    vdt = _value_dtype(prec)
+    _check("a0", a0, (Sp, B), dev, vdt)
+    _check("s0", s0, (B,), dev, vdt)
+    _check("ext", ext, (Nf, kop.P1, B), dev, vdt)
+    _check("mshift", mshift, (Nf, 1, B), dev, vdt)
+    acc = torch.zeros((3, B), device=dev, dtype=vdt) if acc is None else acc
+    _check("acc", acc, (3, B), dev, vdt)
     slots = Nf if save else 2
-    states = torch.empty((slots, Sp, B), device=dev)
-    scales = torch.empty((slots, B), device=dev)
-    partial, sync, _ = _scratch(kop, kop.pf, B, 0, dev)
+    states = torch.empty((slots, Sp, B), device=dev, dtype=vdt)
+    scales = torch.empty((slots, B), device=dev, dtype=vdt)
+    partial, sync, _ = _scratch(kop, kop.pf, B, prec, dev)
     if not first:
-        # the column max the first frame reads: 1 / s0, whose scale is s0
-        n_rt = Sp // _TILE
-        at = 2 + n_rt * -(-B // _TILE_COLS) + 2 * B
-        sync[at : at + B] = (1.0 / s0).view(torch.int32)
+        # the column max the first frame reads (the third row, as the
+        # value's bits): 1 / s0, whose scale is s0
+        w = 2 if prec == 2 else 1  # int32 words per value
+        at = _cm_offset(Sp, B, prec) + 2 * B * w
+        sync[at : at + B * w] = (1.0 / s0).view(torch.int32)
     with torch.cuda.device(dev):
         rc = _build.library().mm_dense_trop(
             *_plan_args(kop.pf), _p(kop.spdf), _p(a0), _p(ext), _p(mshift),
-            Sp, kop.P1, B, Nf, slots, int(first), _p(states), _p(scales),
-            _p(acc[0]), _p(acc[1]), _p(acc[2]), _p(partial), _p(sync),
-            _stream(dev),
+            Sp, kop.P1, B, Nf, slots, int(first), int(prec == 2),
+            _p(states), _p(scales), _p(acc[0]), _p(acc[1]), _p(acc[2]),
+            _p(partial), _p(sync), _stream(dev),
         )
     _raise_on(rc, "mm_dense_trop")
-    LAUNCHES["dense_trop"] += 1
+    _counts(prec)["dense_trop"] += 1
     last = (Nf - 1) % slots
     return (states if save else None, scales if save else None,
             states[last], scales[last], acc)

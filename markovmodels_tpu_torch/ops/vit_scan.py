@@ -45,6 +45,14 @@ The CUDA sources are ``csrc/vit_scan.cu``; ``_build.py`` compiles them with
 nvcc at first use.  Each wrapper takes its plain twin for CPU tensors and
 launches the kernel for CUDA tensors; anything else raises.
 
+A float64 graph (``compile_fsm(dtype=torch.float64)``; the JAX package
+decodes those in XLA, its K7 takes float32) takes the float64 instantiation
+of K7, K7n and W2: the panels, bands, family weights, ω, states, scales and
+emissions in float64, the tier's rule on the products' 64 bits, the ω
+argmax as a pair of words (``csrc/vit_scan.cu``); the ids, the queue, the
+walk over the ids and its tables do not depend on the dtype.  A float32
+graph keeps float32 panels in every precision mode.
+
 Values: the state is stored unscaled with a per-column power-of-two scale
 applied when the next frame reads it, as in K2 (ops/block_scan.py).  The
 read gives exactly K7's rescaled state (a product by a power of two is
@@ -88,13 +96,17 @@ __all__ = [
     "ov_span",
     "LAUNCHES",
     "LAUNCHES_FAM",
+    "LAUNCHES_F64",
     "reset_launch_counts",
 ]
 
-# launches of each CUDA kernel entry point, counted by its wrapper
+# launches of each CUDA kernel entry point, counted by its wrapper: the
+# float32 instantiations in LAUNCHES, the float64 ones (a float64 graph) in
+# LAUNCHES_F64 (the walk over the ids has one instantiation, in LAUNCHES)
 LAUNCHES = {"vit_fwd": 0, "vit_walk": 0, "vit_fwd_noid": 0, "rec_walk": 0}
+LAUNCHES_F64 = {"vit_fwd": 0, "vit_fwd_noid": 0, "rec_walk": 0}
 # the launches of K7 and K7n that took the family branch (also counted in
-# LAUNCHES)
+# LAUNCHES or LAUNCHES_F64)
 LAUNCHES_FAM = {"vit_fwd": 0, "vit_fwd_noid": 0}
 
 _NO_CAND = 255
@@ -104,9 +116,21 @@ _VIT_KC = 8
 
 
 def reset_launch_counts():
-    for d in (LAUNCHES, LAUNCHES_FAM):
+    for d in (LAUNCHES, LAUNCHES_FAM, LAUNCHES_F64):
         for k in d:
             d[k] = 0
+
+
+def _counts(f64: bool) -> dict:
+    return LAUNCHES_F64 if f64 else LAUNCHES
+
+
+def _vit_dtype(cf):
+    """The dtype of K7's and K7n's panels and values: float64 for a float64
+    graph, else float32 (a bf16 graph decodes with float32 panels, as the
+    TPU K7 ignores the precision)."""
+    return (torch.float64 if cf.alpha_hat.dtype == torch.float64
+            else torch.float32)
 
 
 def _main_region(cf) -> int:
@@ -144,16 +168,18 @@ def _fam_reason(cf, ids: bool):
     return cf._cache[key]
 
 
-def layout(B: int, n_frames: int) -> tuple:
-    """(scratch bytes, g) of K7 at batch ``B`` over ``n_frames`` frames,
-    from the library (``mm_vit_layout``): the zeroed scratch the sweep
-    carves its per-frame column maxima, omega keys, queue positions and
-    barrier words from, and the tier candidates per max group."""
+def layout(B: int, n_frames: int, f64: bool = False) -> tuple:
+    """(scratch bytes, g) of K7 at batch ``B`` over ``n_frames`` frames in
+    float32 or (``f64``) float64, from the library (``mm_vit_layout``): the
+    zeroed scratch the sweep carves its per-frame column maxima, omega keys
+    (in float64 also the ω pairs' j-words, the zero j-words and the pairs'
+    locks), queue positions and barrier words from, and the tier
+    candidates per max group."""
     from . import _build
 
     out = (ctypes.c_longlong * 2)()
-    bs._raise_on(_build.library().mm_vit_layout(B, n_frames + 1, out),
-                 "mm_vit_layout")
+    bs._raise_on(_build.library().mm_vit_layout(B, n_frames + 1, int(f64),
+                                                out), "mm_vit_layout")
     return int(out[0]), int(out[1])
 
 
@@ -181,9 +207,9 @@ def _device_bytes(cf, B: int, n_frames: int, saved=None) -> int:
     if cf.ov_layout:
         cmax, nOv = cf.ov_layout
         n_w = sum(t.numel() for t in op.ov_w)
-        need += 4 * (2 * Sp + 1 + nOv) + 9 * n_w  # pdfs, terms, cids
+        need += 4 * (2 * Sp + 1 + nOv) + (5 + f) * n_w  # pdfs, terms, cids
         need += 4 * (Sp + nOv * cmax * 256)  # ovout, ov_dec
-    need += layout(B, n_frames)[0]
+    need += layout(B, n_frames, f == 8)[0]
     return need
 
 
@@ -203,14 +229,9 @@ def vit_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     present).  With ``saved`` (K7n, which saves that many frames' states
     and stores no id) the predicates on the ids' range are skipped and
     the working set counts the saved states in place of the ids.  A
-    float64 graph is refused after the strategy and the stacking, where
-    the JAX package names the dtype (K7 is float32)."""
-    if (cf.strategy == "block" and not cf.batched
-            and cf.alpha_hat.dtype != torch.float32):
-        dt = str(cf.alpha_hat.dtype).removeprefix("torch.")
-        return (f"operator dtype {dt} (K7 and K7n are float32; such a graph "
-                "decodes on the CPU, ROADMAP queue 1 item 9b)")
-    reason = bs.block_scan_reject_reason(cf, B, tier_dtype=torch.float32)
+    float64 graph takes the float64 instantiation (the JAX package's K7
+    refuses it, its XLA route decodes it)."""
+    reason = bs.block_scan_reject_reason(cf, B, tier_dtype=_vit_dtype(cf))
     if reason is not None:
         return reason
     (_, _, pf, _), _ = bs._full_plan_explain(cf)
@@ -280,13 +301,14 @@ def vit_plan(kop, B: int) -> VitPlan:
 
 
 def _panels_t(kop) -> torch.Tensor:
-    """(K, D, Sm4) the float32 tier panels transposed, each destination's
-    column contiguous and zero-padded to a multiple of 4 positions (K7
-    copies them to shared memory 16 bytes at a time); cached on ``kop``."""
+    """(K, D, Sm4) the tier panels transposed in their dtype (float32, or
+    float64), each destination's column contiguous and zero-padded to a
+    multiple of 4 positions (K7 copies them to shared memory 16 bytes at a
+    time); cached on ``kop``."""
     Wt = kop.plans.get("vit_panels")
     if Wt is None:
         K, Sm, D = kop.fwd.W.shape
-        Wt = kop.fwd.W.new_zeros((K, D, -(-Sm // 4) * 4), dtype=torch.float32)
+        Wt = kop.fwd.W.new_zeros((K, D, -(-Sm // 4) * 4))
         Wt[:, :, :Sm] = kop.fwd.W.transpose(1, 2)
         kop.plans["vit_panels"] = Wt
     return Wt
@@ -373,19 +395,21 @@ def _vlayout(cf, kop) -> np.ndarray:
 
 def _vit_grid(kop, device, B: int, ids: bool = True) -> int:
     """CTAs of K7's (``ids``) or K7n's persistent grid, in the uniform or
-    the family instantiation: as many as can be co-resident on the CUDA
-    ``device`` at batch ``B`` (the library asks the occupancy API with the
-    dynamic shared memory of that batch; cached on ``kop``)."""
+    the family instantiation, float32 or float64 (the panels' dtype): as
+    many as can be co-resident on the CUDA ``device`` at batch ``B`` (the
+    library asks the occupancy API with the dynamic shared memory of that
+    batch; cached on ``kop``)."""
     from . import _build
 
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
     fam = _is_fam(kop)
-    key = ("vit_grid", idx, B, ids, fam)
+    f64 = kop.fwd.W.dtype == torch.float64
+    key = ("vit_grid", idx, B, ids, fam, f64)
     if key not in kop.plans:
         with torch.cuda.device(idx):
             n = _build.library().mm_vit_ctas(int(B % 4 == 0), int(ids),
-                                             int(fam), B)
+                                             int(fam), int(f64), B)
         if n < 0:
             bs._raise_on(-n, "mm_vit_ctas")
         if n == 0:
@@ -647,7 +671,8 @@ def viterbi_fwd(cf, ext, mshift, *, ids: bool = True, a0=None, s0=None,
     ``ext``, one cooperative launch.  Same inputs and outputs as
     :func:`viterbi_fwd_plain`.  A ``precision='bf16'`` graph decodes with
     its float32 panels, exactly as a 'high' one: the TPU K7 ignores the
-    precision (``pallas_block.py:1169``)."""
+    precision (``pallas_block.py:1169``); a float64 graph takes the
+    float64 instantiation."""
     kw = dict(a0=a0, s0=s0, t0=t0, stride=stride, acc=acc)
     if not bs._route(ext, "Viterbi-sweep"):
         return viterbi_fwd_plain(cf, ext, mshift, ids=ids, **kw)
@@ -658,21 +683,24 @@ def viterbi_fwd(cf, ext, mshift, *, ids: bool = True, a0=None, s0=None,
     Nf, P1, B = ext.shape
     dev = ext.device
     _check_graph(cf, B, Nf - 1, dev)
-    kop = bs.kernel_operator(cf, torch.float32)  # f32 panels on any graph
+    vdt = _vit_dtype(cf)
+    f64 = vdt == torch.float64
+    kop = bs.kernel_operator(cf, vdt)  # f32 panels on any float32 graph
     Sp, RW = kop.Sp, _main_region(cf)
-    bs._check_op(kop, kop.fwd, dev)
-    bs._check("ext", ext, (Nf, kop.P1, B), dev)
-    bs._check("mshift", mshift, (Nf, 1, B), dev)
+    bs._check_op(kop, kop.fwd, dev, vdt)
+    bs._check("ext", ext, (Nf, kop.P1, B), dev, vdt)
+    bs._check("mshift", mshift, (Nf, 1, B), dev, vdt)
     meta, lay = bs._imeta(kop, kop.fwd), _vlayout(cf, kop)
     pl, Wt = vit_plan(kop, B), _panels_t(kop)
     G = _vit_grid(kop, dev, B)
     a0 = kop.alpha0[:, None].expand(Sp, B).contiguous()
     bps = torch.empty((Nf, RW, B), dtype=torch.uint8, device=dev)
     fins = torch.empty((Nf, B), dtype=torch.int32, device=dev)
-    work = torch.empty((2, Sp, B), device=dev)
-    scale, ksum, shift, comp = (torch.zeros(B, device=dev) for _ in range(4))
+    work = torch.empty((2, Sp, B), device=dev, dtype=vdt)
+    scale, ksum, shift, comp = (torch.zeros(B, device=dev, dtype=vdt)
+                                for _ in range(4))
     # zeroed scratch, carved by the library (int64 words: 8-byte aligned)
-    n_scratch = layout(B, Nf - 1)[0]
+    n_scratch = layout(B, Nf - 1, f64)[0]
     scratch = torch.zeros(-(-n_scratch // 8), dtype=torch.int64, device=dev)
     kd = kop.fwd
     with torch.cuda.device(dev):  # the library launches on it
@@ -681,12 +709,13 @@ def viterbi_fwd(cf, ext, mshift, *, ids: bool = True, a0=None, s0=None,
             bs._p(Wt), bs._p(kop.omega), bs._p(kd.band_rows),
             ctypes.c_void_p(meta.ctypes.data),
             ctypes.c_void_p(lay.ctypes.data), bs._p(pl.queue),
-            pl.queue.shape[0], G, B, Nf, RW, bs._p(work), bs._p(bps),
-            bs._p(fins), bs._p(scale), bs._p(ksum), bs._p(shift),
-            bs._p(comp), bs._p(scratch), n_scratch, bs._stream(dev),
+            pl.queue.shape[0], G, B, Nf, RW, int(f64), bs._p(work),
+            bs._p(bps), bs._p(fins), bs._p(scale), bs._p(ksum),
+            bs._p(shift), bs._p(comp), bs._p(scratch), n_scratch,
+            bs._stream(dev),
         )
     bs._raise_on(rc, "mm_vit_fwd")
-    LAUNCHES["vit_fwd"] += 1
+    _counts(f64)["vit_fwd"] += 1
     LAUNCHES_FAM["vit_fwd"] += _is_fam(kop)
     vfin = work[(Nf - 1) % 2, kop.fin] * scale
     return bps, fins, vfin, shift, ksum
@@ -703,26 +732,29 @@ def _noid_fwd(cf, ext, mshift, *, a0, s0, t0, stride, acc):
     dev = ext.device
     n_save = Nf // stride
     _check_graph(cf, B, Nf - 1, dev, saved=n_save)
-    kop = bs.kernel_operator(cf, torch.float32)
+    vdt = _vit_dtype(cf)
+    f64 = vdt == torch.float64
+    kop = bs.kernel_operator(cf, vdt)
     Sp, RW = kop.Sp, _main_region(cf)
-    bs._check_op(kop, kop.fwd, dev)
-    bs._check("ext", ext, (Nf, kop.P1, B), dev)
-    bs._check("mshift", mshift, (Nf, 1, B), dev)
+    bs._check_op(kop, kop.fwd, dev, vdt)
+    bs._check("ext", ext, (Nf, kop.P1, B), dev, vdt)
+    bs._check("mshift", mshift, (Nf, 1, B), dev, vdt)
     if a0 is None:
         a0 = kop.alpha0[:, None].expand(Sp, B).contiguous()
-    s0 = torch.ones(B, device=dev) if s0 is None else s0
-    acc = torch.zeros((3, B), device=dev) if acc is None else acc
-    bs._check("a0", a0, (Sp, B), dev)
-    bs._check("s0", s0, (B,), dev)
-    bs._check("acc", acc, (3, B), dev)
+    s0 = torch.ones(B, device=dev, dtype=vdt) if s0 is None else s0
+    acc = torch.zeros((3, B), device=dev, dtype=vdt) if acc is None else acc
+    bs._check("a0", a0, (Sp, B), dev, vdt)
+    bs._check("s0", s0, (B,), dev, vdt)
+    bs._check("acc", acc, (3, B), dev, vdt)
     meta, lay = bs._imeta(kop, kop.fwd), _vlayout(cf, kop)
     pl, Wt = vit_plan(kop, B), _panels_t(kop)
     G = _vit_grid(kop, dev, B, ids=False)
-    save = torch.empty((n_save, Sp, B), device=dev)
-    save_scale = torch.empty((n_save, B), device=dev)
-    work = torch.empty((2, Sp, B), device=dev) if stride > 1 else None
-    scale = torch.zeros(B, device=dev)
-    n_scratch = layout(B, Nf - 1)[0]
+    save = torch.empty((n_save, Sp, B), device=dev, dtype=vdt)
+    save_scale = torch.empty((n_save, B), device=dev, dtype=vdt)
+    work = (torch.empty((2, Sp, B), device=dev, dtype=vdt) if stride > 1
+            else None)
+    scale = torch.zeros(B, device=dev, dtype=vdt)
+    n_scratch = layout(B, Nf - 1, f64)[0]
     scratch = torch.zeros(-(-n_scratch // 8), dtype=torch.int64, device=dev)
     kd = kop.fwd
     ptr = lambda t: None if t is None else bs._p(t)
@@ -732,13 +764,13 @@ def _noid_fwd(cf, ext, mshift, *, a0, s0, t0, stride, acc):
             bs._p(kd.band_w), bs._p(Wt), bs._p(kop.omega),
             bs._p(kd.band_rows), ctypes.c_void_p(meta.ctypes.data),
             ctypes.c_void_p(lay.ctypes.data), bs._p(pl.queue),
-            pl.queue.shape[0], G, B, Nf, RW, t0, stride,
+            pl.queue.shape[0], G, B, Nf, RW, t0, stride, int(f64),
             ptr(work), ptr(save), ptr(save_scale), n_save, bs._p(scale),
             bs._p(acc[0]), bs._p(acc[1]), bs._p(acc[2]), bs._p(scratch),
             n_scratch, bs._stream(dev),
         )
     bs._raise_on(rc, "mm_vit_fwd_noid")
-    LAUNCHES["vit_fwd_noid"] += 1
+    _counts(f64)["vit_fwd_noid"] += 1
     LAUNCHES_FAM["vit_fwd_noid"] += _is_fam(kop)
     a_last = save[Nf - 1] if stride == 1 else work[(Nf - 1) % 2]
     return save, save_scale, a_last, scale, acc
@@ -869,21 +901,26 @@ def rec_walk_plain(wt: RecWalkTables, states, scales, lengths, t0: int,
 def rec_walk(wt: RecWalkTables, states, scales, lengths, t0: int, s_next):
     """W2: the walk of one chunk, one CUDA warp per sequence.  Same inputs
     and output as :func:`rec_walk_plain`; ``lengths`` and ``s_next`` (B,)
-    int32."""
+    int32; the states, scales and tables float32, or float64 (the float64
+    instantiation) for a float64 graph's."""
     if not bs._route(states, "recompute-walk"):
         return rec_walk_plain(wt, states, scales, lengths, t0, s_next)
     from . import _build
 
     nK, Sp, B = states.shape
     dev = states.device
-    bs._check("states", states, (nK, Sp, B), dev)
-    bs._check("scales", scales, (nK, B), dev)
+    vdt = wt.w.dtype
+    if vdt not in (torch.float32, torch.float64):
+        raise ValueError(f"w: dtype {vdt} (W2 takes float32 or float64)")
+    f64 = vdt == torch.float64
+    bs._check("states", states, (nK, Sp, B), dev, vdt)
+    bs._check("scales", scales, (nK, B), dev, vdt)
     for name, t in (("lengths", lengths), ("s_next", s_next)):
         bs._check(name, t, (B,), dev, torch.int32)
     for name, t in (("rowptr", wt.rowptr), ("src", wt.src)):
         bs._check(name, t, t.shape, dev, torch.int32)
-    bs._check("w", wt.w, wt.src.shape, dev)
-    bs._check("omega", wt.omega, (Sp,), dev)
+    bs._check("w", wt.w, wt.src.shape, dev, vdt)
+    bs._check("omega", wt.omega, (Sp,), dev, vdt)
     if wt.rowptr.shape != (Sp + 1,) or t0 < 0:
         raise ValueError(f"rowptr {tuple(wt.rowptr.shape)} for {Sp} states, "
                          f"t0 {t0}")
@@ -892,8 +929,9 @@ def rec_walk(wt: RecWalkTables, states, scales, lengths, t0: int, s_next):
         rc = _build.library().mm_rec_walk(
             bs._p(states), bs._p(scales), bs._p(lengths), bs._p(wt.rowptr),
             bs._p(wt.src), bs._p(wt.w), bs._p(wt.omega), nK, t0, Sp, B,
-            wt.dmax, wt.fin, bs._p(s_next), bs._p(out), bs._stream(dev),
+            wt.dmax, wt.fin, int(f64), bs._p(s_next), bs._p(out),
+            bs._stream(dev),
         )
     bs._raise_on(rc, "mm_rec_walk")
-    LAUNCHES["rec_walk"] += 1
+    _counts(f64)["rec_walk"] += 1
     return out

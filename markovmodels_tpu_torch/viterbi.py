@@ -28,13 +28,14 @@ picked as the JAX package picks them (``_viterbi_scale``):
   With one chunk the port keeps the first sweep's alphas instead of
   sweeping again (the JAX package recomputes them, the same values).
 
-CPU tensors take the plain PyTorch twins.  For a float64 graph they keep
-float64 from the emissions to the score, and a general Ĉ's state emits
-the max over its pdf set (JAX ``inference.py:931-938``).  On the card
-such a graph raises ``NotImplementedError`` before any launch
-(``_unported_decode``): K7, K7n and K6t are float32 and take one pdf per
-state.  A CUDA tensor whose graph a kernel refuses raises, naming the
-first refused predicate: nothing falls back to a plain route on the card.
+CPU tensors take the plain PyTorch twins.  A float64 graph keeps float64
+from the emissions to the score, on the card through the float64
+instantiations of K7, K7n, K6t and W2.  A general Ĉ's state emits the max
+over its pdf set (JAX ``inference.py:931-938``); on the card such a graph
+raises ``NotImplementedError`` before any launch (``_unported_decode``):
+K7, K7n and K6t take one pdf per state.  A CUDA tensor whose graph a
+kernel refuses raises, naming the first refused predicate: nothing falls
+back to a plain route on the card.
 Routes of the JAX package that are not ported yet raise
 ``NotImplementedError`` naming the route: the vmapped ``_viterbi_single``
 of batched graphs, and ``_viterbi_single`` for the 'segment' / 'ell'
@@ -65,14 +66,12 @@ _SINGLE_TODO = ("_viterbi_single is not ported yet (ROADMAP queue 11, with "
 
 def _unported_decode(cf: CompiledFSM):
     """Why no decode kernel takes this graph, or None: a general Ĉ (the
-    max over each state's pdfs) or float64.  Such a graph decodes through
-    the plain twins on its lifted or float64 inputs (:func:`_plain_inputs`)
-    on the CPU and raises on the card (:func:`viterbi`)."""
+    max over each state's pdfs).  Such a graph decodes through the plain
+    twins on its lifted inputs (:func:`_plain_inputs`) on the CPU and
+    raises on the card (:func:`viterbi`)."""
     if cf.multi_pdf:
         return ("general multi-pdf C-hat graph (K7, K7n and K6t take one "
                 "pdf per state)")
-    if cf.alpha_hat.dtype != torch.float32:
-        return "float64 graph (K7, K7n and K6t are float32)"
     return None
 
 
@@ -166,7 +165,7 @@ def _viterbi_scale_bp(cf: CompiledFSM, lhs, lengths):
                 f"the fused Viterbi sweep (K7) refuses this graph: {reason}; "
                 "the JAX package's XLA form of the sweep is not ported to "
                 "the card (ROADMAP queue 11)")
-    ext, mshift = prepare_emissions(lhs, lengths, P)
+    ext, mshift = prepare_emissions(lhs, lengths, P, cf.alpha_hat.dtype)
     bps, fins, vfin, shift, ksum = vit_scan.viterbi_fwd(cf, ext, mshift)
     score = _combine_shift(_log_final(vfin), ksum, shift).to(lhs.dtype)
     states = vit_scan.walk(vit_scan.walk_tables(cf), bps, fins, lengths)
@@ -175,8 +174,11 @@ def _viterbi_scale_bp(cf: CompiledFSM, lhs, lengths):
 
 
 def _chunk_frames(cf: CompiledFSM, lhs, chunk_size) -> int:
-    """K, the frames of a chunk: all Nf frames when their (Sp, B) float32
-    alphas fit 4 GB, else 64 (the JAX package's rule), or ``chunk_size``."""
+    """K, the frames of a chunk: all Nf frames when their (Sp, B) alphas
+    fit 4 GB at 4 bytes a value, else 64, or ``chunk_size``: the JAX
+    package's rule, whose 4 bytes hold in float64 too (JAX
+    ``viterbi.py:434``), so that both packages chunk alike; the kernels'
+    admissions count the real bytes."""
     B, N, _ = lhs.shape
     Nf = N + 1
     if chunk_size is None:
@@ -275,7 +277,8 @@ def _viterbi_recompute(cf: CompiledFSM, lhs, lengths, chunk_size=None):
         cfv, ext, mshift = _plain_inputs(cf, lhs, lengths)
         walk = vit_scan.rec_walk_plain
     else:
-        cfv, (ext, mshift) = cf, prepare_emissions(lhs, lengths, P)
+        cfv, (ext, mshift) = cf, prepare_emissions(lhs, lengths, P,
+                                                   cf.alpha_hat.dtype)
         walk = vit_scan.rec_walk
     sweep, checkpoints = _sweeps(cfv, B, Nf, K, lhs.device, plain)
     wt = vit_scan.rec_walk_tables(cf)

@@ -425,11 +425,19 @@ def test_reject_reasons_match_jax(stacked, monkeypatch):
         want = inf._pallas_dense_reject_reason(vj, 4)
         assert want is not None, name
         assert ds.dense_scan_reject_reason(vt, 4) == want, name
-    # float64: the same predicate, the port's own words after it
+    # float64: the TPU kernels refuse it, the port's float64 instantiation
+    # takes it; another dtype: the same predicate, the port's own words
+    # after it
     vj = dataclasses.replace(cj, alpha_hat=np.asarray(cj.alpha_hat,
                                                       np.float64))
     vt = dataclasses.replace(ct, alpha_hat=ct.alpha_hat.double())
-    head = "operator dtype float64"
+    assert inf._pallas_dense_reject_reason(vj, 4).startswith(
+        "operator dtype float64")
+    assert ds.dense_scan_reject_reason(vt, 4) is None
+    vj = dataclasses.replace(cj, alpha_hat=np.asarray(cj.alpha_hat,
+                                                      np.float16))
+    vt = dataclasses.replace(ct, alpha_hat=ct.alpha_hat.half())
+    head = "operator dtype float16"
     assert inf._pallas_dense_reject_reason(vj, 4).startswith(head)
     assert ds.dense_scan_reject_reason(vt, 4).startswith(head)
 
@@ -440,7 +448,9 @@ def test_reject_reasons_name_each_port_predicate(stacked, monkeypatch):
     cases = [
         (mt.stack(stacked[2]), "batched CompiledFSM"),
         (rep(ct, multi_pdf=True), "general multi-pdf C-hat"),
-        (rep(ct, alpha_hat=ct.alpha_hat.double()), "operator dtype float64"),
+        (rep(ct, alpha_hat=ct.alpha_hat.half()), "operator dtype float16"),
+        (rep(ct, alpha_hat=ct.alpha_hat.double(), precision="bf16"),
+         "precision 'bf16' with dtype float64"),
         (rep(ct, alpha_hat=torch.zeros(200)), "not a multiple of"),
     ]
     for cf, match in cases:

@@ -12,10 +12,16 @@ against the JAX package on the CPU:
   JAX package's float64 decode;
 * the K2-K4 twins in float64 on the 2M-arc graph against the plain scan,
   and the K5a/K5b twins on float64 numerators;
+* the float64 operators of K6a/K6b and K6t (the plain decode route's
+  operator), the shared memory of their tile plans at 8 bytes a value,
+  the K6a/K6b twins in float64 against the plain scan and the oracle, and
+  the W2 twin inside a chunked float64 dense decode against the JAX
+  package's float64 decode;
 * the routes on a ``cuda`` device (decided without a card): K2-K4's
-  float64 instantiation for a 'block' graph, K5a/K5b's for a stack of
-  numerators, a float64 'dense' graph and a float64 decode refused before
-  any launch, and the ``ValueError`` for float32 log-likelihoods.
+  float64 instantiation for a 'block' graph, K6a/K6b's for a 'dense' one,
+  K5a/K5b's for a stack of numerators, the float64 decode admitted by K7
+  and K7n, a stacked float64 'dense' graph on the plain per-graph route,
+  and the ``ValueError`` for float32 log-likelihoods.
 
 The JAX package runs inside ``jax.enable_x64()``: outside it, its compile
 builds float32 arrays whatever the dtype.  Its 'dense' route multiplies
@@ -40,6 +46,7 @@ from markovmodels_tpu.workloads import make_backoff_lm_hmm_graph
 from markovmodels_tpu_torch import inference as tinf
 from markovmodels_tpu_torch.ops import banded_scan as bsc
 from markovmodels_tpu_torch.ops import block_scan as bs
+from markovmodels_tpu_torch.ops import dense_scan as ds
 from markovmodels_tpu_torch.ops import vit_scan as vs
 from markovmodels_tpu_torch.ops.emissions import prepare_emissions
 from _torch_port import (assert_same_compiled, compile_port, jax_fields,
@@ -318,43 +325,42 @@ def test_block_twins_in_float64_match_the_plain_scan(big64):
 
 
 def test_routes_on_the_card(big64):
-    """Decided without a card: a float64 'block' graph takes K2-K4's
-    float64 instantiation; a float64 'dense' graph, stacked or not, and a
-    float64 decode have no kernel yet and are refused on the card before
-    any launch (they run on the CPU); the kernels' own admissions refuse
-    them too."""
+    """Decided on a ``cuda`` device without a card: a float64 'block'
+    graph takes K2-K4's float64 instantiation and a float64 'dense' graph
+    K6a/K6b's (``fast_path_report`` names it); a stacked float64 'dense'
+    graph takes the plain per-graph route, as a stacked float32 one does;
+    the float64 decode passes K7's and K7n's admission and is no longer
+    refused; only general Ĉ is (``test_torch_multipdf.py``)."""
     fsm, spdf, P, _ = port_lm_graph(8)
     dense = compile_port(fsm, spdf, P, strategy="dense", dtype=F64)
-    refusal = ("float64 'dense' graph: K6a/K6b are float32 (ROADMAP queue 1 "
-               "item 9b: the float64 instantiations of K6 and K7 and the "
-               "general-Ĉ kernels)")
-    assert tinf._unported_on_card(dense) == refusal
+    assert tinf._unported_on_card(dense) is None
+    assert tvit._unported_decode(dense) is None
+    assert ds.dense_scan_reject_reason(dense, 4) is None
+    assert tinf._kernel_route(dense, "cuda", 4) is True
     assert tinf.fast_path_report(dense, 4, device="cuda") == (
-        f"error - {refusal}")
+        "cuda-dense-scan (hand-written CUDA kernels K6a/K6b); float64 "
+        "instantiation")
     assert "CPU tensors take the plain path" in tinf.fast_path_report(
         dense, 4, device="cpu")
-    with pytest.raises(ValueError, match="operator dtype float64"):
-        tinf._kernel_route(dense, "cuda", 4)
     stacked = mt.stack([dense, dense])
-    assert tinf.fast_path_report(stacked, 2, device="cuda") == (
-        f"error - {refusal}")
-    assert tinf.fast_path_report(stacked, 2, device="cpu").startswith(
-        "plain torch per-graph scan (stacked 'dense' graphs")
+    for dev in ("cuda", "cpu"):
+        assert tinf.fast_path_report(stacked, 2, device=dev).startswith(
+            "plain torch per-graph scan (stacked 'dense' graphs")
     ct = big64
     assert tinf._kernel_route(ct, "cuda", 8) is True
     assert tinf.fast_path_report(ct, 8, device="cuda") == (
-        "cuda-block-scan (hand-written CUDA kernels K2-K4)")
+        "cuda-block-scan (hand-written CUDA kernels K2-K4); float64 "
+        "instantiation")
     assert tinf._unported_on_card(ct) is None
     assert bs._tier_dtype(ct) == F64 and bs._prec(F64) == 2
     # every value of the working set at 8 bytes: more than the float32 one
     c32 = compile_port(*port_lm_graph(128)[:3], strategy="block")
     assert (bs._working_set_bytes(ct, 128, 700, 64)
             > 1.9 * bs._working_set_bytes(c32, 128, 700, 64))
-    vreason = vs.vit_scan_reject_reason(ct, 8)
-    assert vreason.startswith("operator dtype float64 (K7 and K7n are "
-                              "float32")
-    assert tvit._unported_decode(ct) == "float64 graph (K7, K7n and K6t " \
-        "are float32)"
+    for saved in (None, 17):
+        assert vs.vit_scan_reject_reason(ct, 8, saved=saved) is None
+    assert tvit._unported_decode(ct) is None
+    assert vs._vit_dtype(ct) == F64 and vs._vit_dtype(c32) == torch.float32
 
 
 def test_float32_lhs_on_a_float64_graph_raises():
@@ -454,3 +460,103 @@ def test_log_final_clamps_by_the_dtype_computed_in():
     z = tinf._combine_f64(v32, torch.zeros(2), torch.zeros(2), F64)
     assert z[0].item() == pytest.approx(np.log(1e-38), abs=1e-12)
     assert z[1].item() == -np.inf
+
+
+@pytest.fixture(scope="module")
+def dense64():
+    """The V=8 graph compiled 'dense' in float64 (JAX and port)."""
+    (fj, sj), (ft, st), P, _ = _pair("dense")
+    return (_compile_jax64(fj, sj, P, strategy="dense"),
+            compile_port(ft, st, P, strategy="dense", dtype=F64), (ft, st), P)
+
+
+def test_dense_kernel_operators_in_float64(dense64):
+    """``kernel_operator`` and ``trop_operator`` of a float64 'dense' graph
+    are float64 (their plans' tiles too) and equal to the operator the
+    plain decode route builds (``viterbi._sweeps``, plain branch); the
+    plans judge the tiles in float64 and rebuild the operator exactly."""
+    _, ct, _, _ = dense64
+    kop, top = ds.kernel_operator(ct), ds.trop_operator(ct)
+    plain = torch.exp(ct.dense_fwd_max)[:, None] * ct.dense_fwd_exp
+    assert top is kop
+    for t in (kop.alpha0, kop.wf, kop.wb, kop.pf.tiles, kop.pb.tiles):
+        assert t.dtype == F64
+    assert torch.equal(kop.wf, plain)
+    assert torch.equal(kop.wb, torch.exp(ct.dense_bwd_max)[:, None]
+                       * ct.dense_bwd_exp)
+    for w, pl in ((kop.wf, kop.pf), (kop.wb, kop.pb)):
+        n = kop.Sp // 32
+        rebuilt = torch.zeros((n, n, 32, 32), dtype=F64)
+        rt = torch.repeat_interleave(torch.arange(n),
+                                     torch.diff(pl.row_ptr.long()))
+        rebuilt[rt, pl.tile_k.long()] = pl.tiles.reshape(-1, 32, 32)
+        assert torch.equal(rebuilt.transpose(1, 2).reshape(w.shape), w)
+
+
+def test_tile_plan_shared_memory_at_8_bytes(dense64):
+    """``smem_bytes`` counts a float64 tile (32 rows of 36 values) and a
+    32 x 128 state stage at 8 bytes a value: twice the float32 plan's of
+    the same operator, and as csrc/dense_scan.cu's Layout::bytes counts
+    them (resident: the largest range's tiles and two stages; streaming:
+    two stages of a state block and a tile)."""
+    _, ct, _, _ = dense64
+    w = ds.kernel_operator(ct).wf
+    for G in (4, 264):
+        p64, p32 = ds.tile_plan(w, G), ds.tile_plan(w.float(), G)
+        assert p64.max_tiles == p32.max_tiles
+        r64, s64 = ds.smem_bytes(p64)
+        assert r64 == p64.max_tiles * 32 * 36 * 8 + 2 * 32 * 128 * 8
+        assert s64 == 2 * (32 * 128 * 8 + 32 * 36 * 8)
+        assert (r64, s64) == tuple(2 * x for x in ds.smem_bytes(p32))
+    p16 = ds.tile_plan(w.to(torch.bfloat16), 4)
+    assert ds.smem_bytes(p16)[1] == 2 * (2048 + 8704) + 16896
+
+
+def test_dense_twins_in_float64_match_the_plain_scan(dense64):
+    """K6a/K6b's float64 twins (``dense_fused_fb`` on CPU tensors, no
+    launch) against the float64 plain scan (1e-12) and the f64 oracle."""
+    _, ct, (fsm, spdf), P = dense64
+    lhs, lens = _inputs(P, n=12, lens=[12, 7, 1], seed=44)
+    x, ln = torch.from_numpy(lhs), torch.from_numpy(lens)
+    ext, msh = prepare_emissions(x, ln, P, F64)
+    ds.reset_launch_counts()
+    posts, vfin, shift, ksum = ds.dense_fused_fb(ct, ext, msh, True)
+    assert posts.dtype == F64 and not any(ds.LAUNCHES_F64.values())
+    zk = tinf._combine_shift(tinf._log_final(vfin), ksum, shift).numpy()
+    pp, zp = tinf._fb_prob(ct, x, ln, 13, True)
+    fin = np.isfinite(zp.numpy())
+    assert (np.isfinite(zk) == fin).all() and not fin[2]
+    np.testing.assert_allclose(zk[fin], zp.numpy()[fin], rtol=1e-12, atol=0)
+    pk = posts.permute(2, 0, 1)[:, :12, :P].numpy()
+    assert np.abs(pk - pp.numpy()).max() <= 1e-12
+    zo, po = mt.oracle.host_oracle(fsm, spdf, P, lhs, lens)
+    assert np.abs(zk[fin] - zo[fin]).max() <= TOL_ORACLE
+
+
+def test_rec_walk_twin_in_a_chunked_float64_dense_decode(dense64):
+    """W2's twin in float64 (its tables float64) inside the chunked
+    float64 dense decode (K6t's twin, chunks of 7 frames) against the JAX
+    package's float64 decode: the states equal; the scores within the
+    float64 contract."""
+    cj, ct, _, P = dense64
+    wt = vs.rec_walk_tables(ct)
+    assert wt.w.dtype == wt.omega.dtype == F64
+    lhs, lens = _inputs(P, n=30, lens=[30, 19, 1], seed=45)
+    x, ln = torch.from_numpy(lhs), torch.from_numpy(lens)
+    calls = []
+    real = vs.rec_walk_plain
+
+    def spy(wt_, states, scales, *rest):
+        calls.append(states.dtype)
+        return real(wt_, states, scales, *rest)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(vs, "rec_walk_plain", spy)
+        states, score = tvit._viterbi_recompute(ct, x, ln, chunk_size=7)
+    assert calls and set(calls) == {F64} and len(calls) == -(-31 // 7)
+    sj_, zj = _jax64(jvit.viterbi, cj, lhs, lens)
+    fin = np.isfinite(zj)
+    z = score.numpy()
+    assert (np.isfinite(z) == fin).all() and not fin[2]
+    assert np.abs(z[fin] - zj[fin]).max() <= TOL_ORACLE
+    np.testing.assert_array_equal(states.numpy()[fin], sj_[fin])

@@ -204,8 +204,7 @@ def test_the_card_refuses_general_c_hat(compiled):
     runs on the CPU); the kernels' own admissions refuse it too."""
     strategy, _, ct, _, _, _ = compiled
     refusal = ("general multi-pdf C-hat: the CUDA kernels take one pdf per "
-               "state (ROADMAP queue 1 item 9b: the float64 instantiations "
-               "of K6 and K7 and the general-Ĉ kernels)")
+               "state (ROADMAP queue 1 item 9c: the general-Ĉ kernels)")
     assert tinf._unported_on_card(ct) == refusal
     assert tinf.fast_path_report(ct, 2, device="cuda") == f"error - {refusal}"
     with pytest.raises(ValueError):

@@ -12,7 +12,13 @@ products' float bits as ints.
 The emulation is held bit for bit to ``block_matvec_max_arg``'s tie rule on
 inputs with many exact ties, an all-zero column and denormal products, and,
 inside the plain sweep, to the JAX package's K7 in interpret mode
-(``pallas_block.block_fused_viterbi_fwd``).  Graph: the 2M-arc (V=128)
+(``pallas_block.block_fused_viterbi_fwd``).  The float64 instantiation's
+rule (64 positions a pass, the maxima on the products' 64 bits as int64)
+is held the same way to the float64 plain twin, on float64 ties and
+float64 denormals, and inside the float64 plain sweep; and a torch
+emulation of its ω argmax (a pair of words per copy under a lock for the
+positive products, an atomic max of the j-word for the zero ones, items
+in any order) to the twin's smallest argmax.  Graph: the 2M-arc (V=128)
 LM ∘ HMM graph, the one LM ∘ HMM graph of the workloads that K7 admits (a
 single affine tier), and a copy of its operator without the tier (every
 row a band row); batches 128, 126 and 5 (B % 4 != 0: the kernel's scalar
@@ -34,6 +40,7 @@ from markovmodels_tpu_torch.ops import vit_scan as vs
 from _torch_port import compile_port, inputs, jax_compiled, port_lm_graph
 
 SC = 128  # positions resident per pass (csrc/vit_scan.cu)
+SC64 = 64  # the same in the float64 instantiation (the same bytes)
 GROUPS = [1, 4, 8, 32]
 BATCHES = [128, 126, 5]
 
@@ -157,15 +164,16 @@ def grouped_max_arg(W, Xg, g, sc=SC, bits=False):
     padded), the running value and group moving where a group's max is
     strictly greater than the running value, then the first position of
     the winning group whose product equals it.  With ``bits``, every max
-    and compare is taken on the products' float bits as int32, as the
-    kernel takes them (the bits of a non-negative float order as its
-    value)."""
+    and compare is taken on the products' bits as int32 (float32) or
+    int64 (float64), as the kernel takes them (the bits of a non-negative
+    value order as the value)."""
     K, Sm, D = W.shape
     B = Xg.shape[2]
-    best = torch.full((K, D, B), -1.0)
+    ibits = torch.int64 if W.dtype == torch.float64 else torch.int32
+    best = torch.full((K, D, B), -1.0, dtype=W.dtype)
     ids = torch.zeros((K, D, B), dtype=torch.int32)
     if bits:
-        best = torch.full((K, D, B), -1, dtype=torch.int32)
+        best = torch.full((K, D, B), -1, dtype=ibits)
     for s0 in range(0, Sm, sc):
         n = min(sc, Sm - s0)
         nG = -(-n // g)
@@ -173,7 +181,7 @@ def grouped_max_arg(W, Xg, g, sc=SC, bits=False):
         p = torch.cat([p, p.new_zeros((K, nG * g - n, D, B))], dim=1)
         p = p.reshape(K, nG, g, D, B)
         if bits:
-            p = p.view(torch.int32)
+            p = p.view(ibits)
         gm = p.amax(dim=2)  # one of the products, exactly
         gid = torch.full((K, D, B), -1, dtype=torch.int64)
         for G in range(nG):
@@ -185,20 +193,22 @@ def grouped_max_arg(W, Xg, g, sc=SC, bits=False):
         u = torch.arange(g)[None, :, None, None]
         first = torch.where(grp == best[:, None], u, g).amin(dim=1)
         ids = torch.where(gid >= 0, (s0 + gid * g + first).int(), ids)
-    return (best.view(torch.float32) if bits else best), ids
+    return (best.view(W.dtype) if bits else best), ids
 
 
-def _tied_inputs(Sm, seed):
+def _tied_inputs(Sm, seed, dtype=np.float32):
     """Panels and states from {0, 1/4, 1/2, 1}: many exact ties; column 1
     of the states all zero; column 2 of tiny values whose products are
-    denormal."""
+    denormal (in float64: values near 1e-160 and weights near 1e-150)."""
     rng = np.random.default_rng(seed)
-    W = rng.choice(np.float32([0, 0.25, 0.5, 1]), size=(3, Sm, 9))
-    X = rng.choice(np.float32([0, 0.25, 0.5, 1]), size=(3, Sm, 4))
+    tiny_x, tiny_w = (1e-20, 1e-19) if dtype == np.float32 else (1e-160,
+                                                                  1e-150)
+    W = rng.choice(np.array([0, 0.25, 0.5, 1], dtype), size=(3, Sm, 9))
+    X = rng.choice(np.array([0, 0.25, 0.5, 1], dtype), size=(3, Sm, 4))
     X[:, :, 1] = 0
-    X[:, :, 2] = rng.choice(np.float32([0, 1e-20, 2e-20, 3e-20]),
+    X[:, :, 2] = rng.choice(np.array([0, 1, 2, 3], dtype) * dtype(tiny_x),
                             size=(3, Sm))
-    W[1, :, 3] *= np.float32(1e-19)  # denormal products in column 2
+    W[1, :, 3] *= dtype(tiny_w)  # denormal products in column 2
     return torch.from_numpy(W), torch.from_numpy(X)
 
 
@@ -217,6 +227,90 @@ def test_grouped_rule_matches_the_tie_rule(g, Sm, bits):
     assert torch.equal(Yg, Y) and torch.equal(Ag, A)
     assert (A[:, :, 1] == 0).all() and (Y[:, :, 1] == 0).all()
     assert (A > 0).any()
+
+
+@pytest.mark.parametrize("bits", [False, True])
+@pytest.mark.parametrize("g", GROUPS)
+@pytest.mark.parametrize("Sm", [128, 200])
+def test_float64_grouped_rule_matches_the_tie_rule(g, Sm, bits):
+    """The float64 instantiation's rule (64 positions a pass, the maxima on
+    the products' 64 bits) bit-equal to ``_tier_max_arg`` in float64 on
+    float64 ties and denormal products; Sm = 200 takes four passes."""
+    W, X = _tied_inputs(Sm, seed=3 * g + Sm, dtype=np.float64)
+    prod = W[1, :, 3] * X[1, :, 2]
+    assert ((prod > 0) & (prod < torch.finfo(torch.float64).tiny)).any()
+    Y, A = tbl._tier_max_arg(W, X)
+    Yg, Ag = grouped_max_arg(W, X, g, sc=SC64, bits=bits)
+    assert Y.dtype == Yg.dtype == torch.float64
+    assert torch.equal(Yg, Y) and torch.equal(Ag, A)
+    assert (A[:, :, 1] == 0).all() and (Y[:, :, 1] == 0).all()
+    assert (A > 0).any()
+
+
+def omega_argmax_f64(om, a, items, order, copy_of, CM=16):
+    """A torch emulation of the float64 K7's ω argmax of (om ⊙ a) (Sp, B):
+    each item (a list of rows) takes its rows' lexicographic max of (the
+    product's 64 bits, 2^32 - 1 - j); a zero product's j-word goes to its
+    copy's zero word by a max, a positive one replaces its copy's pair when
+    it is larger (under the pair's lock, after a check against the pair's
+    value); items run in ``order``, item i into copy ``copy_of[i]``.  The
+    frame's end takes the largest value over the copies, the largest
+    j-word of the copies holding it, or the zero words' largest where
+    every product is 0.  Returns (value (B,), argmax (B,))."""
+    Sp, B = a.shape
+    bits = (om[:, None] * a).view(torch.int64)  # >= 0: orders as the value
+    jw = (0xFFFFFFFF - torch.arange(Sp, dtype=torch.int64))[:, None]
+    pv = torch.zeros((CM, B), dtype=torch.int64)
+    pw = torch.zeros((CM, B), dtype=torch.int64)
+    zw = torch.zeros((CM, B), dtype=torch.int64)
+    for i in order:
+        rows = torch.as_tensor(items[i])
+        v, w = bits[rows], jw[rows].expand(-1, B)
+        kv = v.amax(dim=0)
+        kw = torch.where(v == kv, w, -1).amax(dim=0)
+        c = copy_of[i]
+        zero = kv == 0
+        zw[c] = torch.where(zero, torch.maximum(zw[c], kw), zw[c])
+        win = ~zero & ((kv > pv[c]) | ((kv == pv[c]) & (kw > pw[c])))
+        pv[c] = torch.where(win, kv, pv[c])
+        pw[c] = torch.where(win, kw, pw[c])
+    M = pv.amax(dim=0)
+    W = torch.where(M == 0, zw.amax(dim=0),
+                    torch.where(pv == M, pw, -1).amax(dim=0))
+    return M.view(torch.float64), 0xFFFFFFFF - W
+
+
+def test_float64_omega_argmax_matches_the_twin():
+    """The emulation of the float64 ω pairs equal to the plain twin's rule
+    (``viterbi_fwd_plain``: the max of ω ⊙ a and its smallest argmax) on
+    tie-heavy inputs with denormal products, an all-zero column (every
+    product 0: the zero words decide) and a column whose only positive
+    products tie; for several item orders and copy assignments."""
+    rng = np.random.default_rng(5)
+    Sp, B = 200, 6
+    om = rng.choice(np.array([0, 0.25, 0.5, 1.0]), size=Sp)
+    a = rng.choice(np.array([0, 0.5, 1.0]), size=(Sp, B))
+    a[:, 1] = 0  # every product 0
+    a[:, 2] = 0
+    a[[7, 90, 150], 2] = 1.0
+    om[[7, 90, 150]] = 0.5  # three tied positive products
+    a[:, 3] *= 1e-160
+    om[::3] *= 1e-150  # denormal products
+    om, a = torch.from_numpy(om), torch.from_numpy(a)
+    prod = om[:, None] * a
+    assert ((prod > 0) & (prod < torch.finfo(torch.float64).tiny)).any()
+    want_v = prod.amax(dim=0)
+    flat = torch.arange(Sp)[:, None]
+    want_j = torch.where(prod == want_v, flat, Sp).amin(dim=0)
+    assert want_j[1] == 0 and want_j[2] == 7
+    perm = rng.permutation(Sp)
+    items = [perm[i:i + 23] for i in range(0, Sp, 23)]  # scattered rows
+    for seed in range(4):
+        r = np.random.default_rng(seed)
+        order = r.permutation(len(items))
+        copy_of = r.integers(0, 16, size=len(items))
+        v, j = omega_argmax_f64(om, a, items, order, copy_of)
+        assert torch.equal(v, want_v) and torch.equal(j, want_j)
 
 
 @pytest.fixture(scope="module")
@@ -253,3 +347,32 @@ def test_grouped_rule_in_the_sweep_matches_jax_k7(k7_pair, g, monkeypatch):
     np.testing.assert_array_equal(bt.numpy(), bj)
     np.testing.assert_array_equal(ft.numpy(), fj)
     assert (bj < 128).any() and (bj == 255).any()
+
+
+def test_float64_grouped_rule_in_the_float64_sweep():
+    """The float64 plain sweep with the tier rule replaced by the float64
+    emulation (64 positions a pass, on the products' 64 bits) gives the
+    float64 twin's ids and ω argmaxes bit for bit, on the 2M-arc graph
+    compiled float64 (B=8, N=7, mixed lengths with 1, ±30-nat cliffs); the
+    JAX package's K7 refuses float64, so the twin is the reference."""
+    ct = compile_port(*port_lm_graph(128)[:3], strategy="block",
+                      dtype=torch.float64)
+    lhs, lens = inputs(8, 7, ct.num_pdfs, seed=23,
+                       lens=[7, 1, 5, 7, 2, 6, 4, 3], cliffs=True)
+    ext, msh = ps_prepare(lhs, lens, ct.num_pdfs)
+    bt, ft, *rest = vs.viterbi_fwd_plain(ct, ext, msh)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tbl, "_tier_max_arg",
+                   lambda W, X: grouped_max_arg(W, X, 8, sc=SC64, bits=True))
+        be, fe, *rest_e = vs.viterbi_fwd_plain(ct, ext, msh)
+    assert torch.equal(be, bt) and torch.equal(fe, ft)
+    assert all(torch.equal(x, y) for x, y in zip(rest, rest_e))
+    assert (bt < 128).any() and (bt == 255).any()
+
+
+def ps_prepare(lhs, lens, P):
+    """The float64 emissions of numpy inputs (the port's prepare)."""
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    return prepare_emissions(torch.from_numpy(lhs).double(),
+                             torch.from_numpy(lens), P, torch.float64)
