@@ -259,7 +259,31 @@ decode; a general-Ĉ graph has no kernel yet and is refused on the card):
     decode at N=1,024; K6a/K6b in float64 timed beside their twins, float64
     ``torch.matmul`` and ``torch.sparse.mm`` ×701 and their bounds (the
     product at the FP64 tensor-core rate, and at the non-tensor FP64 rate
-    beside it); K7 in float64 timed beside its twin on both block graphs.
+    beside it); K7 in float64 timed beside its twin on both block graphs;
+47. the log-space scans, which the JAX package runs outside any Pallas
+    kernel and the port runs in plain PyTorch on every device: the V=48
+    phone n-gram denominator (``workloads.make_lm_hmm_graph(V=48)``: 6,913
+    states, 124,417 arcs, P=144; BASELINE config 3) compiled 'segment' and
+    'ell', and 32 numerators stacked in domain 'log' (BASELINE config 2):
+    ``fast_path_report`` names the plain log-space route; at B=2, N=700
+    logZ and posteriors against the f64 host oracle (float32 at 1e-3 /
+    1e-4, float64 compiles at the 1e-4 contract); at B=32, N=700 (lengths
+    1 .. 700, ±30-nat cliffs) ``pdfposteriors`` and ``logmarginal`` with
+    its gradient (equal to the posteriors, bit for bit), no kernel launch
+    (the counters and ``torch.profiler``), two runs bit-equal, the card
+    against the CPU on the same inputs, medians of 5, and for reference the
+    same graph compiled 'dense' on K6a/K6b ('block' compiles it in two
+    tiers, which K2-K4 refuse);
+48. the tropical decodes of that route: ``viterbi`` of the V=48 'segment'
+    graph and the forced alignment of the 32 stacked numerators at B=32,
+    N=700 against the f64 max-plus optimum and ``oracle.validate_paths``,
+    ``maxstateposteriors`` at B=2, N=700 (its best-path states at 0), no
+    kernel launch, two runs bit-equal, the card against the CPU, medians
+    of 5;
+49. the 2M-arc 'block' graph and the V=32 'dense' graph compiled in domain
+    'log': ``viterbi`` at B=32, N=700 launches the kernels of the
+    probability-domain decode (K7 and its walk; K6t and W2), bit-equal to
+    the probability-domain graphs' decodes, medians of 5 in turns.
 
 Every kernel's entry in the JSON line (K6t, K7n and W2 from phases 32-33,
 the family branch's K7, walk, K7n and W2 from phases 36-37, K2-K4's
@@ -3487,6 +3511,403 @@ def time_f64_vit(cf, P, dev, B=128, N=700):
     return t, tp
 
 
+# ---- the log-space scans and the tropical decodes (phases 47-48) -----------
+# The card against the CPU on the same inputs: the same float32 operations,
+# but the card's segment sums, row sums and matmuls add in another order
+# (logZ relative to max(1, |logZ|), posteriors absolute)
+TOL_CPU = 1e-5
+# the kernels of the port's CUDA extension, as the profiler names them
+_EXT_KERNEL = re.compile(r"(fwd_chunk_kernel|bwd_chunk_kernel|banded_\w*kernel"
+                         r"|sweep_kernel|vit_sweep_kernel|vit_walk_kernel"
+                         r"|rec_walk_kernel)")
+
+
+def log_inputs(P, dev, B=32, N=700, seed=47, lmin=1, dtype=None):
+    """(lhs (B, N, P) with ±30-nat cliffs, lengths (B,)) on ``dev`` and as
+    numpy: lengths 1 and N, the rest drawn in [lmin, N)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lhs = make_inputs(rng, B, N, P, cliffs=True)
+    lens = np.r_[1, N, rng.integers(max(lmin, 2), N, size=B - 2)]
+    lens = lens.astype(np.int32)
+    x = torch.from_numpy(lhs).to(dev, dtype or torch.float32)
+    return x, torch.from_numpy(lens).to(dev), lhs, lens
+
+
+def rel_logz_err(z, ref):
+    """max |dlogZ| / max(1, |logZ|) over the finite entries; the -inf
+    entries must agree."""
+    z, ref = np.asarray(z, np.float64), np.asarray(ref, np.float64)
+    assert (np.isneginf(z) == np.isneginf(ref)).all(), "feasibility differs"
+    fin = np.isfinite(ref)
+    d = np.abs(z[fin] - ref[fin]) / np.maximum(1.0, np.abs(ref[fin]))
+    return float(d.max(initial=0.0))
+
+
+def no_extension_launch(fn, label, what):
+    """One profiled call of ``fn``: no kernel of the port's CUDA extension
+    among the device events (the launch counters are checked besides)."""
+    prof = profile_device(fn)
+    if prof is None:
+        print(f"{label}: {what}: the profiler recorded no device event "
+              "(the launch counters stand alone)")
+        return
+    by_name, busy, span, counts = prof
+    ext = sorted(n for n in by_name if _EXT_KERNEL.search(n))
+    assert not ext, f"{what}: extension kernels launched: {ext}"
+    print(f"{label}: {what}: profile {sum(counts.values())} launches of "
+          f"{len(counts)} kernels, none of the port's extension; device busy "
+          f"{busy:.2f} of {span:.2f} ms (idle share "
+          f"{1 - busy / span if span else 0:.3f})")
+
+
+def bit_equal(a, b):
+    """Two runs' outputs equal bit for bit (NaN where the other has NaN)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    same = a == b
+    if a.is_floating_point():
+        same |= torch.isnan(a) & torch.isnan(b)
+    return bool(same.all())
+
+
+def assert_posts(posts, z, lens, what):
+    """Finite (B, N, P) posteriors summing to 1 on the active frames of a
+    feasible sequence and exactly 0 elsewhere."""
+    p = posts.double().cpu().numpy()
+    zz = z.double().cpu().numpy()
+    assert np.isfinite(p).all(), f"{what}: non-finite posteriors"
+    for b, L in enumerate(np.asarray(lens)):
+        if np.isfinite(zz[b]):
+            e = np.abs(p[b, :L].sum(axis=1) - 1).max(initial=0)
+            assert e <= TOL_POST_SUM, f"{what}: posterior mass off by {e}"
+            assert (p[b, L:] == 0).all(), f"{what}: posteriors past the end"
+        else:
+            assert (p[b] == 0).all(), f"{what}: infeasible, posteriors != 0"
+
+
+def phase_log_scans(dev, label="phase 47"):
+    """Phase 47: the log-space scans on the card (the plain PyTorch route
+    the JAX package runs outside any Pallas kernel), at BASELINE configs 2
+    and 3: the V=48 phone n-gram denominator (6,913 states, 124,417 arcs,
+    P=144) compiled 'segment' and 'ell', and 32 stacked log-domain 'banded'
+    numerators; returns what phase 48 reuses."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+
+    f32, f64 = torch.float32, torch.float64
+    t0 = time.perf_counter()
+    fsm, spdf, P, info = mt.workloads.make_lm_hmm_graph(V=48)
+    cfs = {(s, d): mt.compile_fsm(fsm, spdf, P, strategy=s, dtype=d,
+                                  device=dev)
+           for s in ("segment", "ell") for d in (f32, f64)}
+    nums = build_numerators(P, G=32)
+    num = {d: mt.stack([mt.compile_fsm(f, sp, P, strategy="banded",
+                                       domain="log", dtype=d, device=dev)
+                        for f, sp in nums]) for d in (f32, f64)}
+    seg, ell = cfs["segment", f32], cfs["ell", f32]
+    E, D = seg.fwd_src.shape[0], ell.ell_fwd_src.shape[1]
+    print(f"{label}: graph {info} compiled 'segment' and 'ell' (float32 and "
+          f"float64), 32 numerators stacked in domain 'log', in "
+          f"{time.perf_counter() - t0:.1f} s; Sp = {seg.padded_states}, "
+          f"E = {E}, ell in-degree D = {D} fwd / "
+          f"{ell.ell_bwd_src.shape[1]} bwd: at B=32 the segment "
+          f"contribution is {E * 32 * 4 / 1e6:.0f} MB, the ell one "
+          f"{seg.padded_states * D * 32 * 4 / 1e9:.2f} GB a frame")
+    for name, c in (("segment", seg), ("ell", ell),
+                    ("numerators", num[f32])):
+        report = mt.fast_path_report(c, 32, device=dev)
+        print(f"{label}: {name} route: {report}")
+        assert report.startswith("plain torch log-space scan"), report
+
+    # B=2, N=700 against the f64 host oracle (bench.py's parity inputs)
+    refs = {}
+    phase_oracle_700(fsm, spdf, P, dev, {
+        "V=48 segment": (seg, TOL_ORACLE_700, TOL_ORACLE),
+        "V=48 ell": (ell, TOL_ORACLE_700, TOL_ORACLE),
+        "V=48 segment float64": (cfs["segment", f64], TOL_ORACLE,
+                                 TOL_ORACLE),
+        "V=48 ell float64": (cfs["ell", f64], TOL_ORACLE, TOL_ORACLE)},
+        label, refs=refs)
+    rng = np.random.default_rng(7)
+    nl = rng.normal(size=(2, 700, P)).astype(np.float32)
+    nlen = np.array([700, 467], dtype=np.int32)
+    rz, rp = zip(*(mt.oracle.host_oracle(*nums[g], P, nl[g:g + 1].astype(
+        np.float64), nlen[g:g + 1]) for g in range(2)))
+    rz, rp = np.concatenate(rz), np.concatenate(rp)
+    for d, tz in ((f32, TOL_ORACLE_700), (f64, TOL_ORACLE)):
+        st = mt.stack([mt.compile_fsm(f, sp, P, strategy="banded",
+                                      domain="log", dtype=d, device=dev)
+                       for f, sp in nums[:2]])
+        posts, z = mt.pdfposteriors(st, torch.from_numpy(nl).to(dev, d),
+                                    torch.from_numpy(nlen).to(dev))
+        err = float(np.abs(z.cpu().numpy() - rz).max())
+        perr = float(np.abs(posts.cpu().numpy() - rp).max())
+        print(f"{label}: 2 stacked log-domain numerators ({d}) B=2 N=700 vs "
+              f"f64 oracle |dlogZ| = {err:.3e} (gate {tz:g}), |dposts| = "
+              f"{perr:.3e} (gate {TOL_ORACLE:g})")
+        assert err <= tz and perr <= TOL_ORACLE, "numerator oracle gate"
+
+    # the main path: B=32, N=700, mixed lengths with 1 and 700, cliffs
+    lhs, lens, lhs_np, lens_np = log_inputs(P, dev)
+    nlhs, nlens, nlhs_np, nlens_np = log_inputs(P, dev, seed=48, lmin=78)
+    out = {}
+
+    def posts_of(name, c, x, ln):
+        def run():
+            out[name] = mt.pdfposteriors(c, x, ln)
+        return run
+
+    def grad_of(name, c, x, ln):
+        def run():
+            xg = x.clone().requires_grad_()
+            z = mt.logmarginal(c, xg, ln)
+            z.sum().backward()
+            out[name] = (xg.grad, z.detach())
+        return run
+
+    calls = {
+        "segment pdfposteriors": posts_of("sp", seg, lhs, lens),
+        "segment logmarginal+grad": grad_of("sg", seg, lhs, lens),
+        "numerators pdfposteriors": posts_of("np", num[f32], nlhs, nlens),
+    }
+    # 'ell' moves its 2 GB contribution ~9 times a frame: one timed call
+    # each, its second run the pdfposteriors inside logmarginal
+    slow = {"ell pdfposteriors": posts_of("ep", ell, lhs, lens),
+            "ell logmarginal+grad": grad_of("eg", ell, lhs, lens)}
+    reset_all_launches()
+    t_one = {k: cuda_ms(fn, warm=False)
+             for k, fn in {**calls, **slow}.items()}
+    counts = all_launches()
+    assert not any(counts.values()), f"kernel launches: {counts}"
+    first = dict(out)
+    for key, what in (("sp", "segment"), ("ep", "ell"), ("np", "numerators")):
+        posts, z = first[key]
+        ln = nlens_np if key == "np" else lens_np
+        assert posts.shape == (32, 700, P) and z.shape == (32,)
+        assert_posts(posts, z, ln, what)
+        assert np.isneginf(z[0].item()) and np.isfinite(z[1].item()), what
+    for p, g in (("sp", "sg"), ("ep", "eg")):
+        assert torch.equal(first[g][1], first[p][1]), "logmarginal != logZ"
+        assert torch.equal(first[g][0], first[p][0]), "grad != posteriors"
+    e = rel_logz_err(first["ep"][1].cpu(), first["sp"][1].cpu())
+    pe = float((first["ep"][0] - first["sp"][0]).abs().max())
+    print(f"{label}: B=32 N=700: 'ell' vs 'segment' |dlogZ|/max(1,|logZ|) = "
+          f"{e:.3e}, |dposts| = {pe:.3e}; gradients equal to the posteriors "
+          f"and logmarginal to logZ, bit for bit; launches of the extension "
+          f"{sum(counts.values())}")
+    assert e <= TOL_CPU and pe <= TOL_CPU
+
+    t = median_ms(calls)
+    for key in ("sp", "sg", "np"):  # the last timed run
+        assert all(bit_equal(a, b) for a, b in zip(out[key], first[key])), \
+            f"{key}: two runs differ"
+    t.update({f"{k} (one call)": t_one[k] for k in slow})
+    print(f"{label}: two runs of every call bit-equal ('ell': its "
+          "pdfposteriors and the one inside logmarginal); first calls "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in t_one.items()))
+    # the profiles over 100 frames (the same route; ~37 launches a frame)
+    n = 100
+    for what, c, x, ln in (("segment", seg, lhs, lens),
+                           ("numerators", num[f32], nlhs, nlens),
+                           ("ell", ell, lhs[:2], lens[:2])):
+        no_extension_launch(
+            posts_of("prof", c, x[:, :n], torch.clamp(ln, max=n)), label,
+            f"{what} pdfposteriors B={x.shape[0]} N={n}")
+
+    # the card against the CPU on the same inputs (short: the CPU's ell
+    # contribution is 6,920 x D per column)
+    for name, c, x, ln, n in (
+            ("segment", seg, lhs[:2], lens[:2], 60),
+            ("ell", ell, lhs[:2], lens[:2], 8),
+            ("numerators", num[f32], nlhs, nlens, 120)):
+        ln = torch.clamp(ln, max=n)
+        pc, zc = mt.pdfposteriors(c, x[:, :n], ln)
+        ph, zh = mt.pdfposteriors(c.to("cpu"), x[:, :n].cpu(), ln.cpu())
+        e = rel_logz_err(zc.cpu(), zh)
+        pe = float((pc.cpu() - ph).abs().max())
+        print(f"{label}: {name} card vs CPU B={x.shape[0]} N={n}: "
+              f"|dlogZ|/max(1,|logZ|) = {e:.3e}, |dposts| = {pe:.3e} (tol "
+              f"{TOL_CPU:g})")
+        assert e <= TOL_CPU and pe <= TOL_CPU, f"{name}: card vs CPU"
+
+    # for reference: the same graph on the kernels.  'block' compiles it in
+    # two tiers, which K2-K4 refuse (ROADMAP item 16); 'dense' runs K6a/K6b
+    blk = mt.compile_fsm(fsm, spdf, P, strategy="block", device=dev)
+    print(f"{label}: V=48 'block': {mt.fast_path_report(blk, 32)}")
+    dn = mt.compile_fsm(fsm, spdf, P, strategy="dense", device=dev)
+    t.update(median_ms({"V=48 'dense' den-only on K6a/K6b (reference)":
+                        lambda: mt.pdfposteriors(dn, lhs, lens)}))
+    card = card_line()
+    for k, v in t.items():
+        print(f"timing: {label} {k} B=32 N=700"
+              f"{'' if 'one call' in k else ' median of 5'}: {v:.2f} ms "
+              f"({card})")
+    print(f"{label}: {time.perf_counter() - t0:.1f} s in all")
+    return dict(fsm=fsm, spdf=spdf, P=P, seg=seg, num=num[f32], nums=nums,
+                lhs=(lhs, lens, lhs_np, lens_np),
+                nlhs=(nlhs, nlens, nlhs_np, nlens_np), times=t)
+
+
+def phase_trop_decodes(dev, g, label="phase 48"):
+    """Phase 48: the tropical decodes of the log-domain route on the card
+    (``_viterbi_single``: int32 backpointers, plain PyTorch): the V=48
+    'segment' graph and the forced alignment of the 32 stacked numerators
+    at B=32, N=700, and ``maxstateposteriors``."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+
+    t0 = time.perf_counter()
+    fsm, spdf, P, seg, num = g["fsm"], g["spdf"], g["P"], g["seg"], g["num"]
+    lhs, lens, lhs_np, lens_np = g["lhs"]
+    nlhs, nlens, nlhs_np, nlens_np = g["nlhs"]
+    out = {}
+
+    def dec(name, c, x, ln):
+        def run():
+            out[name] = mt.viterbi(c, x, ln)
+        return run
+
+    def msp(name, c, x, ln):
+        def run():
+            out[name] = mt.maxstateposteriors(c, x, ln)
+        return run
+
+    calls = {"segment viterbi B=32 N=700": dec("sv", seg, lhs, lens),
+             "numerators forced alignment B=32 N=700": dec("nv", num, nlhs,
+                                                           nlens),
+             "segment maxstateposteriors B=2 N=700": msp("ms", seg,
+                                                         lhs[1:3],
+                                                         lens[1:3])}
+    reset_all_launches()
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    counts = all_launches()
+    assert not any(counts.values()), f"kernel launches: {counts}"
+    first = dict(out)
+
+    states, score = (a.cpu().numpy() for a in first["sv"])
+    assert states.shape == (32, 700) and states.dtype == np.int32
+    feas = np.isfinite(score)
+    assert not feas[0] and feas[1:].all(), "feasibility"
+    idx = [1, int(np.argsort(lens_np)[16])]  # lengths 700 and a middle one
+    ref = mt.oracle.host_viterbi_score(fsm, spdf, P, lhs_np[idx].astype(
+        np.float64), lens_np[idx])
+    serr = float(np.abs(score[idx] - ref).max())
+    gap = mt.oracle.validate_paths(fsm, spdf, lhs_np[feas], lens_np[feas],
+                                   states[feas], score[feas],
+                                   atol=TOL_VIT_WALK)
+    print(f"{label}: segment viterbi B=32 N=700: |dscore| vs the f64 "
+          f"optimum at lengths {lens_np[idx].tolist()} = {serr:.3e} (tol "
+          f"{TOL_VIT_ORACLE:g}); 31 feasible paths' f64 weight vs score "
+          f"<= {gap:.3e} (tol {TOL_VIT_WALK:g}); length 1 infeasible")
+    assert serr <= TOL_VIT_ORACLE
+
+    nst, nsc = (a.cpu().numpy() for a in first["nv"])
+    nfeas = np.isfinite(nsc)
+    assert not nfeas[0] and nfeas[1:].all(), "numerator feasibility"
+    serr = gap = 0.0
+    for b in np.flatnonzero(nfeas):
+        f, sp = g["nums"][b]
+        ref = mt.oracle.host_viterbi_score(f, sp, P, nlhs_np[b:b + 1].astype(
+            np.float64), nlens_np[b:b + 1])
+        serr = max(serr, float(abs(nsc[b] - ref[0])))
+        gap = max(gap, mt.oracle.validate_paths(
+            f, sp, nlhs_np[b:b + 1], nlens_np[b:b + 1], nst[b:b + 1],
+            nsc[b:b + 1], atol=TOL_VIT_WALK))
+    print(f"{label}: forced alignment of 32 numerators B=32 N=700: |dscore| "
+          f"vs each graph's f64 optimum <= {serr:.3e} (tol "
+          f"{TOL_VIT_ORACLE:g}); paths' f64 weight vs score <= {gap:.3e}")
+    assert serr <= TOL_VIT_ORACLE
+
+    gam, msc = first["ms"]
+    gm = gam.cpu().numpy()
+    assert gm.shape == (2, 700, seg.padded_states)
+    np.testing.assert_allclose(msc.cpu().numpy(), score[1:3], rtol=0,
+                               atol=TOL_VIT)
+    on = top = 0.0
+    for b in range(2):
+        L = int(lens_np[1 + b])
+        on = max(on, float(np.abs(gm[b, np.arange(L),
+                                     states[1 + b, :L]]).max()))
+        top = max(top, float(gm[b, :L].max()))
+    print(f"{label}: maxstateposteriors B=2 N=700 (2 x 700 x "
+          f"{seg.padded_states}, lengths {lens_np[1:3].tolist()}): the "
+          f"best-path states |gamma| <= {on:.3e}, the max over all states "
+          f"{top:.3e} (tol {TOL_VIT_WALK:g}); scores equal viterbi's")
+    assert on <= TOL_VIT_WALK and top <= TOL_VIT_WALK
+
+    t = median_ms(calls)
+    for key in ("sv", "nv", "ms"):
+        assert all(bit_equal(a, b) for a, b in zip(out[key], first[key])), \
+            f"{key}: two runs differ"
+    print(f"{label}: two runs of every call bit-equal")
+    no_extension_launch(dec("prof", num, nlhs[:, :100],
+                            torch.clamp(nlens, max=100)),
+                        label, "forced alignment B=32 N=100")
+    for name, c, x, ln, n in (("segment", seg, lhs[:2], lens[:2], 60),
+                              ("numerators", num, nlhs, nlens, 120)):
+        ln = torch.clamp(ln, max=n)
+        sc_, zc = mt.viterbi(c, x[:, :n], ln)
+        sh, zh = mt.viterbi(c.to("cpu"), x[:, :n].cpu(), ln.cpu())
+        same = bool(torch.equal(sc_.cpu(), sh))
+        e = rel_logz_err(zc.cpu(), zh)
+        print(f"{label}: {name} viterbi card vs CPU B={x.shape[0]} N={n}: "
+              f"states equal {same}, |dscore|/max(1,|score|) = {e:.3e}")
+        assert same and e <= TOL_CPU, f"{name}: card vs CPU decode"
+    card = card_line()
+    for k, v in t.items():
+        print(f"timing: {label} {k} median of 5: {v:.2f} ms ({card})")
+    print(f"{label}: {time.perf_counter() - t0:.1f} s in all")
+    return t
+
+
+def phase_log_kernel_decodes(graphs, dev, B=32, N=700, label="phase 49"):
+    """Phase 49: a log-domain 'block' or 'dense' graph decodes on the
+    kernels of its probability-domain twin (K7 and its walk, K6t and W2):
+    the Viterbi decode does not depend on the domain.  ``graphs``: (name,
+    fsm, spdf, P, the probability-domain compile, compile_fsm's keyword
+    arguments, the launches wanted).  Each graph is compiled anew with
+    ``domain='log'``; its decode at B=32, N=700 must launch the kernels
+    and equal the probability-domain graph's decode bit for bit."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+
+    t0 = time.perf_counter()
+    calls = {}
+    for name, fsm, spdf, P, cf, kw, want in graphs:
+        lcf = mt.compile_fsm(fsm, spdf, P, domain="log", device=dev, **kw)
+        assert lcf.domain == "log" and lcf.strategy == cf.strategy
+        lhs, lens = vit_inputs(P, dev, B=B, N=N, seed=49)
+        reset_all_launches()
+        sl, zl = mt.viterbi(lcf, lhs, lens)
+        counts = launched(want)
+        sp, zp = mt.viterbi(cf, lhs, lens)
+        same = bit_equal(sl, sp) and bit_equal(zl, zp)
+        print(f"{label}: {name} compiled domain='log', viterbi B={B} N={N}: "
+              f"launches {counts}; states and scores bit-equal to the "
+              f"probability-domain graph's {same}")
+        assert same, f"{name}: the log-domain decode differs"
+        calls[f"{name} log-domain viterbi B={B} N={N}"] = (
+            lambda c=lcf, x=lhs, ln=lens: mt.viterbi(c, x, ln))
+        calls[f"{name} probability-domain viterbi B={B} N={N}"] = (
+            lambda c=cf, x=lhs, ln=lens: mt.viterbi(c, x, ln))
+    t = median_ms(calls)
+    torch.cuda.synchronize()
+    card = card_line()
+    for k, v in t.items():
+        print(f"timing: {label} {k} median of 5: {v:.2f} ms ({card})")
+    print(f"{label}: {time.perf_counter() - t0:.1f} s in all")
+    return t
+
+
 def main():
     import torch
 
@@ -3924,6 +4345,16 @@ def main():
               f"frames (twin {tp:.1f} ms), bound {k7_64b[name][0]:.3f} ms "
               f"({k7_64b[name][1]})")
 
+    # ---- the log-space scans and the tropical decodes (phases 47-48) ------
+    g47 = phase_log_scans(dev)
+    t48 = phase_trop_decodes(dev, g47)
+    phase_log_kernel_decodes(
+        [("2M-arc 'block' graph", fsm, spdf, P, cf,
+          dict(strategy="block", precision="high"),
+          {"vit_fwd": 1, "vit_walk": 1}),
+         ("V=32 'dense' graph", dfsm, dspdf, dP, dcf, {},
+          {"dense_trop": 1, "rec_walk": 1})], dev)
+
     block_src = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
     banded_src = "markovmodels_tpu_torch/ops/csrc/banded_scan.cu"
     dense_src = "markovmodels_tpu_torch/ops/csrc/dense_scan.cu"
@@ -4156,6 +4587,8 @@ def main():
               for k in ("dense step", "dense den", "2M-arc decode",
                         "separate-state decode", "dense decode",
                         "2M-arc decode N=1,024"))
+          + "; log-space (no kernel): " + "; ".join(
+              f"{k} {v:.2f} ms" for k, v in {**g47["times"], **t48}.items())
           + f"; per frame, whole / "
           f"without work: " + "; ".join(
               f"{k} {name} {v['whole']:.2f} / {v['without work']:.2f} us"

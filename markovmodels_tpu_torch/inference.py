@@ -1,32 +1,41 @@
 """Compiled FSMs, the batched forward-backward and the LF-MMI loss.
 
-PyTorch counterpart of ``markovmodels_tpu/inference.py`` for the 'dense',
-'block' and 'banded' strategies in the probability domain, float32 or
-float64, one pdf per state or a general Ĉ:
+PyTorch counterpart of ``markovmodels_tpu/inference.py``: every strategy
+('dense', 'block', 'banded', 'ell', 'segment'), both domains ('prob' and
+'log'), float32 or float64, one pdf per state or a general Ĉ:
 
 * ``compile_fsm`` lowers a host ``FSM`` to a :class:`CompiledFSM` of
   tensors ('dense': exp-shifted (Sp, Sp) operators with their row maxima,
   the default for graphs of up to 4,096 states; 'block': pdf-grouped
   relabeling, COO edge arrays, blocked operator, rank-1 ω split; 'banded':
-  per-offset arc bands and the ω split), equal to the JAX package's arrays;
-  ``stack`` (alias ``batch``) stacks 'banded' graphs, e.g. the
-  per-utterance numerator lattices, and 'dense' graphs;
-* ``pdfposteriors`` / ``forward`` run the probability-domain scan.  CPU
-  tensors take the plain PyTorch scan; CUDA tensors take the hand-written
-  kernels (``ops/dense_scan.py`` for one shared 'dense' graph,
+  per-offset arc bands and the ω split; 'ell': padded incoming-arc lists;
+  'segment': the COO edge arrays alone), equal to the JAX package's
+  arrays; ``stack`` (alias ``batch``) stacks graphs of any strategy but
+  'block', e.g. the per-utterance numerator lattices;
+* ``pdfposteriors`` / ``forward`` run the scans.  Probability-domain
+  'dense', 'block' and stacked 'banded' graphs take the plain PyTorch scan
+  for CPU tensors and the hand-written kernels for CUDA tensors
+  (``ops/dense_scan.py`` for one shared 'dense' graph,
   ``ops/block_scan.py`` for one shared 'block' graph,
   ``ops/banded_scan.py`` for stacked 'banded' graphs, one sequence each;
-  each float32 or float64) and raise, naming the first rejected
+  each float32 or float64), and raise, naming the first rejected
   predicate, for a graph those kernels do not accept.  Nothing falls back
-  quietly.  Stacked 'dense' graphs take the plain per-graph scan on every
-  device, float32 or float64, as the JAX package runs them outside any
-  Pallas kernel (``_plain_everywhere``).  General-Ĉ graphs have no kernel
-  yet: on the card they raise ``NotImplementedError`` before any launch
-  (``_unported_on_card``), on the CPU they run;
+  quietly.  The routes that the JAX package runs outside any Pallas
+  kernel take their plain PyTorch scan on every device
+  (``_plain_everywhere``, decided from the graph before any launch): the
+  log-space scan ``_fb_run`` of log-domain graphs and of 'segment' / 'ell'
+  graphs, and the per-graph route of stacked graphs, one sequence per
+  graph, that the stacked probability-domain scans do not take.
+  General-Ĉ graphs have no kernel yet: on the card they raise
+  ``NotImplementedError`` before any launch (``_unported_on_card``), on
+  the CPU they run;
 * ``logmarginal`` and ``lfmmi_loss`` are differentiable in ``lhs``: the
   gradient of logZ is the posterior matrix the scan already computed, so
   autograd never differentiates the scan.  This is the LF-MMI training
-  step: ``lfmmi_loss(num, den, lhs, lengths).sum().backward()``.
+  step: ``lfmmi_loss(num, den, lhs, lengths).sum().backward()``;
+* ``expand``, ``alpha_recursion`` and ``beta_recursion`` are the
+  reference's likelihood expansion and full (unrescaled) log-domain
+  messages.
 
 Layouts at the public functions are the JAX package's: ``lhs`` (B, N, P),
 ``lengths`` (B,), results (posteriors (B, N, P), logZ (B,)).
@@ -42,6 +51,7 @@ import torch
 from . import hostsparse as hs
 from .fsm import FSM
 from .ops import banded_scan, block_scan, dense_scan
+from .ops import semiring_ops as sops
 from .ops.block_scan import _pow2_exponent, _pow2_scale
 from .ops.blocked import (BlockOperator, block_matvec, build_block_operator,
                           round_bf16)
@@ -58,17 +68,17 @@ __all__ = [
     "logmarginal",
     "lfmmi_loss",
     "fast_path_report",
+    "expand",
+    "alpha_recursion",
+    "beta_recursion",
 ]
 
 _MODES_TODO = ("ROADMAP queue 1 item 9, its remainder: precision 'bf16' with "
                "dtype float64, which the JAX package defines only by what "
                "XLA's CPU ignores")
 _CARD_TODO = "ROADMAP queue 1 item 9c: the general-Ĉ kernels"
-_LOG_TODO = ("ROADMAP queue 1 item 10: port the log-domain path and the "
-             "'ell' and 'segment' strategies")
-_VMAP_TODO = ("ROADMAP queue 1 item 7: port the vmapped per-graph route for "
-              "batched graphs")
-_PORTED = ("dense", "block", "banded")
+_STRATEGIES = ("dense", "block", "banded", "ell", "segment")
+_DOMAINS = ("prob", "log")
 
 
 def _round_up(x, m):
@@ -77,8 +87,8 @@ def _round_up(x, m):
 
 @dataclasses.dataclass
 class CompiledFSM:
-    """Device representation of one FSM (or a stacked batch of 'banded' or
-    'dense' FSMs) for the 'dense', 'block' and 'banded' strategies.
+    """Device representation of one FSM (or a stacked batch of FSMs of any
+    strategy but 'block').
 
     Shapes below are for a single graph (``batched=False``); a stacked batch
     adds a leading graph axis G to every tensor field.  ``Sp`` is the padded
@@ -121,6 +131,12 @@ class CompiledFSM:
     dense_fwd_max: Optional[torch.Tensor] = None
     dense_bwd_exp: Optional[torch.Tensor] = None
     dense_bwd_max: Optional[torch.Tensor] = None
+    # 'ell': (Sp, D) int32 padded incoming-arc sources (0 pads) and their
+    # log weights (-inf pads), fwd by destination, bwd by source
+    ell_fwd_src: Optional[torch.Tensor] = None
+    ell_fwd_w: Optional[torch.Tensor] = None
+    ell_bwd_src: Optional[torch.Tensor] = None
+    ell_bwd_w: Optional[torch.Tensor] = None
     num_states: int = 0  # S+1 (incl. phony, excl. padding); Sp when stacked
     num_pdfs: int = 0  # real pdfs P (phony pdf id = P)
     strategy: str = "block"
@@ -173,9 +189,9 @@ def compile_fsm(
     ov_cap: int | None = None,
     device="cuda",
 ) -> CompiledFSM:
-    """Lower a host FSM to the 'dense', 'block' or 'banded' device
-    representation on ``device``: the card by default, the CPU only when
-    asked (``device="cpu"``).  Without a card a CUDA ``device`` raises.
+    """Lower a host FSM to its device representation on ``device``: the
+    card by default, the CPU only when asked (``device="cpu"``).  Without a
+    card a CUDA ``device`` raises.
 
     ``state_pdf``: int array of length ``num_states + 1`` mapping each state
     (the phony final state included, mapped to ``num_pdfs``) to a pdf id,
@@ -195,7 +211,13 @@ def compile_fsm(
     'block' (one large shared graph, e.g. the 2M-arc denominator) or
     'banded' (a low-bandwidth lattice whose arcs sit on at most 8 distinct
     (dst - src) offsets, e.g. a numerator: self-loop and chain bands; more
-    offsets raise ``ValueError``).
+    offsets raise ``ValueError``), 'ell' (padded incoming-arc lists, for
+    low and uniform in-degree) or 'segment' (the COO edge list alone, any
+    sparsity); the last two run the log-space scan on every device.
+    ``domain``: 'prob' (the rescaled probability-domain scans) or 'log'
+    (the log-space scan of any strategy, the reference's log semiring,
+    run on every device as the JAX package runs it, outside any kernel);
+    the compiled arrays are the same in both.
     ``reorder`` ('block' only, as in the JAX package): 'pdf' renumbers
     states into a uniform pdf-grouped layout (pdf p owns slots
     [p*cmax, (p+1)*cmax)); 'auto' does so when the padding inflation is
@@ -221,8 +243,8 @@ def compile_fsm(
     everything else in float32.  The compiled arrays are the same in every
     mode, as in the JAX package, which casts at the call.
 
-    Not ported yet (raise ``NotImplementedError``): the 'ell' and 'segment'
-    strategies, the log domain, and precision 'bf16' with float64.
+    Not ported yet (raises ``NotImplementedError``): precision 'bf16' with
+    float64.
     """
     device = _target_device(device)
     S1 = len(fsm.alpha_hat)
@@ -256,8 +278,10 @@ def compile_fsm(
         if domain != "prob":
             raise ValueError("general Ĉ requires domain='prob'")
         reorder = "none"  # the pdf-grouped layout assumes one pdf per state
-    if strategy not in _PORTED:
-        raise NotImplementedError(f"strategy {strategy!r} ({_LOG_TODO})")
+    if strategy not in _STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r}")
+    if domain not in _DOMAINS:
+        raise ValueError(f"unknown domain {domain!r}")
     if dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(f"dtype {dtype} ({_MODES_TODO})")
     if precision not in ("high", "f32", "bf16"):
@@ -267,8 +291,6 @@ def compile_fsm(
     if precision == "bf16" and dtype == torch.float64:
         raise NotImplementedError(f"precision 'bf16' with dtype float64 "
                                   f"({_MODES_TODO})")
-    if domain != "prob":
-        raise NotImplementedError(f"domain {domain!r} ({_LOG_TODO})")
     if reorder not in ("auto", "pdf", "none"):
         raise ValueError(f"unknown reorder mode {reorder!r}")
 
@@ -410,13 +432,33 @@ def compile_fsm(
     kw = dict(block_fwd=None, block_bwd=None, banded_fwd=None,
               banded_bwd=None, block_fwd_offsets=(), block_bwd_offsets=(),
               banded_offsets=(), omega_prob=fl(om))
-    if strategy == "dense":
+    if strategy in ("ell", "segment"):
+        kw["omega_prob"] = None  # no rank-1 split: the scan reads the edges
+    if strategy == "ell":
+
+        def ell(gather, seg, w):
+            """Padded incoming-arc lists: edges sorted by segment (stable),
+            each edge's slot its rank within the segment."""
+            D = max(int(np.bincount(seg, minlength=S1).max()) if E else 0, 1)
+            es = np.zeros((Sp, D), dtype=np.int32)
+            ew = np.full((Sp, D), -np.inf, dtype=np.float64)
+            if E:
+                order = np.argsort(seg, kind="stable")
+                segs = seg[order]
+                slot = np.arange(E) - np.searchsorted(segs, segs)
+                es[segs, slot] = gather[order]
+                ew[segs, slot] = w[order]
+            return torch.from_numpy(es), fl(ew)
+
+        kw["ell_fwd_src"], kw["ell_fwd_w"] = ell(rows, cols, data)
+        kw["ell_bwd_src"], kw["ell_bwd_w"] = ell(cols, rows, data)
+    elif strategy == "dense":
         # the whole extended matrix, ω column included (no rank-1 split)
         kw["omega_prob"] = None
         for name, dst, src in (("fwd", cols, rows), ("bwd", rows, cols)):
             W = np.full((Sp, Sp), -np.inf, dtype=np_dtype)
             W[dst, src] = data  # fwd: W[j, i] = T̂[i, j]
-            exp_w, row_max = dense_scan.make_dense_operator(
+            exp_w, row_max = sops.make_dense_operator(
                 torch.from_numpy(W))
             kw[f"dense_{name}_exp"], kw[f"dense_{name}_max"] = exp_w, row_max
     elif strategy == "block":
@@ -429,7 +471,7 @@ def compile_fsm(
             crows, ccols, cdata, Sp, dtype=np_dtype, ov_region=ov_region)
         kw["block_bwd"], kw["block_bwd_offsets"] = build_block_operator(
             ccols, crows, cdata, Sp, dtype=np_dtype, ov_region=ov_region)
-    else:
+    elif strategy == "banded":
         # every core arc on one of <= 8 shared offsets (the JAX package's
         # banded branch has no parallel-arc check; neither has this one)
         offs = np.unique(ccols - crows) if len(crows) else np.zeros(0, int)
@@ -464,6 +506,7 @@ def compile_fsm(
         num_pdfs=int(num_pdfs),
         strategy=strategy,
         precision=precision,
+        domain=domain,
         pdf_group=pdf_group,
         multi_pdf=C_multi is not None,
         ov_layout=ov_layout,
@@ -520,7 +563,8 @@ def compiled_from_numpy(fields: dict, meta: dict, *,
     for name in ("alpha_hat", "state_pdf", "fwd_src", "fwd_dst", "fwd_w",
                  "bwd_src", "bwd_dst", "bwd_w", "pdf_onehot", "omega_prob",
                  "orig_state", "banded_fwd", "banded_bwd", "dense_fwd_exp",
-                 "dense_fwd_max", "dense_bwd_exp", "dense_bwd_max"):
+                 "dense_fwd_max", "dense_bwd_exp", "dense_bwd_max",
+                 "ell_fwd_src", "ell_fwd_w", "ell_bwd_src", "ell_bwd_w"):
         kw[name] = t(fields.get(name))
     fin = np.asarray(fields["final_state"])
     kw["final_state"] = int(fin) if fin.ndim == 0 else t(fin)
@@ -530,10 +574,10 @@ def compiled_from_numpy(fields: dict, meta: dict, *,
         if name in names:
             kw[name] = plain(v)
     cf = CompiledFSM(**kw)
-    if cf.strategy not in _PORTED:
-        raise NotImplementedError(f"strategy {cf.strategy!r} ({_LOG_TODO})")
-    if cf.domain != "prob":
-        raise NotImplementedError(f"domain {cf.domain!r} ({_LOG_TODO})")
+    if cf.strategy not in _STRATEGIES:
+        raise ValueError(f"unknown strategy {cf.strategy!r}")
+    if cf.domain not in _DOMAINS:
+        raise ValueError(f"unknown domain {cf.domain!r}")
     if cf.alpha_hat.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(f"dtype {cf.alpha_hat.dtype} "
                                   f"({_MODES_TODO})")
@@ -544,21 +588,23 @@ def compiled_from_numpy(fields: dict, meta: dict, *,
 
 
 def stack(cfsms) -> CompiledFSM:
-    """Stack unbatched 'banded' or 'dense' CompiledFSMs into one batched
-    graph (reference ``batch``, src/inference.jl:28-36): every tensor gains
-    a leading graph axis, padded to the largest graph (initial weights
-    -inf, state pdfs to the phony pdf, padding edges to weight -inf,
-    orig_state -1, one-hot columns 0).  'banded': ω is padded with 0 and
-    the band offsets become the union of the graphs' offsets with zero
-    bands where a graph lacks one.  'dense': each (Sp, Sp) operator is
-    padded with 0 and each row max with -inf.  Run one sequence per graph
-    (B = G) through ``pdfposteriors``.  The stack lies on its inputs'
-    device and keeps their dtype (all float32 or all float64); it is in
-    general-Ĉ mode when any of its graphs is.
+    """Stack unbatched CompiledFSMs of one strategy into one batched graph
+    (reference ``batch``, src/inference.jl:28-36): every tensor gains a
+    leading graph axis, padded to the largest graph (initial weights -inf,
+    state pdfs to the phony pdf, padding edges to weight -inf inside each
+    graph's own state range, orig_state -1, one-hot columns 0).  'banded':
+    ω is padded with 0 and the band offsets become the union of the graphs'
+    offsets with zero bands where a graph lacks one.  'dense': each (Sp, Sp)
+    operator is padded with 0 and each row max with -inf.  'ell': the
+    incoming-arc lists are padded to the largest in-degree (source 0,
+    weight -inf), then to the largest state count.  Run one sequence per
+    graph (B = G) through ``pdfposteriors``.  The stack lies on its inputs'
+    device, keeps their dtype (all float32 or all float64) and takes the
+    first graph's precision and domain; it is in general-Ĉ mode when any of
+    its graphs is.
 
     'block' raises ``ValueError`` as in the JAX package (the blocked scans
-    share one large graph across the batch); 'ell' and 'segment' are not
-    ported."""
+    share one large graph across the batch)."""
     cfsms = list(cfsms)
     if any(c.batched for c in cfsms):
         raise ValueError("can only stack unbatched CompiledFSMs")
@@ -568,10 +614,6 @@ def stack(cfsms) -> CompiledFSM:
         raise ValueError("stack requires matching strategy and num_pdfs")
     if strategy == "block":
         raise ValueError("stack does not support the 'block' strategy")
-    if strategy not in ("banded", "dense"):
-        raise NotImplementedError(
-            f"stack of {strategy!r} graphs (ROADMAP queue 1 item 7: the "
-            "'banded' and 'dense' strategies are the ones stacked so far)")
 
     Sp = max(c.padded_states for c in cfsms)
     Ep = max(c.fwd_src.shape[-1] for c in cfsms)
@@ -610,11 +652,20 @@ def stack(cfsms) -> CompiledFSM:
                   banded_bwd=bands("banded_bwd"),
                   omega_prob=fstack("omega_prob", Sp, 0.0),
                   banded_offsets=offsets)
-    else:
+    elif strategy == "dense":
         for d in ("fwd", "bwd"):
             kw[f"dense_{d}_exp"] = fstack(f"dense_{d}_exp", Sp, 0.0, 2)
             kw[f"dense_{d}_max"] = fstack(f"dense_{d}_max", Sp,
                                           -float("inf"))
+    elif strategy == "ell":
+        pad = torch.nn.functional.pad
+        for d in ("fwd", "bwd"):
+            D = max(getattr(c, f"ell_{d}_src").shape[-1] for c in cfsms)
+            for name, fill in (("src", 0), ("w", -float("inf"))):
+                kw[f"ell_{d}_{name}"] = torch.stack([
+                    pad(x, (0, D - x.shape[1], 0, Sp - x.shape[0]),
+                        value=fill)
+                    for x in (getattr(c, f"ell_{d}_{name}") for c in cfsms)])
 
     onehot = None
     if all(c.pdf_onehot is not None for c in cfsms):
@@ -1004,6 +1055,268 @@ def _fb_prob_dense_stacked(cf: CompiledFSM, lhs, lengths, chunk_size,
 
 
 # ---------------------------------------------------------------------------
+# the log-space scan (the JAX package's ``_fb_run``), single or per graph
+# ---------------------------------------------------------------------------
+
+def _cached(cf: CompiledFSM, key, build):
+    """A derived tensor of the graph, built once per graph object."""
+    v = cf._cache.get(key)
+    if v is None:
+        v = cf._cache[key] = build()
+    return v
+
+
+def _num_graphs(cf: CompiledFSM) -> int:
+    return cf.alpha_hat.shape[0] if cf.batched else 1
+
+
+def _flat_matvec(mv, G, Sp, arg):
+    """A stacked graph's matvec from ``mv`` of its block-diagonal union
+    (one column, graph g's states at rows [g·Sp, (g+1)·Sp), indices offset
+    per graph): x (Sp, G), column g graph g's state, -> (Sp, G), and with
+    ``arg`` (``mv`` returns backpointers) the backpointers as local
+    sources."""
+    if not arg:
+        return lambda x: mv(x.T.reshape(-1, 1)).reshape(G, Sp).T
+
+    def mv_max(x):
+        y, bp = mv(x.T.reshape(-1, 1))
+        bp = bp.reshape(G, Sp)
+        off = (torch.arange(G, dtype=torch.int32, device=bp.device)
+               * Sp)[:, None]
+        # an empty segment's int32 minimum stays as it is
+        return y.reshape(G, Sp).T, torch.where(bp >= 0, bp - off, bp).T
+    return mv_max
+
+
+def _make_matvec(cf: CompiledFSM, direction: str, dtype, op="logsumexp",
+                 arg=True):
+    """y = T̂ᵀ ⊗ x ('fwd') or T̂ ⊗ x ('bwd') over a log-domain state (Sp, B)
+    in ``dtype``: 'dense' through its exp-shifted operator, 'ell' through
+    its incoming-arc lists, every other strategy through its edge arrays
+    (the JAX package's ``_make_matvec``).  ``op='max'`` is the tropical
+    form (the JAX package's ``_trop_matvec``: the arc lists of an 'ell'
+    graph, else the edges) and returns (y, backpointer (Sp, B) int32), or
+    y alone without ``arg`` (no backpointer is computed).  A stacked
+    graph's column g is graph g's state."""
+    Sp, G = cf.padded_states, _num_graphs(cf)
+    arg = arg and op == "max"
+    if op != "max" and cf.strategy == "dense":
+        e = getattr(cf, f"dense_{direction}_exp").to(dtype)
+        m = getattr(cf, f"dense_{direction}_max").to(dtype)
+        return lambda x: sops.dense_log_matvec(e, m, x, cf.precision)
+    if cf.strategy == "ell":
+        src = getattr(cf, f"ell_{direction}_src").long()
+        w = getattr(cf, f"ell_{direction}_w").to(dtype)
+        if not cf.batched:
+            return lambda x: sops.ell_matvec(src, w, x, op=op, arg=arg)
+        off = torch.arange(G, device=src.device)[:, None, None] * Sp
+        src = (src + off).reshape(G * Sp, -1)
+        w = w.reshape(G * Sp, -1)
+        return _flat_matvec(
+            lambda x: sops.ell_matvec(src, w, x, op=op, arg=arg), G, Sp, arg)
+
+    def edges():
+        s, d = (getattr(cf, f"{direction}_{n}").long() for n in ("src", "dst"))
+        if cf.batched:
+            off = torch.arange(G, device=s.device)[:, None] * Sp
+            s, d = (s + off).reshape(-1), (d + off).reshape(-1)
+        return s, d, sops.segment_lengths(d, G * Sp)
+
+    src, dst, lengths = _cached(cf, f"edges_{direction}", edges)
+    w = getattr(cf, f"{direction}_w").to(dtype).reshape(-1)
+
+    def mv(x):
+        return sops.segment_matvec(src, dst, w, x, G * Sp, op=op,
+                                   lengths=lengths, arg=arg)
+    return _flat_matvec(mv, G, Sp, arg) if cf.batched else mv
+
+
+def _make_elhs(cf: CompiledFSM, lengths, dtype, trop: bool = False):
+    """(lhs_t (B, P), t) -> (Sp, B): the expanded per-frame log-likelihood
+    column (reference ``expand``, src/inference.jl:38-60), a stacked
+    graph's column g through graph g's state pdfs.  Past a sequence's end
+    the phony state emits 0 and every other state -inf.  ``trop=True`` is
+    the tropical lift: a general Ĉ's state emits the max over its pdf set.
+    The log-domain sum recursions refuse a general Ĉ, as the JAX package's
+    do."""
+    if cf.multi_pdf and not trop:
+        raise NotImplementedError(
+            "log-domain recursions do not support general Ĉ; use the "
+            "prob-domain pdfposteriors path")
+    Sp = cf.padded_states
+    fin = torch.as_tensor(cf.final_state, device=cf.device).long()
+    is_phony = (torch.arange(Sp, device=cf.device)[:, None]
+                == fin.reshape(1, -1))
+    idle = torch.zeros(is_phony.shape, dtype=dtype, device=cf.device)
+    idle[~is_phony] = -float("inf")
+    spdf = cf.state_pdf.long()
+    mask = cf.pdf_onehot > 0 if cf.multi_pdf else None  # ([G,] P1, Sp)
+
+    def elhs(lhs_t, t):
+        # (P1, B); the phony pdf's row -inf
+        ext = torch.nn.functional.pad(lhs_t.T, (0, 0, 0, 1),
+                                      value=-float("inf"))
+        if mask is not None and cf.batched:
+            x = torch.where(mask, ext.T[:, :, None], -float("inf")).amax(1).T
+        elif mask is not None:
+            x = torch.where(mask[:, :, None], ext[:, None, :],
+                            -float("inf")).amax(0)
+        elif cf.batched:
+            x = ext.gather(0, spdf.T)
+        else:
+            x = ext[spdf]
+        return torch.where((t < lengths)[None, :], x, idle)
+
+    return elhs
+
+
+def _colmax_safe(y):
+    return sops._safe(y.amax(dim=0))
+
+
+def _make_pdf_reduce(cf: CompiledFSM, dtype):
+    """gamma (Sp, B) log-domain -> (P+1, B) per-frame normalised pdf
+    posteriors, Ĉᵀ(α⊙β) (the JAX package's ``_pdf_reduce``): through the
+    one-hot Ĉᵀ in the probability domain after a per-column shift, or
+    without one (a pdf-grouped layout) a per-pdf logsumexp."""
+    P1 = cf.num_pdfs + 1
+    if cf.pdf_onehot is not None:
+        onehot = cf.pdf_onehot.to(dtype)
+
+        def reduce(gamma):
+            g = torch.exp(gamma - _colmax_safe(gamma)[None, :])
+            if cf.batched:
+                s = (onehot @ g.T[:, :, None])[:, :, 0].T
+            else:
+                s = onehot @ g
+            tot = g.sum(dim=0)
+            return s / torch.where(tot > 0, tot, torch.ones_like(tot))[None]
+        return reduce
+
+    G = _num_graphs(cf)
+    ids = cf.state_pdf.long().reshape(G, -1)
+    ids = (ids + torch.arange(G, device=ids.device)[:, None] * P1).reshape(-1)
+    order = torch.argsort(ids, stable=True)
+    ids = ids[order]
+    lengths = sops.segment_lengths(ids, G * P1)
+
+    def reduce(gamma):
+        if cf.batched:  # the union of the graphs' states, one column
+            gpdf = sops.segment_logsumexp(
+                gamma.T.reshape(-1, 1)[order], ids, G * P1, True,
+                lengths).reshape(G, P1).T
+        else:
+            gpdf = sops.segment_logsumexp(gamma[order], ids, P1, True,
+                                          lengths)
+        norm = sops._safe(sops.masked_logsumexp(gpdf, dim=0))
+        return torch.exp(gpdf - norm[None, :])
+    return reduce
+
+
+@dataclasses.dataclass
+class _Kernels:
+    """The pluggable pieces of the log-space scan (the JAX package's
+    ``_Kernels``), over (Sp, B) log-domain states; a stacked graph's
+    column g is graph g's."""
+
+    alpha0: torch.Tensor  # (Sp, B) initial extended weights
+    fwd_mv: callable  # (Sp, B) -> (Sp, B): y = T̂ᵀ ⊗ x
+    bwd_mv: callable  # (Sp, B) -> (Sp, B): y = T̂ ⊗ x
+    elhs: callable  # (lhs_t (B, P), t) -> (Sp, B) expanded likelihoods
+    pdf_posts: callable  # gamma (Sp, B) -> (P+1, B) normalised posteriors
+    final_val: callable  # (x (Sp, B), shift (B,)) -> (B,) logZ
+
+
+def _alpha0(cf: CompiledFSM, dtype, B: int):
+    """(Sp, B) initial log weights: the graph's in every column, or a
+    stacked graph's column g graph g's."""
+    a = cf.alpha_hat.T if cf.batched else cf.alpha_hat[:, None]
+    return a.to(dtype).expand(cf.padded_states, B)
+
+
+def _final_val(cf: CompiledFSM, B: int):
+    """(x (Sp, B), shift (B,)) -> x[final, b] + shift[b], a stacked graph's
+    column by its own final state."""
+    fin = torch.as_tensor(cf.final_state, device=cf.device).long()
+    fin = fin.expand(B)[None, :]
+    return lambda x, shift: x.gather(0, fin)[0] + shift
+
+
+def _make_kernels(cf: CompiledFSM, lengths, dtype, B: int) -> _Kernels:
+    return _Kernels(
+        alpha0=_alpha0(cf, dtype, B),
+        fwd_mv=_make_matvec(cf, "fwd", dtype),
+        bwd_mv=_make_matvec(cf, "bwd", dtype),
+        elhs=_make_elhs(cf, lengths, dtype),
+        pdf_posts=_make_pdf_reduce(cf, dtype),
+        final_val=_final_val(cf, B),
+    )
+
+
+def _fb_run(kern: _Kernels, lhs, chunk_size, want_posts, num_pdfs):
+    """The log-space forward(-backward) scan (the JAX package's
+    ``_fb_run``): per frame the state is shifted by its column max, the
+    shifts summed with Kahan compensation, and logZ read as x[final] +
+    shift.  One chunk (``chunk_size`` >= N + 1) keeps every frame's alphas;
+    else the forward keeps each chunk's first state and the backward
+    recomputes a chunk's alphas from it.  lhs: (B, N, P); returns (posts
+    (B, N, P) or None, logZ (B,)), in lhs's dtype."""
+    B, N, P = lhs.shape
+    Nf = N + 1
+    K = min(chunk_size, Nf)
+    C = -(-Nf // K)
+    Npad = C * K
+    lhs_tm = torch.nn.functional.pad(lhs.permute(1, 0, 2),
+                                     (0, 0, 0, 0, 0, Npad - N))
+
+    def fstep(carry, t):
+        x, shift, comp = carry
+        y = x if t == 0 else kern.fwd_mv(x)
+        y = y + kern.elhs(lhs_tm[t], t)
+        m = _colmax_safe(y)
+        shift, comp = _kahan_add(shift, comp, m)
+        return y - m[None, :], shift, comp
+
+    def bstep(bb, a_t, t):
+        y = torch.zeros_like(bb) if t == Npad - 1 else kern.bwd_mv(bb)
+        y = y - _colmax_safe(y)[None, :]
+        return y + kern.elhs(lhs_tm[t], t), kern.pdf_posts(a_t + y)
+
+    zeros = lhs.new_zeros(B)
+    carry = (kern.alpha0, zeros, zeros)
+    bounds, alphas = [], []
+    for t in range(Npad):
+        if t % K == 0:
+            bounds.append(carry)
+        carry = fstep(carry, t)
+        if C == 1 and want_posts:
+            alphas.append(carry[0])
+    xF, shiftF, _ = carry
+    logZ = kern.final_val(xF, shiftF)
+    if not want_posts:
+        return None, logZ
+    posts = lhs.new_empty((Npad, num_pdfs + 1, B))
+    bb = torch.zeros_like(xF)
+    for c in reversed(range(C)):
+        if C > 1:
+            carry, alphas = bounds[c], []
+            for t in range(c * K, (c + 1) * K):
+                carry = fstep(carry, t)
+                alphas.append(carry[0])
+        for j in reversed(range(K)):
+            bb, posts[c * K + j] = bstep(bb, alphas[j], c * K + j)
+    return posts.permute(2, 0, 1)[:, :N, :num_pdfs], logZ
+
+
+def _fb_log(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
+    """The log-space scan of one graph shared by the batch, or of a stacked
+    graph with one sequence per graph, in lhs's dtype."""
+    kern = _make_kernels(cf, lengths, lhs.dtype, lhs.shape[0])
+    return _fb_run(kern, lhs, chunk_size, want_posts, cf.num_pdfs)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels and the dispatcher
 # ---------------------------------------------------------------------------
 
@@ -1073,7 +1386,10 @@ def _kernel_route(cf: CompiledFSM, device, batch_size: int,
     reject, name, _ = _CUDA_SCANS[cf.strategy]
     reason = reject(cf, batch_size, n_frames=n_frames, device=device)
     if reason is not None:
-        raise ValueError(f"the CUDA {name} rejects this graph: {reason}")
+        todo = (" (ROADMAP queue 1 item 16: 'block' graphs off the fused "
+                "kernels' path)" if cf.strategy == "block" else "")
+        raise ValueError(f"the CUDA {name} rejects this graph: {reason}"
+                         + todo)
     return True
 
 
@@ -1088,16 +1404,39 @@ def _unported_on_card(cf: CompiledFSM):
     return None
 
 
+_OUTSIDE = "on every device: the JAX package runs this route outside any " \
+    "Pallas kernel"
+
+
 def _plain_everywhere(cf: CompiledFSM):
-    """Why this graph takes the plain scan on every device, or None:
-    stacked 'dense' graphs, float32 or float64, which the JAX package runs
-    outside any Pallas kernel (its dense kernels reject batched graphs, and
-    its vmap lands on the XLA scan).  Checked after the card's refusal of
-    a general Ĉ (``_unported_on_card``), so that only those raise."""
+    """The one rule for the routes that take a plain PyTorch scan on every
+    device, as the JAX package runs them outside any Pallas kernel:
+    (scan, the route's report line), or None for a graph whose route
+    depends on the device.  Decided from the graph's domain, strategy and
+    stacking alone, before any launch, and checked after the card's refusal
+    of a general Ĉ (``_unported_on_card``), so that only those raise:
+
+    * a log-domain graph of any strategy, and a 'segment' or 'ell' graph,
+      take the log-space scan ``_fb_run`` (JAX ``_fb_single`` sends them
+      to its ``_fb_run``; its Pallas admissions refuse ``domain != 'prob'``,
+      and K2-K7 compute the rescaled probability-domain recursion, which
+      the caller of ``domain='log'`` did not ask for);
+    * stacked probability-domain 'dense' graphs take the per-graph
+      probability-domain scan (the JAX package's dense kernels reject
+      batched graphs, and its vmap lands on the XLA scan).
+
+    A stacked graph runs one sequence per graph, the graph axis as the
+    column axis of one (Sp, G) state.  Stacked probability-domain 'banded'
+    graphs are the one stacked route with kernels (K5a/K5b)."""
+    if cf.domain == "log" or cf.strategy in ("segment", "ell"):
+        what = (f"stacked {cf.strategy!r} graphs, one column per graph"
+                if cf.batched else f"one {cf.strategy!r} graph")
+        return _fb_log, (f"plain torch log-space scan ({what}, domain "
+                         f"{cf.domain!r}; {_OUTSIDE})")
     if cf.batched and cf.strategy == "dense":
-        return ("stacked 'dense' graphs, one column per graph, on every "
-                "device: the JAX package runs this route outside any "
-                "Pallas kernel")
+        return _fb_prob_dense_stacked, (
+            "plain torch per-graph scan (stacked 'dense' graphs, one column "
+            f"per graph, {_OUTSIDE})")
     return None
 
 
@@ -1110,9 +1449,9 @@ def fast_path_report(cf: CompiledFSM, batch_size: int, *, device=None) -> str:
     todo = _unported_on_card(cf) if device.type == "cuda" else None
     if todo is not None:
         return f"error - {todo}"
-    why = _plain_everywhere(cf)
-    if why is not None:
-        return f"plain torch per-graph scan ({why})"
+    plain = _plain_everywhere(cf)
+    if plain is not None:
+        return plain[1]
     if device.type == "cpu":
         what = ("stacked 'banded' graphs, one column per graph"
                 if cf.batched else f"one {cf.strategy!r} graph")
@@ -1142,7 +1481,9 @@ def _auto_chunk(cf: CompiledFSM, lhs):
     return Nf if est <= _FULL_MEM_BYTES else 64
 
 
-def _dispatch(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
+def _check_call(cf: CompiledFSM, lhs, lengths):
+    """The checks every entry point makes of its inputs; returns (lhs,
+    lengths as (B,) int32 clamped to N on lhs's device)."""
     lhs = torch.as_tensor(lhs)
     if lhs.ndim != 3:
         raise ValueError("lhs must have shape (B, N, P)")
@@ -1154,14 +1495,13 @@ def _dispatch(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
     if cf.alpha_hat.dtype == torch.float64 and lhs.dtype != torch.float64:
         raise ValueError(f"lhs is {lhs.dtype}, the graph float64: a float64 "
                          "graph takes float64 log-likelihoods")
-    if cf.batched and not (cf.strategy in ("banded", "dense")
-                           and B == cf.alpha_hat.shape[0]):
-        raise NotImplementedError(
-            f"batched {cf.strategy!r} graph of {cf.alpha_hat.shape[0]} "
-            f"graphs at batch {B}: only stacked 'banded' and 'dense' graphs "
-            f"with one sequence per graph run ({_VMAP_TODO})")
-    if chunk_size is None:
-        chunk_size = _auto_chunk(cf, lhs)
+    if cf.batched and cf.strategy == "block":
+        raise ValueError("a batched 'block' graph: stack does not build one")
+    if cf.batched and B != cf.alpha_hat.shape[0]:
+        # the JAX package's vmap over the graphs fails on the sizes too
+        raise ValueError(
+            f"a stacked graph of {cf.alpha_hat.shape[0]} graphs at batch "
+            f"{B}: a stacked graph takes one sequence per graph")
     if lengths is None:
         lengths = torch.full((B,), N, dtype=torch.int32, device=lhs.device)
     # clamp: a length beyond the frame count would keep the recursion off
@@ -1170,12 +1510,20 @@ def _dispatch(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
         torch.as_tensor(lengths).to(device=lhs.device, dtype=torch.int32),
         max=N,
     )
+    return lhs, lengths
+
+
+def _dispatch(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
+    lhs, lengths = _check_call(cf, lhs, lengths)
+    B, N, _ = lhs.shape
+    if chunk_size is None:
+        chunk_size = _auto_chunk(cf, lhs)
     todo = _unported_on_card(cf) if lhs.device.type == "cuda" else None
     if todo is not None:
         raise NotImplementedError(todo)
-    if _plain_everywhere(cf) is not None:
-        return _fb_prob_dense_stacked(cf, lhs, lengths, chunk_size,
-                                      want_posts)
+    plain = _plain_everywhere(cf)
+    if plain is not None:
+        return plain[0](cf, lhs, lengths, chunk_size, want_posts)
     if _kernel_route(cf, lhs.device, B, N):
         if cf.strategy == "dense":
             return _fb_dense_cuda(cf, lhs, lengths, want_posts)
@@ -1195,8 +1543,9 @@ def pdfposteriors(cf: CompiledFSM, lhs, lengths=None, *,
     ``lhs``: (B, N, P) log-likelihoods on the graph's device; ``lengths``:
     (B,) frame counts.  Returns (posteriors (B, N, P), logZ (B,)).
     Posteriors are exactly zero past each sequence length.  A stacked
-    'banded' or 'dense' graph takes one sequence per graph (B = G).  Not
-    differentiable: use :func:`logmarginal` / :func:`lfmmi_loss`."""
+    graph takes one sequence per graph (B = G; another batch raises
+    ``ValueError``).  Not differentiable: use :func:`logmarginal` /
+    :func:`lfmmi_loss`."""
     return _dispatch(cf, lhs, lengths, chunk_size, True)
 
 
@@ -1244,3 +1593,63 @@ def lfmmi_loss(num_cf: CompiledFSM, den_cf: CompiledFSM, lhs, lengths=None,
     num = logmarginal(num_cf, lhs, lengths, chunk_size=chunk_size)
     den = logmarginal(den_cf, lhs, lengths, chunk_size=chunk_size)
     return den - num
+
+
+# ---------------------------------------------------------------------------
+# reference-parity conveniences
+# ---------------------------------------------------------------------------
+
+def expand(V, seqlength=None):
+    """Likelihood expansion (reference ``expand``, src/inference.jl:38-60):
+    (P, N) -> (P+1, N+1), the phony-pdf row -inf inside the sequence and 0
+    past it, the real rows -inf past ``seqlength``.  The scans apply this
+    masking per frame; this standalone form is for API parity and host
+    oracles."""
+    V = torch.as_tensor(V)
+    P, N = V.shape
+    if seqlength is None:
+        seqlength = N
+    out = V.new_full((P + 1, N + 1), -float("inf"))
+    active = torch.arange(N + 1, device=V.device) < seqlength
+    out[:P, :N] = V
+    out = torch.where(active[None, :], out,
+                      torch.full_like(out, -float("inf")))
+    out[P] = torch.where(active, torch.full_like(out[P], -float("inf")),
+                         torch.zeros_like(out[P]))
+    return out
+
+
+def _full_recursion(cf: CompiledFSM, lhs, lengths, direction: str):
+    """Every frame's unrescaled log-domain message, (B, N+1, Sp)."""
+    lhs, lengths = _check_call(cf, lhs, lengths)
+    B, N, _ = lhs.shape
+    Nf = N + 1
+    kern = _make_kernels(cf, lengths, lhs.dtype, B)
+    lhs_tm = torch.nn.functional.pad(lhs.permute(1, 0, 2),
+                                     (0, 0, 0, 0, 0, 1))
+    ys = lhs.new_empty((Nf, cf.padded_states, B))
+    if direction == "alpha":
+        y = kern.alpha0
+        for t in range(Nf):
+            y = (y if t == 0 else kern.fwd_mv(y)) + kern.elhs(lhs_tm[t], t)
+            ys[t] = y
+    else:
+        bb = torch.zeros_like(ys[0])
+        for t in reversed(range(Nf)):
+            ys[t] = torch.zeros_like(bb) if t == Nf - 1 else kern.bwd_mv(bb)
+            bb = ys[t] + kern.elhs(lhs_tm[t], t)
+    return ys.permute(2, 0, 1)
+
+
+def alpha_recursion(cf: CompiledFSM, lhs, lengths=None):
+    """Full forward messages α (B, N+1, Sp), the reference's
+    ``αrecursion`` (src/inference.jl:62-74), unrescaled, in the log domain
+    through the graph's log-space matvec on every device; for moderate N
+    and S (``pdfposteriors`` never keeps them)."""
+    return _full_recursion(cf, lhs, lengths, "alpha")
+
+
+def beta_recursion(cf: CompiledFSM, lhs, lengths=None):
+    """Full backward messages β (B, N+1, Sp), the reference's
+    ``βrecursion`` (src/inference.jl:99-110)."""
+    return _full_recursion(cf, lhs, lengths, "beta")

@@ -526,11 +526,18 @@ def _working_set_bytes(cf, B, n_frames, chunk):
 
 
 def block_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
-                             chunk: int = 64, device=None, tier_dtype=None):
+                             chunk: int = 64, device=None, tier_dtype=None,
+                             tropical: bool = False):
     """None when the CUDA blocked scan accepts this graph, else a one-line
     reason naming the FIRST rejected predicate.  The predicates up to the
-    plan are the JAX package's, in its order, but for the dtype: float32
-    and float64 graphs both run (the TPU kernel takes float32).  Panels in bf16 (a
+    plan are the JAX package's (the domain from ``_pallas_block_reject_
+    reason``, the rest from ``block_scan_reject_reason``), in its order,
+    but for the dtype: float32
+    and float64 graphs both run (the TPU kernel takes float32).  With
+    ``tropical`` (the admission of the Viterbi sweeps K7 / K7n, as JAX's
+    ``vit_scan_supported`` calls ``block_scan_reject_reason``) the domain
+    is not checked: the max recursion is exact under rescaling, and a
+    log-domain graph compiles to the same arrays.  Panels in bf16 (a
     ``precision='bf16'`` graph, unless ``tier_dtype`` names the dtype the
     caller launches with) must be stageable by the tensor-core tier tile.
     Instead of its VMEM budget, the working set (every buffer sized by its
@@ -538,6 +545,8 @@ def block_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     when that is a CUDA device, and the persistent K2-K4 kernels must be
     able to keep their CTAs co-resident there (both checked where a card
     is present)."""
+    if cf.domain != "prob" and not tropical:  # JAX's first predicate
+        return f"domain {cf.domain!r} != 'prob'"
     if cf.strategy != "block":
         return f"strategy {cf.strategy!r} != 'block'"
     if cf.batched:

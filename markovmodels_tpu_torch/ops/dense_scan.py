@@ -85,7 +85,6 @@ from .block_scan import (_check, _kahan_step, _p, _pow2_exponent,
 from .blocked import round_bf16
 
 __all__ = [
-    "make_dense_operator",
     "dense_scan_reject_reason",
     "DenseOp",
     "TilePlan",
@@ -132,21 +131,6 @@ def _counts(prec: int) -> dict:
     return (LAUNCHES, LAUNCHES_BF16, LAUNCHES_F64)[prec]
 
 
-def make_dense_operator(dense_w: torch.Tensor):
-    """The exp-shifted operator of the dense strategy (the JAX package's
-    ``semiring_ops.make_dense_operator``).  ``dense_w``: (S, S) float32 log
-    weights, -inf for absent arcs, contracted over axis 1 (W[j, i] = weight
-    of arc i -> j forward).  Returns (exp_w, row_max): exp_w = exp(W -
-    row_max) with 0 for absent arcs, row_max = -inf for an empty row."""
-    row_max = dense_w.amax(dim=1)
-    safe = torch.where(torch.isfinite(row_max), row_max,
-                       torch.zeros_like(row_max))
-    exp_w = torch.where(torch.isfinite(dense_w),
-                        torch.exp(dense_w - safe[:, None]),
-                        torch.zeros_like(dense_w))
-    return exp_w, row_max
-
-
 # ---------------------------------------------------------------------------
 # admission
 # ---------------------------------------------------------------------------
@@ -174,7 +158,7 @@ def _free_bytes(device):
 
 
 def dense_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
-                             device=None):
+                             device=None, tropical: bool = False):
     """None when the CUDA dense scan accepts this graph at batch ``B``,
     else a one-line reason naming the FIRST rejected predicate.
 
@@ -193,10 +177,12 @@ def dense_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     count must be a multiple of the kernels' 32-row tile, and the device
     bytes of a run (``_device_bytes``) must fit the free memory of
     ``device`` when that is a CUDA device (checked where a card is
-    present)."""
+    present).  With ``tropical`` (the admission of K6t, the Viterbi
+    sweep) the domain is not checked: the max recursion is exact under
+    rescaling, and a log-domain graph compiles to the same arrays."""
     if cf.strategy != "dense":
         return f"strategy {cf.strategy!r} != 'dense'"
-    if cf.domain != "prob":
+    if cf.domain != "prob" and not tropical:
         return f"domain {cf.domain!r} != 'prob'"
     if cf.pdf_onehot is None:
         return "no pdf one-hot reduction matrix"

@@ -231,7 +231,8 @@ def vit_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     the working set counts the saved states in place of the ids.  A
     float64 graph takes the float64 instantiation (the JAX package's K7
     refuses it, its XLA route decodes it)."""
-    reason = bs.block_scan_reject_reason(cf, B, tier_dtype=_vit_dtype(cf))
+    reason = bs.block_scan_reject_reason(cf, B, tier_dtype=_vit_dtype(cf),
+                                         tropical=True)
     if reason is not None:
         return reason
     (_, _, pf, _), _ = bs._full_plan_explain(cf)

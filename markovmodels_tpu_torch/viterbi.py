@@ -1,7 +1,17 @@
-"""Viterbi decoding: the best path of a 'dense' or 'block' graph.
+"""Viterbi decoding and max-state posteriors.
 
-PyTorch counterpart of ``markovmodels_tpu/viterbi.py``'s at-scale routes,
-picked as the JAX package picks them (``_viterbi_scale``):
+PyTorch counterpart of ``markovmodels_tpu/viterbi.py``, its routes picked
+as the JAX package picks them:
+
+* ``_viterbi_single`` for 'segment', 'ell' and 'banded' graphs and, per
+  graph, for every stacked graph (one sequence per graph; stacked 'banded'
+  numerators make this forced alignment): the log-domain tropical scan
+  over the graph's edges (or an 'ell' graph's arc lists) keeps an int32
+  backpointer per frame and state, the largest source among tied maxima,
+  then a walk back from the phony final state.  It runs in plain PyTorch
+  on every device, as the JAX package runs it outside any Pallas kernel;
+
+for 'dense' and 'block' graphs the at-scale routes (``_viterbi_scale``):
 
 * the **compressed-backpointer decode** (``_viterbi_scale_bp``) for 'block'
   graphs with a single affine tier whose uint8 id stream fits the JAX
@@ -28,18 +38,20 @@ picked as the JAX package picks them (``_viterbi_scale``):
   With one chunk the port keeps the first sweep's alphas instead of
   sweeping again (the JAX package recomputes them, the same values).
 
-CPU tensors take the plain PyTorch twins.  A float64 graph keeps float64
-from the emissions to the score, on the card through the float64
+CPU tensors take the plain PyTorch twins.  The decode is the same in
+both domains: a log-domain graph compiles to the same arrays, and the
+rescaled max recursion is exact, so it takes the same kernels (JAX's K7
+admission has no domain predicate either).  A float64 graph keeps
+float64 from the emissions to the score, on the card through the float64
 instantiations of K7, K7n, K6t and W2.  A general Ĉ's state emits the max
 over its pdf set (JAX ``inference.py:931-938``); on the card such a graph
 raises ``NotImplementedError`` before any launch (``_unported_decode``):
 K7, K7n and K6t take one pdf per state.  A CUDA tensor whose graph a
 kernel refuses raises, naming the first refused predicate: nothing falls
 back to a plain route on the card.
-Routes of the JAX package that are not ported yet raise
-``NotImplementedError`` naming the route: the vmapped ``_viterbi_single``
-of batched graphs, and ``_viterbi_single`` for the 'segment' / 'ell'
-strategies.
+
+``maxstateposteriors`` is the tropical α⊙β of every state and frame,
+normalised by the best score (reference ``maxstateposteriors``).
 """
 from __future__ import annotations
 
@@ -48,20 +60,22 @@ import logging
 
 import torch
 
-from .inference import _CARD_TODO, CompiledFSM, _combine_shift, _log_final
+from .inference import (_CARD_TODO, CompiledFSM, _alpha0, _check_call,
+                        _colmax_safe, _combine_shift, _final_val, _log_final,
+                        _make_elhs, _make_matvec)
 from .ops import dense_scan, vit_scan
 from .ops.blocked import block_max_arg_supported
 from .ops.emissions import prepare_emissions
 
-__all__ = ["viterbi", "best_path"]
+__all__ = ["viterbi", "best_path", "maxstateposteriors"]
 
-_BP_MEM_BYTES = 6 << 30  # the JAX package's budget for the uint8 id stream
+# the JAX package's budget: the uint8 id stream of the compressed-backpointer
+# decode, the int32 backpointers of ``_viterbi_single``, and the (B, N, Sp)
+# output of ``maxstateposteriors``
+_BP_MEM_BYTES = 6 << 30
 _FULL_MEM_BYTES = 4 << 30  # one chunk when every frame's alphas fit this
 
 _LOG = logging.getLogger("markovmodels_tpu_torch")
-
-_SINGLE_TODO = ("_viterbi_single is not ported yet (ROADMAP queue 11, with "
-                "queue 1 item 10)")
 
 
 def _unported_decode(cf: CompiledFSM):
@@ -73,6 +87,13 @@ def _unported_decode(cf: CompiledFSM):
         return ("general multi-pdf C-hat graph (K7, K7n and K6t take one "
                 "pdf per state)")
     return None
+
+
+def _plain_decode(cf: CompiledFSM) -> bool:
+    """True when the 'dense' / 'block' decode runs on the plain twins
+    whatever the device: a graph of :func:`_unported_decode` (the CPU
+    only: :func:`viterbi` refuses it on the card first)."""
+    return _unported_decode(cf) is not None
 
 
 def _pdf_sets(cf: CompiledFSM):
@@ -149,7 +170,7 @@ def _viterbi_scale_bp(cf: CompiledFSM, lhs, lengths):
     of :func:`_unported_decode` on its own inputs).  Returns (states (B,
     N) int32 in host state ids, score (B,))."""
     B, N, P = lhs.shape
-    if _unported_decode(cf) is not None:  # the CPU only (viterbi)
+    if _plain_decode(cf):
         cfv, ext, mshift = _plain_inputs(cf, lhs, lengths)
         bps, fins, vfin, shift, ksum = vit_scan.viterbi_fwd_plain(cfv, ext,
                                                                   mshift)
@@ -164,7 +185,7 @@ def _viterbi_scale_bp(cf: CompiledFSM, lhs, lengths):
             raise NotImplementedError(
                 f"the fused Viterbi sweep (K7) refuses this graph: {reason}; "
                 "the JAX package's XLA form of the sweep is not ported to "
-                "the card (ROADMAP queue 11)")
+                "the card (ROADMAP queue 1 item 16)")
     ext, mshift = prepare_emissions(lhs, lengths, P, cf.alpha_hat.dtype)
     bps, fins, vfin, shift, ksum = vit_scan.viterbi_fwd(cf, ext, mshift)
     score = _combine_shift(_log_final(vfin), ksum, shift).to(lhs.dtype)
@@ -208,7 +229,7 @@ def _sweeps(cf: CompiledFSM, B: int, Nf: int, K: int, device,
     if cf.strategy == "dense":
         if device.type == "cuda" and not plain:
             reason = dense_scan.dense_scan_reject_reason(
-                cf, B, n_frames=K - 1, device=device)
+                cf, B, n_frames=K - 1, device=device, tropical=True)
             if reason is not None:
                 raise ValueError("the tropical dense sweep (K6t) refuses "
                                  f"this graph: {reason}")
@@ -247,7 +268,7 @@ def _sweeps(cf: CompiledFSM, B: int, Nf: int, K: int, device,
             cf, B, n_frames=Nf - 1, device=device, saved=max(K, Nf // K))
         if reason is not None:
             raise ValueError("the id-free Viterbi sweep (K7n) refuses this "
-                             f"graph: {reason}")
+                             f"graph: {reason} (ROADMAP queue 1 item 16)")
     fwd = vit_scan.viterbi_fwd_plain if plain else vit_scan.viterbi_fwd
 
     def sweep(a, s, t0, ext, mshift, acc=None):
@@ -272,7 +293,7 @@ def _viterbi_recompute(cf: CompiledFSM, lhs, lengths, chunk_size=None):
     Sp, Nf, fin = cf.padded_states, N + 1, int(cf.final_state)
     K = _chunk_frames(cf, lhs, chunk_size)
     C = -(-Nf // K)
-    plain = _unported_decode(cf) is not None  # the CPU only (viterbi)
+    plain = _plain_decode(cf)
     if plain:
         cfv, ext, mshift = _plain_inputs(cf, lhs, lengths)
         walk = vit_scan.rec_walk_plain
@@ -320,6 +341,76 @@ def _viterbi_scale(cf: CompiledFSM, lhs, lengths, chunk_size=None):
     return _viterbi_recompute(cf, lhs, lengths, chunk_size)
 
 
+def _trop_forward(cf: CompiledFSM, lhs, lengths, keep, arg=True):
+    """The log-domain tropical forward of ``_viterbi_single`` and
+    ``maxstateposteriors`` (one graph shared by the batch, or a stacked
+    graph's column g through graph g): per frame y = T̂ᵀ ⊗ x over the
+    graph's edges (an 'ell' graph's arc lists) with its backpointers, plus
+    the emissions, shifted by the column max; ``keep(t, x, shift, bp)``
+    sees every frame (``bp`` None at frame 0, and in every frame without
+    ``arg``, which computes no backpointer).  Returns (score (B,), the
+    emissions ``elhs``, the frame-major log-likelihoods)."""
+    B, N, _ = lhs.shape
+    dt = lhs.dtype
+    mv = _make_matvec(cf, "fwd", dt, op="max", arg=arg)
+    elhs = _make_elhs(cf, lengths, dt, trop=True)
+    lhs_tm = torch.nn.functional.pad(lhs.permute(1, 0, 2),
+                                     (0, 0, 0, 0, 0, 1))
+    x, shift = _alpha0(cf, dt, B), lhs.new_zeros(B)
+    for t in range(N + 1):
+        bp = None
+        if t > 0:
+            x, bp = mv(x) if arg else (mv(x), None)
+        x = x + elhs(lhs_tm[t], t)
+        m = _colmax_safe(x)
+        x, shift = x - m[None, :], shift + m
+        keep(t, x, shift, bp)
+    return _final_val(cf, B)(x, shift), elhs, lhs_tm
+
+
+def _viterbi_single(cf: CompiledFSM, lhs, lengths):
+    """The log-domain tropical scan with int32 backpointers (the JAX
+    package's ``_viterbi_single``), then the walk back from the phony
+    final state.  Returns (states (B, N) int32 in host state ids, score
+    (B,))."""
+    B, N, P = lhs.shape
+    Sp, Nf = cf.padded_states, N + 1
+    need = 4 * Nf * Sp * B  # every frame's int32 backpointers (Nf, Sp, B)
+    if need > _BP_MEM_BYTES:
+        raise ValueError(
+            f"viterbi int32 backpointer stream ~{need / 1e9:.1f} GB "
+            f"(Nf={Nf} x Sp={Sp} x B={B}) exceeds the "
+            f"{_BP_MEM_BYTES / 1e9:.0f} GB budget for the "
+            f"{cf.strategy!r} strategy; compile the graph with "
+            "strategy='block' (or 'dense') to use the at-scale "
+            "chunk-recompute decoder instead")
+    bps = torch.empty((Nf, Sp, B), dtype=torch.int32, device=lhs.device)
+
+    def keep(t, x, shift, bp):
+        if bp is not None:
+            bps[t] = bp
+
+    score, _, _ = _trop_forward(cf, lhs, lengths, keep)
+    # an index the JAX package's gather would wrap (negative) or clamp (out
+    # of range) is read so
+    bcol = torch.arange(B, device=lhs.device)
+    states = torch.empty((N, B), dtype=torch.int32, device=lhs.device)
+    s = torch.as_tensor(cf.final_state, device=lhs.device).long().expand(B)
+    for t in range(Nf - 1, 0, -1):
+        i = torch.where(s < 0, s + Sp, s).clamp(0, Sp - 1)
+        states[t - 1] = bps[t][i, bcol]
+        s = states[t - 1].long()
+    # host ids through orig_state (a graph's own column when stacked); an
+    # index outside the graph reads the int32 minimum, as jnp.take's fill
+    orig = cf.orig_state.T if cf.batched else cf.orig_state[:, None]
+    i = states.long()
+    i = torch.where(i < 0, i + Sp, i)
+    host = orig.expand(Sp, B).gather(0, i.clamp(0, Sp - 1))
+    host = torch.where((i >= 0) & (i < Sp), host,
+                       torch.full_like(host, torch.iinfo(torch.int32).min))
+    return host.T.contiguous(), score
+
+
 def viterbi(cf: CompiledFSM, lhs, lengths=None, *, chunk_size=None):
     """Best-path decode.  Returns (state sequence (B, N) int32, score (B,)).
 
@@ -328,38 +419,53 @@ def viterbi(cf: CompiledFSM, lhs, lengths=None, *, chunk_size=None):
     ``orig_state``).  For frames past each utterance's length the decode
     sits on the phony final state, so returned entries there equal the
     phony state id; mask with ``lengths`` when consuming.  An infeasible
-    sequence scores -inf.  ``chunk_size``: the frames per chunk of the
-    chunk-recompute decode (by default all of them when their alphas fit
-    4 GB, else 64); the compressed-backpointer decode ignores it."""
-    lhs = torch.as_tensor(lhs)
-    if lhs.ndim != 3:
-        raise ValueError("lhs must have shape (B, N, P)")
-    if lhs.device != cf.device:
-        raise ValueError(f"lhs is on {lhs.device}, the graph on {cf.device}")
-    B, N, P = lhs.shape
-    if P != cf.num_pdfs:
-        raise ValueError(f"lhs has {P} pdfs, graph expects {cf.num_pdfs}")
-    if cf.alpha_hat.dtype == torch.float64 and lhs.dtype != torch.float64:
-        raise ValueError(f"lhs is {lhs.dtype}, the graph float64: a float64 "
-                         "graph takes float64 log-likelihoods")
-    if lengths is None:
-        lengths = torch.full((B,), N, dtype=torch.int32, device=lhs.device)
-    lengths = torch.clamp(
-        torch.as_tensor(lengths).to(device=lhs.device, dtype=torch.int32),
-        max=N,
-    )
-    if cf.batched:
-        raise NotImplementedError(
-            f"Viterbi of a batched {cf.strategy!r} graph (the vmapped "
-            f"per-graph decode): {_SINGLE_TODO}")
+    sequence scores -inf.  A stacked graph decodes one sequence per graph
+    (B = G), each through its own graph.  ``chunk_size``: the frames per
+    chunk of the chunk-recompute decode (by default all of them when their
+    alphas fit 4 GB, else 64); the other decodes ignore it."""
+    lhs, lengths = _check_call(cf, lhs, lengths)
     todo = _unported_decode(cf) if lhs.device.type == "cuda" else None
     if todo is not None:
         raise NotImplementedError(f"Viterbi of a {todo} on the card "
                                   f"({_CARD_TODO})")
-    if cf.strategy in ("dense", "block"):
+    if not cf.batched and cf.strategy in ("dense", "block"):
         return _viterbi_scale(cf, lhs, lengths, chunk_size)
-    raise NotImplementedError(
-        f"Viterbi of a {cf.strategy!r} graph: {_SINGLE_TODO}")
+    return _viterbi_single(cf, lhs, lengths)
 
 
 best_path = viterbi
+
+
+def maxstateposteriors(cf: CompiledFSM, lhs, lengths=None):
+    """Per-state max-posterior scores (tropical α⊙β), (B, N, Sp) in the log
+    domain, normalised by the Viterbi score, so that the best path's
+    states score 0 (the reference's historical ``maxstateposteriors``,
+    test/test_algorithms.jl:262-284), with the Viterbi scores (B,).  The
+    tropical scans run over the graph's edges (an 'ell' graph's arc lists)
+    on every device, one sequence per graph for a stacked graph.  States
+    are the compiled slots.  The result and the alphas it keeps are (B, N,
+    Sp) each: past the 6 GB budget the call raises ``ValueError`` before
+    it allocates."""
+    lhs, lengths = _check_call(cf, lhs, lengths)
+    B, N, P = lhs.shape
+    Sp, Nf, dt = cf.padded_states, N + 1, lhs.dtype
+    need = Nf * Sp * B * lhs.element_size()
+    if need > _BP_MEM_BYTES:
+        raise ValueError(
+            f"maxstateposteriors keeps ~{need / 1e9:.1f} GB of (Nf={Nf} x "
+            f"Sp={Sp} x B={B}) scores, past the {_BP_MEM_BYTES / 1e9:.0f} GB "
+            "budget; decode with viterbi, or split the batch")
+    A = lhs.new_empty((Nf, Sp, B))
+    ashift = lhs.new_empty((Nf, B))
+
+    def keep(t, x, shift, bp):
+        A[t], ashift[t] = x, shift
+
+    score, elhs, lhs_tm = _trop_forward(cf, lhs, lengths, keep, arg=False)
+    bmv = _make_matvec(cf, "bwd", dt, op="max", arg=False)
+    bb = torch.zeros_like(A[0])
+    for t in reversed(range(Nf)):  # A[t] becomes frame t's result
+        y = torch.zeros_like(bb) if t == Nf - 1 else bmv(bb)
+        bb = y + elhs(lhs_tm[t], t)
+        A[t] = A[t] + ashift[t][None, :] + y - score[None, :]
+    return A[:N].permute(2, 0, 1), score

@@ -8,6 +8,7 @@ CPU, where the port's kernels take their plain PyTorch twins."""
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -15,20 +16,20 @@ import markovmodels_tpu as mm
 import markovmodels_tpu_torch as mt
 from markovmodels_tpu import inference as inf
 from markovmodels_tpu.workloads import make_lm_hmm_graph
+from tests.test_inference import make_hmm
 
 DATA_FIELDS = (
     "alpha_hat", "final_state", "state_pdf", "fwd_src", "fwd_dst", "fwd_w",
     "bwd_src", "bwd_dst", "bwd_w", "pdf_onehot", "block_fwd", "block_bwd",
     "omega_prob", "orig_state", "banded_fwd", "banded_bwd", "dense_fwd_exp",
-    "dense_fwd_max", "dense_bwd_exp", "dense_bwd_max",
+    "dense_fwd_max", "dense_bwd_exp", "dense_bwd_max", "ell_fwd_src",
+    "ell_fwd_w", "ell_bwd_src", "ell_bwd_w",
 )
 META_FIELDS = (
     "num_states", "num_pdfs", "strategy", "batched", "precision", "domain",
     "block_fwd_offsets", "block_bwd_offsets", "pdf_group", "multi_pdf",
     "ov_layout", "banded_offsets",
 )
-# fields of the JAX CompiledFSM that the ported strategies leave empty
-JAX_ONLY_NONE = ("ell_fwd_src", "ell_fwd_w", "ell_bwd_src", "ell_bwd_w")
 # The port computes the 'dense' exp-shifted operators with torch's float32
 # exp, the JAX package with XLA's: on the lm_graph(8) and lm_graph(16)
 # operators they differ by at most 1 ulp, in 5-7 % of the non-zero
@@ -109,6 +110,34 @@ def random_graph(rng, S, P, lib=mm):
     return fsm, np.append(pdfs, P).astype(np.int32)
 
 
+def hmm_pair(seed, S, P, lr=True, to_final=False):
+    """``make_hmm`` for both packages: (JAX fsm, port fsm, spdf, (alpha, T,
+    omega)); ``to_final`` adds an arc of weight 0.05 from every state to
+    the last one (every state then reaches the end)."""
+    rng = np.random.default_rng(seed)
+    fj, spdf, (alpha, T, omega) = make_hmm(rng, S, P, lr=lr)
+    if to_final:
+        T = T.copy()
+        T[:, S - 1] = np.maximum(T[:, S - 1], np.log(0.05))
+        fj = mm.FSM.from_parts(alpha, mm.hostsparse.spmat_from_dense(
+            T, mm.LOG), omega, fj.labels, mm.LOG)
+    ft = mt.fsm.FSM.from_parts(
+        alpha, mt.hostsparse.spmat_from_dense(T, mt.LOG), omega,
+        [mt.labels.Label(i % P) for i in range(S)], mt.LOG)
+    return fj, ft, spdf, (alpha, T, omega)
+
+
+def both(fj, ft, spdf, P, dtype=torch.float32, **kw):
+    """(JAX compile, port compile) of one graph; float64 inside
+    ``jax.enable_x64``."""
+    if dtype == torch.float64:
+        with jax.enable_x64(True):
+            cj = inf.compile_fsm(fj, spdf, P, dtype=jnp.float64, **kw)
+    else:
+        cj = inf.compile_fsm(fj, spdf, P, **kw)
+    return cj, compile_port(ft, spdf, P, dtype=dtype, **kw)
+
+
 def inputs(B, N, P, seed, lens, cliffs=False):
     """Seeded (lhs (B, N, P) float32, lengths (B,) int32) as numpy; with
     ``cliffs``, ±30-nat emission cliffs (+30 on plane-2 pdfs, unreachable
@@ -147,10 +176,9 @@ def ulps(a, b):
 
 def assert_same_compiled(cj, ct):
     """Every field of the port's CompiledFSM equals the JAX one's, dtype
-    included (float32 or float64, the one-hot Ĉᵀ float32 in both); the
-    'dense' exp-shifted operators within EXP_ULPS of their dtype."""
-    for n in JAX_ONLY_NONE:
-        assert getattr(cj, n) is None, n
+    included (float32 or float64, the one-hot Ĉᵀ float32 in both), the
+    domain among the metadata; the 'dense' exp-shifted operators within
+    EXP_ULPS of their dtype."""
     if cj.batched:
         assert_tensor_equal(cj.final_state, ct.final_state, "final_state")
     else:
@@ -160,7 +188,8 @@ def assert_same_compiled(cj, ct):
               "bwd_src", "bwd_dst", "bwd_w", "orig_state"):
         assert_tensor_equal(getattr(cj, n), getattr(ct, n), n)
     for n in ("pdf_onehot", "omega_prob", "banded_fwd", "banded_bwd",
-              "dense_fwd_max", "dense_bwd_max"):
+              "dense_fwd_max", "dense_bwd_max", "ell_fwd_src", "ell_fwd_w",
+              "ell_bwd_src", "ell_bwd_w"):
         if getattr(cj, n) is None:
             assert getattr(ct, n) is None, n
         else:

@@ -361,13 +361,16 @@ def test_reject_reasons_name_each_port_predicate(mixed):
 
 
 def test_dispatch_raises_for_unported_batched_graphs(mixed):
+    """A batched 'block' graph (which ``stack`` never builds) and a batch
+    that is not one sequence per graph (the JAX package's vmap fails on
+    the sizes) raise ValueError."""
     _, _, cts = mixed
     ct = mt.stack(cts)
     lhs = torch.zeros((5, 4, P))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="batched 'block'"):
         mt.pdfposteriors(dataclasses.replace(ct, strategy="block"), lhs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.pdfposteriors(ct, lhs[:4])  # B != G: the vmapped route
+    with pytest.raises(ValueError, match="one sequence per graph"):
+        mt.pdfposteriors(ct, lhs[:4])  # B != G
 
 
 def test_cuda_route_raises_for_a_single_banded_graph(mixed):
@@ -385,13 +388,18 @@ def test_cuda_route_raises_for_a_single_banded_graph(mixed):
 
 
 def test_stack_rejects_what_it_does_not_stack(mixed):
+    """'block' graphs and stacks do not stack; the same lattices compiled
+    'ell' stack as the JAX package stacks them."""
     _, _, cts = mixed
     with pytest.raises(ValueError, match="'block'"):
         mt.stack([port_from_jax(jax_compiled(16))] * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.stack([dataclasses.replace(c, strategy="ell") for c in cts])
     with pytest.raises(ValueError, match="unbatched"):
         mt.stack([mt.stack(cts)])
+    gj, gt, _ = _both(21, lambda rng, lib: numerators(
+        rng, 5, P, [6, 9, 4, 7, 5], skip=(2,), lib=lib))
+    assert_same_compiled(
+        inf.stack([inf.compile_fsm(f, s, P, strategy="ell") for f, s in gj]),
+        mt.stack([compile_port(f, s, P, strategy="ell") for f, s in gt]))
 
 
 def test_wrappers_refuse_other_devices(mixed):

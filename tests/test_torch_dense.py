@@ -352,7 +352,7 @@ def test_stacked_dense_route_on_every_device(stacked):
         assert "per-graph" in tinf.fast_path_report(st, 4, device=dev)
     with pytest.raises(ValueError, match="batched CompiledFSM"):
         tinf._kernel_route(st, "cuda", 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="one sequence per graph"):
         mt.pdfposteriors(st, torch.from_numpy(lhs[:3]))
 
 

@@ -33,6 +33,7 @@ _FORBIDDEN = (
     "markovmodels_tpu_torch.ops.dense_scan",
     "markovmodels_tpu_torch.ops._build",
     "markovmodels_tpu_torch.ops.vit_scan",
+    "markovmodels_tpu_torch.ops.semiring_ops",
     "markovmodels_tpu_torch.viterbi",
     "markovmodels_tpu_torch.oracle",
     "markovmodels_tpu_torch.workloads",
@@ -46,6 +47,8 @@ def test_port_imports_without_jax(module):
         "assert callable(mt.pdfposteriors) and callable(mt.compile_fsm)\n"
         "assert callable(mt.lfmmi_loss) and callable(mt.stack)\n"
         "assert callable(mt.viterbi) and mt.best_path is mt.viterbi\n"
+        "assert callable(mt.maxstateposteriors) and callable(mt.expand)\n"
+        "assert callable(mt.alpha_recursion) and callable(mt.beta_recursion)\n"
         + _FORBIDDEN
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

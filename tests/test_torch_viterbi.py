@@ -25,6 +25,7 @@ import pytest
 import torch
 
 import markovmodels_tpu_torch as mt
+from markovmodels_tpu import inference as inf
 from markovmodels_tpu import viterbi as jvit
 from markovmodels_tpu.ops import blocked as jbl
 from markovmodels_tpu.ops import pallas_block as pb
@@ -326,22 +327,31 @@ def test_vit_scan_reject_reason_matches_jax_admission(graphs):
 
 
 def test_unported_routes_raise(graphs):
-    """Batched graphs (the vmapped per-graph decode) and 'banded' graphs
-    (_viterbi_single) raise NotImplementedError naming the route; nothing
-    falls back.  ('dense' graphs and 'block' graphs past the id budget
-    decode through the chunk-recompute route: tests/
-    test_torch_vit_recompute.py.)"""
-    _, dt = _dense16()
-    lhs = torch.zeros((2, 3, 48))
-    with pytest.raises(NotImplementedError, match="batched 'dense'"):
-        mt.viterbi(mt.stack([dt, dt]), lhs)
-    nums = numerators(np.random.default_rng(1), 2, 48, [4, 5], lib=mt)
-    band = compile_port(*nums[0], 48, strategy="banded")
-    with pytest.raises(NotImplementedError, match="'banded' graph.*_viterbi_single"):
-        mt.viterbi(band, lhs)
-    with pytest.raises(NotImplementedError, match="batched 'banded'"):
-        mt.viterbi(mt.stack([compile_port(*g, 48, strategy="banded")
-                             for g in nums]), lhs)
+    """The routes that once raised here decode as the JAX package's:
+    stacked graphs per graph (the vmapped ``_viterbi_single``) and a
+    'banded' graph through ``_viterbi_single``; states equal, scores within
+    1e-5.  ('dense' graphs and 'block' graphs past the id budget decode
+    through the chunk-recompute route: tests/test_torch_vit_recompute.py;
+    more of ``_viterbi_single``: tests/test_torch_viterbi_single.py.)"""
+    dj, dt = _dense16()
+    lhs = np.random.default_rng(2).normal(size=(2, 6, 48)).astype(np.float32)
+    lens = np.array([6, 5], dtype=np.int32)
+    numj = numerators(np.random.default_rng(1), 2, 48, [4, 5])
+    numt = numerators(np.random.default_rng(1), 2, 48, [4, 5], lib=mt)
+    cases = [
+        (inf.stack([dj, dj]), mt.stack([dt, dt])),
+        (inf.compile_fsm(*numj[0], 48, strategy="banded"),
+         compile_port(*numt[0], 48, strategy="banded")),
+        (inf.stack([inf.compile_fsm(*g, 48, strategy="banded")
+                    for g in numj]),
+         mt.stack([compile_port(*g, 48, strategy="banded") for g in numt])),
+    ]
+    for cj, ct in cases:
+        sj, zj = jvit.viterbi(cj, jnp.asarray(lhs), jnp.asarray(lens))
+        st, zt = mt.viterbi(ct, torch.from_numpy(lhs),
+                            torch.from_numpy(lens))
+        np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+        np.testing.assert_allclose(zt.numpy(), np.asarray(zj), atol=1e-5)
 
 
 def test_viterbi_checks_its_inputs(graphs):
