@@ -167,8 +167,9 @@ def run_graph(graph: str, sums_only: bool = False) -> dict:
                 and torch.equal(posts, ds.backward(kop, ext, alphas, ascale)))
             if prec == "high":
                 top = ds.trop_operator(cf)
-                tk = ds.trop_sweep(top, a0, torch.ones(B, device=dev), ext,
-                                   msh, first=True)
+                tk = ds.trop_sweep(top, a0, torch.ones(B, device=dev,
+                                                       dtype=dt), ext, msh,
+                                   first=True)
                 out["K6t_sum"] = sum(float(t.double().sum()) for t in tk)
             return out
         out["K6a_ms"] = _ms(lambda: ds.fwd_sweep(kop, a0, ext, msh))

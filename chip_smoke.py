@@ -226,9 +226,7 @@ decode; a general-Ĉ graph has no kernel yet and is refused on the card):
     main-path numerators (G=128, N=700, phase 7's lengths and cliffs),
     each run twice, bit-equal, the admission's shared memory against the
     kernels', and timed; the wide float64 instantiation on 4 skip-arc
-    numerators of ~1,200 states against its twin; then the refusals: a
-    general-Ĉ graph ('dense' and 'block') raises ``NotImplementedError``
-    on the card before any launch, naming ROADMAP item 9c;
+    numerators of ~1,200 states against its twin;
 42. K6a and K6b in float64 against their float64 twins on the V=32 graph
     at B=128, N=700 (phase 11's input in float64), each run twice and
     bit-equal: logZ within 1e-12 relative, states and posteriors within
@@ -283,7 +281,23 @@ decode; a general-Ĉ graph has no kernel yet and is refused on the card):
 49. the 2M-arc 'block' graph and the V=32 'dense' graph compiled in domain
     'log': ``viterbi`` at B=32, N=700 launches the kernels of the
     probability-domain decode (K7 and its walk; K6t and W2), bit-equal to
-    the probability-domain graphs' decodes, medians of 5 in turns.
+    the probability-domain graphs' decodes, medians of 5 in turns;
+50. the graphs whose JAX counterpart runs in XLA, on the port's plain
+    routes on the card: the general-Ĉ V=8 graph ('dense' and 'block',
+    float32 and float64) and the 'block' graphs K2-K4 refuse (the V=16
+    one-hot reduction, the V=32 two tiers, the V=64 generic
+    gather/scatter): ``fast_path_report`` names the route;
+    ``pdfposteriors``, ``lfmmi_loss`` (2 stacked log-domain numerators)
+    with its gradient and ``viterbi`` at B=2, N=40 against the f64 oracles
+    and against the same calls on the CPU; no K2-K7 launch; then one
+    den-only ``pdfposteriors`` and one ``viterbi`` of the 2M-arc graph
+    compiled at ``ov_cap=64`` (two tiers) at B=128, N=700, timed;
+51. K6a and K6b in float64, redesigned for the FP64 tensor cores: their
+    ``ptxas`` report (spill bytes), their float64 twins on a fully dense
+    Sp = 4,096 operator (streamed) at B=128, N=128, each run twice and
+    bit-equal (the V=32 operator: phase 42), and phase 46's times beside
+    float64 ``torch.matmul`` / ``torch.sparse.mm`` x701, the float64 dense
+    step and den-only call, with the frame without the product.
 
 Every kernel's entry in the JSON line (K6t, K7n and W2 from phases 32-33,
 the family branch's K7, walk, K7n and W2 from phases 36-37, K2-K4's
@@ -1414,19 +1428,20 @@ def dense_inputs(P, dev, B=128, N=700, seed=2, dtype=None):
     return prepare_emissions(lhs, torch.from_numpy(lens).to(dev), P, dtype)
 
 
-def phase_dense_kernels(kop, P, dev, N=700, label="phase 11", tol=TOL_K6):
-    """Phase 11 (24, 42): K6a and K6b on the operator ``kop`` against their
-    plain twins on one input, each kernel run twice and bit-equal.  A
-    float64 operator (phase 42) takes float64 emissions, and its logZ is
-    held to the twin's relative to |logZ| (TOL_F64_LOGZ_REL)."""
+def phase_dense_kernels(kop, P, dev, N=700, label="phase 11", tol=TOL_K6,
+                        B=128):
+    """Phase 11 (24, 42, 51): K6a and K6b on the operator ``kop`` against
+    their plain twins on one input of ``B`` columns, each kernel run twice
+    and bit-equal.  A float64 operator (phase 42) takes float64 emissions,
+    and its logZ is held to the twin's relative to |logZ|
+    (TOL_F64_LOGZ_REL)."""
     import torch
 
     from markovmodels_tpu_torch import inference as tinf
     from markovmodels_tpu_torch.ops import dense_scan as ds
 
     f64 = kop.alpha0.dtype == torch.float64
-    ext, msh = dense_inputs(P, dev, N=N, dtype=kop.alpha0.dtype)
-    B = ext.shape[2]
+    ext, msh = dense_inputs(P, dev, B=B, N=N, dtype=kop.alpha0.dtype)
     a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
 
     def logz(out):
@@ -1476,11 +1491,12 @@ def phase_dense_kernels(kop, P, dev, N=700, label="phase 11", tol=TOL_K6):
     return errs
 
 
-def full_dense_op(dev, Sp=4096, P=96, bf16=False, seed=12):
+def full_dense_op(dev, Sp=4096, P=96, bf16=False, seed=12, dtype=None):
     """A DenseOp with a random fully dense (Sp, Sp) operator (every 32 x 32
     tile non-zero; rows summing to ~0.5), random pdfs with the phony pdf P
-    on the final state Sp - 1, random initial probabilities: its tiles
-    cannot stay in shared memory, so K6a/K6b stream them every frame."""
+    on the final state Sp - 1, random initial probabilities, in float32
+    (``dtype`` float64: the same draws in float64): its tiles cannot stay
+    in shared memory, so K6a/K6b stream them every frame."""
     import torch
 
     from markovmodels_tpu_torch.ops import dense_scan as ds
@@ -1490,8 +1506,9 @@ def full_dense_op(dev, Sp=4096, P=96, bf16=False, seed=12):
         (rng.uniform(0.01, 1.0, size=(Sp, Sp)) / Sp).astype(np.float32))
     spdf = np.append(rng.integers(0, P, size=Sp - 1), P)
     a0 = torch.from_numpy(rng.uniform(size=Sp).astype(np.float32))
-    wdt = torch.bfloat16 if bf16 else torch.float32
-    w = w.to(dev, wdt)
+    vdt = dtype or torch.float32
+    wdt = torch.bfloat16 if bf16 else vdt
+    w, a0 = w.to(dev, wdt), a0.to(vdt)
     return ds.dense_op(a0.to(dev), w, w.T.contiguous(),
                        torch.from_numpy(spdf).to(dev),
                        torch.arange(Sp, device=dev), P + 1, Sp - 1)
@@ -3113,40 +3130,200 @@ def phase_k5_f64(num64, P, dev, label="phase 41"):
     return {k: max(v, werrs[k]) for k, v in errs.items()}, times
 
 
-def phase_refusals(dev, label="phase 41"):
-    """Phase 41, refusals: a general-Ĉ graph ('dense' and 'block', float32)
-    raises NotImplementedError on the card before any launch, in
-    ``pdfposteriors`` and ``viterbi``, naming the ROADMAP item that ports
-    it (9c); ``fast_path_report`` says so."""
+def set_oracle(fsm, sets, P, lhs, lengths):
+    """The float64 oracles of a general-Ĉ graph (the pdf-set oracle of the
+    JAX package's multi-pdf tests, on ``oracle.host_oracle``'s frames): a
+    state's emission the sum of its pdfs' likelihoods (the decode: the max
+    of their log-likelihoods), a pdf's posterior the gammas of the states
+    whose set holds it over the frame's pdf-space total.  ``sets``: each
+    real state's pdfs.  Returns (logZ (B,), posteriors (B, N, P), best-path
+    scores (B,))."""
+    import scipy.sparse as sp
+
+    import markovmodels_tpu_torch as mt
+
+    rows, cols, data = mt.hostsparse.findnz(fsm.T_hat)
+    data = np.asarray(data, dtype=np.float64)
+    S1 = len(fsm.alpha_hat)
+    Tt = sp.csr_matrix((np.exp(data), (cols, rows)), shape=(S1, S1))
+    Tm = Tt.T.tocsr()
+    la0 = np.asarray(fsm.alpha_hat, dtype=np.float64)
+    M = np.zeros((S1 - 1, P))
+    for s, ps in enumerate(sets):
+        M[s, ps] = 1.0
+    B, N, _ = lhs.shape
+    logZ, best, posts = [], [], np.zeros((B, N, P))
+    for b in range(B):
+        L = int(lengths[b])
+
+        def emis(t):
+            e = np.zeros(S1)
+            if t < L:
+                e[: S1 - 1] = M @ np.exp(lhs[b, t])
+            else:
+                e[S1 - 1] = 1.0
+            return e
+
+        A = np.zeros((L + 1, S1))
+        v, shift = np.exp(la0), 0.0
+        for t in range(L + 1):
+            v = (v if t == 0 else Tt @ v) * emis(t)
+            m = v.max()
+            if m > 0:
+                v, shift = v / m, shift + np.log(m)
+            A[t] = v
+        logZ.append(np.log(v[S1 - 1]) + shift if v[S1 - 1] > 0 else -np.inf)
+        bb = np.zeros(S1)
+        bb[S1 - 1] = 1.0
+        for t in range(L, -1, -1):
+            y = bb if t == L else Tm @ bb
+            if y.max() > 0:
+                y = y / y.max()
+            if t < L:
+                gp = (A[t] * y)[: S1 - 1] @ M
+                posts[b, t] = gp / (gp.sum() if gp.sum() > 0 else 1.0)
+            bb = y * emis(t)
+        lv = la0.copy()
+        for t in range(L + 1):
+            if t > 0:
+                y = np.full(S1, -np.inf)
+                np.maximum.at(y, cols, data + lv[rows])
+                lv = y
+            e = np.full(S1, -np.inf)
+            if t < L:
+                e[: S1 - 1] = [lhs[b, t][ps].max() for ps in sets]
+            else:
+                e[S1 - 1] = 0.0
+            lv = lv + e
+        best.append(lv[S1 - 1])
+    return np.array(logZ), posts, np.array(best)
+
+
+def phase_card_routes(dev, big, card, label="phase 50"):
+    """Phase 50: the graphs whose JAX counterpart runs in XLA answer on the
+    card through the port's plain routes, launching no kernel: the
+    general-Ĉ V=8 graph ('dense' and 'block', float32 and float64) and the
+    'block' graphs that K2-K4 refuse (the V=16 one-hot reduction of
+    ``reorder='none'``, the V=32 graph's two tiers, the V=64 generic
+    gather/scatter), each through ``pdfposteriors``, ``lfmmi_loss`` with it
+    as the denominator (2 stacked log-domain numerators, plain too) and
+    ``viterbi`` at B=2, N=40 against the f64 oracles (logZ, posteriors and
+    the loss's gradient at 1e-4 each, the loss at 2e-4, the Viterbi score
+    at 1e-3) and against the same calls on the CPU; ``fast_path_report``
+    names the plain route; no K2-K7 launch.  Then the 2M-arc graph
+    compiled at ``ov_cap=64`` (two tiers): one den-only ``pdfposteriors``
+    and one ``viterbi`` at B=128, N=700 timed (``big``: (fsm, spdf, P))."""
     import torch
 
     import markovmodels_tpu_torch as mt
 
-    fsm, C, mP = multi_pdf_graph()
-    rng = np.random.default_rng(17)
-    calls = []
+    f32, f64 = torch.float32, torch.float64
+    fsm8, C8, P8 = multi_pdf_graph()
+    sets8 = [list(C8.indices[C8.indptr[s]:C8.indptr[s + 1]])
+             for s in range(len(C8.indptr) - 2)]
+    cases = []  # (name, fsm, spdf or None, sets or None, P, kw, dtype)
     for strategy in ("dense", "block"):
-        mcf = mt.compile_fsm(fsm, C, mP, strategy=strategy, device=dev)
-        assert mcf.multi_pdf
-        calls.append((f"general-C-hat {strategy!r} pdfposteriors", mcf,
-                      mt.pdfposteriors, torch.float32))
-        calls.append((f"general-C-hat {strategy!r} viterbi", mcf,
-                      mt.viterbi, torch.float32))
+        for dt in (f32, f64):
+            cases.append((f"general-C-hat V=8 {strategy!r} "
+                          f"{str(dt)[6:]}", fsm8, C8, sets8, P8,
+                          dict(strategy=strategy, dtype=dt), dt))
+    for V, reorder, what in ((16, "none", "one-hot reduction"),
+                             (32, "auto", "two tiers"),
+                             (64, "auto", "generic gather/scatter")):
+        fsm, spdf, P, _ = mt.workloads.make_lm_hmm_graph(V=V)
+        cases.append((f"V={V} 'block' ({what})", fsm, spdf, None, P,
+                      dict(strategy="block", reorder=reorder), f32))
+    n = 40
+    lens = np.array([n, 2 * n // 3], dtype=np.int32)
     reset_all_launches()
-    for name, cf, fn, dt in calls:
-        x = torch.from_numpy(rng.normal(size=(2, 8, cf.num_pdfs))).to(dev, dt)
-        try:
-            fn(cf, x, torch.tensor([8, 5], dtype=torch.int32, device=dev))
-        except NotImplementedError as e:
-            assert "ROADMAP queue 1 item 9c" in str(e), str(e)
-            print(f"{label}: {name} on the card refused: {e}")
+    for name, fsm, spdf, sets, P, kw, dt in cases:
+        cf = mt.compile_fsm(fsm, spdf, P, device=dev, **kw)
+        ccf = mt.compile_fsm(fsm, spdf, P, device="cpu", **kw)
+        report = mt.fast_path_report(cf, 2)
+        assert report.startswith("plain torch scan on the card"), report
+        rng = np.random.default_rng(50)
+        lhs = rng.normal(size=(2, n, P))
+        nums = build_numerators(P, G=2, Lp=12, seed=51)
+        num = mt.stack([mt.compile_fsm(f, sp, P, strategy="banded",
+                                       domain="log", dtype=dt, device=dev)
+                        for f, sp in nums])
+        if sets is None:
+            rz, rp = mt.oracle.host_oracle(fsm, spdf, P, lhs, lens)
+            rv = mt.oracle.host_viterbi_score(fsm, spdf, P, lhs, lens)
         else:
-            raise AssertionError(f"{name} ran on the card")
-        if fn is mt.pdfposteriors:
-            report = mt.fast_path_report(cf, 2)
-            assert report.startswith("error - ") and "9c" in report, report
-    torch.cuda.synchronize()
-    assert not any(all_launches().values()), all_launches()
+            rz, rp, rv = set_oracle(fsm, sets, P, lhs, lens)
+        nz, npst = zip(*(mt.oracle.host_oracle(f, sp, P, lhs[g:g + 1],
+                                               lens[g:g + 1])
+                         for g, (f, sp) in enumerate(nums)))
+        nz, npst = np.concatenate(nz), np.concatenate(npst)
+        x = torch.from_numpy(lhs).to(dev, dt)
+        tl = torch.from_numpy(lens).to(dev)
+        posts, z = mt.pdfposteriors(cf, x, tl)
+        xg = x.clone().requires_grad_(True)
+        loss = mt.lfmmi_loss(num, cf, xg, tl)
+        loss.sum().backward()
+        states, score = mt.viterbi(cf, x, tl)
+        z, posts, score = (t.cpu().numpy() for t in (z, posts, score))
+        errs = {"logZ": np.abs(z - rz).max(),
+                "posts": np.abs(posts - rp).max(),
+                "loss": np.abs(loss.detach().cpu().numpy() - (rz - nz)).max(),
+                "grad": np.abs(xg.grad.cpu().numpy() - (rp - npst)).max(),
+                "score": np.abs(score - rv).max()}
+        for k, tol in (("logZ", TOL_ORACLE), ("posts", TOL_ORACLE),
+                       ("loss", 2 * TOL_ORACLE), ("grad", TOL_ORACLE),
+                       ("score", TOL_VIT_ORACLE)):
+            assert errs[k] <= tol, f"{name}: {k} {errs[k]} > {tol}"
+        # the same route on the CPU
+        cx, ctl = torch.from_numpy(lhs).to(dt), torch.from_numpy(lens)
+        cposts, cz = mt.pdfposteriors(ccf, cx, ctl)
+        cstates, cscore = mt.viterbi(ccf, cx, ctl)
+        cpu = {"logZ": np.abs(z - cz.numpy()).max(),
+               "posts": np.abs(posts - cposts.numpy()).max(),
+               "score": np.abs(score - cscore.numpy()).max()}
+        same = int((states.cpu() == cstates).all(dim=1).sum())
+        assert max(cpu.values()) <= TOL_ORACLE, f"{name}: card vs CPU {cpu}"
+        print(f"{label}: {name}: {report}; vs f64 oracle at B=2 N={n} "
+              + ", ".join(f"|d{k}| {v:.2e}" for k, v in errs.items())
+              + "; card vs CPU " + ", ".join(f"|d{k}| {v:.2e}"
+                                            for k, v in cpu.items())
+              + f", {same} of 2 paths equal")
+    counts = launched({})
+    print(f"{label}: kernel launches over these calls: {counts or 'none'}")
+
+    fsm, spdf, P = big
+    t0 = time.perf_counter()
+    cf = mt.compile_fsm(fsm, spdf, P, strategy="block", ov_cap=64,
+                        device=dev)
+    t_c = time.perf_counter() - t0
+    report = mt.fast_path_report(cf, 128)
+    assert report.startswith("plain torch scan on the card"), report
+    N = 700
+    rng = np.random.default_rng(0)
+    lhs = torch.from_numpy(make_inputs(rng, 128, N, P)).to(dev)
+    reset_all_launches()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    (posts, z), t_den = timed(lambda: mt.pdfposteriors(cf, lhs))
+    assert torch.isfinite(z).all() and torch.isfinite(posts).all()
+    # the plain decode at N=70 first: past ~60 s at N=700 the batch halves
+    _, t70 = timed(lambda: mt.viterbi(cf, lhs[:, :70]))
+    B = 128 if 10 * t70 <= 60e3 else 64
+    (states, score), t_dec = timed(lambda: mt.viterbi(cf, lhs[:B]))
+    assert torch.isfinite(score).all()
+    counts = launched({})
+    halved = "" if B == 128 else (f" (B halved to {B}: the N=70 decode "
+                                  f"took {t70:.0f} ms)")
+    print(f"{label}: 2M-arc graph at ov_cap=64 (compiled in {t_c:.1f} s, "
+          f"ov_layout {cf.ov_layout}): {report}; den-only pdfposteriors "
+          f"B=128 N={N} {t_den:.1f} ms, viterbi B={B} N={N} {t_dec:.1f} ms"
+          f"{halved}; kernel launches {counts or 'none'}; {card}")
+    return {"den": t_den, "decode": t_dec, "B": B}
 
 
 # ---- float64 'dense' scan and float64 decode (phases 42-46) ----------------
@@ -3186,6 +3363,101 @@ def phase_f64_dense(dcf64, dP, dev, label="phase 42"):
     counts = launched({"dense_fwd_f64": 2, "dense_bwd_f64": 2})
     print(f"{label}: launches {json.dumps(counts)}; tile plans' shared "
           f"memory (resident, streaming) {ds.smem_bytes(kop.pf)} bytes")
+    return errs
+
+
+def k6_f64_ptxas(log):
+    """{(kernel, vec): {registers, stack, spill_stores, spill_loads}} of
+    the float64 ``sweep_kernel`` instantiations (K6a, K6b and K6t, each
+    with and without 16-byte accesses) in the library's ``ptxas -v``
+    report."""
+    names = {(0, 0): "K6a", (1, 0): "K6b", (0, 1): "K6t"}
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"sweep_kernelILb([01])ELb([01])ELb0ELb([01])EdE",
+                          m.group(1))
+            cur = None if k is None else (
+                names[int(k.group(1)), int(k.group(3))], int(k.group(2)))
+            if cur is not None:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            cur = None
+    return out
+
+
+def phase_dmma(dcf64, dev, v32_errs, times, card, P=96, N=128,
+               label="phase 51"):
+    """Phase 51: K6a and K6b in float64, their product on the FP64 tensor
+    cores (``mma.sync`` m8n8k4) with the V=32 operator's tiles resident:
+    the ``ptxas`` report of their instantiations (registers and spill
+    bytes, printed beside K6t's), their float64
+    twins on the V=32 operator (phase 42 of this run: B=128, N=700, lengths
+    1 and N mixed, ±30-nat cliffs, each run twice bit-equal; here again at
+    B=126, N=128: the scalar branch) and on a random fully dense
+    Sp = 4,096 float64 operator (its tiles streamed: 128 MiB of them) at
+    B=128, N=128, each run twice, bit-equal; and this run's times (phase
+    46: the kernels beside float64 ``torch.matmul`` and ``torch.sparse.mm``
+    x701, the float64 dense step and den-only call, medians of 5), with the
+    frame without the product (an all-zero operator)."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import _build
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    ents = k6_f64_ptxas(_build.PTXAS_LOG)
+    assert {k[0] for k in ents} == {"K6a", "K6b", "K6t"}, ents
+    spills = sum(v["spill_stores"] + v["spill_loads"]
+                 for k, v in ents.items() if k[0] in ("K6a", "K6b"))
+    print(f"{label}: ptxas of the float64 sweep_kernel instantiations "
+          "(kernel, 16-byte accesses): " + "; ".join(
+              f"{k[0]} vec={k[1]}: {v}" for k, v in sorted(ents.items()))
+          + f"; K6a/K6b spill bytes (stores + loads): {spills}")
+    assert spills == 0, f"K6a/K6b<double> spill {spills} bytes"
+    kop = ds.kernel_operator(dcf64)
+    print(f"{label}: V=32 float64 plans: up to {kop.pf.max_tiles} / "
+          f"{kop.pb.max_tiles} tiles per CTA, shared memory (resident, "
+          f"streaming) {ds.smem_bytes(kop.pf)} / {ds.smem_bytes(kop.pb)} "
+          f"bytes; K6a/K6b vs their float64 twins (phase 42) "
+          + ", ".join(f"{k} {v:.3e}" for k, v in v32_errs.items()))
+    reset_all_launches()
+    errs = phase_dense_kernels(kop, P, dev, N=N, tol=TOL_K6_F64, B=126,
+                               label=f"{label} (V=32, float64, B=126)")
+    launched({"dense_fwd_f64": 2, "dense_bwd_f64": 2})
+    full = full_dense_op(dev, P=P, dtype=torch.float64)
+    print(f"{label}: fully dense Sp = {full.Sp} float64: "
+          f"{full.pf.tile_k.numel()} tiles over {full.pf.lo.numel() - 1} "
+          f"CTAs, up to {full.pf.max_tiles} per range, shared memory "
+          f"(resident, streaming) {ds.smem_bytes(full.pf)} bytes: streamed")
+    reset_all_launches()
+    e_full = phase_dense_kernels(full, P, dev, N=N, tol=TOL_K6_F64,
+                                 label=f"{label} (fully dense Sp = 4,096, "
+                                       "float64)")
+    launched({"dense_fwd_f64": 2, "dense_bwd_f64": 2})
+    errs = {k: max(v, e_full[k]) for k, v in errs.items()}
+    del full
+    torch.cuda.empty_cache()
+    floor = frame_floor(dcf64, 96, dev)
+    t = times
+    print(f"{label}: K6a float64 {t['K6a']:.3f} ms, K6b float64 "
+          f"{t['K6b']:.3f} ms over 701 frames (B=128, Sp=3,200); float64 "
+          f"torch.matmul x701 {t['matmul']:.3f} ms, torch.sparse.mm x701 "
+          f"{ms_or_not(t['sparse'])} ms; frame without the product "
+          f"{floor[0]:.2f} / {floor[1]:.2f} us; float64 dense step "
+          f"{t['step']:.2f} ms, den-only {t['den']:.2f} ms (medians of 5); "
+          f"{card}")
     return errs
 
 
@@ -4268,7 +4540,6 @@ def main():
         print(f"timing: {name} float64 {k5_times[name][0]:.3f} ms (float32 "
               f"{times[name][0]:.3f} ms), bound {k5_bounds[name][0]:.3f} ms "
               f"({k5_bounds[name][1]}; float32 {bounds[name][0]:.3f} ms)")
-    phase_refusals(dev)
 
     # ---- the float64 'dense' scan and the float64 decode (phases 42-46) ----
     d64_errs = phase_f64_dense(dcf64, dP, dev)
@@ -4354,6 +4625,13 @@ def main():
           {"vit_fwd": 1, "vit_walk": 1}),
          ("V=32 'dense' graph", dfsm, dspdf, dP, dcf, {},
           {"dense_trop": 1, "rec_walk": 1})], dev)
+
+    # ---- the card's plain routes, the float64 K6a/K6b (phases 50-51) ----
+    t50 = phase_card_routes(dev, (fsm, spdf, P), card)
+    phase_dmma(dcf64, dev, d64_errs, {
+        "K6a": d64_times["K6a"][0], "K6b": d64_times["K6b"][0],
+        "matmul": t_mm64, "sparse": t_sp64, "step": t46["dense step f64"],
+        "den": t46["dense den f64"]}, card)
 
     block_src = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
     banded_src = "markovmodels_tpu_torch/ops/csrc/banded_scan.cu"
@@ -4589,7 +4867,9 @@ def main():
                         "2M-arc decode N=1,024"))
           + "; log-space (no kernel): " + "; ".join(
               f"{k} {v:.2f} ms" for k, v in {**g47["times"], **t48}.items())
-          + f"; per frame, whole / "
+          + f"; plain routes on the card: 2M-arc at ov_cap=64 den-only "
+          f"{t50['den']:.1f} ms, viterbi (B={t50['B']}) {t50['decode']:.1f} "
+          f"ms; per frame, whole / "
           f"without work: " + "; ".join(
               f"{k} {name} {v['whole']:.2f} / {v['without work']:.2f} us"
               for k, sp in splits.items() for name, v in sp.items()))

@@ -19,16 +19,19 @@ PyTorch counterpart of ``markovmodels_tpu/inference.py``: every strategy
   ``ops/block_scan.py`` for one shared 'block' graph,
   ``ops/banded_scan.py`` for stacked 'banded' graphs, one sequence each;
   each float32 or float64), and raise, naming the first rejected
-  predicate, for a graph those kernels do not accept.  Nothing falls back
-  quietly.  The routes that the JAX package runs outside any Pallas
-  kernel take their plain PyTorch scan on every device
-  (``_plain_everywhere``, decided from the graph before any launch): the
-  log-space scan ``_fb_run`` of log-domain graphs and of 'segment' / 'ell'
-  graphs, and the per-graph route of stacked graphs, one sequence per
-  graph, that the stacked probability-domain scans do not take.
-  General-Ĉ graphs have no kernel yet: on the card they raise
-  ``NotImplementedError`` before any launch (``_unported_on_card``), on
-  the CPU they run;
+  predicate, for a 'dense' or 'banded' graph those kernels do not accept.
+  The routes that the JAX package runs outside any Pallas kernel take
+  their plain PyTorch scan on every device (``_plain_everywhere``,
+  decided from the graph before any launch): the log-space scan
+  ``_fb_run`` of log-domain graphs and of 'segment' / 'ell' graphs, and
+  the per-graph route of stacked graphs, one sequence per graph, that the
+  stacked probability-domain scans do not take.  On the card, a general-Ĉ
+  graph and a 'block' graph that the fused kernels refuse for a predicate
+  of the JAX package's admission take the plain probability-domain scan
+  ``_fb_prob``, the counterpart of the XLA route the JAX package sends
+  them to (``_plain_on_card``, decided from the graph and the batch
+  before any launch; a 'block' graph logs the refused predicate once); a
+  'block' graph that only the port's own predicates refuse raises;
 * ``logmarginal`` and ``lfmmi_loss`` are differentiable in ``lhs``: the
   gradient of logZ is the posterior matrix the scan already computed, so
   autograd never differentiates the scan.  This is the LF-MMI training
@@ -43,6 +46,7 @@ Layouts at the public functions are the JAX package's: ``lhs`` (B, N, P),
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Optional
 
 import numpy as np
@@ -54,7 +58,7 @@ from .ops import banded_scan, block_scan, dense_scan
 from .ops import semiring_ops as sops
 from .ops.block_scan import _pow2_exponent, _pow2_scale
 from .ops.blocked import (BlockOperator, block_matvec, build_block_operator,
-                          round_bf16)
+                          family_grids, round_bf16)
 from .ops.emissions import prepare_emissions
 
 __all__ = [
@@ -76,7 +80,6 @@ __all__ = [
 _MODES_TODO = ("ROADMAP queue 1 item 9, its remainder: precision 'bf16' with "
                "dtype float64, which the JAX package defines only by what "
                "XLA's CPU ignores")
-_CARD_TODO = "ROADMAP queue 1 item 9c: the general-Ĉ kernels"
 _STRATEGIES = ("dense", "block", "banded", "ell", "segment")
 _DOMAINS = ("prob", "log")
 
@@ -202,8 +205,8 @@ def compile_fsm(
     order, the phony row on the phony pdf alone, and (P+1)·Sp ≤ 64 Mi for
     the binary Ĉᵀ; a state's emission is the sum (Viterbi: the max) over
     its pdf set, a frame's posteriors are normalised by their pdf-space
-    total.  Such a graph runs on the CPU; on the card it raises, as no
-    kernel takes it yet (``_unported_on_card``).
+    total.  No kernel takes such a graph: it runs the plain scan on every
+    device, as the JAX package runs it in XLA (``_plain_on_card``).
 
     ``strategy``: 'auto' (the JAX package's default: 'dense' for graphs of
     up to 4,096 states including the phony one, else 'block'), 'dense'
@@ -811,14 +814,18 @@ def _make_prob_matvecs(cf: CompiledFSM):
         return (lambda a: banded_scan.fwd_matvec_plain(kop, a),
                 lambda b: banded_scan.bwd_matvec_plain(kop, b))
     fin = cf.final_state
+    gf = family_grids(cf.block_fwd, cf.block_fwd_offsets, cf.device)
+    gb = family_grids(cf.block_bwd, cf.block_bwd_offsets, cf.device)
 
     def fwd(a):
-        y = block_matvec(cf.block_fwd, cf.block_fwd_offsets, a, bf16=bf16)
+        y = block_matvec(cf.block_fwd, cf.block_fwd_offsets, a, bf16=bf16,
+                         grids=gf)
         y[fin] = cf.omega_prob @ a
         return y
 
     def bwd(a):
-        y = block_matvec(cf.block_bwd, cf.block_bwd_offsets, a, bf16=bf16)
+        y = block_matvec(cf.block_bwd, cf.block_bwd_offsets, a, bf16=bf16,
+                         grids=gb)
         return y + cf.omega_prob[:, None] * a[fin][None, :]
 
     return fwd, bwd
@@ -1374,10 +1381,13 @@ _CUDA_SCANS = {
 
 def _kernel_route(cf: CompiledFSM, device, batch_size: int,
                   n_frames: int | None = None) -> bool:
-    """The dispatch rule: False (plain scan) for CPU tensors, True (CUDA
+    """The dispatch rule after ``_plain_everywhere`` and
+    ``_plain_on_card``: False (plain scan) for CPU tensors, True (CUDA
     kernels of the graph's strategy) for CUDA tensors with a graph the
-    kernels accept; raises for a CUDA tensor with any other graph, naming
-    the first rejected predicate, and for any other device."""
+    kernels accept; raises for a CUDA tensor with any other graph (a
+    'dense' or 'banded' one, or a 'block' one that only the port's own
+    predicates refuse), naming the first rejected predicate, and for any
+    other device."""
     device = torch.device(device)
     if device.type == "cpu":
         return False
@@ -1386,26 +1396,13 @@ def _kernel_route(cf: CompiledFSM, device, batch_size: int,
     reject, name, _ = _CUDA_SCANS[cf.strategy]
     reason = reject(cf, batch_size, n_frames=n_frames, device=device)
     if reason is not None:
-        todo = (" (ROADMAP queue 1 item 16: 'block' graphs off the fused "
-                "kernels' path)" if cf.strategy == "block" else "")
-        raise ValueError(f"the CUDA {name} rejects this graph: {reason}"
-                         + todo)
+        raise ValueError(f"the CUDA {name} rejects this graph: {reason}")
     return True
-
-
-def _unported_on_card(cf: CompiledFSM):
-    """Why no kernel runs this graph on the card yet, or None: a general Ĉ
-    (no kernel lifts a state's pdf set; the JAX package's decline it too).
-    Decided from the graph's Ĉ before any launch; such a graph runs on the
-    CPU."""
-    if cf.multi_pdf:
-        return ("general multi-pdf C-hat: the CUDA kernels take one pdf "
-                f"per state ({_CARD_TODO})")
-    return None
 
 
 _OUTSIDE = "on every device: the JAX package runs this route outside any " \
     "Pallas kernel"
+_LOG = logging.getLogger("markovmodels_tpu_torch")
 
 
 def _plain_everywhere(cf: CompiledFSM):
@@ -1413,8 +1410,7 @@ def _plain_everywhere(cf: CompiledFSM):
     device, as the JAX package runs them outside any Pallas kernel:
     (scan, the route's report line), or None for a graph whose route
     depends on the device.  Decided from the graph's domain, strategy and
-    stacking alone, before any launch, and checked after the card's refusal
-    of a general Ĉ (``_unported_on_card``), so that only those raise:
+    stacking alone, before any launch:
 
     * a log-domain graph of any strategy, and a 'segment' or 'ell' graph,
       take the log-space scan ``_fb_run`` (JAX ``_fb_single`` sends them
@@ -1440,15 +1436,69 @@ def _plain_everywhere(cf: CompiledFSM):
     return None
 
 
+def _plain_on_card(cf: CompiledFSM, device, batch_size: int,
+                   n_frames: int | None = None):
+    """The one rule for the graphs that take the plain probability-domain
+    scan ``_fb_prob`` on the card, where the JAX package's Pallas kernels
+    decline them and its ``_fb_single`` runs its XLA scan ``_fb_prob``:
+    the first predicate the port's kernels refuse, or None (a CPU device,
+    or a graph that a kernel takes or whose refusal raises).  Decided from
+    the graph and the runtime batch before any launch, after
+    ``_plain_everywhere``:
+
+    * a 'block' graph that K2-K4 refuse for a predicate of the JAX
+      package's admission (two tiers, the one-hot reduction of
+      ``reorder='none'``, a generic gather/scatter, a general Ĉ, a working
+      set past the card's memory, where JAX's is past its VMEM budget), as
+      JAX ``_fb_single`` sends every 'block' graph its fused scan declines
+      to XLA;
+    * a general-Ĉ 'dense' graph (the fused kernels of both packages take
+      one pdf per state; JAX ``_pallas_dense_reject_reason``).
+
+    A 'block' graph that the JAX package's fused scan admits but one of
+    the port's own predicates refuses (the kernels' limits, the bf16 tier
+    tile, co-residency), a 'dense' graph with one pdf per state that
+    K6a/K6b refuse, and a stacked 'banded' graph that K5a/K5b refuse
+    still raise."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    if cf.strategy == "block":
+        reason, shared = block_scan.block_scan_admission(
+            cf, batch_size, n_frames=n_frames, device=device)
+        return reason if shared else None
+    if cf.strategy == "dense" and cf.multi_pdf:
+        return dense_scan.dense_scan_reject_reason(
+            cf, batch_size, n_frames=n_frames, device=device)
+    return None
+
+
+def _plain_on_card_line(cf: CompiledFSM, reason: str) -> str:
+    return (f"plain torch scan on the card (one {cf.strategy!r} graph; the "
+            "JAX package runs it in its XLA scan, no kernel takes it): "
+            f"{reason}")
+
+
+def _log_plain_on_card(cf: CompiledFSM, reason: str):
+    """A 'block' graph off the fused kernels names the predicate once per
+    graph and reason (JAX ``inference.py:1492-1501`` warns at trace
+    time)."""
+    logged = cf._cache.setdefault("plain_on_card_logged", set())
+    if cf.strategy == "block" and reason not in logged:
+        logged.add(reason)
+        _LOG.warning("block-strategy graph fell off the fused fast path: "
+                     "%s", reason)
+
+
 def fast_path_report(cf: CompiledFSM, batch_size: int, *, device=None) -> str:
     """One-line explanation of the path ``pdfposteriors`` takes for this
     graph at the RUNTIME batch ``batch_size`` on ``device`` (default: the
-    graph's device) and, for a CUDA device, the first predicate the kernels
-    reject (``pdfposteriors`` then raises with the same reason)."""
+    graph's device): for a CUDA device the kernels, or the plain route on
+    the card with the first predicate the kernels refuse, or, for a
+    'dense' or 'banded' graph the kernels refuse and a 'block' graph that
+    only the port's own predicates refuse, that predicate
+    (``pdfposteriors`` then raises with the same reason)."""
     device = torch.device(cf.device if device is None else device)
-    todo = _unported_on_card(cf) if device.type == "cuda" else None
-    if todo is not None:
-        return f"error - {todo}"
     plain = _plain_everywhere(cf)
     if plain is not None:
         return plain[1]
@@ -1456,6 +1506,9 @@ def fast_path_report(cf: CompiledFSM, batch_size: int, *, device=None) -> str:
         what = ("stacked 'banded' graphs, one column per graph"
                 if cf.batched else f"one {cf.strategy!r} graph")
         return f"plain torch scan ({what}; CPU tensors take the plain path)"
+    reason = _plain_on_card(cf, device, batch_size)
+    if reason is not None:
+        return _plain_on_card_line(cf, reason)
     try:
         _kernel_route(cf, device, batch_size)
     except ValueError as e:
@@ -1518,12 +1571,13 @@ def _dispatch(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
     B, N, _ = lhs.shape
     if chunk_size is None:
         chunk_size = _auto_chunk(cf, lhs)
-    todo = _unported_on_card(cf) if lhs.device.type == "cuda" else None
-    if todo is not None:
-        raise NotImplementedError(todo)
     plain = _plain_everywhere(cf)
     if plain is not None:
         return plain[0](cf, lhs, lengths, chunk_size, want_posts)
+    reason = _plain_on_card(cf, lhs.device, B, N)
+    if reason is not None:
+        _log_plain_on_card(cf, reason)
+        return _fb_prob(cf, lhs, lengths, chunk_size, want_posts)
     if _kernel_route(cf, lhs.device, B, N):
         if cf.strategy == "dense":
             return _fb_dense_cuda(cf, lhs, lengths, want_posts)

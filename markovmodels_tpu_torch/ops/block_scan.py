@@ -51,6 +51,7 @@ from .blocked import family_grid, round_bf16
 from .emissions import pad_emissions
 
 __all__ = [
+    "block_scan_admission",
     "block_scan_reject_reason",
     "kernel_operator",
     "fwd_plan",
@@ -529,53 +530,71 @@ def block_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
                              chunk: int = 64, device=None, tier_dtype=None,
                              tropical: bool = False):
     """None when the CUDA blocked scan accepts this graph, else a one-line
-    reason naming the FIRST rejected predicate.  The predicates up to the
-    plan are the JAX package's (the domain from ``_pallas_block_reject_
-    reason``, the rest from ``block_scan_reject_reason``), in its order,
-    but for the dtype: float32
-    and float64 graphs both run (the TPU kernel takes float32).  With
-    ``tropical`` (the admission of the Viterbi sweeps K7 / K7n, as JAX's
-    ``vit_scan_supported`` calls ``block_scan_reject_reason``) the domain
-    is not checked: the max recursion is exact under rescaling, and a
-    log-domain graph compiles to the same arrays.  Panels in bf16 (a
-    ``precision='bf16'`` graph, unless ``tier_dtype`` names the dtype the
-    caller launches with) must be stageable by the tensor-core tier tile.
-    Instead of its VMEM budget, the working set (every buffer sized by its
-    dtype, see ``_working_set_bytes``) must fit the memory of ``device``
-    when that is a CUDA device, and the persistent K2-K4 kernels must be
-    able to keep their CTAs co-resident there (both checked where a card
-    is present)."""
+    reason naming the FIRST rejected predicate (the first element of
+    :func:`block_scan_admission`)."""
+    return block_scan_admission(cf, B, n_frames=n_frames, chunk=chunk,
+                                device=device, tier_dtype=tier_dtype,
+                                tropical=tropical)[0]
+
+
+def block_scan_admission(cf, B: int, *, n_frames: int | None = None,
+                         chunk: int = 64, device=None, tier_dtype=None,
+                         tropical: bool = False):
+    """(reason, shared): the FIRST predicate of the CUDA blocked scan that
+    this graph fails (None when the scan accepts it), and whether the JAX
+    package's admission has that predicate too (a graph it refuses there
+    runs in its XLA scan).
+
+    The shared predicates are the JAX package's (the domain from
+    ``_pallas_block_reject_reason``, the rest from
+    ``block_scan_reject_reason``), in its order, up to its plan, but for
+    the dtype: float32 and float64 graphs both run (the TPU kernel takes
+    float32).  With ``tropical`` (the admission of the Viterbi sweeps K7 /
+    K7n, as JAX's ``vit_scan_supported`` calls ``block_scan_reject_reason``)
+    the domain is not checked: the max recursion is exact under rescaling,
+    and a log-domain graph compiles to the same arrays.  Then come the
+    port's own predicates, which the JAX package does not have
+    (``shared`` False): the kernels' limits (``_kernel_checks``), panels in
+    bf16 (a ``precision='bf16'`` graph, unless ``tier_dtype`` names the
+    dtype the caller launches with) that the tensor-core tier tile cannot
+    stage, and, on a CUDA ``device`` where a card is present, CTAs of the
+    persistent K2-K4 that cannot be co-resident.  Last, in the place of
+    the JAX package's VMEM budget and shared with it, the working set
+    (every buffer sized by its dtype, see ``_working_set_bytes``) must fit
+    the card's memory (checked where a card is present)."""
     if cf.domain != "prob" and not tropical:  # JAX's first predicate
-        return f"domain {cf.domain!r} != 'prob'"
+        return f"domain {cf.domain!r} != 'prob'", True
     if cf.strategy != "block":
-        return f"strategy {cf.strategy!r} != 'block'"
+        return f"strategy {cf.strategy!r} != 'block'", True
     if cf.batched:
-        return "batched CompiledFSM (the fused scan targets one shared graph)"
+        return ("batched CompiledFSM (the fused scan targets one shared "
+                "graph)"), True
     if cf.alpha_hat.dtype not in (torch.float32, torch.float64):
         return (f"operator dtype {cf.alpha_hat.dtype} (the CUDA kernels "
-                "are f32 or f64)")
+                "are f32 or f64)"), True
     if not cf.pdf_group and not cf.ov_layout:
         return ("no uniform pdf-grouped layout (compile_fsm reorder "
-                "declined or disabled)")
+                "declined or disabled)"), True
     if cf.omega_prob is None:
-        return "no rank-1 omega split"
+        return "no rank-1 omega split", True
     if cf.multi_pdf:
-        return "general multi-pdf C-hat (fused scan needs one pdf per state)"
+        return ("general multi-pdf C-hat (fused scan needs one pdf per "
+                "state)"), True
     if cf.pdf_group:
         cmax, lim = cf.pdf_group
         if (cf.num_pdfs + 1) * cmax != lim:
-            return "pdf-grouped layout not uniform over all pdfs"
+            return "pdf-grouped layout not uniform over all pdfs", True
     plan, reason = _full_plan_explain(cf)
     if plan is None:
-        return reason
+        return reason, True
     reason = _kernel_checks(cf, plan[0], plan[1])
     if reason is not None:
-        return reason
+        return reason, False
     tier_dtype = tier_dtype or _tier_dtype(cf)
     if tier_dtype == torch.bfloat16:
         reason = _bf16_tile_reason(kernel_operator(cf))
         if reason is not None:
-            return reason
+            return reason, False
     if (device is not None and torch.device(device).type == "cuda"
             and torch.cuda.is_available()):
         kop = kernel_operator(cf)
@@ -583,14 +602,14 @@ def block_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
             if grid(kop, torch.device(device), B, tier_dtype) <= 0:
                 return (f"the persistent {name} kernel cannot keep its CTAs "
                         "co-resident on this card (cooperative launch "
-                        "unsupported or no CTA fits an SM)")
+                        "unsupported or no CTA fits an SM)"), False
         need = _working_set_bytes(cf, B, n_frames, chunk)
         have = torch.cuda.get_device_properties(torch.device(device)).total_memory
         if need > have:
             return (f"device working set ~{need / 1e9:.1f} GB exceeds the "
                     f"card's {have / 1e9:.1f} GB (Sp = {cf.padded_states}, "
-                    f"B = {B})")
-    return None
+                    f"B = {B})"), True
+    return None, True
 
 
 def _bf16_tile_reason(kop):

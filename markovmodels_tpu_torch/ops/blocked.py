@@ -37,6 +37,7 @@ __all__ = [
     "BlockOperator",
     "build_block_operator",
     "block_matvec",
+    "family_grids",
     "block_max_arg_supported",
     "block_max_arg_reason",
     "tier_dst_inverse",
@@ -263,6 +264,17 @@ def family_grid(desc, block):
     if form == "col":
         return base + np.arange(D)[:, None] * stride + lanes[None, :]
     return base + lanes[:, None] * stride + lanes[None, :]
+
+
+def family_grids(op, meta, device) -> tuple:
+    """Each overflow family's :func:`family_grid` as an int64 tensor on
+    ``device``, in the order of ``op.ov_w``.  A caller that runs the
+    matvecs frame after frame builds them once and passes them as
+    ``grids``: a card would otherwise take one host copy per family and
+    frame."""
+    descs = meta[3] if len(meta) > 3 else ()
+    return tuple(torch.from_numpy(family_grid(d, W.shape[-1])).to(device)
+                 for d, W in zip(descs, op.ov_w))
 
 
 _BLOCK = 128  # destination (or source) block width of the tiers
@@ -544,7 +556,7 @@ def _scatter(y, idx, src, op_kind):
 
 
 def block_matvec(op: BlockOperator, meta, x, *, bf16: bool = False,
-                 op_kind: str = "sum"):
+                 op_kind: str = "sum", grids=None):
     """Probability-domain y = T̂ᵀ ⊗ x (or T̂ ⊗ x for the reversed operator):
     y[j, b] = ⊕_e w[e] · x[src[e], b] over the op's edges.  x: (Sp, B).
 
@@ -559,7 +571,8 @@ def block_matvec(op: BlockOperator, meta, x, *, bf16: bool = False,
     ``bf16`` (a ``precision='bf16'`` graph, sum only) its
     two operands, the panels and the gathered rows, are rounded to bf16
     first, as the kernels' tensor-core tier does (ops/block_scan.py
-    ``_matvec_plain``).
+    ``_matvec_plain``).  ``grids``: the overflow families' index grids on
+    ``x``'s device (:func:`family_grids`; built here when None).
     """
     if op_kind not in ("sum", "max"):
         raise ValueError(f"op_kind {op_kind!r} is neither 'sum' nor 'max'")
@@ -619,10 +632,11 @@ def block_matvec(op: BlockOperator, meta, x, *, bf16: bool = False,
     # the group, 'out' scatters each lane of the group into its column or
     # window
     ov_descs = meta[3] if len(meta) > 3 else ()
-    for desc, W in zip(ov_descs, op.ov_w):
+    if grids is None:
+        grids = family_grids(op, meta, x.device)
+    for desc, W, grid in zip(ov_descs, op.ov_w, grids):
         kind, g0, form = desc[:3]
         block = W.shape[-1]
-        grid = torch.from_numpy(family_grid(desc, block)).to(x.device)
         if kind == "in":
             prod = W[:, :, None] * x[grid.reshape(-1)].reshape(
                 grid.shape + (B,))
@@ -778,7 +792,8 @@ def _tier_max_arg(W, Xg):
     return Y, A
 
 
-def block_matvec_max_arg(op: BlockOperator, meta, x, ov_span=None):
+def block_matvec_max_arg(op: BlockOperator, meta, x, ov_span=None,
+                         grids=None):
     """Tropical y = T̂ᵀ ⊗max x with per-destination winning-candidate ids.
 
     Returns (y (Sp, B), cand (Sp, B) int32): cand < Sm is a tier source
@@ -794,7 +809,8 @@ def block_matvec_max_arg(op: BlockOperator, meta, x, ov_span=None):
     descriptor order (cum + the column row r, or cum + the window position
     j), its bands at C_g + oi.  The ids are written in this final encoding
     (the JAX package stages in-family ids above 255 and remaps them after
-    the sweep's matvec: the same ids).
+    the sweep's matvec: the same ids).  ``grids``: as in
+    :func:`block_matvec`.
 
     Ties follow the CUDA kernel (K7), not XLA's reduction order: bands in
     offset order with a strict >, within the tier the smallest source
@@ -860,11 +876,13 @@ def block_matvec_max_arg(op: BlockOperator, meta, x, ov_span=None):
     win_y.copy_(torch.where(sel, Yv, win_y))
     win_c.copy_(torch.where(sel, Av, win_c))
     if ov_span is not None and op.ov_w:
-        _ov_max_arg(op, meta, x, y, cand, ov_span, Sm)
+        if grids is None:
+            grids = family_grids(op, meta, x.device)
+        _ov_max_arg(op, meta, x, y, cand, ov_span, Sm, grids)
     return y, cand
 
 
-def _ov_max_arg(op, meta, x, y, cand, ov_span, Sm):
+def _ov_max_arg(op, meta, x, y, cand, ov_span, Sm, grids):
     """The overflow families of :func:`block_matvec_max_arg`, in place:
     first the overflow groups' band ids moved to C_g + oi (the tier writes
     no overflow row), then each family in descriptor order."""
@@ -878,9 +896,8 @@ def _ov_max_arg(op, meta, x, y, cand, ov_span, Sm):
         seg.copy_(torch.where(band, seg - Sm + csize.get(g0, 0), seg))
     B = x.shape[1]
     cum = {}
-    for desc, W in zip(meta[3], op.ov_w):
+    for desc, W, grid in zip(meta[3], op.ov_w, grids):
         kind, g0, form = desc[:3]
-        grid = torch.from_numpy(family_grid(desc, cmax)).to(x.device)
         if kind == "in":
             id0 = cum.get(g0, 0)
             cum[g0] = id0 + (cmax if form == "win" else desc[5])

@@ -104,10 +104,41 @@
 // atomicMax (exact and order-free for non-negative values), in 64-bit words
 // of the sync buffer (from the first even word after the tickets); its
 // scales are exact powers of two from the exponent bits (value_common.cuh).
-// A tile is 9 KB and a state stage 32 KB in double, so at the V=32
-// operator's ranges the tiles of a CTA no longer fit beside two stages at 2
-// CTAs per SM: launch_t() asks the occupancy API per instantiation and the
-// same kernel streams the tiles (the branch above).  No bf16 x double.
+// No bf16 x double.
+//
+// K6a/K6b in double (DM: sweep_kernel<BWD, VEC, false, false, double>) have
+// a layout of their own, made for the card's FP64 units.  What held the
+// float layout back in double: a 9 KB tile and a 32 KB stage per 32 x 128
+// block, so a CTA's range (5 tiles at the V=32 operator) no longer fit
+// beside two stages at 2 CTAs per SM and every tile was restaged every
+// frame; the 4 x 4 FFMA product of each thread spilled; and the FP64 tensor
+// cores stood idle.  The DM layout:
+//   * column blocks of TBD = 64 batch columns, a tile's product in one
+//     pass: a stage is 32 x 64 doubles, its rows padded to XLDD = 68
+//     (17 KB), so the range's tiles (8 KB each, unpadded) stay resident
+//     beside a ring of NSD = 3 stages at 2 CTAs per SM (94 KB at the V=32
+//     operator); a range too large for that (a fully dense operator)
+//     streams its tiles through the stages;
+//   * a frame's passes in one sequence through the ring, the copies of the
+//     next two in flight while one multiplies, across tiles, column blocks
+//     and segment ends, one block barrier per pass;
+//   * the product on the FP64 tensor cores, mma.sync m8n8k4 f64 (IEEE
+//     double FMAs; wgmma takes no f64): warp w owns rows (w % 4) * 8 .. +8
+//     and columns (w / 4) * 32 .. +32 of the 32 x 64 block, four 8 x 8
+//     accumulators of 2 doubles a thread; per k step one A fragment (one
+//     double, the tile kept in shared memory in A-fragment order, each
+//     16-byte chunk of the row-major packed tile placed as it is copied:
+//     dm_chunk) and four B fragments read from the stage (conflict-free at
+//     the padded pitch);
+//   * an epilogue that waits on one round of L2 reads (the emissions, and
+//     backward alpha, all issued before any is used; the column scales
+//     computed once per block and frame into shared memory: col_scales),
+//     and a straddling row tile's last range reading the partials slot by
+//     slot, each slot's pairs together.  The 64-bit column maxima, the
+//     exact power-of-two scales and the range-order sums of the partials
+//     are those of the float layout.
+// K6t in double (TROP) keeps the layout above: its max of products does not
+// run on the tensor cores.
 //
 // Conventions: states (Sp, B) row-major T; ext (Nf, P1, B); the emission of
 // state s is ext[t, spdf[s], b].  A stored state is unscaled, with a (B,)
@@ -141,6 +172,20 @@ template <class T>
 constexpr int XST_V = TK * TB * static_cast<int>(sizeof(T));
 constexpr int XST_H = TK / 2 * XW * 4;     // 8,704
 constexpr int SCR_H = TR * XLD * 4;        // 16,896
+// the double K6a/K6b (DM): a tile's product in one pass over column blocks
+// of TBD batch columns, the stage's rows padded by 4 doubles, tiles
+// unpadded in A-fragment order; warp w owns columns
+// (w / 4) * TBD / 2 .. +TBD / 2, NBD groups of 8
+constexpr int TBD = 64;
+constexpr int NBD = TBD / 16;
+constexpr int XLDD = TBD + 4;
+constexpr int TILE_D = TR * TK * 8;        // 8,192
+constexpr int XST_D = TK * XLDD * 8;       // 17,408
+constexpr int NSD = 3;                     // the DM stage ring's depth
+// A compiler fence for memory operations: no load or store moves across.
+__device__ __forceinline__ void compiler_fence() {
+  asm volatile("" ::: "memory");
+}
 
 // The host plan of one direction's operator (ops/dense_scan.py TilePlan).
 struct Plan {
@@ -273,6 +318,53 @@ __device__ __forceinline__ void store4(double* row, int b, int B, D4 v) {
   }
 }
 
+// Two consecutive doubles b, b + 1 of one row, read past L1, as a launch
+// input, and written (the DM layout's column pairs; VEC: b is even and
+// B % 4 == 0, so a pair is one 16-byte access).
+template <bool VEC>
+__device__ __forceinline__ double2 load2_l2(const double* row, int b, int B) {
+  if constexpr (VEC) {
+    return b < B ? __ldcg(reinterpret_cast<const double2*>(row + b))
+                 : make_double2(0.0, 0.0);
+  } else {
+    return make_double2(b < B ? __ldcg(row + b) : 0.0,
+                        b + 1 < B ? __ldcg(row + b + 1) : 0.0);
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ double2 load2(const double* __restrict__ row, int b,
+                                         int B) {
+  if constexpr (VEC) {
+    return b < B ? __ldg(reinterpret_cast<const double2*>(row + b))
+                 : make_double2(0.0, 0.0);
+  } else {
+    return make_double2(b < B ? __ldg(row + b) : 0.0,
+                        b + 1 < B ? __ldg(row + b + 1) : 0.0);
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store2(double* row, int b, int B, double2 v) {
+  if constexpr (VEC) {
+    if (b < B) *reinterpret_cast<double2*>(row + b) = v;
+  } else {
+    if (b < B) row[b] = v.x;
+    if (b + 1 < B) row[b + 1] = v.y;
+  }
+}
+
+// d += a (8x4, row-major) * b (4x8, column-major) on the FP64 tensor cores,
+// one warp: lane l holds a[l / 4][l % 4], b[l % 4][l / 4] and
+// d[l / 4][2 (l % 4) + {0, 1}].
+__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
+
 // Two floats rounded to bf16 (to nearest even), lo in the low half.
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -308,11 +400,17 @@ struct Frame {
   int t;
 };
 
-template <bool BF16, class T>
+template <bool BF16, class T, bool DM = false>
 struct Layout {
-  static constexpr int TILE = BF16 ? TILE_H : TILE_V<T>;
-  static constexpr int XST = BF16 ? XST_H : XST_V<T>;
-  static constexpr int SCR = BF16 ? SCR_H : 0;
+  // batch columns per column block, and warp rows of the epilogue's
+  // column reduction
+  static constexpr int CB = DM ? TBD : TB;
+  static constexpr int RW = DM ? 4 : 2;
+  static constexpr int NST = DM ? NSD : 2;  // stages of the ring
+  static constexpr int TILE = BF16 ? TILE_H : DM ? TILE_D : TILE_V<T>;
+  static constexpr int XST = BF16 ? XST_H : DM ? XST_D : XST_V<T>;
+  // bf16: the accumulator scratch; DM: the column block's scales
+  static constexpr int SCR = BF16 ? SCR_H : DM ? 2 * TBD * 8 : 0;
   // bytes of one packed tile in global memory, and its 16-byte chunks
   static constexpr int TILE_G = TR * TK * (BF16 ? 2 : sizeof(T));
   static constexpr int TILE_CHUNKS = TILE_G / 16;
@@ -320,9 +418,15 @@ struct Layout {
   // then the streamed tile), the bf16 accumulator scratch
   static size_t bytes(bool resident, int max_tiles) {
     return (resident ? static_cast<size_t>(max_tiles) * TILE : 0) +
-           2 * static_cast<size_t>(XST + (resident ? 0 : TILE)) + SCR;
+           NST * static_cast<size_t>(XST + (resident ? 0 : TILE)) + SCR;
   }
 };
+
+// The layout of an instantiation: DM for K6a/K6b in double.
+template <bool BF16, bool TROP, class T>
+constexpr bool uses_dmma() {
+  return is_f64<T>() && !TROP && !BF16;
+}
 
 // The exact power-of-two scale of a column from its max's bits.
 template <class T>
@@ -332,22 +436,23 @@ __device__ __forceinline__ T scale_of(const BitsT<T>* cm, int b, int B) {
 
 template <bool BWD, bool VEC, bool BF16, bool TROP, class T>
 struct Sweep {
-  using L = Layout<BF16, T>;
+  static constexpr bool DM = uses_dmma<BF16, TROP, T>();
+  using L = Layout<BF16, T, DM>;
   using V = V4<T>;
   const Args<T>& p;
   unsigned char* res;   // resident tiles
   unsigned char* stg;   // stage ring
   float* scr;           // bf16 accumulator scratch
   int stage_bytes, lo, n_mine;
-  T (*red)[2][TB];
+  T (*red)[L::RW][L::CB];
   int* flag;
 
   // rows r0 + wr*16 + i*4 + lr (i < 4) and columns b0 + wc*32 + lc*4 + j
   // (j < 4) of a 32 x 128 block belong to this thread
   int tid, warp, lane, wr, wc, lr, lc;
 
-  __device__ Sweep(const Args<T>& a, unsigned char* smem, T (*r)[2][TB],
-                   int* f)
+  __device__ Sweep(const Args<T>& a, unsigned char* smem,
+                   T (*r)[L::RW][L::CB], int* f)
       : p(a), red(r), flag(f) {
     tid = threadIdx.x;
     warp = tid / 32;
@@ -361,7 +466,7 @@ struct Sweep {
     res = smem;
     stg = smem + (p.resident ? static_cast<size_t>(n_mine) * L::TILE : 0);
     stage_bytes = L::XST + (p.resident ? 0 : L::TILE);
-    scr = reinterpret_cast<float*>(stg + 2 * stage_bytes);
+    scr = reinterpret_cast<float*>(stg + L::NST * stage_bytes);
   }
 
   __device__ unsigned char* stage(int j) const {
@@ -382,6 +487,8 @@ struct Sweep {
       unsigned char* dst = res + static_cast<size_t>(j) * L::TILE;
       if constexpr (BF16)
         dst += w * 16;
+      else if constexpr (DM)
+        dst += dm_chunk(w);
       else
         dst += (w / RC) * WLD * static_cast<int>(sizeof(T)) + (w % RC) * 16;
       cp_async16(dst, src + static_cast<size_t>(ch) * 16, true);
@@ -389,6 +496,17 @@ struct Sweep {
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
+  }
+
+  // DM: the shared-memory byte offset of the 16-byte chunk w of a double
+  // tile packed row-major (row w / 16, columns 2 (w % 16) and + 1).  The
+  // tile is kept in the A-fragment order of mma.m8n8k4: value (r, k) at
+  // ((r / 8) * 8 + k / 4) * 32 + (r % 8) * 4 + k % 4, the (row block, k
+  // step) fragment's 32 lanes in a row; the two values of a chunk stay
+  // adjacent.
+  static __device__ __forceinline__ int dm_chunk(int w) {
+    const int r = w / 16, k = (w % 16) * 2;
+    return (((r / 8) * (TK / 4) + k / 4) * 32 + (r % 8) * 4 + k % 4) * 8;
   }
 
   __device__ const unsigned char* tile_at(int j) const {
@@ -729,6 +847,266 @@ struct Sweep {
       for (int cb = 0; cb < ncb; ++cb) epilogue(fr, rt, cb * TB, true, acc);
   }
 
+  // ---- the DM layout (K6a/K6b in double): 32 x TBD blocks, the product on
+  // the FP64 tensor cores.  Thread (warp w, lane l) owns row
+  // (w % 4) * 8 + l / 4 of the block and its columns
+  // (w / 4) * TBD / 2 + n * 8 + 2 (l % 4) + {0, 1}, n < NBD: d[n][0..1].
+  // A frame's passes run in one sequence q = cb * n_mine + j over the
+  // column blocks cb and the range's tiles j, through a ring of NSD stages: the copies of passes q + 1 .. q + NSD - 1
+  // are in flight while pass q multiplies, across tiles, column blocks and
+  // segment ends.
+
+  __device__ unsigned char* stage_dm(int q) const {
+    return stg + static_cast<size_t>(q % NSD) * stage_bytes;
+  }
+
+  // Issue the copies of pass q into its stage: the TK x TBD state block of
+  // its tile (rows at the padded pitch XLDD) and, streaming, the tile in
+  // A-fragment order.
+  __device__ void issue_dm(const Frame<T>& fr, int q) {
+    const int i = lo + q % n_mine, b0 = q / n_mine * TBD;
+    const int B = p.B, kt = __ldg(p.pl.tile_k + i);
+    unsigned char* st = stage_dm(q);
+    T* X = reinterpret_cast<T*>(st);
+    const T* src = fr.prev + static_cast<size_t>(kt) * TK * B;
+#pragma unroll 1  // unrolled, K6b's scalar branch spills at 128 registers
+    for (int u = 0; u < TK * TBD / 2 / NT; ++u) {
+      const int idx = tid + u * NT, k = idx / (TBD / 2),
+                c = (idx % (TBD / 2)) * 2, b = b0 + c;
+      const T* s = src + static_cast<size_t>(k) * B;
+      if constexpr (VEC) {
+        cp_async16(&X[k * XLDD + c], b < B ? s + b : s, b < B);
+      } else {
+        X[k * XLDD + c] = b < B ? __ldcg(s + b) : T(0);
+        X[k * XLDD + c + 1] = b + 1 < B ? __ldcg(s + b + 1) : T(0);
+      }
+    }
+    if (!p.resident) {
+#pragma unroll
+      for (int u = 0; u < L::TILE_CHUNKS / NT; ++u) {
+        const int ch = tid + u * NT;
+        cp_async16(st + L::XST + dm_chunk(ch),
+                   static_cast<const unsigned char*>(p.pl.tiles) +
+                       static_cast<size_t>(i) * L::TILE_G + ch * 16,
+                   true);
+      }
+    }
+    cp_async_commit();
+  }
+
+  // Wait until at most n of this thread's copy groups are in flight.
+  static __device__ __forceinline__ void wait_dm(int n) {
+    static_assert(NSD <= 3, "wait_dm covers up to 2 groups in flight");
+    if (n >= 2)
+      cp_async_wait<2>();
+    else if (n == 1)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+  }
+
+  // d += pass q's local tile j times its staged state block: per k step of
+  // 4, one A fragment and NBD m8n8k4 products, one per 8-column group.
+  __device__ void mul_dm(int q, int j, T (&d)[NBD][2]) const {
+    const T* A = reinterpret_cast<const T*>(
+        p.resident ? res + static_cast<size_t>(j) * L::TILE
+                   : stage_dm(q) + L::XST);
+    const T* X = reinterpret_cast<const T*>(stage_dm(q));
+    const int mb = warp % 4;
+    const T* x = X + (lane % 4) * XLDD + (warp / 4) * (TBD / 2) + lane / 4;
+#pragma unroll 1  // unrolled, the k steps' fragments spill at 128 registers
+    for (int ks = 0; ks < TK / 4; ++ks) {
+      const T a = A[(mb * (TK / 4) + ks) * 32 + lane];
+#pragma unroll
+      for (int n = 0; n < NBD; ++n)
+        dmma(d[n], a, x[ks * 4 * XLDD + n * 8]);
+    }
+  }
+
+  // The scales of column block b0 in shared memory (the scratch), once per
+  // block and frame: the previous state's (from its column max; 0 on a
+  // frame that skips the product) and, backward, alpha's.
+  __device__ void col_scales(const Frame<T>& fr, int b0, bool skip) {
+    T* cs = reinterpret_cast<T*>(scr);
+    const int B = p.B;
+    for (int c = tid; c < TBD; c += NT) {
+      cs[c] = skip ? T(0) : scale_of<T>(fr.cm_prev, b0 + c, B);
+      if constexpr (BWD)
+        cs[TBD + c] = b0 + c < B ? __ldg(fr.ascale_t + b0 + c) : T(0);
+    }
+  }
+
+  // One row tile's epilogue over columns b0 .. b0+TBD-1 on the DM layout:
+  // the arithmetic of epilogue() above, value for value, with the column
+  // scales from col_scales().  Its global loads (the emissions and,
+  // backward, alpha; forward frame 0, the initial state) issue together,
+  // EG column pairs at a time (backward: two groups), before any is used;
+  // each pair is reduced over the warp's 8 rows (lane bits 2-4) as it is
+  // done.
+  __device__ void epilogue_dm(const Frame<T>& fr, int rt, int b0, bool skip,
+                              const T (&d)[NBD][2]) {
+    constexpr int EG = BWD ? NBD / 2 : NBD;
+    const T* cs = reinterpret_cast<const T*>(scr);
+    const int B = p.B, g = lane / 4, mb = warp % 4;
+    const int r = rt * TR + mb * 8 + g;
+    const int c0 = (warp / 4) * (TBD / 2) + 2 * (lane % 4);
+    const size_t rB = static_cast<size_t>(r) * B;
+    const T* erow = fr.ext_t + static_cast<size_t>(__ldg(p.spdf + r)) * B;
+#pragma unroll
+    for (int n0 = 0; n0 < NBD; n0 += EG) {
+      double2 e[EG], a[EG];
+#pragma unroll
+      for (int u = 0; u < EG; ++u) {
+        const int bc = b0 + c0 + (n0 + u) * 8;
+        e[u] = load2<VEC>(erow, bc, B);
+        a[u] = make_double2(0.0, 0.0);
+        if constexpr (BWD)
+          a[u] = load2<VEC>(fr.alpha_t + rB, bc, B);
+        else if (skip)
+          a[u] = load2_l2<VEC>(fr.prev + rB, bc, B);
+      }
+#pragma unroll
+      for (int u = 0; u < EG; ++u) {
+        const int n = n0 + u, c = c0 + n * 8, bc = b0 + c;
+        const T s0 = cs[c], s1 = cs[c + 1];
+        double2 v, gm = make_double2(0.0, 0.0);
+        if constexpr (!BWD) {
+          v.x = (skip ? a[u].x : d[n][0] * s0) * e[u].x;
+          v.y = (skip ? a[u].y : d[n][1] * s1) * e[u].y;
+        } else {
+          const T y0 = skip ? T(1) : d[n][0] * s0;
+          const T y1 = skip ? T(1) : d[n][1] * s1;
+          gm = make_double2(a[u].x * cs[TBD + c] * y0,
+                            a[u].y * cs[TBD + c + 1] * y1);
+          v = make_double2(y0 * e[u].x, y1 * e[u].y);
+          store2<VEC>(fr.gamma + rB, bc, B, gm);
+        }
+        store2<VEC>(fr.out + rB, bc, B, v);
+#pragma unroll
+        for (int m = 4; m <= 16; m *= 2) {
+          v.x = fmax_(v.x, __shfl_xor_sync(0xffffffffu, v.x, m));
+          v.y = fmax_(v.y, __shfl_xor_sync(0xffffffffu, v.y, m));
+          if constexpr (BWD) {
+            gm.x += __shfl_xor_sync(0xffffffffu, gm.x, m);
+            gm.y += __shfl_xor_sync(0xffffffffu, gm.y, m);
+          }
+        }
+        if (g == 0) {
+          red[0][mb][c] = v.x;
+          red[0][mb][c + 1] = v.y;
+          red[1][mb][c] = gm.x;
+          red[1][mb][c + 1] = gm.y;
+        }
+      }
+      compiler_fence();
+    }
+    __syncthreads();
+    const int c = tid;
+    if (c < TBD && b0 + c < B) {
+      atomicMax(fr.cm_cur + b0 + c,
+                to_bits(fmax_(fmax_(red[0][0][c], red[0][1][c]),
+                              fmax_(red[0][2][c], red[0][3][c]))));
+      if constexpr (BWD)
+        fr.csum[static_cast<size_t>(rt) * B + b0 + c] =
+            ((red[1][0][c] + red[1][1][c]) + red[1][2][c]) + red[1][3][c];
+    }
+    __syncthreads();  // red is free for the next epilogue
+  }
+
+  // A straddling row tile on the DM layout: partial(), the ticket and the
+  // range-order sum of the partials, then epilogue_dm().
+  __device__ void partial_dm(const Frame<T>& fr, int rt, int b0, int cb,
+                             int slot, T (&d)[NBD][2]) {
+    const int B = p.B, bc0 = b0 + (warp / 4) * (TBD / 2) + 2 * (lane % 4);
+    const size_t SB = static_cast<size_t>(TR) * B;
+    const size_t row = static_cast<size_t>((warp % 4) * 8 + lane / 4) * B;
+#pragma unroll
+    for (int n = 0; n < NBD; ++n)
+      store2<VEC>(p.partial + slot * SB + row, bc0 + n * 8, B,
+                  make_double2(d[n][0], d[n][1]));
+    __syncthreads();
+    const int2 rp = p.pl.rt_parts[rt];
+    if (tid == 0) {
+      const int ncb = (B + TBD - 1) / TBD;
+      unsigned* tk = p.sync + 2 + static_cast<size_t>(rt) * ncb + cb;
+      __threadfence();
+      *flag = atomicAdd(tk, 1u) == static_cast<unsigned>(rp.y - 1);
+      if (*flag) atomicExch(tk, 0u);
+      __threadfence();
+    }
+    __syncthreads();
+    if (!*flag) return;
+    // the partials in range order, one slot at a time: a slot's pairs are
+    // read together, so each slot costs one round trip
+    for (int q = 0; q < rp.y; ++q) {
+      const T* src = p.partial + (rp.x + q) * SB + row;
+      double2 w[NBD];
+#pragma unroll
+      for (int n = 0; n < NBD; ++n) w[n] = load2_l2<VEC>(src, bc0 + n * 8, B);
+#pragma unroll
+      for (int n = 0; n < NBD; ++n) {
+        d[n][0] = q == 0 ? w[n].x : d[n][0] + w[n].x;
+        d[n][1] = q == 0 ? w[n].y : d[n][1] + w[n].y;
+      }
+    }
+    epilogue_dm(fr, rt, b0, false, d);
+  }
+
+  // product() on the DM layout: the passes of every column block in one
+  // sequence through the NSD-stage ring, one block barrier per pass (the
+  // barrier after pass q - 1's reads frees the stage pass q + NSD - 1
+  // fills).
+  template <class Pre>
+  __device__ void product_dm(const Frame<T>& fr0, Pre&& pre) {
+    // the frame's pointers from shared memory, not held in registers
+    // across the passes (the register budget of 2 CTAs per SM)
+    __shared__ Frame<T> sfr;
+    if (tid == 0) sfr = fr0;
+    __syncthreads();
+    const Frame<T>& fr = sfr;
+    const int s0 = p.pl.seg_ptr[blockIdx.x], s1 = p.pl.seg_ptr[blockIdx.x + 1];
+    const int ncb = (p.B + TBD - 1) / TBD, total = n_mine * ncb;
+    int issued = 0;
+    for (; issued < total && issued < NSD - 1; ++issued) issue_dm(fr, issued);
+    pre();
+    int q = 0;
+    for (int cb = 0; cb < ncb; ++cb) {
+      const int b0 = cb * TBD;
+      // read by the block's epilogues after the next pass's barrier (the
+      // last epilogue of the previous block ended on one)
+      col_scales(fr, b0, false);
+      if (n_mine == 0) __syncthreads();
+      int j = 0;
+      for (int s = s0; s < s1; ++s) {
+        const int4 sg = p.pl.segs[s];
+        T d[NBD][2] = {};
+        for (; j < sg.z - lo; ++j, ++q) {
+          wait_dm(issued - q - 1);
+          __syncthreads();
+          if (issued < total) issue_dm(fr, issued++);
+          mul_dm(q, j, d);
+        }
+        if (sg.w < 0)
+          epilogue_dm(fr, sg.x, b0, false, d);
+        else
+          partial_dm(fr, sg.x, b0, cb, sg.w, d);
+      }
+    }
+  }
+
+  // no_product() on the DM layout.
+  __device__ void no_product_dm(const Frame<T>& fr) {
+    const T d[NBD][2] = {};
+    const int n_rt = p.Sp / TR, ncb = (p.B + TBD - 1) / TBD;
+    for (int rt = blockIdx.x; rt < n_rt; rt += gridDim.x) {
+      for (int cb = 0; cb < ncb; ++cb) {
+        col_scales(fr, cb * TBD, true);
+        __syncthreads();
+        epilogue_dm(fr, rt, cb * TBD, true, d);
+      }
+    }
+  }
+
   // The last CTA's share of each frame: zero the next frame's column max
   // (read for the last time one frame ago).
   __device__ void clear_next(const Frame<T>& fr) {
@@ -831,7 +1209,7 @@ struct Sweep {
   // The column max of frame f's state: three buffers in turn (double:
   // 64-bit words from the first even word after the tickets).
   __device__ BitsT<T>* cm_row(int f) const {
-    const int n_rt = p.Sp / TR, ncb = (p.B + TB - 1) / TB;
+    const int n_rt = p.Sp / TR, ncb = (p.B + L::CB - 1) / L::CB;
     const size_t base = 2 + static_cast<size_t>(n_rt) * ncb;
     if constexpr (is_f64<T>())
       return reinterpret_cast<unsigned long long*>(p.sync + base + base % 2) +
@@ -878,23 +1256,34 @@ struct Sweep {
 // next frame's phase (and, after the last frame, by one more phase).
 template <bool BWD, bool VEC, bool BF16, bool TROP, class T>
 __global__ void __launch_bounds__(NT, 2) sweep_kernel(const Args<T> p) {
+  using Sw = Sweep<BWD, VEC, BF16, TROP, T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ T red[2][2][TB];  // [max, sum][warp row][column]
+  // [max, sum][warp row][column]
+  __shared__ T red[2][Sw::L::RW][Sw::L::CB];
   __shared__ T rsum[2][PY][PC];  // backward pdf sums: [den, gamma]
   __shared__ int flag;
-  Sweep<BWD, VEC, BF16, TROP, T> sw(p, smem, red, &flag);
+  Sw sw(p, smem, red, &flag);
   sw.load_resident();
   for (int f = 0; f < p.Nf; ++f) {
     const Frame<T> fr = sw.frame(f);
     sw.clear_next(fr);
     sw.prefetch_next(f);
     if (f == 0 && (!TROP || p.first)) {
-      sw.no_product(fr);  // forward: p = a0; backward: beta = 1
+      // forward: p = a0; backward: beta = 1
+      if constexpr (Sw::DM)
+        sw.no_product_dm(fr);
+      else
+        sw.no_product(fr);
     } else {
-      sw.product(fr, [&] {
-        if constexpr (!BWD)
-          if (!TROP || f > 0) sw.frame_out(f - 1);
-      });
+      if constexpr (Sw::DM)
+        sw.product_dm(fr, [&] {
+          if constexpr (!BWD) sw.frame_out(f - 1);
+        });
+      else
+        sw.product(fr, [&] {
+          if constexpr (!BWD)
+            if (!TROP || f > 0) sw.frame_out(f - 1);
+        });
       if constexpr (BWD) sw.posts_of(f - 1, rsum);  // the previous frame's
     }
     grid_sync(p.sync);
@@ -910,7 +1299,7 @@ __global__ void __launch_bounds__(NT, 2) sweep_kernel(const Args<T> p) {
 // co-resident, else they stream.
 template <bool BWD, bool VEC, bool BF16, bool TROP, class T>
 cudaError_t launch_t(Args<T> a, int n_ctas, int max_tiles, cudaStream_t st) {
-  using L = Layout<BF16, T>;
+  using L = Layout<BF16, T, uses_dmma<BF16, TROP, T>()>;
   const void* kern =
       reinterpret_cast<const void*>(sweep_kernel<BWD, VEC, BF16, TROP, T>);
   int dev = 0, optin = 0, n_sm = 0;

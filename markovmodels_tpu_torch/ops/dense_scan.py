@@ -65,7 +65,12 @@ plan (:func:`tile_plan`, built once per graph with the operator) packs the
 operator's non-zero 32 x 32 tiles and cuts them into one range of equal
 tile count per CTA; the CTAs keep their tiles in shared memory (or stream
 them, where a range does not fit) and run the frame loop inside the kernel
-with one grid barrier per frame.  A zero tile adds exact zeros to the
+with one grid barrier per frame.  K6a/K6b in float64 run their product on
+the FP64 tensor cores (``mma.sync`` m8n8k4) over 64-column blocks, so that
+a range of the V=32 operator's 8 KB tiles stays resident at 2 CTAs per SM
+beside 17 KB stages (:func:`smem_bytes`); the packed tiles are the same
+row-major ones, placed in the fragment order as they are copied to shared
+memory.  A zero tile adds exact zeros to the
 non-negative state, so the kernels compute the dense product up to
 summation order; the plain twins stay the dense product.
 
@@ -116,6 +121,11 @@ LAUNCHES_F64 = dict(LAUNCHES)
 
 _TILE = 32  # operator tile edge (TR = TK in csrc/dense_scan.cu)
 _TILE_COLS = 128  # batch columns per column block (TB)
+# K6a/K6b in float64 (the DMMA layout of csrc/dense_scan.cu): a tile in one
+# pass over column blocks of 64 batch columns (TBD), the stage's rows padded
+# by 4 values, a ring of 3 stages (NSD)
+_TILE_COLS_F64 = 64
+_STAGES_F64 = 3
 _CTAS_PER_SM = 2  # co-resident CTAs per SM of the persistent grid
 _SMS = 132  # SMs of an H100 SXM: the plan's grid where there is no card
 
@@ -171,7 +181,8 @@ def dense_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     Its TPU rules (backend, the VMEM budget of ``pallas_scan_supported``)
     are not copied: each CTA keeps its range of the operator's non-zero
     tiles in shared memory where that fits (4.5 KB a tile in float32, 2 KB
-    in bf16, 9 KB in float64, beside 34-82 KB of stages, :func:`smem_bytes`;
+    in bf16, 8 KB in float64 (K6t: 9 KB), beside 34-82 KB of stages,
+    :func:`smem_bytes`;
     at most 227 KB per CTA) and streams them every frame where it does not,
     so no operator is too large or too dense.  Instead the padded state
     count must be a multiple of the kernels' 32-row tile, and the device
@@ -297,22 +308,32 @@ def tile_plan(w: torch.Tensor, n_ctas: int) -> TilePlan:
                     max_tiles=int(np.diff(lo).max()))
 
 
-def smem_bytes(pl: TilePlan) -> tuple:
+def smem_bytes(pl: TilePlan, tropical: bool = False) -> tuple:
     """(resident, streaming): the dynamic shared memory of one CTA of the
     plan's launch, as csrc/dense_scan.cu's ``Layout::bytes`` counts it,
     with the largest range's tiles kept on chip, or streamed through the
     two-stage ring beside the state blocks.  A tile and a 32 x 128 state
-    stage take 4 bytes a value in float32 and 8 in float64 (their rows
-    padded by 4 values); bf16 tiles are packed fragments (2 KB), their
-    stages bf16 row pairs, beside the float32 accumulator scratch."""
+    stage take 4 bytes a value in float32 (their rows padded by 4 values);
+    bf16 tiles are packed fragments (2 KB), their stages bf16 row pairs,
+    beside the float32 accumulator scratch.  In float64, K6a/K6b (the DMMA
+    layout) keep 8 KB tiles in A-fragment order beside a ring of three
+    32 x 64 stages whose rows are padded by 4 values (17 KB each) and the
+    column block's two rows of scales (1 KB); K6t (``tropical``) keeps
+    the float32 layout at 8 bytes a value (9 KB tiles, two 32 KB
+    stages)."""
+    n_st = 2
     if pl.tiles.dtype == torch.bfloat16:
         tile, stage = _TILE * _TILE * 2, _TILE // 2 * (_TILE_COLS + 8) * 4
         scr = _TILE * (_TILE_COLS + 4) * 4
+    elif pl.tiles.dtype == torch.float64 and not tropical:
+        tile, scr = _TILE * _TILE * 8, 2 * _TILE_COLS_F64 * 8
+        stage = _TILE * (_TILE_COLS_F64 + 4) * 8
+        n_st = _STAGES_F64
     else:
         f = pl.tiles.element_size()
         tile, stage, scr = _TILE * (_TILE + 4) * f, _TILE * _TILE_COLS * f, 0
-    return (pl.max_tiles * tile + 2 * stage + scr,
-            2 * (stage + tile) + scr)
+    return (pl.max_tiles * tile + n_st * stage + scr,
+            n_st * (stage + tile) + scr)
 
 
 class DenseOp(NamedTuple):
@@ -554,24 +575,32 @@ def _plan_args(pl: TilePlan):
             _p(pl.segs), _p(pl.rt_parts), pl.lo.numel() - 1, pl.max_tiles)
 
 
-def _cm_offset(Sp: int, B: int, prec: int) -> int:
+def _cols(prec: int, tropical: bool = False) -> int:
+    """Batch columns per column block of a launch: TBD for K6a/K6b in
+    float64 (the DMMA layout), else 128."""
+    return _TILE_COLS_F64 if prec == 2 and not tropical else _TILE_COLS
+
+
+def _cm_offset(Sp: int, B: int, prec: int, tropical: bool = False) -> int:
     """The int32 word where the sync buffer's three column-max rows start:
-    after the barrier's two words and the row tiles' tickets, at the next
-    even word for float64 (its rows are 64-bit words)."""
-    base = 2 + Sp // _TILE * -(-B // _TILE_COLS)
+    after the barrier's two words and the tickets of each (row tile,
+    column block), at the next even word for float64 (its rows are 64-bit
+    words)."""
+    base = 2 + Sp // _TILE * -(-B // _cols(prec, tropical))
     return base + base % 2 if prec == 2 else base
 
 
-def _scratch(kop: DenseOp, pl: TilePlan, B: int, prec: int, dev):
+def _scratch(kop: DenseOp, pl: TilePlan, B: int, prec: int, dev,
+             tropical: bool = False):
     """(partial, zeroed sync words, bf16 state pairs or None) of one
     launch: the plan's partial slots in the values' dtype; the barrier,
-    the row tiles' tickets and three column-max rows (32-bit words, 64-bit
-    in float64)."""
+    the tickets and three column-max rows (32-bit words, 64-bit in
+    float64)."""
     partial = torch.empty((max(pl.n_partials, 1), _TILE, B), device=dev,
                           dtype=_value_dtype(prec))
     rows = 6 * B if prec == 2 else 3 * B
-    sync = torch.zeros(_cm_offset(kop.Sp, B, prec) + rows, dtype=torch.int32,
-                       device=dev)
+    sync = torch.zeros(_cm_offset(kop.Sp, B, prec, tropical) + rows,
+                       dtype=torch.int32, device=dev)
     xb = (_p(torch.empty((2, kop.Sp // 2, B), dtype=torch.int32, device=dev))
           if prec == 1 else None)
     return partial, sync, xb
@@ -670,12 +699,12 @@ def trop_sweep(kop: DenseOp, a0, s0, ext, mshift, *, first: bool,
     slots = Nf if save else 2
     states = torch.empty((slots, Sp, B), device=dev, dtype=vdt)
     scales = torch.empty((slots, B), device=dev, dtype=vdt)
-    partial, sync, _ = _scratch(kop, kop.pf, B, prec, dev)
+    partial, sync, _ = _scratch(kop, kop.pf, B, prec, dev, tropical=True)
     if not first:
         # the column max the first frame reads (the third row, as the
         # value's bits): 1 / s0, whose scale is s0
         w = 2 if prec == 2 else 1  # int32 words per value
-        at = _cm_offset(Sp, B, prec) + 2 * B * w
+        at = _cm_offset(Sp, B, prec, tropical=True) + 2 * B * w
         sync[at : at + B * w] = (1.0 / s0).view(torch.int32)
     with torch.cuda.device(dev):
         rc = _build.library().mm_dense_trop(

@@ -80,9 +80,11 @@ import torch
 
 from . import block_scan as bs
 from .blocked import (_ov_cand_layout, block_matvec, block_matvec_max_arg,
-                      block_max_arg_reason, family_grid, tier_dst_inverse)
+                      block_max_arg_reason, family_grid, family_grids,
+                      tier_dst_inverse)
 
 __all__ = [
+    "vit_scan_admission",
     "vit_scan_reject_reason",
     "viterbi_fwd",
     "viterbi_fwd_plain",
@@ -216,35 +218,47 @@ def _device_bytes(cf, B: int, n_frames: int, saved=None) -> int:
 def vit_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
                            device=None, saved: int | None = None):
     """None when K7 accepts this graph, else a one-line reason naming the
-    FIRST rejected predicate.  The uniform predicates are the JAX
-    package's (``vit_scan_supported``) in its order: the blocked scan's
-    (ported in ``block_scan_reject_reason``), uint8 candidate ids, the
-    tier-chunk divisibility.  Where the JAX package refuses overflow
-    families (the TPU K7 has no branch for them), the port's K7 takes them
-    in its family branch, under the predicates of
+    FIRST rejected predicate (the first element of
+    :func:`vit_scan_admission`)."""
+    return vit_scan_admission(cf, B, n_frames=n_frames, device=device,
+                              saved=saved)[0]
+
+
+def vit_scan_admission(cf, B: int, *, n_frames: int | None = None,
+                       device=None, saved: int | None = None):
+    """(reason, shared): the FIRST predicate of K7 that this graph fails
+    (None when K7 accepts it), and whether the JAX package refuses the
+    graph for it too (its XLA decode then runs the graph).  The uniform
+    predicates are the JAX package's (``vit_scan_supported``) in its
+    order: the blocked scan's (:func:`block_scan.block_scan_admission`,
+    whose own predicates of the port are the only ones not shared), uint8
+    candidate ids, the tier-chunk divisibility.  Where the JAX package
+    refuses overflow families (the TPU K7 has no branch for them), the
+    port's K7 takes them in its family branch, under the predicates of
     ``blocked.block_max_arg_reason`` (the compressed-backpointer decode's
-    admission, whose route K7 is the card's kernel for).  Instead of its
-    VMEM budget, the working set (``_device_bytes``) must fit the memory
-    of ``device`` when that is a CUDA device (checked where a card is
-    present).  With ``saved`` (K7n, which saves that many frames' states
-    and stores no id) the predicates on the ids' range are skipped and
-    the working set counts the saved states in place of the ids.  A
-    float64 graph takes the float64 instantiation (the JAX package's K7
-    refuses it, its XLA route decodes it)."""
-    reason = bs.block_scan_reject_reason(cf, B, tier_dtype=_vit_dtype(cf),
-                                         tropical=True)
+    admission, whose route K7 is the card's kernel for); a graph these
+    refuse, the JAX package refuses too.  Instead of its VMEM budget, the
+    working set (``_device_bytes``) must fit the memory of ``device`` when
+    that is a CUDA device (checked where a card is present).  With
+    ``saved`` (K7n, which saves that many frames' states and stores no id)
+    the predicates on the ids' range are skipped and the working set
+    counts the saved states in place of the ids.  A float64 graph takes
+    the float64 instantiation (the JAX package's K7 refuses it, its XLA
+    route decodes it)."""
+    reason, shared = bs.block_scan_admission(
+        cf, B, tier_dtype=_vit_dtype(cf), tropical=True)
     if reason is not None:
-        return reason
+        return reason, shared
     (_, _, pf, _), _ = bs._full_plan_explain(cf)
     reason = _fam_reason(cf, ids=saved is None)
     if reason is not None:
-        return f"overflow families: {reason}"
+        return f"overflow families: {reason}", True
     nO = len(pf["band_offsets"])
     if saved is None and pf["Sm"] + nO >= _NO_CAND:
         return (f"tier width {pf['Sm']} + {nO} band offsets: candidate ids "
-                "do not fit a uint8")
+                "do not fit a uint8"), True
     if not (pf["K"] % _VIT_KC == 0 or pf["K"] < _VIT_KC):
-        return f"{pf['K']} tier blocks not a multiple of {_VIT_KC}"
+        return f"{pf['K']} tier blocks not a multiple of {_VIT_KC}", True
     if (device is not None and n_frames is not None
             and torch.device(device).type == "cuda"
             and torch.cuda.is_available()):
@@ -254,8 +268,8 @@ def vit_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
         if need > have:
             return (f"device working set ~{need / 1e9:.1f} GB exceeds the "
                     f"card's {have / 1e9:.1f} GB (Sp = {cf.padded_states}, "
-                    f"B = {B}, {n_frames} frames)")
-    return None
+                    f"B = {B}, {n_frames} frames)"), True
+    return None, True
 
 
 def _check_graph(cf, B: int, n_frames: int, device, saved=None):
@@ -443,6 +457,7 @@ def _noid_plain(cf, ext, mshift, a0, s0, t0, stride, acc):
     save = ext.new_empty((n_save, Sp, B))
     save_scale = ext.new_empty((n_save, B))
     acc = ext.new_zeros((3, B)) if acc is None else acc
+    grids = family_grids(cf.block_fwd, cf.block_fwd_offsets, ext.device)
     a = a0 * s0[None, :]  # the scaled state the next frame reads
     for f in range(Nf):
         if t0 + f == 0:
@@ -451,7 +466,7 @@ def _noid_plain(cf, ext, mshift, a0, s0, t0, stride, acc):
             x = a.clone()
             x[RW:] = 0.0  # the kernel's tier and bands read [0, RW) only
             y = block_matvec(cf.block_fwd, cf.block_fwd_offsets, x,
-                             op_kind="max")
+                             op_kind="max", grids=grids)
             p = torch.zeros_like(a)
             p[:RW] = y[:RW]
             p[fin] = (om * a).amax(dim=0)  # the rank-1 ω arcs
@@ -505,6 +520,7 @@ def viterbi_fwd_plain(cf, ext, mshift, *, ids: bool = True, a0=None,
     bps = torch.empty((Nf, RW, B), dtype=torch.uint8, device=ext.device)
     fins = torch.empty((Nf, B), dtype=torch.int32, device=ext.device)
     ksum, shift, comp = (ext.new_zeros(B) for _ in range(3))
+    grids = family_grids(cf.block_fwd, cf.block_fwd_offsets, ext.device)
     for t in range(Nf):
         # rank-1 ω arcs into the phony state: value and smallest argmax
         omc = om * a
@@ -513,7 +529,7 @@ def viterbi_fwd_plain(cf, ext, mshift, *, ids: bool = True, a0=None,
         x = a.clone()
         x[RW:] = 0.0  # the tier and the bands read the main region only
         y, cand = block_matvec_max_arg(cf.block_fwd, cf.block_fwd_offsets, x,
-                                       ov_span=span)
+                                       ov_span=span, grids=grids)
         bps[t] = cand[:RW].to(torch.uint8)
         if t == 0:
             p = a
@@ -875,6 +891,7 @@ def rec_walk_plain(wt: RecWalkTables, states, scales, lengths, t0: int,
     out = torch.empty((nK, B), dtype=torch.int32, device=dev)
     s = s_next.long()
     rowptr = wt.rowptr.long()
+    last_t = set((L - 1).tolist())  # one host read, not one per frame
     for i in reversed(range(nK)):
         t = t0 + i
         a = states[i] * scales[i][None, :]
@@ -890,7 +907,7 @@ def rec_walk_plain(wt: RecWalkTables, states, scales, lengths, t0: int,
         st = src.gather(1, best[:, None])[:, 0]
         st = torch.where(cand.amax(dim=1) == -float("inf"), wt.fin, st)
         last = t == L - 1
-        if bool(last.any()):
+        if t in last_t:
             oc = a * wt.omega[:, None]
             st = torch.where(last, Sp - 1 - oc.flip(0).argmax(dim=0), st)
         st = torch.where(t >= L, wt.fin, st)

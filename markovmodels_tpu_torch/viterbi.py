@@ -44,11 +44,17 @@ rescaled max recursion is exact, so it takes the same kernels (JAX's K7
 admission has no domain predicate either).  A float64 graph keeps
 float64 from the emissions to the score, on the card through the float64
 instantiations of K7, K7n, K6t and W2.  A general Ĉ's state emits the max
-over its pdf set (JAX ``inference.py:931-938``); on the card such a graph
-raises ``NotImplementedError`` before any launch (``_unported_decode``):
-K7, K7n and K6t take one pdf per state.  A CUDA tensor whose graph a
-kernel refuses raises, naming the first refused predicate: nothing falls
-back to a plain route on the card.
+over its pdf set (JAX ``inference.py:931-938``); K7, K7n and K6t take one
+pdf per state, so such a graph decodes through the plain twins on its
+lifted inputs on every device.  On the card a 'block' graph that K7's or
+K7n's admission refuses (two tiers, a generic gather, a tier stride the
+kernels do not take) decodes through the same route's plain twins, the
+counterpart of the JAX package's XLA decode (``ops/blocked.py:923-1025``
+and the XLA sweep of ``viterbi.py``), and logs the predicate once
+(``_plain_decode``, decided before any launch), where the JAX package
+refuses it too.  A 'block' graph that only the port's own predicates
+refuse, and a 'dense' graph whose K6t refuses it, raise, naming the first
+refused predicate.
 
 ``maxstateposteriors`` is the tropical α⊙β of every state and frame,
 normalised by the best score (reference ``maxstateposteriors``).
@@ -60,7 +66,7 @@ import logging
 
 import torch
 
-from .inference import (_CARD_TODO, CompiledFSM, _alpha0, _check_call,
+from .inference import (CompiledFSM, _alpha0, _check_call,
                         _colmax_safe, _combine_shift, _final_val, _log_final,
                         _make_elhs, _make_matvec)
 from .ops import dense_scan, vit_scan
@@ -78,22 +84,42 @@ _FULL_MEM_BYTES = 4 << 30  # one chunk when every frame's alphas fit this
 _LOG = logging.getLogger("markovmodels_tpu_torch")
 
 
-def _unported_decode(cf: CompiledFSM):
-    """Why no decode kernel takes this graph, or None: a general Ĉ (the
-    max over each state's pdfs).  Such a graph decodes through the plain
-    twins on its lifted inputs (:func:`_plain_inputs`) on the CPU and
-    raises on the card (:func:`viterbi`)."""
+def _plain_decode(cf: CompiledFSM, lhs, saved: int | None = None):
+    """The one rule for the 'dense' / 'block' decodes that run on the plain
+    twins: the reason, or None where the route's kernels take the call
+    (or, on the CPU, where the kernels' wrappers take their twins).
+    Decided from the graph and the shape and device of ``lhs`` before any
+    launch, for the compressed-backpointer decode (K7, ``saved`` None) or
+    the recompute decode (K7n, ``saved`` the states it keeps):
+
+    * a general Ĉ on every device (the max over each state's pdfs: the
+      twins run on the lifted inputs of :func:`_plain_inputs`);
+    * on the card, a 'block' graph that the sweep kernel refuses for a
+      predicate that the JAX package refuses it for too, logged once per
+      graph and reason (the JAX package's XLA decode).
+
+    A graph that only the port's own predicates refuse (the kernels'
+    limits, the bf16 tier tile) stays on the kernel route, whose
+    admission then raises."""
     if cf.multi_pdf:
         return ("general multi-pdf C-hat graph (K7, K7n and K6t take one "
                 "pdf per state)")
-    return None
-
-
-def _plain_decode(cf: CompiledFSM) -> bool:
-    """True when the 'dense' / 'block' decode runs on the plain twins
-    whatever the device: a graph of :func:`_unported_decode` (the CPU
-    only: :func:`viterbi` refuses it on the card first)."""
-    return _unported_decode(cf) is not None
+    if lhs.device.type != "cuda" or cf.strategy != "block":
+        return None
+    B, N, _ = lhs.shape
+    reason, shared = vit_scan.vit_scan_admission(
+        cf, B, n_frames=N, device=lhs.device, saved=saved)
+    if reason is None or not shared:
+        return None
+    kern = ("the fused Viterbi sweep (K7)" if saved is None
+            else "the id-free Viterbi sweep (K7n)")
+    reason = f"{kern} refuses this graph: {reason}"
+    logged = cf._cache.setdefault("plain_decode_logged", set())
+    if reason not in logged:
+        logged.add(reason)
+        _LOG.warning("block-strategy Viterbi fell off the sweep kernels: "
+                     "%s", reason)
+    return reason
 
 
 def _pdf_sets(cf: CompiledFSM):
@@ -166,11 +192,11 @@ def _bp_vit_reject_reason(cf: CompiledFSM, lhs):
 
 def _viterbi_scale_bp(cf: CompiledFSM, lhs, lengths):
     """The compressed-backpointer decode: K7's sweep, then the walk (their
-    plain twins for CPU tensors, for every graph the route admits; a graph
-    of :func:`_unported_decode` on its own inputs).  Returns (states (B,
-    N) int32 in host state ids, score (B,))."""
+    plain twins for CPU tensors, for every graph the route admits, and for
+    a graph of :func:`_plain_decode`, a general Ĉ on its lifted inputs).
+    Returns (states (B, N) int32 in host state ids, score (B,))."""
     B, N, P = lhs.shape
-    if _plain_decode(cf):
+    if _plain_decode(cf, lhs) is not None:
         cfv, ext, mshift = _plain_inputs(cf, lhs, lengths)
         bps, fins, vfin, shift, ksum = vit_scan.viterbi_fwd_plain(cfv, ext,
                                                                   mshift)
@@ -178,14 +204,6 @@ def _viterbi_scale_bp(cf: CompiledFSM, lhs, lengths):
                                      lengths)
         score = _combine_shift(_log_final(vfin), ksum, shift).to(lhs.dtype)
         return cf.orig_state[states.long()].T.contiguous(), score
-    if lhs.device.type == "cuda":
-        reason = vit_scan.vit_scan_reject_reason(cf, B, n_frames=N,
-                                                 device=lhs.device)
-        if reason is not None:
-            raise NotImplementedError(
-                f"the fused Viterbi sweep (K7) refuses this graph: {reason}; "
-                "the JAX package's XLA form of the sweep is not ported to "
-                "the card (ROADMAP queue 1 item 16)")
     ext, mshift = prepare_emissions(lhs, lengths, P, cf.alpha_hat.dtype)
     bps, fins, vfin, shift, ksum = vit_scan.viterbi_fwd(cf, ext, mshift)
     score = _combine_shift(_log_final(vfin), ksum, shift).to(lhs.dtype)
@@ -211,8 +229,8 @@ def _chunk_frames(cf: CompiledFSM, lhs, chunk_size) -> int:
 def _sweeps(cf: CompiledFSM, B: int, Nf: int, K: int, device,
             plain: bool = False):
     """The tropical sweeps of the recompute decode on ``device``, as
-    (sweep, checkpoints), the kernels' or, with ``plain`` (a graph of
-    :func:`_unported_decode`; ``cf`` then from :func:`_plain_inputs`), their
+    (sweep, checkpoints), the kernels' or, with ``plain`` (a call of
+    :func:`_plain_decode`; ``cf`` then from :func:`_plain_inputs`), their
     plain twins:
 
     * sweep(a, s, t0, ext, mshift, acc) -> (states, scales, a_last,
@@ -223,8 +241,8 @@ def _sweeps(cf: CompiledFSM, B: int, Nf: int, K: int, device,
       chunks' first states kept.
 
     ``acc`` (3, B) carries ksum, the shift and its compensation.  On a
-    CUDA device the kernels' admissions run first and raise, naming the
-    first refused predicate."""
+    CUDA device K6t's admission runs first and raises, naming the first
+    refused predicate (K7n's ran in :func:`_plain_decode`)."""
     C = -(-Nf // K)
     if cf.strategy == "dense":
         if device.type == "cuda" and not plain:
@@ -263,12 +281,6 @@ def _sweeps(cf: CompiledFSM, B: int, Nf: int, K: int, device,
         raise NotImplementedError(
             "the chunk-recompute decode of a 'block' graph without its "
             "rank-1 omega split is not ported")
-    if device.type == "cuda" and not plain:
-        reason = vit_scan.vit_scan_reject_reason(
-            cf, B, n_frames=Nf - 1, device=device, saved=max(K, Nf // K))
-        if reason is not None:
-            raise ValueError("the id-free Viterbi sweep (K7n) refuses this "
-                             f"graph: {reason} (ROADMAP queue 1 item 16)")
     fwd = vit_scan.viterbi_fwd_plain if plain else vit_scan.viterbi_fwd
 
     def sweep(a, s, t0, ext, mshift, acc=None):
@@ -293,7 +305,7 @@ def _viterbi_recompute(cf: CompiledFSM, lhs, lengths, chunk_size=None):
     Sp, Nf, fin = cf.padded_states, N + 1, int(cf.final_state)
     K = _chunk_frames(cf, lhs, chunk_size)
     C = -(-Nf // K)
-    plain = _plain_decode(cf)
+    plain = _plain_decode(cf, lhs, saved=max(K, Nf // K)) is not None
     if plain:
         cfv, ext, mshift = _plain_inputs(cf, lhs, lengths)
         walk = vit_scan.rec_walk_plain
@@ -424,10 +436,6 @@ def viterbi(cf: CompiledFSM, lhs, lengths=None, *, chunk_size=None):
     chunk of the chunk-recompute decode (by default all of them when their
     alphas fit 4 GB, else 64); the other decodes ignore it."""
     lhs, lengths = _check_call(cf, lhs, lengths)
-    todo = _unported_decode(cf) if lhs.device.type == "cuda" else None
-    if todo is not None:
-        raise NotImplementedError(f"Viterbi of a {todo} on the card "
-                                  f"({_CARD_TODO})")
     if not cf.batched and cf.strategy in ("dense", "block"):
         return _viterbi_scale(cf, lhs, lengths, chunk_size)
     return _viterbi_single(cf, lhs, lengths)

@@ -262,3 +262,158 @@ def test_v32_operator_sparsity():
     assert pf.tile_k.numel() == pb.tile_k.numel() == 1217
     assert (pf.row_ptr.diff().max(), pb.row_ptr.diff().max()) == (33, 34)
     assert pf.max_tiles == pb.max_tiles == 5
+
+
+# ---------------------------------------------------------------------------
+# K6a/K6b in float64: the DMMA layout of csrc/dense_scan.cu
+# ---------------------------------------------------------------------------
+
+# the float64 K6a/K6b: column block, stages of the ring, stage pitch, 8-column
+# groups of a warp
+TBD, NSD = 64, 3
+XLDD, NBD = TBD + 4, TBD // 16
+SM_BYTES = 233_472  # shared memory of an H100 SM (228 KB)
+CTA_RESERVED = 1024  # what the card reserves per resident CTA
+# the kernel's static shared memory in double: red [2][4][TBD] (float64
+# K6t: [2][2][128]), rsum [2][8][32], the ticket flag
+STATIC_F64 = 2 * 4 * TBD * 8 + 2 * 8 * 32 * 8 + 4
+STATIC_TROP = 2 * 2 * 128 * 8 + 2 * 8 * 32 * 8 + 4
+TOL_DMMA = 1e-13  # the emulated tensor-core product vs w @ x in float64
+
+
+def _f64_plan(name):
+    """(w, plan) of the forward operator of a float64 case: the V=32 graph
+    on the default grid, or a fully dense Sp = 4,096 operator (every tile
+    non-zero)."""
+    if name == "lm32":
+        w = _graph_op(lambda: port_lm_graph(32))[0].double()
+    else:
+        w = torch.full((4096, 4096), 1.0 / 4096, dtype=torch.float64)
+    return w, ds.tile_plan(w, ds._grid("cpu"))
+
+
+@pytest.mark.parametrize("name", ["lm32", "full4096"])
+def test_f64_layout_smem_bytes(name):
+    """``smem_bytes`` of a float64 plan equals a reckoning of the kernel's
+    ``Layout::bytes``: K6a/K6b keep 8 KB tiles (32 x 32 doubles, in
+    A-fragment order, unpadded) beside a ring of three stages of 32 k rows
+    x 64 columns at a pitch of 68 doubles and the column block's scales
+    (2 x 64 doubles); K6t (tropical) keeps 9 KB
+    tiles (rows of 36) beside two 32 x 128 stages.  The V=32 ranges (5
+    tiles) stay resident at 2 CTAs per SM on K6a/K6b, where K6t's layout
+    would not fit; the fully dense Sp = 4,096 operator (128 MiB of tiles,
+    against the card's ~29 MiB of shared memory) streams, at 2 CTAs per
+    SM."""
+    w, pl = _f64_plan(name)
+    tile, stage, scales = 32 * 32 * 8, 32 * XLDD * 8, 2 * TBD * 8
+    assert (tile, stage, scales) == (8192, 17408, 1024)
+    want = (pl.max_tiles * tile + NSD * stage + scales,
+            NSD * (stage + tile) + scales)
+    assert ds.smem_bytes(pl) == want
+    ttile, tstage = 32 * 36 * 8, 32 * 128 * 8
+    assert ds.smem_bytes(pl, tropical=True) == (
+        pl.max_tiles * ttile + 2 * tstage, 2 * (tstage + ttile))
+
+    def per_sm(dyn, static=STATIC_F64):
+        return 2 * (dyn + static + CTA_RESERVED)
+
+    res, stream = ds.smem_bytes(pl)
+    if name == "lm32":
+        assert pl.max_tiles == 5 and res == 94_208
+        assert per_sm(res) <= SM_BYTES  # resident at 2 CTAs per SM
+        assert per_sm(ds.smem_bytes(pl, tropical=True)[0],
+                      STATIC_TROP) > SM_BYTES
+    else:
+        assert pl.tile_k.numel() == 128 * 128 and pl.max_tiles == 63
+        assert res > 232_448  # more than one CTA may take
+        assert per_sm(stream) <= SM_BYTES
+
+
+def _dm_chunk(w):
+    """The kernel's ``dm_chunk``: the shared-memory byte offset of the
+    16-byte chunk w of a row-major packed double tile, in the A-fragment
+    order of mma.m8n8k4."""
+    r, k = w // 16, (w % 16) * 2
+    return (((r // 8) * 8 + k // 4) * 32 + (r % 8) * 4 + k % 4) * 8
+
+
+def _dmma_pass(acc, S, X):
+    """acc (4 row blocks, 2 column halves, NBD groups, 8, 8) += the tile
+    whose shared-memory image is S (1024 doubles) times the stage X
+    (32, XLDD), as the kernel's warps issue it: per k step ks of 4, the A
+    fragment of lane l is S[(mb * 8 + ks) * 32 + l]
+    (row l / 4, column l % 4), the B fragment X[ks * 4 + l % 4,
+    h * TBD / 2 + n * 8 + l / 4], and the 8 x 8 accumulator takes one
+    m8n8k4 product after another."""
+    A = S.reshape(4, 8, 8, 4)  # [mb][ks][g][q]
+    Bf = X[:, :TBD].reshape(8, 4, 2, NBD, 8)  # [ks][k][h][n][c]
+    for ks in range(8):
+        acc += torch.einsum("mgq,qhnc->mhngc", A[:, ks], Bf[ks])
+    return acc
+
+
+def _dmma_tiled_product(pl, x):
+    """y = w @ x as K6a/K6b in float64 compute it from the plan: per
+    column block of TBD, per CTA and segment, the segment's tiles, each in
+    one pass through :func:`_dmma_pass`, each tile placed in shared
+    memory chunk by chunk (``dm_chunk``) and each state block staged at
+    the padded pitch; a straddling row tile from its partials added in
+    range order."""
+    Sp, Bn = x.shape
+    perm = torch.zeros(1024, dtype=torch.long)
+    for w in range(512):
+        d = _dm_chunk(w) // 8
+        perm[2 * w], perm[2 * w + 1] = d, d + 1
+    kt = pl.tile_k.long()
+    images = torch.zeros((kt.numel(), 1024), dtype=torch.float64)
+    images[:, perm] = pl.tiles  # images[i, perm[v]] = tile i's value v
+    y = torch.full((Sp, Bn), float("nan"), dtype=torch.float64)
+    lo, sp = pl.lo.tolist(), pl.seg_ptr.tolist()
+    for b0 in range(0, Bn, TBD):
+        cols = min(TBD, Bn - b0)
+        partials = {}
+        for c in range(len(lo) - 1):
+            for rt, a, b, slot in pl.segs[sp[c]:sp[c + 1]].tolist():
+                acc = torch.zeros((4, 2, NBD, 8, 8), dtype=torch.float64)
+                for i in range(a, b):
+                    X = torch.zeros((32, XLDD), dtype=torch.float64)
+                    r0 = kt[i] * 32
+                    X[:, :cols] = x[r0:r0 + 32, b0:b0 + cols]
+                    _dmma_pass(acc, images[i], X)
+                # row mb * 8 + g, column h * TBD / 2 + n * 8 + c
+                blk = acc.permute(0, 3, 1, 2, 4).reshape(32, TBD)[:, :cols]
+                if slot < 0:
+                    y[rt * 32:(rt + 1) * 32, b0:b0 + cols] = blk
+                else:
+                    partials[slot] = blk
+        for rt, (p0, n) in enumerate(pl.rt_parts.tolist()):
+            if n:
+                acc = partials[p0]
+                for q in range(1, n):
+                    acc = acc + partials[p0 + q]
+                y[rt * 32:(rt + 1) * 32, b0:b0 + cols] = acc
+    return y
+
+
+@pytest.mark.parametrize("name", ["lm16", "dense256"])
+def test_dmma_product_matches_the_twins_product(ops, name):
+    """A torch emulation of the float64 K6a/K6b product (the tiles in
+    A-fragment order, the B fragments from the padded stage, the k order
+    of the m8n8k4 sums over the tile, the column blocks, the
+    ranges' partials) within 1e-13 of ``dense_scan._product`` in float64,
+    at a batch of 140 (full and ragged column blocks)."""
+    rng = np.random.default_rng(11)
+    if name not in ops:
+        ops[name] = _MAKERS[name]()
+    G = _GRIDS.get(name, ds._grid("cpu"))
+    assert (ds._TILE_COLS_F64, ds._STAGES_F64) == (TBD, NSD)
+    for w in ops[name]:
+        w = w.double()
+        pl = ds.tile_plan(w, G)
+        x = torch.from_numpy(rng.uniform(0.0, 1.0, size=(w.shape[0], 140)))
+        x[rng.integers(0, w.shape[0], size=w.shape[0] // 4)] = 0.0
+        y = _dmma_tiled_product(pl, x)
+        assert not torch.isnan(y).any()
+        twin = ds._product(w)(x)
+        np.testing.assert_allclose(y.numpy(), twin.numpy(), rtol=0,
+                                   atol=TOL_DMMA)

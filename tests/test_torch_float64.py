@@ -32,6 +32,7 @@ rounding leaves (the reading is printed).  Inputs are made from numpy
 seeds."""
 import dataclasses
 import importlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -324,17 +325,23 @@ def test_block_twins_in_float64_match_the_plain_scan(big64):
     assert np.abs(pk - pp.numpy()).max() <= 1e-10
 
 
+def _card_lhs(B, P, N=700):
+    """What the decode's route rule reads of a CUDA lhs: its shape and
+    device (no card needed)."""
+    return types.SimpleNamespace(shape=(B, N, P), device=torch.device("cuda"))
+
+
 def test_routes_on_the_card(big64):
     """Decided on a ``cuda`` device without a card: a float64 'block'
     graph takes K2-K4's float64 instantiation and a float64 'dense' graph
     K6a/K6b's (``fast_path_report`` names it); a stacked float64 'dense'
     graph takes the plain per-graph route, as a stacked float32 one does;
-    the float64 decode passes K7's and K7n's admission and is no longer
-    refused; only general Ĉ is (``test_torch_multipdf.py``)."""
+    the float64 decode passes K7's and K7n's admission and takes them; a
+    general Ĉ takes the plain route (``test_torch_multipdf.py``)."""
     fsm, spdf, P, _ = port_lm_graph(8)
     dense = compile_port(fsm, spdf, P, strategy="dense", dtype=F64)
-    assert tinf._unported_on_card(dense) is None
-    assert tvit._unported_decode(dense) is None
+    assert tinf._plain_on_card(dense, "cuda", 4) is None
+    assert tvit._plain_decode(dense, _card_lhs(4, P)) is None
     assert ds.dense_scan_reject_reason(dense, 4) is None
     assert tinf._kernel_route(dense, "cuda", 4) is True
     assert tinf.fast_path_report(dense, 4, device="cuda") == (
@@ -351,7 +358,7 @@ def test_routes_on_the_card(big64):
     assert tinf.fast_path_report(ct, 8, device="cuda") == (
         "cuda-block-scan (hand-written CUDA kernels K2-K4); float64 "
         "instantiation")
-    assert tinf._unported_on_card(ct) is None
+    assert tinf._plain_on_card(ct, "cuda", 8) is None
     assert bs._tier_dtype(ct) == F64 and bs._prec(F64) == 2
     # every value of the working set at 8 bytes: more than the float32 one
     c32 = compile_port(*port_lm_graph(128)[:3], strategy="block")
@@ -359,7 +366,9 @@ def test_routes_on_the_card(big64):
             > 1.9 * bs._working_set_bytes(c32, 128, 700, 64))
     for saved in (None, 17):
         assert vs.vit_scan_reject_reason(ct, 8, saved=saved) is None
-    assert tvit._unported_decode(ct) is None
+    for saved in (None, 17):
+        assert tvit._plain_decode(ct, _card_lhs(8, ct.num_pdfs),
+                                  saved=saved) is None
     assert vs._vit_dtype(ct) == F64 and vs._vit_dtype(c32) == torch.float32
 
 
@@ -494,20 +503,26 @@ def test_dense_kernel_operators_in_float64(dense64):
 
 
 def test_tile_plan_shared_memory_at_8_bytes(dense64):
-    """``smem_bytes`` counts a float64 tile (32 rows of 36 values) and a
-    32 x 128 state stage at 8 bytes a value: twice the float32 plan's of
-    the same operator, and as csrc/dense_scan.cu's Layout::bytes counts
-    them (resident: the largest range's tiles and two stages; streaming:
-    two stages of a state block and a tile)."""
+    """``smem_bytes`` of a float64 plan, as csrc/dense_scan.cu's
+    Layout::bytes counts it (resident: the largest range's tiles and two
+    stages; streaming: two stages of a state block and a tile).  K6t
+    (``tropical``) keeps the float32 layout at 8 bytes a value (tiles of
+    32 rows of 36 values, 32 x 128 stages): twice the float32 plan's of the
+    same operator.  K6a/K6b's DMMA layout keeps 32 x 32 tiles unpadded (A
+    fragment order) beside a ring of three 32 x 64 stages at a pitch of 68
+    values and two rows of 64 column scales."""
     _, ct, _, _ = dense64
     w = ds.kernel_operator(ct).wf
     for G in (4, 264):
         p64, p32 = ds.tile_plan(w, G), ds.tile_plan(w.float(), G)
         assert p64.max_tiles == p32.max_tiles
-        r64, s64 = ds.smem_bytes(p64)
+        r64, s64 = ds.smem_bytes(p64, tropical=True)
         assert r64 == p64.max_tiles * 32 * 36 * 8 + 2 * 32 * 128 * 8
         assert s64 == 2 * (32 * 128 * 8 + 32 * 36 * 8)
         assert (r64, s64) == tuple(2 * x for x in ds.smem_bytes(p32))
+        assert ds.smem_bytes(p64) == (
+            p64.max_tiles * 32 * 32 * 8 + 3 * 32 * 68 * 8 + 1024,
+            3 * (32 * 68 * 8 + 32 * 32 * 8) + 1024)
     p16 = ds.tile_plan(w.to(torch.bfloat16), 4)
     assert ds.smem_bytes(p16)[1] == 2 * (2048 + 8704) + 16896
 

@@ -13,8 +13,8 @@ package's own tests (``tests/test_inference.py``
   float64 at the float64 bound;
 * the Viterbi decode (a state's emission the max over its set) against the
   JAX package's, paths exact, and against the max-plus oracle;
-* stacked general-Ĉ 'dense' graphs; the refusal on the card (no kernel
-  takes a general Ĉ yet), decided before any launch; and the
+* stacked general-Ĉ 'dense' graphs; the plain route on the card (no
+  kernel takes a general Ĉ), decided before any launch; and the
   ``ValueError``s of the JAX package's rules ('banded', the log domain,
   the phony row, the shape, the size of the binary Ĉᵀ).
 
@@ -199,18 +199,30 @@ def test_stacked_dense_graphs_keep_the_pdf_sets():
 
 
 def test_the_card_refuses_general_c_hat(compiled):
-    """Decided without a card: no kernel takes a general-Ĉ graph yet, so
-    the scan and the decode refuse it on the card before any launch (it
-    runs on the CPU); the kernels' own admissions refuse it too."""
+    """Decided without a card: no kernel takes a general-Ĉ graph, so on
+    the card the scan takes the plain route ``_fb_prob`` (the JAX
+    package's XLA scan), naming the kernels' first refused predicate, and
+    the decode the plain twins on the lifted inputs; the kernels' own
+    admissions refuse it."""
     strategy, _, ct, _, _, _ = compiled
-    refusal = ("general multi-pdf C-hat: the CUDA kernels take one pdf per "
-               "state (ROADMAP queue 1 item 9c: the general-Ĉ kernels)")
-    assert tinf._unported_on_card(ct) == refusal
-    assert tinf.fast_path_report(ct, 2, device="cuda") == f"error - {refusal}"
+    reason = tinf._plain_on_card(ct, "cuda", 2)
+    want = ("general multi-pdf C-hat" if strategy == "dense" else
+            "no uniform pdf-grouped layout (compile_fsm reorder declined or "
+            "disabled)")
+    assert reason == want
+    assert tinf._plain_on_card(ct, "cpu", 2) is None
+    report = tinf.fast_path_report(ct, 2, device="cuda")
+    assert report == tinf._plain_on_card_line(ct, want)
+    assert report.startswith(f"plain torch scan on the card (one "
+                             f"{strategy!r} graph") and not \
+        report.startswith("error - ")
     with pytest.raises(ValueError):
         tinf._kernel_route(ct, "cuda", 2)
-    assert tvit._unported_decode(ct).startswith(
+    lhs = torch.empty((2, 5, P), device="meta")
+    assert tvit._plain_decode(ct, lhs).startswith(
         "general multi-pdf C-hat graph")
+    cpu = torch.empty((2, 5, P))
+    assert tvit._plain_decode(ct, cpu) == tvit._plain_decode(ct, lhs)
 
 
 @pytest.mark.parametrize("case", ["banded", "log", "phony row", "two phony",

@@ -23,8 +23,8 @@ against the JAX package on the CPU:
   fed by bands alone, no families), which the port decodes on the CPU
   through the compressed-backpointer twins;
 * the admission: the port's K7 takes the families that the TPU K7
-  refuses, and a graph the card kernels refuse raises naming the
-  predicate.
+  refuses, and a graph the card kernels refuse names the predicate and
+  takes the plain twins on the card.
 
 Inputs are made from numpy seeds.  The CUDA kernels (K7's and K7n's family
 branch, the walk with its tables) are held against these twins on the card
@@ -541,11 +541,14 @@ def test_band_only_capped_graph_decodes_on_the_cpu():
                                    score.numpy().astype(np.float64),
                                    atol=TOL_PATH)
     assert gap < TOL_PATH
-    # on the card K7's plan refuses it, naming the predicate (the route
-    # reads only the shape and the device of lhs)
+    # on the card K7's plan refuses it, naming the predicate, and the
+    # decode takes the plain twins of the same route (the rule reads only
+    # the shape and the device of lhs)
     fake = types.SimpleNamespace(shape=lhs.shape, device=torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="K7.*tier stride 1"):
-        tvit._viterbi_scale_bp(ct, fake, torch.from_numpy(lens))
+    assert tvit._plain_decode(ct, fake) == (
+        "the fused Viterbi sweep (K7) refuses this graph: tier stride 1 not "
+        "a multiple of 128 lanes")
+    assert tvit._plain_decode(ct, torch.from_numpy(lhs)) is None
 
 
 # ---------------------------------------------------------------------------
@@ -598,7 +601,10 @@ def test_family_predicates_are_named(v128):
     assert vs._fam_reason(wide, ids=False) is None
     assert vs.vit_scan_reject_reason(bad, 8, saved=4) == want
     assert vs.vit_scan_reject_reason(bad, 8) == want
-    # the card's recompute route asks K7n's admission and raises (no card
-    # is read: the admission checks the card's memory only where one is)
-    with pytest.raises(ValueError, match="K7n.*an out-family writes"):
-        tvit._sweeps(bad, 8, 41, 41, torch.device("cuda"))
+    # the card's recompute route asks K7n's admission before any launch and
+    # takes the plain twins, naming the predicate (no card is read: the
+    # admission checks the card's memory only where one is)
+    card = types.SimpleNamespace(shape=(8, 40, 384),
+                                 device=torch.device("cuda"))
+    assert tvit._plain_decode(bad, card, saved=41) == (
+        f"the id-free Viterbi sweep (K7n) refuses this graph: {want}")

@@ -457,15 +457,30 @@ def test_chunk_rule_is_the_jax_packages():
     assert tvit._chunk_frames(cf, lhs(2, 30), 500) == 31
 
 
-def test_card_route_refuses_two_tiers():
-    """On a CUDA device the recompute route asks K7n's admission first: the
-    V=32 graph's two tiers are refused with K7's words (checked without a
-    card: the admission reads no device here)."""
+def test_card_route_refuses_two_tiers(caplog):
+    """On a CUDA device the recompute route asks K7n's admission before any
+    launch (checked without a card: the admission reads no device here):
+    the V=32 graph's two tiers are refused with K7n's words, so the decode
+    takes the plain twins, the counterpart of the JAX package's XLA sweep,
+    and logs the predicate once; on the CPU the wrappers' own twins run."""
     ct = port_from_jax(jax_compiled(32))
-    with pytest.raises(ValueError, match="K7n.*2 tiers"):
-        tvit._sweeps(ct, 8, 41, 41, torch.device("cuda"))
     reason = vs.vit_scan_reject_reason(ct, 8, saved=41)
     assert reason == "2 tiers (kernel supports exactly 1)"
+    card = types.SimpleNamespace(shape=(8, 40, ct.num_pdfs),
+                                 device=torch.device("cuda"))
+    with caplog.at_level(logging.WARNING, logger="markovmodels_tpu_torch"):
+        for _ in range(2):
+            got = tvit._plain_decode(ct, card, saved=41)
+            assert got == ("the id-free Viterbi sweep (K7n) refuses this "
+                           f"graph: {reason}")
+    assert [r.getMessage() for r in caplog.records] == [
+        f"block-strategy Viterbi fell off the sweep kernels: {got}"]
+    cpu = types.SimpleNamespace(shape=card.shape, device=torch.device("cpu"))
+    assert tvit._plain_decode(ct, cpu, saved=41) is None
+    # the kernels' sweeps are no longer guarded inside ``_sweeps``: the
+    # rule above decided the route
+    sweep, _ = tvit._sweeps(ct, 8, 41, 41, torch.device("cuda"), plain=True)
+    assert callable(sweep)
 
 
 def test_wrappers_refuse_other_devices():
