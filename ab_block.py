@@ -6,6 +6,7 @@ the package):
     python ab_block.py . separate
     python ab_block.py build/vA 2m separate 2m-bf16 separate-bf16
     python ab_block.py build/vA dense-bf16
+    python ab_block.py build/vA 2m-f64 separate-f64
     python ab_block.py build/vP banded banded-trace
 
 The first argument is the root of a copy of the package (its parent
@@ -16,7 +17,8 @@ and run the two in turns P, C, C, P, P, C in one call.  The
 others name denominators: ``2m`` (the 2M-arc trigram graph), ``separate``
 (the separate-state backoff graph, V=128, 10 % of the trigrams kept, in the
 capped/overflow layout), each also as ``-bf16`` (compiled with precision
-'bf16': the tensor-core tier), ``dense`` or ``dense-bf16`` (the V=32 LM o HMM
+'bf16': the tensor-core tier) or ``-f64`` (compiled float64: K2-K4's
+float64 instantiation), ``dense`` or ``dense-bf16`` (the V=32 LM o HMM
 graph, Sp = 3,200, compiled 'dense' with precision 'high' or 'bf16'), or
 ``dense-f64`` (the same compiled float64: K6's float64 instantiation).
 Run the versions in turns (A, B, B, A) in one call.  Prints one JSON line
@@ -37,6 +39,9 @@ also:
   dependency);
 * ``K4_err``: K4 against its plain twin on the chunk (posteriors and the
   outgoing beta), and ``K4_bitequal``: two K4 runs bit-equal;
+* ``K2_err``, ``K3_err``: K2 against its plain twin over the sweep (its
+  checkpoints, last state, shift and ksum: ``chip_smoke.sweep_err``) and
+  K3 against its twin on the last chunk (the scaled alphas);
 * ``K2_split``, ``K3_split``: the same four cuts of the forward operator
   (``cut_operator(..., direction="fwd")``), K2 over the 704 frames and K3
   over the last chunk, in us per frame (``K4_split`` is in ms per chunk);
@@ -123,7 +128,7 @@ def run_graph(graph: str, sums_only: bool = False) -> dict:
     import torch
 
     import markovmodels_tpu_torch as mt
-    from chip_smoke import cut_operator, frame_floor
+    from chip_smoke import cut_operator, frame_floor, scaled, sweep_err
     from markovmodels_tpu_torch.ops import block_scan as bs
     from markovmodels_tpu_torch.ops import dense_scan as ds
     from markovmodels_tpu_torch.ops.emissions import (pad_emissions,
@@ -141,11 +146,13 @@ def run_graph(graph: str, sums_only: bool = False) -> dict:
     elif graph.startswith("2m"):
         fsm, spdf, P, _ = mt.workloads.make_lm_hmm_graph(V=128)
         cf = mt.compile_fsm(fsm, spdf, P, strategy="block", device=dev,
-                            precision=prec)
+                            precision=prec,
+                            **({"dtype": dt} if dt == torch.float64 else {}))
     else:
         fsm, spdf, P, _ = mt.workloads.make_backoff_lm_hmm_graph(
             V=128, keep=0.1, layout="separate")
-        cf = mt.compile_fsm(fsm, spdf, P, device=dev, precision=prec)
+        cf = mt.compile_fsm(fsm, spdf, P, device=dev, precision=prec,
+                            **({"dtype": dt} if dt == torch.float64 else {}))
     rng = np.random.default_rng(0)
     lhs = torch.from_numpy(
         (rng.normal(size=(B, N, P)) * 0.5).astype(np.float32)).to(dev, dt)
@@ -191,7 +198,7 @@ def run_graph(graph: str, sums_only: bool = False) -> dict:
     sl = slice(c * K, (c + 1) * K)
     al, asc = bs.recompute(kop, bounds[c], bscale[c], ext[sl], c * K)
     beta = torch.ones_like(a0)
-    bsc = torch.ones(B, device=dev)
+    bsc = torch.ones(B, device=dev, dtype=dt)
     out["K2_sum"] = sum(float(t.double().sum()) for t in fwd)
     out["K3_sum"] = float(al.double().sum()) + float(asc.double().sum())
     fwd2 = bs.fwd_sweep(kop, a0, ext, msh, K)
@@ -205,6 +212,11 @@ def run_graph(graph: str, sums_only: bool = False) -> dict:
         out["K4_sum"] = sum(float(t.double().sum()) for t in k1)
         out["K4_bitequal"] = all(torch.equal(x, y) for x, y in zip(k1, k2))
         return out
+    out["K2_err"] = sweep_err(kop, fwd, bs.fwd_sweep_plain(kop, a0, ext, msh,
+                                                           K))
+    ap, sp = bs.recompute_plain(kop, bounds[c], bscale[c], ext[sl], c * K)
+    out["K3_err"] = float((scaled(al, asc) - scaled(ap, sp)).abs().max())
+    del ap, sp
     out["K2_ms"] = _ms(lambda: bs.fwd_sweep(kop, a0, ext, msh, K))
     out["K3_ms"] = _ms(lambda: bs.recompute(kop, bounds[c], bscale[c],
                                             ext[sl], c * K))

@@ -297,7 +297,14 @@ decode; a general-Ĉ graph has no kernel yet and is refused on the card):
     Sp = 4,096 operator (streamed) at B=128, N=128, each run twice and
     bit-equal (the V=32 operator: phase 42), and phase 46's times beside
     float64 ``torch.matmul`` / ``torch.sparse.mm`` x701, the float64 dense
-    step and den-only call, with the frame without the product.
+    step and den-only call, with the frame without the product;
+52. K2-K4 in float64, redesigned for Hopper (the tier on the FP64 tensor
+    cores, its stages through a ``cp.async`` ring): the ``ptxas`` report of
+    every ``fwd_chunk_kernel`` / ``bwd_chunk_kernel<..., double>``
+    instantiation (fails on any spill), their float64 twins at B=126,
+    N=128 (the scalar branch) on both block graphs, each call twice and
+    bit-equal, and this run's float64 frame splits of K2 and K4, K2/K3/K4
+    times and bounds and phase 40's float64 steps, each beside float32.
 
 Every kernel's entry in the JSON line (K6t, K7n and W2 from phases 32-33,
 the family branch's K7, walk, K7n and W2 from phases 36-37, K2-K4's
@@ -400,16 +407,28 @@ def bound(flops, nbytes, peak=PEAK_F32, tc_flops=0, tc_peak=PEAK_BF16):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def block_bounds(cf, B, Npad, chunk):
-    """K2 over Npad frames, K3 and K4 over one chunk, as timed: the tier's
-    multiply-adds, the bands, the overflow-family terms, the omega dot, the
-    emission and the rescale (forward), plus gamma and its pdf sums
-    (backward).  The operator's bytes include the per-row pdf table (the
-    per-lane emissions of the overflow rows), the family terms and, for
-    K4, each pdf's list of overflow rows.  A bf16 graph's tier runs on the
-    tensor cores (PEAK_BF16) over panels of 2 bytes; a float64 graph's
-    tier on the float64 tensor cores (PEAK_F64_TC) and its other
-    operations at the FP64 FMA rate (PEAK_F64), over values of 8 bytes."""
+def block_traffic(cf, B, Npad, chunk, l2_bytes=None):
+    """{kernel: (operations, bytes, peak, tensor-core operations, their
+    peak)} of K2 over Npad frames and K3 and K4 over one chunk, as timed:
+    the tier's multiply-adds, the bands, the overflow-family terms, the
+    omega dot, the emission and the rescale (forward), plus gamma and its
+    pdf sums (backward).  The operator's bytes include the per-row pdf
+    table (the per-lane emissions of the overflow rows), the family terms
+    and, for K4, each pdf's list of overflow rows.  A bf16 graph's tier
+    runs on the tensor cores (PEAK_BF16) over panels of 2 bytes; a
+    float64 graph's tier on the float64 tensor cores (PEAK_F64_TC) and its
+    other operations at the FP64 FMA rate (PEAK_F64), over values of 8
+    bytes.
+
+    The carried state: where two slots of it (2 Sp B values, the state a
+    frame reads and the one it writes) fit the card's L2 (``l2_bytes``,
+    by default ``torch.cuda.get_device_properties(0).L2_cache_size``), it
+    counts once per call, read on entry and written on exit.  Where they
+    do not (float64 at B=128: 2 x 50 MB against the H100's 50 MB), every
+    frame reads its predecessor's state and writes its own through HBM,
+    and each frame counts both: K2 2 Npad Sp B values, K3 chunk Sp B
+    reads beside the alphas it writes, K4 2 chunk Sp B beside the alphas
+    it reads."""
     from markovmodels_tpu_torch.ops import block_scan as bs
 
     kop = bs.kernel_operator(cf)
@@ -421,6 +440,14 @@ def block_bounds(cf, B, Npad, chunk):
     f = kop.alpha0.element_size()  # 8: the float64 instantiation
     peak = PEAK_F64 if f == 8 else PEAK_F32
     tier = B * 2 * K * Sm * D
+    if l2_bytes is None:
+        import torch
+
+        l2_bytes = torch.cuda.get_device_properties(0).L2_cache_size
+    SB = Sp * B
+    past = 2 * SB * f > l2_bytes  # the state streams through HBM
+    st2, st3, st4 = ((2 * Npad * SB, chunk * SB, 2 * chunk * SB) if past
+                     else (2 * SB, SB, 2 * SB))
 
     def op(nf):
         # panels, bands, omega, the int32 row tables, the family terms
@@ -435,20 +462,24 @@ def block_bounds(cf, B, Npad, chunk):
                      else (fwd + tier, bwd + tier, 0))
     C = Npad // chunk
     return {
-        "K2": bound(Npad * fwd, op(nf_f) + f * (Sp * B + Npad * (P1 + 1) * B
-                                                + C * (Sp + 1) * B + Sp * B
-                                                + 3 * B),
-                    peak, tc_flops=Npad * ttc, tc_peak=tcp),
-        "K3": bound(chunk * fwd, op(nf_f) + f * (Sp * B + B + chunk * P1 * B
-                                                 + chunk * (Sp + 1) * B),
-                    peak, tc_flops=chunk * ttc, tc_peak=tcp),
-        "K4": bound(chunk * bwd, op(nf_b) + f * (Sp * B + B
-                                                 + chunk * (Sp + 1) * B
-                                                 + 2 * chunk * P1 * B
-                                                 + Sp * B + B)
-                    + 4 * (P1 + 1 + n_ov),
-                    peak, tc_flops=chunk * ttc, tc_peak=tcp),
+        "K2": (Npad * fwd, op(nf_f) + f * (st2 + Npad * (P1 + 1) * B
+                                          + C * (Sp + 1) * B + 3 * B),
+               peak, Npad * ttc, tcp),
+        "K3": (chunk * fwd, op(nf_f) + f * (st3 + B + chunk * P1 * B
+                                            + chunk * (Sp + 1) * B),
+               peak, chunk * ttc, tcp),
+        "K4": (chunk * bwd, op(nf_b) + f * (st4 + B + chunk * (Sp + 1) * B
+                                            + 2 * chunk * P1 * B + B)
+               + 4 * (P1 + 1 + n_ov), peak, chunk * ttc, tcp),
     }
+
+
+def block_bounds(cf, B, Npad, chunk, l2_bytes=None):
+    """{kernel: (bound ms, "bytes" or "operations")} of K2-K4 from
+    :func:`block_traffic`."""
+    return {name: bound(flops, nbytes, peak, tc_flops=tcf, tc_peak=tcp)
+            for name, (flops, nbytes, peak, tcf, tcp) in block_traffic(
+                cf, B, Npad, chunk, l2_bytes).items()}
 
 
 def banded_bounds(num_cf, Nf):
@@ -3366,20 +3397,16 @@ def phase_f64_dense(dcf64, dP, dev, label="phase 42"):
     return errs
 
 
-def k6_f64_ptxas(log):
-    """{(kernel, vec): {registers, stack, spill_stores, spill_loads}} of
-    the float64 ``sweep_kernel`` instantiations (K6a, K6b and K6t, each
-    with and without 16-byte accesses) in the library's ``ptxas -v``
-    report."""
-    names = {(0, 0): "K6a", (1, 0): "K6b", (0, 1): "K6t"}
+def ptxas_entries(log, rx):
+    """{the groups of ``rx`` in the mangled name: {registers, stack,
+    spill_stores, spill_loads, smem}} of the entries of a ``ptxas -v``
+    report whose names match ``rx``."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"sweep_kernelILb([01])ELb([01])ELb0ELb([01])EdE",
-                          m.group(1))
-            cur = None if k is None else (
-                names[int(k.group(1)), int(k.group(3))], int(k.group(2)))
+            k = re.search(rx, m.group(1))
+            cur = None if k is None else k.groups()
             if cur is not None:
                 out[cur] = {}
             continue
@@ -3394,8 +3421,27 @@ def k6_f64_ptxas(log):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[cur]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[cur]["smem"] = int(m.group(1)) if m else 0
             cur = None
     return out
+
+
+def k6_f64_ptxas(log):
+    """{(kernel, vec): ptxas entry} of the float64 ``sweep_kernel``
+    instantiations (K6a, K6b and K6t, each with and without 16-byte
+    accesses) in the library's ``ptxas -v`` report."""
+    names = {(0, 0): "K6a", (1, 0): "K6b", (0, 1): "K6t"}
+    return {(names[int(bwd), int(trop)], int(vec)): v
+            for (bwd, vec, trop), v in ptxas_entries(
+                log, r"sweep_kernelILb([01])ELb([01])ELb0ELb([01])EdE").items()}
+
+
+def block_f64_ptxas(log):
+    """{(kernel, vec, fam): ptxas entry} of the float64 K2/K3
+    (``fwd_chunk_kernel``) and K4 (``bwd_chunk_kernel``) instantiations."""
+    return {(k, int(vec), int(fam)): v for (k, vec, fam), v in ptxas_entries(
+        log, r"(fwd|bwd)_chunk_kernelILb([01])ELb([01])ELb0EdE").items()}
 
 
 def phase_dmma(dcf64, dev, v32_errs, times, card, P=96, N=128,
@@ -3458,6 +3504,55 @@ def phase_dmma(dcf64, dev, v32_errs, times, card, P=96, N=128,
           f"{floor[0]:.2f} / {floor[1]:.2f} us; float64 dense step "
           f"{t['step']:.2f} ms, den-only {t['den']:.2f} ms (medians of 5); "
           f"{card}")
+    return errs
+
+
+def phase_block_f64(graphs, dev, splits, steps, card, label="phase 52"):
+    """Phase 52: K2-K4 in float64 on the FP64 tensor cores (the tier as
+    ``mma.sync`` m16n8k4 f64, its stages through a ``cp.async`` ring,
+    ``block_scan.cu`` ``tier_tile_dm``): the ``ptxas`` report of every
+    ``fwd_chunk_kernel`` / ``bwd_chunk_kernel<..., double>`` instantiation
+    (fails on any spill); their float64 twins again at B=126, N=128 (the
+    scalar branch: B % 4 != 0) on both block graphs, each call twice
+    bit-equal; and this run's readings side by side: K2's and K4's frame
+    splits in float64 beside float32 on the 2M-arc graph (phases 9 and
+    40), K2/K3/K4 in float64 beside float32 with their bounds on both
+    block graphs, and phase 40's float64 steps.  ``graphs``: {name:
+    (float64 graph, P, float64 times, float32 times, float64 bounds,
+    float32 bounds)}; ``splits``: {name: frame_split}; ``steps``: phase
+    40's medians."""
+    from markovmodels_tpu_torch.ops import _build
+
+    ents = block_f64_ptxas(_build.PTXAS_LOG)
+    assert len(ents) == 8, ents  # {fwd, bwd} x vec x fam
+    spills = sum(v["spill_stores"] + v["spill_loads"] for v in ents.values())
+    print(f"{label}: ptxas of the float64 fwd_chunk_kernel / "
+          "bwd_chunk_kernel instantiations (kernel, 16-byte accesses, "
+          "capped layout): " + "; ".join(
+              f"{k[0]} vec={k[1]} fam={k[2]}: {v}"
+              for k, v in sorted(ents.items()))
+          + f"; spill bytes (stores + loads): {spills}")
+    assert spills == 0, f"K2-K4<double> spill {spills} bytes"
+    errs = {}
+    for name, (c64, P, *_) in graphs.items():
+        errs[name] = phase_f64_kernels(c64, P, dev, f"{label} ({name}, B=126, "
+                                       "N=128)", B=126, N=128)
+    for k in ("K2", "K4"):
+        s64, s32 = splits["2M-arc f64"][k], splits["2M-arc"][k]
+        print(f"{label}: {k} frame split on the 2M-arc graph, us per frame "
+              f"(float64; float32 in parentheses): " + ", ".join(
+                  f"{part} {s64[part]:.2f} ({s32[part]:.2f})"
+                  for part in s64))
+    for name, (_, _, t64, t32, b64, b32) in graphs.items():
+        print(f"{label}: {name} graph, ms (float32 in parentheses): "
+              + ", ".join(f"{k} {t64[k][0]:.3f} ({t32[k][0]:.3f}), bound "
+                          f"{b64[k][0]:.3f} ({b32[k][0]:.3f}, {b64[k][1]})"
+                          for k in ("K2", "K3", "K4")))
+    print(f"{label}: float64 steps (phase 40, medians of 5; float32 in "
+          "parentheses): " + "; ".join(
+              f"{k} step {v['f64 step']:.2f} ({v['f32 step']:.2f}) ms, "
+              f"den-only {v['f64 den']:.2f} ({v['f32 den']:.2f}) ms"
+              for k, v in steps.items()) + f"; {card}")
     return errs
 
 
@@ -4632,6 +4727,13 @@ def main():
         "K6a": d64_times["K6a"][0], "K6b": d64_times["K6b"][0],
         "matmul": t_mm64, "sparse": t_sp64, "step": t46["dense step f64"],
         "den": t46["dense den f64"]}, card)
+    b52 = phase_block_f64({
+        "2M-arc": (cf64, P, f_times, times, f_bounds, bounds),
+        "separate-state": (scf64, sP, sf_times, ov_times, sf_bounds,
+                           ov_bounds)}, dev, splits, f_steps, card)
+    f_errs.update({k: max(f_errs[k], v) for k, v in b52["2M-arc"].items()})
+    sf_errs.update({k: max(sf_errs[k], v)
+                    for k, v in b52["separate-state"].items()})
 
     block_src = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
     banded_src = "markovmodels_tpu_torch/ops/csrc/banded_scan.cu"

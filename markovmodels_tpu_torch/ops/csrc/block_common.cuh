@@ -166,8 +166,9 @@ __device__ __forceinline__ void store4_hint(float* __restrict__ row, int b,
   }
 }
 
-// The double rows take no L2 policy (the float64 instantiation is the
-// simple one): past L1, as load4 does.
+// The double rows take no L2 policy (two slots of a float64 state pass L2
+// either way; the float64 forward measured slower with float's hints):
+// past L1, as load4 does.
 template <bool VEC>
 __device__ __forceinline__ D4 load4_hint(const double* __restrict__ row,
                                          int b, int B, unsigned long long) {

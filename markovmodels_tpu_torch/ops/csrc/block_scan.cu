@@ -149,15 +149,38 @@
 // takes the double instantiation (T = double): every value the kernels
 // read or write is double (state, emissions and their shift, panels,
 // bands, family weights, omega, column maxima, checkpoints, alphas, pdf
-// sums and posteriors), on the CUDA cores' FP64 FMAs, at half their FP32
-// rate on an H100 SXM (33.5 against 67 TFLOP/s).  The sums are the float
-// instantiation's, in the same order; the per-frame scale is the exact
+// sums and posteriors).  The sums are the float instantiation's, in the
+// same order, but for the tier's (the tensor cores' order within a k step
+// of 8, then the steps in order); the per-frame scale is the exact
 // power of two from the 11 exponent bits; the column max is the 64-bit
 // atomicMax on the bits (exact and order-free for non-negative doubles).
-// It is the simple one: no cp.async ring, no alpha staging, no L2 hints,
-// stages of 16 rows (the float ones' bytes), 2 CTAs per SM, and K4's
-// shared block (69 KB) in dynamic shared memory.  No bf16 panels with
-// double values.
+// No bf16 panels with double values.  Two slots of a float64 state (2 x
+// 50 MB at the 2M-arc graph and B = 128) pass the 50 MB L2, so a double
+// frame streams its state through HBM (~30 us, the frame without work),
+// and what the design can take is the tier and the bands on top of it:
+//   * the tier tile on the FP64 tensor cores (tier_tile_dm: mma.sync
+//     m16n8k4 f64, 67 TFLOP/s where the FP64 FMAs give 33.5), the stages
+//     moved by cp.async through a ring of NDS in shared memory, one block
+//     barrier per stage, and the accumulators back to the epilogue's 4x4
+//     layout through shared memory;
+//   * K4's alpha block staged by cp.async as in float, and K4's band terms
+//     loaded a pair of rows at a time before any is summed (the forward's
+//     epilogue does so in every instantiation);
+//   * the tile's outputs kept in shared memory through the epilogue (the
+//     double epilogue needs the registers of the 16 accumulators);
+//   * no L2 hints on the state (block_common.cuh takes none for double):
+//     a frame's state is twice L2 either way, and the forward measured
+//     2-3 % slower with float's evict_first / evict_last;
+//   * the shared block in dynamic shared memory (FwdSmem<false, double>,
+//     BwdSmem<double>: the ring, which the tier's outputs, K4's alpha
+//     block and a heavy row's partial sums take in turn), 2 CTAs per SM
+//     (3 spilled 0.5-1 KB a thread at 80 registers);
+//   * no spill at 128 registers: the k steps not unrolled, the capped
+//     layout's rows a row at a time, its family terms one at a time, its
+//     forward items' frame pointers made again per item, K4's per-column
+//     epilogue values read per row from shared memory; K4 of the capped
+//     layout with 16-byte accesses spilled 12 bytes whatever was tried,
+//     and takes 1 CTA per SM at 156 registers.
 //
 // The items are latency-bound too, measured on an H100 SXM (700 W): the
 // tier tiles alone reach ~20 % of the float32 FMA peak, so occupancy
@@ -190,12 +213,15 @@ constexpr int FR = 128;  // the forward's omega reduction: threads per column
 constexpr int CM = 16;
 // K4's CTAs resident per SM (caps registers): the capped layout's family
 // code needs more registers than 4 CTAs of 256 threads leave (it spilled
-// 1.1 KB per thread in bf16)
-template <bool FAM, class T = float>
-constexpr int bwd_blocks() { return sizeof(T) == 8 ? 2 : FAM ? 3 : 4; }
+// 1.1 KB per thread in bf16); double: 2, but 1 for the capped layout with
+// 16-byte accesses, which spilled 12 bytes at 128 registers (it takes 156)
+template <bool VEC, bool FAM, class T = float>
+constexpr int bwd_blocks() {
+  return sizeof(T) == 8 ? (VEC && FAM ? 1 : 2) : FAM ? 3 : 4;
+}
 // K2/K3's: 3 for every layout, so that a pair of rows' band terms fit in
 // registers (at 4 the forward spilled and ran slower); the double
-// instantiation's values take two registers each: 2
+// instantiation's values take two registers each: 2 (at 3 it spilled)
 template <class T>
 constexpr int fwd_blocks() { return sizeof(T) == 8 ? 2 : 3; }
 constexpr int KS = 16;   // bf16 tier: contraction depth of one mma step
@@ -205,14 +231,15 @@ constexpr int BST = TS + 8;  // bf16 tier: padded stage row (80 bytes)
 template <bool BF16>
 using TierT = typename std::conditional<BF16, __nv_bfloat16, float>::type;
 
-// The value type T of an instantiation (value_common.cuh): float, or
-// double (a float64 graph: state, emissions, panels, bands, family weights,
-// omega, column maxima, checkpoints and posteriors all double).  The tier
-// stages' depth depends on it: the double stages take the float ones' bytes
-template <class T>
-__host__ __device__ constexpr int stage_depth() {
-  return is_f64<T>() ? TS / 2 : TS;
-}
+// The double tier (tier_tile_dm; tests/test_torch_block_dmma.py reads
+// these to emulate its index maps): a stage is DS k rows of the panel W[k]
+// as (s, d), then DS gathered state rows as (s, b), each row at a pitch of
+// DP doubles (the fragment reads are then free of bank conflicts); NDS
+// stages in the ring.
+constexpr int DS = 16;
+constexpr int DP = TR + 4;
+constexpr int NDS = 3;
+constexpr int DSTAGE = 2 * DS * DP;  // doubles of one stage
 
 // The CTA's shared memory: a static block for the float instantiations,
 // the dynamic block (sized by the launch) where a double one passes the
@@ -275,10 +302,10 @@ __device__ __forceinline__ void tier_stage(T (&Ws)[S][TR], T (&Xs)[S][TB],
 // K1, tier part: acc[i][c] += sum_s W[k, s, d] * prev[src(k, s), b] for the
 // 4x4 outputs of this thread (d = dbase + ty*4 + i, b = b0 + tx*4 + c), in s
 // order.  Staging: thread tid copies column tid % 64 of rows tid / 64 + 4u of
-// each (S x 64) stage of W[k] and of the gathered state rows (S = TS for
-// float, stage_depth<double>() for double); the state is read past L1
-// (another CTA of the persistent launch wrote it), and the next stage's
-// values wait in registers while this one is multiplied.
+// each (S x 64) stage of W[k] and of the gathered state rows (float: the
+// double tier is tier_tile_dm); the state is read past L1 (another CTA of
+// the persistent launch wrote it), and the next stage's values wait in
+// registers while this one is multiplied.
 template <class T, int S>
 __device__ __forceinline__ void tier_tile(
     const Meta& m, int B, const T* __restrict__ prev,
@@ -365,6 +392,124 @@ __device__ __forceinline__ void fwd_tier_tile4(
     if (buf) tier_stage(Ws2, Xs2, acc); else tier_stage(Ws, Xs, acc);
     __syncthreads();
   }
+}
+
+// d += a (16 x 8, row-major) * b (8 x 8, column-major) on the FP64 tensor
+// cores, one warp, as two m16n8k4 products (k 0..3, then 4..7) in IEEE
+// double arithmetic: lane l (g = l / 4, q = l % 4) holds a[g][q],
+// a[g + 8][q], a[g][q + 4], a[g + 8][q + 4], b[q][g], b[q + 4][g], and
+// d[g][2q], d[g][2q + 1], d[g + 8][2q], d[g + 8][2q + 1].
+__device__ __forceinline__ void dmma_k8(double (&d)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    asm volatile(
+        "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a[2 * h]), "d"(a[2 * h + 1]), "d"(b[h]));
+}
+
+// K1, tier part of a float64 graph, on the FP64 tensor cores: C[d][b] =
+// sum_s W[k, s, dbase + d] * prev[src(k, s), b0 + b] for the tile's 64 x 64
+// outputs, in shared memory (row pitch ldc), where the epilogue reads its
+// rows: kept out of registers, which the double epilogue needs.  The
+// stages (DS rows, DSTAGE doubles) move through the ring R of NDS: the
+// copies of the next NDS - 1 stages are in flight while one is multiplied,
+// one block barrier per stage.  Thread tid copies the 16-byte chunks tid
+// and tid + NT of both halves of a stage (k row ch / 32, columns 2 (ch %
+// 32) and + 1) by cp.async, the panel under evict_last (every frame reads
+// it again), the state rows past L1 (another CTA wrote them); a pair that
+// is not 16-byte aligned (D odd, or B % 4 != 0: !VEC) goes as two scalar
+// loads.  Warp w
+// multiplies rows (w % 4) * 16 .. +15 by columns (w / 4) * 32 .. +31, four
+// m16n8 blocks, in k steps of 8 (dmma_k8, not unrolled: unrolled, the
+// fragments of both steps spilled), and writes its accumulators to C (the
+// ring in the forward, K4's gamma tile) once every warp is done with the
+// ring.  ADD: C holds sums on entry (K4's family terms), and each product
+// is added to its element.
+template <bool VEC, bool ADD = false>
+__device__ __forceinline__ void tier_tile_dm(
+    const Meta& m, int B, const double* __restrict__ prev,
+    const double* __restrict__ W, long long k, long long dbase, int b0,
+    double* R, double* C, int ldc) {
+  static_assert(NT == 256 && TR == 64 && TB == 64 && DS % 8 == 0 &&
+                    2 * NT * 2 == DS * TB && NDS >= 2 && NDS <= 3,
+                "the double tier's layout");
+  const unsigned long long wpol = evict_last_policy();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int r0 = (warp % 4) * 16, c0 = (warp / 4) * 32;
+  const bool wvec = m.D % 2 == 0;
+  const double* pw = W + k * m.Sm * m.D + dbase;
+  const double* px = prev + (m.g0 + k * m.gk) * B + b0;
+  const long long nst = (m.Sm + DS - 1) / DS;
+  auto issue = [&](long long st) {  // stage st into its slot of the ring
+    double* dst = R + (st % NDS) * DSTAGE;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int ch = tid + u * NT, r = ch / 32, c2 = (ch % 32) * 2;
+      const long long s = st * DS + r;
+      const bool sok = s < m.Sm;
+      const double* w = pw + s * m.D + c2;
+      double* ws = dst + r * DP + c2;
+      const bool dok = sok && dbase + c2 < m.D;
+      if (wvec) {
+        cp_async16_hint(ws, dok ? w : W, dok, wpol);
+      } else {
+        ws[0] = dok ? w[0] : 0.0;
+        ws[1] = sok && dbase + c2 + 1 < m.D ? w[1] : 0.0;
+      }
+      const double* x = px + s * m.gs * B + c2;
+      double* xs = dst + DS * DP + r * DP + c2;
+      const bool bok = sok && b0 + c2 < B;
+      if constexpr (VEC) {
+        cp_async16(xs, bok ? x : prev, bok);
+      } else {
+        xs[0] = bok ? __ldcg(x) : 0.0;
+        xs[1] = sok && b0 + c2 + 1 < B ? __ldcg(x + 1) : 0.0;
+      }
+    }
+    cp_async_commit();
+  };
+  double d[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[n][e] = 0.0;
+#pragma unroll
+  for (int st = 0; st < NDS - 1; ++st) {
+    if (st < nst) issue(st);
+    else cp_async_commit();  // an empty group keeps the count
+  }
+  for (long long st = 0; st < nst; ++st) {
+    cp_async_wait<NDS - 2>();  // this thread's copies of stage st are in
+    __syncthreads();  // everyone's are; stage st - 1's slot is free
+    if (st + NDS - 1 < nst) issue(st + NDS - 1);
+    else cp_async_commit();
+    const double* Ws = R + (st % NDS) * DSTAGE;
+    const double* Xs = Ws + DS * DP;
+#pragma unroll 1
+    for (int kk = 0; kk < DS; kk += 8) {
+      const double* w = Ws + (kk + q) * DP + r0 + g;
+      const double a[4] = {w[0], w[8], w[4 * DP], w[4 * DP + 8]};
+      const double* x = Xs + (kk + q) * DP + c0 + g;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const double b[2] = {x[n * 8], x[4 * DP + n * 8]};
+        dmma_k8(d[n], a, b);
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with the ring (and, ADD, C)
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    double* c = C + (r0 + g) * ldc + c0 + n * 8 + 2 * q;
+    const int at[4] = {0, 1, 8 * ldc, 8 * ldc + 1};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[at[e]] = ADD ? c[at[e]] + d[n][e] : d[n][e];
+  }
+  __syncthreads();
 }
 
 __device__ __forceinline__ unsigned lds32(const __nv_bfloat16* p) {
@@ -616,12 +761,12 @@ __device__ __forceinline__ void fwd_grid_sync(unsigned* sync) {
   grid_sync<SYNC_GEN, 256>(sync);
 }
 
-// Shared memory of one forward CTA (V: the value type; 37 KB for double).
+// Shared memory of one forward CTA (V: the value type; double below).
 template <bool BF16, class V = float>
 struct FwdSmem {
-  static constexpr int S = stage_depth<V>();
+  static constexpr int S = TS;
   // the float32 tier's ring of two stages (cp.async)
-  static constexpr bool RING = !BF16 && !is_f64<V>();
+  static constexpr bool RING = !BF16;
   V Ws[S][TR];  // the tier stages (a heavy row: its 16 partial sums)
   V Xs[S][TB];
   V Ws2[RING ? S : 1][TR];  // float32: the second stage of the ring
@@ -649,6 +794,26 @@ struct FwdFrame {
   V* bound;             // K2 before a chunk: the checkpoint, else null
   bool skip;                // the sweep's first frame: y = prev * e
 };
+
+// The double one (~72 KB, dynamic shared memory): the ring of the double
+// tier, which then holds the tier's outputs (tier_tile_dm's C), or a heavy
+// row's 16 partial sums; jf: the frame, for the capped layout's items.
+template <>
+struct FwdSmem<false, double> {
+  union {
+    double R[NDS * DSTAGE];
+    double Xs[16][TB];
+  };
+  double red[2][16][TB];
+  int rows[TR];
+  int pdf[TR];
+  double sc[TB];
+  int2 next[2];
+  double fr[2][FR];
+  double fp[2][16];
+  int jf;
+};
+static_assert(TR * DP <= NDS * DSTAGE, "the tier's outputs fit the ring");
 
 // One work item of one forward frame (K2, K3) over one (row tile, column
 // tile): a heavy row's tile (FAM only: tiles 0 .. nheavy-1), a tier tile
@@ -708,7 +873,7 @@ __device__ __forceinline__ void fwd_item(
                             static_cast<const __nv_bfloat16*>(p.W), k, dbase,
                             b0, s.Ws, s.Xs, s.G, acc, once);
     else if constexpr (is_f64<T>())
-      tier_tile(m, B, prev, Wf, k, dbase, b0, s.Ws, s.Xs, acc);
+      tier_tile_dm<VEC>(m, B, prev, Wf, k, dbase, b0, s.R, s.R, DP);
     else if (VEC && m.D % 4 == 0)
       fwd_tier_tile4(m, B, prev, Wf, k, dbase, b0, s.Ws, s.Xs, s.Ws2, s.Xs2,
                      acc, once);
@@ -725,71 +890,63 @@ __device__ __forceinline__ void fwd_item(
   const V4<T> sc = make4<T>(s.sc[tx * 4], s.sc[tx * 4 + 1],
                             s.sc[tx * 4 + 2], s.sc[tx * 4 + 3]);
   T colmax[4] = {T(0), T(0), T(0), T(0)}, colsum[4] = {T(0), T(0), T(0), T(0)};
-  // rows in pairs: a pair's first PB band terms (weight and state row)
-  // are all loaded before any is used, one memory round trip per pair
-  // instead of one per term (four rows at once spilled); the sums then run
-  // in the per-frame step's order
-  constexpr int PB = 2;
+  if constexpr (is_f64<T>() && FAM) {
+    // the capped layout in double: a row at a time, its band terms loaded
+    // before any is used, the rows' loop not unrolled (in pairs, or
+    // unrolled, its registers spilled); the sums in the same order
+#pragma unroll 1
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i, j = s.rows[r];
+      T wb[2];
+      V4<T> xb[2];
 #pragma unroll
-  for (int i0 = 0; i0 < 4; i0 += 2) {
-    V4<T> xb[2][PB];
-    T wb[2][PB];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = ty * 4 + i0 + h, j = s.rows[r];
-#pragma unroll
-      for (int o = 0; o < PB; ++o) {
+      for (int o = 0; o < 2; ++o) {
         const int src = j - m.off[o];
         const bool ok = !f.skip && j >= 0 && o < m.nO && src >= 0 &&
                         src < m.Sp;
-        wb[h][o] = ok ? band_w[static_cast<size_t>(o) * m.Sp + j] : T(0);
-        xb[h][o] = ok ? load4_hint<VEC>(prev + static_cast<size_t>(src) * B,
-                                        bcol, B, once)
-                      : zero4<T>();
+        wb[o] = ok ? band_w[static_cast<size_t>(o) * m.Sp + j] : T(0);
+        xb[o] = ok ? load4_hint<VEC>(prev + static_cast<size_t>(src) * B,
+                                     bcol, B, once)
+                   : zero4<T>();
       }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = i0 + h;
-      const int r = ty * 4 + i;
-      const int j = s.rows[r];
       if (j < 0) continue;
       const size_t jB = static_cast<size_t>(j) * B;
       const V4<T> e =
           load4<VEC>(ext_t + static_cast<size_t>(s.pdf[r]) * B, bcol, B);
       const T om = omega[j];
-      T v[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
+      T v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        v[c] = is_tier && !f.skip ? s.R[r * DP + tx * 4 + c] : T(0);
       if (!f.skip) {
 #pragma unroll
         for (int o = 0; o < MAX_BANDS; ++o) {
           if (o >= m.nO) break;  // uniform across the block
           const int src = j - m.off[o];
           if (src < 0 || src >= m.Sp) continue;  // wrapped: no arc
-          const T w = o < PB ? wb[h][o < PB ? o : 0]
-                             : band_w[static_cast<size_t>(o) * m.Sp + j];
+          const T w = o < 2 ? wb[o < 2 ? o : 0]
+                            : band_w[static_cast<size_t>(o) * m.Sp + j];
           const V4<T> x =
-              o < PB ? xb[h][o < PB ? o : 0]
-                     : load4_hint<VEC>(prev + static_cast<size_t>(src) * B,
-                                       bcol, B, once);
+              o < 2 ? xb[o < 2 ? o : 0]
+                    : load4_hint<VEC>(prev + static_cast<size_t>(src) * B,
+                                      bcol, B, once);
 #pragma unroll
           for (int c = 0; c < 4; ++c) v[c] = fma_(w, get(x, c), v[c]);
         }
-        if constexpr (FAM) {  // overflow families (K1's apply_ov)
-          if (is_heavy) {  // split over the thread rows
-            for (int g = 0; g < NT / 16; ++g)
+        if (is_heavy) {  // split over the thread rows
+          for (int g = 0; g < NT / 16; ++g)
 #pragma unroll
-              for (int c = 0; c < 4; ++c) v[c] += s.Xs[g][tx * 4 + c];
-          } else {  // pulled by this thread
-            const int e1 = lay.fam_ptr[j + 1];
-#pragma unroll 4
-            for (int q = lay.fam_ptr[j]; q < e1; ++q) {
-              const T w = lay.fam_w[q];
-              const V4<T> x = load4_hint<VEC>(
-                  prev + static_cast<size_t>(lay.fam_src[q]) * B, bcol, B,
-                  once);
+            for (int c = 0; c < 4; ++c) v[c] += s.Xs[g][tx * 4 + c];
+        } else {  // pulled by this thread, one term at a time
+          const int e1 = lay.fam_ptr[j + 1];
+#pragma unroll 1
+          for (int q = lay.fam_ptr[j]; q < e1; ++q) {
+            const T w = lay.fam_w[q];
+            const V4<T> x = load4_hint<VEC>(
+                prev + static_cast<size_t>(lay.fam_src[q]) * B, bcol, B,
+                once);
 #pragma unroll
-              for (int c = 0; c < 4; ++c) v[c] = fma_(w, get(x, c), v[c]);
-            }
+            for (int c = 0; c < 4; ++c) v[c] = fma_(w, get(x, c), v[c]);
           }
         }
       }
@@ -807,6 +964,97 @@ __device__ __forceinline__ void fwd_item(
       if (f.skip || j != m.fin)
         store4_hint<VEC>(out + jB, bcol, B, make4<T>(y[0], y[1], y[2], y[3]),
                          keep);
+    }
+  } else {
+    // rows in pairs: a pair's first PB band terms (weight and state row)
+    // are all loaded before any is used, one memory round trip per pair
+    // instead of one per term (four rows at once spilled); the sums then run
+    // in the per-frame step's order
+    constexpr int PB = 2;
+#pragma unroll
+    for (int i0 = 0; i0 < 4; i0 += 2) {
+      V4<T> xb[2][PB];
+      T wb[2][PB];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = ty * 4 + i0 + h, j = s.rows[r];
+#pragma unroll
+        for (int o = 0; o < PB; ++o) {
+          const int src = j - m.off[o];
+          const bool ok = !f.skip && j >= 0 && o < m.nO && src >= 0 &&
+                          src < m.Sp;
+          wb[h][o] = ok ? band_w[static_cast<size_t>(o) * m.Sp + j] : T(0);
+          xb[h][o] = ok ? load4_hint<VEC>(prev + static_cast<size_t>(src) * B,
+                                          bcol, B, once)
+                        : zero4<T>();
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = i0 + h;
+        const int r = ty * 4 + i;
+        const int j = s.rows[r];
+        if (j < 0) continue;
+        const size_t jB = static_cast<size_t>(j) * B;
+        const V4<T> e =
+            load4<VEC>(ext_t + static_cast<size_t>(s.pdf[r]) * B, bcol, B);
+        const T om = omega[j];
+        T v[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
+        if constexpr (is_f64<T>()) {  // the tier's outputs wait in the ring
+          if (is_tier && !f.skip) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) v[c] = s.R[r * DP + tx * 4 + c];
+          }
+        }
+        if (!f.skip) {
+#pragma unroll
+          for (int o = 0; o < MAX_BANDS; ++o) {
+            if (o >= m.nO) break;  // uniform across the block
+            const int src = j - m.off[o];
+            if (src < 0 || src >= m.Sp) continue;  // wrapped: no arc
+            const T w = o < PB ? wb[h][o < PB ? o : 0]
+                               : band_w[static_cast<size_t>(o) * m.Sp + j];
+            const V4<T> x =
+                o < PB ? xb[h][o < PB ? o : 0]
+                       : load4_hint<VEC>(prev + static_cast<size_t>(src) * B,
+                                         bcol, B, once);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) v[c] = fma_(w, get(x, c), v[c]);
+          }
+          if constexpr (FAM) {  // overflow families (K1's apply_ov)
+            if (is_heavy) {  // split over the thread rows
+              for (int g = 0; g < NT / 16; ++g)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) v[c] += s.Xs[g][tx * 4 + c];
+            } else {  // pulled by this thread
+              const int e1 = lay.fam_ptr[j + 1];
+#pragma unroll 4
+              for (int q = lay.fam_ptr[j]; q < e1; ++q) {
+                const T w = lay.fam_w[q];
+                const V4<T> x = load4_hint<VEC>(
+                    prev + static_cast<size_t>(lay.fam_src[q]) * B, bcol, B,
+                    once);
+#pragma unroll
+                for (int c = 0; c < 4; ++c) v[c] = fma_(w, get(x, c), v[c]);
+              }
+            }
+          }
+        }
+        V4<T> pv = zero4<T>();
+        if (f.skip || f.bound != nullptr)
+          pv = load4<VEC, true>(prev + jB, bcol, B);
+        if (f.bound != nullptr) store4<VEC>(f.bound + jB, bcol, B, pv);
+        T y[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          y[c] = (f.skip ? get(pv, c) : v[c] * get(sc, c)) * get(e, c);
+          colmax[c] = fmax_(colmax[c], y[c]);
+          colsum[c] = fma_(om, y[c], colsum[c]);
+        }
+        if (f.skip || j != m.fin)
+          store4_hint<VEC>(out + jB, bcol, B, make4<T>(y[0], y[1], y[2], y[3]),
+                           keep);
+      }
     }
   }
 #pragma unroll
@@ -963,13 +1211,39 @@ __device__ __forceinline__ void fwd_finalize(const FwdArgs<T>& p,
   }
 }
 
+// The pointers of forward frame j of a launch, as the frame loop of
+// fwd_chunk_kernel sets them (the capped layout's items in double make them
+// again from j).
+template <class T>
+__device__ __forceinline__ FwdFrame<T> fwd_frame(const FwdArgs<T>& p, int j) {
+  const size_t SB = static_cast<size_t>(p.m.Sp) * p.B;
+  const size_t NB = static_cast<size_t>(p.m.n_tiles) * p.B;
+  FwdFrame<T> f;
+  f.prev = j == 0 ? p.a0
+                  : (p.last == nullptr ? p.out + (j - 1) * SB
+                                       : p.out + ((j - 1) % 2) * SB);
+  f.out = p.last == nullptr ? p.out + j * SB
+                            : (j == p.T - 1 ? p.last : p.out + (j % 2) * SB);
+  f.ext_t = p.ext + j * static_cast<size_t>(p.m.P1) * p.B;
+  f.cm_prev =
+      j == 0 ? nullptr : p.cm + static_cast<size_t>(j - 1) * CM * p.B;
+  f.cm_t = p.cm + static_cast<size_t>(j) * CM * p.B;
+  f.part_prev = p.part + ((j + 1) % 2) * NB;
+  f.part_t = p.part + (j % 2) * NB;
+  f.bound = p.chunk && j % p.chunk == 0
+                ? p.bounds + static_cast<size_t>(j / p.chunk) * SB
+                : nullptr;
+  f.skip = p.skip_first && j == 0;
+  return f;
+}
+
 // K2 / K3 over frames 0 .. T-1: each CTA runs the frame's finalize share
 // (fwd_finalize) and then items from the frame's queue, one grid barrier
 // per frame; after the last, frame T-1's scale (and K2's ksum and shift).
 template <bool VEC, bool FAM, bool BF16, class T>
 __global__ void __launch_bounds__(NT, fwd_blocks<T>())
     fwd_chunk_kernel(const __grid_constant__ FwdArgs<T> p) {
-  __shared__ __align__(16) FwdSmem<BF16, T> s;
+  FwdSmem<BF16, T>& s = cta_smem<FwdSmem<BF16, T>, is_f64<T>()>();
   const Meta& m = p.m;
   const int B = p.B, ncb = (B + TB - 1) / TB, tid = threadIdx.x;
   const size_t SB = static_cast<size_t>(m.Sp) * B;
@@ -1016,13 +1290,28 @@ __global__ void __launch_bounds__(NT, fwd_blocks<T>())
       const int q = static_cast<int>(atomicAdd(p.ctr + j, 1u));
       return q < p.n_items ? p.queue[q] : make_int2(-1, -1);
     };
+    if constexpr (is_f64<T>() && FAM) {
+      if (tid == 0) s.jf = j;  // published by the barrier below
+    }
     if (tid == 0) s.next[0] = take();
     __syncthreads();
     int par = 0;
     for (int2 q = s.next[0]; q.x >= 0; q = s.next[par]) {
       if (tid == 0) s.next[par ^ 1] = take();
-      fwd_item<VEC, FAM, BF16, T>(p, f, q.x / ncb, (q.x % ncb) * TB, q.y, s,
-                                  f.prev, f.out, f.ext_t, p.omega, p.band_w);
+      if constexpr (is_f64<T>() && FAM) {
+        // the capped layout in double: the frame's pointers made again for
+        // each item from the frame (read as volatile, so that they are not
+        // held, and spilled, across the items)
+        const FwdFrame<T> fi =
+            fwd_frame(p, *reinterpret_cast<volatile int*>(&s.jf));
+        fwd_item<VEC, FAM, BF16, T>(p, fi, q.x / ncb, (q.x % ncb) * TB, q.y,
+                                    s, fi.prev, fi.out, fi.ext_t, p.omega,
+                                    p.band_w);
+      } else {
+        fwd_item<VEC, FAM, BF16, T>(p, f, q.x / ncb, (q.x % ncb) * TB, q.y,
+                                    s, f.prev, f.out, f.ext_t, p.omega,
+                                    p.band_w);
+      }
       par ^= 1;  // fwd_item ends with a block barrier: s.next[par] is set
     }
     fwd_grid_sync(p.sync);
@@ -1084,12 +1373,12 @@ struct BwdArgs {
 
 // Shared memory of one CTA: the tier stages, the reductions, the gamma
 // tile (BF16: first the tier product's outputs) and the tile's row tables
-// (V: the value type; 69 KB for double, the dynamic block).
+// (V: the value type; double below).
 template <class V = float>
 struct BwdSmem {
-  static constexpr int S = stage_depth<V>();
-  // the tier stages; after the product (at once for a band tile; float
-  // only) they hold the item's 64 x 64 block of alpha_t
+  static constexpr int S = TS;
+  // the tier stages; after the product (at once for a band tile) they hold
+  // the item's 64 x 64 block of alpha_t
   V Ws[S][TR];
   V Xs[S][TB];
   V red[2][16][TB];
@@ -1116,6 +1405,30 @@ struct BwdFrame {
   const BitsT<V>* cm_prev;  // frame j+1's, null: scale_in
   bool skip;                // the last padded frame: y = 1
 };
+
+// The double one (~104 KB, dynamic shared memory): the ring of the double
+// tier, which then holds the item's alpha block, or a heavy row's 16
+// partial sums; the tier's outputs pass through G; the capped layout's
+// asc and pf, the epilogue's alpha scales and the phony row of beta, beside
+// the scales sc (read per row: held for the item, they spilled).
+template <>
+struct BwdSmem<double> {
+  union {
+    double R[NDS * DSTAGE];
+    double Xs[16][TB];
+  };
+  double red[2][16][TB];
+  double G[TR][TB + 1];
+  int rows[TR];
+  int pdf[TR];
+  int grp[TR];
+  double rs[8][32];
+  int2 next[2];
+  double sc[TB];
+  double asc[TB];
+  double pf[TB];
+};
+static_assert(TR * TB <= NDS * DSTAGE, "the alpha block fits the ring");
 
 // One work item of one frame: the backward step over one (row tile, column
 // tile).  y = (M prev + omega * prev[fin])*s (or 1 on the last padded
@@ -1175,17 +1488,27 @@ __device__ __forceinline__ T bwd_item(
     const int b = b0 + tid - TR;
     s.sc[tid - TR] = f.cm_prev == nullptr ? (b < B ? p.scale_in[b] : T(0))
                                           : scale_of(f.cm_prev, b, B);
+    if constexpr (is_f64<T>() && FAM) {  // the epilogue's column values
+      s.asc[tid - TR] = b < B ? f.ascale_t[b] : T(0);
+      s.pf[tid - TR] =
+          b < B ? __ldcg(prev + static_cast<size_t>(m.fin) * B + b) : T(0);
+    }
   }
   __syncthreads();
-  // alpha_t's block of the tile: 64 rows x 16 chunks of 4 columns (float:
-  // the double block would not fit the stages)
-  T* A = &s.Ws[0][0];
-  const bool staged = VEC && !is_heavy && !is_f64<T>();
+  // alpha_t's block of the tile: 64 rows x 64 / CV chunks of CV columns, in
+  // the stages (float) or the double tier's ring
+  constexpr int CV = 16 / sizeof(T);  // values per 16-byte copy
+  T* A;
+  if constexpr (is_f64<T>())
+    A = s.R;
+  else
+    A = &s.Ws[0][0];
+  const bool staged = VEC && !is_heavy;
   auto stage_alpha = [&]() {
     const unsigned long long once = evict_first_policy();
-#pragma unroll
-    for (int u = 0; u < TR * TB / 4 / NT; ++u) {
-      const int c = tid + u * NT, r = c / (TB / 4), c4 = (c % (TB / 4)) * 4;
+#pragma unroll (is_f64<T>() ? 2 : 4)  // double: unrolled 8 times, it spilled
+    for (int u = 0; u < TR * TB / CV / NT; ++u) {
+      const int c = tid + u * NT, r = c / (TB / CV), c4 = (c % (TB / CV)) * CV;
       const int j = s.rows[r], b = b0 + c4;
       const bool ok = j >= 0 && b < B;
       cp_async16_hint(&A[r * TB + c4],
@@ -1205,7 +1528,31 @@ __device__ __forceinline__ T bwd_item(
     // term of each of the thread's 4 rows in flight at once, any others
     // after (the bf16 tier pulls them after the product, with the bands:
     // accumulators live across the tensor-core tile spill)
-    if (is_tier && !f.skip) {
+    if (is_f64<T>() && is_tier && !f.skip) {
+      // double: the same sums, a row at a time (four rows' first terms in
+      // flight at once spilled)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = s.rows[ty * 4 + i];
+        const int q0 = j < 0 ? 0 : lay.fam_ptr[j];
+        const int q1 = j < 0 ? 0 : lay.fam_ptr[j + 1];
+        if (q0 < q1) {
+          const T w = lay.fam_w[q0];
+          const V4<T> x = load4<VEC, true>(
+              prev + static_cast<size_t>(lay.fam_src[q0]) * B, bcol, B);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][c] = w * get(x, c);
+        }
+        for (int q = q0 + 1; q < q1; ++q) {
+          const T w = lay.fam_w[q];
+          const V4<T> x = load4<VEC, true>(
+              prev + static_cast<size_t>(lay.fam_src[q]) * B, bcol, B);
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[i][c] = fma_(w, get(x, c), acc[i][c]);
+        }
+      }
+    } else if (is_tier && !f.skip) {
       int q0[4], q1[4], src[4];
       T w[4];
       V4<T> x[4];
@@ -1245,6 +1592,18 @@ __device__ __forceinline__ T bwd_item(
     if constexpr (BF16)
       tier_tile_bf16<true>(m, B, prev, static_cast<const __nv_bfloat16*>(p.W),
                            k, dbase, b0, s.Ws, s.Xs, s.G, acc);
+    else if constexpr (is_f64<T>()) {
+      // the rows' sums wait in the gamma tile (FAM: the family terms
+      // first, the product added to them)
+      if constexpr (FAM) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s.G[ty * 4 + i][tx * 4 + c] = acc[i][c];
+      }
+      tier_tile_dm<VEC, FAM>(m, B, prev, static_cast<const T*>(p.W), k,
+                             dbase, b0, s.R, &s.G[0][0], TB + 1);
+    }
     else
       tier_tile(m, B, prev, static_cast<const T*>(p.W), k, dbase, b0, s.Ws,
                 s.Xs, acc);
@@ -1256,7 +1615,70 @@ __device__ __forceinline__ T bwd_item(
   }
   // the band terms, then (capped layout) a band row's family terms, while
   // the alphas are in flight
-  if (!f.skip) {
+  if constexpr (is_f64<T>()) {
+    // double: rows in pairs, a pair's first PB band terms (weight and
+    // state row) all loaded before any is used, one memory round trip per
+    // pair instead of one per term; the sums in the same order, each row's
+    // from the gamma tile (a tier item's product) back into it, where the
+    // epilogue reads it (its registers are the epilogue's)
+    constexpr int PB = 2;
+#pragma unroll
+    for (int i0 = 0; i0 < 4; i0 += 2) {
+      if (f.skip) break;  // uniform across the block
+      V4<T> xb[2][PB];
+      T wb[2][PB];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = s.rows[ty * 4 + i0 + h];
+#pragma unroll
+        for (int o = 0; o < PB; ++o) {
+          const int src = j - m.off[o];
+          const bool ok = j >= 0 && o < m.nO && src >= 0 && src < m.Sp;
+          wb[h][o] = ok ? band_w[static_cast<size_t>(o) * m.Sp + j] : T(0);
+          xb[h][o] = ok ? load4<VEC, true>(
+                              prev + static_cast<size_t>(src) * B, bcol, B)
+                        : zero4<T>();
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = ty * 4 + i0 + h, j = s.rows[r];
+        if (j < 0) continue;
+        T v[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[c] = is_tier ? s.G[r][tx * 4 + c] : T(0);
+#pragma unroll
+        for (int o = 0; o < MAX_BANDS; ++o) {
+          if (o >= m.nO) break;  // uniform across the block
+          const int src = j - m.off[o];
+          if (src < 0 || src >= m.Sp) continue;  // wrapped: no arc
+          const T w = o < PB ? wb[h][o < PB ? o : 0]
+                             : band_w[static_cast<size_t>(o) * m.Sp + j];
+          const V4<T> x =
+              o < PB ? xb[h][o < PB ? o : 0]
+                     : load4<VEC, true>(prev + static_cast<size_t>(src) * B,
+                                        bcol, B);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) v[c] = fma_(w, get(x, c), v[c]);
+        }
+        if constexpr (FAM) {  // a band row's families, pulled as below
+          if (!is_heavy && !is_tier) {
+            const int e1 = lay.fam_ptr[j + 1];
+#pragma unroll 4
+            for (int q = lay.fam_ptr[j]; q < e1; ++q) {
+              const T w = lay.fam_w[q];
+              const V4<T> x = load4<VEC, true>(
+                  prev + static_cast<size_t>(lay.fam_src[q]) * B, bcol, B);
+#pragma unroll
+              for (int c = 0; c < 4; ++c) v[c] = fma_(w, get(x, c), v[c]);
+            }
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s.G[r][tx * 4 + c] = v[c];
+      }
+    }
+  } else if (!f.skip) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int j = s.rows[ty * 4 + i];
@@ -1295,16 +1717,28 @@ __device__ __forceinline__ T bwd_item(
       __syncthreads_or(tid < TR && s.rows[tid] >= 0 && s.grp[tid] != s.grp[0]);
   const bool one_group = !mixed && s.grp[0] >= 0;
 
-  const V4<T> sc = make4<T>(s.sc[tx * 4], s.sc[tx * 4 + 1],
-                            s.sc[tx * 4 + 2], s.sc[tx * 4 + 3]);
-  const V4<T> pfin =
-      load4<VEC, true>(prev + static_cast<size_t>(m.fin) * B, bcol, B);
-  const V4<T> asc = load4<VEC>(f.ascale_t, bcol, B);
+  V4<T> sc, pfin, asc;  // the capped layout in double: read per row
+  if constexpr (is_f64<T>() && FAM) {
+    sc = pfin = asc = zero4<T>();
+  } else {
+    sc = make4<T>(s.sc[tx * 4], s.sc[tx * 4 + 1], s.sc[tx * 4 + 2],
+                  s.sc[tx * 4 + 3]);
+    pfin = load4<VEC, true>(prev + static_cast<size_t>(m.fin) * B, bcol, B);
+    asc = load4<VEC>(f.ascale_t, bcol, B);
+  }
   T colmax[4] = {T(0), T(0), T(0), T(0)}, colsum[4] = {T(0), T(0), T(0), T(0)};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     const int j = s.rows[r];
+    if constexpr (is_f64<T>() && FAM) {  // volatile: not held row to row
+      const volatile T* vs = s.sc + tx * 4;
+      const volatile T* va = s.asc + tx * 4;
+      const volatile T* vp = s.pf + tx * 4;
+      sc = make4<T>(vs[0], vs[1], vs[2], vs[3]);
+      asc = make4<T>(va[0], va[1], va[2], va[3]);
+      pfin = make4<T>(vp[0], vp[1], vp[2], vp[3]);
+    }
     if (j < 0) {
       for (int c = 0; c < 4; ++c) s.G[r][tx * 4 + c] = T(0);
       continue;
@@ -1314,6 +1748,10 @@ __device__ __forceinline__ T bwd_item(
         load4<VEC>(ext_t + static_cast<size_t>(s.pdf[r]) * B, bcol, B);
     const T om = omega[j];
     T v[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
+    if constexpr (is_f64<T>()) {  // the row's sums wait in the gamma tile
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[c] = s.G[r][tx * 4 + c];
+    }
     if constexpr (FAM) {
       if (is_heavy && !f.skip) {  // split over the thread rows
         for (int g = 0; g < NT / 16; ++g)
@@ -1433,7 +1871,7 @@ __device__ __forceinline__ void bwd_normalise(const BwdArgs<T>& p,
 // every frame, one grid barrier per frame; then the normalisation and the
 // outgoing scale.
 template <bool VEC, bool FAM, bool BF16, class T>
-__global__ void __launch_bounds__(NT, bwd_blocks<FAM, T>())
+__global__ void __launch_bounds__(NT, bwd_blocks<VEC, FAM, T>())
     bwd_chunk_kernel(const __grid_constant__ BwdArgs<T> p) {
   BwdSmem<T>& s = cta_smem<BwdSmem<T>, is_f64<T>()>();
   const Meta& m = p.m;
@@ -1520,10 +1958,11 @@ const void* coop_kernel(bool bwd, bool vec, bool fam, int prec) {
   return bwd ? pick<BwdK>(vec, fam, prec) : pick<FwdK>(vec, fam, prec);
 }
 
-// The dynamic shared memory of an instantiation: K4's double one (its
-// block passes a static block's 48 KB), none for the others.
+// The dynamic shared memory of an instantiation: the double ones' (their
+// blocks pass a static block's 48 KB), none for the others.
 size_t dyn_bytes(bool bwd, int prec) {
-  return bwd && prec == 2 ? sizeof(BwdSmem<double>) : 0;
+  if (prec != 2) return 0;
+  return bwd ? sizeof(BwdSmem<double>) : sizeof(FwdSmem<false, double>);
 }
 
 // CTAs of a persistent instantiation with `dyn` bytes of dynamic shared
