@@ -26,6 +26,14 @@ seed 0, every length N):
   (V=128, keep 0.1, the default capped layout): K7's family branch;
 * with ``--f64``, all of it on the graph compiled float64 (the
   log-likelihoods in float64): K7's float64 instantiation;
+* with ``--noid``, K7n at N=1,024 (``normal·0.5`` from seed 1): ``noid_ms``
+  the checkpoint sweep over 1,025 frames (stride 64) and ``rec_ms`` one
+  64-frame recompute from checkpoint 8 (``--runs`` warm times each, CUDA
+  events), ``noid_sums`` float64 sums of both sweeps' outputs (the saved
+  states and scales, the last state and scale, the carried sums), and
+  ``noid_twin``: the recompute bit-equal to its plain twin;
+* with ``--ptxas FILE``, the library's ``ptxas -v`` report written to
+  FILE (the build of this process: a fresh copy builds its own);
 * with ``--split``, ``split_us``: µs per frame of the sweep on the whole
   forward operator and on three cut copies of it
   (``chip_smoke.vit_frame_split``): no tier (the tier's rows taken as band
@@ -214,8 +222,39 @@ def _trace(root, vs, cf, ext, msh) -> dict:
     return out
 
 
+def _noid(vs, cf, P, dt, dev, runs) -> dict:
+    """K7n's checkpoint sweep and one recompute at B=128, N=1,024."""
+    import numpy as np
+    import torch
+
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    rng = np.random.default_rng(1)
+    B, N, K = 128, 1024, 64
+    lhs = torch.from_numpy(
+        (rng.normal(size=(B, N, P)) * 0.5).astype(np.float32)).to(dev, dt)
+    lens = torch.full((B,), N, dtype=torch.int32, device=dev)
+    ext, msh = prepare_emissions(lhs, lens, P, dt)
+    ck = vs.viterbi_fwd(cf, ext, msh, ids=False, stride=K)
+    t_ck = _ms(lambda: vs.viterbi_fwd(cf, ext, msh, ids=False, stride=K),
+               runs)
+    rec = dict(a0=ck[0][7], s0=ck[1][7], t0=8 * K)
+    e_c, m_c = ext[8 * K:9 * K], msh[8 * K:9 * K]
+    out = vs.viterbi_fwd(cf, e_c, m_c, ids=False, **rec)
+    t_rec = _ms(lambda: vs.viterbi_fwd(cf, e_c, m_c, ids=False, **rec),
+                runs)
+    plain = vs.viterbi_fwd_plain(cf, e_c, m_c, ids=False, **rec)
+    torch.cuda.synchronize()
+    twin = all(torch.equal(x, y) for x, y in zip(out, plain))
+    sums = [float(t.double().sum()) for t in (*ck, *out)]
+    return {"noid_ms": t_ck, "noid_mean": sum(t_ck) / len(t_ck),
+            "rec_ms": t_rec, "rec_mean": sum(t_rec) / len(t_rec),
+            "noid_sums": sums, "noid_twin": twin}
+
+
 def main(root: str, runs: int, split: bool, trace: bool = False,
-         graph: str = "2m", f64: bool = False) -> dict:
+         graph: str = "2m", f64: bool = False, noid: bool = False,
+         ptxas: str = "") -> dict:
     sys.path.insert(0, os.path.abspath(root))
     sys.path.insert(1, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
@@ -232,6 +271,9 @@ def main(root: str, runs: int, split: bool, trace: bool = False,
         raise RuntimeError(f"imported {mt.__file__}, not the copy at {root}")
     dev = torch.device("cuda:0")
     _build.library()
+    if ptxas:
+        with open(ptxas, "w") as f:
+            f.write(_build.PTXAS_LOG)
     dt = torch.float64 if f64 else torch.float32
     kw = {"dtype": dt} if f64 else {}
     if graph == "separate":  # the capped layout: K7's family branch
@@ -271,6 +313,9 @@ def main(root: str, runs: int, split: bool, trace: bool = False,
         row["split_us"] = vit_frame_split(cf, ext, msh)
     if trace:
         row["trace"] = _trace(root, vs, cf, ext, msh)
+    if noid:
+        del ext, msh, e2, m2
+        row.update(_noid(vs, cf, P, dt, dev, runs))
     return row
 
 
@@ -282,6 +327,8 @@ if __name__ == "__main__":
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--graph", choices=("2m", "separate"), default="2m")
     ap.add_argument("--f64", action="store_true")
+    ap.add_argument("--noid", action="store_true")
+    ap.add_argument("--ptxas", default="")
     a = ap.parse_args()
-    print(json.dumps(main(a.root, a.runs, a.split, a.trace, a.graph, a.f64)),
-          flush=True)
+    print(json.dumps(main(a.root, a.runs, a.split, a.trace, a.graph, a.f64,
+                          a.noid, a.ptxas)), flush=True)

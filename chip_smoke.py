@@ -304,13 +304,23 @@ decode; a general-Ĉ graph has no kernel yet and is refused on the card):
     instantiation (fails on any spill), their float64 twins at B=126,
     N=128 (the scalar branch) on both block graphs, each call twice and
     bit-equal, and this run's float64 frame splits of K2 and K4, K2/K3/K4
-    times and bounds and phase 40's float64 steps, each beside float32.
+    times and bounds and phase 40's float64 steps, each beside float32;
+53. K7 and K7n in float64, redesigned for Hopper (the tier's compares on
+    the FP64 pipe, its stages through a ``cp.async`` ring): the ``ptxas``
+    report of every ``vit_sweep_kernel<..., double>`` instantiation (fails
+    on any spill or stack byte), the library's float64 layout, K7 and K7n
+    against their float64 twins at B=126, N=128 (the scalar branch) on
+    both block graphs, each call twice and bit-equal, with K7n's
+    checkpoints and restart, and this run's float64 K7 frame splits, K7,
+    K7 fam. and K7n times and bounds and phase 46's float64 decodes, each
+    beside float32.
 
 Every kernel's entry in the JSON line (K6t, K7n and W2 from phases 32-33,
 the family branch's K7, walk, K7n and W2 from phases 36-37, K2-K4's
 float64 instantiation on both block graphs and K5a/K5b's on the main-path
 numerators, and the float64 K6a, K6b, K6t, W2, K7 (uniform and family
-branch) and K7n of phases 42-46 among them) carries its bound:
+branch) and K7n of phases 42-46, held again at B=126 in phase 53, among
+them) carries its bound:
 the larger of its
 operations over the card's peak rate for their type and its bytes over the
 memory bandwidth (H100 SXM data sheet), computed from this run's shapes.
@@ -407,6 +417,20 @@ def bound(flops, nbytes, peak=PEAK_F32, tc_flops=0, tc_peak=PEAK_BF16):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _state_past_l2(kop, B, l2_bytes):
+    """(Sp B, value bytes, whether two slots of the (Sp, B) state pass
+    ``l2_bytes``, by default the card's L2): where they do (float64 at
+    B=128: 2 x 50 MB against the H100's 50 MB), each frame reads its
+    predecessor's state and writes its own through HBM."""
+    if l2_bytes is None:
+        import torch
+
+        l2_bytes = torch.cuda.get_device_properties(0).L2_cache_size
+    f = kop.alpha0.element_size()  # 8: the float64 instantiation
+    SB = kop.Sp * B
+    return SB, f, 2 * SB * f > l2_bytes
+
+
 def block_traffic(cf, B, Npad, chunk, l2_bytes=None):
     """{kernel: (operations, bytes, peak, tensor-core operations, their
     peak)} of K2 over Npad frames and K3 and K4 over one chunk, as timed:
@@ -437,15 +461,9 @@ def block_traffic(cf, B, Npad, chunk, l2_bytes=None):
     nf_f, nf_b = kop.fwd.fam_dst.numel(), kop.bwd.fam_dst.numel()
     n_ov = kop.ov_hi - kop.ov_lo
     wb = kop.fwd.W.element_size()
-    f = kop.alpha0.element_size()  # 8: the float64 instantiation
+    SB, f, past = _state_past_l2(kop, B, l2_bytes)
     peak = PEAK_F64 if f == 8 else PEAK_F32
     tier = B * 2 * K * Sm * D
-    if l2_bytes is None:
-        import torch
-
-        l2_bytes = torch.cuda.get_device_properties(0).L2_cache_size
-    SB = Sp * B
-    past = 2 * SB * f > l2_bytes  # the state streams through HBM
     st2, st3, st4 = ((2 * Npad * SB, chunk * SB, 2 * chunk * SB) if past
                      else (2 * SB, SB, 2 * SB))
 
@@ -541,22 +559,28 @@ def dense_bounds(dcf, B, Nf, dense=False, f64_tc=True):
     return out
 
 
-def vit_bounds(cf, B, Nf):
-    """K7 over the Nf-frame sweep: per tier candidate the work the function
-    needs, one multiply and one max, and the id ~1/g of that (g tier
-    candidates per group, ``vit_scan.layout``: per group a compare and the
-    selects of the running value and of the group; the winner's recovery
-    is one group more per output); per
-    band candidate a multiply, a compare and two selects; per state the
-    omega product and max, the emission multiply and the rescale; the ids
-    written once.  Each operation at one per lane and clock
-    (PEAK_F32_OPS).  "K7 (4 instructions)": the same with the four
+def vit_traffic(cf, B, Nf, l2_bytes=None, g=None):
+    """{kernel: (operations, bytes, peak)} of K7 over the Nf-frame sweep:
+    per tier candidate the work the function needs, one multiply and one
+    max, and the id ~1/g of that (g tier candidates per id compare of the
+    library's group rule, ``vit_scan.layout(..., f64=False)``, unless
+    given: per group a compare and the selects of the running value and of
+    the group; the winner's recovery is one group more per output; the
+    float64 kernel compares every candidate, layout's g = 1 there, which
+    the bound, the function's least work, does not charge); per band
+    candidate a
+    multiply, a compare and two selects; per state the omega product and
+    max, the emission multiply and the rescale; the ids written once.
+    Each operation at one per lane and clock (PEAK_F32_OPS, PEAK_F64_OPS
+    in float64).  "K7 (4 instructions)": the same with the four
     instructions per tier candidate of a running (max, argmax) loop (a
-    multiply, a compare, two selects).  A capped layout's family
-    terms (the family branch) add a multiply and a max each, and their
-    tables (per-row pointers, sources, weights, uint8 ids, the row pdfs)
-    are read once.  The walk: per frame and sequence one id, two table
-    reads and one state written (what this decode reads)."""
+    multiply, a compare, two selects).  A capped layout's family terms
+    (the family branch) add a multiply and a max each, and their tables
+    (per-row pointers, sources, weights, uint8 ids, the row pdfs) are read
+    once.  The state, where two slots of it pass L2 (``_state_past_l2``),
+    is read and written every frame (2 Nf Sp B values).  The walk: per
+    frame and sequence one id, two table reads and one state written (what
+    this decode reads)."""
     from markovmodels_tpu_torch.ops import block_scan as bs
     from markovmodels_tpu_torch.ops import vit_scan as vs
 
@@ -565,19 +589,30 @@ def vit_bounds(cf, B, Nf):
     nO, Sp, P1 = len(kop.fwd.offsets), kop.Sp, kop.P1
     nfam = kop.fwd.fam_dst.numel()
     RW = vs._main_region(cf)
-    f = kop.alpha0.element_size()  # 8: the float64 instantiation
+    SB, f, past = _state_past_l2(kop, B, l2_bytes)
     peak = PEAK_F64_OPS if f == 8 else PEAK_F32_OPS
     nbytes = (f * (K * Sm * D + nO * Sp + 2 * Sp + Nf * (P1 + 1) * B)
               + Nf * RW * B + 4 * Nf * B + 3 * f * B)
     if vs._is_fam(kop):
         nbytes += 4 * (2 * Sp + 1) + (5 + f) * nfam
+    if past:
+        nbytes += 2 * Nf * SB * f
     rest = 4 * nO * RW + 2 * Sp + 2 * Sp + 2 * nfam
-    tier, g = K * Sm * D, vs.layout(B, Nf - 1)[1]
+    tier = K * Sm * D
+    if g is None:
+        g = vs.layout(B, Nf - 1, False)[1]
     ops = Nf * B * (2 * (1 + 1 / g) * tier + rest)
     ops4 = Nf * B * (4 * tier + rest)
-    return {"K7": bound(ops, nbytes, peak),
-            "K7 (4 instructions)": bound(ops4, nbytes, peak),
-            "K7w": bound(0, (Nf - 1) * B * (1 + 4 + 4 + 4) + 8 * B)}
+    return {"K7": (ops, nbytes, peak),
+            "K7 (4 instructions)": (ops4, nbytes, peak),
+            "K7w": (0, (Nf - 1) * B * (1 + 4 + 4 + 4) + 8 * B, PEAK_F32)}
+
+
+def vit_bounds(cf, B, Nf, l2_bytes=None, g=None):
+    """{kernel: (bound ms, "bytes" or "operations")} of K7 and its walk
+    from :func:`vit_traffic`."""
+    return {k: bound(ops, nbytes, peak) for k, (ops, nbytes, peak)
+            in vit_traffic(cf, B, Nf, l2_bytes, g).items()}
 
 
 def card_line():
@@ -2322,14 +2357,19 @@ def trop_bounds(dcf, B, Nf):
                  PEAK_F64_OPS if f == 8 else PEAK_F32_OPS)
 
 
-def noid_bounds(cf, B, Nf, saved):
-    """K7n over Nf frames saving ``saved`` of them: K7's work without the
-    id (a multiply and a max per tier candidate, per band candidate a
-    multiply and a max, per family term (a capped layout) a multiply and a
-    max, per state the omega product and max, the emission and the
-    rescale) at PEAK_F32_OPS (PEAK_F64_OPS in float64); the operator with
-    its family tables, the emissions, the start state and the saved states
-    and scales, each value of its dtype's bytes."""
+def noid_traffic(cf, B, Nf, saved, l2_bytes=None):
+    """(operations, bytes, peak) of K7n over Nf frames saving ``saved`` of
+    them: K7's work without the id (a multiply and a max per tier
+    candidate, per band candidate a multiply and a max, per family term (a
+    capped layout) a multiply and a max, per state the omega product and
+    max, the emission and the rescale) at PEAK_F32_OPS (PEAK_F64_OPS in
+    float64); the operator with its family tables, the emissions, the
+    start state and the saved states and scales, each value of its
+    dtype's bytes.  Where two slots of the state pass L2
+    (``_state_past_l2``), each frame's read of its predecessor beyond the
+    start state ((Nf - 1) Sp B values) and, where the sweep runs in its
+    two work slots (saved < Nf: the checkpoint sweep), each frame's write
+    there (Nf Sp B) beside the saves."""
     from markovmodels_tpu_torch.ops import block_scan as bs
     from markovmodels_tpu_torch.ops import vit_scan as vs
 
@@ -2338,13 +2378,21 @@ def noid_bounds(cf, B, Nf, saved):
     nO, Sp, P1 = len(kop.fwd.offsets), kop.Sp, kop.P1
     nfam = kop.fwd.fam_dst.numel()
     RW = vs._main_region(cf)
-    f = kop.alpha0.element_size()  # 8: the float64 instantiation
+    SB, f, past = _state_past_l2(kop, B, l2_bytes)
     ops = Nf * B * (2 * K * Sm * D + 2 * nO * RW + 2 * nfam + 4 * Sp)
     nbytes = f * (K * Sm * D + nO * Sp + 2 * Sp + Nf * (P1 + 1) * B
                   + Sp * B + saved * (Sp + 1) * B + 8 * B)
     if vs._is_fam(kop):
         nbytes += 4 * (2 * Sp + 1) + (4 + f) * nfam
-    return bound(ops, nbytes, PEAK_F64_OPS if f == 8 else PEAK_F32_OPS)
+    if past:
+        nbytes += f * SB * ((Nf - 1) + (Nf if saved < Nf else 0))
+    return ops, nbytes, PEAK_F64_OPS if f == 8 else PEAK_F32_OPS
+
+
+def noid_bounds(cf, B, Nf, saved, l2_bytes=None):
+    """(bound ms, "bytes" or "operations") of K7n from
+    :func:`noid_traffic`."""
+    return bound(*noid_traffic(cf, B, Nf, saved, l2_bytes))
 
 
 def walk_bounds(wt, path, s_next, lengths, t0, Sp):
@@ -3556,6 +3604,77 @@ def phase_block_f64(graphs, dev, splits, steps, card, label="phase 52"):
     return errs
 
 
+def vit_f64_ptxas(log):
+    """{(vec, ids, fam): ptxas entry} of the eight float64
+    ``vit_sweep_kernel`` instantiations (K7 with ids, K7n without; the
+    uniform and the family branch; 16-byte accesses or not)."""
+    return {tuple(int(x) for x in k): v for k, v in ptxas_entries(
+        log, r"vit_sweep_kernelILb([01])ELb([01])ELb([01])EdE").items()}
+
+
+def phase_vit_f64(cf64, scf64, P, sP, dev, splits, times, bounds, t46,
+                  card, label="phase 53"):
+    """Phase 53: K7 and K7n in float64 with the tier's running (max,
+    position) compared on the FP64 pipe (``vit_scan.cu`` ``tier_dbl``: a
+    DSETP and selects per candidate, the stages through a ``cp.async``
+    ring): the ``ptxas`` report of every ``vit_sweep_kernel<...,
+    double>`` instantiation (fails on any spill or stack byte); the
+    library's double layout (``vit_scan.layout``); K7 and K7n against
+    their float64 twins again at B=126, N=128 (the scalar branch, B % 4 !=
+    0; phase 44 ran B=128) on both block graphs, each call twice
+    bit-equal, with K7n's checkpoints and restart; and this run's
+    readings side by side: the float64 frame split (``vit_frame_split``
+    on phase 17's input in float64) beside float32 (phases 17 and 36) on
+    both graphs, K7, K7 fam. and K7n (checkpoint sweep and recompute) in
+    float64 beside float32 with their bounds, and phase 46's float64
+    decodes.  ``splits``: {graph: float32 split}; ``times`` / ``bounds``:
+    {row: (float64, float32)}; ``t46``: phase 46's medians."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import _build
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    ents = vit_f64_ptxas(_build.PTXAS_LOG)
+    assert len(ents) == 8, ents  # vec x ids x fam
+    waste = sum(v["spill_stores"] + v["spill_loads"] + v["stack"]
+                for v in ents.values())
+    print(f"{label}: ptxas of the float64 vit_sweep_kernel instantiations "
+          "(16-byte accesses, ids, family branch): " + "; ".join(
+              f"vec={k[0]} ids={k[1]} fam={k[2]}: {v}"
+              for k, v in sorted(ents.items()))
+          + f"; spill and stack bytes: {waste}")
+    assert waste == 0, f"K7/K7n<double> spill or stack {waste} bytes"
+    lay32, lay64 = vs.layout(128, 700, False), vs.layout(128, 700, True)
+    print(f"{label}: layout (scratch bytes, tier candidates per id compare) "
+          f"at B=128 N=700: float32 {lay32}, float64 {lay64}")
+    assert lay64[1] == 1 and lay32[1] == 8, (lay32, lay64)
+    errs = phase_f64_vit(cf64, scf64, P, sP, dev, B=126, N=128,
+                         label=f"{label} (B=126)")
+    for name, cf, P_ in (("2M-arc", cf64, P), ("separate-state", scf64, sP)):
+        rng = np.random.default_rng(0)
+        lhs = torch.from_numpy(make_inputs(rng, 128, 700, P_)).to(
+            dev, torch.float64)
+        lengths = torch.full((128,), 700, dtype=torch.int32, device=dev)
+        ext, msh = prepare_emissions(lhs, lengths, P_, torch.float64)
+        s64, s32 = vit_frame_split(cf, ext, msh), splits[name]
+        print(f"{label}: K7 frame split on the {name} graph, us per frame "
+              "(float64; float32 in parentheses): " + ", ".join(
+                  f"{part} {s64[part]:.2f} ({s32[part]:.2f})"
+                  for part in s64))
+        del ext, msh
+    print(f"{label}: ms (float32 in parentheses): " + ", ".join(
+        f"{k} {t[0]:.3f} ({t[1]:.3f}), bound {bounds[k][0][0]:.3f} "
+        f"({bounds[k][1][0]:.3f}, {bounds[k][0][1]})"
+        for k, t in times.items()))
+    print(f"{label}: float64 decodes (phase 46, medians of 5; float32 in "
+          "parentheses): " + "; ".join(
+              f"{k} {t46[k + ' f64']:.2f} ({t46[k + ' f32']:.2f}) ms"
+              for k in ("2M-arc decode", "separate-state decode",
+                        "2M-arc decode N=1,024")) + f"; {card}")
+    return errs
+
+
 def phase_f64_trop(dcf64, dP, dev, B=128, N=700, label="phase 43"):
     """Phase 43: K6t and W2 in float64 on the V=32 dense decode at B=128,
     N=700 (phase 15's input form in float64: lengths 1, 2N/3 and N mixed,
@@ -4388,7 +4507,7 @@ def main():
     bounds.update(vit_bounds(cf, 128, 701))
     print(f"timing: K7 bound {bounds['K7'][0]:.3f} ms ({bounds['K7'][1]}: a "
           f"multiply and a max per tier candidate, the id 1/"
-          f"{vs.layout(128, 700)[1]} of "
+          f"{vs.layout(128, 700, False)[1]} of "
           f"that); the four-instruction count of a running (max, argmax) "
           f"loop gives {bounds['K7 (4 instructions)'][0]:.3f} ms; sweep "
           f"{times['K7'][0]:.3f} ms")
@@ -4734,6 +4853,20 @@ def main():
     f_errs.update({k: max(f_errs[k], v) for k, v in b52["2M-arc"].items()})
     sf_errs.update({k: max(sf_errs[k], v)
                     for k, v in b52["separate-state"].items()})
+    e53 = phase_vit_f64(
+        cf64, scf64, P, sP, dev,
+        {"2M-arc": vsplit, "separate-state": o_split},
+        {"K7": (k7_64["2M-arc"][0], times["K7"][0]),
+         "K7 fam.": (k7_64["separate-state"][0], o_times["K7"][0]),
+         "K7n": (dec64_times["K7n"][0], b_times2["K7n"][0]),
+         "K7n recompute": (dec64_times["K7n recompute"][0],
+                           b_times2["K7n recompute"][0])},
+        {"K7": (k7_64b["2M-arc"], bounds["K7"]),
+         "K7 fam.": (k7_64b["separate-state"], o_bounds["K7"]),
+         "K7n": (dec64_bounds["K7n"], b_bounds2["K7n"]),
+         "K7n recompute": (dec64_bounds["K7n recompute"],
+                           b_bounds2["K7n recompute"])}, t46, card)
+    v64_errs.update({k: max(v64_errs[k], v) for k, v in e53.items()})
 
     block_src = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
     banded_src = "markovmodels_tpu_torch/ops/csrc/banded_scan.cu"

@@ -129,23 +129,48 @@
 // float64 graph (the JAX package decodes those in XLA; its K7 takes float32).
 // A double instantiation keeps every value in double (state, scales,
 // emissions, panels, bands, family weights, omega, checkpoints) and keeps
-// the rules bit for bit: the tier's products are compared on their 64 bits
-// as ints (the bits of a non-negative double order as its value), a pass
-// stages 64 positions (half the float rows, the same bytes), the column
-// maxima are 64-bit words.  The omega key does not fit: the double's 64
-// bits leave no room for j.  So each (frame, copy, column) keeps the
-// positive candidates as a pair (value bits, 2^32 - 1 - j) that an item
-// replaces under a spin lock of the pair's own (after a lock-free check
-// against the value, which only rises), and the zero candidates' largest
-// 2^32 - 1 - j by atomicMax; the end of the frame takes the largest value,
-// the largest j-word among the copies holding it, or the zero word where
-// every product is 0.  Both give the (max, smallest argmax) of the float
-// rule whatever the items' order.  K7n (no ids) keeps the value alone.
-// The ids, the queue and the walk do not depend on T.
+// the rules bit for bit, but its tier has a design of its own (tier_dbl),
+// since a double multiply is half the float rate, sm_90 has no double max
+// instruction (fmax lowers to DSETP.MAX and selects with NaN fix-ups, a
+// quarter of the DMUL rate as measured), its 64-bit integer max takes two
+// compares and two selects on the ALU, and the float map's 64-bit values
+// spilled at the 128 registers of 2 CTAs per SM:
+//   * a running (max, first position) per output, candidate by candidate:
+//     a DMUL, a double compare (DSETP, on the FP64 pipe) and the selects of
+//     the value's two words and of the position (on the ALU), so the two
+//     pipes share the work and no id is recovered afterwards (the float
+//     design's max before the id recomputed the winning group from
+//     scattered shared-memory reads: in double it cost more than it saved,
+//     PERF.md section 6);
+//   * the operands as they lie in memory: stages of DV positions, the
+//     panel untransposed (W[k, s, dbase + d] at [s][d], the host passes
+//     (K, Sm, D)) and the gathered state rows ([s][b]), both by 16-byte
+//     cp.async through a ring of NVS at a pitch of DVP doubles, NVS - 1
+//     stages in flight while one is reduced, one block barrier per stage;
+//     each thread rescales its own chunks of a landed stage in place (a
+//     product by a power of two: exact, the float design's multiply);
+//   * a thread's 4 x 4 outputs (d = ty*4 + i, b = 2tx + {0, 1, 32, 33}) as
+//     outer products: per position two 16-byte reads of its rows' weights
+//     (one address per quarter warp) and two of its columns' states (16
+//     distinct chunks), no bank conflict at any pitch;
+//   * the outputs left in shared memory for the epilogue, whose rows go
+//     one at a time.
+// The column maxima are 64-bit words.  The omega key does not fit: the
+// double's 64 bits leave no room for j.  So each (frame, copy, column)
+// keeps the positive candidates as a pair (value bits, 2^32 - 1 - j) that
+// an item replaces under a spin lock of the pair's own (after a lock-free
+// check against the value, which only rises), and the zero candidates'
+// largest 2^32 - 1 - j by atomicMax; the end of the frame takes the largest
+// value, the largest j-word among the copies holding it, or the zero word
+// where every product is 0.  Both give the (max, smallest argmax) of the
+// float rule whatever the items' order.  K7n (no ids) keeps the value
+// alone.  The ids, the queue and the walk do not depend on T.
 //
 // Conventions: state (Sp, B) row-major T; ext (Nf, P1, B), the emission of
 // state j is ext[t, j / cmax, b] (uniform pdf-grouped layout) or
-// ext[t, row_pdf[j], b] (FAM); ids (Nf, RW, B) uint8; fins (Nf, B) int32.
+// ext[t, row_pdf[j], b] (FAM); ids (Nf, RW, B) uint8; fins (Nf, B) int32;
+// the tier panels (K, D, Sm4) transposed (float) or (K, Sm, D) as they are
+// (double).
 // Index maps of the tier come from the host as ints: src(k, s) = g0 + k*gk +
 // s*gs, dst(k, d) = d0 + k*dk + d*dd.
 #include <cuda_runtime.h>
@@ -158,12 +183,10 @@ namespace {
 
 constexpr int TB = 64;       // batch columns per item
 constexpr int NT = 256;      // threads per CTA: 16 x 16, 4x4 outputs each
-// tier contraction resident per pass (float 128, double 64: the same
-// bytes), and the padded row of a resident tier operand (16 bytes more)
-template <class T>
-constexpr int SC = is_f64<T>() ? 64 : 128;
-template <class T>
-constexpr int ST = SC<T> + 16 / static_cast<int>(sizeof(T));
+// float: the tier contraction resident per pass, and the padded row of a
+// resident tier operand (16 bytes more)
+constexpr int SC = 128;
+constexpr int ST = SC + 4;
 constexpr int GS = 8;        // tier candidates per max group
 constexpr int PB = 2;        // band terms of a pair of rows loaded ahead
 constexpr int CM = 16;       // copies of each frame's column max and omega key
@@ -172,9 +195,17 @@ constexpr int NO_CAND = 255;
 constexpr int WALK_THREADS = 128;
 // CTAs resident per SM (caps registers at 128; shared memory allows 3)
 constexpr int VIT_BLOCKS = 2;
-static_assert(SC<float> % GS == 0 && SC<double> % GS == 0 && GS % 4 == 0 &&
-                  TR == TB,
-              "tier tiles");
+// The double tier (tier_dbl; tests/test_torch_vit_f64_tier.py reads these):
+// stages of DV positions at a pitch of DVP doubles, NVS of them in the
+// cp.async ring (NVS - 1 in flight while one is reduced).
+constexpr int DV = 16;
+constexpr int DVP = TB + 2;
+constexpr int NVS = 4;
+constexpr int DVSTAGE = 2 * DV * DVP;  // doubles of one stage
+static_assert(SC % GS == 0 && GS % 4 == 0 && TR == TB, "tier tiles");
+static_assert(DV % 8 == 0 && DVP % 2 == 0 && NVS >= 2 && TR == 64 &&
+                  NT == 256,
+              "the double tier's layout");
 
 // The omega key of a thread row or an item: float, one ordered 64-bit word
 // (omega_key); double, the value's bits and the j-word 2^32 - 1 - j apart.
@@ -192,8 +223,8 @@ template <class T>
 struct VitSmem {
   union {
     struct {  // a tier item's resident operands
-      T W[TR][ST<T>];  // W[k, s0 + s, dbase + d] at [d][s]
-      T X[TB][ST<T>];  // a[src(k, s0 + s), b0 + b] at [b][s], rescaled
+      T W[TR][ST];  // W[k, s0 + s, dbase + d] at [d][s]
+      T X[TB][ST];  // a[src(k, s0 + s), b0 + b] at [b][s], rescaled
     } op;
     struct {  // the epilogue
       T val[TR][TB + 1];  // the tier's max of each output
@@ -202,7 +233,7 @@ struct VitSmem {
       OKey<T> rk[16][TB];     // omega key of each thread row
     } ep;
     struct {  // a heavy row's partial family candidates (FAM), past ep
-      T skip[TR][ST<T>];
+      T skip[TR][ST];
       T v[16][TB];      // each thread row's max product
       int id[16][TB];   // and its smallest id among equal products
     } hv;
@@ -211,6 +242,33 @@ struct VitSmem {
   int grp[TR];   // its pdf group (emission row)
   int2 next[2];  // the queue entries taken for the next items
 };
+
+// The double one: the tier's stage ring (tier_dbl) in place of the
+// resident operands; the epilogue's tables and a heavy row's partials as
+// in float.
+template <>
+struct VitSmem<double> {
+  union {
+    double R[NVS * DVSTAGE];  // stage st in slot st % NVS: [s][d], [s][b]
+    struct {
+      double val[TR][TB + 1];
+      uint8_t id[TR][TB];
+      unsigned long long rm[16][TB];
+      DKey rk[16][TB];
+    } ep;
+    struct {  // past ep.val and ep.id
+      double skip[TR][TB + 1];
+      uint8_t skip_id[TR][TB];
+      double v[16][TB];
+      int id[16][TB];
+    } hv;
+  } u;
+  int rows[TR];
+  int grp[TR];
+  int2 next[2];
+};
+static_assert(sizeof(VitSmem<double>::u) == NVS * DVSTAGE * sizeof(double),
+              "the epilogue's tables and a heavy row's partials fit the ring");
 
 // A sweep's shared memory: the uniform layout's, and with FAM each tile
 // row's family terms [x, y) and first band id z, read as the rows are set
@@ -250,8 +308,10 @@ struct VitArgs : OmegaWords<T> {
   const T* ext;     // (Nf, P1, B)
   const T* mshift;  // (Nf, 1, B)
   const T* band_w;  // (nO, Sp)
-  const T* Wt;      // (K, D, Sm4) the tier panels transposed, zero-padded
-  long long Sm4;        // Sm rounded up to 4
+  // the tier panels: float (K, D, Sm4) transposed, zero-padded; double
+  // (K, Sm, D) as they are
+  const T* Wt;
+  long long Sm4;        // Sm rounded up to 4 (float)
   const T* omega;   // (Sp,)
   const int* band_rows;
   const int2* queue;  // (n_items,) item, first row of a band tile or -1
@@ -363,18 +423,10 @@ __device__ __forceinline__ void omega_put(const VitArgs<double>& p, size_t at,
   }
 }
 
-// The product's bits as a signed int of its width (non-negative values
-// order as their bits), and back.
+// The float product's bits as a signed int (non-negative values order as
+// their bits), and back.
 __device__ __forceinline__ int ibits(float v) { return __float_as_int(v); }
-__device__ __forceinline__ long long ibits(double v) {
-  return __double_as_longlong(v);
-}
 __device__ __forceinline__ float of_ibits(int b) { return __int_as_float(b); }
-__device__ __forceinline__ double of_ibits(long long b) {
-  return __longlong_as_double(b);
-}
-template <class T>
-using IBits = typename std::conditional<is_f64<T>(), long long, int>::type;
 
 // 4 ids in one streaming store (written once, never read in the sweep).
 __device__ __forceinline__ void st_cs_u32(uint8_t* p, unsigned v) {
@@ -398,17 +450,25 @@ __device__ __forceinline__ T end_of_frame(const VitArgsT<FAM, T>& p, int t,
   BitsT<T> mx = 0;
   unsigned long long key = 0ull;
   unsigned jw = 0u;  // double: the j-word of the largest value
+  if constexpr (is_f64<T>()) {  // 64-bit words: 4 copies' loads at a time
+#pragma unroll 4
+    for (int c = 0; c < CM; ++c) {
+      mx = max(mx, __ldcg(cm + c * B));
+      key = max(key, __ldcg(kp + c * B));
+    }
+  } else {
 #pragma unroll
-  for (int c = 0; c < CM; ++c) {
-    mx = max(mx, __ldcg(cm + c * B));
-    key = max(key, __ldcg(kp + c * B));
+    for (int c = 0; c < CM; ++c) {
+      mx = max(mx, __ldcg(cm + c * B));
+      key = max(key, __ldcg(kp + c * B));
+    }
   }
   T mxf = from_bits(mx);
   T om;  // max_j omega[j] * a[j]
   if constexpr (is_f64<T>()) {
     om = from_bits(key);
     if constexpr (IDS) {
-#pragma unroll
+#pragma unroll 4
       for (int c = 0; c < CM; ++c)
         if (key == 0ull)
           jw = max(jw, __ldcg(p.omz + at + c * B));
@@ -441,23 +501,22 @@ __device__ __forceinline__ T end_of_frame(const VitArgsT<FAM, T>& p, int t,
   return pow2_scale(k);
 }
 
-// The tier of one item over one resident pass (s0 .. s0 + SC - 1): for the
-// thread's outputs (d = ty*4 + i, b = tx + 16c) the running max over groups
-// of GS candidates and the group that first reached it (gid >= 0: a group of
-// this pass; < 0: the id -gid - 1, recovered in an earlier pass), then the
-// id of each output whose group lies in this pass, recovered from the
-// resident operands.  Every product is >= 0 (no NaN), so its float bits
-// order as its value: the maxima are taken on the bits as ints, which the
-// card does three at a time (VIMNMX3: 4 instructions for a group of 8
-// products, 7 as float maxima), exactly.  In double the same rule on the
-// products' 64 bits as long longs.
+// The float tier of one item over one resident pass (s0 .. s0 + SC - 1):
+// for the thread's outputs (d = ty*4 + i, b = tx + 16c) the running max
+// over groups of GS candidates and the group that first reached it (gid >=
+// 0: a group of this pass; < 0: the id -gid - 1, recovered in an earlier
+// pass), then the id of each output whose group lies in this pass,
+// recovered from the resident operands.  Every product is >= 0 (no NaN),
+// so its float bits order as its value: the maxima are taken on the bits
+// as ints, which the card does three at a time (VIMNMX3: 4 instructions
+// for a group of 8 products, 7 as float maxima), exactly.
 // Without ids (IDS = false) only the running max is kept.
-template <bool IDS, class T>
-__device__ __forceinline__ void tier_max_arg(const VitSmem<T>& s, int nG,
-                                             long long s0,
-                                             IBits<T> (&best)[4][4],
+template <bool IDS>
+__device__ __forceinline__ void tier_max_arg(const VitSmem<float>& s, int nG,
+                                             long long s0, int (&best)[4][4],
                                              int (&gid)[4][4]) {
-  using I = IBits<T>;
+  using T = float;
+  using I = int;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   for (int g = 0; g < nG; ++g) {
     I mx[4][4];
@@ -517,27 +576,29 @@ __device__ __forceinline__ void tier_max_arg(const VitSmem<T>& s, int nG,
     }
 }
 
-// Stage one resident pass of a tier item: the panel's 64 destination
-// columns by cp.async (L2 evict_last: every frame reads them), and the
-// gathered state rows src(k, s0 + s) of the previous frame for the item's
-// 64 columns, read past L1 under ``once``, rescaled and stored transposed.
-// Lane (sl, h) of warp w takes rows s0 + 16u + sl (u = 0 .. SC/16 - 1),
-// columns b0 + 4(2w + h) .. + 3: each warp's stores meet 32 distinct banks
-// (float).  A 16-byte copy of the panel is 4 floats or 2 doubles.
-template <bool VEC, class T>
-__device__ __forceinline__ void stage_tier(const VitArgs<T>& p, VitSmem<T>& s,
-                                           const T* __restrict__ prev,
-                                           const T* sc, long long k,
+// Stage one resident pass of a float tier item: the panel's 64
+// destination columns by cp.async (L2 evict_last: every frame reads them),
+// and the gathered state rows src(k, s0 + s) of the previous frame for the
+// item's 64 columns, read past L1 under ``once``, rescaled and stored
+// transposed.  Lane (sl, h) of warp w takes rows s0 + 16u + sl (u = 0 ..
+// SC/16 - 1), columns b0 + 4(2w + h) .. + 3: each warp's stores meet 32
+// distinct banks.
+template <bool VEC>
+__device__ __forceinline__ void stage_tier(const VitArgs<float>& p,
+                                           VitSmem<float>& s,
+                                           const float* __restrict__ prev,
+                                           const float* sc, long long k,
                                            long long dbase, int b0,
                                            long long s0,
                                            unsigned long long once) {
-  constexpr int E = 16 / static_cast<int>(sizeof(T));  // values per copy
+  using T = float;
+  constexpr int E = 4;  // values per copy
   const Meta& m = p.m;
   const int B = p.B, tid = threadIdx.x;
   const unsigned long long keep = evict_last_policy();
 #pragma unroll
-  for (int u = 0; u < TR * SC<T> / E / NT; ++u) {
-    const int c = tid + u * NT, r = c / (SC<T> / E), q = c % (SC<T> / E);
+  for (int u = 0; u < TR * SC / E / NT; ++u) {
+    const int c = tid + u * NT, r = c / (SC / E), q = c % (SC / E);
     const long long d = dbase + r, sq = s0 + E * q;
     const bool ok = d < m.D && sq < p.Sm4;
     const T* src = ok ? p.Wt + (k * m.D + d) * p.Sm4 + sq : p.Wt;
@@ -546,16 +607,14 @@ __device__ __forceinline__ void stage_tier(const VitArgs<T>& p, VitSmem<T>& s,
   cp_async_commit();
   const int lane = tid % 32, w = tid / 32, sl = lane % 16;
   const int bb = 4 * (2 * w + lane / 16), b = b0 + bb;
-  V4<T> x[SC<T> / 16];
+  V4<T> x[SC / 16];
 #pragma unroll
-  for (int u = 0; u < SC<T> / 16; ++u) {
+  for (int u = 0; u < SC / 16; ++u) {
     const long long sr = s0 + 16 * u + sl;
     const long long j = m.g0 + k * m.gk + sr * m.gs;
     const bool ok = sr < m.Sm && j < p.RW;  // the main region only
     const T* row = prev + (ok ? j : 0) * B;
-    if constexpr (is_f64<T>())
-      x[u] = ok ? load4<VEC, true>(row, b, B) : zero4<T>();
-    else if constexpr (VEC)
+    if constexpr (VEC)
       x[u] = ok && b < B ? ldcg4_hint(row + b, once)
                          : make_float4(0.f, 0.f, 0.f, 0.f);
     else
@@ -566,12 +625,158 @@ __device__ __forceinline__ void stage_tier(const VitArgs<T>& p, VitSmem<T>& s,
 #pragma unroll
   for (int c = 0; c < 4; ++c) scb[c] = b + c < B ? sc[b + c] : T(0);
 #pragma unroll
-  for (int u = 0; u < SC<T> / 16; ++u)
+  for (int u = 0; u < SC / 16; ++u)
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       s.u.op.X[bb + c][16 * u + sl] = get(x[u], c) * scb[c];
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// Two doubles from shared memory (16-byte aligned).
+__device__ __forceinline__ double2 lds2(const double* p) {
+  return *reinterpret_cast<const double2*>(p);
+}
+
+// Column c of the thread's 4 x 4 double tier outputs within the item: 2tx,
+// 2tx + 1, 2tx + 32, 2tx + 33 (two 16-byte reads a position).
+__device__ __forceinline__ int dcol(int tx, int c) {
+  return 2 * tx + (c & 1) + 32 * (c >> 1);
+}
+
+// The double tier of one item (a tier tile's 64 destinations d = dbase +
+// 0 .. 63 of panel k by the item's 64 columns b0 ..) over its whole
+// contraction, into the epilogue's table (ep.val, and with IDS ep.id).
+// Stage st holds positions st * DV .. + DV - 1 in slot st % NVS of the
+// ring R: the panel's W[k, s, dbase + d] at [s][d] and the gathered state
+// rows a[src(k, s), b0 + b] at [s][b] (past L1: another CTA wrote them;
+// zero past Sm, past the main region, past D and past B), both at the
+// pitch DVP.  Thread tid copies the 16-byte chunks of rows tid / 32 + 8u,
+// columns 2 (tid % 32) and + 1, of both halves by cp.async (the panel under
+// evict_last: every frame reads it; a pair that is not 16-byte aligned, D
+// odd or !VEC, as two scalar loads), and once its copies of a stage have
+// landed rescales its own state chunks in place by the column scales (a
+// power of two: exact).  One block barrier a stage; the copies of the
+// stage NVS - 1 ahead are issued after it, into the slot the stage before
+// this one has left.  Thread (tx, ty) keeps, for each of its outputs (d =
+// ty*4 + i, b = dcol(tx, c)), the running max and (IDS) the first
+// position that reached it, candidate by candidate in position order:
+// "pr > best" as a double compare (DSETP on the FP64 pipe) and the selects
+// of the value's two words and of the position (on the ALU), so the two
+// pipes share the work (sm_90 has no double max instruction: fmax lowers to
+// a compare and selects with NaN fix-ups).  Every product is >= 0 (no NaN;
+// no flush to zero in FP64: the denormal products are the twin's), so this
+// is the twin's "largest product, smallest position among equal ones"; a
+// zero max never enters y (the tier merges with a strict > against a band
+// value that starts at +0), so the sign of a zero product does not matter,
+// and the zero rows past Sm never win (best >= 0 after the first position).
+template <bool VEC, bool IDS>
+__device__ __forceinline__ void tier_dbl(const VitArgs<double>& p,
+                                         VitSmem<double>& s,
+                                         const double* __restrict__ prev,
+                                         const double* sc, long long k,
+                                         long long dbase, int b0) {
+  const Meta& m = p.m;
+  const int B = p.B, tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const unsigned long long keep = evict_last_policy();
+  double* R = s.u.R;
+  const int cr = tid / 32, cc = (tid % 32) * 2;  // the thread's chunks
+  const bool wvec = m.D % 2 == 0;
+  const bool dok = dbase + cc < m.D, dok1 = dbase + cc + 1 < m.D;
+  const bool bok = b0 + cc < B, bok1 = b0 + cc + 1 < B;
+  const double sc0 = bok ? sc[b0 + cc] : 0.0, sc1 = bok1 ? sc[b0 + cc + 1] : 0.0;
+  const double* pw = p.Wt + k * m.Sm * m.D + dbase + cc;
+  const long long nst = (m.Sm + DV - 1) / DV;
+  auto issue = [&](long long st) {  // stage st into its slot of the ring
+    double* dst = R + (st % NVS) * DVSTAGE + cr * DVP + cc;
+#pragma unroll
+    for (int u = 0; u < DV / 8; ++u) {
+      const long long sp = st * DV + cr + 8 * u;
+      const bool sok = sp < m.Sm;
+      const double* w = pw + sp * m.D;
+      double* ws = dst + 8 * u * DVP;
+      if (wvec) {
+        cp_async16_hint(ws, sok && dok ? w : p.Wt, sok && dok, keep);
+      } else {
+        ws[0] = sok && dok ? w[0] : 0.0;
+        ws[1] = sok && dok1 ? w[1] : 0.0;
+      }
+      const long long j = m.g0 + k * m.gk + sp * m.gs;
+      const bool xok = sok && j < p.RW;  // the main region only
+      const double* x = prev + (xok ? j : 0) * B + b0 + cc;
+      double* xs = ws + DV * DVP;
+      if constexpr (VEC) {
+        cp_async16(xs, xok && bok ? x : prev, xok && bok);
+      } else {
+        xs[0] = xok && bok ? __ldcg(x) : 0.0;
+        xs[1] = xok && bok1 ? __ldcg(x + 1) : 0.0;
+      }
+    }
+    cp_async_commit();
+  };
+  double best[4][4];
+  unsigned pos[4] = {0u, 0u, 0u, 0u};  // byte c of pos[i]: output (i, c)'s
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      best[i][c] = -1.0;  // below every product: the first position enters
+#pragma unroll
+  for (int st = 0; st < NVS - 1; ++st) {
+    if (st < nst) issue(st);
+    else cp_async_commit();  // an empty group keeps the count
+  }
+#pragma unroll 1
+  for (long long st = 0; st < nst; ++st) {
+    double* stg = R + (st % NVS) * DVSTAGE;
+    cp_async_wait<NVS - 2>();  // this thread's copies of stage st are in
+#pragma unroll
+    for (int u = 0; u < DV / 8; ++u) {
+      double2* xs = reinterpret_cast<double2*>(stg + DV * DVP +
+                                               (cr + 8 * u) * DVP + cc);
+      const double2 v = *xs;
+      *xs = make_double2(mul_rn(v.x, sc0), mul_rn(v.y, sc1));
+    }
+    __syncthreads();  // everyone's stage st is in; stage st - 1 is done
+    if (st + NVS - 1 < nst) issue(st + NVS - 1);
+    else cp_async_commit();
+    const double* Ws = stg + ty * 4;
+    const double* Xs = stg + DV * DVP + 2 * tx;
+    const int sb = static_cast<int>(st) * DV;
+#pragma unroll
+    for (int r = 0; r < DV; ++r) {
+      const double2 w01 = lds2(Ws + r * DVP), w23 = lds2(Ws + r * DVP + 2);
+      const double2 x01 = lds2(Xs + r * DVP), x23 = lds2(Xs + r * DVP + 32);
+      const double w[4] = {w01.x, w01.y, w23.x, w23.y};
+      const double x[4] = {x01.x, x01.y, x23.x, x23.y};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const double pr = mul_rn(w[i], x[c]);
+          if constexpr (IDS) {
+            if (pr > best[i][c]) {
+              best[i][c] = pr;
+              // sb + r (< Sm < 255) into byte c
+              pos[i] = __byte_perm(pos[i], static_cast<unsigned>(sb + r),
+                                   0x3210u ^ ((0x4u ^ c) << (4 * c)));
+            }
+          } else {
+            best[i][c] = pr > best[i][c] ? pr : best[i][c];
+          }
+        }
+    }
+  }
+  __syncthreads();  // every warp is done with the ring
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      s.u.ep.val[ty * 4 + i][dcol(tx, c)] = best[i][c];
+      if constexpr (IDS)
+        s.u.ep.id[ty * 4 + i][dcol(tx, c)] =
+            static_cast<uint8_t>(pos[i] >> (8 * c));
+    }
 }
 
 // The family candidate of a heavy row j (FAM: an item of its own) for the
@@ -631,6 +836,21 @@ __device__ __forceinline__ void heavy_max_arg(const VitArgsT<true, T>& p,
     s.u.ep.val[0][tid] = v;
     s.u.ep.id[0][tid] = static_cast<uint8_t>(id);
   }
+}
+
+// The slot frame f of a K7n launch is saved in, or -1.
+template <class T>
+__device__ __forceinline__ int save_slot(const VitArgs<T>& p, int f) {
+  return (f + 1) % p.stride == 0 ? (f + 1) / p.stride - 1 : -1;
+}
+
+// Where frame f's state is kept: K7's ping-pong pair, or K7n's saved frames
+// when it saves every frame.
+template <bool IDS, class T>
+__device__ __forceinline__ T* state_of(const VitArgs<T>& p, int f,
+                                       size_t SB) {
+  if (!IDS && p.stride == 1) return p.save + static_cast<size_t>(f) * SB;
+  return p.work + (f % 2) * SB;
 }
 
 // One work item of frame t over one (row tile, column tile): a heavy row's
@@ -701,31 +921,35 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
     s.rows[tid] = static_cast<int>(j);
   }
   if (is_tier) {
-    IBits<T> best[4][4];  // the bits of the running max
-    int gid[4][4];
+    if constexpr (is_f64<T>()) {
+      tier_dbl<VEC, IDS>(p, s, prev, sc, k, dbase, b0);
+    } else {
+      int best[4][4];  // the bits of the running max
+      int gid[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        best[i][c] = -1;  // below every product's bits: the first group enters
-        gid[i][c] = -1;
+        for (int c = 0; c < 4; ++c) {
+          best[i][c] = -1;  // below every product's bits: the first group enters
+          gid[i][c] = -1;
+        }
+      for (long long s0 = 0; s0 < m.Sm; s0 += SC) {
+        stage_tier<VEC>(p, s, prev, sc, k, dbase, b0, s0, once);
+        const long long nS = m.Sm - s0 < SC ? m.Sm - s0 : SC;
+        tier_max_arg<IDS>(s, static_cast<int>((nS + GS - 1) / GS), s0, best,
+                          gid);
+        __syncthreads();  // the resident operands are free
       }
-    for (long long s0 = 0; s0 < m.Sm; s0 += SC<T>) {
-      stage_tier<VEC>(p, s, prev, sc, k, dbase, b0, s0, once);
-      const long long nS = m.Sm - s0 < SC<T> ? m.Sm - s0 : SC<T>;
-      tier_max_arg<IDS>(s, static_cast<int>((nS + GS - 1) / GS), s0, best,
-                        gid);
-      __syncthreads();  // the resident operands are free
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s.u.ep.val[ty * 4 + i][tx + 16 * c] = of_ibits(best[i][c]);
+          if constexpr (IDS)
+            s.u.ep.id[ty * 4 + i][tx + 16 * c] =
+                static_cast<uint8_t>(-gid[i][c] - 1);
+        }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s.u.ep.val[ty * 4 + i][tx + 16 * c] = of_ibits(best[i][c]);
-        if constexpr (IDS)
-          s.u.ep.id[ty * 4 + i][tx + 16 * c] =
-              static_cast<uint8_t>(-gid[i][c] - 1);
-      }
   }
   if constexpr (FAM)
     if (is_heavy)
@@ -742,44 +966,51 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
   T colmax[4] = {T(0), T(0), T(0), T(0)};
   OKey<T> okey[4] = {key_zero<T>(), key_zero<T>(), key_zero<T>(),
                      key_zero<T>()};
-  // rows in pairs: a pair's own rows and first PB band terms (weight and
-  // state row) are all loaded before any is used
-#pragma unroll
-  for (int i0 = 0; i0 < 4; i0 += 2) {
-    V4<T> pv[2], xb[2][PB];
-    T wb[2][PB];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = s.rows[ty * 4 + i0 + h];
-      pv[h] = j >= 0 ? load4_hint<VEC>(prev + static_cast<size_t>(j) * B,
-                                       bcol, B, once)
-                     : zero4<T>();
+  if constexpr (is_f64<T>()) {
+    // rows one at a time (a pair's doubles held at once spilled): the
+    // row's state, first PB band terms and emission loaded before any is
+    // used; the rescaled state a not held (frame 0's read again where y
+    // needs it), the phony row's value read from shared memory, and each
+    // family term merged as it comes (below).  The column scales: held in
+    // registers, or (FAM) read from shared memory at each use: the family
+    // instantiations spilled holding them (3-6 % slower than a 12-24-byte
+    // spill, PERF.md section 6)
+    auto scl = [&](int c) {
+      if constexpr (FAM)
+        return bcol + c < B ? sc[bcol + c] : T(0);
+      else
+        return scv[c];
+    };
+#pragma unroll 1
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i, j = s.rows[r];
+      if (j < 0) continue;
+      const size_t jB = static_cast<size_t>(j) * B;
+      const V4<T> pv = load4_hint<VEC>(prev + jB, bcol, B, once);
+      V4<T> xb[PB];
+      T wb[PB];
 #pragma unroll
       for (int o = 0; o < PB; ++o) {
         const int src = j - m.off[o];
-        const bool ok = j >= 0 && j < RW && o < m.nO && m.off[o] != 0 &&
-                        src >= 0 && src < RW;
-        wb[h][o] = ok ? p.band_w[static_cast<size_t>(o) * m.Sp + j] : T(0);
-        xb[h][o] = ok ? load4_hint<VEC>(prev + static_cast<size_t>(src) * B,
-                                        bcol, B, once)
-                      : zero4<T>();
+        const bool ok = j < RW && o < m.nO && m.off[o] != 0 && src >= 0 &&
+                        src < RW;
+        wb[o] = ok ? p.band_w[static_cast<size_t>(o) * m.Sp + j] : T(0);
+        xb[o] = ok ? load4_hint<VEC>(prev + static_cast<size_t>(src) * B,
+                                     bcol, B, once)
+                   : zero4<T>();
       }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = ty * 4 + i0 + h, j = s.rows[r];
-      if (j < 0) continue;
-      const size_t jB = static_cast<size_t>(j) * B;
       const V4<T> e =
           load4<VEC>(ext_t + static_cast<size_t>(s.grp[r]) * B, bcol, B);
       const T om = p.omega[j];
-      T a[4];
+      // the rescaled state a (the phony row of the frame before is never
+      // stored: derived)
+      auto a_of = [&](const V4<T>& v, int c) {
+        return (j == m.fin ? (bcol + c < B ? pf[bcol + c] : T(0)) : get(v, c)) *
+               scl(c);
+      };
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        // the phony row of the frame before is never stored: derived
-        a[c] = (j == m.fin ? pfv[c] : get(pv[h], c)) * scv[c];
-        okey[c] = key_max(okey[c], omega_key(om * a[c], j));
-      }
+      for (int c = 0; c < 4; ++c)
+        okey[c] = key_max(okey[c], omega_key(om * a_of(pv, c), j));
       const bool main_row = j < RW;
       T vb[4] = {T(0), T(0), T(0), T(0)};
       int cb[4] = {NO_CAND, NO_CAND, NO_CAND, NO_CAND};
@@ -792,17 +1023,17 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
           const int src = j - m.off[o];
           if (src < 0 || src >= RW) continue;  // no arc from outside
           const T w = o < PB && m.off[o] != 0
-                          ? wb[h][o < PB ? o : 0]
+                          ? wb[o < PB ? o : 0]
                           : p.band_w[static_cast<size_t>(o) * m.Sp + j];
           const V4<T> x =
-              m.off[o] == 0 ? pv[h]
-              : o < PB      ? xb[h][o < PB ? o : 0]
+              m.off[o] == 0 ? pv
+              : o < PB      ? xb[o < PB ? o : 0]
                             : load4_hint<VEC>(
                                   prev + static_cast<size_t>(src) * B, bcol,
                                   B, once);
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            const T v = w * (get(x, c) * scv[c]);
+            const T v = w * (get(x, c) * scl(c));
             if (v > vb[c]) {
               vb[c] = v;
               cb[c] = cb0 + o;
@@ -821,9 +1052,14 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
         }
         if constexpr (FAM) {  // the row's few family terms, pulled here
           if (!is_heavy) {
-            T fv[4] = {T(-1), T(-1), T(-1), T(-1)};
-            int fid[4] = {NO_CAND, NO_CAND, NO_CAND, NO_CAND};
+            // each term merged as it comes: it takes the candidate where
+            // it is larger, or (IDS) equal to a family term's of a larger
+            // id: "the family's max, its smallest id among equal terms,
+            // merged with a strict >" without holding the family's own
+            // candidate (bit c of fam: the candidate is a family term's)
+            unsigned fam = 0u;
             const int e1 = s.fr[r].y;
+#pragma unroll 1
             for (int q = s.fr[r].x; q < e1; ++q) {
               const T w = p.f.fam_w[q];
               const int id = IDS ? p.f.fam_cid[q] : 0;
@@ -832,35 +1068,40 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
                   once);
 #pragma unroll
               for (int c = 0; c < 4; ++c) {
-                const T v = w * (get(x, c) * scv[c]);
-                if (fam_beats<IDS>(v, id, fv[c], fid[c])) {
-                  fv[c] = v;
-                  fid[c] = id;
+                const T v = w * (get(x, c) * scl(c));
+                if (v > vb[c] ||
+                    (IDS && v == vb[c] && (fam >> c & 1u) && id < cb[c])) {
+                  vb[c] = v;
+                  cb[c] = id;
+                  fam |= 1u << c;
                 }
               }
             }
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              if (fv[c] > vb[c]) {
-                vb[c] = fv[c];
-                cb[c] = fid[c];
-              }
           }
         }
+      }
+      if (first) {  // frame 0 keeps a: its state row read again
+        const V4<T> pv0 = load4_hint<VEC>(prev + jB, bcol, B, once);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) vb[c] = a_of(pv0, c);
       }
       T y[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        y[c] = (first ? a[c] : vb[c]) * get(e, c);
+        y[c] = vb[c] * get(e, c);
         colmax[c] = fmax_(colmax[c], y[c]);
       }
       if (first || j != m.fin) {
-        store4_hint<VEC>(out + jB, bcol, B, make4<T>(y[0], y[1], y[2], y[3]),
-                         keep);
+        // the frame's state and K7n's checkpoint slot from t here, not
+        // held across the item (the family instantiations spilled them)
+        const size_t SB = static_cast<size_t>(m.Sp) * B;
+        store4_hint<VEC>(state_of<IDS>(p, t, SB) + jB, bcol, B,
+                         make4<T>(y[0], y[1], y[2], y[3]), keep);
         if constexpr (!IDS)
-          if (ck != nullptr)
-            store4_hint<VEC>(ck + jB, bcol, B,
-                             make4<T>(y[0], y[1], y[2], y[3]), once);
+          if (p.stride > 1 && save_slot(p, t) >= 0)
+            store4_hint<VEC>(
+                p.save + static_cast<size_t>(save_slot(p, t)) * SB + jB,
+                bcol, B, make4<T>(y[0], y[1], y[2], y[3]), once);
       }
       if (IDS && main_row) {
         if constexpr (VEC) {
@@ -874,6 +1115,143 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
 #pragma unroll
           for (int c = 0; c < 4; ++c)
             if (bcol + c < B) bp_t[jB + bcol + c] = static_cast<uint8_t>(cb[c]);
+        }
+      }
+    }
+  } else {
+    // rows in pairs: a pair's own rows and first PB band terms (weight and
+    // state row) are all loaded before any is used
+#pragma unroll
+    for (int i0 = 0; i0 < 4; i0 += 2) {
+      V4<T> pv[2], xb[2][PB];
+      T wb[2][PB];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = s.rows[ty * 4 + i0 + h];
+        pv[h] = j >= 0 ? load4_hint<VEC>(prev + static_cast<size_t>(j) * B,
+                                         bcol, B, once)
+                       : zero4<T>();
+#pragma unroll
+        for (int o = 0; o < PB; ++o) {
+          const int src = j - m.off[o];
+          const bool ok = j >= 0 && j < RW && o < m.nO && m.off[o] != 0 &&
+                          src >= 0 && src < RW;
+          wb[h][o] = ok ? p.band_w[static_cast<size_t>(o) * m.Sp + j] : T(0);
+          xb[h][o] = ok ? load4_hint<VEC>(prev + static_cast<size_t>(src) * B,
+                                          bcol, B, once)
+                        : zero4<T>();
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = ty * 4 + i0 + h, j = s.rows[r];
+        if (j < 0) continue;
+        const size_t jB = static_cast<size_t>(j) * B;
+        const V4<T> e =
+            load4<VEC>(ext_t + static_cast<size_t>(s.grp[r]) * B, bcol, B);
+        const T om = p.omega[j];
+        T a[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          // the phony row of the frame before is never stored: derived
+          a[c] = (j == m.fin ? pfv[c] : get(pv[h], c)) * scv[c];
+          okey[c] = key_max(okey[c], omega_key(om * a[c], j));
+        }
+        const bool main_row = j < RW;
+        T vb[4] = {T(0), T(0), T(0), T(0)};
+        int cb[4] = {NO_CAND, NO_CAND, NO_CAND, NO_CAND};
+        if (main_row) {
+          int cb0 = static_cast<int>(m.Sm);
+          if constexpr (FAM) cb0 = s.fr[r].z;
+#pragma unroll
+          for (int o = 0; o < MAX_BANDS; ++o) {
+            if (o >= m.nO) break;  // uniform across the block
+            const int src = j - m.off[o];
+            if (src < 0 || src >= RW) continue;  // no arc from outside
+            const T w = o < PB && m.off[o] != 0
+                            ? wb[h][o < PB ? o : 0]
+                            : p.band_w[static_cast<size_t>(o) * m.Sp + j];
+            const V4<T> x =
+                m.off[o] == 0 ? pv[h]
+                : o < PB      ? xb[h][o < PB ? o : 0]
+                              : load4_hint<VEC>(
+                                    prev + static_cast<size_t>(src) * B, bcol,
+                                    B, once);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const T v = w * (get(x, c) * scv[c]);
+              if (v > vb[c]) {
+                vb[c] = v;
+                cb[c] = cb0 + o;
+              }
+            }
+          }
+          if (is_tier || is_heavy) {  // a heavy row's: its family candidate
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const T tv = s.u.ep.val[r][tx * 4 + c];
+              if (tv > vb[c]) {
+                vb[c] = tv;
+                if constexpr (IDS) cb[c] = s.u.ep.id[r][tx * 4 + c];
+              }
+            }
+          }
+          if constexpr (FAM) {  // the row's few family terms, pulled here
+            if (!is_heavy) {
+              T fv[4] = {T(-1), T(-1), T(-1), T(-1)};
+              int fid[4] = {NO_CAND, NO_CAND, NO_CAND, NO_CAND};
+              const int e1 = s.fr[r].y;
+              for (int q = s.fr[r].x; q < e1; ++q) {
+                const T w = p.f.fam_w[q];
+                const int id = IDS ? p.f.fam_cid[q] : 0;
+                const V4<T> x = load4_hint<VEC>(
+                    prev + static_cast<size_t>(p.f.fam_src[q]) * B, bcol, B,
+                    once);
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                  const T v = w * (get(x, c) * scv[c]);
+                  if (fam_beats<IDS>(v, id, fv[c], fid[c])) {
+                    fv[c] = v;
+                    fid[c] = id;
+                  }
+                }
+              }
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                if (fv[c] > vb[c]) {
+                  vb[c] = fv[c];
+                  cb[c] = fid[c];
+                }
+            }
+          }
+        }
+        T y[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          y[c] = (first ? a[c] : vb[c]) * get(e, c);
+          colmax[c] = fmax_(colmax[c], y[c]);
+        }
+        if (first || j != m.fin) {
+          store4_hint<VEC>(out + jB, bcol, B, make4<T>(y[0], y[1], y[2], y[3]),
+                           keep);
+          if constexpr (!IDS)
+            if (ck != nullptr)
+              store4_hint<VEC>(ck + jB, bcol, B,
+                               make4<T>(y[0], y[1], y[2], y[3]), once);
+        }
+        if (IDS && main_row) {
+          if constexpr (VEC) {
+            if (bcol < B)
+              st_cs_u32(bp_t + jB + bcol,
+                        static_cast<unsigned>(cb[0]) |
+                            (static_cast<unsigned>(cb[1]) << 8) |
+                            (static_cast<unsigned>(cb[2]) << 16) |
+                            (static_cast<unsigned>(cb[3]) << 24));
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (bcol + c < B) bp_t[jB + bcol + c] = static_cast<uint8_t>(cb[c]);
+          }
         }
       }
     }
@@ -900,21 +1278,6 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
       atomicMax(p.omk + at, key);
   }
   __syncthreads();  // the tables and the union are free for the next item
-}
-
-// The slot frame f of a K7n launch is saved in, or -1.
-template <class T>
-__device__ __forceinline__ int save_slot(const VitArgs<T>& p, int f) {
-  return (f + 1) % p.stride == 0 ? (f + 1) / p.stride - 1 : -1;
-}
-
-// Where frame f's state is kept: K7's ping-pong pair, or K7n's saved frames
-// when it saves every frame.
-template <bool IDS, class T>
-__device__ __forceinline__ T* state_of(const VitArgs<T>& p, int f,
-                                       size_t SB) {
-  if (!IDS && p.stride == 1) return p.save + static_cast<size_t>(f) * SB;
-  return p.work + (f % 2) * SB;
 }
 
 // K7n's record of frame f (CTA 0, column b): its scale and its phony row
@@ -1269,12 +1632,13 @@ int vit_fwd_noid(const void* a0, const void* s0, const void* ext,
 
 // K7's layout at batch B and Nf frames in float (f64 == 0) or double: out[0]
 // the bytes of the zeroed scratch mm_vit_fwd takes, out[1] the tier
-// candidates per max group (GS).
+// candidates per id compare (float: a max group, GS; double: 1, every
+// candidate compared with the running max).
 extern "C" int mm_vit_layout(int B, int Nf, int f64, long long* out) {
   const long long n = vit_scratch_bytes(B, Nf, f64 != 0);
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   out[0] = n;
-  out[1] = GS;
+  out[1] = f64 ? 1 : GS;
   return static_cast<int>(cudaSuccess);
 }
 
@@ -1302,7 +1666,8 @@ extern "C" int mm_vit_ctas(int vec, int ids, int fam, int f64, int B) {
 // capped layout (imeta's overflow rows, family terms or heavy rows) takes
 // the family instantiation, its tables at the addresses of ilay
 // (vit_scan._vlayout); the uniform one does not read ilay.  f64 != 0: every
-// value (a0 .. omega, work, scale .. comp, the family weights) is double.
+// value (a0 .. omega, work, scale .. comp, the family weights) is double,
+// and Wt is the panels as they are, (K, Sm, D).
 extern "C" int mm_vit_fwd(
     const void* a0, const void* ext, const void* mshift, const void* band_w,
     const void* Wt, const void* omega, const int* band_rows,

@@ -48,10 +48,11 @@ launches the kernel for CUDA tensors; anything else raises.
 A float64 graph (``compile_fsm(dtype=torch.float64)``; the JAX package
 decodes those in XLA, its K7 takes float32) takes the float64 instantiation
 of K7, K7n and W2: the panels, bands, family weights, ω, states, scales and
-emissions in float64, the tier's rule on the products' 64 bits, the ω
-argmax as a pair of words (``csrc/vit_scan.cu``); the ids, the queue, the
-walk over the ids and its tables do not depend on the dtype.  A float32
-graph keeps float32 panels in every precision mode.
+emissions in float64, the ω argmax as a pair of words, the tier's running
+(max, position) compared on the FP64 pipe through a stage ring of its own
+(``csrc/vit_scan.cu`` tier_dbl); the ids, the queue, the walk over the ids
+and its tables do not depend on the dtype.  A float32 graph keeps float32 panels in every
+precision mode.
 
 Values: the state is stored unscaled with a per-column power-of-two scale
 applied when the next frame reads it, as in K2 (ops/block_scan.py).  The
@@ -68,7 +69,11 @@ and group moving only where a group's max is strictly greater, then the
 first position of the winning group whose product equals the max.  It
 gives the ids of "strict >, smallest position among equal maxima" bit for
 bit (``tests/test_torch_vit_plan.py`` holds a torch emulation of the rule
-to ``block_matvec_max_arg`` and to the JAX kernel).
+to ``block_matvec_max_arg`` and to the JAX kernel).  The float64 tier
+keeps a running (max, first position) per output candidate by candidate,
+its compares as doubles on the FP64 pipe, and stages the untransposed
+panels and the state rows through a ``cp.async`` ring
+(``tests/test_torch_vit_f64_tier.py`` emulates its maps and its rule).
 """
 from __future__ import annotations
 
@@ -176,7 +181,8 @@ def layout(B: int, n_frames: int, f64: bool = False) -> tuple:
     zeroed scratch the sweep carves its per-frame column maxima, omega keys
     (in float64 also the ω pairs' j-words, the zero j-words and the pairs'
     locks), queue positions and barrier words from, and the tier
-    candidates per max group."""
+    candidates per id compare (float32 a max group; float64 1: every
+    candidate is compared with the running max)."""
     from . import _build
 
     out = (ctypes.c_longlong * 2)()
@@ -316,15 +322,19 @@ def vit_plan(kop, B: int) -> VitPlan:
 
 
 def _panels_t(kop) -> torch.Tensor:
-    """(K, D, Sm4) the tier panels transposed in their dtype (float32, or
-    float64), each destination's column contiguous and zero-padded to a
-    multiple of 4 positions (K7 copies them to shared memory 16 bytes at a
-    time); cached on ``kop``."""
+    """The tier panels as K7 stages them, cached on ``kop``: float32 (K, D,
+    Sm4) transposed, each destination's column contiguous and zero-padded
+    to a multiple of 4 positions (copied to shared memory 16 bytes at a
+    time); float64 (K, Sm, D) as they are (the double tier stages [s][d]
+    rows, ``csrc/vit_scan.cu`` tier_dbl)."""
     Wt = kop.plans.get("vit_panels")
     if Wt is None:
         K, Sm, D = kop.fwd.W.shape
-        Wt = kop.fwd.W.new_zeros((K, D, -(-Sm // 4) * 4))
-        Wt[:, :, :Sm] = kop.fwd.W.transpose(1, 2)
+        if kop.fwd.W.dtype == torch.float64:
+            Wt = kop.fwd.W.contiguous()
+        else:
+            Wt = kop.fwd.W.new_zeros((K, D, -(-Sm // 4) * 4))
+            Wt[:, :, :Sm] = kop.fwd.W.transpose(1, 2)
         kop.plans["vit_panels"] = Wt
     return Wt
 

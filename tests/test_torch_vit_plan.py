@@ -12,10 +12,13 @@ products' float bits as ints.
 The emulation is held bit for bit to ``block_matvec_max_arg``'s tie rule on
 inputs with many exact ties, an all-zero column and denormal products, and,
 inside the plain sweep, to the JAX package's K7 in interpret mode
-(``pallas_block.block_fused_viterbi_fwd``).  The float64 instantiation's
-rule (64 positions a pass, the maxima on the products' 64 bits as int64)
-is held the same way to the float64 plain twin, on float64 ties and
-float64 denormals, and inside the float64 plain sweep; and a torch
+(``pallas_block.block_fused_viterbi_fwd``).  The rule in float64 (groups
+of 1, the float64 kernel's running max compared candidate by candidate,
+and the float design's larger groups; the maxima on the products as
+doubles or on their 64 bits as int64) is held the same way to the float64
+plain twin, on float64 ties and float64 denormals, and inside the float64
+plain sweep (``tests/test_torch_vit_f64_tier.py`` emulates the float64
+kernel's thread and ring maps); and a torch
 emulation of its ω argmax (a pair of words per copy under a lock for the
 positive products, an atomic max of the j-word for the zero ones, items
 in any order) to the twin's smallest argmax.  Graph: the 2M-arc (V=128)
@@ -40,7 +43,7 @@ from markovmodels_tpu_torch.ops import vit_scan as vs
 from _torch_port import compile_port, inputs, jax_compiled, port_lm_graph
 
 SC = 128  # positions resident per pass (csrc/vit_scan.cu)
-SC64 = 64  # the same in the float64 instantiation (the same bytes)
+SC64 = 16  # positions of a float64 stage (csrc/vit_scan.cu DV)
 GROUPS = [1, 4, 8, 32]
 BATCHES = [128, 126, 5]
 
@@ -233,9 +236,11 @@ def test_grouped_rule_matches_the_tie_rule(g, Sm, bits):
 @pytest.mark.parametrize("g", GROUPS)
 @pytest.mark.parametrize("Sm", [128, 200])
 def test_float64_grouped_rule_matches_the_tie_rule(g, Sm, bits):
-    """The float64 instantiation's rule (64 positions a pass, the maxima on
-    the products' 64 bits) bit-equal to ``_tier_max_arg`` in float64 on
-    float64 ties and denormal products; Sm = 200 takes four passes."""
+    """The rule in float64 (stages of 16 positions, the float64 kernel's;
+    g = 1 is its running max per candidate; the maxima on the products as
+    doubles, or on their 64 bits) bit-equal to ``_tier_max_arg`` in
+    float64 on float64 ties and denormal products; Sm = 200 takes 13
+    stages."""
     W, X = _tied_inputs(Sm, seed=3 * g + Sm, dtype=np.float64)
     prod = W[1, :, 3] * X[1, :, 2]
     assert ((prod > 0) & (prod < torch.finfo(torch.float64).tiny)).any()
@@ -351,10 +356,11 @@ def test_grouped_rule_in_the_sweep_matches_jax_k7(k7_pair, g, monkeypatch):
 
 def test_float64_grouped_rule_in_the_float64_sweep():
     """The float64 plain sweep with the tier rule replaced by the float64
-    emulation (64 positions a pass, on the products' 64 bits) gives the
-    float64 twin's ids and ω argmaxes bit for bit, on the 2M-arc graph
-    compiled float64 (B=8, N=7, mixed lengths with 1, ±30-nat cliffs); the
-    JAX package's K7 refuses float64, so the twin is the reference."""
+    kernel's (the running max per candidate, g = 1, compared as doubles)
+    gives the float64 twin's ids and ω argmaxes bit for bit, on the 2M-arc
+    graph compiled float64 (B=8, N=7, mixed lengths with 1, ±30-nat
+    cliffs); the JAX package's K7 refuses float64, so the twin is the
+    reference."""
     ct = compile_port(*port_lm_graph(128)[:3], strategy="block",
                       dtype=torch.float64)
     lhs, lens = inputs(8, 7, ct.num_pdfs, seed=23,
@@ -363,7 +369,7 @@ def test_float64_grouped_rule_in_the_float64_sweep():
     bt, ft, *rest = vs.viterbi_fwd_plain(ct, ext, msh)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tbl, "_tier_max_arg",
-                   lambda W, X: grouped_max_arg(W, X, 8, sc=SC64, bits=True))
+                   lambda W, X: grouped_max_arg(W, X, 1, sc=SC64))
         be, fe, *rest_e = vs.viterbi_fwd_plain(ct, ext, msh)
     assert torch.equal(be, bt) and torch.equal(fe, ft)
     assert all(torch.equal(x, y) for x, y in zip(rest, rest_e))
