@@ -31,9 +31,16 @@ seed 0, every length N):
   64-frame recompute from checkpoint 8 (``--runs`` warm times each, CUDA
   events), ``noid_sums`` float64 sums of both sweeps' outputs (the saved
   states and scales, the last state and scale, the carried sums), and
-  ``noid_twin``: the recompute bit-equal to its plain twin;
+  ``noid_twin``: the recompute bit-equal to its plain twin; with
+  ``--split`` too, ``noid_split_us``: K7n's frame split on that input
+  (the checkpoint sweep's form, stride 64);
+* with ``--decode``, ``decode_ms``: ``viterbi`` at B=128, N=1,024 past the
+  id budget (the chunk-recompute decode: K7n and W2; ``normal·0.5`` from
+  seed 1), one warm-up and ``--runs`` runs on the host clock to a
+  synchronize, and their ``decode_median``;
 * with ``--ptxas FILE``, the library's ``ptxas -v`` report written to
-  FILE (the build of this process: a fresh copy builds its own);
+  FILE where this process built the library (a fresh copy builds its
+  own; a later process finds it built and writes nothing);
 * with ``--split``, ``split_us``: µs per frame of the sweep on the whole
   forward operator and on three cut copies of it
   (``chip_smoke.vit_frame_split``): no tier (the tier's rows taken as band
@@ -222,8 +229,9 @@ def _trace(root, vs, cf, ext, msh) -> dict:
     return out
 
 
-def _noid(vs, cf, P, dt, dev, runs) -> dict:
-    """K7n's checkpoint sweep and one recompute at B=128, N=1,024."""
+def _noid(vs, cf, P, dt, dev, runs, split=False) -> dict:
+    """K7n's checkpoint sweep and one recompute at B=128, N=1,024 (with
+    ``split``, its frame split)."""
     import numpy as np
     import torch
 
@@ -247,14 +255,44 @@ def _noid(vs, cf, P, dt, dev, runs) -> dict:
     torch.cuda.synchronize()
     twin = all(torch.equal(x, y) for x, y in zip(out, plain))
     sums = [float(t.double().sum()) for t in (*ck, *out)]
-    return {"noid_ms": t_ck, "noid_mean": sum(t_ck) / len(t_ck),
-            "rec_ms": t_rec, "rec_mean": sum(t_rec) / len(t_rec),
-            "noid_sums": sums, "noid_twin": twin}
+    row = {"noid_ms": t_ck, "noid_mean": sum(t_ck) / len(t_ck),
+           "rec_ms": t_rec, "rec_mean": sum(t_rec) / len(t_rec),
+           "noid_sums": sums, "noid_twin": twin}
+    if split:
+        from chip_smoke import vit_frame_split
+
+        del ck, out, plain
+        row["noid_split_us"] = vit_frame_split(cf, ext, msh, ids=False,
+                                               stride=K)
+    return row
+
+
+def _decode(mt, cf, P, dt, dev, runs) -> dict:
+    """``viterbi`` at B=128, N=1,024 (past the id budget), host ms."""
+    import time
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1)
+    B, N = 128, 1024
+    lhs = torch.from_numpy(
+        (rng.normal(size=(B, N, P)) * 0.5).astype(np.float32)).to(dev, dt)
+    lens = torch.full((B,), N, dtype=torch.int32, device=dev)
+    ts = []
+    for _ in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mt.viterbi(cf, lhs, lens)
+        torch.cuda.synchronize()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    ts = ts[1:]  # the first is the warm-up
+    return {"decode_ms": ts, "decode_median": sorted(ts)[len(ts) // 2]}
 
 
 def main(root: str, runs: int, split: bool, trace: bool = False,
          graph: str = "2m", f64: bool = False, noid: bool = False,
-         ptxas: str = "") -> dict:
+         ptxas: str = "", decode: bool = False) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     sys.path.insert(1, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
@@ -271,7 +309,7 @@ def main(root: str, runs: int, split: bool, trace: bool = False,
         raise RuntimeError(f"imported {mt.__file__}, not the copy at {root}")
     dev = torch.device("cuda:0")
     _build.library()
-    if ptxas:
+    if ptxas and _build.PTXAS_LOG:  # this process built the library
         with open(ptxas, "w") as f:
             f.write(_build.PTXAS_LOG)
     dt = torch.float64 if f64 else torch.float32
@@ -315,7 +353,9 @@ def main(root: str, runs: int, split: bool, trace: bool = False,
         row["trace"] = _trace(root, vs, cf, ext, msh)
     if noid:
         del ext, msh, e2, m2
-        row.update(_noid(vs, cf, P, dt, dev, runs))
+        row.update(_noid(vs, cf, P, dt, dev, runs, split))
+    if decode:
+        row.update(_decode(mt, cf, P, dt, dev, runs))
     return row
 
 
@@ -329,6 +369,7 @@ if __name__ == "__main__":
     ap.add_argument("--f64", action="store_true")
     ap.add_argument("--noid", action="store_true")
     ap.add_argument("--ptxas", default="")
+    ap.add_argument("--decode", action="store_true")
     a = ap.parse_args()
     print(json.dumps(main(a.root, a.runs, a.split, a.trace, a.graph, a.f64,
-                          a.noid, a.ptxas)), flush=True)
+                          a.noid, a.ptxas, a.decode)), flush=True)

@@ -313,7 +313,14 @@ decode; a general-Ĉ graph has no kernel yet and is refused on the card):
     both block graphs, each call twice and bit-equal, with K7n's
     checkpoints and restart, and this run's float64 K7 frame splits, K7,
     K7 fam. and K7n times and bounds and phase 46's float64 decodes, each
-    beside float32.
+    beside float32;
+54. the float32 K7n, redesigned for Hopper (its tier streamed through a
+    ``cp.async`` ring that the item before fills during its epilogue, the
+    heavy rows four to an item): the ``ptxas`` report of its four
+    instantiations, every instantiation's shared memory against the
+    admission's reckoning, both branches against their twins at B = 128,
+    126 and 124 (twice, ending as K7, checkpoints, restart, chunked
+    decodes equal to one chunk), and its frame split on both block graphs.
 
 Every kernel's entry in the JSON line (K6t, K7n and W2 from phases 32-33,
 the family branch's K7, walk, K7n and W2 from phases 36-37, K2-K4's
@@ -1879,13 +1886,14 @@ def phase_vit_oracle(fsm, spdf, cf, P, dev, n=40, label="phase 16"):
     assert serr <= TOL_VIT_ORACLE, "Viterbi score gate failed"
 
 
-def vit_frame_split(cf, ext, msh, reps=3):
-    """K7 over the whole sweep on the forward operator and on three cut
-    copies of it (``cut_operator(..., direction="fwd")``: no tier, no band
-    offsets, neither: the frame without work), µs per frame, CUDA events,
-    mean of ``reps`` warm runs each.  The sweep takes its operator from the
-    graph's cache, so a cut copy put there is what it runs; the whole one
-    is put back after."""
+def vit_frame_split(cf, ext, msh, reps=3, ids=True, stride=64):
+    """K7 (``ids``; else K7n as the checkpoint sweep runs it, saving every
+    ``stride``-th frame) over the whole sweep on the forward operator and
+    on three cut copies of it (``cut_operator(..., direction="fwd")``: no
+    tier, no band offsets, neither: the frame without work), µs per frame,
+    CUDA events, mean of ``reps`` warm runs each.  The sweep takes its
+    operator from the graph's cache, so a cut copy put there is what it
+    runs; the whole one is put back after."""
     import torch
 
     from markovmodels_tpu_torch.ops import block_scan as bs
@@ -1903,7 +1911,9 @@ def vit_frame_split(cf, ext, msh, reps=3):
                                           direction="fwd")),
                 ("without work", cut_operator(kop, False, False, "fwd"))):
             cf._cache[key] = cut
-            t = cuda_ms(lambda: vs.viterbi_fwd(cf, ext, msh), reps=reps)
+            kw = {} if ids else {"ids": False, "stride": stride}
+            t = cuda_ms(lambda: vs.viterbi_fwd(cf, ext, msh, **kw),
+                        reps=reps)
             out[part] = 1e3 * t / ext.shape[0]
     finally:
         cf._cache[key] = kop
@@ -2359,11 +2369,14 @@ def trop_bounds(dcf, B, Nf):
 
 def noid_traffic(cf, B, Nf, saved, l2_bytes=None):
     """(operations, bytes, peak) of K7n over Nf frames saving ``saved`` of
-    them: K7's work without the id (a multiply and a max per tier
-    candidate, per band candidate a multiply and a max, per family term (a
-    capped layout) a multiply and a max, per state the omega product and
-    max, the emission and the rescale) at PEAK_F32_OPS (PEAK_F64_OPS in
-    float64); the operator with its family tables, the emissions, the
+    them: K7's work without the id (per tier candidate a multiply and a
+    max, the max in float32 half an instruction: a 3-input integer max on
+    the products' bits takes two candidates (VIMNMX3), so 1.5 instructions
+    a candidate, where float64 has no such max and counts 2; per band
+    candidate a multiply and a max, per family term (a capped layout) a
+    multiply and a max, per state the omega product and max, the emission
+    and the rescale) at PEAK_F32_OPS (PEAK_F64_OPS in float64); the
+    operator with its family tables, the emissions, the
     start state and the saved states and scales, each value of its
     dtype's bytes.  Where two slots of the state pass L2
     (``_state_past_l2``), each frame's read of its predecessor beyond the
@@ -2379,7 +2392,8 @@ def noid_traffic(cf, B, Nf, saved, l2_bytes=None):
     nfam = kop.fwd.fam_dst.numel()
     RW = vs._main_region(cf)
     SB, f, past = _state_past_l2(kop, B, l2_bytes)
-    ops = Nf * B * (2 * K * Sm * D + 2 * nO * RW + 2 * nfam + 4 * Sp)
+    tier = 2 if f == 8 else 1.5  # instructions per tier candidate
+    ops = Nf * B * (tier * K * Sm * D + 2 * nO * RW + 2 * nfam + 4 * Sp)
     nbytes = f * (K * Sm * D + nO * Sp + 2 * Sp + Nf * (P1 + 1) * B
                   + Sp * B + saved * (Sp + 1) * B + 8 * B)
     if vs._is_fam(kop):
@@ -3675,6 +3689,121 @@ def phase_vit_f64(cf64, scf64, P, sP, dev, splits, times, bounds, t46,
     return errs
 
 
+def noid_f32_ptxas(log):
+    """{(vec, fam): ptxas entry} of the four float32 K7n
+    ``vit_sweep_kernel<VEC, false, FAM, float>`` instantiations."""
+    return {(int(vec), int(fam)): v for (vec, fam), v in ptxas_entries(
+        log, r"vit_sweep_kernelILb([01])ELb0ELb([01])EfE").items()}
+
+
+def phase_noid_f32(cf, scf, P, sP, dev, card, N=128, h=64,
+                   label="phase 54"):
+    """Phase 54: the float32 K7n redesigned for Hopper (its tier streamed
+    through a ``cp.async`` ring beside the epilogue's tables, the next
+    item's first stages issued before an item's epilogue, the separate-
+    state graph's heavy rows four to an item): the ``ptxas`` report of its
+    four ``vit_sweep_kernel<VEC, false, FAM, float>`` instantiations; the
+    library's shared memory of every instantiation (``mm_vit_smem``)
+    against the admission's reckoning (``vit_scan.smem_bytes``); both
+    branches of K7n against their twins at B = 128, 126 and 124 (the
+    2M-arc graph: uniform; the separate-state graph: the family branch)
+    at N=128 on phase 34's input (lengths 1, 2 and N mixed, ±30-nat
+    cliffs): twice, bit-equal, ending as K7, its stride-64 checkpoints the
+    saved frames, restarted mid-sweep, and at B=124 the chunk-recompute
+    decode with chunk_size 7 and 64 equal to one chunk; only float32 K7n
+    launches, the family ones in the family branch; then K7n's frame split
+    on both graphs (phase 17's input, the checkpoint sweep's form).
+    Returns {"K7n": max |K7n - twin|}."""
+    import importlib
+
+    import torch
+
+    from markovmodels_tpu_torch.ops import _build
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    tvit = importlib.import_module("markovmodels_tpu_torch.viterbi")
+    ents = noid_f32_ptxas(_build.PTXAS_LOG)
+    assert len(ents) == 4, ents  # vec x fam
+    print(f"{label}: ptxas of the float32 K7n vit_sweep_kernel<VEC, false, "
+          "FAM, float> instantiations: " + "; ".join(
+              f"vec={k[0]} fam={k[1]}: {v}" for k, v in sorted(ents.items())))
+    lib = _build.library()
+    smem = {}
+    for ids in (1, 0):
+        for fam in (0, 1):
+            for f64 in (0, 1):
+                for B in (128, 124):
+                    got = lib.mm_vit_smem(ids, fam, f64, B)
+                    want = vs.smem_bytes(B, bool(ids), bool(fam), bool(f64))
+                    assert got == want, (ids, fam, f64, B, got, want)
+                    smem[(ids, fam, f64)] = got
+    print(f"{label}: shared memory of a CTA at B=124 (ids, fam, f64): "
+          + ", ".join(f"{k} {v}" for k, v in smem.items())
+          + " bytes, the library's equal to vit_scan.smem_bytes")
+
+    def same(xs, ys):
+        return all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+    err = 0.0
+    for name, g, P_ in (("2M-arc", cf, P), ("separate-state", scf, sP)):
+        reset_all_launches()
+        fam = name == "separate-state"
+        for B in (128, 126, 124):
+            lhs, lens = vit_inputs(P_, dev, B, N)
+            lens[4] = 2
+            ext, msh = prepare_emissions(lhs, lens, P_)
+            n1 = vs.viterbi_fwd(g, ext, msh, ids=False)
+            n2 = vs.viterbi_fwd(g, ext, msh, ids=False)
+            torch.cuda.synchronize()
+            npl = vs.viterbi_fwd_plain(g, ext, msh, ids=False)
+            k7 = vs.viterbi_fwd(g, ext, msh)
+            ck = vs.viterbi_fwd(g, ext, msh, ids=False, stride=h)
+            mid = dict(a0=n1[0][h - 1], s0=n1[1][h - 1], t0=h)
+            r_k = vs.viterbi_fwd(g, ext[h:], msh[h:], ids=False, **mid)
+            r_p = vs.viterbi_fwd_plain(g, ext[h:], msh[h:], ids=False,
+                                       **mid)
+            fn = g.final_state
+            ok = {"twice": same(n1, n2), "twin": same(n1, npl),
+                  "as K7": (torch.equal(n1[2][fn] * n1[3], k7[2])
+                            and torch.equal(n1[4][0], k7[4])
+                            and torch.equal(n1[4][1], k7[3])),
+                  "checkpoints": (torch.equal(ck[0], n1[0][h - 1::h])
+                                  and torch.equal(ck[1], n1[1][h - 1::h])
+                                  and same(ck[2:], n1[2:])),
+                  "restart": (same(r_k, r_p)
+                              and torch.equal(r_k[0], n1[0][h:]))}
+            err = max(err, max(float((x.double() - y.double()).abs().max())
+                               for x, y in zip(n1, npl)))
+            if B == 124:
+                one = tvit._viterbi_recompute(g, lhs, lens)
+                for k in (7, 64):
+                    ok[f"chunk_size {k}"] = same(
+                        tvit._viterbi_recompute(g, lhs, lens, k), one)
+            print(f"{label}: K7n on the {name} graph B={B} N={N}: "
+                  f"bit-equal {ok}")
+            assert all(ok.values()), f"K7n on the {name} graph: {ok}"
+            del n1, n2, npl, k7, ck, r_k, r_p
+        counts = {k: v for k, v in all_launches().items() if v}
+        famc = dict(vs.LAUNCHES_FAM)
+        print(f"{label}: {name} launches {json.dumps(counts)}, of them in "
+              f"the family branch {json.dumps(famc)}")
+        assert set(counts) <= {"vit_fwd", "vit_fwd_noid", "rec_walk"}, counts
+        assert famc["vit_fwd_noid"] == (counts["vit_fwd_noid"] if fam
+                                        else 0), famc
+    for name, g, P_ in (("2M-arc", cf, P), ("separate-state", scf, sP)):
+        rng = np.random.default_rng(0)
+        lhs = torch.from_numpy(make_inputs(rng, 128, 700, P_)).to(dev)
+        lengths = torch.full((128,), 700, dtype=torch.int32, device=dev)
+        ext, msh = prepare_emissions(lhs, lengths, P_)
+        sp = vit_frame_split(g, ext, msh, ids=False)
+        print(f"{label}: K7n frame split on the {name} graph, us per frame "
+              "(B=128, N=700, stride 64): " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in sp.items()) + f"; {card}")
+        del ext, msh
+    return {"K7n": err}
+
+
 def phase_f64_trop(dcf64, dP, dev, B=128, N=700, label="phase 43"):
     """Phase 43: K6t and W2 in float64 on the V=32 dense decode at B=128,
     N=700 (phase 15's input form in float64: lengths 1, 2N/3 and N mixed,
@@ -4867,6 +4996,8 @@ def main():
          "K7n recompute": (dec64_bounds["K7n recompute"],
                            b_bounds2["K7n recompute"])}, t46, card)
     v64_errs.update({k: max(v64_errs[k], v) for k, v in e53.items()})
+    e54 = phase_noid_f32(cf, scf, P, sP, dev, card)
+    r_errs["K7n"] = max(r_errs["K7n"], e54["K7n"])
 
     block_src = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
     banded_src = "markovmodels_tpu_torch/ops/csrc/banded_scan.cu"

@@ -166,11 +166,37 @@
 // float rule whatever the items' order.  K7n (no ids) keeps the value
 // alone.  The ids, the queue and the walk do not depend on T.
 //
+// The float K7n (IDS = false, T = float) has a tier and a shared layout of
+// its own (VitSmemN): the resident pass exists for K7's id recovery, which
+// re-reads the winning group, and K7n never recovers an id.  So:
+//   * tier_noid streams the contraction: stages of FV positions of the
+//     untransposed panel ([s][d]) and of the gathered state rows ([s][b])
+//     by 16-byte cp.async through a ring of NFS, NFS - 1 stages in flight
+//     while one is reduced, each thread rescaling its own landed chunks in
+//     place; per position a thread's 4 x 4 outputs are outer products of
+//     two 16-byte reads, and the maxima are taken on the products' bits,
+//     two positions per 3-input max (an FMUL and half a VIMNMX3 per
+//     candidate).  Measured slower (PERF.md section 6): stages of 16, a
+//     ring of 3, the frame's first item staged before the frame's end,
+//     4 x 8 outputs a thread with the CTA's halves on the two halves of
+//     each stage, the tier items spread among the band items;
+//   * the ring lies beside the epilogue's tables, not in a union with them,
+//     so an item issues the first NFS - 1 stages of the CTA's next item
+//     (when that is a tier item) before its own epilogue, and they land
+//     while the epilogue runs;
+//   * a capped layout's heavy rows go HP to an item (heavy_noid: 16 / HP
+//     thread rows a row, the partials merged by the max alone), the queue
+//     packed to match (vit_scan.vit_plan(packed=True)); measured no faster:
+//     the packed items after the tier items, their terms 8 in flight or
+//     their sources loaded a round ahead.
+// Its max is order-free (single-rounded products, maxima on their bits),
+// so it gives K7's and the twin's values bit for bit.
+//
 // Conventions: state (Sp, B) row-major T; ext (Nf, P1, B), the emission of
 // state j is ext[t, j / cmax, b] (uniform pdf-grouped layout) or
 // ext[t, row_pdf[j], b] (FAM); ids (Nf, RW, B) uint8; fins (Nf, B) int32;
-// the tier panels (K, D, Sm4) transposed (float) or (K, Sm, D) as they are
-// (double).
+// the tier panels (K, D, Sm4) transposed (K7 in float) or (K, Sm, D) as
+// they are (K7n, and double).
 // Index maps of the tier come from the host as ints: src(k, s) = g0 + k*gk +
 // s*gs, dst(k, d) = d0 + k*dk + d*dd.
 #include <cuda_runtime.h>
@@ -202,10 +228,22 @@ constexpr int DV = 16;
 constexpr int DVP = TB + 2;
 constexpr int NVS = 4;
 constexpr int DVSTAGE = 2 * DV * DVP;  // doubles of one stage
+// The float K7n tier (tier_noid; tests/test_torch_vit_noid_tier.py reads
+// these): stages of FV positions at a pitch of TB floats, NFS of them in
+// the cp.async ring (NFS - 1 in flight while one is reduced); HP heavy rows
+// per family item.
+constexpr int FV = 32;
+constexpr int NFS = 4;
+constexpr int FSTAGE = 2 * FV * TB;  // floats of one stage
+constexpr int FU = FV * TB / 4 / NT;  // chunks of each half a thread copies
+constexpr int HP = 4;
 static_assert(SC % GS == 0 && GS % 4 == 0 && TR == TB, "tier tiles");
 static_assert(DV % 8 == 0 && DVP % 2 == 0 && NVS >= 2 && TR == 64 &&
                   NT == 256,
               "the double tier's layout");
+static_assert(FU >= 1 && FU * NT == FV * TB / 4 && FV % 2 == 0 &&
+                  NFS >= 2 && NT / TB == HP && 16 % HP == 0,
+              "the float K7n tier's layout");
 
 // The omega key of a thread row or an item: float, one ordered 64-bit word
 // (omega_key); double, the value's bits and the j-word 2^32 - 1 - j apart.
@@ -280,6 +318,52 @@ struct VitSmemT<true, T> : VitSmem<T> {
   int3 fr[TR];
 };
 
+// The float K7n's: the epilogue's tables (no ids) and a heavy item's
+// partials in a union, and beside them the tier's stage ring, which the
+// next item's first stages fill while this item's epilogue runs.
+struct VitSmemN {
+  union {
+    struct {
+      float val[TR][TB + 1];
+      unsigned rm[16][TB];
+      unsigned long long rk[16][TB];
+    } ep;
+    struct {  // past ep.val
+      float skip[TR][TB + 1];
+      float v[16][TB];
+    } hv;
+  } u;
+  float R[NFS * FSTAGE];  // stage st in slot st % NFS: [s][d], [s][b]
+  int rows[TR];
+  int grp[TR];
+  int2 next[2];
+};
+template <bool FAM>
+struct VitSmemNT : VitSmemN {};
+template <>
+struct VitSmemNT<true> : VitSmemN {
+  int3 fr[TR];
+};
+
+// The shared memory of an instantiation: the float K7n's own, else the
+// one of its value type.
+template <bool IDS, bool FAM, class T>
+struct SmemOf {
+  using type = VitSmemT<FAM, T>;
+};
+template <bool FAM>
+struct SmemOf<false, FAM, float> {
+  using type = VitSmemNT<FAM>;
+};
+template <bool IDS, bool FAM, class T>
+using VitSmemK = typename SmemOf<IDS, FAM, T>::type;
+
+// The float K7n (no ids, float): the stage ring and packed heavy items.
+template <bool IDS, class T>
+__host__ __device__ constexpr bool noid_f32() {
+  return !IDS && !is_f64<T>();
+}
+
 // The double instantiation's omega scratch beside the keys' words (none for
 // float): per (frame, copy, column) the positive pair's j-word, the zero
 // candidates' j-word and the pair's lock, each zeroed.
@@ -308,10 +392,10 @@ struct VitArgs : OmegaWords<T> {
   const T* ext;     // (Nf, P1, B)
   const T* mshift;  // (Nf, 1, B)
   const T* band_w;  // (nO, Sp)
-  // the tier panels: float (K, D, Sm4) transposed, zero-padded; double
-  // (K, Sm, D) as they are
+  // the tier panels: K7 in float (K, D, Sm4) transposed, zero-padded; K7n
+  // and double (K, Sm, D) as they are
   const T* Wt;
-  long long Sm4;        // Sm rounded up to 4 (float)
+  long long Sm4;        // Sm rounded up to 4 (K7 in float)
   const T* omega;   // (Sp,)
   const int* band_rows;
   const int2* queue;  // (n_items,) item, first row of a band tile or -1
@@ -509,9 +593,8 @@ __device__ __forceinline__ T end_of_frame(const VitArgsT<FAM, T>& p, int t,
 // recovered from the resident operands.  Every product is >= 0 (no NaN),
 // so its float bits order as its value: the maxima are taken on the bits
 // as ints, which the card does three at a time (VIMNMX3: 4 instructions
-// for a group of 8 products, 7 as float maxima), exactly.
-// Without ids (IDS = false) only the running max is kept.
-template <bool IDS>
+// for a group of 8 products, 7 as float maxima), exactly.  (K7n's float
+// tier is tier_noid.)
 __device__ __forceinline__ void tier_max_arg(const VitSmem<float>& s, int nG,
                                              long long s0, int (&best)[4][4],
                                              int (&gid)[4][4]) {
@@ -544,17 +627,12 @@ __device__ __forceinline__ void tier_max_arg(const VitSmem<float>& s, int nG,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        if constexpr (IDS) {
-          if (mx[i][c] > best[i][c]) {
-            best[i][c] = mx[i][c];
-            gid[i][c] = g;
-          }
-        } else {
-          best[i][c] = max(best[i][c], mx[i][c]);
+        if (mx[i][c] > best[i][c]) {
+          best[i][c] = mx[i][c];
+          gid[i][c] = g;
         }
       }
   }
-  if constexpr (!IDS) return;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -779,6 +857,214 @@ __device__ __forceinline__ void tier_dbl(const VitArgs<double>& p,
     }
 }
 
+// Copy stage st of a float K7n tier item (64 destinations d = dbase + 0 ..
+// 63 of panel k by the 64 columns b0 ..) into its slot st % NFS of the
+// ring: positions st * FV .. + FV - 1 of the untransposed panel (W[k, s,
+// dbase + d] at [s][d], under evict_last: every frame reads it) and of the
+// gathered state rows (a[src(k, s), b0 + b] at [s][b], unscaled, past L1
+// under evict_first: another CTA wrote them), zero past Sm, the main
+// region, D and B.  Thread tid copies rows tid / 16 + 16u (u < FU),
+// columns 4 (tid % 16) .. + 3 of both halves: one 16-byte cp.async each,
+// or (D or B not a multiple of 4) four scalar loads.  One commit group.
+template <bool VEC>
+__device__ __forceinline__ void noid_issue(const VitArgs<float>& p, float* R,
+                                           const float* __restrict__ prev,
+                                           long long k, long long dbase,
+                                           int b0, long long st,
+                                           unsigned long long keep,
+                                           unsigned long long once) {
+  const Meta& m = p.m;
+  const int B = p.B, tid = threadIdx.x, cc = (tid % 16) * 4;
+  const long long d = dbase + cc;
+#pragma unroll
+  for (int u = 0; u < FU; ++u) {
+    const int cr = tid / 16 + u * (NT / 16);
+    float* ws = R + (st % NFS) * FSTAGE + cr * TB + cc;
+    float* xs = ws + FV * TB;
+    const long long sp = st * FV + cr;
+    const bool sok = sp < m.Sm;
+    const float* w = p.Wt + (k * m.Sm + (sok ? sp : 0)) * m.D + d;
+    if (m.D % 4 == 0) {
+      cp_async16_hint(ws, sok && d < m.D ? w : p.Wt, sok && d < m.D, keep);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ws[e] = sok && d + e < m.D ? w[e] : 0.f;
+    }
+    const long long j = m.g0 + k * m.gk + sp * m.gs;
+    const bool xok = sok && j < p.RW;  // the main region only
+    const float* x = prev + (xok ? j : 0) * B + b0 + cc;
+    if constexpr (VEC) {
+      cp_async16_hint(xs, xok && b0 + cc < B ? x : prev, xok && b0 + cc < B,
+                      once);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        xs[e] = xok && b0 + cc + e < B ? __ldcg(x + e) : 0.f;
+    }
+  }
+  cp_async_commit();
+}
+
+// The first NFS - 1 stages of the float K7n item of queue entry nq (the
+// CTA's next item) where that is a tier item (nh: the heavy items before
+// the tier tiles); returns whether they were issued.
+template <bool VEC>
+__device__ __forceinline__ bool noid_stage_next(const VitArgs<float>& p,
+                                                float* R,
+                                                const float* __restrict__ prev,
+                                                int2 nq, long long nh,
+                                                unsigned long long keep,
+                                                unsigned long long once) {
+  const Meta& m = p.m;
+  const int ncb = (p.B + TB - 1) / TB;
+  const long long tt = nq.x / ncb - nh, dtiles = (m.D + TR - 1) / TR;
+  if (nq.x < 0 || tt < 0 || tt >= m.n_tier_tiles) return false;
+  const long long nst = (m.Sm + FV - 1) / FV;
+#pragma unroll
+  for (int st = 0; st < NFS - 1; ++st) {
+    if (st < nst)
+      noid_issue<VEC>(p, R, prev, tt / dtiles, (tt % dtiles) * TR,
+                      (nq.x % ncb) * TB, st, keep, once);
+    else
+      cp_async_commit();  // an empty group keeps the count
+  }
+  return true;
+}
+
+// The float K7n tier of one item over its whole contraction, into the
+// epilogue's table ep.val: stages of FV positions through the ring (stages
+// 0 .. NFS - 2 issued here, or by the item before during its epilogue:
+// ``staged``), NFS - 1 in flight while one is reduced, one block barrier
+// a stage; each thread rescales its own state chunks of a landed stage in
+// place by its columns' scales (a power of two: the product a * s of the
+// twin, exactly).  Thread (tx, ty) keeps the max of its 4 x 4 outputs (d =
+// ty*4 + i, b = tx*4 + c: the outputs its epilogue reduces) as outer
+// products per position: two 16-byte reads (its rows' weights, one address
+// per quarter warp; its columns' states, 16 distinct chunks of a row), 16
+// FMULs, and per two positions one 3-input max on the products' bits as
+// ints per output (VIMNMX3: every product is >= 0, no NaN, so its bits
+// order as its value).  The max is order-free, so any order of the stages
+// gives the twin's value bit for bit.
+template <bool VEC>
+__device__ __forceinline__ void tier_noid(const VitArgs<float>& p,
+                                          VitSmemN& s,
+                                          const float* __restrict__ prev,
+                                          const float* sc, long long k,
+                                          long long dbase, int b0,
+                                          bool staged,
+                                          unsigned long long keep,
+                                          unsigned long long once) {
+  const Meta& m = p.m;
+  const int B = p.B, tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int cr = tid / 16, cc = (tid % 16) * 4;  // the thread's chunks
+  float scx[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) scx[e] = b0 + cc + e < B ? sc[b0 + cc + e] : 0.f;
+  const long long nst = (m.Sm + FV - 1) / FV;
+  if (!staged) {
+#pragma unroll
+    for (int st = 0; st < NFS - 1; ++st) {
+      if (st < nst) noid_issue<VEC>(p, s.R, prev, k, dbase, b0, st, keep, once);
+      else cp_async_commit();  // an empty group keeps the count
+    }
+  }
+  int best[4][4];  // the bits of the running max
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) best[i][c] = -1;  // below every product
+#pragma unroll 1
+  for (long long st = 0; st < nst; ++st) {
+    float* stg = s.R + (st % NFS) * FSTAGE;
+    cp_async_wait<NFS - 2>();  // this thread's copies of stage st are in
+#pragma unroll
+    for (int u = 0; u < FU; ++u) {
+      float4* xc = reinterpret_cast<float4*>(
+          stg + FV * TB + (cr + u * (NT / 16)) * TB + cc);
+      const float4 v = *xc;
+      *xc = make_float4(v.x * scx[0], v.y * scx[1], v.z * scx[2],
+                        v.w * scx[3]);
+    }
+    __syncthreads();  // everyone's stage st is in; stage st - 1 is done
+    if (st + NFS - 1 < nst)
+      noid_issue<VEC>(p, s.R, prev, k, dbase, b0, st + NFS - 1, keep, once);
+    else
+      cp_async_commit();
+    const float* Ws = stg + ty * 4;
+    const float* Xs = stg + FV * TB + tx * 4;
+#pragma unroll
+    for (int r = 0; r < FV; r += 2) {
+      const float4 w0 = lds4(Ws + r * TB), x0 = lds4(Xs + r * TB);
+      const float4 w1 = lds4(Ws + (r + 1) * TB), x1 = lds4(Xs + (r + 1) * TB);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          best[i][c] = max(max(best[i][c], ibits(get(w0, i) * get(x0, c))),
+                           ibits(get(w1, i) * get(x1, c)));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      s.u.ep.val[ty * 4 + i][tx * 4 + c] = of_ibits(best[i][c]);
+}
+
+// The family candidates of up to HP heavy rows (the float K7n's packed
+// family item ``tile``: heavy rows tile * HP ..) for the item's 64
+// columns: the 16 / HP thread rows of each row split its terms, each
+// keeping per column the max product w * (a * s); the partials are merged
+// by the max alone (no id: the max is order-free) into rows 0 .. HP - 1 of
+// the epilogue's table, which the rows' epilogue merges after their bands
+// with a strict >.
+template <bool VEC>
+__device__ __forceinline__ void heavy_noid(const VitArgsT<true, float>& p,
+                                           VitSmemNT<true>& s,
+                                           const float* __restrict__ prev,
+                                           const float* sc, long long tile,
+                                           int b0, unsigned long long once) {
+  constexpr int TH = 16 / HP;  // thread rows per heavy row
+  const VitFam<float>& f = p.f;
+  const int B = p.B, tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int bcol = b0 + tx * 4;
+  const long long h = tile * HP + ty / TH;
+  float scv[4], bv[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    scv[c] = bcol + c < B ? sc[bcol + c] : 0.f;
+    bv[c] = -1.f;  // below every product
+  }
+  int q0 = 0, q1 = 0;
+  if (h < p.m.nheavy) {
+    const int j = f.heavy_rows[h];
+    q0 = f.fam_ptr[j];
+    q1 = f.fam_ptr[j + 1];
+  }
+#pragma unroll 4
+  for (int q = q0 + ty % TH; q < q1; q += TH) {
+    const float w = f.fam_w[q];
+    const float4 x = load4_hint<VEC>(
+        prev + static_cast<size_t>(f.fam_src[q]) * B, bcol, B, once);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float v = w * (get(x, c) * scv[c]);
+      bv[c] = v > bv[c] ? v : bv[c];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) s.u.hv.v[ty][tx * 4 + c] = bv[c];
+  __syncthreads();
+  const int r = tid / TB, col = tid % TB;  // heavy row r of the item
+  float v = -1.f;
+#pragma unroll
+  for (int q = 0; q < TH; ++q) {
+    const float u = s.u.hv.v[r * TH + q][col];
+    v = u > v ? u : v;
+  }
+  s.u.ep.val[r][col] = v;
+}
+
 // The family candidate of a heavy row j (FAM: an item of its own) for the
 // item's 64 columns: thread row ty takes every 16th of the row's terms,
 // keeping per column the max product and the smallest id among the terms
@@ -863,21 +1149,30 @@ __device__ __forceinline__ T* state_of(const VitArgs<T>& p, int f,
 // family candidate merged last (heavy_max_arg for a heavy row's tile, the
 // row's own thread for its few terms otherwise), the band ids of an
 // overflow row from its group's base, the emission from the row's pdf.
+// The float K7n (noid_f32): its tier through the stage ring (tier_noid),
+// HP heavy rows to a family item (heavy_noid), and once its own tier or
+// heavy work is done, the first stages of the CTA's next item (the queue
+// entry s.next[par ^ 1]) issued when that is a tier item, so that they land
+// while this item's epilogue runs; ``staged`` says so to the next item.
 template <bool VEC, bool IDS, bool FAM, class T>
 __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
                                          long long tile, int b0, int row0,
-                                         VitSmemT<FAM, T>& s, const T* sc,
-                                         const T* pf,
+                                         VitSmemK<IDS, FAM, T>& s,
+                                         const T* sc, const T* pf,
                                          const T* __restrict__ prev,
                                          T* __restrict__ out,
-                                         T* __restrict__ ck) {
+                                         T* __restrict__ ck, int par,
+                                         bool& staged) {
   const Meta& m = p.m;
   const int B = p.B, RW = p.RW, tid = threadIdx.x, tx = tid % 16,
             ty = tid / 16;
   const int bcol = b0 + tx * 4;  // this thread's epilogue columns
   const bool first = (IDS ? t : p.t0 + t) == 0;
-  const bool is_heavy = FAM && tile < m.nheavy;
-  const long long tt = tile - (FAM ? m.nheavy : 0);  // tier or band tile
+  // heavy items: one row each, or HP rows each in the float K7n
+  const long long nh =
+      noid_f32<IDS, T>() ? (m.nheavy + HP - 1) / HP : m.nheavy;
+  const bool is_heavy = FAM && tile < nh;
+  const long long tt = tile - (FAM ? nh : 0);  // tier or band tile
   const bool is_tier = !is_heavy && tt < m.n_tier_tiles;
   const long long dtiles = (m.D + TR - 1) / TR;
   const long long k = is_tier ? tt / dtiles : 0;
@@ -900,7 +1195,12 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
       if (r < m.nband) j = row0 >= 0 ? row0 + tid : p.band_rows[r];
     }
     if constexpr (FAM) {
-      if (is_heavy && tid == 0) j = p.f.heavy_rows[tile];
+      if constexpr (noid_f32<IDS, T>()) {
+        if (is_heavy && tid < HP && tile * HP + tid < m.nheavy)
+          j = p.f.heavy_rows[tile * HP + tid];
+      } else {
+        if (is_heavy && tid == 0) j = p.f.heavy_rows[tile];
+      }
       int3 fr = make_int3(0, 0, static_cast<int>(m.Sm));
       if (j >= 0) {
         fr.x = p.f.fam_ptr[j];
@@ -923,6 +1223,8 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
   if (is_tier) {
     if constexpr (is_f64<T>()) {
       tier_dbl<VEC, IDS>(p, s, prev, sc, k, dbase, b0);
+    } else if constexpr (!IDS) {
+      tier_noid<VEC>(p, s, prev, sc, k, dbase, b0, staged, keep, once);
     } else {
       int best[4][4];  // the bits of the running max
       int gid[4][4];
@@ -936,8 +1238,8 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
       for (long long s0 = 0; s0 < m.Sm; s0 += SC) {
         stage_tier<VEC>(p, s, prev, sc, k, dbase, b0, s0, once);
         const long long nS = m.Sm - s0 < SC ? m.Sm - s0 : SC;
-        tier_max_arg<IDS>(s, static_cast<int>((nS + GS - 1) / GS), s0, best,
-                          gid);
+        tier_max_arg(s, static_cast<int>((nS + GS - 1) / GS), s0, best,
+                     gid);
         __syncthreads();  // the resident operands are free
       }
 #pragma unroll
@@ -951,11 +1253,19 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
         }
     }
   }
-  if constexpr (FAM)
-    if (is_heavy)
-      heavy_max_arg<VEC, IDS>(p, s, prev, sc, p.f.heavy_rows[tile], b0,
-                              once);
+  if constexpr (FAM) {
+    if (is_heavy) {
+      if constexpr (noid_f32<IDS, T>())
+        heavy_noid<VEC>(p, s, prev, sc, tile, b0, once);
+      else
+        heavy_max_arg<VEC, IDS>(p, s, prev, sc, p.f.heavy_rows[tile], b0,
+                                once);
+    }
+  }
   __syncthreads();
+  if constexpr (noid_f32<IDS, T>())  // the ring is free: the next item's
+    staged = noid_stage_next<VEC>(p, s.R, prev, s.next[par ^ 1], nh, keep,
+                                  once);
 
   T scv[4], pfv[4];
 #pragma unroll
@@ -1302,8 +1612,9 @@ template <bool VEC, bool IDS, bool FAM, class T>
 __global__ void __launch_bounds__(NT, VIT_BLOCKS)
     vit_sweep_kernel(const __grid_constant__ VitArgsT<FAM, T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  VitSmemT<FAM, T>& s = *reinterpret_cast<VitSmemT<FAM, T>*>(smem_raw);
-  T* sc = reinterpret_cast<T*>(smem_raw + sizeof(VitSmemT<FAM, T>));
+  using S = VitSmemK<IDS, FAM, T>;
+  S& s = *reinterpret_cast<S*>(smem_raw);
+  T* sc = reinterpret_cast<T*>(smem_raw + sizeof(S));
   T* pf = sc + p.B;
   const Meta& m = p.m;
   const int B = p.B, ncb = (B + TB - 1) / TB, tid = threadIdx.x;
@@ -1344,10 +1655,11 @@ __global__ void __launch_bounds__(NT, VIT_BLOCKS)
     if (tid == 0) s.next[0] = take();
     __syncthreads();
     int par = 0;
+    bool staged = false;  // the float K7n: this item's first stages issued
     for (int2 q = s.next[0]; q.x >= 0; q = s.next[par]) {
       if (tid == 0) s.next[par ^ 1] = take();
       vit_item<VEC, IDS, FAM>(p, t, q.x / ncb, (q.x % ncb) * TB, q.y, s, sc,
-                              pf, prev, out, ck);
+                              pf, prev, out, ck, par, staged);
       par ^= 1;  // vit_item ends with a block barrier: s.next[par] is set
     }
     grid_sync<SYNC_GEN, 256, true>(p.sync);
@@ -1406,11 +1718,15 @@ __global__ void __launch_bounds__(WALK_THREADS) vit_walk_kernel(
   }
 }
 
-// Dynamic shared memory of one CTA at batch B.
-size_t vit_smem_bytes(int B, bool fam, bool f64) {
+// Dynamic shared memory of one CTA at batch B (ops/vit_scan.py smem_bytes
+// reckons the same).
+size_t vit_smem_bytes(int B, bool ids, bool fam, bool f64) {
   if (f64)
     return (fam ? sizeof(VitSmemT<true, double>) : sizeof(VitSmem<double>)) +
            2 * static_cast<size_t>(B) * sizeof(double);
+  if (!ids)
+    return (fam ? sizeof(VitSmemNT<true>) : sizeof(VitSmemN)) +
+           2 * static_cast<size_t>(B) * sizeof(float);
   return (fam ? sizeof(VitSmemT<true, float>) : sizeof(VitSmem<float>)) +
          2 * static_cast<size_t>(B) * sizeof(float);
 }
@@ -1437,7 +1753,7 @@ const void* vit_kernel(bool vec, bool ids, bool fam, bool f64) {
 cudaError_t vit_co_resident(bool vec, bool ids, bool fam, bool f64, int B,
                             int* n) {
   const void* kern = vit_kernel(vec, ids, fam, f64);
-  const size_t smem = vit_smem_bytes(B, fam, f64);
+  const size_t smem = vit_smem_bytes(B, ids, fam, f64);
   int dev = 0, n_sm = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1499,7 +1815,7 @@ cudaError_t launch(const VitArgs<T>& a, const long long* ilay, bool ids,
   void* args[] = {&arg};
   err = cudaLaunchCooperativeKernel(vit_kernel(vec, ids, FAM, f64),
                                     dim3(n_ctas), dim3(NT), args,
-                                    vit_smem_bytes(a.B, FAM, f64),
+                                    vit_smem_bytes(a.B, ids, FAM, f64),
                                     static_cast<cudaStream_t>(stream));
   return err != cudaSuccess ? err : cudaGetLastError();
 }
@@ -1523,13 +1839,17 @@ bool layout_ok(const Meta& m, const long long* ilay, int RW) {
 }
 
 // The arguments K7 and K7n share, checked; false if any is out of range.
+// ``packed``: the queue's heavy items take HP heavy rows each (the float
+// K7n's plan).
 template <class T>
 bool common_args(VitArgs<T>* a, const long long* imeta, const long long* ilay,
                  int B, int Nf, int RW, int n_items, int n_ctas,
-                 void* scratch, long long scratch_bytes) {
-  if (!parse_meta(imeta, &a->m) || !layout_ok(a->m, ilay, RW) || B <= 0 ||
+                 void* scratch, long long scratch_bytes, bool packed) {
+  if (!parse_meta(imeta, &a->m)) return false;
+  const long long nh = packed ? (a->m.nheavy + HP - 1) / HP : a->m.nheavy;
+  if (!layout_ok(a->m, ilay, RW) || B <= 0 ||
       Nf <= 0 || RW <= 0 || RW > a->m.Sp || a->m.fin < RW || n_ctas <= 0 ||
-      n_items != a->m.n_tiles * ((B + TB - 1) / TB) ||
+      n_items != (a->m.n_tiles - a->m.nheavy + nh) * ((B + TB - 1) / TB) ||
       scratch_bytes != vit_scratch_bytes(B, Nf, is_f64<T>()) ||
       reinterpret_cast<size_t>(scratch) % 8 != 0)
     return false;
@@ -1592,7 +1912,7 @@ int vit_fwd(const void* a0, const void* ext, const void* mshift,
                                queue, n_items, work, scale, ksum, shift,
                                comp);
   if (!common_args(&a, imeta, ilay, B, Nf, RW, n_items, n_ctas, scratch,
-                   scratch_bytes))
+                   scratch_bytes, false))
     return static_cast<int>(cudaErrorInvalidValue);
   a.Sm4 = (a.m.Sm + 3) / 4 * 4;
   a.bps = bps;
@@ -1614,12 +1934,11 @@ int vit_fwd_noid(const void* a0, const void* s0, const void* ext,
                                queue, n_items, work, scale, ksum, shift,
                                comp);
   if (!common_args(&a, imeta, ilay, B, Nf, RW, n_items, n_ctas, scratch,
-                   scratch_bytes) ||
+                   scratch_bytes, !is_f64<T>()) ||
       t0 < 0 || stride <= 0 || n_save != Nf / stride ||
       (n_save > 0 && (save == nullptr || save_scale == nullptr)) ||
       (stride > 1 && work == nullptr) || s0 == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  a.Sm4 = (a.m.Sm + 3) / 4 * 4;
   a.s0 = static_cast<const T*>(s0);
   a.save = static_cast<T*>(save);
   a.save_scale = static_cast<T*>(save_scale);
@@ -1640,6 +1959,14 @@ extern "C" int mm_vit_layout(int B, int Nf, int f64, long long* out) {
   out[0] = n;
   out[1] = f64 ? 1 : GS;
   return static_cast<int>(cudaSuccess);
+}
+
+// Dynamic shared memory of one CTA of the K7 launch (ids != 0) or the K7n
+// one, in the family instantiation (fam != 0) or the uniform one, in double
+// (f64 != 0) or float, at batch B, or minus a CUDA error code.
+extern "C" int mm_vit_smem(int ids, int fam, int f64, int B) {
+  if (B <= 0 || B > (1 << 24)) return -static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(vit_smem_bytes(B, ids != 0, fam != 0, f64 != 0));
 }
 
 // CTAs of the K7 launch (ids != 0) or the K7n one (ids == 0), in the family
@@ -1689,8 +2016,10 @@ extern "C" int mm_vit_fwd(
 // 1 every frame is saved and save is the sweep's state buffer (work may be
 // null); otherwise the sweep runs in work (2, Sp, B).  On return scale is
 // the last frame's; ksum, shift and comp carry on from their values on
-// entry (zero for a sweep from frame 0).  The other arguments as for
-// mm_vit_fwd.
+// entry (zero for a sweep from frame 0).  Wt: the tier panels as they are,
+// (K, Sm, D), in both value types; in float a capped layout's queue takes
+// HP heavy rows to an item (vit_scan.vit_plan(packed=True)).  The other
+// arguments as for mm_vit_fwd.
 extern "C" int mm_vit_fwd_noid(
     const void* a0, const void* s0, const void* ext, const void* mshift,
     const void* band_w, const void* Wt, const void* omega,

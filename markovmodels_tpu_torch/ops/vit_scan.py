@@ -74,6 +74,11 @@ keeps a running (max, first position) per output candidate by candidate,
 its compares as doubles on the FP64 pipe, and stages the untransposed
 panels and the state rows through a ``cp.async`` ring
 (``tests/test_torch_vit_f64_tier.py`` emulates its maps and its rule).
+The float32 K7n needs no id, so its tier streams the untransposed panels
+and the state rows through a ring of its own beside the epilogue's tables,
+the first stages of a CTA's next item issued before the current item's
+epilogue, and a capped layout's heavy rows go four to a work item
+(``vit_plan(packed=True)``; ``tests/test_torch_vit_noid_tier.py``).
 """
 from __future__ import annotations
 
@@ -120,6 +125,19 @@ _NO_CAND = 255
 # the JAX kernel's tier chunk (pallas_block._VIT_KC): kept as an admission
 # predicate so that both packages take the same route for the same graph
 _VIT_KC = 8
+# csrc/vit_scan.cu's layout constants (the tests read them from the source):
+# 64 x 64 items; K7's resident pass of _SC positions at a pitch of _SC + 4
+# floats; the double ring of _DV-position stages at a pitch of _DVP doubles
+# (_NVS slots); the float K7n's ring of _FV-position stages at a pitch of
+# 64 floats (_NFS slots) and its _HEAVY_PACK heavy rows to an item
+_TB = 64
+_SC = 128
+_DV, _DVP, _NVS = 16, _TB + 2, 4
+_FV, _NFS = 32, 4
+_HEAVY_PACK = 4
+# a CTA's shared memory on the card (cudaDevAttrMaxSharedMemoryPerBlockOptin
+# of an H100: 227 KB)
+_SMEM_CTA = 232_448
 
 
 def reset_launch_counts():
@@ -191,19 +209,46 @@ def layout(B: int, n_frames: int, f64: bool = False) -> tuple:
     return int(out[0]), int(out[1])
 
 
+def smem_bytes(B: int, ids: bool = True, fam: bool = False,
+               f64: bool = False) -> int:
+    """Dynamic shared memory of one K7 (``ids``) or K7n CTA at batch ``B``,
+    reckoned as ``csrc/vit_scan.cu`` lays it out (``vit_smem_bytes``; the
+    library's ``mm_vit_smem`` gives the same on the card): a union of the
+    tier's operands (K7 in float32: the resident W and X of _SC positions
+    at a pitch of _SC + 4; float64: the ring of _NVS stages of 2 x _DV x
+    _DVP doubles), the epilogue's tables and a heavy row's partials, or in
+    the float32 K7n the union of the tables (no ids) and the partials
+    beside its ring of _NFS stages of 2 x _FV x 64 floats; then the row
+    and pdf tables of the item's 64 rows and two queue entries, with
+    ``fam`` the rows' family ranges, and two rows of B values (the
+    columns' scales and the phony state of the frame before)."""
+    w = 8 if f64 else 4
+    if f64:
+        u = _NVS * 2 * _DV * _DVP * 8
+    elif ids:
+        u = 2 * _TB * (_SC + 4) * 4
+    else:
+        ep = _TB * (_TB + 1) * 4 + 16 * _TB * 4 + 16 * _TB * 8
+        u = ep + _NFS * 2 * _FV * _TB * 4
+    n = u + 2 * _TB * 4 + 16 + (_TB * 12 if fam else 0)
+    return -(-n // 8) * 8 + 2 * B * w
+
+
 def _device_bytes(cf, B: int, n_frames: int, saved=None) -> int:
     """Device bytes of one K7 sweep, every buffer sized by its dtype: the
     uint8 id stream (K7n: ``saved`` frames of state and scale instead),
     the initial state and the ping-pong pair, the emissions, the operator
-    with its transposed panels, the family branch's tables (the row pdfs,
-    the per-row terms with their candidate ids, the heavy rows, the
-    groups' band id bases) and the walk's decode tables, and the scratch
-    (:func:`layout`)."""
+    (with the float32 K7's transposed panels), the family branch's tables
+    (the row pdfs, the per-row terms with their candidate ids, the heavy
+    rows, the groups' band id bases) and the walk's decode tables, and the
+    scratch (:func:`layout`)."""
     Sp, P1 = cf.padded_states, cf.num_pdfs + 1
     f = cf.alpha_hat.element_size()
     Nf = n_frames + 1
     op = cf.block_fwd
-    tens = [cf.omega_prob, cf.alpha_hat, op.tiers[0][2], op.tiers[0][2]]
+    tens = [cf.omega_prob, cf.alpha_hat, op.tiers[0][2]]
+    if saved is None and f == 4:
+        tens.append(op.tiers[0][2])  # _panels_t's transposed copy
     if op.band_w is not None:
         tens.append(op.band_w)
     need = sum(t.numel() * t.element_size() for t in tens)
@@ -250,7 +295,9 @@ def vit_scan_admission(cf, B: int, *, n_frames: int | None = None,
     the predicates on the ids' range are skipped and the working set
     counts the saved states in place of the ids.  A float64 graph takes
     the float64 instantiation (the JAX package's K7 refuses it, its XLA
-    route decodes it)."""
+    route decodes it).  The CTA's shared memory at batch ``B``
+    (:func:`smem_bytes`) must fit the card's 227 KB (the port's own
+    predicate: the JAX package has its VMEM budget instead)."""
     reason, shared = bs.block_scan_admission(
         cf, B, tier_dtype=_vit_dtype(cf), tropical=True)
     if reason is not None:
@@ -265,6 +312,11 @@ def vit_scan_admission(cf, B: int, *, n_frames: int | None = None,
                 "do not fit a uint8"), True
     if not (pf["K"] % _VIT_KC == 0 or pf["K"] < _VIT_KC):
         return f"{pf['K']} tier blocks not a multiple of {_VIT_KC}", True
+    smem = smem_bytes(B, ids=saved is None, fam=bool(cf.ov_layout),
+                      f64=_vit_dtype(cf) == torch.float64)
+    if smem > _SMEM_CTA:
+        return (f"shared memory of a CTA at B = {B} ~{smem} bytes exceeds "
+                f"the card's {_SMEM_CTA}"), False
     if (device is not None and n_frames is not None
             and torch.device(device).type == "cuda"
             and torch.cuda.is_available()):
@@ -302,23 +354,43 @@ class VitPlan(NamedTuple):
     the first row of a band tile whose rows are consecutive (-1 for any
     other tile).  The CTAs of the persistent grid take the items in queue
     order; which CTA runs an item shows in no result (the frame's two
-    reductions are maxima)."""
+    reductions are maxima).  The float32 K7n's queue (``packed``) takes
+    _HEAVY_PACK heavy rows to an item: heavy tile h holds heavy rows
+    h·_HEAVY_PACK .., and the tier and band tiles follow from
+    ceil(nheavy / _HEAVY_PACK)."""
     ncb: int  # 64-column tiles: ceil(B / 64)
     queue: torch.Tensor  # (n_tiles * ncb, 2) int32: item, first row or -1
 
 
-def vit_plan(kop, B: int) -> VitPlan:
-    """K7's queue for batch ``B``, built once per shape of the forward
+def vit_plan(kop, B: int, packed: bool = False) -> VitPlan:
+    """K7's queue for batch ``B`` (``packed``: the float32 K7n's, its heavy
+    rows _HEAVY_PACK to an item), built once per shape of the forward
     operator's tiles and cached on ``kop``."""
     kd = kop.fwd
     counts = bs._tile_counts(kd, B)
-    key = ("vit_plan",) + counts
+    key = ("vit_plan", packed) + counts
     pl = kop.plans.get(key)
     if pl is None:
         queue, _ = bs._queue(kd, B, 0.0)
+        if packed:
+            queue = _pack_heavy(queue, counts[0], counts[1])
         pl = VitPlan(ncb=counts[0], queue=bs._i32(queue, kd.W.device))
         kop.plans[key] = pl
     return pl
+
+
+def _pack_heavy(queue: np.ndarray, ncb: int, nh: int) -> np.ndarray:
+    """The queue with its nh·ncb one-row heavy items (first, in tile then
+    column-tile order) replaced by ceil(nh / _HEAVY_PACK)·ncb packed ones
+    in the same order, every later item's tile moved down to follow
+    them."""
+    nhp = -(-nh // _HEAVY_PACK)
+    heavy = queue[:, 0] < nh * ncb
+    assert heavy[:nh * ncb].all(), "the heavy items lead the queue"
+    rest = queue[~heavy].copy()
+    rest[:, 0] -= (nh - nhp) * ncb
+    head = np.stack([np.arange(nhp * ncb), np.full(nhp * ncb, -1)], axis=1)
+    return np.concatenate([head, rest]).astype(queue.dtype)
 
 
 def _panels_t(kop) -> torch.Tensor:
@@ -326,7 +398,9 @@ def _panels_t(kop) -> torch.Tensor:
     Sm4) transposed, each destination's column contiguous and zero-padded
     to a multiple of 4 positions (copied to shared memory 16 bytes at a
     time); float64 (K, Sm, D) as they are (the double tier stages [s][d]
-    rows, ``csrc/vit_scan.cu`` tier_dbl)."""
+    rows, ``csrc/vit_scan.cu`` tier_dbl).  K7n takes (K, Sm, D) as they
+    are in both dtypes (its float32 tier, tier_noid, stages [s][d] rows
+    too)."""
     Wt = kop.plans.get("vit_panels")
     if Wt is None:
         K, Sm, D = kop.fwd.W.shape
@@ -774,7 +848,8 @@ def _noid_fwd(cf, ext, mshift, *, a0, s0, t0, stride, acc):
     bs._check("s0", s0, (B,), dev, vdt)
     bs._check("acc", acc, (3, B), dev, vdt)
     meta, lay = bs._imeta(kop, kop.fwd), _vlayout(cf, kop)
-    pl, Wt = vit_plan(kop, B), _panels_t(kop)
+    pl = vit_plan(kop, B, packed=not f64)
+    Wt = kop.fwd.W  # (K, Sm, D) as it is, checked by _check_op
     G = _vit_grid(kop, dev, B, ids=False)
     save = torch.empty((n_save, Sp, B), device=dev, dtype=vdt)
     save_scale = torch.empty((n_save, B), device=dev, dtype=vdt)
