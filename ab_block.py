@@ -28,8 +28,13 @@ K6a and K6b over all 701 frames, at B=128, N=700; for a dense graph also
 ``floor_us``, K6a's and K6b's µs per frame on an all-zero operator (no
 product: the epilogue, the statistics and the barrier;
 ``chip_smoke.frame_floor``), and except in bf16 ``K6t_ms``, three warm times
-of K6t over the 701 frames from the initial state.  For a block graph
-also:
+of K6t over the 701 frames from the initial state, ``K6t_split_us``, its µs
+per frame whole and on an all-zero operator
+(``chip_smoke.trop_frame_split``), ``K6t_sum``, the float64 sum of its
+outputs (equal between two versions that compute bit for bit the same),
+``K6t_bitequal``, two runs, and ``decode_ms``, the median of 5 warm
+``viterbi`` calls on the same input (the chunk-recompute decode: K6t and
+W2).  For a block graph also:
 
 * ``K4_split``: K4's ms over the same chunk on three cut copies of the
   backward operator (``chip_smoke.cut_operator``), beside the whole one:
@@ -128,7 +133,8 @@ def run_graph(graph: str, sums_only: bool = False) -> dict:
     import torch
 
     import markovmodels_tpu_torch as mt
-    from chip_smoke import cut_operator, frame_floor, scaled, sweep_err
+    from chip_smoke import (cut_operator, frame_floor, median_ms, scaled,
+                            sweep_err, trop_frame_split)
     from markovmodels_tpu_torch.ops import block_scan as bs
     from markovmodels_tpu_torch.ops import dense_scan as ds
     from markovmodels_tpu_torch.ops.emissions import (pad_emissions,
@@ -185,8 +191,16 @@ def run_graph(graph: str, sums_only: bool = False) -> dict:
         if prec == "high":
             top = ds.trop_operator(cf)
             one = torch.ones(B, device=dev, dtype=dt)
+            tk = ds.trop_sweep(top, a0, one, ext, msh, first=True)
+            out["K6t_sum"] = sum(float(t.double().sum()) for t in tk)
+            out["K6t_bitequal"] = all(torch.equal(x, y) for x, y in zip(
+                tk, ds.trop_sweep(top, a0, one, ext, msh, first=True)))
+            del tk
             out["K6t_ms"] = _ms(lambda: ds.trop_sweep(top, a0, one, ext, msh,
                                                       first=True))
+            out["K6t_split_us"] = trop_frame_split(top, ext, msh)
+            out["decode_ms"] = median_ms(
+                {"decode": lambda: mt.viterbi(cf, lhs, lens)})["decode"]
         return out
     kop = bs.kernel_operator(cf)
     C = -(-(N + 1) // K)

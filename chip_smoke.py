@@ -345,6 +345,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -1591,7 +1592,8 @@ def phase_dense_full(dev, P=96, N=128):
     """Phase 11, second part: K6a and K6b on a fully dense operator at
     Sp = 4,096 (the largest 'dense' graph of compile_fsm's 'auto' rule),
     whose ranges are streamed, against their twins: whole sweeps in
-    float32, then the bf16 instantiations one frame at a time."""
+    float32, then the bf16 instantiations one frame at a time; then K6t
+    on it (``phase_trop_full``)."""
     from markovmodels_tpu_torch.ops import dense_scan as ds
 
     kop = full_dense_op(dev, P=P)
@@ -1605,7 +1607,32 @@ def phase_dense_full(dev, P=96, N=128):
     errs.update(phase_dense_frames(full_dense_op(dev, P=P, bf16=True), P, dev,
                                    "phase 11 (fully dense Sp = 4,096, bf16)",
                                    N=N))
+    errs["K6t"] = phase_trop_full(kop, P, dev, "phase 11")
     return errs
+
+
+def phase_trop_full(kop, P, dev, label, N=16):
+    """K6t on a fully dense operator (``full_dense_op``: 16.8 M non-zeros,
+    every row's 4,096 entries one piece): against its twin at B = 128 and
+    124 (``trop_checks``) and its frame split at B=128.  Returns max
+    |K6t - twin|."""
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    top = ds.with_trop_plan(kop)
+    pt = top.pt
+    print(f"{label}: K6t's plan of the fully dense Sp = {top.Sp} operator "
+          f"({top.wf.dtype}): {pt.src.numel()} entries in "
+          f"{pt.pieces.shape[0]} pieces over {pt.wp.numel() - 1} warps, "
+          f"{pt.n_partials} partial slots")
+    err = trop_checks(top, lambda B_, N_: dense_inputs(
+        P, dev, B=B_, N=N_, dtype=top.wf.dtype),
+        f"{label} (fully dense Sp = 4,096, {top.wf.dtype})", Bs=(128, 124),
+        N=N)
+    ext, msh = dense_inputs(P, dev, B=128, N=N, dtype=top.wf.dtype)
+    split = trop_frame_split(top, ext, msh, reps=1)
+    print(f"{label}: K6t's frame on the fully dense operator (us, B=128): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    return err
 
 
 def random_graph(rng, S, P):
@@ -2346,25 +2373,90 @@ def phase_bf16_decode(cf, cf16, P, dev, B=128, N=128):
     assert all(same) and paths, "the bf16 graph decodes differently"
 
 
-def trop_bounds(dcf, B, Nf):
-    """K6t over an Nf-frame sweep that keeps every frame, as K6a's bound
-    counts it (``dense_bounds``): per frame and column a multiply and a max
-    per non-zero of the operator, two instructions at one per lane and
-    clock (PEAK_F32_OPS; K6a's one FMA counts at PEAK_F32), and the
-    emission and rescale per state; the operator read once as a CSR, the
-    state, every frame's state and scale written, the emissions."""
+def trop_bounds(dcf, B, Nf, kop=None):
+    """K6t over an Nf-frame sweep that keeps every frame, for the sparse
+    product it computes: per frame and column one candidate per non-zero
+    of the operator, a multiply and a max, at 1.5 instructions a candidate
+    in float32 (an FMUL and half a 3-input integer max, one instruction per
+    lane and clock: PEAK_F32_OPS) and 2 in float64 (a DMUL and a compare,
+    PEAK_F64_OPS), and the emission and rescale per state; the plan's
+    entries read once (a source and a weight each), the initial state,
+    every frame's state and scale written, the emissions.  ``kop``: the
+    operator (:func:`ds.trop_operator` of ``dcf`` where None)."""
     import torch
 
     from markovmodels_tpu_torch.ops import dense_scan as ds
 
-    kop = ds.trop_operator(dcf)
+    kop = ds.trop_operator(dcf) if kop is None else kop
     Sp, P1 = kop.Sp, kop.P1
     f = kop.wf.element_size()  # 8: the float64 instantiation
     nnz = int(torch.count_nonzero(kop.wf))
-    nbytes = (f + 4) * nnz + 4 * (Sp + 1) + f * (
+    nbytes = (f + 4) * nnz + f * (
         Sp * B + Nf * (P1 + 1) * B + Nf * (Sp + 1) * B + 3 * B)
-    return bound(Nf * B * (2 * nnz + 3 * Sp), nbytes,
+    per = 2 if f == 8 else 1.5
+    return bound(Nf * B * (per * nnz + 3 * Sp), nbytes,
                  PEAK_F64_OPS if f == 8 else PEAK_F32_OPS)
+
+
+def trop_checks(kop, ext_of, label, Bs=(128, 126, 124), N=128, h=None):
+    """K6t on ``kop`` against its plain twin at each batch of ``Bs`` on
+    ``ext_of(B, N)``'s (ext, mshift): run twice, bit-equal to each other
+    and to the twin (states, scales, ksum and shift), and restarted at
+    frame ``h`` (N // 2) from the saved frame, bit-equal to the twin's
+    restart and to the whole sweep's frames.  Returns max |K6t - twin|."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    def same(xs, ys):
+        return all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+    h = N // 2 if h is None else h
+    err = 0.0
+    for B in Bs:
+        ext, msh = ext_of(B, N)
+        a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
+        s0 = torch.ones(B, device=ext.device, dtype=ext.dtype)
+        k1 = ds.trop_sweep(kop, a0, s0, ext, msh, first=True)
+        k2 = ds.trop_sweep(kop, a0, s0, ext, msh, first=True)
+        torch.cuda.synchronize()
+        p = ds.trop_sweep_plain(kop, a0, s0, ext, msh, first=True)
+        mid = (k1[0][h - 1], k1[1][h - 1], ext[h:], msh[h:])
+        m_k = ds.trop_sweep(kop, *mid, first=False)
+        m_p = ds.trop_sweep_plain(kop, *mid, first=False)
+        ok = {"twice": same(k1, k2), "twin": same(k1, p),
+              "restart": same(m_k, m_p) and torch.equal(m_k[0], k1[0][h:])}
+        err = max(err, max(float((x.double() - y.double()).abs().max())
+                           for x, y in zip(k1, p)))
+        print(f"{label}: K6t B={B} N={N}: states, scales, ksum and shift "
+              f"bit-equal {ok}")
+        assert all(ok.values()), f"{label}: K6t disagrees at B={B}: {ok}"
+        del k1, k2, p, m_k, m_p
+    return err
+
+
+def trop_frame_split(kop, ext, msh, reps=3):
+    """K6t's frame split, us per frame: ``whole`` (the sweep from the
+    initial state over the frames of ``ext``) and ``no product`` (the same
+    sweep on an all-zero operator: every row a piece without entries, so
+    what is left is the epilogues, the column maxima and the grid barrier),
+    CUDA events."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+
+    Nf, _, B = ext.shape
+    dev = ext.device
+    zero = ds.dense_op(kop.alpha0, torch.zeros_like(kop.wf),
+                       torch.zeros_like(kop.wf), kop.spdf,
+                       torch.arange(kop.Sp, device=dev), kop.P1, kop.fin)
+    zero = getattr(ds, "with_trop_plan", lambda k: k)(zero)
+    a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
+    one = torch.ones(B, device=dev, dtype=ext.dtype)
+    return {k: 1e3 * cuda_ms(lambda: ds.trop_sweep(op, a0, one, ext, msh,
+                                                    first=True),
+                             reps=reps) / Nf
+            for k, op in (("whole", kop), ("no product", zero))}
 
 
 def noid_traffic(cf, B, Nf, saved, l2_bytes=None):
@@ -2484,9 +2576,9 @@ def reset_all_launches():
 def phase_rec_kernels(dcf, dP, cf, P, dev, B=128, N=128):
     """Phase 31: K6t (the V=32 dense graph), K7n (the 2M-arc graph) and W2
     (both) against their plain twins on phase 15's input at N=128 (lengths
-    1, 2N/3 and N mixed, ±30-nat cliffs): K6t and K7n each run twice,
-    bit-equal run to run and to the twin, also restarted mid-sweep from a
-    saved frame; K7n's final value, ksum and shift bit-equal to K7's on the
+    1, 2N/3 and N mixed, ±30-nat cliffs): K6t (at B = 128, 126 and 124)
+    and K7n each run twice, bit-equal run to run and to the twin, also
+    restarted mid-sweep from a saved frame; K7n's final value, ksum and shift bit-equal to K7's on the
     same input, its checkpoints every 64 frames equal to the saved frames;
     W2 bit-equal to its twin over the whole sweep and in two chunks; the
     decode with chunk_size 7 and 64 against the one-chunk decode: the same
@@ -2510,25 +2602,16 @@ def phase_rec_kernels(dcf, dP, cf, P, dev, B=128, N=128):
                    for x, y in zip(xs, ys))
 
     h = 64  # the mid-sweep restart frame
+    kop = ds.trop_operator(dcf)
+    e_k6t = trop_checks(
+        kop, lambda B_, N_: prepare_emissions(*vit_inputs(dP, dev, B_, N_),
+                                              dP),
+        "phase 31 (the V=32 dense graph)", Bs=(B, 126, 124), N=N, h=h)
     lhs_d, lens_d = vit_inputs(dP, dev, B, N)
     ext, msh = prepare_emissions(lhs_d, lens_d, dP)
-    kop = ds.trop_operator(dcf)
     a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
-    s0 = torch.ones(B, device=dev)
-    k1 = ds.trop_sweep(kop, a0, s0, ext, msh, first=True)
-    k2 = ds.trop_sweep(kop, a0, s0, ext, msh, first=True)
-    torch.cuda.synchronize()
-    p = ds.trop_sweep_plain(kop, a0, s0, ext, msh, first=True)
-    mid = (k1[0][h - 1], k1[1][h - 1], ext[h:], msh[h:])
-    m_k = ds.trop_sweep(kop, *mid, first=False)
-    m_p = ds.trop_sweep_plain(kop, *mid, first=False)
-    k6t = {"twice": same(k1, k2), "twin": same(k1, p),
-           "restart": same(m_k, m_p) and torch.equal(m_k[0], k1[0][h:])}
-    e_k6t = max(err(k1, p), err(m_k, m_p))
-    print(f"phase 31: K6t on the V=32 dense graph B={B} N={N}: states, "
-          f"scales, ksum and shift bit-equal {k6t}; max |K6t - plain| = "
-          f"{e_k6t:g}")
-    assert all(k6t.values()), f"K6t disagrees: {k6t}"
+    k1 = ds.trop_sweep(kop, a0, torch.ones(B, device=dev), ext, msh,
+                       first=True)
 
     lhs_b, lens_b = vit_inputs(P, dev, B, N)
     ext2, msh2 = prepare_emissions(lhs_b, lens_b, P)
@@ -2573,7 +2656,7 @@ def phase_rec_kernels(dcf, dP, cf, P, dev, B=128, N=128):
         print(f"phase 31: W2 on the {name} graph's saved frames: states "
               f"equal {ok}; {int((wk != wp).sum())} of {wk.numel()} differ")
         assert all(ok.values()), f"W2 disagrees on the {name} graph: {ok}"
-    del n1, k1, k2, p, m_k, m_p
+    del n1, k1
 
     for name, g, lhs, lens in (("V=32 dense", dcf, lhs_d, lens_d),
                                ("2M-arc", cf, lhs_b, lens_b)):
@@ -2592,8 +2675,9 @@ def phase_dense_decode(dfsm, dspdf, dcf, dP, dev, B=128, N=700):
     (phase 17's input form, seed 0) through K6t and W2 only (launch
     counters and the profiler's kernel count), every path walked in f64,
     8 sequences of mixed lengths against the f64 max-plus optimum; the
-    decode (median of 5), the sweep and the walk timed, their plain twins
-    timed and held to them at this shape, the profiled idle share; then
+    decode (median of 5), the sweep and the walk timed, K6t's frame split
+    (``trop_frame_split``), their plain twins timed and held to them at
+    this shape, the profiled idle share; then
     BASELINE.json config 1 (a left-to-right 5-state HMM, T=100, B=1) on
     the card against the CPU route and the optimum."""
     import torch
@@ -2652,6 +2736,7 @@ def phase_dense_decode(dfsm, dspdf, dcf, dP, dev, B=128, N=700):
                                             first=True), reps=3)
     t_walk = cuda_ms(lambda: vs.rec_walk(wt, out[0], out[1], lengths, 0,
                                          s_end), reps=5)
+    split = trop_frame_split(kop, ext, msh)
     t_dec = median_ms({"decode": lambda: mt.viterbi(dcf, lhs, lengths)})[
         "decode"]
     audio = B * N * FRAME_SHIFT_S
@@ -2661,13 +2746,14 @@ def phase_dense_decode(dfsm, dspdf, dcf, dP, dev, B=128, N=700):
         by_name, busy, span, kcounts = prof
         idle = f"{1 - busy / span:.1%} of a {span:.3f} ms span"
         ours = {k: v for k, v in kcounts.items()
-                if k.startswith(("sweep_kernel", "rec_walk", "vit_"))}
+                if k.startswith(("sweep_kernel", "trop_kernel", "rec_walk",
+                                 "vit_"))}
         print("phase 32: profile of one decode: " + "; ".join(
             f"{k} {v:.3f} ms ({kcounts[k]} launches)" for k, v in
             sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
         assert sorted(ours.items()) == [
             ("rec_walk_kernel<float>", 1),
-            ("sweep_kernel<false, true, false, true, float>", 1)], kcounts
+            ("trop_kernel<true, float>", 1)], kcounts
     plain = []
     t_sweep_plain = cuda_ms(lambda: plain.append(ds.trop_sweep_plain(
         kop, a0, s0, ext, msh, first=True)), warm=False)
@@ -2686,7 +2772,9 @@ def phase_dense_decode(dfsm, dspdf, dcf, dP, dev, B=128, N=700):
           f" us/frame; bound {bd[0]:.4f} ms, {bd[1]}), W2 walk "
           f"{t_walk:.3f} ms (bound {bw[0]:.4f} ms, {bw[1]}); device idle "
           f"{idle}; plain twins {t_sweep_plain:.1f} / {t_walk_plain:.1f} ms, "
-          f"K6t and W2 bit-equal to them at this shape {twin} / {w_ok}")
+          f"K6t and W2 bit-equal to them at this shape {twin} / {w_ok}; "
+          "K6t's frame (us): " + ", ".join(f"{k} {v:.2f}"
+                                         for k, v in split.items()))
     assert twin and w_ok, "K6t or W2 differs from its twin at N=700"
 
     fsm5, spdf5, P5 = hmm5()
@@ -3491,12 +3579,14 @@ def ptxas_entries(log, rx):
 
 def k6_f64_ptxas(log):
     """{(kernel, vec): ptxas entry} of the float64 ``sweep_kernel``
-    instantiations (K6a, K6b and K6t, each with and without 16-byte
-    accesses) in the library's ``ptxas -v`` report."""
-    names = {(0, 0): "K6a", (1, 0): "K6b", (0, 1): "K6t"}
-    return {(names[int(bwd), int(trop)], int(vec)): v
-            for (bwd, vec, trop), v in ptxas_entries(
-                log, r"sweep_kernelILb([01])ELb([01])ELb0ELb([01])EdE").items()}
+    (K6a, K6b) and ``trop_kernel`` (K6t) instantiations, each with and
+    without 16-byte accesses, in the library's ``ptxas -v`` report."""
+    out = {(("K6a", "K6b")[int(bwd)], int(vec)): v
+           for (bwd, vec), v in ptxas_entries(
+               log, r"sweep_kernelILb([01])ELb([01])ELb0EdE").items()}
+    out.update({("K6t", int(vec[0])): v for vec, v in ptxas_entries(
+        log, r"trop_kernelILb([01])EdE").items()})
+    return out
 
 
 def block_f64_ptxas(log):
@@ -3516,10 +3606,11 @@ def phase_dmma(dcf64, dev, v32_errs, times, card, P=96, N=128,
     1 and N mixed, ±30-nat cliffs, each run twice bit-equal; here again at
     B=126, N=128: the scalar branch) and on a random fully dense
     Sp = 4,096 float64 operator (its tiles streamed: 128 MiB of them) at
-    B=128, N=128, each run twice, bit-equal; and this run's times (phase
-    46: the kernels beside float64 ``torch.matmul`` and ``torch.sparse.mm``
-    x701, the float64 dense step and den-only call, medians of 5), with the
-    frame without the product (an all-zero operator)."""
+    B=128, N=128, each run twice, bit-equal, then K6t<double> on it
+    (``phase_trop_full``); and this run's times (phase 46: the kernels
+    beside float64 ``torch.matmul`` and ``torch.sparse.mm`` x701, the
+    float64 dense step and den-only call, medians of 5), with the frame
+    without the product (an all-zero operator)."""
     import torch
 
     from markovmodels_tpu_torch.ops import _build
@@ -3529,8 +3620,8 @@ def phase_dmma(dcf64, dev, v32_errs, times, card, P=96, N=128,
     assert {k[0] for k in ents} == {"K6a", "K6b", "K6t"}, ents
     spills = sum(v["spill_stores"] + v["spill_loads"]
                  for k, v in ents.items() if k[0] in ("K6a", "K6b"))
-    print(f"{label}: ptxas of the float64 sweep_kernel instantiations "
-          "(kernel, 16-byte accesses): " + "; ".join(
+    print(f"{label}: ptxas of the float64 sweep_kernel and trop_kernel "
+          "instantiations (kernel, 16-byte accesses): " + "; ".join(
               f"{k[0]} vec={k[1]}: {v}" for k, v in sorted(ents.items()))
           + f"; K6a/K6b spill bytes (stores + loads): {spills}")
     assert spills == 0, f"K6a/K6b<double> spill {spills} bytes"
@@ -3555,6 +3646,7 @@ def phase_dmma(dcf64, dev, v32_errs, times, card, P=96, N=128,
                                        "float64)")
     launched({"dense_fwd_f64": 2, "dense_bwd_f64": 2})
     errs = {k: max(v, e_full[k]) for k, v in errs.items()}
+    phase_trop_full(full, P, dev, label)
     del full
     torch.cuda.empty_cache()
     floor = frame_floor(dcf64, 96, dev)
@@ -3804,14 +3896,101 @@ def phase_noid_f32(cf, scf, P, sP, dev, card, N=128, h=64,
     return {"K7n": err}
 
 
+PTXAS_REF = Path(__file__).resolve().parent / "tools" / "ptxas_ref.json"
+
+
+def ptxas_key(mangled):
+    """An instantiation's name and template arguments from its mangled
+    name, without the anonymous namespace (whose name hashes the file):
+    e.g. ``trop_kernel<Lb1E,f>`` for ``trop_kernel<true, float>``."""
+    m = re.search(r"(\d+)_GLOBAL__N__", mangled)  # <length><namespace>
+    if m is None:
+        return mangled
+    i = m.start(1) + len(m.group(1)) + int(m.group(1))
+    n = re.match(r"\d+", mangled[i:])  # <length><name>
+    if n is None:
+        return mangled
+    n = n.group(0)
+    i += len(n)
+    name = mangled[i:i + int(n)]
+    i += len(name)
+    args = []
+    if mangled[i:i + 1] == "I":
+        i += 1
+        while mangled[i] != "E":
+            j = mangled.index("E", i) + 1 if mangled[i] == "L" else i + 1
+            args.append(mangled[i:j])
+            i = j
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def ptxas_table(log):
+    """{ptxas_key: {registers, stack, spill_stores, spill_loads, smem}} of
+    every entry of a ``ptxas -v`` report."""
+    return {ptxas_key(k[0]): v
+            for k, v in ptxas_entries(log, r"^(.*)$").items()}
+
+
+def nvcc_version():
+    """The last line of ``nvcc --version`` (its release and build)."""
+    from markovmodels_tpu_torch.ops import _build
+
+    out = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[-1]
+
+
+def phase_ptxas(log, label="phase 55"):
+    """Phase 55: the library's ``ptxas`` report.  K6t's four
+    ``trop_kernel`` instantiations spill 0 bytes and keep no stack; every
+    entry but theirs and K7's two float32 family instantiations
+    (``vit_sweep_kernel<VEC, true, true, float>``, changed here) equals
+    the table ``tools/ptxas_ref.py`` made of the parent commit
+    (``tools/ptxas_ref.json``), compared where the nvcc that built the
+    table built this library too.  K7's family entries are printed beside
+    the uniform K7's and the table's: they spill more than the uniform
+    ones (``PERF.md`` §6, PR 21)."""
+    tab = ptxas_table(log)
+    assert tab, "no ptxas report (the library was not built by this run)"
+    k6t = {k: v for k, v in tab.items() if k.startswith("trop_kernel<")}
+    print(f"{label}: ptxas of K6t's trop_kernel<VEC, T>: " + "; ".join(
+        f"{k}: {v}" for k, v in sorted(k6t.items())))
+    assert len(k6t) == 4 and all(
+        v["spill_stores"] + v["spill_loads"] + v["stack"] == 0
+        for v in k6t.values()), f"K6t spills: {k6t}"
+    ref = json.loads(PTXAS_REF.read_text())
+    want = ref["entries"]
+    fam = [f"vit_sweep_kernel<{vec},Lb1E,Lb1E,f>" for vec in ("Lb0E", "Lb1E")]
+    for k in fam:
+        uni = k.replace("Lb1E,Lb1E,f>", "Lb1E,Lb0E,f>")
+        print(f"{label}: K7 float32 family {k}: {tab[k]}; uniform "
+              f"{tab[uni]}; the parent's family entry {want.get(k)}")
+    others = {k: v for k, v in tab.items() if k not in k6t and k not in fam}
+    nvcc = nvcc_version()
+    if ref["nvcc"] != nvcc:
+        print(f"{label}: the other {len(others)} entries not compared: "
+              f"this nvcc ({nvcc}) is not the table's ({ref['nvcc']})")
+        return
+    keys = (set(others) | set(want)) - set(fam)
+    diff = sorted(k for k in keys if others.get(k) != want.get(k))
+    print(f"{label}: the other {len(others)} entries against "
+          f"{PTXAS_REF.name} ({len(want)} entries, {ref['nvcc']}): "
+          f"{len(diff)} differ" + "".join(
+              f"\n  {k}: {others.get(k)} (table {want.get(k)})"
+              for k in diff))
+    assert not diff, f"{len(diff)} ptxas entries differ from the table"
+
+
 def phase_f64_trop(dcf64, dP, dev, B=128, N=700, label="phase 43"):
     """Phase 43: K6t and W2 in float64 on the V=32 dense decode at B=128,
     N=700 (phase 15's input form in float64: lengths 1, 2N/3 and N mixed,
     ±30-nat cliffs): K6t run twice, bit-equal to each other and to its
     twin, restarted mid-sweep from a saved frame; W2 bit-equal to its twin
     over the whole sweep and in two chunks; then K6t at B=126 (the scalar
-    branch), N=64.  Only float64 launches.  Returns (errs, times, bounds)
-    with the sweep's and the walk's ms beside their twins'."""
+    branch) and 124, N=64, twice, against its twin and restarted.  Only
+    float64 launches.  K6t's frame split (``trop_frame_split``).  Returns
+    (errs, times, bounds) with the sweep's and the walk's ms beside their
+    twins'."""
     import torch
 
     from markovmodels_tpu_torch.ops import dense_scan as ds
@@ -3855,15 +4034,17 @@ def phase_f64_trop(dcf64, dP, dev, B=128, N=700, label="phase 43"):
     w_lo = vs.rec_walk(wt, k1[0][:h], k1[1][:h], lens, 0, w_hi[0])
     ok["W2 twin"] = torch.equal(wk, walked[0])
     ok["W2 chunks"] = torch.equal(torch.cat([w_lo, w_hi]), wk)
-    lhs6, len6 = vit_inputs(dP, dev, 126, 64, seed=9)
-    e6, m6 = prepare_emissions(lhs6.double(), len6, dP, f64)
-    a6 = kop.alpha0[:, None].expand(kop.Sp, 126).contiguous()
-    o6 = torch.ones(126, device=dev, dtype=f64)
-    ok["B=126"] = same(ds.trop_sweep(kop, a6, o6, e6, m6, first=True),
-                       ds.trop_sweep_plain(kop, a6, o6, e6, m6, first=True))
-    counts = launched({"dense_trop_f64": 4, "rec_walk_f64": 3})
+    assert all(ok.values()), f"K6t or W2 (float64) disagrees: {ok}"
+
+    def inputs64(B_, N_):
+        lhs_, lens_ = vit_inputs(dP, dev, B_, N_, seed=9)
+        return prepare_emissions(lhs_.double(), lens_, dP, f64)
+
+    trop_checks(kop, inputs64, f"{label} (float64)", Bs=(126, 124), N=64)
+    counts = launched({"dense_trop_f64": 9, "rec_walk_f64": 3})
     t_sweep = cuda_ms(lambda: ds.trop_sweep(kop, a0, s0, ext, msh,
                                             first=True), reps=3)
+    split = trop_frame_split(kop, ext, msh)
     t_walk = cuda_ms(lambda: vs.rec_walk(wt, k1[0], k1[1], lens, 0, s_end),
                      reps=5)
     bd = trop_bounds(dcf64, B, N + 1)
@@ -3873,8 +4054,8 @@ def phase_f64_trop(dcf64, dP, dev, B=128, N=700, label="phase 43"):
           f"{t_sweep:.3f} ms ({1e3 * t_sweep / (N + 1):.2f} us/frame; bound "
           f"{bd[0]:.4f} ms, {bd[1]}; twin {t_plain:.1f} ms), W2 "
           f"{t_walk:.3f} ms (bound {bw[0]:.4f} ms, {bw[1]}; twin "
-          f"{t_wplain:.1f} ms)")
-    assert all(ok.values()), f"K6t or W2 (float64) disagrees: {ok}"
+          f"{t_wplain:.1f} ms); K6t's frame (us): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in split.items()))
     return ({"K6t": 0.0, "W2": 0.0},
             {"K6t": (t_sweep, t_plain), "W2": (t_walk, t_wplain)},
             {"K6t": bd, "W2": bw})
@@ -4133,8 +4314,8 @@ def time_f64_vit(cf, P, dev, B=128, N=700):
 TOL_CPU = 1e-5
 # the kernels of the port's CUDA extension, as the profiler names them
 _EXT_KERNEL = re.compile(r"(fwd_chunk_kernel|bwd_chunk_kernel|banded_\w*kernel"
-                         r"|sweep_kernel|vit_sweep_kernel|vit_walk_kernel"
-                         r"|rec_walk_kernel)")
+                         r"|sweep_kernel|trop_kernel|vit_sweep_kernel"
+                         r"|vit_walk_kernel|rec_walk_kernel)")
 
 
 def log_inputs(P, dev, B=32, N=700, seed=47, lmin=1, dtype=None):
@@ -4998,6 +5179,7 @@ def main():
     v64_errs.update({k: max(v64_errs[k], v) for k, v in e53.items()})
     e54 = phase_noid_f32(cf, scf, P, sP, dev, card)
     r_errs["K7n"] = max(r_errs["K7n"], e54["K7n"])
+    phase_ptxas(_build.PTXAS_LOG)
 
     block_src = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
     banded_src = "markovmodels_tpu_torch/ops/csrc/banded_scan.cu"

@@ -8,18 +8,13 @@
 // (_viterbi_scale's fstep on _trop_prob_matvec, XLA there, no Pallas
 // kernel):
 //   K6t mm_dense_trop <- the tropical forward y[j] = max_i Wp[j, i] a[i]
-//                        (viterbi.py:129-134): sweep_kernel<false, VEC,
-//                        false, TROP = true, T>, float or double tiles.  Each
-//                        FMA of the product becomes a multiply and a max, a
-//                        straddling row tile's partials combine by max, so
-//                        the result is exact and independent of order;
-//                        skipping an all-zero tile stays exact (the state
-//                        is >= 0 and an absent arc's product is 0, as in the
-//                        JAX package's dense Wp).  It starts from a given
-//                        state whose scale is seeded into the column-max
-//                        row the first frame reads, and skips the product
-//                        on launch frame 0 only when that is global frame 0
-//                        (``first``); one launch per chunk of the decode.
+//                        (viterbi.py:129-134): trop_kernel<VEC, T>, float or
+//                        double, a product over the operator's non-zeros
+//                        only (below, "K6t"), from a given state whose
+//                        scale is seeded into the column-max row the first
+//                        frame reads; it skips the product on launch frame 0
+//                        only when that is global frame 0 (``first``); one
+//                        launch per chunk of the decode.
 //
 // What the card is asked to do.  A frame is y = Wp (Sp x Sp) @ state (Sp x B)
 // followed by the emission, a per-column power-of-two rescale and, backward,
@@ -137,8 +132,6 @@
 //     slot, each slot's pairs together.  The 64-bit column maxima, the
 //     exact power-of-two scales and the range-order sums of the partials
 //     are those of the float layout.
-// K6t in double (TROP) keeps the layout above: its max of products does not
-// run on the tensor cores.
 //
 // Conventions: states (Sp, B) row-major T; ext (Nf, P1, B); the emission of
 // state s is ext[t, spdf[s], b].  A stored state is unscaled, with a (B,)
@@ -202,7 +195,6 @@ struct Args {
   Plan pl;
   const int* spdf;
   int Sp, P1, B, Nf, n_slots, resident;
-  int first;  // launch frame 0 skips the product (K6a, K6b; K6t from frame 0)
   const T* ext;
   // forward
   const T* a0;
@@ -423,9 +415,9 @@ struct Layout {
 };
 
 // The layout of an instantiation: DM for K6a/K6b in double.
-template <bool BF16, bool TROP, class T>
+template <bool BF16, class T>
 constexpr bool uses_dmma() {
-  return is_f64<T>() && !TROP && !BF16;
+  return is_f64<T>() && !BF16;
 }
 
 // The exact power-of-two scale of a column from its max's bits.
@@ -434,9 +426,9 @@ __device__ __forceinline__ T scale_of(const BitsT<T>* cm, int b, int B) {
   return b < B ? pow2_scale(pow2_exponent(from_bits(__ldcg(cm + b)))) : T(0);
 }
 
-template <bool BWD, bool VEC, bool BF16, bool TROP, class T>
+template <bool BWD, bool VEC, bool BF16, class T>
 struct Sweep {
-  static constexpr bool DM = uses_dmma<BF16, TROP, T>();
+  static constexpr bool DM = uses_dmma<BF16, T>();
   using L = Layout<BF16, T, DM>;
   using V = V4<T>;
   const Args<T>& p;
@@ -574,8 +566,7 @@ struct Sweep {
     cp_async_commit();
   }
 
-  // acc += tile j (float32 or double) times its staged state block;
-  // tropical (TROP): acc = max(acc, w * x), each product one rounding.
+  // acc += tile j (float32 or double) times its staged state block.
   __device__ void mul_val(int j, T (&acc)[4][4]) const {
     const T* W = reinterpret_cast<const T*>(tile_at(j));
     const T* X = reinterpret_cast<const T*>(stage(j));
@@ -591,17 +582,10 @@ struct Sweep {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const T wv = get(w[i], q);
-          if constexpr (TROP) {
-            acc[i][0] = fmax_(acc[i][0], mul_rn(wv, x.x));
-            acc[i][1] = fmax_(acc[i][1], mul_rn(wv, x.y));
-            acc[i][2] = fmax_(acc[i][2], mul_rn(wv, x.z));
-            acc[i][3] = fmax_(acc[i][3], mul_rn(wv, x.w));
-          } else {
-            acc[i][0] = fma_(wv, x.x, acc[i][0]);
-            acc[i][1] = fma_(wv, x.y, acc[i][1]);
-            acc[i][2] = fma_(wv, x.z, acc[i][2]);
-            acc[i][3] = fma_(wv, x.w, acc[i][3]);
-          }
+          acc[i][0] = fma_(wv, x.x, acc[i][0]);
+          acc[i][1] = fma_(wv, x.y, acc[i][1]);
+          acc[i][2] = fma_(wv, x.z, acc[i][2]);
+          acc[i][3] = fma_(wv, x.w, acc[i][3]);
         }
       }
     }
@@ -747,8 +731,8 @@ struct Sweep {
   }
 
   // A straddling row tile: write this range's partial, take a ticket; the
-  // range that takes the last one adds the partials in range order (their
-  // max, tropical) and runs the epilogue.
+  // range that takes the last one adds the partials in range order and
+  // runs the epilogue.
   __device__ void partial(const Frame<T>& fr, int rt, int b0, int cb,
                           int slot, T (&acc)[4][4]) {
     const int B = p.B, bcol = b0 + wc * 32 + lc * 4;
@@ -778,17 +762,10 @@ struct Sweep {
       V v = load4_l2<VEC>(p.partial + rp.x * SB + row, bcol, B);
       for (int q = 1; q < rp.y; ++q) {
         const V w = load4_l2<VEC>(p.partial + (rp.x + q) * SB + row, bcol, B);
-        if constexpr (TROP) {
-          v.x = fmax_(v.x, w.x);
-          v.y = fmax_(v.y, w.y);
-          v.z = fmax_(v.z, w.z);
-          v.w = fmax_(v.w, w.w);
-        } else {
-          v.x += w.x;
-          v.y += w.y;
-          v.z += w.z;
-          v.w += w.w;
-        }
+        v.x += w.x;
+        v.y += w.y;
+        v.z += w.z;
+        v.w += w.w;
       }
       acc[i][0] = v.x;
       acc[i][1] = v.y;
@@ -1254,9 +1231,9 @@ struct Sweep {
 // the next frame: its scale by every epilogue (from the column max), the
 // forward's scale, ksum and shift and the backward's posteriors by the
 // next frame's phase (and, after the last frame, by one more phase).
-template <bool BWD, bool VEC, bool BF16, bool TROP, class T>
+template <bool BWD, bool VEC, bool BF16, class T>
 __global__ void __launch_bounds__(NT, 2) sweep_kernel(const Args<T> p) {
-  using Sw = Sweep<BWD, VEC, BF16, TROP, T>;
+  using Sw = Sweep<BWD, VEC, BF16, T>;
   extern __shared__ __align__(16) unsigned char smem[];
   // [max, sum][warp row][column]
   __shared__ T red[2][Sw::L::RW][Sw::L::CB];
@@ -1268,7 +1245,7 @@ __global__ void __launch_bounds__(NT, 2) sweep_kernel(const Args<T> p) {
     const Frame<T> fr = sw.frame(f);
     sw.clear_next(fr);
     sw.prefetch_next(f);
-    if (f == 0 && (!TROP || p.first)) {
+    if (f == 0) {
       // forward: p = a0; backward: beta = 1
       if constexpr (Sw::DM)
         sw.no_product_dm(fr);
@@ -1281,8 +1258,7 @@ __global__ void __launch_bounds__(NT, 2) sweep_kernel(const Args<T> p) {
         });
       else
         sw.product(fr, [&] {
-          if constexpr (!BWD)
-            if (!TROP || f > 0) sw.frame_out(f - 1);
+          if constexpr (!BWD) sw.frame_out(f - 1);
         });
       if constexpr (BWD) sw.posts_of(f - 1, rsum);  // the previous frame's
     }
@@ -1297,11 +1273,11 @@ __global__ void __launch_bounds__(NT, 2) sweep_kernel(const Args<T> p) {
 // The launch: every CTA of the plan's grid co-resident.  The range's tiles
 // stay in shared memory when that many bytes still let the grid be
 // co-resident, else they stream.
-template <bool BWD, bool VEC, bool BF16, bool TROP, class T>
+template <bool BWD, bool VEC, bool BF16, class T>
 cudaError_t launch_t(Args<T> a, int n_ctas, int max_tiles, cudaStream_t st) {
-  using L = Layout<BF16, T, uses_dmma<BF16, TROP, T>()>;
+  using L = Layout<BF16, T, uses_dmma<BF16, T>()>;
   const void* kern =
-      reinterpret_cast<const void*>(sweep_kernel<BWD, VEC, BF16, TROP, T>);
+      reinterpret_cast<const void*>(sweep_kernel<BWD, VEC, BF16, T>);
   int dev = 0, optin = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -1339,18 +1315,17 @@ cudaError_t launch_t(Args<T> a, int n_ctas, int max_tiles, cudaStream_t st) {
 
 // The instantiation of a launch: prec 0 float, 1 bf16 tiles (float
 // values), 2 double; VEC where B % 4 == 0.
-template <bool BWD, bool TROP, class T>
+template <bool BWD, class T>
 cudaError_t launch(const Args<T>& a, int prec, int n_ctas, int max_tiles,
                    cudaStream_t st) {
   const bool vec = a.B % 4 == 0;
-  if constexpr (!is_f64<T>() && !TROP) {
+  if constexpr (!is_f64<T>()) {
     if (prec == 1)
-      return vec ? launch_t<BWD, true, true, false, T>(a, n_ctas, max_tiles, st)
-                 : launch_t<BWD, false, true, false, T>(a, n_ctas, max_tiles,
-                                                        st);
+      return vec ? launch_t<BWD, true, true, T>(a, n_ctas, max_tiles, st)
+                 : launch_t<BWD, false, true, T>(a, n_ctas, max_tiles, st);
   }
-  return vec ? launch_t<BWD, true, false, TROP, T>(a, n_ctas, max_tiles, st)
-             : launch_t<BWD, false, false, TROP, T>(a, n_ctas, max_tiles, st);
+  return vec ? launch_t<BWD, true, false, T>(a, n_ctas, max_tiles, st)
+             : launch_t<BWD, false, false, T>(a, n_ctas, max_tiles, st);
 }
 
 bool bad_shape(int Sp, int P1, int B, int Nf, int n_ctas, int max_tiles) {
@@ -1390,7 +1365,6 @@ Args<T> fwd_args(Plan pl, const int* spdf, const void* a0, const void* ext,
   a.partial = static_cast<T*>(partial);
   a.sync = sync;
   a.xb = xb;
-  a.first = 1;
   return a;
 }
 
@@ -1421,8 +1395,352 @@ Args<T> bwd_args(Plan pl, const int* spdf, const int* perm, const int* off,
   a.partial = static_cast<T*>(partial);
   a.sync = sync;
   a.xb = xb;
-  a.first = 1;
   return a;
+}
+
+// ---- K6t: the tropical forward as a sparse product ----
+//
+// y[j, b] = max over the non-zeros W[j, i] of W[j, i] * prev[i, b], started
+// from +0: every product is >= 0 (an absent arc's is +0), so this is the
+// dense max bit for bit, and it does not depend on order.  Then
+// u = (y * s) * e with the previous state's scale s (from its column max)
+// and the emission e, stored unscaled, its column max by atomicMax on the
+// value's bits, as K6a.  The host plan (ops/dense_scan.py trop_plan) lists
+// the operator's non-zeros by destination row and cuts the rows into
+// pieces (a row whose entries outweigh two warps' share into pieces of
+// about one share, which the final state's 1,025 in-arcs at the V=32 graph
+// need), dealt out to the grid's warps in row order by balanced cost (the
+// entries, and a few entries' worth per row for its epilogue).  A warp
+// owns 128 batch columns, a lane four of them; per piece it loads TU
+// entries and their source rows (past L1: another CTA wrote them) before
+// any is used, and takes the max of their products by compare and select
+// (float: on the products' bits as ints, two products per 3-input max;
+// double: a DSETP and selects, never fmax, which sm_90 lowers to a
+// quarter-rate sequence).  A whole row's epilogue runs in the warp that
+// summed it; a split row's pieces take the max into the row's partial
+// slot by atomicMax on the bits (order-free for values >= 0) and take the
+// row's ticket, and the piece that takes the last one reads the slot back,
+// zeroes it for the next frame and runs the epilogue.  The column scales
+// are computed once per column block and frame into shared memory, and each
+// lane keeps its columns' max in the warp's row of a shared table (each
+// lane deriving its own scales and holding its maxima in registers, the
+// float frame measured 13.7 us against 9.5: PERF.md section 6); each CTA's
+// column max takes one atomicMax per column and frame.  Nothing is staged:
+// the state rows come from L2.
+
+// entries a lane loads before any is used (double: 8 spilled)
+template <class T>
+constexpr int TU = is_f64<T>() ? 6 : 8;
+constexpr int TGEN = 32;  // the barrier's generation word: its own line
+
+template <class T>
+struct TropArgs {
+  const int* src;      // (nnz,) source state of each entry, by row
+  const T* w;          // (nnz,) its weight
+  const int4* pieces;  // (row, first entry, end entry, partial slot or -1)
+  const int* wp;       // (warps + 1,) each warp's pieces
+  const int2* parts;   // (Sp,) a split row's partial slot and its pieces
+  const int* spdf;
+  int Sp, P1, B, Nf, n_slots, first;
+  const T* ext;
+  const T* a0;
+  const T* mshift;
+  T* states;
+  T* scales;
+  T* ksum;
+  T* shift;
+  T* comp;
+  T* partial;  // (split rows, B) zeroed; each piece's maxima by atomicMax
+  // [count, .., generation (word TGEN), tickets (Sp x column blocks), column
+  // max (3, B) in BitsT<T> words (double: from the next even word)], zeroed
+  unsigned* sync;
+};
+
+// The larger of two values >= 0 by compare and select (no fmax).
+template <class T>
+__device__ __forceinline__ T vmax(T a, T b) {
+  return b > a ? b : a;
+}
+
+// The column max of frame f's state: three rows in turn, after the tickets.
+template <class T>
+__device__ __forceinline__ BitsT<T>* trop_cm(const TropArgs<T>& p, int f) {
+  const size_t base =
+      TGEN + 1 + static_cast<size_t>(p.Sp) * ((p.B + TB - 1) / TB);
+  if constexpr (is_f64<T>())
+    return reinterpret_cast<unsigned long long*>(p.sync + base + base % 2) +
+           static_cast<size_t>(f % 3) * p.B;
+  else
+    return p.sync + base + static_cast<size_t>(f % 3) * p.B;
+}
+
+// The max over entries q0 .. q1 - 1 of w * prev[src], columns bcol .. +3.
+template <bool VEC, class T>
+__device__ __forceinline__ V4<T> trop_max(const TropArgs<T>& p,
+                                          const T* prev, int q0, int q1,
+                                          int bcol) {
+  const int B = p.B;
+  if constexpr (is_f64<T>()) {
+    T m[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll 1
+    for (int q = q0; q < q1; q += TU<T>) {
+      int sr[TU<T>];
+      T w[TU<T>];
+      D4 x[TU<T>];
+#pragma unroll
+      for (int u = 0; u < TU<T>; ++u) {
+        sr[u] = q + u < q1 ? __ldg(p.src + q + u) : -1;
+        w[u] = q + u < q1 ? __ldg(p.w + q + u) : 0.0;
+      }
+#pragma unroll
+      for (int u = 0; u < TU<T>; ++u)
+        x[u] = sr[u] >= 0
+                   ? load4_l2<VEC>(prev + static_cast<size_t>(sr[u]) * B, bcol,
+                                   B)
+                   : D4{0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+      for (int u = 0; u < TU<T>; ++u)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) m[c] = vmax(m[c], mul_rn(w[u], get(x[u], c)));
+    }
+    return D4{m[0], m[1], m[2], m[3]};
+  } else {
+    int m[4] = {0, 0, 0, 0};  // the bits of the running max (+0)
+#pragma unroll 1
+    for (int q = q0; q < q1; q += TU<T>) {
+      int sr[TU<T>];
+      float w[TU<T>];
+      float4 x[TU<T>];
+#pragma unroll
+      for (int u = 0; u < TU<T>; ++u) {
+        sr[u] = q + u < q1 ? __ldg(p.src + q + u) : -1;
+        w[u] = q + u < q1 ? __ldg(p.w + q + u) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < TU<T>; ++u)
+        x[u] = sr[u] >= 0
+                   ? load4_l2<VEC>(prev + static_cast<size_t>(sr[u]) * B, bcol,
+                                   B)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < TU<T>; u += 2)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          m[c] = max(max(m[c], __float_as_int(mul_rn(w[u], get(x[u], c)))),
+                     __float_as_int(mul_rn(w[u + 1], get(x[u + 1], c))));
+    }
+    return make_float4(__int_as_float(m[0]), __int_as_float(m[1]),
+                       __int_as_float(m[2]), __int_as_float(m[3]));
+  }
+}
+
+// A split row's piece: its maxima into the row's partial slot by atomicMax
+// on their bits, then the row's ticket (per column block); the piece that
+// takes the last one reads the slot into acc, zeroes it for the next frame
+// and returns true.
+template <bool VEC, class T>
+__device__ __forceinline__ bool trop_merge(const TropArgs<T>& p, int r,
+                                           int slot, int cb, int bcol,
+                                           V4<T>& acc) {
+  const int B = p.B, ncb = (B + TB - 1) / TB;
+  T* row = p.partial + static_cast<size_t>(slot) * B;
+  BitsT<T>* bits = reinterpret_cast<BitsT<T>*>(row);
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (bcol + c < B) atomicMax(bits + bcol + c, to_bits(get(acc, c)));
+  // every lane's maxima are in before the ticket (as the grid barrier)
+  __threadfence();
+  __syncwarp();
+  const int2 rp = p.parts[r];
+  unsigned last = 0;
+  if (threadIdx.x % 32 == 0) {
+    unsigned* tk = p.sync + TGEN + 1 + static_cast<size_t>(r) * ncb + cb;
+    last = atomicAdd(tk, 1u) == static_cast<unsigned>(rp.y - 1);
+    if (last) atomicExch(tk, 0u);
+    __threadfence();
+  }
+  if (!__shfl_sync(0xffffffffu, last, 0)) return false;
+  acc = load4_l2<VEC>(row, bcol, B);
+  store4<VEC>(row, bcol, B, zero4<T>());
+  return true;
+}
+
+// Row r's new state u = y * e (columns bcol .. +3) stored, its values into
+// the lane's column max (cmax: its four columns of the warp's row).
+template <bool VEC, class T>
+__device__ __forceinline__ void trop_store(const TropArgs<T>& p, T* out,
+                                          int r, int bcol, const T (&y)[4],
+                                          const V4<T>& e, T* cmax) {
+  T v[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    v[c] = y[c] * get(e, c);
+    cmax[c] = vmax(cmax[c], v[c]);
+  }
+  store4<VEC>(out + static_cast<size_t>(r) * p.B, bcol, p.B,
+              make4<T>(v[0], v[1], v[2], v[3]));
+}
+
+// The emissions of row r, columns bcol .. +3.
+template <bool VEC, class T>
+__device__ __forceinline__ V4<T> trop_emission(const TropArgs<T>& p,
+                                              const T* ext_t, int r,
+                                              int bcol) {
+  return load4<VEC>(ext_t + static_cast<size_t>(__ldg(p.spdf + r)) * p.B,
+                    bcol, p.B);
+}
+
+// Frame t's outputs once its column max is complete: the scale, ksum and
+// the Kahan-compensated emission shift (the last CTA; Sweep::frame_out).
+template <class T>
+__device__ __forceinline__ void trop_frame_out(const TropArgs<T>& p, int t) {
+  const int B = p.B;
+  const BitsT<T>* cm = trop_cm(p, t);
+  const T* msh = p.mshift + static_cast<size_t>(t) * B;
+  T* scale = p.scales + static_cast<size_t>(t % p.n_slots) * B;
+  for (int b = threadIdx.x; b < B; b += NT) {
+    const T k = pow2_exponent(from_bits(__ldcg(cm + b)));
+    scale[b] = pow2_scale(k);
+    p.ksum[b] += k;
+    const T xc = __ldg(msh + b) - p.comp[b];
+    const T s = p.shift[b] + xc;
+    p.comp[b] = (s - p.shift[b]) - xc;
+    p.shift[b] = s;
+  }
+}
+
+// K6t over launch frames 0 .. Nf-1, one grid barrier per frame.  Launch
+// frame 0 skips the product only when ``first`` (global frame 0: u = a0 *
+// e, every row's epilogue dealt out to the warps round robin); otherwise
+// it multiplies a0, whose column max the caller seeded.
+template <bool VEC, class T>
+__global__ void __launch_bounds__(NT, 2) trop_kernel(const TropArgs<T> p) {
+  __shared__ T red[NW][TB];  // each warp's column max
+  __shared__ T scs[TB];      // the previous state's column scales
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gw = blockIdx.x * NW + warp, n_warps = gridDim.x * NW;
+  const int B = p.B, ncb = (B + TB - 1) / TB;
+  const size_t SB = static_cast<size_t>(p.Sp) * B;
+  const int pc0 = p.wp[gw], pc1 = p.wp[gw + 1];
+  const bool last_cta = blockIdx.x == gridDim.x - 1;
+  for (int f = 0; f < p.Nf; ++f) {
+    const T* prev = f == 0 ? p.a0
+                           : p.states + static_cast<size_t>(
+                                            (f + p.n_slots - 1) % p.n_slots) *
+                                            SB;
+    T* out = p.states + static_cast<size_t>(f % p.n_slots) * SB;
+    const T* ext_t = p.ext + static_cast<size_t>(f) * p.P1 * B;
+    const BitsT<T>* cm_prev = trop_cm(p, f + 2);
+    BitsT<T>* cm_cur = trop_cm(p, f);
+    if (last_cta) {
+      BitsT<T>* cm_next = trop_cm(p, f + 1);  // read last one frame ago
+      for (int b = tid; b < B; b += NT) cm_next[b] = 0;
+      if (f > 0) trop_frame_out(p, f - 1);
+    }
+    if (f + 1 < p.Nf) {  // the next frame's emissions into L2, spread
+      constexpr int LINE = 128 / sizeof(T);
+      const T* e = ext_t + static_cast<size_t>(p.P1) * B;
+      const int n_e = (p.P1 * B + LINE - 1) / LINE;
+      for (int i = blockIdx.x * NT + tid; i < n_e; i += gridDim.x * NT)
+        prefetch_l2(e + static_cast<size_t>(i) * LINE);
+    }
+    const bool skip = f == 0 && p.first;
+    for (int cb = 0; cb < ncb; ++cb) {
+      const int bcol = cb * TB + lane * 4;
+      T* cmax = &red[warp][lane * 4];  // this lane's columns' max
+#pragma unroll
+      for (int c = 0; c < 4; ++c) cmax[c] = T(0);
+      if (tid < TB)
+        scs[tid] = skip ? T(0) : scale_of<T>(cm_prev, cb * TB + tid, B);
+      __syncthreads();
+      const T* sc = &scs[lane * 4];
+      if (skip) {
+        for (int r = gw; r < p.Sp; r += n_warps) {
+          const V4<T> e = trop_emission<VEC>(p, ext_t, r, bcol);
+          const V4<T> a =
+              load4_l2<VEC>(prev + static_cast<size_t>(r) * B, bcol, B);
+          const T y[4] = {get(a, 0), get(a, 1), get(a, 2), get(a, 3)};
+          trop_store<VEC>(p, out, r, bcol, y, e, cmax);
+        }
+      } else {
+        for (int pc = pc0; pc < pc1; ++pc) {
+          const int4 pi = p.pieces[pc];
+          V4<T> e = zero4<T>();
+          if (pi.w < 0) e = trop_emission<VEC>(p, ext_t, pi.x, bcol);
+          V4<T> acc = trop_max<VEC>(p, prev, pi.y, pi.z, bcol);
+          if (pi.w >= 0) {
+            if (!trop_merge<VEC>(p, pi.x, pi.w, cb, bcol, acc)) continue;
+            e = trop_emission<VEC>(p, ext_t, pi.x, bcol);
+          }
+          const T y[4] = {get(acc, 0) * sc[0], get(acc, 1) * sc[1],
+                          get(acc, 2) * sc[2], get(acc, 3) * sc[3]};
+          trop_store<VEC>(p, out, pi.x, bcol, y, e, cmax);
+        }
+      }
+      __syncthreads();
+      if (tid < TB && cb * TB + tid < B) {
+        T m = red[0][tid];
+#pragma unroll
+        for (int w = 1; w < NW; ++w) m = vmax(m, red[w][tid]);
+        atomicMax(cm_cur + cb * TB + tid, to_bits(m));
+      }
+      __syncthreads();  // red is free for the next column block
+    }
+    grid_sync<TGEN, 256, true>(p.sync);
+  }
+  if (last_cta) trop_frame_out(p, p.Nf - 1);
+}
+
+// K6t's launch: every CTA of the plan's grid co-resident.
+template <bool VEC, class T>
+cudaError_t launch_trop(const TropArgs<T>& a, int n_ctas, cudaStream_t st) {
+  const void* kern = reinterpret_cast<const void*>(trop_kernel<VEC, T>);
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm * n_sm < n_ctas) return cudaErrorCooperativeLaunchTooLarge;
+  TropArgs<T> arg = a;
+  void* args[] = {&arg};
+  err = cudaLaunchCooperativeKernel(kern, dim3(n_ctas), dim3(NT), args, 0, st);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <class T>
+cudaError_t trop(const int* src, const void* w, const int* pieces,
+                 const int* wp, const int* parts, int n_ctas, const int* spdf,
+                 const void* a0, const void* ext, const void* mshift, int Sp,
+                 int P1, int B, int Nf, int n_slots, int first, void* states,
+                 void* scales, void* ksum, void* shift, void* comp,
+                 void* partial, unsigned* sync, cudaStream_t st) {
+  TropArgs<T> a{};
+  a.src = src;
+  a.w = static_cast<const T*>(w);
+  a.pieces = reinterpret_cast<const int4*>(pieces);
+  a.wp = wp;
+  a.parts = reinterpret_cast<const int2*>(parts);
+  a.spdf = spdf;
+  a.Sp = Sp;
+  a.P1 = P1;
+  a.B = B;
+  a.Nf = Nf;
+  a.n_slots = n_slots;
+  a.first = first != 0;
+  a.ext = static_cast<const T*>(ext);
+  a.a0 = static_cast<const T*>(a0);
+  a.mshift = static_cast<const T*>(mshift);
+  a.states = static_cast<T*>(states);
+  a.scales = static_cast<T*>(scales);
+  a.ksum = static_cast<T*>(ksum);
+  a.shift = static_cast<T*>(shift);
+  a.comp = static_cast<T*>(comp);
+  a.partial = static_cast<T*>(partial);
+  a.sync = sync;
+  return B % 4 == 0 ? launch_trop<true, T>(a, n_ctas, st)
+                    : launch_trop<false, T>(a, n_ctas, st);
 }
 
 }  // namespace
@@ -1454,49 +1772,45 @@ extern "C" int mm_dense_fwd(const void* tiles, const int* tile_k,
   const Plan pl = plan_of(tiles, tile_k, lo, seg_ptr, segs, rt_parts);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (prec == 2)
-    return static_cast<int>(launch<false, false>(
+    return static_cast<int>(launch<false>(
         fwd_args<double>(pl, spdf, a0, ext, mshift, Sp, P1, B, Nf, n_slots,
                          states, scales, ksum, shift, comp, partial, sync, xb),
         prec, n_ctas, max_tiles, st));
-  return static_cast<int>(launch<false, false>(
+  return static_cast<int>(launch<false>(
       fwd_args<float>(pl, spdf, a0, ext, mshift, Sp, P1, B, Nf, n_slots,
                       states, scales, ksum, shift, comp, partial, sync, xb),
       prec, n_ctas, max_tiles, st));
 }
 
 // K6t: the tropical forward over launch frames 0 .. Nf-1 from a0, one
-// launch; the arguments as for mm_dense_fwd, with f64 != 0 for double tiles
-// and values (no bf16).  Launch frame 0 skips the product only when
-// first != 0 (global frame 0); otherwise it multiplies a0, whose scale the
-// caller seeds into sync's third column-max row as the bits of 1 / scale.
-// ksum, shift and comp carry on from their values on entry.
-extern "C" int mm_dense_trop(const void* tiles, const int* tile_k,
-                             const int* lo, const int* seg_ptr,
-                             const int* segs, const int* rt_parts, int n_ctas,
-                             int max_tiles, const int* spdf, const void* a0,
-                             const void* ext, const void* mshift, int Sp,
-                             int P1, int B, int Nf, int n_slots, int first,
-                             int f64, void* states, void* scales, void* ksum,
+// launch of n_ctas CTAs over the plan (src .. parts: ops/dense_scan.py's
+// TropPlan of the forward operator, 8 warps a CTA), float values, or double
+// with f64 != 0.  Frame t writes its unscaled state to states[t % n_slots]
+// and its scale to scales[t % n_slots] (n_slots = Nf or 2).  Launch frame 0
+// skips the product only when first != 0 (global frame 0); otherwise it
+// multiplies a0, whose scale the caller seeds into sync's third column-max
+// row as the bits of 1 / scale.  ksum, shift and comp carry on from their
+// values on entry.  partial holds the plan's split rows x B zeroed values
+// (zero again on return), sync 33 + Sp x ceil(B / 128) zeroed words and
+// then the 3 x B column-max words (double: 64-bit, from the next even
+// word).
+extern "C" int mm_dense_trop(const int* src, const void* w,
+                             const int* pieces, const int* wp,
+                             const int* parts, int n_ctas, const int* spdf,
+                             const void* a0, const void* ext,
+                             const void* mshift, int Sp, int P1, int B,
+                             int Nf, int n_slots, int first, int f64,
+                             void* states, void* scales, void* ksum,
                              void* shift, void* comp, void* partial,
                              unsigned* sync, void* stream) {
-  if (bad_shape(Sp, P1, B, Nf, n_ctas, max_tiles) ||
+  if (Sp <= 0 || P1 <= 0 || B <= 0 || Nf <= 0 || n_ctas <= 0 ||
       (n_slots != Nf && n_slots != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Plan pl = plan_of(tiles, tile_k, lo, seg_ptr, segs, rt_parts);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (f64) {
-    Args<double> a = fwd_args<double>(pl, spdf, a0, ext, mshift, Sp, P1, B,
-                                      Nf, n_slots, states, scales, ksum,
-                                      shift, comp, partial, sync, nullptr);
-    a.first = first != 0;
-    return static_cast<int>(
-        launch<false, true>(a, 2, n_ctas, max_tiles, st));
-  }
-  Args<float> a = fwd_args<float>(pl, spdf, a0, ext, mshift, Sp, P1, B, Nf,
-                                  n_slots, states, scales, ksum, shift, comp,
-                                  partial, sync, nullptr);
-  a.first = first != 0;
-  return static_cast<int>(launch<false, true>(a, 0, n_ctas, max_tiles, st));
+  auto run = f64 ? &trop<double> : &trop<float>;
+  return static_cast<int>(run(src, w, pieces, wp, parts, n_ctas, spdf, a0,
+                              ext, mshift, Sp, P1, B, Nf, n_slots, first,
+                              states, scales, ksum, shift, comp, partial,
+                              sync, static_cast<cudaStream_t>(stream)));
 }
 
 // K6b: the reverse sweep over frames Nf-1 .. 0 over the forward's alphas
@@ -1521,11 +1835,11 @@ extern "C" int mm_dense_bwd(const void* tiles, const int* tile_k,
   const Plan pl = plan_of(tiles, tile_k, lo, seg_ptr, segs, rt_parts);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (prec == 2)
-    return static_cast<int>(launch<true, false>(
+    return static_cast<int>(launch<true>(
         bwd_args<double>(pl, spdf, perm, off, ext, alphas, ascale, Sp, P1, B,
                          Nf, work, gamma, posts, part, partial, sync, xb),
         prec, n_ctas, max_tiles, st));
-  return static_cast<int>(launch<true, false>(
+  return static_cast<int>(launch<true>(
       bwd_args<float>(pl, spdf, perm, off, ext, alphas, ascale, Sp, P1, B, Nf,
                       work, gamma, posts, part, partial, sync, xb),
       prec, n_ctas, max_tiles, st));

@@ -114,13 +114,20 @@
 // descriptor order, each merged with a strict >, the smallest index within
 // a family", since the ids rise in descriptor order.  A row's few terms
 // are pulled by its own thread in the epilogue, their range and the row's
-// first band id staged in shared memory as the item's rows are set up; a
+// first band id staged in shared memory as the item's rows are set up (in
+// float K7 read with the row's state in the epilogue from one int4 of
+// ``frow``, its pdf too, which took a dependent round of loads out of
+// every item's set-up: PERF.md section 6); a
 // heavy row (an 'in' window: 129 terms on the graph of chip_smoke.py
-// phase 18) takes an item of its own, heavy_max_arg(), whose 16 thread
-// rows split the terms and merge their partials in the same rule (one
-// thread pulling 128 terms cost K2 97 us per frame, PERF.md section 6);
-// the heavy items come first in the queue (measured faster than after the
-// tier items or last, PERF.md section 6).  An overflow
+// phase 18) takes an item of its own in double, heavy_max_arg(), whose 16
+// thread rows split the terms and merge their partials in the same rule
+// (one thread pulling 128 terms cost K2 97 us per frame, PERF.md section
+// 6), and goes HP to an item in float (heavy_ids, 16 / HP thread rows a
+// row, the partials merged in the same rule: the same ids); the heavy
+// items come first in the queue (measured faster than after the tier items
+// or last, PERF.md section 6).  In float K7 a row's terms merge as they
+// come, as in double (measured faster than its first term loaded with the
+// band terms, which spilled more: PERF.md section 6).  An overflow
 // row's emission comes from its own pdf (row_pdf).  The branch sits
 // outside the group loop, and the uniform instantiations (FAM = false)
 // compile as before.
@@ -308,13 +315,14 @@ struct VitSmem<double> {
 static_assert(sizeof(VitSmem<double>::u) == NVS * DVSTAGE * sizeof(double),
               "the epilogue's tables and a heavy row's partials fit the ring");
 
-// A sweep's shared memory: the uniform layout's, and with FAM each tile
-// row's family terms [x, y) and first band id z, read as the rows are set
-// up (the uniform instantiations keep exactly the uniform layout).
+// A sweep's shared memory: the uniform layout's, and in the double family
+// instantiations each tile row's family terms [x, y) and first band id z,
+// read as the rows are set up (the float K7 reads them from frow in the
+// epilogue; the uniform instantiations keep exactly the uniform layout).
 template <bool FAM, class T>
 struct VitSmemT : VitSmem<T> {};
-template <class T>
-struct VitSmemT<true, T> : VitSmem<T> {
+template <>
+struct VitSmemT<true, double> : VitSmem<double> {
   int3 fr[TR];
 };
 
@@ -362,6 +370,13 @@ using VitSmemK = typename SmemOf<IDS, FAM, T>::type;
 template <bool IDS, class T>
 __host__ __device__ constexpr bool noid_f32() {
   return !IDS && !is_f64<T>();
+}
+
+// The float instantiations (K7 and K7n) take a capped layout's heavy rows
+// HP to an item; the double ones one to an item.
+template <class T>
+__host__ __device__ constexpr bool packs_heavy() {
+  return !is_f64<T>();
 }
 
 // The double instantiation's omega scratch beside the keys' words (none for
@@ -425,6 +440,9 @@ struct VitFam {
   const uint8_t* fam_cid;   // (nfam,) its candidate id
   const int* heavy_rows;    // (nheavy,) the rows with an item each
   const int* cbase;         // (nOv,) band id base of each overflow group
+  // (Sp,) per row: its terms [x, y), band id base z, emission row w (K7 in
+  // float reads them with the row's state in the epilogue)
+  const int4* frow;
 };
 
 // A sweep's arguments: the uniform layout's, and with FAM the family tables
@@ -1065,6 +1083,79 @@ __device__ __forceinline__ void heavy_noid(const VitArgsT<true, float>& p,
   s.u.ep.val[r][col] = v;
 }
 
+// The family candidates of up to HP heavy rows with their ids (the float
+// K7's packed family item ``tile``: heavy rows tile * HP ..): heavy_noid's
+// split, each thread row keeping per column the max product w * (a * s)
+// and the smallest id among the terms equal to it (fam_beats), a row's
+// 16 / HP partials merged by the same rule into rows 0 .. HP - 1 of the
+// epilogue's tables (ep.val, ep.id).  The rule picks the (max, smallest
+// id) of the row's terms however they are split, so the ids are
+// heavy_max_arg's (16 partials) and the twin's.
+static_assert(sizeof(float) * TR * ST >=
+                  sizeof(float) * TR * (TB + 1) + TR * TB,
+              "a heavy item's partials lie past the epilogue's tables");
+template <bool VEC>
+__device__ __forceinline__ void heavy_ids(const VitArgsT<true, float>& p,
+                                          VitSmem<float>& s,
+                                          const float* __restrict__ prev,
+                                          const float* sc, long long tile,
+                                          int b0, unsigned long long once) {
+  constexpr int TH = 16 / HP;  // thread rows per heavy row
+  const VitFam<float>& f = p.f;
+  const int B = p.B, tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int bcol = b0 + tx * 4;
+  const long long h = tile * HP + ty / TH;
+  float scv[4], bv[4];
+  int bid[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    scv[c] = bcol + c < B ? sc[bcol + c] : 0.f;
+    bv[c] = -1.f;  // below every product: the first term enters
+    bid[c] = NO_CAND;
+  }
+  int q0 = 0, q1 = 0;
+  if (h < p.m.nheavy) {
+    const int j = f.heavy_rows[h];
+    q0 = f.fam_ptr[j];
+    q1 = f.fam_ptr[j + 1];
+  }
+#pragma unroll 4
+  for (int q = q0 + ty % TH; q < q1; q += TH) {
+    const float w = f.fam_w[q];
+    const int id = f.fam_cid[q];
+    const float4 x = load4_hint<VEC>(
+        prev + static_cast<size_t>(f.fam_src[q]) * B, bcol, B, once);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float v = w * (get(x, c) * scv[c]);
+      if (fam_beats<true>(v, id, bv[c], bid[c])) {
+        bv[c] = v;
+        bid[c] = id;
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    s.u.hv.v[ty][tx * 4 + c] = bv[c];
+    s.u.hv.id[ty][tx * 4 + c] = bid[c];
+  }
+  __syncthreads();
+  const int r = tid / TB, col = tid % TB;  // heavy row r of the item
+  float v = -1.f;
+  int id = NO_CAND;
+#pragma unroll
+  for (int q = 0; q < TH; ++q) {
+    const float u = s.u.hv.v[r * TH + q][col];
+    const int ui = s.u.hv.id[r * TH + q][col];
+    if (fam_beats<true>(u, ui, v, id)) {
+      v = u;
+      id = ui;
+    }
+  }
+  s.u.ep.val[r][col] = v;
+  s.u.ep.id[r][col] = static_cast<uint8_t>(id);
+}
+
 // The family candidate of a heavy row j (FAM: an item of its own) for the
 // item's 64 columns: thread row ty takes every 16th of the row's terms,
 // keeping per column the max product and the smallest id among the terms
@@ -1168,9 +1259,9 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
             ty = tid / 16;
   const int bcol = b0 + tx * 4;  // this thread's epilogue columns
   const bool first = (IDS ? t : p.t0 + t) == 0;
-  // heavy items: one row each, or HP rows each in the float K7n
+  // heavy items: HP rows each in float, one row each in double
   const long long nh =
-      noid_f32<IDS, T>() ? (m.nheavy + HP - 1) / HP : m.nheavy;
+      packs_heavy<T>() ? (m.nheavy + HP - 1) / HP : m.nheavy;
   const bool is_heavy = FAM && tile < nh;
   const long long tt = tile - (FAM ? nh : 0);  // tier or band tile
   const bool is_tier = !is_heavy && tt < m.n_tier_tiles;
@@ -1195,26 +1286,28 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
       if (r < m.nband) j = row0 >= 0 ? row0 + tid : p.band_rows[r];
     }
     if constexpr (FAM) {
-      if constexpr (noid_f32<IDS, T>()) {
+      if constexpr (packs_heavy<T>()) {
         if (is_heavy && tid < HP && tile * HP + tid < m.nheavy)
           j = p.f.heavy_rows[tile * HP + tid];
       } else {
         if (is_heavy && tid == 0) j = p.f.heavy_rows[tile];
       }
-      int3 fr = make_int3(0, 0, static_cast<int>(m.Sm));
-      if (j >= 0) {
-        fr.x = p.f.fam_ptr[j];
-        fr.y = p.f.fam_ptr[j + 1];
-        if (j >= m.ov_lo && j < m.ov_hi)
-          fr.z = p.f.cbase[(j - m.ov_lo) / m.cmax];
+      if constexpr (!(IDS && packs_heavy<T>())) {  // float K7: frow
+        int3 fr = make_int3(0, 0, static_cast<int>(m.Sm));
+        if (j >= 0) {
+          fr.x = p.f.fam_ptr[j];
+          fr.y = p.f.fam_ptr[j + 1];
+          if (j >= m.ov_lo && j < m.ov_hi)
+            fr.z = p.f.cbase[(j - m.ov_lo) / m.cmax];
+        }
+        s.fr[tid] = fr;
+        // the pdf table is read for the overflow rows only: a core row's
+        // pdf is its group's, the tail's the phony one (block_scan._row_pdf)
+        s.grp[tid] = j < 0          ? -1
+                     : j < m.ov_lo  ? static_cast<int>(j / m.cmax)
+                     : j >= m.ov_hi ? m.P1 - 1
+                                    : p.f.row_pdf[j];
       }
-      s.fr[tid] = fr;
-      // the pdf table is read for the overflow rows only: a core row's pdf
-      // is its group's, the tail's the phony one (block_scan._row_pdf)
-      s.grp[tid] = j < 0          ? -1
-                   : j < m.ov_lo  ? static_cast<int>(j / m.cmax)
-                   : j >= m.ov_hi ? m.P1 - 1
-                                  : p.f.row_pdf[j];
     } else {
       s.grp[tid] = j < 0 ? -1 : static_cast<int>(j / m.cmax);
     }
@@ -1257,6 +1350,8 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
     if (is_heavy) {
       if constexpr (noid_f32<IDS, T>())
         heavy_noid<VEC>(p, s, prev, sc, tile, b0, once);
+      else if constexpr (packs_heavy<T>())
+        heavy_ids<VEC>(p, s, prev, sc, tile, b0, once);
       else
         heavy_max_arg<VEC, IDS>(p, s, prev, sc, p.f.heavy_rows[tile], b0,
                                 once);
@@ -1435,9 +1530,12 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
     for (int i0 = 0; i0 < 4; i0 += 2) {
       V4<T> pv[2], xb[2][PB];
       T wb[2][PB];
+      int4 fi[2];  // K7 in float, FAM: each row's frow
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int j = s.rows[ty * 4 + i0 + h];
+        if constexpr (FAM && IDS)
+          fi[h] = j >= 0 ? p.f.frow[j] : make_int4(0, 0, 0, 0);
         pv[h] = j >= 0 ? load4_hint<VEC>(prev + static_cast<size_t>(j) * B,
                                          bcol, B, once)
                        : zero4<T>();
@@ -1457,8 +1555,13 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
         const int r = ty * 4 + i0 + h, j = s.rows[r];
         if (j < 0) continue;
         const size_t jB = static_cast<size_t>(j) * B;
+        int grp = 0;
+        if constexpr (FAM && IDS)
+          grp = fi[h].w;
+        else
+          grp = s.grp[r];
         const V4<T> e =
-            load4<VEC>(ext_t + static_cast<size_t>(s.grp[r]) * B, bcol, B);
+            load4<VEC>(ext_t + static_cast<size_t>(grp) * B, bcol, B);
         const T om = p.omega[j];
         T a[4];
 #pragma unroll
@@ -1472,7 +1575,10 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
         int cb[4] = {NO_CAND, NO_CAND, NO_CAND, NO_CAND};
         if (main_row) {
           int cb0 = static_cast<int>(m.Sm);
-          if constexpr (FAM) cb0 = s.fr[r].z;
+          if constexpr (FAM && IDS)
+            cb0 = fi[h].z;
+          else if constexpr (FAM)
+            cb0 = s.fr[r].z;
 #pragma unroll
           for (int o = 0; o < MAX_BANDS; ++o) {
             if (o >= m.nO) break;  // uniform across the block
@@ -1506,7 +1612,33 @@ __device__ __forceinline__ void vit_item(const VitArgsT<FAM, T>& p, int t,
               }
             }
           }
-          if constexpr (FAM) {  // the row's few family terms, pulled here
+          if constexpr (FAM && IDS) {  // the row's few family terms
+            if (!is_heavy) {
+              // each term merged as it comes (as in double): it takes the
+              // candidate where it is larger, or equal to a family term's
+              // of a larger id
+              unsigned fam = 0u;
+              const int e1 = fi[h].y;
+#pragma unroll 1
+              for (int q = fi[h].x; q < e1; ++q) {
+                const T w = p.f.fam_w[q];
+                const int id = p.f.fam_cid[q];
+                const V4<T> x = load4_hint<VEC>(
+                    prev + static_cast<size_t>(p.f.fam_src[q]) * B, bcol, B,
+                    once);
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                  const T v = w * (get(x, c) * scv[c]);
+                  if (v > vb[c] ||
+                      (v == vb[c] && (fam >> c & 1u) && id < cb[c])) {
+                    vb[c] = v;
+                    cb[c] = id;
+                    fam |= 1u << c;
+                  }
+                }
+              }
+            }
+          } else if constexpr (FAM) {  // the row's few family terms
             if (!is_heavy) {
               T fv[4] = {T(-1), T(-1), T(-1), T(-1)};
               int fid[4] = {NO_CAND, NO_CAND, NO_CAND, NO_CAND};
@@ -1795,6 +1927,7 @@ VitFam<T> parse_fam(const long long* a) {
   f.fam_cid = reinterpret_cast<const uint8_t*>(a[4]);
   f.heavy_rows = reinterpret_cast<const int*>(a[5]);
   f.cbase = reinterpret_cast<const int*>(a[6]);
+  f.frow = reinterpret_cast<const int4*>(a[7]);
   return f;
 }
 
@@ -1840,7 +1973,7 @@ bool layout_ok(const Meta& m, const long long* ilay, int RW) {
 
 // The arguments K7 and K7n share, checked; false if any is out of range.
 // ``packed``: the queue's heavy items take HP heavy rows each (the float
-// K7n's plan).
+// plan).
 template <class T>
 bool common_args(VitArgs<T>* a, const long long* imeta, const long long* ilay,
                  int B, int Nf, int RW, int n_items, int n_ctas,
@@ -1912,7 +2045,7 @@ int vit_fwd(const void* a0, const void* ext, const void* mshift,
                                queue, n_items, work, scale, ksum, shift,
                                comp);
   if (!common_args(&a, imeta, ilay, B, Nf, RW, n_items, n_ctas, scratch,
-                   scratch_bytes, false))
+                   scratch_bytes, packs_heavy<T>()))
     return static_cast<int>(cudaErrorInvalidValue);
   a.Sm4 = (a.m.Sm + 3) / 4 * 4;
   a.bps = bps;
@@ -1934,7 +2067,7 @@ int vit_fwd_noid(const void* a0, const void* s0, const void* ext,
                                queue, n_items, work, scale, ksum, shift,
                                comp);
   if (!common_args(&a, imeta, ilay, B, Nf, RW, n_items, n_ctas, scratch,
-                   scratch_bytes, !is_f64<T>()) ||
+                   scratch_bytes, packs_heavy<T>()) ||
       t0 < 0 || stride <= 0 || n_save != Nf / stride ||
       (n_save > 0 && (save == nullptr || save_scale == nullptr)) ||
       (stride > 1 && work == nullptr) || s0 == nullptr)
@@ -1984,8 +2117,9 @@ extern "C" int mm_vit_ctas(int vec, int ids, int fam, int f64, int B) {
 // K7: the tropical sweep over frames 0 .. Nf-1 from a0 (the initial state,
 // (Sp, B), with scale 1) in one cooperative launch of n_ctas CTAs, which
 // take every frame's items from queue (ops/vit_scan.py vit_plan: n_items =
-// n_tiles * ceil(B / 64) pairs of ints).  Wt: the tier panels transposed,
-// (K, D, Sm4) with Sm4 = Sm rounded up to 4, zero-padded.  Frame t writes
+// n_tiles * ceil(B / 64) pairs of ints, in float a capped layout's heavy
+// rows HP to an item, vit_plan(packed=True)).  Wt: the tier panels
+// transposed, (K, D, Sm4) with Sm4 = Sm rounded up to 4, zero-padded.  Frame t writes
 // work[t % 2] (unscaled; the phony row only for t = 0 and t = Nf - 1),
 // ids[t] and fins[t]; on return scale is the last frame's, so v_final =
 // work[(Nf-1) % 2][fin] * scale.  ksum, shift and comp are zero on entry;

@@ -21,12 +21,13 @@ rule, e.g. an LF-MMI denominator) runs over a (Sp, B) probability state:
   decode (``markovmodels_tpu/viterbi.py``'s ``_viterbi_scale`` on
   ``_trop_prob_matvec``, XLA there): y[j] = max_i Wp[j, i]·a[i], then the
   emission and the rescale as K6a, over one chunk of frames from a given
-  state and scale, keeping every frame's state or a two-slot ring.  It is
-  K6a's kernel with each FMA a multiply and a max (exact: the max does not
-  depend on order, and an all-zero tile gives products of 0 against a state
-  >= 0, as the dense Wp does).  Its operator is in the graph's dtype in
-  every precision mode (:func:`trop_operator`): the JAX package reads
-  ``dense_fwd_exp`` unrounded to bf16.
+  state and scale, keeping every frame's state or a two-slot ring.  Its
+  product runs over the operator's non-zeros only (:func:`trop_plan`: the
+  entries by destination row, cut into pieces dealt out to the grid's
+  warps), each max started from +0: every product is >= 0, so the result
+  is the dense max bit for bit and does not depend on order.  Its operator
+  is in the graph's dtype in every precision mode (:func:`trop_operator`):
+  the JAX package reads ``dense_fwd_exp`` unrounded to bf16.
 
 The TPU kernels' one-hot matrices (``OH_state @ ext_t`` and ``oh_pdf @ γ``)
 are a TPU device for a gather and a segment sum.  Here the emission is a
@@ -94,6 +95,9 @@ __all__ = [
     "DenseOp",
     "TilePlan",
     "tile_plan",
+    "TropPlan",
+    "trop_plan",
+    "with_trop_plan",
     "dense_op",
     "kernel_operator",
     "fwd_sweep",
@@ -127,6 +131,10 @@ _TILE_COLS = 128  # batch columns per column block (TB)
 _TILE_COLS_F64 = 64
 _STAGES_F64 = 3
 _CTAS_PER_SM = 2  # co-resident CTAs per SM of the persistent grid
+_WARPS = 8  # K6t: warps per CTA (NT / 32 in csrc/dense_scan.cu)
+# K6t's plan: a row's epilogue in entries' worth of work (the emission read
+# and the state stored), its share of a warp's balanced cost
+_ROW_COST = 4
 _SMS = 132  # SMs of an H100 SXM: the plan's grid where there is no card
 
 
@@ -181,10 +189,10 @@ def dense_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     Its TPU rules (backend, the VMEM budget of ``pallas_scan_supported``)
     are not copied: each CTA keeps its range of the operator's non-zero
     tiles in shared memory where that fits (4.5 KB a tile in float32, 2 KB
-    in bf16, 8 KB in float64 (K6t: 9 KB), beside 34-82 KB of stages,
-    :func:`smem_bytes`;
+    in bf16, 8 KB in float64, beside 34-82 KB of stages, :func:`smem_bytes`;
     at most 227 KB per CTA) and streams them every frame where it does not,
-    so no operator is too large or too dense.  Instead the padded state
+    so no operator is too large or too dense; K6t keeps nothing of the
+    operator in shared memory (:func:`trop_plan`).  Instead the padded state
     count must be a multiple of the kernels' 32-row tile, and the device
     bytes of a run (``_device_bytes``) must fit the free memory of
     ``device`` when that is a CUDA device (checked where a card is
@@ -308,32 +316,91 @@ def tile_plan(w: torch.Tensor, n_ctas: int) -> TilePlan:
                     max_tiles=int(np.diff(lo).max()))
 
 
-def smem_bytes(pl: TilePlan, tropical: bool = False) -> tuple:
-    """(resident, streaming): the dynamic shared memory of one CTA of the
-    plan's launch, as csrc/dense_scan.cu's ``Layout::bytes`` counts it,
-    with the largest range's tiles kept on chip, or streamed through the
-    two-stage ring beside the state blocks.  A tile and a 32 x 128 state
-    stage take 4 bytes a value in float32 (their rows padded by 4 values);
-    bf16 tiles are packed fragments (2 KB), their stages bf16 row pairs,
-    beside the float32 accumulator scratch.  In float64, K6a/K6b (the DMMA
-    layout) keep 8 KB tiles in A-fragment order beside a ring of three
+def smem_bytes(pl: TilePlan) -> tuple:
+    """(resident, streaming): the dynamic shared memory of one K6a/K6b CTA
+    of the plan's launch, as csrc/dense_scan.cu's ``Layout::bytes`` counts
+    it, with the largest range's tiles kept on chip, or streamed through
+    the two-stage ring beside the state blocks.  A tile and a 32 x 128
+    state stage take 4 bytes a value in float32 (their rows padded by 4
+    values); bf16 tiles are packed fragments (2 KB), their stages bf16 row
+    pairs, beside the float32 accumulator scratch.  In float64 (the DMMA
+    layout) 8 KB tiles in A-fragment order lie beside a ring of three
     32 x 64 stages whose rows are padded by 4 values (17 KB each) and the
-    column block's two rows of scales (1 KB); K6t (``tropical``) keeps
-    the float32 layout at 8 bytes a value (9 KB tiles, two 32 KB
-    stages)."""
+    column block's two rows of scales (1 KB).  K6t takes no dynamic shared
+    memory (:func:`trop_plan`)."""
     n_st = 2
     if pl.tiles.dtype == torch.bfloat16:
         tile, stage = _TILE * _TILE * 2, _TILE // 2 * (_TILE_COLS + 8) * 4
         scr = _TILE * (_TILE_COLS + 4) * 4
-    elif pl.tiles.dtype == torch.float64 and not tropical:
+    elif pl.tiles.dtype == torch.float64:
         tile, scr = _TILE * _TILE * 8, 2 * _TILE_COLS_F64 * 8
         stage = _TILE * (_TILE_COLS_F64 + 4) * 8
         n_st = _STAGES_F64
     else:
-        f = pl.tiles.element_size()
-        tile, stage, scr = _TILE * (_TILE + 4) * f, _TILE * _TILE_COLS * f, 0
+        tile, stage, scr = _TILE * (_TILE + 4) * 4, _TILE * _TILE_COLS * 4, 0
     return (pl.max_tiles * tile + n_st * stage + scr,
             n_st * (stage + tile) + scr)
+
+
+class TropPlan(NamedTuple):
+    """K6t's host plan of the forward operator (built by :func:`trop_plan`):
+    its non-zeros by destination row (then source), and the rows cut into
+    pieces dealt out to the warps of the persistent grid in row order.  A
+    row of two or more entries whose entries (and ``_ROW_COST`` for its
+    epilogue) outweigh two warps' mean share is cut into pieces of about
+    one share each (at least two, at most one an entry), which merge by
+    max into the row's partial slot; a row without entries is a piece
+    without entries (its state is 0)."""
+    src: torch.Tensor  # (nnz,) int32 source state of each entry
+    w: torch.Tensor  # (nnz,) its weight, the operator's dtype
+    # (pieces, 4) int32: (row, first entry, end entry, partial slot), slot
+    # -1 where the piece is the whole row, else its row's
+    pieces: torch.Tensor
+    wp: torch.Tensor  # (warps + 1,) int32: warp g owns pieces [wp[g], wp[g+1])
+    # (Sp, 2) int32: a split row's partial slot and its pieces; (-1, 0)
+    # otherwise
+    parts: torch.Tensor
+    n_partials: int  # partial slots: one per split row
+
+
+def trop_plan(w: torch.Tensor, n_ctas: int) -> TropPlan:
+    """The plan of the (Sp, Sp) operator ``w`` (float32 or float64) over a
+    grid of ``n_ctas`` CTAs of ``_WARPS`` warps.  Built on ``w``'s device;
+    the pieces on the host.  Each piece costs its entries plus
+    ``_ROW_COST``; a warp takes the pieces whose cost midpoints fall in its
+    equal share of the total, so the warps' pieces stay in row order."""
+    Sp = w.shape[0]
+    rows, cols = torch.nonzero(w, as_tuple=True)  # row-major order
+    counts = torch.bincount(rows, minlength=Sp).cpu().numpy().astype(np.int64)
+    ptr = np.zeros(Sp + 1, np.int64)
+    ptr[1:] = np.cumsum(counts)
+    n_warps = n_ctas * _WARPS
+    share = (ptr[-1] + _ROW_COST * Sp) / n_warps
+    cut = (counts + _ROW_COST > 2 * share) & (counts > 1)
+    k = np.where(cut, np.clip(np.ceil(counts / share), 2, counts),
+                 1).astype(np.int64)
+    row = np.repeat(np.arange(Sp), k)
+    j = np.arange(row.size) - np.repeat(np.cumsum(k) - k, k)  # piece of row
+    first = ptr[row] + counts[row] * j // k[row]
+    end = ptr[row] + counts[row] * (j + 1) // k[row]
+    cost = end - first + _ROW_COST
+    mid = np.cumsum(cost) - cost / 2
+    warp = np.minimum((mid * n_warps / cost.sum()).astype(np.int64),
+                      n_warps - 1)
+    wp = np.searchsorted(warp, np.arange(n_warps + 1))
+    split = k > 1
+    slot_of = np.where(split, np.cumsum(split) - 1, -1)
+    parts = np.stack([slot_of, np.where(split, k, 0)], 1)
+
+    def i32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.int32,
+                               device=w.device).contiguous()
+
+    return TropPlan(src=cols.to(torch.int32).contiguous(),
+                    w=w[rows, cols].contiguous(),
+                    pieces=i32(np.stack([row, first, end, slot_of[row]], 1)),
+                    wp=i32(wp), parts=i32(parts),
+                    n_partials=int(split.sum()))
 
 
 class DenseOp(NamedTuple):
@@ -352,6 +419,7 @@ class DenseOp(NamedTuple):
     off: torch.Tensor  # (P1 + 1,) int32: pdf p owns perm[off[p]:off[p+1]]
     pf: TilePlan  # the kernels' plans of wf and wb
     pb: TilePlan
+    pt: TropPlan | None = None  # K6t's plan of wf (:func:`with_trop_plan`)
 
 
 def _grid(device) -> int:
@@ -405,22 +473,32 @@ def kernel_operator(cf) -> DenseOp:
     return kop
 
 
+def with_trop_plan(kop: DenseOp) -> DenseOp:
+    """``kop`` with K6t's plan of its forward operator (for the persistent
+    grid of its device), as :func:`trop_sweep` takes it."""
+    return kop._replace(pt=trop_plan(kop.wf, _grid(kop.wf.device)))
+
+
 def trop_operator(cf) -> DenseOp:
-    """K6t's operator: the forward probability operator in the graph's
-    dtype with its tile plan judged in that dtype, in every precision mode;
-    for a float64 graph the operator that ``viterbi._sweeps``' plain branch
-    builds.  For a 'high' graph (float32 or float64) that is
-    :func:`kernel_operator`'s; a bf16 graph (float32) gets its own (cached),
-    whose backward fields repeat the forward ones (K6t reads only the
-    forward ones)."""
-    if cf.precision != "bf16":
-        return kernel_operator(cf)
+    """K6t's operator, built once per graph (cached on it): the forward
+    probability operator in the graph's dtype, in every precision mode,
+    with its :func:`trop_plan`; for a float64 graph the operator that
+    ``viterbi._sweeps``' plain branch builds.  For a 'high' graph (float32
+    or float64) that is :func:`kernel_operator`'s; a bf16 graph (float32)
+    gets its own, without K6a/K6b's tile plans, whose backward operator
+    repeats the forward one (K6t reads only the forward one)."""
     kop = cf._cache.get("dense_trop")
     if kop is None:
-        wf = torch.exp(cf.dense_fwd_max)[:, None] * cf.dense_fwd_exp
-        kop = dense_op(torch.exp(cf.alpha_hat), wf, wf, cf.state_pdf,
-                       torch.nonzero(cf.orig_state >= 0)[:, 0],
-                       cf.num_pdfs + 1, int(cf.final_state))
+        if cf.precision != "bf16":
+            kop = with_trop_plan(kernel_operator(cf))
+        else:
+            wf = (torch.exp(cf.dense_fwd_max)[:, None]
+                  * cf.dense_fwd_exp).contiguous()
+            spdf = cf.state_pdf.to(torch.int32).contiguous()
+            kop = with_trop_plan(DenseOp(
+                Sp=wf.shape[0], P1=cf.num_pdfs + 1, fin=int(cf.final_state),
+                alpha0=torch.exp(cf.alpha_hat).contiguous(), wf=wf, wb=wf,
+                spdf=spdf, perm=None, off=None, pf=None, pb=None))
         cf._cache["dense_trop"] = kop
     return kop
 
@@ -575,23 +653,22 @@ def _plan_args(pl: TilePlan):
             _p(pl.segs), _p(pl.rt_parts), pl.lo.numel() - 1, pl.max_tiles)
 
 
-def _cols(prec: int, tropical: bool = False) -> int:
-    """Batch columns per column block of a launch: TBD for K6a/K6b in
-    float64 (the DMMA layout), else 128."""
-    return _TILE_COLS_F64 if prec == 2 and not tropical else _TILE_COLS
+def _cols(prec: int) -> int:
+    """Batch columns per column block of a K6a/K6b launch: TBD in float64
+    (the DMMA layout), else 128."""
+    return _TILE_COLS_F64 if prec == 2 else _TILE_COLS
 
 
-def _cm_offset(Sp: int, B: int, prec: int, tropical: bool = False) -> int:
+def _cm_offset(Sp: int, B: int, prec: int) -> int:
     """The int32 word where the sync buffer's three column-max rows start:
     after the barrier's two words and the tickets of each (row tile,
     column block), at the next even word for float64 (its rows are 64-bit
     words)."""
-    base = 2 + Sp // _TILE * -(-B // _cols(prec, tropical))
+    base = 2 + Sp // _TILE * -(-B // _cols(prec))
     return base + base % 2 if prec == 2 else base
 
 
-def _scratch(kop: DenseOp, pl: TilePlan, B: int, prec: int, dev,
-             tropical: bool = False):
+def _scratch(kop: DenseOp, pl: TilePlan, B: int, prec: int, dev):
     """(partial, zeroed sync words, bf16 state pairs or None) of one
     launch: the plan's partial slots in the values' dtype; the barrier,
     the tickets and three column-max rows (32-bit words, 64-bit in
@@ -599,11 +676,23 @@ def _scratch(kop: DenseOp, pl: TilePlan, B: int, prec: int, dev,
     partial = torch.empty((max(pl.n_partials, 1), _TILE, B), device=dev,
                           dtype=_value_dtype(prec))
     rows = 6 * B if prec == 2 else 3 * B
-    sync = torch.zeros(_cm_offset(kop.Sp, B, prec, tropical) + rows,
+    sync = torch.zeros(_cm_offset(kop.Sp, B, prec) + rows,
                        dtype=torch.int32, device=dev)
     xb = (_p(torch.empty((2, kop.Sp // 2, B), dtype=torch.int32, device=dev))
           if prec == 1 else None)
     return partial, sync, xb
+
+
+_TROP_GEN = 32  # K6t's barrier: the generation word (TGEN), its own line
+
+
+def _trop_cm_offset(Sp: int, B: int, f64: bool) -> int:
+    """K6t's sync buffer: the int32 word where its three column-max rows
+    start, after the barrier's count and generation (word _TROP_GEN) and the
+    tickets of each (row, 128-column block), at the next even word for
+    float64."""
+    base = _TROP_GEN + 1 + Sp * -(-B // _TILE_COLS)
+    return base + base % 2 if f64 else base
 
 
 def fwd_sweep(kop: DenseOp, a0, ext, mshift, save_alphas: bool = True):
@@ -673,11 +762,36 @@ def backward(kop: DenseOp, ext, alphas, ascale):
     return posts
 
 
+def _check_trop(kop: DenseOp, dev) -> bool:
+    """K6t's operator and plan; returns whether its values are float64."""
+    wdt = kop.wf.dtype
+    if wdt not in (torch.float32, torch.float64) or kop.pt is None:
+        raise ValueError(f"wf: operator dtype {wdt}, plan {type(kop.pt)}: "
+                         "K6t takes a float32 or float64 operator with its "
+                         "trop_plan (trop_operator, with_trop_plan)")
+    pt, Sp = kop.pt, kop.Sp
+    _check("alpha0", kop.alpha0, (Sp,), dev, wdt)
+    _check("wf", kop.wf, (Sp, Sp), dev, wdt)
+    _check("spdf", kop.spdf, (Sp,), dev, torch.int32)
+    n = pt.src.numel()
+    _check("pt.w", pt.w, (n,), dev, wdt)
+    for name, t, shape in (("src", pt.src, (n,)),
+                           ("pieces", pt.pieces, (pt.pieces.shape[0], 4)),
+                           ("wp", pt.wp, (pt.wp.numel(),)),
+                           ("parts", pt.parts, (Sp, 2))):
+        _check(f"pt.{name}", t, shape, dev, torch.int32)
+    if (pt.wp.numel() - 1) % _WARPS:
+        raise ValueError(f"pt.wp: {pt.wp.numel() - 1} warps, not whole CTAs "
+                         f"of {_WARPS}")
+    return wdt == torch.float64
+
+
 def trop_sweep(kop: DenseOp, a0, s0, ext, mshift, *, first: bool,
                save: bool = True, acc=None):
     """K6t: the tropical forward over the Nf frames of ``ext``, one launch.
     Same arguments and outputs as :func:`trop_sweep_plain`; ``kop`` is
-    :func:`trop_operator`'s (float32, or float64 for a float64 graph)."""
+    :func:`trop_operator`'s (float32, or float64 for a float64 graph), or
+    any DenseOp through :func:`with_trop_plan`."""
     if not _route(ext, "dense-tropical-sweep"):
         return trop_sweep_plain(kop, a0, s0, ext, mshift, first=first,
                                 save=save, acc=acc)
@@ -685,11 +799,8 @@ def trop_sweep(kop: DenseOp, a0, s0, ext, mshift, *, first: bool,
 
     Nf, P1, B = ext.shape
     Sp, dev = kop.Sp, ext.device
-    prec = _check_op(kop, dev)
-    if prec == 1:
-        raise ValueError("K6t takes a float32 or float64 operator "
-                         "(trop_operator)")
-    vdt = _value_dtype(prec)
+    f64 = _check_trop(kop, dev)
+    vdt = kop.wf.dtype
     _check("a0", a0, (Sp, B), dev, vdt)
     _check("s0", s0, (B,), dev, vdt)
     _check("ext", ext, (Nf, kop.P1, B), dev, vdt)
@@ -699,22 +810,25 @@ def trop_sweep(kop: DenseOp, a0, s0, ext, mshift, *, first: bool,
     slots = Nf if save else 2
     states = torch.empty((slots, Sp, B), device=dev, dtype=vdt)
     scales = torch.empty((slots, B), device=dev, dtype=vdt)
-    partial, sync, _ = _scratch(kop, kop.pf, B, prec, dev, tropical=True)
+    pt = kop.pt
+    partial = torch.zeros((max(pt.n_partials, 1), B), device=dev, dtype=vdt)
+    at = _trop_cm_offset(Sp, B, f64)
+    w = 2 if f64 else 1  # int32 words per value
+    sync = torch.zeros(at + 3 * B * w, dtype=torch.int32, device=dev)
     if not first:
         # the column max the first frame reads (the third row, as the
         # value's bits): 1 / s0, whose scale is s0
-        w = 2 if prec == 2 else 1  # int32 words per value
-        at = _cm_offset(Sp, B, prec, tropical=True) + 2 * B * w
-        sync[at : at + B * w] = (1.0 / s0).view(torch.int32)
-    with torch.cuda.device(dev):
+        sync[at + 2 * B * w:] = (1.0 / s0).view(torch.int32)
+    with torch.cuda.device(dev):  # the library launches on it
         rc = _build.library().mm_dense_trop(
-            *_plan_args(kop.pf), _p(kop.spdf), _p(a0), _p(ext), _p(mshift),
-            Sp, kop.P1, B, Nf, slots, int(first), int(prec == 2),
+            _p(pt.src), _p(pt.w), _p(pt.pieces), _p(pt.wp), _p(pt.parts),
+            (pt.wp.numel() - 1) // _WARPS, _p(kop.spdf), _p(a0), _p(ext),
+            _p(mshift), Sp, kop.P1, B, Nf, slots, int(first), int(f64),
             _p(states), _p(scales), _p(acc[0]), _p(acc[1]), _p(acc[2]),
             _p(partial), _p(sync), _stream(dev),
         )
     _raise_on(rc, "mm_dense_trop")
-    _counts(prec)["dense_trop"] += 1
+    _counts(2 if f64 else 0)["dense_trop"] += 1
     last = (Nf - 1) % slots
     return (states if save else None, scales if save else None,
             states[last], scales[last], acc)

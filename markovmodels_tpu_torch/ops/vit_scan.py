@@ -77,8 +77,11 @@ panels and the state rows through a ``cp.async`` ring
 The float32 K7n needs no id, so its tier streams the untransposed panels
 and the state rows through a ring of its own beside the epilogue's tables,
 the first stages of a CTA's next item issued before the current item's
-epilogue, and a capped layout's heavy rows go four to a work item
-(``vit_plan(packed=True)``; ``tests/test_torch_vit_noid_tier.py``).
+epilogue.  In float32 (K7 and K7n) a capped layout's heavy rows go four to
+a work item (``vit_plan(packed=True)``; ``tests/test_torch_vit_noid_tier.py``,
+``tests/test_torch_vit_fam_pack.py``), K7's partials merged by the family
+rule (the max, then the smallest id), which gives the same ids however the
+terms are split.
 """
 from __future__ import annotations
 
@@ -129,7 +132,8 @@ _VIT_KC = 8
 # 64 x 64 items; K7's resident pass of _SC positions at a pitch of _SC + 4
 # floats; the double ring of _DV-position stages at a pitch of _DVP doubles
 # (_NVS slots); the float K7n's ring of _FV-position stages at a pitch of
-# 64 floats (_NFS slots) and its _HEAVY_PACK heavy rows to an item
+# 64 floats (_NFS slots); the float instantiations' _HEAVY_PACK heavy rows to
+# an item
 _TB = 64
 _SC = 128
 _DV, _DVP, _NVS = 16, _TB + 2, 4
@@ -220,8 +224,9 @@ def smem_bytes(B: int, ids: bool = True, fam: bool = False,
     the float32 K7n the union of the tables (no ids) and the partials
     beside its ring of _NFS stages of 2 x _FV x 64 floats; then the row
     and pdf tables of the item's 64 rows and two queue entries, with
-    ``fam`` the rows' family ranges, and two rows of B values (the
-    columns' scales and the phony state of the frame before)."""
+    ``fam`` the rows' family ranges (but in the float32 K7, which reads
+    them from ``FamTables.frow``), and two rows of B values (the columns'
+    scales and the phony state of the frame before)."""
     w = 8 if f64 else 4
     if f64:
         u = _NVS * 2 * _DV * _DVP * 8
@@ -230,7 +235,8 @@ def smem_bytes(B: int, ids: bool = True, fam: bool = False,
     else:
         ep = _TB * (_TB + 1) * 4 + 16 * _TB * 4 + 16 * _TB * 8
         u = ep + _NFS * 2 * _FV * _TB * 4
-    n = u + 2 * _TB * 4 + 16 + (_TB * 12 if fam else 0)
+    # the family rows' ranges (int3 each), but in the float32 K7
+    n = u + 2 * _TB * 4 + 16 + (_TB * 12 if fam and (f64 or not ids) else 0)
     return -(-n // 8) * 8 + 2 * B * w
 
 
@@ -354,16 +360,16 @@ class VitPlan(NamedTuple):
     the first row of a band tile whose rows are consecutive (-1 for any
     other tile).  The CTAs of the persistent grid take the items in queue
     order; which CTA runs an item shows in no result (the frame's two
-    reductions are maxima).  The float32 K7n's queue (``packed``) takes
-    _HEAVY_PACK heavy rows to an item: heavy tile h holds heavy rows
-    h·_HEAVY_PACK .., and the tier and band tiles follow from
+    reductions are maxima).  The float32 queue (``packed``, K7's and
+    K7n's) takes _HEAVY_PACK heavy rows to an item: heavy tile h holds
+    heavy rows h·_HEAVY_PACK .., and the tier and band tiles follow from
     ceil(nheavy / _HEAVY_PACK)."""
     ncb: int  # 64-column tiles: ceil(B / 64)
     queue: torch.Tensor  # (n_tiles * ncb, 2) int32: item, first row or -1
 
 
 def vit_plan(kop, B: int, packed: bool = False) -> VitPlan:
-    """K7's queue for batch ``B`` (``packed``: the float32 K7n's, its heavy
+    """K7's queue for batch ``B`` (``packed``: the float32 one, its heavy
     rows _HEAVY_PACK to an item), built once per shape of the forward
     operator's tiles and cached on ``kop``."""
     kd = kop.fwd
@@ -422,11 +428,15 @@ def _is_fam(kop) -> bool:
 class FamTables(NamedTuple):
     """K7's tables of the family branch beside K2's (built once per
     operator): the candidate id of each forward family term, in the order
-    of ``KernelDir.fam_src``, and the band id base of each overflow group
+    of ``KernelDir.fam_src``, the band id base of each overflow group
     (C_g with families, else Sm: a capped layout fed by bands alone keeps
-    the core encoding)."""
+    the core encoding), and per state row its terms' range, band id base
+    and emission row in one int4 (the float32 K7 reads it with the row's
+    state in the epilogue)."""
     cid: torch.Tensor  # (nfam,) uint8 (one zero where there is none)
     cbase: torch.Tensor  # (nOv,) int32 (one Sm where there is none)
+    # (Sp, 4) int32 per row: its terms [x, y), band id base, emission row
+    frow: torch.Tensor
 
 
 def fam_tables(cf, kop) -> FamTables:
@@ -471,10 +481,17 @@ def fam_tables(cf, kop) -> FamTables:
                 raise ValueError("the operator's family terms are not the "
                                  "graph's")
             cid = cid[at]
+        # per row: its terms, its band ids' base, its emission row
+        ptr = kop.fwd.fam_ptr.cpu().numpy().astype(np.int64)
+        j = np.arange(kop.Sp)
+        ov = (j >= kop.ov_lo) & (j < kop.ov_hi)
+        z = np.full(kop.Sp, Sm, np.int64)
+        z[ov] = np.asarray(cbase, np.int64)[(j[ov] - kop.ov_lo) // kop.cmax]
+        frow = np.stack([ptr[:-1], ptr[1:], z, kop.row_pdf.cpu().numpy()], 1)
         ft = FamTables(
             cid=torch.from_numpy((cid if len(cid) else np.zeros(1))
                                  .astype(np.uint8)).to(dev),
-            cbase=bs._i32(cbase, dev))
+            cbase=bs._i32(cbase, dev), frow=bs._i32(frow, dev))
         kop.plans["vit_fam"] = ft
     return ft
 
@@ -484,9 +501,10 @@ def _vlayout(cf, kop) -> np.ndarray:
     csrc/vit_scan.cu (layout: VitFam)."""
     kd, ft = kop.fwd, fam_tables(cf, kop)
     tables = (kop.row_pdf, kd.fam_ptr, kd.fam_src, kd.fam_w, ft.cid,
-              kd.heavy_rows, ft.cbase)
+              kd.heavy_rows, ft.cbase, ft.frow)
     bs._check("cid", ft.cid, ft.cid.shape, kd.W.device, torch.uint8)
     bs._check("cbase", ft.cbase, ft.cbase.shape, kd.W.device, torch.int32)
+    bs._check("frow", ft.frow, (kop.Sp, 4), kd.W.device, torch.int32)
     # an empty table passes an address that is never read
     return np.array([(t if t.numel() else kop.row_pdf).data_ptr()
                      for t in tables], dtype=np.int64)
@@ -792,7 +810,7 @@ def viterbi_fwd(cf, ext, mshift, *, ids: bool = True, a0=None, s0=None,
     bs._check("ext", ext, (Nf, kop.P1, B), dev, vdt)
     bs._check("mshift", mshift, (Nf, 1, B), dev, vdt)
     meta, lay = bs._imeta(kop, kop.fwd), _vlayout(cf, kop)
-    pl, Wt = vit_plan(kop, B), _panels_t(kop)
+    pl, Wt = vit_plan(kop, B, packed=not f64), _panels_t(kop)
     G = _vit_grid(kop, dev, B)
     a0 = kop.alpha0[:, None].expand(Sp, B).contiguous()
     bps = torch.empty((Nf, RW, B), dtype=torch.uint8, device=dev)

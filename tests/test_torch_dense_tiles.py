@@ -274,10 +274,11 @@ TBD, NSD = 64, 3
 XLDD, NBD = TBD + 4, TBD // 16
 SM_BYTES = 233_472  # shared memory of an H100 SM (228 KB)
 CTA_RESERVED = 1024  # what the card reserves per resident CTA
-# the kernel's static shared memory in double: red [2][4][TBD] (float64
-# K6t: [2][2][128]), rsum [2][8][32], the ticket flag
+# the kernel's static shared memory in double: red [2][4][TBD], rsum
+# [2][8][32], the ticket flag; K6t's (trop_kernel) its warps' column maxima,
+# red [8][128], and the column scales, scs [128]
 STATIC_F64 = 2 * 4 * TBD * 8 + 2 * 8 * 32 * 8 + 4
-STATIC_TROP = 2 * 2 * 128 * 8 + 2 * 8 * 32 * 8 + 4
+STATIC_TROP = 8 * 128 * 8 + 128 * 8
 TOL_DMMA = 1e-13  # the emulated tensor-core product vs w @ x in float64
 
 
@@ -298,31 +299,27 @@ def test_f64_layout_smem_bytes(name):
     ``Layout::bytes``: K6a/K6b keep 8 KB tiles (32 x 32 doubles, in
     A-fragment order, unpadded) beside a ring of three stages of 32 k rows
     x 64 columns at a pitch of 68 doubles and the column block's scales
-    (2 x 64 doubles); K6t (tropical) keeps 9 KB
-    tiles (rows of 36) beside two 32 x 128 stages.  The V=32 ranges (5
-    tiles) stay resident at 2 CTAs per SM on K6a/K6b, where K6t's layout
-    would not fit; the fully dense Sp = 4,096 operator (128 MiB of tiles,
-    against the card's ~29 MiB of shared memory) streams, at 2 CTAs per
-    SM."""
+    (2 x 64 doubles); K6t keeps no tile and no stage: its only shared
+    memory is the warps' column maxima and the column scales (static, 9 KB
+    in double), so it runs at 2 CTAs per SM on any operator.  The V=32 ranges (5 tiles) stay resident at 2 CTAs
+    per SM on K6a/K6b; the fully dense Sp = 4,096 operator (128 MiB of
+    tiles, against the card's ~29 MiB of shared memory) streams, at 2 CTAs
+    per SM."""
     w, pl = _f64_plan(name)
     tile, stage, scales = 32 * 32 * 8, 32 * XLDD * 8, 2 * TBD * 8
     assert (tile, stage, scales) == (8192, 17408, 1024)
     want = (pl.max_tiles * tile + NSD * stage + scales,
             NSD * (stage + tile) + scales)
     assert ds.smem_bytes(pl) == want
-    ttile, tstage = 32 * 36 * 8, 32 * 128 * 8
-    assert ds.smem_bytes(pl, tropical=True) == (
-        pl.max_tiles * ttile + 2 * tstage, 2 * (tstage + ttile))
 
     def per_sm(dyn, static=STATIC_F64):
         return 2 * (dyn + static + CTA_RESERVED)
 
+    assert per_sm(0, STATIC_TROP) <= SM_BYTES  # K6t at 2 CTAs per SM
     res, stream = ds.smem_bytes(pl)
     if name == "lm32":
         assert pl.max_tiles == 5 and res == 94_208
         assert per_sm(res) <= SM_BYTES  # resident at 2 CTAs per SM
-        assert per_sm(ds.smem_bytes(pl, tropical=True)[0],
-                      STATIC_TROP) > SM_BYTES
     else:
         assert pl.tile_k.numel() == 128 * 128 and pl.max_tiles == 63
         assert res > 232_448  # more than one CTA may take

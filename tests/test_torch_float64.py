@@ -481,15 +481,18 @@ def dense64():
 
 def test_dense_kernel_operators_in_float64(dense64):
     """``kernel_operator`` and ``trop_operator`` of a float64 'dense' graph
-    are float64 (their plans' tiles too) and equal to the operator the
-    plain decode route builds (``viterbi._sweeps``, plain branch); the
-    plans judge the tiles in float64 and rebuild the operator exactly."""
+    are float64 (their plans' tiles and K6t's entries too) and equal to the
+    operator the plain decode route builds (``viterbi._sweeps``, plain
+    branch); the plans judge the tiles in float64 and rebuild the operator
+    exactly."""
     _, ct, _, _ = dense64
     kop, top = ds.kernel_operator(ct), ds.trop_operator(ct)
     plain = torch.exp(ct.dense_fwd_max)[:, None] * ct.dense_fwd_exp
-    assert top is kop
-    for t in (kop.alpha0, kop.wf, kop.wb, kop.pf.tiles, kop.pb.tiles):
+    assert top.wf is kop.wf and top.pf is kop.pf
+    for t in (kop.alpha0, kop.wf, kop.wb, kop.pf.tiles, kop.pb.tiles,
+              top.pt.w):
         assert t.dtype == F64
+    assert torch.equal(top.pt.w, plain[plain != 0])
     assert torch.equal(kop.wf, plain)
     assert torch.equal(kop.wb, torch.exp(ct.dense_bwd_max)[:, None]
                        * ct.dense_bwd_exp)
@@ -505,21 +508,21 @@ def test_dense_kernel_operators_in_float64(dense64):
 def test_tile_plan_shared_memory_at_8_bytes(dense64):
     """``smem_bytes`` of a float64 plan, as csrc/dense_scan.cu's
     Layout::bytes counts it (resident: the largest range's tiles and two
-    stages; streaming: two stages of a state block and a tile).  K6t
-    (``tropical``) keeps the float32 layout at 8 bytes a value (tiles of
-    32 rows of 36 values, 32 x 128 stages): twice the float32 plan's of the
-    same operator.  K6a/K6b's DMMA layout keeps 32 x 32 tiles unpadded (A
-    fragment order) beside a ring of three 32 x 64 stages at a pitch of 68
-    values and two rows of 64 column scales."""
+    stages; streaming: two stages of a state block and a tile).  K6a/K6b's
+    DMMA layout keeps 32 x 32 tiles unpadded (A fragment order) beside a
+    ring of three 32 x 64 stages at a pitch of 68 values and two rows of 64
+    column scales.  K6t keeps no tile: its plan lists the non-zeros at 8
+    bytes a weight (beside a 4-byte source), the float32 plan's entries at
+    twice the bytes."""
     _, ct, _, _ = dense64
     w = ds.kernel_operator(ct).wf
     for G in (4, 264):
         p64, p32 = ds.tile_plan(w, G), ds.tile_plan(w.float(), G)
         assert p64.max_tiles == p32.max_tiles
-        r64, s64 = ds.smem_bytes(p64, tropical=True)
-        assert r64 == p64.max_tiles * 32 * 36 * 8 + 2 * 32 * 128 * 8
-        assert s64 == 2 * (32 * 128 * 8 + 32 * 36 * 8)
-        assert (r64, s64) == tuple(2 * x for x in ds.smem_bytes(p32))
+        t64, t32 = ds.trop_plan(w, G), ds.trop_plan(w.float(), G)
+        assert t64.w.element_size() == 8 and t32.w.element_size() == 4
+        assert torch.equal(t64.src, t32.src)
+        assert torch.equal(t64.pieces, t32.pieces)
         assert ds.smem_bytes(p64) == (
             p64.max_tiles * 32 * 32 * 8 + 3 * 32 * 68 * 8 + 1024,
             3 * (32 * 68 * 8 + 32 * 32 * 8) + 1024)

@@ -511,7 +511,9 @@ def _reckon(ids, fam, f64):
         hv = TR * (TB + 1) * 4 + 16 * TB * 4
         assert hv <= ep and ep % 16 == 0  # the ring stays 16-byte aligned
         union = ep + NFS * FSTAGE * 4
-    n = union + 2 * TR * 4 + 2 * 8 + (TR * 12 if fam else 0)
+    # the family rows' ranges, but in the float32 K7 (read from frow)
+    n = union + 2 * TR * 4 + 2 * 8 + (TR * 12 if fam and (f64 or not ids)
+                                      else 0)
     return -(-n // 8) * 8
 
 
