@@ -8,6 +8,7 @@ the package):
     python ab_block.py build/vA dense-bf16
     python ab_block.py build/vA 2m-f64 separate-f64
     python ab_block.py build/vP banded banded-trace
+    python ab_block.py build/vP banded-wide
 
 The first argument is the root of a copy of the package (its parent
 directory); that copy builds its own library under ``<root>/build/``.  For
@@ -66,6 +67,16 @@ alpha stores (``save_alphas=False``, logZ only); ``K5a_sum`` and
 ``K5b_sum``, float64 sums of their outputs (equal between two versions
 whose kernels compute bit for bit the same); ``K5_bitequal``: both run
 twice, bit-equal; ``K5a_err`` and ``K5b_err`` against their plain twins.
+
+``banded-wide`` (``chip_smoke`` phase 8b's G=128 stack of four ~1,200-state
+skip-arc lattices, Sp = 1,208, offsets (0, 1, 2), P = 384, N = 700,
+lengths 700, 690, 640, 700, through K5a's and K5b's wide instantiation)
+prints one line per dtype, float32 and float64: the root's instantiations
+(``banded_scan.instantiations``), three warm times in ms each of K5a and
+K5b over the 701-frame sweep and of K5a without its alpha stores,
+``K5a_sum`` and ``K5b_sum``,
+``K5_bitequal`` and ``K5a_err`` and ``K5b_err`` against the twins, as
+``banded``.
 
 ``banded-trace`` builds a traced copy of the root's ``banded_scan.cu`` into
 ``<root>/build/trace/`` (``clock64`` and ``%globaltimer`` stamps at the
@@ -315,6 +326,51 @@ def run_banded(P: int) -> dict:
     return out
 
 
+def run_banded_wide(dtype_name: str) -> dict:
+    import numpy as np
+    import torch
+
+    from chip_smoke import make_inputs, skip_numerators
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    dev, P, N = torch.device("cuda:0"), 384, 700
+    dt = getattr(torch, dtype_name)
+    graphs = skip_numerators(P, (1200, 1180, 1150, 1199), seed=7)
+    num = mt.stack([mt.compile_fsm(f, sp, P, strategy="banded", device=dev,
+                                   dtype=dt) for f, sp in graphs] * 32)
+    kop = bsc.kernel_operator(num)
+    lhs = torch.from_numpy(make_inputs(np.random.default_rng(0), 128, N,
+                                       P)).to(dev, dt)
+    lens = torch.from_numpy(np.tile(np.array([N, N - 10, N - 60, N],
+                                             dtype=np.int32), 32)).to(dev)
+    ext, msh = prepare_emissions(lhs, lens, P, dt)
+    fwd = bsc.fwd_sweep(kop, ext, msh)
+    posts = bsc.backward(kop, ext, fwd[0])
+    fwd2 = bsc.fwd_sweep(kop, ext, msh)
+    posts2 = bsc.backward(kop, ext, fwd[0])
+    out = {"graph": f"banded-wide-{dtype_name}",
+           "instantiations": bsc.instantiations(num),
+           "K5a_sum": sum(float(t.double().sum()) for t in fwd),
+           "K5b_sum": float(posts.double().sum()),
+           "K5_bitequal": all(torch.equal(x, y) for x, y in
+                              zip(fwd + (posts,), fwd2 + (posts2,)))}
+    del fwd2, posts2
+    fp = bsc.fwd_sweep_plain(kop, ext, msh)
+    out["K5a_err"] = max(float((a - b).abs().max())
+                         for a, b in zip(fwd, fp))
+    out["K5b_err"] = float((posts - bsc.backward_plain(kop, ext, fwd[0]))
+                           .abs().max())
+    del fp, posts
+    al = fwd[0]
+    out["K5a_ms"] = _ms(lambda: bsc.fwd_sweep(kop, ext, msh))
+    out["K5a_logz_only_ms"] = _ms(lambda: bsc.fwd_sweep(kop, ext, msh,
+                                                        save_alphas=False))
+    out["K5b_ms"] = _ms(lambda: bsc.backward(kop, ext, al))
+    return out
+
+
 # Stamps of the traced copy of banded_scan.cu: (kernel section, the exact
 # text of a line of the source, "before" or "after" it, table K, stamp I,
 # what runs from stamp I to stamp I + 1).  Stamp I of table K records
@@ -519,6 +575,8 @@ def main(root: str, graphs) -> None:
     for graph in graphs:
         if graph == "banded":
             rows = [run_banded(P) for P in (384, 96)]
+        elif graph == "banded-wide":
+            rows = [run_banded_wide(d) for d in ("float32", "float64")]
         elif graph == "banded-trace":
             rows = [trace_banded(root, P) for P in (384, 96)]
         else:

@@ -42,14 +42,18 @@ phases:
 8. stacked-numerator ``pdfposteriors`` against the f64 oracle: 4 chain
    lattices at N=40, then 4 with skip arcs (three band offsets, up to 130
    states) at N=150, where K5a and K5b are held to their twins too;
-8b. stacked numerators past the narrow K5's 1,024 states (4 skip-arc
-    lattices of ~1,200 states) through K5's wide instantiation, the route
-    line printed: ``pdfposteriors`` and ``lfmmi_loss`` with the 2M-arc
-    denominator at N=700 against the f64 oracle and γ_den - γ_num, the
-    admission's shared memory against the kernels'; a G=128 stack of them:
-    K5a and K5b each run twice (bit-equal) and against their twins, timed,
-    and through the training step (one launch each) timed beside phase
-    9's (run after phase 9);
+8b. stacked numerators past the narrow K5's 1,024 states, the route line
+    printed: 4 skip-arc lattices of ~1,200 states (K5's wide
+    instantiation) at N=700, then 4 of ~3,000 (its global one) at N=2,400,
+    through ``pdfposteriors`` and ``lfmmi_loss`` with the 2M-arc
+    denominator against the f64 oracle and γ_den - γ_num, the admission's
+    instantiations and shared memory against the kernels'; a G=128 stack
+    of each: K5a and K5b each run twice (bit-equal) and against their
+    twins, through the training step (one launch each, the gradient
+    against γ_den - γ_num) timed beside phase 9's, and timed; then a G=128
+    stack at Sp = 24,576 with three offsets (the JAX package's fused
+    bound) at N=128 through ``pdfposteriors`` (one launch each), held to
+    the twins and timed (run after phase 9);
 9. the training step at B=128, N=700 with launch counters (K2-K5b), the
    gradient against γ_den - γ_num, and its time beside the denominator's;
    a ``torch.profiler`` breakdown of one step (K5a's and K5b's device
@@ -226,7 +230,9 @@ decode; a general-Ĉ graph has no kernel yet and is refused on the card):
     main-path numerators (G=128, N=700, phase 7's lengths and cliffs),
     each run twice, bit-equal, the admission's shared memory against the
     kernels', and timed; the wide float64 instantiation on 4 skip-arc
-    numerators of ~1,200 states against its twin;
+    numerators of ~1,200 states against its twin and the f64 oracle, then
+    on a G=128 stack of them through ``pdfposteriors`` (one float64
+    launch each), twice bit-equal, against the twins and timed;
 42. K6a and K6b in float64 against their float64 twins on the V=32 graph
     at B=128, N=700 (phase 11's input in float64), each run twice and
     bit-equal: logZ within 1e-12 relative, states and posteriors within
@@ -320,7 +326,10 @@ decode; a general-Ĉ graph has no kernel yet and is refused on the card):
     instantiations, every instantiation's shared memory against the
     admission's reckoning, both branches against their twins at B = 128,
     126 and 124 (twice, ending as K7, checkpoints, restart, chunked
-    decodes equal to one chunk), and its frame split on both block graphs.
+    decodes equal to one chunk), and its frame split on both block graphs;
+55. the library's ``ptxas`` report: K5a's and K5b's wide and global
+    instantiations spill 0 bytes, and every other entry equals the
+    parent commit's table ``tools/ptxas_ref.json``.
 
 Every kernel's entry in the JSON line (K6t, K7n and W2 from phases 32-33,
 the family branch's K7, walk, K7n and W2 from phases 36-37, K2-K4's
@@ -509,16 +518,18 @@ def block_bounds(cf, B, Npad, chunk, l2_bytes=None):
 
 
 def banded_bounds(num_cf, Nf):
-    """K5a and K5b over the Nf-frame sweep of G lattices: float64 state;
-    each state's emission gathered once per frame; the inputs and the
-    posteriors of f bytes (4, or 8 for a float64 stack)."""
+    """K5a and K5b over the Nf-frame sweep of G lattices: float64 state,
+    each frame's alphas written once (K5a) and read once (K5b), in any
+    layout; the emission of each of a graph's distinct pdfs (its plan's
+    entries, what these lattices need) read once per frame; the inputs and
+    the posteriors of f bytes (4, or 8 for a float64 stack)."""
     from markovmodels_tpu_torch.ops import banded_scan as bsc
 
     kop = bsc.kernel_operator(num_cf)
     Sp, G, P1, nO = kop.Sp, kop.G, kop.P1, len(kop.offsets)
     f = kop.a0.element_size()
     op = f * (2 * nO * Sp * G + 2 * Sp * G) + 4 * Sp * G
-    emis = f * Nf * Sp * G
+    emis = f * Nf * int(kop.plan[:, 0].sum())
     return {
         "K5a": bound(Nf * G * (2 * nO * Sp + 4 * Sp),
                      op + emis + f * Nf * G + 8 * Nf * Sp * G + 24 * G,
@@ -1278,43 +1289,95 @@ def phase_banded_oracle(P, dev):
             assert ka <= TOL_K5 and kb <= TOL_K5, "K5 disagrees with its twin"
 
 
-def phase_big_numerators(cf, P, dev, t_step, N=700):
+def check_modes(Sp, nO, tw, want):
+    """The instantiations K5a and K5b take at Sp states and nO offsets
+    (inputs of tw words): the admission's (``banded_scan._modes``), the
+    library's and ``want``; and the admission's shared memory, the
+    kernels'.  Returns the shared-memory bytes of each."""
+    from markovmodels_tpu_torch.ops import _build
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+
+    lib = _build.library()
+    modes = bsc._modes(Sp, nO, tw)
+    lm = tuple((bsc.NARROW, bsc.WIDE, bsc.GLOBAL)[
+        lib.mm_banded_mode(Sp, nO, bwd, tw - 1)] for bwd in (0, 1))
+    assert modes == lm == want, (modes, lm, want)
+    smem = [lib.mm_banded_smem(Sp, nO, bwd, tw - 1) for bwd in (0, 1)]
+    assert smem == [4 * w for w in bsc._smem_words(Sp, nO, tw)], (
+        f"admission's shared memory {bsc._smem_words(Sp, nO, tw)} words, "
+        f"the kernels' {smem} bytes")
+    return smem
+
+
+def held_to_twins(kop, ext, msh, label):
+    """K5a and K5b on the card each run twice (bit-equal) and against their
+    plain twins; K5b's posteriors finite and 0 outside each graph's plan.
+    Returns {"K5a": err, "K5b": err}."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+
+    fk, again = bsc.fwd_sweep(kop, ext, msh), bsc.fwd_sweep(kop, ext, msh)
+    pk, pk2 = bsc.backward(kop, ext, fk[0]), bsc.backward(kop, ext, fk[0])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(fk, again)), "K5a: runs"
+    assert torch.equal(pk, pk2), "K5b: two runs differ"
+    assert torch.isfinite(pk).all(), "K5b: non-finite posteriors"
+    assert (pk[:, ~plan_mask(kop)] == 0).all(), "K5b: outside the plan"
+    del again, pk2
+    fp = bsc.fwd_sweep_plain(kop, ext, msh)
+    errs = {"K5a": max(float((a - b).abs().max())
+                       for a, b in zip(fk, fp) if a is not None)}
+    del fp
+    errs["K5b"] = float((pk - bsc.backward_plain(kop, ext, fk[0])).abs()
+                        .max())
+    del fk, pk
+    torch.cuda.empty_cache()
+    print(f"{label}: K5a and K5b run twice, bit-equal; kernel vs plain max "
+          f"|err| K5a {errs['K5a']:.3e}, K5b {errs['K5b']:.3e} "
+          f"(tol {TOL_K5:g})")
+    assert all(np.isfinite(e) and e <= TOL_K5 for e in errs.values()), errs
+    return errs
+
+
+def phase_big_numerators(cf, P, dev, t_step, lengths=(1200, 1180, 1150, 1199),
+                         N=700, lens=(700, 690, 640, 700), label="phase 8b",
+                         instantiation="wide"):
     """Phase 8b: stacked numerators past the narrow K5's 1,024 states
-    (lattices of ~1,200 states with skip arcs: three offsets) take K5's
-    wide instantiation: 4 of them through ``pdfposteriors`` and
-    ``lfmmi_loss`` with the 2M-arc denominator against the f64 oracle, K5a
-    and K5b each run twice (bit-equal) and held to their twins, the
-    admission's shared memory against the kernels'; then a G=128 stack of
-    them through the training step, timed beside the Sp = 80 step
-    (``t_step``), and K5a and K5b on that stack against their twins and
-    timed.  Returns (t_big, launches, errs, times, bounds) of the G=128
-    stack."""
+    (lattices with skip arcs: three offsets) take K5's wide instantiation
+    (~1,200 states) or its global one (~3,000): 4 of them through
+    ``pdfposteriors`` and ``lfmmi_loss`` with the 2M-arc denominator
+    against the f64 oracle, the route line and the admission's
+    instantiations and shared memory against the kernels'; then a G=128
+    stack of them: K5a and K5b each run twice (bit-equal) and held to
+    their twins, through the training step (the counts set to 0 before
+    it, one launch each after it), timed beside the Sp = 80 step
+    (``t_step``, N=700), and timed.  N frames (a path crosses at most two
+    states a frame, and with few frames to spare the skips' share puts the
+    final state's mass past float64's range against the frame's max: a
+    ~3,000-state lattice takes N=2,400), the lattices' lengths ``lens``
+    (tiled over the G=128 stack).  Returns (t_big, launches, errs,
+    times, bounds) of the G=128 stack."""
     import torch
 
     import markovmodels_tpu_torch as mt
-    from markovmodels_tpu_torch.ops import _build
     from markovmodels_tpu_torch.ops import banded_scan as bsc
     from markovmodels_tpu_torch.ops import block_scan as bs
     from markovmodels_tpu_torch.ops.emissions import prepare_emissions
 
-    graphs = skip_numerators(P, (1200, 1180, 1150, 1199), seed=7)
+    graphs = skip_numerators(P, lengths, seed=7)
     compiled = [mt.compile_fsm(f, sp, P, strategy="banded", device=dev)
                 for f, sp in graphs]
     num = mt.stack(compiled)
     Sp, nO = num.padded_states, len(num.banded_offsets)
     report = mt.fast_path_report(num, 4)
-    print(f"phase 8b: 4 skip-arc numerators, Sp = {Sp}, offsets "
+    print(f"{label}: 4 skip-arc numerators, Sp = {Sp}, offsets "
           f"{num.banded_offsets}; path: {report}")
     assert report.startswith("cuda-banded-scan") and Sp > 1024, report
-    assert bsc._wide(Sp, nO) == (True, True), bsc._wide(Sp, nO)
-    smem = [_build.library().mm_banded_smem(Sp, nO, bwd, 0)
-            for bwd in (0, 1)]
-    assert smem == [4 * w for w in bsc._smem_words(Sp, nO)], (
-        f"admission's shared memory {bsc._smem_words(Sp, nO)} words, the "
-        f"kernels' {smem} bytes")
+    smem = check_modes(Sp, nO, 1, (instantiation,) * 2)
     rng = np.random.default_rng(8)
     lhs = rng.normal(size=(4, N, P)).astype(np.float32)
-    lens = np.array([N, N - 10, N - 60, N], dtype=np.int32)
+    lens = np.array(lens, dtype=np.int32)
     tl, tn = torch.from_numpy(lhs).to(dev), torch.from_numpy(lens).to(dev)
     bsc.reset_launch_counts()
     posts, z = mt.pdfposteriors(num, tl, tn)
@@ -1336,7 +1399,7 @@ def phase_big_numerators(cf, P, dev, t_step, N=700):
         perr = max(perr, float(np.abs(posts_[g] - rp[0]).max()))
     lerr = float((loss - (zd - z)).abs().max())
     gerr = float((x.grad - (pd - posts)).abs().max())
-    print(f"phase 8b: pdfposteriors G=4 N={N} vs f64 oracle |dlogZ| = "
+    print(f"{label}: pdfposteriors G=4 N={N} vs f64 oracle |dlogZ| = "
           f"{err:.3e}, |dposts| = {perr:.3e} (tol {TOL_ORACLE:g}); "
           f"lfmmi_loss with the 2M-arc denominator: |loss - (logZ_den - "
           f"logZ_num)| = {lerr:.3e}, |grad - (posts_den - posts_num)| = "
@@ -1344,6 +1407,7 @@ def phase_big_numerators(cf, P, dev, t_step, N=700):
           f"shared memory per CTA K5a {smem[0]} B, K5b {smem[1]} B")
     assert err <= TOL_ORACLE and perr <= TOL_ORACLE, "oracle gate failed"
     assert lerr <= TOL_ORACLE and gerr <= TOL_GRAD, "loss or gradient"
+    del posts, x, loss, pd
 
     big = mt.stack(compiled * 32)
     lhs = torch.from_numpy(make_inputs(np.random.default_rng(0), 128, N,
@@ -1351,42 +1415,96 @@ def phase_big_numerators(cf, P, dev, t_step, N=700):
     lens = torch.from_numpy(np.tile(lens, 32)).to(dev)
     kop = bsc.kernel_operator(big)
     ext, msh = prepare_emissions(lhs, lens, P)
-    fk, again = bsc.fwd_sweep(kop, ext, msh), bsc.fwd_sweep(kop, ext, msh)
-    pk, pk2 = bsc.backward(kop, ext, fk[0]), bsc.backward(kop, ext, fk[0])
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(fk, again)), "K5a: runs"
-    assert torch.equal(pk, pk2), "K5b: two runs differ"
-    del again, pk2
-    fp = bsc.fwd_sweep_plain(kop, ext, msh)
-    errs = {"K5a": max(float((a - b).abs().max())
-                       for a, b in zip(fk, fp) if a is not None),
-            "K5b": float((pk - bsc.backward_plain(kop, ext, fk[0])).abs()
-                         .max())}
-    del fk, fp, pk
-    print(f"phase 8b: G=128 N={N}: K5a and K5b (wide) run twice, "
-          f"bit-equal; kernel vs plain max |err| K5a {errs['K5a']:.3e}, "
-          f"K5b {errs['K5b']:.3e} (tol {TOL_K5:g})")
-    assert all(e <= TOL_K5 for e in errs.values()), errs
+    errs = held_to_twins(kop, ext, msh, f"{label}: G=128 N={N} "
+                                        f"({instantiation})")
 
     def step():
         x = lhs.clone().requires_grad_()
-        mt.lfmmi_loss(big, cf, x, lens).sum().backward()
+        loss = mt.lfmmi_loss(big, cf, x, lens)
+        loss.sum().backward()
+        return loss.detach(), x.grad
 
     for m in (bs, bsc):
         m.reset_launch_counts()
-    step()
+    loss, grad = step()
     torch.cuda.synchronize()
     counts = {**bs.LAUNCHES, **bsc.LAUNCHES}
     assert (bsc.LAUNCHES == {"banded_fwd": 1, "banded_bwd": 1}
             and bs.LAUNCHES["block_fwd"] == 1), counts
     launches = dict(bsc.LAUNCHES)
+    pn, zn = mt.pdfposteriors(big, lhs, lens)
+    pd, zd = mt.pdfposteriors(cf, lhs, lens)
+    assert torch.isfinite(zn).all(), "infeasible numerator"
+    lerr = float((loss - (zd - zn)).abs().max())
+    gerr = float((grad - (pd - pn)).abs().max())
+    print(f"{label}: LF-MMI step G=128 N={N}: |loss - (logZ_den - "
+          f"logZ_num)| = {lerr:.3e}, |grad - (posts_den - posts_num)| = "
+          f"{gerr:.3e} (tol {TOL_GRAD:g})")
+    assert lerr <= TOL_ORACLE and gerr <= TOL_GRAD, "loss or gradient"
+    del loss, grad, pn, pd
     t_big = cuda_ms(step, reps=2)
-    print(f"phase 8b: LF-MMI step B=G=128 N={N} with the ~1,200-state "
-          f"numerators (path: {mt.fast_path_report(big, 128)}): "
-          f"{t_big:.2f} ms, beside the Sp = 80 step's {t_step:.2f} ms; "
-          f"launches {json.dumps(counts)}")
-    times = time_banded(big, P, dev, (ext, msh), "wide, Sp = %d" % Sp)
+    print(f"{label}: LF-MMI step B=G=128 N={N} with the ~{lengths[0]:,}-"
+          f"state numerators (path: {mt.fast_path_report(big, 128)}): "
+          f"{t_big:.2f} ms, beside the Sp = 80 step's {t_step:.2f} ms "
+          f"(N=700); launches {json.dumps(counts)}")
+    times = time_banded(big, P, dev, (ext, msh),
+                        f"{instantiation}, Sp = {Sp}, N = {N}")
     return t_big, launches, errs, times, banded_bounds(big, N + 1)
+
+
+def phase_longest_numerators(P, dev, N=128, label="phase 8b"):
+    """Phase 8b, last: a G=128 stack at Sp = 24,576 with three offsets,
+    the JAX package's own fused bound at G = 128 ((3 + 5) Sp G 4 B =
+    96 MiB), which K5's global instantiation takes: a ~24,575-state
+    skip-arc lattice beside three of 150-200 states (which reach their end
+    in N = 128 frames), 32 of each.  ``pdfposteriors`` through the
+    kernels (the counts set to 0 before it, one launch each after it),
+    K5a and K5b each run twice (bit-equal) and held to their twins, and
+    timed.  Returns (launches, errs, times, bounds)."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    t0 = time.perf_counter()
+    graphs = skip_numerators(P, (24575, 200, 180, 150), seed=9)
+    compiled = [mt.compile_fsm(f, sp, P, strategy="banded", device=dev)
+                for f, sp in graphs]
+    big = mt.stack(compiled * 32)
+    Sp, nO = big.padded_states, len(big.banded_offsets)
+    assert Sp == 24576 and nO == 3, (Sp, nO)
+    assert (nO + 5) * Sp * 128 * 4 <= 96 * 1024 * 1024  # JAX's VMEM rule
+    check_modes(Sp, nO, 1, (bsc.GLOBAL,) * 2)
+    lhs = torch.from_numpy(make_inputs(np.random.default_rng(10), 128, N,
+                                       P, cliffs=True)).to(dev)
+    lens = torch.from_numpy(np.tile(np.array([N, N - 8, N - 16, N],
+                                             dtype=np.int32), 32)).to(dev)
+    bsc.reset_launch_counts()
+    posts, z = mt.pdfposteriors(big, lhs, lens)
+    torch.cuda.synchronize()
+    launches = dict(bsc.LAUNCHES)
+    assert launches == {"banded_fwd": 1, "banded_bwd": 1}, launches
+    z = z.cpu().numpy().reshape(32, 4)
+    assert np.isneginf(z[:, 0]).all() and np.isfinite(z[:, 1:]).all(), z
+    mass = posts.double().sum(dim=2)
+    want = (torch.arange(N, device=dev)[None, :] < lens[:, None]).double()
+    want[0::4] = 0  # the longest lattice cannot reach its end
+    merr = float((mass - want).abs().max())
+    print(f"{label}: G=128 N={N}, Sp = {Sp} ({nO} offsets; compiled and "
+          f"stacked in {time.perf_counter() - t0:.1f} s), path: "
+          f"{mt.fast_path_report(big, 128)}; launches "
+          f"{json.dumps(launches)}; posterior mass per active frame vs 1 "
+          f"(0 for the infeasible lattice) max |err| {merr:.3e} "
+          f"(tol {TOL_POST_SUM:g})")
+    assert merr <= TOL_POST_SUM, merr
+    del posts
+    kop = bsc.kernel_operator(big)
+    ext, msh = prepare_emissions(lhs, lens, P)
+    errs = held_to_twins(kop, ext, msh, f"{label}: G=128 N={N}, Sp = {Sp} "
+                                        "(global)")
+    times = time_banded(big, P, dev, (ext, msh), f"global, Sp = {Sp}, N = {N}")
+    return launches, errs, times, banded_bounds(big, N + 1)
 
 
 def launch_counts(mods, bf16=False):
@@ -3277,8 +3395,14 @@ def phase_k5_f64(num64, P, dev, label="phase 41"):
     """Phase 41: K5a/K5b's float64 instantiation against its float64 twin
     on the main-path numerators (phase 7's input, run twice, bit-equal)
     and on 4 skip-arc numerators of ~1,200 states (the wide
-    instantiation), only float64 launches; then timed on the main-path
-    numerators.  Returns (errs, times) of the main-path numerators."""
+    instantiation), only float64 launches; those 4 through
+    ``pdfposteriors`` against the f64 oracle; then a G=128 stack of them
+    (phase 8b's shape, float64): ``pdfposteriors`` through the kernels
+    (the counts set to 0 before it, one float64 launch each after it),
+    K5a and K5b twice (bit-equal) and against their twins, and timed; and
+    the main-path numerators timed.  Returns (errs, times) of the
+    main-path numerators and (launches, errs, times, bounds) of the G=128
+    stack."""
     import torch
 
     import markovmodels_tpu_torch as mt
@@ -3294,10 +3418,11 @@ def phase_k5_f64(num64, P, dev, label="phase 41"):
     assert bsc.LAUNCHES_F64 == {"banded_fwd": 2, "banded_bwd": 2}, \
         bsc.LAUNCHES_F64
     graphs = skip_numerators(P, (1200, 1180, 1150, 1199), seed=7)
-    big = mt.stack([mt.compile_fsm(f, sp, P, strategy="banded", dtype=f64,
-                                   device=dev) for f, sp in graphs])
+    compiled = [mt.compile_fsm(f, sp, P, strategy="banded", dtype=f64,
+                               device=dev) for f, sp in graphs]
+    big = mt.stack(compiled)
     Sp, nO = big.padded_states, len(big.banded_offsets)
-    assert bsc._wide(Sp, nO, 2) == (True, True), bsc._wide(Sp, nO, 2)
+    check_modes(Sp, nO, 2, (bsc.WIDE,) * 2)
     N = 700
     rng = np.random.default_rng(8)
     lhs = torch.from_numpy(make_inputs(rng, 4, N, P, cliffs=True)).to(dev,
@@ -3307,8 +3432,42 @@ def phase_k5_f64(num64, P, dev, label="phase 41"):
     werrs = phase_banded_kernels(big, P, dev, f"{label} (wide, Sp = {Sp})",
                                  tol=TOL_F64,
                                  inputs=prepare_emissions(lhs, lens, P, f64))
+    posts, z = mt.pdfposteriors(big, lhs, lens)
+    z, posts, x = (t.cpu().numpy() for t in (z, posts, lhs))
+    err = perr = 0.0
+    for g, (fsm, spdf) in enumerate(graphs):
+        rz, rp = mt.oracle.host_oracle(fsm, spdf, P, x[g:g + 1],
+                                       lens[g:g + 1].cpu().numpy())
+        err = max(err, float(np.abs(z[g] - rz[0])))
+        perr = max(perr, float(np.abs(posts[g] - rp[0]).max()))
+    print(f"{label}: float64 pdfposteriors G=4 N={N}, Sp = {Sp} (wide) vs "
+          f"f64 oracle |dlogZ| = {err:.3e}, |dposts| = {perr:.3e} (tol "
+          f"{TOL_ORACLE:g})")
+    assert err <= TOL_ORACLE and perr <= TOL_ORACLE, "oracle gate failed"
+
+    wide = mt.stack(compiled * 32)
+    lhs = torch.from_numpy(make_inputs(np.random.default_rng(0), 128, N,
+                                       P)).to(dev, f64)
+    lens = torch.from_numpy(np.tile(np.array([N, N - 10, N - 60, N],
+                                             dtype=np.int32), 32)).to(dev)
+    bsc.reset_launch_counts()
+    posts, z = mt.pdfposteriors(wide, lhs, lens)
+    torch.cuda.synchronize()
+    wl = dict(bsc.LAUNCHES_F64)
+    assert not any(bsc.LAUNCHES.values()), "a float32 K5 ran for float64"
+    assert wl == {"banded_fwd": 1, "banded_bwd": 1}, wl
+    assert torch.isfinite(z).all(), "infeasible numerator"
+    print(f"{label}: float64 pdfposteriors G=128 N={N}, Sp = {Sp}: path "
+          f"{mt.fast_path_report(wide, 128)}; launches {json.dumps(wl)}")
+    del posts
+    kop = bsc.kernel_operator(wide)
+    ext, msh = prepare_emissions(lhs, lens, P, f64)
+    w128 = held_to_twins(kop, ext, msh, f"{label}: float64 G=128 N={N}, "
+                                        f"Sp = {Sp} (wide)")
+    wtimes = time_banded(wide, P, dev, (ext, msh), f"wide, float64, Sp = {Sp}")
     times = time_banded(num64, P, dev, tag="float64")
-    return {k: max(v, werrs[k]) for k, v in errs.items()}, times
+    return ({k: max(v, werrs[k]) for k, v in errs.items()}, times,
+            (wl, w128, wtimes, banded_bounds(wide, N + 1)))
 
 
 def set_oracle(fsm, sets, P, lhs, lengths):
@@ -3940,42 +4099,41 @@ def nvcc_version():
     return out.stdout.strip().splitlines()[-1]
 
 
+# K5a/K5b's wide and global instantiations (banded_scan.cu), redesigned
+# for Hopper: the entries phase 55 does not hold to the parent's table
+K5_WIDE_ENTRIES = ("banded_fwd_wide_kernel<", "banded_bwd_wide_kernel<",
+                   "banded_fwd_global_kernel<", "banded_bwd_global_kernel<")
+
+
 def phase_ptxas(log, label="phase 55"):
-    """Phase 55: the library's ``ptxas`` report.  K6t's four
-    ``trop_kernel`` instantiations spill 0 bytes and keep no stack; every
-    entry but theirs and K7's two float32 family instantiations
-    (``vit_sweep_kernel<VEC, true, true, float>``, changed here) equals
-    the table ``tools/ptxas_ref.py`` made of the parent commit
-    (``tools/ptxas_ref.json``), compared where the nvcc that built the
-    table built this library too.  K7's family entries are printed beside
-    the uniform K7's and the table's: they spill more than the uniform
-    ones (``PERF.md`` §6, PR 21)."""
+    """Phase 55: the library's ``ptxas`` report.  K5a's and K5b's wide and
+    global instantiations (``K5_WIDE_ENTRIES``: float and double, the wide
+    ones at 4 and 5 states per thread) spill 0 bytes and keep no stack;
+    every other entry equals the table ``tools/ptxas_ref.py`` made of the
+    parent commit (``tools/ptxas_ref.json``), compared where the nvcc that
+    built the table built this library too."""
     tab = ptxas_table(log)
     assert tab, "no ptxas report (the library was not built by this run)"
-    k6t = {k: v for k, v in tab.items() if k.startswith("trop_kernel<")}
-    print(f"{label}: ptxas of K6t's trop_kernel<VEC, T>: " + "; ".join(
-        f"{k}: {v}" for k, v in sorted(k6t.items())))
-    assert len(k6t) == 4 and all(
+    k5 = {k: v for k, v in tab.items() if k.startswith(K5_WIDE_ENTRIES)}
+    print(f"{label}: ptxas of K5a/K5b's wide and global instantiations: "
+          + "; ".join(f"{k}: {v}" for k, v in sorted(k5.items())))
+    assert len(k5) == 12 and all(
         v["spill_stores"] + v["spill_loads"] + v["stack"] == 0
-        for v in k6t.values()), f"K6t spills: {k6t}"
+        for v in k5.values()), f"K5 wide/global spill: {k5}"
     ref = json.loads(PTXAS_REF.read_text())
-    want = ref["entries"]
-    fam = [f"vit_sweep_kernel<{vec},Lb1E,Lb1E,f>" for vec in ("Lb0E", "Lb1E")]
-    for k in fam:
-        uni = k.replace("Lb1E,Lb1E,f>", "Lb1E,Lb0E,f>")
-        print(f"{label}: K7 float32 family {k}: {tab[k]}; uniform "
-              f"{tab[uni]}; the parent's family entry {want.get(k)}")
-    others = {k: v for k, v in tab.items() if k not in k6t and k not in fam}
+    want = {k: v for k, v in ref["entries"].items()
+            if not k.startswith(K5_WIDE_ENTRIES)}
+    others = {k: v for k, v in tab.items() if k not in k5}
     nvcc = nvcc_version()
     if ref["nvcc"] != nvcc:
         print(f"{label}: the other {len(others)} entries not compared: "
               f"this nvcc ({nvcc}) is not the table's ({ref['nvcc']})")
         return
-    keys = (set(others) | set(want)) - set(fam)
-    diff = sorted(k for k in keys if others.get(k) != want.get(k))
+    diff = sorted(k for k in set(others) | set(want)
+                  if others.get(k) != want.get(k))
     print(f"{label}: the other {len(others)} entries against "
-          f"{PTXAS_REF.name} ({len(want)} entries, {ref['nvcc']}): "
-          f"{len(diff)} differ" + "".join(
+          f"{PTXAS_REF.name} ({len(want)} of its {len(ref['entries'])} "
+          f"entries, {ref['nvcc']}): {len(diff)} differ" + "".join(
               f"\n  {k}: {others.get(k)} (table {want.get(k)})"
               for k in diff))
     assert not diff, f"{len(diff)} ptxas entries differ from the table"
@@ -4757,6 +4915,10 @@ def main():
                                          "phase 9")
     t_big, w_launches, w_errs, w_times, w_bounds = phase_big_numerators(
         cf, P, dev, t_step)
+    t_big3, *g3 = phase_big_numerators(
+        cf, P, dev, t_step, lengths=(3000, 2950, 2900, 2990), N=2400,
+        lens=(2400, 2380, 2350, 2400), instantiation="global")
+    g24 = phase_longest_numerators(P, dev)
     profile_step(num_cf, cf, P, dev, "phase 9")
     profile_block_den(cf, P, dev, "phase 9")
     times, terrs = time_kernels(cf, P, dev)
@@ -5058,7 +5220,7 @@ def main():
               f"{ov_times[name][0]:.3f} ms), bound {sf_bounds[name][0]:.3f} "
               f"ms")
 
-    k5_errs, k5_times = phase_k5_f64(num64, P, dev)
+    k5_errs, k5_times, k5w64 = phase_k5_f64(num64, P, dev)
     k5_bounds = banded_bounds(num64, 701)
     for name in ("K5a", "K5b"):
         print(f"timing: {name} float64 {k5_times[name][0]:.3f} ms (float32 "
@@ -5228,17 +5390,22 @@ def main():
         for name, (counter, source, replaces) in table.items()
         if name in times96
     ]
-    kernels += [  # the wide instantiation: the ~1,200-state numerators
-        {"name": f"{name} {counter} (wide, ~1,200-state skip-arc "
-                 "numerators)",
-         "route": "cuda", "source": source, "replaces": replaces,
-         "launches": w_launches[counter], "max_abs_err": w_errs[name],
-         "ms": w_times[name][0], "plain_ms": w_times[name][1],
-         "bound_ms": w_bounds[name][0], "bound_by": w_bounds[name][1],
-         "library_ms": None}
-        for name, (counter, source, replaces) in table.items()
-        if name in w_times
-    ]
+    for tag, (l_, e_, t_, b_) in (  # the wide and global instantiations
+            ("wide, ~1,200-state skip-arc numerators, N=700",
+             (w_launches, w_errs, w_times, w_bounds)),
+            ("global, ~3,000-state skip-arc numerators, N=2,400", g3),
+            ("global, Sp = 24,576, N=128", g24),
+            ("wide, float64, ~1,200-state skip-arc numerators, N=700",
+             k5w64)):
+        kernels += [
+            {"name": f"{name} {counter} ({tag})", "route": "cuda",
+             "source": source, "replaces": replaces, "launches": l_[counter],
+             "max_abs_err": e_[name], "ms": t_[name][0],
+             "plain_ms": t_[name][1], "bound_ms": b_[name][0],
+             "bound_by": b_[name][1], "library_ms": None}
+            for name, (counter, source, replaces) in table.items()
+            if name in t_
+        ]
     kernels += [  # the overflow branch, on the separate-state graph
         {"name": f"{name} {counter} (separate-state backoff graph)",
          "route": "cuda", "source": source, "replaces": replaces,
@@ -5391,7 +5558,8 @@ def main():
     print(f"card: {card}; pdfposteriors B=128 N=700 kernel path "
           f"{t_kern:.2f} ms, plain path {t_plain:.2f} ms; LF-MMI step "
           f"{t_step:.2f} ms, den-only {t_den:.2f} ms; with the ~1,200-state "
-          f"numerators (K5 wide) {t_big:.2f} ms; dense-den LF-MMI "
+          f"numerators (K5 wide) {t_big:.2f} ms, with the ~3,000-state ones "
+          f"at N=2,400 (K5 global) {t_big3:.2f} ms; dense-den LF-MMI "
           f"step "
           f"{t_dstep:.2f} ms, dense den-only {t_dden:.2f} ms; viterbi "
           f"B=128 N=700 {t_dec:.2f} ms; dense viterbi B=128 N=700 "

@@ -1457,9 +1457,8 @@ def _plain_on_card(cf: CompiledFSM, device, batch_size: int,
 
     A 'block' graph that the JAX package's fused scan admits but one of
     the port's own predicates refuses (the kernels' limits, the bf16 tier
-    tile, co-residency), a 'dense' graph with one pdf per state that
-    K6a/K6b refuse, and a stacked 'banded' graph that K5a/K5b refuse
-    still raise."""
+    tile, co-residency) and a 'dense' graph with one pdf per state that
+    K6a/K6b refuse still raise."""
     device = torch.device(device)
     if device.type != "cuda":
         return None

@@ -22,6 +22,16 @@ state:
   of the frame's gamma sum, and writes only those; the rest of the output
   is zeroed once per call.
 
+Each kernel has three instantiations (``_modes``, named by
+``instantiations`` in ``fast_path_report``): the narrow one (one warp runs
+a graph's chain, up to 1,024 states in registers) where its rings fit a
+CTA's shared memory; the wide one (the chain on eight warps, five states a
+thread in registers and the state exchanged through shared memory, up to
+1,280 states), which writes the alphas graph-major, (Nf, G, Sp) in memory,
+returned as their (Nf, Sp, G) view; and the global one (the same frames on
+the same threads, the state in global memory), which takes any lattice
+whose streams fit the card's memory.  No stack is refused for its length.
+
 One repair against the Pallas kernels: the state (alpha, beta, and so
 gamma) and the logZ pieces are float64, while the inputs and the
 posteriors keep the graph's dtype: float32, or float64 for a float64
@@ -91,8 +101,15 @@ _POST_WARPS = 2  # K5b's posterior warps (POST_WARPS in the .cu)
 _YRING = 8  # frames of beta between K5b's warps (YRING in the .cu)
 _NARROW_STATES = 32 * 32  # 32 lanes x MAX_J states in registers (the .cu)
 _WDEPTH = 4  # the wide instantiation's DEPTH (WDEPTH in the .cu)
-_WYRING = 2  # and YRING (WYRING in the .cu), with one posterior warp
+_WT = 256  # the wide and global chains' threads (WT in the .cu)
+_WIDE_J = (4, 5)  # states per wide chain thread (dispatch_wj)
+_WREG = 3  # offsets whose weights a wide thread holds in registers
+_WPOST = 6  # the wide K5b's posterior warps (WPOST)
+_WRING = 8  # frames of gamma between its warps (WRING)
+_LONG = 32  # a plan entry of more states is summed by a warp (LONG)
 _SMEM_BYTES = 232448  # dynamic shared memory one CTA may use on Hopper
+# the instantiations a launch takes (Mode in the .cu), by name
+NARROW, WIDE, GLOBAL = "narrow", "wide", "global"
 
 
 def reset_launch_counts():
@@ -108,42 +125,83 @@ def _counts(dtype):
 # admission
 # ---------------------------------------------------------------------------
 
-def _variant_words(Sp: int, nO: int, wide: bool, tw: int = 1) -> tuple:
+def _mode_words(Sp: int, nO: int, mode: str, tw: int = 1) -> tuple:
     """Shared-memory words (4 bytes) of one CTA of K5a and of K5b, one graph
-    each, in the narrow or the wide instantiation, with inputs of ``tw``
-    words (1 float32, 2 float64; csrc/banded_scan.cu, ``fwd_smem_words``,
-    ``bwd_smem_words``).  K5a: the float64 state double buffer, bands (one
-    zero band when nO = 0), omega and alpha ring, two mbarriers per ring
-    slot, then the emission and shift rings (the inputs' type).  K5b: the
-    state double buffer, the bands, omega, the beta ring, and per
-    posterior warp gamma and an alpha ring (float64), two mbarriers per
-    beta slot and per emission slot, the emission ring and the plan's
-    state order.  The wide one has shallower rings, one posterior warp,
-    and each state's pdf (int) besides."""
-    nb = max(nO, 1)
-    D, R, W = ((_WDEPTH, _WYRING, 1) if wide
-               else (_DEPTH, _YRING, _POST_WARPS))
-    pd = Sp if wide else 0
-    fwd = 2 * (2 + nb + 1 + D) * Sp + 4 * D + tw * (D * Sp + D) + pd
+    each, in instantiation ``mode``, with inputs of ``tw`` words (1
+    float32, 2 float64; csrc/banded_scan.cu, ``fwd_smem_words``,
+    ``bwd_smem_words``).  Narrow K5a: the float64 state double buffer,
+    bands (one zero band when nO = 0), omega and alpha ring, two mbarriers
+    per ring slot, then the emission and shift rings (the inputs' type).
+    Narrow K5b: the state double buffer, the bands, omega, the beta ring,
+    and per posterior warp gamma and an alpha ring (float64), two
+    mbarriers per beta slot and per emission slot, the emission ring and
+    the plan's state order.  Wide K5a: the unscaled state double buffer,
+    the weights of the offsets past the third and the warps' partial dots
+    (float64), two mbarriers per ring slot, the emission ring (a slot per
+    frame holds the emission of each of the graph's distinct pdfs, at most
+    Sp) and the shift ring, the distinct pdfs, each state's entry among
+    them and the warps' keys (int).  Wide K5b: the state double buffer,
+    those weights, the alpha ring, the gamma ring and its warps' partial
+    sums (float64), two mbarriers per emission slot and per gamma slot,
+    the emission ring, the distinct pdfs, each state's entry, the entries'
+    ranges of the plan's order, each state's position in it and the warps'
+    keys.  The global instantiation takes none (a few static words)."""
+    if mode == GLOBAL:
+        return 0, 0
+    ww = _WT // 32
+    if mode == WIDE:
+        nx, D, R = max(nO - _WREG, 0), _WDEPTH, _WRING
+        fwd = (2 * ((2 + nx) * Sp + 2 * ww) + 4 * D + tw * (D * Sp + D)
+               + 2 * Sp + 2 * ww)
+        bwd = (2 * ((2 + nx + D + R) * Sp + R * ww) + 4 * (D + R)
+               + tw * D * Sp + 4 * Sp + 1 + 2 * ww)
+        return fwd, bwd
+    nb, D, R, W = max(nO, 1), _DEPTH, _YRING, _POST_WARPS
+    fwd = 2 * (2 + nb + 1 + D) * Sp + 4 * D + tw * (D * Sp + D)
     bwd = (2 * (2 + nb + 1 + R + W * (1 + D)) * Sp + 4 * (R + D)
-           + tw * D * Sp + Sp + pd)
+           + tw * D * Sp + Sp)
     return fwd, bwd
 
 
+def _modes(Sp: int, nO: int, tw: int = 1) -> tuple:
+    """The instantiations K5a and K5b take (``fwd_mode``, ``bwd_mode`` in
+    the .cu): the narrow one where its states fit in registers (1,024) and
+    its shared memory in a CTA's; else the wide one where its states fit
+    (5 per thread of 256: 1,280) and its shared memory; else the global
+    one, whose state lives in global memory and which takes any lattice
+    the card's memory holds."""
+    out = []
+    for k in (0, 1):
+        if (Sp <= _NARROW_STATES
+                and 4 * _mode_words(Sp, nO, NARROW, tw)[k] <= _SMEM_BYTES):
+            out.append(NARROW)
+        elif (Sp <= _WT * _WIDE_J[-1]
+              and 4 * _mode_words(Sp, nO, WIDE, tw)[k] <= _SMEM_BYTES):
+            out.append(WIDE)
+        else:
+            out.append(GLOBAL)
+    return tuple(out)
+
+
 def _wide(Sp: int, nO: int, tw: int = 1) -> tuple:
-    """Whether K5a and K5b take the wide instantiation: past the narrow
-    one's states in registers, or where its shared memory exceeds a CTA's
-    (``fwd_wide``, ``bwd_wide`` in the .cu)."""
-    narrow = _variant_words(Sp, nO, False, tw)
-    return tuple(Sp > _NARROW_STATES or 4 * w > _SMEM_BYTES for w in narrow)
+    """Whether K5a and K5b take an instantiation other than the narrow
+    one (the wide or the global one)."""
+    return tuple(m != NARROW for m in _modes(Sp, nO, tw))
 
 
 def _smem_words(Sp: int, nO: int, tw: int = 1) -> tuple:
     """Shared-memory words of one CTA of K5a and of K5b, each in the
     instantiation its launch takes (``mm_banded_smem``)."""
-    fw, bw = _wide(Sp, nO, tw)
-    return (_variant_words(Sp, nO, fw, tw)[0],
-            _variant_words(Sp, nO, bw, tw)[1])
+    fm, bm = _modes(Sp, nO, tw)
+    return (_mode_words(Sp, nO, fm, tw)[0], _mode_words(Sp, nO, bm, tw)[1])
+
+
+def _wide_j(Sp: int) -> int:
+    """States per chain thread of the wide instantiations at Sp states
+    (``dispatch_wj``): thread i owns states i, i + 256, ..., the smallest
+    instantiated count that covers Sp."""
+    need = -(-Sp // _WT)
+    return next((j for j in _WIDE_J if j >= need), _WIDE_J[-1])
 
 
 def _words(dtype) -> int:
@@ -153,13 +211,14 @@ def _words(dtype) -> int:
 
 def instantiations(cf) -> str:
     """Which instantiation of K5a and of K5b a stacked 'banded' graph
-    takes, in words, for ``fast_path_report``."""
+    takes, in words, for ``fast_path_report``: narrow (one warp, the state
+    in registers), wide (eight warps, the state on chip) or global (eight
+    warps, the state in global memory)."""
     Sp, nO = cf.padded_states, len(cf.banded_offsets)
     tw = _words(cf.alpha_hat.dtype)
-    fw, bw = _wide(Sp, nO, tw)
-    word = lambda w: "wide" if w else "narrow"
+    fm, bm = _modes(Sp, nO, tw)
     f64 = ", float64" if tw == 2 else ""
-    return f"K5a {word(fw)}, K5b {word(bw)} (Sp = {Sp}, {nO} offsets{f64})"
+    return f"K5a {fm}, K5b {bm} (Sp = {Sp}, {nO} offsets{f64})"
 
 
 def banded_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
@@ -170,15 +229,18 @@ def banded_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     The predicates shared with the JAX package's ``banded_scan_supported``
     come first, in its order and words.  Its TPU rules (graph count a
     multiple of 128 lanes, the 96 MB VMEM and 4 GB HBM caps) are not
-    copied: a CTA owns one graph, so any G works.  The CUDA design adds
-    two of its own: each kernel's shared memory (``_smem_words``: the
-    narrow instantiation's up to 1,024 states where it fits, else the
-    wide one's) within a CTA's, and the (Nf, P1, G) emission and
-    posterior streams plus the (Nf, Sp, G) float64 alphas, each sized by
-    its dtype, must fit the free memory of ``device`` when that is a CUDA
-    device (checked where a card is present).  The kernels take a float32
-    or a float64 stack (the JAX package's take float32 only), every float
-    array of it in one dtype."""
+    copied: a CTA owns one graph, so any G works, and a lattice of any
+    length runs (the narrow instantiation up to 1,024 states where its
+    shared memory fits, the wide one up to 2,048 where its own fits, the
+    global one past them: ``_modes``).  The CUDA design adds one predicate
+    of its own: the (Nf, P1, G) emission and posterior streams, the
+    (Nf, Sp, G) float64 alphas (each sized by its dtype) and the global
+    instantiation's float64 scratch (state, gamma and the graphs'
+    constants, (G, 6 + nO, Sp)) must fit the free
+    memory of ``device`` when that is a CUDA device (checked where a card
+    is present).  The kernels take a float32 or a float64 stack (the JAX
+    package's take float32 only), every float array of it in one
+    dtype."""
     if not cf.batched or cf.strategy != "banded":
         return "not a stacked 'banded' CompiledFSM"
     if cf.domain != "prob":
@@ -202,20 +264,18 @@ def banded_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     if nO > _MAX_BANDS:
         return f"{nO} band offsets (kernel supports at most {_MAX_BANDS})"
     P1 = cf.num_pdfs + 1
-    smem = 4 * max(_smem_words(Sp, nO, _words(cf.alpha_hat.dtype)))
-    if smem > _SMEM_BYTES:
-        return (f"shared-memory working set {smem} B for Sp = {Sp}, "
-                f"{nO} offsets exceeds a CTA's {_SMEM_BYTES} B")
     if (device is not None and torch.device(device).type == "cuda"
             and torch.cuda.is_available() and n_frames is not None):
         f = cf.alpha_hat.element_size()
         Nf = n_frames + 1
-        need = (2 * Nf * P1 * G + Nf * G) * f + Nf * Sp * G * 8
+        need = ((2 * Nf * P1 * G + Nf * G) * f + Nf * Sp * G * 8
+                + (6 + nO) * Sp * G * 8)
         free = torch.cuda.mem_get_info(torch.device(device))[0]
         if need > free:
-            return (f"emission, alpha and posterior streams ~{need / 1e9:.1f}"
-                    f" GB exceed the card's {free / 1e9:.1f} GB free "
-                    f"(Sp = {Sp}, G = {G}, N = {n_frames})")
+            return (f"emission, alpha, posterior and state streams "
+                    f"~{need / 1e9:.1f} GB exceed the card's "
+                    f"{free / 1e9:.1f} GB free (Sp = {Sp}, G = {G}, "
+                    f"N = {n_frames})")
     return None
 
 
@@ -397,11 +457,12 @@ def backward_plain(kop: BandedOp, ext, alphas, dtype=None):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _imeta(kop: BandedOp, Nf: int) -> np.ndarray:
-    """Host int64 descriptor read by csrc/banded_scan.cu (layout: Meta)."""
+def _imeta(kop: BandedOp, Nf: int, gm: bool = False) -> np.ndarray:
+    """Host int64 descriptor read by csrc/banded_scan.cu (layout: Meta,
+    then whether the alphas are graph-major)."""
     offs = list(kop.offsets) + [0] * (_MAX_BANDS - len(kop.offsets))
-    return np.array([kop.Sp, kop.G, kop.P1, Nf, len(kop.offsets), *offs],
-                    dtype=np.int64)
+    return np.array([kop.Sp, kop.G, kop.P1, Nf, len(kop.offsets), *offs,
+                     int(gm)], dtype=np.int64)
 
 
 def _check_op(kop: BandedOp, dev):
@@ -421,10 +482,16 @@ def _check_op(kop: BandedOp, dev):
     _check("plan", kop.plan, (kop.G, 3 * kop.Sp + 2), dev, torch.int32)
 
 
+def _kernel_modes(kop: BandedOp) -> tuple:
+    return _modes(kop.Sp, len(kop.offsets), _words(kop.a0.dtype))
+
+
 def fwd_sweep(kop: BandedOp, ext, mshift, save_alphas: bool = True):
     """K5a: the forward sweep over all Nf frames.  Same outputs as
     :func:`fwd_sweep_plain`.  ``ext`` and ``mshift`` in the operator's
-    dtype."""
+    dtype.  The wide and global instantiations write the alphas
+    graph-major, (Nf, G, Sp) in memory, returned as the (Nf, Sp, G) view
+    of it (K5b reads either layout)."""
     if not _route(ext, "banded-scan"):
         return fwd_sweep_plain(kop, ext, mshift, save_alphas)
     from . import _build
@@ -434,27 +501,40 @@ def fwd_sweep(kop: BandedOp, ext, mshift, save_alphas: bool = True):
     _check_op(kop, dev)
     _check("ext", ext, (Nf, kop.P1, kop.G), dev, dt)
     _check("mshift", mshift, (Nf, 1, kop.G), dev, dt)
-    meta = _imeta(kop, Nf)
-    alphas = (torch.empty((Nf, kop.Sp, G), device=dev, dtype=torch.float64)
-              if save_alphas else None)
+    mode = _kernel_modes(kop)[0]
+    gm = mode != NARROW
+    meta = _imeta(kop, Nf, gm)
+    alphas = None
+    if save_alphas:
+        shape = (Nf, G, kop.Sp) if gm else (Nf, kop.Sp, G)
+        alphas = torch.empty(shape, device=dev, dtype=torch.float64)
     vfin, shift, ksum = (torch.empty(G, device=dev, dtype=torch.float64)
                          for _ in range(3))
+    scratch = (torch.empty((G, 4 + len(kop.offsets), kop.Sp), device=dev,
+                           dtype=torch.float64)
+               if mode == GLOBAL else None)
     with torch.cuda.device(dev):  # the library launches on it
         rc = _build.library().mm_banded_fwd(
             _p(kop.a0), _p(kop.bf), _p(kop.om), _p(kop.fin), _p(kop.spdf),
-            _p(ext), _p(mshift), ctypes.c_void_p(meta.ctypes.data),
+            _p(kop.plan), _p(ext), _p(mshift),
+            ctypes.c_void_p(meta.ctypes.data),
             _p(alphas) if save_alphas else None, _p(vfin), _p(shift),
-            _p(ksum), int(dt == torch.float64), _stream(dev),
+            _p(ksum), None if scratch is None else _p(scratch),
+            int(dt == torch.float64), _stream(dev),
         )
     _raise_on(rc, "mm_banded_fwd")
     _counts(dt)["banded_fwd"] += 1
+    if gm and save_alphas:
+        alphas = alphas.permute(0, 2, 1)
     return alphas, vfin, shift, ksum
 
 
 def backward(kop: BandedOp, ext, alphas):
     """K5b: the reverse sweep and the pdf posteriors.  Same output as
     :func:`backward_plain` (each graph's pdf sums in its plan's order),
-    in the operator's dtype."""
+    in the operator's dtype.  ``alphas`` (Nf, Sp, G) contiguous, or the
+    view of graph-major memory that the wide K5a returns (the narrow K5b
+    reads a contiguous copy of that)."""
     if not _route(ext, "banded-scan"):
         return backward_plain(kop, ext, alphas)
     from . import _build
@@ -463,15 +543,26 @@ def backward(kop: BandedOp, ext, alphas):
     dev, dt = ext.device, kop.a0.dtype
     _check_op(kop, dev)
     _check("ext", ext, (Nf, kop.P1, kop.G), dev, dt)
-    _check("alphas", alphas, (Nf, kop.Sp, kop.G), dev, torch.float64)
-    meta = _imeta(kop, Nf)
+    mode = _kernel_modes(kop)[1]
+    gm = mode != NARROW and not alphas.is_contiguous()
+    if gm:
+        _check("alphas (graph-major)", alphas.permute(0, 2, 1),
+               (Nf, kop.G, kop.Sp), dev, torch.float64)
+    else:
+        alphas = alphas.contiguous()
+        _check("alphas", alphas, (Nf, kop.Sp, kop.G), dev, torch.float64)
+    meta = _imeta(kop, Nf, gm)
     # zeroed, then written
     posts = torch.empty((Nf, P1, G), device=dev, dtype=dt)
+    scratch = (torch.empty((G, 6 + len(kop.offsets), kop.Sp), device=dev,
+                           dtype=torch.float64)
+               if mode == GLOBAL else None)
     with torch.cuda.device(dev):
         rc = _build.library().mm_banded_bwd(
             _p(kop.bb), _p(kop.om), _p(kop.fin), _p(kop.spdf), _p(kop.plan),
             _p(ext), _p(alphas), ctypes.c_void_p(meta.ctypes.data),
-            _p(posts), int(dt == torch.float64), _stream(dev),
+            _p(posts), None if scratch is None else _p(scratch),
+            int(dt == torch.float64), _stream(dev),
         )
     _raise_on(rc, "mm_banded_bwd")
     _counts(dt)["banded_bwd"] += 1

@@ -200,56 +200,90 @@ def test_infeasible_lattices_give_all_zero_rows():
 def test_smem_words_follow_the_kernels_layout():
     """The admission's words are the buffers the kernels lay out, with the
     kernels' ring depths and warp counts, in the narrow and the wide
-    instantiation, at the step's shape and beyond; a launch takes the
-    narrow one where its states fit in registers and its shared memory in
-    a CTA."""
+    instantiation (the global one takes none), at the step's shape and
+    beyond; a launch takes the narrow one where its states fit in
+    registers and its shared memory in a CTA, else the wide one where its
+    states (5 per thread) and its shared memory fit, else the global one."""
     for name, value in (("DEPTH", bsc._DEPTH), ("YRING", bsc._YRING),
                         ("POST_WARPS", bsc._POST_WARPS),
-                        ("WDEPTH", bsc._WDEPTH), ("WYRING", bsc._WYRING),
+                        ("WDEPTH", bsc._WDEPTH), ("WT", bsc._WT),
+                        ("WREG", bsc._WREG), ("WPOST", bsc._WPOST),
+                        ("WRING", bsc._WRING),
+                        ("MAX_WJ", bsc._WIDE_J[-1]),
                         ("SMEM_MAX", bsc._SMEM_BYTES)):
         assert re.search(rf"constexpr int {name} = {value};", CU), name
     assert re.search(r"constexpr int MAX_J = (\d+);", CU).group(1) == str(
         bsc._NARROW_STATES // 32)
-    for wide, (D, R, W) in ((False, (bsc._DEPTH, bsc._YRING,
-                                     bsc._POST_WARPS)),
-                            (True, (bsc._WDEPTH, bsc._WYRING, 1))):
-        for Sp, nO in ((80, 2), (8, 0), (1000, 8), (1208, 3)):
-            nb = max(nO, 1)
-            pd = {"PD": Sp} if wide else {}
-            fwd = {"X": 2 * 2 * Sp, "BW": 2 * nb * Sp, "OM": 2 * Sp,
-                   "AL": 2 * D * Sp, "FULL+DONE": 2 * 2 * D, "ER": D * Sp,
-                   "MR": D, **pd}
-            bwd = {"X": 2 * 2 * Sp, "BW": 2 * nb * Sp, "OM": 2 * Sp,
-                   "YR": 2 * R * Sp, "GM": 2 * W * Sp, "AR": 2 * W * D * Sp,
-                   "FULL+EMPTY": 2 * 2 * R, "EFULL+EDONE": 2 * 2 * D,
-                   "ER": D * Sp, "ST": Sp, **pd}
-            assert bsc._variant_words(Sp, nO, wide) == (
-                sum(fwd.values()), sum(bwd.values()))
+    D, R, W = bsc._DEPTH, bsc._YRING, bsc._POST_WARPS
+    WD, WR, WW = bsc._WDEPTH, bsc._WRING, bsc._WT // 32
+    for Sp, nO in ((80, 2), (8, 0), (1000, 8), (1208, 3)):
+        nb, nx = max(nO, 1), max(nO - bsc._WREG, 0)
+        fwd = {"X": 2 * 2 * Sp, "BW": 2 * nb * Sp, "OM": 2 * Sp,
+               "AL": 2 * D * Sp, "FULL+DONE": 2 * 2 * D, "ER": D * Sp,
+               "MR": D}
+        bwd = {"X": 2 * 2 * Sp, "BW": 2 * nb * Sp, "OM": 2 * Sp,
+               "YR": 2 * R * Sp, "GM": 2 * W * Sp, "AR": 2 * W * D * Sp,
+               "FULL+EMPTY": 2 * 2 * R, "EFULL+EDONE": 2 * 2 * D,
+               "ER": D * Sp, "ST": Sp}
+        assert bsc._mode_words(Sp, nO, bsc.NARROW) == (
+            sum(fwd.values()), sum(bwd.values()))
+        fwd = {"Y": 2 * 2 * Sp, "BX": 2 * nx * Sp, "SD": 2 * 2 * WW,
+               "FULL+DONE": 2 * 2 * WD, "ER": WD * Sp, "MR": WD, "EP": Sp,
+               "EI": Sp, "SK": 2 * WW}
+        bwd = {"Y": 2 * 2 * Sp, "BX": 2 * nx * Sp, "AR": 2 * WD * Sp,
+               "GM": 2 * WR * Sp, "TT": 2 * WR * WW,
+               "EFULL+EDONE": 2 * 2 * WD, "FULL+EMPTY": 2 * 2 * WR,
+               "ER": WD * Sp, "EP": Sp, "EI": Sp, "SEG": Sp + 1, "POS": Sp,
+               "SK": 2 * WW}
+        assert bsc._mode_words(Sp, nO, bsc.WIDE) == (
+            sum(fwd.values()), sum(bwd.values()))
+        assert bsc._mode_words(Sp, nO, bsc.GLOBAL) == (0, 0)
     assert bsc._smem_words(80, 2) == (2760, 5744)
     assert bsc._wide(80, 2) == (False, False)
     assert bsc._wide(816, 2) == (False, False)  # K5b's narrow fits
-    assert bsc._wide(824, 2) == (False, True)
-    assert bsc._wide(1032, 1) == (True, True)  # past 32 states per lane
-    assert bsc._smem_words(824, 2) == (bsc._variant_words(824, 2, False)[0],
-                                       bsc._variant_words(824, 2, True)[1])
+    assert bsc._modes(824, 2) == ("narrow", "wide")
+    assert bsc._modes(1032, 1) == ("wide", "wide")  # past 32 per lane
+    assert bsc._modes(1280, 3) == ("wide", "wide")
+    assert bsc._modes(1280, 3, 2) == ("wide", "wide")
+    assert bsc._modes(1288, 3) == ("global", "global")  # past 5 per thread
+    assert bsc._smem_words(824, 2) == (
+        bsc._mode_words(824, 2, bsc.NARROW)[0],
+        bsc._mode_words(824, 2, bsc.WIDE)[1])
+    assert bsc._smem_words(1288, 3) == (0, 0)
 
 
-def test_admission_rejects_past_a_ctas_shared_memory():
+def _reason_at(Sp, nO=3, G=128, **kw):
+    """The admission's reason for a stack of G graphs of Sp states with
+    nO offsets (the shapes only: the operator is zeros)."""
     rng = np.random.default_rng(21)
-    cf = _stack(numerators(rng, 2, P, [6, 9], lib=mt))
-    nO = len(cf.banded_offsets)
-    fits = max(Sp for Sp in range(8, 4096, 8)
-               if 4 * max(bsc._smem_words(Sp, nO)) <= bsc._SMEM_BYTES)
-    assert fits > bsc._NARROW_STATES  # the wide instantiation goes past
+    cf = _stack(numerators(rng, 2, P, [6, 9], skip=(0, 1), lib=mt))
+    assert len(cf.banded_offsets) == 3
+    cf = dataclasses.replace(cf, alpha_hat=cf.alpha_hat.new_zeros((G, Sp)),
+                             banded_offsets=cf.banded_offsets[:nO])
+    return bsc.banded_scan_reject_reason(cf, G, **kw)
 
-    def at(Sp):
-        return bsc.banded_scan_reject_reason(dataclasses.replace(
-            cf, alpha_hat=cf.alpha_hat.new_zeros((2, Sp))), 2)
 
-    assert at(fits) is None
-    big = 4 * max(bsc._smem_words(fits + 8, nO))
-    assert at(fits + 8) == (
-        f"shared-memory working set {big} B for Sp = {fits + 8}, {nO} "
-        f"offsets exceeds a CTA's {bsc._SMEM_BYTES} B")
-    assert big > 227 * 1024
-    assert at(1544) is None and at(1000) is None
+def test_admission_rejects_past_a_ctas_shared_memory(monkeypatch):
+    """No shared-memory predicate: past a CTA's shared memory (2,504
+    states) and at the JAX package's fused bound at G = 128 (24,576 states
+    at three offsets) a stack is admitted, on a CUDA device too, where the
+    global instantiation runs it.  What the admission still refuses for
+    size is the card's free memory: the emission, alpha, posterior and
+    state streams."""
+    assert bsc._modes(2504, 3) == ("global", "global")
+    assert (3 + 5) * 24576 * 128 * 4 <= 96 * 1024 * 1024  # JAX's VMEM rule
+    for Sp in (2504, 24576):
+        assert _reason_at(Sp) is None
+        assert _reason_at(Sp, n_frames=128, device="cuda") is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (80 * 10 ** 9, 80 * 10 ** 9))
+    assert _reason_at(24576, n_frames=128, device="cuda:0") is None
+    # N = 128: 3.2 GB of float64 alphas, ~0.05 GB of streams, 0.23 GB of
+    # the global instantiation's scratch
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (2 * 10 ** 9, 80 * 10 ** 9))
+    assert _reason_at(24576, n_frames=128, device="cuda:0") == (
+        "emission, alpha, posterior and state streams ~3.5 GB exceed the "
+        "card's 2.0 GB free (Sp = 24576, G = 128, N = 128)")
+    assert _reason_at(24576, n_frames=128, device="cpu") is None

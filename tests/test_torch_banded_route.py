@@ -1,8 +1,10 @@
 """The route of stacked numerators past the narrow K5's 1,024 states: on a
-CUDA device the stacked-banded scan takes them with its wide instantiation
-(the state in shared memory), and raises, as for every other graph it
-refuses, past a CTA's shared memory or on a predicate it shares with the
-JAX package; on the CPU the plain stacked scan runs.
+CUDA device the stacked-banded scan takes them, with its wide
+instantiation (the chain on eight warps, the state in shared memory) up to
+1,280 states, and past that with its global one (the state in global
+memory), up to what the card's memory holds; it raises, as
+for every other graph it refuses, on a predicate it shares with the JAX
+package; on the CPU the plain stacked scan runs.
 
 Inputs: numerator lattices of ~1,200 states with skip arcs (three band
 offsets: a path crosses up to two states per frame, so N=700 frames reach
@@ -13,8 +15,8 @@ the CPU against the exact float64 host oracle (``bench.host_oracle``) and
 the JAX package's stacked scan on the same inputs: the JAX float32 scan
 loses these lattices (logZ -inf, every posterior 0), so it runs with its
 operator and inputs in float64, and its posteriors are the gradient of its
-logZ.  On the card, ``chip_smoke.py`` (phase 8b) runs K5's wide
-instantiation end to end against the oracle and the twins."""
+logZ.  On the card, ``chip_smoke.py`` (phase 8b) runs K5's wide and global
+instantiations end to end against the oracle and the twins."""
 import dataclasses
 
 import jax
@@ -102,10 +104,26 @@ def test_report_names_the_route_and_the_instantiations(big, small):
 
 @pytest.mark.parametrize("S", [1032, 1544, 1936])
 def test_wide_instantiation_takes_past_1024_states(small, S):
-    """Up to a CTA's shared memory: 1,936 states at two offsets."""
+    """The wide instantiation up to 1,280 states (5 per chain thread), the
+    global one past it: 1,936 states at two offsets, which the wide one's
+    shared memory would fit, take the global one too."""
     cf = _sized(small, S)
     assert bsc._wide(S, 2) == (True, True)
+    assert bsc._modes(S, 2) == (("wide", "wide") if S <= 1280
+                                else ("global", "global"))
     assert tinf._kernel_route(cf, "cuda", G, N) is True
+
+
+@pytest.mark.parametrize("S", [2056, 2504, 3008, 24576])
+def test_global_instantiation_takes_every_longer_stack(small, S):
+    """Past 1,280 states (5 per chain thread) the global instantiation
+    runs, up to the JAX package's own fused bound at G = 128 (24,576
+    states) and past it: the report names it."""
+    cf = _sized(small, S)
+    assert bsc._modes(S, 2) == ("global", "global")
+    assert tinf._kernel_route(cf, "cuda", G, N) is True
+    assert tinf.fast_path_report(cf, G, device="cuda") == (
+        f"{K5_LINE}; K5a global, K5b global (Sp = {S}, 2 offsets)")
 
 
 def test_main_path_numerators_take_the_narrow_k5(small):
@@ -119,12 +137,22 @@ def test_main_path_numerators_take_the_narrow_k5(small):
                                      "shared memory"])
 def test_refused_stacks_raise_on_cuda(big, variant):
     """No probability-domain stack runs the plain scan on the card: the
-    predicates shared with the JAX package, and a CTA's shared memory (past
-    1,936 states at two offsets, 1,808 at three), raise with their reason.
-    A log-domain stack, which K5's admission refuses too, takes the
-    log-space scan on every device, as the JAX package's does."""
+    predicates shared with the JAX package raise with their reason.  A
+    log-domain stack, which K5's admission refuses too, takes the log-space
+    scan on every device, as the JAX package's does.  The "shared memory"
+    case: a stack of 1,816 states at three offsets, past what a CTA's
+    shared memory holds of a wide layout, is admitted, and the global
+    instantiation takes it."""
     _, ct, _, _ = big
     rep = dataclasses.replace
+    if variant == "shared memory":
+        cf = _sized(ct, 1816)
+        assert bsc._modes(1816, 3) == ("global", "global")
+        assert bsc.banded_scan_reject_reason(cf, G, n_frames=N) is None
+        assert tinf._kernel_route(cf, "cuda", G, N) is True
+        assert tinf.fast_path_report(cf, G, device="cuda") == (
+            f"{K5_LINE}; K5a global, K5b global (Sp = 1816, 3 offsets)")
+        return
     cf, B, match = {
         "unstacked": (compile_port(*numerator(np.arange(5), P, lib=mt), P,
                                    strategy="banded"), 1,
@@ -136,9 +164,6 @@ def test_refused_stacks_raise_on_cuda(big, variant):
         "batch": (ct, G - 1, "batch 3 != graph count 4"),
         "offsets": (rep(ct, banded_offsets=tuple(range(9))), G,
                     "9 band offsets"),
-        "shared memory": (_sized(ct, 1816), G,
-                          "shared-memory working set 232544 B for Sp = "
-                          "1816, 3 offsets"),
     }[variant]
     with pytest.raises(ValueError, match=match):
         tinf._kernel_route(cf, "cuda", B, N)

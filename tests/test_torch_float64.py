@@ -404,9 +404,8 @@ def test_banded_twins_in_float64(lfmmi):
     G, Sp = 3, num_t.padded_states
     assert bsc.banded_scan_reject_reason(num_t, G) is None
     assert bsc.instantiations(num_t).endswith(", float64)")
-    for wide in (False, True):
-        D = bsc._WDEPTH if wide else bsc._DEPTH
-        w1, w2 = (bsc._variant_words(Sp, 2, wide, tw) for tw in (1, 2))
+    for mode, D in ((bsc.NARROW, bsc._DEPTH), (bsc.WIDE, bsc._WDEPTH)):
+        w1, w2 = (bsc._mode_words(Sp, 2, mode, tw) for tw in (1, 2))
         assert (w2[0] - w1[0], w2[1] - w1[1]) == (D * Sp + D, D * Sp)
     assert bsc._smem_words(80, 2, 2) == (3408, 6384)
     x = torch.from_numpy(lhs)
