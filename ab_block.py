@@ -9,6 +9,8 @@ the package):
     python ab_block.py build/vA 2m-f64 separate-f64
     python ab_block.py build/vP banded banded-trace
     python ab_block.py build/vP banded-wide
+    python ab_block.py build/vP banded-global
+    python ab_block.py . banded-split
 
 The first argument is the root of a copy of the package (its parent
 directory); that copy builds its own library under ``<root>/build/``.  For
@@ -78,12 +80,39 @@ K5b over the 701-frame sweep and of K5a without its alpha stores,
 ``K5_bitequal`` and ``K5a_err`` and ``K5b_err`` against the twins, as
 ``banded``.
 
+``banded-global`` (``chip_smoke`` phase 8b's G=128 stacks past the wide
+instantiation, P = 384, float32: four ~3,000-state skip-arc lattices,
+Sp = 3,008, at N = 2,400 with lengths 2,400, 2,380, 2,350, 2,400; then a
+24,575-state lattice beside three of 150-200 states, Sp = 24,576, at
+N = 128 with lengths 128, 120, 112, 128; offsets (0, 1, 2)) prints one
+line per stack, as ``banded-wide``: the root's instantiations (the
+cluster one since it exists, the global one before), three warm times in
+ms each of K5a, K5a without its alpha stores and K5b, ``K5a_sum`` and
+``K5b_sum`` (the float64 sums of the outputs: equal between two versions
+whose kernels compute bit for bit the same), ``K5_bitequal`` and the
+errors against the twins.
+
 ``banded-trace`` builds a traced copy of the root's ``banded_scan.cu`` into
 ``<root>/build/trace/`` (``clock64`` and ``%globaltimer`` stamps at the
 anchors of ``_ANCHORS``, or ``_PARENT_ANCHORS`` in the kernels of PRs 2-9,
 written by lane 0 of graph 0 for every frame) and prints, for K5a and K5b
 at P = 384 and P = 96, the mean ns per frame between consecutive stamps.
 The stamps' own stores slow a traced kernel (the PR 2-9 K5b by ~50 %).
+
+``banded-split`` times the cluster instantiation's frame in parts: it
+builds text variants of the root's ``banded_scan.cu`` (``_SPLITS``, all
+at once, each into ``<root>/build/split-<variant>/``), each of which cuts
+one part of a frame out (their outputs are wrong; only their times are
+read): ``base`` (the source as it is), ``noloop`` (the chains skip their
+loop over the states: what is left is a frame's waits, reductions,
+exchange and the helper's work), ``noemit`` (no emission gather in the
+chains), ``nowait`` (the chains do not wait for the helper's emission
+slots or K5a's alpha stores), ``nopost`` (K5b's posterior warps sum no
+pdf).  One line per variant: µs per frame (the mean of three warm runs)
+of K5a, K5a without its alpha stores and K5b at G=128, P = 384, on
+``chip_smoke`` phase 8b's stacks of skip-arc lattices: Sp = 1,208 (the
+wide instantiation, a yardstick) and 1,352 at N=700, and 3,008 at
+N=2,400.
 
 ``--sums`` (before the graphs) runs only the bit-for-bit part on each
 block graph: ``K2_sum``, ``K3_sum``, ``K4_sum`` (K4's posteriors, outgoing
@@ -326,6 +355,67 @@ def run_banded(P: int) -> dict:
     return out
 
 
+def _banded_row(name, num, N, lens, dt, seed=0, cliffs=False) -> dict:
+    """One ``banded-wide`` / ``banded-global`` line: the stack ``num`` of
+    G = 128 graphs at N frames, its lengths ``lens`` tiled."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import make_inputs
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    dev, P = torch.device("cuda:0"), 384
+    kop = bsc.kernel_operator(num)
+    lhs = torch.from_numpy(make_inputs(np.random.default_rng(seed), 128, N,
+                                       P, cliffs=cliffs)).to(dev, dt)
+    lens = torch.from_numpy(np.tile(np.array(lens, dtype=np.int32),
+                                    32)).to(dev)
+    ext, msh = prepare_emissions(lhs, lens, P, dt)
+    fwd = bsc.fwd_sweep(kop, ext, msh)
+    posts = bsc.backward(kop, ext, fwd[0])
+    fwd2 = bsc.fwd_sweep(kop, ext, msh)
+    posts2 = bsc.backward(kop, ext, fwd[0])
+    out = {"graph": name,
+           "instantiations": bsc.instantiations(num),
+           "K5a_sum": sum(float(t.double().sum()) for t in fwd),
+           "K5b_sum": float(posts.double().sum()),
+           "K5_bitequal": all(torch.equal(x, y) for x, y in
+                              zip(fwd + (posts,), fwd2 + (posts2,)))}
+    del fwd2, posts2
+    fp = bsc.fwd_sweep_plain(kop, ext, msh)
+    out["K5a_err"] = max(float((a - b).abs().max())
+                         for a, b in zip(fwd, fp))
+    out["K5b_err"] = float((posts - bsc.backward_plain(kop, ext, fwd[0]))
+                           .abs().max())
+    del fp, posts
+    al = fwd[0]
+    out["K5a_ms"] = _ms(lambda: bsc.fwd_sweep(kop, ext, msh))
+    out["K5a_logz_only_ms"] = _ms(lambda: bsc.fwd_sweep(kop, ext, msh,
+                                                        save_alphas=False))
+    out["K5b_ms"] = _ms(lambda: bsc.backward(kop, ext, al))
+    return out
+
+
+def run_banded_global(shape: str) -> dict:
+    import torch
+
+    from chip_smoke import skip_numerators
+    import markovmodels_tpu_torch as mt
+
+    dev, P = torch.device("cuda:0"), 384
+    lengths, N, lens, seed, cliffs = {
+        "3008": ((3000, 2950, 2900, 2990), 2400, (2400, 2380, 2350, 2400),
+                 7, False),
+        "24576": ((24575, 200, 180, 150), 128, (128, 120, 112, 128), 9,
+                  True),
+    }[shape]
+    num = mt.stack([mt.compile_fsm(f, sp, P, strategy="banded", device=dev)
+                    for f, sp in skip_numerators(P, lengths, seed=seed)] * 32)
+    return _banded_row(f"banded-global-{shape}", num, N, lens, torch.float32,
+                       seed=0 if shape == "3008" else 10, cliffs=cliffs)
+
+
 def run_banded_wide(dtype_name: str) -> dict:
     import numpy as np
     import torch
@@ -457,10 +547,46 @@ extern "C" int mm_trace_read(long long* clk, long long* gt) {
     e = cudaMemcpyFromSymbol(gt, mm_trace_gt, sizeof(mm_trace_gt));
   return static_cast<int>(e);
 }
+"""
+_ERROR_STRING = r"""
 extern "C" const char* mm_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 """
+
+
+def _banded_build(root: str, name: str, text: str):
+    """Start nvcc on ``text``, a copy of the root's banded_scan.cu, into
+    ``<root>/build/<name>/``; returns (the process, the library's path)."""
+    import subprocess
+
+    from markovmodels_tpu_torch.ops import _build
+
+    csrc = os.path.join(root, "markovmodels_tpu_torch", "ops", "csrc")
+    out_dir = os.path.join(root, "build", name)
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "banded_scan.cu")
+    with open(src, "w") as f:
+        f.write(text + _ERROR_STRING)
+    lib_path = os.path.join(out_dir, f"lib{name}.so")
+    return subprocess.Popen([_build._nvcc(), *_build._FLAGS, "-shared", "-I",
+                             csrc, "-o", lib_path, src]), lib_path
+
+
+def _banded_load(lib_path: str):
+    """Load a library of ``_banded_build`` with the K5 entry points typed."""
+    import ctypes
+
+    from markovmodels_tpu_torch.ops import _build
+
+    lib = ctypes.CDLL(lib_path)
+    for name, args in _build._SIGNATURES.items():
+        if name.startswith("mm_banded"):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, ctypes.c_int
+    lib.mm_error_string.argtypes = [ctypes.c_int]
+    lib.mm_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 _TRACED = {}
@@ -469,11 +595,6 @@ _TRACED = {}
 def _traced_library(root: str):
     """Build the traced copy of the root's banded_scan.cu and load it (once
     per process)."""
-    import ctypes
-    import subprocess
-
-    from markovmodels_tpu_torch.ops import _build
-
     if root in _TRACED:
         return _TRACED[root]
     csrc = os.path.join(root, "markovmodels_tpu_torch", "ops", "csrc")
@@ -495,22 +616,12 @@ def _traced_library(root: str):
         lines.insert(hits[0] + (1 if where == "after" else 0), stmt)
         names[k, i] = label
     print(f"trace: stamps placed: {sorted(names)}", file=sys.stderr)
-    out_dir = os.path.join(root, "build", "trace")
-    os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(out_dir, "banded_trace.cu")
-    with open(src, "w") as f:
-        f.write(_TRACE_PRELUDE + "\n".join(parts["fwd"]) + "\n"
-                + "\n".join(parts["bwd"]) + _TRACE_READ)
-    lib_path = os.path.join(out_dir, "libbanded_trace.so")
-    subprocess.run([_build._nvcc(), *_build._FLAGS, "-shared", "-I", csrc,
-                    "-o", lib_path, src], check=True)
-    lib = ctypes.CDLL(lib_path)
-    for name, args in _build._SIGNATURES.items():
-        if name.startswith("mm_banded"):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = args, ctypes.c_int
-    lib.mm_error_string.argtypes = [ctypes.c_int]
-    lib.mm_error_string.restype = ctypes.c_char_p
+    proc, lib_path = _banded_build(
+        root, "trace", _TRACE_PRELUDE + "\n".join(parts["fwd"]) + "\n"
+        + "\n".join(parts["bwd"]) + _TRACE_READ)
+    if proc.wait() != 0:
+        raise RuntimeError("trace: nvcc failed")
+    lib = _banded_load(lib_path)
     _TRACED[root] = lib, names
     return lib, names
 
@@ -560,6 +671,96 @@ def trace_banded(root: str, P: int) -> dict:
     return out
 
 
+# ``banded-split``: text edits of banded_scan.cu that each cut one part of
+# the cluster instantiation's frame (a cut variant's outputs are wrong; only
+# its time is read)
+_LOOPA = "for (int s0 = tid, j0 = 0; s0 < Lr; s0 += CGU * WT, j0 += CGU) {"
+_LOOPB = ("for (int s0 = tid, j0 = 0; s0 < Lr;\n"
+          "         s0 += CGU * WT, j0 += CGU)")
+_EMIT = "        es[u] = double(er[sm.EI[sl]]);\n"
+_SPLITS = {
+    "base": [],
+    "noloop": [(_LOOPA, _LOOPA.replace("s0 < Lr;", "s0 < (Lr & 0);")),
+               (_LOOPB, _LOOPB.replace("s0 < Lr;", "s0 < (Lr & 0);"))],
+    "noemit": [(_EMIT, "        es[u] = 1.0;\n")] * 2,
+    "nowait": [("    mbar_wait(sm.full + r, (t / WDEPTH) & 1);  // frame t's "
+                "emissions\n", ""),
+               ("    if (alphas != nullptr && t >= 2)  // frame t - 2's alphas "
+                "are out\n      mbar_wait(sm.yfree + (p ^ 1), ((t - 2) >> 1) "
+                "& 1);\n", ""),
+               ("    mbar_wait(sm.full + r, (i / WDEPTH) & 1);  // the "
+                "emissions\n", "")],
+    "nopost": [("entry_sums(nl, sm.LSEG, sm.LST, gm, lane, [&](int e, "
+                "double acc) {", "entry_sums(0, sm.LSEG, sm.LST, gm, lane, "
+                "[&](int e, double acc) {")],
+}
+_SPLIT_STACKS = (  # name, lattice lengths, N, sequence lengths
+    ("1208", (1200, 1180, 1150, 1199), 700, (700, 690, 640, 700)),
+    ("1352", (1350, 1340, 1300, 1349), 700, (700, 690, 680, 700)),
+    ("3008", (3000, 2950, 2900, 2990), 2400, (2400, 2380, 2350, 2400)),
+)
+
+
+def split_banded(root: str) -> list:
+    """One row per variant of ``_SPLITS`` (all built at once): µs per frame
+    of K5a, K5a without its alpha stores and K5b on each stack of
+    ``_SPLIT_STACKS`` (G=128, P = 384)."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import make_inputs, skip_numerators
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import _build
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    with open(os.path.join(root, "markovmodels_tpu_torch", "ops", "csrc",
+                           "banded_scan.cu")) as f:
+        text = f.read()
+    builds = {}
+    for name, edits in _SPLITS.items():
+        cut = text
+        for a, b in edits:
+            if a not in cut:
+                raise RuntimeError(f"{name}: the source has no {a!r}")
+            cut = cut.replace(a, b, 1)
+        builds[name] = _banded_build(root, f"split-{name}", cut)
+    dev, P = torch.device("cuda:0"), 384
+    stacks = []
+    for name, lengths, N, lens in _SPLIT_STACKS:
+        num = mt.stack([mt.compile_fsm(f, sp, P, strategy="banded",
+                                       device=dev)
+                        for f, sp in skip_numerators(P, lengths, seed=7)]
+                       * 32)
+        lhs = torch.from_numpy(make_inputs(np.random.default_rng(0), 128, N,
+                                           P)).to(dev)
+        ln = torch.from_numpy(np.tile(np.array(lens, dtype=np.int32),
+                                      32)).to(dev)
+        stacks.append((name, num, N, *prepare_emissions(lhs, ln, P)))
+    whole, rows = _build.library(), []
+    try:
+        for variant, (proc, lib_path) in builds.items():
+            if proc.wait() != 0:
+                raise RuntimeError(f"{variant}: nvcc failed")
+            _build._LIB = _banded_load(lib_path)
+            row = {"graph": f"banded-split-{variant}"}
+            for name, num, N, ext, msh in stacks:
+                kop = bsc.kernel_operator(num)
+                al = bsc.fwd_sweep(kop, ext, msh)[0]
+                fns = {"K5a": lambda: bsc.fwd_sweep(kop, ext, msh),
+                       "K5a_logz": lambda: bsc.fwd_sweep(
+                           kop, ext, msh, save_alphas=False),
+                       "K5b": lambda: bsc.backward(kop, ext, al)}
+                row[name] = {"instantiations": bsc.instantiations(num), **{
+                    k: 1e3 * float(np.mean(_ms(fn))) / (N + 1)
+                    for k, fn in fns.items()}}
+                del al
+            rows.append(row)
+    finally:
+        _build._LIB = whole
+    return rows
+
+
 def main(root: str, graphs) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import markovmodels_tpu_torch as mt
@@ -577,8 +778,12 @@ def main(root: str, graphs) -> None:
             rows = [run_banded(P) for P in (384, 96)]
         elif graph == "banded-wide":
             rows = [run_banded_wide(d) for d in ("float32", "float64")]
+        elif graph == "banded-global":
+            rows = [run_banded_global(s) for s in ("3008", "24576")]
         elif graph == "banded-trace":
             rows = [trace_banded(root, P) for P in (384, 96)]
+        elif graph == "banded-split":
+            rows = split_banded(root)
         else:
             rows = [run_graph(graph, sums_only)]
         for row in rows:

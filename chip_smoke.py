@@ -44,16 +44,31 @@ phases:
    states) at N=150, where K5a and K5b are held to their twins too;
 8b. stacked numerators past the narrow K5's 1,024 states, the route line
     printed: 4 skip-arc lattices of ~1,200 states (K5's wide
-    instantiation) at N=700, then 4 of ~3,000 (its global one) at N=2,400,
-    through ``pdfposteriors`` and ``lfmmi_loss`` with the 2M-arc
-    denominator against the f64 oracle and γ_den - γ_num, the admission's
-    instantiations and shared memory against the kernels'; a G=128 stack
+    instantiation) at N=700, then 4 of ~3,000 (its cluster one, one CTA a
+    graph) at N=2,400, through ``pdfposteriors`` and ``lfmmi_loss`` with
+    the 2M-arc denominator against the f64 oracle and γ_den - γ_num, the
+    admission's instantiations, cluster sizes and shared memory against
+    the kernels' (and the clusters the card holds at once); a G=128 stack
     of each: K5a and K5b each run twice (bit-equal) and against their
     twins, through the training step (one launch each, the gradient
-    against γ_den - γ_num) timed beside phase 9's, and timed; then a G=128
-    stack at Sp = 24,576 with three offsets (the JAX package's fused
-    bound) at N=128 through ``pdfposteriors`` (one launch each), held to
-    the twins and timed (run after phase 9);
+    against γ_den - γ_num) timed beside phase 9's, and timed; a G=128
+    stack of ~1,350-state lattices at N=700 (the cluster one just past
+    the wide one; they do not reach their end in 700 frames, so their
+    posteriors are 0) held to the twins and timed, its frame beside the
+    wide stack's; then a G=128 stack at Sp = 24,576 with three offsets (the
+    JAX package's fused bound; clusters of 4 and 8 CTAs) at N=128 through
+    ``pdfposteriors`` (one launch each), held to the twins and timed (its
+    long lattice cannot reach its end, so its CTAs past rank 0 carry
+    zeros); a G=8 stack at Sp = 6,504 and N=6,000 in float32 and in
+    float64 (clusters of 2 and 3 CTAs, every lattice feasible, alpha and
+    gamma mass asserted in every CTA's range), held to the twins and
+    timed; and a G=4 stack of 52,008 states past what 8 CTAs hold (the
+    global instantiation) at N=64, held to the twins (run after phase 9);
+    every K5 stack within 1e-4 absolute and 1e-12 relative of the float64
+    twins;
+8c. a barely feasible narrow lattice (784 states, N=394, about its
+    shortest path) whose frames' γ sums are subnormal: the narrow K5b,
+    which divides there, against its twin, its posteriors finite;
 9. the training step at B=128, N=700 with launch counters (K2-K5b), the
    gradient against γ_den - γ_num, and its time beside the denominator's;
    a ``torch.profiler`` breakdown of one step (K5a's and K5b's device
@@ -232,7 +247,10 @@ decode; a general-Ĉ graph has no kernel yet and is refused on the card):
     kernels', and timed; the wide float64 instantiation on 4 skip-arc
     numerators of ~1,200 states against its twin and the f64 oracle, then
     on a G=128 stack of them through ``pdfposteriors`` (one float64
-    launch each), twice bit-equal, against the twins and timed;
+    launch each), twice bit-equal, against the twins and timed; the
+    float64 cluster instantiation (K5b on a cluster of 2 CTAs) on a G=8
+    stack of ~3,000-state lattices at N=2,400 against the f64 oracle and
+    its twins, twice bit-equal, and timed;
 42. K6a and K6b in float64 against their float64 twins on the V=32 graph
     at B=128, N=700 (phase 11's input in float64), each run twice and
     bit-equal: logZ within 1e-12 relative, states and posteriors within
@@ -327,9 +345,10 @@ decode; a general-Ĉ graph has no kernel yet and is refused on the card):
     admission's reckoning, both branches against their twins at B = 128,
     126 and 124 (twice, ending as K7, checkpoints, restart, chunked
     decodes equal to one chunk), and its frame split on both block graphs;
-55. the library's ``ptxas`` report: K5a's and K5b's wide and global
-    instantiations spill 0 bytes, and every other entry equals the
-    parent commit's table ``tools/ptxas_ref.json``.
+55. the library's ``ptxas`` report: K5a's and K5b's cluster
+    instantiations spill 0 bytes, the narrow K5b's entries are listed
+    beside the table's, and every other entry equals the parent commit's
+    table ``tools/ptxas_ref.json``.
 
 Every kernel's entry in the JSON line (K6t, K7n and W2 from phases 32-33,
 the family branch's K7, walk, K7n and W2 from phases 36-37, K2-K4's
@@ -371,6 +390,11 @@ TOL_POST_SUM = 1e-4  # per-frame posterior mass of a feasible sequence
 # atomics for repeated pdfs), compounded over 701 frames; states compared
 # after normalising each column to max 1
 TOL_K5 = 1e-4
+# K5 vs its float64 twin, relative: every float64 output (K5a's alphas and
+# logZ pieces, the float64 posteriors) within 1e-12 of the twin's largest
+# magnitude of that output; float32 posteriors within that of the twin's
+# float64 posteriors plus their own rounding (half an ulp of float32)
+TOL_REL_K5 = 1e-12
 TOL_GRAD = 1e-5  # lhs.grad vs posts_den - posts_num from separate calls
 TOL_GRAD_SUM = 1e-4  # the gradient's sum over pdfs on an active frame
 # K6 vs plain twin (phase 11): float32 sums of the 3,200-term products and
@@ -1159,7 +1183,6 @@ def phase_banded_kernels(num_cf, P, dev, label="phase 7", tol=TOL_K5,
     import torch
 
     from markovmodels_tpu_torch import inference as tinf
-    from markovmodels_tpu_torch.ops import _build
     from markovmodels_tpu_torch.ops import banded_scan as bsc
 
     kop = bsc.kernel_operator(num_cf)
@@ -1197,12 +1220,7 @@ def phase_banded_kernels(num_cf, P, dev, label="phase 7", tol=TOL_K5,
     outside = ~plan_mask(kop)
     assert (pk[:, outside] == 0).all(), (
         "K5b: a posterior outside its graph's plan is not 0")
-    lib = _build.library()
-    nO, tw = len(kop.offsets), bsc._words(kop.a0.dtype)
-    smem = [lib.mm_banded_smem(kop.Sp, nO, bwd, tw - 1) for bwd in (0, 1)]
-    assert smem == [4 * w for w in bsc._smem_words(kop.Sp, nO, tw)], (
-        f"admission's shared memory {bsc._smem_words(kop.Sp, nO, tw)} "
-        f"words, the kernels' {smem} bytes")
+    smem = check_modes(kop, bsc._kernel_modes(kop))
     print(f"{label}: P={P}: K5a and K5b run twice, bit-equal; K5b's "
           f"posteriors at the {int(outside.sum())} of {outside.numel()} "
           f"(pdf, graph) pairs outside the graphs' plans exactly 0 in all "
@@ -1289,30 +1307,62 @@ def phase_banded_oracle(P, dev):
             assert ka <= TOL_K5 and kb <= TOL_K5, "K5 disagrees with its twin"
 
 
-def check_modes(Sp, nO, tw, want):
-    """The instantiations K5a and K5b take at Sp states and nO offsets
-    (inputs of tw words): the admission's (``banded_scan._modes``), the
-    library's and ``want``; and the admission's shared memory, the
-    kernels'.  Returns the shared-memory bytes of each."""
+def check_modes(kop, want, sizes=None, label=None):
+    """The instantiations K5a and K5b take for the kernels' operator
+    ``kop``: the admission's (``banded_scan._modes``), the library's and
+    ``want``; the cluster's CTAs a graph (``_cluster_sizes``, the
+    library's, ``sizes`` where given); and the admission's shared memory,
+    the kernels'.  Where a kernel takes the cluster instantiation, asserts
+    that the card holds such a cluster (cudaOccupancyMaxActiveClusters)
+    and prints how many at once.  Returns the shared-memory bytes of
+    each."""
+    import ctypes
+
     from markovmodels_tpu_torch.ops import _build
     from markovmodels_tpu_torch.ops import banded_scan as bsc
 
     lib = _build.library()
-    modes = bsc._modes(Sp, nO, tw)
-    lm = tuple((bsc.NARROW, bsc.WIDE, bsc.GLOBAL)[
-        lib.mm_banded_mode(Sp, nO, bwd, tw - 1)] for bwd in (0, 1))
+    dims = bsc._kop_dims(kop)
+    tw = dims[2]
+    cs = bsc._cluster_sizes(*dims)
+    metas = [bsc._imeta(kop, 1, False, c) for c in cs]
+    ptrs = [ctypes.c_void_p(m.ctypes.data) for m in metas]
+    modes = bsc._modes(*dims)
+    lm = tuple(bsc.MODES[lib.mm_banded_mode(ptrs[k], k, tw - 1)]
+               for k in (0, 1))
     assert modes == lm == want, (modes, lm, want)
-    smem = [lib.mm_banded_smem(Sp, nO, bwd, tw - 1) for bwd in (0, 1)]
-    assert smem == [4 * w for w in bsc._smem_words(Sp, nO, tw)], (
-        f"admission's shared memory {bsc._smem_words(Sp, nO, tw)} words, "
-        f"the kernels' {smem} bytes")
+    lc = tuple(lib.mm_banded_cluster(ptrs[k], k, tw - 1) for k in (0, 1))
+    assert cs == lc and (sizes is None or cs == tuple(sizes)), (cs, lc,
+                                                                 sizes)
+    smem = [lib.mm_banded_smem(ptrs[k], k, tw - 1) for k in (0, 1)]
+    assert smem == [4 * w for w in bsc._smem_words(*dims)], (
+        f"admission's shared memory {bsc._smem_words(*dims)} words, the "
+        f"kernels' {smem} bytes")
+    for k, c in enumerate(cs):
+        if c:
+            held = lib.mm_banded_resident(ptrs[k], k, tw - 1, c)
+            assert held > 0, held
+            print(f"{label or 'modes'}: K5{'ab'[k]} cluster of {c} "
+                  f"({smem[k]} B a CTA): the card holds {held} clusters at "
+                  f"once, {kop.G} graphs take {-(-kop.G // held)} wave(s)")
     return smem
 
 
-def held_to_twins(kop, ext, msh, label):
+def rel_err(k, p):
+    """max |k - p| over max |p| (0 where both are 0), in float64."""
+    d = float((k.double() - p.double()).abs().max())
+    m = float(p.double().abs().max())
+    return d / m if m > 0 else d
+
+
+def held_to_twins(kop, ext, msh, label, rel_tol=TOL_REL_K5):
     """K5a and K5b on the card each run twice (bit-equal) and against their
-    plain twins; K5b's posteriors finite and 0 outside each graph's plan.
-    Returns {"K5a": err, "K5b": err}."""
+    plain twins: within TOL_K5 (absolute) and ``rel_tol`` (relative to the
+    float64 twins; None: printed only, where a frame's gamma sum is
+    subnormal and so carries fewer bits than 1e-12 needs); K5b's
+    posteriors finite and 0 outside each graph's plan.  Returns {"K5a":
+    err, "K5b": err} (absolute) and prints the relative errors beside
+    them."""
     import torch
 
     from markovmodels_tpu_torch.ops import banded_scan as bsc
@@ -1326,17 +1376,30 @@ def held_to_twins(kop, ext, msh, label):
     assert (pk[:, ~plan_mask(kop)] == 0).all(), "K5b: outside the plan"
     del again, pk2
     fp = bsc.fwd_sweep_plain(kop, ext, msh)
-    errs = {"K5a": max(float((a - b).abs().max())
-                       for a, b in zip(fk, fp) if a is not None)}
-    del fp
+    pairs = [(a, b) for a, b in zip(fk, fp) if a is not None]
+    errs = {"K5a": max(float((a - b).abs().max()) for a, b in pairs)}
+    rel = {"K5a": max(rel_err(a, b) for a, b in pairs)}
+    del fp, pairs
+    p64 = bsc.backward_plain(kop, ext, fk[0], dtype=torch.float64)
     errs["K5b"] = float((pk - bsc.backward_plain(kop, ext, fk[0])).abs()
                         .max())
-    del fk, pk
+    f32 = pk.dtype != torch.float64
+    if f32:  # the float64 value within the tolerance, then its rounding
+        past = ((pk.double() - p64).abs() - p64.abs() * 2.0 ** -24).max()
+        m = float(p64.abs().max())  # 0 where no lattice reaches its end
+        rel["K5b"] = max(float(past), 0.0) / (m if m > 0 else 1.0)
+    else:
+        rel["K5b"] = rel_err(pk, p64)
+    del fk, pk, p64
     torch.cuda.empty_cache()
     print(f"{label}: K5a and K5b run twice, bit-equal; kernel vs plain max "
           f"|err| K5a {errs['K5a']:.3e}, K5b {errs['K5b']:.3e} "
-          f"(tol {TOL_K5:g})")
+          f"(tol {TOL_K5:g}); relative to the float64 twins K5a "
+          f"{rel['K5a']:.3e}, K5b {rel['K5b']:.3e}"
+          + (" past float32's rounding" if f32 else "")
+          + (f" (tol {rel_tol:g})" if rel_tol else " (not gated)"))
     assert all(np.isfinite(e) and e <= TOL_K5 for e in errs.values()), errs
+    assert rel_tol is None or all(e <= rel_tol for e in rel.values()), rel
     return errs
 
 
@@ -1374,7 +1437,8 @@ def phase_big_numerators(cf, P, dev, t_step, lengths=(1200, 1180, 1150, 1199),
     print(f"{label}: 4 skip-arc numerators, Sp = {Sp}, offsets "
           f"{num.banded_offsets}; path: {report}")
     assert report.startswith("cuda-banded-scan") and Sp > 1024, report
-    smem = check_modes(Sp, nO, 1, (instantiation,) * 2)
+    smem = check_modes(bsc.kernel_operator(num), (instantiation,) * 2,
+                       label=label)
     rng = np.random.default_rng(8)
     lhs = rng.normal(size=(4, N, P)).astype(np.float32)
     lens = np.array(lens, dtype=np.int32)
@@ -1414,9 +1478,10 @@ def phase_big_numerators(cf, P, dev, t_step, lengths=(1200, 1180, 1150, 1199),
                                        P)).to(dev)
     lens = torch.from_numpy(np.tile(lens, 32)).to(dev)
     kop = bsc.kernel_operator(big)
+    check_modes(kop, (instantiation,) * 2, label=f"{label}: G=128")
     ext, msh = prepare_emissions(lhs, lens, P)
     errs = held_to_twins(kop, ext, msh, f"{label}: G=128 N={N} "
-                                        f"({instantiation})")
+                                        f"({bsc.instantiations(big)})")
 
     def step():
         x = lhs.clone().requires_grad_()
@@ -1455,9 +1520,10 @@ def phase_big_numerators(cf, P, dev, t_step, lengths=(1200, 1180, 1150, 1199),
 def phase_longest_numerators(P, dev, N=128, label="phase 8b"):
     """Phase 8b, last: a G=128 stack at Sp = 24,576 with three offsets,
     the JAX package's own fused bound at G = 128 ((3 + 5) Sp G 4 B =
-    96 MiB), which K5's global instantiation takes: a ~24,575-state
+    96 MiB), which K5's cluster instantiation takes: a ~24,575-state
     skip-arc lattice beside three of 150-200 states (which reach their end
-    in N = 128 frames), 32 of each.  ``pdfposteriors`` through the
+    in N = 128 frames; the long one cannot, so its alphas are 0 past the
+    first few hundred states), 32 of each.  ``pdfposteriors`` through the
     kernels (the counts set to 0 before it, one launch each after it),
     K5a and K5b each run twice (bit-equal) and held to their twins, and
     timed.  Returns (launches, errs, times, bounds)."""
@@ -1475,7 +1541,8 @@ def phase_longest_numerators(P, dev, N=128, label="phase 8b"):
     Sp, nO = big.padded_states, len(big.banded_offsets)
     assert Sp == 24576 and nO == 3, (Sp, nO)
     assert (nO + 5) * Sp * 128 * 4 <= 96 * 1024 * 1024  # JAX's VMEM rule
-    check_modes(Sp, nO, 1, (bsc.GLOBAL,) * 2)
+    check_modes(bsc.kernel_operator(big), (bsc.CLUSTER,) * 2, (4, 8),
+                label=label)
     lhs = torch.from_numpy(make_inputs(np.random.default_rng(10), 128, N,
                                        P, cliffs=True)).to(dev)
     lens = torch.from_numpy(np.tile(np.array([N, N - 8, N - 16, N],
@@ -1502,9 +1569,175 @@ def phase_longest_numerators(P, dev, N=128, label="phase 8b"):
     kop = bsc.kernel_operator(big)
     ext, msh = prepare_emissions(lhs, lens, P)
     errs = held_to_twins(kop, ext, msh, f"{label}: G=128 N={N}, Sp = {Sp} "
-                                        "(global)")
-    times = time_banded(big, P, dev, (ext, msh), f"global, Sp = {Sp}, N = {N}")
+                                        f"({bsc.instantiations(big)})")
+    times = time_banded(big, P, dev, (ext, msh),
+                        f"cluster, Sp = {Sp}, N = {N}")
     return launches, errs, times, banded_bounds(big, N + 1)
+
+
+def phase_numerator_stack(P, dev, lengths, N, lens, want, G=128, seed=5,
+                          label="phase 8b"):
+    """Phase 8b: a stack of G skip-arc lattices (``lengths`` tiled) at N
+    frames, lengths ``lens``: the instantiations ``want`` it takes (the
+    admission's and the library's), ``pdfposteriors`` through the kernels
+    (the counts set to 0 before it, one launch each after it), K5a and K5b
+    each run twice (bit-equal) and held to their twins, and timed.
+    Returns (launches, errs, times, bounds)."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    t0 = time.perf_counter()
+    graphs = skip_numerators(P, lengths, seed=seed)
+    compiled = [mt.compile_fsm(f, sp, P, strategy="banded", device=dev)
+                for f, sp in graphs]
+    big = mt.stack(compiled * (G // len(lengths)))
+    kop = bsc.kernel_operator(big)
+    check_modes(kop, want, label=label)
+    lhs = torch.from_numpy(make_inputs(np.random.default_rng(seed), G, N,
+                                       P, cliffs=True)).to(dev)
+    lens = torch.from_numpy(np.tile(np.array(lens, dtype=np.int32),
+                                    G // len(lengths))).to(dev)
+    bsc.reset_launch_counts()
+    posts, z = mt.pdfposteriors(big, lhs, lens)
+    torch.cuda.synchronize()
+    launches = dict(bsc.LAUNCHES)
+    assert launches == {"banded_fwd": 1, "banded_bwd": 1}, launches
+    assert torch.isfinite(posts).all(), "non-finite posteriors"
+    print(f"{label}: G={G} N={N}, Sp = {kop.Sp} (compiled and stacked in "
+          f"{time.perf_counter() - t0:.1f} s), path: "
+          f"{mt.fast_path_report(big, G)}; launches {json.dumps(launches)}")
+    del posts, z
+    ext, msh = prepare_emissions(lhs, lens, P)
+    errs = held_to_twins(kop, ext, msh, f"{label}: G={G} N={N}, Sp = "
+                                        f"{kop.Sp} ({bsc.instantiations(big)})")
+    times = time_banded(big, P, dev, (ext, msh),
+                        f"{bsc.instantiations(big)}, N = {N}")
+    for name, (t, _) in times.items():
+        print(f"{label}: {name} at Sp = {kop.Sp}: {1e3 * t / (N + 1):.2f} us "
+              "a frame")
+    return launches, errs, times, banded_bounds(big, N + 1)
+
+
+def rank_masses(kop, C, x):
+    """(C, G) float64: the mass of ``x`` (Nf, Sp, G), summed over frames, in
+    each cluster CTA's range of states (``banded_scan._range_len``)."""
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+
+    L = bsc._range_len(kop.Sp, C)
+    return np.array([x[:, r * L:(r + 1) * L].double().sum(dim=(0, 1))
+                     .cpu().numpy() for r in range(C)])
+
+
+def phase_cluster_ranks(P, dev, dtype, G=8, N=6000,
+                        lengths=(6500, 6450, 6400, 6490),
+                        lens=(6000, 5980, 5950, 6000), label="phase 8b"):
+    """Phase 8b: a stack long enough that K5a and K5b both run on clusters
+    of more than one CTA (Sp = 6,504: 2 and 3 CTAs a graph, in float32
+    and in float64), and feasible (every lattice reaches its end: a path
+    crosses at most two states a frame, but at N = 5,600 the final
+    state's mass already falls past float64's range and every lattice is
+    lost), so that the alphas and the gammas carry mass in every CTA's
+    range of every graph (asserted) and every frame's edge states, keys,
+    omega dots and pdf partials cross the CTAs.  ``pdfposteriors``
+    through the kernels (the counts set to 0 before it, one launch each
+    after it), logZ finite; K5a and K5b twice (bit-equal) and held to
+    their twins (``held_to_twins``: the relative gate); timed.  Returns
+    (launches, errs, times, bounds)."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    t0 = time.perf_counter()
+    name = "float64" if dtype == torch.float64 else "float32"
+    graphs = skip_numerators(P, lengths, seed=13)
+    big = mt.stack([mt.compile_fsm(f, sp, P, strategy="banded", dtype=dtype,
+                                   device=dev) for f, sp in graphs]
+                   * (G // len(lengths)))
+    kop = bsc.kernel_operator(big)
+    check_modes(kop, (bsc.CLUSTER,) * 2, (2, 3), label=label)
+    lhs = torch.from_numpy(make_inputs(np.random.default_rng(13), G, N,
+                                       P)).to(dev, dtype)
+    lens_t = torch.from_numpy(np.tile(np.array(lens, dtype=np.int32),
+                                      G // len(lengths))).to(dev)
+    counts = bsc._counts(dtype)
+    bsc.reset_launch_counts()
+    posts, z = mt.pdfposteriors(big, lhs, lens_t)
+    torch.cuda.synchronize()
+    launches = dict(counts)
+    assert launches == {"banded_fwd": 1, "banded_bwd": 1}, launches
+    assert counts is bsc.LAUNCHES or not any(bsc.LAUNCHES.values())
+    assert torch.isfinite(z).all(), "a lattice does not reach its end"
+    mass = posts.double().sum(dim=2)
+    want = (torch.arange(N, device=dev)[None, :] < lens_t[:, None]).double()
+    merr = float((mass - want).abs().max())
+    assert merr <= TOL_POST_SUM, merr
+    del posts, z, mass
+    ext, msh = prepare_emissions(lhs, lens_t, P, dtype)
+    alphas = bsc.fwd_sweep(kop, ext, msh)[0]
+    ca, cb = bsc._kernel_clusters(kop)
+    am = rank_masses(kop, ca, alphas)
+    gsum = torch.zeros((kop.Sp, G), dtype=torch.float64, device=dev)
+    for _, g in bsc.gammas_plain(kop, ext, alphas):
+        gsum += g
+    gm = rank_masses(kop, cb, gsum[None])
+    del alphas, gsum
+    print(f"{label}: {name} G={G} N={N}, Sp = {kop.Sp} (compiled and "
+          f"stacked in {time.perf_counter() - t0:.1f} s), path: "
+          f"{mt.fast_path_report(big, G)}; launches {json.dumps(launches)}; "
+          f"posterior mass per active frame vs 1 max |err| {merr:.3e} (tol "
+          f"{TOL_POST_SUM:g}); least alpha mass in a K5a CTA's range "
+          f"{am.min():.3e} (of {ca} a graph), least gamma mass in a K5b "
+          f"CTA's range {gm.min():.3e} (of {cb})")
+    assert (am > 0).all() and (gm > 0).all(), (am, gm)
+    errs = held_to_twins(kop, ext, msh, f"{label}: {name} G={G} N={N}, "
+                                        f"Sp = {kop.Sp} "
+                                        f"({bsc.instantiations(big)})")
+    times = time_banded(big, P, dev, (ext, msh),
+                        f"{bsc.instantiations(big)}, G={G}, N = {N}")
+    return launches, errs, times, banded_bounds(big, N + 1)
+
+
+def phase_narrow_subnormal(P, dev, Lp=780, N=394, label="phase 8c"):
+    """Phase 8c: a barely feasible narrow lattice: 4 skip-arc lattices of
+    ``Lp`` states (Sp = 784, three offsets: K5b's narrow instantiation)
+    at N frames, about their shortest path (a path crosses at most two
+    states a frame), where a frame's gamma sum falls below float64's
+    normal range (its reciprocal overflows).  K5a and K5b each run twice
+    (bit-equal) and against their twins, which divide by the sum; K5b's
+    posteriors finite.  Prints the frames whose gamma sum is subnormal."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    graphs = skip_numerators(P, (Lp,) * 4, seed=21)
+    num = mt.stack([mt.compile_fsm(f, sp, P, strategy="banded", device=dev)
+                    for f, sp in graphs])
+    kop = bsc.kernel_operator(num)
+    check_modes(kop, (bsc.NARROW,) * 2, label=label)
+    rng = np.random.default_rng(0)
+    lhs = torch.from_numpy(rng.normal(size=(4, N, P)).astype(
+        np.float32)).to(dev)
+    lens = torch.full((4,), N, dtype=torch.int32, device=dev)
+    ext, msh = prepare_emissions(lhs, lens, P)
+    errs = held_to_twins(kop, ext, msh, f"{label}: Sp = {kop.Sp} N={N}",
+                         rel_tol=None)
+    alphas = bsc.fwd_sweep_plain(kop, ext, msh)[0]
+    tots = torch.stack([g.sum(dim=0) for _, g in
+                        bsc.gammas_plain(kop, ext, alphas)])
+    sub = (tots > 0) & (tots < 2.0 ** -1022)
+    print(f"{label}: {int(sub.sum())} of {tots.numel()} (frame, graph) "
+          f"gamma sums subnormal (least {float(tots[tots > 0].min()):.3e}), "
+          f"{int((tots == 0).sum())} zero: the narrow K5b divides there, "
+          "its posteriors finite and held to the twin")
+    assert sub.any(), "no subnormal gamma sum: the repair is not exercised"
+    return errs
 
 
 def launch_counts(mods, bf16=False):
@@ -3399,10 +3632,11 @@ def phase_k5_f64(num64, P, dev, label="phase 41"):
     ``pdfposteriors`` against the f64 oracle; then a G=128 stack of them
     (phase 8b's shape, float64): ``pdfposteriors`` through the kernels
     (the counts set to 0 before it, one float64 launch each after it),
-    K5a and K5b twice (bit-equal) and against their twins, and timed; and
-    the main-path numerators timed.  Returns (errs, times) of the
-    main-path numerators and (launches, errs, times, bounds) of the G=128
-    stack."""
+    K5a and K5b twice (bit-equal) and against their twins, and timed; the
+    main-path numerators timed; and the cluster instantiation in float64
+    (``phase_cluster_f64``).  Returns (errs, times) of the
+    main-path numerators, (launches, errs, times, bounds) of the G=128
+    stack and of ``phase_cluster_f64``'s."""
     import torch
 
     import markovmodels_tpu_torch as mt
@@ -3422,7 +3656,7 @@ def phase_k5_f64(num64, P, dev, label="phase 41"):
                                device=dev) for f, sp in graphs]
     big = mt.stack(compiled)
     Sp, nO = big.padded_states, len(big.banded_offsets)
-    check_modes(Sp, nO, 2, (bsc.WIDE,) * 2)
+    check_modes(bsc.kernel_operator(big), (bsc.WIDE,) * 2, label=label)
     N = 700
     rng = np.random.default_rng(8)
     lhs = torch.from_numpy(make_inputs(rng, 4, N, P, cliffs=True)).to(dev,
@@ -3466,8 +3700,66 @@ def phase_k5_f64(num64, P, dev, label="phase 41"):
                                         f"Sp = {Sp} (wide)")
     wtimes = time_banded(wide, P, dev, (ext, msh), f"wide, float64, Sp = {Sp}")
     times = time_banded(num64, P, dev, tag="float64")
+    wbounds = banded_bounds(wide, N + 1)
+    del ext, msh, kop, wide
+    c64 = phase_cluster_f64(P, dev, label)
     return ({k: max(v, werrs[k]) for k, v in errs.items()}, times,
-            (wl, w128, wtimes, banded_bounds(wide, N + 1)))
+            (wl, w128, wtimes, wbounds), c64)
+
+
+def phase_cluster_f64(P, dev, label="phase 41", G=8, N=2400):
+    """Phase 41, last: K5a/K5b's float64 cluster instantiation (K5a one CTA
+    a graph, K5b a cluster of 2: its pdf partials added across the CTAs)
+    on a G=8 float64 stack of ~3,000-state skip-arc lattices at N=2,400:
+    ``pdfposteriors`` through the kernels (the counts set to 0 before it,
+    one float64 launch each after it), against the f64 oracle on the
+    first 4 lattices, K5a and K5b twice (bit-equal) and against their
+    twins, and timed.  Returns (launches, errs, times, bounds)."""
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import banded_scan as bsc
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    f64 = torch.float64
+    graphs = skip_numerators(P, (3000, 2950, 2900, 2990), seed=7)
+    compiled = [mt.compile_fsm(f, sp, P, strategy="banded", dtype=f64,
+                               device=dev) for f, sp in graphs]
+    big = mt.stack(compiled * (G // 4))
+    kop = bsc.kernel_operator(big)
+    check_modes(kop, (bsc.CLUSTER,) * 2, (1, 2), label=label)
+    lhs = torch.from_numpy(make_inputs(np.random.default_rng(0), G, N,
+                                       P)).to(dev, f64)
+    lens = torch.from_numpy(np.tile(np.array([N, N - 20, N - 50, N],
+                                             dtype=np.int32),
+                                    G // 4)).to(dev)
+    bsc.reset_launch_counts()
+    posts, z = mt.pdfposteriors(big, lhs, lens)
+    torch.cuda.synchronize()
+    launches = dict(bsc.LAUNCHES_F64)
+    assert not any(bsc.LAUNCHES.values()), "a float32 K5 ran for float64"
+    assert launches == {"banded_fwd": 1, "banded_bwd": 1}, launches
+    z, posts, x = (t.cpu().numpy() for t in (z, posts, lhs))
+    err = perr = 0.0
+    for g, (fsm, spdf) in enumerate(graphs):
+        rz, rp = mt.oracle.host_oracle(fsm, spdf, P, x[g:g + 1],
+                                       lens[g:g + 1].cpu().numpy())
+        assert np.isfinite(rz[0]) and np.isfinite(z[g]), "infeasible"
+        err = max(err, float(np.abs(z[g] - rz[0])))
+        perr = max(perr, float(np.abs(posts[g] - rp[0]).max()))
+    print(f"{label}: float64 pdfposteriors G={G} N={N}, Sp = {kop.Sp} "
+          f"({bsc.instantiations(big)}) vs f64 oracle |dlogZ| = "
+          f"{err:.3e}, |dposts| = {perr:.3e} (tol {TOL_ORACLE:g}); "
+          f"launches {json.dumps(launches)}")
+    assert err <= TOL_ORACLE and perr <= TOL_ORACLE, "oracle gate failed"
+    del posts, z
+    ext, msh = prepare_emissions(lhs, lens, P, f64)
+    errs = held_to_twins(kop, ext, msh, f"{label}: float64 G={G} N={N}, "
+                                        f"Sp = {kop.Sp} (cluster)")
+    assert all(e <= TOL_F64 for e in errs.values()), errs
+    times = time_banded(big, P, dev, (ext, msh),
+                        f"cluster, float64, Sp = {kop.Sp}, G={G}, N = {N}")
+    return launches, errs, times, banded_bounds(big, N + 1)
 
 
 def set_oracle(fsm, sets, P, lhs, lengths):
@@ -4099,31 +4391,43 @@ def nvcc_version():
     return out.stdout.strip().splitlines()[-1]
 
 
-# K5a/K5b's wide and global instantiations (banded_scan.cu), redesigned
-# for Hopper: the entries phase 55 does not hold to the parent's table
-K5_WIDE_ENTRIES = ("banded_fwd_wide_kernel<", "banded_bwd_wide_kernel<",
-                   "banded_fwd_global_kernel<", "banded_bwd_global_kernel<")
+# K5a/K5b's cluster instantiations (banded_scan.cu), new in this tree, and
+# the narrow K5b, whose pdf sums divide where a frame's gamma sum is
+# subnormal: the entries phase 55 does not hold to the parent's table
+K5_CLUSTER_ENTRIES = ("banded_fwd_cluster_kernel<",
+                      "banded_bwd_cluster_kernel<")
+K5B_NARROW_ENTRIES = ("banded_bwd_kernel<",)
 
 
 def phase_ptxas(log, label="phase 55"):
-    """Phase 55: the library's ``ptxas`` report.  K5a's and K5b's wide and
-    global instantiations (``K5_WIDE_ENTRIES``: float and double, the wide
-    ones at 4 and 5 states per thread) spill 0 bytes and keep no stack;
-    every other entry equals the table ``tools/ptxas_ref.py`` made of the
-    parent commit (``tools/ptxas_ref.json``), compared where the nvcc that
-    built the table built this library too."""
+    """Phase 55: the library's ``ptxas`` report.  K5a's and K5b's cluster
+    instantiations (``K5_CLUSTER_ENTRIES``, float and double) spill 0
+    bytes and keep no stack; the narrow K5b's entries are listed beside
+    the table's; every other entry equals the table ``tools/ptxas_ref.py``
+    made of the parent commit (``tools/ptxas_ref.json``), compared where
+    the nvcc that built the table built this library too."""
     tab = ptxas_table(log)
     assert tab, "no ptxas report (the library was not built by this run)"
-    k5 = {k: v for k, v in tab.items() if k.startswith(K5_WIDE_ENTRIES)}
-    print(f"{label}: ptxas of K5a/K5b's wide and global instantiations: "
+    k5 = {k: v for k, v in tab.items() if k.startswith(K5_CLUSTER_ENTRIES)}
+    print(f"{label}: ptxas of K5a/K5b's cluster instantiations: "
           + "; ".join(f"{k}: {v}" for k, v in sorted(k5.items())))
-    assert len(k5) == 12 and all(
+    assert len(k5) == 4 and all(
         v["spill_stores"] + v["spill_loads"] + v["stack"] == 0
-        for v in k5.values()), f"K5 wide/global spill: {k5}"
+        for v in k5.values()), f"K5 cluster spill: {k5}"
     ref = json.loads(PTXAS_REF.read_text())
+    skip = K5_CLUSTER_ENTRIES + K5B_NARROW_ENTRIES
+    narrow = {k: v for k, v in tab.items() if k.startswith(
+        K5B_NARROW_ENTRIES)}
+    print(f"{label}: the narrow K5b's entries (the subnormal rule), this "
+          "build / the table: " + "; ".join(
+              f"{k}: {v['registers']} / "
+              f"{ref['entries'].get(k, {}).get('registers')} registers, "
+              f"{v['spill_stores']} / "
+              f"{ref['entries'].get(k, {}).get('spill_stores')} spill bytes"
+              for k, v in sorted(narrow.items())))
     want = {k: v for k, v in ref["entries"].items()
-            if not k.startswith(K5_WIDE_ENTRIES)}
-    others = {k: v for k, v in tab.items() if k not in k5}
+            if not k.startswith(skip)}
+    others = {k: v for k, v in tab.items() if not k.startswith(skip)}
     nvcc = nvcc_version()
     if ref["nvcc"] != nvcc:
         print(f"{label}: the other {len(others)} entries not compared: "
@@ -4915,10 +5219,25 @@ def main():
                                          "phase 9")
     t_big, w_launches, w_errs, w_times, w_bounds = phase_big_numerators(
         cf, P, dev, t_step)
+    g14 = phase_numerator_stack(P, dev, (1350, 1340, 1300, 1349), 700,
+                                (700, 690, 680, 700), (bsc.CLUSTER,) * 2)
+    print("phase 8b: a frame just past the wide instantiation: K5a "
+          f"{1e3 * g14[2]['K5a'][0] / 701:.2f} us (Sp = 1,352, cluster) "
+          f"beside {1e3 * w_times['K5a'][0] / 701:.2f} (Sp = 1,208, wide), "
+          f"K5b {1e3 * g14[2]['K5b'][0] / 701:.2f} beside "
+          f"{1e3 * w_times['K5b'][0] / 701:.2f}; {card}")
     t_big3, *g3 = phase_big_numerators(
         cf, P, dev, t_step, lengths=(3000, 2950, 2900, 2990), N=2400,
-        lens=(2400, 2380, 2350, 2400), instantiation="global")
+        lens=(2400, 2380, 2350, 2400), instantiation="cluster")
     g24 = phase_longest_numerators(P, dev)
+    for dt in (torch.float32, torch.float64):
+        e8r = phase_cluster_ranks(P, dev, dt)[1]
+        errs.update({k: max(errs[k], v) for k, v in e8r.items()})
+    gpast = phase_numerator_stack(P, dev, (52000, 120, 100, 80), 64,
+                                  (64, 60, 50, 64), (bsc.GLOBAL,) * 2, G=4,
+                                  seed=11)
+    e8c = phase_narrow_subnormal(P, dev)
+    errs.update({k: max(errs[k], v) for k, v in e8c.items()})
     profile_step(num_cf, cf, P, dev, "phase 9")
     profile_block_den(cf, P, dev, "phase 9")
     times, terrs = time_kernels(cf, P, dev)
@@ -5220,7 +5539,7 @@ def main():
               f"{ov_times[name][0]:.3f} ms), bound {sf_bounds[name][0]:.3f} "
               f"ms")
 
-    k5_errs, k5_times, k5w64 = phase_k5_f64(num64, P, dev)
+    k5_errs, k5_times, k5w64, k5c64 = phase_k5_f64(num64, P, dev)
     k5_bounds = banded_bounds(num64, 701)
     for name in ("K5a", "K5b"):
         print(f"timing: {name} float64 {k5_times[name][0]:.3f} ms (float32 "
@@ -5393,10 +5712,14 @@ def main():
     for tag, (l_, e_, t_, b_) in (  # the wide and global instantiations
             ("wide, ~1,200-state skip-arc numerators, N=700",
              (w_launches, w_errs, w_times, w_bounds)),
-            ("global, ~3,000-state skip-arc numerators, N=2,400", g3),
-            ("global, Sp = 24,576, N=128", g24),
+            ("cluster, ~1,350-state skip-arc numerators, N=700", g14),
+            ("cluster, ~3,000-state skip-arc numerators, N=2,400", g3),
+            ("cluster, Sp = 24,576, N=128", g24),
+            ("global, Sp = 52,008, G=4, N=64", gpast),
             ("wide, float64, ~1,200-state skip-arc numerators, N=700",
-             k5w64)):
+             k5w64),
+            ("cluster, float64, ~3,000-state skip-arc numerators, G=8, "
+             "N=2,400", k5c64)):
         kernels += [
             {"name": f"{name} {counter} ({tag})", "route": "cuda",
              "source": source, "replaces": replaces, "launches": l_[counter],
@@ -5559,7 +5882,7 @@ def main():
           f"{t_kern:.2f} ms, plain path {t_plain:.2f} ms; LF-MMI step "
           f"{t_step:.2f} ms, den-only {t_den:.2f} ms; with the ~1,200-state "
           f"numerators (K5 wide) {t_big:.2f} ms, with the ~3,000-state ones "
-          f"at N=2,400 (K5 global) {t_big3:.2f} ms; dense-den LF-MMI "
+          f"at N=2,400 (K5 cluster) {t_big3:.2f} ms; dense-den LF-MMI "
           f"step "
           f"{t_dstep:.2f} ms, dense den-only {t_dden:.2f} ms; viterbi "
           f"B=128 N=700 {t_dec:.2f} ms; dense viterbi B=128 N=700 "

@@ -39,8 +39,10 @@ _SIGNATURES = {
     "mm_block_ctas": [_I] * 4,
     "mm_banded_fwd": [_P] * 14 + [_I, _P],
     "mm_banded_bwd": [_P] * 10 + [_I, _P],
-    "mm_banded_smem": [_I] * 4,
-    "mm_banded_mode": [_I] * 4,
+    "mm_banded_smem": [_P, _I, _I],
+    "mm_banded_mode": [_P, _I, _I],
+    "mm_banded_cluster": [_P, _I, _I],
+    "mm_banded_resident": [_P] + [_I] * 3,
     "mm_dense_fwd": [_P] * 6 + [_I] * 2 + [_P] * 4 + [_I] * 6 + [_P] * 9,
     "mm_dense_bwd": [_P] * 6 + [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P] * 8,
     "mm_dense_trop": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 7 + [_P] * 8,

@@ -22,15 +22,20 @@ state:
   of the frame's gamma sum, and writes only those; the rest of the output
   is zeroed once per call.
 
-Each kernel has three instantiations (``_modes``, named by
+Each kernel has four instantiations (``_modes``, named by
 ``instantiations`` in ``fast_path_report``): the narrow one (one warp runs
 a graph's chain, up to 1,024 states in registers) where its rings fit a
 CTA's shared memory; the wide one (the chain on eight warps, five states a
 thread in registers and the state exchanged through shared memory, up to
-1,280 states), which writes the alphas graph-major, (Nf, G, Sp) in memory,
-returned as their (Nf, Sp, G) view; and the global one (the same frames on
-the same threads, the state in global memory), which takes any lattice
-whose streams fit the card's memory.  No stack is refused for its length.
+1,280 states); the cluster one (a graph's state and constants in shared
+memory, cut into contiguous ranges over a thread block cluster of C <= 8
+CTAs where one CTA cannot hold them, the edge states and each frame's
+reductions exchanged through distributed shared memory; C by
+``_cluster_size``); and the global one (the wide kernel's frames on its
+threads, the state in global memory), which takes any lattice whose
+streams fit the card's memory.  All but the narrow one write the alphas
+graph-major, (Nf, G, Sp) in memory, returned as their (Nf, Sp, G) view.
+No stack is refused for its length.
 
 One repair against the Pallas kernels: the state (alpha, beta, and so
 gamma) and the logZ pieces are float64, while the inputs and the
@@ -108,8 +113,15 @@ _WPOST = 6  # the wide K5b's posterior warps (WPOST)
 _WRING = 8  # frames of gamma between its warps (WRING)
 _LONG = 32  # a plan entry of more states is summed by a warp (LONG)
 _SMEM_BYTES = 232448  # dynamic shared memory one CTA may use on Hopper
-# the instantiations a launch takes (Mode in the .cu), by name
-NARROW, WIDE, GLOBAL = "narrow", "wide", "global"
+_CMAX = 8  # CTAs of the cluster instantiation's cluster (CMAX)
+_HMAX = 16  # halo states each side of a cluster CTA's range (HMAX)
+_CPOST = 2  # the cluster K5b's posterior warps (CPOST)
+_CRING = 4  # its frames of alphas (then gamma) in flight (CRING)
+_PRING = 4  # its frames of pdf partials between CTAs (PRING)
+# the instantiations a launch takes (Mode in the .cu), by name, in the
+# order of its values
+NARROW, WIDE, GLOBAL, CLUSTER = "narrow", "wide", "global", "cluster"
+MODES = (NARROW, WIDE, GLOBAL, CLUSTER)
 
 
 def reset_launch_counts():
@@ -125,11 +137,80 @@ def _counts(dtype):
 # admission
 # ---------------------------------------------------------------------------
 
-def _mode_words(Sp: int, nO: int, mode: str, tw: int = 1) -> tuple:
+def _range_len(Sp: int, C: int) -> int:
+    """States of each cluster CTA's range but the last (``range_len``):
+    ceil(Sp / C) rounded up to even (whole 16-byte units of alphas)."""
+    L = -(-Sp // C)
+    return L + (L & 1)
+
+
+def _cluster_bytes(Sp: int, nO: int, C: int, tw: int = 1, P1=None,
+                   bwd: bool = False) -> int:
+    """Shared-memory bytes of one cluster CTA (``ClusterSmem`` in the .cu),
+    the graph cut into C ranges of L states with E = min(L, P1) + 1 local
+    entries (P1 None: a pdf per state at most).  K5a: the state Y[2][L +
+    2 HMAX], the warps' partial dots SP[2][WW], the CTAs' exchanged dots
+    and fin values XD, XF[2][CMAX], the helper's scale and final value
+    rings SC, VF[D] (float64); the mbarriers FULL, DONE[D], YFREE[2],
+    XB[2]; the weights W[nO][L], omega OM[L], the emission ring ER[D][E]
+    and shift ring MR[D] (the inputs' type); the local plan's pdfs EP[E],
+    ranges LSEG[E + 1] and first positions LCA[E], 4 + 32 words of counts
+    and scan, the keys SK[2][WW] and XK[2][CMAX] (int); each state's entry
+    EI[L] (16 bits).  K5b: the alpha/gamma ring RG[CRING][L], Y, SP, XD,
+    XF and the ring's gamma sums TT[CRING] (float64); FULL, DONE[D],
+    AFULL, GFULL[CRING], XB[2], PFULL, PEMPTY[PRING]; W, OM, ER; EP, the
+    entries in the graph's plan LGE[E], LSEG, LCA, counts, scan, SK, XK;
+    EI and the local order LST[L] (16 bits)."""
+    L = _range_len(Sp, C)
+    E = min(L, Sp if P1 is None else P1) + 1
+    YS, D, ww = L + 2 * _HMAX, _WDEPTH, _WT // 32
+    if bwd:
+        dbl = _CRING * L + 2 * YS + 2 * ww + 4 * _CMAX + _CRING
+        bars = 2 * D + 2 * _CRING + 2 + 2 * _PRING
+        vals = (nO + 1) * L + D * E
+        ints = 4 * E + 1 + 4 + 32 + 2 * ww + 2 * _CMAX
+        shorts = 2 * L
+    else:
+        dbl = 2 * YS + 2 * ww + 4 * _CMAX + 2 * D
+        bars = 2 * D + 4
+        vals = (nO + 1) * L + D * E + D
+        ints = 3 * E + 1 + 4 + 32 + 2 * ww + 2 * _CMAX
+        shorts = L
+    return 8 * (dbl + bars) + 4 * tw * vals + 4 * ints + 2 * shorts
+
+
+def _cluster_fits(Sp: int, nO: int, C: int, tw: int = 1, P1=None,
+                  bwd: bool = False, span=None) -> bool:
+    """Whether C CTAs a graph take the lattice (``cluster_fits``): C
+    ranges, none empty, at most 32 states a chain thread, Sp even, the
+    largest |offset| ``span`` (None: nO - 1, a numerator's offsets 0 ..
+    nO - 1) within the halos and, past one CTA, within every range, and
+    the shared memory within a CTA's."""
+    span = max(nO - 1, 0) if span is None else span
+    if not 1 <= C <= _CMAX or Sp % 2:
+        return False
+    L = _range_len(Sp, C)
+    last = Sp - (C - 1) * L
+    return (last > 0 and L <= 32 * _WT and span <= _HMAX
+            and (C == 1 or span <= last)
+            and _cluster_bytes(Sp, nO, C, tw, P1, bwd) <= _SMEM_BYTES)
+
+
+def _cluster_size(Sp: int, nO: int, tw: int = 1, P1=None, span=None,
+                  bwd: bool = False) -> int:
+    """The cluster's CTAs a graph (``cluster_size``): the smallest C that
+    fits, 0 where none does."""
+    return next((C for C in range(1, _CMAX + 1)
+                 if _cluster_fits(Sp, nO, C, tw, P1, bwd, span)), 0)
+
+
+def _mode_words(Sp: int, nO: int, mode: str, tw: int = 1, C: int = 1,
+                P1=None) -> tuple:
     """Shared-memory words (4 bytes) of one CTA of K5a and of K5b, one graph
-    each, in instantiation ``mode``, with inputs of ``tw`` words (1
-    float32, 2 float64; csrc/banded_scan.cu, ``fwd_smem_words``,
-    ``bwd_smem_words``).  Narrow K5a: the float64 state double buffer,
+    each (a range of one at C CTAs a graph in the cluster instantiation),
+    in instantiation ``mode``, with inputs of ``tw`` words (1 float32, 2
+    float64; csrc/banded_scan.cu, ``fwd_smem_words``, ``bwd_smem_words``,
+    ``cluster_words``).  Narrow K5a: the float64 state double buffer,
     bands (one zero band when nO = 0), omega and alpha ring, two mbarriers
     per ring slot, then the emission and shift rings (the inputs' type).
     Narrow K5b: the state double buffer, the bands, omega, the beta ring,
@@ -145,9 +226,13 @@ def _mode_words(Sp: int, nO: int, mode: str, tw: int = 1) -> tuple:
     sums (float64), two mbarriers per emission slot and per gamma slot,
     the emission ring, the distinct pdfs, each state's entry, the entries'
     ranges of the plan's order, each state's position in it and the warps'
-    keys.  The global instantiation takes none (a few static words)."""
+    keys.  Cluster: ``_cluster_bytes``.  The global instantiation takes
+    none (a few static words)."""
     if mode == GLOBAL:
         return 0, 0
+    if mode == CLUSTER:
+        return tuple(-(-_cluster_bytes(Sp, nO, C, tw, P1, bwd) // 4)
+                     for bwd in (False, True))
     ww = _WT // 32
     if mode == WIDE:
         nx, D, R = max(nO - _WREG, 0), _WDEPTH, _WRING
@@ -163,13 +248,16 @@ def _mode_words(Sp: int, nO: int, mode: str, tw: int = 1) -> tuple:
     return fwd, bwd
 
 
-def _modes(Sp: int, nO: int, tw: int = 1) -> tuple:
+def _modes(Sp: int, nO: int, tw: int = 1, P1=None, span=None) -> tuple:
     """The instantiations K5a and K5b take (``fwd_mode``, ``bwd_mode`` in
     the .cu): the narrow one where its states fit in registers (1,024) and
     its shared memory in a CTA's; else the wide one where its states fit
-    (5 per thread of 256: 1,280) and its shared memory; else the global
-    one, whose state lives in global memory and which takes any lattice
-    the card's memory holds."""
+    (5 per thread of 256: 1,280) and its shared memory; else the cluster
+    one where a cluster of at most 8 CTAs holds the graph on chip
+    (``_cluster_size``: P1 pdfs, None for at most a pdf per state; the
+    largest |offset| ``span``, None for nO - 1); else the global one,
+    whose state lives in global memory and which takes any lattice the
+    card's memory holds."""
     out = []
     for k in (0, 1):
         if (Sp <= _NARROW_STATES
@@ -178,22 +266,36 @@ def _modes(Sp: int, nO: int, tw: int = 1) -> tuple:
         elif (Sp <= _WT * _WIDE_J[-1]
               and 4 * _mode_words(Sp, nO, WIDE, tw)[k] <= _SMEM_BYTES):
             out.append(WIDE)
+        elif _cluster_size(Sp, nO, tw, P1, span, bool(k)):
+            out.append(CLUSTER)
         else:
             out.append(GLOBAL)
     return tuple(out)
 
 
+def _cluster_sizes(Sp: int, nO: int, tw: int = 1, P1=None,
+                   span=None) -> tuple:
+    """The cluster's CTAs a graph of K5a and of K5b (0 where a kernel
+    takes another instantiation): ``mm_banded_cluster``."""
+    return tuple(
+        _cluster_size(Sp, nO, tw, P1, span, bool(k)) if m == CLUSTER
+        else 0 for k, m in enumerate(_modes(Sp, nO, tw, P1, span)))
+
+
 def _wide(Sp: int, nO: int, tw: int = 1) -> tuple:
     """Whether K5a and K5b take an instantiation other than the narrow
-    one (the wide or the global one)."""
+    one (the wide, cluster or global one)."""
     return tuple(m != NARROW for m in _modes(Sp, nO, tw))
 
 
-def _smem_words(Sp: int, nO: int, tw: int = 1) -> tuple:
+def _smem_words(Sp: int, nO: int, tw: int = 1, P1=None,
+                span=None) -> tuple:
     """Shared-memory words of one CTA of K5a and of K5b, each in the
     instantiation its launch takes (``mm_banded_smem``)."""
-    fm, bm = _modes(Sp, nO, tw)
-    return (_mode_words(Sp, nO, fm, tw)[0], _mode_words(Sp, nO, bm, tw)[1])
+    fm, bm = _modes(Sp, nO, tw, P1, span)
+    fc, bc = _cluster_sizes(Sp, nO, tw, P1, span)
+    return (_mode_words(Sp, nO, fm, tw, max(fc, 1), P1)[0],
+            _mode_words(Sp, nO, bm, tw, max(bc, 1), P1)[1])
 
 
 def _wide_j(Sp: int) -> int:
@@ -209,16 +311,45 @@ def _words(dtype) -> int:
     return 2 if dtype == torch.float64 else 1
 
 
+def _span(offsets) -> int:
+    """The largest |band offset|: how far a source lies from its state."""
+    return max((abs(int(o)) for o in offsets), default=0)
+
+
+def _graph_dims(cf) -> tuple:
+    """(Sp, nO, tw, P1, span) of a stacked 'banded' graph: what the
+    instantiations are chosen by."""
+    return (cf.padded_states, len(cf.banded_offsets),
+            _words(cf.alpha_hat.dtype), cf.num_pdfs + 1,
+            _span(cf.banded_offsets))
+
+
 def instantiations(cf) -> str:
     """Which instantiation of K5a and of K5b a stacked 'banded' graph
     takes, in words, for ``fast_path_report``: narrow (one warp, the state
-    in registers), wide (eight warps, the state on chip) or global (eight
-    warps, the state in global memory)."""
-    Sp, nO = cf.padded_states, len(cf.banded_offsets)
-    tw = _words(cf.alpha_hat.dtype)
-    fm, bm = _modes(Sp, nO, tw)
+    in registers), wide (eight warps, the state on chip), cluster of C
+    (the state and constants on chip, one cluster of C CTAs a graph) or
+    global (eight warps, the state in global memory)."""
+    dims = _graph_dims(cf)
+    Sp, nO, tw = dims[:3]
+    names = [m + (f" of {c}" if m == CLUSTER else "")
+             for m, c in zip(_modes(*dims), _cluster_sizes(*dims))]
     f64 = ", float64" if tw == 2 else ""
-    return f"K5a {fm}, K5b {bm} (Sp = {Sp}, {nO} offsets{f64})"
+    return (f"K5a {names[0]}, K5b {names[1]} (Sp = {Sp}, {nO} "
+            f"offsets{f64})")
+
+
+def _scratch_bytes(G, Sp, nO, tw, P1, span) -> int:
+    """Device scratch of the larger of K5a's and K5b's launches over G
+    graphs: the global instantiation's state and constants ((G, 4 + nO,
+    Sp) and (G, 6 + nO, Sp) float64), the cluster K5b's pdf partials past
+    one CTA ((G, PRING, C, min(Sp, P1)) float64)."""
+    fm, bm = _modes(Sp, nO, tw, P1, span)
+    cb = _cluster_sizes(Sp, nO, tw, P1, span)[1]
+    fwd = (4 + nO) * Sp * G * 8 if fm == GLOBAL else 0
+    bwd = ((6 + nO) * Sp * G * 8 if bm == GLOBAL
+           else _PRING * cb * min(Sp, P1) * G * 8 if cb > 1 else 0)
+    return max(fwd, bwd)
 
 
 def banded_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
@@ -229,16 +360,16 @@ def banded_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
     The predicates shared with the JAX package's ``banded_scan_supported``
     come first, in its order and words.  Its TPU rules (graph count a
     multiple of 128 lanes, the 96 MB VMEM and 4 GB HBM caps) are not
-    copied: a CTA owns one graph, so any G works, and a lattice of any
-    length runs (the narrow instantiation up to 1,024 states where its
-    shared memory fits, the wide one up to 2,048 where its own fits, the
-    global one past them: ``_modes``).  The CUDA design adds one predicate
-    of its own: the (Nf, P1, G) emission and posterior streams, the
-    (Nf, Sp, G) float64 alphas (each sized by its dtype) and the global
-    instantiation's float64 scratch (state, gamma and the graphs'
-    constants, (G, 6 + nO, Sp)) must fit the free
-    memory of ``device`` when that is a CUDA device (checked where a card
-    is present).  The kernels take a float32 or a float64 stack (the JAX
+    copied: a CTA or a cluster owns one graph, so any G works, and a
+    lattice of any length runs (the narrow instantiation up to 1,024
+    states where its shared memory fits, the wide one up to 1,280 where
+    its own fits, the cluster one where a cluster of 8 CTAs or fewer holds
+    it, the global one past them: ``_modes``).  The CUDA design adds one
+    predicate of its own: the (Nf, P1, G) emission and posterior streams,
+    the (Nf, Sp, G) float64 alphas (each sized by its dtype) and the
+    scratch of the instantiations taken (``_scratch_bytes``) must fit the
+    free memory of ``device`` when that is a CUDA device (checked where a
+    card is present).  The kernels take a float32 or a float64 stack (the JAX
     package's take float32 only), every float array of it in one
     dtype."""
     if not cf.batched or cf.strategy != "banded":
@@ -269,7 +400,7 @@ def banded_scan_reject_reason(cf, B: int, *, n_frames: int | None = None,
         f = cf.alpha_hat.element_size()
         Nf = n_frames + 1
         need = ((2 * Nf * P1 * G + Nf * G) * f + Nf * Sp * G * 8
-                + (6 + nO) * Sp * G * 8)
+                + _scratch_bytes(G, *_graph_dims(cf)))
         free = torch.cuda.mem_get_info(torch.device(device))[0]
         if need > free:
             return (f"emission, alpha, posterior and state streams "
@@ -457,12 +588,14 @@ def backward_plain(kop: BandedOp, ext, alphas, dtype=None):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _imeta(kop: BandedOp, Nf: int, gm: bool = False) -> np.ndarray:
+def _imeta(kop: BandedOp, Nf: int, gm: bool = False, C: int = 0
+           ) -> np.ndarray:
     """Host int64 descriptor read by csrc/banded_scan.cu (layout: Meta,
-    then whether the alphas are graph-major)."""
+    then whether the alphas are graph-major, then the cluster's CTAs a
+    cluster launch takes)."""
     offs = list(kop.offsets) + [0] * (_MAX_BANDS - len(kop.offsets))
     return np.array([kop.Sp, kop.G, kop.P1, Nf, len(kop.offsets), *offs,
-                     int(gm)], dtype=np.int64)
+                     int(gm), C], dtype=np.int64)
 
 
 def _check_op(kop: BandedOp, dev):
@@ -482,14 +615,23 @@ def _check_op(kop: BandedOp, dev):
     _check("plan", kop.plan, (kop.G, 3 * kop.Sp + 2), dev, torch.int32)
 
 
+def _kop_dims(kop: BandedOp) -> tuple:
+    return (kop.Sp, len(kop.offsets), _words(kop.a0.dtype), kop.P1,
+            _span(kop.offsets))
+
+
 def _kernel_modes(kop: BandedOp) -> tuple:
-    return _modes(kop.Sp, len(kop.offsets), _words(kop.a0.dtype))
+    return _modes(*_kop_dims(kop))
+
+
+def _kernel_clusters(kop: BandedOp) -> tuple:
+    return _cluster_sizes(*_kop_dims(kop))
 
 
 def fwd_sweep(kop: BandedOp, ext, mshift, save_alphas: bool = True):
     """K5a: the forward sweep over all Nf frames.  Same outputs as
     :func:`fwd_sweep_plain`.  ``ext`` and ``mshift`` in the operator's
-    dtype.  The wide and global instantiations write the alphas
+    dtype.  The wide, cluster and global instantiations write the alphas
     graph-major, (Nf, G, Sp) in memory, returned as the (Nf, Sp, G) view
     of it (K5b reads either layout)."""
     if not _route(ext, "banded-scan"):
@@ -503,7 +645,7 @@ def fwd_sweep(kop: BandedOp, ext, mshift, save_alphas: bool = True):
     _check("mshift", mshift, (Nf, 1, kop.G), dev, dt)
     mode = _kernel_modes(kop)[0]
     gm = mode != NARROW
-    meta = _imeta(kop, Nf, gm)
+    meta = _imeta(kop, Nf, gm, _kernel_clusters(kop)[0])
     alphas = None
     if save_alphas:
         shape = (Nf, G, kop.Sp) if gm else (Nf, kop.Sp, G)
@@ -544,19 +686,27 @@ def backward(kop: BandedOp, ext, alphas):
     _check_op(kop, dev)
     _check("ext", ext, (Nf, kop.P1, kop.G), dev, dt)
     mode = _kernel_modes(kop)[1]
-    gm = mode != NARROW and not alphas.is_contiguous()
+    C = _kernel_clusters(kop)[1]
+    if mode == CLUSTER:  # graph-major: each range's alphas by one copy
+        alphas = alphas.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+        if alphas.data_ptr() % 16:
+            raise ValueError("alphas: the cluster K5b's bulk copies need "
+                             "16-byte alignment")
+    gm = mode == CLUSTER or (mode != NARROW and not alphas.is_contiguous())
     if gm:
         _check("alphas (graph-major)", alphas.permute(0, 2, 1),
                (Nf, kop.G, kop.Sp), dev, torch.float64)
     else:
         alphas = alphas.contiguous()
         _check("alphas", alphas, (Nf, kop.Sp, kop.G), dev, torch.float64)
-    meta = _imeta(kop, Nf, gm)
+    meta = _imeta(kop, Nf, gm, C)
     # zeroed, then written
     posts = torch.empty((Nf, P1, G), device=dev, dtype=dt)
     scratch = (torch.empty((G, 6 + len(kop.offsets), kop.Sp), device=dev,
-                           dtype=torch.float64)
-               if mode == GLOBAL else None)
+                           dtype=torch.float64) if mode == GLOBAL
+               else torch.empty((G, _PRING, C, min(kop.Sp, P1)),
+                                device=dev, dtype=torch.float64)
+               if C > 1 else None)
     with torch.cuda.device(dev):
         rc = _build.library().mm_banded_bwd(
             _p(kop.bb), _p(kop.om), _p(kop.fin), _p(kop.spdf), _p(kop.plan),

@@ -88,7 +88,8 @@ def emulate_k5b(kop, ext, alphas):
     the gamma sum of a frame in lane order (lane l adds states l, l + 32,
     ... from 0, then the xor butterfly 16 .. 1), its reciprocal (1 where it
     is 0), and each plan pdf's gamma summed over the plan's states in
-    order, from 0."""
+    order, from 0, times the reciprocal, or divided by the sum where that
+    is subnormal (its reciprocal would overflow)."""
     Nf, P1, G = ext.shape
     Sp = kop.Sp
     n, pdf, seg, state = (x.long() for x in bsc.plan_fields(kop.plan, Sp))
@@ -107,6 +108,7 @@ def emulate_k5b(kop, ext, alphas):
             part = part + part[lanes ^ d]
         tot = part[0]
         rt = torch.where(tot > 0, 1.0 / tot, torch.ones_like(tot))
+        small = (tot > 0) & (tot < 2.0 ** -1022)
         ordered = gam.T.gather(1, state)  # (G, Sp): gamma in plan order
         acc = gam.new_zeros((G, Sp))
         for k in range(longest):
@@ -115,7 +117,9 @@ def emulate_k5b(kop, ext, alphas):
             acc = acc + torch.where(
                 ok, ordered.gather(1, idx.clamp(max=Sp - 1)),
                 torch.zeros_like(acc))
-        vals = torch.where(entry, acc * rt[:, None], torch.zeros_like(acc))
+        acc = torch.where(small[:, None], acc / tot[:, None],
+                          acc * rt[:, None])
+        vals = torch.where(entry, acc, torch.zeros_like(acc))
         posts[t].T.scatter_add_(1, torch.where(entry, pdf, 0), vals)
     return posts
 
@@ -178,6 +182,33 @@ def test_emulated_k5b_sums_match_backward_plain(case):
     assert torch.equal(f32, ref.float())
 
 
+def test_emulated_k5b_divides_where_the_gamma_sum_is_subnormal():
+    """A frame whose gamma sum is subnormal (a lattice barely feasible at
+    its length; here graph 0's alphas of frames 40 and 41 scaled to put
+    the sum near 2^-1030): the reciprocal of the sum overflows, so the
+    narrow K5b divides by it there, as ``backward_plain`` does; its
+    posteriors stay finite and within 1e-12 of the twin's, and frames with
+    a normal sum keep the reciprocal."""
+    _, _, kop, ext, alphas, _ = _prepared("long")
+    alphas = alphas.clone()
+    tots = {t: g.sum(dim=0) for t, g in bsc.gammas_plain(kop, ext, alphas)}
+    for t in (40, 41):
+        k = int(torch.floor(torch.log2(tots[t][0]))) + 1030
+        alphas[t, :, 0] = torch.ldexp(alphas[t, :, 0],
+                                      torch.tensor(-k, dtype=torch.int64))
+    tot = {t: g.sum(dim=0)[0] for t, g in bsc.gammas_plain(kop, ext, alphas)
+           if t in (40, 41)}
+    for t in (40, 41):
+        assert 0 < float(tot[t]) < 2.0 ** -1022
+        assert torch.isinf(1.0 / tot[t])  # the reciprocal overflows
+    ref = bsc.backward_plain(kop, ext, alphas, dtype=torch.float64)
+    emu = emulate_k5b(kop, ext, alphas)
+    assert torch.isfinite(emu).all() and torch.isfinite(ref).all()
+    assert float((emu - ref).abs().max()) <= 1e-12
+    for t in (40, 41):  # a feasible graph: its frame's mass is 1
+        assert abs(float(emu[t, :, 0].sum()) - 1.0) < 1e-12
+
+
 def test_backward_plain_is_zero_outside_each_plan(case):
     """The premise of writing only a graph's own pdfs."""
     _, _, kop, ext, alphas, _ = case
@@ -203,7 +234,8 @@ def test_smem_words_follow_the_kernels_layout():
     instantiation (the global one takes none), at the step's shape and
     beyond; a launch takes the narrow one where its states fit in
     registers and its shared memory in a CTA, else the wide one where its
-    states (5 per thread) and its shared memory fit, else the global one."""
+    states (5 per thread) and its shared memory fit, else the cluster one
+    (``test_torch_banded_cluster.py``)."""
     for name, value in (("DEPTH", bsc._DEPTH), ("YRING", bsc._YRING),
                         ("POST_WARPS", bsc._POST_WARPS),
                         ("WDEPTH", bsc._WDEPTH), ("WT", bsc._WT),
@@ -245,11 +277,13 @@ def test_smem_words_follow_the_kernels_layout():
     assert bsc._modes(1032, 1) == ("wide", "wide")  # past 32 per lane
     assert bsc._modes(1280, 3) == ("wide", "wide")
     assert bsc._modes(1280, 3, 2) == ("wide", "wide")
-    assert bsc._modes(1288, 3) == ("global", "global")  # past 5 per thread
+    assert bsc._modes(1288, 3) == ("cluster", "cluster")  # past 5 a thread
     assert bsc._smem_words(824, 2) == (
         bsc._mode_words(824, 2, bsc.NARROW)[0],
         bsc._mode_words(824, 2, bsc.WIDE)[1])
-    assert bsc._smem_words(1288, 3) == (0, 0)
+    assert bsc._cluster_sizes(1288, 3) == (1, 1)
+    assert bsc._smem_words(1288, 3) == bsc._mode_words(1288, 3,
+                                                       bsc.CLUSTER)
 
 
 def _reason_at(Sp, nO=3, G=128, **kw):
@@ -264,13 +298,13 @@ def _reason_at(Sp, nO=3, G=128, **kw):
 
 
 def test_admission_rejects_past_a_ctas_shared_memory(monkeypatch):
-    """No shared-memory predicate: past a CTA's shared memory (2,504
-    states) and at the JAX package's fused bound at G = 128 (24,576 states
-    at three offsets) a stack is admitted, on a CUDA device too, where the
-    global instantiation runs it.  What the admission still refuses for
-    size is the card's free memory: the emission, alpha, posterior and
-    state streams."""
-    assert bsc._modes(2504, 3) == ("global", "global")
+    """No shared-memory predicate: past a CTA's shared memory of the wide
+    layout (2,504 states) and at the JAX package's fused bound at G = 128
+    (24,576 states at three offsets) a stack is admitted, on a CUDA device
+    too, where the cluster instantiation runs it.  What the admission
+    still refuses for size is the card's free memory: the emission,
+    alpha, posterior and state streams."""
+    assert bsc._modes(2504, 3) == ("cluster", "cluster")
     assert (3 + 5) * 24576 * 128 * 4 <= 96 * 1024 * 1024  # JAX's VMEM rule
     for Sp in (2504, 24576):
         assert _reason_at(Sp) is None
@@ -279,11 +313,16 @@ def test_admission_rejects_past_a_ctas_shared_memory(monkeypatch):
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda device=None: (80 * 10 ** 9, 80 * 10 ** 9))
     assert _reason_at(24576, n_frames=128, device="cuda:0") is None
-    # N = 128: 3.2 GB of float64 alphas, ~0.05 GB of streams, 0.23 GB of
-    # the global instantiation's scratch
+    # N = 128: 3.2 GB of float64 alphas, ~0.05 GB of streams, ~1 MB of the
+    # cluster K5b's pdf partials (C = 8; the global instantiation's 0.23 GB
+    # scratch is no longer taken)
+    assert bsc._cluster_sizes(24576, 3, 1, 25, 2) == (4, 8)
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda device=None: (2 * 10 ** 9, 80 * 10 ** 9))
     assert _reason_at(24576, n_frames=128, device="cuda:0") == (
-        "emission, alpha, posterior and state streams ~3.5 GB exceed the "
+        "emission, alpha, posterior and state streams ~3.3 GB exceed the "
         "card's 2.0 GB free (Sp = 24576, G = 128, N = 128)")
+    assert bsc._scratch_bytes(128, 24576, 3, 1, 25, 2) == (
+        bsc._PRING * 8 * 25 * 128 * 8)
+    assert bsc._scratch_bytes(4, 52008, 3, 1, 25, 2) == (6 + 3) * 52008 * 4 * 8
     assert _reason_at(24576, n_frames=128, device="cpu") is None

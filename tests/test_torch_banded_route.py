@@ -1,10 +1,12 @@
 """The route of stacked numerators past the narrow K5's 1,024 states: on a
 CUDA device the stacked-banded scan takes them, with its wide
 instantiation (the chain on eight warps, the state in shared memory) up to
-1,280 states, and past that with its global one (the state in global
-memory), up to what the card's memory holds; it raises, as
-for every other graph it refuses, on a predicate it shares with the JAX
-package; on the CPU the plain stacked scan runs.
+1,280 states, past that with its cluster one (the state and constants in
+the shared memory of a thread block cluster of up to 8 CTAs), and past
+that with its global one (the state in global memory), up to what the
+card's memory holds; it raises, as for every other graph it refuses, on a
+predicate it shares with the JAX package; on the CPU the plain stacked
+scan runs.
 
 Inputs: numerator lattices of ~1,200 states with skip arcs (three band
 offsets: a path crosses up to two states per frame, so N=700 frames reach
@@ -15,8 +17,8 @@ the CPU against the exact float64 host oracle (``bench.host_oracle``) and
 the JAX package's stacked scan on the same inputs: the JAX float32 scan
 loses these lattices (logZ -inf, every posterior 0), so it runs with its
 operator and inputs in float64, and its posteriors are the gradient of its
-logZ.  On the card, ``chip_smoke.py`` (phase 8b) runs K5's wide and global
-instantiations end to end against the oracle and the twins."""
+logZ.  On the card, ``chip_smoke.py`` (phase 8b) runs K5's wide, cluster
+and global instantiations end to end against the oracle and the twins."""
 import dataclasses
 
 import jax
@@ -39,7 +41,7 @@ LENGTHS = [1200, 1180, 1150, 1199]
 LENS = [700, 690, 640, 700]
 TOL = 1e-4  # logZ and posteriors against the f64 oracle (the contract)
 K5_LINE = ("cuda-banded-scan (hand-written CUDA kernels K5a/K5b, one CTA "
-           "per graph)")
+           "or cluster per graph)")
 
 
 def _lattices(lib):
@@ -105,25 +107,50 @@ def test_report_names_the_route_and_the_instantiations(big, small):
 @pytest.mark.parametrize("S", [1032, 1544, 1936])
 def test_wide_instantiation_takes_past_1024_states(small, S):
     """The wide instantiation up to 1,280 states (5 per chain thread), the
-    global one past it: 1,936 states at two offsets, which the wide one's
-    shared memory would fit, take the global one too."""
+    cluster one past it: 1,936 states at two offsets, which the wide one's
+    shared memory would fit, take the cluster one too."""
     cf = _sized(small, S)
     assert bsc._wide(S, 2) == (True, True)
-    assert bsc._modes(S, 2) == (("wide", "wide") if S <= 1280
-                                else ("global", "global"))
+    assert bsc._modes(*bsc._graph_dims(cf)) == (
+        ("wide", "wide") if S <= 1280 else ("cluster", "cluster"))
     assert tinf._kernel_route(cf, "cuda", G, N) is True
 
 
-@pytest.mark.parametrize("S", [2056, 2504, 3008, 24576])
-def test_global_instantiation_takes_every_longer_stack(small, S):
-    """Past 1,280 states (5 per chain thread) the global instantiation
+@pytest.mark.parametrize("S, sizes", [(2056, (1, 1)), (2504, (1, 1)),
+                                      (3008, (1, 1)), (24576, (4, 7))])
+def test_cluster_instantiation_takes_every_longer_stack(small, S, sizes):
+    """Past 1,280 states (5 per chain thread) the cluster instantiation
     runs, up to the JAX package's own fused bound at G = 128 (24,576
-    states) and past it: the report names it."""
+    states) and past it: the report names it, with the cluster's CTAs a
+    graph."""
     cf = _sized(small, S)
-    assert bsc._modes(S, 2) == ("global", "global")
+    dims = bsc._graph_dims(cf)
+    assert dims == (S, 2, 1, P + 1, 1)
     assert tinf._kernel_route(cf, "cuda", G, N) is True
+    assert bsc._modes(*dims) == ("cluster", "cluster")
+    assert bsc._cluster_sizes(*dims) == sizes
     assert tinf.fast_path_report(cf, G, device="cuda") == (
-        f"{K5_LINE}; K5a global, K5b global (Sp = {S}, 2 offsets)")
+        f"{K5_LINE}; K5a cluster of {sizes[0]}, K5b cluster of {sizes[1]} "
+        f"(Sp = {S}, 2 offsets)")
+
+
+@pytest.mark.parametrize("S, modes", [(48008, ("cluster", "global")),
+                                      (64008, ("global", "global")),
+                                      (100008, ("global", "global"))])
+def test_global_instantiation_takes_every_longer_stack(small, S, modes):
+    """Past what a cluster of 8 CTAs holds (K5b's pdf partials first, then
+    K5a's state) the global instantiation runs, the state in global
+    memory, on any lattice the card's memory holds: the report names it."""
+    cf = _sized(small, S)
+    dims = bsc._graph_dims(cf)
+    assert bsc._modes(*dims) == modes
+    assert bsc._cluster_sizes(*dims)[1] == 0
+    assert bsc.banded_scan_reject_reason(cf, G, n_frames=N) is None
+    assert tinf._kernel_route(cf, "cuda", G, N) is True
+    fwd = ("global" if modes[0] == "global"
+           else f"cluster of {bsc._cluster_sizes(*dims)[0]}")
+    assert tinf.fast_path_report(cf, G, device="cuda") == (
+        f"{K5_LINE}; K5a {fwd}, K5b global (Sp = {S}, 2 offsets)")
 
 
 def test_main_path_numerators_take_the_narrow_k5(small):
@@ -141,17 +168,18 @@ def test_refused_stacks_raise_on_cuda(big, variant):
     log-domain stack, which K5's admission refuses too, takes the log-space
     scan on every device, as the JAX package's does.  The "shared memory"
     case: a stack of 1,816 states at three offsets, past what a CTA's
-    shared memory holds of a wide layout, is admitted, and the global
+    shared memory holds of a wide layout, is admitted, and the cluster
     instantiation takes it."""
     _, ct, _, _ = big
     rep = dataclasses.replace
     if variant == "shared memory":
         cf = _sized(ct, 1816)
-        assert bsc._modes(1816, 3) == ("global", "global")
+        assert bsc._modes(1816, 3) == ("cluster", "cluster")
         assert bsc.banded_scan_reject_reason(cf, G, n_frames=N) is None
         assert tinf._kernel_route(cf, "cuda", G, N) is True
         assert tinf.fast_path_report(cf, G, device="cuda") == (
-            f"{K5_LINE}; K5a global, K5b global (Sp = 1816, 3 offsets)")
+            f"{K5_LINE}; K5a cluster of 1, K5b cluster of 1 (Sp = 1816, 3 "
+            "offsets)")
         return
     cf, B, match = {
         "unstacked": (compile_port(*numerator(np.arange(5), P, lib=mt), P,

@@ -12,10 +12,12 @@ order, a butterfly over the warp's lanes, then the 8 warps' partials added
 in warp order; the rescale's exponent is the max of the states' exponent
 keys.  Inputs: numerator lattices with skip arcs (three band offsets; the
 generator of ``chip_smoke.skip_numerators``, copied), made from numpy
-seeds; a stack of ~2,500-state lattices, which only the global
-instantiation takes, runs through the port's plain stacked scan against
+seeds; a stack of ~2,500-state lattices, which the cluster
+instantiation takes at one CTA a graph (the global one's order), runs through the port's plain stacked scan against
 the JAX package's stacked scan in float64 (logZ, and the posteriors as its
 gradient) and the float64 host oracle."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -219,7 +221,7 @@ def emulate_k5b_wide(kop, ext, alphas):
                                         (2500, 150, 100, 40)])
 def emulated(request):
     """A float64 stack (Sp = 1,208: the wide instantiation; 2,504: the
-    global one) at N = 90 with ragged lengths and cliffs, its twin's
+    cluster one at one CTA a graph, the global one's order) at N = 90 with ragged lengths and cliffs, its twin's
     sweep and K5b twin in float64, and the emulations.  The long lattice
     cannot reach its end in 90 frames (its column falls to 0 past its
     length); the others can."""
@@ -239,12 +241,32 @@ def emulated(request):
             emulate_k5b_wide(kop, ext, twin[0]))
 
 
+def test_emulated_stacks_take_the_wide_and_cluster_instantiations(
+        emulated):
+    """Sp = 1,208 takes the wide instantiation, 2,504 the cluster one at
+    one CTA a graph, whose reductions are the global one's, in the same
+    order (``test_torch_banded_cluster.py``)."""
+    kop = emulated[0]
+    want = (("wide", "wide") if kop.Sp <= WT * bsc._WIDE_J[-1]
+            else ("cluster", "cluster"))
+    assert bsc._modes(kop.Sp, len(kop.offsets), 2) == want
+    assert bsc._modes(*bsc._kop_dims(kop)) == want
+    if want[0] == "cluster":
+        assert bsc._kernel_clusters(kop) == (1, 1)
+    assert kop.offsets == (0, 1, 2)
+
+
 def test_emulated_stacks_take_the_wide_and_global_instantiations(emulated):
+    """With offsets past the cluster's 16-state halos (span 17) the
+    emulated stacks take the wide instantiation (1,208 states: it has no
+    halo) and the global one (2,504), whose frames the emulation's order
+    is too."""
     kop = emulated[0]
     want = (("wide", "wide") if kop.Sp <= WT * bsc._WIDE_J[-1]
             else ("global", "global"))
-    assert bsc._modes(kop.Sp, len(kop.offsets), 2) == want
-    assert kop.offsets == (0, 1, 2)
+    assert bsc._modes(kop.Sp, len(kop.offsets), 2, kop.P1, 17) == want
+    assert bsc._cluster_sizes(kop.Sp, len(kop.offsets), 2, kop.P1,
+                              17) == (0, 0)
 
 
 def test_emulated_k5a_wide_matches_fwd_sweep_plain(emulated):
@@ -285,11 +307,25 @@ def long_stack():
     return gj, ct, lhs, np.array([N, 900], dtype=np.int32)
 
 
-def test_long_stack_takes_the_global_instantiation(long_stack):
+def test_long_stack_takes_the_cluster_instantiation(long_stack):
+    """The ~2,500-state stack, past the wide instantiation, takes the
+    cluster one (which took over from the global one at this length)."""
     _, ct, _, _ = long_stack
     assert ct.padded_states == 2504 and ct.banded_offsets == (0, 1, 2)
-    assert bsc._modes(2504, 3) == ("global", "global")
+    assert bsc._modes(2504, 3) == ("cluster", "cluster")
+    assert bsc._modes(*bsc._graph_dims(ct)) == ("cluster", "cluster")
     assert bsc.banded_scan_reject_reason(ct, 2, n_frames=2000) is None
+
+
+def test_long_stack_takes_the_global_instantiation(long_stack):
+    """The long stack's lattices padded past what a cluster of 8 CTAs
+    holds (64,008 states) take the global instantiation, admitted."""
+    _, ct, _, _ = long_stack
+    cf = dataclasses.replace(ct, alpha_hat=ct.alpha_hat.new_zeros((2,
+                                                                   64008)))
+    assert bsc._graph_dims(cf) == (64008, 3, 1, P + 1, 2)
+    assert bsc._modes(*bsc._graph_dims(cf)) == ("global", "global")
+    assert bsc.banded_scan_reject_reason(cf, 2, n_frames=2000) is None
 
 
 def test_long_stack_twin_matches_jax_f64_and_the_oracle(long_stack):
