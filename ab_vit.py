@@ -38,6 +38,16 @@ seed 0, every length N):
   id budget (the chunk-recompute decode: K7n and W2; ``normal·0.5`` from
   seed 1), one warm-up and ``--runs`` runs on the host clock to a
   synchronize, and their ``decode_median``;
+* with ``--walk``, the two walks, ``--runs`` times each (CUDA events, each
+  the mean of 10 launches back to back after 30 warm ones) and float64
+  sums of their outputs (equal between versions whose
+  walks give the same states): ``walk_ms``, the walk over the ids of this
+  graph's K7 sweep above (700 frames); ``w2_chunk_ms``, W2 over one
+  64-frame chunk (chunk 8) of the graph's recompute decode at N=1,024
+  (``normal·0.5`` from seed 1), from the states the decode gives the
+  frame after it; ``w2_dense_ms``, W2 over the 701 frames of the V=32
+  dense graph's K6t sweep at B=128, N=700 (seed 0), from the phony state;
+  with ``--f64`` the float64 graphs and inputs;
 * with ``--ptxas FILE``, the library's ``ptxas -v`` report written to
   FILE where this process built the library (a fresh copy builds its
   own; a later process finds it built and writes nothing);
@@ -82,6 +92,29 @@ def _ms(fn, reps):
         b.record()
         torch.cuda.synchronize()
         ts.append(a.elapsed_time(b))
+    return ts
+
+
+def _ms_steady(fn, reps, inner=10, warm=30):
+    """``reps`` times of ``fn`` in ms, each the mean of ``inner`` launches
+    back to back, after ``warm`` launches: a walk launch is ~0.1–1 ms, too
+    short alone to bring the card's clocks up from the host work before
+    it (single launches read 1.5–3x slow, falling run by run)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b) / inner)
     return ts
 
 
@@ -267,6 +300,76 @@ def _noid(vs, cf, P, dt, dev, runs, split=False) -> dict:
     return row
 
 
+def _walks(mt, vs, cf, out, lens, P, dt, dev, runs) -> dict:
+    """The walk over ``out``'s ids, W2 on a chunk of the recompute decode
+    at N=1,024, and W2 on the V=32 dense decode: times and sums."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from markovmodels_tpu_torch.ops import dense_scan as ds
+    from markovmodels_tpu_torch.ops.emissions import prepare_emissions
+
+    tvit = importlib.import_module("markovmodels_tpu_torch.viterbi")
+    wt = vs.walk_tables(cf)
+    walked = vs.walk(wt, out[0], out[1], lens)
+    row = {"walk_ms": _ms_steady(lambda: vs.walk(wt, out[0], out[1], lens),
+                                 runs)}
+    sums = [float(walked.double().sum())]
+    del out, walked
+
+    rng = np.random.default_rng(1)
+    B, N, K = 128, 1024, 64
+    lhs = torch.from_numpy(
+        (rng.normal(size=(B, N, P)) * 0.5).astype(np.float32)).to(dev, dt)
+    ln = torch.full((B,), N, dtype=torch.int32, device=dev)
+    states, _ = tvit._viterbi_recompute(cf, lhs, ln, K)
+    real = torch.nonzero(cf.orig_state >= 0)[:, 0]
+    to_compiled = torch.empty_like(cf.orig_state)
+    to_compiled[cf.orig_state[real].long()] = real.to(torch.int32)
+    t0 = 8 * K
+    s_end = to_compiled[states[:, t0 + K].long()].contiguous()
+    ext, msh = prepare_emissions(lhs, ln, P, dt)
+    ck = vs.viterbi_fwd(cf, ext, msh, ids=False, stride=K)
+    rec = vs.viterbi_fwd(cf, ext[t0:t0 + K], msh[t0:t0 + K], ids=False,
+                         a0=ck[0][7], s0=ck[1][7], t0=t0)
+    del ck
+    rw = vs.rec_walk_tables(cf)
+    path = vs.rec_walk(rw, rec[0], rec[1], ln, t0, s_end)
+    row["w2_chunk_ms"] = _ms_steady(lambda: vs.rec_walk(
+        rw, rec[0], rec[1], ln, t0, s_end), runs)
+    row["w2_chunk_twin"] = torch.equal(path, vs.rec_walk_plain(
+        rw, rec[0], rec[1], ln, t0, s_end))
+    sums.append(float(path.double().sum()))
+    del rec, ext, msh
+
+    kw = {"dtype": dt} if dt == torch.float64 else {}
+    dfsm, dspdf, dP, _ = mt.workloads.make_lm_hmm_graph(V=32)
+    dcf = mt.compile_fsm(dfsm, dspdf, dP, device=dev, **kw)
+    rng = np.random.default_rng(0)
+    lhs = torch.from_numpy(
+        (rng.normal(size=(B, 700, dP)) * 0.5).astype(np.float32)).to(dev, dt)
+    ln = torch.full((B,), 700, dtype=torch.int32, device=dev)
+    ext, msh = prepare_emissions(lhs, ln, dP, dt)
+    kop = ds.trop_operator(dcf)
+    a0 = kop.alpha0[:, None].expand(kop.Sp, B).contiguous()
+    sw = ds.trop_sweep(kop, a0, torch.ones(B, device=dev, dtype=dt), ext,
+                       msh, first=True)
+    dw = vs.rec_walk_tables(dcf)
+    s_fin = torch.full((B,), dw.fin, dtype=torch.int32, device=dev)
+    path = vs.rec_walk(dw, sw[0], sw[1], ln, 0, s_fin)
+    row["w2_dense_ms"] = _ms_steady(lambda: vs.rec_walk(
+        dw, sw[0], sw[1], ln, 0, s_fin), runs)
+    row["w2_dense_twin"] = torch.equal(path, vs.rec_walk_plain(
+        dw, sw[0], sw[1], ln, 0, s_fin))
+    sums.append(float(path.double().sum()))
+    for k in ("walk_ms", "w2_chunk_ms", "w2_dense_ms"):
+        row[k.replace("_ms", "_mean")] = sum(row[k]) / len(row[k])
+    row["walk_sums"] = sums
+    return row
+
+
 def _decode(mt, cf, P, dt, dev, runs) -> dict:
     """``viterbi`` at B=128, N=1,024 (past the id budget), host ms."""
     import time
@@ -292,7 +395,7 @@ def _decode(mt, cf, P, dt, dev, runs) -> dict:
 
 def main(root: str, runs: int, split: bool, trace: bool = False,
          graph: str = "2m", f64: bool = False, noid: bool = False,
-         ptxas: str = "", decode: bool = False) -> dict:
+         ptxas: str = "", decode: bool = False, walk: bool = False) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     sys.path.insert(1, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
@@ -338,7 +441,10 @@ def main(root: str, runs: int, split: bool, trace: bool = False,
     torch.cuda.synchronize()
     bitequal = all(torch.equal(x, y) for x, y in zip(out, again))
     sums = [float(t.double().sum()) for t in out]
-    del out, again
+    del again
+    if walk:
+        walks = _walks(mt, vs, cf, out, lens, P, dt, dev, runs)
+    del out
     ts = _ms(lambda: vs.viterbi_fwd(cf, ext, msh), runs)
     row = {"version": root, "graph": graph + (" f64" if f64 else ""),
            "sweep_ms": ts,
@@ -356,6 +462,8 @@ def main(root: str, runs: int, split: bool, trace: bool = False,
         row.update(_noid(vs, cf, P, dt, dev, runs, split))
     if decode:
         row.update(_decode(mt, cf, P, dt, dev, runs))
+    if walk:
+        row.update(walks)
     return row
 
 
@@ -370,6 +478,7 @@ if __name__ == "__main__":
     ap.add_argument("--noid", action="store_true")
     ap.add_argument("--ptxas", default="")
     ap.add_argument("--decode", action="store_true")
+    ap.add_argument("--walk", action="store_true")
     a = ap.parse_args()
     print(json.dumps(main(a.root, a.runs, a.split, a.trace, a.graph, a.f64,
-                          a.noid, a.ptxas, a.decode)), flush=True)
+                          a.noid, a.ptxas, a.decode, a.walk)), flush=True)

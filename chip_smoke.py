@@ -347,8 +347,21 @@ decode; a general-Ĉ graph has no kernel yet and is refused on the card):
     decodes equal to one chunk), and its frame split on both block graphs;
 55. the library's ``ptxas`` report: K5a's and K5b's cluster
     instantiations spill 0 bytes, the narrow K5b's entries are listed
-    beside the table's, and every other entry equals the parent commit's
-    table ``tools/ptxas_ref.json``.
+    beside the table's, and every other entry but W2's and the walk's
+    equals the parent commit's table ``tools/ptxas_ref.json``;
+56. W2 and the walk over the ids, redesigned for Hopper (W2: one round of
+    packed in-arc records, then their alphas, per frame, the next row
+    fetched with them, the ω step over the ω support; the walk: its
+    decode tables in shared memory): their ``ptxas`` entries spill
+    nothing; both bit-equal to their twins, and to themselves, on inputs
+    built to take each branch (ties, the park on fin, in-degrees past 32,
+    the Dmax cap, the ω step's full scan, lengths 0, 1 and N, the family
+    tables, the id 255) at B = 128, 126 and 124, W2 in float32 and
+    float64; ``viterbi`` of a small 'block' graph at B = 24,576, past
+    K7's and K7n's shared memory, in slices, through both routes, equal
+    to the plain twins (float32 and float64); the walks' times from the
+    phases before beside their chain floors (``tools/latency_probe.py``'s
+    latencies), the decodes' times, and one profile of the dense decode.
 
 Every kernel's entry in the JSON line (K6t, K7n and W2 from phases 32-33,
 the family branch's K7, walk, K7n and W2 from phases 36-37, K2-K4's
@@ -622,8 +635,8 @@ def vit_traffic(cf, B, Nf, l2_bytes=None, g=None):
     (per-row pointers, sources, weights, uint8 ids, the row pdfs) are read
     once.  The state, where two slots of it pass L2 (``_state_past_l2``),
     is read and written every frame (2 Nf Sp B values).  The walk: per
-    frame and sequence one id, two table reads and one state written (what
-    this decode reads)."""
+    frame and sequence one id read and one state written, its decode
+    tables once (:func:`walk_ids_bytes`)."""
     from markovmodels_tpu_torch.ops import block_scan as bs
     from markovmodels_tpu_torch.ops import vit_scan as vs
 
@@ -648,7 +661,23 @@ def vit_traffic(cf, B, Nf, l2_bytes=None, g=None):
     ops4 = Nf * B * (4 * tier + rest)
     return {"K7": (ops, nbytes, peak),
             "K7 (4 instructions)": (ops4, nbytes, peak),
-            "K7w": (0, (Nf - 1) * B * (1 + 4 + 4 + 4) + 8 * B, PEAK_F32)}
+            "K7w": (0, walk_ids_bytes(cf, B, Nf), PEAK_F32)}
+
+
+def walk_ids_bytes(cf, B, Nf):
+    """The bytes the walk over the ids moves: per frame and sequence one
+    id read and one state written, the lengths and the fins read at each
+    length, and the decode tables read once (the tier sources, the
+    narrowed tier-block table, the band offsets; with families ovout and
+    ov_dec)."""
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+
+    wt = vs.walk_tables(cf)
+    tables = 4 * wt.sidx.numel() + wt.kt.numel() * wt.kt.element_size() \
+        + 4 * wt.offs.numel()
+    if wt.ov_hi > wt.ov_lo:
+        tables += 4 * (wt.ovout.numel() + wt.ov_dec.numel())
+    return (Nf - 1) * B * (1 + 4) + 8 * B + tables
 
 
 def vit_bounds(cf, B, Nf, l2_bytes=None, g=None):
@@ -2406,7 +2435,7 @@ def phase_vit_main(fsm, spdf, cf, P, dev, B=128, N=700):
         vit = {k: v for k, v in counts.items() if k.startswith("vit_")}
         assert sorted(vit.items()) == [
             ("vit_sweep_kernel<true, true, false, float>", 1),
-            ("vit_walk_kernel", 1)], counts
+            ("vit_walk_kernel<unsigned char, true>", 1)], counts
     parts = decode_parts(cf, lhs, lengths)
     for k, v in parts.items():
         print(f"phase 17: decode part: {k} {v:.3f} ms")
@@ -2857,10 +2886,14 @@ def walk_bounds(wt, path, s_next, lengths, t0, Sp):
     data): ``path`` (nK, B) the walked states of frames t0 .., ``s_next``
     the states of the frame after.  Per frame and sequence before the
     length's last frame, the in-arcs of the next frame's state, each a
-    source and weight read, an alpha gathered and a multiply, log, add and
-    compare; at the last frame the omega argmax over all Sp states (an
-    alpha and omega read, two multiplies and a compare each); the row
-    pointers, the scale and the state written every frame."""
+    record (source and weight) read, an alpha gathered and a multiply,
+    log, add and compare; at the last frame the omega argmax over the ω
+    support (a (state, ω) record and an alpha read, two multiplies and a
+    compare each: the states outside it score 0, below the support's
+    positive maximum on these inputs); per frame the (begin, count) pair,
+    the scale and the state written.  ``Sp`` is the states the full scan
+    would take where the support's maximum is 0 (not counted: these
+    inputs never need it)."""
     rowptr = wt.rowptr.cpu().numpy().astype(np.int64)
     path = path.cpu().numpy().astype(np.int64)  # compiled ids
     L = lengths.cpu().numpy().astype(np.int64)[None, :]
@@ -2873,8 +2906,11 @@ def walk_bounds(wt, path, s_next, lengths, t0, Sp):
     steps = path.size
     omega_steps = int(((t == L - 1) & (L >= 1)).sum())
     f = wt.w.element_size()  # 8: the float64 instantiation
-    ops = 4 * cand + 3 * Sp * omega_steps
-    nbytes = (4 + 2 * f) * cand + 2 * f * Sp * omega_steps + (8 + 2 * f) * steps
+    n_sup = int((wt.omega != 0).sum())
+    rec = 4 + (f + 4 if f == 8 else f)  # a packed record's bytes
+    ops = 4 * cand + 3 * n_sup * omega_steps
+    nbytes = ((rec + f) * cand + (rec + f) * n_sup * omega_steps
+              + (8 + f + 4) * steps)
     return bound(ops, nbytes, PEAK_F64_OPS if f == 8 else PEAK_F32_OPS)
 
 
@@ -3103,7 +3139,7 @@ def phase_dense_decode(dfsm, dspdf, dcf, dP, dev, B=128, N=700):
             f"{k} {v:.3f} ms ({kcounts[k]} launches)" for k, v in
             sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
         assert sorted(ours.items()) == [
-            ("rec_walk_kernel<float>", 1),
+            ("rec_walk_kernel<float, 2>", 1),
             ("trop_kernel<true, float>", 1)], kcounts
     plain = []
     t_sweep_plain = cuda_ms(lambda: plain.append(ds.trop_sweep_plain(
@@ -3414,7 +3450,7 @@ def phase_ov_vit_main(fsm, spdf, cf, efsm, espdf, ecf, P, dev, t_dec2m,
         vit = {k: v for k, v in pcounts.items() if k.startswith("vit_")}
         assert sorted(vit.items()) == [
             ("vit_sweep_kernel<true, true, true, float>", 1),
-            ("vit_walk_kernel", 1)], pcounts
+            ("vit_walk_kernel<unsigned char, true>", 1)], pcounts
     parts = decode_parts(cf, lhs, lengths)
     print("phase 36: decode parts: " + "; ".join(
         f"{k} {v:.3f} ms" for k, v in parts.items()))
@@ -4397,13 +4433,17 @@ def nvcc_version():
 K5_CLUSTER_ENTRIES = ("banded_fwd_cluster_kernel<",
                       "banded_bwd_cluster_kernel<")
 K5B_NARROW_ENTRIES = ("banded_bwd_kernel<",)
+# W2's and the walk's instantiations (rec_walk.cu, vit_scan.cu), redesigned
+# in this tree: phase 55 leaves them out, phase 56 requires them spill-free
+WALK_ENTRIES = ("rec_walk_kernel<", "vit_walk_kernel")
 
 
 def phase_ptxas(log, label="phase 55"):
     """Phase 55: the library's ``ptxas`` report.  K5a's and K5b's cluster
     instantiations (``K5_CLUSTER_ENTRIES``, float and double) spill 0
     bytes and keep no stack; the narrow K5b's entries are listed beside
-    the table's; every other entry equals the table ``tools/ptxas_ref.py``
+    the table's; W2's and the walk's (``WALK_ENTRIES``) are phase 56's;
+    every other entry equals the table ``tools/ptxas_ref.py``
     made of the parent commit (``tools/ptxas_ref.json``), compared where
     the nvcc that built the table built this library too."""
     tab = ptxas_table(log)
@@ -4415,7 +4455,7 @@ def phase_ptxas(log, label="phase 55"):
         v["spill_stores"] + v["spill_loads"] + v["stack"] == 0
         for v in k5.values()), f"K5 cluster spill: {k5}"
     ref = json.loads(PTXAS_REF.read_text())
-    skip = K5_CLUSTER_ENTRIES + K5B_NARROW_ENTRIES
+    skip = K5_CLUSTER_ENTRIES + K5B_NARROW_ENTRIES + WALK_ENTRIES
     narrow = {k: v for k, v in tab.items() if k.startswith(
         K5B_NARROW_ENTRIES)}
     print(f"{label}: the narrow K5b's entries (the subnormal rule), this "
@@ -4441,6 +4481,255 @@ def phase_ptxas(log, label="phase 55"):
               f"\n  {k}: {others.get(k)} (table {want.get(k)})"
               for k in diff))
     assert not diff, f"{len(diff)} ptxas entries differ from the table"
+
+
+def walk_ptxas(log):
+    """{entry: ptxas figures} of W2's and the walk's instantiations."""
+    return {k: v for k, v in ptxas_table(log).items()
+            if k.startswith(WALK_ENTRIES)}
+
+
+def w2_branch_inputs(wt, Sp, B, nK, dt, dev, seed):
+    """(states, scales, lengths, s_next) of a W2 chunk of nK frames from
+    frame 0 that take each of W2's branches: alphas of {0, 1/4, 1/2, 1}
+    (ties wherever two in-arcs' weights agree too; zeros give -inf
+    candidates), column 1 zero throughout (every candidate -inf: the walk
+    parks on fin), column 2's ω support zero at its last frame (the full
+    scan over Sp states), powers of two as scales, lengths 1, nK (the ω
+    step in the chunk's first walked frame), 2 nK (the walk enters from
+    s_next) and others, s_next random states with fin among them."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lev = torch.tensor([0.0, 0.25, 0.5, 1.0], dtype=dt, device=dev)
+    a = lev[torch.randint(0, 4, (nK, Sp, B), generator=g, device=dev)]
+    a[:, :, 1] = 0
+    L = torch.randint(1, 2 * nK + 1, (B,), generator=g, device=dev)
+    L[:6] = torch.tensor([nK, 2 * nK, nK // 2, 1, nK, 2 * nK], device=dev)
+    sup = torch.nonzero(wt.omega != 0)[:, 0]
+    a[nK // 2 - 1, sup, 2] = 0
+    sc = (2.0 ** torch.randint(-3, 4, (nK, B), generator=g, device=dev)).to(dt)
+    s_next = torch.randint(0, Sp, (B,), generator=g, device=dev)
+    s_next[5::7] = wt.fin
+    return (a, sc, L.to(torch.int32),
+            s_next.to(torch.int32))
+
+
+def walk_branch_inputs(cf, wt, Nf, B, dev, seed, fam_share=0.0):
+    """(ids, fins, lengths) for the walk over the ids that take each of
+    its branches: tier positions, each band id where its source is a state
+    (the row at least its offset), the out-family id Sm + nO on a
+    ``fam_share`` of the rows (elsewhere 0.5 %: on a uniform graph it
+    decodes to fin), 255 on 1 %, the overflow rows' ids through ov_dec;
+    fins any state; lengths 0, 1, Nf - 1 and others."""
+    import torch
+
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+
+    RW = vs._main_region(cf)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Sm, nO = wt.Sm, wt.nO
+    ids = torch.randint(0, Sm, (Nf, RW, B), generator=g, device=dev)
+    r = torch.rand((Nf, RW, B), generator=g, device=dev)
+    rows = torch.arange(RW, device=dev)[None, :, None]
+    for oi in range(nO):
+        off = int(wt.offs[oi])
+        band = (r >= 0.1 * oi) & (r < 0.1 * (oi + 1)) & (rows - off >= 0)
+        ids = torch.where(band, Sm + oi, ids)
+    fam = (r >= 0.5) & (r < 0.5 + max(fam_share, 0.005))
+    ids = torch.where(fam, Sm + nO, ids)
+    ids = torch.where(r >= 0.99, 255, ids).to(torch.uint8)
+    fins = torch.randint(0, cf.padded_states, (Nf, B), generator=g,
+                         device=dev).to(torch.int32)
+    L = torch.randint(0, Nf, (B,), generator=g, device=dev)
+    L[:4] = torch.tensor([0, 1, Nf - 1, Nf - 1], device=dev)
+    return ids, fins, L.to(torch.int32)
+
+
+def sliced_decodes(dev, dtypes, B=24_576, label="phase 56"):
+    """``viterbi`` of a small 'block' graph (V=128, one HMM state, 5 % of
+    the trigram arcs: Sp = 16,512) at a batch past K7's and K7n's shared
+    memory, decoded in slices on the card: N=8 through the
+    compressed-backpointer route (K7 and its walk) in each of ``dtypes``,
+    N=16 past the id budget through the chunk-recompute route (K7n and
+    W2) in float32; against the same routes' plain twins on the card (in
+    slices of 2,048): states equal, scores within TOL_VIT (the twins' K7
+    scores differ from K7's in the last bits, phase 17).  Returns the slice
+    counts."""
+    import importlib
+
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+
+    tvit = importlib.import_module("markovmodels_tpu_torch.viterbi")
+    fsm, spdf, P, _ = mt.workloads.make_lm_hmm_graph(V=128, hmm_states=1,
+                                                     keep=0.05)
+    torch.cuda.empty_cache()  # ~20 GB at a time for the recompute slices
+    out = {}
+    for dt in dtypes:
+        cf = mt.compile_fsm(fsm, spdf, P, strategy="block", dtype=dt,
+                            device=dev)
+        for N, route in ((8, "bp"), (16, "recompute")):
+            if route == "recompute" and dt == torch.float64:
+                continue
+            rng = np.random.default_rng(N)
+            lhs = torch.from_numpy(make_inputs(rng, B, N, P)).to(dev, dt)
+            lens = torch.from_numpy(rng.integers(1, N + 1, size=B).astype(
+                np.int32)).to(dev)
+            lens[:2] = N
+            bp = tvit._bp_vit_reject_reason(cf, lhs) is None
+            assert bp == (route == "bp"), route
+            width = tvit._slice_width(cf, lhs, bp)
+            n_slices = -(-B // width)
+            assert width == vs.max_batch(bp, False, dt == torch.float64)
+            reset_all_launches()
+            t0 = time.perf_counter()
+            st, sc = mt.viterbi(cf, lhs, lens)
+            torch.cuda.synchronize()
+            t_k = time.perf_counter() - t0
+            counts = {k: v for k, v in all_launches().items() if v}
+            key = "" if dt == torch.float32 else "_f64"
+            if route == "bp":
+                assert counts == {f"vit_fwd{key}": n_slices,
+                                  "vit_walk": n_slices}, counts
+            else:
+                assert counts["vit_fwd_noid"] == n_slices, counts
+                assert counts["rec_walk"] == n_slices, counts
+            real = tvit._plain_decode
+            tvit._plain_decode = lambda *a, **k: "the plain twins, by hand"
+            try:
+                t0 = time.perf_counter()
+                ps, pz = tvit._viterbi_scale(cf, lhs, lens, width=2048)
+                torch.cuda.synchronize()
+                t_p = time.perf_counter() - t0
+            finally:
+                tvit._plain_decode = real
+            same = torch.equal(st, ps)
+            fin = torch.isfinite(sc)
+            assert torch.equal(fin, torch.isfinite(pz)), "-inf pattern"
+            dz = float((sc[fin].double() - pz[fin].double()).abs().max())
+            print(f"{label}: viterbi at B={B} N={N} ({route} route, {dt}) "
+                  f"in {n_slices} slices of at most {width}: launches "
+                  f"{json.dumps(counts)}, {t_k:.2f} s; the plain twins "
+                  f"(slices of 2,048) {t_p:.2f} s: states equal {same}, "
+                  f"max |dscore| {dz:.3e} (tol {TOL_VIT:g}), "
+                  f"{int(fin.sum())} of {B} feasible")
+            assert same and dz <= TOL_VIT, "the sliced decode disagrees"
+            out[f"{route} {dt}"] = n_slices
+            del lhs, st, sc, ps, pz
+        del cf
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_walks(graphs, dev, times, decodes, card, label="phase 56"):
+    """Phase 56: W2 and the walk over the ids redesigned.  Their
+    ``ptxas`` entries spill nothing; both are bit-equal to their plain
+    twins on inputs built to take each branch
+    (:func:`w2_branch_inputs`, :func:`walk_branch_inputs`: ties, the park
+    on fin, in-degrees past 32, the Dmax cap (tables with a smaller
+    Dmax), the ω step's full scan, lengths 0, 1 and N; the family branch's
+    tables and the id 255) at B = 128, 126 and 124, in float32 and
+    float64 (W2; the walk has one instantiation per table width); a batch
+    past K7's shared memory decoded in slices (:func:`sliced_decodes`);
+    then the walks' times from the phases before (``times``: name ->
+    (ms, frames, {latency: round trips a frame})) beside their chain
+    floors (frames × round trips × the latency ``tools/latency_probe.py``
+    measures) and
+    the decodes' (``decodes``), and one profile of the dense decode with
+    its idle share.  ``graphs``: name -> (compiled graph, P)."""
+    import importlib.util
+
+    import torch
+
+    import markovmodels_tpu_torch as mt
+    from markovmodels_tpu_torch.ops import _build
+    from markovmodels_tpu_torch.ops import vit_scan as vs
+
+    tab = walk_ptxas(_build.PTXAS_LOG)
+    print(f"{label}: ptxas of W2 and the walk: " + "; ".join(
+        f"{k}: {v}" for k, v in sorted(tab.items())))
+    assert len(tab) == 11 and all(
+        v["spill_stores"] + v["spill_loads"] + v["stack"] == 0
+        for v in tab.values()), f"walk spill: {tab}"
+
+    ok = {}
+    for name in ("V=32 dense", "2M-arc", "V=32 dense f64", "2M-arc f64"):
+        cf, _ = graphs[name]
+        wt = vs.rec_walk_tables(cf)
+        cap = wt._replace(dmax=max(wt.dmax * 2 // 3, 1), rec=None, rows=None,
+                          sup=None)
+        a, sc, L, nxt = w2_branch_inputs(wt, cf.padded_states, 128, 64,
+                                         wt.w.dtype, dev, seed=56)
+        for B in (128, 126, 124):
+            args = (a[..., :B].contiguous(), sc[:, :B].contiguous(),
+                    L[:B].contiguous(), 0, nxt[:B].contiguous())
+            for tag, t in (("", wt), (" Dmax cap", cap)):
+                k1, k2 = vs.rec_walk(t, *args), vs.rec_walk(t, *args)
+                ok[f"W2 {name}{tag} B={B}"] = (
+                    torch.equal(k1, k2)
+                    and torch.equal(k1, vs.rec_walk_plain(t, *args)))
+        del a
+    for name, share in (("2M-arc", 0.0), ("separate-state", 0.1)):
+        cf, _ = graphs[name]
+        wt = vs.walk_tables(cf)
+        ids, fins, L = walk_branch_inputs(cf, wt, 40, 128, dev, seed=57,
+                                          fam_share=share)
+        for B in (128, 126, 124):
+            args = (ids[..., :B].contiguous(), fins[:, :B].contiguous(),
+                    L[:B].contiguous())
+            k1 = vs.walk(wt, *args)
+            ok[f"walk {name} B={B}"] = (
+                torch.equal(k1, vs.walk(wt, *args))
+                and torch.equal(k1, vs.walk_plain(wt, *args)))
+        del ids
+    bad = [k for k, v in ok.items() if not v]
+    print(f"{label}: W2 and the walk bit-equal to their twins (and to "
+          f"themselves) on the branch inputs: {len(ok) - len(bad)} of "
+          f"{len(ok)} cases" + (f"; differ: {bad}" if bad else ""))
+    assert not bad, f"the walks differ from their twins: {bad}"
+
+    slices = sliced_decodes(dev, (torch.float32, torch.float64))
+
+    spec = importlib.util.spec_from_file_location(
+        "latency_probe", Path(__file__).resolve().parent / "tools"
+        / "latency_probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    lat = probe.measure()
+    print(f"{label}: dependent-load latency (tools/latency_probe.py): "
+          + "; ".join(f"{k} {v['ns']:.1f} ns ({v['cycles']:.0f} cycles)"
+                      for k, v in lat.items()) + f"; {card}")
+    floors = {}
+    for name, (ms, frames, trips) in times.items():
+        ns = sum(lat[k]["ns"] * n for k, n in trips.items())
+        floors[name] = frames * ns / 1e6
+        print(f"timing: {name} {ms:.3f} ms over {frames} frames "
+              f"({1e3 * ms / frames:.3f} us a frame); chain floor "
+              f"{floors[name]:.4f} ms (" + " + ".join(
+                  f"{n:g} x {k}" for k, n in trips.items())
+              + f" a frame: {ns:.1f} ns); {card}")
+    print(f"timing: decodes " + "; ".join(f"{k} {v:.2f} ms"
+                                          for k, v in decodes.items()))
+
+    dcf, dP = graphs["V=32 dense"]
+    rng = np.random.default_rng(0)
+    lhs = torch.from_numpy(make_inputs(rng, 128, 700, dP)).to(dev)
+    lens = torch.full((128,), 700, dtype=torch.int32, device=dev)
+    prof = profile_device(lambda: mt.viterbi(dcf, lhs, lens))
+    if prof is None:
+        print(f"{label}: profile of the dense decode: not measured (no "
+              "device events recorded)")
+    else:
+        by_name, busy, span, counts = prof
+        print(f"{label}: profile of one dense decode B=128 N=700: device "
+              f"busy {busy:.3f} ms of a {span:.3f} ms span (idle "
+              f"{1 - busy / span:.1%}); " + "; ".join(
+                  f"{k} {v:.3f} ms ({counts[k]} launches)" for k, v in
+                  sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
+    return floors, slices
 
 
 def phase_f64_trop(dcf64, dP, dev, B=128, N=700, label="phase 43"):
@@ -5661,6 +5950,36 @@ def main():
     e54 = phase_noid_f32(cf, scf, P, sP, dev, card)
     r_errs["K7n"] = max(r_errs["K7n"], e54["K7n"])
     phase_ptxas(_build.PTXAS_LOG)
+
+    # ---- W2 and the walk redesigned, the sliced decode (phase 56) ---------
+    # the in-arc records, then the alphas, a gather of 32 scattered values
+    w2_trips = {"L2": 1, "device, warp gather (128 warps)": 1}
+    # the id, then the tier block and source in shared memory
+    walk_trips = {"device, frame stride": 1, "shared": 1}
+    phase_walks(
+        {"V=32 dense": (dcf, dP), "2M-arc": (cf, P),
+         "separate-state": (scf, sP), "V=32 dense f64": (dcf64, dP),
+         "2M-arc f64": (cf64, P)}, dev,
+        {"W2 (V=32 dense decode)": (d_times["W2"][0], 701, w2_trips),
+         "W2 (2M-arc N=1,024: one 64-frame chunk)": (b_times2["W2"][0], 64,
+                                                     w2_trips),
+         "W2 (separate-state N=1,024: one 64-frame chunk)": (
+             o_times2["W2"][0], 64, w2_trips),
+         "W2 float64 (V=32 dense decode)": (t64_times["W2"][0], 701,
+                                            w2_trips),
+         "W2 float64 (2M-arc N=1,024: one 64-frame chunk)": (
+             dec64_times["W2 chunk"][0], 64, w2_trips),
+         "walk (2M-arc decode)": (times["K7w"][0], 700, walk_trips),
+         "walk (separate-state decode, family tables)": (
+             o_times["K7w"][0], 700, walk_trips)},
+        {"2M-arc N=700 (phase 17)": t_dec,
+         "V=32 dense N=700 (phase 32, median of 5)": t_ddec,
+         "2M-arc N=1,024 (phase 33, median of 3)": t_bdec,
+         "separate-state N=1,024 (phase 37, median of 3)": t_odec,
+         **{f"{k} (phase 46, median of 5)": t46[k] for k in (
+             "2M-arc decode f32", "dense decode f32",
+             "2M-arc decode N=1,024 f32", "2M-arc decode f64",
+             "dense decode f64", "2M-arc decode N=1,024 f64")}}, card)
 
     block_src = "markovmodels_tpu_torch/ops/csrc/block_scan.cu"
     banded_src = "markovmodels_tpu_torch/ops/csrc/banded_scan.cu"

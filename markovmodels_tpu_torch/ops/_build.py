@@ -52,8 +52,8 @@ _SIGNATURES = {
     "mm_vit_ctas": [_I] * 5,
     "mm_vit_layout": [_I] * 3 + [_P],
     "mm_vit_smem": [_I] * 4,
-    "mm_vit_walk": [_P] * 8 + [_I] * 11 + [_P] * 2,
-    "mm_rec_walk": [_P] * 7 + [_I] * 7 + [_P] * 3,
+    "mm_vit_walk": [_P] * 8 + [_I] * 12 + [_P] * 2,
+    "mm_rec_walk": [_P] * 6 + [_I, _P] + [_I] * 7 + [_P] * 3,
 }
 
 

@@ -6,7 +6,8 @@
 // the band epilogue of vit_item()), and the walk of
 // markovmodels_tpu/viterbi.py's _viterbi_scale_bp, which the JAX package
 // leaves to XLA:
-//   mm_vit_walk    one thread per sequence.
+//   mm_vit_walk    the backtrace over the ids, its decode tables staged
+//                  in shared memory.
 // and, for the chunk-recompute decode of markovmodels_tpu/viterbi.py's
 // _viterbi_scale (XLA there: its fstep on _trop_prob_matvec's 'block' form):
 //   K7n mm_vit_fwd_noid  the same sweep without the ids (IDS = false): the
@@ -1809,43 +1810,133 @@ __global__ void __launch_bounds__(NT, VIT_BLOCKS)
   }
 }
 
-// The backtrace of one sequence per thread (viterbi._viterbi_scale_bp's
-// wstep): from the phony state at frame Nf-1 down to frame 1, decode the id
-// c of the current state s to its source: on a core row the tier source
-// (c < Sm), a band offset, or the out-family source ovout[s] (c = Sm + nO);
-// on an overflow row [ov_lo, ov_hi) ov_dec[s - ov_lo, c]; the phony state
-// for an id without a source (255, or -1 in a table).  At t == length the
-// source is the frame's omega argmax, past the length the phony state.
-// states[t-1, b] receives the state of frame t-1 (compiled numbering).
-__global__ void __launch_bounds__(WALK_THREADS) vit_walk_kernel(
-    const uint8_t* __restrict__ bps, const int* __restrict__ fins,
-    const int* __restrict__ lengths, const int* __restrict__ k_of,
-    const int* __restrict__ sidx, const int* __restrict__ offs,
-    const int* __restrict__ ov_dec, const int* __restrict__ ovout, int Nf,
-    int RW, int B, int Sp, int K, int Sm, int nO, int fin, int ov_lo,
-    int ov_hi, int n_dec, int* __restrict__ states) {
+// The backtrace (viterbi._viterbi_scale_bp's wstep): from the phony state
+// at frame Nf-1 down to frame 1, decode the id c of the current state s to
+// its source: on a core row the tier source (c < Sm), a band offset, or
+// the out-family source ovout[s] (c = Sm + nO); on an overflow row [ov_lo,
+// ov_hi) ov_dec[s - ov_lo, c]; the phony state for an id without a source
+// (255, or -1 in a table).  At t == length the source is the frame's omega
+// argmax, past the length the phony state.  states[t-1, b] receives the
+// state of frame t-1 (compiled numbering).
+//
+// What bounds it on the card: a chain of dependent loads per sequence, one
+// frame's id before the next frame's address is known; bytes are nothing
+// (one id, a few table words a frame).  A walk over global tables, one
+// thread per sequence, reads per frame the id from device memory (the
+// 4.4 GB id stream) beside k_of[s], then sidx[k, c] from L1 or L2.  The
+// design:
+//   * the decode tables live in the CTA's shared memory: the tier sources
+//     sidx (K*Sm int32) and each state's tier block kt, clamped to
+//     [0, K-1] by the host and narrowed to KT (uint8 where K <= 256,
+//     uint16 where K <= 65,536), and the band offsets, staged once per CTA
+//     through cp.async where they fit (else read where they lie: STAGED
+//     false); ov_dec and ovout, which do not fit beside them, stay in
+//     global memory.  A frame's chain is then the id (device memory), with
+//     kt[s] read beside it, and sidx in shared memory;
+//   * one thread per sequence, one CTA stages the tables for 128.
+// A warp per sequence that fetched a frame ahead (with the state of frame
+// t, the ids at t - 1 of every source its id may decode to: two frames per
+// device-memory round trip) was tried and read 2x slower: its wait is on
+// the last of ~131 scattered ids (PERF.md §6).
+template <class KT>
+struct WalkArgs {
+  const uint8_t* bps;
+  const int* fins;
+  const int* lengths;
+  const KT* kt;
+  const int* sidx;
+  const int* offs;
+  const int* ov_dec;
+  const int* ovout;
+  int Nf, RW, B, Sp, K, Sm, nO, fin, ov_lo, ov_hi;
+  int* states;
+};
+
+__host__ __device__ constexpr size_t up16(size_t n) {
+  return (n + 15) / 16 * 16;
+}
+
+// Shared memory of the staged tables: sidx, kt, offs, each 16-aligned.
+template <class KT>
+size_t walk_smem_bytes(int K, int Sm, int Sp, int nO) {
+  return up16(4 * static_cast<size_t>(K) * Sm) +
+         up16(sizeof(KT) * static_cast<size_t>(Sp)) +
+         up16(4 * static_cast<size_t>(nO > 0 ? nO : 1));
+}
+
+// n bytes from global to shared memory (16-aligned at both ends) by the
+// CTA's threads, through cp.async: every copy in flight at once.
+__device__ void cta_copy(unsigned char* dst, const void* src, size_t n) {
+  const unsigned char* g = static_cast<const unsigned char*>(src);
+  for (size_t i = threadIdx.x; i < n / 16; i += blockDim.x)
+    cp_async16(dst + 16 * i, g + 16 * i, true);
+  for (size_t i = n / 16 * 16 + threadIdx.x; i < n; i += blockDim.x)
+    dst[i] = g[i];
+}
+
+// The source of state s (sc its clamp to [0, Sp), k its tier block) under
+// id c.
+template <class KT>
+__device__ __forceinline__ int walk_decode(const WalkArgs<KT>& p,
+                                           const int* sidx, const int* offs,
+                                           int s, int sc, int k, int c) {
+  int src = c < p.Sm
+                ? sidx[k * p.Sm + max(c, 0)]
+                : s - offs[min(c - p.Sm, (p.nO > 0 ? p.nO : 1) - 1)];
+  if (c == p.Sm + p.nO) {
+    const int o = __ldg(p.ovout + sc);
+    src = o >= 0 ? o : p.fin;
+  }
+  if (s >= p.ov_lo && s < p.ov_hi) {
+    const int od =
+        __ldg(p.ov_dec + static_cast<size_t>(s - p.ov_lo) * 256 + c);
+    src = od >= 0 ? od : p.fin;
+  }
+  if (c == NO_CAND) src = p.fin;
+  return src;
+}
+
+// One thread per sequence.  STAGED: the tables in the CTA's shared memory
+// (staged once, every thread taking part before any leaves), else read
+// where they lie.
+template <class KT, bool STAGED>
+__global__ void __launch_bounds__(WALK_THREADS)
+    vit_walk_kernel(const WalkArgs<KT> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const size_t ns = up16(4 * static_cast<size_t>(p.K) * p.Sm);
+  const size_t nk = up16(sizeof(KT) * static_cast<size_t>(p.Sp));
+  if constexpr (STAGED) {
+    cta_copy(smem_raw, p.sidx, 4 * static_cast<size_t>(p.K) * p.Sm);
+    cta_copy(smem_raw + ns, p.kt, sizeof(KT) * static_cast<size_t>(p.Sp));
+    cta_copy(smem_raw + ns + nk, p.offs, 4 * static_cast<size_t>(
+                                             p.nO > 0 ? p.nO : 1));
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  const int* sidx =
+      STAGED ? reinterpret_cast<const int*>(smem_raw) : p.sidx;
+  const KT* kt = STAGED ? reinterpret_cast<const KT*>(smem_raw + ns) : p.kt;
+  const int* offs =
+      STAGED ? reinterpret_cast<const int*>(smem_raw + ns + nk) : p.offs;
   const int b = blockIdx.x * WALK_THREADS + threadIdx.x;
-  if (b >= B) return;
-  const int L = lengths[b];
-  const int nOff = nO > 0 ? nO : 1;
-  int s = fin;
-  for (int t = Nf - 1; t >= 1; --t) {
-    const int c =
-        s < RW ? bps[(static_cast<size_t>(t) * RW + s) * B + b] : NO_CAND;
-    const int sc = min(max(s, 0), Sp - 1);
-    const int ks = min(max(k_of[sc], 0), K - 1);
-    const int tier_src = sidx[ks * Sm + min(max(c, 0), Sm - 1)];
-    const int band_src = s - offs[min(max(c - Sm, 0), nOff - 1)];
-    int src = c < Sm ? tier_src : band_src;
-    if (c == Sm + nO) src = ovout[sc] >= 0 ? ovout[sc] : fin;
-    if (s >= ov_lo && s < ov_hi) {
-      const int od = ov_dec[static_cast<size_t>(s - ov_lo) * 256 + c];
-      src = od >= 0 ? od : fin;
+  if (b >= p.B) return;
+  const size_t B = p.B;
+  const int L = p.lengths[b];
+  int s = p.fin;
+  for (int t = p.Nf - 1; t >= 1; --t) {
+    int sp = p.fin;  // past the length
+    if (t == L) {
+      sp = p.fins[t * B + b];
+    } else if (t < L) {
+      const int sc = min(max(s, 0), p.Sp - 1);
+      const int k = static_cast<int>(kt[sc]);  // beside the id's load
+      const int c = s < p.RW
+                        ? p.bps[(static_cast<size_t>(t) * p.RW + s) * B + b]
+                        : NO_CAND;
+      sp = walk_decode(p, sidx, offs, s, sc, k, c);
     }
-    if (c == NO_CAND) src = fin;
-    int sp = t == L ? fins[static_cast<size_t>(t) * B + b] : src;
-    if (t > L) sp = fin;
-    states[static_cast<size_t>(t - 1) * B + b] = sp;
+    p.states[(t - 1) * B + b] = sp;
     s = sp;
   }
 }
@@ -2170,24 +2261,61 @@ extern "C" int mm_vit_fwd_noid(
 }
 
 // The walk over ids (Nf, RW, B) and fins (Nf, B) into states (Nf-1, B).
-// ov_dec (n_dec, 256): the sources of the overflow rows [ov_lo, ov_hi)
-// (n_dec = ov_hi - ov_lo; ov_lo = ov_hi = Sp and one row of -1 without
-// families); ovout (Sp,): the core rows' out-family sources, -1 for none.
+// kt (Sp,) each state's tier block clamped to [0, K-1], kbytes (1, 2 or
+// 4) bytes an entry (uint8, uint16, int32); sidx (K*Sm,) the tier sources;
+// offs (max(nO, 1),) the band offsets; ov_dec (n_dec, 256): the sources of
+// the overflow rows [ov_lo, ov_hi) (n_dec = ov_hi - ov_lo; ov_lo = ov_hi =
+// Sp and one row of -1 without families); ovout (Sp,): the core rows'
+// out-family sources, -1 for none.
+template <class KT>
+int vit_walk(const uint8_t* bps, const int* fins, const int* lengths,
+             const void* kt, const int* sidx, const int* offs,
+             const int* ov_dec, const int* ovout, int Nf, int RW, int B,
+             int Sp, int K, int Sm, int nO, int fin, int ov_lo, int ov_hi,
+             int* states, cudaStream_t stream) {
+  const WalkArgs<KT> p{bps, fins, lengths, static_cast<const KT*>(kt), sidx,
+                       offs, ov_dec, ovout, Nf, RW, B, Sp, K, Sm, nO, fin,
+                       ov_lo, ov_hi, states};
+  const size_t smem = walk_smem_bytes<KT>(K, Sm, Sp, nO);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (B + WALK_THREADS - 1) / WALK_THREADS;
+  if constexpr (sizeof(KT) < 4) {  // an int32 table never fits
+    if (smem <= static_cast<size_t>(optin)) {
+      err = cudaFuncSetAttribute(vit_walk_kernel<KT, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      vit_walk_kernel<KT, true><<<grid, WALK_THREADS, smem, stream>>>(p);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  vit_walk_kernel<KT, false><<<grid, WALK_THREADS, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int mm_vit_walk(const uint8_t* bps, const int* fins,
-                           const int* lengths, const int* k_of,
+                           const int* lengths, const void* kt,
                            const int* sidx, const int* offs,
                            const int* ov_dec, const int* ovout, int Nf,
                            int RW, int B, int Sp, int K, int Sm, int nO,
                            int fin, int ov_lo, int ov_hi, int n_dec,
-                           int* states, void* stream) {
+                           int kbytes, int* states, void* stream) {
   if (Nf <= 0 || RW <= 0 || B <= 0 || Sp < RW || K <= 0 || Sm <= 0 ||
       nO < 0 || fin < 0 || fin >= Sp || ov_lo < 0 || ov_lo > ov_hi ||
-      ov_hi > Sp || n_dec < ov_hi - ov_lo || n_dec <= 0)
+      ov_hi > Sp || n_dec < ov_hi - ov_lo || n_dec <= 0 ||
+      (kbytes == 1 && K > 256) || (kbytes == 2 && K > 65536) ||
+      (kbytes != 1 && kbytes != 2 && kbytes != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Nf == 1) return static_cast<int>(cudaSuccess);
-  vit_walk_kernel<<<(B + WALK_THREADS - 1) / WALK_THREADS, WALK_THREADS, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      bps, fins, lengths, k_of, sidx, offs, ov_dec, ovout, Nf, RW, B, Sp, K,
-      Sm, nO, fin, ov_lo, ov_hi, n_dec, states);
-  return static_cast<int>(cudaGetLastError());
+  auto run = kbytes == 1   ? &vit_walk<uint8_t>
+             : kbytes == 2 ? &vit_walk<uint16_t>
+                           : &vit_walk<int>;
+  return run(bps, fins, lengths, kt, sidx, offs, ov_dec, ovout, Nf, RW, B,
+             Sp, K, Sm, nO, fin, ov_lo, ov_hi, states,
+             static_cast<cudaStream_t>(stream));
 }

@@ -20,10 +20,11 @@ probability state in the max-product semiring:
   group g takes its in-families at [0, C_g) and its bands at C_g + oi
   (``blocked._ov_cand_layout``), the rows with many terms get a work item
   each, and every row's emission comes from its own pdf;
-* ``walk``: the backtrace, one thread per sequence, decoding the ids to
-  source states through the tier's destination inverse and the band
-  offsets, and with families through the tables ``ov_dec`` and
-  ``ovout`` (the JAX package leaves this walk to XLA).
+* ``walk``: the backtrace, decoding the ids to source states through the
+  tier's destination inverse and the band offsets, and with families
+  through the tables ``ov_dec`` and ``ovout`` (the JAX package leaves this
+  walk to XLA); the tier sources and the narrowed tier-block table ``kt``
+  staged in each CTA's shared memory.
 
 and for the chunk-recompute decode (``markovmodels_tpu/viterbi.py``'s
 ``_viterbi_scale``, XLA there), which takes every 'dense' graph and the
@@ -39,7 +40,14 @@ and for the chunk-recompute decode (``markovmodels_tpu/viterbi.py``'s
   of frame t is the best in-arc source of the state of frame t + 1 under
   the frame's alphas (log α + w over the dst-sorted edge list, ties to the
   largest position), the ω arc's source at t = L - 1, the phony state past
-  the length.  Shared with the 'dense' decode (ops/dense_scan.py K6t).
+  the length.  It reads packed tables (``RecWalkTables.rec``, ``rows``,
+  ``sup``): per frame one round of in-arc records, then their alphas, and
+  the ω argmax over the ω support.  Shared with the 'dense' decode
+  (ops/dense_scan.py K6t).
+
+K7's and K7n's CTA keeps two rows of B values in shared memory: a launch
+past :func:`max_batch` raises, and ``viterbi`` decodes such a batch in
+slices of at most that many sequences.
 
 The CUDA sources are ``csrc/vit_scan.cu``; ``_build.py`` compiles them with
 nvcc at first use.  Each wrapper takes its plain twin for CPU tensors and
@@ -240,6 +248,25 @@ def smem_bytes(B: int, ids: bool = True, fam: bool = False,
     return -(-n // 8) * 8 + 2 * B * w
 
 
+def max_batch(ids: bool = True, fam: bool = False, f64: bool = False) -> int:
+    """The largest batch whose CTA of K7 (``ids``) or K7n takes at most the
+    card's 227 KB of shared memory (:func:`smem_bytes`): the columns of one
+    slice of the decode past it (``viterbi._viterbi_scale``)."""
+    return (_SMEM_CTA - smem_bytes(0, ids, fam, f64)) // (16 if f64 else 8)
+
+
+def _check_batch(B: int, ids: bool, fam: bool, f64: bool):
+    """A launch of K7 or K7n past :func:`max_batch` raises: its two rows
+    of B values would not fit the CTA's shared memory (the decode runs such
+    a batch in slices)."""
+    most = max_batch(ids, fam, f64)
+    if B > most:
+        raise ValueError(
+            f"shared memory of a CTA at B = {B} ~"
+            f"{smem_bytes(B, ids, fam, f64)} bytes exceeds the card's "
+            f"{_SMEM_CTA}: decode in slices of at most {most} columns")
+
+
 def _device_bytes(cf, B: int, n_frames: int, saved=None) -> int:
     """Device bytes of one K7 sweep, every buffer sized by its dtype: the
     uint8 id stream (K7n: ``saved`` frames of state and scale instead),
@@ -301,9 +328,8 @@ def vit_scan_admission(cf, B: int, *, n_frames: int | None = None,
     the predicates on the ids' range are skipped and the working set
     counts the saved states in place of the ids.  A float64 graph takes
     the float64 instantiation (the JAX package's K7 refuses it, its XLA
-    route decodes it).  The CTA's shared memory at batch ``B``
-    (:func:`smem_bytes`) must fit the card's 227 KB (the port's own
-    predicate: the JAX package has its VMEM budget instead)."""
+    route decodes it).  No batch is refused for the CTA's shared memory:
+    ``viterbi`` decodes a batch past :func:`max_batch` in slices."""
     reason, shared = bs.block_scan_admission(
         cf, B, tier_dtype=_vit_dtype(cf), tropical=True)
     if reason is not None:
@@ -318,11 +344,6 @@ def vit_scan_admission(cf, B: int, *, n_frames: int | None = None,
                 "do not fit a uint8"), True
     if not (pf["K"] % _VIT_KC == 0 or pf["K"] < _VIT_KC):
         return f"{pf['K']} tier blocks not a multiple of {_VIT_KC}", True
-    smem = smem_bytes(B, ids=saved is None, fam=bool(cf.ov_layout),
-                      f64=_vit_dtype(cf) == torch.float64)
-    if smem > _SMEM_CTA:
-        return (f"shared memory of a CTA at B = {B} ~{smem} bytes exceeds "
-                f"the card's {_SMEM_CTA}"), False
     if (device is not None and n_frames is not None
             and torch.device(device).type == "cuda"
             and torch.cuda.is_available()):
@@ -668,6 +689,10 @@ class WalkTables(NamedTuple):
     fin: int
     ov_lo: int  # the overflow rows [ov_lo, ov_hi) of a graph with
     ov_hi: int  # families (Sp, Sp: none)
+    # k_of clamped to [0, K - 1] and narrowed as the kernel stages it in
+    # shared memory: uint8 where K <= 256, else uint16 (its bits in an
+    # int16 tensor) where K <= 65,536, else int32
+    kt: torch.Tensor
 
 
 def _ov_decode_tables(cf, Sp: int):
@@ -708,6 +733,19 @@ def _ov_decode_tables(cf, Sp: int):
     return dec.astype(np.int32), oo.astype(np.int32)
 
 
+def _narrow_k(k_of: np.ndarray, K: int) -> np.ndarray:
+    """k_of clamped to [0, K - 1] (a state no tier block writes, -1, reads
+    block 0, as the walk's ``max(k_of, 0)`` does), then narrowed: uint8
+    for K <= 256, uint16 for K <= 65,536 (as int16, which torch stores),
+    else int32."""
+    k = np.clip(k_of, 0, K - 1)
+    if K <= 256:
+        return k.astype(np.uint8)
+    if K <= 65536:
+        return k.astype(np.uint16).view(np.int16)
+    return k.astype(np.int32)
+
+
 def walk_tables(cf) -> WalkTables:
     """The walk's decode tables for a graph the compressed-backpointer
     decode admits (cached on it)."""
@@ -728,8 +766,9 @@ def walk_tables(cf) -> WalkTables:
             ov_lo = span[0]
             ov_hi = ov_lo + span[1] * span[2]
             dec, oo = _ov_decode_tables(cf, Sp)
+        k_of = tier_dst_inverse(cf.block_fwd, Sp)
         wt = WalkTables(
-            k_of=torch.from_numpy(tier_dst_inverse(cf.block_fwd, Sp)).to(dev),
+            k_of=torch.from_numpy(k_of).to(dev),
             sidx=sidx.reshape(-1).to(device=dev, dtype=torch.int32)
             .contiguous(),
             offs=torch.from_numpy(offs if nO else np.zeros(1, np.int32))
@@ -737,7 +776,7 @@ def walk_tables(cf) -> WalkTables:
             ov_dec=torch.from_numpy(dec).to(dev),
             ovout=torch.from_numpy(oo).to(dev),
             K=K, Sm=Sm, nO=nO, fin=int(cf.final_state), ov_lo=ov_lo,
-            ov_hi=ov_hi,
+            ov_hi=ov_hi, kt=torch.from_numpy(_narrow_k(k_of, K)).to(dev),
         )
         cf._cache["vit_walk"] = wt
     return wt
@@ -804,6 +843,7 @@ def viterbi_fwd(cf, ext, mshift, *, ids: bool = True, a0=None, s0=None,
     _check_graph(cf, B, Nf - 1, dev)
     vdt = _vit_dtype(cf)
     f64 = vdt == torch.float64
+    _check_batch(B, True, bool(cf.ov_layout), f64)
     kop = bs.kernel_operator(cf, vdt)  # f32 panels on any float32 graph
     Sp, RW = kop.Sp, _main_region(cf)
     bs._check_op(kop, kop.fwd, dev, vdt)
@@ -853,6 +893,7 @@ def _noid_fwd(cf, ext, mshift, *, a0, s0, t0, stride, acc):
     _check_graph(cf, B, Nf - 1, dev, saved=n_save)
     vdt = _vit_dtype(cf)
     f64 = vdt == torch.float64
+    _check_batch(B, False, bool(cf.ov_layout), f64)
     kop = bs.kernel_operator(cf, vdt)
     Sp, RW = kop.Sp, _main_region(cf)
     bs._check_op(kop, kop.fwd, dev, vdt)
@@ -915,13 +956,16 @@ def walk(wt: WalkTables, bps, fins, lengths):
     if wt.ov_dec.shape[1] != 256 or wt.ovout.shape != (Sp,):
         raise ValueError(f"ov_dec {tuple(wt.ov_dec.shape)}, ovout "
                          f"{tuple(wt.ovout.shape)} for {Sp} states")
+    kb = _narrow_k(np.zeros(0, np.int32), wt.K).itemsize
+    bs._check("kt", wt.kt, (Sp,), dev,
+              {1: torch.uint8, 2: torch.int16, 4: torch.int32}[kb])
     states = torch.empty((Nf - 1, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _build.library().mm_vit_walk(
-            bs._p(bps), bs._p(fins), bs._p(lengths), bs._p(wt.k_of),
+            bs._p(bps), bs._p(fins), bs._p(lengths), bs._p(wt.kt),
             bs._p(wt.sidx), bs._p(wt.offs), bs._p(wt.ov_dec),
             bs._p(wt.ovout), Nf, RW, B, Sp, wt.K, wt.Sm, wt.nO, wt.fin,
-            wt.ov_lo, wt.ov_hi, wt.ov_dec.shape[0], bs._p(states),
+            wt.ov_lo, wt.ov_hi, wt.ov_dec.shape[0], kb, bs._p(states),
             bs._stream(dev),
         )
     bs._raise_on(rc, "mm_vit_walk")
@@ -943,6 +987,13 @@ class RecWalkTables(NamedTuple):
     omega: torch.Tensor  # (Sp,) probabilities of the arcs into fin
     dmax: int  # in-arcs a state takes: the largest in-degree but fin's
     fin: int
+    # W2's packed forms (:func:`_w2_tables`; built from the fields above
+    # where None): each edge's (src, w) record, each state's (begin, count
+    # <= dmax) pair in them (count 0 for fin), and the (state, omega)
+    # records of the states with omega != 0, in ascending order
+    rec: torch.Tensor | None = None  # (E, 2) int32; float64: (E, 4)
+    rows: torch.Tensor | None = None  # (Sp, 2) int32
+    sup: torch.Tensor | None = None  # (nS, 2) int32; float64: (nS, 4)
 
 
 def rec_walk_tables(cf) -> RecWalkTables:
@@ -970,8 +1021,38 @@ def rec_walk_tables(cf) -> RecWalkTables:
             w=cf.fwd_w.to(device=dev, dtype=dt).contiguous(),
             omega=omega.to(dt).contiguous(),
             dmax=max(int(indeg.max()), 1), fin=fin)
+        wt = wt._replace(**_w2_tables(wt))
         cf._cache["rec_walk"] = wt
     return wt
+
+
+def _records(idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """W2's packed records: (n, 2) int32 rows (index, the float32 value's
+    bits), or for float64 values (n, 4) rows (index, 0, the value's low
+    and high words), as ``csrc/rec_walk.cu`` load_rec reads them."""
+    n = idx.shape[0]
+    if val.dtype == torch.float64:
+        out = torch.zeros((n, 4), dtype=torch.int32, device=idx.device)
+        out[:, 2:] = val.contiguous().view(torch.int32).view(n, 2)
+    else:
+        out = torch.empty((n, 2), dtype=torch.int32, device=idx.device)
+        out[:, 1] = val.contiguous().view(torch.int32)
+    out[:, 0] = idx
+    return out
+
+
+def _w2_tables(wt: RecWalkTables) -> dict:
+    """The packed tables W2 reads (``rec``, ``rows``, ``sup``) from the
+    plain ones: per state the begin of its in-arcs and their count
+    min(in-degree, dmax), 0 for fin (what ``rec_walk_plain`` reads from
+    ``rowptr``); the ω support in ascending state order."""
+    rowptr = wt.rowptr.long()
+    cnt = (rowptr[1:] - rowptr[:-1]).clamp(max=wt.dmax)
+    cnt[wt.fin] = 0
+    rows = torch.stack([rowptr[:-1], cnt], dim=1).to(torch.int32)
+    sj = torch.nonzero(wt.omega != 0)[:, 0].to(torch.int32)
+    return dict(rec=_records(wt.src, wt.w), rows=rows.contiguous(),
+                sup=_records(sj, wt.omega[sj.long()]))
 
 
 def rec_walk_plain(wt: RecWalkTables, states, scales, lengths, t0: int,
@@ -1045,13 +1126,19 @@ def rec_walk(wt: RecWalkTables, states, scales, lengths, t0: int, s_next):
     if wt.rowptr.shape != (Sp + 1,) or t0 < 0:
         raise ValueError(f"rowptr {tuple(wt.rowptr.shape)} for {Sp} states, "
                          f"t0 {t0}")
+    if wt.rec is None:  # tables made by hand: pack them here
+        wt = wt._replace(**_w2_tables(wt))
+    nw = 4 if f64 else 2
+    bs._check("rec", wt.rec, (wt.src.shape[0], nw), dev, torch.int32)
+    bs._check("rows", wt.rows, (Sp, 2), dev, torch.int32)
+    bs._check("sup", wt.sup, (wt.sup.shape[0], nw), dev, torch.int32)
     out = torch.empty((nK, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _build.library().mm_rec_walk(
-            bs._p(states), bs._p(scales), bs._p(lengths), bs._p(wt.rowptr),
-            bs._p(wt.src), bs._p(wt.w), bs._p(wt.omega), nK, t0, Sp, B,
-            wt.dmax, wt.fin, int(f64), bs._p(s_next), bs._p(out),
-            bs._stream(dev),
+            bs._p(states), bs._p(scales), bs._p(lengths), bs._p(wt.rows),
+            bs._p(wt.rec), bs._p(wt.sup), wt.sup.shape[0], bs._p(wt.omega),
+            nK, t0, Sp, B, wt.dmax, wt.fin, int(f64), bs._p(s_next),
+            bs._p(out), bs._stream(dev),
         )
     bs._raise_on(rc, "mm_rec_walk")
     _counts(f64)["rec_walk"] += 1

@@ -38,6 +38,12 @@ for 'dense' and 'block' graphs the at-scale routes (``_viterbi_scale``):
   With one chunk the port keeps the first sweep's alphas instead of
   sweeping again (the JAX package recomputes them, the same values).
 
+On the card a batch past the largest that K7's or K7n's CTA holds in
+shared memory (``vit_scan.max_batch``) is decoded in slices of that many
+sequences, on the route and chunk that the whole batch takes (the JAX
+package answers it in one piece: the sequences are independent, so the
+answer is the same).
+
 CPU tensors take the plain PyTorch twins.  The decode is the same in
 both domains: a log-domain graph compiles to the same arrays, and the
 rescaled max recursion is exact, so it takes the same kernels (JAX's K7
@@ -337,20 +343,52 @@ def _viterbi_recompute(cf: CompiledFSM, lhs, lengths, chunk_size=None):
     return cf.orig_state[path[:N].long()].T.contiguous(), score
 
 
-def _viterbi_scale(cf: CompiledFSM, lhs, lengths, chunk_size=None):
+def _slice_width(cf: CompiledFSM, lhs, bp: bool) -> int:
+    """The sequences a decode on the card takes at once: for a 'block'
+    graph on the kernels' route the largest batch whose K7 (``bp``) or K7n
+    CTA fits the card's shared memory (``vit_scan.max_batch``), else the
+    whole batch (the CPU, a general Ĉ, a 'dense' graph)."""
+    if lhs.device.type != "cuda" or cf.strategy != "block" or cf.multi_pdf:
+        return lhs.shape[0]
+    return vit_scan.max_batch(bp, bool(cf.ov_layout),
+                              vit_scan._vit_dtype(cf) == torch.float64)
+
+
+def _by_slices(decode, lhs, lengths, width: int):
+    """``decode(lhs, lengths)`` over slices of at most ``width`` sequences
+    (views of the caller's tensors), the states and scores concatenated:
+    the sequences are independent, so the slices give the unsliced
+    answer."""
+    B = lhs.shape[0]
+    if B <= width:
+        return decode(lhs, lengths)
+    parts = [decode(lhs[b:b + width], lengths[b:b + width])
+             for b in range(0, B, width)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
+def _viterbi_scale(cf: CompiledFSM, lhs, lengths, chunk_size=None,
+                   width=None):
     """'dense' / 'block' graphs: the compressed-backpointer decode where it
     applies, the chunk-recompute decode otherwise (a 'block' graph that
     leaves the first route logs the reason once, as the JAX package
-    does)."""
+    does).  The route, and the recompute decode's chunk, are the whole
+    batch's; the route then runs over slices of at most ``width``
+    sequences (by default :func:`_slice_width`: a batch past K7's or K7n's
+    shared memory is decoded in slices on the card)."""
     reason = _bp_vit_reject_reason(cf, lhs)
     if reason is None:
-        return _viterbi_scale_bp(cf, lhs, lengths)
+        return _by_slices(lambda x, n: _viterbi_scale_bp(cf, x, n), lhs,
+                          lengths, width or _slice_width(cf, lhs, True))
     logged = cf._cache.setdefault("vit_recompute_logged", set())
     if cf.strategy == "block" and reason not in logged:
         logged.add(reason)
         _LOG.warning("block-strategy Viterbi fell back to chunk-recompute: "
                      "%s", reason)
-    return _viterbi_recompute(cf, lhs, lengths, chunk_size)
+    K = _chunk_frames(cf, lhs, chunk_size)
+    return _by_slices(lambda x, n: _viterbi_recompute(cf, x, n, K), lhs,
+                      lengths, width or _slice_width(cf, lhs, False))
 
 
 def _trop_forward(cf: CompiledFSM, lhs, lengths, keep, arg=True):

@@ -533,22 +533,26 @@ def test_shared_memory_reckoning(ids, fam, f64):
 
 
 def test_admission_refuses_a_batch_past_the_shared_memory():
-    """K7 and K7n refuse a batch whose two rows of B values take a CTA's
-    shared memory past the card's 227 KB: the port's own predicate (the
-    JAX package has its VMEM budget instead), so the card raises rather
-    than taking the plain route; the largest batch that fits passes."""
+    """K7 and K7n refuse to launch a batch whose two rows of B values take
+    a CTA's shared memory past the card's 227 KB (``_check_batch``, the
+    port's own limit: the JAX package has its VMEM budget instead); the
+    largest batch that fits, ``max_batch``, launches.  The admission no
+    longer refuses such a batch: ``viterbi`` decodes it in slices of at
+    most ``max_batch`` sequences."""
     ct = _graph_2m()
     for saved in (None, 4):
         ids = saved is None
         base = vs.smem_bytes(0, ids, False, False)
         fit = (vs._SMEM_CTA - base) // 8
+        assert vs.max_batch(ids) == fit
         assert vs.smem_bytes(fit, ids) <= vs._SMEM_CTA
         assert vs.smem_bytes(fit + 1, ids) > vs._SMEM_CTA
-        assert vs.vit_scan_admission(ct, fit, n_frames=7,
-                                     saved=saved) == (None, True)
-        reason, shared = vs.vit_scan_admission(ct, fit + 1, n_frames=7,
-                                               saved=saved)
-        assert "shared memory" in reason and shared is False
+        vs._check_batch(fit, ids, False, False)
+        with pytest.raises(ValueError, match="shared memory"):
+            vs._check_batch(fit + 1, ids, False, False)
+        for B in (fit, fit + 1):
+            assert vs.vit_scan_admission(ct, B, n_frames=7,
+                                         saved=saved) == (None, True)
 
 
 # ---------------------------------------------------------------------------
